@@ -1,0 +1,110 @@
+"""Builds the package's CUDA kernels at first use and binds them with ctypes.
+
+`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+interface under `_build/`, named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads the library already there.
+Nothing here runs at import time: the library is built by the first call of
+`library()`, which only happens when a kernel is launched on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # n, z, y, x, ca, cb, cout, coutp, bn -> workspace bytes (-1: bad sizes)
+    "mt_conv3d_workspace": ([_I] * 9, _L),
+    # x, w, bias, out, ws, ws_bytes, n, z, y, x, cin, cout, coutp, bn, stream
+    "mt_conv3d_same": ([_P, _P, _P, _P, _P, _L] + [_I] * 8 + [_P], _I),
+    # a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, bn,
+    # stream
+    "mt_conv3d_same_dual": ([_P, _P, _P, _P, _P, _P, _L] + [_I] * 9 + [_P], _I),
+    "mt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from $CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin, default "
+        "/usr/local/cuda/bin): the CUDA kernels of multitalent_tpu_torch are "
+        "built from source at first use and need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Raises RuntimeError with nvcc's output when the build fails."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a private name, then rename: concurrent builders never load a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {code} "
+                           f"({lib.mt_error_string(code).decode()})")

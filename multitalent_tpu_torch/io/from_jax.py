@@ -1,0 +1,63 @@
+"""Weight bridge: the JAX package's flax GenericUNet params -> the port's state dict.
+
+The inverse of multitalent_tpu/io/torch_convert.convert_generic_unet_state_dict
+(see that module for the key table). It undoes, once each:
+
+- the (O, I, kz, ky, kx) -> (kz, ky, kx, I, O) transpose of conv kernels
+  (torch_convert.py:30-33), and
+- the (I, O, k...) -> (k..., I, O) transpose plus the spatial flip of
+  transposed-conv kernels (torch_convert.py:36-42).
+
+Input leaves are numpy arrays (jax.device_get of the params tree); the
+result is a dict of float32 torch tensors for GenericUNet.load_state_dict.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _conv_weight(k: np.ndarray) -> np.ndarray:
+    """(*k, I, O) -> (O, I, *k)"""
+    nd = k.ndim - 2
+    return np.transpose(k, (nd + 1, nd) + tuple(range(nd)))
+
+
+def _transpconv_weight(k: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose (*k, I, O), spatially flipped -> torch (I, O, *k)"""
+    nd = k.ndim - 2
+    k = k[(slice(None, None, -1),) * nd]
+    return np.transpose(k, (nd, nd + 1) + tuple(range(nd)))
+
+
+def generic_unet_state_dict_from_flax(params: dict, num_pool: int,
+                                      conv_per_stage: int = 2) -> dict:
+    """Nested flax param dict of multitalent_tpu GenericUNet -> torch state
+    dict with the reference Generic_UNet keys."""
+    sd: dict[str, np.ndarray] = {}
+
+    def block(flax_node: dict, prefix: str) -> None:
+        sd[f"{prefix}.conv.weight"] = _conv_weight(np.asarray(flax_node["conv"]["kernel"]))
+        sd[f"{prefix}.conv.bias"] = np.asarray(flax_node["conv"]["bias"])
+        sd[f"{prefix}.instnorm.weight"] = np.asarray(flax_node["norm"]["scale"])
+        sd[f"{prefix}.instnorm.bias"] = np.asarray(flax_node["norm"]["bias"])
+
+    last = conv_per_stage - 1
+    for d in range(num_pool):
+        for i in range(conv_per_stage):
+            block(params[f"enc{d}"][f"block{i}"], f"conv_blocks_context.{d}.blocks.{i}")
+    for i in range(last):
+        block(params["bottleneck"][f"block{i}"],
+              f"conv_blocks_context.{num_pool}.0.blocks.{i}")
+    block(params["bottleneck"][f"block{last}"],
+          f"conv_blocks_context.{num_pool}.1.blocks.0")
+    for u in range(num_pool):
+        sd[f"tu.{u}.weight"] = _transpconv_weight(np.asarray(params[f"up{u}"]["kernel"]))
+        for i in range(last):
+            block(params[f"dec{u}"][f"block{i}"],
+                  f"conv_blocks_localization.{u}.0.blocks.{i}")
+        block(params[f"dec{u}"][f"block{last}"],
+              f"conv_blocks_localization.{u}.1.blocks.0")
+        sd[f"seg_outputs.{u}.weight"] = _conv_weight(np.asarray(params[f"seg{u}"]["kernel"]))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}

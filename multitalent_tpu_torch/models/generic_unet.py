@@ -1,0 +1,132 @@
+"""GenericUNet: the plans-driven plain-conv U-Net, as an nn.Module.
+
+Counterpart of multitalent_tpu/models/generic_unet.py, laid out with the
+reference Generic_UNet's state-dict keys (generic_UNet.py:156-401, and as
+tests/test_torch_convert.py builds them), so a reference checkpoint loads as
+it is and io/torch_convert.convert_generic_unet_state_dict maps the same
+weights into the JAX package:
+
+  conv_blocks_context.{d}        encoder stage d < num_pool (StackedConvLayers)
+  conv_blocks_context.{P}        bottleneck: Sequential(StackedConvLayers of
+                                 conv_per_stage-1 convs, first strided;
+                                 StackedConvLayers of 1 conv)
+  tu.{u}                         ConvTranspose3d, kernel = stride = pool, no bias
+  conv_blocks_localization.{u}   Sequential(StackedConvLayers(2f -> f,
+                                 conv_per_stage-1); StackedConvLayers(f -> f, 1))
+  seg_outputs.{u}                1x1x1 Conv3d to num_classes, no bias
+
+The forward returns the full-resolution logits in fp32 (deep supervision off:
+inference only). Compute runs in `dtype` (bf16 for checkpoints trained with
+fp16, as training/multitalent.py:70-73) with fp32 parameters.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multitalent_tpu_torch.models.blocks import CL, StackedConvLayers
+
+
+def compute_stage_features(base_num_features: int, num_stages: int,
+                           max_num_features: int) -> list[int]:
+    return [min(base_num_features * 2 ** d, max_num_features) for d in range(num_stages)]
+
+
+class GenericUNet(nn.Module):
+    def __init__(self, input_channels: int, base_num_features: int, num_classes: int,
+                 pool_op_kernel_sizes, conv_kernel_sizes, conv_per_stage: int = 2,
+                 max_num_features: int = 320, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        pools = [tuple(int(k) for k in p) for p in pool_op_kernel_sizes]
+        kernels = [tuple(int(k) for k in c) for c in conv_kernel_sizes]
+        if conv_per_stage < 2:
+            raise ValueError("GenericUNet needs conv_per_stage >= 2")
+        self.num_pool = len(pools)
+        self.pool_op_kernel_sizes = pools
+        self.num_classes = num_classes
+        self.input_channels = input_channels
+        self.dtype = dtype
+        feats = compute_stage_features(base_num_features, self.num_pool + 1,
+                                       max_num_features)
+        self.features = feats
+
+        context = []
+        for d in range(self.num_pool):
+            context.append(StackedConvLayers(
+                input_channels if d == 0 else feats[d - 1], feats[d], conv_per_stage,
+                kernels[d], first_stride=pools[d - 1] if d > 0 else None))
+        p = self.num_pool
+        context.append(nn.Sequential(
+            StackedConvLayers(feats[p - 1], feats[p], conv_per_stage - 1, kernels[p],
+                              first_stride=pools[p - 1]),
+            StackedConvLayers(feats[p], feats[p], 1, kernels[p])))
+        self.conv_blocks_context = nn.ModuleList(context)
+
+        tu, loc, seg = [], [], []
+        for u in range(self.num_pool):
+            f_skip = feats[p - 1 - u]
+            f_below = feats[p - u]
+            pool = pools[p - 1 - u]
+            k = kernels[p - u]
+            tu.append(nn.ConvTranspose3d(f_below, f_skip, pool, pool, bias=False))
+            same3 = k == (3, 3, 3)
+            loc.append(nn.Sequential(
+                StackedConvLayers(2 * f_skip, f_skip, conv_per_stage - 1, k,
+                                  in_splits=(f_skip, f_skip) if same3 else None),
+                StackedConvLayers(f_skip, f_skip, 1, k)))
+            seg.append(nn.Conv3d(f_skip, num_classes, 1, bias=False))
+        self.tu = nn.ModuleList(tu)
+        self.conv_blocks_localization = nn.ModuleList(loc)
+        self.seg_outputs = nn.ModuleList(seg)
+
+    def kernel_launches_per_forward(self) -> dict[str, int]:
+        """Launches of each hand-written kernel that one forward makes."""
+        counts = {"conv3d_same": 0, "conv3d_same_dual": 0}
+        for m in self.modules():
+            kernel = getattr(m, "kernel", None)
+            if kernel is not None:
+                counts[kernel] += 1
+        return counts
+
+    def forward(self, x: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:
+        """x (N, C_in, Z, Y, X) -> full-resolution logits (N, K, Z, Y, X) fp32.
+        use_kernels=False runs the kernels' plain PyTorch versions instead."""
+        x = x.to(self.dtype).contiguous(memory_format=CL)
+        skips = []
+        for d in range(self.num_pool):
+            x = self.conv_blocks_context[d](x, use_kernels=use_kernels)
+            skips.append(x)
+        for stack in self.conv_blocks_context[self.num_pool]:
+            x = stack(x, use_kernels=use_kernels)
+        for u in range(self.num_pool):
+            tu = self.tu[u]
+            x = F.conv_transpose3d(x, tu.weight.to(self.dtype), None, tu.stride)
+            x = x.contiguous(memory_format=CL)
+            skip = skips[self.num_pool - 1 - u]
+            first, rest = self.conv_blocks_localization[u]
+            if first.blocks[0].kernel == "conv3d_same_dual":
+                x = first(x, skip, use_kernels=use_kernels)
+            else:
+                x = first(torch.cat((x, skip), 1), use_kernels=use_kernels)
+            x = rest(x, use_kernels=use_kernels)
+        head = self.seg_outputs[-1]
+        return F.conv3d(x, head.weight.to(self.dtype)).float()
+
+
+def build_unet_from_plans(plans, stage: int, num_classes: int | None = None,
+                          dtype: torch.dtype = torch.bfloat16) -> GenericUNet:
+    """GenericUNet for one resolution stage of a multitalent_tpu Plans object
+    (the wiring of multitalent_tpu/models/generic_unet.build_unet_from_plans)."""
+    st = plans.stage(stage)
+    if len(st.patch_size) != 3:
+        raise NotImplementedError("the port runs 3D plans only (2D GenericUNet: "
+                                  "ROADMAP queue 1, item 10)")
+    return GenericUNet(
+        input_channels=plans.num_modalities,
+        base_num_features=plans.base_num_features,
+        num_classes=num_classes if num_classes is not None else plans.num_classes + 1,
+        pool_op_kernel_sizes=st.pool_op_kernel_sizes,
+        conv_kernel_sizes=st.conv_kernel_sizes,
+        conv_per_stage=plans.conv_per_stage,
+        dtype=dtype)

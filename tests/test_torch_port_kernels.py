@@ -1,0 +1,132 @@
+"""The port's conv kernels (ops/conv3d.py) against the JAX package's Pallas
+kernels 1-3, on the CPU: Pallas in interpret mode, the port through its
+wrappers, which take the plain PyTorch versions for CPU tensors (after a round
+trip through the kernel's prepared weight layout).
+
+Tolerances are the fp32 ones of tests/test_pallas_ops.py (atol=2e-4,
+rtol=1e-3): both sides accumulate in fp32, in different orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from multitalent_tpu.ops.packed_conv import depth_to_space_yx, space_to_depth_yx
+from multitalent_tpu.ops.pallas_conv import pallas_conv3d_same
+from multitalent_tpu.ops.pallas_merged_conv import (pallas_packed_conv3d_merged,
+                                                    pallas_packed_conv3d_merged2,
+                                                    prepare_merged, prepare_merged2)
+from multitalent_tpu_torch import _build
+from multitalent_tpu_torch.ops import conv3d as cv
+
+ATOL, RTOL = 2e-4, 1e-3
+
+
+def _torch_weight(w_dhwio: np.ndarray) -> torch.Tensor:
+    """flax (kz, ky, kx, I, O) -> torch Conv3d (O, I, kz, ky, kx)"""
+    return torch.from_numpy(np.ascontiguousarray(w_dhwio.transpose(4, 3, 0, 1, 2)))
+
+
+def _port_conv(x: np.ndarray, w_dhwio: np.ndarray) -> np.ndarray:
+    pw = cv.prepare_conv3d_weight(_torch_weight(w_dhwio), dtype=torch.float32)
+    return cv.conv3d_same(torch.from_numpy(x), pw).numpy()
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 8, 16, 16, 8), 8), ((2, 4, 8, 8, 8), 16)])
+def test_conv3d_same_matches_pallas_conv_kernel(shape, cout):
+    """Kernel A vs pallas_conv.py:_conv_kernel (the shapes of
+    test_pallas_conv3d_same_interpret_matches_lax)."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(3, 3, 3, shape[-1], cout).astype(np.float32)
+    ref = np.asarray(pallas_conv3d_same(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    np.testing.assert_allclose(_port_conv(x, w), ref, atol=ATOL, rtol=RTOL)
+    # the plain version itself, on the unprepared weight
+    plain = cv.conv3d_same_ref(torch.from_numpy(x), _torch_weight(w)).numpy()
+    np.testing.assert_allclose(plain, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("factors,c", [((2, 2), 30), ((1, 2), 60)])
+def test_conv3d_same_matches_pallas_merged_kernel(factors, c):
+    """Kernel A, unpacked, vs pallas_merged_conv.py:_merged_kernel on the
+    space-to-depth packed tensor, compared through depth_to_space."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(1, 8, 16, 16, c).astype(np.float32)
+    w = (rng.randn(3, 3, 3, c, c) * 0.1).astype(np.float32)
+    packed = pallas_packed_conv3d_merged(space_to_depth_yx(jnp.asarray(x), factors),
+                                         prepare_merged(jnp.asarray(w), factors),
+                                         interpret=True)
+    ref = np.asarray(depth_to_space_yx(packed, factors))
+    np.testing.assert_allclose(_port_conv(x, w), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("g0,g1,cout", [(30, 30, 30), (20, 10, 16)])
+def test_conv3d_same_dual_matches_pallas_merged2_kernel(g0, g1, cout):
+    """Kernel B vs pallas_merged_conv.py:_merged2_kernel (the groups of
+    test_merged2_conv_interpret_matches_grouped_dense); unequal groups catch
+    a swapped [up | skip] order."""
+    rng = np.random.RandomState(8)
+    a = rng.randn(1, 8, 16, 16, g0).astype(np.float32)
+    b = rng.randn(1, 8, 16, 16, g1).astype(np.float32)
+    w = (rng.randn(3, 3, 3, g0 + g1, cout) * 0.1).astype(np.float32)
+    f = (2, 2)
+    packed = pallas_packed_conv3d_merged2(
+        space_to_depth_yx(jnp.asarray(a), f), space_to_depth_yx(jnp.asarray(b), f),
+        prepare_merged2(jnp.asarray(w), f, (g0, g1)), interpret=True)
+    ref = np.asarray(depth_to_space_yx(packed, f))
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), splits=(g0, g1), dtype=torch.float32)
+    got = cv.conv3d_same_dual(torch.from_numpy(a), torch.from_numpy(b), pw).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    plain = cv.conv3d_same_dual_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                    _torch_weight(w)).numpy()
+    np.testing.assert_allclose(plain, ref, atol=ATOL, rtol=RTOL)
+    if g0 != g1:
+        swapped = cv.conv3d_same_dual_ref(torch.from_numpy(b), torch.from_numpy(a),
+                                          _torch_weight(w))
+        assert np.abs(swapped.numpy() - ref).max() > 1e-2
+
+
+@pytest.mark.parametrize("splits", [(30,), (47,), (20, 10), (13, 3)])
+def test_prepared_weight_layout_round_trips(splits):
+    w = torch.randn(47, sum(splits), 3, 3, 3)
+    pw = cv.prepare_conv3d_weight(w, splits, dtype=torch.float32)
+    assert pw.w.shape == (sum(-(-s // 16) for s in splits), 27, 16, 64)
+    assert torch.equal(cv.unprepare_conv3d_weight(pw), w)
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    x = torch.zeros(1, 4, 4, 4, 8)
+    pw = cv.prepare_conv3d_weight(torch.zeros(8, 8, 3, 3, 3), dtype=torch.float32)
+    a, b = cv.conv3d_same.launches, cv.conv3d_same_dual.launches
+    cv.conv3d_same(x, pw)
+    cv.conv3d_same_dual(x, x, cv.prepare_conv3d_weight(
+        torch.zeros(8, 16, 3, 3, 3), (8, 8), dtype=torch.float32))
+    assert (cv.conv3d_same.launches, cv.conv3d_same_dual.launches) == (a, b)
+
+
+def test_wrapper_refuses_other_devices_without_counting():
+    x = torch.zeros(1, 4, 4, 4, 8, device="meta", dtype=torch.bfloat16)
+    pw = cv.prepare_conv3d_weight(torch.zeros(8, 8, 3, 3, 3))
+    before = cv.conv3d_same.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        cv.conv3d_same(x, pw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cv.conv3d_same_dual(x, x, pw)
+    assert cv.conv3d_same.launches == before
+
+
+def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """The kernel launcher builds with nvcc at first use; without nvcc it raises
+    a clear error and the wrapper's count stays unchanged."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    before = cv.conv3d_same.launches
+    x = torch.zeros(1, 4, 4, 4, 8, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cv._launch("mt_conv3d_same", [x], cv.prepare_conv3d_weight(
+            torch.zeros(8, 8, 3, 3, 3)), None)
+    assert cv.conv3d_same.launches == before
+    assert not (tmp_path / "build").exists()
