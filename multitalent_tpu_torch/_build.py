@@ -1,6 +1,7 @@
 """Builds the package's CUDA kernels at first use and binds them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+`nvcc` compiles every `csrc/*.cu` to an object file, all sources at once in
+parallel processes, and links them into one shared library with a plain C
 interface under `_build/`, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the library already there.
 Nothing here runs at import time: the library is built by the first call of
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -36,6 +37,12 @@ _SIGNATURES = {
     # a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, bn,
     # stream
     "mt_conv3d_same_dual": ([_P, _P, _P, _P, _P, _P, _L] + [_I] * 9 + [_P], _I),
+    # n, z, y, x, ca, cb, cout -> workspace bytes (-1: bad sizes)
+    "mt_conv3d_wgrad_workspace": ([_I] * 7, _L),
+    # x, g, dw, ws, ws_bytes, n, z, y, x, cin, cout, stream
+    "mt_conv3d_wgrad": ([_P, _P, _P, _P, _L] + [_I] * 6 + [_P], _I),
+    # a, b, g, dw, ws, ws_bytes, n, z, y, x, ca, cb, cout, stream
+    "mt_conv3d_wgrad_dual": ([_P, _P, _P, _P, _P, _L] + [_I] * 7 + [_P], _I),
     "mt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -67,25 +74,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    """Wait for every process; raise with the output of the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, code, out = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    Raises RuntimeError with nvcc's output when the build fails."""
+    """Compile the kernels unless a library for these sources exists: one nvcc
+    per source, all started together, then one link. Raises RuntimeError with
+    nvcc's output when a step fails."""
     out = library_path()
     if out.is_file():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never load a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    # build in a private directory, then rename: a concurrent build never
+    # loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))])
+        os.replace(lib, out)
     return out
 
 

@@ -1,0 +1,128 @@
+"""Train a configuration on one GPU.
+
+Counterpart of multitalent_tpu/cli/train.py (nnunet/run/run_training.py): the
+same arguments plus --device (default cuda; cpu runs the kernels' plain
+PyTorch versions). Resolves (network, task, trainer, plans identifier) to the
+plans file, stage and output folder
+RESULTS/nnUNet/<network>/<task>/<trainer>__<plans identifier>, then
+initialize -> [resume with -c] -> run_training, which writes
+fold_X/model_final_checkpoint.model.
+
+    python -m multitalent_tpu_torch.cli.train 3d_fullres MultiTalent_trainer_ddp TASK 0
+
+Not ported yet, and refused rather than skipped: validation after training
+(`-val`, trainer.validate; ROADMAP queue 1, item 7), `-pretrained_weights`
+(flax checkpoints; item 4), several GPUs (item 9), 2D and cascade networks
+(item 10). A training run logs that it did not validate.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from multitalent_tpu import paths
+from multitalent_tpu.plans import load_plans
+from multitalent_tpu.utils.task_names import convert_id_to_task_name
+from multitalent_tpu_torch.inference.model_restore import UNPORTED_TRAINERS
+from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
+                                                        MultiTalentTrainer2000ep)
+from multitalent_tpu_torch.training.trainers import TrainerV2
+
+# trainer names of the reference and of the JAX package -> the port's classes
+TRAINERS = {
+    **dict.fromkeys(("TrainerV2", "nnUNetTrainerV2", "nnUNetTrainerV2_DP",
+                     "nnUNetTrainerV2_DDP", "nnUNetTrainer"), TrainerV2),
+    **dict.fromkeys(("MultiTalentTrainer", "MultiTalent_trainer_ddp"), MultiTalentTrainer),
+    **dict.fromkeys(("MultiTalentTrainer2000ep", "MultiTalent_trainer_ddp_2000ep"),
+                    MultiTalentTrainer2000ep),
+}
+
+
+def get_default_configuration(network: str, task: str, network_trainer: str,
+                              plans_identifier: str | None = None):
+    """The path logic of multitalent_tpu/cli/configuration.py:27 with the
+    port's trainer classes: (plans_file, output_folder, dataset_directory,
+    batch_dice, stage, trainer_class)."""
+    if network not in ("3d_fullres", "3d_lowres"):
+        raise NotImplementedError(f"network {network!r}: the port trains 3d_fullres and "
+                                  "3d_lowres (2D and the cascade: ROADMAP queue 1, item 10)")
+    if network_trainer in UNPORTED_TRAINERS:
+        raise NotImplementedError(
+            f"trainer {network_trainer!r} trains {UNPORTED_TRAINERS[network_trainer]}, which "
+            "the port does not have yet (ROADMAP queue 1, item 10)")
+    if network_trainer not in TRAINERS:
+        raise ValueError(f"unknown trainer {network_trainer!r}; known: {sorted(TRAINERS)}")
+    plans_identifier = plans_identifier or paths.default_plans_identifier
+    if not task.startswith("Task"):
+        task = convert_id_to_task_name(int(task))
+    dataset_directory = os.path.join(paths.preprocessing_output_dir(), task)
+    plans_file = os.path.join(dataset_directory, plans_identifier + "_plans_3D.pkl")
+    if not os.path.isfile(plans_file):
+        raise FileNotFoundError(f"plans file not found: {plans_file}")
+    stages = sorted(load_plans(plans_file).plans_per_stage)
+    if network == "3d_lowres" and len(stages) == 1:
+        raise RuntimeError("3d_lowres needs a multi-stage plan; this dataset does not "
+                           "need a cascade. Use 3d_fullres.")
+    stage = stages[0] if network == "3d_lowres" else stages[-1]
+    output_folder = os.path.join(paths.network_training_output_dir(), network, task,
+                                 network_trainer + "__" + plans_identifier)
+    return (plans_file, output_folder, dataset_directory, network == "3d_lowres", stage,
+            TRAINERS[network_trainer])
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("network", choices=["2d", "3d_lowres", "3d_fullres",
+                                            "3d_cascade_fullres"])
+    parser.add_argument("network_trainer")
+    parser.add_argument("task", help="task name or id")
+    parser.add_argument("fold", help="0-11 or 'all'")
+    parser.add_argument("-val", "--validation_only", action="store_true")
+    parser.add_argument("-c", "--continue_training", action="store_true")
+    parser.add_argument("-p", default=None, help="plans identifier")
+    parser.add_argument("--use_compressed_data", action="store_true")
+    parser.add_argument("--deterministic", action="store_true")
+    parser.add_argument("--npz", action="store_true")
+    parser.add_argument("--fp32", action="store_true",
+                        help="fp32 compute instead of bf16")
+    parser.add_argument("--valbest", action="store_true")
+    parser.add_argument("--val_folder", default="validation_raw")
+    parser.add_argument("--disable_postprocessing_on_folds", action="store_true")
+    parser.add_argument("-gpus", type=int, default=None)
+    parser.add_argument("--dbs", action="store_true")
+    parser.add_argument("--local_rank", type=int, default=0)
+    parser.add_argument("-pretrained_weights", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (hand-written kernels) or cpu "
+                             "(their plain PyTorch versions)")
+    args = parser.parse_args(argv)
+
+    if args.validation_only:
+        raise NotImplementedError("-val: validation (trainer.validate) is not ported "
+                                  "yet (ROADMAP queue 1, item 7)")
+    if args.pretrained_weights is not None:
+        raise NotImplementedError("-pretrained_weights reads flax checkpoints, which the "
+                                  "port cannot yet (ROADMAP queue 1, item 4)")
+    if args.gpus is not None and args.gpus > 1:
+        raise NotImplementedError("training on several GPUs is ROADMAP queue 1, item 9")
+
+    fold = args.fold if args.fold == "all" else int(args.fold)
+    (plans_file, output_folder, dataset_directory, batch_dice, stage,
+     trainer_class) = get_default_configuration(args.network, args.task,
+                                                args.network_trainer, args.p)
+    trainer = trainer_class(plans_file, fold, output_folder=output_folder,
+                            dataset_directory=dataset_directory, batch_dice=batch_dice,
+                            stage=stage, unpack_data=not args.use_compressed_data,
+                            deterministic=args.deterministic, fp16=not args.fp32,
+                            device=args.device)
+    trainer.initialize(True)
+    if args.continue_training:
+        trainer.load_latest_checkpoint()
+    trainer.run_training()
+    trainer.print_to_log_file("validation was not run: trainer.validate is not ported "
+                              "yet (ROADMAP queue 1, item 7)")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -39,28 +39,16 @@
 //   out: (N, Z, Y, X, Cout) bf16, contiguous.
 // For NIN == 2 the K loop first runs over the chunks of `a`, then over the
 // chunks of `b`: channel order [a | b], as torch.cat((a, b), 1).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
 
-constexpr int KC = 16;          // input channels per K chunk (the mma K)
-constexpr int HS = KC + 8;      // halo row stride in bf16: 48 B, conflict-free
-constexpr int BM = 256;         // output voxels per block
+using namespace mt;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MF = BM / (WARPS * 16);  // 16-voxel M fragments per warp
-constexpr int HALO_MAX = 720;          // largest (tz+2)(ty+2)(tx+2) below
 constexpr int MAX_SPLITS = 64;
-
-struct Box {
-  int z, y, x;
-};
-// 256-voxel boxes, smallest halo first (ties in wasted voxels keep the first)
-constexpr Box kBoxes[] = {{4, 8, 8},  {8, 4, 8},  {8, 8, 4},  {4, 4, 16},
-                          {4, 16, 4}, {16, 4, 4}, {2, 8, 16}, {2, 16, 8}};
 
 struct Plan {
   Box box;
@@ -80,18 +68,9 @@ struct Params {
   Plan plan;
 };
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 Plan make_plan(int n, int z, int y, int x, int kchunks, int nblocks_n, int sms) {
   Plan best{};
-  long long best_vox = -1;
-  for (const Box& b : kBoxes) {
-    const long long vox = (long long)cdiv(z, b.z) * cdiv(y, b.y) * cdiv(x, b.x);
-    if (best_vox < 0 || vox < best_vox) {
-      best_vox = vox;
-      best.box = b;
-    }
-  }
+  const long long best_vox = pick_box(z, y, x, &best.box);
   best.tiles_z = cdiv(z, best.box.z);
   best.tiles_y = cdiv(y, best.box.y);
   best.tiles_x = cdiv(x, best.box.x);
@@ -106,74 +85,14 @@ Plan make_plan(int n, int z, int y, int x, int kchunks, int nblocks_n, int sms) 
   return best;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 or 4 bytes; `full` false copies nothing and zero-fills dst
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One K chunk of the haloed input box into shared memory, zero outside the
-// volume and past the input's channel count. vec: 8, 2 or 1 channels a copy.
+// volume and past the input's channel count.
 __device__ __forceinline__ void load_halo(__nv_bfloat16* halo,
                                           const __nv_bfloat16* __restrict__ src,
                                           int cin, int c0, const Params& p, int nb,
                                           int z0, int y0, int x0) {
-  const int vec = (cin % 8 == 0) ? 8 : ((cin % 2 == 0) ? 2 : 1);
-  const int hx = p.plan.box.x + 2, hy = p.plan.box.y + 2, hz = p.plan.box.z + 2;
-  const int per_vox = KC / vec;
-  const int total = hz * hy * hx * per_vox;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int v = i / per_vox;
-    const int c = (i - v * per_vox) * vec;
-    const int vx = v % hx;
-    const int vy = (v / hx) % hy;
-    const int vz = v / (hx * hy);
-    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
-    const bool inside = gz >= 0 && gz < p.z && gy >= 0 && gy < p.y && gx >= 0 &&
-                        gx < p.x && c0 + c < cin;
-    __nv_bfloat16* dst = halo + v * HS + c;
-    const int64_t off =
-        ((((int64_t)nb * p.z + gz) * p.y + gy) * p.x + gx) * cin + c0 + c;
-    const __nv_bfloat16* s = inside ? src + off : src;
-    if (vec == 8) {
-      cp_async16(dst, s, inside);
-    } else if (vec == 2) {
-      cp_async4(dst, s, inside);
-    } else {
-      dst[0] = inside ? *s : __float2bfloat16(0.f);
-    }
-  }
+  load_box<THREADS>(halo, src, cin, c0, KC, HS, 1, p.plan.box, p.z, p.y, p.x, nb, z0,
+                    y0, x0);
 }
 
 // The chunk's (27, 16, BN) weight slice for output-channel block `nblk`.
@@ -327,14 +246,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
     for (int s = 0; s < splits; ++s) v += ws[s * count + i];
     out[i] = __float2bfloat16(v);
   }
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return sms;
 }
 
 Plan plan_for(int n, int z, int y, int x, int ca, int cb, int coutp, int bn) {

@@ -13,6 +13,9 @@ LeakyReLU(0.01). The conv runs on a hand-written kernel where one applies:
 - kernel B (ops/conv3d.conv3d_same_dual): a decoder's first conv, on the
   (up, skip) pair without building the concat.
 
+Both go through the autograd functions of ops/conv3d.py, so a backward pass
+reaches the kernels too: dx by kernel A on the flipped weight, dw by kernel C.
+
 The rest (the Cin=1 first conv, strided convs, other kernel shapes) stays
 cuDNN, as the JAX package leaves it to XLA. Activations are NCDHW tensors in
 `torch.channels_last_3d` memory, so the kernels read them as NDHWC without a
@@ -91,9 +94,11 @@ class ConvDropoutNormNonlin(nn.Module):
     def prepared_weight(self, dtype: torch.dtype) -> cv.PreparedWeight:
         """The conv weight in the kernel's layout and `dtype` (the model dtype;
         the CUDA kernels take bfloat16), prepared once per weight (device,
-        storage, dtype) and cached; load_state_dict drops the cache."""
+        storage, version counter, dtype) and cached: an in-place update (an
+        optimizer step, a copy_ under no_grad) bumps the version and so
+        prepares again; load_state_dict drops the cache."""
         w = self.conv.weight
-        key = (w.device, w.data_ptr(), dtype)
+        key = (w.device, w.data_ptr(), w._version, dtype)
         if self._prepared is None or self._prepared[0] != key:
             with torch.no_grad():
                 pw = cv.prepare_conv3d_weight(w.detach(), self.in_splits, dtype)
@@ -107,21 +112,20 @@ class ConvDropoutNormNonlin(nn.Module):
         kernels (the reference the kernels are checked against), on the
         same model-dtype inputs and weights the kernels see."""
         dtype = x.dtype
-        bias = self.conv.bias.detach().float()
+        w, bias = self.conv.weight, self.conv.bias
         if self.kernel == "conv3d_same_dual":
+            a, b = to_ndhwc(x), to_ndhwc(skip.to(dtype))
             if use_kernels:
-                out = cv.conv3d_same_dual(to_ndhwc(x), to_ndhwc(skip.to(dtype)),
-                                          self.prepared_weight(dtype), bias)
+                out = cv.conv3d_same_dual_op(a, b, w, bias, self.prepared_weight(dtype))
             else:
-                out = cv.conv3d_same_dual_ref(to_ndhwc(x), to_ndhwc(skip.to(dtype)),
-                                              self.conv.weight.to(dtype), bias)
-            out = from_ndhwc(out.to(dtype))
+                out = cv.conv3d_same_dual_ref(a, b, w.to(dtype), bias)
+            out = from_ndhwc(out)
         elif self.kernel == "conv3d_same":
             if use_kernels:
-                out = cv.conv3d_same(to_ndhwc(x), self.prepared_weight(dtype), bias)
+                out = cv.conv3d_same_op(to_ndhwc(x), w, bias, self.prepared_weight(dtype))
             else:
-                out = cv.conv3d_same_ref(to_ndhwc(x), self.conv.weight.to(dtype), bias)
-            out = from_ndhwc(out.to(dtype))
+                out = cv.conv3d_same_ref(to_ndhwc(x), w.to(dtype), bias)
+            out = from_ndhwc(out)
         else:
             out = F.conv3d(x, self.conv.weight.to(dtype), self.conv.bias.to(dtype),
                            self.conv.stride, self.conv.padding)

@@ -15,9 +15,12 @@ weights into the JAX package:
                                  conv_per_stage-1); StackedConvLayers(f -> f, 1))
   seg_outputs.{u}                1x1x1 Conv3d to num_classes, no bias
 
-The forward returns the full-resolution logits in fp32 (deep supervision off:
-inference only). Compute runs in `dtype` (bf16 for checkpoints trained with
-fp16, as training/multitalent.py:70-73) with fp32 parameters.
+The forward returns the full-resolution logits in fp32, or with
+`deep_supervision=True` (training) one fp32 logit map per decoder level,
+highest resolution first, each at its level's resolution (the JAX package's
+`seg_outputs[::-1]`, generic_unet.py:110-152). Compute runs in `dtype` (bf16
+for checkpoints trained with fp16, as training/multitalent.py:70-73) with
+fp32 parameters, as flax's param_dtype=float32.
 """
 from __future__ import annotations
 
@@ -80,18 +83,34 @@ class GenericUNet(nn.Module):
         self.conv_blocks_localization = nn.ModuleList(loc)
         self.seg_outputs = nn.ModuleList(seg)
 
+    def _kernel_blocks(self) -> list:
+        return [m for m in self.modules() if getattr(m, "kernel", None) is not None]
+
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each hand-written kernel that one forward makes."""
         counts = {"conv3d_same": 0, "conv3d_same_dual": 0}
-        for m in self.modules():
-            kernel = getattr(m, "kernel", None)
-            if kernel is not None:
-                counts[kernel] += 1
+        for m in self._kernel_blocks():
+            counts[m.kernel] += 1
         return counts
 
-    def forward(self, x: torch.Tensor, *, use_kernels: bool = True) -> torch.Tensor:
-        """x (N, C_in, Z, Y, X) -> full-resolution logits (N, K, Z, Y, X) fp32.
-        use_kernels=False runs the kernels' plain PyTorch versions instead."""
+    def kernel_launches_per_step(self) -> dict[str, int]:
+        """Launches of each hand-written kernel that one training step (forward
+        + backward) makes: every kernel conv's forward (A or B), its dx by
+        kernel A (unless it reads the network's input, which needs no
+        gradient) and its dw by kernel C (single or dual form)."""
+        counts = self.kernel_launches_per_forward()
+        first = self.conv_blocks_context[0].blocks[0]
+        dx = sum(1 for m in self._kernel_blocks() if m is not first)
+        counts["conv3d_same"] += dx
+        counts["conv3d_same_wgrad"] = len(self._kernel_blocks())
+        return counts
+
+    def forward(self, x: torch.Tensor, *, use_kernels: bool = True,
+                deep_supervision: bool = False) -> torch.Tensor | list[torch.Tensor]:
+        """x (N, C_in, Z, Y, X) -> full-resolution logits (N, K, Z, Y, X) fp32,
+        or with deep_supervision a list of logits per decoder level, highest
+        resolution first. use_kernels=False runs the kernels' plain PyTorch
+        versions instead."""
         x = x.to(self.dtype).contiguous(memory_format=CL)
         skips = []
         for d in range(self.num_pool):
@@ -99,6 +118,7 @@ class GenericUNet(nn.Module):
             skips.append(x)
         for stack in self.conv_blocks_context[self.num_pool]:
             x = stack(x, use_kernels=use_kernels)
+        seg_outputs = []
         for u in range(self.num_pool):
             tu = self.tu[u]
             x = F.conv_transpose3d(x, tu.weight.to(self.dtype), None, tu.stride)
@@ -110,8 +130,12 @@ class GenericUNet(nn.Module):
             else:
                 x = first(torch.cat((x, skip), 1), use_kernels=use_kernels)
             x = rest(x, use_kernels=use_kernels)
-        head = self.seg_outputs[-1]
-        return F.conv3d(x, head.weight.to(self.dtype)).float()
+            if deep_supervision or u == self.num_pool - 1:
+                head = self.seg_outputs[u]
+                seg_outputs.append(F.conv3d(x, head.weight.to(self.dtype)).float())
+        if deep_supervision:
+            return seg_outputs[::-1]
+        return seg_outputs[-1]
 
 
 def build_unet_from_plans(plans, stage: int, num_classes: int | None = None,

@@ -1,24 +1,35 @@
-"""Stride-1 SAME 3x3x3 convolutions on hand-written Hopper kernels.
+"""Stride-1 SAME 3x3x3 convolutions and their gradients on hand-written
+Hopper kernels.
 
 Counterparts of the Pallas kernels of multitalent_tpu:
 
 - `conv3d_same` (kernel A) replaces `ops/pallas_conv.py:_conv_kernel` and,
   because the port runs unpacked at the true channel count, the function of
   `ops/pallas_merged_conv.py:_merged_kernel`
-  (`space_to_depth(conv3d_same(depth_to_space(x), w))`).
+  (`space_to_depth(conv3d_same(depth_to_space(x), w))`). With the flipped,
+  transposed weight it also computes dL/dx (`conv3d_same_dx`, the rule of
+  `pallas_conv.py:conv3d_same_dx`).
 - `conv3d_same_dual` (kernel B) replaces
   `ops/pallas_merged_conv.py:_merged2_kernel`: the conv over
   `concat(a, b)` along channels, without building the concat.
+- `conv3d_same_wgrad` (kernel C) replaces `ops/pallas_conv.py:_wgrad_kernel`
+  and, unpacked, `ops/pallas_merged_conv.py:_merged_wgrad_kernel`: dL/dw in
+  fp32. `conv3d_same_wgrad_dual` is its form for kernel B's conv.
 
-Both kernels live in `csrc/conv3d_same.cu`. Tensors are channels-last
-(N, Z, Y, X, C), the layout of the JAX package and the physical layout of a
-`torch.channels_last_3d` NCDHW tensor. Weights are prepared once per model
-load with `prepare_conv3d_weight`.
+Kernels A and B live in `csrc/conv3d_same.cu`, kernel C in
+`csrc/conv3d_wgrad.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
+of the JAX package and the physical layout of a `torch.channels_last_3d`
+NCDHW tensor. Weights are prepared with `prepare_conv3d_weight`.
+
+`Conv3dSame` and `Conv3dSameDual` are the autograd functions of the two
+convs: forward through A or B, dx through A, dw through C, db a sum of the
+output gradient.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
-plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`) only for
-tensors that lie on the CPU. Each keeps a count of kernel launches in its
-`launches` attribute.
+plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
+`conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`) only for tensors that
+lie on the CPU. Each keeps a count of kernel launches in its `launches`
+attribute.
 """
 from __future__ import annotations
 
@@ -69,7 +80,8 @@ def prepare_conv3d_weight(weight: torch.Tensor, splits=None,
     for c in splits:
         kpad = -(-c // KC) * KC
         taps = weight[:, lo:lo + c].permute(2, 3, 4, 1, 0).reshape(27, c, cout)
-        taps = F.pad(taps.float(), (0, coutp - cout, 0, kpad - c))
+        taps = F.pad(taps.to(torch.promote_types(dtype, torch.float32)),
+                     (0, coutp - cout, 0, kpad - c))
         parts.append(taps.reshape(27, kpad // KC, KC, coutp).permute(1, 0, 2, 3))
         lo += c
     w = torch.cat(parts, 0).to(dtype).contiguous()
@@ -92,13 +104,20 @@ def unprepare_conv3d_weight(pw: PreparedWeight) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions accumulate in fp32, or in fp64 for fp64 input (the
+    gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def conv3d_same_ref(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of kernel A: F.conv3d in fp32 on channels-last input
     (N, Z, Y, X, Cin) with a torch weight (Cout, Cin, 3, 3, 3); the result is
     cast to x's dtype."""
-    out = F.conv3d(x.permute(0, 4, 1, 2, 3).float(), weight.float(),
-                   None if bias is None else bias.float(), padding=1)
+    acc = _acc_dtype(x)
+    out = F.conv3d(x.permute(0, 4, 1, 2, 3).to(acc), weight.to(acc),
+                   None if bias is None else bias.to(acc), padding=1)
     return out.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
@@ -106,6 +125,22 @@ def conv3d_same_dual_ref(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of kernel B: torch.cat along channels, then F.conv3d."""
     return conv3d_same_ref(torch.cat((a, b.to(a.dtype)), dim=-1), weight, bias)
+
+
+def conv3d_same_wgrad_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel C: dL/dw (Cout, Cin, 3, 3, 3) in fp32 of the
+    SAME conv of channels-last x (N, Z, Y, X, Cin) whose output gradient is g
+    (N, Z, Y, X, Cout), by torch.nn.grad.conv3d_weight."""
+    acc = _acc_dtype(x)
+    shape = (int(g.shape[-1]), int(x.shape[-1]), 3, 3, 3)
+    return torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3).to(acc), shape,
+                                       g.permute(0, 4, 1, 2, 3).to(acc), padding=1)
+
+
+def conv3d_same_wgrad_dual_ref(a: torch.Tensor, b: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel C's dual form: the wgrad on concat(a, b)."""
+    return conv3d_same_wgrad_ref(torch.cat((a, b.to(a.dtype)), dim=-1), g)
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +249,165 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
 
 
 conv3d_same_dual.launches = 0
+
+
+def _launch_wgrad(name: str, inputs: list[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
+    """Run kernel C's C entry `name`: allocates dw and the fp32 workspace of
+    per-block partial sums whose size the library reports."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    dev = g.device
+    n, z, y, xd = (int(s) for s in g.shape[:4])
+    cs = [int(t.shape[-1]) for t in inputs]
+    cout = int(g.shape[-1])
+    dw = torch.empty((cout, sum(cs), 3, 3, 3), dtype=torch.float32, device=dev)
+    if g.numel() == 0:
+        return dw.zero_()
+    with torch.cuda.device(dev):
+        nbytes = lib.mt_conv3d_wgrad_workspace(n, z, y, xd, cs[0], sum(cs[1:]), cout)
+        if nbytes <= 0:
+            raise ValueError(f"{name}: the kernel does not take these sizes")
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, name)(
+            *(t.data_ptr() for t in inputs), g.data_ptr(), dw.data_ptr(), ws.data_ptr(),
+            nbytes, n, z, y, xd, *cs, cout, stream)
+    _build.check(lib, code, name)
+    return dw
+
+
+def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel C: dL/dw (Cout, Cin, 3, 3, 3) fp32 of the stride-1 SAME 3x3x3
+    conv of x (N, Z, Y, X, Cin) whose output gradient is g (N, Z, Y, X, Cout).
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_wgrad_ref."""
+    if x.device.type == "cpu":
+        return conv3d_same_wgrad_ref(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_wgrad: unsupported device {x.device}")
+    _check_input(x, "x", x)
+    _check_input(g, "g", x)
+    if x.shape[:4] != g.shape[:4]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ "
+                         "outside the channel axis")
+    dw = _launch_wgrad("mt_conv3d_wgrad", [x], g)
+    conv3d_same_wgrad.launches += 1
+    return dw
+
+
+conv3d_same_wgrad.launches = 0
+
+
+def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor,
+                           g: torch.Tensor) -> torch.Tensor:
+    """Kernel C, dual form: dL/dw (Cout, Ca + Cb, 3, 3, 3) fp32 of kernel B's
+    conv over concat(a, b), without building the concat. Its launches count
+    on `conv3d_same_wgrad.launches`, as one kernel.
+
+    CUDA tensors launch the kernel; CPU tensors take
+    conv3d_same_wgrad_dual_ref."""
+    if a.device.type == "cpu":
+        return conv3d_same_wgrad_dual_ref(a, b, g)
+    if a.device.type != "cuda":
+        raise ValueError(f"conv3d_same_wgrad_dual: unsupported device {a.device}")
+    _check_input(a, "a", a)
+    _check_input(b, "b", a)
+    _check_input(g, "g", a)
+    if a.shape[:4] != b.shape[:4] or a.shape[:4] != g.shape[:4]:
+        raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)} and g "
+                         f"{tuple(g.shape)} differ outside the channel axis")
+    dw = _launch_wgrad("mt_conv3d_wgrad_dual", [a, b], g)
+    conv3d_same_wgrad.launches += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def conv3d_same_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """dL/dx (N, Z, Y, X, Cin) of the SAME conv with `weight` (Cout, Cin, 3,
+    3, 3), given its output gradient g: kernel A on the spatially flipped,
+    transposed weight, prepared in g's dtype (ops/pallas_conv.py:651-659)."""
+    pw = prepare_conv3d_weight(weight.detach().flip(2, 3, 4).transpose(0, 1),
+                               dtype=g.dtype)
+    return conv3d_same(g, pw)
+
+
+def _grad_output(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The output gradient as the kernels take it: contiguous channels-last in
+    the conv's dtype (autograd may hand back other strides)."""
+    return g.to(dtype).contiguous()
+
+
+def _bias_grad(g: torch.Tensor) -> torch.Tensor:
+    return g.to(_acc_dtype(g)).sum(dim=(0, 1, 2, 3))
+
+
+class Conv3dSame(torch.autograd.Function):
+    """conv3d_same with its gradient: dx by kernel A on the flipped weight,
+    dw by kernel C (fp32, for the fp32 master weight), db = sum of g in fp32.
+    `pw` is `weight` prepared for the forward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, pw):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return conv3d_same(x, pw, None if bias is None else bias.to(_acc_dtype(x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = _grad_output(g, x.dtype)
+        dx = conv3d_same_dx(g, weight) if ctx.needs_input_grad[0] else None
+        dw = conv3d_same_wgrad(x, g).to(weight.dtype) if ctx.needs_input_grad[1] else None
+        db = _bias_grad(g) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx, dw, db, None
+
+
+class Conv3dSameDual(torch.autograd.Function):
+    """conv3d_same_dual with its gradient: one kernel-A launch gives
+    d(concat(a, b)), split along channels into da and db; dw by kernel C's
+    dual form."""
+
+    @staticmethod
+    def forward(ctx, a, b, weight, bias, pw):
+        ctx.save_for_backward(a, b, weight)
+        ctx.has_bias = bias is not None
+        return conv3d_same_dual(a, b, pw,
+                                None if bias is None else bias.to(_acc_dtype(a)))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, weight = ctx.saved_tensors
+        g = _grad_output(g, a.dtype)
+        da = db_in = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d = conv3d_same_dx(g, weight)
+            ca = int(a.shape[-1])
+            da, db_in = d[..., :ca].contiguous(), d[..., ca:].contiguous()
+        dw = (conv3d_same_wgrad_dual(a, b, g).to(weight.dtype)
+              if ctx.needs_input_grad[2] else None)
+        dbias = _bias_grad(g) if ctx.has_bias and ctx.needs_input_grad[3] else None
+        return da, db_in, dw, dbias, None
+
+
+def conv3d_same_op(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None = None,
+                   pw: PreparedWeight | None = None) -> torch.Tensor:
+    """Differentiable kernel-A conv of channels-last x with the torch weight
+    (Cout, Cin, 3, 3, 3); `pw` is that weight prepared in x's dtype (prepared
+    here when not given)."""
+    if pw is None:
+        pw = prepare_conv3d_weight(weight.detach(), dtype=x.dtype)
+    return Conv3dSame.apply(x, weight, bias, pw)
+
+
+def conv3d_same_dual_op(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor | None = None,
+                        pw: PreparedWeight | None = None) -> torch.Tensor:
+    """Differentiable kernel-B conv over concat(a, b)."""
+    if pw is None:
+        pw = prepare_conv3d_weight(weight.detach(), (int(a.shape[-1]), int(b.shape[-1])),
+                                   dtype=a.dtype)
+    return Conv3dSameDual.apply(a, b, weight, bias, pw)

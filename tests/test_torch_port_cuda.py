@@ -98,3 +98,88 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError):
         cv.conv3d_same_dual(x.to(torch.bfloat16), x.to(torch.bfloat16), pw)
     assert cv.conv3d_same.launches == before
+
+
+# kernel C: fp32 dw against the fp32 plain version on the same bf16 inputs;
+# the sums over the voxels run in another order, so the bound is relative to
+# max|dw| (see chip_smoke.DW_RTOL)
+DW_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 6, 16, 32), 30, 30),     # stage-0 width, ragged C, batch 2
+    ((1, 5, 7, 19), 60, 60),      # ragged Z/Y/X
+    ((1, 6, 6, 6), 320, 320),     # deepest flagship stage
+    ((1, 3, 5, 9), 13, 47),       # odd C (1-channel loads), 47 outputs
+])
+def test_conv3d_same_wgrad_matches_plain(device, shape, cin, cout):
+    rng = np.random.default_rng(2)
+    x = _rand(rng, (*shape, cin)).to(device, torch.bfloat16)
+    g = _rand(rng, (*shape, cout)).to(device, torch.bfloat16)
+    before = cv.conv3d_same_wgrad.launches
+    got = cv.conv3d_same_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert cv.conv3d_same_wgrad.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (cout, cin, 3, 3, 3)
+    ref = cv.conv3d_same_wgrad_ref(x.float(), g.float())
+    assert (got - ref).abs().max().item() <= DW_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("ca,cb,cout,shape", [
+    (30, 30, 30, (2, 4, 16, 16)),
+    (20, 10, 16, (1, 5, 9, 17)),  # unequal groups: a swapped order fails
+    (13, 7, 20, (1, 3, 5, 6)),
+])
+def test_conv3d_same_wgrad_dual_matches_plain(device, ca, cb, cout, shape):
+    rng = np.random.default_rng(3)
+    a = _rand(rng, (*shape, ca)).to(device, torch.bfloat16)
+    b = _rand(rng, (*shape, cb)).to(device, torch.bfloat16)
+    g = _rand(rng, (*shape, cout)).to(device, torch.bfloat16)
+    got = cv.conv3d_same_wgrad_dual(a, b, g)
+    torch.cuda.synchronize()
+    ref = cv.conv3d_same_wgrad_dual_ref(a.float(), b.float(), g.float())
+    assert (got - ref).abs().max().item() <= DW_RTOL * ref.abs().max().item()
+
+
+def test_training_step_through_the_kernels_matches_the_plain_path(device):
+    """One forward + backward of a reduced flagship UNet in bf16 through
+    kernels A, B and C: the kernels' launch counts are the per-step counts,
+    and the gradients are no further from the fp32 plain path's than the bf16
+    plain path's are. bf16 rounds every activation and every layer's output
+    gradient, so each bf16 gradient sits ~15% (in norm) from fp32 here; the
+    kernels only sum in other orders. Bounds: per parameter tensor 1.5x the
+    plain bf16 path's distance, over all of them 1.25x (measured on the H100:
+    at most 1.20x per tensor, 0.98-1.01x overall, two seeds). Conv biases are
+    left out: the instance norm cancels them, their gradient is ~0 either
+    way."""
+    from multitalent_tpu_torch.models.generic_unet import GenericUNet
+    pools, kernels = [[2, 2, 2], [2, 2, 2], [1, 2, 2]], [[3, 3, 3]] * 4
+    torch.manual_seed(0)
+    net = GenericUNet(1, 16, 47, pools, kernels, dtype=torch.bfloat16).to(device)
+    net32 = GenericUNet(1, 16, 47, pools, kernels, dtype=torch.float32).to(device)
+    net32.load_state_dict(net.state_dict())
+    x = torch.randn(2, 1, 16, 32, 32, device=device)
+
+    def grads(model, use_kernels):
+        model.zero_grad()
+        outs = model(x, use_kernels=use_kernels, deep_supervision=True)
+        sum(o.square().mean() for o in outs).backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()
+                if p.grad is not None and not k.endswith("conv.bias")}
+
+    counts = (cv.conv3d_same, cv.conv3d_same_dual, cv.conv3d_same_wgrad)
+    before = [k.launches for k in counts]
+    got = grads(net, True)
+    torch.cuda.synchronize()
+    per_step = net.kernel_launches_per_step()
+    assert [k.launches - b for k, b in zip(counts, before)] == [
+        per_step["conv3d_same"], per_step["conv3d_same_dual"], per_step["conv3d_same_wgrad"]]
+    plain, ref = grads(net, False), grads(net32, False)
+    assert got.keys() == plain.keys() == ref.keys()
+    for k in ref:
+        assert (got[k] - ref[k]).norm() <= 1.5 * (plain[k] - ref[k]).norm(), k
+
+    def flat(g):
+        return torch.cat([g[k].flatten() for k in ref])
+
+    assert (flat(got) - flat(ref)).norm() <= 1.25 * (flat(plain) - flat(ref)).norm()

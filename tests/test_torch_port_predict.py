@@ -160,14 +160,25 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Import every module of the port, and chip_smoke, in a fresh interpreter
-    (this process's conftest has loaded jax already)."""
+    (this process's conftest has loaded jax already), build the MultiTalent
+    label -> region table, and confirm the JAX package's modules the port
+    reuses are the jax-free ones."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multitalent_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 25, names\n"
+        "from multitalent_tpu_torch.training.losses import label_region_matrix\n"
+        "assert label_region_matrix().shape == (48, 47)\n"
+        "reused = ['multitalent_tpu.data.loader', 'multitalent_tpu.data.dataset',\n"
+        "          'multitalent_tpu.augment.params', 'multitalent_tpu.tasks.multitalent',\n"
+        "          'multitalent_tpu.training.trainer_base', 'multitalent_tpu.plans',\n"
+        "          'multitalent_tpu.paths', 'multitalent_tpu.utils.fileops',\n"
+        "          'multitalent_tpu.utils.task_names']\n"
+        "missing = [m for m in reused if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
