@@ -11,7 +11,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    version's (fp32, TF32 off) and cuDNN's bf16 op: A and B at the forward's
    shapes (N=1); kernel C (dw) single at A's shapes and dual at B's, and A in
    the dx role (C -> 2C channels, the dual convs' dx), at the training
-   batch N=2;
+   batch N=2; then the fused chain's kernels beside the unfused route they
+   replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
+   stats) at A's shapes and its dual form at B's, each at N=1 and N=2, E's
+   stats and apply passes at every norm shape, and F at the stage-0 head;
 3. the inference path through the user's entry point: a reference-layout
    model folder of the MultiTalent flagship (GenericUNet, base 30, pools
    (2,2,2)x4 + (1,2,2), 47 sigmoid regions, patch 96x192x192, spacing
@@ -21,8 +24,15 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    labelmap and all 47 region NIfTIs must exist at the input's shape, and
    each kernel's launch count must equal its launches per forward times the
    forwards run;
+3b. the same with MTTPU_FUSED_NORM=1 (the fused conv -> norm route, kernels
+   D, E and F): exact launch counts of the fused route, every region mask
+   against the unfused run's, seconds per case of both routes;
 4. one tile's sigmoid probabilities through the kernels in bf16 against the
    plain versions, at the same bf16 rounding points and in fp32;
+4b. the same for the fused forward, and the plain forward under
+   MTTPU_PALLAS_NORM=1 (every norm on kernel E, no grad) against the default;
+   both routes again with a faulty LeakyReLU slope, whose readings must break
+   the bounds (controls);
 5. the training path through the user's entry point: synthetic preprocessed
    MultiTalent cases of two source datasets (valid regions stamped) go
    through `multitalent_tpu_torch.cli.train.main` with MultiTalent_trainer_ddp
@@ -32,12 +42,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    forward's A/B), one step's dw of every kernel conv must match the plain
    version on the same bf16 inputs, and the written model folder must predict
    through predict_multitalent; prints seconds per step and peak memory;
+5b. the same with MTTPU_FUSED_TRAIN=1 (kernel D forward, A and C backward);
 6. one JSON line describing the kernels, then the result line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -86,6 +98,38 @@ TRAIN_BATCH = 2  # the per-GPU batch of the shipped bs4 run (BASELINE.md:11)
 DW_RTOL = 1e-3
 TRAIN_STEPS = 6         # training iterations; the first 2 are warm-up
 TRAIN_CASE_SHAPE = (128, 288, 288)  # synthetic preprocessed cases
+# kernel D's stats (kernel E's too): fp32 sums of the same bf16 values in
+# another order, relative to the sums of |terms|
+STATS_RTOL = 1e-3
+# (C, spatial) of every InstanceNorm of the flagship at patch 96x192x192
+NORM_SHAPES = KERNEL_A_SHAPES
+# the fused vs the unfused predict CLI, region masks of one bf16 case: both
+# routes round every activation to bf16, but at other points (the fused
+# route rounds the raw conv output before the norm, takes the variance as
+# E[x^2] - mean^2 from fp32 sums and rounds x * scale + shift before the
+# activation), so voxels whose probability sits at the 0.5 threshold flip
+# (measured on the H100 before these bounds were set: worst region 0.99654,
+# mean 0.99915)
+MASK_AGREE_MEAN = 0.998
+MASK_AGREE_WORST = 0.99
+# phase 4b, the fused forward's kernels vs its plain versions at the same
+# rounding points: besides the summation orders of phase 4, kernel D's
+# prologue contracts x * scale + shift into one FMA where the plain version
+# rounds twice, so an activation may round one bf16 ulp apart at each of the
+# 16 fused convs (measured on the H100 before this bound: max 3.00e-2, mean
+# 2.00e-3)
+FUSED_PROB_BOUND = 5e-2
+FUSED_PROB_BOUND_MEAN = 3e-3
+# MTTPU_PALLAS_NORM=1 vs the default norm changes the rounding order (the
+# activation in fp32, then one cast; var clamped) at all 22 norms (measured
+# on the H100 before this bound: max 3.21e-2, mean 2.26e-3)
+PALLAS_NORM_BOUND = 6e-2
+PALLAS_NORM_BOUND_MEAN = 4e-3
+# controls for the two bounds above: the same route through the same kernels
+# with a faulty activation, every LeakyReLU slope 1e-2 replaced by one of
+# these; each reading must break its route's bounds, or they could not tell a
+# faulty kernel from rounding
+CONTROL_SLOPES = (0.0, 5e-3)
 
 
 def _median_ms(fn, iters: int = 10) -> float:
@@ -219,6 +263,152 @@ def phase_kernels() -> dict:
     return results
 
 
+def _stats_rel_err(stats, out) -> float:
+    """max |stats - the plain version's stats of the same out| relative to
+    the sums of |out| and out^2."""
+    from multitalent_tpu_torch.ops.fused_norm import channel_stats_ref
+    ref = channel_stats_ref(out.float())
+    scale = channel_stats_ref(out.float().abs())
+    return ((stats - ref).abs() / (scale + 1e-6)).max().item()
+
+
+def phase_fused_kernels() -> dict:
+    """The fused chain's kernels D, E and F vs their plain versions at the
+    flagship's shapes, each timed beside the unfused route it replaces."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.models.blocks import instance_norm_lrelu, to_ndhwc
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    from multitalent_tpu_torch.ops import seghead as sg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    results = {"conv3d_same_affine": [], "channel_stats": [], "affine_lrelu": [],
+               "seghead": []}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def ncdhw(t):
+        return t.permute(0, 4, 1, 2, 3)
+
+    def report(name, what, err, bound, ms, plain_ms, unfused_ms, unfused_what, **extra):
+        print(f"{name} {what}: max|d| {err:.3e} (bound {bound:.3e}); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, unfused route ({unfused_what}) {unfused_ms:.3f} ms"
+              + "".join(f", {k} {v:.3e}" for k, v in extra.items()))
+        results[name].append({"what": what, "err": err, "ms": ms, "plain_ms": plain_ms,
+                              "unfused_ms": unfused_ms, **extra})
+
+    # kernel D with the prologue and the stats, N=1 (inference) and 2 (training)
+    for n in (1, TRAIN_BATCH):
+        for c, sp in KERNEL_A_SHAPES:
+            x = rnd(n, *sp, c, scale=2.0).to(torch.bfloat16)
+            w = rnd(c, c, 3, 3, 3, scale=(2.0 / (27 * c)) ** 0.5)
+            w_bf = w.to(torch.bfloat16)
+            bias = rnd(c, scale=0.1)
+            sc, sh = rnd(n, c).abs() + 0.5, rnd(n, c)
+            norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
+            pw = cv.prepare_conv3d_weight(w)
+            out, stats = cv.conv3d_same_affine(x, pw, bias, sc, sh)
+            ref, _ = cv.conv3d_same_affine_ref(x, w_bf, bias, sc, sh)
+            bound = ATOL + RTOL * ref.float().abs().max().item()
+            err = _check(f"conv3d_same_affine {c}->{c} at {sp} N={n}", out, ref, bound)
+            serr = _stats_rel_err(stats, out)
+            if not serr <= STATS_RTOL:
+                raise AssertionError(f"conv3d_same_affine stats: {serr:.3e} > {STATS_RTOL}")
+            x_cl = ncdhw(x)
+            w_cl = w_bf.contiguous(memory_format=torch.channels_last_3d)
+            b_bf = bias.to(torch.bfloat16)
+            report("conv3d_same_affine", f"{c}->{c} at {'x'.join(map(str, sp))} N={n}", err,
+                   bound, _median_ms(lambda: cv.conv3d_same_affine(x, pw, bias, sc, sh)),
+                   _median_ms(lambda: cv.conv3d_same_affine_ref(x, w_bf, bias, sc, sh)),
+                   _median_ms(lambda: F.conv3d(instance_norm_lrelu(x_cl, norm_w, norm_b),
+                                               w_cl, b_bf, padding=1)),
+                   "norm + cuDNN bf16 conv",
+                   unfused_kernel_a_ms=_median_ms(lambda: cv.conv3d_same(
+                       to_ndhwc(instance_norm_lrelu(x_cl, norm_w, norm_b)), pw, bias)),
+                   stats_rel_err=serr)
+            del x, x_cl, out, ref
+    # kernel D's dual form (decoders' first convs), N=1 (inference) and 2
+    # (training)
+    for n in (1, TRAIN_BATCH):
+        for c, sp in KERNEL_B_SHAPES:
+            a, b = (rnd(n, *sp, c).to(torch.bfloat16) for _ in range(2))
+            w = rnd(c, 2 * c, 3, 3, 3, scale=(2.0 / (54 * c)) ** 0.5)
+            w_bf = w.to(torch.bfloat16)
+            bias = rnd(c, scale=0.1)
+            pw = cv.prepare_conv3d_weight(w, (c, c))
+            out, stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+            ref, _ = cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)
+            bound = ATOL + RTOL * ref.float().abs().max().item()
+            err = _check(f"conv3d_same_dual_stats {c}+{c}->{c} at {sp} N={n}", out, ref, bound)
+            serr = _stats_rel_err(stats, out)
+            if not serr <= STATS_RTOL:
+                raise AssertionError(f"conv3d_same_dual_stats N={n} stats: {serr:.3e} > "
+                                     f"{STATS_RTOL}")
+            report("conv3d_same_affine",
+                   f"dual {c}+{c}->{c} at {'x'.join(map(str, sp))} N={n}", err, bound,
+                   _median_ms(lambda: cv.conv3d_same_dual_stats(a, b, pw, bias)),
+                   _median_ms(lambda: cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)),
+                   _median_ms(lambda: cv.conv3d_same_dual(a, b, pw, bias)),
+                   "kernel B, no stats", stats_rel_err=serr)
+            del a, b, out, ref
+    # kernel E at every norm shape, N=1: stats, then apply in both rounding
+    # orders; the unfused route is the port's plain norm (stats + normalize)
+    for c, sp in NORM_SHAPES:
+        x = (rnd(1, *sp, c, scale=3.0) + 1).to(torch.bfloat16)
+        stats = fn.channel_stats(x)
+        serr = (((stats - fn.channel_stats_ref(x)).abs()
+                 / fn.channel_stats_ref(x.abs())).max().item())
+        if not serr <= 1e-4:
+            raise AssertionError(f"channel_stats {c} at {sp}: {serr:.3e} > 1e-4")
+        norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
+        x_cl = ncdhw(x)
+        unfused_ms = _median_ms(lambda: instance_norm_lrelu(x_cl, norm_w, norm_b))
+        what = f"{c} at {'x'.join(map(str, sp))} N=1"
+        report("channel_stats", what, serr, 1e-4, _median_ms(lambda: fn.channel_stats(x)),
+               _median_ms(lambda: fn.channel_stats_ref(x)), unfused_ms,
+               "plain norm: stats + normalize")
+        sc, sh = fn.stats_affine(stats, norm_w, norm_b, x.numel() // c)
+        sc, sh = sc.contiguous(), sh.contiguous()
+        for cast_first in (True, False):
+            got = fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)
+            want = fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first).float()
+            # exact: the kernel rounds the product, the sum, the cast and the
+            # activation where the plain version does
+            bad = (got.float() != want).sum().item()
+            err = (got.float() - want).abs().max().item()
+            if bad:
+                raise AssertionError(f"affine_lrelu {what}: {bad} values differ")
+            report("affine_lrelu", f"{what} cast_first={cast_first}", err, 0.0,
+                   _median_ms(lambda: fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)),
+                   _median_ms(lambda: fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first)),
+                   unfused_ms, "plain norm: stats + normalize")
+        del x, x_cl, got, want
+    # kernel F at the stage-0 head, N=1: raw (1, 96, 192, 192, 30) -> 47 bf16
+    c, sp = KERNEL_A_SHAPES[0]
+    raw = rnd(1, *sp, c, scale=2.0).to(torch.bfloat16)
+    head = rnd(47, c, 1, 1, 1, scale=(1.0 / c) ** 0.5)
+    sc, sh = rnd(1, c).abs() + 0.5, rnd(1, c)
+    norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
+    got = sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)
+    ref = sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.float32)
+    bound = ATOL + RTOL * ref.abs().max().item()
+    err = _check(f"seghead {c}->47 at {sp}", got, ref, bound)
+    raw_cl, head_bf = ncdhw(raw), head.to(torch.bfloat16)
+    report("seghead", f"{c}->47 at {'x'.join(map(str, sp))} N=1", err, bound,
+           _median_ms(lambda: sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)),
+           _median_ms(lambda: sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.bfloat16)),
+           _median_ms(lambda: F.conv3d(instance_norm_lrelu(raw_cl, norm_w, norm_b),
+                                       head_bf).float()),
+           "plain norm + cuDNN bf16 1x1x1 conv + fp32 cast")
+    del raw, raw_cl, got, ref
+    torch.cuda.empty_cache()
+    return results
+
+
 def _flagship_plans():
     from multitalent_tpu_torch.io import Plans
     return Plans.from_dict({
@@ -255,50 +445,96 @@ def _flagship_net(plans, dtype):
     return net
 
 
-def phase_main_path(workdir: str) -> dict:
+def _kernel_counters() -> dict:
+    """Every kernel wrapper of the port by the name its launch count goes by."""
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    from multitalent_tpu_torch.ops import seghead as sg
+    return {"conv3d_same": cv.conv3d_same, "conv3d_same_dual": cv.conv3d_same_dual,
+            "conv3d_same_wgrad": cv.conv3d_same_wgrad,
+            "conv3d_same_affine": cv.conv3d_same_affine,
+            "channel_stats": fn.channel_stats, "affine_lrelu": fn.affine_lrelu,
+            "seghead": sg.seghead}
+
+
+def _run_counted(fn):
+    """fn() with every kernel's launch count set to 0 just before it; returns
+    (fn's result, the counts read just after)."""
+    counters = _kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    result = fn()
+    return result, {name: k.launches for name, k in counters.items()}
+
+
+def _expect(counts: dict, scale: int) -> dict:
+    return {name: counts.get(name, 0) * scale for name in _kernel_counters()}
+
+
+def _case_tiles() -> tuple[int, list[int]]:
+    """Tiles of the synthetic case once resampled to the plans' spacing, and
+    that shape."""
+    import numpy as np
+    from multitalent_tpu_torch.ops.sliding_window import compute_steps_for_sliding_window
+    resampled = [int(round(s * sp / t))
+                 for s, sp, t in zip(CASE_SHAPE, CASE_SPACING_ZYX, SPACING_ZYX)]
+    n_tiles = int(np.prod([len(s) for s in compute_steps_for_sliding_window(
+        PATCH, resampled, 0.5)]))
+    return n_tiles, resampled
+
+
+def _write_main_case(workdir: str) -> None:
+    """The flagship model folder and one synthetic CT case under workdir."""
     import numpy as np
     import torch
-    from multitalent_tpu_torch.cli.predict_multitalent import main
     from multitalent_tpu_torch.inference.model_restore import save_model_folder
-    from multitalent_tpu_torch.inference.predict import REGIONS
-    from multitalent_tpu_torch.io import Geometry, read_nifti, write_nifti
-    from multitalent_tpu_torch.ops import conv3d as cv
-    from multitalent_tpu_torch.ops.sliding_window import compute_steps_for_sliding_window
+    from multitalent_tpu_torch.io import Geometry, write_nifti
 
     plans = _flagship_plans()
     net = _flagship_net(plans, torch.bfloat16)
-    per_forward = net.kernel_launches_per_forward()
-    model = os.path.join(workdir, "model")
-    save_model_folder(model, plans, [net.state_dict()], "MultiTalent_trainer_ddp",
-                      fp16=True)
+    save_model_folder(os.path.join(workdir, "model"), plans, [net.state_dict()],
+                      "MultiTalent_trainer_ddp", fp16=True)
     os.makedirs(os.path.join(workdir, "in"))
     rng = np.random.default_rng(SEED)
     ct = (rng.standard_normal(CASE_SHAPE, dtype=np.float32) * 300).astype(np.int16)
     write_nifti(os.path.join(workdir, "in", "case_0000.nii.gz"), ct,
                 Geometry(spacing=CASE_SPACING_ZYX[::-1]))
-    resampled = [int(round(s * sp / t))
-                 for s, sp, t in zip(CASE_SHAPE, CASE_SPACING_ZYX, SPACING_ZYX)]
-    n_tiles = int(np.prod([len(s) for s in compute_steps_for_sliding_window(
-        PATCH, resampled, 0.5)]))
-    out = os.path.join(workdir, "out")
 
-    cv.conv3d_same.launches = 0
-    cv.conv3d_same_dual.launches = 0
-    t0 = time.perf_counter()
-    timings = main(["-i", os.path.join(workdir, "in"), "-o", out, "-m", model,
-                    "--device", "cuda"])
-    wall = time.perf_counter() - t0
-    launches = {"conv3d_same": cv.conv3d_same.launches,
-                "conv3d_same_dual": cv.conv3d_same_dual.launches}
+
+def phase_main_path(workdir: str, fused: bool = False) -> dict:
+    """The predict CLI on the flagship case, unfused or (MTTPU_FUSED_NORM=1)
+    fused; returns launch counts, seconds per case and the output folder."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict_multitalent import main
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+
+    model = os.path.join(workdir, "model")
+    if not os.path.isdir(model):
+        _write_main_case(workdir)
+    n_tiles, resampled = _case_tiles()
+    route = "fused" if fused else "unfused"
+    net = _flagship_net(_flagship_plans(), torch.bfloat16)
+    per_forward = (net.fused_kernel_launches_per_forward() if fused
+                   else net.kernel_launches_per_forward())
+    out = os.path.join(workdir, f"out_{route}")
+    os.environ["MTTPU_FUSED_NORM"] = "1" if fused else "0"
+    try:
+        t0 = time.perf_counter()
+        timings, launches = _run_counted(lambda: main(
+            ["-i", os.path.join(workdir, "in"), "-o", out, "-m", model, "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MTTPU_FUSED_NORM")
 
     (case,) = timings
     forwards = case["forwards"]
     if forwards != n_tiles * 8:
         raise AssertionError(f"{forwards} forwards, expected {n_tiles} tiles x 8")
-    for name, n in launches.items():
-        expect = per_forward[name] * forwards
-        if n == 0 or n != expect:
-            raise AssertionError(f"{name}: {n} launches, expected {expect}")
+    expect = _expect(per_forward, forwards)
+    if launches != expect or any(launches[k] == 0 for k in per_forward):
+        raise AssertionError(f"{route} launches {launches}, expected {expect}")
     seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
     if seg.shape != CASE_SHAPE or not set(np.unique(seg).tolist()) <= set(range(47)):
         raise AssertionError(f"labelmap {seg.shape} {np.unique(seg)[:5]}")
@@ -308,16 +544,38 @@ def phase_main_path(workdir: str) -> dict:
         if mask.shape != CASE_SHAPE or not set(np.unique(mask).tolist()) <= {0, 1}:
             raise AssertionError(f"region {r}: {mask.shape}")
         fg.append(float(mask.mean()))
-    print(f"main path: case {CASE_SHAPE} at spacing {CASE_SPACING_ZYX} -> resampled "
-          f"{tuple(resampled)}, {n_tiles} tiles x 8 mirror combos = {forwards} forwards;"
-          f" labelmap + {len(fg)} region NIfTIs at {CASE_SHAPE}, foreground share "
+    print(f"main path ({route}): case {CASE_SHAPE} at spacing {CASE_SPACING_ZYX} -> "
+          f"resampled {tuple(resampled)}, {n_tiles} tiles x 8 mirror combos = {forwards} "
+          f"forwards; labelmap + {len(fg)} region NIfTIs at {CASE_SHAPE}, foreground share "
           f"{min(fg):.3f}..{max(fg):.3f}")
-    print(f"launches: {launches} = per forward {per_forward} x {forwards}")
-    print(f"seconds per case: {wall:.2f} (predict {case['predict_s']:.2f}, "
+    print(f"launches ({route}): { {k: v for k, v in launches.items() if v} } = per forward "
+          f"{per_forward} x {forwards}")
+    print(f"seconds per case ({route}): {wall:.2f} (predict {case['predict_s']:.2f}, "
           f"export {case['export_s']:.2f}; the rest loads the model and "
           f"preprocesses on the host)")
     return {"launches": launches, "seconds_per_case": wall, "predict_s": case["predict_s"],
-            "forwards": forwards}
+            "forwards": forwards, "out": out}
+
+
+def compare_masks(unfused: dict, fused: dict) -> dict:
+    """Every region mask of the fused predict CLI run against the unfused
+    run's, on the same case and weights."""
+    import numpy as np
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    agree = []
+    for r in REGIONS:
+        a, _ = read_nifti(os.path.join(fused["out"], "individual", r, "case.nii.gz"))
+        b, _ = read_nifti(os.path.join(unfused["out"], "individual", r, "case.nii.gz"))
+        agree.append(float(np.mean(a == b)))
+    worst, mean = min(agree), float(np.mean(agree))
+    print(f"fused vs unfused predict CLI, region masks: worst region {worst:.6f} (bound "
+          f"{MASK_AGREE_WORST}), mean {mean:.6f} (bound {MASK_AGREE_MEAN}); seconds per "
+          f"case {fused['seconds_per_case']:.2f} fused vs {unfused['seconds_per_case']:.2f} "
+          f"unfused (predict {fused['predict_s']:.2f} vs {unfused['predict_s']:.2f})")
+    if not (worst >= MASK_AGREE_WORST and mean >= MASK_AGREE_MEAN):
+        raise AssertionError(f"fused masks disagree: worst {worst}, mean {mean}")
+    return {"worst": worst, "mean": mean}
 
 
 def phase_tile_probabilities() -> dict:
@@ -351,6 +609,112 @@ def phase_tile_probabilities() -> dict:
             and out["fp32_max"] <= PROB_BOUND_FP32_MAX
             and out["fp32_mean"] <= PROB_BOUND_FP32_MEAN):
         raise AssertionError(f"probabilities out of bounds: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _slope(net, slope: float):
+    """Every block's LeakyReLU slope set to `slope` (a faulty activation for
+    the controls of phase 4b), restored after."""
+    from multitalent_tpu_torch.models.blocks import ConvDropoutNormNonlin
+    blocks = [m for m in net.modules() if isinstance(m, ConvDropoutNormNonlin)]
+    old = [b.negative_slope for b in blocks]
+    for b in blocks:
+        b.negative_slope = slope
+    try:
+        yield
+    finally:
+        for b, v in zip(blocks, old):
+            b.negative_slope = v
+
+
+def _dp(p, q) -> tuple[float, float]:
+    d = (p - q).abs()
+    return d.max().item(), d.mean().item()
+
+
+def phase_fused_tile_probabilities() -> dict:
+    """One tile through the fused forward in bf16 against its plain versions
+    at the same rounding points and against the unfused plain fp32 forward;
+    then the plain forward with MTTPU_PALLAS_NORM=1 (every norm on kernel E,
+    no grad) against the default; each route's bounds against controls with
+    a faulty activation; and one forward's time on each route."""
+    import torch
+    from multitalent_tpu_torch.models.blocks import ConvDropoutNormNonlin
+    from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plans = _flagship_plans()
+    dev = torch.device("cuda")
+    net = _flagship_net(plans, torch.bfloat16).to(dev).eval()
+    net32 = _flagship_net(plans, torch.float32).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
+    logits = unet_forward_fused(net, x)
+    if logits.dtype != torch.bfloat16 or logits.shape != (1, 47, *PATCH):
+        raise AssertionError(f"fused logits {logits.dtype} {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite fused logits")
+    p_fused = torch.sigmoid(logits.float())
+    p_fused_plain = torch.sigmoid(unet_forward_fused(net, x, use_kernels=False).float())
+    with torch.no_grad():
+        p_fp32 = torch.sigmoid(net32(x, use_kernels=False))
+        p_default = torch.sigmoid(net(x))
+    norms = sum(1 for m in net.modules() if isinstance(m, ConvDropoutNormNonlin))
+
+    def pallas_norm_forward():
+        os.environ["MTTPU_PALLAS_NORM"] = "1"
+        try:
+            with torch.no_grad():
+                return torch.sigmoid(net(x))
+        finally:
+            os.environ.pop("MTTPU_PALLAS_NORM")
+
+    p_pallas, launches = _run_counted(pallas_norm_forward)
+    if launches["channel_stats"] != norms or launches["affine_lrelu"] != norms:
+        raise AssertionError(f"MTTPU_PALLAS_NORM=1: launches {launches}, {norms} norms")
+    out = {}
+    out["bf16_max"], out["bf16_mean"] = _dp(p_fused, p_fused_plain)
+    out["fp32_max"], out["fp32_mean"] = _dp(p_fused, p_fp32)
+    out["pallas_norm_max"], out["pallas_norm_mean"] = _dp(p_pallas, p_default)
+    del p_fused, p_fp32, p_pallas
+    controls = []
+    for slope in CONTROL_SLOPES:
+        with _slope(net, slope):
+            fused = _dp(torch.sigmoid(unet_forward_fused(net, x).float()), p_fused_plain)
+            pallas = _dp(pallas_norm_forward(), p_default)
+        controls.append({"slope": slope, "fused": fused, "pallas_norm": pallas})
+    out["controls"] = controls
+    del p_fused_plain, p_default
+    print(f"tile {PATCH}, fused route: |dp| kernels bf16 vs plain bf16: max "
+          f"{out['bf16_max']:.3e} (bound {FUSED_PROB_BOUND}), mean {out['bf16_mean']:.3e} "
+          f"(bound {FUSED_PROB_BOUND_MEAN}); vs unfused plain fp32: max "
+          f"{out['fp32_max']:.3e} (bound {PROB_BOUND_FP32_MAX}), mean "
+          f"{out['fp32_mean']:.3e} (bound {PROB_BOUND_FP32_MEAN})")
+    print(f"tile {PATCH}, MTTPU_PALLAS_NORM=1 ({norms} norms on kernel E) vs the default "
+          f"norm: |dp| max {out['pallas_norm_max']:.3e} (bound {PALLAS_NORM_BOUND}), mean "
+          f"{out['pallas_norm_mean']:.3e} (bound {PALLAS_NORM_BOUND_MEAN})")
+    for c in controls:
+        print(f"control, LeakyReLU slope {c['slope']} for 1e-2 through the same kernels: "
+              f"fused route |dp| max {c['fused'][0]:.3e}, mean {c['fused'][1]:.3e}; "
+              f"MTTPU_PALLAS_NORM=1 |dp| max {c['pallas_norm'][0]:.3e}, mean "
+              f"{c['pallas_norm'][1]:.3e}")
+    if not (out["bf16_max"] <= FUSED_PROB_BOUND and out["bf16_mean"] <= FUSED_PROB_BOUND_MEAN
+            and out["fp32_max"] <= PROB_BOUND_FP32_MAX
+            and out["fp32_mean"] <= PROB_BOUND_FP32_MEAN
+            and out["pallas_norm_max"] <= PALLAS_NORM_BOUND
+            and out["pallas_norm_mean"] <= PALLAS_NORM_BOUND_MEAN):
+        raise AssertionError(f"fused probabilities out of bounds: {out}")
+    for c in controls:
+        (f_max, f_mean), (p_max, p_mean) = c["fused"], c["pallas_norm"]
+        if not ((f_max > FUSED_PROB_BOUND or f_mean > FUSED_PROB_BOUND_MEAN)
+                and (p_max > PALLAS_NORM_BOUND or p_mean > PALLAS_NORM_BOUND_MEAN)):
+            raise AssertionError(f"the bounds pass a faulty activation: {c}")
+    with torch.no_grad():
+        out["unfused_forward_ms"] = _median_ms(lambda: net(x), iters=5)
+        out["fused_forward_ms"] = _median_ms(lambda: unet_forward_fused(net, x), iters=5)
+    print(f"one bf16 forward of a tile: fused {out['fused_forward_ms']:.2f} ms, unfused "
+          f"{out['unfused_forward_ms']:.2f} ms (median of 5, CUDA events)")
     return out
 
 
@@ -396,7 +760,8 @@ def _write_training_task(root: str, plans) -> tuple[str, str]:
 
 def _check_dw_through_kernels(trainer) -> float:
     """One training step's dw of every kernel conv, through kernel C, against
-    the plain version on the same bf16 inputs (captured from the step)."""
+    the plain version on the same bf16 inputs (captured from the step), on the
+    trainer's forward route."""
     import torch
     from multitalent_tpu_torch.ops import conv3d as cv
     dev = trainer.device
@@ -426,8 +791,8 @@ def _check_dw_through_kernels(trainer) -> float:
     cv.conv3d_same_wgrad, cv.conv3d_same_wgrad_dual = rec_single, rec_dual
     try:
         trainer.network.zero_grad()
-        loss, _ = trainer.loss_fn(trainer.network(data, deep_supervision=True), targets,
-                                  {"valid_region_mask": valid})
+        loss, _ = trainer.loss_fn(trainer.network_forward(data, deep_supervision=True),
+                                  targets, {"valid_region_mask": valid})
         loss.backward()
     finally:
         cv.conv3d_same_wgrad, cv.conv3d_same_wgrad_dual = single, dual
@@ -447,7 +812,9 @@ def _check_dw_through_kernels(trainer) -> float:
     return worst
 
 
-def phase_training(workdir: str) -> dict:
+def phase_training(workdir: str, fused: bool = False) -> dict:
+    """The train CLI at full flagship width, unfused or (MTTPU_FUSED_TRAIN=1)
+    fused, then a prediction from the folder it wrote."""
     import numpy as np
     import torch
     from multitalent_tpu.paths import default_plans_identifier
@@ -456,63 +823,75 @@ def phase_training(workdir: str) -> dict:
     from multitalent_tpu_torch.inference.predict import REGIONS
     from multitalent_tpu_torch.io import read_nifti
     from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
-    from multitalent_tpu_torch.ops import conv3d as cv
     from multitalent_tpu_torch.training.trainers import init_weights_he
 
     plans = _flagship_plans()
+    route = "fused" if fused else "unfused"
     t0 = time.perf_counter()
-    task, _ = _write_training_task(workdir, plans)
+    task = "Task100_MultiTalent"
+    if not os.path.isdir(os.path.join(workdir, "preprocessed", task)):
+        task, _ = _write_training_task(workdir, plans)
     write_s = time.perf_counter() - t0
+    results = os.path.join(workdir, f"results_{route}")
     os.environ.update({"nnUNet_preprocessed": os.path.join(workdir, "preprocessed"),
-                       "RESULTS_FOLDER": os.path.join(workdir, "results"),
+                       "RESULTS_FOLDER": results,
                        "MTTPU_MAX_EPOCHS": "1", "MTTPU_ITERS_PER_EPOCH": str(TRAIN_STEPS),
-                       "MTTPU_VAL_ITERS": "1"})
+                       "MTTPU_VAL_ITERS": "1", "MTTPU_FUSED_TRAIN": "1" if fused else "0"})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kernels = (cv.conv3d_same, cv.conv3d_same_dual, cv.conv3d_same_wgrad)
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    trainer = train_main(["3d_fullres", "MultiTalent_trainer_ddp", task, "0",
-                          "--device", "cuda"])
-    train_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    try:
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", "MultiTalent_trainer_ddp", task, "0", "--device", "cuda"]))
+        train_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    net = trainer.network
-    per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
-    steps, val = trainer.step, trainer.num_val_batches_per_epoch
-    expect = {k: per_step[k] * steps + per_fwd.get(k, 0) * val for k in per_step}
-    if steps != TRAIN_STEPS or launches != expect or 0 in launches.values():
-        raise AssertionError(f"{steps} steps, launches {launches}, expected {expect}")
-    losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"non-finite losses {losses}")
-    fresh = build_unet_from_plans(plans, 0, num_classes=47)
-    init_weights_he(fresh, torch.Generator().manual_seed(trainer.seed))
-    trained = net.state_dict()
-    still = [k for k, v in fresh.state_dict().items()
-             if k.endswith("weight") and k != "seg_outputs.0.weight"
-             and torch.equal(v, trained[k].cpu())]
-    if still:
-        raise AssertionError(f"weights that did not move: {still}")
-    step_s = sorted(trainer.step_seconds[2:])
-    median_s = step_s[len(step_s) // 2] if len(step_s) % 2 else (
-        step_s[len(step_s) // 2 - 1] + step_s[len(step_s) // 2]) / 2
-    print(f"training: {steps} steps of batch {TRAIN_BATCH} at {PATCH}, bf16, DS, host patch "
-          f"{tuple(int(v) for v in trainer.basic_generator_patch_size)}; losses "
-          f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
-          f"{[round(v, 4) for v in trainer.all_val_losses]} (val)")
-    print(f"seconds per step: median {median_s:.3f} of steps 3..{steps} "
-          f"({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak memory "
-          f"{peak_gib:.2f} GiB; cases written in {write_s:.1f} s; train CLI {train_s:.1f} s")
-    print(f"training launches: {launches} = per step {per_step} x {steps} + per forward "
-          f"{per_fwd} x {val} (validation)")
-    dw_worst = _check_dw_through_kernels(trainer)
+        net = trainer.network
+        if fused:
+            per_step = net.fused_kernel_launches_per_step()
+            per_fwd = net.fused_kernel_launches_per_forward(differentiable=True)
+        else:
+            per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+        steps, val = trainer.step, trainer.num_val_batches_per_epoch
+        expect = {k: a + b for (k, a), b in zip(_expect(per_step, steps).items(),
+                                                _expect(per_fwd, val).values())}
+        if (steps != TRAIN_STEPS or launches != expect
+                or any(launches[k] == 0 for k in per_step)):
+            raise AssertionError(f"{route}: {steps} steps, launches {launches}, "
+                                 f"expected {expect}")
+        losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite losses {losses}")
+        fresh = build_unet_from_plans(plans, 0, num_classes=47)
+        init_weights_he(fresh, torch.Generator().manual_seed(trainer.seed))
+        trained = net.state_dict()
+        still = [k for k, v in fresh.state_dict().items()
+                 if k.endswith("weight") and k != "seg_outputs.0.weight"
+                 and torch.equal(v, trained[k].cpu())]
+        if still:
+            raise AssertionError(f"weights that did not move: {still}")
+        step_s = sorted(trainer.step_seconds[2:])
+        median_s = step_s[len(step_s) // 2] if len(step_s) % 2 else (
+            step_s[len(step_s) // 2 - 1] + step_s[len(step_s) // 2]) / 2
+        print(f"training ({route}): {steps} steps of batch {TRAIN_BATCH} at {PATCH}, bf16, "
+              f"DS, host patch "
+              f"{tuple(int(v) for v in trainer.basic_generator_patch_size)}; losses "
+              f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+              f"{[round(v, 4) for v in trainer.all_val_losses]} (val)")
+        print(f"seconds per step ({route}): median {median_s:.3f} of steps 3..{steps} "
+              f"({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak memory "
+              f"{peak_gib:.2f} GiB; cases written in {write_s:.1f} s; train CLI "
+              f"{train_s:.1f} s")
+        print(f"training launches ({route}): { {k: v for k, v in launches.items() if v} } "
+              f"= per step {per_step} x {steps} + per forward {per_fwd} x {val} "
+              f"(validation)")
+        dw_worst = _check_dw_through_kernels(trainer)
+    finally:
+        os.environ.pop("MTTPU_FUSED_TRAIN")
 
-    model = os.path.join(workdir, "results", "nnUNet", "3d_fullres", task,
+    model = os.path.join(results, "nnUNet", "3d_fullres", task,
                          f"MultiTalent_trainer_ddp__{default_plans_identifier}")
-    out = os.path.join(workdir, "out_trained")
+    out = os.path.join(workdir, f"out_trained_{route}")
     predict_main(["-i", os.path.join(workdir, "in"), "-o", out, "-m", model, "-f", "0",
                   "--device", "cuda", "--disable_tta"])
     seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
@@ -520,8 +899,8 @@ def phase_training(workdir: str) -> dict:
              for r in REGIONS]
     if seg.shape != CASE_SHAPE or set(masks) != {CASE_SHAPE}:
         raise AssertionError(f"trained folder predicted {seg.shape}, masks {set(masks)}")
-    print(f"the trained folder predicts: labelmap + {len(masks)} region NIfTIs at "
-          f"{CASE_SHAPE}")
+    print(f"the trained folder ({route}) predicts: labelmap + {len(masks)} region NIfTIs "
+          f"at {CASE_SHAPE}")
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
             "dw_worst_rel": dw_worst}
 
@@ -534,11 +913,16 @@ def main() -> int:
         return 1
     name, smi, build_s = phase_device()
     kernels = phase_kernels()
+    fused_kernels = phase_fused_kernels()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         main_path = phase_main_path(workdir)
+        main_fused = phase_main_path(workdir, fused=True)
+        masks = compare_masks(main_path, main_fused)
         phase_tile_probabilities()
+        tile_fused = phase_fused_tile_probabilities()
         training = phase_training(workdir)
+        training_fused = phase_training(workdir, fused=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -558,16 +942,39 @@ def main() -> int:
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces[0], "also_replaces": list(replaces[1:]),
                      "launches": training["launches"][kname],
-                     "launches_predict": main_path["launches"].get(kname, 0),
+                     "launches_predict": main_path["launches"][kname],
+                     "launches_train_fused": training_fused["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
                      "cudnn_bf16_ms": stage0["cudnn_bf16_ms"],
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, stage0["splits"])), stage0["cout"],
                          "x".join(map(str, stage0["spatial"])), stage0["n"])})
-    print(f"summary: build {build_s:.1f} s, {main_path['seconds_per_case']:.2f} s per "
-          f"case, {training['seconds_per_step']:.3f} s per training step, peak "
-          f"{training['peak_gib']:.2f} GiB, on {smi}")
+    # the fused route's kernels: launches from the fused predict CLI run (and
+    # kernel D's from the fused training run), times at the stage-0 shape
+    for kname, src, replaces in (
+            ("conv3d_same_affine", a_src, "multitalent_tpu/ops/pallas_conv.py:326"),
+            ("channel_stats", "multitalent_tpu_torch/csrc/fused_norm.cu",
+             "multitalent_tpu/ops/fused_norm.py:37"),
+            ("affine_lrelu", "multitalent_tpu_torch/csrc/fused_norm.cu",
+             "multitalent_tpu/ops/fused_norm.py:56"),
+            ("seghead", "multitalent_tpu_torch/csrc/seghead.cu",
+             "multitalent_tpu/ops/pallas_seghead.py:31")):
+        res = fused_kernels[kname]
+        stage0 = res[0]
+        rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": main_fused["launches"][kname],
+                     "launches_train_fused": training_fused["launches"][kname],
+                     "max_abs_err": max(r["err"] for r in res),
+                     "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
+                     "unfused_route_ms": stage0["unfused_ms"], "timed_at": stage0["what"]})
+    print(f"summary: build {build_s:.1f} s; seconds per case {main_path['seconds_per_case']:.2f}"
+          f" unfused, {main_fused['seconds_per_case']:.2f} fused (masks: worst region "
+          f"{masks['worst']:.6f}); one forward {tile_fused['unfused_forward_ms']:.2f} ms "
+          f"unfused, {tile_fused['fused_forward_ms']:.2f} ms fused; seconds per training "
+          f"step {training['seconds_per_step']:.3f} unfused, "
+          f"{training_fused['seconds_per_step']:.3f} fused; peak {training['peak_gib']:.2f} "
+          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

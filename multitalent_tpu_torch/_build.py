@@ -29,6 +29,7 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # n, z, y, x, ca, cb, cout, coutp, bn -> workspace bytes (-1: bad sizes)
     "mt_conv3d_workspace": ([_I] * 9, _L),
@@ -43,6 +44,24 @@ _SIGNATURES = {
     "mt_conv3d_wgrad": ([_P, _P, _P, _P, _L] + [_I] * 6 + [_P], _I),
     # a, b, g, dw, ws, ws_bytes, n, z, y, x, ca, cb, cout, stream
     "mt_conv3d_wgrad_dual": ([_P, _P, _P, _P, _P, _L] + [_I] * 7 + [_P], _I),
+    # n, z, y, x, ca, cb, cout, coutp, bn -> kernel D's workspace bytes
+    "mt_conv3d_stats_workspace": ([_I] * 9, _L),
+    # x, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n, z, y, x,
+    # cin, cout, coutp, bn, stream
+    "mt_conv3d_same_affine": ([_P] * 5 + [_F] + [_P] * 3 + [_L] + [_I] * 8 + [_P], _I),
+    # a, b, w, bias, out, stats, ws, ws_bytes, n, z, y, x, ca, cb, cout,
+    # coutp, bn, stream
+    "mt_conv3d_same_dual_stats": ([_P] * 7 + [_L] + [_I] * 9 + [_P], _I),
+    # n, s, c -> kernel E stats' workspace bytes (-1: bad sizes)
+    "mt_channel_stats_workspace": ([_I, _L, _I], _L),
+    # x, stats, ws, ws_bytes, n, s, c, stream
+    "mt_channel_stats": ([_P] * 3 + [_L, _I, _L, _I, _P], _I),
+    # x, y, scale, shift, n, s, c, slope, cast_first, stream
+    "mt_affine_lrelu": ([_P] * 4 + [_I, _L, _I, _F, _I, _P], _I),
+    # k -> the largest C kernel F takes
+    "mt_seghead_max_channels": ([_I], _I),
+    # x, scale, shift, w, bias, out, out_bf16, n, s, c, k, kp, slope, stream
+    "mt_seghead": ([_P] * 6 + [_I, _I, _L, _I, _I, _I, _F, _P], _I),
     "mt_error_string": ([_I], ctypes.c_char_p),
 }
 

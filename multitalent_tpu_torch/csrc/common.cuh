@@ -1,6 +1,8 @@
-// Building blocks shared by the conv kernels (conv3d_same.cu, conv3d_wgrad.cu):
-// cp.async copies with zero-fill, ldmatrix fragment loads, the bf16 mma.sync
-// tile product, and the 256-voxel box shapes the kernels tile volumes with.
+// Building blocks shared by the kernels (conv3d_same.cu, conv3d_wgrad.cu,
+// fused_norm.cu, seghead.cu): cp.async copies with zero-fill, ldmatrix
+// fragment loads, the bf16 mma.sync tile product, the 256-voxel box shapes the
+// conv kernels tile volumes with, the normalize prologue's rounding, and the
+// channel-statistics launchers kernel D borrows from kernel E.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,5 +122,32 @@ __device__ __forceinline__ void load_box(__nv_bfloat16* dst,
     }
   }
 }
+
+// lrelu(bf16(v)): the normalize prologue's rounding order (cast, then the
+// activation on the bf16 value, its product rounded to bf16 again), as
+// multitalent_tpu/ops/pallas_conv.py:_affine_lrelu and
+// multitalent_tpu/ops/packed_conv.py:normalize_from_stats
+__device__ __forceinline__ __nv_bfloat16 cast_lrelu(float v, float slope) {
+  const __nv_bfloat16 y = __float2bfloat16(v);
+  const float f = __bfloat162float(y);
+  return f >= 0.f ? y : __float2bfloat16(f * slope);
+}
+
+// Host launchers of fused_norm.cu that kernel D (conv3d_same.cu) shares.
+//
+// out (n, width) = the sum over rows of part (n, rows, width), fp32, in an
+// order fixed by the sizes alone (deterministic, no atomics). Rows beyond 256
+// are summed in two passes through `ws`; reduce_rows_workspace gives its
+// bytes (-1: more rows than the two passes take).
+long long reduce_rows_workspace(int n, int rows, int width);
+cudaError_t reduce_rows(const float* part, float* out, float* ws, int n, int rows,
+                        int width, cudaStream_t stream);
+// Bytes of workspace channel_stats needs (-1: sizes it does not take).
+long long channel_stats_workspace(int n, long long s, int c);
+// stats (n, 2, c) fp32: per-sample channel sum and sum of squares of the
+// bf16 x (n, s, c); deterministic (per-block partials, fixed-order adds).
+cudaError_t channel_stats(const __nv_bfloat16* x, float* stats, float* ws,
+                          long long ws_bytes, int n, long long s, int c,
+                          cudaStream_t stream);
 
 }  // namespace mt

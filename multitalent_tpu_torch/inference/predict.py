@@ -6,7 +6,8 @@ Counterpart of multitalent_tpu/inference/predict.py (`predict_cases` :67 and
 1. the JAX package's plans-driven preprocessor (host, numpy) crops,
    resamples and normalises the volume;
 2. every fold's network runs the sliding window on the device and the fold
-   probabilities are summed there;
+   probabilities are summed there; the network call is the fused conv ->
+   norm route under MTTPU_FUSED_NORM=1 (ops/fused_unet.make_inference_forward);
 3. for region (sigmoid) models the sum is resized back to the post-cropping
    grid and thresholded at 0.5 * n_folds on the device
    (ops/device_export.py); only bool masks come to the host. Softmax models,
@@ -35,6 +36,7 @@ from multitalent_tpu.inference.segmentation_export import (
 from multitalent_tpu.tasks.multitalent import REGIONS
 from multitalent_tpu.utils.fileops import load_pickle, maybe_mkdir, subfiles
 from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
+from multitalent_tpu_torch.ops.fused_unet import make_inference_forward
 from multitalent_tpu_torch.ops.device_export import (can_export_on_device,
                                                      device_resample_threshold_bits,
                                                      segmentation_from_regions_bits)
@@ -90,6 +92,7 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
 
     restored = load_model_and_checkpoint_files(model, folds, checkpoint_name, device)
     n_folds = len(restored.networks)
+    forwards = [make_inference_forward(net) for net in restored.networks]
     if region_class_order is None:
         region_class_order = restored.regions_class_order
     predictor = SlidingWindowPredictor(
@@ -106,8 +109,8 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
         for out_fname, (data, properties) in zip(output_filenames, preprocessed):
             t0, forwards0 = time.perf_counter(), predictor.forwards
             probs_sum = None
-            for net in restored.networks:
-                probs = predictor.predict(net, data)
+            for forward in forwards:
+                probs = predictor.predict(forward, data)
                 probs_sum = probs if probs_sum is None else probs_sum + probs
             _sync(device)
             t1 = time.perf_counter()

@@ -21,17 +21,23 @@ cuDNN, as the JAX package leaves it to XLA. Activations are NCDHW tensors in
 `torch.channels_last_3d` memory, so the kernels read them as NDHWC without a
 copy.
 
+The norm is plain torch by default; MTTPU_PALLAS_NORM=1 runs it on kernel
+E (ops/fused_norm.py), without a backward.
+
 bf16 rounding differs from the JAX package in one place: the kernels add the
 bias in fp32 and round once, where JAX rounds the conv output to bf16 and adds
 a bf16 bias (packed_unet.py:51-53).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from multitalent_tpu_torch.ops import conv3d as cv
+from multitalent_tpu_torch.ops import fused_norm
 
 CL = torch.channels_last_3d
 
@@ -46,11 +52,32 @@ def from_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 4, 1, 2, 3)
 
 
+def use_pallas_norm() -> bool:
+    """MTTPU_PALLAS_NORM=1 runs every norm of the plain forward on kernel E,
+    as the JAX package's switch of the same name (models/blocks.py:25-31)
+    runs its Pallas fused norm; off by default."""
+    return os.environ.get("MTTPU_PALLAS_NORM", "0") == "1"
+
+
 def instance_norm_lrelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         negative_slope: float = 1e-2,
                         eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm (fp32 statistics over the spatial axes) -> cast to x's
-    dtype -> LeakyReLU, as multitalent_tpu/ops/packed_unet.py:65-73."""
+    dtype -> LeakyReLU, as multitalent_tpu/ops/packed_unet.py:65-73.
+
+    Under MTTPU_PALLAS_NORM=1: kernel E's two passes instead
+    (ops/fused_norm.fused_instance_norm_lrelu: LeakyReLU in fp32, then the
+    cast). That path has no backward, as the JAX package's has none, so it
+    raises while autograd is recording."""
+    if use_pallas_norm():
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "MTTPU_PALLAS_NORM=1: kernel E (ops/fused_norm.py) has no backward, "
+                "like the JAX package's fused_instance_norm_lrelu; run the forward "
+                "under torch.no_grad(), or unset MTTPU_PALLAS_NORM to train (the "
+                "missing backward is listed in ROADMAP.md, queue 1)")
+        return from_ndhwc(fused_norm.fused_instance_norm_lrelu(
+            to_ndhwc(x), weight, bias, negative_slope, eps))
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, correction=0)
     shape = (1, -1, 1, 1, 1)

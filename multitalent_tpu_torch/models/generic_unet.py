@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multitalent_tpu_torch.models.blocks import CL, StackedConvLayers
+from multitalent_tpu_torch.models.blocks import CL, ConvDropoutNormNonlin, StackedConvLayers
 
 
 def compute_stage_features(base_num_features: int, num_stages: int,
@@ -83,6 +83,18 @@ class GenericUNet(nn.Module):
         self.conv_blocks_localization = nn.ModuleList(loc)
         self.seg_outputs = nn.ModuleList(seg)
 
+    def encoder_stages(self) -> list[list[ConvDropoutNormNonlin]]:
+        """The conv blocks of each encoder stage and of the bottleneck, in order."""
+        stages = [list(self.conv_blocks_context[d].blocks) for d in range(self.num_pool)]
+        stages.append([b for stack in self.conv_blocks_context[self.num_pool]
+                       for b in stack.blocks])
+        return stages
+
+    def decoder_stages(self) -> list[list[ConvDropoutNormNonlin]]:
+        """The conv blocks of each decoder stage, highest resolution last."""
+        return [[b for stack in loc for b in stack.blocks]
+                for loc in self.conv_blocks_localization]
+
     def _kernel_blocks(self) -> list:
         return [m for m in self.modules() if getattr(m, "kernel", None) is not None]
 
@@ -104,6 +116,37 @@ class GenericUNet(nn.Module):
         counts["conv3d_same"] += dx
         counts["conv3d_same_wgrad"] = len(self._kernel_blocks())
         return counts
+
+    def fused_kernel_launches_per_forward(self, differentiable: bool = False
+                                          ) -> dict[str, int]:
+        """Launches of each hand-written kernel that one forward of the fused
+        route (ops/fused_unet.py) makes: kernel D for every kernel conv (its
+        dual form on the decoders' first convs). Inference adds kernel E's
+        stats pass for every other conv (cuDNN), its apply pass for every
+        materialized activation (each encoder stage and the bottleneck, each
+        decoder stage but the last) and before every cuDNN conv inside a
+        chain, and kernel F once; training (`differentiable`) takes those in
+        plain torch."""
+        blocks = [m for m in self.modules() if isinstance(m, ConvDropoutNormNonlin)]
+        kernels = sum(1 for m in blocks if m.kernel is not None)
+        if differentiable:
+            return {"conv3d_same_affine": kernels}
+        firsts = {id(s[0]) for s in self.encoder_stages() + self.decoder_stages()}
+        other = [m for m in blocks if m.kernel is None]
+        return {"conv3d_same_affine": kernels, "channel_stats": len(other),
+                "affine_lrelu": 2 * self.num_pool + sum(1 for m in other
+                                                        if id(m) not in firsts),
+                "seghead": 1}
+
+    def fused_kernel_launches_per_step(self) -> dict[str, int]:
+        """Launches of each hand-written kernel that one training step of the
+        fused route makes: kernel D per kernel conv forward; its backward's dx
+        by kernel A (unless it reads the network's input) and dw by kernel C."""
+        kernels = self.fused_kernel_launches_per_forward(True)["conv3d_same_affine"]
+        first = self.conv_blocks_context[0].blocks[0]
+        return {"conv3d_same_affine": kernels,
+                "conv3d_same": kernels - (first.kernel is not None),
+                "conv3d_same_wgrad": kernels}
 
     def forward(self, x: torch.Tensor, *, use_kernels: bool = True,
                 deep_supervision: bool = False) -> torch.Tensor | list[torch.Tensor]:

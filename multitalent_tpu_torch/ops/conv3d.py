@@ -15,19 +15,28 @@ Counterparts of the Pallas kernels of multitalent_tpu:
 - `conv3d_same_wgrad` (kernel C) replaces `ops/pallas_conv.py:_wgrad_kernel`
   and, unpacked, `ops/pallas_merged_conv.py:_merged_wgrad_kernel`: dL/dw in
   fp32. `conv3d_same_wgrad_dual` is its form for kernel B's conv.
+- `conv3d_same_affine` (kernel D) replaces
+  `ops/pallas_conv.py:_conv_affine_kernel`, the fused conv -> InstanceNorm
+  chain's conv: `conv(lrelu(bf16(x * scale + shift))) + bias` on the
+  previous conv's raw output with the SAME halo at zero, returning the
+  output and its per-sample channel sum and sum of squares (N, 2, Cout).
+  `conv3d_same_dual_stats` is its dual form (kernel B's conv plus the stats)
+  for a decoder's first conv.
 
-Kernels A and B live in `csrc/conv3d_same.cu`, kernel C in
+Kernels A, B and D live in `csrc/conv3d_same.cu`, kernel C in
 `csrc/conv3d_wgrad.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
 of the JAX package and the physical layout of a `torch.channels_last_3d`
 NCDHW tensor. Weights are prepared with `prepare_conv3d_weight`.
 
 `Conv3dSame` and `Conv3dSameDual` are the autograd functions of the two
 convs: forward through A or B, dx through A, dw through C, db a sum of the
-output gradient.
+output gradient. `Conv3dSameAffine` and `Conv3dSameDualStats` are kernel D's:
+forward through D, the rest as `pallas_conv.py:_affine_fast_bwd` computes it.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
-`conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`) only for tensors that
+`conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`,
+`conv3d_same_affine_ref`, `conv3d_same_dual_stats_ref`) only for tensors that
 lie on the CPU. Each keeps a count of kernel launches in its `launches`
 attribute.
 """
@@ -37,6 +46,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from multitalent_tpu_torch.ops.fused_norm import affine_lrelu_ref, channel_stats_ref
 
 KC = 16  # input channels per K chunk of the kernel
 
@@ -125,6 +136,30 @@ def conv3d_same_dual_ref(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of kernel B: torch.cat along channels, then F.conv3d."""
     return conv3d_same_ref(torch.cat((a, b.to(a.dtype)), dim=-1), weight, bias)
+
+
+def conv3d_same_affine_ref(x: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor | None = None,
+                           scale: torch.Tensor | None = None,
+                           shift: torch.Tensor | None = None,
+                           negative_slope: float = 1e-2
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel D (pallas_conv.py:_ref_conv_affine): with
+    scale, shift (N, Cin) the input is lrelu(x * scale + shift) rounded to x's
+    dtype before the activation; SAME zero padding of that; the conv in fp32
+    plus bias, rounded to x's dtype; stats (N, 2, Cout) of the rounded output.
+    Differentiable by autograd."""
+    y = x if scale is None else affine_lrelu_ref(x, scale, shift, negative_slope, True)
+    out = conv3d_same_ref(y, weight, bias)
+    return out, channel_stats_ref(out)
+
+
+def conv3d_same_dual_stats_ref(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
+                               bias: torch.Tensor | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel D's dual form: kernel B's conv and its stats."""
+    out = conv3d_same_dual_ref(a, b, weight, bias)
+    return out, channel_stats_ref(out)
 
 
 def conv3d_same_wgrad_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -321,6 +356,107 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor,
     return dw
 
 
+def _launch_stats(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
+                  bias: torch.Tensor | None, affine: tuple = ()
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run kernel D's C entry `name`: allocates the output, the stats and the
+    workspace (split-K partials, per-block stats partials) the library
+    reports. `affine` is (scale, shift, slope) for the prologue."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    dev = inputs[0].device
+    n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
+    cs = [int(t.shape[-1]) for t in inputs]
+    out = torch.empty((n, z, y, xd, pw.cout), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((n, 2, pw.cout), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out, stats.zero_()
+    with torch.cuda.device(dev):
+        nbytes = lib.mt_conv3d_stats_workspace(n, z, y, xd, cs[0], sum(cs[1:]), pw.cout,
+                                               pw.coutp, pw.bn)
+        if nbytes <= 0:
+            raise ValueError(f"{name}: the kernel does not take these sizes")
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bias_ptr = None if bias is None else bias.data_ptr()
+        if affine:
+            scale, shift, slope = affine
+            code = getattr(lib, name)(
+                inputs[0].data_ptr(), pw.w.data_ptr(), bias_ptr,
+                None if scale is None else scale.data_ptr(),
+                None if shift is None else shift.data_ptr(), float(slope), out.data_ptr(),
+                stats.data_ptr(), ws.data_ptr(), nbytes, n, z, y, xd, cs[0], pw.cout,
+                pw.coutp, pw.bn, stream)
+        else:
+            code = getattr(lib, name)(
+                *(t.data_ptr() for t in inputs), pw.w.data_ptr(), bias_ptr, out.data_ptr(),
+                stats.data_ptr(), ws.data_ptr(), nbytes, n, z, y, xd, *cs, pw.cout,
+                pw.coutp, pw.bn, stream)
+    _build.check(lib, code, name)
+    return out, stats
+
+
+def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
+                       bias: torch.Tensor | None = None,
+                       scale: torch.Tensor | None = None,
+                       shift: torch.Tensor | None = None,
+                       negative_slope: float = 1e-2
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D: (out, stats) = (conv(lrelu(bf16(x * scale + shift))) + bias,
+    its per-sample channel sum and sum of squares (N, 2, Cout) fp32) for the
+    previous conv's raw output x (N, Z, Y, X, Cin) and the next norm's scale,
+    shift (N, Cin) fp32; without scale and shift, conv(x) + bias and its
+    stats. out is bf16, the stats are taken over its rounded values.
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_affine_ref."""
+    if x.device.type == "cpu":
+        return conv3d_same_affine_ref(x, unprepare_conv3d_weight(pw), bias, scale, shift,
+                                      negative_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_affine: unsupported device {x.device}")
+    _check_input(x, "x", x)
+    _check_weight(pw, (int(x.shape[-1]),), x, bias)
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift must be given together")
+    n, cin = int(x.shape[0]), int(x.shape[-1])
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v is not None and (v.dtype != torch.float32 or tuple(v.shape) != (n, cin)
+                              or v.device != x.device or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 ({n}, {cin}) tensor "
+                             f"on {x.device}")
+    out = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
+                        (scale, shift, negative_slope))
+    conv3d_same_affine.launches += 1
+    return out
+
+
+conv3d_same_affine.launches = 0
+
+
+def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
+                           bias: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D, dual form: kernel B's conv over concat(a, b) and the stats of
+    its bf16 output, (out, stats (N, 2, Cout) fp32). Its launches count on
+    `conv3d_same_affine.launches`, as one kernel.
+
+    CUDA tensors launch the kernel; CPU tensors take
+    conv3d_same_dual_stats_ref."""
+    if a.device.type == "cpu":
+        return conv3d_same_dual_stats_ref(a, b, unprepare_conv3d_weight(pw), bias)
+    if a.device.type != "cuda":
+        raise ValueError(f"conv3d_same_dual_stats: unsupported device {a.device}")
+    _check_input(a, "a", a)
+    _check_input(b, "b", a)
+    if a.shape[:4] != b.shape[:4]:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
+                         "outside the channel axis")
+    _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
+    out = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias)
+    conv3d_same_affine.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -392,6 +528,96 @@ class Conv3dSameDual(torch.autograd.Function):
         return da, db_in, dw, dbias, None
 
 
+def _fold_stats_grad(g_out: torch.Tensor, g_stats: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """The output gradient with the stats' folded in (stats = [sum(out),
+    sum(out^2)] per sample and channel): G = g_out + g_sum + 2 out g_sq, in
+    fp32 (pallas_conv.py:599-601)."""
+    acc = _acc_dtype(out)
+    shape = (int(out.shape[0]), 1, 1, 1, int(out.shape[-1]))
+    return (g_out.to(acc) + g_stats[:, 0].to(acc).reshape(shape)
+            + 2.0 * out.to(acc) * g_stats[:, 1].to(acc).reshape(shape))
+
+
+class Conv3dSameAffine(torch.autograd.Function):
+    """conv3d_same_affine with its gradient, both outputs differentiable, as
+    pallas_conv.py:_affine_fast_bwd: the stats' cotangents fold into the
+    output's (G); y = lrelu(bf16(x * scale + shift)) is recomputed, not
+    saved; dw by kernel C on (y, G), dY by kernel A on the flipped weight;
+    db, dx, dscale and dshift are elementwise sums in plain torch (the JAX
+    package leaves them to XLA). `pw` is `weight` prepared for the forward
+    kernel; scale and shift may both be None (no prologue)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, scale, shift, pw, negative_slope):
+        acc = _acc_dtype(x)
+        out, stats = conv3d_same_affine(
+            x, pw, None if bias is None else bias.to(acc),
+            None if scale is None else scale.to(acc).contiguous(),
+            None if shift is None else shift.to(acc).contiguous(), negative_slope)
+        ctx.save_for_backward(x, weight, scale, shift, out)
+        ctx.has_bias = bias is not None
+        ctx.negative_slope = negative_slope
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g_out, g_stats):
+        x, weight, scale, shift, out = ctx.saved_tensors
+        acc = _acc_dtype(x)
+        G = _fold_stats_grad(g_out, g_stats, out)
+        G16 = G.to(x.dtype).contiguous()
+        dbias = G.sum(dim=(0, 1, 2, 3)) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        affine = scale is not None
+        slope = ctx.negative_slope
+        dw = None
+        if ctx.needs_input_grad[1]:
+            y = affine_lrelu_ref(x, scale, shift, slope, True) if affine else x
+            dw = conv3d_same_wgrad(y.contiguous(), G16).to(weight.dtype)
+        if not any(ctx.needs_input_grad[i] for i in (0, 3, 4)):
+            return None, dw, dbias, None, None, None, None
+        dY = conv3d_same_dx(G16, weight)
+        if not affine:
+            return dY.to(x.dtype), dw, dbias, None, None, None, None
+        s = scale.to(acc).reshape(int(x.shape[0]), 1, 1, 1, -1)
+        t = shift.to(acc).reshape(int(x.shape[0]), 1, 1, 1, -1)
+        # y16 = cast(x s + t); lrelu'(y16) = 1 where y16 >= 0, else the slope
+        y16 = (x.to(acc) * s + t).to(x.dtype)
+        dy16 = torch.where(y16 >= 0, dY, dY * slope).to(acc)
+        dx = (dy16 * s).to(x.dtype)
+        ds = (dy16 * x.to(acc)).sum(dim=(1, 2, 3))
+        dt = dy16.sum(dim=(1, 2, 3))
+        return dx, dw, dbias, ds.to(scale.dtype), dt.to(shift.dtype), None, None
+
+
+class Conv3dSameDualStats(torch.autograd.Function):
+    """conv3d_same_dual_stats with its gradient: the stats' cotangents fold
+    into the output's (G); one kernel-A launch gives d(concat(a, b)), split
+    into da and db; dw by kernel C's dual form; db of the bias a sum of G."""
+
+    @staticmethod
+    def forward(ctx, a, b, weight, bias, pw):
+        out, stats = conv3d_same_dual_stats(a, b, pw,
+                                            None if bias is None else bias.to(_acc_dtype(a)))
+        ctx.save_for_backward(a, b, weight, out)
+        ctx.has_bias = bias is not None
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g_out, g_stats):
+        a, b, weight, out = ctx.saved_tensors
+        G = _fold_stats_grad(g_out, g_stats, out)
+        G16 = G.to(a.dtype).contiguous()
+        da = db_in = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d = conv3d_same_dx(G16, weight)
+            ca = int(a.shape[-1])
+            da, db_in = d[..., :ca].contiguous(), d[..., ca:].contiguous()
+        dw = (conv3d_same_wgrad_dual(a, b, G16).to(weight.dtype)
+              if ctx.needs_input_grad[2] else None)
+        dbias = G.sum(dim=(0, 1, 2, 3)) if ctx.has_bias and ctx.needs_input_grad[3] else None
+        return da, db_in, dw, dbias, None
+
+
 def conv3d_same_op(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None = None,
                    pw: PreparedWeight | None = None) -> torch.Tensor:
@@ -411,3 +637,29 @@ def conv3d_same_dual_op(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
         pw = prepare_conv3d_weight(weight.detach(), (int(a.shape[-1]), int(b.shape[-1])),
                                    dtype=a.dtype)
     return Conv3dSameDual.apply(a, b, weight, bias, pw)
+
+
+def conv3d_same_affine_op(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor | None = None,
+                          scale: torch.Tensor | None = None,
+                          shift: torch.Tensor | None = None,
+                          negative_slope: float = 1e-2,
+                          pw: PreparedWeight | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable kernel-D conv: (out, stats) of channels-last x with the
+    torch weight (Cout, Cin, 3, 3, 3) and the prologue's scale, shift (N,
+    Cin) (or neither); `pw` is that weight prepared in x's dtype."""
+    if pw is None:
+        pw = prepare_conv3d_weight(weight.detach(), dtype=x.dtype)
+    return Conv3dSameAffine.apply(x, weight, bias, scale, shift, pw, negative_slope)
+
+
+def conv3d_same_dual_stats_op(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor | None = None,
+                              pw: PreparedWeight | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable kernel-D dual conv over concat(a, b): (out, stats)."""
+    if pw is None:
+        pw = prepare_conv3d_weight(weight.detach(), (int(a.shape[-1]), int(b.shape[-1])),
+                                   dtype=a.dtype)
+    return Conv3dSameDualStats.apply(a, b, weight, bias, pw)

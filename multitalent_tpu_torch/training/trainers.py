@@ -8,7 +8,9 @@ bookkeeping, logging, moving averages, patience) and replaces the flax parts:
   from a seeded `torch.Generator`, computing in bf16 (fp16=True) with fp32
   master weights;
 - one training step: host batch -> pinned memory -> device -> augmentation
-  on the card (augment/pipeline.py) -> forward -> deep-supervised loss in fp32
+  on the card (augment/pipeline.py) -> forward (the fused conv -> norm route
+  under MTTPU_FUSED_TRAIN=1, ops/fused_unet.make_train_forward) ->
+  deep-supervised loss in fp32
   -> backward (through kernels A, B and C where the convs qualify) -> clip to
   global norm 12 -> SGD, Nesterov 0.99, weight decay 3e-5, poly LR per epoch;
 - checkpoints in the reference layout that inference/model_restore.py reads:
@@ -39,6 +41,7 @@ from multitalent_tpu.utils.fileops import load_pickle, maybe_mkdir, save_pickle
 from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_augment_fn,
                                                     make_val_transform_fn)
 from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
+from multitalent_tpu_torch.ops.fused_unet import make_train_forward
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
 from multitalent_tpu_torch.training.schedules import make_poly_schedule, poly_lr
@@ -94,6 +97,7 @@ class TrainerV2(NetworkTrainerBase):
         self.ds_loss_weights: np.ndarray | None = None
         self.data_aug_params: dict | None = None
         self.network: GenericUNet | None = None
+        self.network_forward = None  # make_train_forward(network), with the step functions
         self.optimizer: SGDClipped | None = None
         self.step = 0             # optimizer steps taken
         self.step_seconds: list[float] = []  # wall time of each training step
@@ -250,6 +254,7 @@ class TrainerV2(NetworkTrainerBase):
             self.patch_size, self.deep_supervision_scales, self.data_aug_params,
             self.num_input_channels)
         self._aug_generator = torch.Generator(self.device).manual_seed(self.seed + 777)
+        self.network_forward = make_train_forward(self.network)
 
     def _to_device(self, array) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(array))
@@ -302,7 +307,7 @@ class TrainerV2(NetworkTrainerBase):
         extras = {k: self._to_device(v) for k, v in self.batch_extras(batch).items()}
         if do_backprop:
             data, targets = self._augment(data, seg, self._aug_generator)
-            outputs = self.network(data, deep_supervision=True)
+            outputs = self.network_forward(data, deep_supervision=True)
             loss, aux = self.loss_fn(outputs, targets, extras)
             self.optimizer.zero_grad()
             loss.backward()
@@ -311,7 +316,7 @@ class TrainerV2(NetworkTrainerBase):
         else:
             with torch.no_grad():
                 data, targets = self._val_transform(data, seg)
-                outputs = self.network(data, deep_supervision=True)
+                outputs = self.network_forward(data, deep_supervision=True)
                 loss, aux = self.loss_fn(outputs, targets, extras)
                 if run_online_evaluation:
                     self.run_online_evaluation(self.eval_stats(outputs, targets, extras))

@@ -159,17 +159,20 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Import every module of the port, and chip_smoke, in a fresh interpreter
-    (this process's conftest has loaded jax already), build the MultiTalent
-    label -> region table, and confirm the JAX package's modules the port
-    reuses are the jax-free ones."""
+    """Import every module of the port (the fused conv -> norm route's among
+    them), chip_smoke and profile_routes, in a fresh interpreter (this process's conftest has
+    loaded jax already), build the MultiTalent label -> region table, and
+    confirm the JAX package's modules the port reuses are the jax-free ones."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multitalent_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "for n in names + ['chip_smoke']:\n"
+        "for n in names + ['chip_smoke', 'profile_routes']:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 28, names\n"
+        "fused = ['multitalent_tpu_torch.ops.fused_unet', 'multitalent_tpu_torch.ops.fused_norm',\n"
+        "         'multitalent_tpu_torch.ops.seghead']\n"
+        "assert set(fused) <= set(names), names\n"
         "from multitalent_tpu_torch.training.losses import label_region_matrix\n"
         "assert label_region_matrix().shape == (48, 47)\n"
         "reused = ['multitalent_tpu.data.loader', 'multitalent_tpu.data.dataset',\n"
