@@ -43,7 +43,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    version on the same bf16 inputs, and the written model folder must predict
    through predict_multitalent; prints seconds per step and peak memory;
 5b. the same with MTTPU_FUSED_TRAIN=1 (kernel D forward, A and C backward);
-6. one JSON line describing the kernels, then the result line.
+6. the probes (multitalent_tpu_torch/probes, the ports of scripts/' Pallas
+   probe harnesses): each probe's entry point (`main`) as a user runs it,
+   with every launch count set to 0 before and read after (each count must
+   equal what the probes' arguments launch); then each probe kernel, into a
+   NaN-filled output buffer, against its plain version at
+   the shapes its script times (the conv arms tap/sum (kernel A), im2col,
+   tap3 and wino at (2,96,96,96,120) -> 120, the Winograd kernel also
+   against a control with one row of G wrong that must break its bound; the
+   packed conv at the flagship's stages 0 and 1; the center-view conv and
+   the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
+   time of its work at the card's peak rates) and its median time beside
+   the plain version's and the library call's;
+7. one JSON line describing every kernel (A-F and the probes'), then the
+   result line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -57,6 +70,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from math import prod
+
+from multitalent_tpu_torch.probes._util import median_ms as _median_ms
 
 SEED = 0
 FLAGSHIP_POOLS = ((2, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -131,20 +147,20 @@ PALLAS_NORM_BOUND_MEAN = 4e-3
 # faulty kernel from rounding
 CONTROL_SLOPES = (0.0, 5e-3)
 
-
-def _median_ms(fn, iters: int = 10) -> float:
-    import torch
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(sorted(times)[len(times) // 2])
+# phase 6, the probes at the shapes their scripts time: the conv arms
+# (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
+# and 1, unpacked shape and factors, and the cost / grid probes' volume
+ARM_SHAPE = (2, 96, 96, 96, 120)
+PACKED_CASES = (((1, 96, 192, 192, 30), (2, 2)), ((1, 48, 96, 96, 60), (1, 2)))
+PROBE_SHAPE = (1, 96, 96, 96, 128)
+PROBE_ITERS = 10  # timed launches per configuration on the probe path
+# the least time of a kernel's work on an H100 SXM at its published peaks
+# (dense bf16 tensor cores, fp32 CUDA cores, HBM): the larger of its
+# operations over the peak rate of their type and its bytes (each input read
+# once, each output written once) over the memory rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def phase_device() -> tuple[str, str, float]:
@@ -450,11 +466,14 @@ def _kernel_counters() -> dict:
     from multitalent_tpu_torch.ops import conv3d as cv
     from multitalent_tpu_torch.ops import fused_norm as fn
     from multitalent_tpu_torch.ops import seghead as sg
+    from multitalent_tpu_torch.probes import (conv_impl_arms, grid_overhead_probe,
+                                              sparse_conv_arm)
     return {"conv3d_same": cv.conv3d_same, "conv3d_same_dual": cv.conv3d_same_dual,
             "conv3d_same_wgrad": cv.conv3d_same_wgrad,
             "conv3d_same_affine": cv.conv3d_same_affine,
             "channel_stats": fn.channel_stats, "affine_lrelu": fn.affine_lrelu,
-            "seghead": sg.seghead}
+            "seghead": sg.seghead, **conv_impl_arms.kernels(), **sparse_conv_arm.kernels(),
+            **grid_overhead_probe.kernels()}
 
 
 def _run_counted(fn):
@@ -724,10 +743,10 @@ def _write_training_task(root: str, plans) -> tuple[str, str]:
     a spleen in the Task009 cases, labels in the global 1..47 space and each
     case's valid regions stamped, as Task100's preprocessing leaves them."""
     import numpy as np
-    from multitalent_tpu.paths import default_plans_identifier
-    from multitalent_tpu.preprocessing.preprocessor import sample_class_locations
     from multitalent_tpu_torch.io import save_plans
-    from multitalent_tpu.utils.fileops import save_pickle
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    from multitalent_tpu_torch.preprocessing.preprocessor import sample_class_locations
+    from multitalent_tpu_torch.utils.fileops import save_pickle
     task = "Task100_MultiTalent"
     ddir = os.path.join(root, "preprocessed", task)
     folder = os.path.join(ddir, plans.data_identifier + "_stage0")
@@ -817,12 +836,12 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     fused, then a prediction from the folder it wrote."""
     import numpy as np
     import torch
-    from multitalent_tpu.paths import default_plans_identifier
     from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
     from multitalent_tpu_torch.cli.train import main as train_main
     from multitalent_tpu_torch.inference.predict import REGIONS
     from multitalent_tpu_torch.io import read_nifti
     from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+    from multitalent_tpu_torch.paths import default_plans_identifier
     from multitalent_tpu_torch.training.trainers import init_weights_he
 
     plans = _flagship_plans()
@@ -905,6 +924,207 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
             "dw_worst_rel": dw_worst}
 
 
+def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
+    """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
+    FLOPs and fp32 CUDA-core FLOPs."""
+    t_ops = (bf16_flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _conv_bound(cin: int, cout: int, spatial, n: int, w_bytes: int = 2) -> dict:
+    """A SAME 3x3x3 conv's (or its dw's) bound: 2*27*Cin*Cout FLOPs per voxel;
+    bf16 input and output (or gradient) read or written once, the weight
+    (or dw, w_bytes each) once."""
+    vox = n * prod(spatial)
+    return _bound(vox * (cin + cout) * 2 + 27 * cin * cout * w_bytes,
+                  bf16_flops=2 * 27 * cin * cout * vox)
+
+
+def phase_probe_path() -> dict:
+    """The probes' entry points as a user runs them (`python -m
+    multitalent_tpu_torch.probes.<name>` is each module's main), every
+    kernel's launch count set to 0 just before and read just after; each
+    count must equal what the probes' own arguments launch."""
+    from multitalent_tpu_torch.probes import (_util, conv_cost_isolate, conv_impl_arms,
+                                              grid_overhead_probe, sparse_conv_arm)
+    iters = str(PROBE_ITERS)
+    t0 = time.perf_counter()
+    results, launches = _run_counted(lambda: {
+        "conv_impl_arms": conv_impl_arms.main(["--iters", iters]),
+        "sparse_conv_arm": sparse_conv_arm.main(["--iters", iters]),
+        "conv_cost_isolate": conv_cost_isolate.main([iters]),
+        "grid_overhead_probe": grid_overhead_probe.main([iters])})
+    wall = time.perf_counter() - t0
+    timed = _util.WARMUP + PROBE_ITERS  # launches of one timed configuration
+    a_arms = sum(arm in ("tap", "sum") for arm in conv_impl_arms.ARMS)
+    expect = _expect({}, 0)
+    expect.update({
+        # conv_impl_arms: each arm one parity call and one timed run (tap and
+        # sum on kernel A); conv_cost_isolate's dense27 on kernel A
+        "conv3d_same": a_arms * (1 + timed) + timed,
+        **{k: 1 + timed for k in conv_impl_arms.kernels()},
+        # sparse_conv_arm: the parity cases, then the timed shapes;
+        # conv_cost_isolate's merged12
+        "packed_conv3d": len(sparse_conv_arm.PARITY_CASES)
+        + len(sparse_conv_arm.TIMED_CASES) * timed + timed,
+        # conv_cost_isolate's center27 and center12; the grid probe's configs
+        "centern": 2 * timed + len(grid_overhead_probe.CONV_CONFIGS) * timed,
+        "zeros": len(grid_overhead_probe.ZERO_TILES) * timed})
+    if launches != expect:
+        raise AssertionError(f"probe path launches {launches}, expected {expect}")
+    names = [k for k, v in expect.items() if v]
+    print(f"probe path ({wall:.1f} s): launches { {k: launches[k] for k in names} } = the "
+          f"probes' parity calls + {timed} per timed configuration")
+    return {"launches": launches, "results": results, "seconds": wall}
+
+
+def _nan_filled(shape, dev):
+    """A bf16 output buffer of NaN for a checked launch: a kernel that leaves
+    any of it unwritten fails its check (a fresh buffer may hold the right
+    values already, left by an earlier launch in memory the caching
+    allocator hands back)."""
+    import torch
+    return torch.full(tuple(shape), float("nan"), dtype=torch.bfloat16, device=dev)
+
+
+def phase_probe_kernels() -> dict:
+    """Each probe kernel against its plain version at the shapes its script
+    times, with its bound, its median time beside the plain version's and
+    the library call's where one PyTorch call computes the same function;
+    the Winograd kernel also against its control (G with one row wrong),
+    which must break its bound."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.probes import conv_cost_isolate as cc
+    from multitalent_tpu_torch.probes import conv_impl_arms as ca
+    from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+    from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def report(name, what, err, bound, kernel, plain, library, work, **extra):
+        ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+        library_ms = None if library is None else _median_ms(library)
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        print(f"{name} {what}: max|d| {err:.3e} (bound {bound:.3e}); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, library {lib}; bound {work['bound_ms']:.3f} ms "
+              f"({work['bound_by']})" + "".join(f", {k} {v}" for k, v in extra.items()))
+        rows.setdefault(name, []).append({"what": what, "err": err, "ms": ms,
+                                          "plain_ms": plain_ms, "library_ms": library_ms,
+                                          **work, **extra})
+
+    # the conv arms at (2, 96, 96, 96, 120) -> 120, against the fp32 direct
+    # conv on the same bf16 input with the fp32 weight
+    n, sp, c = ARM_SHAPE[0], ARM_SHAPE[1:4], ARM_SHAPE[4]
+    x = rnd(*ARM_SHAPE).to(torch.bfloat16)
+    w = rnd(c, c, 3, 3, 3, scale=(2.0 / (27 * c)) ** 0.5)
+    x32 = x.float()
+    ref = cv.conv3d_same_ref(x32, w)
+    bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    w_cl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    cudnn = lambda: F.conv3d(x_cl, w_cl, padding=1)  # noqa: E731
+    work = _conv_bound(c, c, sp, n)
+    for arm, name in (("tap", "conv3d_same"), ("sum", "conv3d_same"), ("im2col", "conv3d_im2col"),
+                      ("tap3", "conv3d_tap3"), ("wino", "conv3d_wino")):
+        pw = ca.prepare(w, arm)
+        if name == "conv3d_same":
+            got = ca.run_arm(arm, x, pw)
+        else:
+            got = ca.kernels()[name](x, pw, out=_nan_filled((*ARM_SHAPE[:4], c), dev))
+        err = _check(f"{arm} arm", got, ref, bound)
+        del got
+        extra = {"arm": arm}
+        if arm == "wino":
+            faulty = ca.prepare_arm_weight(w, "wino", g=ca.G_FAULTY)
+            d = (ca.conv3d_wino(x, faulty).float() - ref).abs()
+            extra.update(control_max=d.max().item(), control_mean=d.mean().item())
+            if not d.max().item() > bound:
+                raise AssertionError(f"the Winograd bound passes a faulty G: {extra}")
+            pw32 = ca.prepare_arm_weight(w, "wino", dtype=torch.float32)
+            plain = lambda: ca.winograd_conv3d_ref(x32, pw32)  # noqa: E731
+        else:
+            plain = lambda: cv.conv3d_same_ref(x32, w)  # noqa: E731
+        report(name, f"{arm} {c}->{c} at {'x'.join(map(str, sp))} N={n}", err, bound,
+               lambda: ca.run_arm(arm, x, pw), plain, cudnn, work, **extra)
+    del x, x32, ref, x_cl
+    torch.cuda.empty_cache()
+
+    # the packed conv at the flagship's stage 0 and stage 1
+    for shape, factors in PACKED_CASES:
+        c = shape[-1]
+        xp = sc.space_to_depth_yx(rnd(*shape).to(torch.bfloat16), factors).contiguous()
+        w = rnd(c, c, 3, 3, 3, scale=(2.0 / (27 * c)) ** 0.5)
+        pw = cv.prepare_conv3d_weight(w)
+        ref = sc.packed_conv3d_ref(xp.float(), w, factors)
+        bound = sc.ATOL + sc.RTOL * ref.abs().max().item()
+        err = _check(f"packed conv {shape} {factors}",
+                     sc.packed_conv3d(xp, pw, factors, out=_nan_filled(xp.shape, dev)), ref,
+                     bound)
+        x_cl = sc.depth_to_space_yx(xp, factors).permute(0, 4, 1, 2, 3)
+        w_cl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        report("packed_conv3d", f"{c}->{c} at {'x'.join(map(str, shape[1:4]))} packed "
+               f"{factors}", err, bound, lambda: sc.packed_conv3d(xp, pw, factors),
+               lambda: sc.packed_conv3d_ref(xp.float(), w, factors), None,
+               _conv_bound(c, c, shape[1:4], shape[0]),
+               cudnn_unpacked_ms=round(_median_ms(lambda: F.conv3d(x_cl, w_cl, padding=1)), 4))
+        del xp, ref, x_cl
+    torch.cuda.empty_cache()
+
+    # the center-view conv and the zero fill at (1, 96, 96, 96, 128); the
+    # library call of centern: one einsum over the ndots weight matrices.
+    # centern's function is x @ (the sum of its ndots weight matrices): its
+    # bound is that one GEMM beside its bytes (x read, out written, the
+    # weight read once); the ndots GEMMs the kernel issues, at the peak rate,
+    # are its form's ceiling (ndots_ceiling_ms), the probe's question
+    n, sp, c = PROBE_SHAPE[0], PROBE_SHAPE[1:4], PROBE_SHAPE[4]
+    x = rnd(*PROBE_SHAPE).to(torch.bfloat16)
+    w = rnd(c, c, 3, 3, 3, scale=0.05)
+    w_bf = w.to(torch.bfloat16)
+    wc = cc.prepare_center_weight(w)
+    vox = n * prod(sp)
+    centern_bytes = vox * 2 * c * 2 + 27 * c * c * 2
+    for tile, ndots in ((cc.TILE, 27), (cc.TILE, 12), ((8, 32, 32), 27), ((8, 48, 96), 27)):
+        ref = cc.centern_ref(x.float(), w_bf.float(), ndots)
+        bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
+        err = _check(f"centern {ndots} dots tile {tile}",
+                     cc.centern(x, wc, ndots, tile, out=_nan_filled(x.shape, dev)), ref, bound)
+        stack = torch.stack([w_bf[:, :, a, b, d].T for a, b, d in
+                             (cc.tap_of_dot(t) for t in range(ndots))]).contiguous()
+        x2 = x.reshape(-1, c)
+        ceiling = _bound(centern_bytes, bf16_flops=2 * ndots * c * c * vox)["bound_ms"]
+        report("centern", f"{ndots} dots at {'x'.join(map(str, sp))}x{c} tile {tile}", err,
+               bound, lambda: cc.centern(x, wc, ndots, tile),
+               lambda: cc.centern_ref(x.float(), w_bf.float(), ndots),
+               lambda: torch.einsum("mc,tco->mo", x2, stack),
+               _bound(centern_bytes, bf16_flops=2 * c * c * vox),
+               grid=prod(s // t for s, t in zip(sp, tile)), ndots_ceiling_ms=round(ceiling, 4))
+        del ref
+    shape = (*sp, c)
+    buf = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for tile in gp.ZERO_TILES:
+        got = gp.zeros(shape, tile, dev, out=buf.fill_(float("nan")))
+        bad = (got != 0).sum().item()
+        if got.data_ptr() != buf.data_ptr() or bad:
+            raise AssertionError(f"zeros tile {tile}: {bad} values are not 0")
+        report("zeros", f"{'x'.join(map(str, sp))}x{c} bf16 tile {tile}", 0.0, 0.0,
+               lambda: gp.zeros(shape, tile, dev), lambda: gp.zeros_ref(shape, device=dev),
+               buf.zero_, _bound(prod(shape) * 2),
+               grid=prod(s // t for s, t in zip(sp, tile)))
+    del x, buf, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -926,6 +1146,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    probe_path = phase_probe_path()
+    probes = phase_probe_kernels()
+
     a_src = "multitalent_tpu_torch/csrc/conv3d_same.cu"
     rows = []
     for kname, src, replaces, res in (
@@ -939,42 +1162,83 @@ def main() -> int:
               "multitalent_tpu/ops/pallas_merged_conv.py:587"),
              kernels["conv3d_same_wgrad"])):
         stage0 = res[0]  # the widest shape: stage 0 at 96x192x192
+        wgrad = kname == "conv3d_same_wgrad"
+        # one cuDNN call computes A's and C's function on the same inputs; B's
+        # needs the concat built first (its cuDNN time stays as cudnn_bf16_ms)
+        library_ms = None if kname == "conv3d_same_dual" else stage0["cudnn_bf16_ms"]
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces[0], "also_replaces": list(replaces[1:]),
                      "launches": training["launches"][kname],
                      "launches_predict": main_path["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],
+                     "launches_probes": probe_path["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
-                     "cudnn_bf16_ms": stage0["cudnn_bf16_ms"],
+                     **_conv_bound(sum(stage0["splits"]), stage0["cout"], stage0["spatial"],
+                                   stage0["n"], w_bytes=4 if wgrad else 2),
+                     "library_ms": library_ms, "cudnn_bf16_ms": stage0["cudnn_bf16_ms"],
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, stage0["splits"])), stage0["cout"],
                          "x".join(map(str, stage0["spatial"])), stage0["n"])})
     # the fused route's kernels: launches from the fused predict CLI run (and
-    # kernel D's from the fused training run), times at the stage-0 shape
-    for kname, src, replaces in (
-            ("conv3d_same_affine", a_src, "multitalent_tpu/ops/pallas_conv.py:326"),
+    # kernel D's from the fused training run), times at the stage-0 shape (N=1,
+    # C = 30 at 96x192x192); no one PyTorch call computes any of them
+    c, sp = KERNEL_A_SHAPES[0]
+    vox = prod(sp)
+    for kname, src, replaces, work in (
+            ("conv3d_same_affine", a_src, "multitalent_tpu/ops/pallas_conv.py:326",
+             _conv_bound(c, c, sp, 1)),
             ("channel_stats", "multitalent_tpu_torch/csrc/fused_norm.cu",
-             "multitalent_tpu/ops/fused_norm.py:37"),
+             "multitalent_tpu/ops/fused_norm.py:37",
+             _bound(vox * c * 2 + 2 * c * 4, fp32_flops=3 * vox * c)),
             ("affine_lrelu", "multitalent_tpu_torch/csrc/fused_norm.cu",
-             "multitalent_tpu/ops/fused_norm.py:56"),
+             "multitalent_tpu/ops/fused_norm.py:56",
+             _bound(2 * vox * c * 2, fp32_flops=4 * vox * c)),
             ("seghead", "multitalent_tpu_torch/csrc/seghead.cu",
-             "multitalent_tpu/ops/pallas_seghead.py:31")):
+             "multitalent_tpu/ops/pallas_seghead.py:31",
+             _bound(vox * (c + 47) * 2, fp32_flops=vox * (4 * c + 2 * c * 47)))):
         res = fused_kernels[kname]
         stage0 = res[0]
         rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": main_fused["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
-                     "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
-                     "unfused_route_ms": stage0["unfused_ms"], "timed_at": stage0["what"]})
+                     "ms": stage0["ms"], "plain_ms": stage0["plain_ms"], **work,
+                     "library_ms": None, "unfused_route_ms": stage0["unfused_ms"],
+                     "timed_at": stage0["what"]})
+    # the probes' kernels: launches from the probe path, times at the first
+    # shape each was timed at in phase 6
+    for kname, src, replaces in (
+            ("conv3d_im2col", "multitalent_tpu_torch/csrc/conv_arms.cu",
+             "scripts/conv_impl_arms.py:42"),
+            ("conv3d_tap3", "multitalent_tpu_torch/csrc/conv_arms.cu",
+             "scripts/conv_impl_arms.py:42"),
+            ("conv3d_wino", "multitalent_tpu_torch/csrc/conv_arms.cu",
+             "scripts/conv_impl_arms.py:42"),
+            ("packed_conv3d", a_src, "scripts/pallas_sparse_conv_arm.py:165"),
+            ("centern", "multitalent_tpu_torch/csrc/probe_kernels.cu",
+             "scripts/conv_cost_isolate.py:48"),
+            ("zeros", "multitalent_tpu_torch/csrc/probe_kernels.cu",
+             "scripts/grid_overhead_probe.py:49")):
+        res = probes[kname]
+        first = res[0]
+        rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                     **({"also_replaces": ["scripts/grid_overhead_probe.py:68"],
+                         "ndots_ceiling_ms": first["ndots_ceiling_ms"]}
+                        if kname == "centern" else {}),
+                     "launches": probe_path["launches"][kname],
+                     "max_abs_err": max(r["err"] for r in res),
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "library_ms": first["library_ms"], "timed_at": first["what"]})
     print(f"summary: build {build_s:.1f} s; seconds per case {main_path['seconds_per_case']:.2f}"
           f" unfused, {main_fused['seconds_per_case']:.2f} fused (masks: worst region "
           f"{masks['worst']:.6f}); one forward {tile_fused['unfused_forward_ms']:.2f} ms "
           f"unfused, {tile_fused['fused_forward_ms']:.2f} ms fused; seconds per training "
           f"step {training['seconds_per_step']:.3f} unfused, "
           f"{training_fused['seconds_per_step']:.3f} fused; peak {training['peak_gib']:.2f} "
-          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; on {smi}")
+          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; probe path "
+          f"{probe_path['seconds']:.1f} s; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

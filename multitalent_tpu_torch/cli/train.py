@@ -20,13 +20,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from multitalent_tpu import paths
-from multitalent_tpu.plans import load_plans
-from multitalent_tpu.utils.task_names import convert_id_to_task_name
+from multitalent_tpu_torch import paths
 from multitalent_tpu_torch.inference.model_restore import UNPORTED_TRAINERS
+from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep)
 from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
 # trainer names of the reference and of the JAX package -> the port's classes
 TRAINERS = {

@@ -1,5 +1,6 @@
 // Building blocks shared by the kernels (conv3d_same.cu, conv3d_wgrad.cu,
-// fused_norm.cu, seghead.cu): cp.async copies with zero-fill, ldmatrix
+// fused_norm.cu, seghead.cu and the probes' conv_arms.cu, probe_kernels.cu):
+// cp.async copies with zero-fill, ldmatrix
 // fragment loads, the bf16 mma.sync tile product, the 256-voxel box shapes the
 // conv kernels tile volumes with, the normalize prologue's rounding, and the
 // channel-statistics launchers kernel D borrows from kernel E.
@@ -120,6 +121,18 @@ __device__ __forceinline__ void load_box(__nv_bfloat16* dst,
     } else {
       d[0] = inside ? *s : __float2bfloat16(0.f);
     }
+  }
+}
+
+// Channels co and co + 1 (co even, co < cout) of one bf16 output row, as a
+// pair when cout is even (the row then starts 4-byte aligned).
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int co, int cout, float v0,
+                                           float v1) {
+  if (cout % 2 == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + co) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    row[co] = __float2bfloat16(v0);
+    if (co + 1 < cout) row[co + 1] = __float2bfloat16(v1);
   }
 }
 

@@ -22,6 +22,21 @@
 //     and write of the activation and the stats pass's read (~0.6 GB at
 //     stage 0 with N=1); the prologue adds ~16 elementwise ops per staged
 //     element, once per K chunk, not per tap.
+// and the probe kernel scripts/pallas_sparse_conv_arm.py _sparse_kernel
+// (pallas_call at :287) -> the PACKED instantiation, `mt_packed_conv3d`: the
+// same conv read and written space-to-depth packed, (N, Z, Y/fy, X/fx,
+// fy*fx*C) phase-major, optionally of concatenated input groups. The TPU
+// kernel merges the block-sparse packed taps into 12 or 18 GEMMs on
+// lane-gathered inputs (1.33x the direct conv's FLOPs); here the packing only
+// decides addresses, the depth-to-space folded into the halo loads and the
+// space-to-depth into the stores, at 1x the direct conv's FLOPs:
+//   unpacked (y, x, c) = packed (y / fy, x / fx, phase * C + c),
+//   phase = (y % fy) * fx + x % fx   (multitalent_tpu/ops/packed_conv.py:59-67);
+//   with input groups ([P*g0 | P*g1 | ...]), channel c of group g sits at
+//   base_g * P + phase * g + (c - base_g)
+//   (scripts/pallas_sparse_conv_arm.py:68-85).
+// Its loads are 4-byte channel pairs (elements for odd groups) in place of
+// 16-byte rows, and it never splits K (the partials' order is unpacked).
 //
 // What bounds it on an H100: the flagship's convs carry ~27*C FLOPs per
 // input byte, well above the ~295 FLOP/byte ridge, so the tensor cores should
@@ -64,6 +79,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MF = BM / (WARPS * 16);  // 16-voxel M fragments per warp
 constexpr int MAX_SPLITS = 64;
+constexpr int MAX_GROUPS = 4;  // input groups of the packed conv
 
 struct Plan {
   Box box;
@@ -88,6 +104,11 @@ struct Params {
   const float* shift;
   float slope;
   float* part;
+  // the packed conv: factors (fy, fx) of in[0] and out (n, z, y, x are the
+  // unpacked sizes), the input's groups as unpacked channel ranges, and
+  // whether every group is even (channel-pair loads)
+  int fy, fx, ngroups, pairs;
+  int gbase[MAX_GROUPS], gsize[MAX_GROUPS];
 };
 
 Plan make_plan(int n, int z, int y, int x, int kchunks, int nblocks_n, int sms) {
@@ -115,6 +136,55 @@ __device__ __forceinline__ void load_halo(__nv_bfloat16* halo,
                                           int z0, int y0, int x0) {
   load_box<THREADS>(halo, src, cin, c0, KC, HS, 1, p.plan.box, p.z, p.y, p.x, nb, z0,
                     y0, x0);
+}
+
+// Element offset of unpacked voxel (gz, gy, gx), channel c of the group
+// starting at unpacked channel gbase with gsize channels, in a tensor packed
+// by (p.fy, p.fx) with cc channels per phase.
+__device__ __forceinline__ int64_t packed_offset(const Params& p, int nb, int gz, int gy,
+                                                 int gx, int cc, int gbase, int gsize, int c) {
+  const int P = p.fy * p.fx;
+  const int phase = (gy % p.fy) * p.fx + gx % p.fx;
+  const int yp = p.y / p.fy, xp = p.x / p.fx;
+  const int64_t vox = (((int64_t)nb * p.z + gz) * yp + gy / p.fy) * xp + gx / p.fx;
+  return vox * P * cc + (int64_t)gbase * P + phase * gsize + (c - gbase);
+}
+
+// The packed conv's load_halo: the K chunk of the haloed box, unpacked from
+// in[0] into the same shared-memory rows.
+__device__ __forceinline__ void load_halo_packed(__nv_bfloat16* halo, const Params& p, int c0,
+                                                 int nb, int z0, int y0, int x0) {
+  const Box box = p.plan.box;
+  const int hx = box.x + 2, hy = box.y + 2, hz = box.z + 2;
+  const int vec = p.pairs ? 2 : 1;
+  const int per_vox = KC / vec;
+  const int total = hz * hy * hx * per_vox;
+  const int cin = p.cin[0];
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int v = i / per_vox;
+    const int ch = (i - v * per_vox) * vec;
+    const int c = c0 + ch;
+    const int vx = v % hx, vy = (v / hx) % hy, vz = v / (hx * hy);
+    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
+    const bool inside = gz >= 0 && gz < p.z && gy >= 0 && gy < p.y && gx >= 0 &&
+                        gx < p.x && c < cin;
+    int gbase = 0, gsize = p.gsize[0];
+#pragma unroll
+    for (int g = 1; g < MAX_GROUPS; ++g) {
+      if (g < p.ngroups && c >= p.gbase[g]) {
+        gbase = p.gbase[g];
+        gsize = p.gsize[g];
+      }
+    }
+    __nv_bfloat16* d = halo + v * HS + ch;
+    const __nv_bfloat16* s =
+        inside ? p.in[0] + packed_offset(p, nb, gz, gy, gx, cin, gbase, gsize, c) : p.in[0];
+    if (vec == 2) {
+      cp_async4(d, s, inside);
+    } else {
+      d[0] = inside ? *s : __float2bfloat16(0.f);
+    }
+  }
 }
 
 // The chunk's (27, 16, BN) weight slice for output-channel block `nblk`.
@@ -237,9 +307,11 @@ __device__ __forceinline__ void block_stats(const float (&acc)[MF][NT][4], float
 // epilogue, per-block channel sums of the bf16-rounded, bias-added output
 // (only when the K loop is not split: a split's partial sums are not the
 // output yet, so the caller takes the stats after the split-K reduction).
-template <int NIN, int BN, bool AFFINE, bool STATS>
+// PACKED: the packed conv's addresses (one input, unsplit K).
+template <int NIN, int BN, bool AFFINE, bool STATS, bool PACKED = false>
 __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
   static_assert(!AFFINE || NIN == 1, "the prologue reads one input");
+  static_assert(!PACKED || (NIN == 1 && !AFFINE && !STATS), "the packed conv is plain");
   constexpr int BNP = BN + 8;
   constexpr int NT = BN / 8;  // n8 tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -288,8 +360,12 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
     const bool second = NIN == 2 && kc >= p.nchunks0;
     const int c0 = (kc - (second ? p.nchunks0 : 0)) * KC;
     __syncthreads();  // the previous chunk's fragments are consumed
-    load_halo(halo, second ? p.in[1] : p.in[0], second ? p.cin[1] : p.cin[0], c0, p,
-              nb, z0, y0, x0);
+    if constexpr (PACKED) {
+      load_halo_packed(halo, p, c0, nb, z0, y0, x0);
+    } else {
+      load_halo(halo, second ? p.in[1] : p.in[0], second ? p.cin[1] : p.cin[0], c0, p,
+                nb, z0, y0, x0);
+    }
     load_weights<BN>(wsm, p.w, kc, nblk, p.coutp);
     cp_async_wait_all();
     __syncthreads();
@@ -319,7 +395,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
   }
 
   // epilogue: accumulator element e of tile (mi, j) is voxel row
-  // lane / 4 (+8 for e >= 2), channel 2 * (lane % 4) + (e & 1)
+  // lane / 4 (+8 for e >= 2), channel 2 * (lane % 4) + (e & 1); the packed
+  // conv writes the voxel's row at its phase (tight phase-major)
   const bool pairs = p.cout % 2 == 0;
   const int64_t nvox = (int64_t)p.n * p.z * p.y * p.x;
 #pragma unroll
@@ -331,6 +408,9 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
                 gx = x0 + m % box.x;
       if (gz >= p.z || gy >= p.y || gx >= p.x) continue;
       const int64_t vox = (((int64_t)nb * p.z + gz) * p.y + gy) * p.x + gx;
+      __nv_bfloat16* row =
+          p.out + (PACKED ? packed_offset(p, nb, gz, gy, gx, p.cout, 0, p.cout, 0)
+                          : vox * p.cout);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int co = nblk * BN + j * 8 + (lane % 4) * 2;
@@ -350,7 +430,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
           v0 += p.bias[co];
           if (co + 1 < p.cout) v1 += p.bias[co + 1];
         }
-        __nv_bfloat16* dst = p.out + vox * p.cout + co;
+        __nv_bfloat16* dst = row + co;
         if (pairs) {
           *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
         } else {
@@ -398,10 +478,10 @@ long long stats_workspace_bytes(const Plan& plan, int n, int z, int y, int x, in
   return n * tiles * 2 * cout * (long long)sizeof(float) + red;
 }
 
-template <int NIN, int BN, bool AFFINE, bool STATS>
+template <int NIN, int BN, bool AFFINE, bool STATS, bool PACKED = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<BN>();
-  cudaError_t err = cudaFuncSetAttribute(conv3d_same_kernel<NIN, BN, AFFINE, STATS>,
+  cudaError_t err = cudaFuncSetAttribute(conv3d_same_kernel<NIN, BN, AFFINE, STATS, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
@@ -409,7 +489,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       (long long)p.plan.tiles_x * p.plan.tiles_y * p.plan.tiles_z * p.n;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)blocks, p.coutp / BN, p.plan.splits);
-  conv3d_same_kernel<NIN, BN, AFFINE, STATS><<<grid, THREADS, smem, stream>>>(p);
+  conv3d_same_kernel<NIN, BN, AFFINE, STATS, PACKED><<<grid, THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.plan.splits == 1) return err;
   const int64_t count = (int64_t)p.n * p.z * p.y * p.x * p.cout;
@@ -554,6 +634,57 @@ int mt_conv3d_same_dual_stats(const void* a, const void* b, const void* w,
   if (stats == nullptr || b == nullptr) return (int)cudaErrorInvalidValue;
   return run(a, b, ca, cb, w, bias, nullptr, nullptr, 0.f, out, stats, ws, ws_bytes, n, z,
              y, xd, cout, coutp, bn, stream);
+}
+
+// The packed conv: x (n, z, y/fy, x/fx, fy*fx*c) packed, groups (ngroups <= 4
+// sizes adding up to c; null: one group), w as prepare_conv3d_weight for
+// c -> cout over the unpacked channels [g0 | g1 ...], out (n, z, y/fy, x/fx,
+// fy*fx*cout) tight phase-major, no bias. y, x are the unpacked sizes.
+int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups, int ngroups,
+                     int n, int z, int y, int xd, int c, int cout, int coutp, int bn, int fy,
+                     int fx, void* stream) {
+  if ((bn != 32 && bn != 64) || coutp % bn != 0 || cout > coutp || fy < 1 || fx < 1 ||
+      y % fy != 0 || xd % fx != 0 || ngroups < 0 || ngroups > MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.in[0] = static_cast<const __nv_bfloat16*>(x);
+  p.in[1] = nullptr;
+  p.cin[0] = c;
+  p.cin[1] = 0;
+  p.nchunks0 = cdiv(c, KC);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = nullptr;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ws = nullptr;
+  p.n = n;
+  p.z = z;
+  p.y = y;
+  p.x = xd;
+  p.cout = cout;
+  p.coutp = coutp;
+  p.plan = plan_for(n, z, y, xd, c, 0, coutp, bn);
+  p.plan.splits = 1;  // unsplit K: the output is written packed
+  p.plan.per_split = p.nchunks0;
+  p.scale = nullptr;
+  p.shift = nullptr;
+  p.slope = 0.f;
+  p.part = nullptr;
+  p.fy = fy;
+  p.fx = fx;
+  p.ngroups = groups == nullptr ? 1 : ngroups;
+  p.pairs = 1;
+  int base = 0;
+  for (int g = 0; g < MAX_GROUPS; ++g) {
+    const int size = g < p.ngroups ? (groups == nullptr ? c : groups[g]) : 0;
+    p.gbase[g] = base;
+    p.gsize[g] = size;
+    if (size % 2) p.pairs = 0;
+    base += size;
+  }
+  if (base != c) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bn == 32 ? launch<1, 32, false, false, true>(p, s)
+                        : launch<1, 64, false, false, true>(p, s));
 }
 
 const char* mt_error_string(int code) {

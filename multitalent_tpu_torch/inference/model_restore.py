@@ -20,11 +20,11 @@ from dataclasses import dataclass
 
 import torch
 
-from multitalent_tpu.io.torch_convert import load_reference_checkpoint, strip_module_prefix
-from multitalent_tpu.plans import Plans, load_plans, save_plans
-from multitalent_tpu.tasks.multitalent import NUM_REGIONS
-from multitalent_tpu.utils.fileops import load_pickle, maybe_mkdir, save_pickle, subdirs
+from multitalent_tpu_torch.io.torch_convert import load_reference_checkpoint, strip_module_prefix
 from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
+from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
+from multitalent_tpu_torch.tasks.multitalent import NUM_REGIONS
+from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle, subdirs
 
 # trainers whose network is the GenericUNet with 47 sigmoid region heads
 MULTITALENT_TRAINERS = ("MultiTalent_trainer_ddp", "MultiTalent_trainer_ddp_2000ep",

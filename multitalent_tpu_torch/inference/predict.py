@@ -3,8 +3,8 @@
 Counterpart of multitalent_tpu/inference/predict.py (`predict_cases` :67 and
 `predict_from_folder` :311, same argument surface plus `device`). Per case:
 
-1. the JAX package's plans-driven preprocessor (host, numpy) crops,
-   resamples and normalises the volume;
+1. the plans-driven preprocessor (host, numpy; preprocessing/, the port's
+   copy of the JAX package's) crops, resamples and normalises the volume;
 2. every fold's network runs the sliding window on the device and the fold
    probabilities are summed there; the network call is the fused conv ->
    norm route under MTTPU_FUSED_NORM=1 (ops/fused_unet.make_inference_forward);
@@ -12,7 +12,8 @@ Counterpart of multitalent_tpu/inference/predict.py (`predict_cases` :67 and
    grid and thresholded at 0.5 * n_folds on the device
    (ops/device_export.py); only bool masks come to the host. Softmax models,
    `save_npz`, and cases that need the separate-z resampling take the host
-   export of the JAX package (save_segmentation_nifti_from_softmax);
+   export (inference/segmentation_export.py:
+   save_segmentation_nifti_from_softmax);
 4. NIfTI writing runs on host threads: `<case>.nii.gz`, plus
    `individual/<region>/<case>.nii.gz` per region with export_region_niftis.
 
@@ -29,18 +30,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from multitalent_tpu.inference.predict import (_make_preprocess_fn,
-                                               check_input_folder_and_return_caseIDs)
-from multitalent_tpu.inference.segmentation_export import (
-    save_segmentation_nifti, save_segmentation_nifti_from_softmax)
-from multitalent_tpu.tasks.multitalent import REGIONS
-from multitalent_tpu.utils.fileops import load_pickle, maybe_mkdir, subfiles
 from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
-from multitalent_tpu_torch.ops.fused_unet import make_inference_forward
+from multitalent_tpu_torch.inference.segmentation_export import (
+    save_segmentation_nifti, save_segmentation_nifti_from_softmax)
 from multitalent_tpu_torch.ops.device_export import (can_export_on_device,
                                                      device_resample_threshold_bits,
                                                      segmentation_from_regions_bits)
+from multitalent_tpu_torch.ops.fused_unet import make_inference_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+from multitalent_tpu_torch.preprocessing.preprocessor import resolve_preprocessor
+from multitalent_tpu_torch.tasks.multitalent import REGIONS
+from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, subfiles
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -51,6 +51,49 @@ def resolve_device(device: str | torch.device) -> torch.device:
                            "is False (pass --device cpu to run the plain PyTorch "
                            "versions on the CPU)")
     return device
+
+
+def check_input_folder_and_return_caseIDs(input_folder: str,
+                                          expected_num_modalities: int) -> list[str]:
+    """Case discovery by the `_XXXX.nii.gz` convention (predict.py:567-601;
+    multitalent_tpu/inference/predict.py:29)."""
+    files = subfiles(input_folder, suffix=".nii.gz", join=False)
+    maybe_case_ids = sorted({f[:-12] for f in files})
+    remaining = set(files)
+    missing = []
+    for c in maybe_case_ids:
+        for mod in range(expected_num_modalities):
+            expected = f"{c}_{mod:04d}.nii.gz"
+            if expected not in remaining:
+                missing.append(expected)
+            else:
+                remaining.discard(expected)
+    # raised explicitly (not `assert`, which -O strips): the folder is user input
+    if missing:
+        raise AssertionError(f"missing modality files: {missing[:10]}")
+    if remaining:
+        raise AssertionError(f"unexpected files: {sorted(remaining)[:10]}")
+    return maybe_case_ids
+
+
+def _make_preprocess_fn(restored):
+    """case files -> (data, properties) by the plans' preprocessor at the
+    stage's spacing (multitalent_tpu/inference/predict.py:48)."""
+    plans = restored.plans
+    preprocessor_cls = resolve_preprocessor(plans.preprocessor_name)
+    intensity_props = plans.dataset_properties.get("intensityproperties") \
+        if plans.dataset_properties else None
+    preprocessor = preprocessor_cls(
+        plans.normalization_schemes,
+        plans.use_mask_for_norm, plans.transpose_forward, intensity_props)
+    target_spacing = plans.stage(restored.stage).current_spacing
+
+    def preprocess(case_files):
+        data, _, properties = preprocessor.preprocess_test_case(
+            case_files, target_spacing)
+        return data, properties
+
+    return preprocess
 
 
 def _sync(device: torch.device) -> None:
@@ -161,7 +204,8 @@ def _export_on_device(pool, probs_sum, n_folds, properties, out_fname, case_id,
 
 def _export_on_host(pool, probs_mean, properties, out_fname, case_id,
                     region_class_order, export_region_niftis, save_npz) -> list:
-    """The JAX package's host export chain on the fetched mean probabilities."""
+    """The host export chain (segmentation_export.py) on the fetched mean
+    probabilities."""
     npz_fname = out_fname[:-7] + ".npz" if save_npz else None
     futures = [pool.submit(
         save_segmentation_nifti_from_softmax, probs_mean, out_fname, properties, 1,

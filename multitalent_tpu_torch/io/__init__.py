@@ -1,9 +1,10 @@
 """The artifacts the port reads and writes: NIfTI volumes and plans files.
 
-Both codecs are the JAX package's framework-neutral modules, imported here
-unchanged (they load no JAX); `from_jax` is the port's weight bridge.
+Both codecs are the port's copies of the JAX package's (io/nifti.py,
+plans.py); `torch_convert` reads the reference's torch checkpoints and
+`from_jax` is the port's weight bridge.
 """
-from multitalent_tpu.io.nifti import Geometry, read_nifti, write_nifti
-from multitalent_tpu.plans import Plans, load_plans, save_plans
+from multitalent_tpu_torch.io.nifti import Geometry, read_nifti, write_nifti
+from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 
 __all__ = ["Geometry", "Plans", "load_plans", "read_nifti", "save_plans", "write_nifti"]

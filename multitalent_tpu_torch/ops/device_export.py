@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multitalent_tpu.preprocessing.resampling import get_do_separate_z, get_lowres_axis
+from multitalent_tpu_torch.preprocessing.resampling import get_do_separate_z, get_lowres_axis
 
 
 def can_export_on_device(properties: dict, force_separate_z=None) -> bool:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multitalent_tpu.tasks.multitalent import NUM_GLOBAL_LABELS, REGION_OUTPUT_IDX, REGIONS
+from multitalent_tpu_torch.tasks.multitalent import NUM_GLOBAL_LABELS, REGION_OUTPUT_IDX, REGIONS
 
 
 def build_label_region_matrix(regions: dict, region_output_idx: dict,

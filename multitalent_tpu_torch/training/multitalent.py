@@ -14,14 +14,14 @@ import os
 import numpy as np
 import torch
 
-from multitalent_tpu import paths
-from multitalent_tpu.tasks.multitalent import (NUM_REGIONS, build_custom_splits,
-                                               inverse_sqrt_sampling_probabilities,
-                                               valid_region_mask)
-from multitalent_tpu.utils.fileops import load_pickle, save_pickle
-from multitalent_tpu.utils.task_names import convert_id_to_task_name
+from multitalent_tpu_torch import paths
+from multitalent_tpu_torch.tasks.multitalent import (NUM_REGIONS, build_custom_splits,
+                                                     inverse_sqrt_sampling_probabilities,
+                                                     valid_region_mask)
 from multitalent_tpu_torch.training.losses import label_region_matrix, multitalent_ds_loss
 from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
+from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
 
 class MultiTalentTrainer(TrainerV2):

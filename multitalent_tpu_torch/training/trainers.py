@@ -1,8 +1,9 @@
 """The plans-driven trainer (nnUNetTrainerV2) on one GPU.
 
 Counterpart of multitalent_tpu/training/trainers.py:TrainerV2. It subclasses
-the JAX package's `NetworkTrainerBase` (numpy only: the epoch loop's
-bookkeeping, logging, moving averages, patience) and replaces the flax parts:
+`NetworkTrainerBase` (training/trainer_base.py, the port's copy of the JAX
+package's: the epoch loop's bookkeeping, logging, moving averages, patience)
+and replaces the flax parts:
 
 - the network is the port's GenericUNet with deep supervision, He-initialised
   from a seeded `torch.Generator`, computing in bf16 (fp16=True) with fp32
@@ -30,22 +31,22 @@ from functools import partial
 import numpy as np
 import torch
 
-from multitalent_tpu.augment.params import (default_2D_augmentation_params,
-                                            default_3D_augmentation_params,
-                                            get_patch_size)
-from multitalent_tpu.data.dataset import kfold_split, load_dataset, unpack_dataset
-from multitalent_tpu.data.loader import PatchSampler3D, PrefetchPipeline
-from multitalent_tpu.plans import Plans, load_plans, save_plans
-from multitalent_tpu.training.trainer_base import NetworkTrainerBase
-from multitalent_tpu.utils.fileops import load_pickle, maybe_mkdir, save_pickle
+from multitalent_tpu_torch.augment.params import (default_2D_augmentation_params,
+                                                  default_3D_augmentation_params,
+                                                  get_patch_size)
 from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_augment_fn,
                                                     make_val_transform_fn)
+from multitalent_tpu_torch.data.dataset import kfold_split, load_dataset, unpack_dataset
+from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
 from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
 from multitalent_tpu_torch.ops.fused_unet import make_train_forward
+from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
 from multitalent_tpu_torch.training.schedules import make_poly_schedule, poly_lr
 from multitalent_tpu_torch.training.train_state import SGDClipped
+from multitalent_tpu_torch.training.trainer_base import NetworkTrainerBase
+from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle
 
 
 def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
@@ -57,12 +58,6 @@ def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
             torch.nn.init.kaiming_normal_(m.weight, a=neg_slope, generator=generator)
             if m.bias is not None:
                 torch.nn.init.zeros_(m.bias)
-
-
-def checkpoint_file(fname: str) -> str:
-    """The base class names checkpoints `.ckpt` (the JAX package's flax
-    files); this trainer writes the reference's `.model`."""
-    return fname[:-len(".ckpt")] + ".model" if fname.endswith(".ckpt") else fname
 
 
 class TrainerV2(NetworkTrainerBase):
@@ -369,7 +364,6 @@ class TrainerV2(NetworkTrainerBase):
     def save_checkpoint(self, fname: str, save_optimizer: bool = True) -> None:
         """`<name>.model` + `<name>.model.pkl` in the reference layout."""
         start = time.time()
-        fname = checkpoint_file(fname)
         maybe_mkdir(os.path.dirname(fname) or ".")
         meta = self.checkpoint_metadata()
         torch.save({
@@ -390,7 +384,6 @@ class TrainerV2(NetworkTrainerBase):
             f"saving checkpoint... done, saving took {time.time() - start:.2f} seconds")
 
     def load_checkpoint(self, fname: str, train: bool = True) -> None:
-        fname = checkpoint_file(fname)
         self.print_to_log_file("loading checkpoint", fname, "train=", train)
         if not self.initialized:
             self.initialize(train)
@@ -400,62 +393,6 @@ class TrainerV2(NetworkTrainerBase):
             self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
         self.step = int(ckpt.get("step", ckpt["epoch"] * self.num_batches_per_epoch))
         self.restore_checkpoint_metadata(ckpt)
-
-    def _load_first(self, names, train: bool) -> None:
-        for name in names:
-            p = os.path.join(self.output_folder, name + ".model")
-            if os.path.isfile(p):
-                return self.load_checkpoint(p, train)
-        raise RuntimeError(f"none of {names} (.model) in {self.output_folder}")
-
-    def load_latest_checkpoint(self, train: bool = True) -> None:
-        self._load_first(("model_final_checkpoint", "model_latest", "model_best"), train)
-
-    def load_best_checkpoint(self, train: bool = True) -> None:
-        names = ("model_final_checkpoint",) if self.fold == "all" else (
-            "model_best", "model_final_checkpoint")
-        self._load_first(names, train)
-
-    def load_final_checkpoint(self, train: bool = False) -> None:
-        self._load_first(("model_final_checkpoint",), train)
-
-    # ------------------------------------------------------------------ the loop
-    def run_training(self) -> None:
-        """The epoch loop of trainer_base.run_training with the reference's
-        checkpoint names."""
-        maybe_mkdir(self.output_folder)
-        if not self.was_initialized:
-            self.initialize(True)
-        self.save_debug_information()
-        while self.epoch < self.max_num_epochs:
-            self.print_to_log_file("\nepoch: ", self.epoch)
-            start = time.time()
-            losses = [self.run_iteration(self.tr_gen, True)
-                      for _ in range(self.num_batches_per_epoch)]
-            self.all_tr_losses.append(float(np.mean(losses)))
-            self.print_to_log_file(f"train loss : {self.all_tr_losses[-1]:.4f}")
-            val = [self.run_iteration(self.val_gen, False, True)
-                   for _ in range(self.num_val_batches_per_epoch)]
-            self.all_val_losses.append(float(np.mean(val)) if val else float("nan"))
-            self.print_to_log_file(f"validation loss: {self.all_val_losses[-1]:.4f}")
-            self.update_train_loss_MA()
-            continue_training = self.on_epoch_end()
-            self.epoch += 1
-            self.print_to_log_file(f"This epoch took {time.time() - start:.2f} s\n")
-            if not continue_training:
-                break
-        self.epoch -= 1
-        if self.save_final_checkpoint:
-            self.save_checkpoint(os.path.join(self.output_folder,
-                                              "model_final_checkpoint.model"))
-        self.epoch += 1
-        for name in ("model_latest.model", "model_latest.model.pkl"):
-            p = os.path.join(self.output_folder, name)
-            if os.path.isfile(p):
-                os.remove(p)
-        for gen in (getattr(self, "tr_gen", None), getattr(self, "val_gen", None)):
-            if hasattr(gen, "stop"):
-                gen.stop()
 
     def validate(self, *args, **kwargs):
         raise NotImplementedError("validation of a trained fold (inference/validation.py) "

@@ -35,6 +35,12 @@ def _rand(rng, shape, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
+def _nan_filled(shape, device):
+    """An output buffer of NaN: a launch that leaves any of it unwritten fails
+    the check that follows (fresh memory may already hold the right values)."""
+    return torch.full(tuple(shape), float("nan"), dtype=torch.bfloat16, device=device)
+
+
 def _assert_close(got, ref):
     err = (got.float() - ref.float()).abs().max().item()
     bound = ATOL + RTOL * ref.float().abs().max().item()
@@ -349,3 +355,77 @@ def test_conv3d_same_affine_gradients_match_the_plain_composition(device):
         x, w.to(torch.bfloat16), b, s, t))
     for g, r, name in zip(got, ref, "xwbst"):
         assert (g - r).abs().max().item() <= 2e-2 * r.abs().max().item() + 1e-6, name
+
+
+# ---------------------------------------------------------------------------
+# the probes' kernels (multitalent_tpu_torch/probes)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arm", ["im2col", "tap3", "wino"])
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 8, 16, 16, 120), 120),   # the script's parity shape
+    ((2, 6, 10, 14, 30), 47),     # ragged boxes and channels, batch 2
+    ((1, 4, 6, 8, 13), 24),       # odd C (1-channel loads)
+])
+def test_conv_arm_matches_the_direct_conv(device, arm, shape, cout):
+    """The im2col, tap3 and Winograd arms against the fp32 direct conv on the
+    same bf16 input (fp32 weights), the bound of probes/conv_impl_arms.py."""
+    from multitalent_tpu_torch.probes import conv_impl_arms as ca
+    rng = np.random.default_rng(9)
+    x = _rand(rng, shape).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, shape[-1], 3, 3, 3), (2 / (27 * shape[-1])) ** 0.5).to(device)
+    kernel = {"im2col": ca.conv3d_im2col, "tap3": ca.conv3d_tap3, "wino": ca.conv3d_wino}[arm]
+    before = kernel.launches
+    out = _nan_filled((*shape[:4], cout), device)
+    got = kernel(x, ca.prepare_arm_weight(w, arm), out=out)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    assert got.dtype == torch.bfloat16 and got.shape == (*shape[:4], cout)
+    ref = cv.conv3d_same_ref(x.float(), w)
+    assert (got.float() - ref).abs().max().item() <= ca.ATOL + ca.RTOL * ref.abs().max().item()
+    if arm == "wino":  # the control: G with one row wrong breaks the bound
+        bad = ca.conv3d_wino(x, ca.prepare_arm_weight(w, "wino", g=ca.G_FAULTY))
+        assert (bad.float() - ref).abs().max().item() > ca.ATOL + ca.RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("factors,c,groups,cout", [
+    ((2, 2), 30, None, 24), ((1, 2), 60, None, 24), ((2, 2), 32, (20, 12), 24),
+    ((2, 2), 13, (6, 7), 30),    # odd groups: element loads
+])
+def test_packed_conv_matches_plain(device, factors, c, groups, cout):
+    from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+    rng = np.random.default_rng(10)
+    sizes = (c,) if groups is None else groups
+    xg = torch.cat([sc.space_to_depth_yx(_rand(rng, (2, 6, 16, 12, g)), factors) for g in sizes],
+                   -1).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, c, 3, 3, 3), 0.1).to(device)
+    before = sc.packed_conv3d.launches
+    out = _nan_filled((*xg.shape[:4], xg.shape[-1] // c * cout), device)
+    got = sc.packed_conv3d(xg, cv.prepare_conv3d_weight(w), factors, groups, out=out)
+    torch.cuda.synchronize()
+    assert sc.packed_conv3d.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    _assert_close(got, sc.packed_conv3d_ref(xg.float(), w.to(torch.bfloat16).float(), factors,
+                                            groups))
+
+
+@pytest.mark.parametrize("ndots,tile,cout", [(27, (8, 16, 16), 128), (12, (4, 8, 8), 96),
+                                             (5, (16, 16, 16), 128)])
+def test_centern_and_zeros_match_plain(device, ndots, tile, cout):
+    from multitalent_tpu_torch.probes import conv_cost_isolate as cc
+    from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+    rng = np.random.default_rng(11)
+    x = _rand(rng, (1, 16, 16, 16, 128)).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, 128, 3, 3, 3), 0.05).to(device)
+    before = cc.centern.launches
+    out = _nan_filled((1, 16, 16, 16, cout), device)
+    got = cc.centern(x, cc.prepare_center_weight(w), ndots, tile, cout, out=out)
+    torch.cuda.synchronize()
+    assert cc.centern.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    _assert_close(got, cc.centern_ref(x.float(), w.to(torch.bfloat16).float(), ndots))
+    # into a NaN-filled buffer: every value the fill leaves unwritten stays NaN
+    before = gp.zeros.launches
+    out = _nan_filled((16, 16, 16, 128), device)
+    z = gp.zeros((16, 16, 16, 128), tile, device, out=out)
+    torch.cuda.synchronize()
+    assert gp.zeros.launches == before + 1 and z.data_ptr() == out.data_ptr()
+    assert (z == 0).all()

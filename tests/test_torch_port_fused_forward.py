@@ -39,7 +39,7 @@ from multitalent_tpu_torch.ops.fused_unet import (make_inference_forward, make_t
 from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
 
 from test_torch_port_predict import SHAPE, _phantom, _tiny_plans
-from test_torch_port_train_slice import NO_AUG, flagship_like_plans, three_batches
+from test_torch_port_train_slice import NO_AUG, flagship_like_plans, port_plans, three_batches
 
 POOLS = ((2, 2, 2), (1, 2, 2))
 KERNELS = ((3, 3, 3),) * 3
@@ -192,8 +192,8 @@ def test_switches_default_to_the_unfused_forward(monkeypatch):
 
 def _trainer(tmp_path, fused: bool, monkeypatch) -> MultiTalentTrainer:
     monkeypatch.setenv("MTTPU_FUSED_TRAIN", "1" if fused else "0")
-    pt = MultiTalentTrainer(flagship_like_plans(), 0, str(tmp_path / f"port_{fused}"), None,
-                            fp16=False, device="cpu")
+    pt = MultiTalentTrainer(port_plans(flagship_like_plans()), 0,
+                            str(tmp_path / f"port_{fused}"), None, fp16=False, device="cpu")
     pt.initialize(True)
     pt.data_aug_params.update(NO_AUG)
     pt._build_step_functions()

@@ -159,10 +159,11 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Import every module of the port (the fused conv -> norm route's among
-    them), chip_smoke and profile_routes, in a fresh interpreter (this process's conftest has
-    loaded jax already), build the MultiTalent label -> region table, and
-    confirm the JAX package's modules the port reuses are the jax-free ones."""
+    """Import every module of the port (the fused conv -> norm route's and the
+    probes' among them), chip_smoke and profile_routes, in a fresh interpreter
+    (this process's conftest has loaded jax already), build the MultiTalent
+    label -> region table, and confirm that no module of the JAX package was
+    loaded: the port keeps its own copies of the modules it needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multitalent_tpu_torch as p\n"
@@ -175,14 +176,21 @@ def test_port_and_chip_smoke_import_no_jax():
         "assert set(fused) <= set(names), names\n"
         "from multitalent_tpu_torch.training.losses import label_region_matrix\n"
         "assert label_region_matrix().shape == (48, 47)\n"
-        "reused = ['multitalent_tpu.data.loader', 'multitalent_tpu.data.dataset',\n"
-        "          'multitalent_tpu.augment.params', 'multitalent_tpu.tasks.multitalent',\n"
-        "          'multitalent_tpu.training.trainer_base', 'multitalent_tpu.plans',\n"
-        "          'multitalent_tpu.paths', 'multitalent_tpu.utils.fileops',\n"
-        "          'multitalent_tpu.utils.task_names']\n"
-        "missing = [m for m in reused if m not in sys.modules]\n"
+        "own = ['multitalent_tpu_torch.data.loader', 'multitalent_tpu_torch.data.dataset',\n"
+        "       'multitalent_tpu_torch.augment.params', 'multitalent_tpu_torch.tasks.multitalent',\n"
+        "       'multitalent_tpu_torch.training.trainer_base', 'multitalent_tpu_torch.plans',\n"
+        "       'multitalent_tpu_torch.paths', 'multitalent_tpu_torch.utils.fileops',\n"
+        "       'multitalent_tpu_torch.utils.task_names', 'multitalent_tpu_torch.io.nifti',\n"
+        "       'multitalent_tpu_torch.preprocessing.preprocessor',\n"
+        "       'multitalent_tpu_torch.inference.segmentation_export',\n"
+        "       'multitalent_tpu_torch.probes.conv_impl_arms',\n"
+        "       'multitalent_tpu_torch.probes.sparse_conv_arm',\n"
+        "       'multitalent_tpu_torch.probes.conv_cost_isolate',\n"
+        "       'multitalent_tpu_torch.probes.grid_overhead_probe']\n"
+        "missing = [m for m in own if m not in sys.modules]\n"
         "assert not missing, missing\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'multitalent_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

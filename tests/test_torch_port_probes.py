@@ -1,0 +1,229 @@
+"""The probes' plain versions (multitalent_tpu_torch/probes) against the
+Pallas probe kernels of scripts/, on the CPU.
+
+The scripts are loaded from their files (scripts/ is no package). Rows 9 and
+10 of the TPU kernel table run their Pallas kernels in interpret mode; the
+Pallas kernels of rows 11 and 12 are closures inside the scripts' main()
+(conv_cost_isolate.py:48, grid_overhead_probe.py:49,68) and cannot be called
+without editing the scripts, so those rows are held against numpy
+transcriptions of the kernels' bodies. The kernels themselves run on the card
+(tests/test_torch_port_cuda.py).
+"""
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multitalent_tpu.ops.packed_conv import space_to_depth_yx
+from multitalent_tpu_torch.ops import conv3d as cv
+from multitalent_tpu_torch.probes import conv_cost_isolate as cc
+from multitalent_tpu_torch.probes import conv_impl_arms as ca
+from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+
+SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
+
+
+def _script(name: str):
+    spec = importlib.util.spec_from_file_location(f"_probe_script_{name}", SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def arms_script():
+    return _script("conv_impl_arms")
+
+
+@pytest.mark.parametrize("arm", ca.ARMS)
+def test_conv_arm_matches_the_pallas_arm(arms_script, arm, monkeypatch):
+    """Row 9: each arm's plain version (with its prepared weight) against
+    scripts/conv_impl_arms.pallas_conv3d_same in interpret mode under
+    MTTPU_PALLAS_CONV_IMPL=arm, fp32 at the script's parity shape
+    (1, 8, 16, 16, 120) -> 120, bound the script's 1e-3 (:362)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(ca.PARITY_SHAPE).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, 120, 120)) * 0.1).astype(np.float32)  # DHWIO
+    monkeypatch.setenv("MTTPU_PALLAS_CONV_IMPL", arm)
+    want = np.asarray(arms_script.pallas_conv3d_same(jnp.asarray(x), jnp.asarray(w),
+                                                     interpret=True))
+    wt = torch.from_numpy(w).permute(4, 3, 0, 1, 2)
+    got = ca.run_arm(arm, torch.from_numpy(x), ca.prepare(wt, arm, torch.float32))
+    assert np.abs(got.numpy() - want).max() < ca.PARITY_BOUND
+
+
+@pytest.mark.parametrize("arm", ["im2col", "tap3"])
+def test_arm_layouts_round_trip(arm):
+    """The kernels' weight layouts: unpreparing gives the weight back, the
+    padding is zero and each entry sits where csrc/conv_arms.cu reads it."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((47, 30, 3, 3, 3)).astype(np.float32))
+    pw = ca.prepare_arm_weight(w, arm, dtype=torch.float32)
+    assert torch.equal(ca.arm_weight_taps(pw), w)
+    co, ci, dz, dy, dx = 5, 21, 2, 0, 1
+    if arm == "im2col":
+        assert pw.w.shape == (27 * 32, 128)
+        assert pw.w[(dz * 9 + dy * 3 + dx) * 32 + ci, co] == w[co, ci, dz, dy, dx]
+    else:
+        assert pw.w.shape == (2, 9, 48, 64)
+        assert pw.w[ci // 16, dz * 3 + dy, dx * 16 + ci % 16, co] == w[co, ci, dz, dy, dx]
+    assert pw.w.sum() == pytest.approx(w.sum().item(), rel=1e-5)
+
+
+def test_winograd_weights_and_bound():
+    """U = G w G^T per axis (scripts/conv_impl_arms.py:330-336); the Winograd
+    plain version with the kernel's bf16 rounding points stays within the
+    arms' bound of the direct conv and the faulty G (the control) breaks it,
+    as probes/conv_impl_arms.py states."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.standard_normal((8, 6, 3, 3, 3)).astype(np.float64))
+    u = ca.winograd_weights(w)
+    g = torch.tensor(ca.G, dtype=torch.float64)
+    want = torch.einsum("au,bv,cw,oiuvw->abcio", g, g, g, w).reshape(64, 6, 8)
+    assert torch.allclose(u, want)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 32, 32, 120), dtype=np.float32))
+    x = x.to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((120, 120, 3, 3, 3)).astype(np.float32)
+                         * (2 / (27 * 120)) ** 0.5)
+    ref = cv.conv3d_same_ref(x.float(), w)
+    bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
+    for g, ok in ((ca.G, True), (ca.G_FAULTY, False)):
+        out = ca.winograd_conv3d_ref(x.float(), ca.prepare_arm_weight(w, "wino", g=g),
+                                     v_dtype=torch.bfloat16).to(torch.bfloat16)
+        assert ((out.float() - ref).abs().max().item() <= bound) == ok
+
+
+def test_winograd_refuses_odd_sizes():
+    w = torch.zeros(4, 4, 3, 3, 3)
+    with pytest.raises(ValueError, match="even"):
+        ca.conv3d_wino(torch.zeros(1, 4, 5, 4, 4), ca.prepare_arm_weight(w, "wino"))
+
+
+@pytest.mark.parametrize("factors,c,groups", sc.PARITY_CASES)
+def test_packed_conv_matches_the_pallas_sparse_kernel(factors, c, groups):
+    """Row 10: packed_conv3d's plain version against
+    scripts/pallas_sparse_conv_arm.pallas_packed_conv3d_sparse in interpret
+    mode at the script's three _parity_check cases (:389-412), atol 1e-4."""
+    script = _script("pallas_sparse_conv_arm")
+    xg, w = sc.parity_inputs(factors, c, groups, np.random.default_rng(3))
+    want = script.pallas_packed_conv3d_sparse(
+        jnp.asarray(xg.numpy()), jnp.asarray(w.permute(2, 3, 4, 1, 0).numpy()),
+        factors=factors, in_groups=groups, interpret=True)
+    got = sc.packed_conv3d(xg, cv.prepare_conv3d_weight(w, dtype=torch.float32), factors, groups)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=sc.PARITY_ATOL)
+    x = np.random.default_rng(4).standard_normal((1, 2, 8, 6, 5), dtype=np.float32)
+    assert np.array_equal(sc.space_to_depth_yx(torch.from_numpy(x), factors).numpy(),
+                          np.asarray(space_to_depth_yx(jnp.asarray(x), factors)))
+
+
+def _pallas_centern_body(xpad: np.ndarray, w: np.ndarray, ndots: int, block) -> np.ndarray:
+    """scripts/conv_cost_isolate.py:80-87 (= grid_overhead_probe.py:103-109)
+    transcribed to numpy, grid step by grid step: the center view of the
+    haloed block, ndots dots into an fp32 accumulator."""
+    _, zp, yp, xp16, c = xpad.shape
+    z, y, xd = zp - 2, yp - 2, xp16 - 16
+    bz, by, bx = block
+    out = np.zeros((1, z, y, xd, w.shape[-1]), np.float32)
+    for i in range(z // bz):
+        for j in range(y // by):
+            for k in range(xd // bx):
+                xblk = xpad[0, i * bz:i * bz + bz + 2, j * by:j * by + by + 2,
+                            k * bx:k * bx + bx + 16, :]
+                a2 = xblk[1:1 + bz, 1:1 + by, 8:8 + bx, :].reshape(bz * by * bx, c)
+                acc = np.zeros((bz * by * bx, w.shape[-1]), np.float32)
+                for t in range(ndots):
+                    acc += a2 @ w[t % 3, (t // 3) % 3, t % 3]
+                out[0, i * bz:(i + 1) * bz, j * by:(j + 1) * by, k * bx:(k + 1) * bx] = \
+                    acc.reshape(bz, by, bx, -1)
+    return out
+
+
+@pytest.mark.parametrize("ndots,block", [(27, (4, 8, 8)), (12, (8, 16, 8))])
+def test_centern_matches_the_pallas_body(ndots, block):
+    """Rows 11 and 12 (conv): centern's plain version against the numpy
+    transcription of the Pallas body on a padded copy, as the scripts feed it."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 8, 16, 16, 32).astype(np.float32)
+    w = (rng.randn(3, 3, 3, 32, 32) * .05).astype(np.float32)  # (3, 3, 3, C, Cout)
+    xpad = np.pad(x, ((0, 0), (1, 1), (1, 1), (8, 8), (0, 0)))
+    want = _pallas_centern_body(xpad, w, ndots, block)
+    wt = torch.from_numpy(w).permute(4, 3, 0, 1, 2)
+    got = cc.centern(torch.from_numpy(x), cc.prepare_center_weight(wt, torch.float32), ndots,
+                     block)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+    with pytest.raises(ValueError, match="divide"):
+        cc.centern(torch.from_numpy(x), cc.prepare_center_weight(wt, torch.float32), ndots,
+                   (3, 16, 16))
+
+
+@pytest.mark.parametrize("block", [(8, 16, 16), (4, 8, 8), (16, 16, 16)])
+def test_zeros_matches_the_pallas_body(block):
+    """Row 12 (zeros): scripts/grid_overhead_probe.py:49-50 writes zeros into
+    every (bz, by, bx, C) block; the port's plain version gives that tensor."""
+    shape = (16, 16, 16, 128)
+    want = np.full(shape, np.nan, np.float32)
+    for i in range(0, 16, block[0]):
+        for j in range(0, 16, block[1]):
+            for k in range(0, 16, block[2]):
+                want[i:i + block[0], j:j + block[1], k:k + block[2]] = np.zeros_like(
+                    want[i:i + block[0], j:j + block[1], k:k + block[2]])
+    got = gp.zeros(shape, block, "cpu")
+    assert got.dtype == torch.bfloat16 and np.array_equal(got.float().numpy(), want)
+    with pytest.raises(ValueError):
+        gp.zeros(shape, (5, 16, 16), "cpu")
+
+
+@pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
+                                   "grid_overhead_probe"])
+def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
+    """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
+    plain run; without --device, a machine without a card refuses."""
+    mod = importlib.import_module(f"multitalent_tpu_torch.probes.{probe}")
+    mod.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "plain run on the CPU" in out or "no card: skipping" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            mod.main([])
+
+
+@pytest.mark.parametrize("kernel", ["conv3d_im2col", "conv3d_tap3", "conv3d_wino",
+                                    "packed_conv3d", "centern", "zeros"])
+def test_probe_kernel_writes_into_out(kernel):
+    """Each probe wrapper's `out=`: the plain version lands in the caller's
+    buffer (a NaN-filled one here, as chip_smoke's checks pass) and that
+    buffer comes back; a buffer of another shape is refused."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 8, 8, 16)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((16, 16, 3, 3, 3)) * 0.1).astype(np.float32))
+    calls = {
+        "conv3d_im2col": lambda out: ca.conv3d_im2col(
+            x, ca.prepare_arm_weight(w, "im2col", dtype=torch.float32), out=out),
+        "conv3d_tap3": lambda out: ca.conv3d_tap3(
+            x, ca.prepare_arm_weight(w, "tap3", dtype=torch.float32), out=out),
+        "conv3d_wino": lambda out: ca.conv3d_wino(
+            x, ca.prepare_arm_weight(w, "wino", dtype=torch.float32), out=out),
+        "packed_conv3d": lambda out: sc.packed_conv3d(
+            sc.space_to_depth_yx(x, (2, 2)), cv.prepare_conv3d_weight(w, dtype=torch.float32),
+            (2, 2), out=out),
+        "centern": lambda out: cc.centern(
+            x, cc.prepare_center_weight(w, torch.float32), 27, (4, 8, 8), out=out),
+        "zeros": lambda out: gp.zeros((4, 8, 8, 16), (4, 8, 8), "cpu", out=out),
+    }[kernel]
+    want = calls(None)
+    out = torch.full(want.shape, float("nan"), dtype=want.dtype)
+    got = calls(out)
+    assert got is out and torch.equal(got, want)
+    with pytest.raises(ValueError, match="out"):
+        calls(torch.empty(*want.shape[:-1], want.shape[-1] + 1, dtype=want.dtype))
+
+
+def test_launch_check_refuses_a_cpu_tensor():
+    """A kernel launch takes CUDA tensors only."""
+    from multitalent_tpu_torch.probes import _util
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _util.check_tensor(torch.zeros(4, dtype=torch.bfloat16), "x")

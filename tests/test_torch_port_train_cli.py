@@ -12,12 +12,11 @@ import pytest
 import torch
 
 from multitalent_tpu import paths
-from multitalent_tpu.plans import save_plans
 from multitalent_tpu.tasks.multitalent import REGIONS
 from multitalent_tpu.utils.fileops import save_pickle
 from multitalent_tpu_torch.cli import train
 from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
-from multitalent_tpu_torch.io import Geometry, read_nifti, write_nifti
+from multitalent_tpu_torch.io import Geometry, read_nifti, save_plans, write_nifti
 
 from test_torch_port_predict import SHAPE, _phantom, _tiny_plans
 from test_training import make_preprocessed

@@ -37,6 +37,7 @@ from multitalent_tpu.parallel import mesh
 from multitalent_tpu.plans import Plans
 from multitalent_tpu.training.multitalent import MultiTalentTrainer as JaxMultiTalentTrainer
 from multitalent_tpu_torch.io.from_jax import generic_unet_state_dict_from_flax
+from multitalent_tpu_torch.plans import Plans as PortPlans
 from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
 
 from test_training import make_preprocessed, tiny_plans
@@ -53,6 +54,12 @@ def flagship_like_plans() -> Plans:
         pool_op_kernel_sizes=[[1, 2, 2], [2, 2, 2], [2, 2, 2]],
         conv_kernel_sizes=[[3, 3, 3]] * 4)
     return Plans.from_dict(d)
+
+
+def port_plans(plans: Plans) -> PortPlans:
+    """The JAX package's plans as the port's own Plans (the port imports
+    nothing of the JAX package)."""
+    return PortPlans.from_dict(plans.to_dict())
 
 
 def three_batches(tmp_path, patch_size):
@@ -83,7 +90,8 @@ def run_both(tmp_path, mp, fp16: bool):
     jt.initialize(True)
     jt.data_aug_params.update(NO_AUG)
     jt._build_step_functions()
-    pt = MultiTalentTrainer(plans, 0, str(tmp_path / "port"), None, fp16=fp16, device="cpu")
+    pt = MultiTalentTrainer(port_plans(plans), 0, str(tmp_path / "port"), None, fp16=fp16,
+                            device="cpu")
     pt.initialize(True)
     pt.data_aug_params.update(NO_AUG)
     pt._build_step_functions()
