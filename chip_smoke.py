@@ -9,9 +9,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship gives it, with the kernel's median time beside the plain
    version's (fp32, TF32 off) and cuDNN's bf16 op: A and B at the forward's
-   shapes (N=1); kernel C (dw) single at A's shapes and dual at B's, and A in
-   the dx role (C -> 2C channels, the dual convs' dx), at the training
-   batch N=2; then the fused chain's kernels beside the unfused route they
+   shapes (N=1); kernel C (dw) single at A's shapes and dual at B's (each
+   into a NaN-filled dw buffer, with its bound and write path: dw directly
+   or split partials), and A in the dx role (C -> 2C channels, the dual
+   convs' dx), at the training batch N=2; then the fused chain's kernels beside the unfused route they
    replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
    stats) at A's shapes and its dual form at B's, each at N=1 and N=2, E's
    stats and apply passes at every norm shape, and F at the stage-0 head;
@@ -55,13 +56,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
    the plain version's and the library call's;
-7. one JSON line describing every kernel (A-F and the probes'), then the
+7. one JSON line describing every kernel (A-F and the probes'; kernel C's
+   row also lists its phase-2 shapes and sums their times, and cuDNN's,
+   over one training step's launches as phase 5 recorded them), then the
    result line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -239,7 +243,10 @@ def phase_kernels() -> dict:
         del ins, ins32, ref, x_cl
 
     # backward at the training batch: dw by kernel C (single at A's shapes,
-    # dual at B's), dx of the dual convs by kernel A (C -> 2C channels)
+    # dual at B's), each checked in a dw buffer filled with NaN and timed
+    # beside its bound and its write path (dw directly, or per-split
+    # partials and a second launch); dx of the dual convs by kernel A (C ->
+    # 2C channels)
     n = TRAIN_BATCH
     cases = [(c, (c,), sp) for c, sp in KERNEL_A_SHAPES]
     cases += [(c, (c, c), sp) for c, sp in KERNEL_B_SHAPES]
@@ -253,14 +260,22 @@ def phase_kernels() -> dict:
         ins32, g32 = [t.float() for t in ins], g.float()
         ref = plain(*ins32, g32)
         bound = DW_RTOL * ref.abs().max().item()
-        err = _check(f"conv3d_same_wgrad {splits}->{cout} at {sp}", kernel(*ins, g), ref, bound)
+        shape = (cout, sum(splits), 3, 3, 3)
+        out = torch.full(shape, float("nan"), device=dev)
+        err = _check(f"conv3d_same_wgrad {splits}->{cout} at {sp}", kernel(*ins, g, out=out),
+                     ref, bound)
+        ws = cv.conv3d_same_wgrad_workspace(n, *sp, splits[0], sum(splits[1:]), cout)
         x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
         g_cl = g.permute(0, 4, 1, 2, 3)
-        shape = (cout, sum(splits), 3, 3, 3)
         report("conv3d_same_wgrad", splits, cout, sp, n, err, bound,
                _median_ms(lambda: kernel(*ins, g)), _median_ms(lambda: plain(*ins32, g32)),
                _median_ms(lambda: torch.nn.grad.conv3d_weight(x_cl, shape, g_cl, padding=1)))
-        del ins, ins32, ref, x_cl
+        results["conv3d_same_wgrad"][-1].update(
+            write="direct" if ws == 0 else f"{ws // (4 * prod(shape))} splits + reduce",
+            **_conv_bound(sum(splits), cout, sp, n, w_bytes=4))
+        print(f"  bound {results['conv3d_same_wgrad'][-1]['bound_ms']:.3f} ms, "
+              f"{results['conv3d_same_wgrad'][-1]['write']}")
+        del ins, ins32, ref, x_cl, out
         if len(splits) == 2:  # dx of the dual conv: one A launch, Cout -> Ca + Cb
             w = rnd(cout, sum(splits), 3, 3, 3, scale=(2.0 / (27 * sum(splits))) ** 0.5)
             wt = w.to(torch.bfloat16).float().flip(2, 3, 4).transpose(0, 1)
@@ -828,7 +843,14 @@ def _check_dw_through_kernels(trainer) -> float:
     print(f"one step's dw of all {len(calls)} kernel convs through kernel C vs the plain "
           f"version on the same bf16 inputs: worst max|d| / max|dw| {worst:.2e} "
           f"(bound {DW_RTOL})")
-    return worst
+    shapes = collections.Counter(_dw_key(ins, g) for ins, g, _ in calls)
+    return worst, shapes
+
+
+def _dw_key(ins, g) -> tuple:
+    """(input channels, Cout, spatial, N) of one kernel C call."""
+    return (tuple(int(t.shape[-1]) for t in ins), int(g.shape[-1]),
+            tuple(int(s) for s in g.shape[1:4]), int(g.shape[0]))
 
 
 def phase_training(workdir: str, fused: bool = False) -> dict:
@@ -904,7 +926,7 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
         print(f"training launches ({route}): { {k: v for k, v in launches.items() if v} } "
               f"= per step {per_step} x {steps} + per forward {per_fwd} x {val} "
               f"(validation)")
-        dw_worst = _check_dw_through_kernels(trainer)
+        dw_worst, dw_shapes = _check_dw_through_kernels(trainer)
     finally:
         os.environ.pop("MTTPU_FUSED_TRAIN")
 
@@ -921,7 +943,7 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     print(f"the trained folder ({route}) predicts: labelmap + {len(masks)} region NIfTIs "
           f"at {CASE_SHAPE}")
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
-            "dw_worst_rel": dw_worst}
+            "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes}
 
 
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
@@ -940,6 +962,30 @@ def _conv_bound(cin: int, cout: int, spatial, n: int, w_bytes: int = 2) -> dict:
     vox = n * prod(spatial)
     return _bound(vox * (cin + cout) * 2 + 27 * cin * cout * w_bytes,
                   bf16_flops=2 * 27 * cin * cout * vox)
+
+
+def _wgrad_step(timed: list, step_shapes: collections.Counter) -> dict:
+    """Kernel C at each phase-2 shape (ms, cuDNN's bf16 wgrad ms, bound,
+    write path) and the sums of both times over one training step's launches:
+    each shape weighted by its launches in the step phase 5 recorded, whose
+    count is kernel_launches_per_step()'s."""
+    by_key = {(tuple(r["splits"]), r["cout"], tuple(r["spatial"]), r["n"]): r for r in timed}
+    if not set(step_shapes) <= set(by_key):
+        raise AssertionError(f"dw shapes of a step not timed in phase 2: "
+                             f"{set(step_shapes) - set(by_key)}")
+    shapes = [{"at": "{}->{} at {} N={}".format("+".join(map(str, key[0])), key[1],
+                                                "x".join(map(str, key[2])), key[3]),
+               "ms": r["ms"], "cudnn_ms": r["cudnn_bf16_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "write": r["write"],
+               "launches_per_step": step_shapes.get(key, 0)} for key, r in by_key.items()]
+    step = {"step_ms": sum(k * by_key[key]["ms"] for key, k in step_shapes.items()),
+            "step_cudnn_ms": sum(k * by_key[key]["cudnn_bf16_ms"]
+                                 for key, k in step_shapes.items())}
+    print(f"kernel C over one training step ({sum(step_shapes.values())} launches, "
+          f"{sum(len(key[0]) == 1 for key in step_shapes.elements())} single, "
+          f"{sum(len(key[0]) == 2 for key in step_shapes.elements())} dual): "
+          f"{step['step_ms']:.3f} ms, cuDNN bf16 wgrad {step['step_cudnn_ms']:.3f} ms")
+    return {"shapes": shapes, **step}
 
 
 def phase_probe_path() -> dict:
@@ -1180,6 +1226,8 @@ def main() -> int:
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, stage0["splits"])), stage0["cout"],
                          "x".join(map(str, stage0["spatial"])), stage0["n"])})
+    wgrad_step = _wgrad_step(kernels["conv3d_same_wgrad"], training["dw_shapes"])
+    rows[-1].update(wgrad_step)
     # the fused route's kernels: launches from the fused predict CLI run (and
     # kernel D's from the fused training run), times at the stage-0 shape (N=1,
     # C = 30 at 96x192x192); no one PyTorch call computes any of them
@@ -1237,7 +1285,9 @@ def main() -> int:
           f"unfused, {tile_fused['fused_forward_ms']:.2f} ms fused; seconds per training "
           f"step {training['seconds_per_step']:.3f} unfused, "
           f"{training_fused['seconds_per_step']:.3f} fused; peak {training['peak_gib']:.2f} "
-          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; probe path "
+          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; kernel C over a step "
+          f"{wgrad_step['step_ms']:.3f} ms (cuDNN {wgrad_step['step_cudnn_ms']:.3f} ms); "
+          f"probe path "
           f"{probe_path['seconds']:.1f} s; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

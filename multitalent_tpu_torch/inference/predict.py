@@ -18,10 +18,12 @@ Counterpart of multitalent_tpu/inference/predict.py (`predict_cases` :67 and
    `individual/<region>/<case>.nii.gz` per region with export_region_niftis.
 
 Cases run one after another; preprocessing of later cases runs ahead on
-threads.
+threads, at most `num_threads_preprocessing` cases ahead of the predictor.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import os
 import shutil
 import time
@@ -96,6 +98,20 @@ def _make_preprocess_fn(restored):
     return preprocess
 
 
+def _read_ahead(pool, fn, items, depth: int):
+    """fn(item) for each item, in order, computed on `pool` at most `depth`
+    items ahead of the consumer: while the consumer holds result i, only
+    items i+1..i+depth are submitted. (`pool.map` submits every item at
+    once, so the host would hold every preprocessed case of a folder.)"""
+    items = iter(items)
+    pending = collections.deque(pool.submit(fn, item)
+                                for item in itertools.islice(items, max(depth, 1)))
+    while pending:
+        result = pending.popleft().result()
+        pending.extend(pool.submit(fn, item) for item in itertools.islice(items, 1))
+        yield result
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -148,7 +164,8 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
     futures = []
     with ThreadPoolExecutor(max_workers=num_threads_preprocessing) as prep_pool, \
             ThreadPoolExecutor(max_workers=num_threads_nifti_save) as export_pool:
-        preprocessed = prep_pool.map(_make_preprocess_fn(restored), list_of_lists)
+        preprocessed = _read_ahead(prep_pool, _make_preprocess_fn(restored), list_of_lists,
+                                   num_threads_preprocessing)
         for out_fname, (data, properties) in zip(output_filenames, preprocessed):
             t0, forwards0 = time.perf_counter(), predictor.forwards
             probs_sum = None

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from multitalent_tpu_torch.ops.fused_norm import affine_lrelu_ref, channel_stats_ref
+from multitalent_tpu_torch.probes._util import into
 
 KC = 16  # input channels per K chunk of the kernel
 
@@ -286,38 +287,60 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
 conv3d_same_dual.launches = 0
 
 
-def _launch_wgrad(name: str, inputs: list[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
-    """Run kernel C's C entry `name`: allocates dw and the fp32 workspace of
-    per-block partial sums whose size the library reports."""
+def conv3d_same_wgrad_workspace(n: int, z: int, y: int, x: int, ca: int, cb: int,
+                                cout: int) -> int:
+    """Bytes of fp32 workspace kernel C takes at these sizes on the current
+    card (cb = 0 for the single-input form): 0 where it writes dw directly
+    (one split of the voxel axis), else the per-split partials it adds in a
+    second launch. Builds the kernel library."""
+    from multitalent_tpu_torch import _build
+    nbytes = _build.library().mt_conv3d_wgrad_workspace(n, z, y, x, ca, cb, cout)
+    if nbytes < 0:
+        raise ValueError(f"kernel C does not take sizes {(n, z, y, x, ca, cb, cout)}")
+    return nbytes
+
+
+def _launch_wgrad(name: str, inputs: list[torch.Tensor], g: torch.Tensor,
+                  out: torch.Tensor | None) -> torch.Tensor:
+    """Run kernel C's C entry `name` into `out` (or a new dw), with the fp32
+    workspace of per-split partial sums where the library reports one; with
+    none the kernel writes dw directly."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = g.device
     n, z, y, xd = (int(s) for s in g.shape[:4])
     cs = [int(t.shape[-1]) for t in inputs]
     cout = int(g.shape[-1])
-    dw = torch.empty((cout, sum(cs), 3, 3, 3), dtype=torch.float32, device=dev)
+    shape = (cout, sum(cs), 3, 3, 3)
+    if out is None:
+        dw = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != shape or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"out: expected a contiguous float32 {shape} tensor on {dev}")
+    else:
+        dw = out
     if g.numel() == 0:
         return dw.zero_()
     with torch.cuda.device(dev):
-        nbytes = lib.mt_conv3d_wgrad_workspace(n, z, y, xd, cs[0], sum(cs[1:]), cout)
-        if nbytes <= 0:
-            raise ValueError(f"{name}: the kernel does not take these sizes")
-        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        nbytes = conv3d_same_wgrad_workspace(n, z, y, xd, cs[0], sum(cs[1:]), cout)
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev) if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, name)(
-            *(t.data_ptr() for t in inputs), g.data_ptr(), dw.data_ptr(), ws.data_ptr(),
-            nbytes, n, z, y, xd, *cs, cout, stream)
+            *(t.data_ptr() for t in inputs), g.data_ptr(), dw.data_ptr(),
+            None if ws is None else ws.data_ptr(), nbytes, n, z, y, xd, *cs, cout, stream)
     _build.check(lib, code, name)
     return dw
 
 
-def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel C: dL/dw (Cout, Cin, 3, 3, 3) fp32 of the stride-1 SAME 3x3x3
-    conv of x (N, Z, Y, X, Cin) whose output gradient is g (N, Z, Y, X, Cout).
+    conv of x (N, Z, Y, X, Cin) whose output gradient is g (N, Z, Y, X, Cout),
+    written into `out` where given.
 
     CUDA tensors launch the kernel; CPU tensors take conv3d_same_wgrad_ref."""
     if x.device.type == "cpu":
-        return conv3d_same_wgrad_ref(x, g)
+        return into(out, conv3d_same_wgrad_ref(x, g))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad: unsupported device {x.device}")
     _check_input(x, "x", x)
@@ -325,7 +348,7 @@ def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.shape[:4] != g.shape[:4]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ "
                          "outside the channel axis")
-    dw = _launch_wgrad("mt_conv3d_wgrad", [x], g)
+    dw = _launch_wgrad("mt_conv3d_wgrad", [x], g, out)
     conv3d_same_wgrad.launches += 1
     return dw
 
@@ -333,16 +356,17 @@ def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 conv3d_same_wgrad.launches = 0
 
 
-def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor,
-                           g: torch.Tensor) -> torch.Tensor:
+def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel C, dual form: dL/dw (Cout, Ca + Cb, 3, 3, 3) fp32 of kernel B's
-    conv over concat(a, b), without building the concat. Its launches count
-    on `conv3d_same_wgrad.launches`, as one kernel.
+    conv over concat(a, b), without building the concat, written into `out`
+    where given. Its launches count on `conv3d_same_wgrad.launches`, as one
+    kernel.
 
     CUDA tensors launch the kernel; CPU tensors take
     conv3d_same_wgrad_dual_ref."""
     if a.device.type == "cpu":
-        return conv3d_same_wgrad_dual_ref(a, b, g)
+        return into(out, conv3d_same_wgrad_dual_ref(a, b, g))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad_dual: unsupported device {a.device}")
     _check_input(a, "a", a)
@@ -351,7 +375,7 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor,
     if a.shape[:4] != b.shape[:4] or a.shape[:4] != g.shape[:4]:
         raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)} and g "
                          f"{tuple(g.shape)} differ outside the channel axis")
-    dw = _launch_wgrad("mt_conv3d_wgrad_dual", [a, b], g)
+    dw = _launch_wgrad("mt_conv3d_wgrad_dual", [a, b], g, out)
     conv3d_same_wgrad.launches += 1
     return dw
 

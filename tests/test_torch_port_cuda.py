@@ -117,6 +117,11 @@ DW_RTOL = 1e-3
     ((1, 5, 7, 19), 60, 60),      # ragged Z/Y/X
     ((1, 6, 6, 6), 320, 320),     # deepest flagship stage
     ((1, 3, 5, 9), 13, 47),       # odd C (1-channel loads), 47 outputs
+    ((2, 8, 16, 16), 60, 60),     # 60-channel rows (8-byte copies), batch 2
+    ((2, 5, 9, 11), 30, 30),      # 30-channel rows (both chunks a block), ragged
+    ((1, 4, 8, 8), 30, 60),       # 30-channel rows into 60 outputs
+    ((1, 7, 6, 5), 16, 24),       # one chunk, Cout <= 32 (the BN-64 form)
+    ((1, 4, 8, 8), 21, 33),       # odd Cout (1-channel g copies)
 ])
 def test_conv3d_same_wgrad_matches_plain(device, shape, cin, cout):
     rng = np.random.default_rng(2)
@@ -135,6 +140,8 @@ def test_conv3d_same_wgrad_matches_plain(device, shape, cin, cout):
     (30, 30, 30, (2, 4, 16, 16)),
     (20, 10, 16, (1, 5, 9, 17)),  # unequal groups: a swapped order fails
     (13, 7, 20, (1, 3, 5, 6)),
+    (30, 20, 30, (2, 5, 9, 11)),  # unequal, both chunks a block, ragged volume
+    (60, 36, 60, (1, 4, 8, 8)),   # unequal 60-channel form
 ])
 def test_conv3d_same_wgrad_dual_matches_plain(device, ca, cb, cout, shape):
     rng = np.random.default_rng(3)
@@ -145,6 +152,34 @@ def test_conv3d_same_wgrad_dual_matches_plain(device, ca, cb, cout, shape):
     torch.cuda.synchronize()
     ref = cv.conv3d_same_wgrad_dual_ref(a.float(), b.float(), g.float())
     assert (got - ref).abs().max().item() <= DW_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dual,shape,cout,direct", [
+    (False, (1, 6, 6, 6, 320), 320, True),   # partials would outweigh the inputs
+    (False, (2, 8, 16, 32, 30), 30, False),  # one block's worth: split the voxels
+    (True, (1, 6, 12, 12, 320), 320, True),
+    (True, (2, 8, 16, 32, 30), 30, False),
+])
+def test_conv3d_same_wgrad_write_paths(device, dual, shape, cout, direct):
+    """Kernel C on each write path (dw directly, or per-split partials and
+    a second launch), into a dw buffer filled with NaN: every element is
+    written; two calls give bit-equal dw (no atomics)."""
+    rng = np.random.default_rng(4)
+    n, z, y, x, c = shape
+    ins = [_rand(rng, shape).to(device, torch.bfloat16) for _ in range(2 if dual else 1)]
+    g = _rand(rng, (*shape[:4], cout)).to(device, torch.bfloat16)
+    ws = cv.conv3d_same_wgrad_workspace(n, z, y, x, c, c if dual else 0, cout)
+    assert (ws == 0) == direct, ws
+    fn = cv.conv3d_same_wgrad_dual if dual else cv.conv3d_same_wgrad
+    plain = cv.conv3d_same_wgrad_dual_ref if dual else cv.conv3d_same_wgrad_ref
+    out = torch.full((cout, c * len(ins), 3, 3, 3), float("nan"), device=device)
+    assert fn(*ins, g, out=out) is out
+    again = fn(*ins, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    ref = plain(*(t.float() for t in ins), g.float())
+    assert (out - ref).abs().max().item() <= DW_RTOL * ref.abs().max().item()
 
 
 def test_training_step_through_the_kernels_matches_the_plain_path(device):

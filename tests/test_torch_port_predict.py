@@ -22,6 +22,7 @@ its fp32 sliding-window mode). Region masks must agree:
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -150,6 +151,70 @@ def test_cli_output_matches_jax_package(case, precision, worst, mean):
         # the port is closer to the JAX package than bf16 is to fp32
         own = _region_agreement(root, "jax_bf16", "jax_fp32")
         assert 1 - agree.mean() <= 1 - own.mean(), (agree.mean(), own.mean())
+
+
+@pytest.mark.parametrize("ahead", [1, 2])
+def test_cli_preprocesses_at_most_its_threads_ahead(case, tmp_path, monkeypatch, ahead):
+    """A folder of four cases (two inputs, alternating) with a counting
+    preprocessor: whenever a case starts preprocessing, at most
+    `num_threads_preprocessing` cases are preprocessed or preprocessing beyond
+    the one the predictor works on, and every output equals the one-case
+    run's (input A) or a run of the same folder where every case may run
+    ahead at once (input B, whose masks differ from A's)."""
+    from multitalent_tpu_torch.inference import predict as port_predict
+    from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+    root, _ = case
+    src = tmp_path / "in"
+    src.mkdir()
+    names = ["a0", "b1", "a2", "b3"]
+    for name in names[::2]:
+        (src / f"{name}_0000.nii.gz").write_bytes((root / "in" / "case_0000.nii.gz").read_bytes())
+    for name in names[1::2]:
+        write_nifti(src / f"{name}_0000.nii.gz",
+                    _phantom(np.random.RandomState(1)).astype(np.int16),
+                    Geometry(spacing=(1.0, 1.0, 1.6)))
+    seen, lock = {"started": 0, "finished": 0, "ahead": []}, threading.Lock()
+    make_preprocess, predict = port_predict._make_preprocess_fn, SlidingWindowPredictor.predict
+
+    def counting_make_preprocess(restored):
+        preprocess = make_preprocess(restored)
+
+        def counted(case_files):
+            with lock:
+                seen["started"] += 1
+                # cases started, less those predicted, less the one in the
+                # predictor
+                seen["ahead"].append(seen["started"] - seen["finished"] - 1)
+            return preprocess(case_files)
+        return counted
+
+    def counting_predict(self, *args, **kwargs):
+        out = predict(self, *args, **kwargs)
+        with lock:
+            seen["finished"] += 1  # one fold: one predict call per case
+        return out
+
+    monkeypatch.setenv("MTTPU_SW_EXACT", "1")
+    monkeypatch.setattr(port_predict, "_make_preprocess_fn", counting_make_preprocess)
+    monkeypatch.setattr(SlidingWindowPredictor, "predict", counting_predict)
+    for depth in (ahead, len(names)):
+        seen.update(started=0, finished=0, ahead=[])
+        timings = main(["-i", str(src), "-o", str(tmp_path / f"out{depth}"), "-m",
+                        str(root / "model_fp32"), "--device", "cpu",
+                        "--num_threads_preprocessing", str(depth)])
+        assert [t["case"] for t in timings] == sorted(names)
+        assert seen["started"] == len(names) and max(seen["ahead"]) <= depth, seen
+
+    def masks(folder, name):
+        return [read_nifti(folder / "individual" / r / f"{name}.nii.gz")[0] for r in REGIONS]
+
+    one_case = masks(root / "port_fp32", "case")
+    for name in names:
+        got = masks(tmp_path / f"out{ahead}", name)
+        want = one_case if name[0] == "a" else masks(tmp_path / f"out{len(names)}", name)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), name
+    assert not all(np.array_equal(a, b) for a, b in zip(
+        masks(tmp_path / f"out{ahead}", "a0"), masks(tmp_path / f"out{ahead}", "b1")))
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

@@ -178,7 +178,7 @@ def test_zeros_matches_the_pallas_body(block):
 
 
 @pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
-                                   "grid_overhead_probe"])
+                                   "grid_overhead_probe", "wgrad_forms"])
 def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
     """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
     plain run; without --device, a machine without a card refuses."""
@@ -227,3 +227,24 @@ def test_launch_check_refuses_a_cpu_tensor():
     from multitalent_tpu_torch.probes import _util
     with pytest.raises(ValueError, match="CUDA tensor"):
         _util.check_tensor(torch.zeros(4, dtype=torch.bfloat16), "x")
+
+
+def test_wgrad_forms_cut_the_copies_or_the_products():
+    """probes/wgrad_forms.py: the copies-only form of kernel C loses its K
+    loop of products, the products-only form its two copy calls, and the
+    whole form is the source; the patches also take the first form's
+    `load_box<THREADS>(` calls; a source without them is refused."""
+    from multitalent_tpu_torch.probes import wgrad_forms as wf
+    text = (Path(wf.__file__).resolve().parents[1] / "csrc" / "conv3d_wgrad.cu").read_text()
+    assert wf.form_source(text, "whole") == text
+    copies = wf.form_source(text, "copies")
+    assert wf.K_LOOP not in copies and "ks < 0" in copies
+    assert copies.count("if (false) load_") == 0
+    products = wf.form_source(text, "products")
+    assert products.count("if (false) load_") == 2 and wf.K_LOOP in products
+    older = "  {\n    load_box<THREADS>(halo, src);\n    load_box<THREADS>(gsm, g);\n  }\n"
+    assert wf.form_source(older, "products").count("if (false) load_box<THREADS>(") == 2
+    with pytest.raises(ValueError):
+        wf.form_source(older, "copies")
+    with pytest.raises(ValueError):
+        wf.form_source(text.replace("load_", "stage_"), "products")

@@ -61,6 +61,26 @@ def test_wgrad_dual_matches_pallas_wgrad_on_the_concat():
     np.testing.assert_allclose(_dhwio(got), ref, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("dual", [False, True])
+def test_wgrad_writes_into_out(dual):
+    """`out=`: the wrappers fill the caller's (NaN-filled) dw buffer, return
+    it, and give what they return without one; a buffer of another shape is
+    refused."""
+    rng = np.random.RandomState(13)
+    ins = [_t(rng.randn(1, 4, 8, 16, c).astype(np.float32)) for c in ((5, 3) if dual else (5,))]
+    g = _t(rng.randn(1, 4, 8, 16, 4).astype(np.float32))
+    fn = cv.conv3d_same_wgrad_dual if dual else cv.conv3d_same_wgrad
+    want = fn(*ins, g)
+    out = torch.full_like(want, float("nan"))
+    assert fn(*ins, g, out=out) is out
+    assert torch.equal(out, want)
+    ref = np.asarray(pallas_conv3d_same_wgrad(jnp.concatenate([t.numpy() for t in ins], -1),
+                                              jnp.asarray(g.numpy()), interpret=True))
+    np.testing.assert_allclose(_dhwio(out), ref, atol=2e-4, rtol=1e-3)
+    with pytest.raises(ValueError):
+        fn(*ins, g, out=torch.empty(4, 7, 3, 3, 3))
+
+
 def test_dx_matches_pallas_conv3d_same_dx():
     """dL/dx by kernel A on the flipped, transposed weight vs the JAX
     package's conv3d_same_dx (kernel 1 in interpret mode)."""
