@@ -9,7 +9,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship gives it, with the kernel's median time beside the plain
    version's (fp32, TF32 off) and cuDNN's bf16 op: A and B at the forward's
-   shapes (N=1); kernel C (dw) single at A's shapes and dual at B's (each
+   shapes (N=1), then A at the training batch (N=2), A into a NaN-filled
+   buffer, with the plan it took; kernel C (dw) single at A's shapes and
+   dual at B's (each
    into a NaN-filled dw buffer, with its bound and write path: dw directly
    or split partials), and A in the dx role (C -> 2C channels, the dual
    convs' dx), at the training batch N=2; then the fused chain's kernels beside the unfused route they
@@ -56,10 +58,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
    the plain version's and the library call's;
-7. one JSON line describing every kernel (A-F and the probes'; kernel C's
-   row also lists its phase-2 shapes and sums their times, and cuDNN's,
-   over one training step's launches as phase 5 recorded them), then the
-   result line.
+7. one JSON line describing every kernel (A-F and the probes'; kernel A's
+   and C's rows also list their phase-2 shapes and sum their times, and
+   cuDNN's, over one training step's launches as phase 5 recorded them, A's
+   also over one forward's as phase 4 recorded them), then the result
+   line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -217,12 +220,14 @@ def phase_kernels() -> dict:
                               "err": err, "ms": ms, "plain_ms": plain_ms,
                               "cudnn_bf16_ms": cudnn_ms})
 
-    # forward: A and B at N=1
-    cases = [("conv3d_same", (c,), c, sp) for c, sp in KERNEL_A_SHAPES]
-    cases += [("conv3d_same_dual", (c, c), c, sp) for c, sp in KERNEL_B_SHAPES]
-    for name, splits, cout, sp in cases:
+    # forward: A and B at N=1, then A at the training batch (the step's
+    # forward launches); A into a NaN-filled buffer, with its plan
+    cases = [("conv3d_same", (c,), c, sp, 1) for c, sp in KERNEL_A_SHAPES]
+    cases += [("conv3d_same_dual", (c, c), c, sp, 1) for c, sp in KERNEL_B_SHAPES]
+    cases += [("conv3d_same", (c,), c, sp, TRAIN_BATCH) for c, sp in KERNEL_A_SHAPES]
+    for name, splits, cout, sp, n in cases:
         cin = sum(splits)
-        ins = [rnd(1, *sp, c).to(torch.bfloat16) for c in splits]
+        ins = [rnd(n, *sp, c).to(torch.bfloat16) for c in splits]
         w = rnd(cout, cin, 3, 3, 3, scale=(2.0 / (27 * cin)) ** 0.5)
         w_bf = w.to(torch.bfloat16)
         bias = rnd(cout, scale=0.1)
@@ -233,14 +238,18 @@ def phase_kernels() -> dict:
         ins32 = [t.float() for t in ins]
         ref = plain(*ins32, w_bf.float(), bias)
         bound = ATOL + RTOL * ref.abs().max().item()
-        err = _check(f"{name} {splits}->{cout} at {sp}", kernel(*ins, pw, bias), ref, bound)
+        extra = ({"out": _nan_filled((n, *sp, cout), dev)} if name == "conv3d_same" else {})
+        err = _check(f"{name} {splits}->{cout} at {sp} N={n}", kernel(*ins, pw, bias, **extra),
+                     ref, bound)
         x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
         w_cl = w_bf.contiguous(memory_format=torch.channels_last_3d)
-        report(name, splits, cout, sp, 1, err, bound,
+        report(name, splits, cout, sp, n, err, bound,
                _median_ms(lambda: kernel(*ins, pw, bias)),
                _median_ms(lambda: plain(*ins32, w_bf.float(), bias)),
                _median_ms(lambda: F.conv3d(x_cl, w_cl, bias.to(torch.bfloat16), padding=1)))
-        del ins, ins32, ref, x_cl
+        if name == "conv3d_same":
+            _a_plan(results[name][-1], cin, n, sp)
+        del ins, ins32, ref, x_cl, extra
 
     # backward at the training batch: dw by kernel C (single at A's shapes,
     # dual at B's), each checked in a dw buffer filled with NaN and timed
@@ -282,16 +291,36 @@ def phase_kernels() -> dict:
             ref = cv.conv3d_same_ref(g32, wt)
             bound = ATOL + RTOL * ref.abs().max().item()
             err = _check(f"conv3d_same dx {cout}->{sum(splits)} at {sp}",
-                         cv.conv3d_same_dx(g, w), ref, bound)
+                         cv.conv3d_same_dx(g, w, out=_nan_filled((n, *sp, sum(splits)), dev)),
+                         ref, bound)
             wt_cl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
             report("conv3d_same_dx", (cout,), sum(splits), sp, n, err, bound,
                    _median_ms(lambda: cv.conv3d_same_dx(g, w)),
                    _median_ms(lambda: cv.conv3d_same_ref(g32, wt)),
                    _median_ms(lambda: F.conv3d(g_cl, wt_cl, padding=1)))
+            _a_plan(results["conv3d_same_dx"][-1], cout, n, sp)
             del ref
         del g, g32, g_cl
     torch.cuda.empty_cache()
     return results
+
+
+def _a_plan(row: dict, cin: int, n: int, sp) -> None:
+    """Kernel A's plan at a timed shape into its row (and a line): which
+    body, chunks staged at once, weights resident or streamed, warps a
+    block, ring stages, K splits, blocks."""
+    from multitalent_tpu_torch.ops import conv3d as cv
+    plan = cv.conv3d_same_plan(n, *sp, cin, row["cout"])
+    row["plan"] = plan
+    row.update(_conv_bound(cin, row["cout"], sp, n))
+    body = ("ring body" if plan["ring"] else
+            "the body B and D share (16-byte rows, streamed weights, whole K loops)")
+    print(f"  plan: {body}; ring: G {plan['g']}, weights "
+          f"{'resident' if plan['resident'] else 'streamed'}, 16 warps "
+          f"(groups split {'K' if plan['ksplit'] else 'N'}) x "
+          f"{plan['blocks_per_sm']} block(s) an SM, {plan['stages']} stages, "
+          f"{plan['smem_bytes']} B shared, K splits {plan['splits']}, {plan['grid_x']} blocks "
+          f"along the tiles; bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
 
 
 def _stats_rel_err(stats, out) -> float:
@@ -399,9 +428,11 @@ def phase_fused_kernels() -> dict:
         x_cl = ncdhw(x)
         unfused_ms = _median_ms(lambda: instance_norm_lrelu(x_cl, norm_w, norm_b))
         what = f"{c} at {'x'.join(map(str, sp))} N=1"
+        # one PyTorch call of the same function: per-channel mean and variance
         report("channel_stats", what, serr, 1e-4, _median_ms(lambda: fn.channel_stats(x)),
                _median_ms(lambda: fn.channel_stats_ref(x)), unfused_ms,
-               "plain norm: stats + normalize")
+               "plain norm: stats + normalize",
+               library_ms=_median_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)))
         sc, sh = fn.stats_affine(stats, norm_w, norm_b, x.numel() // c)
         sc, sh = sc.contiguous(), sh.contiguous()
         for cast_first in (True, False):
@@ -625,15 +656,17 @@ def phase_tile_probabilities() -> dict:
     net32 = _flagship_net(plans, torch.float32).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
-    with torch.no_grad():
+    with torch.no_grad(), _recording_a() as a_shapes:
         logits = net(x)
+    with torch.no_grad():
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
         p_kernels = torch.sigmoid(logits)
         d_bf16 = (p_kernels - torch.sigmoid(net(x, use_kernels=False))).abs()
         d_fp32 = (p_kernels - torch.sigmoid(net32(x, use_kernels=False))).abs()
     out = {"bf16_max": d_bf16.max().item(), "bf16_mean": d_bf16.mean().item(),
-           "fp32_max": d_fp32.max().item(), "fp32_mean": d_fp32.mean().item()}
+           "fp32_max": d_fp32.max().item(), "fp32_mean": d_fp32.mean().item(),
+           "a_shapes": a_shapes}
     print(f"tile {PATCH}: |dp| kernels bf16 vs plain bf16: max {out['bf16_max']:.3e} "
           f"(bound {PROB_BOUND}), mean {out['bf16_mean']:.3e} (bound "
           f"{PROB_BOUND_MEAN}); vs plain fp32: max {out['fp32_max']:.3e} "
@@ -643,6 +676,10 @@ def phase_tile_probabilities() -> dict:
             and out["fp32_max"] <= PROB_BOUND_FP32_MAX
             and out["fp32_mean"] <= PROB_BOUND_FP32_MEAN):
         raise AssertionError(f"probabilities out of bounds: {out}")
+    expect = net.kernel_launches_per_forward()["conv3d_same"]
+    if sum(a_shapes.values()) != expect:
+        raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one forward, "
+                             f"expected {expect}")
     return out
 
 
@@ -824,10 +861,11 @@ def _check_dw_through_kernels(trainer) -> float:
     rec_single.launches = 0
     cv.conv3d_same_wgrad, cv.conv3d_same_wgrad_dual = rec_single, rec_dual
     try:
-        trainer.network.zero_grad()
-        loss, _ = trainer.loss_fn(trainer.network_forward(data, deep_supervision=True),
-                                  targets, {"valid_region_mask": valid})
-        loss.backward()
+        with _recording_a() as a_shapes:
+            trainer.network.zero_grad()
+            loss, _ = trainer.loss_fn(trainer.network_forward(data, deep_supervision=True),
+                                      targets, {"valid_region_mask": valid})
+            loss.backward()
     finally:
         cv.conv3d_same_wgrad, cv.conv3d_same_wgrad_dual = single, dual
     expect = trainer.network.kernel_launches_per_step()["conv3d_same_wgrad"]
@@ -844,7 +882,7 @@ def _check_dw_through_kernels(trainer) -> float:
           f"version on the same bf16 inputs: worst max|d| / max|dw| {worst:.2e} "
           f"(bound {DW_RTOL})")
     shapes = collections.Counter(_dw_key(ins, g) for ins, g, _ in calls)
-    return worst, shapes
+    return worst, shapes, a_shapes
 
 
 def _dw_key(ins, g) -> tuple:
@@ -926,7 +964,10 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
         print(f"training launches ({route}): { {k: v for k, v in launches.items() if v} } "
               f"= per step {per_step} x {steps} + per forward {per_fwd} x {val} "
               f"(validation)")
-        dw_worst, dw_shapes = _check_dw_through_kernels(trainer)
+        dw_worst, dw_shapes, a_shapes = _check_dw_through_kernels(trainer)
+        if not fused and sum(a_shapes.values()) != per_step["conv3d_same"]:
+            raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one step, "
+                                 f"expected {per_step['conv3d_same']}")
     finally:
         os.environ.pop("MTTPU_FUSED_TRAIN")
 
@@ -943,7 +984,7 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     print(f"the trained folder ({route}) predicts: labelmap + {len(masks)} region NIfTIs "
           f"at {CASE_SHAPE}")
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
-            "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes}
+            "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes, "a_shapes": a_shapes}
 
 
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
@@ -986,6 +1027,55 @@ def _wgrad_step(timed: list, step_shapes: collections.Counter) -> dict:
           f"{sum(len(key[0]) == 2 for key in step_shapes.elements())} dual): "
           f"{step['step_ms']:.3f} ms, cuDNN bf16 wgrad {step['step_cudnn_ms']:.3f} ms")
     return {"shapes": shapes, **step}
+
+
+@contextlib.contextmanager
+def _recording_a():
+    """Counts every kernel-A call made inside by (Cin, Cout, spatial, N): the
+    module's wrapper is swapped for a recorder (on which the wrapper counts
+    its launches meanwhile) and put back after."""
+    from multitalent_tpu_torch.ops import conv3d as cv
+    kernel, shapes = cv.conv3d_same, collections.Counter()
+
+    def rec(x, pw, bias=None, out=None):
+        shapes[(int(x.shape[-1]), pw.cout, tuple(int(s) for s in x.shape[1:4]),
+                int(x.shape[0]))] += 1
+        return kernel(x, pw, bias, out)
+
+    rec.launches = 0
+    cv.conv3d_same = rec
+    try:
+        yield shapes
+    finally:
+        cv.conv3d_same = kernel
+
+
+def _a_sums(timed: list, forward: collections.Counter, step: collections.Counter) -> dict:
+    """Kernel A at each phase-2 shape (ms, cuDNN's bf16 conv ms, bound, plan)
+    and the sums of both times over one forward's launches (N=1, the shapes
+    phase 4's tile gave A) and one training step's (N=2: forwards and dx, the
+    shapes phase 5's step gave A), each shape weighted by its launches."""
+    by_key = {(r["splits"][0], r["cout"], tuple(r["spatial"]), r["n"]): r for r in timed}
+    missing = (set(forward) | set(step)) - set(by_key)
+    if missing:
+        raise AssertionError(f"kernel-A shapes of a forward or step not timed in phase 2: "
+                             f"{missing}")
+
+    def total(shapes, key):
+        return sum(k * by_key[s][key] for s, k in shapes.items())
+
+    out = {"shapes": [{"at": f"{s[0]}->{s[1]} at {'x'.join(map(str, s[2]))} N={s[3]}",
+                       "ms": r["ms"], "cudnn_ms": r["cudnn_bf16_ms"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"], "plan": r["plan"],
+                       "launches_per_forward": forward.get(s, 0),
+                       "launches_per_step": step.get(s, 0)} for s, r in by_key.items()],
+           "forward_ms": total(forward, "ms"), "forward_cudnn_ms": total(forward, "cudnn_bf16_ms"),
+           "step_ms": total(step, "ms"), "step_cudnn_ms": total(step, "cudnn_bf16_ms")}
+    print(f"kernel A over one forward ({sum(forward.values())} launches, N=1): "
+          f"{out['forward_ms']:.3f} ms, cuDNN bf16 {out['forward_cudnn_ms']:.3f} ms; over one "
+          f"training step ({sum(step.values())} launches, N={TRAIN_BATCH}): "
+          f"{out['step_ms']:.3f} ms, cuDNN bf16 {out['step_cudnn_ms']:.3f} ms")
+    return out
 
 
 def phase_probe_path() -> dict:
@@ -1185,7 +1275,7 @@ def main() -> int:
         main_path = phase_main_path(workdir)
         main_fused = phase_main_path(workdir, fused=True)
         masks = compare_masks(main_path, main_fused)
-        phase_tile_probabilities()
+        tile = phase_tile_probabilities()
         tile_fused = phase_fused_tile_probabilities()
         training = phase_training(workdir)
         training_fused = phase_training(workdir, fused=True)
@@ -1228,9 +1318,13 @@ def main() -> int:
                          "x".join(map(str, stage0["spatial"])), stage0["n"])})
     wgrad_step = _wgrad_step(kernels["conv3d_same_wgrad"], training["dw_shapes"])
     rows[-1].update(wgrad_step)
+    a_sums = _a_sums(kernels["conv3d_same"] + kernels["conv3d_same_dx"], tile["a_shapes"],
+                     training["a_shapes"])
+    rows[0].update(a_sums)
     # the fused route's kernels: launches from the fused predict CLI run (and
     # kernel D's from the fused training run), times at the stage-0 shape (N=1,
-    # C = 30 at 96x192x192); no one PyTorch call computes any of them
+    # C = 30 at 96x192x192); one PyTorch call computes E's stats
+    # (torch.var_mean), none the others
     c, sp = KERNEL_A_SHAPES[0]
     vox = prod(sp)
     for kname, src, replaces, work in (
@@ -1252,7 +1346,8 @@ def main() -> int:
                      "launches_train_fused": training_fused["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"], **work,
-                     "library_ms": None, "unfused_route_ms": stage0["unfused_ms"],
+                     "library_ms": stage0.get("library_ms"),
+                     "unfused_route_ms": stage0["unfused_ms"],
                      "timed_at": stage0["what"]})
     # the probes' kernels: launches from the probe path, times at the first
     # shape each was timed at in phase 6
@@ -1285,7 +1380,10 @@ def main() -> int:
           f"unfused, {tile_fused['fused_forward_ms']:.2f} ms fused; seconds per training "
           f"step {training['seconds_per_step']:.3f} unfused, "
           f"{training_fused['seconds_per_step']:.3f} fused; peak {training['peak_gib']:.2f} "
-          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; kernel C over a step "
+          f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; kernel A over a forward "
+          f"{a_sums['forward_ms']:.3f} ms (cuDNN {a_sums['forward_cudnn_ms']:.3f} ms), over a "
+          f"step {a_sums['step_ms']:.3f} ms (cuDNN {a_sums['step_cudnn_ms']:.3f} ms); kernel C "
+          f"over a step "
           f"{wgrad_step['step_ms']:.3f} ms (cuDNN {wgrad_step['step_cudnn_ms']:.3f} ms); "
           f"probe path "
           f"{probe_path['seconds']:.1f} s; on {smi}")

@@ -1,8 +1,9 @@
 // Building blocks shared by the kernels (conv3d_same.cu, conv3d_wgrad.cu,
 // fused_norm.cu, seghead.cu and the probes' conv_arms.cu, probe_kernels.cu):
-// cp.async copies with zero-fill, ldmatrix
-// fragment loads, the bf16 mma.sync tile product, the 256-voxel box shapes the
-// conv kernels tile volumes with, the normalize prologue's rounding, and the
+// cp.async copies with zero-fill and their commit groups, ldmatrix
+// fragment loads, the bf16 mma.sync tile product, the line loader of
+// kernels A and C (load_lines), the 256-voxel box shapes the conv kernels
+// tile volumes with, the normalize prologue's rounding, and the
 // channel-statistics launchers kernel D borrows from kernel E.
 #pragma once
 
@@ -62,6 +63,19 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(full ? 4 : 0));
 }
+// cp.async of 8 bytes; `full` false copies nothing and zero-fills dst
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
@@ -120,6 +134,76 @@ __device__ __forceinline__ void load_box(__nv_bfloat16* dst,
       cp_async4(d, s, inside);
     } else {
       d[0] = inside ? *s : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// elements a copy of C-channel rows: 16, 8 or 4 bytes, or one at a time
+__host__ __device__ constexpr int vec_of(int c) {
+  return c % 8 == 0 ? 8 : (c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1));
+}
+
+// How a warp's lanes share the copies of one operand's voxel rows: a row
+// (the channels one block stages for one voxel) is `units` copies of `vec`
+// elements; each voxel takes `per_vox` lanes (units, at most 32), a copy
+// instruction covers `vpi` = 32 / per_vox voxels, and a lane keeps its
+// voxel offset `j` and first unit `u` for every line (lanes past vpi
+// voxels idle).
+struct LaneMap {
+  int units, vec, per_vox, vpi, j, u;
+};
+
+__device__ __forceinline__ LaneMap lane_map(int width, int vec, int lane) {
+  LaneMap m;
+  m.units = width / vec;
+  m.vec = vec;
+  m.per_vox = min(m.units, 32);
+  m.vpi = 32 / m.per_vox;
+  m.j = lane / m.per_vox;
+  m.u = lane - m.j * m.per_vox;
+  return m;
+}
+
+// Stage channels [c0, c0 + m.units * m.vec) of `lines` (z, y) lines of
+// `len` voxels at (z0, y0, x0) (the corner may lie outside; `by` lines a z
+// plane) of sample nb of a channels-last (N, Z, Y, X, C) tensor into dst,
+// one row of `stride` elements per voxel in (z, y, x) order; zero where the
+// voxel is outside the volume. Channels past the copied ones are left as
+// they are: they only meet dw rows or columns that are not written. A line
+// is one contiguous run of len voxels in memory: warps take lines, and a
+// lane steps through its line by constant strides, with no division.
+template <int NWARPS>
+__device__ __forceinline__ void load_lines(__nv_bfloat16* dst, int stride,
+                                           const __nv_bfloat16* __restrict__ src, int c,
+                                           int c0, const LaneMap& m, int len, int lines,
+                                           int by, int n_z, int n_y, int n_x, int nb, int z0,
+                                           int y0, int x0, int warp) {
+  if (m.j >= m.vpi) return;
+  const int vlo = max(0, -x0), vhi = min(len, n_x - x0);  // voxels inside along x
+  const int s_step = m.vpi * c, d_step = m.vpi * stride;
+  for (int l = warp; l < lines; l += NWARPS) {
+    const int vz = l / by, vy = l - vz * by;
+    const int gz = z0 + vz, gy = y0 + vy;
+    const bool line_in = gz >= 0 && gz < n_z && gy >= 0 && gy < n_y;
+    const __nv_bfloat16* s_line =
+        src + ((((int64_t)nb * n_z + gz) * n_y + gy) * n_x + x0) * c + c0;
+    __nv_bfloat16* d_line = dst + l * len * stride;
+    for (int u = m.u; u < m.units; u += m.per_vox) {
+      int s_off = m.j * c + u * m.vec, d_off = m.j * stride + u * m.vec;
+      for (int v = m.j; v < len; v += m.vpi, s_off += s_step, d_off += d_step) {
+        const bool in = line_in && v >= vlo && v < vhi;
+        __nv_bfloat16* d = d_line + d_off;
+        const __nv_bfloat16* s = in ? s_line + s_off : src;
+        if (m.vec == 8) {
+          cp_async16(d, s, in);
+        } else if (m.vec == 4) {
+          cp_async8(d, s, in);
+        } else if (m.vec == 2) {
+          cp_async4(d, s, in);
+        } else {
+          d[0] = in ? *s : __float2bfloat16(0.f);
+        }
+      }
     }
   }
 }

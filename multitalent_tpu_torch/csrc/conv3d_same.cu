@@ -38,12 +38,43 @@
 // Its loads are 4-byte channel pairs (elements for odd groups) in place of
 // 16-byte rows, and it never splits K (the partials' order is unpacked).
 //
-// What bounds it on an H100: the flagship's convs carry ~27*C FLOPs per
-// input byte, well above the ~295 FLOP/byte ridge, so the tensor cores should
-// be the limit. This form (mma.sync, one K chunk in flight, no wgmma/TMA) is
-// bound instead by the serialised load -> sync -> compute phases of each K
-// chunk, by shared-memory bandwidth, and, at the deep stages (6x6x6 ..
-// 12x24x24 voxels), by having too few output tiles to fill 132 SMs. The
+// Two bodies. Kernel A has its own (conv3d_a_kernel, below), built for the
+// H100's narrow stage-0 and stage-1 rows; B, D, D's dual form and the packed
+// conv run conv3d_same_kernel, and so does A where its rows take 16-byte
+// copies, its weights do not fit in shared memory for a block's life and
+// its K loop is not split (C >= 120 but the deepest stage: there the old
+// body's two blocks an SM measured faster than A's ring in one block).
+//
+// What bounds kernel A on an H100: the flagship's convs carry ~27*C FLOPs
+// per input byte, well above the ~295 FLOP/byte ridge, so the tensor cores
+// should be the limit. The mma.sync products (no wgmma) and their ldmatrix
+// reads now bound it: measured on the card, the ring body at 30 and 60
+// channels runs ~6-8 us a 256-voxel stage, about what its 27-tap ldmatrix
+// and mma.sync issue takes when the two do not overlap, with the copies in
+// flight behind them (PERF.md, section 6). What it does:
+//   - persistent blocks walk output tiles in a fixed order on a ring of 2-3
+//     stages (cp.async commit groups, one barrier a stage): a stage is one
+//     tile's haloed input box for a group of K chunks, so the next tile's
+//     copies fly while this one's products run;
+//   - C's line loader (common.cuh's load_lines): warps take (z, y) lines of
+//     the halo and lanes step by constant strides, 4-, 8- or 16-byte copies
+//     as C allows; at 30 channels both K chunks of the 60-byte row are
+//     staged at once (80-byte rows, conflict-free), so the row is read once;
+//   - weights resident for the block's life where they fit beside the ring
+//     (stage 0: 69 KB at 30 -> 30, 124 KB for the 30 -> 60 dx), else
+//     streamed with each halo; at 30 channels the two 8-warp groups take one
+//     K chunk each (their sums meet in shared memory): a third fewer
+//     ldmatrix reads than an N split;
+//   - K is split only to fill one wave of blocks, and never into more fp32
+//     partial bytes than the input and weights hold; with one split the
+//     epilogue writes bf16(acc + bias) directly; no atomics (bit-equal
+//     outputs from call to call);
+//   - channels past the input's are zeroed in every staged halo (they meet
+//     zero weight rows, but 0 * NaN is NaN).
+//
+// What bounds conv3d_same_kernel: the same products, behind the serialised
+// load -> sync -> compute phases of each K chunk, and, at the deep stages
+// (6x6x6 .. 12x24x24 voxels), too few output tiles to fill 132 SMs. Its
 // design answers each in a simple way:
 //   - implicit GEMM: a block owns 256 output voxels x BN output channels; per
 //     16-channel K chunk it stages one haloed input box and the chunk's
@@ -572,15 +603,454 @@ int run(const void* a, const void* b, int ca, int cb, const void* w, const void*
   return (int)finish_stats(p, static_cast<float*>(stats), sws, stats_bytes, s);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's own body (B, D and the packed conv run conv3d_same_kernel above)
+// ---------------------------------------------------------------------------
+
+constexpr int A_SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
+constexpr int A_WARPS_M = 8;            // warps along the 256 box voxels, 32 each
+constexpr int A_MF = BM / (A_WARPS_M * 16);
+// two groups of 8 warps, one block an SM: on the H100 this ran faster than
+// blocks of 8 warps at every flagship shape (PERF.md, section 6)
+constexpr int A_THREADS = 2 * A_WARPS_M * 32;
+
+// A block's shape: G 16-channel K chunks staged at once (G = 2 where the
+// input row holds 17-32 channels: the whole 60-byte row of 30 channels in one
+// staging), the weights resident for the block's life or streamed through
+// the ring beside each halo, and the two 8-warp groups splitting the BN
+// output columns or (ksplit, G = 2) the two chunks: each group then keeps
+// all BN columns of its chunk, and the groups' sums meet in shared memory
+// at each tile's end (two thirds of the ldmatrix reads of an N split at BN
+// 32, for one more barrier a tile).
+struct AConfig {
+  int g, resident, ksplit;
+};
+
+struct APlan {
+  bool ring;  // this body; false: conv3d_same_kernel (see make_aplan)
+  AConfig cfg;
+  Box box;
+  int tiles_z, tiles_y, tiles_x;
+  int tiles;  // N * boxes of a sample
+  int kchunks;
+  int splits, per_split;  // K chunks of a split (a multiple of G)
+  int stages;             // ring stages: 2 or 3
+  int grid_x;             // blocks walking the tiles of one (column block, split)
+  int smem;               // dynamic shared memory bytes of a block
+  int blocks_per_sm;
+};
+
+struct AParams {
+  const __nv_bfloat16* src;
+  const __nv_bfloat16* w;
+  const float* bias;  // may be null
+  __nv_bfloat16* out;
+  float* ws;  // split-K partials (splits, N*Z*Y*X, Cout), when splits > 1
+  int z, y, x, cin, cout, coutp;
+  APlan plan;
+};
+
+// Persistent blocks: block (bx, nblk, split) walks tiles bx, bx + gridDim.x,
+// .. for output columns [nblk * BN, + BN) and K chunks [split * per_split,
+// + per_split). One ring stage is one (tile, group of G chunks): its haloed
+// input box and, unless the weights are resident, the group's weights; the
+// next stages' copies are in flight while this one's products run, so the
+// next tile's first copies overlap this tile's last products. One barrier a
+// stage. Warp w owns voxels [(w % 8) * 32, + 32) of the box and columns
+// [(w / 8) * BN / 2, + BN / 2), or with KSPLIT all BN columns of chunk w / 8
+// of the stage.
+template <int BN, int G, bool RESIDENT, bool KSPLIT>
+__global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
+  static_assert(!KSPLIT || (G == 2 && RESIDENT), "one chunk a warp group");
+  constexpr int NTHREADS = A_THREADS;
+  constexpr int NWARPS = NTHREADS / 32;
+  constexpr int XS = G * KC + 8;              // halo row stride in bf16: 48 or 80 B
+  constexpr int BNP = BN + 8;                 // weight row stride in bf16
+  constexpr int WCHUNK = 27 * KC * BNP;       // one chunk's weights in shared memory
+  constexpr int NT = BN / 8 / (KSPLIT ? 1 : 2);  // n8 tiles of a warp
+  constexpr int NACC = A_MF * NT * 4;         // accumulators of a thread
+  static_assert(NT % 2 == 0, "B fragments come in pairs of n8 tiles");
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const Box box = p.plan.box;
+  const int hx = box.x + 2, hy = box.y + 2, hz = box.z + 2;
+  const int halo_vox = hz * hy * hx;
+  const int halo_elems = halo_vox * XS;
+  const int stage_elems = halo_elems + (RESIDENT ? 0 : G * WCHUNK);
+  const int stages = p.plan.stages;
+  __nv_bfloat16* wres = ring + stages * stage_elems;  // resident weights
+  const int nblk = blockIdx.y, split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_z = p.z, n_y = p.y, n_x = p.x, cin = p.cin, coutp = p.coutp;
+  const int tiles_x = p.plan.tiles_x, tiles_y = p.plan.tiles_y;
+  const int tiles_yx = tiles_y * tiles_x, tiles_s = p.plan.tiles_z * tiles_yx;
+  const int k_lo = split * p.plan.per_split;
+  const int k_hi = min(p.plan.kchunks, k_lo + p.plan.per_split);
+  const int ngrp = (k_hi - k_lo + G - 1) / G;  // stages of a tile
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int ntile = p.plan.tiles > bx ? (p.plan.tiles - bx + gx - 1) / gx : 0;
+  const int nq = ntile * ngrp;
+  const int vec = vec_of(cin);
+  const __nv_bfloat16* __restrict__ src = p.src;
+  const __nv_bfloat16* __restrict__ wsrc = p.w + nblk * BN;
+
+  // the corner of this block's k-th tile
+  auto tile_at = [&](int k, int& nb, int& z0, int& y0, int& x0) {
+    const int t = bx + k * gx;
+    nb = t / tiles_s;
+    const int r = t - nb * tiles_s;
+    z0 = (r / tiles_yx) * box.z;
+    y0 = ((r / tiles_x) % tiles_y) * box.y;
+    x0 = (r % tiles_x) * box.x;
+  };
+  // chunk kc's (27, 16, BN) weight slice of this column block into dst
+  auto load_wchunk = [&](__nv_bfloat16* dst, int kc) {
+    constexpr int VPR = BN / 8;  // 16-byte copies a row
+    const __nv_bfloat16* s = wsrc + (int64_t)kc * 27 * KC * coutp;
+    for (int i = threadIdx.x; i < 27 * KC * VPR; i += NTHREADS) {
+      const int row = i / VPR, col = (i % VPR) * 8;
+      cp_async16(dst + row * BNP + col, s + (int64_t)row * coutp + col, true);
+    }
+  };
+  // stage q (tile q / ngrp, chunk group q % ngrp) into ring stage s
+  auto issue = [&](int q, int s) {
+    const int k = q / ngrp;
+    const int kc = k_lo + (q - k * ngrp) * G;
+    int nb, z0, y0, x0;
+    tile_at(k, nb, z0, y0, x0);
+    const int c0 = kc * KC, width = min(G * KC, cin - c0);
+    __nv_bfloat16* stage = ring + s * stage_elems;
+    load_lines<NWARPS>(stage, XS, src, cin, c0, lane_map(width, vec, lane), hx, hz * hy, hy,
+                       n_z, n_y, n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
+    // channels past the input's meet zero weight rows, but 0 * NaN is NaN:
+    // they are set to 0 here (the stage is free: everyone passed the
+    // barrier after its last reads), seen by all after the next barrier
+    const int pad = G * KC - width;
+    for (int i = threadIdx.x; i < halo_vox * pad; i += NTHREADS) {
+      const int v = i / pad;
+      stage[v * XS + width + (i - v * pad)] = __float2bfloat16(0.f);
+    }
+    if constexpr (!RESIDENT) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) load_wchunk(stage + halo_elems + g * WCHUNK, kc + g);
+    }
+  };
+
+  // ldmatrix rows: lane l addresses row l % 16 of each of this warp's M
+  // fragments (one box voxel each) at K offset (l / 16) * 8; B from the
+  // weight rows at this warp's columns
+  const int mw = warp % A_WARPS_M, ncol = KSPLIT ? 0 : warp / A_WARPS_M * NT * 8;
+  const int kgrp = warp / A_WARPS_M;  // KSPLIT: this warp's chunk of the stage
+  // KSPLIT: group 1's sums on their way to group 0, lane-minor
+  float* red = reinterpret_cast<float*>(wres + p.plan.kchunks * WCHUNK) + mw * NACC * 32 + lane;
+  int a_row[A_MF];
+#pragma unroll
+  for (int mi = 0; mi < A_MF; ++mi) {
+    const int m = (mw * A_MF + mi) * 16 + lane % 16;
+    const int vz = m / (box.y * box.x), vy = (m / box.x) % box.y, vx = m % box.x;
+    a_row[mi] = ((vz * hy + vy) * hx + vx) * XS + (lane / 16) * 8;
+  }
+  const int b_off = (lane % 16) * BNP + (lane / 16) * 8 + ncol;
+
+  float acc[A_MF][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  if constexpr (RESIDENT) {  // one split: all chunks, in the first commit group
+    for (int kc = 0; kc < p.plan.kchunks; ++kc) load_wchunk(wres + kc * WCHUNK, kc);
+  }
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < nq) issue(s, s);
+    cp_async_commit();
+  }
+  const bool partial = p.plan.splits > 1;
+  const int64_t nvox = (int64_t)(p.plan.tiles / tiles_s) * n_z * n_y * n_x;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q) {
+    // this thread's copies of stage q have landed (the group after it may
+    // still fly with 3 stages), then everyone's have and the stage consumed
+    // last is free
+    if (stages == 3) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (q + stages - 1 < nq) issue(q + stages - 1, (q + stages - 1) % stages);
+    cp_async_commit();
+    const __nv_bfloat16* halo = ring + (q % stages) * stage_elems;
+    const int k = q / ngrp, j = q - k * ngrp;
+    const int kc = k_lo + j * G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (KSPLIT && g != kgrp) continue;
+      const __nv_bfloat16* wch =
+          (RESIDENT ? wres + (kc + g) * WCHUNK : halo + halo_elems + g * WCHUNK) + b_off;
+#pragma unroll 1
+      for (int zy = 0; zy < 9; ++zy) {  // taps (dz, dy, 0..2): three in flight
+        const int dz = zy / 3, dy = zy % 3;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int tap_off = ((dz * hy + dy) * hx + dx) * XS + g * KC;
+          uint32_t a[A_MF][4];
+#pragma unroll
+          for (int mi = 0; mi < A_MF; ++mi) ldmatrix_x4(a[mi], halo + a_row[mi] + tap_off);
+          const __nv_bfloat16* wt = wch + (zy * 3 + dx) * KC * BNP;
+#pragma unroll
+          for (int jn = 0; jn < NT; jn += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, wt + jn * 8);
+#pragma unroll
+            for (int mi = 0; mi < A_MF; ++mi) {
+              mma_16816(acc[mi][jn], a[mi], b[0], b[1]);
+              mma_16816(acc[mi][jn + 1], a[mi], b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+    if (j != ngrp - 1) continue;
+    if constexpr (KSPLIT) {  // one stage a tile: group 1's sums into group 0's
+      if (kgrp == 1) {
+#pragma unroll
+        for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              red[((mi * NT + jn) * 4 + e) * 32] = acc[mi][jn][e];
+              acc[mi][jn][e] = 0.f;
+            }
+      }
+      __syncthreads();  // group 0 reads them before the next stage's barrier
+      if (kgrp == 1) continue;
+#pragma unroll
+      for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][jn][e] += red[((mi * NT + jn) * 4 + e) * 32];
+    }
+    // the tile's epilogue, registers to device memory: accumulator element
+    // e of tile (mi, jn) is voxel row lane / 4 (+8 for e >= 2), channel
+    // 2 * (lane % 4) + (e & 1); bf16(acc + bias) with one split, else the
+    // fp32 partials of this split
+    int nb, z0, y0, x0;
+    tile_at(k, nb, z0, y0, x0);
+#pragma unroll
+    for (int mi = 0; mi < A_MF; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mw * A_MF + mi) * 16 + lane / 4 + h * 8;
+        const int oz = z0 + m / (box.y * box.x), oy = y0 + (m / box.x) % box.y,
+                  ox = x0 + m % box.x;
+        if (oz >= n_z || oy >= n_y || ox >= n_x) continue;
+        const int64_t vox = (((int64_t)nb * n_z + oz) * n_y + oy) * n_x + ox;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          const int co = nblk * BN + ncol + jn * 8 + (lane % 4) * 2;
+          if (co >= p.cout) continue;
+          float v0 = acc[mi][jn][h * 2], v1 = acc[mi][jn][h * 2 + 1];
+          if (partial) {
+            float* dst = p.ws + ((int64_t)split * nvox + vox) * p.cout + co;
+            if (p.cout % 2 == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (co + 1 < p.cout) dst[1] = v1;
+            }
+            continue;
+          }
+          if (p.bias != nullptr) {
+            v0 += p.bias[co];
+            if (co + 1 < p.cout) v1 += p.bias[co + 1];
+          }
+          store_pair(p.out + vox * p.cout, co, p.cout, v0, v1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+using AKernel = void (*)(AParams);
+
+struct AEntry {
+  int bn;
+  AConfig c;
+  AKernel fn;
+};
+// G = 2 only with resident weights: a streamed stage of both chunks' weights
+// leaves no room for a second stage. At BN 32 the K split always fits (two
+// stages of the largest halo, the weights and its sums: 212 KB), at BN 64
+// never
+const AEntry kAKernels[] = {
+    {32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false>},
+    {32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false>},
+    {32, {2, 1, 1}, conv3d_a_kernel<32, 2, true, true>},
+    {64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false>},
+    {64, {1, 1, 0}, conv3d_a_kernel<64, 1, true, false>},
+    {64, {2, 1, 0}, conv3d_a_kernel<64, 2, true, false>},
+};
+
+AKernel a_kernel(int bn, const AConfig& c) {
+  for (const AEntry& e : kAKernels)
+    if (e.bn == bn && e.c.g == c.g && e.c.resident == c.resident && e.c.ksplit == c.ksplit)
+      return e.fn;
+  return nullptr;
+}
+
+// bytes of dynamic shared memory of a config with `stages` ring stages
+int a_smem(const AConfig& c, const Box& b, int bn, int kchunks, int stages) {
+  const long long wchunk = 27 * KC * (bn + 8);
+  const long long stage = (long long)(b.z + 2) * (b.y + 2) * (b.x + 2) * (c.g * KC + 8) +
+                          (c.resident ? 0 : c.g * wchunk);
+  const long long red = c.ksplit ? 2LL * A_WARPS_M * 32 * A_MF * (bn / 8) * 4 : 0;  // fp32
+  const long long bytes = (stages * stage + (c.resident ? kchunks * wchunk : 0) + red) * 2;
+  return bytes > A_SMEM_MAX ? A_SMEM_MAX + 1 : (int)bytes;
+}
+
+// Blocks of kernel fn an SM holds at smem bytes (0 where none fits or the
+// query fails).
+int a_occupancy(AKernel fn, int threads, int smem) {
+  const void* f = reinterpret_cast<const void*>(fn);
+  int blocks = 0;
+  if (cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, A_SMEM_MAX) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads, smem) != cudaSuccess)
+    return 0;
+  return blocks;
+}
+
+// The plan of a kernel-A call; false where no config fits. Configs in order
+// of preference: both chunks of a 17-32-channel row at once with resident
+// weights, one chunk with resident weights, one chunk with streamed weights;
+// the first that fits a ring of 2 stages (3 where they fit) and needs no
+// split of K (resident weights serve one split). K is split only to fill one
+// wave of blocks, and never into more partial bytes than the input and
+// weights hold. Rows of 16-byte copies (C % 8 == 0) with streamed weights
+// and a whole K loop a block keep conv3d_same_kernel: there its two blocks
+// an SM already overlap one block's copies with the other's products, and
+// on the H100 they ran 1.1-1.25x faster than this ring in one block at 120
+// and 240 channels; with K split (the deep stages' few tiles) the ring ran
+// as fast or faster (PERF.md, section 6).
+bool make_aplan(int n, int z, int y, int x, int cin, int cout, int coutp, int bn, int sms,
+                APlan* out) {
+  APlan p{};
+  p.tiles = (int)(pick_box(z, y, x, &p.box) * n);
+  p.tiles_z = cdiv(z, p.box.z);
+  p.tiles_y = cdiv(y, p.box.y);
+  p.tiles_x = cdiv(x, p.box.x);
+  p.kchunks = cdiv(cin, KC);
+  const int nblk = coutp / bn;
+  const long long work = (long long)p.tiles * nblk;
+  const long long vox = (long long)n * z * y * x;
+  const long long in_bytes = vox * cin * 2 + (long long)p.kchunks * 27 * KC * coutp * 2;
+  const long long part_bytes = vox * cout * 4;  // one split's partials
+  const AConfig order[] = {{2, 1, 1}, {2, 1, 0}, {1, 1, 0}, {1, 0, 0}};
+  for (AConfig c : order) {
+    if (c.g == 2 && !(cin > KC && cin <= 2 * KC)) continue;
+    int stages = 3;
+    while (stages >= 2 && a_smem(c, p.box, bn, p.kchunks, stages) > A_SMEM_MAX) --stages;
+    if (stages < 2) continue;
+    const int smem = a_smem(c, p.box, bn, p.kchunks, stages);
+    const int bps = a_occupancy(a_kernel(bn, c), A_THREADS, smem);
+    if (bps < 1) continue;
+    const long long slots = (long long)bps * sms;
+    long long splits = 1;
+    if (work < slots) {
+      splits = slots / work;
+      const long long groups = cdiv(p.kchunks, c.g);
+      if (splits > groups) splits = groups;
+      if (splits > MAX_SPLITS) splits = MAX_SPLITS;
+      if (splits > in_bytes / part_bytes) splits = in_bytes / part_bytes;
+      if (splits < 1) splits = 1;
+    }
+    if (c.resident && splits > 1) continue;
+    p.ring = c.resident || cin % 8 != 0 || splits > 1;
+    p.cfg = c;
+    p.per_split = cdiv(cdiv(p.kchunks, c.g), (int)splits) * c.g;
+    p.splits = cdiv(p.kchunks, p.per_split);
+    p.stages = stages;
+    p.smem = smem;
+    p.blocks_per_sm = bps;
+    const long long per_col = slots / ((long long)nblk * p.splits);
+    p.grid_x = (int)(per_col < 1 ? 1 : (per_col < p.tiles ? per_col : p.tiles));
+    *out = p;
+    return true;
+  }
+  return false;
+}
+
+long long a_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int cout) {
+  if (plan.splits <= 1) return 0;
+  return (long long)plan.splits * n * z * y * x * cout * (long long)sizeof(float);
+}
+
+int run_a(const void* x, const void* w, const void* bias, void* out, void* ws,
+          long long ws_bytes, int n, int z, int y, int xd, int cin, int cout, int coutp, int bn,
+          void* stream) {
+  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp || cin <= 0)
+    return (int)cudaErrorInvalidValue;
+  AParams p{};
+  if (!make_aplan(n, z, y, xd, cin, cout, coutp, bn, sm_count(), &p.plan))
+    return (int)cudaErrorInvalidConfiguration;
+  if (!p.plan.ring)
+    return run(x, nullptr, cin, 0, w, bias, nullptr, nullptr, 0.f, out, nullptr, ws, ws_bytes,
+               n, z, y, xd, cout, coutp, bn, stream);
+  const long long need = a_workspace_bytes(p.plan, n, z, y, xd, cout);
+  if (ws_bytes < need || (need > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  p.src = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ws = static_cast<float*>(ws);
+  p.z = z;
+  p.y = y;
+  p.x = xd;
+  p.cin = cin;
+  p.cout = cout;
+  p.coutp = coutp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(p.plan.grid_x, coutp / bn, p.plan.splits);
+  void* args[] = {&p};
+  cudaError_t err =
+      cudaLaunchKernel(reinterpret_cast<const void*>(a_kernel(bn, p.plan.cfg)), grid,
+                       dim3(A_THREADS), args, p.plan.smem, s);
+  if (err != cudaSuccess || p.plan.splits == 1) return (int)err;
+  const int64_t count = (int64_t)n * z * y * xd * cout;
+  const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  splitk_reduce_kernel<<<rblocks, 256, 0, s>>>(p.ws, p.bias, p.out, count, cout,
+                                                p.plan.splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of fp32 workspace a call with these sizes needs (0: no split-K).
-// cb is 0 for kernel A.
+// Bytes of fp32 workspace a call with these sizes needs (0: no split-K; -1:
+// sizes the kernel does not take). cb is 0 for kernel A (its own plan),
+// else kernel B's.
 long long mt_conv3d_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
                               int coutp, int bn) {
   if (bn <= 0 || coutp % bn != 0) return -1;
+  if (cb == 0) {
+    APlan plan;
+    if (!make_aplan(n, z, y, xd, ca, cout, coutp, bn, sm_count(), &plan)) return -1;
+    if (plan.ring) return a_workspace_bytes(plan, n, z, y, xd, cout);
+  }
   return workspace_bytes(plan_for(n, z, y, xd, ca, cb, coutp, bn), n, z, y, xd, cout);
 }
 
@@ -595,12 +1065,29 @@ long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb,
   return workspace_bytes(plan, n, z, y, xd, cout) + st;
 }
 
+// Kernel A's plan at these sizes into plan[0..9): this body (1) or
+// conv3d_same_kernel's (0, which ignores the rest), G (chunks staged at once),
+// weights resident (1) or streamed (0), the two warp groups splitting K (1)
+// or N (0), ring
+// stages, K splits, blocks along the tiles, blocks an SM, dynamic shared
+// memory bytes. Returns 0, or -1 for sizes the kernel does not take.
+int mt_conv3d_same_plan(int n, int z, int y, int xd, int cin, int cout, int coutp, int bn,
+                        int* plan) {
+  APlan p;
+  if (bn <= 0 || coutp % bn != 0 || !make_aplan(n, z, y, xd, cin, cout, coutp, bn,
+                                                 sm_count(), &p))
+    return -1;
+  const int v[] = {p.ring,   p.cfg.g, p.cfg.resident,  p.cfg.ksplit, p.stages,
+                   p.splits, p.grid_x, p.blocks_per_sm, p.smem};
+  for (int i = 0; i < 9; ++i) plan[i] = v[i];
+  return 0;
+}
+
 // Kernel A. Returns cudaGetLastError() after the launch (0 on success).
 int mt_conv3d_same(const void* x, const void* w, const void* bias, void* out, void* ws,
                    long long ws_bytes, int n, int z, int y, int xd, int cin, int cout,
                    int coutp, int bn, void* stream) {
-  return run(x, nullptr, cin, 0, w, bias, nullptr, nullptr, 0.f, out, nullptr, ws,
-             ws_bytes, n, z, y, xd, cout, coutp, bn, stream);
+  return run_a(x, w, bias, out, ws, ws_bytes, n, z, y, xd, cin, cout, coutp, bn, stream);
 }
 
 // Kernel B: the conv over concat(a, b) along channels, concat never built.

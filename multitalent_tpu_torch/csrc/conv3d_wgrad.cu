@@ -28,11 +28,11 @@
 //   - a ring of STAGES boxes in shared memory: box i + 1's (and i + 2's)
 //     cp.async copies are in flight while box i's products run, one barrier
 //     per box;
-//   - a loader of its own: warps take (z, y) lines of the box (one
-//     contiguous run of voxels in memory each), and a lane keeps one copy
-//     unit and voxel offset for every line, stepping by constant strides:
-//     no division per copy; 16-, 8- or 4-byte copies as the channel count
-//     allows (C % 8, C % 4, C % 2). A block owns G 16-channel chunks (G = 2
+//   - a line loader (common.cuh's load_lines, shared with kernel A): warps
+//     take (z, y) lines of the box (one contiguous run of voxels in memory
+//     each), and a lane keeps one copy unit and voxel offset for every
+//     line, stepping by constant strides: no division per copy; 16-, 8- or
+//     4-byte copies as the channel count allows (C % 8, C % 4, C % 2). A block owns G 16-channel chunks (G = 2
 //     at 30 channels: the whole 60-byte voxel row), so the g box is staged
 //     once for both;
 //   - the voxel axis is split only to fill the card with one wave of blocks,
@@ -60,19 +60,6 @@
 namespace {
 
 using namespace mt;
-
-// cp.async of 8 bytes; `full` false copies nothing and zero-fills dst
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The block shapes: G 16-channel chunks of one input by BN output channels,
 // 18 warps (WN of them share a chunk and tap and split the BN columns), one
@@ -150,76 +137,6 @@ struct WParams {
   WPlan plan;
   int smem_stage;  // bf16 elements of one ring stage
 };
-
-// elements a copy of C-channel rows: 16, 8 or 4 bytes, or one at a time
-__host__ __device__ constexpr int vec_of(int c) {
-  return c % 8 == 0 ? 8 : (c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1));
-}
-
-// How a warp's lanes share the copies of one operand's voxel rows: a row
-// (the channels one block stages for one voxel) is `units` copies of `vec`
-// elements; each voxel takes `per_vox` lanes (units, at most 32), a copy
-// instruction covers `vpi` = 32 / per_vox voxels, and a lane keeps its
-// voxel offset `j` and first unit `u` for every line (lanes past vpi
-// voxels idle).
-struct LaneMap {
-  int units, vec, per_vox, vpi, j, u;
-};
-
-__device__ __forceinline__ LaneMap lane_map(int width, int vec, int lane) {
-  LaneMap m;
-  m.units = width / vec;
-  m.vec = vec;
-  m.per_vox = min(m.units, 32);
-  m.vpi = 32 / m.per_vox;
-  m.j = lane / m.per_vox;
-  m.u = lane - m.j * m.per_vox;
-  return m;
-}
-
-// Stage channels [c0, c0 + m.units * m.vec) of `lines` (z, y) lines of
-// `len` voxels at (z0, y0, x0) (the corner may lie outside; `by` lines a z
-// plane) of sample nb of a channels-last (N, Z, Y, X, C) tensor into dst,
-// one row of `stride` elements per voxel in (z, y, x) order; zero where the
-// voxel is outside the volume. Channels past the copied ones are left as
-// they are: they only meet dw rows or columns that are not written. A line
-// is one contiguous run of len voxels in memory: warps take lines, and a
-// lane steps through its line by constant strides, with no division.
-template <int NWARPS>
-__device__ __forceinline__ void load_lines(__nv_bfloat16* dst, int stride,
-                                           const __nv_bfloat16* __restrict__ src, int c,
-                                           int c0, const LaneMap& m, int len, int lines,
-                                           int by, int n_z, int n_y, int n_x, int nb, int z0,
-                                           int y0, int x0, int warp) {
-  if (m.j >= m.vpi) return;
-  const int vlo = max(0, -x0), vhi = min(len, n_x - x0);  // voxels inside along x
-  const int s_step = m.vpi * c, d_step = m.vpi * stride;
-  for (int l = warp; l < lines; l += NWARPS) {
-    const int vz = l / by, vy = l - vz * by;
-    const int gz = z0 + vz, gy = y0 + vy;
-    const bool line_in = gz >= 0 && gz < n_z && gy >= 0 && gy < n_y;
-    const __nv_bfloat16* s_line =
-        src + ((((int64_t)nb * n_z + gz) * n_y + gy) * n_x + x0) * c + c0;
-    __nv_bfloat16* d_line = dst + l * len * stride;
-    for (int u = m.u; u < m.units; u += m.per_vox) {
-      int s_off = m.j * c + u * m.vec, d_off = m.j * stride + u * m.vec;
-      for (int v = m.j; v < len; v += m.vpi, s_off += s_step, d_off += d_step) {
-        const bool in = line_in && v >= vlo && v < vhi;
-        __nv_bfloat16* d = d_line + d_off;
-        const __nv_bfloat16* s = in ? s_line + s_off : src;
-        if (m.vec == 8) {
-          cp_async16(d, s, in);
-        } else if (m.vec == 4) {
-          cp_async8(d, s, in);
-        } else if (m.vec == 2) {
-          cp_async4(d, s, in);
-        } else {
-          d[0] = in ? *s : __float2bfloat16(0.f);
-        }
-      }
-    }
-  }
-}
 
 template <int NIN, int BN, int G, int WN>
 __global__ void __launch_bounds__(G * WN * 9 * 32, 1) conv3d_wgrad_kernel(WParams p) {

@@ -216,15 +216,21 @@ def _check_weight(pw: PreparedWeight, splits: tuple[int, ...],
 
 
 def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
-            bias: torch.Tensor | None) -> torch.Tensor:
-    """Run C entry `name` on checked inputs; allocates the output and, for
-    small grids that split the K loop, the kernel's fp32 workspace."""
+            bias: torch.Tensor | None, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Run C entry `name` on checked inputs into `out` (or a new output);
+    allocates, for small grids that split the K loop, the kernel's fp32
+    workspace."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
     n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
     cs = [int(t.shape[-1]) for t in inputs]
-    out = torch.empty((n, z, y, xd, pw.cout), dtype=torch.bfloat16, device=dev)
+    shape = (n, z, y, xd, pw.cout)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    elif (out.dtype != torch.bfloat16 or tuple(out.shape) != shape or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"out: expected a contiguous bfloat16 {shape} tensor on {dev}")
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
@@ -244,23 +250,49 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
 
 
 def conv3d_same(x: torch.Tensor, pw: PreparedWeight,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel A: stride-1 SAME 3x3x3 conv of x (N, Z, Y, X, Cin) -> (N, Z, Y,
-    X, Cout), fp32 accumulation, fp32 bias in the epilogue, bf16 out.
+    X, Cout), fp32 accumulation, fp32 bias in the epilogue, bf16 out, written
+    into `out` where given.
 
     CUDA tensors launch the kernel; CPU tensors take conv3d_same_ref."""
     if x.device.type == "cpu":
-        return conv3d_same_ref(x, unprepare_conv3d_weight(pw), bias)
+        return into(out, conv3d_same_ref(x, unprepare_conv3d_weight(pw), bias))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same: unsupported device {x.device}")
     _check_input(x, "x", x)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
-    out = _launch("mt_conv3d_same", [x], pw, bias)
+    out = _launch("mt_conv3d_same", [x], pw, bias, out)
     conv3d_same.launches += 1
     return out
 
 
 conv3d_same.launches = 0
+
+A_PLAN_KEYS = ("ring", "g", "resident", "ksplit", "stages", "splits", "grid_x",
+               "blocks_per_sm", "smem_bytes")
+
+
+def conv3d_same_plan(n: int, z: int, y: int, x: int, cin: int, cout: int) -> dict:
+    """Kernel A's plan on the current card at these sizes: whether it runs
+    its ring body (1) or the body B and D share (0: 16-byte rows with
+    streamed weights and a whole K loop a block; the other keys then
+    describe the ring it declined),
+    input chunks staged at once (g), weights resident or streamed, its two
+    8-warp groups splitting the K chunks (ksplit) or the columns, ring
+    stages, K splits (1: bf16 written directly),
+    blocks along the tiles, blocks an SM and shared memory a block. Builds
+    the kernel library."""
+    import ctypes
+
+    from multitalent_tpu_torch import _build
+    bn = _block_n(cout)
+    plan = (ctypes.c_int * len(A_PLAN_KEYS))()
+    if _build.library().mt_conv3d_same_plan(n, z, y, x, cin, cout, -(-cout // bn) * bn, bn,
+                                            plan) != 0:
+        raise ValueError(f"kernel A does not take sizes {(n, z, y, x, cin, cout)}")
+    return dict(zip(A_PLAN_KEYS, plan))
 
 
 def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
@@ -485,13 +517,15 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
 # autograd
 # ---------------------------------------------------------------------------
 
-def conv3d_same_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3d_same_dx(g: torch.Tensor, weight: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """dL/dx (N, Z, Y, X, Cin) of the SAME conv with `weight` (Cout, Cin, 3,
     3, 3), given its output gradient g: kernel A on the spatially flipped,
-    transposed weight, prepared in g's dtype (ops/pallas_conv.py:651-659)."""
+    transposed weight, prepared in g's dtype (ops/pallas_conv.py:651-659),
+    written into `out` where given."""
     pw = prepare_conv3d_weight(weight.detach().flip(2, 3, 4).transpose(0, 1),
                                dtype=g.dtype)
-    return conv3d_same(g, pw)
+    return conv3d_same(g, pw, out=out)
 
 
 def _grad_output(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

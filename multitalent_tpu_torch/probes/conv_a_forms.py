@@ -1,0 +1,213 @@
+"""Kernel A (the SAME 3x3x3 conv and every dx) in the forms its plan chooses
+between, timed side by side on the H100.
+
+Builds forms of `csrc/conv3d_same.cu` of this package (or of another
+checkout's, `--tree`): the source as it is, and `ring_everywhere`, where
+every shape runs the ring body (as it is, 16-byte rows with streamed weights
+and a whole K loop a block run the body B and D share). `--against DIR`
+adds another checkout's source as it is (e.g. the parent commit's). Each
+form is the source patched as text and built by nvcc, with fused_norm.cu,
+into a library of its own under `_build/conv_a_forms/`; every form is
+checked against the plain version, then timed at kernel A's phase-2 shapes
+of chip_smoke.py (the forward's six at N=1 and at the training batch, and
+the dual convs' dx), each as a call queued behind others (the card's time,
+the host's cost hidden), in turns (forms in order, then in reverse; the
+lesser of the two). It also prints ptxas's registers and spills for the
+conv kernels of each source (and kernel C's, which shares A's loader).
+
+    python -m multitalent_tpu_torch.probes.conv_a_forms [--tree DIR] [--against DIR]
+        [--out JSON]
+
+`--device cpu` only checks that the source takes the patch: the forms exist
+only as CUDA builds.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+from pathlib import Path
+
+import torch
+
+from multitalent_tpu_torch import _build
+from multitalent_tpu_torch.probes import _util
+from multitalent_tpu_torch.probes.wgrad_forms import queued_ms
+
+RING = "p.ring = c.resident || cin % 8 != 0 || splits > 1;"
+FORMS = ("whole", "ring_everywhere")
+# (N, spatial, Cin, Cout) of kernel A's launches in the flagship's forward
+# (N=1) and training step (N=2: forwards, and the dual convs' dx)
+A_SHAPES = [(1, (96, 192, 192), 30, 30), (1, (48, 96, 96), 60, 60), (1, (24, 48, 48), 120, 120),
+            (1, (12, 24, 24), 240, 240), (1, (6, 12, 12), 320, 320), (1, (6, 6, 6), 320, 320)]
+SHAPES = (A_SHAPES + [(2, sp, ci, co) for _, sp, ci, co in A_SHAPES]
+          + [(2, sp, c, 2 * c) for _, sp, c, _ in A_SHAPES[:5]])
+RTOL, ATOL = 1e-2, 1e-2  # chip_smoke's phase-2 bound
+ENTRIES = ("mt_conv3d_same", "mt_conv3d_workspace")
+
+
+def form_source(text: str, form: str) -> str:
+    """Kernel A's source as `form`; raises where the source has not the one
+    line the patch of `ring_everywhere` replaces."""
+    if form == "whole":
+        return text
+    if form != "ring_everywhere" or text.count(RING) != 1:
+        raise ValueError(f"form {form!r}: expected one `{RING}` in kernel A's source")
+    return text.replace(RING, "p.ring = true;")
+
+
+def _nvcc(args: list[str]) -> subprocess.Popen:
+    return subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build_forms(sources: dict[str, tuple[Path, str]]) -> tuple[dict, dict]:
+    """{name: (csrc, form)} built in parallel (once per source text) and
+    loaded; with each source's ptxas lines for kernel A's instantiations."""
+    out_dir, procs, libs, ptxas = _build.BUILD_DIR / "conv_a_forms", [], {}, {}
+    for name, (csrc, form) in sources.items():
+        text = form_source((csrc / "conv3d_same.cu").read_text(), form)
+        norm = (csrc / "fused_norm.cu").read_text()
+        key = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + text + norm
+                              + (csrc / "common.cuh").read_text()).encode()).hexdigest()[:16]
+        out = out_dir / key
+        out.mkdir(parents=True, exist_ok=True)
+        libs[name] = out / "libconv_a.so"
+        ptxas[name] = out / "ptxas.txt"
+        if libs[name].is_file():
+            continue
+        (out / "conv3d_same.cu").write_text(text)
+        (out / "fused_norm.cu").write_text(norm)
+        objs = [str(out / "conv3d_same.o"), str(out / "fused_norm.o")]
+        procs.append((name, out, objs, [
+            _nvcc(["-I", str(csrc), "-Xptxas", "-v", "-c", "-o", objs[0],
+                   str(out / "conv3d_same.cu")]),
+            _nvcc(["-I", str(csrc), "-c", "-o", objs[1], str(out / "fused_norm.cu")])]))
+    for name, out, objs, ps in procs:
+        logs = [p.communicate()[0] for p in ps]
+        if any(p.returncode for p in ps):
+            raise RuntimeError(f"nvcc failed for {name}:\n" + "\n".join(logs))
+        ptxas[name].write_text(logs[0])
+        link = _nvcc(["-shared", "-o", str(libs[name]), *objs])
+        if link.wait():
+            raise RuntimeError(f"link failed for {name}: {link.communicate()[0]}")
+    loaded = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        for entry in ENTRIES:
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = _build._SIGNATURES[entry]
+        loaded[name] = lib
+    return loaded, {name: ptxas_lines(p.read_text()) for name, p in ptxas.items()}
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """'kernel<template arguments>: registers, spills' for each conv kernel
+    ptxas compiled (`-Xptxas -v`)."""
+    lines, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function .*?"
+                      r"(conv3d_a_kernel|conv3d_same_kernel|conv3d_wgrad_kernel)"
+                      r"(I\w+?)EEv", line)
+        if m:
+            args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            entry = f"{m.group(1)}<{args}>"
+        elif entry and "spill" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif entry and "registers" in line:
+            lines.append(f"{entry}: {re.search(r'Used \d+ registers', line).group(0)}, {spill}")
+            entry = None
+    return lines
+
+
+def wgrad_ptxas(csrc: Path) -> list[str]:
+    """ptxas's lines for kernel C's instantiations of csrc/conv3d_wgrad.cu,
+    which shares kernel A's loader."""
+    log = _nvcc(["-I", str(csrc), "-Xptxas", "-v", "-c", "-o", "/dev/null",
+                 str(csrc / "conv3d_wgrad.cu")]).communicate()[0]
+    return ptxas_lines(log)
+
+
+def _launcher(lib: ctypes.CDLL, x: torch.Tensor, pw, bias: torch.Tensor, out: torch.Tensor):
+    """A call of `lib`'s kernel A on x into out, with the workspace it asks
+    for."""
+    n, z, y, xd, cin = (int(s) for s in x.shape)
+    nbytes = lib.mt_conv3d_workspace(n, z, y, xd, cin, 0, pw.cout, pw.coutp, pw.bn)
+    ws = torch.empty(max(nbytes, 4) // 4, dtype=torch.float32, device=x.device)
+
+    def call() -> torch.Tensor:
+        code = lib.mt_conv3d_same(x.data_ptr(), pw.w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                  ws.data_ptr(), nbytes, n, z, y, xd, cin, pw.cout, pw.coutp,
+                                  pw.bn, torch.cuda.current_stream(x.device).cuda_stream)
+        if code:
+            raise RuntimeError(f"kernel A failed: CUDA error {code}")
+        return out
+    return call
+
+
+def main(argv=None) -> dict:
+    from multitalent_tpu_torch.ops import conv3d as cv
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
+                        help="checkout whose multitalent_tpu_torch/csrc to build the forms of")
+    parser.add_argument("--against", help="another checkout, built as it is")
+    parser.add_argument("--out", help="write the times as JSON to this file")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    csrc = Path(args.tree) / "multitalent_tpu_torch" / "csrc"
+    device = _util.resolve_device(args.device)
+    if device.type == "cpu":
+        text = (csrc / "conv3d_same.cu").read_text()
+        for form in FORMS:
+            form_source(text, form)
+        print(f"plain run on the CPU: {csrc / 'conv3d_same.cu'} takes the patch "
+              "(the forms are timed on the card only)")
+        return {}
+    sources = {form: (csrc, form) for form in FORMS}
+    if args.against:
+        sources["against"] = (Path(args.against) / "multitalent_tpu_torch" / "csrc", "whole")
+    libs, ptxas = build_forms(sources)
+    ptxas["kernel C"] = wgrad_ptxas(csrc)
+    if args.against:
+        ptxas["kernel C, against"] = wgrad_ptxas(sources["against"][0])
+    for name, lines in ptxas.items():
+        print(f"ptxas, {name}:" + "".join(f"\n  {line}" for line in lines))
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for n, sp, cin, cout in SHAPES:
+        x = torch.randn(n, *sp, cin, generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn(cout, cin, 3, 3, 3, generator=gen, device=device) * (2 / (27 * cin)) ** 0.5
+        bias = torch.randn(cout, generator=gen, device=device) * 0.1
+        pw = cv.prepare_conv3d_weight(w)
+        ref = cv.conv3d_same_ref(x.float(), w.to(torch.bfloat16).float(), bias)
+        bound = ATOL + RTOL * ref.abs().max().item()
+        out = torch.empty(n, *sp, cout, dtype=torch.bfloat16, device=device)
+        calls = {name: _launcher(lib, x, pw, bias, out) for name, lib in libs.items()}
+        row = {"n": n, "spatial": list(sp), "cin": cin, "cout": cout}
+        for name, call in calls.items():
+            out.fill_(float("nan"))
+            err = (call().float() - ref).abs().max().item()
+            if not err <= bound:
+                raise AssertionError(f"kernel A ({name}) at {cin}->{cout} {sp} N={n}: "
+                                     f"max|d| {err} > {bound}")
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                ms = queued_ms(calls[name])
+                row[f"{name}_queued_ms"] = min(ms, row.get(f"{name}_queued_ms", ms))
+        print(f"{cin}->{cout} at {'x'.join(map(str, sp))} N={n}: " + ", ".join(
+            f"{name} {row[f'{name}_queued_ms']:.3f}" for name in calls) + " ms queued")
+        rows.append(row)
+        del x, ref, out, calls
+        torch.cuda.empty_cache()
+    result = {"tree": str(Path(args.tree).resolve()), "against": args.against,
+              "device": torch.cuda.get_device_name(0), "ptxas": ptxas, "shapes": rows}
+    if args.out:
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -23,7 +23,8 @@ import time
 FAMILIES = [
     # conv3d_same_kernel<NIN, BN, AFFINE, STATS>: kernel D sets either flag
     ("kernel D (conv3d_same_affine)", lambda n: "conv3d_same_kernel" in n and "true" in n),
-    ("kernels A/B", lambda n: "conv3d_same_kernel" in n),
+    # kernel A's ring body (conv3d_a_kernel) and the body A and B share
+    ("kernels A/B", lambda n: "conv3d_same_kernel" in n or "conv3d_a_kernel" in n),
     ("kernel C (wgrad)", lambda n: "wgrad" in n),
     ("split-K reduce (A, D)", lambda n: "splitk_reduce" in n),
     ("E stats + stats reduce (D, E)", lambda n: "channel_stats" in n or "reduce_rows" in n),

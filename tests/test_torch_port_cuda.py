@@ -93,6 +93,96 @@ def test_conv3d_same_dual_matches_plain(device, ca, cb, cout, spatial):
     _assert_close(got, ref)
 
 
+# kernel A's body: persistent blocks on a ring of stages, weights resident or
+# streamed, K split only where the tiles leave the card idle. (N, spatial,
+# Cin, Cout): the flagship forward's six shapes at N=1 and N=2, the dual
+# convs' dx at stages 0 and 1 (BN 64 with resident or streamed weights),
+# ragged volumes where no box fits whole, and grids with fewer tiles than
+# blocks (split K loops at 60, 240 and 320 channels)
+A_FLAGSHIP = [(30, (96, 192, 192)), (60, (48, 96, 96)), (120, (24, 48, 48)),
+              (240, (12, 24, 24)), (320, (6, 12, 12)), (320, (6, 6, 6))]
+A_CASES = ([(n, sp, c, c) for n in (1, 2) for c, sp in A_FLAGSHIP]
+           + [(2, (96, 192, 192), 30, 60), (2, (48, 96, 96), 60, 120)]
+           + [(1, sp, c, c) for c in (30, 60, 120) for sp in ((7, 13, 11), (5, 9, 17))]
+           + [(1, (4, 8, 8), 240, 240), (2, (1, 1, 1), 30, 30), (1, (3, 4, 5), 320, 320),
+              (1, (4, 8, 8), 60, 60), (1, (5, 6, 7), 60, 47)])
+
+
+@pytest.mark.parametrize("n,spatial,cin,cout", A_CASES)
+def test_conv3d_same_body_matches_plain(device, n, spatial, cin, cout):
+    """Kernel A into an output buffer filled with NaN (an unwritten voxel
+    fails) against the plain version on the same bf16 input and weights, at
+    phase 2's bound (chip_smoke.RTOL, ATOL)."""
+    rng = np.random.default_rng(12)
+    x = _rand(rng, (n, *spatial, cin)).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, cin, 3, 3, 3), (2 / (27 * cin)) ** 0.5).to(device)
+    b = _rand(rng, (cout,), 0.1).to(device)
+    out = _nan_filled((n, *spatial, cout), device)
+    got = cv.conv3d_same(x, cv.prepare_conv3d_weight(w), b, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.isfinite(got).all()
+    _assert_close(got, cv.conv3d_same_ref(x.float(), w.to(torch.bfloat16).float(), b))
+
+
+@pytest.mark.parametrize("n,spatial,cin,cout", [
+    (1, (96, 192, 192), 30, 30),   # resident weights, both chunks at once
+    (2, (48, 96, 96), 60, 120),    # streamed weights, BN 64
+    (1, (6, 6, 6), 320, 320),      # split K: partials and the reduce
+    (1, (4, 8, 8), 60, 60),        # split K on the ring body
+])
+def test_conv3d_same_is_bit_equal_from_call_to_call(device, n, spatial, cin, cout):
+    """No atomics: every output voxel is written by one block, or summed
+    from the splits' partials in a fixed order."""
+    rng = np.random.default_rng(13)
+    x = _rand(rng, (n, *spatial, cin)).to(device, torch.bfloat16)
+    pw = cv.prepare_conv3d_weight(_rand(rng, (cout, cin, 3, 3, 3), 0.05).to(device))
+    b = _rand(rng, (cout,), 0.1).to(device)
+    first, second = cv.conv3d_same(x, pw, b), cv.conv3d_same(x, pw, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("cin", [30, 60, 13])
+def test_conv3d_same_padding_channels_stay_zero_beside_inf(device, cin):
+    """Channels past the input's meet zero weight rows in shared memory; were
+    they left holding another voxel's or chunk's values, an Inf there would
+    turn 0 * Inf into NaN in outputs whose neighbourhood is finite. With Inf
+    in voxels next to boxes' halos (and in the last channel), the kernel's
+    non-finite outputs are exactly the plain version's, and the rest agree."""
+    rng = np.random.default_rng(14)
+    shape = (1, 9, 18, 18, cin)
+    x = _rand(rng, shape).to(device, torch.bfloat16)
+    for z, y, xx in ((4, 9, 9), (0, 0, 17), (8, 17, 0), (5, 8, 10)):
+        x[0, z, y, xx, cin - 1] = float("inf")
+        x[0, z, y, xx, 0] = float("-inf") if z % 2 else float("inf")
+    w = _rand(rng, (cin, cin, 3, 3, 3), 0.1).to(device)
+    got = cv.conv3d_same(x, cv.prepare_conv3d_weight(w), out=_nan_filled(shape, device))
+    torch.cuda.synchronize()
+    ref = cv.conv3d_same_ref(x.float(), w.to(torch.bfloat16).float())
+    finite = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert finite.sum() > 0.8 * finite.numel()
+    _assert_close(got.float()[finite], ref[finite])
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 8, 16, 32), 30, 30),     # 30-channel rows: both chunks a block, split voxels
+    ((1, 5, 7, 19), 60, 60),      # 8-byte copies of 60-channel rows, ragged
+    ((2, 4, 8, 16), 120, 120),    # 16-byte copies
+])
+def test_conv3d_same_wgrad_is_bit_equal_from_call_to_call(device, shape, cin, cout):
+    """Kernel C on the loader it shares with kernel A: two calls give
+    bit-equal dw."""
+    rng = np.random.default_rng(15)
+    x = _rand(rng, (*shape, cin)).to(device, torch.bfloat16)
+    g = _rand(rng, (*shape, cout)).to(device, torch.bfloat16)
+    first = cv.conv3d_same_wgrad(x, g, out=torch.full((cout, cin, 3, 3, 3), float("nan"),
+                                                      device=device))
+    second = cv.conv3d_same_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and torch.equal(first, second)
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take(device):
     x = torch.zeros(1, 4, 4, 4, 16, device=device)
     pw = cv.prepare_conv3d_weight(torch.zeros(16, 16, 3, 3, 3, device=device))

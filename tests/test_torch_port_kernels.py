@@ -47,6 +47,33 @@ def test_conv3d_same_matches_pallas_conv_kernel(shape, cout):
     np.testing.assert_allclose(plain, ref, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("shape,cout", [((1, 8, 16, 16, 8), 16), ((2, 4, 8, 8, 8), 8)])
+def test_conv3d_same_and_its_dx_write_into_out(shape, cout):
+    """Kernel A's `out=` (chip_smoke and the card tests pass a NaN-filled
+    buffer): the result lands in the caller's buffer, which comes back; so
+    does dx's, against pallas_conv.py:_conv_kernel on the flipped, transposed
+    weight (the rule of pallas_conv.py:conv3d_same_dx); a buffer of another
+    shape is refused."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(3, 3, 3, shape[-1], cout).astype(np.float32)
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), dtype=torch.float32)
+    out = torch.full((*shape[:4], cout), float("nan"))
+    got = cv.conv3d_same(torch.from_numpy(x), pw, out=out)
+    ref = np.asarray(pallas_conv3d_same(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    assert got is out
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
+    g = rng.randn(*shape[:4], cout).astype(np.float32)
+    dx_out = torch.full(shape, float("nan"))
+    dx = cv.conv3d_same_dx(torch.from_numpy(g), _torch_weight(w), out=dx_out)
+    w_t = np.ascontiguousarray(w[::-1, ::-1, ::-1].transpose(0, 1, 2, 4, 3))
+    ref_dx = np.asarray(pallas_conv3d_same(jnp.asarray(g), jnp.asarray(w_t), interpret=True))
+    assert dx is dx_out
+    np.testing.assert_allclose(dx_out.numpy(), ref_dx, atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="out"):
+        cv.conv3d_same(torch.from_numpy(x), pw, out=torch.empty(*shape[:4], cout + 1))
+
+
 @pytest.mark.parametrize("factors,c", [((2, 2), 30), ((1, 2), 60)])
 def test_conv3d_same_matches_pallas_merged_kernel(factors, c):
     """Kernel A, unpacked, vs pallas_merged_conv.py:_merged_kernel on the

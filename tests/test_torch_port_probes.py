@@ -178,7 +178,7 @@ def test_zeros_matches_the_pallas_body(block):
 
 
 @pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
-                                   "grid_overhead_probe", "wgrad_forms"])
+                                   "grid_overhead_probe", "wgrad_forms", "conv_a_forms"])
 def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
     """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
     plain run; without --device, a machine without a card refuses."""
@@ -248,3 +248,39 @@ def test_wgrad_forms_cut_the_copies_or_the_products():
         wf.form_source(older, "copies")
     with pytest.raises(ValueError):
         wf.form_source(text.replace("load_", "stage_"), "products")
+
+
+def test_conv_a_forms_patch_the_plan():
+    """probes/conv_a_forms.py: `ring_everywhere` sends every shape to kernel
+    A's ring body, and the whole form is the source; a source without the
+    plan's line, or another form, is refused."""
+    from multitalent_tpu_torch.probes import conv_a_forms as af
+    text = (Path(af.__file__).resolve().parents[1] / "csrc" / "conv3d_same.cu").read_text()
+    assert af.form_source(text, "whole") == text
+    ring = af.form_source(text, "ring_everywhere")
+    assert af.RING not in ring and "p.ring = true;" in ring
+    with pytest.raises(ValueError):
+        af.form_source(text.replace("p.ring", "q.ring"), "ring_everywhere")
+    with pytest.raises(ValueError):
+        af.form_source(text, "n_split")
+
+
+def test_conv_a_forms_read_ptxas():
+    """The probe's ptxas lines: each conv kernel's template arguments,
+    registers and spills from `nvcc -Xptxas -v`'s log."""
+    from multitalent_tpu_torch.probes import conv_a_forms as af
+    log = (
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__35e2_14_conv3d_same_cu_33aa"
+        "41b915conv3d_a_kernelILi32ELi2ELb1ELb1EEEvNS_7AParamsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN47_GLOBAL__N__x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 111 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__470b_15_conv3d_wgrad_cu_aaf5"
+        "0a4719conv3d_wgrad_kernelILi2ELi64ELi1ELi2EEEvNS_7WParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 1024 bytes smem\n")
+    assert af.ptxas_lines(log) == [
+        "conv3d_a_kernel<32, 2, 1, 1>: Used 111 registers, 0 bytes spill stores, "
+        "0 bytes spill loads",
+        "conv3d_wgrad_kernel<2, 64, 1, 2>: Used 96 registers, 4 bytes spill stores, "
+        "8 bytes spill loads"]
