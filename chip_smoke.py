@@ -9,15 +9,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the flagship gives it, with the kernel's median time beside the plain
    version's (fp32, TF32 off) and cuDNN's bf16 op: A and B at the forward's
-   shapes (N=1), then A at the training batch (N=2), A into a NaN-filled
+   shapes (N=1), then A at the training batch (N=2), each into a NaN-filled
    buffer, with the plan it took; kernel C (dw) single at A's shapes and
    dual at B's (each
    into a NaN-filled dw buffer, with its bound and write path: dw directly
    or split partials), and A in the dx role (C -> 2C channels, the dual
    convs' dx), at the training batch N=2; then the fused chain's kernels beside the unfused route they
    replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
-   stats) at A's shapes and its dual form at B's, each at N=1 and N=2, E's
-   stats and apply passes at every norm shape, and F at the stage-0 head;
+   stats) at A's shapes and its dual form at B's, each at N=1 and N=2 into
+   NaN-filled output and stats buffers, with the plan it took, E's stats and
+   apply passes at every norm shape, and F at the stage-0 head;
 3. the inference path through the user's entry point: a reference-layout
    model folder of the MultiTalent flagship (GenericUNet, base 30, pools
    (2,2,2)x4 + (1,2,2), 47 sigmoid regions, patch 96x192x192, spacing
@@ -58,11 +59,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
    the plain version's and the library call's;
-7. one JSON line describing every kernel (A-F and the probes'; kernel A's
-   and C's rows also list their phase-2 shapes and sum their times, and
-   cuDNN's, over one training step's launches as phase 5 recorded them, A's
-   also over one forward's as phase 4 recorded them), then the result
-   line.
+7. one JSON line describing every kernel (A-F and the probes'; the rows
+   of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
+   their plans) and sum their times, and cuDNN's or the unfused route's,
+   over the launches a run recorded: A over one forward (phase 4) and one
+   training step (phase 5), B over one forward (phase 4), C over one step
+   (phase 5), D over one fused forward (phase 4b) and one fused step (phase
+   5b)), then the result line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -220,11 +223,13 @@ def phase_kernels() -> dict:
                               "err": err, "ms": ms, "plain_ms": plain_ms,
                               "cudnn_bf16_ms": cudnn_ms})
 
-    # forward: A and B at N=1, then A at the training batch (the step's
-    # forward launches); A into a NaN-filled buffer, with its plan
+    # forward: A and B at N=1, then A and B at the training batch (the
+    # step's forward launches, where a block's walk crosses from one sample
+    # to the next); each into a NaN-filled buffer, with its plan
     cases = [("conv3d_same", (c,), c, sp, 1) for c, sp in KERNEL_A_SHAPES]
     cases += [("conv3d_same_dual", (c, c), c, sp, 1) for c, sp in KERNEL_B_SHAPES]
     cases += [("conv3d_same", (c,), c, sp, TRAIN_BATCH) for c, sp in KERNEL_A_SHAPES]
+    cases += [("conv3d_same_dual", (c, c), c, sp, TRAIN_BATCH) for c, sp in KERNEL_B_SHAPES]
     for name, splits, cout, sp, n in cases:
         cin = sum(splits)
         ins = [rnd(n, *sp, c).to(torch.bfloat16) for c in splits]
@@ -238,18 +243,16 @@ def phase_kernels() -> dict:
         ins32 = [t.float() for t in ins]
         ref = plain(*ins32, w_bf.float(), bias)
         bound = ATOL + RTOL * ref.abs().max().item()
-        extra = ({"out": _nan_filled((n, *sp, cout), dev)} if name == "conv3d_same" else {})
-        err = _check(f"{name} {splits}->{cout} at {sp} N={n}", kernel(*ins, pw, bias, **extra),
-                     ref, bound)
+        err = _check(f"{name} {splits}->{cout} at {sp} N={n}",
+                     kernel(*ins, pw, bias, out=_nan_filled((n, *sp, cout), dev)), ref, bound)
         x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
         w_cl = w_bf.contiguous(memory_format=torch.channels_last_3d)
         report(name, splits, cout, sp, n, err, bound,
                _median_ms(lambda: kernel(*ins, pw, bias)),
                _median_ms(lambda: plain(*ins32, w_bf.float(), bias)),
                _median_ms(lambda: F.conv3d(x_cl, w_cl, bias.to(torch.bfloat16), padding=1)))
-        if name == "conv3d_same":
-            _a_plan(results[name][-1], cin, n, sp)
-        del ins, ins32, ref, x_cl, extra
+        _plan(results[name][-1], "a" if name == "conv3d_same" else "b")
+        del ins, ins32, ref, x_cl
 
     # backward at the training batch: dw by kernel C (single at A's shapes,
     # dual at B's), each checked in a dw buffer filled with NaN and timed
@@ -298,23 +301,27 @@ def phase_kernels() -> dict:
                    _median_ms(lambda: cv.conv3d_same_dx(g, w)),
                    _median_ms(lambda: cv.conv3d_same_ref(g32, wt)),
                    _median_ms(lambda: F.conv3d(g_cl, wt_cl, padding=1)))
-            _a_plan(results["conv3d_same_dx"][-1], cout, n, sp)
+            _plan(results["conv3d_same_dx"][-1], "a")
             del ref
         del g, g32, g_cl
     torch.cuda.empty_cache()
     return results
 
 
-def _a_plan(row: dict, cin: int, n: int, sp) -> None:
-    """Kernel A's plan at a timed shape into its row (and a line): which
-    body, chunks staged at once, weights resident or streamed, warps a
-    block, ring stages, K splits, blocks."""
+def _plan(row: dict, form: str) -> None:
+    """The plan of kernel A, B, D or D's dual form (`form`, as
+    ops.conv3d.conv3d_same_plan takes it) at a timed shape into its row (and
+    a line), with the shape's bound: which body, chunks staged at once,
+    weights resident or streamed, warps a block, ring stages, K splits,
+    blocks."""
     from multitalent_tpu_torch.ops import conv3d as cv
-    plan = cv.conv3d_same_plan(n, *sp, cin, row["cout"])
+    splits, n, sp = tuple(row["splits"]), row["n"], tuple(row["spatial"])
+    plan = cv.conv3d_same_plan(n, *sp, splits[0] if len(splits) == 1 else splits, row["cout"],
+                               form)
     row["plan"] = plan
-    row.update(_conv_bound(cin, row["cout"], sp, n))
+    row.update(_conv_bound(sum(splits), row["cout"], sp, n))
     body = ("ring body" if plan["ring"] else
-            "the body B and D share (16-byte rows, streamed weights, whole K loops)")
+            "the older body (16-byte rows, streamed weights, whole K loops)")
     print(f"  plan: {body}; ring: G {plan['g']}, weights "
           f"{'resident' if plan['resident'] else 'streamed'}, 16 warps "
           f"(groups split {'K' if plan['ksplit'] else 'N'}) x "
@@ -371,7 +378,9 @@ def phase_fused_kernels() -> dict:
             sc, sh = rnd(n, c).abs() + 0.5, rnd(n, c)
             norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
             pw = cv.prepare_conv3d_weight(w)
-            out, stats = cv.conv3d_same_affine(x, pw, bias, sc, sh)
+            out, stats = cv.conv3d_same_affine(x, pw, bias, sc, sh,
+                                               out=_nan_filled((n, *sp, c), dev),
+                                               stats=_nan_stats(n, c, dev))
             ref, _ = cv.conv3d_same_affine_ref(x, w_bf, bias, sc, sh)
             bound = ATOL + RTOL * ref.float().abs().max().item()
             err = _check(f"conv3d_same_affine {c}->{c} at {sp} N={n}", out, ref, bound)
@@ -390,6 +399,8 @@ def phase_fused_kernels() -> dict:
                    unfused_kernel_a_ms=_median_ms(lambda: cv.conv3d_same(
                        to_ndhwc(instance_norm_lrelu(x_cl, norm_w, norm_b)), pw, bias)),
                    stats_rel_err=serr)
+            results["conv3d_same_affine"][-1].update(splits=(c,), cout=c, spatial=sp, n=n)
+            _plan(results["conv3d_same_affine"][-1], "d")
             del x, x_cl, out, ref
     # kernel D's dual form (decoders' first convs), N=1 (inference) and 2
     # (training)
@@ -400,7 +411,9 @@ def phase_fused_kernels() -> dict:
             w_bf = w.to(torch.bfloat16)
             bias = rnd(c, scale=0.1)
             pw = cv.prepare_conv3d_weight(w, (c, c))
-            out, stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+            out, stats = cv.conv3d_same_dual_stats(a, b, pw, bias,
+                                                   out=_nan_filled((n, *sp, c), dev),
+                                                   stats=_nan_stats(n, c, dev))
             ref, _ = cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)
             bound = ATOL + RTOL * ref.float().abs().max().item()
             err = _check(f"conv3d_same_dual_stats {c}+{c}->{c} at {sp} N={n}", out, ref, bound)
@@ -414,6 +427,8 @@ def phase_fused_kernels() -> dict:
                    _median_ms(lambda: cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)),
                    _median_ms(lambda: cv.conv3d_same_dual(a, b, pw, bias)),
                    "kernel B, no stats", stats_rel_err=serr)
+            results["conv3d_same_affine"][-1].update(splits=(c, c), cout=c, spatial=sp, n=n)
+            _plan(results["conv3d_same_affine"][-1], "d_dual")
             del a, b, out, ref
     # kernel E at every norm shape, N=1: stats, then apply in both rounding
     # orders; the unfused route is the port's plain norm (stats + normalize)
@@ -656,7 +671,8 @@ def phase_tile_probabilities() -> dict:
     net32 = _flagship_net(plans, torch.float32).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
-    with torch.no_grad(), _recording_a() as a_shapes:
+    with torch.no_grad(), _recording("conv3d_same") as a_shapes, \
+            _recording("conv3d_same_dual") as b_shapes:
         logits = net(x)
     with torch.no_grad():
         if not torch.isfinite(logits).all():
@@ -666,7 +682,7 @@ def phase_tile_probabilities() -> dict:
         d_fp32 = (p_kernels - torch.sigmoid(net32(x, use_kernels=False))).abs()
     out = {"bf16_max": d_bf16.max().item(), "bf16_mean": d_bf16.mean().item(),
            "fp32_max": d_fp32.max().item(), "fp32_mean": d_fp32.mean().item(),
-           "a_shapes": a_shapes}
+           "a_shapes": a_shapes, "b_shapes": b_shapes}
     print(f"tile {PATCH}: |dp| kernels bf16 vs plain bf16: max {out['bf16_max']:.3e} "
           f"(bound {PROB_BOUND}), mean {out['bf16_mean']:.3e} (bound "
           f"{PROB_BOUND_MEAN}); vs plain fp32: max {out['fp32_max']:.3e} "
@@ -679,6 +695,10 @@ def phase_tile_probabilities() -> dict:
     expect = net.kernel_launches_per_forward()["conv3d_same"]
     if sum(a_shapes.values()) != expect:
         raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one forward, "
+                             f"expected {expect}")
+    expect = net.kernel_launches_per_forward()["conv3d_same_dual"]
+    if sum(b_shapes.values()) != expect:
+        raise AssertionError(f"{sum(b_shapes.values())} kernel-B calls in one forward, "
                              f"expected {expect}")
     return out
 
@@ -721,7 +741,12 @@ def phase_fused_tile_probabilities() -> dict:
     net32 = _flagship_net(plans, torch.float32).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
-    logits = unet_forward_fused(net, x)
+    with _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_shapes:
+        logits = unet_forward_fused(net, x)
+    expect = net.fused_kernel_launches_per_forward()["conv3d_same_affine"]
+    if sum(d_shapes.values()) != expect:
+        raise AssertionError(f"{sum(d_shapes.values())} kernel-D calls in one fused forward, "
+                             f"expected {expect}")
     if logits.dtype != torch.bfloat16 or logits.shape != (1, 47, *PATCH):
         raise AssertionError(f"fused logits {logits.dtype} {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
@@ -744,7 +769,7 @@ def phase_fused_tile_probabilities() -> dict:
     p_pallas, launches = _run_counted(pallas_norm_forward)
     if launches["channel_stats"] != norms or launches["affine_lrelu"] != norms:
         raise AssertionError(f"MTTPU_PALLAS_NORM=1: launches {launches}, {norms} norms")
-    out = {}
+    out = {"d_shapes": d_shapes}
     out["bf16_max"], out["bf16_mean"] = _dp(p_fused, p_fused_plain)
     out["fp32_max"], out["fp32_mean"] = _dp(p_fused, p_fp32)
     out["pallas_norm_max"], out["pallas_norm_mean"] = _dp(p_pallas, p_default)
@@ -861,7 +886,9 @@ def _check_dw_through_kernels(trainer) -> float:
     rec_single.launches = 0
     cv.conv3d_same_wgrad, cv.conv3d_same_wgrad_dual = rec_single, rec_dual
     try:
-        with _recording_a() as a_shapes:
+        with _recording("conv3d_same") as a_shapes, \
+                _recording("conv3d_same_dual") as b_shapes, \
+                _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_shapes:
             trainer.network.zero_grad()
             loss, _ = trainer.loss_fn(trainer.network_forward(data, deep_supervision=True),
                                       targets, {"valid_region_mask": valid})
@@ -882,7 +909,7 @@ def _check_dw_through_kernels(trainer) -> float:
           f"version on the same bf16 inputs: worst max|d| / max|dw| {worst:.2e} "
           f"(bound {DW_RTOL})")
     shapes = collections.Counter(_dw_key(ins, g) for ins, g, _ in calls)
-    return worst, shapes, a_shapes
+    return worst, shapes, a_shapes, b_shapes, d_shapes
 
 
 def _dw_key(ins, g) -> tuple:
@@ -964,10 +991,16 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
         print(f"training launches ({route}): { {k: v for k, v in launches.items() if v} } "
               f"= per step {per_step} x {steps} + per forward {per_fwd} x {val} "
               f"(validation)")
-        dw_worst, dw_shapes, a_shapes = _check_dw_through_kernels(trainer)
+        dw_worst, dw_shapes, a_shapes, b_shapes, d_shapes = _check_dw_through_kernels(trainer)
         if not fused and sum(a_shapes.values()) != per_step["conv3d_same"]:
             raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one step, "
                                  f"expected {per_step['conv3d_same']}")
+        if not fused and sum(b_shapes.values()) != per_step["conv3d_same_dual"]:
+            raise AssertionError(f"{sum(b_shapes.values())} kernel-B calls in one step, "
+                                 f"expected {per_step['conv3d_same_dual']}")
+        if fused and sum(d_shapes.values()) != per_step["conv3d_same_affine"]:
+            raise AssertionError(f"{sum(d_shapes.values())} kernel-D calls in one step, "
+                                 f"expected {per_step['conv3d_same_affine']}")
     finally:
         os.environ.pop("MTTPU_FUSED_TRAIN")
 
@@ -984,7 +1017,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     print(f"the trained folder ({route}) predicts: labelmap + {len(masks)} region NIfTIs "
           f"at {CASE_SHAPE}")
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
-            "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes, "a_shapes": a_shapes}
+            "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes, "a_shapes": a_shapes,
+            "b_shapes": b_shapes, "d_shapes": d_shapes}
 
 
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
@@ -1030,51 +1064,54 @@ def _wgrad_step(timed: list, step_shapes: collections.Counter) -> dict:
 
 
 @contextlib.contextmanager
-def _recording_a():
-    """Counts every kernel-A call made inside by (Cin, Cout, spatial, N): the
-    module's wrapper is swapped for a recorder (on which the wrapper counts
-    its launches meanwhile) and put back after."""
+def _recording(*names):
+    """Counts every call of the named kernel wrappers of ops.conv3d made
+    inside by (input channels of each input, Cout, spatial, N): each wrapper
+    is swapped for a recorder (on which the wrappers count their launches
+    meanwhile) and put back after."""
     from multitalent_tpu_torch.ops import conv3d as cv
-    kernel, shapes = cv.conv3d_same, collections.Counter()
+    kernels, shapes = {name: getattr(cv, name) for name in names}, collections.Counter()
 
-    def rec(x, pw, bias=None, out=None):
-        shapes[(int(x.shape[-1]), pw.cout, tuple(int(s) for s in x.shape[1:4]),
-                int(x.shape[0]))] += 1
-        return kernel(x, pw, bias, out)
+    def recorder(kernel):
+        def rec(*args, **kwargs):
+            pw = next(a for a in args if isinstance(a, cv.PreparedWeight))
+            shapes[(pw.splits, pw.cout, tuple(int(s) for s in args[0].shape[1:4]),
+                    int(args[0].shape[0]))] += 1
+            return kernel(*args, **kwargs)
+        rec.launches = 0
+        return rec
 
-    rec.launches = 0
-    cv.conv3d_same = rec
+    for name, kernel in kernels.items():
+        setattr(cv, name, recorder(kernel))
     try:
         yield shapes
     finally:
-        cv.conv3d_same = kernel
+        for name, kernel in kernels.items():
+            setattr(cv, name, kernel)
 
 
-def _a_sums(timed: list, forward: collections.Counter, step: collections.Counter) -> dict:
-    """Kernel A at each phase-2 shape (ms, cuDNN's bf16 conv ms, bound, plan)
-    and the sums of both times over one forward's launches (N=1, the shapes
-    phase 4's tile gave A) and one training step's (N=2: forwards and dx, the
-    shapes phase 5's step gave A), each shape weighted by its launches."""
-    by_key = {(r["splits"][0], r["cout"], tuple(r["spatial"]), r["n"]): r for r in timed}
-    missing = (set(forward) | set(step)) - set(by_key)
+def _sums(label: str, timed: list, ref_key: str, **weights: collections.Counter) -> dict:
+    """A kernel's phase-2 shapes (ms, `ref_key`'s ms beside it, bound, plan)
+    and the sums of both over the launches of each of `weights` (e.g.
+    forward=, step=: the shapes a phase recorded, each with its count)."""
+    by_key = {(tuple(r["splits"]), r["cout"], tuple(r["spatial"]), r["n"]): r for r in timed}
+    missing = set().union(*weights.values()) - set(by_key)
     if missing:
-        raise AssertionError(f"kernel-A shapes of a forward or step not timed in phase 2: "
-                             f"{missing}")
-
-    def total(shapes, key):
-        return sum(k * by_key[s][key] for s, k in shapes.items())
-
-    out = {"shapes": [{"at": f"{s[0]}->{s[1]} at {'x'.join(map(str, s[2]))} N={s[3]}",
-                       "ms": r["ms"], "cudnn_ms": r["cudnn_bf16_ms"], "bound_ms": r["bound_ms"],
+        raise AssertionError(f"{label} shapes of a recorded run not timed in phase 2: {missing}")
+    out = {"shapes": [{"at": "{}->{} at {} N={}".format("+".join(map(str, s[0])), s[1],
+                                                        "x".join(map(str, s[2])), s[3]),
+                       "ms": r["ms"], ref_key: r[ref_key], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "plan": r["plan"],
-                       "launches_per_forward": forward.get(s, 0),
-                       "launches_per_step": step.get(s, 0)} for s, r in by_key.items()],
-           "forward_ms": total(forward, "ms"), "forward_cudnn_ms": total(forward, "cudnn_bf16_ms"),
-           "step_ms": total(step, "ms"), "step_cudnn_ms": total(step, "cudnn_bf16_ms")}
-    print(f"kernel A over one forward ({sum(forward.values())} launches, N=1): "
-          f"{out['forward_ms']:.3f} ms, cuDNN bf16 {out['forward_cudnn_ms']:.3f} ms; over one "
-          f"training step ({sum(step.values())} launches, N={TRAIN_BATCH}): "
-          f"{out['step_ms']:.3f} ms, cuDNN bf16 {out['step_cudnn_ms']:.3f} ms")
+                       **{f"launches_per_{k}": w.get(s, 0) for k, w in weights.items()}}
+                      for s, r in by_key.items()]}
+    parts = []
+    for k, w in weights.items():
+        out[f"{k}_ms"] = sum(c * by_key[s]["ms"] for s, c in w.items())
+        out[f"{k}_{ref_key}"] = sum(c * by_key[s][ref_key] for s, c in w.items())
+        batch = "/".join(str(v) for v in sorted({s[3] for s in w}))
+        parts.append(f"over one {k} ({sum(w.values())} launches, N={batch}): "
+                     f"{out[f'{k}_ms']:.3f} ms, {ref_key} {out[f'{k}_{ref_key}']:.3f}")
+    print(f"{label} " + "; ".join(parts))
     return out
 
 
@@ -1123,6 +1160,13 @@ def _nan_filled(shape, dev):
     allocator hands back)."""
     import torch
     return torch.full(tuple(shape), float("nan"), dtype=torch.bfloat16, device=dev)
+
+
+def _nan_stats(n: int, c: int, dev):
+    """Kernel D's stats buffer (n, 2, c) fp32, filled with NaN for the same
+    reason."""
+    import torch
+    return torch.full((n, 2, c), float("nan"), dtype=torch.float32, device=dev)
 
 
 def phase_probe_kernels() -> dict:
@@ -1318,9 +1362,17 @@ def main() -> int:
                          "x".join(map(str, stage0["spatial"])), stage0["n"])})
     wgrad_step = _wgrad_step(kernels["conv3d_same_wgrad"], training["dw_shapes"])
     rows[-1].update(wgrad_step)
-    a_sums = _a_sums(kernels["conv3d_same"] + kernels["conv3d_same_dx"], tile["a_shapes"],
-                     training["a_shapes"])
+    a_sums = _sums("kernel A", kernels["conv3d_same"] + kernels["conv3d_same_dx"],
+                   "cudnn_bf16_ms", forward=tile["a_shapes"], step=training["a_shapes"])
     rows[0].update(a_sums)
+    b_sums = _sums("kernel B", kernels["conv3d_same_dual"], "cudnn_bf16_ms",
+                   forward=tile["b_shapes"], step=training["b_shapes"])
+    rows[1].update(b_sums)
+    # kernel D beside the unfused route it replaces (norm + cuDNN; for the
+    # dual form kernel B, no stats), over one fused forward (N=1) and one
+    # fused training step's forward (N=2)
+    d_sums = _sums("kernel D", fused_kernels["conv3d_same_affine"], "unfused_ms",
+                   forward=tile_fused["d_shapes"], step=training_fused["d_shapes"])
     # the fused route's kernels: launches from the fused predict CLI run (and
     # kernel D's from the fused training run), times at the stage-0 shape (N=1,
     # C = 30 at 96x192x192); one PyTorch call computes E's stats
@@ -1348,7 +1400,8 @@ def main() -> int:
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"], **work,
                      "library_ms": stage0.get("library_ms"),
                      "unfused_route_ms": stage0["unfused_ms"],
-                     "timed_at": stage0["what"]})
+                     "timed_at": stage0["what"],
+                     **(d_sums if kname == "conv3d_same_affine" else {})})
     # the probes' kernels: launches from the probe path, times at the first
     # shape each was timed at in phase 6
     for kname, src, replaces in (
@@ -1381,8 +1434,14 @@ def main() -> int:
           f"step {training['seconds_per_step']:.3f} unfused, "
           f"{training_fused['seconds_per_step']:.3f} fused; peak {training['peak_gib']:.2f} "
           f"GiB unfused, {training_fused['peak_gib']:.2f} GiB fused; kernel A over a forward "
-          f"{a_sums['forward_ms']:.3f} ms (cuDNN {a_sums['forward_cudnn_ms']:.3f} ms), over a "
-          f"step {a_sums['step_ms']:.3f} ms (cuDNN {a_sums['step_cudnn_ms']:.3f} ms); kernel C "
+          f"{a_sums['forward_ms']:.3f} ms (cuDNN {a_sums['forward_cudnn_bf16_ms']:.3f} ms), over "
+          f"a step {a_sums['step_ms']:.3f} ms (cuDNN {a_sums['step_cudnn_bf16_ms']:.3f} ms); "
+          f"kernel B over a forward {b_sums['forward_ms']:.3f} ms (cuDNN on the concat "
+          f"{b_sums['forward_cudnn_bf16_ms']:.3f} ms), over a step {b_sums['step_ms']:.3f} ms "
+          f"(cuDNN on the concat {b_sums['step_cudnn_bf16_ms']:.3f} ms); kernel D over a "
+          f"fused forward "
+          f"{d_sums['forward_ms']:.3f} ms (unfused route {d_sums['forward_unfused_ms']:.3f} ms), "
+          f"over a fused step {d_sums['step_ms']:.3f} ms; kernel C "
           f"over a step "
           f"{wgrad_step['step_ms']:.3f} ms (cuDNN {wgrad_step['step_cudnn_ms']:.3f} ms); "
           f"probe path "

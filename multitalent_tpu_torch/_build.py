@@ -33,8 +33,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # n, z, y, x, ca, cb, cout, coutp, bn -> workspace bytes (-1: bad sizes)
     "mt_conv3d_workspace": ([_I] * 9, _L),
-    # n, z, y, x, cin, cout, coutp, bn, plan[9] -> 0 (-1: bad sizes)
-    "mt_conv3d_same_plan": ([_I] * 8 + [ctypes.POINTER(_I)], _I),
+    # form, n, z, y, x, ca, cb, cout, coutp, bn, plan[9] -> 0 (-1: bad sizes)
+    "mt_conv3d_same_plan": ([_I] * 10 + [ctypes.POINTER(_I)], _I),
     # x, w, bias, out, ws, ws_bytes, n, z, y, x, cin, cout, coutp, bn, stream
     "mt_conv3d_same": ([_P, _P, _P, _P, _P, _L] + [_I] * 8 + [_P], _I),
     # a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, bn,

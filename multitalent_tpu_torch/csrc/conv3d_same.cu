@@ -9,10 +9,10 @@
 //     without building the concat) -> the NIN == 2 instantiation below.
 // and, as kernel D, a fourth:
 //   - ops/pallas_conv.py _conv_affine_kernel (the fused conv -> InstanceNorm
-//     chain): the same body with a normalize prologue (AFFINE: the staged
+//     chain): the same conv with a normalize prologue (AFFINE: the staged
 //     halo box becomes lrelu(bf16(x * scale[n, c] + shift[n, c])) before any
-//     ldmatrix, the SAME halo and padding channels forced back to 0) and a
-//     stats epilogue (STATS: per-channel sum and sum of squares of the
+//     ldmatrix, the SAME halo and padding channels left at 0) and a stats
+//     epilogue (STATS: per-channel sum and sum of squares of the
 //     bf16-rounded, bias-added output, per-block partials added in a fixed
 //     order by fused_norm.cu's reduce_rows; deterministic, no atomics). Where
 //     the K loop is split, the stats are taken by fused_norm.cu's
@@ -20,7 +20,7 @@
 //     stages: at most 6x24x24 voxels). The dual form (NIN == 2 with STATS)
 //     serves a decoder's first conv. What D saves: the normalize pass's read
 //     and write of the activation and the stats pass's read (~0.6 GB at
-//     stage 0 with N=1); the prologue adds ~16 elementwise ops per staged
+//     stage 0 with N=1); the prologue adds ~7 elementwise ops per staged
 //     element, once per K chunk, not per tap.
 // and the probe kernel scripts/pallas_sparse_conv_arm.py _sparse_kernel
 // (pallas_call at :287) -> the PACKED instantiation, `mt_packed_conv3d`: the
@@ -38,14 +38,18 @@
 // Its loads are 4-byte channel pairs (elements for odd groups) in place of
 // 16-byte rows, and it never splits K (the partials' order is unpacked).
 //
-// Two bodies. Kernel A has its own (conv3d_a_kernel, below), built for the
-// H100's narrow stage-0 and stage-1 rows; B, D, D's dual form and the packed
-// conv run conv3d_same_kernel, and so does A where its rows take 16-byte
-// copies, its weights do not fit in shared memory for a block's life and
-// its K loop is not split (C >= 120 but the deepest stage: there the old
-// body's two blocks an SM measured faster than A's ring in one block).
+// Two bodies. The ring body (conv3d_a_kernel, below), built for the H100's
+// narrow stage-0 and stage-1 rows, serves kernel D at every size, and
+// kernels A, B and D's dual form wherever a row is narrower than 16-byte
+// copies (30, 60, odd C), the weights stay resident, or (one input) the K
+// loop is split; the older body (conv3d_same_kernel) serves the packed
+// conv, and A, B and D's dual form where every row takes 16-byte copies, the
+// weights are streamed and the K loop is whole (C >= 120 but the deepest
+// stage; for B and D's dual form also the split deepest stage): there its
+// two blocks an SM measured as fast as or faster than the ring in one block
+// (PERF.md, section 6).
 //
-// What bounds kernel A on an H100: the flagship's convs carry ~27*C FLOPs
+// What bounds the ring body on an H100: the flagship's convs carry ~27*C FLOPs
 // per input byte, well above the ~295 FLOP/byte ridge, so the tensor cores
 // should be the limit. The mma.sync products (no wgmma) and their ldmatrix
 // reads now bound it: measured on the card, the ring body at 30 and 60
@@ -70,7 +74,15 @@
 //     epilogue writes bf16(acc + bias) directly; no atomics (bit-equal
 //     outputs from call to call);
 //   - channels past the input's are zeroed in every staged halo (they meet
-//     zero weight rows, but 0 * NaN is NaN).
+//     zero weight rows, but 0 * NaN is NaN);
+//   - B and D's dual form stage a's rows, then b's (at 30 + 30: a, b, a, b,
+//     both chunks of a row at once), their four chunks' weights resident in
+//     XOR-swizzled 64-byte rows so that two stages fit; D normalizes each
+//     staged box in place by lines (16-byte units, no division a voxel), one
+//     stage ahead of the products where 3 stages fit (stage 0: the column
+//     split), else after the stage's barrier with one more; its stats are
+//     summed by each warp in shared memory a tile and added across warps
+//     once a sample a block.
 //
 // What bounds conv3d_same_kernel: the same products, behind the serialised
 // load -> sync -> compute phases of each K chunk, and, at the deep stages
@@ -128,12 +140,8 @@ struct Params {
   float* ws;  // split-K partials (splits, N*Z*Y*X, Cout), when splits > 1
   int n, z, y, x, cout, coutp;
   Plan plan;
-  // kernel D: the normalize prologue's per-(sample, channel) scale and shift
-  // (N, Cin) fp32 and LeakyReLU slope; the stats epilogue's per-block
-  // partials (N * tiles, 2, Cout) fp32
-  const float* scale;
-  const float* shift;
-  float slope;
+  // kernel D's dual form: the stats epilogue's per-block partials (N *
+  // tiles, 2, Cout) fp32
   float* part;
   // the packed conv: factors (fy, fx) of in[0] and out (n, z, y, x are the
   // unpacked sizes), the input's groups as unpacked channel ranges, and
@@ -239,39 +247,6 @@ constexpr int smem_bytes() {
   return HALO_MAX * HS * 2 + 27 * KC * (BN + 8) * 2;
 }
 
-// Kernel D's prologue on one staged K chunk: lrelu(bf16(x * scale + shift))
-// on in-volume voxels and real channels, 0 on the SAME halo and the padding
-// channels (cp.async zero-filled them, but lrelu(shift) is not 0).
-__device__ __forceinline__ void normalize_halo(__nv_bfloat16* halo, const Params& p, int nb,
-                                               int c0, int z0, int y0, int x0) {
-  constexpr int PAIRS = KC / 2;  // channel pairs of a halo row
-  static_assert(THREADS % PAIRS == 0, "a thread keeps one channel pair");
-  const Box box = p.plan.box;
-  const int hx = box.x + 2, hy = box.y + 2, hz = box.z + 2;
-  const int cin = p.cin[0];
-  // this thread's channel pair, its scale and shift in registers
-  const int ch = (threadIdx.x % PAIRS) * 2;
-  const int c = c0 + ch;
-  const bool has_lo = c < cin, has_hi = c + 1 < cin;
-  const float* sc = p.scale + (int64_t)nb * cin;
-  const float* sh = p.shift + (int64_t)nb * cin;
-  const float s_lo = has_lo ? sc[c] : 0.f, t_lo = has_lo ? sh[c] : 0.f;
-  const float s_hi = has_hi ? sc[c + 1] : 0.f, t_hi = has_hi ? sh[c + 1] : 0.f;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int nvox = hz * hy * hx;
-  for (int v = threadIdx.x / PAIRS; v < nvox; v += THREADS / PAIRS) {
-    const int vx = v % hx, vy = (v / hx) % hy, vz = v / (hx * hy);
-    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
-    const bool inside =
-        gz >= 0 && gz < p.z && gy >= 0 && gy < p.y && gx >= 0 && gx < p.x;
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(halo + v * HS + ch);
-    const float2 f = __bfloat1622float2(*d);
-    const __nv_bfloat16 lo = inside && has_lo ? cast_lrelu(f.x * s_lo + t_lo, p.slope) : zero;
-    const __nv_bfloat16 hi = inside && has_hi ? cast_lrelu(f.y * s_hi + t_hi, p.slope) : zero;
-    *d = __halves2bfloat162(lo, hi);
-  }
-}
-
 // Kernel D's stats epilogue: the block's per-channel sum and sum of squares
 // of bf16(acc + bias) over its in-volume voxels, in a fixed order (lanes by
 // shuffles, then warps in turn), written to row blockIdx.x of p.part.
@@ -334,15 +309,15 @@ __device__ __forceinline__ void block_stats(const float (&acc)[MF][NT][4], float
   }
 }
 
-// AFFINE: kernel D's normalize prologue (NIN == 1). STATS: kernel D's
-// epilogue, per-block channel sums of the bf16-rounded, bias-added output
-// (only when the K loop is not split: a split's partial sums are not the
-// output yet, so the caller takes the stats after the split-K reduction).
-// PACKED: the packed conv's addresses (one input, unsplit K).
-template <int NIN, int BN, bool AFFINE, bool STATS, bool PACKED = false>
+// STATS: kernel D's epilogue (its dual form: one input's D runs on the ring
+// body), per-block channel sums of the bf16-rounded, bias-added output (only
+// when the K loop is not split: a split's partial sums are not the output
+// yet, so the caller takes the stats after the split-K reduction). PACKED:
+// the packed conv's addresses (one input, unsplit K).
+template <int NIN, int BN, bool STATS, bool PACKED = false>
 __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
-  static_assert(!AFFINE || NIN == 1, "the prologue reads one input");
-  static_assert(!PACKED || (NIN == 1 && !AFFINE && !STATS), "the packed conv is plain");
+  static_assert(!STATS || NIN == 2, "one input's stats run on the ring body");
+  static_assert(!PACKED || (NIN == 1 && !STATS), "the packed conv is plain");
   constexpr int BNP = BN + 8;
   constexpr int NT = BN / 8;  // n8 tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -400,10 +375,6 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
     load_weights<BN>(wsm, p.w, kc, nblk, p.coutp);
     cp_async_wait_all();
     __syncthreads();
-    if constexpr (AFFINE) {
-      normalize_halo(halo, p, nb, c0, z0, y0, x0);
-      __syncthreads();
-    }
 #pragma unroll 1
     for (int tap = 0; tap < 27; ++tap) {
       const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
@@ -509,10 +480,10 @@ long long stats_workspace_bytes(const Plan& plan, int n, int z, int y, int x, in
   return n * tiles * 2 * cout * (long long)sizeof(float) + red;
 }
 
-template <int NIN, int BN, bool AFFINE, bool STATS, bool PACKED = false>
+template <int NIN, int BN, bool STATS, bool PACKED = false>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<BN>();
-  cudaError_t err = cudaFuncSetAttribute(conv3d_same_kernel<NIN, BN, AFFINE, STATS, PACKED>,
+  cudaError_t err = cudaFuncSetAttribute(conv3d_same_kernel<NIN, BN, STATS, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
@@ -520,7 +491,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       (long long)p.plan.tiles_x * p.plan.tiles_y * p.plan.tiles_z * p.n;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)blocks, p.coutp / BN, p.plan.splits);
-  conv3d_same_kernel<NIN, BN, AFFINE, STATS, PACKED><<<grid, THREADS, smem, stream>>>(p);
+  conv3d_same_kernel<NIN, BN, STATS, PACKED><<<grid, THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.plan.splits == 1) return err;
   const int64_t count = (int64_t)p.n * p.z * p.y * p.x * p.cout;
@@ -542,16 +513,14 @@ cudaError_t finish_stats(const Params& p, float* stats, float* sws, long long sw
                      tiles, 2 * p.cout, stream);
 }
 
-// affine: kernel D's prologue (scale, shift non-null; one input); stats
-// non-null: kernel D's stats output (n, 2, cout) fp32.
+// Kernel A (b null), B, or with stats non-null D's dual form (its stats
+// output (n, 2, cout) fp32) on conv3d_same_kernel.
 int run(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
-        const void* scale, const void* shift, float slope, void* out, void* stats,
-        void* ws, long long ws_bytes, int n, int z, int y, int x, int cout, int coutp,
-        int bn, void* stream) {
-  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp)
+        void* out, void* stats, void* ws, long long ws_bytes, int n, int z, int y, int x,
+        int cout, int coutp, int bn, void* stream) {
+  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp ||
+      (stats != nullptr && b == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool affine = scale != nullptr;
-  if (affine && (shift == nullptr || b != nullptr)) return (int)cudaErrorInvalidValue;
   Params p;
   p.in[0] = static_cast<const __nv_bfloat16*>(a);
   p.in[1] = static_cast<const __nv_bfloat16*>(b);
@@ -569,9 +538,6 @@ int run(const void* a, const void* b, int ca, int cb, const void* w, const void*
   p.cout = cout;
   p.coutp = coutp;
   p.plan = plan_for(n, z, y, x, ca, cb, coutp, bn);
-  p.scale = static_cast<const float*>(scale);
-  p.shift = static_cast<const float*>(shift);
-  p.slope = slope;
   p.part = nullptr;
   const long long split_bytes = workspace_bytes(p.plan, n, z, y, x, cout);
   long long stats_bytes = 0;
@@ -586,25 +552,21 @@ int run(const void* a, const void* b, int ca, int cb, const void* w, const void*
   p.part = sws;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (stats == nullptr) {
-    if (b == nullptr) {
-      err = bn == 32 ? launch<1, 32, false, false>(p, s) : launch<1, 64, false, false>(p, s);
-    } else {
-      err = bn == 32 ? launch<2, 32, false, false>(p, s) : launch<2, 64, false, false>(p, s);
-    }
-  } else if (affine) {
-    err = bn == 32 ? launch<1, 32, true, true>(p, s) : launch<1, 64, true, true>(p, s);
+  if (stats != nullptr) {
+    err = bn == 32 ? launch<2, 32, true>(p, s) : launch<2, 64, true>(p, s);
   } else if (b == nullptr) {
-    err = bn == 32 ? launch<1, 32, false, true>(p, s) : launch<1, 64, false, true>(p, s);
+    err = bn == 32 ? launch<1, 32, false>(p, s) : launch<1, 64, false>(p, s);
   } else {
-    err = bn == 32 ? launch<2, 32, false, true>(p, s) : launch<2, 64, false, true>(p, s);
+    err = bn == 32 ? launch<2, 32, false>(p, s) : launch<2, 64, false>(p, s);
   }
   if (err != cudaSuccess || stats == nullptr) return (int)err;
   return (int)finish_stats(p, static_cast<float*>(stats), sws, stats_bytes, s);
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A's own body (B, D and the packed conv run conv3d_same_kernel above)
+// The ring body: kernel D, and A, B and D's dual form where their plan takes
+// it (the packed conv, and A, B and D's dual form at 16-byte rows with
+// streamed weights and a whole K loop, run conv3d_same_kernel above)
 // ---------------------------------------------------------------------------
 
 constexpr int A_SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
@@ -625,6 +587,26 @@ constexpr int A_THREADS = 2 * A_WARPS_M * 32;
 struct AConfig {
   int g, resident, ksplit;
 };
+
+// What a launch of the body computes: kernel A (one input), B (two inputs,
+// the K loop over a's chunks, then b's), D (one input, the normalize
+// prologue and the stats epilogue) or D's dual form (two inputs, the stats).
+struct AForm {
+  int nin;
+  bool affine, stats;
+};
+constexpr AForm FORM_A{1, false, false}, FORM_B{2, false, false}, FORM_D{1, true, true},
+    FORM_D_DUAL{2, false, true};
+
+// Two inputs with both chunks of their 17-32-channel rows staged at once
+// keep four chunks' weights resident: in 64-byte rows, the 16-byte unit u of
+// row r at u ^ (r / 2 % 4) (every ldmatrix still conflict-free), in place of
+// BN + 8 padded rows: 108 KB in place of 135, so that two stages fit beside
+// them.
+__host__ __device__ constexpr bool a_swizzled(int nin, int bn, int g, bool resident,
+                                              bool ksplit) {
+  return nin == 2 && bn == 32 && g == 2 && resident && !ksplit;
+}
 
 struct APlan {
   bool ring;  // this body; false: conv3d_same_kernel (see make_aplan)
@@ -648,7 +630,72 @@ struct AParams {
   float* ws;  // split-K partials (splits, N*Z*Y*X, Cout), when splits > 1
   int z, y, x, cin, cout, coutp;
   APlan plan;
+  // B and D: input b (NIN == 2; its K chunks follow a's kchunks0), the
+  // prologue's scale and shift (N, Cin) fp32 and slope (AFFINE; null: no
+  // prologue), the stats' per-block partials (N, grid_x, 2, Cout) fp32
+  // (STATS)
+  const __nv_bfloat16* src2;
+  int cin2, kchunks0;
+  const float* scale;
+  const float* shift;
+  float slope;
+  float* part;
 };
+
+// Kernel D's prologue on one staged box, in place: channels [0, width) of
+// every voxel inside the volume become lrelu(bf16(x * scale + shift)) (sc,
+// sh: this sample's scale and shift from the stage's first channel on).
+// Each access is one 16-byte unit of 8 channels of a voxel's row, over the
+// row's `units` units (the staged chunks): units past width take scale and
+// shift 0 and so stay 0, as the staging left them. It walks the box by
+// lines as load_lines stages it: a warp takes a (z, y) line, knows whether
+// it lies in the volume and its clipped x range, and a lane keeps one unit,
+// its scale and shift in registers, with no division a voxel. Voxels
+// outside the volume stay as the copies zero-filled them: the SAME halo
+// reads 0, not lrelu(shift). The arithmetic is cast_lrelu's: x * s + t in
+// fp32, one rounding to bf16, the slope on the bf16 value and one more
+// rounding, taken where the bf16 value's sign bit is set (y >= 0 keeps y;
+// -0 and NaN give the same bits either way).
+template <int NW>
+__device__ __forceinline__ void normalize_lines(__nv_bfloat16* stage, int stride, int units,
+                                                int width, const float* __restrict__ sc,
+                                                const float* __restrict__ sh, float slope,
+                                                int len, int lines, int by, int n_z, int n_y,
+                                                int n_x, int z0, int y0, int x0, int warp,
+                                                int lane) {
+  const int u = lane % units, vpi = 32 / units, j = lane / units;
+  float s[8], t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = u * 8 + e;
+    s[e] = c < width ? sc[c] : 0.f;
+    t[e] = c < width ? sh[c] : 0.f;
+  }
+  const int vlo = max(0, -x0), vhi = min(len, n_x - x0);  // voxels inside along x
+  for (int l = warp; l < lines; l += NW) {
+    const int vz = l / by, vy = l - vz * by;
+    const int gz = z0 + vz, gy = y0 + vy;
+    if (gz < 0 || gz >= n_z || gy < 0 || gy >= n_y) continue;
+    for (int v = vlo + j; v < vhi; v += vpi) {
+      uint4* d = reinterpret_cast<uint4*>(stage + (l * len + v) * stride + u * 8);
+      uint4 raw = *d;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+        __nv_bfloat162 y = __floats2bfloat162_rn(fmaf(f.x, s[2 * e], t[2 * e]),
+                                                 fmaf(f.y, s[2 * e + 1], t[2 * e + 1]));
+        const float2 g = __bfloat1622float2(y);
+        __nv_bfloat162 z = __floats2bfloat162_rn(g.x * slope, g.y * slope);
+        const uint32_t yb = *reinterpret_cast<uint32_t*>(&y);
+        const uint32_t zb = *reinterpret_cast<uint32_t*>(&z);
+        const uint32_t neg = ((yb >> 15) & 0x00010001u) * 0xffffu;  // halves with y < 0
+        w[e] = (yb & ~neg) | (zb & neg);
+      }
+      *d = raw;
+    }
+  }
+}
 
 // Persistent blocks: block (bx, nblk, split) walks tiles bx, bx + gridDim.x,
 // .. for output columns [nblk * BN, + BN) and K chunks [split * per_split,
@@ -659,17 +706,38 @@ struct AParams {
 // stage. Warp w owns voxels [(w % 8) * 32, + 32) of the box and columns
 // [(w / 8) * BN / 2, + BN / 2), or with KSPLIT all BN columns of chunk w / 8
 // of the stage.
-template <int BN, int G, bool RESIDENT, bool KSPLIT>
+//
+// NIN == 2 (kernel B, D's dual form): the K loop runs over a's chunks, then
+// b's, each stage staging its own input's rows (at 30 + 30 channels the
+// stages alternate a, b, a, b). AFFINE (kernel D): the prologue normalizes
+// each stage in place, one stage ahead of the products where the ring has 3
+// stages, else after the stage's barrier with one more barrier. STATS: each
+// warp adds its columns' sums of bf16(acc + bias) over a tile's voxels
+// inside the volume to its own shared-memory slots (no barrier a tile);
+// where a block's walk leaves a sample (tiles are sample-major), the next
+// stage's barrier passes and the slots of its 8 warps are added in a fixed
+// order into row (n, blockIdx.x) of p.part (two sets of slots, so the next
+// sample's tiles add into the other meanwhile); rows of samples the walk
+// skips are 0. No state is carried through the loop for it (registers are
+// at the ring's limit of 128): a tile's set and whether it ends its sample
+// follow from its index. Only with one split: a split's partials are not
+// the output.
+template <int BN, int G, bool RESIDENT, bool KSPLIT, int NIN = 1, bool AFFINE = false,
+          bool STATS = false>
 __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
   static_assert(!KSPLIT || (G == 2 && RESIDENT), "one chunk a warp group");
+  static_assert(!AFFINE || NIN == 1, "the prologue reads one input");
+  static_assert(!KSPLIT || (NIN == 1 && !AFFINE && !STATS), "the K split serves kernel A");
   constexpr int NTHREADS = A_THREADS;
   constexpr int NWARPS = NTHREADS / 32;
+  constexpr bool SWZ = a_swizzled(NIN, BN, G, RESIDENT, KSPLIT);
   constexpr int XS = G * KC + 8;              // halo row stride in bf16: 48 or 80 B
-  constexpr int BNP = BN + 8;                 // weight row stride in bf16
+  constexpr int BNP = SWZ ? BN : BN + 8;      // weight row stride in bf16
   constexpr int WCHUNK = 27 * KC * BNP;       // one chunk's weights in shared memory
   constexpr int NT = BN / 8 / (KSPLIT ? 1 : 2);  // n8 tiles of a warp
   constexpr int NACC = A_MF * NT * 4;         // accumulators of a thread
   static_assert(NT % 2 == 0, "B fragments come in pairs of n8 tiles");
+  static_assert(!SWZ || NT == 2, "a swizzled warp reads one pair of n8 tiles");
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -692,7 +760,9 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
   const int ntile = p.plan.tiles > bx ? (p.plan.tiles - bx + gx - 1) / gx : 0;
   const int nq = ntile * ngrp;
   const int vec = vec_of(cin);
+  const int vec2 = NIN == 2 ? vec_of(p.cin2) : 0;
   const __nv_bfloat16* __restrict__ src = p.src;
+  const __nv_bfloat16* __restrict__ src2 = p.src2;
   const __nv_bfloat16* __restrict__ wsrc = p.w + nblk * BN;
 
   // the corner of this block's k-th tile
@@ -710,7 +780,8 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     const __nv_bfloat16* s = wsrc + (int64_t)kc * 27 * KC * coutp;
     for (int i = threadIdx.x; i < 27 * KC * VPR; i += NTHREADS) {
       const int row = i / VPR, col = (i % VPR) * 8;
-      cp_async16(dst + row * BNP + col, s + (int64_t)row * coutp + col, true);
+      const int dcol = SWZ ? ((col / 8) ^ (row / 2 % 4)) * 8 : col;
+      cp_async16(dst + row * BNP + dcol, s + (int64_t)row * coutp + col, true);
     }
   };
   // stage q (tile q / ngrp, chunk group q % ngrp) into ring stage s
@@ -719,10 +790,15 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     const int kc = k_lo + (q - k * ngrp) * G;
     int nb, z0, y0, x0;
     tile_at(k, nb, z0, y0, x0);
-    const int c0 = kc * KC, width = min(G * KC, cin - c0);
+    // selects, not an indexed input: a runtime index would copy p to local
+    // memory
+    const bool second = NIN == 2 && kc >= p.kchunks0;
+    const int cin_s = second ? p.cin2 : cin;
+    const int c0 = (kc - (second ? p.kchunks0 : 0)) * KC, width = min(G * KC, cin_s - c0);
     __nv_bfloat16* stage = ring + s * stage_elems;
-    load_lines<NWARPS>(stage, XS, src, cin, c0, lane_map(width, vec, lane), hx, hz * hy, hy,
-                       n_z, n_y, n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
+    load_lines<NWARPS>(stage, XS, second ? src2 : src, cin_s, c0,
+                       lane_map(width, second ? vec2 : vec, lane), hx, hz * hy, hy, n_z, n_y,
+                       n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
     // channels past the input's meet zero weight rows, but 0 * NaN is NaN:
     // they are set to 0 here (the stage is free: everyone passed the
     // barrier after its last reads), seen by all after the next barrier
@@ -751,7 +827,9 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     const int vz = m / (box.y * box.x), vy = (m / box.x) % box.y, vx = m % box.x;
     a_row[mi] = ((vz * hy + vy) * hx + vx) * XS + (lane / 16) * 8;
   }
-  const int b_off = (lane % 16) * BNP + (lane / 16) * 8 + ncol;
+  const int b_off =
+      SWZ ? (lane % 16) * BNP + ((ncol / 8 + lane / 16) ^ (lane % 16 / 2 % 4)) * 8
+          : (lane % 16) * BNP + (lane / 16) * 8 + ncol;
 
   float acc[A_MF][NT][4];
 #pragma unroll
@@ -760,6 +838,46 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  // STATS: slots [2][A_WARPS_M][2][BN] fp32 after the resident weights.
+  // The tiles of one sample add into one set, the next
+  // sample's into the other: where the walk steps by more than a sample,
+  // every tile is a sample of its own (set k % 2), else it visits every
+  // sample from its first on (set n % 2)
+  float* slots = reinterpret_cast<float*>(wres + (RESIDENT ? p.plan.kchunks * WCHUNK : 0));
+  auto sample_of = [&](int k) { return (bx + k * gx) / tiles_s; };
+  auto set_of = [&](int k) { return (gx > tiles_s ? k : sample_of(k)) & 1; };
+  auto part_at = [&](int n, int kk, int co) -> float& {
+    return p.part[((int64_t)(n * gx + bx) * 2 + kk) * p.cout + co];
+  };
+  // the sums of tile k's set into row (its sample, bx) of p.part, and the
+  // set back to 0
+  auto flush = [&](int k) {
+    const int nb = sample_of(k);
+    for (int t = threadIdx.x; t < 2 * BN; t += NTHREADS) {
+      const int kk = t / BN, c = t - kk * BN, co = nblk * BN + c;
+      float* slot = slots + (set_of(k) * A_WARPS_M * 2 + kk) * BN + c;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < A_WARPS_M; ++w) {
+        v += slot[w * 2 * BN];
+        slot[w * 2 * BN] = 0.f;
+      }
+      if (co < p.cout) part_at(nb, kk, co) = v;
+    }
+  };
+  if constexpr (STATS) {  // slots to 0; 0 in the rows of the samples the walk skips
+    for (int i = threadIdx.x; i < 2 * A_WARPS_M * 2 * BN; i += NTHREADS) slots[i] = 0.f;
+    const int nsamp = p.plan.tiles / tiles_s;
+    for (int t = threadIdx.x; t < 2 * BN; t += NTHREADS) {
+      const int kk = t / BN, co = nblk * BN + t - kk * BN;
+      if (co >= p.cout) continue;
+      for (int n = 0; n < nsamp; ++n) {
+        const int k = max(0, cdiv(n * tiles_s - bx, gx));  // the first tile at or past n
+        if (k >= ntile || sample_of(k) != n) part_at(n, kk, co) = 0.f;
+      }
+    }
+  }
 
   if constexpr (RESIDENT) {  // one split: all chunks, in the first commit group
     for (int kc = 0; kc < p.plan.kchunks; ++kc) load_wchunk(wres + kc * WCHUNK, kc);
@@ -773,19 +891,58 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
 #pragma unroll 1
   for (int q = 0; q < nq; ++q) {
     // this thread's copies of stage q have landed (the group after it may
-    // still fly with 3 stages), then everyone's have and the stage consumed
-    // last is free
-    if (stages == 3) {
+    // still fly with 3 stages, not where D's prologue runs ahead: see
+    // below), then everyone's have and the stage consumed last is free
+    if constexpr (AFFINE) {
+      if (stages == 3 && p.scale == nullptr) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (stages == 3) {
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    if constexpr (STATS) {  // the last tile's sums are in: flush the sample it ended
+      if (q > 0 && q % ngrp == 0 && sample_of(q / ngrp) != sample_of(q / ngrp - 1))
+        flush(q / ngrp - 1);
+    }
     if (q + stages - 1 < nq) issue(q + stages - 1, (q + stages - 1) % stages);
     cp_async_commit();
     const __nv_bfloat16* halo = ring + (q % stages) * stage_elems;
     const int k = q / ngrp, j = q - k * ngrp;
     const int kc = k_lo + j * G;
+    if constexpr (AFFINE) {
+      // the prologue on stage qq
+      auto normalize = [&](int qq) {
+        const int kk = qq / ngrp;
+        const int c0 = (k_lo + (qq - kk * ngrp) * G) * KC, width = min(G * KC, cin - c0);
+        int nb, z0, y0, x0;
+        tile_at(kk, nb, z0, y0, x0);
+        const float* sc = p.scale + (int64_t)nb * cin + c0;
+        const float* sh = p.shift + (int64_t)nb * cin + c0;
+        normalize_lines<NWARPS>(ring + (qq % stages) * stage_elems, XS, G * KC / 8, width, sc,
+                                sh, p.slope, hx, hz * hy, hy, n_z, n_y, n_x, z0 - 1, y0 - 1,
+                                x0 - 1, warp, lane);
+      };
+      // with 3 stages the prologue runs one stage ahead: on stage q + 1,
+      // landed, while this stage's products run in other warps, so no
+      // barrier waits for it; with 2 stages on stage q, then a barrier
+      if (p.scale != nullptr && stages == 3) {
+        if (q == 0) {  // the first stage before any products
+          normalize(0);
+          if (nq > 1) normalize(1);
+          __syncthreads();
+        } else if (q + 1 < nq) {
+          normalize(q + 1);
+        }
+      } else if (p.scale != nullptr) {
+        normalize(q);
+        __syncthreads();
+      }
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (KSPLIT && g != kgrp) continue;
@@ -874,6 +1031,51 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
         }
       }
     }
+    if constexpr (STATS) {  // this warp's column sums of the tile into its slots
+      float* slot = slots + (set_of(k) * A_WARPS_M + mw) * 2 * BN;
+      const bool full = z0 + box.z <= n_z && y0 + box.y <= n_y && x0 + box.x <= n_x;
+      bool inside[A_MF][2];
+#pragma unroll
+      for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = (mw * A_MF + mi) * 16 + lane / 4 + h * 8;
+          inside[mi][h] = full || (z0 + m / (box.y * box.x) < n_z &&
+                                   y0 + (m / box.x) % box.y < n_y && x0 + m % box.x < n_x);
+        }
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        const int c = ncol + jn * 8 + (lane % 4) * 2, co = nblk * BN + c;
+        const float b0 = p.bias != nullptr && co < p.cout ? p.bias[co] : 0.f;
+        const float b1 = p.bias != nullptr && co + 1 < p.cout ? p.bias[co + 1] : 0.f;
+        float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+        for (int mi = 0; mi < A_MF; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (!inside[mi][h]) continue;
+            const float r0 = __bfloat162float(__float2bfloat16(acc[mi][jn][h * 2] + b0));
+            const float r1 = __bfloat162float(__float2bfloat16(acc[mi][jn][h * 2 + 1] + b1));
+            s0 += r0;
+            q0 += r0 * r0;
+            s1 += r1;
+            q1 += r1 * r1;
+          }
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+          q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+        }
+        if (lane < 4) {
+          slot[c] += s0;
+          slot[c + 1] += s1;
+          slot[BN + c] += q0;
+          slot[BN + c + 1] += q1;
+        }
+      }
+    }
 #pragma unroll
     for (int mi = 0; mi < A_MF; ++mi)
 #pragma unroll
@@ -882,6 +1084,10 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
         for (int e = 0; e < 4; ++e) acc[mi][jn][e] = 0.f;
   }
   cp_async_wait<0>();  // no copy outlives the block
+  if constexpr (STATS) {  // the last sample's sums
+    __syncthreads();
+    if (ntile > 0) flush(ntile - 1);
+  }
 }
 
 using AKernel = void (*)(AParams);
@@ -891,10 +1097,10 @@ struct AEntry {
   AConfig c;
   AKernel fn;
 };
-// G = 2 only with resident weights: a streamed stage of both chunks' weights
-// leaves no room for a second stage. At BN 32 the K split always fits (two
-// stages of the largest halo, the weights and its sums: 212 KB), at BN 64
-// never
+// Kernel A. G = 2 only with resident weights: a streamed stage of both
+// chunks' weights leaves no room for a second stage. At BN 32 the K split
+// always fits (two stages of the largest halo, the weights and its sums: 212
+// KB), at BN 64 never
 const AEntry kAKernels[] = {
     {32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false>},
     {32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false>},
@@ -904,20 +1110,67 @@ const AEntry kAKernels[] = {
     {64, {2, 1, 0}, conv3d_a_kernel<64, 2, true, false>},
 };
 
-AKernel a_kernel(int bn, const AConfig& c) {
-  for (const AEntry& e : kAKernels)
-    if (e.bn == bn && e.c.g == c.g && e.c.resident == c.resident && e.c.ksplit == c.ksplit)
+struct AFormEntry {
+  AForm form;
+  int bn;
+  AConfig c;
+  AKernel fn;
+};
+// B and D. D as A but the K split (at 30 channels the column split fits 3
+// stages, so the prologue runs ahead of the products: 1.69 vs 1.86 ms
+// queued, PERF.md section 6), and without the stats for a split K loop
+// (streamed weights only). B and D's dual form: two inputs of 17-32
+// channels keep their four chunks' weights resident only swizzled with the
+// columns split (K split: 239 KB) and never at BN 64 (248 KB of weights)
+const AFormEntry kFormKernels[] = {
+    {FORM_D, 32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false, 1, true, true>},
+    {FORM_D, 32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false, 1, true, true>},
+    {FORM_D, 32, {2, 1, 0}, conv3d_a_kernel<32, 2, true, false, 1, true, true>},
+    {FORM_D, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 1, true, true>},
+    {FORM_D, 64, {1, 1, 0}, conv3d_a_kernel<64, 1, true, false, 1, true, true>},
+    {FORM_D, 64, {2, 1, 0}, conv3d_a_kernel<64, 2, true, false, 1, true, true>},
+    {{1, true, false}, 32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false, 1, true, false>},
+    {{1, true, false}, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 1, true, false>},
+    {FORM_D_DUAL, 32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false, 2, false, true>},
+    {FORM_D_DUAL, 32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false, 2, false, true>},
+    {FORM_D_DUAL, 32, {2, 1, 0}, conv3d_a_kernel<32, 2, true, false, 2, false, true>},
+    {FORM_D_DUAL, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 2, false, true>},
+    {FORM_D_DUAL, 64, {1, 1, 0}, conv3d_a_kernel<64, 1, true, false, 2, false, true>},
+    {FORM_B, 32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false, 2>},
+    {FORM_B, 32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false, 2>},
+    {FORM_B, 32, {2, 1, 0}, conv3d_a_kernel<32, 2, true, false, 2>},
+    {FORM_B, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 2>},
+    {FORM_B, 64, {1, 1, 0}, conv3d_a_kernel<64, 1, true, false, 2>},
+};
+
+bool same_config(const AConfig& a, const AConfig& b) {
+  return a.g == b.g && a.resident == b.resident && a.ksplit == b.ksplit;
+}
+
+// The instantiation of `form` at (bn, c); null where there is none.
+AKernel a_kernel(const AForm& form, int bn, const AConfig& c) {
+  if (form.nin == 1 && !form.affine && !form.stats) {
+    for (const AEntry& e : kAKernels)
+      if (e.bn == bn && same_config(e.c, c)) return e.fn;
+    return nullptr;
+  }
+  for (const AFormEntry& e : kFormKernels)
+    if (e.form.nin == form.nin && e.form.affine == form.affine && e.form.stats == form.stats &&
+        e.bn == bn && same_config(e.c, c))
       return e.fn;
   return nullptr;
 }
 
 // bytes of dynamic shared memory of a config with `stages` ring stages
-int a_smem(const AConfig& c, const Box& b, int bn, int kchunks, int stages) {
-  const long long wchunk = 27 * KC * (bn + 8);
+int a_smem(const AForm& form, const AConfig& c, const Box& b, int bn, int kchunks, int stages) {
+  const bool swz = a_swizzled(form.nin, bn, c.g, c.resident, c.ksplit);
+  const long long wchunk = 27 * KC * (swz ? bn : bn + 8);
   const long long stage = (long long)(b.z + 2) * (b.y + 2) * (b.x + 2) * (c.g * KC + 8) +
                           (c.resident ? 0 : c.g * wchunk);
   const long long red = c.ksplit ? 2LL * A_WARPS_M * 32 * A_MF * (bn / 8) * 4 : 0;  // fp32
-  const long long bytes = (stages * stage + (c.resident ? kchunks * wchunk : 0) + red) * 2;
+  const long long slots = form.stats ? 2LL * A_WARPS_M * 2 * bn * 2 : 0;           // fp32
+  const long long bytes =
+      (stages * stage + (c.resident ? kchunks * wchunk : 0) + red + slots) * 2;
   return bytes > A_SMEM_MAX ? A_SMEM_MAX + 1 : (int)bytes;
 }
 
@@ -933,39 +1186,50 @@ int a_occupancy(AKernel fn, int threads, int smem) {
   return blocks;
 }
 
-// The plan of a kernel-A call; false where no config fits. Configs in order
-// of preference: both chunks of a 17-32-channel row at once with resident
-// weights, one chunk with resident weights, one chunk with streamed weights;
-// the first that fits a ring of 2 stages (3 where they fit) and needs no
-// split of K (resident weights serve one split). K is split only to fill one
-// wave of blocks, and never into more partial bytes than the input and
-// weights hold. Rows of 16-byte copies (C % 8 == 0) with streamed weights
-// and a whole K loop a block keep conv3d_same_kernel: there its two blocks
-// an SM already overlap one block's copies with the other's products, and
-// on the H100 they ran 1.1-1.25x faster than this ring in one block at 120
-// and 240 channels; with K split (the deep stages' few tiles) the ring ran
-// as fast or faster (PERF.md, section 6).
-bool make_aplan(int n, int z, int y, int x, int cin, int cout, int coutp, int bn, int sms,
-                APlan* out) {
+// The plan of a call of `form` on inputs of ca and cb (0: one input)
+// channels; false where no config fits. Configs in order of preference: both
+// chunks of a 17-32-channel row at once with resident weights (the warp
+// groups splitting K, then the columns), one chunk with resident weights,
+// one chunk with streamed weights; the first that has an instantiation,
+// fits a ring of 2 stages (3 where they fit) and needs no split of K
+// (resident weights serve one split). K is split only to fill one wave of
+// blocks, and never into more partial bytes than the input and weights
+// hold. Rows of 16-byte copies (every input's C % 8 == 0) with streamed
+// weights and a whole K loop a block keep conv3d_same_kernel for kernels A,
+// B and D's dual form: there its two blocks an SM already overlap one
+// block's copies with the other's products, and on the H100 they ran
+// 1.1-1.25x faster than this ring in one block at 120 and 240 channels;
+// with K split (the deep stages' few tiles) the ring ran as fast or faster
+// for one input, not for two (B at 320 + 320: 0.081 vs 0.073 ms), so two
+// inputs keep the older body there too. D takes the ring at every size:
+// queued, 0.152 vs 0.178 ms at 240 channels, 0.330 vs 0.319 at 120 (PERF.md,
+// section 6).
+bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, int cout,
+                int coutp, int bn, int sms, APlan* out) {
   APlan p{};
   p.tiles = (int)(pick_box(z, y, x, &p.box) * n);
   p.tiles_z = cdiv(z, p.box.z);
   p.tiles_y = cdiv(y, p.box.y);
   p.tiles_x = cdiv(x, p.box.x);
-  p.kchunks = cdiv(cin, KC);
+  p.kchunks = cdiv(ca, KC) + cdiv(cb, KC);
   const int nblk = coutp / bn;
   const long long work = (long long)p.tiles * nblk;
   const long long vox = (long long)n * z * y * x;
-  const long long in_bytes = vox * cin * 2 + (long long)p.kchunks * 27 * KC * coutp * 2;
+  const long long in_bytes =
+      vox * (ca + cb) * 2 + (long long)p.kchunks * 27 * KC * coutp * 2;
   const long long part_bytes = vox * cout * 4;  // one split's partials
+  const bool narrow = ca > KC && ca <= 2 * KC && (form.nin == 1 || (cb > KC && cb <= 2 * KC));
+  const bool rows16 = ca % 8 == 0 && cb % 8 == 0;
   const AConfig order[] = {{2, 1, 1}, {2, 1, 0}, {1, 1, 0}, {1, 0, 0}};
   for (AConfig c : order) {
-    if (c.g == 2 && !(cin > KC && cin <= 2 * KC)) continue;
+    if (c.g == 2 && !narrow) continue;
+    const AKernel fn = a_kernel(form, bn, c);
+    if (fn == nullptr) continue;
     int stages = 3;
-    while (stages >= 2 && a_smem(c, p.box, bn, p.kchunks, stages) > A_SMEM_MAX) --stages;
+    while (stages >= 2 && a_smem(form, c, p.box, bn, p.kchunks, stages) > A_SMEM_MAX) --stages;
     if (stages < 2) continue;
-    const int smem = a_smem(c, p.box, bn, p.kchunks, stages);
-    const int bps = a_occupancy(a_kernel(bn, c), A_THREADS, smem);
+    const int smem = a_smem(form, c, p.box, bn, p.kchunks, stages);
+    const int bps = a_occupancy(fn, A_THREADS, smem);
     if (bps < 1) continue;
     const long long slots = (long long)bps * sms;
     long long splits = 1;
@@ -978,7 +1242,12 @@ bool make_aplan(int n, int z, int y, int x, int cin, int cout, int coutp, int bn
       if (splits < 1) splits = 1;
     }
     if (c.resident && splits > 1) continue;
-    p.ring = c.resident || cin % 8 != 0 || splits > 1;
+    // a split K loop launches the form without its stats (taken after the
+    // reduce): that instantiation needs the same shared memory
+    if (splits > 1 && form.stats &&
+        a_occupancy(a_kernel({form.nin, form.affine, false}, bn, c), A_THREADS, smem) < 1)
+      continue;
+    p.ring = c.resident || !rows16 || form.affine || (splits > 1 && form.nin == 1);
     p.cfg = c;
     p.per_split = cdiv(cdiv(p.kchunks, c.g), (int)splits) * c.g;
     p.splits = cdiv(p.kchunks, p.per_split);
@@ -998,20 +1267,52 @@ long long a_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int c
   return (long long)plan.splits * n * z * y * x * cout * (long long)sizeof(float);
 }
 
-int run_a(const void* x, const void* w, const void* bias, void* out, void* ws,
-          long long ws_bytes, int n, int z, int y, int xd, int cin, int cout, int coutp, int bn,
-          void* stream) {
-  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp || cin <= 0)
+// The stats' area of a ring call, after the split-K partials: without a
+// split, the per-block partials (N, grid_x, 2, Cout) and reduce_rows'
+// workspace; with one, channel_stats'.
+long long a_stats_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int cout) {
+  if (plan.splits > 1) return channel_stats_workspace(n, (long long)z * y * x, cout);
+  const long long red = reduce_rows_workspace(n, plan.grid_x, 2 * cout);
+  if (red < 0) return -1;
+  return (long long)n * plan.grid_x * 2 * cout * (long long)sizeof(float) + red;
+}
+
+// The plan a call of `form` takes; false for sizes the kernels do not take.
+bool plan_of(const AForm& form, int n, int z, int y, int xd, int ca, int cb, int cout,
+             int coutp, int bn, APlan* plan) {
+  return bn > 0 && coutp % bn == 0 &&
+         make_aplan(form, n, z, y, xd, ca, cb, cout, coutp, bn, sm_count(), plan);
+}
+
+// A call of `form` (kernel A, B, D or D's dual form): on the ring body
+// where its plan takes it, else on conv3d_same_kernel. b null: one input;
+// scale, shift (D) may be null (no prologue); stats (N, 2, Cout) fp32 for D.
+int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, const void* w,
+             const void* bias, const void* scale, const void* shift, float slope, void* out,
+             void* stats, void* ws, long long ws_bytes, int n, int z, int y, int xd, int cout,
+             int coutp, int bn, void* stream) {
+  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp || ca <= 0 ||
+      (form.nin == 2) != (b != nullptr && cb > 0) || form.stats != (stats != nullptr) ||
+      (!form.affine && scale != nullptr) || (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
   AParams p{};
-  if (!make_aplan(n, z, y, xd, cin, cout, coutp, bn, sm_count(), &p.plan))
+  if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &p.plan))
     return (int)cudaErrorInvalidConfiguration;
   if (!p.plan.ring)
-    return run(x, nullptr, cin, 0, w, bias, nullptr, nullptr, 0.f, out, nullptr, ws, ws_bytes,
-               n, z, y, xd, cout, coutp, bn, stream);
-  const long long need = a_workspace_bytes(p.plan, n, z, y, xd, cout);
-  if (ws_bytes < need || (need > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  p.src = static_cast<const __nv_bfloat16*>(x);
+    return run(a, b, ca, cb, w, bias, out, stats, ws, ws_bytes, n, z, y, xd, cout, coutp, bn,
+               stream);
+  const long long split_bytes = a_workspace_bytes(p.plan, n, z, y, xd, cout);
+  const long long stats_bytes =
+      form.stats ? a_stats_workspace_bytes(p.plan, n, z, y, xd, cout) : 0;
+  if (stats_bytes < 0 || ws_bytes < split_bytes + stats_bytes ||
+      (split_bytes + stats_bytes > 0 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the stats epilogue runs only with one split; a split's stats are taken
+  // over the reduced output
+  const AForm launched{form.nin, form.affine, form.stats && p.plan.splits == 1};
+  const AKernel fn = a_kernel(launched, bn, p.plan.cfg);
+  if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
+  p.src = static_cast<const __nv_bfloat16*>(a);
   p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -1019,21 +1320,36 @@ int run_a(const void* x, const void* w, const void* bias, void* out, void* ws,
   p.z = z;
   p.y = y;
   p.x = xd;
-  p.cin = cin;
+  p.cin = ca;
   p.cout = cout;
   p.coutp = coutp;
+  p.src2 = static_cast<const __nv_bfloat16*>(b);
+  p.cin2 = cb;
+  p.kchunks0 = cdiv(ca, KC);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.slope = slope;
+  float* sws = static_cast<float*>(ws) + split_bytes / (long long)sizeof(float);
+  p.part = sws;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(p.plan.grid_x, coutp / bn, p.plan.splits);
   void* args[] = {&p};
-  cudaError_t err =
-      cudaLaunchKernel(reinterpret_cast<const void*>(a_kernel(bn, p.plan.cfg)), grid,
-                       dim3(A_THREADS), args, p.plan.smem, s);
-  if (err != cudaSuccess || p.plan.splits == 1) return (int)err;
-  const int64_t count = (int64_t)n * z * y * xd * cout;
-  const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<rblocks, 256, 0, s>>>(p.ws, p.bias, p.out, count, cout,
-                                                p.plan.splits);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
+                                     dim3(A_THREADS), args, p.plan.smem, s);
+  if (err != cudaSuccess) return (int)err;
+  if (p.plan.splits > 1) {
+    const int64_t count = (int64_t)n * z * y * xd * cout;
+    const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+    splitk_reduce_kernel<<<rblocks, 256, 0, s>>>(p.ws, p.bias, p.out, count, cout,
+                                                  p.plan.splits);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || !form.stats) return (int)err;
+  float* st = static_cast<float*>(stats);
+  if (p.plan.splits > 1)
+    return (int)channel_stats(p.out, st, sws, stats_bytes, n, (long long)z * y * xd, cout, s);
+  const long long rows = (long long)n * p.plan.grid_x * 2 * cout;
+  return (int)reduce_rows(p.part, st, p.part + rows, n, p.plan.grid_x, 2 * cout, s);
 }
 
 }  // namespace
@@ -1041,41 +1357,48 @@ int run_a(const void* x, const void* w, const void* bias, void* out, void* ws,
 extern "C" {
 
 // Bytes of fp32 workspace a call with these sizes needs (0: no split-K; -1:
-// sizes the kernel does not take). cb is 0 for kernel A (its own plan),
-// else kernel B's.
+// sizes the kernel does not take): kernel A's (cb 0) or B's, with the plan
+// the launch takes.
 long long mt_conv3d_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
                               int coutp, int bn) {
-  if (bn <= 0 || coutp % bn != 0) return -1;
-  if (cb == 0) {
-    APlan plan;
-    if (!make_aplan(n, z, y, xd, ca, cout, coutp, bn, sm_count(), &plan)) return -1;
-    if (plan.ring) return a_workspace_bytes(plan, n, z, y, xd, cout);
-  }
+  APlan plan;
+  if (!plan_of(cb > 0 ? FORM_B : FORM_A, n, z, y, xd, ca, cb, cout, coutp, bn, &plan))
+    return -1;
+  if (plan.ring) return a_workspace_bytes(plan, n, z, y, xd, cout);
   return workspace_bytes(plan_for(n, z, y, xd, ca, cb, coutp, bn), n, z, y, xd, cout);
 }
 
-// Bytes of fp32 workspace a kernel-D call (with stats) needs; -1: sizes it
-// does not take. cb is 0 for the single-input form.
+// Bytes of fp32 workspace a kernel-D call (with stats) needs, with the plan
+// the launch takes; -1: sizes it does not take. cb is 0 for the
+// single-input form.
 long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
                                     int coutp, int bn) {
-  if (bn <= 0 || coutp % bn != 0) return -1;
+  APlan ap;
+  if (!plan_of(cb > 0 ? FORM_D_DUAL : FORM_D, n, z, y, xd, ca, cb, cout, coutp, bn, &ap))
+    return -1;
+  if (ap.ring) {
+    const long long st = a_stats_workspace_bytes(ap, n, z, y, xd, cout);
+    return st < 0 ? -1 : a_workspace_bytes(ap, n, z, y, xd, cout) + st;
+  }
   const Plan plan = plan_for(n, z, y, xd, ca, cb, coutp, bn);
   const long long st = stats_workspace_bytes(plan, n, z, y, xd, cout);
   if (st < 0) return -1;
   return workspace_bytes(plan, n, z, y, xd, cout) + st;
 }
 
-// Kernel A's plan at these sizes into plan[0..9): this body (1) or
-// conv3d_same_kernel's (0, which ignores the rest), G (chunks staged at once),
-// weights resident (1) or streamed (0), the two warp groups splitting K (1)
-// or N (0), ring
-// stages, K splits, blocks along the tiles, blocks an SM, dynamic shared
-// memory bytes. Returns 0, or -1 for sizes the kernel does not take.
-int mt_conv3d_same_plan(int n, int z, int y, int xd, int cin, int cout, int coutp, int bn,
-                        int* plan) {
+// The plan of a call of form 0 (kernel A), 1 (B), 2 (D) or 3 (D's dual
+// form; cb 0 for the single-input forms) at these sizes into plan[0..9):
+// the ring body (1) or conv3d_same_kernel (0; the rest then describes the
+// ring it declined), G (chunks staged at once), weights resident (1) or
+// streamed (0), the two warp groups splitting K (1) or N (0), ring stages,
+// K splits, blocks along the tiles, blocks an SM, dynamic shared memory
+// bytes. Returns 0, or -1 for sizes the kernels do not take.
+int mt_conv3d_same_plan(int form, int n, int z, int y, int xd, int ca, int cb, int cout,
+                        int coutp, int bn, int* plan) {
+  const AForm forms[] = {FORM_A, FORM_B, FORM_D, FORM_D_DUAL};
   APlan p;
-  if (bn <= 0 || coutp % bn != 0 || !make_aplan(n, z, y, xd, cin, cout, coutp, bn,
-                                                 sm_count(), &p))
+  if (form < 0 || form > 3 || (forms[form].nin == 2) != (cb > 0) ||
+      !plan_of(forms[form], n, z, y, xd, ca, cb, cout, coutp, bn, &p))
     return -1;
   const int v[] = {p.ring,   p.cfg.g, p.cfg.resident,  p.cfg.ksplit, p.stages,
                    p.splits, p.grid_x, p.blocks_per_sm, p.smem};
@@ -1087,7 +1410,8 @@ int mt_conv3d_same_plan(int n, int z, int y, int xd, int cin, int cout, int cout
 int mt_conv3d_same(const void* x, const void* w, const void* bias, void* out, void* ws,
                    long long ws_bytes, int n, int z, int y, int xd, int cin, int cout,
                    int coutp, int bn, void* stream) {
-  return run_a(x, w, bias, out, ws, ws_bytes, n, z, y, xd, cin, cout, coutp, bn, stream);
+  return run_form(FORM_A, x, nullptr, cin, 0, w, bias, nullptr, nullptr, 0.f, out, nullptr,
+                  ws, ws_bytes, n, z, y, xd, cout, coutp, bn, stream);
 }
 
 // Kernel B: the conv over concat(a, b) along channels, concat never built.
@@ -1095,8 +1419,9 @@ int mt_conv3d_same_dual(const void* a, const void* b, const void* w, const void*
                         void* out, void* ws, long long ws_bytes, int n, int z, int y,
                         int xd, int ca, int cb, int cout, int coutp, int bn,
                         void* stream) {
-  return run(a, b, ca, cb, w, bias, nullptr, nullptr, 0.f, out, nullptr, ws, ws_bytes, n,
-             z, y, xd, cout, coutp, bn, stream);
+  if (b == nullptr || cb <= 0) return (int)cudaErrorInvalidValue;
+  return run_form(FORM_B, a, b, ca, cb, w, bias, nullptr, nullptr, 0.f, out, nullptr, ws,
+                  ws_bytes, n, z, y, xd, cout, coutp, bn, stream);
 }
 
 // Kernel D: out = conv(lrelu(bf16(x * scale + shift))) + bias with the SAME
@@ -1109,8 +1434,8 @@ int mt_conv3d_same_affine(const void* x, const void* w, const void* bias,
                           int xd, int cin, int cout, int coutp, int bn, void* stream) {
   if (stats == nullptr || (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
-  return run(x, nullptr, cin, 0, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n,
-             z, y, xd, cout, coutp, bn, stream);
+  return run_form(FORM_D, x, nullptr, cin, 0, w, bias, scale, shift, slope, out, stats, ws,
+                  ws_bytes, n, z, y, xd, cout, coutp, bn, stream);
 }
 
 // Kernel D, dual form: kernel B's conv over concat(a, b) with D's stats.
@@ -1118,9 +1443,9 @@ int mt_conv3d_same_dual_stats(const void* a, const void* b, const void* w,
                               const void* bias, void* out, void* stats, void* ws,
                               long long ws_bytes, int n, int z, int y, int xd, int ca,
                               int cb, int cout, int coutp, int bn, void* stream) {
-  if (stats == nullptr || b == nullptr) return (int)cudaErrorInvalidValue;
-  return run(a, b, ca, cb, w, bias, nullptr, nullptr, 0.f, out, stats, ws, ws_bytes, n, z,
-             y, xd, cout, coutp, bn, stream);
+  if (stats == nullptr || b == nullptr || cb <= 0) return (int)cudaErrorInvalidValue;
+  return run_form(FORM_D_DUAL, a, b, ca, cb, w, bias, nullptr, nullptr, 0.f, out, stats, ws,
+                  ws_bytes, n, z, y, xd, cout, coutp, bn, stream);
 }
 
 // The packed conv: x (n, z, y/fy, x/fx, fy*fx*c) packed, groups (ngroups <= 4
@@ -1152,9 +1477,6 @@ int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups,
   p.plan = plan_for(n, z, y, xd, c, 0, coutp, bn);
   p.plan.splits = 1;  // unsplit K: the output is written packed
   p.plan.per_split = p.nchunks0;
-  p.scale = nullptr;
-  p.shift = nullptr;
-  p.slope = 0.f;
   p.part = nullptr;
   p.fy = fy;
   p.fx = fx;
@@ -1170,8 +1492,8 @@ int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups,
   }
   if (base != c) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bn == 32 ? launch<1, 32, false, false, true>(p, s)
-                        : launch<1, 64, false, false, true>(p, s));
+  return (int)(bn == 32 ? launch<1, 32, false, true>(p, s)
+                        : launch<1, 64, false, true>(p, s));
 }
 
 const char* mt_error_string(int code) {

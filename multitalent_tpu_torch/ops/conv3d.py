@@ -215,6 +215,17 @@ def _check_weight(pw: PreparedWeight, splits: tuple[int, ...],
                              "tensor on the input's device")
 
 
+def _buffer(given: torch.Tensor | None, name: str, shape: tuple, dtype: torch.dtype,
+            dev: torch.device) -> torch.Tensor:
+    """The caller's output buffer `given`, checked, or a new one."""
+    if given is None:
+        return torch.empty(shape, dtype=dtype, device=dev)
+    if (given.dtype != dtype or tuple(given.shape) != shape or given.device != dev
+            or not given.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {dtype} {shape} tensor on {dev}")
+    return given
+
+
 def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
             bias: torch.Tensor | None, out: torch.Tensor | None = None) -> torch.Tensor:
     """Run C entry `name` on checked inputs into `out` (or a new output);
@@ -225,12 +236,7 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
     dev = inputs[0].device
     n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
     cs = [int(t.shape[-1]) for t in inputs]
-    shape = (n, z, y, xd, pw.cout)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
-    elif (out.dtype != torch.bfloat16 or tuple(out.shape) != shape or out.device != dev
-          or not out.is_contiguous()):
-        raise ValueError(f"out: expected a contiguous bfloat16 {shape} tensor on {dev}")
+    out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.bfloat16, dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
@@ -272,12 +278,16 @@ conv3d_same.launches = 0
 
 A_PLAN_KEYS = ("ring", "g", "resident", "ksplit", "stages", "splits", "grid_x",
                "blocks_per_sm", "smem_bytes")
+# the calls a plan is asked for: kernel A, B, D, D's dual form
+PLAN_FORMS = ("a", "b", "d", "d_dual")
 
 
-def conv3d_same_plan(n: int, z: int, y: int, x: int, cin: int, cout: int) -> dict:
-    """Kernel A's plan on the current card at these sizes: whether it runs
-    its ring body (1) or the body B and D share (0: 16-byte rows with
-    streamed weights and a whole K loop a block; the other keys then
+def conv3d_same_plan(n: int, z: int, y: int, x: int, cin, cout: int, form: str = "a") -> dict:
+    """The plan of a call of kernel A (form "a"), B ("b"), D ("d") or D's
+    dual form ("d_dual") on the current card at these sizes; cin is the
+    input's channels, or (Ca, Cb) for the two-input forms. Whether it runs
+    the ring body (1) or the older body of two blocks an SM (0: 16-byte rows
+    with streamed weights and a whole K loop a block; the other keys then
     describe the ring it declined),
     input chunks staged at once (g), weights resident or streamed, its two
     8-warp groups splitting the K chunks (ksplit) or the columns, ring
@@ -287,22 +297,27 @@ def conv3d_same_plan(n: int, z: int, y: int, x: int, cin: int, cout: int) -> dic
     import ctypes
 
     from multitalent_tpu_torch import _build
+    if form not in PLAN_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {PLAN_FORMS}")
+    ca, cb = (cin, 0) if isinstance(cin, int) else (int(cin[0]), int(cin[1]))
     bn = _block_n(cout)
     plan = (ctypes.c_int * len(A_PLAN_KEYS))()
-    if _build.library().mt_conv3d_same_plan(n, z, y, x, cin, cout, -(-cout // bn) * bn, bn,
-                                            plan) != 0:
-        raise ValueError(f"kernel A does not take sizes {(n, z, y, x, cin, cout)}")
+    if _build.library().mt_conv3d_same_plan(PLAN_FORMS.index(form), n, z, y, x, ca, cb, cout,
+                                            -(-cout // bn) * bn, bn, plan) != 0:
+        raise ValueError(f"form {form!r} does not take sizes {(n, z, y, x, cin, cout)}")
     return dict(zip(A_PLAN_KEYS, plan))
 
 
 def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
-                     bias: torch.Tensor | None = None) -> torch.Tensor:
+                     bias: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel B: conv3d_same over concat(a, b) along channels (order [a | b],
-    as torch.cat((a, b), 1) in NCDHW), without building the concat.
+    as torch.cat((a, b), 1) in NCDHW), without building the concat, written
+    into `out` where given.
 
     CUDA tensors launch the kernel; CPU tensors take conv3d_same_dual_ref."""
     if a.device.type == "cpu":
-        return conv3d_same_dual_ref(a, b, unprepare_conv3d_weight(pw), bias)
+        return into(out, conv3d_same_dual_ref(a, b, unprepare_conv3d_weight(pw), bias))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_dual: unsupported device {a.device}")
     _check_input(a, "a", a)
@@ -311,7 +326,7 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
                          "outside the channel axis")
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
-    out = _launch("mt_conv3d_same_dual", [a, b], pw, bias)
+    out = _launch("mt_conv3d_same_dual", [a, b], pw, bias, out)
     conv3d_same_dual.launches += 1
     return out
 
@@ -413,18 +428,19 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
 
 
 def _launch_stats(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
-                  bias: torch.Tensor | None, affine: tuple = ()
+                  bias: torch.Tensor | None, affine: tuple = (),
+                  out: torch.Tensor | None = None, stats: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run kernel D's C entry `name`: allocates the output, the stats and the
-    workspace (split-K partials, per-block stats partials) the library
-    reports. `affine` is (scale, shift, slope) for the prologue."""
+    """Run kernel D's C entry `name` into `out` and `stats` (or new ones):
+    allocates the workspace (split-K partials, per-block stats partials) the
+    library reports. `affine` is (scale, shift, slope) for the prologue."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
     n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
     cs = [int(t.shape[-1]) for t in inputs]
-    out = torch.empty((n, z, y, xd, pw.cout), dtype=torch.bfloat16, device=dev)
-    stats = torch.empty((n, 2, pw.cout), dtype=torch.float32, device=dev)
+    out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.bfloat16, dev)
+    stats = _buffer(stats, "stats", (n, 2, pw.cout), torch.float32, dev)
     if out.numel() == 0:
         return out, stats.zero_()
     with torch.cuda.device(dev):
@@ -456,18 +472,22 @@ def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
                        bias: torch.Tensor | None = None,
                        scale: torch.Tensor | None = None,
                        shift: torch.Tensor | None = None,
-                       negative_slope: float = 1e-2
+                       negative_slope: float = 1e-2,
+                       out: torch.Tensor | None = None,
+                       stats: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel D: (out, stats) = (conv(lrelu(bf16(x * scale + shift))) + bias,
     its per-sample channel sum and sum of squares (N, 2, Cout) fp32) for the
     previous conv's raw output x (N, Z, Y, X, Cin) and the next norm's scale,
     shift (N, Cin) fp32; without scale and shift, conv(x) + bias and its
-    stats. out is bf16, the stats are taken over its rounded values.
+    stats. out is bf16, the stats are taken over its rounded values. Both are
+    written into the caller's `out` and `stats` where given.
 
     CUDA tensors launch the kernel; CPU tensors take conv3d_same_affine_ref."""
     if x.device.type == "cpu":
-        return conv3d_same_affine_ref(x, unprepare_conv3d_weight(pw), bias, scale, shift,
-                                      negative_slope)
+        ref, ref_stats = conv3d_same_affine_ref(x, unprepare_conv3d_weight(pw), bias, scale,
+                                                shift, negative_slope)
+        return into(out, ref), into(stats, ref_stats)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_affine: unsupported device {x.device}")
     _check_input(x, "x", x)
@@ -480,26 +500,30 @@ def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
                               or v.device != x.device or not v.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 ({n}, {cin}) tensor "
                              f"on {x.device}")
-    out = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
-                        (scale, shift, negative_slope))
+    result = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
+                           (scale, shift, negative_slope), out, stats)
     conv3d_same_affine.launches += 1
-    return out
+    return result
 
 
 conv3d_same_affine.launches = 0
 
 
 def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
-                           bias: torch.Tensor | None = None
+                           bias: torch.Tensor | None = None,
+                           out: torch.Tensor | None = None,
+                           stats: torch.Tensor | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel D, dual form: kernel B's conv over concat(a, b) and the stats of
-    its bf16 output, (out, stats (N, 2, Cout) fp32). Its launches count on
+    its bf16 output, (out, stats (N, 2, Cout) fp32), written into the
+    caller's `out` and `stats` where given. Its launches count on
     `conv3d_same_affine.launches`, as one kernel.
 
     CUDA tensors launch the kernel; CPU tensors take
     conv3d_same_dual_stats_ref."""
     if a.device.type == "cpu":
-        return conv3d_same_dual_stats_ref(a, b, unprepare_conv3d_weight(pw), bias)
+        ref, ref_stats = conv3d_same_dual_stats_ref(a, b, unprepare_conv3d_weight(pw), bias)
+        return into(out, ref), into(stats, ref_stats)
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_dual_stats: unsupported device {a.device}")
     _check_input(a, "a", a)
@@ -508,9 +532,9 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
                          "outside the channel axis")
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
-    out = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias)
+    result = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias, (), out, stats)
     conv3d_same_affine.launches += 1
-    return out
+    return result
 
 
 # ---------------------------------------------------------------------------

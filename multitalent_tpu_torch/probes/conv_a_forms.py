@@ -1,19 +1,27 @@
-"""Kernel A (the SAME 3x3x3 conv and every dx) in the forms its plan chooses
-between, timed side by side on the H100.
+"""Kernels A (the SAME 3x3x3 conv and every dx), B (the conv over a concat)
+and D (the fused conv -> norm conv, and its dual form) in the forms their
+plan chooses between, timed side by side on the H100.
 
 Builds forms of `csrc/conv3d_same.cu` of this package (or of another
 checkout's, `--tree`): the source as it is, and `ring_everywhere`, where
-every shape runs the ring body (as it is, 16-byte rows with streamed weights
-and a whole K loop a block run the body B and D share). `--against DIR`
-adds another checkout's source as it is (e.g. the parent commit's). Each
-form is the source patched as text and built by nvcc, with fused_norm.cu,
-into a library of its own under `_build/conv_a_forms/`; every form is
-checked against the plain version, then timed at kernel A's phase-2 shapes
-of chip_smoke.py (the forward's six at N=1 and at the training batch, and
-the dual convs' dx), each as a call queued behind others (the card's time,
-the host's cost hidden), in turns (forms in order, then in reverse; the
-lesser of the two). It also prints ptxas's registers and spills for the
-conv kernels of each source (and kernel C's, which shares A's loader).
+every shape runs the ring body (as it is, A, B and D's dual form at 16-byte
+rows with streamed weights and a whole K loop a block run the older body of
+two blocks an SM).
+`--against DIR` adds another checkout's source as it is (e.g. the parent
+commit's). Each form is the source patched as text and built by nvcc, with
+fused_norm.cu, into a library of its own under `_build/conv_a_forms/`; every
+form is checked against the plain version (D's stats too), then timed at
+the kernels' phase-2 shapes of chip_smoke.py (A: the forward's six at N=1
+and at the training batch, and the dual convs' dx; B: the forward's five at
+N=1; D: A's six and, dual, B's five, at N=1 and at the training batch), each
+as a call queued behind others (the card's time, the host's cost hidden) and
+as single calls (CUDA events around one call, as chip_smoke's phase 2), in
+turns (forms in order, then in reverse; the lesser of the two), with the
+host's time a call: the C entry's (its plan and launch) and its workspace
+query's, each over calls issued back to back. Kernel A's
+output must be bit-equal to the `--against` checkout's at every A shape.
+It also prints ptxas's registers and spills for the conv kernels of each
+source (and kernel C's, which shares A's loader).
 
     python -m multitalent_tpu_torch.probes.conv_a_forms [--tree DIR] [--against DIR]
         [--out JSON]
@@ -29,6 +37,7 @@ import hashlib
 import json
 import re
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -37,7 +46,7 @@ from multitalent_tpu_torch import _build
 from multitalent_tpu_torch.probes import _util
 from multitalent_tpu_torch.probes.wgrad_forms import queued_ms
 
-RING = "p.ring = c.resident || cin % 8 != 0 || splits > 1;"
+RING = "p.ring = c.resident || !rows16 || form.affine || (splits > 1 && form.nin == 1);"
 FORMS = ("whole", "ring_everywhere")
 # (N, spatial, Cin, Cout) of kernel A's launches in the flagship's forward
 # (N=1) and training step (N=2: forwards, and the dual convs' dx)
@@ -45,18 +54,31 @@ A_SHAPES = [(1, (96, 192, 192), 30, 30), (1, (48, 96, 96), 60, 60), (1, (24, 48,
             (1, (12, 24, 24), 240, 240), (1, (6, 12, 12), 320, 320), (1, (6, 6, 6), 320, 320)]
 SHAPES = (A_SHAPES + [(2, sp, ci, co) for _, sp, ci, co in A_SHAPES]
           + [(2, sp, c, 2 * c) for _, sp, c, _ in A_SHAPES[:5]])
+# (kernel, N, spatial, input channels, Cout) of B's and D's phase-2 shapes:
+# B at the forward's five (N=1); D at A's six and its dual form at B's five,
+# at N=1 and the training batch
+BD_SHAPES = ([("b", 1, sp, (c, c), c) for _, sp, c, _ in A_SHAPES[:5]]
+             + [("d", n, sp, (c,), c) for n in (1, 2) for _, sp, c, _ in A_SHAPES]
+             + [("d_dual", n, sp, (c, c), c) for n in (1, 2) for _, sp, c, _ in A_SHAPES[:5]])
 RTOL, ATOL = 1e-2, 1e-2  # chip_smoke's phase-2 bound
-ENTRIES = ("mt_conv3d_same", "mt_conv3d_workspace")
+STATS_RTOL = 1e-3        # chip_smoke's bound on D's stats
+HOST_CALLS = 50          # calls a host time is taken over
+ENTRIES = ("mt_conv3d_same", "mt_conv3d_workspace", "mt_conv3d_same_dual",
+           "mt_conv3d_same_affine", "mt_conv3d_same_dual_stats", "mt_conv3d_stats_workspace")
 
 
 def form_source(text: str, form: str) -> str:
-    """Kernel A's source as `form`; raises where the source has not the one
-    line the patch of `ring_everywhere` replaces."""
-    if form == "whole":
+    """The source as `form`; raises where the source has not the one piece
+    of text the form's patch replaces."""
+    patches = {"whole": None, "ring_everywhere": (RING, "p.ring = true;")}
+    if form not in patches:
+        raise ValueError(f"form {form!r}: expected one of {tuple(patches)}")
+    if patches[form] is None:
         return text
-    if form != "ring_everywhere" or text.count(RING) != 1:
-        raise ValueError(f"form {form!r}: expected one `{RING}` in kernel A's source")
-    return text.replace(RING, "p.ring = true;")
+    old, new = patches[form]
+    if text.count(old) != 1:
+        raise ValueError(f"form {form!r}: expected one `{old}` in the source")
+    return text.replace(old, new)
 
 
 def _nvcc(args: list[str]) -> subprocess.Popen:
@@ -135,7 +157,10 @@ def _launcher(lib: ctypes.CDLL, x: torch.Tensor, pw, bias: torch.Tensor, out: to
     """A call of `lib`'s kernel A on x into out, with the workspace it asks
     for."""
     n, z, y, xd, cin = (int(s) for s in x.shape)
-    nbytes = lib.mt_conv3d_workspace(n, z, y, xd, cin, 0, pw.cout, pw.coutp, pw.bn)
+
+    def workspace() -> int:
+        return lib.mt_conv3d_workspace(n, z, y, xd, cin, 0, pw.cout, pw.coutp, pw.bn)
+    nbytes = workspace()
     ws = torch.empty(max(nbytes, 4) // 4, dtype=torch.float32, device=x.device)
 
     def call() -> torch.Tensor:
@@ -145,7 +170,128 @@ def _launcher(lib: ctypes.CDLL, x: torch.Tensor, pw, bias: torch.Tensor, out: to
         if code:
             raise RuntimeError(f"kernel A failed: CUDA error {code}")
         return out
+    call.workspace = workspace
     return call
+
+
+def _bd_launcher(lib: ctypes.CDLL, kernel: str, ins: list, pw, bias: torch.Tensor, affine,
+                 out: torch.Tensor, stats: torch.Tensor):
+    """A call of `lib`'s kernel B ("b"), D ("d", affine = (scale, shift)) or
+    D's dual form ("d_dual") on ins into out (and stats), with the workspace
+    it asks for."""
+    n, z, y, xd = (int(s) for s in ins[0].shape[:4])
+    cs = [int(t.shape[-1]) for t in ins]
+    ca, cb = cs[0], sum(cs[1:])
+    size = lib.mt_conv3d_workspace if kernel == "b" else lib.mt_conv3d_stats_workspace
+
+    def workspace() -> int:
+        return size(n, z, y, xd, ca, cb, pw.cout, pw.coutp, pw.bn)
+    nbytes = workspace()
+    ws = torch.empty(max(nbytes, 4) // 4, dtype=torch.float32, device=out.device)
+    ptrs = [t.data_ptr() for t in ins]
+    sizes = (n, z, y, xd, *cs, pw.cout, pw.coutp, pw.bn)
+
+    def call():
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        if kernel == "b":
+            code = lib.mt_conv3d_same_dual(*ptrs, pw.w.data_ptr(), bias.data_ptr(),
+                                           out.data_ptr(), ws.data_ptr(), nbytes, *sizes, stream)
+        elif kernel == "d":
+            code = lib.mt_conv3d_same_affine(
+                *ptrs, pw.w.data_ptr(), bias.data_ptr(), affine[0].data_ptr(),
+                affine[1].data_ptr(), 1e-2, out.data_ptr(), stats.data_ptr(), ws.data_ptr(),
+                nbytes, *sizes, stream)
+        else:
+            code = lib.mt_conv3d_same_dual_stats(
+                *ptrs, pw.w.data_ptr(), bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                ws.data_ptr(), nbytes, *sizes, stream)
+        if code:
+            raise RuntimeError(f"kernel {kernel} failed: CUDA error {code}")
+        return out
+    call.workspace = workspace
+    return call
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """The host's us a call of fn, over `calls` calls issued back to back
+    (the card's queue drained before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _timed_in_turns(row: dict, calls: dict) -> None:
+    """Each form's queued ms, single-call ms (CUDA events around one call,
+    median of 10, as chip_smoke's phase 2 times them) and the host's us a
+    call and a workspace query into row: forms in order, then in reverse;
+    the lesser of the two."""
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            for key, v in ((f"{name}_queued_ms", queued_ms(calls[name])),
+                           (f"{name}_single_ms", _util.median_ms(calls[name])),
+                           (f"{name}_host_us", host_us(calls[name])),
+                           (f"{name}_workspace_us", host_us(calls[name].workspace))):
+                row[key] = min(v, row.get(key, v))
+
+
+def _times(row: dict, calls: dict) -> str:
+    return (", ".join(f"{name} {row[f'{name}_queued_ms']:.3f} / {row[f'{name}_single_ms']:.3f}"
+                      for name in calls) + " ms (queued / single call); host us a call "
+            + ", ".join(f"{name} {row[f'{name}_host_us']:.1f} (workspace query "
+                        f"{row[f'{name}_workspace_us']:.1f})" for name in calls))
+
+
+def _time_bd(libs: dict, device: torch.device, gen: torch.Generator) -> list:
+    """B and D in every form at their phase-2 shapes: each checked (into
+    NaN-filled buffers) against the plain version, then timed in turns."""
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.ops.fused_norm import channel_stats_ref
+    rows = []
+    for kernel, n, sp, cs, cout in BD_SHAPES:
+        cin = sum(cs)
+        ins = [torch.randn(n, *sp, c, generator=gen, device=device).to(torch.bfloat16)
+               for c in cs]
+        w = torch.randn(cout, cin, 3, 3, 3, generator=gen, device=device) * (2 / (27 * cin)) ** 0.5
+        bias = torch.randn(cout, generator=gen, device=device) * 0.1
+        w_bf = w.to(torch.bfloat16)
+        affine = None
+        if kernel == "d":
+            affine = (torch.rand(n, cin, generator=gen, device=device) + 0.5,
+                      torch.randn(n, cin, generator=gen, device=device))
+            ref, _ = cv.conv3d_same_affine_ref(ins[0], w_bf, bias, *affine)
+            pw = cv.prepare_conv3d_weight(w)
+        else:
+            ref = cv.conv3d_same_dual_ref(*(t.float() for t in ins), w_bf.float(), bias)
+            pw = cv.prepare_conv3d_weight(w, cs)
+        bound = ATOL + RTOL * ref.float().abs().max().item()
+        out = torch.empty(n, *sp, cout, dtype=torch.bfloat16, device=device)
+        stats = torch.empty(n, 2, cout, dtype=torch.float32, device=device)
+        calls = {name: _bd_launcher(lib, kernel, ins, pw, bias, affine, out, stats)
+                 for name, lib in libs.items()}
+        what = f"{kernel} {'+'.join(map(str, cs))}->{cout} at {'x'.join(map(str, sp))} N={n}"
+        row = {"kernel": kernel, "n": n, "spatial": list(sp), "cin": list(cs), "cout": cout}
+        for name, call in calls.items():
+            out.fill_(float("nan"))
+            stats.fill_(float("nan"))
+            err = (call().float() - ref.float()).abs().max().item()
+            if not err <= bound:
+                raise AssertionError(f"{what} ({name}): max|d| {err} > {bound}")
+            if kernel != "b":
+                sref = channel_stats_ref(out.float())
+                serr = ((stats - sref).abs() / (channel_stats_ref(out.float().abs()) + 1e-6)
+                        ).max().item()
+                if not serr <= STATS_RTOL:
+                    raise AssertionError(f"{what} ({name}): stats {serr} > {STATS_RTOL}")
+        _timed_in_turns(row, calls)
+        print(f"{what}: {_times(row, calls)}")
+        rows.append(row)
+        del ins, ref, out, calls
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> dict:
@@ -186,22 +332,27 @@ def main(argv=None) -> dict:
         bound = ATOL + RTOL * ref.abs().max().item()
         out = torch.empty(n, *sp, cout, dtype=torch.bfloat16, device=device)
         calls = {name: _launcher(lib, x, pw, bias, out) for name, lib in libs.items()}
-        row = {"n": n, "spatial": list(sp), "cin": cin, "cout": cout}
+        row = {"kernel": "a", "n": n, "spatial": list(sp), "cin": cin, "cout": cout}
+        outs = {}
         for name, call in calls.items():
             out.fill_(float("nan"))
             err = (call().float() - ref).abs().max().item()
             if not err <= bound:
                 raise AssertionError(f"kernel A ({name}) at {cin}->{cout} {sp} N={n}: "
                                      f"max|d| {err} > {bound}")
-        for order in (list(calls), list(calls)[::-1]):
-            for name in order:
-                ms = queued_ms(calls[name])
-                row[f"{name}_queued_ms"] = min(ms, row.get(f"{name}_queued_ms", ms))
-        print(f"{cin}->{cout} at {'x'.join(map(str, sp))} N={n}: " + ", ".join(
-            f"{name} {row[f'{name}_queued_ms']:.3f}" for name in calls) + " ms queued")
+            outs[name] = out.clone()
+        if "against" in outs:  # A as built against the other checkout's A
+            row["bit_equal_to_against"] = bool(torch.equal(outs["whole"], outs["against"]))
+            if not row["bit_equal_to_against"]:
+                raise AssertionError(f"kernel A at {cin}->{cout} {sp} N={n}: the output "
+                                     "differs from the --against checkout's")
+        _timed_in_turns(row, calls)
+        print(f"a {cin}->{cout} at {'x'.join(map(str, sp))} N={n}: {_times(row, calls)}"
+              + (", bit-equal to --against" if "against" in outs else ""))
         rows.append(row)
-        del x, ref, out, calls
+        del x, ref, out, calls, outs
         torch.cuda.empty_cache()
+    rows += _time_bd(libs, device, gen)
     result = {"tree": str(Path(args.tree).resolve()), "against": args.against,
               "device": torch.cuda.get_device_name(0), "ptxas": ptxas, "shapes": rows}
     if args.out:

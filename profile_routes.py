@@ -20,10 +20,21 @@ import subprocess
 import sys
 import time
 
+
+def _is_kernel_d(name: str) -> bool:
+    """Kernel D on either body: conv3d_same_kernel<NIN, BN, STATS, PACKED>
+    with the stats set (D's dual form), or conv3d_a_kernel<BN, G, RESIDENT,
+    KSPLIT, NIN, AFFINE, STATS> with the prologue or the stats set."""
+    for body, flags in (("conv3d_same_kernel<", slice(2, 3)), ("conv3d_a_kernel<", slice(5, 7))):
+        if body in name:
+            args = name.split(body, 1)[1].split(">", 1)[0].split(",")
+            return any(a.strip() == "true" for a in args[flags])
+    return False
+
+
 FAMILIES = [
-    # conv3d_same_kernel<NIN, BN, AFFINE, STATS>: kernel D sets either flag
-    ("kernel D (conv3d_same_affine)", lambda n: "conv3d_same_kernel" in n and "true" in n),
-    # kernel A's ring body (conv3d_a_kernel) and the body A and B share
+    ("kernel D (conv3d_same_affine)", _is_kernel_d),
+    # the ring body (conv3d_a_kernel) and the older body: A and B
     ("kernels A/B", lambda n: "conv3d_same_kernel" in n or "conv3d_a_kernel" in n),
     ("kernel C (wgrad)", lambda n: "wgrad" in n),
     ("split-K reduce (A, D)", lambda n: "splitk_reduce" in n),

@@ -383,6 +383,201 @@ def test_conv3d_same_dual_stats_matches_plain(device, ca, cb, cout, spatial):
     assert _stats_err(stats, out) <= STATS_RTOL
 
 
+# kernels D and B on the ring body, each into NaN-filled buffers (an unwritten
+# voxel or stat fails) against the plain version at phase 2's bounds: D at
+# kernel A's six flagship shapes and D's dual form and B at the five of B, at
+# N=1 and N=2; ragged volumes where no box fits whole; grids with fewer tiles
+# than blocks (K split: D's stats then come from kernel E)
+D_CASES = ([(n, sp, c) for n in (1, 2) for c, sp in A_FLAGSHIP]
+           + [(1, sp, c) for c in (30, 60, 120) for sp in ((7, 13, 11), (5, 9, 17))]
+           + [(1, (4, 8, 8), 60), (1, (3, 4, 5), 320), (2, (1, 1, 1), 30)])
+DUAL_CASES = ([(n, sp, (c, c)) for n in (1, 2) for c, sp in A_FLAGSHIP[:5]]
+              + [(1, sp, cs) for cs in ((30, 30), (60, 60), (120, 120), (20, 10))
+                 for sp in ((7, 13, 11), (5, 9, 17))]
+              + [(1, (4, 8, 8), (60, 60)), (1, (3, 4, 5), (320, 320)), (2, (1, 1, 1), (20, 10))])
+
+
+def _nan_stats(n, c, device):
+    return torch.full((n, 2, c), float("nan"), dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("n,spatial,c", D_CASES)
+def test_conv3d_same_affine_on_the_ring_matches_plain(device, n, spatial, c):
+    rng = np.random.default_rng(16)
+    x = _rand(rng, (n, *spatial, c), 2.0).to(device, torch.bfloat16)
+    w = _rand(rng, (c, c, 3, 3, 3), (2 / (27 * c)) ** 0.5).to(device)
+    b = _rand(rng, (c,), 0.1).to(device)
+    sc = (_rand(rng, (n, c)).abs() + 0.5).to(device)
+    sh = _rand(rng, (n, c)).to(device)
+    out, stats = _nan_filled((n, *spatial, c), device), _nan_stats(n, c, device)
+    got, got_stats = cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(w), b, sc, sh,
+                                           out=out, stats=stats)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and got_stats.data_ptr() == stats.data_ptr()
+    assert torch.isfinite(got).all() and torch.isfinite(got_stats).all()
+    ref, _ = cv.conv3d_same_affine_ref(x, w.to(torch.bfloat16), b, sc, sh)
+    _assert_close(got, ref.float())
+    assert _stats_err(got_stats, got) <= STATS_RTOL
+
+
+@pytest.mark.parametrize("form", ["b", "d_dual"])
+@pytest.mark.parametrize("n,spatial,cs", DUAL_CASES)
+def test_conv3d_same_dual_forms_on_the_ring_match_plain(device, form, n, spatial, cs):
+    """Kernel B and D's dual form; unequal inputs (20 + 10) catch a swapped
+    [a | b] order or a's chunk count applied to b."""
+    rng = np.random.default_rng(17)
+    a = _rand(rng, (n, *spatial, cs[0])).to(device, torch.bfloat16)
+    b = _rand(rng, (n, *spatial, cs[1])).to(device, torch.bfloat16)
+    cout = cs[0]
+    w = _rand(rng, (cout, sum(cs), 3, 3, 3), (2 / (27 * sum(cs))) ** 0.5).to(device)
+    bias = _rand(rng, (cout,), 0.1).to(device)
+    pw = cv.prepare_conv3d_weight(w, cs)
+    out = _nan_filled((n, *spatial, cout), device)
+    if form == "b":
+        got = cv.conv3d_same_dual(a, b, pw, bias, out=out)
+    else:
+        stats = _nan_stats(n, cout, device)
+        got, got_stats = cv.conv3d_same_dual_stats(a, b, pw, bias, out=out, stats=stats)
+        assert got_stats.data_ptr() == stats.data_ptr()
+        assert torch.isfinite(got_stats).all() and _stats_err(got_stats, got) <= STATS_RTOL
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.isfinite(got).all()
+    _assert_close(got, cv.conv3d_same_dual_ref(a.float(), b.float(),
+                                               w.to(torch.bfloat16).float(), bias))
+
+
+# two inputs of rows narrower than 16-byte copies in a volume of two tiles:
+# the ring body with its K loop split
+RING_SPLIT_CASES = {("b", 2, (1, 1, 1), (20, 10)), ("d_dual", 2, (1, 1, 1), (20, 10))}
+
+
+@pytest.mark.parametrize("form,n,spatial,cs", [
+    ("d", 1, (96, 192, 192), (30,)),          # both chunks a stage, 3 stages, prologue ahead
+    ("d", 2, (48, 96, 96), (60,)),            # streamed weights, walks cross samples
+    ("d", 1, (6, 6, 6), (320,)),              # split K: stats by kernel E
+    ("d", 2, (12, 24, 24), (240,)),           # 16-byte rows on the ring
+    ("d_dual", 1, (96, 192, 192), (30, 30)),  # swizzled resident weights
+    ("d_dual", 2, (48, 96, 96), (60, 60)),
+    ("b", 1, (96, 192, 192), (30, 30)),
+    ("b", 1, (12, 24, 24), (240, 240)),       # the older body
+    *sorted(RING_SPLIT_CASES),
+])
+def test_d_and_b_are_bit_equal_from_call_to_call(device, form, n, spatial, cs):
+    """No atomics: every output voxel is written by one block, every stat
+    added from per-block rows in a fixed order."""
+    if (form, n, spatial, cs) in RING_SPLIT_CASES:
+        plan = cv.conv3d_same_plan(n, *spatial, cs, cs[0], form)
+        assert plan["ring"] == 1 and plan["splits"] > 1
+    rng = np.random.default_rng(18)
+    ins = [_rand(rng, (n, *spatial, c), 2.0).to(device, torch.bfloat16) for c in cs]
+    cout = cs[0]
+    pw = cv.prepare_conv3d_weight(_rand(rng, (cout, sum(cs), 3, 3, 3), 0.05).to(device),
+                                  cs if len(cs) == 2 else None)
+    bias = _rand(rng, (cout,), 0.1).to(device)
+    affine = ((_rand(rng, (n, cs[0])).abs() + 0.5).to(device), _rand(rng, (n, cs[0])).to(device))
+    call = {"d": lambda: cv.conv3d_same_affine(*ins, pw, bias, *affine),
+            "d_dual": lambda: cv.conv3d_same_dual_stats(*ins, pw, bias),
+            "b": lambda: (cv.conv3d_same_dual(*ins, pw, bias),)}[form]
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("c", [30, 60, 13])
+@pytest.mark.parametrize("spatial", [(7, 13, 11), (5, 9, 17)])
+def test_conv3d_same_affine_halo_stays_zero_under_a_large_shift(device, c, spatial):
+    """The prologue leaves the SAME halo and the padding channels at 0: with
+    shift = +100, lrelu(x * scale + shift) is ~100 at every voxel inside, so
+    a halo voxel or padding channel that took the prologue would move the
+    outputs at the volume's faces by ~100 * |w|, far past the bound. Inf in
+    the raw input next to boxes' edges (and in the last channel): the
+    kernel's non-finite outputs are exactly the plain version's, and every
+    finite one is within bound."""
+    rng = np.random.default_rng(19)
+    n = 1
+    x = _rand(rng, (n, *spatial, c)).to(device, torch.bfloat16)
+    z, y, xx = spatial
+    for vz, vy, vx in ((z // 2, y // 2, xx // 2), (0, 0, xx - 1), (z - 1, y - 1, 0)):
+        x[0, vz, vy, vx, c - 1] = float("inf")
+    w = _rand(rng, (c, c, 3, 3, 3), 0.1).to(device)
+    sc = (_rand(rng, (n, c)).abs() + 0.5).to(device)
+    sh = torch.full((n, c), 100.0, device=device)
+    got, stats = cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(w), None, sc, sh,
+                                       out=_nan_filled((n, *spatial, c), device),
+                                       stats=_nan_stats(n, c, device))
+    torch.cuda.synchronize()
+    ref, _ = cv.conv3d_same_affine_ref(x, w.to(torch.bfloat16), None, sc, sh)
+    ref = ref.float()
+    finite = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert finite.sum() > 0.5 * finite.numel()
+    _assert_close(got.float()[finite], ref[finite])
+
+
+@pytest.mark.parametrize("form,c,spatial", [
+    ("d", 30, (16, 32, 32)), ("d", 60, (7, 13, 11)), ("d", 120, (8, 16, 16)),
+    ("d_dual", 30, (16, 32, 32)), ("d_dual", 60, (7, 13, 11)),
+])
+def test_d_keeps_samples_apart(device, form, c, spatial):
+    """N=2 with sample 1's scale (D) or input (D's dual form) 10x sample 0's:
+    a prologue that read the other sample's scale and shift, or stats added
+    into the other sample's row, would miss the plain version by far."""
+    rng = np.random.default_rng(20)
+    n = 2
+    w = _rand(rng, (c, c * (2 if form == "d_dual" else 1), 3, 3, 3), 0.1).to(device)
+    bias = _rand(rng, (c,), 0.1).to(device)
+    if form == "d":
+        x = _rand(rng, (n, *spatial, c)).to(device, torch.bfloat16)
+        sc = (_rand(rng, (1, c)).abs() + 0.5).to(device) * torch.tensor([[1.0], [10.0]],
+                                                                          device=device)
+        sh = _rand(rng, (n, c)).to(device)
+        got, stats = cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(w), bias, sc, sh)
+        ref, ref_stats = cv.conv3d_same_affine_ref(x, w.to(torch.bfloat16), bias, sc, sh)
+    else:
+        gain = torch.tensor([1.0, 10.0], device=device).reshape(2, 1, 1, 1, 1)
+        a, b = ((_rand(rng, (n, *spatial, c)).to(device) * gain).to(torch.bfloat16)
+                for _ in range(2))
+        got, stats = cv.conv3d_same_dual_stats(a, b, cv.prepare_conv3d_weight(w, (c, c)), bias)
+        ref, ref_stats = cv.conv3d_same_dual_stats_ref(a.float(), b.float(),
+                                                       w.to(torch.bfloat16).float(), bias)
+    torch.cuda.synchronize()
+    for i in range(n):  # each sample at its own scale
+        _assert_close(got[i], ref[i].float())
+    assert _stats_err(stats, got) <= STATS_RTOL
+    # and the stats are the plain version's: each sample's sums, not the other's
+    from multitalent_tpu_torch.ops.fused_norm import channel_stats_ref
+    scale = channel_stats_ref(ref.float().abs())
+    assert ((stats - ref_stats.float()).abs() / (scale + 1e-6)).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("form,cs,spatial", [
+    ("d", 30, (96, 192, 192)), ("d", 60, (48, 96, 96)),
+    ("d_dual", (30, 30), (96, 192, 192)), ("d_dual", (60, 60), (48, 96, 96)),
+    ("b", (30, 30), (96, 192, 192)), ("b", (60, 60), (48, 96, 96)),
+])
+def test_d_and_b_take_the_ring_at_30_and_60_channels(device, form, cs, spatial):
+    """The plan: D (both forms) and B run the ring body at the flagship's
+    stage-0 and stage-1 widths, both chunks of a 30-channel row a stage."""
+    c = cs if isinstance(cs, int) else cs[0]
+    plan = cv.conv3d_same_plan(1, *spatial, cs, c, form)
+    assert plan["ring"] == 1 and plan["splits"] == 1
+    assert plan["g"] == (2 if c == 30 else 1)
+
+
+@pytest.mark.parametrize("form,cs,spatial,ring", [
+    ("d", 120, (24, 48, 48), 1), ("d", 240, (12, 24, 24), 1),
+    ("a", 120, (24, 48, 48), 0), ("b", (240, 240), (12, 24, 24), 0),
+    ("d_dual", (120, 120), (24, 48, 48), 0), ("d_dual", (320, 320), (6, 12, 12), 0),
+])
+def test_the_older_body_keeps_16_byte_rows_but_for_d(device, form, cs, spatial, ring):
+    """The plan at 16-byte rows with streamed weights: A, B and D's dual form
+    keep the older body of two blocks an SM (two inputs also when K is
+    split); D runs the ring body at every width."""
+    c = cs if isinstance(cs, int) else cs[0]
+    assert cv.conv3d_same_plan(1, *spatial, cs, c, form)["ring"] == ring
+
+
 @pytest.mark.parametrize("shape", [(1, 12, 24, 24, 30), (2, 5, 7, 9, 60), (1, 6, 6, 6, 320),
                                    (2, 3, 4, 5, 13), (1, 96, 192, 192, 30)])
 def test_fused_norm_kernels_match_plain(device, shape):

@@ -90,6 +90,75 @@ def test_conv3d_same_dual_stats_matches_pallas_on_the_concat(monkeypatch):
     assert np.abs(swapped.numpy() - np.asarray(ref_out)).max() > 1e-2
 
 
+@pytest.mark.parametrize("n", [1, 2])
+def test_conv3d_same_affine_matches_pallas_at_30_channels(monkeypatch, n):
+    """Kernel D at the stage-0 width (one full and one 14-channel chunk,
+    which the card stages at once) vs pallas_conv3d_same_affine with a shift
+    of +8: lrelu(shift) is far from 0, so a plain version that normalized the
+    SAME halo would miss the Pallas kernel at every face of the volume."""
+    monkeypatch.setenv("MTTPU_PALLAS_MIN_CIN", "1")
+    x, w, b, s, t = _affine_inputs(np.random.RandomState(15), (n, 4, 8, 8, 30), 30)
+    w *= 0.1
+    t += 8.0
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), dtype=torch.float32)
+    ref_out, ref_stats = pallas_conv3d_same_affine(
+        jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(b), in_scale=jnp.asarray(s),
+        in_shift=jnp.asarray(t), negative_slope=SLOPE, interpret=True)
+    out, stats = cv.conv3d_same_affine(_t(x), pw, _t(b), _t(s), _t(t), SLOPE)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=3e-4, rtol=1e-3)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(ref_stats), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ca,cb", [(30, 30), (16, 14)])
+def test_conv3d_same_dual_stats_matches_pallas_at_the_ring_widths(monkeypatch, ca, cb):
+    """Kernel D's dual form at the widths the card stages two 17-32-channel
+    rows at once (30 + 30) and at a full chunk beside a partial one (16 + 14),
+    vs the Pallas kernel without a prologue on the built concat."""
+    monkeypatch.setenv("MTTPU_PALLAS_MIN_CIN", "1")
+    rng = np.random.RandomState(16)
+    a = rng.randn(2, 4, 8, 8, ca).astype(np.float32)
+    b = rng.randn(2, 4, 8, 8, cb).astype(np.float32)
+    w = (rng.randn(3, 3, 3, ca + cb, 30) * 0.1).astype(np.float32)
+    bias = rng.randn(30).astype(np.float32)
+    ref_out, ref_stats = pallas_conv3d_same_affine(
+        jnp.concatenate([a, b], -1), jnp.asarray(w), bias=jnp.asarray(bias), interpret=True)
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), splits=(ca, cb), dtype=torch.float32)
+    out, stats = cv.conv3d_same_dual_stats(_t(a), _t(b), pw, _t(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=3e-4, rtol=1e-3)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(ref_stats), atol=1e-3, rtol=1e-4)
+
+
+def test_fused_wrappers_write_into_the_callers_buffers():
+    """out= and stats= of kernel D (both forms) and kernel B on the CPU: the
+    plain version's result lands in the caller's NaN-filled buffers, which
+    come back; a buffer of another shape is refused."""
+    rng = np.random.RandomState(18)
+    x = _t(rng.randn(2, 3, 4, 5, 6).astype(np.float32))
+    y = _t(rng.randn(2, 3, 4, 5, 4).astype(np.float32))
+    pw = cv.prepare_conv3d_weight(_t(rng.randn(7, 6, 3, 3, 3).astype(np.float32)),
+                                  dtype=torch.float32)
+    pw2 = cv.prepare_conv3d_weight(_t(rng.randn(7, 10, 3, 3, 3).astype(np.float32)), (6, 4),
+                                   dtype=torch.float32)
+    s = _t((rng.rand(2, 6) + 0.5).astype(np.float32))
+    calls = {
+        "d": (lambda **kw: cv.conv3d_same_affine(x, pw, None, s, s, SLOPE, **kw),
+              cv.conv3d_same_affine_ref(x, cv.unprepare_conv3d_weight(pw), None, s, s, SLOPE)),
+        "d_dual": (lambda **kw: cv.conv3d_same_dual_stats(x, y, pw2, **kw),
+                   cv.conv3d_same_dual_stats_ref(x, y, cv.unprepare_conv3d_weight(pw2))),
+    }
+    for name, (call, (ref, ref_stats)) in calls.items():
+        out = torch.full((2, 3, 4, 5, 7), float("nan"))
+        stats = torch.full((2, 2, 7), float("nan"))
+        got, got_stats = call(out=out, stats=stats)
+        assert got is out and got_stats is stats, name
+        assert torch.equal(out, ref) and torch.equal(stats, ref_stats), name
+        with pytest.raises(ValueError):
+            call(out=torch.empty(2, 3, 4, 5, 6))
+    out = torch.full((2, 3, 4, 5, 7), float("nan"))
+    assert cv.conv3d_same_dual(x, y, pw2, out=out) is out
+    assert torch.equal(out, cv.conv3d_same_dual_ref(x, y, cv.unprepare_conv3d_weight(pw2)))
+
+
 @pytest.mark.parametrize("shape", [(2, 4, 8, 8, 6), (1, 40, 24, 3), (2, 37, 5)])
 def test_fused_instance_norm_matches_pallas_fused_norm(shape):
     """Kernel E (stats, then apply with the activation in fp32) vs
