@@ -17,8 +17,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    convs' dx), at the training batch N=2; then the fused chain's kernels beside the unfused route they
    replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
    stats) at A's shapes and its dual form at B's, each at N=1 and N=2 into
-   NaN-filled output and stats buffers, with the plan it took, E's stats and
-   apply passes at every norm shape, and F at the stage-0 head;
+   NaN-filled output and stats buffers, with the plan it took, E's stats
+   (two calls bit-equal, launches a call by torch.profiler, queued times)
+   and apply passes at every norm shape, and F at the stage-0 head into a
+   NaN-filled output, beside its form without the prologue and torch.mm of
+   that form's function;
 3. the inference path through the user's entry point: a reference-layout
    model folder of the MultiTalent flagship (GenericUNet, base 30, pools
    (2,2,2)x4 + (1,2,2), 47 sigmoid regions, patch 96x192x192, spacing
@@ -65,7 +68,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    over the launches a run recorded: A over one forward (phase 4) and one
    training step (phase 5), B over one forward (phase 4), C over one step
    (phase 5), D over one fused forward (phase 4b) and one fused step (phase
-   5b)), then the result line.
+   5b); E's stats row lists its six shapes and sums them over one fused
+   forward (phase 4b)), then the result line.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -339,6 +343,54 @@ def _stats_rel_err(stats, out) -> float:
     return ((stats - ref).abs() / (scale + 1e-6)).max().item()
 
 
+def _queued_ms(fn, iters: int = 50) -> float:
+    """fn's time on the card a call when `iters` calls are queued back to back
+    (CUDA events around all of them, after 3 warm-up calls): single calls of
+    short kernels spread up to +-40% from run to run, queued ones far less."""
+    import torch
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_launches(fn, calls: int = 4) -> float:
+    """Work items fn puts on the card a call (kernels, copies, fills), counted
+    by torch.profiler over `calls` calls; fails where the profiler sees none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if n == 0:
+        raise AssertionError("torch.profiler saw no work on the card")
+    return n / calls
+
+
+def _stats_bound(c: int, spatial, n: int) -> dict:
+    """Kernel E's stats pass: bf16 x read once, the (n, 2, c) fp32 stats
+    written once; 3 fp32 operations an element (a square and two adds)."""
+    vox = n * prod(spatial)
+    return _bound(vox * c * 2 + n * 2 * c * 4, fp32_flops=3 * vox * c)
+
+
+def _head_bound(c: int, k: int, spatial, n: int) -> dict:
+    """Kernel F: bf16 x read once, bf16 logits written once; the products on
+    the tensor cores (2 c k an output voxel), the prologue's 4 fp32
+    operations an input element on the CUDA cores."""
+    vox = n * prod(spatial)
+    return _bound(vox * (c + k) * 2, bf16_flops=2 * c * k * vox, fp32_flops=4 * c * vox)
+
+
 def phase_fused_kernels() -> dict:
     """The fused chain's kernels D, E and F vs their plain versions at the
     flagship's shapes, each timed beside the unfused route it replaces."""
@@ -364,7 +416,8 @@ def phase_fused_kernels() -> dict:
     def report(name, what, err, bound, ms, plain_ms, unfused_ms, unfused_what, **extra):
         print(f"{name} {what}: max|d| {err:.3e} (bound {bound:.3e}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, unfused route ({unfused_what}) {unfused_ms:.3f} ms"
-              + "".join(f", {k} {v:.3e}" for k, v in extra.items()))
+              + "".join(f", {k} {v:.3e}" if isinstance(v, float) else f", {k} {v}"
+                        for k, v in extra.items()))
         results[name].append({"what": what, "err": err, "ms": ms, "plain_ms": plain_ms,
                               "unfused_ms": unfused_ms, **extra})
 
@@ -430,15 +483,22 @@ def phase_fused_kernels() -> dict:
             results["conv3d_same_affine"][-1].update(splits=(c, c), cout=c, spatial=sp, n=n)
             _plan(results["conv3d_same_affine"][-1], "d_dual")
             del a, b, out, ref
-    # kernel E at every norm shape, N=1: stats, then apply in both rounding
-    # orders; the unfused route is the port's plain norm (stats + normalize)
+    # kernel E at every norm shape, N=1: stats (bit-equal from call to call,
+    # launches a call from the profiler, queued time beside the single call's,
+    # bound), then apply in both rounding orders; the unfused route is the
+    # port's plain norm (stats + normalize)
     for c, sp in NORM_SHAPES:
         x = (rnd(1, *sp, c, scale=3.0) + 1).to(torch.bfloat16)
         stats = fn.channel_stats(x)
+        if not torch.equal(stats, fn.channel_stats(x)):
+            raise AssertionError(f"channel_stats {c} at {sp}: two calls differ")
         serr = (((stats - fn.channel_stats_ref(x)).abs()
                  / fn.channel_stats_ref(x.abs())).max().item())
         if not serr <= 1e-4:
             raise AssertionError(f"channel_stats {c} at {sp}: {serr:.3e} > 1e-4")
+        per_call = _device_launches(lambda: fn.channel_stats(x))
+        if not 1 <= per_call <= 2:
+            raise AssertionError(f"channel_stats {c} at {sp}: {per_call} launches a call")
         norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
         x_cl = ncdhw(x)
         unfused_ms = _median_ms(lambda: instance_norm_lrelu(x_cl, norm_w, norm_b))
@@ -447,7 +507,10 @@ def phase_fused_kernels() -> dict:
         report("channel_stats", what, serr, 1e-4, _median_ms(lambda: fn.channel_stats(x)),
                _median_ms(lambda: fn.channel_stats_ref(x)), unfused_ms,
                "plain norm: stats + normalize",
-               library_ms=_median_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)))
+               library_ms=_median_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)),
+               queued_ms=_queued_ms(lambda: fn.channel_stats(x)), launches_per_call=per_call,
+               **_stats_bound(c, sp, 1))
+        results["channel_stats"][-1].update(c=c, spatial=sp, n=1)
         sc, sh = fn.stats_affine(stats, norm_w, norm_b, x.numel() // c)
         sc, sh = sc.contiguous(), sh.contiguous()
         for cast_first in (True, False):
@@ -464,24 +527,42 @@ def phase_fused_kernels() -> dict:
                    _median_ms(lambda: fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first)),
                    unfused_ms, "plain norm: stats + normalize")
         del x, x_cl, got, want
-    # kernel F at the stage-0 head, N=1: raw (1, 96, 192, 192, 30) -> 47 bf16
+    # kernel F at the stage-0 head, N=1: raw (1, 96, 192, 192, 30) -> 47 bf16,
+    # into a NaN-filled output; timed beside its form without the prologue
+    # and one PyTorch call of that form's function (torch.mm of the bf16
+    # (47, 30) head with the (30, S) view of raw gives F's (47, S) output)
     c, sp = KERNEL_A_SHAPES[0]
     raw = rnd(1, *sp, c, scale=2.0).to(torch.bfloat16)
     head = rnd(47, c, 1, 1, 1, scale=(1.0 / c) ** 0.5)
     sc, sh = rnd(1, c).abs() + 0.5, rnd(1, c)
     norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
-    got = sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)
+    got = sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16,
+                     out=_nan_filled((1, 47, *sp), dev))
     ref = sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.float32)
     bound = ATOL + RTOL * ref.abs().max().item()
     err = _check(f"seghead {c}->47 at {sp}", got, ref, bound)
+    del got, ref
+    plain = sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
+    head_mm, raw_cs = head.reshape(47, c).to(torch.bfloat16), raw.view(-1, c).t()
+    mm = torch.mm(head_mm, raw_cs)
+    perr = _check(f"seghead {c}->47 at {sp}, no prologue, vs torch.mm", plain,
+                  mm.view(1, 47, *sp), ATOL + RTOL * mm.float().abs().max().item())
+    del plain, mm
     raw_cl, head_bf = ncdhw(raw), head.to(torch.bfloat16)
+    with_prologue = lambda: sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)
+    no_prologue = lambda: sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
+    library = lambda: torch.mm(head_mm, raw_cs)
     report("seghead", f"{c}->47 at {'x'.join(map(str, sp))} N=1", err, bound,
-           _median_ms(lambda: sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)),
+           _median_ms(with_prologue),
            _median_ms(lambda: sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.bfloat16)),
            _median_ms(lambda: F.conv3d(instance_norm_lrelu(raw_cl, norm_w, norm_b),
                                        head_bf).float()),
-           "plain norm + cuDNN bf16 1x1x1 conv + fp32 cast")
-    del raw, raw_cl, got, ref
+           "plain norm + cuDNN bf16 1x1x1 conv + fp32 cast",
+           queued_ms=_queued_ms(with_prologue), no_prologue_ms=_median_ms(no_prologue),
+           no_prologue_queued_ms=_queued_ms(no_prologue), no_prologue_err=perr,
+           library_ms=_median_ms(library), library_queued_ms=_queued_ms(library),
+           launches_per_call=_device_launches(with_prologue), **_head_bound(c, 47, sp, 1))
+    del raw, raw_cl, raw_cs
     torch.cuda.empty_cache()
     return results
 
@@ -732,6 +813,7 @@ def phase_fused_tile_probabilities() -> dict:
     a faulty activation; and one forward's time on each route."""
     import torch
     from multitalent_tpu_torch.models.blocks import ConvDropoutNormNonlin
+    from multitalent_tpu_torch.ops import fused_norm as fn
     from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -741,12 +823,15 @@ def phase_fused_tile_probabilities() -> dict:
     net32 = _flagship_net(plans, torch.float32).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
-    with _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_shapes:
+    with _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_shapes, \
+            _recording_x(fn, "channel_stats") as e_shapes:
         logits = unet_forward_fused(net, x)
-    expect = net.fused_kernel_launches_per_forward()["conv3d_same_affine"]
-    if sum(d_shapes.values()) != expect:
-        raise AssertionError(f"{sum(d_shapes.values())} kernel-D calls in one fused forward, "
-                             f"expected {expect}")
+    per_forward = net.fused_kernel_launches_per_forward()
+    for label, shapes, expect in (("kernel-D", d_shapes, per_forward["conv3d_same_affine"]),
+                                  ("kernel-E stats", e_shapes, per_forward["channel_stats"])):
+        if sum(shapes.values()) != expect:
+            raise AssertionError(f"{sum(shapes.values())} {label} calls in one fused forward, "
+                                 f"expected {expect}")
     if logits.dtype != torch.bfloat16 or logits.shape != (1, 47, *PATCH):
         raise AssertionError(f"fused logits {logits.dtype} {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
@@ -769,7 +854,7 @@ def phase_fused_tile_probabilities() -> dict:
     p_pallas, launches = _run_counted(pallas_norm_forward)
     if launches["channel_stats"] != norms or launches["affine_lrelu"] != norms:
         raise AssertionError(f"MTTPU_PALLAS_NORM=1: launches {launches}, {norms} norms")
-    out = {"d_shapes": d_shapes}
+    out = {"d_shapes": d_shapes, "e_shapes": e_shapes}
     out["bf16_max"], out["bf16_mean"] = _dp(p_fused, p_fused_plain)
     out["fp32_max"], out["fp32_mean"] = _dp(p_fused, p_fp32)
     out["pallas_norm_max"], out["pallas_norm_mean"] = _dp(p_pallas, p_default)
@@ -1090,6 +1175,24 @@ def _recording(*names):
             setattr(cv, name, kernel)
 
 
+@contextlib.contextmanager
+def _recording_x(module, name: str):
+    """Counts every call of wrapper `name` of `module` made inside by (C,
+    spatial, N) of its channels-last input, as _recording does for the conv
+    wrappers."""
+    kernel, shapes = getattr(module, name), collections.Counter()
+
+    def rec(x, *args, **kwargs):
+        shapes[(int(x.shape[-1]), tuple(int(s) for s in x.shape[1:-1]), int(x.shape[0]))] += 1
+        return kernel(x, *args, **kwargs)
+    rec.launches = 0
+    setattr(module, name, rec)
+    try:
+        yield shapes
+    finally:
+        setattr(module, name, kernel)
+
+
 def _sums(label: str, timed: list, ref_key: str, **weights: collections.Counter) -> dict:
     """A kernel's phase-2 shapes (ms, `ref_key`'s ms beside it, bound, plan)
     and the sums of both over the launches of each of `weights` (e.g.
@@ -1112,6 +1215,25 @@ def _sums(label: str, timed: list, ref_key: str, **weights: collections.Counter)
         parts.append(f"over one {k} ({sum(w.values())} launches, N={batch}): "
                      f"{out[f'{k}_ms']:.3f} ms, {ref_key} {out[f'{k}_{ref_key}']:.3f}")
     print(f"{label} " + "; ".join(parts))
+    return out
+
+
+def _stats_sums(timed: list, forward: collections.Counter) -> dict:
+    """Kernel E's stats pass at each phase-2 shape (single-call and queued ms,
+    launches a call, bound) and the sums of both times over one fused
+    forward's calls, each shape weighted by its calls phase 4b recorded."""
+    by_key = {(r["c"], tuple(r["spatial"]), r["n"]): r for r in timed}
+    if not set(forward) <= set(by_key):
+        raise AssertionError(f"kernel-E stats shapes of a fused forward not timed in phase 2: "
+                             f"{set(forward) - set(by_key)}")
+    out = {"shapes": [{"at": r["what"], "ms": r["ms"], "queued_ms": r["queued_ms"],
+                       "launches_per_call": r["launches_per_call"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"], "calls_per_forward": forward.get(key, 0)}
+                      for key, r in by_key.items()],
+           "forward_ms": sum(k * by_key[key]["ms"] for key, k in forward.items()),
+           "forward_queued_ms": sum(k * by_key[key]["queued_ms"] for key, k in forward.items())}
+    print(f"kernel E stats over one fused forward ({sum(forward.values())} calls): "
+          f"{out['forward_ms']:.3f} ms single calls, {out['forward_queued_ms']:.3f} ms queued")
     return out
 
 
@@ -1373,26 +1495,31 @@ def main() -> int:
     # fused training step's forward (N=2)
     d_sums = _sums("kernel D", fused_kernels["conv3d_same_affine"], "unfused_ms",
                    forward=tile_fused["d_shapes"], step=training_fused["d_shapes"])
+    e_sums = _stats_sums(fused_kernels["channel_stats"], tile_fused["e_shapes"])
     # the fused route's kernels: launches from the fused predict CLI run (and
     # kernel D's from the fused training run), times at the stage-0 shape (N=1,
     # C = 30 at 96x192x192); one PyTorch call computes E's stats
-    # (torch.var_mean), none the others
+    # (torch.var_mean) and F without its prologue (torch.mm), none the others
     c, sp = KERNEL_A_SHAPES[0]
     vox = prod(sp)
     for kname, src, replaces, work in (
             ("conv3d_same_affine", a_src, "multitalent_tpu/ops/pallas_conv.py:326",
              _conv_bound(c, c, sp, 1)),
             ("channel_stats", "multitalent_tpu_torch/csrc/fused_norm.cu",
-             "multitalent_tpu/ops/fused_norm.py:37",
-             _bound(vox * c * 2 + 2 * c * 4, fp32_flops=3 * vox * c)),
+             "multitalent_tpu/ops/fused_norm.py:37", _stats_bound(c, sp, 1)),
             ("affine_lrelu", "multitalent_tpu_torch/csrc/fused_norm.cu",
              "multitalent_tpu/ops/fused_norm.py:56",
              _bound(2 * vox * c * 2, fp32_flops=4 * vox * c)),
             ("seghead", "multitalent_tpu_torch/csrc/seghead.cu",
-             "multitalent_tpu/ops/pallas_seghead.py:31",
-             _bound(vox * (c + 47) * 2, fp32_flops=vox * (4 * c + 2 * c * 47)))):
+             "multitalent_tpu/ops/pallas_seghead.py:31", _head_bound(c, 47, sp, 1))):
         res = fused_kernels[kname]
         stage0 = res[0]
+        if kname == "seghead":
+            extra = {k: stage0[k] for k in ("queued_ms", "no_prologue_ms",
+                                            "no_prologue_queued_ms", "library_queued_ms",
+                                            "launches_per_call")}
+        else:
+            extra = {"conv3d_same_affine": d_sums, "channel_stats": e_sums}.get(kname, {})
         rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": main_fused["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],
@@ -1400,8 +1527,7 @@ def main() -> int:
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"], **work,
                      "library_ms": stage0.get("library_ms"),
                      "unfused_route_ms": stage0["unfused_ms"],
-                     "timed_at": stage0["what"],
-                     **(d_sums if kname == "conv3d_same_affine" else {})})
+                     "timed_at": stage0["what"], **extra})
     # the probes' kernels: launches from the probe path, times at the first
     # shape each was timed at in phase 6
     for kname, src, replaces in (
@@ -1441,7 +1567,10 @@ def main() -> int:
           f"(cuDNN on the concat {b_sums['step_cudnn_bf16_ms']:.3f} ms); kernel D over a "
           f"fused forward "
           f"{d_sums['forward_ms']:.3f} ms (unfused route {d_sums['forward_unfused_ms']:.3f} ms), "
-          f"over a fused step {d_sums['step_ms']:.3f} ms; kernel C "
+          f"over a fused step {d_sums['step_ms']:.3f} ms; kernel E stats over a fused "
+          f"forward {e_sums['forward_ms']:.3f} ms (queued {e_sums['forward_queued_ms']:.3f} "
+          f"ms); kernel F {fused_kernels['seghead'][0]['ms']:.3f} ms (torch.mm of its form "
+          f"without the prologue {fused_kernels['seghead'][0]['library_ms']:.3f} ms); kernel C "
           f"over a step "
           f"{wgrad_step['step_ms']:.3f} ms (cuDNN {wgrad_step['step_cudnn_ms']:.3f} ms); "
           f"probe path "

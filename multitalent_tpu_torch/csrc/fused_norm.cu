@@ -22,21 +22,30 @@
 // bandwidth (3.35 TB/s): the stage-0 activation of 96x192x192x30 bf16 is
 // 212 MB, ~63 us a read. The TPU kernels carried the sums across a sequential
 // grid in VMEM; blocks here run in no order, so:
-//   - channel_stats gives each block a fixed chunk of voxels; its threads
-//     read channel pairs of consecutive voxels (coalesced 4-byte loads, a
-//     block's rows contiguous in memory), keep per-thread fp32 sums, add them
-//     over the block in a fixed order and write one partial per (n, chunk);
-//     reduce_rows adds the partials in a fixed order. No atomics: the result
-//     is deterministic, run to run.
+//   - channel_stats cuts each sample into at most 256 chunks of at least
+//     64 KB (about 512 blocks in all: a few an SM) and reads a chunk's run
+//     of voxels x channels as 16-byte vectors where the run fits them.
+//     Vector i holds channels (8 i + e) mod c, which repeat every c / gcd(c,
+//     8) vectors (15 at 30, 60 and 120 channels; 30 at 240; 40 at 320), so
+//     threads in groups of that period, striding by a multiple of it, each
+//     keep 8 fixed channels' fp32 sums on their whole walk with no division;
+//     where the vectors do not fit, threads read channel pairs or single
+//     channels of consecutive voxels. Each block adds its threads' sums in a
+//     fixed order into one partial row, and one reduce_rows launch adds the
+//     rows in a fixed order; a sample of one chunk is written directly (one
+//     launch). No atomics: the result is deterministic, run to run.
 //   - affine_lrelu is one grid-stride elementwise pass with 16-byte loads and
 //     stores (8 channels at a time) when the layout allows it.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace mt {
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_CHUNKS = 1024;  // blocks of channel_stats per sample
+constexpr int VEC_THREADS = 512;  // threads of a block of channel_stats' vector form
+constexpr int UNROLL = 8;         // 16-byte loads a thread has in flight
 constexpr int SEG_ROWS = 256;     // rows one reduce_rows block adds
 
 // out (n, segs, width): block (col group, seg, n) adds rows [seg * seg_rows,
@@ -66,7 +75,8 @@ __global__ void reduce_rows_kernel(const float* __restrict__ part, float* __rest
 
 // part (n, chunks, 2, c): block (chunk, n) sums voxels [chunk * per_chunk,
 // ...). VEC channels per thread: `cols` = c / VEC threads cover one voxel's
-// channels, `rows` = THREADS / cols voxels are read side by side.
+// channels, `rows` = THREADS / cols voxels are read side by side. The form
+// for runs that 16-byte vectors do not fit.
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
     channel_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ part,
@@ -116,23 +126,131 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+__device__ __forceinline__ void add8(const uint4& v, float* sum, float* sq) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    sum[2 * e] += f.x;
+    sq[2 * e] = fmaf(f.x, f.x, sq[2 * e]);
+    sum[2 * e + 1] += f.y;
+    sq[2 * e + 1] = fmaf(f.y, f.y, sq[2 * e + 1]);
+  }
+}
+
+// part (n, chunks, 2, c) of the sample's flat run of s * c bf16 read as
+// 16-byte vectors (s * c % 8 == 0, x 16-byte aligned): vector i holds
+// channels (8 i + e) mod c, e < 8, a map that repeats every `period` = c /
+// gcd(c, 8) vectors. Block (chunk, n) reads vectors [chunk * per_chunk, ...)
+// (per_chunk a multiple of the period) with its first period * reps threads
+// (reps a power of two), thread t the vectors t, t + period * reps, .., so
+// that it keeps the same 8 channels' sums on its whole walk. Then, in a
+// fixed order: a tree over the reps threads of each phase, and for each
+// channel the 8 / gcd(c, 8) (phase, e) slots that hold it.
+__global__ void __launch_bounds__(VEC_THREADS)
+    channel_stats_vec_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ part,
+                             long long nvec, int c, int period, int reps,
+                             long long per_chunk) {
+  __shared__ float red[VEC_THREADS][17];
+  const int n = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
+  const int t = threadIdx.x, active = period * reps;
+  float sum[8], sq[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sum[e] = sq[e] = 0.f;
+  if (t < active) {
+    const uint4* v = reinterpret_cast<const uint4*>(x) + (long long)n * nvec;
+    const long long i1 = min(nvec, (chunk + 1) * per_chunk);
+    long long i = chunk * per_chunk + t;
+    for (; i + (UNROLL - 1LL) * active < i1; i += (long long)UNROLL * active) {
+      uint4 r[UNROLL];  // all loads in flight before the first add
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) r[j] = __ldg(v + i + (long long)j * active);
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) add8(r[j], sum, sq);
+    }
+    for (; i < i1; i += active) add8(__ldg(v + i), sum, sq);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red[t][e] = sum[e];
+    red[t][8 + e] = sq[e];
+  }
+  __syncthreads();
+  for (int h = reps / 2; h >= 1; h /= 2) {
+    if (t < period * h) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) red[t][e] += red[t + period * h][e];
+    }
+    __syncthreads();
+  }
+  const int slots = 8 * period / c;  // positions 8 phase + e of one channel
+  for (int ch = t; ch < c; ch += VEC_THREADS) {
+    float ts = 0.f, tq = 0.f;
+    for (int m = 0; m < slots; ++m) {
+      const int q = ch + m * c;
+      ts += red[q >> 3][q & 7];
+      tq += red[q >> 3][8 + (q & 7)];
+    }
+    float* dst = part + ((int64_t)n * chunks + chunk) * 2 * c;
+    dst[ch] = ts;
+    dst[c + ch] = tq;
+  }
+}
+
+int gcd(int a, int b) {
+  while (b != 0) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  return a;
+}
+
+// How channel_stats cuts a sample: at most MAX_CHUNKS chunks of at least
+// MIN_CHUNK_BYTES, fewer for more samples (about WAVE_BLOCKS blocks in
+// all), so that one reduce_rows launch adds the partials, and a sample of
+// one chunk needs none. The chunk count depends on the sizes alone, so the
+// workspace does not depend on which form a call takes.
+constexpr int MAX_CHUNKS = 256;
+constexpr long long MIN_CHUNK_BYTES = 64 << 10;
+constexpr int WAVE_BLOCKS = 512;
+
+int stats_chunks(int n, long long s, int c) {
+  const long long bytes = s * c * 2;
+  long long chunks = (bytes + MIN_CHUNK_BYTES - 1) / MIN_CHUNK_BYTES;
+  const long long cap = std::max(1, std::min(MAX_CHUNKS, cdiv(WAVE_BLOCKS, n)));
+  return (int)std::max(1LL, std::min(chunks, cap));
+}
+
 struct StatsPlan {
-  int vec, cols, rows, chunks;
-  long long per_chunk;
+  bool vec;  // 16-byte vectors; else VEC (2: channel pairs, 1: single channels)
+  int vec_n, cols, rows, period, reps, chunks;
+  long long per_chunk;  // vectors (vec) or voxels
 };
 
-// pairs: channel pairs may be read as 4-byte words (C even, x 4-byte
-// aligned). The chunks do not depend on it, so neither does the workspace.
-bool stats_plan(long long s, int c, bool pairs, StatsPlan* p) {
-  if (c <= 0 || s <= 0) return false;
-  p->vec = pairs && c % 2 == 0 ? 2 : 1;
-  p->cols = c / p->vec;
+// The form a call takes: 16-byte vectors where the run fits them (s * c %
+// 8 == 0, x 16-byte aligned, a period of at most VEC_THREADS), else the pair
+// form (c even, x 4-byte aligned) or the single-channel form.
+bool stats_plan(int n, long long s, int c, uintptr_t addr, StatsPlan* p) {
+  if (n <= 0 || c <= 0 || s <= 0) return false;
+  const int target = stats_chunks(n, s, c);
+  const int period = c / gcd(c, 8);
+  p->vec = (s * c) % 8 == 0 && addr % 16 == 0 && period <= VEC_THREADS;
+  if (p->vec) {
+    const long long nvec = s * c / 8;
+    p->period = period;
+    p->reps = 1;
+    while (2 * p->reps * period <= VEC_THREADS) p->reps *= 2;
+    const long long per = (nvec + target - 1) / target;
+    p->per_chunk = (per + period - 1) / period * period;
+    p->chunks = (int)((nvec + p->per_chunk - 1) / p->per_chunk);
+    return true;
+  }
+  p->vec_n = (c % 2 == 0 && addr % 4 == 0) ? 2 : 1;
+  p->cols = c / p->vec_n;
   if (p->cols > THREADS) return false;
   p->rows = THREADS / p->cols;
-  const long long rows1 = c < THREADS ? THREADS / c : 1;
-  long long chunks = (s + rows1 * 32LL - 1) / (rows1 * 32LL);
-  chunks = chunks < 1 ? 1 : (chunks > MAX_CHUNKS ? MAX_CHUNKS : chunks);
-  p->per_chunk = (s + chunks - 1) / chunks;
+  p->per_chunk = (s + target - 1) / target;
   p->chunks = (int)((s + p->per_chunk - 1) / p->per_chunk);  // no empty chunk
   return true;
 }
@@ -229,32 +347,35 @@ cudaError_t reduce_rows(const float* part, float* out, float* ws, int n, int row
 
 long long channel_stats_workspace(int n, long long s, int c) {
   StatsPlan p;
-  if (n <= 0 || !stats_plan(s, c, true, &p)) return -1;
-  const long long red = reduce_rows_workspace(n, p.chunks, 2 * c);
-  if (red < 0) return -1;
-  return (long long)n * p.chunks * 2 * c * (long long)sizeof(float) + red;
+  // the widest workspace of the forms (the chunk count is theirs alike)
+  if (!stats_plan(n, s, c, 16, &p) && !stats_plan(n, s, c, 2, &p)) return -1;
+  const int chunks = stats_chunks(n, s, c);
+  return chunks == 1 ? 0 : (long long)n * chunks * 2 * c * (long long)sizeof(float);
 }
 
 cudaError_t channel_stats(const __nv_bfloat16* x, float* stats, float* ws,
                           long long ws_bytes, int n, long long s, int c,
                           cudaStream_t stream) {
   StatsPlan p;
-  const bool pairs = reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  if (n <= 0 || !stats_plan(s, c, pairs, &p) || ws == nullptr ||
-      ws_bytes < channel_stats_workspace(n, s, c))
+  if (!stats_plan(n, s, c, reinterpret_cast<uintptr_t>(x), &p) ||
+      ws_bytes < channel_stats_workspace(n, s, c) || (p.chunks > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
+  // one chunk a sample: its block writes the stats; else one reduce_rows
+  float* part = p.chunks == 1 ? stats : ws;
   const dim3 grid(p.chunks, n);
-  if (p.vec == 2) {
-    channel_stats_kernel<2><<<grid, THREADS, 0, stream>>>(x, ws, s, c, p.per_chunk, p.cols,
+  if (p.vec) {
+    channel_stats_vec_kernel<<<grid, VEC_THREADS, 0, stream>>>(x, part, s * c / 8, c, p.period,
+                                                           p.reps, p.per_chunk);
+  } else if (p.vec_n == 2) {
+    channel_stats_kernel<2><<<grid, THREADS, 0, stream>>>(x, part, s, c, p.per_chunk, p.cols,
                                                           p.rows);
   } else {
-    channel_stats_kernel<1><<<grid, THREADS, 0, stream>>>(x, ws, s, c, p.per_chunk, p.cols,
+    channel_stats_kernel<1><<<grid, THREADS, 0, stream>>>(x, part, s, c, p.per_chunk, p.cols,
                                                           p.rows);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  float* red_ws = ws + (long long)n * p.chunks * 2 * c;
-  return reduce_rows(ws, stats, red_ws, n, p.chunks, 2 * c, stream);
+  if (err != cudaSuccess || p.chunks == 1) return err;
+  return reduce_rows(ws, stats, nullptr, n, p.chunks, 2 * c, stream);
 }
 
 }  // namespace mt

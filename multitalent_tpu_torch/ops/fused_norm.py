@@ -102,7 +102,8 @@ def _check_per_sample(v: torch.Tensor, name: str, x: torch.Tensor) -> None:
 
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """Kernel E, stats: (N, 2, C) fp32 per-sample channel sum and sum of
-    squares of x (N, ..., C), deterministic.
+    squares of x (N, ..., C), deterministic; one launch where a sample is
+    one chunk of the kernel's, else two (the partials, then their sum).
 
     CUDA tensors launch the kernel; CPU tensors take channel_stats_ref."""
     if x.device.type == "cpu":
@@ -119,11 +120,12 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
         return stats.zero_()
     with torch.cuda.device(x.device):
         nbytes = lib.mt_channel_stats_workspace(n, s, c)
-        if nbytes <= 0:
+        if nbytes < 0:
             raise ValueError(f"channel_stats: the kernel does not take {tuple(x.shape)}")
-        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
-        code = lib.mt_channel_stats(x.data_ptr(), stats.data_ptr(), ws.data_ptr(), nbytes,
-                                    n, s, c, torch.cuda.current_stream(x.device).cuda_stream)
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device) if nbytes else None
+        code = lib.mt_channel_stats(x.data_ptr(), stats.data_ptr(),
+                                    None if ws is None else ws.data_ptr(), nbytes, n, s, c,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "mt_channel_stats")
     channel_stats.launches += 1
     return stats

@@ -10,7 +10,10 @@ of a 96x192x192 tile at batch 1, each after two untimed warm-up runs. It
 prints the wall time, the summed device time of the kernels and its idle
 share, the device time per family (the hand-written kernels A-F, cuDNN
 convs, PyTorch's elementwise, reduction and copy kernels) and the longest
-kernels; --out writes the same as JSON.
+kernels, then the tile forward's time by CUDA events (single calls and
+queued); --out writes the same as JSON. It takes the package and chip_smoke
+from its own directory, so a copy of it in another checkout profiles that
+checkout.
 """
 from __future__ import annotations
 
@@ -98,6 +101,39 @@ def profile_run(label: str, fn, warm: int = 2) -> dict:
             "top": [(n[:200], ms, c) for n, ms, c in top]}
 
 
+FORWARD_ITERS = 20
+
+
+def time_forward(fn) -> dict:
+    """fn's time on the card by CUDA events: the median over FORWARD_ITERS
+    single calls (each synchronised) and the mean over FORWARD_ITERS calls
+    queued back to back. A tile forward leaves the card idle 13-33% of its
+    wall time, so both read the host's launch cadence too; five single calls
+    spread by up to 1 ms between runs of the same code."""
+    import torch
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    single = []
+    for _ in range(FORWARD_ITERS):
+        start, end = events()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        single.append(start.elapsed_time(end))
+    start, end = events()
+    start.record()
+    for _ in range(FORWARD_ITERS):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"events_ms": sorted(single)[len(single) // 2],
+            "queued_ms": start.elapsed_time(end) / FORWARD_ITERS}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the profiles as JSON to this file")
@@ -147,6 +183,10 @@ def main(argv=None) -> int:
             f"training step (forward + backward, no optimizer), {route}", step)
         out[f"step_{route}"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out[f"forward_{route}"] = profile_run(f"inference forward, {route}", forward)
+        timed = time_forward(forward)
+        out[f"forward_{route}"].update(timed)
+        print(f"   CUDA events, {FORWARD_ITERS} forwards: median {timed['events_ms']:.3f} ms a "
+              f"single forward, {timed['queued_ms']:.3f} ms a forward queued back to back")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -648,6 +648,140 @@ def test_seghead_matches_plain(device, shape, k, out_dtype, with_bias):
     _assert_close(got, ref)
 
 
+def _seghead_case(rng, shape, k, device, with_bias=False):
+    n, c = shape[0], shape[-1]
+    x = _rand(rng, shape, 2.0).to(device, torch.bfloat16)
+    w = _rand(rng, (k, c, 1, 1, 1), 0.3).to(device)
+    b = _rand(rng, (k,)).to(device) if with_bias else None
+    sc = (_rand(rng, (n, c)).abs() + 0.5).to(device)
+    sh = _rand(rng, (n, c)).to(device)
+    return x, w, b, sc, sh
+
+
+def _guarded(n, k, spatial, dtype, device):
+    """A NaN-filled output (n, k, *spatial) that is the front of a longer flat
+    buffer: the guard elements after it must stay NaN."""
+    size = n * k * int(np.prod(spatial))
+    flat = torch.full((size + 4096,), float("nan"), dtype=dtype, device=device)
+    return flat[:size].view(n, k, *spatial), flat[size:]
+
+
+@pytest.mark.parametrize("c,k", [(8, 47), (12, 47), (30, 47), (32, 47), (60, 47),
+                                 (30, 1), (30, 5), (30, 64), (69, 47), (128, 47)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_seghead_widths_match_plain(device, c, k, out_dtype):
+    """Kernel F at the widths it takes (C padded to 16, 32, 64 or 128
+    channels; K rows in passes of up to 64), N = 2, a volume of S = 105
+    voxels (a ragged last tile, S % 8 != 0: narrow stores), bias on, into a
+    NaN-filled output whose guard after the last element stays NaN."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(c * 100 + k)
+    shape = (2, 3, 5, 7, c)
+    x, w, b, sc, sh = _seghead_case(rng, shape, k, device, with_bias=True)
+    out, guard = _guarded(2, k, shape[1:4], out_dtype, device)
+    got = sg.seghead(x, w, b, sc, sh, 1e-2, out_dtype, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.isnan(guard).all()
+    assert torch.isfinite(got).all()
+    _assert_close(got, sg.seghead_ref(x, w, b, sc, sh, 1e-2, torch.float32))
+    # without the prologue
+    got = sg.seghead(x, w, None, None, None, 1e-2, out_dtype)
+    _assert_close(got, sg.seghead_ref(x, w, None, None, None, 1e-2, torch.float32))
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 16, 16, 30), (2, 4, 16, 16, 30),
+                                   (1, 5, 9, 13, 30), (3, 1, 1, 70, 30)])
+def test_seghead_tiles_and_samples_match_plain(device, shape):
+    """Kernel F's walk: S a multiple of the 64-voxel tile and 16-byte stores
+    (N = 1, 2), a ragged S (585 voxels), and samples of 70 voxels whose tiles
+    straddle no sample (3 samples, bf16 out)."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(11)
+    x, w, b, sc, sh = _seghead_case(rng, shape, 47, device)
+    out, guard = _guarded(shape[0], 47, shape[1:4], torch.bfloat16, device)
+    got = sg.seghead(x, w, b, sc, sh, 1e-2, torch.bfloat16, out=out)
+    torch.cuda.synchronize()
+    assert torch.isnan(guard).all() and torch.isfinite(got).all()
+    _assert_close(got, sg.seghead_ref(x, w, b, sc, sh, 1e-2, torch.float32))
+
+
+def test_seghead_takes_a_2_byte_aligned_view(device):
+    """A contiguous bf16 input at an odd element offset: kernel F copies its
+    runs element by element instead of 16-byte cp.async."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(12)
+    shape = (2, 3, 5, 7, 30)
+    flat = _rand(rng, (1 + int(np.prod(shape)),), 2.0).to(device, torch.bfloat16)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 4 == 2
+    _, w, b, sc, sh = _seghead_case(rng, shape, 47, device, with_bias=True)
+    got = sg.seghead(x, w, b, sc, sh, 1e-2, torch.bfloat16)
+    _assert_close(got, sg.seghead_ref(x, w, b, sc, sh, 1e-2, torch.float32))
+
+
+def test_seghead_refreshes_its_prepared_weight_after_an_in_place_update(device):
+    """The padded bf16 weight is built once per weight version: a second call
+    reuses it, an in-place update of the weight (as an optimizer step or a
+    load_state_dict makes) rebuilds it."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(13)
+    x, w, b, sc, sh = _seghead_case(rng, (1, 4, 8, 8, 30), 47, device)
+    w = torch.nn.Parameter(w)
+    first = sg.seghead(x, w, b, sc, sh, 1e-2, torch.float32)
+    prepared = sg.prepared_head_weight(w, device)
+    assert sg.prepared_head_weight(w, device) is prepared
+    with torch.no_grad():
+        w.mul_(-2.0)
+    again = sg.seghead(x, w, b, sc, sh, 1e-2, torch.float32)
+    assert sg.prepared_head_weight(w, device) is not prepared
+    _assert_close(again, sg.seghead_ref(x, w.detach(), b, sc, sh, 1e-2, torch.float32))
+    assert not torch.allclose(first, again)
+
+
+@pytest.mark.parametrize("c", [1, 3, 8, 13, 30, 60, 240, 320])
+@pytest.mark.parametrize("spatial", [(4, 6, 8), (5, 7, 9), (24, 48, 48)])
+def test_channel_stats_widths_match_plain_and_repeat_bit_for_bit(device, c, spatial):
+    """Kernel E's stats pass at every channel period (c / gcd(c, 8): 1, 3,
+    1, 13, 15, 15, 30, 40), on runs that 16-byte vectors fit (4x6x8), that
+    they do not (5x7x9: s * c % 8 != 0 but at c = 8; the pair or single
+    channel form) and of many chunks (24x48x48: the partials and one
+    reduce_rows launch), N = 2: within 1e-4 of the sums of |terms|, and two
+    calls bit-equal."""
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    if c >= 240 and spatial == (24, 48, 48):
+        spatial = (12, 24, 24)
+    rng = np.random.default_rng(c)
+    x = (_rand(rng, (2, *spatial, c), 3.0) + 1).to(device, torch.bfloat16)
+    first, second = fn.channel_stats(x), fn.channel_stats(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err = ((first - fn.channel_stats_ref(x)).abs() / fn.channel_stats_ref(x.abs())).max()
+    assert err.item() <= 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("spatial", [(6, 12, 12), (6, 6, 6)])
+def test_d_split_k_stats_by_kernel_e_at_320(device, n, spatial):
+    """Kernel D at 320 channels splits its K loop and takes its stats from
+    kernel E's stats pass over the reduced output: within STATS_RTOL of the
+    plain stats of that output."""
+    rng = np.random.default_rng(17)
+    c = 320
+    assert cv.conv3d_same_plan(n, *spatial, c, c, "d")["splits"] > 1
+    x = _rand(rng, (n, *spatial, c), 2.0).to(device, torch.bfloat16)
+    w = _rand(rng, (c, c, 3, 3, 3), (2 / (27 * c)) ** 0.5).to(device)
+    b = _rand(rng, (c,), 0.1).to(device)
+    sc = (_rand(rng, (n, c)).abs() + 0.5).to(device)
+    sh = _rand(rng, (n, c)).to(device)
+    got, stats = cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(w), b, sc, sh,
+                                       out=_nan_filled((n, *spatial, c), device),
+                                       stats=_nan_stats(n, c, device))
+    torch.cuda.synchronize()
+    ref, _ = cv.conv3d_same_affine_ref(x, w.to(torch.bfloat16), b, sc, sh)
+    _assert_close(got, ref.float())
+    assert _stats_err(stats, got) <= STATS_RTOL
+
+
 def test_conv3d_same_affine_gradients_match_the_plain_composition(device):
     """Conv3dSameAffine's backward (kernels A and C plus the elementwise
     terms) against autograd through the plain composition, in bf16 on the

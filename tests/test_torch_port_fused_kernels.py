@@ -298,3 +298,67 @@ def test_fused_wrappers_count_only_kernel_launches():
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert [k.launches for k in counters] == before
+
+
+@pytest.mark.parametrize("k,c", [(47, 30), (1, 8), (5, 12), (64, 60), (47, 69), (100, 128)])
+def test_prepared_head_weight_pads_with_zeros_and_rounds_as_the_head_matrix(k, c):
+    """Kernel F's weight operand: the (K, C) head matrix in bf16, rounded as
+    _head_matrix rounds it, padded to (K rounded up to 16, 16/32/64/128)
+    with exact zeros (padding channels meet only zero activations, padding
+    rows are never stored, but a NaN there would still spread)."""
+    w = _t((np.random.RandomState(k + c).randn(k, c, 1, 1, 1) * 0.3).astype(np.float32))
+    got = sg.prepare_head_weight(w)
+    kp, cp = -(-k // 16) * 16, sg.padded_channels(c)
+    assert got.dtype == torch.bfloat16 and got.shape == (kp, cp) and cp >= c
+    assert torch.equal(got[:k, :c], sg._head_matrix(w, torch.bfloat16))
+    assert (got[k:] == 0).all() and (got[:, c:] == 0).all()
+    assert not torch.signbit(got[k:]).any() and not torch.signbit(got[:, c:]).any()
+
+
+def test_prepared_head_weight_is_built_once_per_weight_version():
+    """The prepared weight is kept on the weight: a second call returns it,
+    an in-place update (an optimizer step, a load_state_dict) rebuilds it
+    from the new values."""
+    w = torch.nn.Parameter(_t(np.random.RandomState(3).randn(47, 30, 1, 1, 1)
+                              .astype(np.float32)))
+    first = sg.prepared_head_weight(w, torch.device("cpu"))
+    assert sg.prepared_head_weight(w, torch.device("cpu")) is first
+    with torch.no_grad():
+        w.mul_(-2.0)
+    again = sg.prepared_head_weight(w, torch.device("cpu"))
+    assert again is not first
+    assert torch.equal(again, sg.prepare_head_weight(w))
+    assert torch.equal(again[:47, :30], (-2.0 * first[:47, :30].float()).to(torch.bfloat16))
+
+
+def test_seghead_ref_matches_pallas_seghead_at_the_flagship_widths():
+    """Kernel F's plain version (the card's reference for the kernel) at the
+    flagship head, 30 -> 47 channels, N = 2, with the normalize prologue, vs
+    pallas_seghead.py:_kernel in interpret mode on the unpacked tensor
+    (factors (1, 1))."""
+    rng = np.random.RandomState(21)
+    n, c, k = 2, 30, 47
+    x = (rng.randn(n, 4, 8, 16, c) * 2).astype(np.float32)
+    w = (rng.randn(1, 1, 1, c, k) * c ** -0.5).astype(np.float32)
+    s = (rng.rand(n, c) + 0.5).astype(np.float32)
+    t = rng.randn(n, c).astype(np.float32)
+    ref = seghead_d2s(jnp.asarray(x), jnp.asarray(w), None, factors=(1, 1),
+                      in_scale=jnp.asarray(s), in_shift=jnp.asarray(t), negative_slope=SLOPE,
+                      interpret=True)
+    got = sg.seghead_ref(_t(x), _t(w[0, 0, 0].T.reshape(k, c, 1, 1, 1)), None, _t(s), _t(t),
+                         SLOPE, torch.float32)
+    assert got.shape == (n, k, 4, 8, 16) and got.is_contiguous()
+    np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1), np.asarray(ref),
+                               atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 5, 7, 320), (2, 1, 3, 9, 320)])
+def test_channel_stats_ref_matches_packed_conv_at_320_channels(shape):
+    """Kernel E's stats' plain version (the card's reference for the kernel
+    and for kernel D's split-K stats) at the deepest width, 320 channels, and
+    an odd voxel count (105; 27), vs packed_conv.py:channel_stats."""
+    x = (np.random.RandomState(5).randn(*shape) * 3 + 1).astype(np.float32)
+    got = fn.channel_stats_ref(_t(x))
+    assert got.shape == (shape[0], 2, 320)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pc.channel_stats(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-3)
