@@ -41,15 +41,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    both routes again with a faulty LeakyReLU slope, whose readings must break
    the bounds (controls);
 5. the training path through the user's entry point: synthetic preprocessed
-   MultiTalent cases of two source datasets (valid regions stamped) go
-   through `multitalent_tpu_torch.cli.train.main` with MultiTalent_trainer_ddp
-   at full flagship width, batch 2, bf16, deep supervision, for a few steps;
+   MultiTalent cases of two source datasets (valid regions and export
+   properties stamped, gt_segmentations/) go through
+   `multitalent_tpu_torch.cli.train.main` with MultiTalent_trainer_ddp at
+   full flagship width, batch 2, bf16, deep supervision, for a few steps,
+   then validate one case of each dataset (trainer.validate: all 47 region
+   masks and the labelmap at the original shape, a finite Dice of every
+   valid label in summary_Task003_Liver.json and summary_Task009_Spleen.json);
    the losses must be finite, every weight must move, the A/B/C launch counts
-   must equal their per-step counts times the steps (plus the validation
-   forward's A/B), one step's dw of every kernel conv must match the plain
-   version on the same bf16 inputs, and the written model folder must predict
-   through predict_multitalent; prints seconds per step and peak memory;
-5b. the same with MTTPU_FUSED_TRAIN=1 (kernel D forward, A and C backward);
+   must equal their per-step counts times the steps plus the per-forward
+   counts times the validation batches and the validation's forwards (tiles
+   x 8 mirror combinations), one step's dw of every kernel conv must match
+   the plain version on the same bf16 inputs, and the written model folder
+   must predict through predict_multitalent; prints seconds per step, peak
+   memory and validation seconds per case;
+5b. the same with MTTPU_FUSED_TRAIN=1 (kernel D forward, A and C backward)
+   and its validation under MTTPU_FUSED_NORM=1 (D, E, F);
+5c. `-val --val_folder validation_fused` under MTTPU_FUSED_NORM=1 on phase
+   5's folder: exact D/E/F counts, masks against phase 5's validation;
+5d. phase 5's weights written as a JAX-layout folder (flax `.ckpt` through
+   io/flax_ckpt.py, with its sidecar) and restored on the card (timed);
+   predict_multitalent from it must write what it wrote from the `.model`
+   folder, bit for bit;
+5e. nnUNetTrainerV2_warmupsegheads -pretrained_weights <that .ckpt> on a
+   one-class downstream task for 2 steps and its validation: the backbone
+   loads equal to the pretrained weights and stays bit-unchanged, the heads
+   move, kernel C launches 0 times in phase 1;
 6. the probes (multitalent_tpu_torch/probes, the ports of scripts/' Pallas
    probe harnesses): each probe's entry point (`main`) as a user runs it,
    with every launch count set to 0 before and read after (each count must
@@ -69,7 +86,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    training step (phase 5), B over one forward (phase 4), C over one step
    (phase 5), D over one fused forward (phase 4b) and one fused step (phase
    5b); E's stats row lists its six shapes and sums them over one fused
-   forward (phase 4b)), then the result line.
+   forward (phase 4b)), then the result line. Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -128,6 +145,12 @@ TRAIN_BATCH = 2  # the per-GPU batch of the shipped bs4 run (BASELINE.md:11)
 DW_RTOL = 1e-3
 TRAIN_STEPS = 6         # training iterations; the first 2 are warm-up
 TRAIN_CASE_SHAPE = (128, 288, 288)  # synthetic preprocessed cases
+# the split's validation cases, one a source dataset: smaller than a training
+# case, still 2 x 2 x 2 tiles; their original grid is at CASE_SPACING_ZYX,
+# cropped CROP_MARGIN voxels inside the volume, so the export resizes back
+VAL_CASE_SHAPE = (112, 224, 224)
+VAL_KEYS = ("003_001", "009_003")
+CROP_MARGIN = (2, 4, 4)
 # kernel D's stats (kernel E's too): fp32 sums of the same bf16 values in
 # another order, relative to the sums of |terms|
 STATS_RTOL = 1e-3
@@ -718,18 +741,22 @@ def phase_main_path(workdir: str, fused: bool = False) -> dict:
             "forwards": forwards, "out": out}
 
 
-def compare_masks(unfused: dict, fused: dict) -> dict:
-    """Every region mask of the fused predict CLI run against the unfused
-    run's, on the same case and weights."""
+def _mask_agreement(a: str, b: str, cases) -> tuple[float, float]:
+    """Worst and mean share of equal voxels of the region masks
+    (individual/<region>/<case>.nii.gz) of two output folders."""
     import numpy as np
     from multitalent_tpu_torch.inference.predict import REGIONS
     from multitalent_tpu_torch.io import read_nifti
-    agree = []
-    for r in REGIONS:
-        a, _ = read_nifti(os.path.join(fused["out"], "individual", r, "case.nii.gz"))
-        b, _ = read_nifti(os.path.join(unfused["out"], "individual", r, "case.nii.gz"))
-        agree.append(float(np.mean(a == b)))
-    worst, mean = min(agree), float(np.mean(agree))
+    agree = [float(np.mean(read_nifti(os.path.join(a, "individual", r, k + ".nii.gz"))[0]
+                           == read_nifti(os.path.join(b, "individual", r, k + ".nii.gz"))[0]))
+             for k in cases for r in REGIONS]
+    return min(agree), float(np.mean(agree))
+
+
+def compare_masks(unfused: dict, fused: dict) -> dict:
+    """Every region mask of the fused predict CLI run against the unfused
+    run's, on the same case and weights."""
+    worst, mean = _mask_agreement(fused["out"], unfused["out"], ("case",))
     print(f"fused vs unfused predict CLI, region masks: worst region {worst:.6f} (bound "
           f"{MASK_AGREE_WORST}), mean {mean:.6f} (bound {MASK_AGREE_MEAN}); seconds per "
           f"case {fused['seconds_per_case']:.2f} fused vs {unfused['seconds_per_case']:.2f} "
@@ -899,11 +926,41 @@ def phase_fused_tile_probabilities() -> dict:
     return out
 
 
+def _export_properties(shape) -> tuple[dict, tuple]:
+    """The export properties of a preprocessed case of `shape` at the plans'
+    spacing whose original grid is at CASE_SPACING_ZYX, cropped CROP_MARGIN
+    inside its volume; and the original volume's shape."""
+    import numpy as np
+    after = tuple(int(round(s * t / o)) for s, t, o in zip(shape, SPACING_ZYX, CASE_SPACING_ZYX))
+    original = tuple(a + 2 * m for a, m in zip(after, CROP_MARGIN))
+    return {"original_spacing": np.array(CASE_SPACING_ZYX),
+            "spacing_after_resampling": np.array(SPACING_ZYX),
+            "size_after_cropping": after,
+            "crop_bbox": [[m, m + a] for m, a in zip(CROP_MARGIN, after)],
+            "original_size_of_raw_data": np.array(original),
+            "itk_spacing": CASE_SPACING_ZYX[::-1], "itk_origin": (0.0, 0.0, 0.0),
+            "itk_direction": (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)}, original
+
+
+def _write_gt(path: str, seg, props: dict) -> None:
+    """The ground truth of a case: its labels resized nearest to the cropped
+    grid and put back into the original volume."""
+    import numpy as np
+    from multitalent_tpu_torch.io import Geometry, write_nifti
+    after = props["size_after_cropping"]
+    idx = [np.minimum((np.arange(a) * s) // a, s - 1) for a, s in zip(after, seg.shape)]
+    gt = np.zeros(tuple(int(v) for v in props["original_size_of_raw_data"]), np.uint8)
+    gt[tuple(slice(lo, hi) for lo, hi in props["crop_bbox"])] = seg[np.ix_(*idx)]
+    write_nifti(path, gt, Geometry(spacing=CASE_SPACING_ZYX[::-1]))
+
+
 def _write_training_task(root: str, plans) -> tuple[str, str]:
     """A preprocessed MultiTalent task of two source datasets: smooth
     z-scored CT-like volumes with a liver (+ tumour) in the Task003 cases and
     a spleen in the Task009 cases, labels in the global 1..47 space and each
-    case's valid regions stamped, as Task100's preprocessing leaves them."""
+    case's valid regions and export properties stamped, as Task100's
+    preprocessing leaves them, and gt_segmentations/. The split trains on all
+    four cases and validates on VAL_KEYS, one a dataset."""
     import numpy as np
     from multitalent_tpu_torch.io import save_plans
     from multitalent_tpu_torch.paths import default_plans_identifier
@@ -913,30 +970,77 @@ def _write_training_task(root: str, plans) -> tuple[str, str]:
     ddir = os.path.join(root, "preprocessed", task)
     folder = os.path.join(ddir, plans.data_identifier + "_stage0")
     os.makedirs(folder)
+    os.makedirs(os.path.join(ddir, "gt_segmentations"))
     rng = np.random.default_rng(SEED)
-    axes = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in TRAIN_CASE_SHAPE],
-                       indexing="ij")
     cases = [("003", ("03_liver", "03_cancer"), (1, 2))] * 2 + [("009", ("09_spleen",), (8,))] * 2
     keys = []
     for i, (prefix, regions, labels) in enumerate(cases):
+        key = f"{prefix}_{i:03d}"
+        shape = VAL_CASE_SHAPE if key in VAL_KEYS else TRAIN_CASE_SHAPE
+        axes = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in shape],
+                           indexing="ij")
         data = np.where(sum(a * a for a in axes) < 0.8, 0.5, -1.5).astype(np.float32)
-        seg = np.zeros(TRAIN_CASE_SHAPE, np.float32)
+        seg = np.zeros(shape, np.float32)
         for label in labels:
             c = rng.uniform(-0.4, 0.4, 3)
             r = rng.uniform(0.1, 0.3, 3)
             inside = sum(((a - ci) / ri) ** 2 for a, ci, ri in zip(axes, c, r)) < 1
             seg[inside] = label
             data[inside] = rng.uniform(-1, 2)
-        data += rng.standard_normal(TRAIN_CASE_SHAPE, dtype=np.float32) * 0.1
-        key = f"{prefix}_{i:03d}"
+        data += rng.standard_normal(shape, dtype=np.float32) * 0.1
         np.savez(os.path.join(folder, key + ".npz"), data=np.stack([data, seg]))
+        props, _ = _export_properties(shape)
         save_pickle({"class_locations": sample_class_locations(seg, list(labels)),
-                     "valid_regions": regions, "valid_labels": list(labels)},
+                     "valid_regions": regions, "valid_labels": list(labels), **props},
                     os.path.join(folder, key + ".pkl"))
+        _write_gt(os.path.join(ddir, "gt_segmentations", key + ".nii.gz"), seg, props)
         keys.append(key)
     save_plans(plans, os.path.join(ddir, f"{default_plans_identifier}_plans_3D.pkl"))
-    save_pickle([{"train": keys, "val": keys}] * 12, os.path.join(ddir, "splits_custom.pkl"))
+    save_pickle([{"train": keys, "val": list(VAL_KEYS)}] * 12,
+                os.path.join(ddir, "splits_custom.pkl"))
     return task, ddir
+
+
+def _validation_forwards() -> int:
+    """Network calls of validating VAL_KEYS: tiles x 8 mirror combinations."""
+    import numpy as np
+    from multitalent_tpu_torch.ops.sliding_window import compute_steps_for_sliding_window
+    tiles = int(np.prod([len(s) for s in compute_steps_for_sliding_window(
+        PATCH, VAL_CASE_SHAPE, 0.5)]))
+    return tiles * 8 * len(VAL_KEYS)
+
+
+def _check_validation(folder: str, trainer) -> dict:
+    """A MultiTalent validation folder: per case the labelmap of its
+    dataset's labels and all 47 region masks at the original shape, and a
+    finite Dice of every valid label in summary_<task>.json."""
+    import numpy as np
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    from multitalent_tpu_torch.utils.fileops import load_json
+    _, original = _export_properties(VAL_CASE_SHAPE)
+    for key, allowed in zip(VAL_KEYS, ({0, 1, 2}, {0, 8})):
+        seg, _ = read_nifti(os.path.join(folder, key + ".nii.gz"))
+        if seg.shape != original or not set(np.unique(seg).tolist()) <= allowed:
+            raise AssertionError(f"{folder}: labelmap of {key} {seg.shape} "
+                                 f"{np.unique(seg)[:5]}")
+        for r in REGIONS:
+            mask, _ = read_nifti(os.path.join(folder, "individual", r, key + ".nii.gz"))
+            if mask.shape != original or not set(np.unique(mask).tolist()) <= {0, 1}:
+                raise AssertionError(f"{folder}: region {r} of {key}: {mask.shape}")
+    dice = {}
+    for task, labels in (("Task003_Liver", ("1", "2")), ("Task009_Spleen", ("8",))):
+        mean = load_json(os.path.join(folder, f"summary_{task}.json"))["results"]["mean"]
+        dice.update({label: mean[label]["Dice"] for label in labels})
+    if not all(np.isfinite(v) for v in dice.values()):
+        raise AssertionError(f"{folder}: Dice {dice}")
+    forwards = sum(t["forwards"] for t in trainer.validation_timings)
+    if forwards != _validation_forwards():
+        raise AssertionError(f"{forwards} validation forwards, expected "
+                             f"{_validation_forwards()}")
+    return {"dice": dice, "forwards": forwards,
+            "seconds_per_case": trainer.validation_seconds / len(VAL_KEYS),
+            "predict_s": [round(t["predict_s"], 3) for t in trainer.validation_timings]}
 
 
 def _check_dw_through_kernels(trainer) -> float:
@@ -1004,8 +1108,10 @@ def _dw_key(ins, g) -> tuple:
 
 
 def phase_training(workdir: str, fused: bool = False) -> dict:
-    """The train CLI at full flagship width, unfused or (MTTPU_FUSED_TRAIN=1)
-    fused, then a prediction from the folder it wrote."""
+    """The train CLI at full flagship width, unfused or fused
+    (MTTPU_FUSED_TRAIN=1, and MTTPU_FUSED_NORM=1 for its validation), with
+    the validation after training, then a prediction from the folder it
+    wrote."""
     import numpy as np
     import torch
     from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
@@ -1027,7 +1133,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     os.environ.update({"nnUNet_preprocessed": os.path.join(workdir, "preprocessed"),
                        "RESULTS_FOLDER": results,
                        "MTTPU_MAX_EPOCHS": "1", "MTTPU_ITERS_PER_EPOCH": str(TRAIN_STEPS),
-                       "MTTPU_VAL_ITERS": "1", "MTTPU_FUSED_TRAIN": "1" if fused else "0"})
+                       "MTTPU_VAL_ITERS": "1", "MTTPU_FUSED_TRAIN": "1" if fused else "0",
+                       "MTTPU_FUSED_NORM": "1" if fused else "0"})
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1041,13 +1148,18 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
         if fused:
             per_step = net.fused_kernel_launches_per_step()
             per_fwd = net.fused_kernel_launches_per_forward(differentiable=True)
+            per_val = net.fused_kernel_launches_per_forward()
         else:
             per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+            per_val = per_fwd
+        fold = trainer.output_folder
+        validation = _check_validation(os.path.join(fold, "validation_raw"), trainer)
         steps, val = trainer.step, trainer.num_val_batches_per_epoch
-        expect = {k: a + b for (k, a), b in zip(_expect(per_step, steps).items(),
-                                                _expect(per_fwd, val).values())}
+        expect = {k: a + b + c for (k, a), b, c in zip(
+            _expect(per_step, steps).items(), _expect(per_fwd, val).values(),
+            _expect(per_val, validation["forwards"]).values())}
         if (steps != TRAIN_STEPS or launches != expect
-                or any(launches[k] == 0 for k in per_step)):
+                or any(launches[k] == 0 for k in (*per_step, *per_val))):
             raise AssertionError(f"{route}: {steps} steps, launches {launches}, "
                                  f"expected {expect}")
         losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
@@ -1075,7 +1187,13 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
               f"{train_s:.1f} s")
         print(f"training launches ({route}): { {k: v for k, v in launches.items() if v} } "
               f"= per step {per_step} x {steps} + per forward {per_fwd} x {val} "
-              f"(validation)")
+              f"(validation batches) + per forward {per_val} x {validation['forwards']} "
+              f"(validation of {len(VAL_KEYS)} cases of {VAL_CASE_SHAPE}, 8 tiles x 8 "
+              f"mirror combinations each)")
+        print(f"validation ({route}): {validation['seconds_per_case']:.2f} s per case "
+              f"(predict {validation['predict_s']} s); labelmap + 47 region NIfTIs per case "
+              f"at {_export_properties(VAL_CASE_SHAPE)[1]}; Dice "
+              f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
         dw_worst, dw_shapes, a_shapes, b_shapes, d_shapes = _check_dw_through_kernels(trainer)
         if not fused and sum(a_shapes.values()) != per_step["conv3d_same"]:
             raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one step, "
@@ -1088,6 +1206,7 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
                                  f"expected {per_step['conv3d_same_affine']}")
     finally:
         os.environ.pop("MTTPU_FUSED_TRAIN")
+        os.environ.pop("MTTPU_FUSED_NORM")
 
     model = os.path.join(results, "nnUNet", "3d_fullres", task,
                          f"MultiTalent_trainer_ddp__{default_plans_identifier}")
@@ -1103,7 +1222,182 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
           f"at {CASE_SHAPE}")
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
             "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes, "a_shapes": a_shapes,
-            "b_shapes": b_shapes, "d_shapes": d_shapes}
+            "b_shapes": b_shapes, "d_shapes": d_shapes, "validation": validation,
+            "fold": fold, "predicted": out, "task": task}
+
+
+def phase_fused_validation(workdir: str, training: dict) -> dict:
+    """The train CLI's -val on phase 5's folder with MTTPU_FUSED_NORM=1
+    (kernels D, E and F): exact launch counts, every region mask against
+    phase 5's validation."""
+    from multitalent_tpu_torch.cli.train import main as train_main
+    os.environ.update({"RESULTS_FOLDER": os.path.join(workdir, "results_unfused"),
+                       "MTTPU_FUSED_NORM": "1"})
+    try:
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", "MultiTalent_trainer_ddp", training["task"], "0", "-val",
+             "--val_folder", "validation_fused", "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MTTPU_FUSED_NORM")
+    validation = _check_validation(os.path.join(training["fold"], "validation_fused"), trainer)
+    per = trainer.network.fused_kernel_launches_per_forward()
+    expect = _expect(per, validation["forwards"])
+    if launches != expect or any(launches[k] == 0 for k in per):
+        raise AssertionError(f"fused -val launches {launches}, expected {expect}")
+    worst, mean = _mask_agreement(os.path.join(training["fold"], "validation_fused"),
+                                  os.path.join(training["fold"], "validation_raw"), VAL_KEYS)
+    print(f"fused -val: launches { {k: v for k, v in launches.items() if v} } = per forward "
+          f"{per} x {validation['forwards']}; {validation['seconds_per_case']:.2f} s per case "
+          f"(predict {validation['predict_s']} s), CLI {wall:.1f} s; region masks vs the "
+          f"unfused validation: worst {worst:.6f} (bound {MASK_AGREE_WORST}), mean {mean:.6f} "
+          f"(bound {MASK_AGREE_MEAN}); Dice "
+          f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
+    if not (worst >= MASK_AGREE_WORST and mean >= MASK_AGREE_MEAN):
+        raise AssertionError(f"fused validation masks disagree: worst {worst}, mean {mean}")
+    return {"launches": launches, "validation": validation, "worst": worst, "mean": mean}
+
+
+def phase_jax_folder(workdir: str, training: dict) -> dict:
+    """Phase 5's trained weights as a JAX-layout folder (fold_0/*.ckpt flax
+    msgpack through io/flax_ckpt.dumps and the inverse bridge, with its
+    sidecar): restored on the card with the weights bit-equal, then
+    predict_multitalent from it must write the masks and labelmap it wrote
+    from the `.model` folder of the same weights, bit for bit."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               save_jax_model_folder)
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    plans = _flagship_plans()
+    sd = torch.load(os.path.join(training["fold"], "model_final_checkpoint.model"),
+                    map_location="cpu", weights_only=False)["state_dict"]
+    model = os.path.join(workdir, "jax_model")
+    t0 = time.perf_counter()
+    save_jax_model_folder(model, plans, [sd], "MultiTalentTrainer",
+                          trainer_bases=["TrainerV2", "NetworkTrainerBase"])
+    write_s = time.perf_counter() - t0
+    ckpt = os.path.join(model, "fold_0", "model_final_checkpoint.ckpt")
+    t0 = time.perf_counter()
+    restored = load_model_and_checkpoint_files(model, [0], device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = restored.networks[0].state_dict()
+    if not all(torch.equal(v.cpu(), sd[k]) for k, v in got.items()):
+        raise AssertionError("weights restored from the .ckpt folder differ")
+    per = restored.networks[0].kernel_launches_per_forward()
+    del restored, got
+    out = os.path.join(workdir, "out_jax_folder")
+    timings, launches = _run_counted(lambda: predict_main(
+        ["-i", os.path.join(workdir, "in"), "-o", out, "-m", model, "-f", "0",
+         "--device", "cuda", "--disable_tta"]))
+    n_tiles, _ = _case_tiles()
+    expect = _expect(per, n_tiles)
+    if timings[0]["forwards"] != n_tiles or launches != expect:
+        raise AssertionError(f"JAX-layout predict launches {launches}, expected {expect}")
+    for rel in ["case.nii.gz"] + [os.path.join("individual", r, "case.nii.gz") for r in REGIONS]:
+        a, _ = read_nifti(os.path.join(out, rel))
+        b, _ = read_nifti(os.path.join(training["predicted"], rel))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{rel} from the .ckpt folder differs from the .model folder's")
+    print(f"JAX-layout folder: {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB .ckpt written in "
+          f"{write_s:.2f} s, restored on the card in {restore_s:.2f} s; predict_multitalent "
+          f"from it: labelmap + {len(REGIONS)} region masks bit-equal to the .model folder's; "
+          f"launches { {k: v for k, v in launches.items() if v} } = per forward {per} x "
+          f"{n_tiles}")
+    return {"ckpt": ckpt, "restore_s": restore_s, "write_s": write_s, "launches": launches}
+
+
+def _write_finetune_task(root: str, plans) -> tuple[str, object]:
+    """A downstream task of one class for fine-tuning: the Task009 cases of
+    the MultiTalent task, spleen 8 -> 1, with their ground truth; its plans
+    the flagship's with one class; train on both, validate on one."""
+    import numpy as np
+    from multitalent_tpu_torch.io import Plans, read_nifti, save_plans, write_nifti
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
+    task = "Task009_Spleen"
+    src = os.path.join(root, "preprocessed", "Task100_MultiTalent")
+    ddir = os.path.join(root, "preprocessed", task)
+    folder = os.path.join(ddir, plans.data_identifier + "_stage0")
+    os.makedirs(folder)
+    os.makedirs(os.path.join(ddir, "gt_segmentations"))
+    keys = ["009_002", "009_003"]
+    for key in keys:
+        data = np.load(os.path.join(src, plans.data_identifier + "_stage0", key + ".npz"))["data"]
+        data[-1][data[-1] == 8] = 1
+        np.savez(os.path.join(folder, key + ".npz"), data=data)
+        props = load_pickle(os.path.join(src, plans.data_identifier + "_stage0", key + ".pkl"))
+        props["class_locations"] = {1: props["class_locations"][8]}
+        save_pickle(props, os.path.join(folder, key + ".pkl"))
+        gt, geom = read_nifti(os.path.join(src, "gt_segmentations", key + ".nii.gz"))
+        write_nifti(os.path.join(ddir, "gt_segmentations", key + ".nii.gz"),
+                    (gt == 8).astype(np.uint8), geom)
+    one = Plans.from_dict({**plans.to_dict(), "num_classes": 1, "all_classes": [1]})
+    save_plans(one, os.path.join(ddir, f"{default_plans_identifier}_plans_3D.pkl"))
+    save_pickle([{"train": keys, "val": ["009_003"]}] * 5, os.path.join(ddir, "splits_final.pkl"))
+    return task, one
+
+
+def phase_warmup(workdir: str, jax_folder: dict) -> dict:
+    """nnUNetTrainerV2_warmupsegheads -pretrained_weights <phase 5's weights
+    as the JAX .ckpt>, 2 steps of the head warm-up (AdamW on the heads only)
+    on a one-class downstream task, then its validation: the backbone loads
+    equal to the pretrained weights and stays bit-unchanged, the heads move,
+    and no backward runs through the backbone (kernel C: 0 launches; A and B
+    launch only in forwards)."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.inference.model_restore import checkpoint_state_dict
+    from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+    from multitalent_tpu_torch.training.trainers import init_weights_he
+    plans = _flagship_plans()
+    task, one = _write_finetune_task(workdir, plans)
+    os.environ.update({"RESULTS_FOLDER": os.path.join(workdir, "results_warmup"),
+                       "MTTPU_MAX_EPOCHS": "1", "MTTPU_ITERS_PER_EPOCH": "2",
+                       "MTTPU_VAL_ITERS": "1"})
+    t0 = time.perf_counter()
+    trainer, launches = _run_counted(lambda: train_main(
+        ["3d_fullres", "nnUNetTrainerV2_warmupsegheads", task, "0", "-pretrained_weights",
+         jax_folder["ckpt"], "--device", "cuda"]))
+    wall = time.perf_counter() - t0
+    pretrained = checkpoint_state_dict(jax_folder["ckpt"], plans, 0)
+    fresh = build_unet_from_plans(one, 0, num_classes=trainer.num_classes)
+    init_weights_he(fresh, torch.Generator().manual_seed(trainer.seed))
+    init = fresh.state_dict()
+    for k, v in trainer.network.state_dict().items():
+        v = v.cpu()
+        if k.startswith("seg_outputs."):
+            if k != "seg_outputs.0.weight" and torch.equal(v, init[k]):
+                raise AssertionError(f"head {k} did not move")
+        elif not torch.equal(v, pretrained[k]):
+            raise AssertionError(f"backbone {k} is not the pretrained weight")
+    per = trainer.network.kernel_launches_per_forward()
+    forwards = sum(t["forwards"] for t in trainer.validation_timings)
+    calls = trainer.step + trainer.num_val_batches_per_epoch + forwards
+    expect = _expect(per, calls)
+    if trainer.step != 2 or trainer.optimizer_phase != 1 or launches != expect:
+        raise AssertionError(f"warm-up: {trainer.step} steps, phase {trainer.optimizer_phase}, "
+                             f"launches {launches}, expected {expect}")
+    fold = trainer.output_folder
+    for name in ("validation_raw/009_003.nii.gz", "validation_raw/summary.json",
+                 "postprocessing.json"):
+        if not os.path.isfile(os.path.join(fold, name)):
+            raise AssertionError(f"warm-up run wrote no {name}")
+    step_s = trainer.step_seconds
+    print(f"warm-up (nnUNetTrainerV2_warmupsegheads, phase 1, -pretrained_weights .ckpt): "
+          f"seconds per step {', '.join(f'{v:.3f}' for v in step_s)}; kernel C launches in "
+          f"phase 1: {launches['conv3d_same_wgrad']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = per forward {per} x {calls} "
+          f"({trainer.step} steps + {trainer.num_val_batches_per_epoch} validation batch + "
+          f"{forwards} validation forwards); backbone bit-equal to the pretrained weights, "
+          f"heads moved; validation {trainer.validation_seconds:.2f} s for 1 case; CLI "
+          f"{wall:.1f} s")
+    return {"launches": launches, "step_s": step_s, "wall": wall}
 
 
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
@@ -1433,23 +1727,35 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    name, smi, build_s = phase_device()
-    kernels = phase_kernels()
-    fused_kernels = phase_fused_kernels()
+    seconds = {}
+
+    def timed(label, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        print(f"phase {label}: {seconds[label]} s")
+        return result
+
+    name, smi, build_s = timed("1", phase_device)
+    kernels = timed("2", phase_kernels)
+    fused_kernels = timed("2b", phase_fused_kernels)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        main_path = phase_main_path(workdir)
-        main_fused = phase_main_path(workdir, fused=True)
+        main_path = timed("3", phase_main_path, workdir)
+        main_fused = timed("3b", phase_main_path, workdir, fused=True)
         masks = compare_masks(main_path, main_fused)
-        tile = phase_tile_probabilities()
-        tile_fused = phase_fused_tile_probabilities()
-        training = phase_training(workdir)
-        training_fused = phase_training(workdir, fused=True)
+        tile = timed("4", phase_tile_probabilities)
+        tile_fused = timed("4b", phase_fused_tile_probabilities)
+        training = timed("5", phase_training, workdir)
+        training_fused = timed("5b", phase_training, workdir, fused=True)
+        fused_val = timed("5c fused -val", phase_fused_validation, workdir, training)
+        jax_folder = timed("5d JAX-layout folder", phase_jax_folder, workdir, training)
+        warmup = timed("5e warm-up", phase_warmup, workdir, jax_folder)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    probe_path = phase_probe_path()
-    probes = phase_probe_kernels()
+    probe_path = timed("6 probe path", phase_probe_path)
+    probes = timed("6 probe kernels", phase_probe_kernels)
 
     a_src = "multitalent_tpu_torch/csrc/conv3d_same.cu"
     rows = []
@@ -1474,6 +1780,7 @@ def main() -> int:
                      "launches_predict": main_path["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],
                      "launches_probes": probe_path["launches"][kname],
+                     "launches_warmup": warmup["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
                      **_conv_bound(sum(stage0["splits"]), stage0["cout"], stage0["spatial"],
@@ -1523,6 +1830,7 @@ def main() -> int:
         rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": main_fused["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],
+                     "launches_val_fused": fused_val["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"], **work,
                      "library_ms": stage0.get("library_ms"),
@@ -1574,7 +1882,13 @@ def main() -> int:
           f"over a step "
           f"{wgrad_step['step_ms']:.3f} ms (cuDNN {wgrad_step['step_cudnn_ms']:.3f} ms); "
           f"probe path "
-          f"{probe_path['seconds']:.1f} s; on {smi}")
+          f"{probe_path['seconds']:.1f} s; validation seconds per case "
+          f"{training['validation']['seconds_per_case']:.2f} unfused (after training), "
+          f"{training_fused['validation']['seconds_per_case']:.2f} fused (after training), "
+          f"{fused_val['validation']['seconds_per_case']:.2f} fused (-val); .ckpt folder "
+          f"restored in {jax_folder['restore_s']:.2f} s; warm-up phase-1 seconds per step "
+          f"{', '.join(f'{v:.3f}' for v in warmup['step_s'])}; phase seconds {seconds}; "
+          f"on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

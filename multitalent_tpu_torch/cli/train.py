@@ -1,19 +1,26 @@
-"""Train a configuration on one GPU.
+"""Train a configuration on one GPU, then validate it.
 
 Counterpart of multitalent_tpu/cli/train.py (nnunet/run/run_training.py): the
 same arguments plus --device (default cuda; cpu runs the kernels' plain
 PyTorch versions). Resolves (network, task, trainer, plans identifier) to the
 plans file, stage and output folder
 RESULTS/nnUNet/<network>/<task>/<trainer>__<plans identifier>, then
-initialize -> [resume with -c] -> run_training, which writes
-fold_X/model_final_checkpoint.model.
+initialize -> [-pretrained_weights] -> [resume with -c] -> run_training
+(fold_X/model_final_checkpoint.model) -> trainer.validate (fold_X/<--val_folder>:
+the exported validation cases, summary(_<task>).json, and for softmax
+trainers postprocessing.json unless --disable_postprocessing_on_folds;
+--npz keeps softmax probabilities).
 
     python -m multitalent_tpu_torch.cli.train 3d_fullres MultiTalent_trainer_ddp TASK 0
+    ... -val [--valbest]           validate model_final_checkpoint (model_best) only
+    ... nnUNetTrainerV2_warmupsegheads TASK 0 -pretrained_weights x.ckpt|x.model
 
-Not ported yet, and refused rather than skipped: validation after training
-(`-val`, trainer.validate; ROADMAP queue 1, item 7), `-pretrained_weights`
-(flax checkpoints; item 4), several GPUs (item 9), 2D and cascade networks
-(item 10). A training run logs that it did not validate.
+-pretrained_weights takes a JAX `.ckpt` or a reference / port `.model` and
+transfers every backbone weight of matching name and shape (never the heads);
+with -c it is ignored. Not ported yet, and refused: several GPUs (ROADMAP
+queue 1, item 9), 2D and cascade networks and the residual-encoder, MedNeXt
+and SwinUNETR trainers (item 10), including 3d_lowres's prediction of the
+next stage.
 """
 from __future__ import annotations
 
@@ -21,11 +28,14 @@ import argparse
 import os
 
 from multitalent_tpu_torch import paths
-from multitalent_tpu_torch.inference.model_restore import UNPORTED_TRAINERS
+from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS,
+                                                           checkpoint_state_dict)
 from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep)
 from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
+                                                   load_pretrained_weights)
 from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
 # trainer names of the reference and of the JAX package -> the port's classes
@@ -35,6 +45,10 @@ TRAINERS = {
     **dict.fromkeys(("MultiTalentTrainer", "MultiTalent_trainer_ddp"), MultiTalentTrainer),
     **dict.fromkeys(("MultiTalentTrainer2000ep", "MultiTalent_trainer_ddp_2000ep"),
                     MultiTalentTrainer2000ep),
+    **dict.fromkeys(("TrainerV2WarmupLR", "nnUNetTrainerV2_warmup_increasing_lr",
+                     "nnUNetTrainerV2_warmup"), TrainerV2WarmupLR),
+    **dict.fromkeys(("TrainerV2WarmupSegHeads", "nnUNetTrainerV2_warmupsegheads"),
+                    TrainerV2WarmupSegHeads),
 }
 
 
@@ -82,27 +96,26 @@ def main(argv=None):
     parser.add_argument("-p", default=None, help="plans identifier")
     parser.add_argument("--use_compressed_data", action="store_true")
     parser.add_argument("--deterministic", action="store_true")
-    parser.add_argument("--npz", action="store_true")
+    parser.add_argument("--npz", action="store_true",
+                        help="keep the validation's softmax probabilities (.npz)")
     parser.add_argument("--fp32", action="store_true",
                         help="fp32 compute instead of bf16")
-    parser.add_argument("--valbest", action="store_true")
-    parser.add_argument("--val_folder", default="validation_raw")
-    parser.add_argument("--disable_postprocessing_on_folds", action="store_true")
+    parser.add_argument("--valbest", action="store_true",
+                        help="-val: validate model_best instead of model_final_checkpoint")
+    parser.add_argument("--val_folder", default="validation_raw",
+                        help="the validation's folder under fold_X")
+    parser.add_argument("--disable_postprocessing_on_folds", action="store_true",
+                        help="skip determine_postprocessing after validation")
     parser.add_argument("-gpus", type=int, default=None)
     parser.add_argument("--dbs", action="store_true")
     parser.add_argument("--local_rank", type=int, default=0)
-    parser.add_argument("-pretrained_weights", default=None)
+    parser.add_argument("-pretrained_weights", default=None,
+                        help="a JAX .ckpt or a .model whose backbone weights to start from")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (hand-written kernels) or cpu "
                              "(their plain PyTorch versions)")
     args = parser.parse_args(argv)
 
-    if args.validation_only:
-        raise NotImplementedError("-val: validation (trainer.validate) is not ported "
-                                  "yet (ROADMAP queue 1, item 7)")
-    if args.pretrained_weights is not None:
-        raise NotImplementedError("-pretrained_weights reads flax checkpoints, which the "
-                                  "port cannot yet (ROADMAP queue 1, item 4)")
     if args.gpus is not None and args.gpus > 1:
         raise NotImplementedError("training on several GPUs is ROADMAP queue 1, item 9")
 
@@ -115,12 +128,28 @@ def main(argv=None):
                             stage=stage, unpack_data=not args.use_compressed_data,
                             deterministic=args.deterministic, fp16=not args.fp32,
                             device=args.device)
-    trainer.initialize(True)
-    if args.continue_training:
-        trainer.load_latest_checkpoint()
-    trainer.run_training()
-    trainer.print_to_log_file("validation was not run: trainer.validate is not ported "
-                              "yet (ROADMAP queue 1, item 7)")
+    trainer.initialize(not args.validation_only)
+    if args.pretrained_weights is not None and not args.continue_training:
+        pretrained = checkpoint_state_dict(args.pretrained_weights, trainer.plans,
+                                           trainer.stage)
+        trainer.network.load_state_dict(load_pretrained_weights(
+            trainer.network.state_dict(), pretrained))
+        trainer.print_to_log_file("imported pretrained backbone weights from",
+                                  args.pretrained_weights)
+    if not args.validation_only:
+        if args.continue_training:
+            trainer.load_latest_checkpoint()
+        trainer.run_training()
+    elif args.valbest:
+        trainer.load_best_checkpoint(train=False)
+    else:
+        trainer.load_final_checkpoint(train=False)
+    trainer.validate(save_softmax=args.npz, validation_folder_name=args.val_folder,
+                     run_postprocessing_on_folds=not args.disable_postprocessing_on_folds)
+    if args.network == "3d_lowres":
+        raise NotImplementedError("3d_lowres: predicting the next stage's input "
+                                  "(predict_next_stage) is not ported yet: ROADMAP "
+                                  "queue 1, item 10")
     return trainer
 
 

@@ -1,28 +1,51 @@
-"""Restore a reference-layout model folder into GenericUNet modules.
+"""Restore a model folder into GenericUNet modules.
 
-Counterpart of multitalent_tpu/inference/model_restore.py for the folders the
-reference writes (and the released MultiTalent models ship as):
+Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
-  <model>/plans.pkl
-  <model>/fold_X/model_final_checkpoint.model      torch dict with `state_dict`
-  <model>/fold_X/model_final_checkpoint.model.pkl  sidecar: trainer `name`,
-                                                   its `init` arguments
+- the reference's (written by the reference, the port's trainer and
+  `save_model_folder`; the released MultiTalent models ship as it):
+
+    <model>/plans.pkl
+    <model>/fold_X/model_final_checkpoint.model      torch dict with `state_dict`
+    <model>/fold_X/model_final_checkpoint.model.pkl  sidecar: trainer `name`,
+                                                     its `init` arguments
+
+- the JAX package's (multitalent_tpu/training/trainer_base.py:166-182, or
+  its import of a reference folder):
+
+    <model>/fold_X/model_final_checkpoint.ckpt       flax msgpack: step, params
+                                                     [, opt_state]
+    <model>/fold_X/model_final_checkpoint.ckpt.pkl   sidecar: trainer_name,
+                                                     trainer_bases, init_args
+
+  read by io/flax_ckpt.py (no flax) and carried over by
+  io/from_jax.generic_unet_state_dict_from_flax. The plans come from the
+  sidecar's `init_args[0]` (a plans file or a pickled Plans) or else from
+  `<model>/plans.pkl`. The sidecar may pickle the JAX package's Plans: it is
+  read by `load_sidecar`, whose unpickler maps those names to the port's
+  classes and refuses every name off its allow-list, so nothing of the JAX
+  package is imported.
 
 The trainer named in the sidecar fixes the head: the MultiTalent GenericUNet
 trainers predict 47 sigmoid regions, other GenericUNet trainers a softmax over
-the plans' classes. The JAX package's own flax `.ckpt` files need flax and are
-not read here (ROADMAP).
+the plans' classes.
 """
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from multitalent_tpu_torch.io.torch_convert import load_reference_checkpoint, strip_module_prefix
+from multitalent_tpu_torch.io import flax_ckpt
+from multitalent_tpu_torch.io.from_jax import generic_unet_state_dict_from_flax
+from multitalent_tpu_torch.io.torch_convert import (convert_generic_unet_state_dict,
+                                                   load_reference_checkpoint,
+                                                   strip_module_prefix)
 from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
-from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
+from multitalent_tpu_torch.plans import Plans, StagePlans, load_plans, save_plans
 from multitalent_tpu_torch.tasks.multitalent import NUM_REGIONS
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle, subdirs
 
@@ -42,7 +65,52 @@ UNPORTED_TRAINERS = {
     "MultiTalent_tainer_SwinUNETR_ddp_adam": "SwinUNETR",
     "MultiTalent_trainer_SwinUNETR_ddp_adam": "SwinUNETR",
     "MultiTalentTrainerSwinUNETR": "SwinUNETR",
+    "TrainerV2ResencUNet": "the residual-encoder UNet",
+    "nnUNetTrainerV2_ResencUNet": "the residual-encoder UNet",
+    "TrainerV2WarmupSegHeadsResenc": "the residual-encoder UNet",
+    "nnUNetTrainerV2_warmupsegheads_resenc": "the residual-encoder UNet",
+    "TrainerV2WarmupSegHeadsSwin": "SwinUNETR",
+    "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp": "SwinUNETR",
 }
+
+# what a JAX sidecar may name: the JAX package's plans classes, read as the
+# port's, and the numpy names its arrays and scalars pickle with
+SIDECAR_CLASSES = {("multitalent_tpu.plans", "Plans"): Plans,
+                   ("multitalent_tpu.plans", "StagePlans"): StagePlans}
+_NUMPY_NAMES = {("numpy", "ndarray"), ("numpy", "dtype"),
+                ("numpy.core.multiarray", "_reconstruct"),
+                ("numpy._core.multiarray", "_reconstruct"),
+                ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar")}
+
+
+class _SidecarUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if (module, name) in SIDECAR_CLASSES:
+            return SIDECAR_CLASSES[module, name]
+        if (module, name) in _NUMPY_NAMES:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the sidecar names {module}.{name}, which is not on the port's allow-list")
+
+
+def load_sidecar(path: str) -> dict:
+    """A `.ckpt.pkl` sidecar of the JAX package, with its Plans as the port's."""
+    with open(path, "rb") as f:
+        return _SidecarUnpickler(f).load()
+
+
+def head_of_trainer(names) -> tuple[str, str]:
+    """(trainer name, "sigmoid" or "softmax") for a trainer and its bases,
+    nearest first; a trainer of a network the port lacks raises."""
+    names = list(names)
+    for n in names:
+        if n in UNPORTED_TRAINERS:
+            raise NotImplementedError(
+                f"trainer {names[0]!r} uses {UNPORTED_TRAINERS[n]}, which the port does "
+                "not have yet (ROADMAP queue 1, item 10)")
+        if n in MULTITALENT_TRAINERS:
+            return names[0], "sigmoid"
+    return names[0], "softmax"
 
 
 @dataclass
@@ -70,38 +138,87 @@ def _fold_folders(model_folder: str, folds) -> list[str]:
             for f in folds]
 
 
+def _jax_plans(model_folder: str, init: tuple) -> Plans:
+    """The plans of a JAX-layout folder: the sidecar's init_args[0] (a
+    Plans or a plans file), else <model>/plans.pkl."""
+    first = init[0] if init else None
+    if isinstance(first, Plans):
+        return first
+    fallback = os.path.join(model_folder, "plans.pkl")
+    for path in (first, fallback):
+        if isinstance(path, (str, os.PathLike)) and os.path.isfile(path):
+            return load_plans(path)
+    raise FileNotFoundError(f"no plans for {model_folder}: the sidecar's init_args[0] "
+                            f"({first!r}) is no plans file, and {fallback} is missing")
+
+
+def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
+    """The GenericUNet state dict of a JAX `.ckpt` file (its params through
+    io/from_jax.py, `plans` giving the depth) or of a reference or port
+    `.model` file."""
+    if path.endswith(".model"):
+        return strip_module_prefix(load_reference_checkpoint(path))
+    if not path.endswith(".ckpt"):
+        raise ValueError(f"a checkpoint is a JAX .ckpt or a .model file, got {path!r}")
+    params = flax_ckpt.load(path)["params"]
+    if "enc0" not in params:
+        raise NotImplementedError(
+            f"{path} is not a GenericUNet checkpoint; other networks are ROADMAP "
+            "queue 1, item 10")
+    return generic_unet_state_dict_from_flax(
+        params, num_pool=len(plans.stage(stage).pool_op_kernel_sizes),
+        conv_per_stage=plans.conv_per_stage)
+
+
+def read_model_folder(model_folder: str, folds=None,
+                      checkpoint_name: str = "model_final_checkpoint"):
+    """(plans, stage, fp16, trainer names nearest first, checkpoint file per
+    fold) of a reference-layout or JAX-layout folder."""
+    folders = _fold_folders(model_folder, folds)
+    if not folders:
+        raise FileNotFoundError(f"no fold folders in {model_folder}")
+    models = [os.path.join(f, checkpoint_name + ".model") for f in folders]
+    ckpts = [os.path.join(f, checkpoint_name + ".ckpt") for f in folders]
+    if all(os.path.isfile(c) for c in models):
+        info = load_pickle(models[0] + ".pkl")
+        init = tuple(info.get("init", ()))
+        names = [str(info["name"])]
+        plans = load_plans(os.path.join(model_folder, "plans.pkl"))
+        files = models
+    elif all(os.path.isfile(c) for c in ckpts):
+        meta = load_sidecar(ckpts[0] + ".pkl")
+        init = tuple(meta.get("init_args", ()))
+        names = [str(meta["trainer_name"]), *meta.get("trainer_bases", ())]
+        plans = _jax_plans(model_folder, init)
+        files = ckpts
+    else:
+        raise FileNotFoundError(
+            f"missing checkpoints in {model_folder}: neither every {checkpoint_name}.model "
+            f"nor every {checkpoint_name}.ckpt of {[os.path.basename(f) for f in folders]}")
+    stage = init[5] if len(init) > 5 and init[5] is not None else max(plans.plans_per_stage)
+    fp16 = bool(init[8]) if len(init) > 8 else True
+    return plans, stage, fp16, names, files
+
+
 def load_model_and_checkpoint_files(model_folder: str, folds=None,
                                     checkpoint_name: str = "model_final_checkpoint",
                                     device: str | torch.device = "cuda") -> RestoredModel:
-    """Read plans.pkl, the sidecar and every requested fold's checkpoint of a
-    reference-layout model folder (model_restore.py:109-148)."""
-    ckpts = [os.path.join(f, checkpoint_name + ".model")
-             for f in _fold_folders(model_folder, folds)]
-    missing = [c for c in ckpts if not os.path.isfile(c)]
-    if missing or not ckpts:
-        raise FileNotFoundError(f"missing checkpoints: {missing or model_folder}")
-    info = load_pickle(ckpts[0] + ".pkl")
-    name = str(info["name"])
-    init = tuple(info.get("init", ()))
-    if name in UNPORTED_TRAINERS:
-        raise NotImplementedError(
-            f"trainer {name!r} uses {UNPORTED_TRAINERS[name]}, which the port does "
-            "not have yet (ROADMAP queue 1, item 10)")
-    plans = load_plans(os.path.join(model_folder, "plans.pkl"))
-    stage = init[5] if len(init) > 5 and init[5] is not None else max(plans.plans_per_stage)
-    fp16 = bool(init[8]) if len(init) > 8 else True
-    if name in MULTITALENT_TRAINERS:
-        nonlin, num_classes = "sigmoid", NUM_REGIONS
-        regions_class_order = list(range(NUM_REGIONS))
+    """Read the plans, the sidecar and every requested fold's checkpoint of a
+    reference-layout or JAX-layout model folder (model_restore.py:109-148)."""
+    plans, stage, fp16, names, files = read_model_folder(model_folder, folds,
+                                                         checkpoint_name)
+    name, nonlin = head_of_trainer(names)
+    if nonlin == "sigmoid":
+        num_classes, regions_class_order = NUM_REGIONS, list(range(NUM_REGIONS))
     else:
-        nonlin, num_classes, regions_class_order = "softmax", plans.num_classes + 1, None
+        num_classes, regions_class_order = plans.num_classes + 1, None
 
     networks = []
-    for c in ckpts:
-        state_dict = strip_module_prefix(load_reference_checkpoint(c))
+    for f in files:
+        state_dict = checkpoint_state_dict(f, plans, stage)
         if not any(k.startswith("conv_blocks_context.") for k in state_dict):
             raise NotImplementedError(
-                f"{c} is not a GenericUNet checkpoint (trainer {name!r}); other "
+                f"{model_folder} is not a GenericUNet model (trainer {name!r}); other "
                 "networks are ROADMAP queue 1, item 10")
         net = build_unet_from_plans(plans, stage, num_classes,
                                     dtype=torch.bfloat16 if fp16 else torch.float32)
@@ -136,3 +253,30 @@ def save_model_folder(model_folder: str, plans: Plans, state_dicts: list[dict],
                      "init": (plans_path, fold, model_folder, None, True, stage, True,
                               True, fp16),
                      "plans": plans.to_dict()}, ckpt + ".pkl")
+
+
+def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dict],
+                          trainer_name: str, trainer_bases=(), stage: int = 0,
+                          fp16: bool = True,
+                          checkpoint_name: str = "model_final_checkpoint") -> None:
+    """Write a JAX-layout model folder of GenericUNet state dicts, the files
+    multitalent_tpu's trainer writes: per fold i `fold_i/<checkpoint>.ckpt`,
+    flax msgpack of {"step", "params"} (io/flax_ckpt.dumps of
+    io/torch_convert.convert_generic_unet_state_dict), and its `.ckpt.pkl`
+    sidecar (trainer_name, trainer_bases, init_args, state_keys). init_args[0]
+    is <model>/plans.pkl."""
+    plans_path = os.path.join(maybe_mkdir(model_folder), "plans.pkl")
+    save_plans(plans, plans_path)
+    num_pool = len(plans.stage(stage).pool_op_kernel_sizes)
+    for fold, sd in enumerate(state_dicts):
+        fold_dir = maybe_mkdir(os.path.join(model_folder, f"fold_{fold}"))
+        ckpt = os.path.join(fold_dir, checkpoint_name + ".ckpt")
+        tree = {"step": np.zeros((), np.int32),
+                "params": convert_generic_unet_state_dict(sd, num_pool, plans.conv_per_stage)}
+        flax_ckpt.save(ckpt, tree)
+        save_pickle({"epoch": 0, "plot_stuff": ([], [], [], []),
+                     "best_stuff": (None, None, None), "trainer_name": trainer_name,
+                     "trainer_bases": [trainer_name, *trainer_bases],
+                     "init_args": (plans_path, fold, model_folder, None, True, stage, True,
+                                   True, fp16),
+                     "state_keys": sorted(tree)}, ckpt + ".pkl")

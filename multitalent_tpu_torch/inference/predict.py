@@ -32,7 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
+from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                          read_model_folder)
 from multitalent_tpu_torch.inference.segmentation_export import (
     save_segmentation_nifti, save_segmentation_nifti_from_softmax)
 from multitalent_tpu_torch.ops.device_export import (can_export_on_device,
@@ -42,7 +43,7 @@ from multitalent_tpu_torch.ops.fused_unet import make_inference_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
 from multitalent_tpu_torch.preprocessing.preprocessor import resolve_preprocessor
 from multitalent_tpu_torch.tasks.multitalent import REGIONS
-from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, subfiles
+from multitalent_tpu_torch.utils.fileops import maybe_mkdir, subfiles
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -197,16 +198,18 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
 
 
 def _export_on_device(pool, probs_sum, n_folds, properties, out_fname, case_id,
-                      region_class_order, export_region_niftis) -> list:
+                      region_class_order, export_region_niftis, channels=None) -> list:
     """Resize + threshold on the device (mean > 0.5 <=> fold sum > 0.5 *
-    n_folds), fetch bool masks, write the labelmap and region files."""
+    n_folds), fetch bool masks, write the labelmap (of `channels`, all by
+    default, stamped in region_class_order) and the region files."""
     tb = properties.get("transpose_backward")
     if tb is not None and list(tb) != [0, 1, 2]:
         probs_sum = probs_sum.permute(0, *[int(i) + 1 for i in tb])
     out_shape = tuple(int(s) for s in properties["size_after_cropping"])
     masks = device_resample_threshold_bits(probs_sum, out_shape,
                                            threshold=0.5 * n_folds)
-    seg = segmentation_from_regions_bits(masks, region_class_order).cpu().numpy()
+    seg = segmentation_from_regions_bits(masks if channels is None else masks[channels],
+                                         region_class_order).cpu().numpy()
     masks = masks.cpu().numpy()
     futures = [pool.submit(save_segmentation_nifti, seg, out_fname, properties)]
     if export_region_niftis:
@@ -220,12 +223,14 @@ def _export_on_device(pool, probs_sum, n_folds, properties, out_fname, case_id,
 
 
 def _export_on_host(pool, probs_mean, properties, out_fname, case_id,
-                    region_class_order, export_region_niftis, save_npz) -> list:
+                    region_class_order, export_region_niftis, save_npz,
+                    channels=None) -> list:
     """The host export chain (segmentation_export.py) on the fetched mean
-    probabilities."""
+    probabilities; the labelmap of `channels` (all by default)."""
     npz_fname = out_fname[:-7] + ".npz" if save_npz else None
     futures = [pool.submit(
-        save_segmentation_nifti_from_softmax, probs_mean, out_fname, properties, 1,
+        save_segmentation_nifti_from_softmax,
+        probs_mean if channels is None else probs_mean[channels], out_fname, properties, 1,
         region_class_order, None, None, npz_fname, None, None, 0)]
     if export_region_niftis:
         individual = maybe_mkdir(os.path.join(os.path.dirname(out_fname), "individual"))
@@ -257,8 +262,9 @@ def predict_from_folder(model: str, input_folder: str, output_folder: str, folds
     device = resolve_device(device)
     maybe_mkdir(output_folder)
     plans_path = os.path.join(model, "plans.pkl")
-    shutil.copy(plans_path, output_folder)
-    expected_num_modalities = int(load_pickle(plans_path)["num_modalities"])
+    if os.path.isfile(plans_path):  # a JAX-trained folder keeps its plans elsewhere
+        shutil.copy(plans_path, output_folder)
+    expected_num_modalities = read_model_folder(model, folds, checkpoint_name)[0].num_modalities
     case_ids = check_input_folder_and_return_caseIDs(input_folder,
                                                      expected_num_modalities)
     output_files = [os.path.join(output_folder, c + ".nii.gz") for c in case_ids]

@@ -25,6 +25,9 @@ from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
 
 class MultiTalentTrainer(TrainerV2):
+    inference_nonlin = "sigmoid"
+    regions_class_order = list(range(NUM_REGIONS))
+
     def __init__(self, plans_file, fold, output_folder=None, dataset_directory=None,
                  batch_dice=True, stage=None, unpack_data=True, deterministic=True,
                  fp16=True, seed: int = 12345, device: str | torch.device = "cuda"):
@@ -165,6 +168,11 @@ class MultiTalentTrainer(TrainerV2):
                                    f"val dice : {self.all_val_dice[-1]:.4f}")
         self._epoch_ce, self._epoch_dice = [], []
         return super().on_epoch_end()
+
+    def validate(self, *args, **kwargs):
+        """Region-wise validation (inference/validation.py:run_multitalent_validation)."""
+        from multitalent_tpu_torch.inference.validation import run_multitalent_validation
+        return run_multitalent_validation(self, *args, **kwargs)
 
 
 class MultiTalentTrainer2000ep(MultiTalentTrainer):

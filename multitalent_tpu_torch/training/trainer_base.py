@@ -8,12 +8,14 @@ progress.png plot.
 
 The port's copy of multitalent_tpu/training/trainer_base.py: the base class
 is pure host-side orchestration; subclasses implement `run_iteration` (one
-training step on the device) and the checkpoint format. The JAX package's flax
-checkpoints are not carried: checkpoints carry the reference's names
+training step on the device), the network and optimizer (`find_lr` uses
+them) and the checkpoint format. Checkpoints carry the reference's names
 (`model_best.model`, `model_latest.model`, `model_final_checkpoint.model`),
 and `save_checkpoint` and `load_checkpoint` are the subclass's
-(training/trainers.py writes the reference's `.model` files). AMP GradScaler
-state is absent (bf16 needs no loss scaling).
+(training/trainers.py writes the reference's `.model` files; the JAX
+package's flax `.ckpt` files are read by inference/model_restore.py and, as
+pretrained weights, by training/warmup.py). AMP GradScaler state is absent
+(bf16 needs no loss scaling).
 """
 from __future__ import annotations
 
@@ -315,9 +317,51 @@ class NetworkTrainerBase(ABC):
 
     def find_lr(self, num_iters: int = 1000, init_value: float = 1e-6,
                 final_value: float = 10.0, beta: float = 0.98):
-        """LR range test (network_trainer.py:685-735)."""
-        raise NotImplementedError("the LR range test is not ported yet: ROADMAP queue 1, "
-                                  "item 7")
+        """LR range test (network_trainer.py:685-735; the JAX package's
+        trainer_base.py:349-394): one training step per LR on an exponential
+        sweep, each with a new SGD + clip state at that constant LR; the
+        smoothed loss is tracked and the sweep stops once it exceeds 4x its
+        best. The weights, optimizer, schedule and step counter are restored
+        after; lr_finder.png is written where matplotlib is. Returns
+        (log10 LRs, smoothed losses)."""
+        import math
+
+        from multitalent_tpu_torch.training.train_state import SGDClipped
+
+        mult = (final_value / init_value) ** (1 / num_iters)
+        lr = init_value
+        avg_loss, best_loss = 0.0, 0.0
+        losses, log_lrs = [], []
+        weights = {k: v.detach().clone() for k, v in self.network.state_dict().items()}
+        saved = (self.optimizer, self.lr_schedule, self.step)
+        try:
+            for batch_num in range(1, num_iters + 1):
+                self.optimizer = SGDClipped(self.network.parameters())
+                self.lr_schedule = lambda step, lr=lr: lr
+                loss = self.run_iteration(self.tr_gen, do_backprop=True)
+                avg_loss = beta * avg_loss + (1 - beta) * loss
+                smoothed = avg_loss / (1 - beta ** batch_num)
+                if batch_num > 1 and smoothed > 4 * best_loss:
+                    break
+                if smoothed < best_loss or batch_num == 1:
+                    best_loss = smoothed
+                losses.append(smoothed)
+                log_lrs.append(math.log10(lr))
+                lr *= mult
+        finally:
+            self.optimizer, self.lr_schedule, self.step = saved
+            self.network.load_state_dict(weights)
+        try:
+            import matplotlib
+            matplotlib.use("agg")
+            import matplotlib.pyplot as plt
+            plt.figure()
+            plt.plot(log_lrs[10:-5], losses[10:-5])
+            plt.savefig(os.path.join(self.output_folder, "lr_finder.png"))
+            plt.close()
+        except (ImportError, OSError) as e:
+            self.print_to_log_file(f"failed to plot lr_finder.png: {e}")
+        return log_lrs, losses
 
     def run_training(self) -> None:
         maybe_mkdir_p(self.output_folder)

@@ -17,7 +17,10 @@ and replaces the flax parts:
 - checkpoints in the reference layout that inference/model_restore.py reads:
   `fold_X/<name>.model` (a torch dict with state_dict, optimizer_state_dict,
   epoch, plot_stuff, best_stuff) beside a `.model.pkl` sidecar (name, init,
-  plans), and plans.pkl in the output folder.
+  plans), and plans.pkl in the output folder;
+- `validate` (inference/validation.py): every validation case through the
+  sliding window on the trainer's device, the network in eval mode under
+  no_grad without deep supervision.
 
 The JAX trainer's mesh plumbing has no counterpart: this trainer runs on one
 device (data parallelism is ROADMAP queue 1, item 9).
@@ -39,7 +42,9 @@ from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_a
 from multitalent_tpu_torch.data.dataset import kfold_split, load_dataset, unpack_dataset
 from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
 from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
-from multitalent_tpu_torch.ops.fused_unet import make_train_forward
+from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
+from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
+from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
 from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
@@ -118,6 +123,7 @@ class TrainerV2(NetworkTrainerBase):
         self.do_dummy_2D_aug = st.do_dummy_2D_data_aug
         self.num_input_channels = plans.num_modalities
         self.num_classes = plans.num_classes + 1  # +1 background
+        self.classes = plans.all_classes
         self.use_mask_for_norm = plans.use_mask_for_norm
         if len(self.patch_size) != 3:
             raise NotImplementedError("the port trains 3D plans only (2D: ROADMAP "
@@ -204,16 +210,20 @@ class TrainerV2(NetworkTrainerBase):
             self.plans, self.stage, num_classes=self.num_classes,
             dtype=torch.bfloat16 if self.fp16 else torch.float32)
 
+    def initialize_optimizer(self):
+        """(optimizer, step -> LR): SGD + clip under the poly staircase
+        (trainers.py:225)."""
+        return (SGDClipped(self.network.parameters(), momentum=0.99, nesterov=True,
+                           weight_decay=self.weight_decay, clip_norm=12.0),
+                make_poly_schedule(self.initial_lr, self.max_num_epochs,
+                                   self.num_batches_per_epoch))
+
     def _init_state(self) -> None:
         """He init from a seeded generator, then the optimizer (the flax init
         and optax state of trainers.py:231)."""
         init_weights_he(self.network, torch.Generator().manual_seed(self.seed))
         self.network.to(self.device)
-        self.optimizer = SGDClipped(self.network.parameters(), momentum=0.99,
-                                    nesterov=True, weight_decay=self.weight_decay,
-                                    clip_norm=12.0)
-        self.lr_schedule = make_poly_schedule(self.initial_lr, self.max_num_epochs,
-                                              self.num_batches_per_epoch)
+        self.optimizer, self.lr_schedule = self.initialize_optimizer()
         n_params = sum(p.numel() for p in self.network.parameters())
         self.print_to_log_file(f"network initialized: {n_params:,} parameters")
 
@@ -367,12 +377,12 @@ class TrainerV2(NetworkTrainerBase):
         maybe_mkdir(os.path.dirname(fname) or ".")
         meta = self.checkpoint_metadata()
         torch.save({
-            "epoch": meta["epoch"],
             "state_dict": {k: v.detach().cpu() for k, v in self.network.state_dict().items()},
             "optimizer_state_dict": self.optimizer.state_dict() if save_optimizer else None,
-            "plot_stuff": meta["plot_stuff"],
-            "best_stuff": meta["best_stuff"],
             "step": self.step,
+            # epoch, plot_stuff, best_stuff and what subclasses add
+            **{k: v for k, v in meta.items()
+               if k not in ("trainer_name", "trainer_bases", "init_args")},
         }, fname)
         init = self.init_args
         if isinstance(init[0], Plans) and self.output_folder_base is not None:
@@ -388,12 +398,76 @@ class TrainerV2(NetworkTrainerBase):
         if not self.initialized:
             self.initialize(train)
         ckpt = torch.load(fname, map_location="cpu", weights_only=False)
+        self.prepare_for_checkpoint(ckpt)
         self.network.load_state_dict(ckpt["state_dict"])
         if train and ckpt.get("optimizer_state_dict") is not None:
             self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
         self.step = int(ckpt.get("step", ckpt["epoch"] * self.num_batches_per_epoch))
         self.restore_checkpoint_metadata(ckpt)
 
-    def validate(self, *args, **kwargs):
-        raise NotImplementedError("validation of a trained fold (inference/validation.py) "
-                                  "is not ported yet: ROADMAP queue 1, item 7")
+    def prepare_for_checkpoint(self, ckpt: dict) -> None:
+        """Called with a loaded checkpoint before its weights and optimizer
+        state are restored (the head warm-up switches its phase here)."""
+
+    # ---------------------------------------------------------------- inference
+    inference_nonlin = "softmax"
+    regions_class_order = None
+
+    def get_sliding_window_predictor(self, do_mirroring: bool = True,
+                                     step_size: float = 0.5,
+                                     use_gaussian: bool = True) -> SlidingWindowPredictor:
+        """The tiled predictor of this trainer's plans and head on its device
+        (trainers.py:464)."""
+        return SlidingWindowPredictor(
+            tuple(int(p) for p in self.patch_size), in_channels=self.num_input_channels,
+            num_classes=self.num_classes, nonlin=self.inference_nonlin,
+            step_size=step_size, do_mirroring=do_mirroring, mirror_axes=(0, 1, 2),
+            use_gaussian=use_gaussian, device=self.device)
+
+    def predict_preprocessed_probabilities(self, data: np.ndarray, do_mirroring: bool = True,
+                                           step_size: float = 0.5,
+                                           use_gaussian: bool = True):
+        """data (C, Z, Y, X) preprocessed -> (probabilities (K, Z, Y, X) fp32
+        on the device, forwards run). The network in eval mode without deep
+        supervision, under no_grad, through ops/fused_unet.make_inference_forward
+        (the fused route under MTTPU_FUSED_NORM=1)."""
+        predictor = self.get_sliding_window_predictor(do_mirroring, step_size, use_gaussian)
+        was_training = self.network.training
+        self.network.eval()
+        try:
+            with torch.no_grad():
+                probs = predictor.predict(make_inference_forward(self.network), data)
+        finally:
+            self.network.train(was_training)
+        return probs, predictor.forwards
+
+    def predict_preprocessed_data_return_seg_and_softmax(
+            self, data: np.ndarray, do_mirroring: bool = True, step_size: float = 0.5,
+            use_gaussian: bool = True):
+        """data (C, Z, Y, X) preprocessed -> (seg ZYX on the host,
+        probabilities (K, Z, Y, X) on the device) (trainers.py:485)."""
+        probs, _ = self.predict_preprocessed_probabilities(data, do_mirroring, step_size,
+                                                           use_gaussian)
+        if self.regions_class_order is None:
+            seg = probs.argmax(0).int()
+        else:
+            seg = segmentation_from_regions_bits(probs > 0.5, self.regions_class_order).int()
+        return seg.cpu().numpy(), probs
+
+    # --------------------------------------------------------------- validation
+    def validate(self, do_mirroring: bool = True, use_sliding_window: bool = True,
+                 step_size: float = 0.5, save_softmax: bool = True,
+                 use_gaussian: bool = True, overwrite: bool = True,
+                 validation_folder_name: str = "validation_raw", debug: bool = False,
+                 all_in_gpu: bool = False, segmentation_export_kwargs: dict | None = None,
+                 run_postprocessing_on_folds: bool = True):
+        """Predict, export and evaluate every validation case
+        (inference/validation.py:run_validation)."""
+        from multitalent_tpu_torch.inference.validation import run_validation
+        return run_validation(
+            self, do_mirroring=do_mirroring, use_sliding_window=use_sliding_window,
+            step_size=step_size, save_softmax=save_softmax, use_gaussian=use_gaussian,
+            overwrite=overwrite, validation_folder_name=validation_folder_name,
+            debug=debug, all_in_gpu=all_in_gpu,
+            segmentation_export_kwargs=segmentation_export_kwargs,
+            run_postprocessing_on_folds=run_postprocessing_on_folds)

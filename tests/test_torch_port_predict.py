@@ -224,18 +224,20 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Import every module of the port (the fused conv -> norm route's and the
-    probes' among them), chip_smoke and profile_routes, in a fresh interpreter
-    (this process's conftest has loaded jax already), build the MultiTalent
-    label -> region table, and confirm that no module of the JAX package was
-    loaded: the port keeps its own copies of the modules it needs."""
+    """Import every module of the port (the fused conv -> norm route's, the
+    probes', validation's and the flax reader's among them), chip_smoke and
+    profile_routes, in a fresh interpreter (this process's conftest has loaded
+    jax already), build the MultiTalent label -> region table, read a sidecar
+    that pickles the JAX package's plans class, and confirm that no module of
+    the JAX package was loaded: the port keeps its own copies of the modules
+    it needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multitalent_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke', 'profile_routes']:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 28, names\n"
+        "assert len(names) >= 37, names\n"
         "fused = ['multitalent_tpu_torch.ops.fused_unet', 'multitalent_tpu_torch.ops.fused_norm',\n"
         "         'multitalent_tpu_torch.ops.seghead']\n"
         "assert set(fused) <= set(names), names\n"
@@ -251,9 +253,29 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'multitalent_tpu_torch.probes.conv_impl_arms',\n"
         "       'multitalent_tpu_torch.probes.sparse_conv_arm',\n"
         "       'multitalent_tpu_torch.probes.conv_cost_isolate',\n"
-        "       'multitalent_tpu_torch.probes.grid_overhead_probe']\n"
+        "       'multitalent_tpu_torch.probes.grid_overhead_probe',\n"
+        "       'multitalent_tpu_torch.evaluation.metrics',\n"
+        "       'multitalent_tpu_torch.evaluation.evaluator',\n"
+        "       'multitalent_tpu_torch.evaluation.region_based_evaluation',\n"
+        "       'multitalent_tpu_torch.postprocessing.connected_components',\n"
+        "       'multitalent_tpu_torch.inference.validation',\n"
+        "       'multitalent_tpu_torch.io.flax_ckpt', 'multitalent_tpu_torch.training.warmup']\n"
         "missing = [m for m in own if m not in sys.modules]\n"
         "assert not missing, missing\n"
+        "# a JAX sidecar's pickled plans (protocol 2 names the class in text)\n"
+        "import pickle, tempfile\n"
+        "from multitalent_tpu_torch.inference.model_restore import load_sidecar\n"
+        "from multitalent_tpu_torch.plans import Plans, StagePlans\n"
+        "st = StagePlans.from_dict({'batch_size': 2, 'patch_size': [8, 8, 8],\n"
+        "    'current_spacing': [1, 1, 1], 'original_spacing': [1, 1, 1],\n"
+        "    'median_patient_size_in_voxels': [8, 8, 8], 'num_pool_per_axis': [1, 1, 1],\n"
+        "    'pool_op_kernel_sizes': [[2, 2, 2]], 'conv_kernel_sizes': [[3, 3, 3]] * 2})\n"
+        "raw = pickle.dumps({'init_args': (st,)}, protocol=2)\n"
+        "raw = raw.replace(b'multitalent_tpu_torch.plans', b'multitalent_tpu.plans')\n"
+        "assert b'multitalent_tpu.plans' in raw\n"
+        "with tempfile.NamedTemporaryFile(suffix='.ckpt.pkl') as f:\n"
+        "    f.write(raw); f.flush()\n"
+        "    assert type(load_sidecar(f.name)['init_args'][0]) is StagePlans\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'multitalent_tpu'))\n"
         "assert not bad, bad\n"
