@@ -18,10 +18,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
    stats) at A's shapes and its dual form at B's, each at N=1 and N=2 into
    NaN-filled output and stats buffers, with the plan it took, E's stats
-   (two calls bit-equal, launches a call by torch.profiler, queued times)
+   (two calls bit-equal, launches a call from a captured CUDA graph, queued times)
    and apply passes at every norm shape, and F at the stage-0 head into a
    NaN-filled output, beside its form without the prologue and torch.mm of
-   that form's function;
+   that form's function; "2 Liver" and "2b Liver" check and time A, B, D,
+   D's dual form, E and F again at the shapes of the Task003 Liver
+   3d_fullres net (32-320 channels, grids 128^3 to 4^3), at N=1 and at the
+   default mode's four mirror combinations a forward (N=4);
 3. the inference path through the user's entry point: a reference-layout
    model folder of the MultiTalent flagship (GenericUNet, base 30, pools
    (2,2,2)x4 + (1,2,2), 47 sigmoid regions, patch 96x192x192, spacing
@@ -33,7 +36,20 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    forwards run;
 3b. the same with MTTPU_FUSED_NORM=1 (the fused conv -> norm route, kernels
    D, E and F): exact launch counts of the fused route, every region mask
-   against the unfused run's, seconds per case of both routes;
+   against the unfused run's, seconds per case of both routes (3, 3b and
+   5-5e run the sliding window's exact mode, MTTPU_SW_EXACT=1, so their
+   counts and history stay comparable);
+3c. the generic softmax path through `multitalent_tpu_torch.cli.predict`:
+   a TrainerV2 folder of the Task003 Liver 3d_fullres plans (bench.py:
+   382-383) with two folds of seeded weights, two synthetic CT cases of
+   112x200x200 (18 tiles each), run in the default mode unfused and fused,
+   the exact mode, `--mode fast` and `fastest`, `-z -f 0` and `-z -f 1`,
+   then `cli.ensemble` of those and `cli.evaluate` against the phantoms'
+   labels: exact launch counts (per-call counts x network calls), one put
+   a case, normal and fast labelmaps bit-equal, fused vs unfused within
+   MASK_AGREE_*, default vs exact where the gaussian clamp does not decide
+   the blend; seconds per case per mode (predict on the card's clock,
+   export) and one 128^3 forward at N=1 and N=4 on both routes;
 4. one tile's sigmoid probabilities through the kernels in bf16 against the
    plain versions, at the same bf16 rounding points and in fp32;
 4b. the same for the fused forward, and the plain forward under
@@ -86,7 +102,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    training step (phase 5), B over one forward (phase 4), C over one step
    (phase 5), D over one fused forward (phase 4b) and one fused step (phase
    5b); E's stats row lists its six shapes and sums them over one fused
-   forward (phase 4b)), then the result line. Each phase prints its seconds.
+   forward (phase 4b); A, B, D, E and F also their Liver shapes and phase
+   3c's launches), then the result line. Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -184,6 +201,37 @@ PALLAS_NORM_BOUND_MEAN = 4e-3
 # faulty kernel from rounding
 CONTROL_SLOPES = (0.0, 5e-3)
 
+# phases 2 / 2b (Liver shapes) and 3c: the Task003 Liver 3d_fullres plans
+# (bench.py:382-383): one CT modality, patch 128^3, base 32 (at most 320),
+# pools (2,2,2) x 5, 3x3x3 convs, InstanceNorm + LeakyReLU, 3 classes
+# (softmax); a target spacing of (1, 0.77, 0.77) mm, near the Liver set's
+LIVER_TASK = "Task003_Liver"
+LIVER_PATCH = (128, 128, 128)
+LIVER_POOLS = ((2, 2, 2),) * 5
+LIVER_SPACING_ZYX = (1.0, 0.77, 0.77)
+LIVER_CLASSES = 3
+# (C, spatial) the Liver forward gives kernels A (and D) and B (and D's dual
+# form), and every InstanceNorm of it
+LIVER_A_SHAPES = [(32, (128,) * 3), (64, (64,) * 3), (128, (32,) * 3), (256, (16,) * 3),
+                  (320, (8,) * 3), (320, (4,) * 3)]
+LIVER_B_SHAPES = LIVER_A_SHAPES[:5]
+LIVER_TTA_CHUNK = 4  # mirror combinations a forward in the default mode
+# two synthetic CT cases, resampled to 134 x 234 x 234: 2 x 3 x 3 tiles
+LIVER_CASE_SHAPE = (112, 200, 200)
+LIVER_CASE_SPACING_ZYX = (1.2, 0.9, 0.9)
+LIVER_CASES = ("liver_000", "liver_001")
+# default (non-exact) vs exact labelmaps of one case, on the voxels where
+# the default mode's clamped gaussian tail adds at most LIVER_CLAMP_LIMIT of
+# the blend weight (SlidingWindowPredictor.clamp_share): there fp16 input,
+# bf16 probabilities and fp16 accumulators flip the argmax only where two
+# classes nearly tie (the CPU test's bound for the same comparison,
+# tests/test_torch_port_predict_cli_exact.py); beyond, where a case is
+# little larger than the patch (134 slices of 128: both z faces), equal tail
+# weights decide the blend, as in the JAX package's default mode, and that
+# share is printed
+LIVER_EXACT_AGREE = 0.99
+LIVER_CLAMP_LIMIT = 0.01
+
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
 # and 1, unpacked shape and factors, and the cost / grid probes' volume
@@ -225,8 +273,11 @@ def _check(name: str, got, ref, bound: float) -> float:
     return err
 
 
-def phase_kernels() -> dict:
-    """Each kernel vs its plain version at the flagship's shapes."""
+def phase_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
+                  batches=(1, TRAIN_BATCH), backward: bool = True) -> dict:
+    """Each kernel vs its plain version at a network's shapes (the
+    flagship's by default): A at a_shapes and B at b_shapes, at each batch
+    of `batches`; with `backward`, C and A's dx at the training batch."""
     import torch
     import torch.nn.functional as F
     from multitalent_tpu_torch.ops import conv3d as cv
@@ -250,13 +301,14 @@ def phase_kernels() -> dict:
                               "err": err, "ms": ms, "plain_ms": plain_ms,
                               "cudnn_bf16_ms": cudnn_ms})
 
-    # forward: A and B at N=1, then A and B at the training batch (the
-    # step's forward launches, where a block's walk crosses from one sample
-    # to the next); each into a NaN-filled buffer, with its plan
-    cases = [("conv3d_same", (c,), c, sp, 1) for c, sp in KERNEL_A_SHAPES]
-    cases += [("conv3d_same_dual", (c, c), c, sp, 1) for c, sp in KERNEL_B_SHAPES]
-    cases += [("conv3d_same", (c,), c, sp, TRAIN_BATCH) for c, sp in KERNEL_A_SHAPES]
-    cases += [("conv3d_same_dual", (c, c), c, sp, TRAIN_BATCH) for c, sp in KERNEL_B_SHAPES]
+    # forward: A and B at N=1, then A and B at the larger batch (the
+    # step's forward launches or a TTA chunk's, where a block's walk crosses
+    # from one sample to the next); each into a NaN-filled buffer, with its
+    # plan
+    cases = []
+    for n in batches:
+        cases += [("conv3d_same", (c,), c, sp, n) for c, sp in a_shapes]
+        cases += [("conv3d_same_dual", (c, c), c, sp, n) for c, sp in b_shapes]
     for name, splits, cout, sp, n in cases:
         cin = sum(splits)
         ins = [rnd(n, *sp, c).to(torch.bfloat16) for c in splits]
@@ -287,8 +339,8 @@ def phase_kernels() -> dict:
     # partials and a second launch); dx of the dual convs by kernel A (C ->
     # 2C channels)
     n = TRAIN_BATCH
-    cases = [(c, (c,), sp) for c, sp in KERNEL_A_SHAPES]
-    cases += [(c, (c, c), sp) for c, sp in KERNEL_B_SHAPES]
+    cases = [(c, (c,), sp) for c, sp in a_shapes] if backward else []
+    cases += [(c, (c, c), sp) for c, sp in b_shapes] if backward else []
     for cout, splits, sp in cases:
         ins = [rnd(n, *sp, c).to(torch.bfloat16) for c in splits]
         g = rnd(n, *sp, cout).to(torch.bfloat16)
@@ -382,21 +434,40 @@ def _queued_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_launches(fn, calls: int = 4) -> float:
-    """Work items fn puts on the card a call (kernels, copies, fills), counted
-    by torch.profiler over `calls` calls; fails where the profiler sees none."""
+def _device_launches(fn) -> int:
+    """Work items fn puts on the card a call (kernels, copies, fills): the
+    kernel, copy and fill nodes of a CUDA graph captured from one call after
+    a warm-up call, read with the driver's cuGraphGetNodes. The count is
+    exact from run to run (torch.profiler's CUPTI trace once returned no
+    event here); fails where the graph holds no work."""
+    import ctypes
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    if n == 0:
-        raise AssertionError("torch.profiler saw no work on the card")
-    return n / calls
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def ok(code, what):
+        if code != 0:
+            raise RuntimeError(f"{what} failed: CUresult {code}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    ok(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    work = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        ok(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        work += kind.value in (0, 1, 2)  # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    graph.reset()
+    if work == 0:
+        raise AssertionError("the captured call put no work on the card")
+    return work
 
 
 def _stats_bound(c: int, spatial, n: int) -> dict:
@@ -414,9 +485,14 @@ def _head_bound(c: int, k: int, spatial, n: int) -> dict:
     return _bound(vox * (c + k) * 2, bf16_flops=2 * c * k * vox, fp32_flops=4 * c * vox)
 
 
-def phase_fused_kernels() -> dict:
-    """The fused chain's kernels D, E and F vs their plain versions at the
-    flagship's shapes, each timed beside the unfused route it replaces."""
+def phase_fused_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
+                        norm_shapes=NORM_SHAPES, batches=(1, TRAIN_BATCH), norm_batches=(1,),
+                        classes: int = 47) -> dict:
+    """The fused chain's kernels D, E and F vs their plain versions at a
+    network's shapes (the flagship's by default), each timed beside the
+    unfused route it replaces: D at a_shapes and its dual form at b_shapes
+    at each of `batches`, E at norm_shapes and F (C of a_shapes[0] ->
+    `classes`) at each of `norm_batches`."""
     import torch
     import torch.nn.functional as F
     from multitalent_tpu_torch.models.blocks import instance_norm_lrelu, to_ndhwc
@@ -444,9 +520,10 @@ def phase_fused_kernels() -> dict:
         results[name].append({"what": what, "err": err, "ms": ms, "plain_ms": plain_ms,
                               "unfused_ms": unfused_ms, **extra})
 
-    # kernel D with the prologue and the stats, N=1 (inference) and 2 (training)
-    for n in (1, TRAIN_BATCH):
-        for c, sp in KERNEL_A_SHAPES:
+    # kernel D with the prologue and the stats, N=1 (inference) and the
+    # larger batch (training, or a TTA chunk)
+    for n in batches:
+        for c, sp in a_shapes:
             x = rnd(n, *sp, c, scale=2.0).to(torch.bfloat16)
             w = rnd(c, c, 3, 3, 3, scale=(2.0 / (27 * c)) ** 0.5)
             w_bf = w.to(torch.bfloat16)
@@ -478,10 +555,9 @@ def phase_fused_kernels() -> dict:
             results["conv3d_same_affine"][-1].update(splits=(c,), cout=c, spatial=sp, n=n)
             _plan(results["conv3d_same_affine"][-1], "d")
             del x, x_cl, out, ref
-    # kernel D's dual form (decoders' first convs), N=1 (inference) and 2
-    # (training)
-    for n in (1, TRAIN_BATCH):
-        for c, sp in KERNEL_B_SHAPES:
+    # kernel D's dual form (decoders' first convs), at the same batches
+    for n in batches:
+        for c, sp in b_shapes:
             a, b = (rnd(n, *sp, c).to(torch.bfloat16) for _ in range(2))
             w = rnd(c, 2 * c, 3, 3, 3, scale=(2.0 / (54 * c)) ** 0.5)
             w_bf = w.to(torch.bfloat16)
@@ -506,86 +582,95 @@ def phase_fused_kernels() -> dict:
             results["conv3d_same_affine"][-1].update(splits=(c, c), cout=c, spatial=sp, n=n)
             _plan(results["conv3d_same_affine"][-1], "d_dual")
             del a, b, out, ref
-    # kernel E at every norm shape, N=1: stats (bit-equal from call to call,
-    # launches a call from the profiler, queued time beside the single call's,
-    # bound), then apply in both rounding orders; the unfused route is the
-    # port's plain norm (stats + normalize)
-    for c, sp in NORM_SHAPES:
-        x = (rnd(1, *sp, c, scale=3.0) + 1).to(torch.bfloat16)
-        stats = fn.channel_stats(x)
-        if not torch.equal(stats, fn.channel_stats(x)):
-            raise AssertionError(f"channel_stats {c} at {sp}: two calls differ")
-        serr = (((stats - fn.channel_stats_ref(x)).abs()
-                 / fn.channel_stats_ref(x.abs())).max().item())
-        if not serr <= 1e-4:
-            raise AssertionError(f"channel_stats {c} at {sp}: {serr:.3e} > 1e-4")
-        per_call = _device_launches(lambda: fn.channel_stats(x))
-        if not 1 <= per_call <= 2:
-            raise AssertionError(f"channel_stats {c} at {sp}: {per_call} launches a call")
+    # kernel E at every norm shape, at each of norm_batches: stats (bit-equal
+    # from call to call, launches a call from a captured graph, queued time beside
+    # the single call's, bound), then apply in both rounding orders; the
+    # unfused route is the port's plain norm (stats + normalize)
+    for n in norm_batches:
+        for c, sp in norm_shapes:
+            x = (rnd(n, *sp, c, scale=3.0) + 1).to(torch.bfloat16)
+            what = f"{c} at {'x'.join(map(str, sp))} N={n}"
+            stats = fn.channel_stats(x)
+            if not torch.equal(stats, fn.channel_stats(x)):
+                raise AssertionError(f"channel_stats {what}: two calls differ")
+            serr = (((stats - fn.channel_stats_ref(x)).abs()
+                     / fn.channel_stats_ref(x.abs())).max().item())
+            if not serr <= 1e-4:
+                raise AssertionError(f"channel_stats {what}: {serr:.3e} > 1e-4")
+            per_call = _device_launches(lambda: fn.channel_stats(x))
+            if not 1 <= per_call <= 2:
+                raise AssertionError(f"channel_stats {what}: {per_call} launches a call")
+            norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
+            x_cl = ncdhw(x)
+            unfused_ms = _median_ms(lambda: instance_norm_lrelu(x_cl, norm_w, norm_b))
+            # one PyTorch call of the same function: per-channel mean and variance
+            report("channel_stats", what, serr, 1e-4, _median_ms(lambda: fn.channel_stats(x)),
+                   _median_ms(lambda: fn.channel_stats_ref(x)), unfused_ms,
+                   "plain norm: stats + normalize",
+                   library_ms=_median_ms(lambda: torch.var_mean(x, dim=(1, 2, 3),
+                                                                correction=0)),
+                   queued_ms=_queued_ms(lambda: fn.channel_stats(x)),
+                   launches_per_call=per_call, **_stats_bound(c, sp, n))
+            results["channel_stats"][-1].update(c=c, spatial=sp, n=n)
+            sc, sh = fn.stats_affine(stats, norm_w, norm_b, prod(sp))
+            sc, sh = sc.contiguous(), sh.contiguous()
+            for cast_first in (True, False):
+                got = fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)
+                want = fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first).float()
+                # exact: the kernel rounds the product, the sum, the cast and the
+                # activation where the plain version does
+                bad = (got.float() != want).sum().item()
+                err = (got.float() - want).abs().max().item()
+                if bad:
+                    raise AssertionError(f"affine_lrelu {what}: {bad} values differ")
+                report("affine_lrelu", f"{what} cast_first={cast_first}", err, 0.0,
+                       _median_ms(lambda: fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)),
+                       _median_ms(lambda: fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first)),
+                       unfused_ms, "plain norm: stats + normalize",
+                       **_bound(2 * x.numel() * 2, fp32_flops=4 * x.numel()))
+            del x, x_cl, got, want
+    # kernel F at the stage-0 head, at each of norm_batches: raw (N, *sp, C)
+    # -> `classes` bf16, into a NaN-filled output; timed beside its form
+    # without the prologue and one PyTorch call of that form's function
+    # (torch.mm of the bf16 (K, C) head with the (C, S) view of raw gives F's
+    # (K, S) output at N=1; torch.matmul with the (N, C, S) view at N > 1)
+    c, sp = a_shapes[0]
+    k = classes
+    for n in norm_batches:
+        what = f"{c}->{k} at {'x'.join(map(str, sp))} N={n}"
+        raw = rnd(n, *sp, c, scale=2.0).to(torch.bfloat16)
+        head = rnd(k, c, 1, 1, 1, scale=(1.0 / c) ** 0.5)
+        sc, sh = rnd(n, c).abs() + 0.5, rnd(n, c)
         norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
-        x_cl = ncdhw(x)
-        unfused_ms = _median_ms(lambda: instance_norm_lrelu(x_cl, norm_w, norm_b))
-        what = f"{c} at {'x'.join(map(str, sp))} N=1"
-        # one PyTorch call of the same function: per-channel mean and variance
-        report("channel_stats", what, serr, 1e-4, _median_ms(lambda: fn.channel_stats(x)),
-               _median_ms(lambda: fn.channel_stats_ref(x)), unfused_ms,
-               "plain norm: stats + normalize",
-               library_ms=_median_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0)),
-               queued_ms=_queued_ms(lambda: fn.channel_stats(x)), launches_per_call=per_call,
-               **_stats_bound(c, sp, 1))
-        results["channel_stats"][-1].update(c=c, spatial=sp, n=1)
-        sc, sh = fn.stats_affine(stats, norm_w, norm_b, x.numel() // c)
-        sc, sh = sc.contiguous(), sh.contiguous()
-        for cast_first in (True, False):
-            got = fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)
-            want = fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first).float()
-            # exact: the kernel rounds the product, the sum, the cast and the
-            # activation where the plain version does
-            bad = (got.float() != want).sum().item()
-            err = (got.float() - want).abs().max().item()
-            if bad:
-                raise AssertionError(f"affine_lrelu {what}: {bad} values differ")
-            report("affine_lrelu", f"{what} cast_first={cast_first}", err, 0.0,
-                   _median_ms(lambda: fn.affine_lrelu(x, sc, sh, 1e-2, cast_first)),
-                   _median_ms(lambda: fn.affine_lrelu_ref(x, sc, sh, 1e-2, cast_first)),
-                   unfused_ms, "plain norm: stats + normalize")
-        del x, x_cl, got, want
-    # kernel F at the stage-0 head, N=1: raw (1, 96, 192, 192, 30) -> 47 bf16,
-    # into a NaN-filled output; timed beside its form without the prologue
-    # and one PyTorch call of that form's function (torch.mm of the bf16
-    # (47, 30) head with the (30, S) view of raw gives F's (47, S) output)
-    c, sp = KERNEL_A_SHAPES[0]
-    raw = rnd(1, *sp, c, scale=2.0).to(torch.bfloat16)
-    head = rnd(47, c, 1, 1, 1, scale=(1.0 / c) ** 0.5)
-    sc, sh = rnd(1, c).abs() + 0.5, rnd(1, c)
-    norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
-    got = sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16,
-                     out=_nan_filled((1, 47, *sp), dev))
-    ref = sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.float32)
-    bound = ATOL + RTOL * ref.abs().max().item()
-    err = _check(f"seghead {c}->47 at {sp}", got, ref, bound)
-    del got, ref
-    plain = sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
-    head_mm, raw_cs = head.reshape(47, c).to(torch.bfloat16), raw.view(-1, c).t()
-    mm = torch.mm(head_mm, raw_cs)
-    perr = _check(f"seghead {c}->47 at {sp}, no prologue, vs torch.mm", plain,
-                  mm.view(1, 47, *sp), ATOL + RTOL * mm.float().abs().max().item())
-    del plain, mm
-    raw_cl, head_bf = ncdhw(raw), head.to(torch.bfloat16)
-    with_prologue = lambda: sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)
-    no_prologue = lambda: sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
-    library = lambda: torch.mm(head_mm, raw_cs)
-    report("seghead", f"{c}->47 at {'x'.join(map(str, sp))} N=1", err, bound,
-           _median_ms(with_prologue),
-           _median_ms(lambda: sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.bfloat16)),
-           _median_ms(lambda: F.conv3d(instance_norm_lrelu(raw_cl, norm_w, norm_b),
-                                       head_bf).float()),
-           "plain norm + cuDNN bf16 1x1x1 conv + fp32 cast",
-           queued_ms=_queued_ms(with_prologue), no_prologue_ms=_median_ms(no_prologue),
-           no_prologue_queued_ms=_queued_ms(no_prologue), no_prologue_err=perr,
-           library_ms=_median_ms(library), library_queued_ms=_queued_ms(library),
-           launches_per_call=_device_launches(with_prologue), **_head_bound(c, 47, sp, 1))
-    del raw, raw_cl, raw_cs
+        got = sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16,
+                         out=_nan_filled((n, k, *sp), dev))
+        ref = sg.seghead_ref(raw, head, None, sc, sh, 1e-2, torch.float32)
+        bound = ATOL + RTOL * ref.abs().max().item()
+        err = _check(f"seghead {what}", got, ref, bound)
+        del got, ref
+        plain = sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
+        head_mm = head.reshape(k, c).to(torch.bfloat16)
+        raw_cs = raw.view(-1, c).t() if n == 1 else raw.view(n, -1, c).transpose(1, 2)
+        mm = torch.mm(head_mm, raw_cs) if n == 1 else torch.matmul(head_mm, raw_cs)
+        perr = _check(f"seghead {what}, no prologue, vs torch.mm", plain,
+                      mm.view(n, k, *sp), ATOL + RTOL * mm.float().abs().max().item())
+        del plain, mm
+        raw_cl, head_bf = ncdhw(raw), head.to(torch.bfloat16)
+        with_prologue = lambda: sg.seghead(raw, head, None, sc, sh, 1e-2, torch.bfloat16)
+        no_prologue = lambda: sg.seghead(raw, head, None, None, None, 1e-2, torch.bfloat16)
+        library = ((lambda: torch.mm(head_mm, raw_cs)) if n == 1
+                   else (lambda: torch.matmul(head_mm, raw_cs)))
+        report("seghead", what, err, bound, _median_ms(with_prologue),
+               _median_ms(lambda: sg.seghead_ref(raw, head, None, sc, sh, 1e-2,
+                                                 torch.bfloat16)),
+               _median_ms(lambda: F.conv3d(instance_norm_lrelu(raw_cl, norm_w, norm_b),
+                                           head_bf).float()),
+               "plain norm + cuDNN bf16 1x1x1 conv + fp32 cast",
+               queued_ms=_queued_ms(with_prologue), no_prologue_ms=_median_ms(no_prologue),
+               no_prologue_queued_ms=_queued_ms(no_prologue), no_prologue_err=perr,
+               library_ms=_median_ms(library), library_queued_ms=_queued_ms(library),
+               launches_per_call=_device_launches(with_prologue), **_head_bound(c, k, sp, n))
+        del raw, raw_cl, raw_cs
     torch.cuda.empty_cache()
     return results
 
@@ -765,6 +850,248 @@ def compare_masks(unfused: dict, fused: dict) -> dict:
         raise AssertionError(f"fused masks disagree: worst {worst}, mean {mean}")
     return {"worst": worst, "mean": mean}
 
+
+@contextlib.contextmanager
+def _env(**values: str):
+    """The environment with `values` set inside, as it was after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _liver_plans():
+    """The Task003 Liver 3d_fullres plans (bench.py:382-383)."""
+    from multitalent_tpu_torch.io import Plans
+    return Plans.from_dict({
+        "num_stages": 1, "num_modalities": 1, "modalities": {0: "CT"},
+        "normalization_schemes": {0: "CT"}, "num_classes": LIVER_CLASSES - 1,
+        "all_classes": list(range(1, LIVER_CLASSES)), "base_num_features": 32,
+        "use_mask_for_norm": {0: False}, "transpose_forward": [0, 1, 2],
+        "transpose_backward": [0, 1, 2], "data_identifier": "nnUNetData_plans_v2.1",
+        "preprocessor_name": "GenericPreprocessor",
+        "dataset_properties": {"intensityproperties": {0: {
+            "percentile_00_5": -20.0, "percentile_99_5": 200.0, "mean": 100.0, "sd": 40.0}}},
+        "plans_per_stage": {0: {
+            "batch_size": 2, "patch_size": list(LIVER_PATCH),
+            "current_spacing": list(LIVER_SPACING_ZYX),
+            "original_spacing": list(LIVER_SPACING_ZYX),
+            "median_patient_size_in_voxels": [432, 512, 512],
+            "num_pool_per_axis": [5, 5, 5],
+            "pool_op_kernel_sizes": [list(p) for p in LIVER_POOLS],
+            "conv_kernel_sizes": [[3, 3, 3]] * (len(LIVER_POOLS) + 1)}}})
+
+
+def _liver_case(rng):
+    """A CT-like volume of LIVER_CASE_SHAPE (HU, int16) and its labels:
+    air, a body, a liver (label 1) holding a lesion (label 2), mild noise."""
+    import numpy as np
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32)
+                            for s in LIVER_CASE_SHAPE], indexing="ij")
+    ct = np.full(LIVER_CASE_SHAPE, -1000.0, np.float32)
+    seg = np.zeros(LIVER_CASE_SHAPE, np.uint8)
+    ct[(z / 0.95) ** 2 + (y / 0.8) ** 2 + (x / 0.9) ** 2 < 1] = 40.0
+    c = rng.uniform(-0.15, 0.15, 3)
+    liver = ((z - c[0]) / 0.5) ** 2 + ((y - c[1]) / 0.35) ** 2 + ((x - c[2] - 0.2) / 0.45) ** 2 < 1
+    ct[liver], seg[liver] = 100.0, 1
+    lesion = ((z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2] - 0.25) ** 2) < 0.12 ** 2
+    ct[lesion], seg[lesion] = 50.0, 2
+    ct += rng.standard_normal(LIVER_CASE_SHAPE, dtype=np.float32) * 15
+    return ct.astype(np.int16), seg
+
+
+def _liver_tiles() -> tuple[int, list[int]]:
+    """Tiles of a Liver case once resampled to the plans' spacing, and that
+    shape."""
+    import numpy as np
+    from multitalent_tpu_torch.ops.sliding_window import compute_steps_for_sliding_window
+    resampled = [int(round(s * sp / t)) for s, sp, t in
+                 zip(LIVER_CASE_SHAPE, LIVER_CASE_SPACING_ZYX, LIVER_SPACING_ZYX)]
+    n_tiles = int(np.prod([len(s) for s in compute_steps_for_sliding_window(
+        LIVER_PATCH, resampled, 0.5)]))
+    return n_tiles, resampled
+
+
+def _write_liver_task(workdir: str) -> tuple[str, object]:
+    """A TrainerV2 model folder of the Liver plans with two folds of seeded
+    random weights (the reference's He init), in RESULTS_FOLDER's layout,
+    two synthetic cases under in/ and their labels under gt/. Returns the
+    results folder and fold 0's network."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.inference.model_restore import save_model_folder
+    from multitalent_tpu_torch.io import Geometry, write_nifti
+    from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+
+    plans = _liver_plans()
+    nets = []
+    for fold in range(2):
+        torch.manual_seed(SEED + 10 + fold)
+        net = build_unet_from_plans(plans, 0, num_classes=LIVER_CLASSES, dtype=torch.bfloat16)
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+                torch.nn.init.kaiming_normal_(m.weight, a=1e-2)
+                if m.bias is not None:
+                    torch.nn.init.zeros_(m.bias)
+        nets.append(net)
+    results = os.path.join(workdir, "liver_results")
+    model = os.path.join(results, "nnUNet", "3d_fullres", LIVER_TASK,
+                         "TrainerV2__MTTPUPlansv2.1")
+    save_model_folder(model, plans, [n.state_dict() for n in nets], "TrainerV2", fp16=True)
+    rng = np.random.default_rng(SEED + 10)
+    for d in ("liver_in", "liver_gt"):
+        os.makedirs(os.path.join(workdir, d))
+    geometry = Geometry(spacing=LIVER_CASE_SPACING_ZYX[::-1])
+    for case in LIVER_CASES:
+        ct, seg = _liver_case(rng)
+        write_nifti(os.path.join(workdir, "liver_in", f"{case}_0000.nii.gz"), ct, geometry)
+        write_nifti(os.path.join(workdir, "liver_gt", f"{case}.nii.gz"), seg, geometry)
+    return results, nets[0].to("cuda").eval()
+
+
+def _forward_ms(forward, n: int) -> float:
+    """Median ms of one no-grad forward of a (n, 1, *LIVER_PATCH) bf16 batch."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(n, 1, *LIVER_PATCH, generator=gen, device="cuda")
+    with torch.no_grad():
+        return _median_ms(lambda: forward(x), iters=5)
+
+
+def phase_liver(workdir: str) -> dict:
+    """The generic softmax inference path (`cli.predict`) at the Task003
+    Liver 3d_fullres width: two folds, two cases, every mode, both routes,
+    `-z` into two folders, `cli.ensemble` and `cli.evaluate`, then one
+    forward's time at N=1 and N=4 on each route."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.ensemble import main as ensemble_main
+    from multitalent_tpu_torch.cli.evaluate import main as evaluate_main
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.io import read_nifti
+    from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
+    from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+
+    results, net = _write_liver_task(workdir)
+    n_tiles, resampled = _liver_tiles()
+    per_call = {"unfused": net.kernel_launches_per_forward(),
+                "fused": net.fused_kernel_launches_per_forward()}
+    combos = 8
+    runs = {}
+
+    def run(label, route="unfused", exact=False, extra=(), folds=2):
+        out = os.path.join(workdir, f"liver_{label}")
+        args = ["-i", os.path.join(workdir, "liver_in"), "-o", out, "-t", LIVER_TASK,
+                "-m", "3d_fullres", "-tr", "TrainerV2", "--device", "cuda", *extra]
+        with _env(RESULTS_FOLDER=results, MTTPU_SW_EXACT="1" if exact else "0",
+                  MTTPU_FUSED_NORM="1" if route == "fused" else "0"):
+            t0 = time.perf_counter()
+            timings, launches = _run_counted(lambda: predict_main(args))
+            wall = time.perf_counter() - t0
+        chunk = 1 if exact else LIVER_TTA_CHUNK
+        calls_per_case = n_tiles * folds * -(-combos // chunk)
+        if [t["case"] for t in timings] != list(LIVER_CASES):
+            raise AssertionError(f"{label}: cases {[t['case'] for t in timings]}")
+        for t in timings:
+            if (t["forwards"], t["net_calls"], t["puts"]) != (
+                    n_tiles * combos * folds, calls_per_case, 1):
+                raise AssertionError(f"{label}: {t}, expected {n_tiles * combos * folds} "
+                                     f"forwards in {calls_per_case} calls and one put")
+        net_calls = sum(t["net_calls"] for t in timings)
+        expect = _expect(per_call[route], net_calls)
+        if launches != expect or any(launches[k] == 0 for k in per_call[route]):
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        segs = {}
+        for case in LIVER_CASES:
+            seg, _ = read_nifti(os.path.join(out, f"{case}.nii.gz"))
+            if seg.shape != LIVER_CASE_SHAPE or not set(np.unique(seg).tolist()) <= {0, 1, 2}:
+                raise AssertionError(f"{label} {case}: {seg.shape} {np.unique(seg)[:5]}")
+            segs[case] = seg
+        row = {"out": out, "segs": segs, "launches": launches, "net_calls": net_calls,
+               "seconds_per_case": wall / len(LIVER_CASES),
+               "predict_s": sum(t["predict_s"] for t in timings) / len(LIVER_CASES),
+               "export_s": sum(t["export_s"] for t in timings) / len(LIVER_CASES)}
+        print(f"Liver {label} ({route}, {'exact' if exact else 'default'} mode"
+              f"{', ' + ' '.join(extra) if extra else ''}): {row['seconds_per_case']:.2f} s a "
+              f"case (predict {row['predict_s']:.2f} s on the card's clock, export "
+              f"{row['export_s']:.2f} s); {net_calls} network calls; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        runs[label] = row
+        return row
+
+    def agree(a, b):
+        return [float(np.mean(runs[a]["segs"][c] == runs[b]["segs"][c])) for c in LIVER_CASES]
+
+    print(f"Liver cases {LIVER_CASE_SHAPE} at spacing {LIVER_CASE_SPACING_ZYX} -> resampled "
+          f"{tuple(resampled)}, {n_tiles} tiles x {combos} mirror combos x 2 folds")
+    run("normal")
+    run("fused", route="fused")
+    run("exact", exact=True)
+    run("fast", extra=("--mode", "fast"))
+    run("fastest", extra=("--mode", "fastest"))
+    run("z0", extra=("-z", "-f", "0"), folds=1)
+    run("z1", extra=("-z", "-f", "1"), folds=1)
+    ens = os.path.join(workdir, "liver_ensemble")
+    ensemble_main(["-f", runs["z0"]["out"], runs["z1"]["out"], "-o", ens])
+    runs["ensemble"] = {"segs": {c: read_nifti(os.path.join(ens, f"{c}.nii.gz"))[0]
+                                 for c in LIVER_CASES}}
+    summary = evaluate_main(["-ref", os.path.join(workdir, "liver_gt"),
+                             "-pred", runs["normal"]["out"], "-l", "1", "2"])
+    dice = {label: summary["mean"][str(label)]["Dice"] for label in (1, 2)}
+    if len(summary["all"]) != len(LIVER_CASES) or not all(
+            0.0 <= d <= 1.0 for d in dice.values()):
+        raise AssertionError(f"evaluate: {len(summary['all'])} cases, Dice {dice}")
+
+    # the voxels where the clamp decides the default mode's blend, on the
+    # network's grid, taken back to the case's grid by the nearest voxel
+    # (the cases are not cropped)
+    share = SlidingWindowPredictor(LIVER_PATCH, 1, LIVER_CLASSES, device="cpu",
+                                   exact=False).clamp_share(resampled)
+    idx = [np.floor((np.arange(n) + 0.5) * (m / n)).astype(int)
+           for m, n in zip(share.shape, LIVER_CASE_SHAPE)]
+    decided = (share > LIVER_CLAMP_LIMIT)[np.ix_(*idx)]
+    same = [runs["normal"]["segs"][c] == runs["exact"]["segs"][c] for c in LIVER_CASES]
+    exact_agree = [float(s[~decided].mean()) for s in same]
+    fused_agree = agree("fused", "normal")
+    readings = {"default_vs_exact": [float(s.mean()) for s in same],
+                "default_vs_exact_unclamped": exact_agree,
+                "default_vs_exact_clamped": [float(s[decided].mean()) for s in same],
+                "fastest_vs_fast": agree("fastest", "fast"),
+                "fused_vs_unfused": fused_agree, "ensemble_vs_normal": agree("ensemble", "normal")}
+    print("Liver labelmap agreement: " + "; ".join(
+        f"{k} {', '.join(f'{v:.6f}' for v in vals)}" for k, vals in readings.items())
+          + f"; {decided.mean():.4f} of the voxels clamp-decided (the clamp adds more than "
+            f"{LIVER_CLAMP_LIMIT} of the blend weight); Dice of the random model vs the "
+            f"phantom's labels {dice}")
+    if min(exact_agree) < LIVER_EXACT_AGREE:
+        raise AssertionError(f"default vs exact labelmaps where the clamp does not decide the "
+                             f"blend: {exact_agree} < {LIVER_EXACT_AGREE}")
+    if not all(np.array_equal(runs["normal"]["segs"][c], runs["fast"]["segs"][c])
+               for c in LIVER_CASES):
+        raise AssertionError("normal and fast labelmaps differ")
+    if not (min(fused_agree) >= MASK_AGREE_WORST and np.mean(fused_agree) >= MASK_AGREE_MEAN):
+        raise AssertionError(f"fused vs unfused labelmaps: {fused_agree}")
+    if min(readings["ensemble_vs_normal"]) < MASK_AGREE_WORST:
+        raise AssertionError(f"ensemble vs normal labelmaps: {readings['ensemble_vs_normal']}")
+
+    fused_net = lambda x: unet_forward_fused(net, x)
+    forward = {f"{route}_n{n}_ms": _forward_ms(fn, n)
+               for route, fn in (("unfused", net), ("fused", fused_net)) for n in (1, 4)}
+    print(f"Liver forward at {'x'.join(map(str, LIVER_PATCH))}: " + ", ".join(
+        f"{route} N=1 {forward[f'{route}_n1_ms']:.2f} ms, N=4 {forward[f'{route}_n4_ms']:.2f} "
+        f"ms ({forward[f'{route}_n4_ms'] / 4:.2f} ms a combo)" for route in ("unfused", "fused")))
+    del net
+    torch.cuda.empty_cache()
+    return {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "segs"}
+                     for k, v in runs.items()},
+            "agreement": readings, "clamp_decided": float(decided.mean()), "dice": dice,
+            "forward": forward, "n_tiles": n_tiles}
 
 def phase_tile_probabilities() -> dict:
     """One tile's sigmoid probabilities through the kernels in bf16, against
@@ -1512,6 +1839,16 @@ def _sums(label: str, timed: list, ref_key: str, **weights: collections.Counter)
     return out
 
 
+def _timed_entry(r: dict) -> dict:
+    """One shape a kernel was timed at in phase 2 or 2b, for the kernels
+    line: where, its error and times, its bound."""
+    at = r.get("what") or "{}->{} at {} N={}".format(
+        "+".join(map(str, r["splits"])), r["cout"], "x".join(map(str, r["spatial"])), r["n"])
+    keys = ("err", "ms", "plain_ms", "cudnn_bf16_ms", "unfused_ms", "library_ms", "queued_ms",
+            "bound_ms", "bound_by")
+    return {"at": at, **{k: r[k] for k in keys if k in r}}
+
+
 def _stats_sums(timed: list, forward: collections.Counter) -> dict:
     """Kernel E's stats pass at each phase-2 shape (single-call and queued ms,
     launches a call, bound) and the sums of both times over one fused
@@ -1739,18 +2076,30 @@ def main() -> int:
     name, smi, build_s = timed("1", phase_device)
     kernels = timed("2", phase_kernels)
     fused_kernels = timed("2b", phase_fused_kernels)
+    liver_kernels = timed("2 Liver", phase_kernels, LIVER_A_SHAPES, LIVER_B_SHAPES,
+                          batches=(1, LIVER_TTA_CHUNK), backward=False)
+    liver_fused_kernels = timed("2b Liver", phase_fused_kernels, LIVER_A_SHAPES,
+                                LIVER_B_SHAPES, LIVER_A_SHAPES, batches=(1, LIVER_TTA_CHUNK),
+                                norm_batches=(1, LIVER_TTA_CHUNK), classes=LIVER_CLASSES)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    # the flagship's predict and training phases run the sliding window's
+    # exact mode, as they did before the default mode was ported, so that
+    # their counts, bounds and history stay comparable
+    exact = {"MTTPU_SW_EXACT": "1"}
     try:
-        main_path = timed("3", phase_main_path, workdir)
-        main_fused = timed("3b", phase_main_path, workdir, fused=True)
+        with _env(**exact):
+            main_path = timed("3", phase_main_path, workdir)
+            main_fused = timed("3b", phase_main_path, workdir, fused=True)
         masks = compare_masks(main_path, main_fused)
+        liver = timed("3c Liver", phase_liver, workdir)
         tile = timed("4", phase_tile_probabilities)
         tile_fused = timed("4b", phase_fused_tile_probabilities)
-        training = timed("5", phase_training, workdir)
-        training_fused = timed("5b", phase_training, workdir, fused=True)
-        fused_val = timed("5c fused -val", phase_fused_validation, workdir, training)
-        jax_folder = timed("5d JAX-layout folder", phase_jax_folder, workdir, training)
-        warmup = timed("5e warm-up", phase_warmup, workdir, jax_folder)
+        with _env(**exact):
+            training = timed("5", phase_training, workdir)
+            training_fused = timed("5b", phase_training, workdir, fused=True)
+            fused_val = timed("5c fused -val", phase_fused_validation, workdir, training)
+            jax_folder = timed("5d JAX-layout folder", phase_jax_folder, workdir, training)
+            warmup = timed("5e warm-up", phase_warmup, workdir, jax_folder)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1836,6 +2185,18 @@ def main() -> int:
                      "library_ms": stage0.get("library_ms"),
                      "unfused_route_ms": stage0["unfused_ms"],
                      "timed_at": stage0["what"], **extra})
+    # the Liver net's shapes (phases 2 and 2b at the Liver's shapes) and
+    # launches (phase 3c's default-mode predict CLI: unfused for A and B,
+    # fused for D, E and F)
+    liver_timed = {**{k: liver_kernels[k] for k in ("conv3d_same", "conv3d_same_dual")},
+                   **liver_fused_kernels}
+    for row in rows:
+        if row["name"] in liver_timed:
+            run = "normal" if row["name"] in ("conv3d_same", "conv3d_same_dual") else "fused"
+            row["launches_liver"] = liver["runs"][run]["launches"][row["name"]]
+            row["liver_shapes"] = [_timed_entry(r) for r in liver_timed[row["name"]]]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *(r["err"] for r in liver_timed[row["name"]]))
     # the probes' kernels: launches from the probe path, times at the first
     # shape each was timed at in phase 6
     for kname, src, replaces in (
@@ -1861,6 +2222,13 @@ def main() -> int:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "timed_at": first["what"]})
+    lr = liver["runs"]
+    print("summary, Liver (phase 3c): seconds per case " + ", ".join(
+        f"{k} {lr[k]['seconds_per_case']:.2f} (predict {lr[k]['predict_s']:.2f}, export "
+        f"{lr[k]['export_s']:.2f})" for k in ("normal", "fused", "exact", "fast", "fastest",
+                                              "z0", "z1"))
+          + "; forward at 128^3 " + ", ".join(f"{k} {v:.2f} ms"
+                                             for k, v in liver["forward"].items()))
     print(f"summary: build {build_s:.1f} s; seconds per case {main_path['seconds_per_case']:.2f}"
           f" unfused, {main_fused['seconds_per_case']:.2f} fused (masks: worst region "
           f"{masks['worst']:.6f}); one forward {tile_fused['unfused_forward_ms']:.2f} ms "

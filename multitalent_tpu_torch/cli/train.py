@@ -28,6 +28,7 @@ import argparse
 import os
 
 from multitalent_tpu_torch import paths
+from multitalent_tpu_torch.cli.configuration import resolve_task_name
 from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS,
                                                            checkpoint_state_dict)
 from multitalent_tpu_torch.plans import load_plans
@@ -36,7 +37,6 @@ from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
 from multitalent_tpu_torch.training.trainers import TrainerV2
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
                                                    load_pretrained_weights)
-from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
 # trainer names of the reference and of the JAX package -> the port's classes
 TRAINERS = {
@@ -67,8 +67,7 @@ def get_default_configuration(network: str, task: str, network_trainer: str,
     if network_trainer not in TRAINERS:
         raise ValueError(f"unknown trainer {network_trainer!r}; known: {sorted(TRAINERS)}")
     plans_identifier = plans_identifier or paths.default_plans_identifier
-    if not task.startswith("Task"):
-        task = convert_id_to_task_name(int(task))
+    task = resolve_task_name(task)
     dataset_directory = os.path.join(paths.preprocessing_output_dir(), task)
     plans_file = os.path.join(dataset_directory, plans_identifier + "_plans_3D.pkl")
     if not os.path.isfile(plans_file):

@@ -14,7 +14,9 @@ The region probabilities stay on the device: the predict path's export
 case needs the separate-z resampling. Softmax models take the host chain.
 The network is whatever `trainer.predict_preprocessed_probabilities` runs:
 the hand-written kernels on a CUDA device (the fused conv -> norm route under
-MTTPU_FUSED_NORM=1), their plain versions on the CPU.
+MTTPU_FUSED_NORM=1), their plain versions on the CPU; the sliding window
+runs in its default (non-exact) mode unless MTTPU_SW_EXACT=1, as the JAX
+package validates.
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def run_validation(trainer, do_mirroring: bool = True, use_sliding_window: bool 
                              use_gaussian=use_gaussian)
             npz_fname = fname[:-7] + ".npz" if save_softmax else None
             futures.append(pool.submit(
-                save_segmentation_nifti_from_softmax, probs.cpu().numpy(), fname,
+                save_segmentation_nifti_from_softmax, probs.float().cpu().numpy(), fname,
                 properties, order, trainer.regions_class_order, None, None,
                 npz_fname, None, force_sep_z, order_z))
         for f in futures:
@@ -161,7 +163,7 @@ def run_multitalent_validation(trainer, do_mirroring: bool = True,
                 futures += _export_on_device(pool, probs, 1, properties, merged_fname, k,
                                              class_order, True, channels=channels)
             else:
-                futures += _export_on_host(pool, probs.cpu().numpy(), properties,
+                futures += _export_on_host(pool, probs.float().cpu().numpy(), properties,
                                            merged_fname, k, class_order, True, False,
                                            channels=channels)
             del probs

@@ -417,7 +417,8 @@ class TrainerV2(NetworkTrainerBase):
                                      step_size: float = 0.5,
                                      use_gaussian: bool = True) -> SlidingWindowPredictor:
         """The tiled predictor of this trainer's plans and head on its device
-        (trainers.py:464)."""
+        (trainers.py:464), in the sliding window's default mode (non-exact
+        unless MTTPU_SW_EXACT=1, as the JAX package's)."""
         return SlidingWindowPredictor(
             tuple(int(p) for p in self.patch_size), in_channels=self.num_input_channels,
             num_classes=self.num_classes, nonlin=self.inference_nonlin,
@@ -427,10 +428,11 @@ class TrainerV2(NetworkTrainerBase):
     def predict_preprocessed_probabilities(self, data: np.ndarray, do_mirroring: bool = True,
                                            step_size: float = 0.5,
                                            use_gaussian: bool = True):
-        """data (C, Z, Y, X) preprocessed -> (probabilities (K, Z, Y, X) fp32
-        on the device, forwards run). The network in eval mode without deep
-        supervision, under no_grad, through ops/fused_unet.make_inference_forward
-        (the fused route under MTTPU_FUSED_NORM=1)."""
+        """data (C, Z, Y, X) preprocessed -> (probabilities (K, Z, Y, X) on
+        the device, fp32 in exact mode and fp16 otherwise, forwards run).
+        The network in eval mode without deep supervision, under no_grad,
+        through ops/fused_unet.make_inference_forward (the fused route under
+        MTTPU_FUSED_NORM=1)."""
         predictor = self.get_sliding_window_predictor(do_mirroring, step_size, use_gaussian)
         was_training = self.network.training
         self.network.eval()

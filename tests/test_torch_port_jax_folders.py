@@ -94,8 +94,9 @@ def test_the_sidecar_pickles_the_jax_plans(folders):
     assert type(meta["init_args"][0]) is Plans and meta["init_args"][0].base_num_features == 4
 
 
-def test_predict_cli_reads_a_jax_layout_folder(folders):
+def test_predict_cli_reads_a_jax_layout_folder(folders, monkeypatch):
     root, sd = folders
+    monkeypatch.setenv("MTTPU_SW_EXACT", "1")  # the JAX prediction's mode
     restored = load_model_and_checkpoint_files(str(root / "jax"), None, device="cpu")
     assert restored.inference_nonlin == "sigmoid" and restored.trainer_name == "MultiTalentTrainer"
     got = restored.networks[0].state_dict()
@@ -110,8 +111,9 @@ def test_predict_cli_reads_a_jax_layout_folder(folders):
                                                     _masks(root / "port_ref")))
 
 
-def test_jax_layout_prediction_matches_the_jax_package(folders):
+def test_jax_layout_prediction_matches_the_jax_package(folders, monkeypatch):
     root, _ = folders
+    monkeypatch.setenv("MTTPU_SW_EXACT", "1")  # the JAX prediction's mode
     if not (root / "port_jax").is_dir():
         main(["-i", str(root / "in"), "-o", str(root / "port_jax"), "-m", str(root / "jax"),
               "--device", "cpu", "--disable_tta"])

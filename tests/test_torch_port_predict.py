@@ -225,7 +225,8 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Import every module of the port (the fused conv -> norm route's, the
-    probes', validation's and the flax reader's among them), chip_smoke and
+    probes', validation's, the flax reader's and the generic predict,
+    ensemble and evaluate CLIs' among them), chip_smoke and
     profile_routes, in a fresh interpreter (this process's conftest has loaded
     jax already), build the MultiTalent label -> region table, read a sidecar
     that pickles the JAX package's plans class, and confirm that no module of
@@ -237,7 +238,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke', 'profile_routes']:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 37, names\n"
+        "assert len(names) >= 41, names\n"
         "fused = ['multitalent_tpu_torch.ops.fused_unet', 'multitalent_tpu_torch.ops.fused_norm',\n"
         "         'multitalent_tpu_torch.ops.seghead']\n"
         "assert set(fused) <= set(names), names\n"
@@ -259,7 +260,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'multitalent_tpu_torch.evaluation.region_based_evaluation',\n"
         "       'multitalent_tpu_torch.postprocessing.connected_components',\n"
         "       'multitalent_tpu_torch.inference.validation',\n"
-        "       'multitalent_tpu_torch.io.flax_ckpt', 'multitalent_tpu_torch.training.warmup']\n"
+        "       'multitalent_tpu_torch.io.flax_ckpt', 'multitalent_tpu_torch.training.warmup',\n"
+        "       'multitalent_tpu_torch.cli.predict', 'multitalent_tpu_torch.cli.ensemble',\n"
+        "       'multitalent_tpu_torch.cli.evaluate', 'multitalent_tpu_torch.cli.configuration',\n"
+        "       'multitalent_tpu_torch.ops.device_export', 'multitalent_tpu_torch.ops.sliding_window',\n"
+        "       'multitalent_tpu_torch.inference.predict']\n"
         "missing = [m for m in own if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "# a JAX sidecar's pickled plans (protocol 2 names the class in text)\n"

@@ -1,0 +1,64 @@
+"""The port's generic predict CLI against the JAX package's
+predict_from_folder in the sliding window's exact mode (MTTPU_SW_EXACT=1 in
+both: fp32 probabilities and accumulators, the raw gaussian), on the CPU,
+and the gap between the port's default and exact modes.
+
+The fixture and the comparisons are test_torch_port_predict_cli.py's.
+Tolerances: fp32 all through, so the probabilities differ by summation order
+only (<= 1e-4, test_torch_port_sliding_window.py) and the labelmaps agree
+on >= 99.99% of the voxels; the -z probabilities, stored as fp16, within
+1e-4 plus one fp16 ulp.
+
+Default vs exact, the port's own gap: the fp16 volume, bf16 probabilities
+and fp16 accumulators flip labels where two classes nearly tie, and the
+gaussian's clamped tail (equal weights of 1e-4) decides the blend where no
+tile's raw weight comes near 1e-4; that gap is the JAX package's own
+(test_torch_port_sliding_window_default.py). Measured here: 99.55% of the
+voxels agree, 99.76-99.85% where the clamp adds at most 1% of the blend
+weight (`SlidingWindowPredictor.clamp_share`; 49% of the voxels of these
+small tiles are beyond that); the bound there is 99%, as chip_smoke.py's
+phase 3c holds the Liver model to it.
+"""
+import numpy as np
+import pytest
+
+from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
+from multitalent_tpu_torch.inference.predict import _make_preprocess_fn
+from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+
+from test_torch_port_predict_cli import CASES, check_against_jax, labels, port_run, task  # noqa: F401
+
+AGREE_EXACT = 0.9999
+DEFAULT_VS_EXACT = 0.99
+CLAMP_LIMIT = 0.01
+
+
+def clamp_decided(task, case) -> np.ndarray:
+    """Voxels of the case's original grid where the default mode's clamp
+    adds more than CLAMP_LIMIT of the blend weight (on the network's grid,
+    taken back by the nearest voxel; the case is not cropped)."""
+    restored = load_model_and_checkpoint_files(task["model"], None, device="cpu")
+    data, props = _make_preprocess_fn(restored)([str(task["root"] / "in" / f"{case}_0000.nii.gz")])
+    assert tuple(props["size_after_cropping"]) == tuple(props["original_size_of_raw_data"])
+    sp = SlidingWindowPredictor(restored.patch_size, 1, 3, device="cpu", exact=False)
+    share = sp.clamp_share(data.shape[1:])
+    idx = [np.floor((np.arange(n) + 0.5) * (m / n)).astype(int)
+           for m, n in zip(share.shape, props["size_after_cropping"])]
+    return (share > CLAMP_LIMIT)[np.ix_(*idx)]
+
+
+@pytest.mark.parametrize("mode", ["normal", "fast", "fastest", "host", "z"])
+def test_exact_mode_matches_jax(task, mode):
+    check_against_jax(task, True, mode, AGREE_EXACT, 1e-4)
+
+
+def test_default_and_exact_modes_agree(task):
+    default, *_ = port_run(task, False)
+    exact, t_exact, _ = port_run(task, True)
+    # exact mode: one mirror combination a network call
+    assert all(t["net_calls"] == t["forwards"] for t in t_exact)
+    for case in CASES:
+        same = labels(default, case) == labels(exact, case)
+        decided = clamp_decided(task, case)
+        assert decided.any() and not decided.all()
+        assert same[~decided].mean() >= DEFAULT_VS_EXACT, (same.mean(), same[~decided].mean())

@@ -219,6 +219,18 @@ def case_input_folder_discovery(tmp_path):
             fn(str(tmp_path), 2)
 
 
+def case_task_name_resolution(tmp_path):
+    """resolve_task_name (cli/configuration.py): a task name passes, an id
+    finds its folder among the preprocessed tasks."""
+    from multitalent_tpu.cli.configuration import resolve_task_name as jresolve
+    from multitalent_tpu_torch.cli.configuration import resolve_task_name as presolve
+    (tmp_path / "Task003_Liver").mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("nnUNet_preprocessed", str(tmp_path))
+        for task in ("Task003_Liver", "3", "003"):
+            assert presolve(task) == jresolve(task) == "Task003_Liver"
+
+
 CASES = {name[5:]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")}
 
 

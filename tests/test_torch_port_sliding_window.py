@@ -47,7 +47,7 @@ def test_sliding_window_matches_jax_exact_mode():
     net.load_state_dict(generic_unet_state_dict_from_flax(params, len(POOLS)))
     pp = SlidingWindowPredictor(PATCH, in_channels=1, num_classes=47, nonlin="sigmoid",
                                 step_size=0.5, do_mirroring=True, mirror_axes=(0, 1, 2),
-                                device="cpu")
+                                device="cpu", exact=True)
     got = pp.predict(net.eval(), vol)
     assert got.shape == ref.shape == (47, 6, 21, 19)
     assert got.dtype == torch.float32
