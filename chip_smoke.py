@@ -95,6 +95,23 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
    the plain version's and the library call's;
+8. the residual-encoder UNet (FabiansUNet) at full width, the MultiTalent
+   resenc plans (the flagship's with a leading (1,1,1) pool, blocks
+   (1,2,3,4,4,4) and (1,1,1,1,1)): 8a `cli.train` with
+   MultiTalent_trainer_resenc_ddp on phase 5's cases (4 steps, then the
+   validation of one case a dataset: finite losses, every weight moved,
+   exact A/B/C counts, one step's dw through C against the plain version,
+   seconds per step, peak memory, validation seconds per case); 8b
+   predict_multitalent from its folder on phase 3's case (exact counts,
+   seconds per case); 8c one tile's probabilities, kernels vs plain in
+   bf16 and fp32, MTTPU_PALLAS_NORM=1 vs the default, and controls with a
+   faulty LeakyReLU slope that must break those bounds; 8d the trained
+   weights as a JAX-layout folder, restored (timed) and predicted from,
+   bit-equal to 8b; 8e nnUNetTrainerV2_warmupsegheads_resenc
+   -pretrained_weights that `.ckpt` on phase 5e's task (backbone
+   bit-unchanged, heads moved, kernel C 0 launches); 8f `cli.predict -tr
+   nnUNetTrainerV2_ResencUNet` on a phase-3c Liver case with the Liver
+   plans as resenc plans (default mode, one fold, exact counts);
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -103,7 +120,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (phase 5), D over one fused forward (phase 4b) and one fused step (phase
    5b); E's stats row lists its six shapes and sums them over one fused
    forward (phase 4b); A, B, D, E and F also their Liver shapes and phase
-   3c's launches), then the result line. Each phase prints its seconds.
+   3c's launches; A, B and C the resenc's launches of phase 8 and their
+   sums over one resenc forward (8c) and step (8a)), then the result line.
+   Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
 """
@@ -231,6 +250,35 @@ LIVER_CASES = ("liver_000", "liver_001")
 # share is printed
 LIVER_EXACT_AGREE = 0.99
 LIVER_CLAMP_LIMIT = 0.01
+
+# phase 8: the MultiTalent resenc plans (MultiTalent_resenc_bs4_plans_3D.pkl,
+# SURVEY.md:76,108; the shipped pkl is not in the repository): the
+# flagship's modality, patch, spacing, base 30 (planning/
+# multitalent_planner.py:32) up to 320 and 47 sigmoid regions, with the
+# pools' leading (1,1,1) stage and the residual encoder's block counts
+# (1,2,3,4,4,4) and (1,1,1,1,1), batch 2, bf16, deep supervision; its kernel
+# shapes are the flagship's (phase 2)
+RESENC_PLANS_ID = "MultiTalent_resenc_bs4"
+RESENC_TRAINER = "MultiTalent_trainer_resenc_ddp"
+RESENC_TRAIN_STEPS = 4  # the first 2 are warm-up
+# phase 8c, |dp| of one resenc tile's sigmoid probabilities (36 kernel
+# convs, 47 norms), kernels vs the plain versions in bf16 (measured on the
+# H100 before these bounds: max 1.38e-2, mean 1.06e-3), and
+# MTTPU_PALLAS_NORM=1 (the 5 decoder norms on kernel E) vs the default
+# (max 8.8e-3, mean 4.4e-4); the controls' faulty slope 5e-3 measured max
+# 3.4e-2, mean 2.9e-3 on both
+RESENC_PROB_BOUND = 3e-2
+RESENC_PROB_BOUND_MEAN = 2e-3
+RESENC_PALLAS_NORM_BOUND = 2e-2
+RESENC_PALLAS_NORM_BOUND_MEAN = 1.5e-3
+# phase 8f: the Task003 Liver plans of phase 3c as the FabiansResUNet planner
+# makes them (multitalent_tpu/planning/experiment_planner.py:393-470): a
+# leading (1,1,1) pool, the default block counts (1,2,3,4,4,4,4,...) cut to
+# its 6 stages; one fold, one case. Its kernel shapes are the Liver net's
+# (phase "2 Liver")
+LIVER_RESENC_PLANS_ID = "nnUNetPlans_FabiansResUNet_v2.1"
+LIVER_RESENC_TRAINER = "nnUNetTrainerV2_ResencUNet"
+RESENC_DEFAULT_BLOCKS = (1, 2, 3, 4, 4, 4, 4)
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -1140,10 +1188,10 @@ def phase_tile_probabilities() -> dict:
 
 @contextlib.contextmanager
 def _slope(net, slope: float):
-    """Every block's LeakyReLU slope set to `slope` (a faulty activation for
-    the controls of phase 4b), restored after."""
-    from multitalent_tpu_torch.models.blocks import ConvDropoutNormNonlin
-    blocks = [m for m in net.modules() if isinstance(m, ConvDropoutNormNonlin)]
+    """Every LeakyReLU slope of `net` (each module's `negative_slope`) set to
+    `slope` (a faulty activation for the controls of phases 4b and 8c),
+    restored after."""
+    blocks = [m for m in net.modules() if hasattr(m, "negative_slope")]
     old = [b.negative_slope for b in blocks]
     for b in blocks:
         b.negative_slope = slope
@@ -1376,6 +1424,7 @@ def _check_dw_through_kernels(trainer) -> float:
     trainer's forward route."""
     import torch
     from multitalent_tpu_torch.ops import conv3d as cv
+    torch.backends.cudnn.allow_tf32 = False  # the plain version in fp32, not TF32
     dev = trainer.device
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     data = torch.randn(TRAIN_BATCH, 1, *PATCH, generator=gen, device=dev)
@@ -1494,10 +1543,7 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
             raise AssertionError(f"non-finite losses {losses}")
         fresh = build_unet_from_plans(plans, 0, num_classes=47)
         init_weights_he(fresh, torch.Generator().manual_seed(trainer.seed))
-        trained = net.state_dict()
-        still = [k for k, v in fresh.state_dict().items()
-                 if k.endswith("weight") and k != "seg_outputs.0.weight"
-                 and torch.equal(v, trained[k].cpu())]
+        still = _unmoved(net, fresh, keep=("seg_outputs.0.weight",))
         if still:
             raise AssertionError(f"weights that did not move: {still}")
         step_s = sorted(trainer.step_seconds[2:])
@@ -1727,6 +1773,385 @@ def phase_warmup(workdir: str, jax_folder: dict) -> dict:
     return {"launches": launches, "step_s": step_s, "wall": wall}
 
 
+def _resenc_plans(plans=None):
+    """`plans` (the flagship's by default) as residual-encoder plans, as the
+    FabiansResUNet planner makes them: a leading (1,1,1) pool and the
+    default block counts cut to the stages (the flagship's give
+    RESENC_BLOCKS_ENCODER / _DECODER)."""
+    from multitalent_tpu_torch.io import Plans
+    d = (plans or _flagship_plans()).to_dict()
+    st = d["plans_per_stage"][0]
+    pools = [[1, 1, 1]] + [list(p) for p in st["pool_op_kernel_sizes"]]
+    st.update(pool_op_kernel_sizes=pools,
+              num_blocks_encoder=list(RESENC_DEFAULT_BLOCKS[:len(pools)]),
+              num_blocks_decoder=[1] * (len(pools) - 1))
+    return Plans.from_dict(d)
+
+
+def _resenc_net(plans, dtype, num_classes: int = 47, seed: int = SEED):
+    """The resenc network of `plans` with the trainers' He init from `seed`
+    (norm2's scale 0, so each residual block starts as its skip)."""
+    import torch
+    from multitalent_tpu_torch.models.residual_unet import build_resenc_unet_from_plans
+    from multitalent_tpu_torch.training.trainers import init_weights_he
+    net = build_resenc_unet_from_plans(plans, 0, num_classes, dtype=dtype)
+    init_weights_he(net, torch.Generator().manual_seed(seed))
+    return net
+
+
+def _unmoved(net, fresh, keep=()) -> list[str]:
+    """The weights of `net` still equal to `fresh`'s (its init), but those in
+    `keep`."""
+    import torch
+    trained = net.state_dict()
+    return [k for k, v in fresh.state_dict().items()
+            if k.endswith("weight") and k not in keep and torch.equal(v, trained[k].cpu())]
+
+
+def phase_resenc_training(workdir: str) -> dict:
+    """The train CLI with MultiTalent_trainer_resenc_ddp at full width on
+    phase 5's synthetic MultiTalent cases (RESENC_TRAIN_STEPS steps, then the
+    validation of one case a dataset): finite losses, every weight moved,
+    exact A/B/C counts, one step's dw through kernel C against the plain
+    version."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.io import save_plans
+    plans = _resenc_plans()
+    task = "Task100_MultiTalent"
+    save_plans(plans, os.path.join(workdir, "preprocessed", task,
+                                   f"{RESENC_PLANS_ID}_plans_3D.pkl"))
+    results = os.path.join(workdir, "results_resenc")
+    with _env(nnUNet_preprocessed=os.path.join(workdir, "preprocessed"), RESULTS_FOLDER=results,
+              MTTPU_MAX_EPOCHS="1", MTTPU_ITERS_PER_EPOCH=str(RESENC_TRAIN_STEPS),
+              MTTPU_VAL_ITERS="1", MTTPU_FUSED_TRAIN="0", MTTPU_FUSED_NORM="0"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", RESENC_TRAINER, task, "0", "-p", RESENC_PLANS_ID,
+             "--device", "cuda"]))
+        train_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        net = trainer.network
+        per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+        print(f"resenc launches derived from the model: per forward {per_fwd}, per step "
+              f"{per_step}")
+        validation = _check_validation(os.path.join(trainer.output_folder, "validation_raw"),
+                                       trainer)
+        steps, val = trainer.step, trainer.num_val_batches_per_epoch
+        expect = {k: a + b for (k, a), b in zip(
+            _expect(per_step, steps).items(),
+            _expect(per_fwd, val + validation["forwards"]).values())}
+        if (steps != RESENC_TRAIN_STEPS or launches != expect
+                or any(launches[k] == 0 for k in per_step)):
+            raise AssertionError(f"resenc: {steps} steps, launches {launches}, expected {expect}")
+        losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"resenc: non-finite losses {losses}")
+        # the lowest head has loss weight 0: no gradient reaches it
+        still = _unmoved(net, _resenc_net(plans, torch.float32, seed=trainer.seed),
+                         keep=("decoder.deep_supervision_outputs.0.weight",))
+        if still:
+            raise AssertionError(f"resenc weights that did not move: {still}")
+        step_s = trainer.step_seconds[2:]
+        median_s = float(np.median(step_s))
+        print(f"resenc training ({RESENC_TRAINER}, plans {RESENC_PLANS_ID}): {steps} steps of "
+              f"batch {TRAIN_BATCH} at {PATCH}, bf16, DS ({len(trainer.ds_loss_weights)} "
+              f"outputs); losses {[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+              f"{[round(v, 4) for v in trainer.all_val_losses]} (val)")
+        print(f"resenc seconds per step: median {median_s:.3f} of steps 3..{steps} "
+              f"({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak memory "
+              f"{peak_gib:.2f} GiB; train CLI {train_s:.1f} s")
+        print(f"resenc training launches: { {k: v for k, v in launches.items() if v} } = per "
+              f"step {per_step} x {steps} + per forward {per_fwd} x ({val} validation batch + "
+              f"{validation['forwards']} validation forwards)")
+        print(f"resenc validation: {validation['seconds_per_case']:.2f} s per case (predict "
+              f"{validation['predict_s']} s); Dice "
+              f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
+        dw_worst, dw_shapes, a_shapes, b_shapes, _ = _check_dw_through_kernels(trainer)
+    for name, shapes in (("conv3d_same", a_shapes), ("conv3d_same_dual", b_shapes)):
+        if sum(shapes.values()) != per_step[name]:
+            raise AssertionError(f"resenc: {sum(shapes.values())} {name} calls in one step, "
+                                 f"expected {per_step[name]}")
+    model = os.path.join(results, "nnUNet", "3d_fullres", task,
+                         f"{RESENC_TRAINER}__{RESENC_PLANS_ID}")
+    return {"launches": launches, "seconds_per_step": median_s, "step_s": trainer.step_seconds,
+            "peak_gib": peak_gib, "validation": validation, "dw_worst_rel": dw_worst,
+            "dw_shapes": dw_shapes, "a_shapes": a_shapes, "b_shapes": b_shapes,
+            "per_forward": per_fwd, "per_step": per_step, "model": model, "plans": plans,
+            "fold": trainer.output_folder}
+
+
+def _predict_resenc(workdir: str, model: str, out: str, per_forward: dict) -> dict:
+    """predict_multitalent from `model` on phase 3's case with mirror TTA:
+    the labelmap and all 47 masks at the input's shape, exact launches."""
+    import numpy as np
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    n_tiles, _ = _case_tiles()
+    t0 = time.perf_counter()
+    timings, launches = _run_counted(lambda: predict_main(
+        ["-i", os.path.join(workdir, "in"), "-o", out, "-m", model, "-f", "0",
+         "--device", "cuda"]))
+    wall = time.perf_counter() - t0
+    (case,) = timings
+    expect = _expect(per_forward, n_tiles * 8)
+    if case["forwards"] != n_tiles * 8 or launches != expect:
+        raise AssertionError(f"resenc predict: {case['forwards']} forwards, launches "
+                             f"{launches}, expected {expect}")
+    seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
+    masks = [read_nifti(os.path.join(out, "individual", r, "case.nii.gz"))[0] for r in REGIONS]
+    if (seg.shape != CASE_SHAPE or {m.shape for m in masks} != {CASE_SHAPE}
+            or not all(set(np.unique(m).tolist()) <= {0, 1} for m in masks)):
+        raise AssertionError(f"resenc predict: labelmap {seg.shape}, masks "
+                             f"{ {m.shape for m in masks} }")
+    return {"launches": launches, "seconds_per_case": wall, "predict_s": case["predict_s"],
+            "forwards": case["forwards"], "out": out,
+            "fg": [float(m.mean()) for m in masks]}
+
+
+def phase_resenc_predict(workdir: str, training: dict) -> dict:
+    """predict_multitalent from the resenc folder phase 8a wrote, on phase 3's
+    case (exact mode, mirror TTA, as phase 3)."""
+    res = _predict_resenc(workdir, training["model"], os.path.join(workdir, "out_resenc"),
+                          training["per_forward"])
+    print(f"resenc predict: {res['forwards']} forwards; labelmap + 47 region NIfTIs at "
+          f"{CASE_SHAPE}, foreground share {min(res['fg']):.3f}..{max(res['fg']):.3f}; "
+          f"launches { {k: v for k, v in res['launches'].items() if v} } = per forward "
+          f"{training['per_forward']} x {res['forwards']}; seconds per case "
+          f"{res['seconds_per_case']:.2f} (predict {res['predict_s']:.2f})")
+    return res
+
+
+def phase_resenc_tile() -> dict:
+    """One resenc tile's sigmoid probabilities through the kernels in bf16
+    against the plain versions in bf16 and in fp32, then with
+    MTTPU_PALLAS_NORM=1 (the decoder's norms on kernel E) against the
+    default; controls with a faulty LeakyReLU slope must break both bounds.
+    The weights are the trainers' He init with every norm2 scale at 1, so
+    each residual branch carries signal."""
+    import torch
+    from multitalent_tpu_torch.models.blocks import ConvDropoutNormNonlin
+    from multitalent_tpu_torch.models.residual_unet import BasicResidualBlock
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plans = _resenc_plans()
+    dev = torch.device("cuda")
+    nets = []
+    for dtype in (torch.bfloat16, torch.float32):
+        net = _resenc_net(plans, dtype)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, BasicResidualBlock):
+                    m.norm2.weight.fill_(1.0)
+        nets.append(net.to(dev).eval())
+    net, net32 = nets
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
+    with torch.no_grad(), _recording("conv3d_same") as a_shapes, \
+            _recording("conv3d_same_dual") as b_shapes:
+        logits = net(x)
+    per = net.kernel_launches_per_forward()
+    if (sum(a_shapes.values()), sum(b_shapes.values())) != (per["conv3d_same"],
+                                                           per["conv3d_same_dual"]):
+        raise AssertionError(f"resenc forward: A {sum(a_shapes.values())}, B "
+                             f"{sum(b_shapes.values())} calls, expected {per}")
+    if logits.shape != (1, 47, *PATCH) or not torch.isfinite(logits).all():
+        raise AssertionError(f"resenc logits {tuple(logits.shape)}")
+    norms = sum(1 for m in net.modules() if isinstance(m, ConvDropoutNormNonlin))
+
+    def forward(pallas: bool, use_kernels: bool = True, model=net):
+        with _env(MTTPU_PALLAS_NORM="1" if pallas else "0"), torch.no_grad():
+            return torch.sigmoid(model(x, use_kernels=use_kernels))
+
+    p_kernels = torch.sigmoid(logits)
+    p_plain = forward(False, use_kernels=False)
+    out = {"a_shapes": a_shapes, "b_shapes": b_shapes, "norms_on_e": norms}
+    out["bf16_max"], out["bf16_mean"] = _dp(p_kernels, p_plain)
+    out["fp32_max"], out["fp32_mean"] = _dp(p_kernels, forward(False, False, net32))
+    p_pallas, launches = _run_counted(lambda: forward(True))
+    if launches["channel_stats"] != norms or launches["affine_lrelu"] != norms:
+        raise AssertionError(f"resenc MTTPU_PALLAS_NORM=1: launches {launches}, {norms} norms")
+    out["pallas_norm_max"], out["pallas_norm_mean"] = _dp(p_pallas, p_kernels)
+    del p_pallas
+    controls = []
+    for slope in CONTROL_SLOPES:
+        with _slope(net, slope):
+            controls.append({"slope": slope, "kernels": _dp(forward(False), p_plain),
+                             "pallas_norm": _dp(forward(True), p_kernels)})
+    out["controls"] = controls
+    print(f"resenc tile {PATCH}: |dp| kernels bf16 vs plain bf16: max {out['bf16_max']:.3e} "
+          f"(bound {RESENC_PROB_BOUND}), mean {out['bf16_mean']:.3e} (bound "
+          f"{RESENC_PROB_BOUND_MEAN}); vs plain fp32: max {out['fp32_max']:.3e} (bound "
+          f"{PROB_BOUND_FP32_MAX}), mean {out['fp32_mean']:.3e} (bound {PROB_BOUND_FP32_MEAN})")
+    print(f"resenc tile, MTTPU_PALLAS_NORM=1 ({norms} decoder norms on kernel E) vs the "
+          f"default: |dp| max {out['pallas_norm_max']:.3e} (bound {RESENC_PALLAS_NORM_BOUND}), "
+          f"mean {out['pallas_norm_mean']:.3e} (bound {RESENC_PALLAS_NORM_BOUND_MEAN})")
+    for c in controls:
+        print(f"resenc control, LeakyReLU slope {c['slope']} for 1e-2: kernels vs plain |dp| "
+              f"max {c['kernels'][0]:.3e}, mean {c['kernels'][1]:.3e}; MTTPU_PALLAS_NORM=1 "
+              f"|dp| max {c['pallas_norm'][0]:.3e}, mean {c['pallas_norm'][1]:.3e}")
+    if not (out["bf16_max"] <= RESENC_PROB_BOUND and out["bf16_mean"] <= RESENC_PROB_BOUND_MEAN
+            and out["fp32_max"] <= PROB_BOUND_FP32_MAX
+            and out["fp32_mean"] <= PROB_BOUND_FP32_MEAN
+            and out["pallas_norm_max"] <= RESENC_PALLAS_NORM_BOUND
+            and out["pallas_norm_mean"] <= RESENC_PALLAS_NORM_BOUND_MEAN):
+        raise AssertionError(f"resenc probabilities out of bounds: {out}")
+    for c in controls:
+        (k_max, k_mean), (p_max, p_mean) = c["kernels"], c["pallas_norm"]
+        if not ((k_max > RESENC_PROB_BOUND or k_mean > RESENC_PROB_BOUND_MEAN)
+                and (p_max > RESENC_PALLAS_NORM_BOUND or p_mean > RESENC_PALLAS_NORM_BOUND_MEAN)):
+            raise AssertionError(f"the resenc bounds pass a faulty activation: {c}")
+    with torch.no_grad():
+        out["forward_ms"] = _median_ms(lambda: net(x), iters=5)
+    print(f"one bf16 resenc forward of a tile: {out['forward_ms']:.2f} ms (median of 5, CUDA "
+          f"events)")
+    del nets, net, net32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resenc_jax_folder(workdir: str, training: dict, predicted: dict) -> dict:
+    """The trained resenc weights as a JAX-layout folder (biases carried),
+    restored on the card (timed), then predict_multitalent from it: every
+    mask and the labelmap bit-equal to phase 8b's."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               save_jax_model_folder)
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    sd = torch.load(os.path.join(training["fold"], "model_final_checkpoint.model"),
+                    map_location="cpu", weights_only=False)["state_dict"]
+    model = os.path.join(workdir, "jax_model_resenc")
+    save_jax_model_folder(model, training["plans"], [sd], "MultiTalentTrainerResenc",
+                          trainer_bases=["MultiTalentTrainer", "TrainerV2", "NetworkTrainerBase"])
+    ckpt = os.path.join(model, "fold_0", "model_final_checkpoint.ckpt")
+    t0 = time.perf_counter()
+    restored = load_model_and_checkpoint_files(model, [0], device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = restored.networks[0].state_dict()
+    if sorted(got) != sorted(sd) or not all(torch.equal(v.cpu(), sd[k]) for k, v in got.items()):
+        raise AssertionError("resenc weights restored from the .ckpt folder differ")
+    del restored, got
+    res = _predict_resenc(workdir, model, os.path.join(workdir, "out_resenc_jax"),
+                          training["per_forward"])
+    for rel in ["case.nii.gz"] + [os.path.join("individual", r, "case.nii.gz") for r in REGIONS]:
+        if not np.array_equal(read_nifti(os.path.join(res["out"], rel))[0],
+                              read_nifti(os.path.join(predicted["out"], rel))[0]):
+            raise AssertionError(f"resenc {rel} from the .ckpt folder differs from the "
+                                 ".model folder's")
+    print(f"resenc JAX-layout folder: {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB .ckpt, restored "
+          f"on the card in {restore_s:.2f} s; predict_multitalent from it: labelmap + "
+          f"{len(REGIONS)} masks bit-equal to phase 8b's; launches "
+          f"{ {k: v for k, v in res['launches'].items() if v} }")
+    return {"ckpt": ckpt, "restore_s": restore_s, "launches": res["launches"],
+            "seconds_per_case": res["seconds_per_case"]}
+
+
+def phase_resenc_warmup(workdir: str, jax_folder: dict) -> dict:
+    """nnUNetTrainerV2_warmupsegheads_resenc -pretrained_weights <phase 8d's
+    .ckpt> on phase 5e's one-class task, 2 steps of phase 1 and its
+    validation: the backbone loads equal to the pretrained weights and stays
+    bit-unchanged, the heads move, kernel C launches 0 times."""
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.inference.model_restore import checkpoint_state_dict
+    from multitalent_tpu_torch.io import Plans, save_plans
+    from multitalent_tpu_torch.training.warmup import is_seg_head_param
+    task = "Task009_Spleen"
+    plans = _resenc_plans()
+    one = Plans.from_dict({**plans.to_dict(), "num_classes": 1, "all_classes": [1]})
+    save_plans(one, os.path.join(workdir, "preprocessed", task,
+                                 f"{RESENC_PLANS_ID}_plans_3D.pkl"))
+    with _env(nnUNet_preprocessed=os.path.join(workdir, "preprocessed"),
+              RESULTS_FOLDER=os.path.join(workdir, "results_resenc_warmup"),
+              MTTPU_MAX_EPOCHS="1", MTTPU_ITERS_PER_EPOCH="2", MTTPU_VAL_ITERS="1"):
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", "nnUNetTrainerV2_warmupsegheads_resenc", task, "0", "-p",
+             RESENC_PLANS_ID, "-pretrained_weights", jax_folder["ckpt"], "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    pretrained = checkpoint_state_dict(jax_folder["ckpt"], plans, 0)
+    init = _resenc_net(one, torch.float32, trainer.num_classes, seed=trainer.seed).state_dict()
+    for k, v in trainer.network.state_dict().items():
+        v = v.cpu()
+        if is_seg_head_param(k):
+            # the lowest head has loss weight 0: no gradient, so AdamW skips it
+            if not k.startswith("decoder.deep_supervision_outputs.0.") and torch.equal(v, init[k]):
+                raise AssertionError(f"resenc head {k} did not move")
+        elif not torch.equal(v, pretrained[k]):
+            raise AssertionError(f"resenc backbone {k} is not the pretrained weight")
+    per = trainer.network.kernel_launches_per_forward()
+    forwards = sum(t["forwards"] for t in trainer.validation_timings)
+    calls = trainer.step + trainer.num_val_batches_per_epoch + forwards
+    expect = _expect(per, calls)
+    if trainer.step != 2 or trainer.optimizer_phase != 1 or launches != expect:
+        raise AssertionError(f"resenc warm-up: {trainer.step} steps, phase "
+                             f"{trainer.optimizer_phase}, launches {launches}, expected {expect}")
+    print(f"resenc warm-up (nnUNetTrainerV2_warmupsegheads_resenc, phase 1, "
+          f"-pretrained_weights .ckpt): seconds per step "
+          f"{', '.join(f'{v:.3f}' for v in trainer.step_seconds)}; kernel C launches "
+          f"{launches['conv3d_same_wgrad']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = per forward {per} x {calls}; "
+          f"backbone bit-equal to the pretrained weights, heads moved; validation "
+          f"{trainer.validation_seconds:.2f} s for 1 case; CLI {wall:.1f} s")
+    return {"launches": launches, "step_s": trainer.step_seconds, "wall": wall}
+
+
+def phase_resenc_liver(workdir: str) -> dict:
+    """cli.predict -tr nnUNetTrainerV2_ResencUNet -p <FabiansResUNet plans>
+    on one of phase 3c's Liver cases in the default mode, one fold of seeded
+    weights of the Liver plans as resenc plans."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.inference.model_restore import save_model_folder
+    from multitalent_tpu_torch.io import read_nifti
+    plans = _resenc_plans(_liver_plans())
+    net = _resenc_net(plans, torch.bfloat16, LIVER_CLASSES, seed=SEED + 20)
+    results = os.path.join(workdir, "liver_results")
+    model = os.path.join(results, "nnUNet", "3d_fullres", LIVER_TASK,
+                         f"{LIVER_RESENC_TRAINER}__{LIVER_RESENC_PLANS_ID}")
+    save_model_folder(model, plans, [net.state_dict()], LIVER_RESENC_TRAINER, fp16=True)
+    case = LIVER_CASES[0]
+    inp, out = os.path.join(workdir, "liver_resenc_in"), os.path.join(workdir, "liver_resenc")
+    os.makedirs(inp)
+    shutil.copy(os.path.join(workdir, "liver_in", f"{case}_0000.nii.gz"), inp)
+    n_tiles, _ = _liver_tiles()
+    per = net.kernel_launches_per_forward()
+    with _env(RESULTS_FOLDER=results, MTTPU_SW_EXACT="0", MTTPU_FUSED_NORM="0"):
+        t0 = time.perf_counter()
+        timings, launches = _run_counted(lambda: predict_main(
+            ["-i", inp, "-o", out, "-t", LIVER_TASK, "-m", "3d_fullres", "-tr",
+             LIVER_RESENC_TRAINER, "-p", LIVER_RESENC_PLANS_ID, "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    (t,) = timings
+    calls = n_tiles * -(-8 // LIVER_TTA_CHUNK)
+    expect = _expect(per, t["net_calls"])
+    if (t["case"], t["forwards"], t["net_calls"]) != (case, n_tiles * 8, calls) \
+            or launches != expect:
+        raise AssertionError(f"resenc Liver predict: {t}, launches {launches}, expected "
+                             f"{expect} over {calls} calls")
+    seg, _ = read_nifti(os.path.join(out, f"{case}.nii.gz"))
+    if seg.shape != LIVER_CASE_SHAPE or not set(np.unique(seg).tolist()) <= {0, 1, 2}:
+        raise AssertionError(f"resenc Liver labelmap {seg.shape} {np.unique(seg)[:5]}")
+    print(f"resenc Liver ({LIVER_RESENC_TRAINER}, plans {LIVER_RESENC_PLANS_ID}, blocks "
+          f"{plans.stage(0).num_blocks_encoder}, default mode, one fold): {wall:.2f} s for the case "
+          f"(predict {t['predict_s']:.2f} s on the card's clock, export {t['export_s']:.2f} s); "
+          f"{t['net_calls']} network calls of {LIVER_TTA_CHUNK} combinations; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = per forward {per} x "
+          f"{t['net_calls']}; labels {sorted(np.unique(seg).tolist())}")
+    del net
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": wall, "predict_s": t["predict_s"],
+            "net_calls": t["net_calls"], "per_forward": per}
+
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -1745,7 +2170,7 @@ def _conv_bound(cin: int, cout: int, spatial, n: int, w_bytes: int = 2) -> dict:
                   bf16_flops=2 * 27 * cin * cout * vox)
 
 
-def _wgrad_step(timed: list, step_shapes: collections.Counter) -> dict:
+def _wgrad_step(timed: list, step_shapes: collections.Counter, label: str = "kernel C") -> dict:
     """Kernel C at each phase-2 shape (ms, cuDNN's bf16 wgrad ms, bound,
     write path) and the sums of both times over one training step's launches:
     each shape weighted by its launches in the step phase 5 recorded, whose
@@ -1762,7 +2187,7 @@ def _wgrad_step(timed: list, step_shapes: collections.Counter) -> dict:
     step = {"step_ms": sum(k * by_key[key]["ms"] for key, k in step_shapes.items()),
             "step_cudnn_ms": sum(k * by_key[key]["cudnn_bf16_ms"]
                                  for key, k in step_shapes.items())}
-    print(f"kernel C over one training step ({sum(step_shapes.values())} launches, "
+    print(f"{label} over one training step ({sum(step_shapes.values())} launches, "
           f"{sum(len(key[0]) == 1 for key in step_shapes.elements())} single, "
           f"{sum(len(key[0]) == 2 for key in step_shapes.elements())} dual): "
           f"{step['step_ms']:.3f} ms, cuDNN bf16 wgrad {step['step_cudnn_ms']:.3f} ms")
@@ -2100,6 +2525,14 @@ def main() -> int:
             fused_val = timed("5c fused -val", phase_fused_validation, workdir, training)
             jax_folder = timed("5d JAX-layout folder", phase_jax_folder, workdir, training)
             warmup = timed("5e warm-up", phase_warmup, workdir, jax_folder)
+            resenc = timed("8a resenc train", phase_resenc_training, workdir)
+            resenc_predict = timed("8b resenc predict", phase_resenc_predict, workdir, resenc)
+        resenc_tile = timed("8c resenc tile", phase_resenc_tile)
+        with _env(**exact):
+            resenc_jax = timed("8d resenc JAX-layout folder", phase_resenc_jax_folder, workdir,
+                               resenc, resenc_predict)
+            resenc_warmup = timed("8e resenc warm-up", phase_resenc_warmup, workdir, resenc_jax)
+        resenc_liver = timed("8f resenc Liver", phase_resenc_liver, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2146,6 +2579,23 @@ def main() -> int:
     b_sums = _sums("kernel B", kernels["conv3d_same_dual"], "cudnn_bf16_ms",
                    forward=tile["b_shapes"], step=training["b_shapes"])
     rows[1].update(b_sums)
+    # the resenc (phase 8): A's, B's and C's launches (R: the train CLI's 4
+    # steps and validation; predict, JAX-layout predict, warm-up, Liver) and
+    # their times summed over one resenc forward (8c, N=1) and step (8a, N=2)
+    # at the phase-2 times of its shapes, which are the flagship's
+    resenc_sums = [
+        _sums("kernel A, resenc", kernels["conv3d_same"] + kernels["conv3d_same_dx"],
+              "cudnn_bf16_ms", forward=resenc_tile["a_shapes"], step=resenc["a_shapes"]),
+        _sums("kernel B, resenc", kernels["conv3d_same_dual"], "cudnn_bf16_ms",
+              forward=resenc_tile["b_shapes"], step=resenc["b_shapes"]),
+        _wgrad_step(kernels["conv3d_same_wgrad"], resenc["dw_shapes"], "kernel C, resenc")]
+    for row, sums in zip(rows, resenc_sums):
+        row.update(launches_resenc=resenc["launches"][row["name"]],
+                   launches_resenc_predict=resenc_predict["launches"][row["name"]],
+                   launches_resenc_jax_folder=resenc_jax["launches"][row["name"]],
+                   launches_resenc_warmup=resenc_warmup["launches"][row["name"]],
+                   launches_resenc_liver=resenc_liver["launches"][row["name"]],
+                   resenc={k: v for k, v in sums.items() if k != "shapes"})
     # kernel D beside the unfused route it replaces (norm + cuDNN; for the
     # dual form kernel B, no stats), over one fused forward (N=1) and one
     # fused training step's forward (N=2)
@@ -2257,6 +2707,21 @@ def main() -> int:
           f"restored in {jax_folder['restore_s']:.2f} s; warm-up phase-1 seconds per step "
           f"{', '.join(f'{v:.3f}' for v in warmup['step_s'])}; phase seconds {seconds}; "
           f"on {smi}")
+    ra, rb, rc = resenc_sums
+    print(f"summary, resenc (phase 8): seconds per training step {resenc['seconds_per_step']:.3f}"
+          f" (steps {', '.join(f'{v:.3f}' for v in resenc['step_s'])}); peak "
+          f"{resenc['peak_gib']:.2f} GiB; validation {resenc['validation']['seconds_per_case']:.2f}"
+          f" s per case; predict {resenc_predict['seconds_per_case']:.2f} s per case (predict "
+          f"{resenc_predict['predict_s']:.2f}), from the .ckpt folder "
+          f"{resenc_jax['seconds_per_case']:.2f} (restored in {resenc_jax['restore_s']:.2f} s); "
+          f"one tile forward {resenc_tile['forward_ms']:.2f} ms; warm-up phase-1 seconds per "
+          f"step {', '.join(f'{v:.3f}' for v in resenc_warmup['step_s'])}; Liver resenc case "
+          f"{resenc_liver['seconds']:.2f} s (predict {resenc_liver['predict_s']:.2f}); kernel A "
+          f"over a forward {ra['forward_ms']:.3f} ms (cuDNN {ra['forward_cudnn_bf16_ms']:.3f}), "
+          f"over a step {ra['step_ms']:.3f} ms (cuDNN {ra['step_cudnn_bf16_ms']:.3f}); kernel B "
+          f"over a forward {rb['forward_ms']:.3f} ms (cuDNN on the concat "
+          f"{rb['forward_cudnn_bf16_ms']:.3f}), over a step {rb['step_ms']:.3f} ms; kernel C "
+          f"over a step {rc['step_ms']:.3f} ms (cuDNN {rc['step_cudnn_ms']:.3f}); on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -14,13 +14,14 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
     python -m multitalent_tpu_torch.cli.train 3d_fullres MultiTalent_trainer_ddp TASK 0
     ... -val [--valbest]           validate model_final_checkpoint (model_best) only
     ... nnUNetTrainerV2_warmupsegheads TASK 0 -pretrained_weights x.ckpt|x.model
+    ... MultiTalent_trainer_resenc_ddp TASK 0 -p PLANS_ID   the residual-encoder
+                                   UNet, on plans with num_blocks_encoder/decoder
 
 -pretrained_weights takes a JAX `.ckpt` or a reference / port `.model` and
 transfers every backbone weight of matching name and shape (never the heads);
 with -c it is ignored. Not ported yet, and refused: several GPUs (ROADMAP
-queue 1, item 9), 2D and cascade networks and the residual-encoder, MedNeXt
-and SwinUNETR trainers (item 10), including 3d_lowres's prediction of the
-next stage.
+queue 1, item 9), 2D and cascade networks and the MedNeXt and SwinUNETR
+trainers (item 10), including 3d_lowres's prediction of the next stage.
 """
 from __future__ import annotations
 
@@ -33,9 +34,12 @@ from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS,
                                                            checkpoint_state_dict)
 from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
-                                                        MultiTalentTrainer2000ep)
-from multitalent_tpu_torch.training.trainers import TrainerV2
+                                                        MultiTalentTrainer2000ep,
+                                                        MultiTalentTrainerResenc,
+                                                        MultiTalentTrainerResenc2000ep)
+from multitalent_tpu_torch.training.trainers import TrainerV2, TrainerV2ResencUNet
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
+                                                   TrainerV2WarmupSegHeadsResenc,
                                                    load_pretrained_weights)
 
 # trainer names of the reference and of the JAX package -> the port's classes
@@ -49,6 +53,16 @@ TRAINERS = {
                      "nnUNetTrainerV2_warmup"), TrainerV2WarmupLR),
     **dict.fromkeys(("TrainerV2WarmupSegHeads", "nnUNetTrainerV2_warmupsegheads"),
                     TrainerV2WarmupSegHeads),
+    **dict.fromkeys(("TrainerV2ResencUNet", "nnUNetTrainerV2_ResencUNet",
+                     "nnUNetTrainerV2_ResencUNet_SimonsInit",
+                     "nnUNetTrainerV2_ResencUNet_SimonsInit_20fold"), TrainerV2ResencUNet),
+    **dict.fromkeys(("MultiTalentTrainerResenc", "MultiTalent_trainer_resenc_ddp"),
+                    MultiTalentTrainerResenc),
+    # the released zip names its 2000-epoch trainer MultiTalent_tainer_resenc_ddp
+    **dict.fromkeys(("MultiTalentTrainerResenc2000ep", "MultiTalent_trainer_resenc_ddp_2000ep",
+                     "MultiTalent_tainer_resenc_ddp"), MultiTalentTrainerResenc2000ep),
+    **dict.fromkeys(("TrainerV2WarmupSegHeadsResenc", "nnUNetTrainerV2_warmupsegheads_resenc"),
+                    TrainerV2WarmupSegHeadsResenc),
 }
 
 

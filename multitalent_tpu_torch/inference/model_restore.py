@@ -1,4 +1,4 @@
-"""Restore a model folder into GenericUNet modules.
+"""Restore a model folder into GenericUNet or ResidualEncoderUNet modules.
 
 Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
@@ -19,16 +19,21 @@ Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
                                                      trainer_bases, init_args
 
   read by io/flax_ckpt.py (no flax) and carried over by
-  io/from_jax.generic_unet_state_dict_from_flax. The plans come from the
+  io/from_jax.generic_unet_state_dict_from_flax (or
+  resenc_state_dict_from_flax). The plans come from the
   sidecar's `init_args[0]` (a plans file or a pickled Plans) or else from
   `<model>/plans.pkl`. The sidecar may pickle the JAX package's Plans: it is
   read by `load_sidecar`, whose unpickler maps those names to the port's
   classes and refuses every name off its allow-list, so nothing of the JAX
   package is imported.
 
-The trainer named in the sidecar fixes the head: the MultiTalent GenericUNet
-trainers predict 47 sigmoid regions, other GenericUNet trainers a softmax over
-the plans' classes.
+The checkpoint's keys pick the network, as the JAX package's import does
+(multitalent_tpu/inference/pretrained_models.py:350-356):
+`encoder.initial_conv.weight` (or `initial_conv` in a flax tree) is the
+residual-encoder UNet, its block counts from the plans; a reference resenc
+`.model` has its quirks undone by io/torch_convert.fabians_unet_state_dict.
+The trainer named in the sidecar fixes the head: the MultiTalent trainers
+predict 47 sigmoid regions, the others a softmax over the plans' classes.
 """
 from __future__ import annotations
 
@@ -40,35 +45,33 @@ import numpy as np
 import torch
 
 from multitalent_tpu_torch.io import flax_ckpt
-from multitalent_tpu_torch.io.from_jax import generic_unet_state_dict_from_flax
+from multitalent_tpu_torch.io.from_jax import (generic_unet_state_dict_from_flax,
+                                               resenc_state_dict_from_flax)
 from multitalent_tpu_torch.io.torch_convert import (convert_generic_unet_state_dict,
+                                                   convert_resenc_state_dict,
+                                                   fabians_unet_state_dict,
                                                    load_reference_checkpoint,
                                                    strip_module_prefix)
-from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
+from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+from multitalent_tpu_torch.models.residual_unet import build_resenc_unet_from_plans
 from multitalent_tpu_torch.plans import Plans, StagePlans, load_plans, save_plans
 from multitalent_tpu_torch.tasks.multitalent import NUM_REGIONS
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle, subdirs
 
-# trainers whose network is the GenericUNet with 47 sigmoid region heads
+# trainers whose networks predict the 47 sigmoid regions
 MULTITALENT_TRAINERS = ("MultiTalent_trainer_ddp", "MultiTalent_trainer_ddp_2000ep",
-                        "MultiTalentTrainer", "MultiTalentTrainer2000ep")
+                        "MultiTalentTrainer", "MultiTalentTrainer2000ep",
+                        "MultiTalent_trainer_resenc_ddp", "MultiTalent_trainer_resenc_ddp_2000ep",
+                        "MultiTalent_tainer_resenc_ddp", "MultiTalentTrainerResenc",
+                        "MultiTalentTrainerResenc2000ep")
 # trainers whose networks the port does not have yet
 UNPORTED_TRAINERS = {
-    "MultiTalent_trainer_resenc_ddp": "the residual-encoder UNet",
-    "MultiTalent_trainer_resenc_ddp_2000ep": "the residual-encoder UNet",
-    "MultiTalent_tainer_resenc_ddp": "the residual-encoder UNet",
-    "MultiTalentTrainerResenc": "the residual-encoder UNet",
-    "MultiTalentTrainerResenc2000ep": "the residual-encoder UNet",
     "Multitalent_mednextt": "MedNeXt",
     "MultiTalent_meets_mednext": "MedNeXt",
     "MultiTalentTrainerMedNeXt": "MedNeXt",
     "MultiTalent_tainer_SwinUNETR_ddp_adam": "SwinUNETR",
     "MultiTalent_trainer_SwinUNETR_ddp_adam": "SwinUNETR",
     "MultiTalentTrainerSwinUNETR": "SwinUNETR",
-    "TrainerV2ResencUNet": "the residual-encoder UNet",
-    "nnUNetTrainerV2_ResencUNet": "the residual-encoder UNet",
-    "TrainerV2WarmupSegHeadsResenc": "the residual-encoder UNet",
-    "nnUNetTrainerV2_warmupsegheads_resenc": "the residual-encoder UNet",
     "TrainerV2WarmupSegHeadsSwin": "SwinUNETR",
     "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp": "SwinUNETR",
 }
@@ -125,7 +128,7 @@ class RestoredModel:
     regions_class_order: list[int] | None
     num_classes: int
     patch_size: tuple[int, ...]
-    networks: list[GenericUNet]
+    networks: list[torch.nn.Module]  # GenericUNet or ResidualEncoderUNet
 
 
 def _fold_folders(model_folder: str, folds) -> list[str]:
@@ -152,22 +155,52 @@ def _jax_plans(model_folder: str, init: tuple) -> Plans:
                             f"({first!r}) is no plans file, and {fallback} is missing")
 
 
+def is_resenc_state_dict(state_dict: dict) -> bool:
+    """Whether a state dict (`module.` prefix or not) is the residual-encoder
+    UNet's (pretrained_models.py:350 of the JAX package asks the same)."""
+    return any(k.removeprefix("module.") == "encoder.initial_conv.weight" for k in state_dict)
+
+
 def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
-    """The GenericUNet state dict of a JAX `.ckpt` file (its params through
-    io/from_jax.py, `plans` giving the depth) or of a reference or port
-    `.model` file."""
+    """The port's state dict of a JAX `.ckpt` file (its params through
+    io/from_jax.py, `plans` giving the depth or the block counts) or of a
+    reference or port `.model` file (a reference resenc one through
+    io/torch_convert.fabians_unet_state_dict)."""
+    st = plans.stage(stage)
     if path.endswith(".model"):
-        return strip_module_prefix(load_reference_checkpoint(path))
+        sd = strip_module_prefix(load_reference_checkpoint(path))
+        if is_resenc_state_dict(sd):
+            return fabians_unet_state_dict(sd, len(st.pool_op_kernel_sizes))
+        return sd
     if not path.endswith(".ckpt"):
         raise ValueError(f"a checkpoint is a JAX .ckpt or a .model file, got {path!r}")
     params = flax_ckpt.load(path)["params"]
+    if "initial_conv" in params:
+        return resenc_state_dict_from_flax(params, st.num_blocks_encoder,
+                                           st.num_blocks_decoder)
     if "enc0" not in params:
         raise NotImplementedError(
-            f"{path} is not a GenericUNet checkpoint; other networks are ROADMAP "
-            "queue 1, item 10")
+            f"{path} is neither a GenericUNet nor a residual-encoder UNet checkpoint; "
+            "other networks are ROADMAP queue 1, item 10")
     return generic_unet_state_dict_from_flax(
-        params, num_pool=len(plans.stage(stage).pool_op_kernel_sizes),
-        conv_per_stage=plans.conv_per_stage)
+        params, num_pool=len(st.pool_op_kernel_sizes), conv_per_stage=plans.conv_per_stage)
+
+
+def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
+                  dtype: torch.dtype) -> torch.nn.Module:
+    """The network a state dict is for, built from the plans, its weights
+    loaded: every parameter the network has must be present (the reference
+    keeps deep-supervision heads and unused modules, which are dropped)."""
+    if is_resenc_state_dict(state_dict):
+        net = build_resenc_unet_from_plans(plans, stage, num_classes, dtype=dtype)
+    elif any(k.startswith("conv_blocks_context.") for k in state_dict):
+        net = build_unet_from_plans(plans, stage, num_classes, dtype=dtype)
+    else:
+        raise NotImplementedError("neither a GenericUNet nor a residual-encoder UNet state "
+                                  "dict; other networks are ROADMAP queue 1, item 10")
+    own = net.state_dict()
+    net.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=True)
+    return net
 
 
 def read_model_folder(model_folder: str, folds=None,
@@ -213,20 +246,9 @@ def load_model_and_checkpoint_files(model_folder: str, folds=None,
     else:
         num_classes, regions_class_order = plans.num_classes + 1, None
 
-    networks = []
-    for f in files:
-        state_dict = checkpoint_state_dict(f, plans, stage)
-        if not any(k.startswith("conv_blocks_context.") for k in state_dict):
-            raise NotImplementedError(
-                f"{model_folder} is not a GenericUNet model (trainer {name!r}); other "
-                "networks are ROADMAP queue 1, item 10")
-        net = build_unet_from_plans(plans, stage, num_classes,
-                                    dtype=torch.bfloat16 if fp16 else torch.float32)
-        # the reference keeps deep-supervision heads and unused lrelu modules;
-        # every parameter the port's network has must be present
-        net.load_state_dict({k: v for k, v in state_dict.items()
-                             if k in net.state_dict()}, strict=True)
-        networks.append(net.to(device).eval())
+    dtype = torch.bfloat16 if fp16 else torch.float32
+    networks = [build_network(checkpoint_state_dict(f, plans, stage), plans, stage,
+                              num_classes, dtype).to(device).eval() for f in files]
     return RestoredModel(plans=plans, stage=stage, trainer_name=name,
                          inference_nonlin=nonlin,
                          regions_class_order=regions_class_order,
@@ -238,7 +260,8 @@ def load_model_and_checkpoint_files(model_folder: str, folds=None,
 def save_model_folder(model_folder: str, plans: Plans, state_dicts: list[dict],
                       trainer_name: str, stage: int = 0, fp16: bool = True,
                       checkpoint_name: str = "model_final_checkpoint") -> None:
-    """Write a reference-layout model folder (the layout read above): plans.pkl,
+    """Write a reference-layout model folder (the layout read above) of
+    GenericUNet or residual-encoder UNet state dicts: plans.pkl,
     and per fold i a `fold_i/<checkpoint>.model` holding {"state_dict": ...}
     with its sidecar naming `trainer_name` and the reference's init arguments
     (plans_file, fold, output_folder, dataset_directory, batch_dice, stage,
@@ -259,20 +282,25 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
                           trainer_name: str, trainer_bases=(), stage: int = 0,
                           fp16: bool = True,
                           checkpoint_name: str = "model_final_checkpoint") -> None:
-    """Write a JAX-layout model folder of GenericUNet state dicts, the files
-    multitalent_tpu's trainer writes: per fold i `fold_i/<checkpoint>.ckpt`,
-    flax msgpack of {"step", "params"} (io/flax_ckpt.dumps of
-    io/torch_convert.convert_generic_unet_state_dict), and its `.ckpt.pkl`
-    sidecar (trainer_name, trainer_bases, init_args, state_keys). init_args[0]
-    is <model>/plans.pkl."""
+    """Write a JAX-layout model folder of GenericUNet or residual-encoder UNet
+    state dicts, the files multitalent_tpu's trainer writes: per fold i
+    `fold_i/<checkpoint>.ckpt`, flax msgpack of {"step", "params"}
+    (io/flax_ckpt.dumps of io/torch_convert.convert_generic_unet_state_dict
+    or convert_resenc_state_dict, which carries the biases), and its
+    `.ckpt.pkl` sidecar (trainer_name, trainer_bases, init_args, state_keys).
+    init_args[0] is <model>/plans.pkl."""
     plans_path = os.path.join(maybe_mkdir(model_folder), "plans.pkl")
     save_plans(plans, plans_path)
-    num_pool = len(plans.stage(stage).pool_op_kernel_sizes)
+    st = plans.stage(stage)
     for fold, sd in enumerate(state_dicts):
         fold_dir = maybe_mkdir(os.path.join(model_folder, f"fold_{fold}"))
         ckpt = os.path.join(fold_dir, checkpoint_name + ".ckpt")
-        tree = {"step": np.zeros((), np.int32),
-                "params": convert_generic_unet_state_dict(sd, num_pool, plans.conv_per_stage)}
+        if is_resenc_state_dict(sd):
+            params = convert_resenc_state_dict(sd, st.num_blocks_encoder, st.num_blocks_decoder)
+        else:
+            params = convert_generic_unet_state_dict(sd, len(st.pool_op_kernel_sizes),
+                                                     plans.conv_per_stage)
+        tree = {"step": np.zeros((), np.int32), "params": params}
         flax_ckpt.save(ckpt, tree)
         save_pickle({"epoch": 0, "plot_stuff": ([], [], [], []),
                      "best_stuff": (None, None, None), "trainer_name": trainer_name,

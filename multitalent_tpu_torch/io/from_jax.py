@@ -1,7 +1,10 @@
-"""Weight bridge: the JAX package's flax GenericUNet params -> the port's state dict.
+"""Weight bridge: the JAX package's flax params -> the port's state dict.
 
-The inverse of multitalent_tpu/io/torch_convert.convert_generic_unet_state_dict
-(see that module for the key table). It undoes, once each:
+`generic_unet_state_dict_from_flax` is the inverse of
+multitalent_tpu/io/torch_convert.convert_generic_unet_state_dict (see that
+module for the key table), `resenc_state_dict_from_flax` the inverse of the
+port's io/torch_convert.convert_resenc_state_dict for the residual-encoder
+UNet. They undo, once each:
 
 - the (O, I, kz, ky, kx) -> (kz, ky, kx, I, O) transpose of conv kernels
   (torch_convert.py:30-33), and
@@ -9,12 +12,14 @@ The inverse of multitalent_tpu/io/torch_convert.convert_generic_unet_state_dict
   transposed-conv kernels (torch_convert.py:36-42).
 
 Input leaves are numpy arrays (jax.device_get of the params tree); the
-result is a dict of float32 torch tensors for GenericUNet.load_state_dict.
+result is a dict of float32 torch tensors for the network's load_state_dict.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from multitalent_tpu_torch.io.torch_convert import resenc_key_table
 
 
 def _conv_weight(k: np.ndarray) -> np.ndarray:
@@ -59,5 +64,31 @@ def generic_unet_state_dict_from_flax(params: dict, num_pool: int,
         block(params[f"dec{u}"][f"block{last}"],
               f"conv_blocks_localization.{u}.1.blocks.0")
         sd[f"seg_outputs.{u}.weight"] = _conv_weight(np.asarray(params[f"seg{u}"]["kernel"]))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def resenc_state_dict_from_flax(params: dict, num_blocks_encoder,
+                                num_blocks_decoder) -> dict:
+    """Nested flax param dict of multitalent_tpu ResidualEncoderUNet -> torch
+    state dict of the port's (the reference FabiansUNet's keys,
+    io/torch_convert.resenc_key_table), biases included."""
+    sd: dict[str, np.ndarray] = {}
+
+    def has_skip(s: int, b: int) -> bool:
+        return "skip_conv" in params[f"enc{s}"][f"block{b}"]
+
+    for prefix, path, kind in resenc_key_table(num_blocks_encoder, num_blocks_decoder,
+                                               has_skip):
+        node = params
+        for p in path:
+            node = node[p]
+        if kind == "norm":
+            sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = node["scale"], node["bias"]
+            continue
+        k = np.asarray(node["kernel"])
+        sd[f"{prefix}.weight"] = _transpconv_weight(k) if kind == "transp" else _conv_weight(k)
+        if kind == "conv":
+            sd[f"{prefix}.bias"] = node["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}

@@ -5,9 +5,14 @@ The port's copy of the functions of multitalent_tpu/io/torch_convert.py that
 inference/model_restore.py and JAX-layout folders need:
 `convert_generic_unet_state_dict` turns a GenericUNet state dict into the JAX
 package's flax param tree (the inverse of
-io/from_jax.generic_unet_state_dict_from_flax; both ways are bit-exact).
+io/from_jax.generic_unet_state_dict_from_flax; both ways are bit-exact),
+`convert_resenc_state_dict` does the same for the residual-encoder UNet with
+its biases (the inverse of io/from_jax.resenc_state_dict_from_flax), and
+`fabians_unet_state_dict` reads a reference resenc checkpoint's state dict.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -87,3 +92,93 @@ def convert_generic_unet_state_dict(state_dict: dict, num_pool: int,
         convert_block(f"conv_blocks_localization.{u}.1.blocks.0", [f"dec{u}", f"block{last}"])
         put([f"seg{u}"], "kernel", _conv_weight(sd[f"seg_outputs.{u}.weight"]))
     return params
+
+
+def resenc_key_table(num_blocks_encoder, num_blocks_decoder, has_skip) -> list[tuple]:
+    """(torch prefix, flax path, kind) of every layer of the residual-encoder
+    UNet (models/residual_unet.py), the mapping of the JAX package's
+    convert_fabians_unet_state_dict (multitalent_tpu/io/torch_convert.py:
+    104-191). kind: "conv" (weight and bias), "skip" (the bias-free 1x1x1
+    skip conv), "transp" (transposed conv, no bias) or "norm".
+    `has_skip(s, b)` says whether block b of encoder stage s projects its
+    skip."""
+    rows = [("encoder.initial_conv", ("initial_conv",), "conv"),
+            ("encoder.initial_norm", ("initial_norm",), "norm")]
+    for s, n in enumerate(num_blocks_encoder):
+        for b in range(int(n)):
+            tp, fp = f"encoder.stages.{s}.convs.{b}", (f"enc{s}", f"block{b}")
+            rows += [(f"{tp}.{name}", fp + (name,), kind)
+                     for name, kind in (("conv1", "conv"), ("norm1", "norm"),
+                                        ("conv2", "conv"), ("norm2", "norm"))]
+            if has_skip(s, b):
+                rows += [(f"{tp}.downsample_skip.0", fp + ("skip_conv",), "skip"),
+                         (f"{tp}.downsample_skip.1", fp + ("skip_norm",), "norm")]
+    for i, n in enumerate(num_blocks_decoder):
+        rows.append((f"decoder.tus.{i}", (f"up{i}",), "transp"))
+        for b in range(int(n)):
+            tp, fp = f"decoder.stages.{i}.convs.{b}", (f"dec{i}_block{b}",)
+            rows += [(f"{tp}.conv", fp + ("conv",), "conv"),
+                     (f"{tp}.norm", fp + ("norm",), "norm")]
+        rows.append((f"decoder.deep_supervision_outputs.{i}", (f"seg{i}",), "conv"))
+    return rows
+
+
+def convert_resenc_state_dict(state_dict: dict, num_blocks_encoder,
+                              num_blocks_decoder) -> dict:
+    """The port's residual-encoder UNet state dict -> nested flax param dict
+    of multitalent_tpu's ResidualEncoderUNet (fp32 numpy leaves), the conv
+    biases carried over (the JAX package's convert_fabians_unet_state_dict
+    zero-fills them, as reference checkpoints have none, so it cannot carry a
+    model the port trained). The inverse of
+    io/from_jax.resenc_state_dict_from_flax; both ways are bit-exact."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                        dtype=np.float32)
+          for k, v in strip_module_prefix(state_dict).items()}
+    params: dict = {}
+
+    def has_skip(s: int, b: int) -> bool:
+        return f"encoder.stages.{s}.convs.{b}.downsample_skip.0.weight" in sd
+
+    for prefix, path, kind in resenc_key_table(num_blocks_encoder, num_blocks_decoder,
+                                               has_skip):
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        if kind == "norm":
+            node["scale"], node["bias"] = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+            continue
+        w = sd[f"{prefix}.weight"]
+        node["kernel"] = _transpconv_weight(w) if kind == "transp" else _conv_weight(w)
+        if kind == "conv":
+            node["bias"] = sd[f"{prefix}.bias"]
+    return params
+
+
+# the convs of the residual UNet that carry a bias in the port and the JAX
+# package but none in the reference's checkpoints: initial_conv, each block's
+# conv1 and conv2, the decoder convs
+_RESENC_BIASED = re.compile(r"encoder\.initial_conv|encoder\.stages\.\d+\.convs\.\d+\.conv[12]"
+                            r"|decoder\.stages\.\d+\.convs\.\d+\.conv")
+
+
+def fabians_unet_state_dict(state_dict: dict, num_stages: int) -> dict:
+    """A reference FabiansUNet state dict (a resenc `.model`) as the port's
+    ResidualEncoderUNet loads it, its quirks undone as the JAX package's
+    converter undoes them (multitalent_tpu/io/torch_convert.py:104-191):
+    `module.` stripped; `decoder.segmentation_output` (older checkpoints'
+    name of the last head) renamed to the last `deep_supervision_outputs`;
+    the `...all.{0,2}.*` duplicates of ConvDropoutNormReLU dropped; the
+    bias-free convs given zero biases (identical output)."""
+    import torch
+    sd = {k: v for k, v in strip_module_prefix(state_dict).items() if ".all." not in k}
+    last = f"decoder.deep_supervision_outputs.{num_stages - 2}"
+    for suffix in ("weight", "bias"):
+        quirk = sd.pop(f"decoder.segmentation_output.{suffix}", None)
+        if quirk is not None:
+            sd.setdefault(f"{last}.{suffix}", quirk)
+    for k, w in list(sd.items()):
+        prefix = k[:-len(".weight")]
+        if (k.endswith(".weight") and _RESENC_BIASED.fullmatch(prefix)
+                and prefix + ".bias" not in sd):
+            sd[prefix + ".bias"] = torch.zeros(int(w.shape[0]), dtype=torch.as_tensor(w).dtype)
+    return sd

@@ -28,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multitalent_tpu_torch.models.blocks import CL, ConvDropoutNormNonlin, StackedConvLayers
+from multitalent_tpu_torch.models.blocks import (CL, ConvDropoutNormNonlin, StackedConvLayers,
+                                                 kernel_launches_per_forward,
+                                                 kernel_launches_per_step)
 
 
 def compute_stage_features(base_num_features: int, num_stages: int,
@@ -95,27 +97,15 @@ class GenericUNet(nn.Module):
         return [[b for stack in loc for b in stack.blocks]
                 for loc in self.conv_blocks_localization]
 
-    def _kernel_blocks(self) -> list:
-        return [m for m in self.modules() if getattr(m, "kernel", None) is not None]
-
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each hand-written kernel that one forward makes."""
-        counts = {"conv3d_same": 0, "conv3d_same_dual": 0}
-        for m in self._kernel_blocks():
-            counts[m.kernel] += 1
-        return counts
+        return kernel_launches_per_forward(self)
 
     def kernel_launches_per_step(self) -> dict[str, int]:
         """Launches of each hand-written kernel that one training step (forward
-        + backward) makes: every kernel conv's forward (A or B), its dx by
-        kernel A (unless it reads the network's input, which needs no
-        gradient) and its dw by kernel C (single or dual form)."""
-        counts = self.kernel_launches_per_forward()
-        first = self.conv_blocks_context[0].blocks[0]
-        dx = sum(1 for m in self._kernel_blocks() if m is not first)
-        counts["conv3d_same"] += dx
-        counts["conv3d_same_wgrad"] = len(self._kernel_blocks())
-        return counts
+        + backward) makes (blocks.kernel_launches_per_step; the first conv
+        reads the network's input)."""
+        return kernel_launches_per_step(self, self.conv_blocks_context[0].blocks[0].conv)
 
     def fused_kernel_launches_per_forward(self, differentiable: bool = False
                                           ) -> dict[str, int]:

@@ -32,17 +32,21 @@ backward).
 The switches are the JAX package's, read where it reads them:
 `make_inference_forward` (MTTPU_FUSED_NORM=1, packed_unet.py:865) and
 `make_train_forward` (MTTPU_FUSED_TRAIN=1, :904); both default to the
-unfused forward. The route reads the GenericUNet's own parameters, so its
-state-dict keys and the weight bridges are unchanged.
+unfused forward, and both hand only a GenericUNet to the fused route (a
+residual-encoder UNet runs its own forward, as in the JAX package). The
+route reads the GenericUNet's own parameters, so its state-dict keys and the
+weight bridges are unchanged.
 """
 from __future__ import annotations
 
 import os
+import warnings
 
 import torch
 import torch.nn.functional as F
 
 from multitalent_tpu_torch.models.blocks import CL, ConvDropoutNormNonlin, from_ndhwc, to_ndhwc
+from multitalent_tpu_torch.models.generic_unet import GenericUNet
 from multitalent_tpu_torch.ops import conv3d as cv
 from multitalent_tpu_torch.ops import fused_norm as fn
 from multitalent_tpu_torch.ops import seghead as sg
@@ -176,11 +180,23 @@ def _forward(net, x, deep_supervision: bool, train: bool, use_kernels: bool):
     return sg.seghead_ref(raw, head, None, sc, sh, block.negative_slope, out_dtype)
 
 
+def _fusable(net, switch: str) -> bool:
+    """Whether the fused route takes `net`: only a GenericUNet, as the JAX
+    package gives only a GenericUNet its packed or fused route
+    (packed_unet.py:541,852,893); any other network runs its own forward,
+    which a warning says (once per call site, Python's default)."""
+    if isinstance(net, GenericUNet):
+        return True
+    warnings.warn(f"{switch}=1: the fused route takes a GenericUNet only; "
+                  f"{type(net).__name__} runs its own forward", stacklevel=3)
+    return False
+
+
 def make_inference_forward(net):
     """The network call of inference: the fused route under
-    MTTPU_FUSED_NORM=1 (read here, once, as packed_unet.py:865 reads it),
-    else the network itself."""
-    if os.environ.get("MTTPU_FUSED_NORM") == "1":
+    MTTPU_FUSED_NORM=1 (read here, once, as packed_unet.py:865 reads it)
+    for a GenericUNet, else the network itself."""
+    if os.environ.get("MTTPU_FUSED_NORM") == "1" and _fusable(net, "MTTPU_FUSED_NORM"):
         def forward(x: torch.Tensor) -> torch.Tensor:
             return unet_forward_fused(net, x)
         return forward
@@ -189,9 +205,9 @@ def make_inference_forward(net):
 
 def make_train_forward(net):
     """The training forward (x, deep_supervision=...) -> logits: the fused
-    route with autograd under MTTPU_FUSED_TRAIN=1 (packed_unet.py:904), else
-    the network itself."""
-    if os.environ.get("MTTPU_FUSED_TRAIN", "0") == "1":
+    route with autograd under MTTPU_FUSED_TRAIN=1 (packed_unet.py:904) for a
+    GenericUNet, else the network itself."""
+    if os.environ.get("MTTPU_FUSED_TRAIN", "0") == "1" and _fusable(net, "MTTPU_FUSED_TRAIN"):
         def forward(x: torch.Tensor, deep_supervision: bool = False):
             return unet_forward_fused(net, x, deep_supervision=deep_supervision,
                                       differentiable=True)

@@ -53,15 +53,14 @@ def remove_all_but_the_largest_connected_component(
         sizes = np.bincount(lmap.ravel())[1:] * volume_per_voxel  # skip background
         maximum_size = sizes.max()
         kept_size[c] = float(maximum_size)
-        for object_id in np.where(sizes != maximum_size)[0] + 1:
-            size = sizes[object_id - 1]
-            remove = True
-            if minimum_valid_object_size is not None:
-                remove = size < minimum_valid_object_size[c]
-            if remove:
-                image[(lmap == object_id) & mask] = 0
-                largest_removed[c] = (float(size) if largest_removed[c] is None
-                                      else max(largest_removed[c], float(size)))
+        # every other object, or those below the minimum size, in one pass over
+        # the volume (a pass per object costs minutes on a speckled mask)
+        removed = np.where(sizes != maximum_size)[0]
+        if minimum_valid_object_size is not None:
+            removed = removed[sizes[removed] < minimum_valid_object_size[c]]
+        if len(removed):
+            image[np.isin(lmap, removed + 1) & mask] = 0
+            largest_removed[c] = float(sizes[removed].max())
     return image, largest_removed, kept_size
 
 

@@ -5,7 +5,8 @@ region heads; order_seg 0 (nearest seg warping, so no label is invented);
 splits_custom.pkl (5 stitched CV folds + 7 leave-one-dataset-out folds);
 dataset-balanced sampling p(case) ~ 1/sqrt(cases of its dataset); the masked
 multi-head BCE + batch-Dice loss over the regions each sample's dataset
-annotates; region-wise online evaluation; ce / dice logged apart.
+annotates; region-wise online evaluation; ce / dice logged apart. The
+resenc trainers (:244-272) run the same over the residual-encoder UNet.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from multitalent_tpu_torch.tasks.multitalent import (NUM_REGIONS, build_custom_s
                                                      inverse_sqrt_sampling_probabilities,
                                                      valid_region_mask)
 from multitalent_tpu_torch.training.losses import label_region_matrix, multitalent_ds_loss
-from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.training.trainers import ResencUNetMixin, TrainerV2
 from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
 from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
@@ -177,6 +178,19 @@ class MultiTalentTrainer(TrainerV2):
 
 class MultiTalentTrainer2000ep(MultiTalentTrainer):
     """The 2000-epoch schedule of the released models."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.max_num_epochs = 2000
+
+
+class MultiTalentTrainerResenc(ResencUNetMixin, MultiTalentTrainer):
+    """MultiTalent over the residual-encoder UNet (MultiTalent_trainer_resenc_ddp,
+    multitalent_tpu/training/multitalent.py:244-260)."""
+
+
+class MultiTalentTrainerResenc2000ep(MultiTalentTrainerResenc):
+    """The 2000-epoch schedule of the released resenc models."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

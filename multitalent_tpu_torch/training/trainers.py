@@ -5,7 +5,8 @@ Counterpart of multitalent_tpu/training/trainers.py:TrainerV2. It subclasses
 package's: the epoch loop's bookkeeping, logging, moving averages, patience)
 and replaces the flax parts:
 
-- the network is the port's GenericUNet with deep supervision, He-initialised
+- the network is the port's GenericUNet (ResidualEncoderUNet for the
+  residual-encoder trainers, `ResencUNetMixin`) with deep supervision, He-initialised
   from a seeded `torch.Generator`, computing in bf16 (fp16=True) with fp32
   master weights;
 - one training step: host batch -> pinned memory -> device -> augmentation
@@ -41,7 +42,9 @@ from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_a
                                                     make_val_transform_fn)
 from multitalent_tpu_torch.data.dataset import kfold_split, load_dataset, unpack_dataset
 from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
-from multitalent_tpu_torch.models.generic_unet import GenericUNet, build_unet_from_plans
+from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
+                                                        build_resenc_unet_from_plans)
 from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
@@ -57,12 +60,16 @@ from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_p
 def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
                     neg_slope: float = 1e-2) -> None:
     """The reference's InitWeights_He(1e-2): kaiming normal on every conv and
-    transposed conv weight, zero conv biases; norms keep (1, 0)."""
+    transposed conv weight, zero conv biases; norms keep (1, 0), but a
+    residual block's last norm starts at scale 0
+    (init_last_bn_before_add_to_0, as residual_unet.py:53 of the JAX package)."""
     for m in net.modules():
         if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
             torch.nn.init.kaiming_normal_(m.weight, a=neg_slope, generator=generator)
             if m.bias is not None:
                 torch.nn.init.zeros_(m.bias)
+        elif isinstance(m, BasicResidualBlock):
+            torch.nn.init.zeros_(m.norm2.weight)
 
 
 class TrainerV2(NetworkTrainerBase):
@@ -96,7 +103,7 @@ class TrainerV2(NetworkTrainerBase):
 
         self.ds_loss_weights: np.ndarray | None = None
         self.data_aug_params: dict | None = None
-        self.network: GenericUNet | None = None
+        self.network: torch.nn.Module | None = None  # GenericUNet or ResidualEncoderUNet
         self.network_forward = None  # make_train_forward(network), with the step functions
         self.optimizer: SGDClipped | None = None
         self.step = 0             # optimizer steps taken
@@ -473,3 +480,26 @@ class TrainerV2(NetworkTrainerBase):
             debug=debug, all_in_gpu=all_in_gpu,
             segmentation_export_kwargs=segmentation_export_kwargs,
             run_postprocessing_on_folds=run_postprocessing_on_folds)
+
+
+class ResencUNetMixin:
+    """The residual-encoder UNet (models/residual_unet.py) for a trainer:
+    its plans carry num_blocks_encoder / num_blocks_decoder and pools with a
+    leading (1, 1, 1) stage, which the deep-supervision scales skip
+    (multitalent_tpu/training/trainers.py:517-541)."""
+
+    def setup_DA_params(self) -> None:
+        super().setup_DA_params()
+        self.deep_supervision_scales = ds_scales_from_pools(
+            self.net_num_pool_op_kernel_sizes[1:])
+
+    def initialize_network(self) -> None:
+        self.network = build_resenc_unet_from_plans(
+            self.plans, self.stage, num_classes=self.num_classes,
+            dtype=torch.bfloat16 if self.fp16 else torch.float32)
+
+
+class TrainerV2ResencUNet(ResencUNetMixin, TrainerV2):
+    """nnUNetTrainerV2_ResencUNet; its _SimonsInit(_20fold) variants zero the
+    residual blocks' last norm scale, which init_weights_he always does, so
+    they resolve to this trainer as in the JAX package."""

@@ -6,7 +6,7 @@ run/load_pretrained_weights.py:17-61):
 
 - `load_pretrained_weights`: every parameter of the network whose name and
   shape a pretrained state dict has takes the pretrained value, never the
-  segmentation heads (`seg_outputs.*`);
+  segmentation heads (`is_seg_head_param`);
 - `TrainerV2WarmupLR` (nnUNetTrainerV2_warmup_increasing_lr,
   nnUNetTrainerV2_warmup): the LR ramps linearly over 50 epochs, then poly;
 - `TrainerV2WarmupSegHeads` (nnUNetTrainerV2_warmupsegheads): for
@@ -17,19 +17,27 @@ run/load_pretrained_weights.py:17-61):
   kernel A dx, no kernel C): the backbone stays bit-equal. Its checkpoints
   carry the phase, and a resumed run restores the optimizer of that phase.
 
-The residual-encoder and SwinUNETR warm-up variants need networks the port
-does not have: cli/train.py refuses them (ROADMAP queue 1, item 10).
+`TrainerV2WarmupSegHeadsResenc` (nnUNetTrainerV2_warmupsegheads_resenc) runs
+the head warm-up over the residual-encoder UNet. The SwinUNETR variant needs
+a network the port does not have: cli/train.py refuses it (ROADMAP queue 1,
+item 10).
 """
 from __future__ import annotations
 
 from multitalent_tpu_torch.training.schedules import make_warmup_poly_schedule, poly_lr
 from multitalent_tpu_torch.training.train_state import AdamWClipped, SGDClipped
-from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.training.trainers import ResencUNetMixin, TrainerV2
+
+# the heads' parameter names: the GenericUNet's, the residual UNet's, and the
+# name older resenc checkpoints give its last head
+SEG_HEAD_PREFIXES = ("seg_outputs.", "decoder.deep_supervision_outputs.",
+                     "decoder.segmentation_output.")
 
 
 def is_seg_head_param(name: str) -> bool:
-    """The heads are `seg_outputs.*` here and seg0..segN in the JAX package."""
-    return "seg" in name
+    """Whether a state-dict key (`module.` prefix or not) names a
+    segmentation head's parameter (seg0..segN in the JAX package)."""
+    return name.removeprefix("module.").startswith(SEG_HEAD_PREFIXES)
 
 
 def load_pretrained_weights(state_dict: dict, pretrained: dict, exclude_seg_heads: bool = True,
@@ -111,3 +119,8 @@ class TrainerV2WarmupSegHeads(TrainerV2WarmupLR):
         the phase the checkpoint was saved in (nnUNetTrainerV2_warmup.py:132-198)."""
         if ckpt.get("optimizer_phase", 1) == 2 and self.optimizer_phase == 1:
             self._switch_to_phase2()
+
+
+class TrainerV2WarmupSegHeadsResenc(ResencUNetMixin, TrainerV2WarmupSegHeads):
+    """The head warm-up over the residual-encoder UNet
+    (multitalent_tpu/training/warmup.py:147-158)."""

@@ -135,6 +135,20 @@ def test_remove_all_but_the_largest_component_matches_the_original():
         assert np.array_equal(a[0], b[0]) and a[1:] == b[1:], classes
 
 
+def test_remove_below_minimum_size_matches_the_original():
+    """A speckled mask (many small objects) with a minimum valid object size:
+    the port removes the objects in one pass, the original one at a time."""
+    rng = np.random.default_rng(8)
+    seg = _blobs(rng, (1, 2)).astype(np.int32)
+    seg[rng.random(seg.shape) < 0.02] = 2
+    for minimum in ({1: 5.0, 2: 3.0}, {1: 0.0, 2: 1e9}):
+        a = jcc.remove_all_but_the_largest_connected_component(seg.copy(), [1, 2], 1.44,
+                                                               minimum)
+        b = pcc.remove_all_but_the_largest_connected_component(seg.copy(), [1, 2], 1.44,
+                                                               minimum)
+        assert np.array_equal(a[0], b[0]) and a[1:] == b[1:], minimum
+
+
 def test_thread_pool_evaluates_cases_at_once(folders, monkeypatch):
     """With CUDA initialised, process_pool gives threads; aggregate_scores
     must hand them every case together (at least two evaluations in flight

@@ -195,10 +195,10 @@ def test_train_cli_refuses_what_is_not_ported(task, argv, match):
                     *argv])
 
 
-@pytest.mark.parametrize("name", ["MultiTalent_trainer_resenc_ddp",
+@pytest.mark.parametrize("name", ["MultiTalentTrainerMedNeXt",
                                   "MultiTalent_meets_mednext",
                                   "MultiTalent_trainer_SwinUNETR_ddp_adam",
-                                  "nnUNetTrainerV2_warmupsegheads_resenc",
+                                  "MultiTalent_tainer_SwinUNETR_ddp_adam",
                                   "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"])
 def test_unported_trainers_name_their_roadmap_item(task, name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
