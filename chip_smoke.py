@@ -112,6 +112,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    bit-unchanged, heads moved, kernel C 0 launches); 8f `cli.predict -tr
    nnUNetTrainerV2_ResencUNet` on a phase-3c Liver case with the Liver
    plans as resenc plans (default mode, one fold, exact counts);
+9. data parallelism (parallel/distributed.py): 9a `cli.train` with
+   MultiTalent_trainer_ddp on phase 5's task at full flagship width, batch 2,
+   as torchrun --nproc_per_node=1 starts it (RANK=0, WORLD_SIZE=1: a NCCL
+   group of one, the DDP wrapper with its gradient-summing hook, the pooled
+   loss), DDP_STEPS steps and the validation, beside the same run in one
+   process from the same seed and batches (one sampler thread, cuDNN
+   deterministic): exact A/B/C counts in both, weights, losses and every
+   validation NIfTI bit-equal, the folder predicts through
+   predict_multitalent; 9b two ranks started by parallel.distributed.spawn,
+   sharing the card over gloo, each with one sample of the flagship's
+   batch of 2 (seeded host batches, augmentation off, bf16), against one
+   process with the batch: the ranks bit-equal, the losses within
+   DDP_LOSS_RTOL, the weight updates within DDP_UPDATE_BOUND after step 1
+   and after step DDP_STEPS, and a control whose Dice is not pooled over
+   the ranks must break it at both; seconds per step and peak memory of
+   each rank; 9c 9b under MTTPU_FUSED_TRAIN=1 (D, A, C) for
+   FUSED_DDP_STEPS steps; 9b again over NCCL, one card a rank, where two
+   cards are visible (else a line says it is skipped);
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -121,7 +139,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    5b); E's stats row lists its six shapes and sums them over one fused
    forward (phase 4b); A, B, D, E and F also their Liver shapes and phase
    3c's launches; A, B and C the resenc's launches of phase 8 and their
-   sums over one resenc forward (8c) and step (8a)), then the result line.
+   sums over one resenc forward (8c) and step (8a); A, B and C also 9a's
+   launches, `launches_ddp`), then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -279,6 +298,34 @@ RESENC_PALLAS_NORM_BOUND_MEAN = 1.5e-3
 LIVER_RESENC_PLANS_ID = "nnUNetPlans_FabiansResUNet_v2.1"
 LIVER_RESENC_TRAINER = "nnUNetTrainerV2_ResencUNet"
 RESENC_DEFAULT_BLOCKS = (1, 2, 3, 4, 4, 4, 4)
+
+# phase 9: data parallelism (parallel/distributed.py). 9a: the train CLI as
+# torchrun --nproc_per_node=1 starts it (a NCCL group of one and the DDP
+# wrapper) for DDP_STEPS steps and the validation, beside the same run in one
+# process; 9b: two ranks sharing the card over gloo, each with one sample of
+# the flagship's batch of 2, against one process with the batch, from the
+# same seeded weights and host batches (augmentation off), bf16, DDP_STEPS
+# steps; 9c: 9b under MTTPU_FUSED_TRAIN=1 for FUSED_DDP_STEPS steps
+DDP_STEPS = 3
+FUSED_DDP_STEPS = 2
+DDP_NO_AUG = {"p_rot": 0.0, "p_scale": 0.0, "p_gaussian_noise": 0.0, "p_gaussian_blur": 0.0,
+              "p_brightness_mult": 0.0, "p_contrast": 0.0, "p_lowres": 0.0,
+              "p_gamma_invert": 0.0, "p_gamma": 0.0, "do_mirror": False}
+# 9b/9c: the ranks' weight updates against the one-process run's, as
+# |d_ranks - d_one| / |d_one| over every weight but the conv biases (their
+# gradient is bf16 rounding noise, cancelled by the norm after them) and the
+# head of loss weight 0 (no gradient in either), after the first step and
+# after the last, each within DDP_UPDATE_BOUND; the losses of every step
+# within DDP_LOSS_RTOL. A sample's forward at N=1 rounds to bf16 at other
+# points than at N=2 (other kernel plans, other summation orders), and the
+# one-ulp differences carry through ~20 layers into the gradient: measured
+# on the H100 before this bound, 1.73e-2 and 1.62e-2 (9b), 1.75e-2 and
+# 1.64e-2 (9c), losses 3.6e-5 apart. The control (each rank's Dice on its
+# own sample, not pooled) read 5.46e-2 and 5.62e-2 and must break the bound
+# at both steps (the Dice is a few percent of the gradient: BCE over the
+# valid regions dominates it)
+DDP_UPDATE_BOUND = 3e-2
+DDP_LOSS_RTOL = 1e-3
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -446,7 +493,8 @@ def _plan(row: dict, form: str) -> None:
     plan = cv.conv3d_same_plan(n, *sp, splits[0] if len(splits) == 1 else splits, row["cout"],
                                form)
     row["plan"] = plan
-    row.update(_conv_bound(sum(splits), row["cout"], sp, n))
+    row.update(_affine_bound(sum(splits), row["cout"], sp, n, form == "d")
+               if form.startswith("d") else _conv_bound(sum(splits), row["cout"], sp, n))
     body = ("ring body" if plan["ring"] else
             "the older body (16-byte rows, streamed weights, whole K loops)")
     print(f"  plan: {body}; ring: G {plan['g']}, weights "
@@ -1516,7 +1564,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     try:
         t0 = time.perf_counter()
         trainer, launches = _run_counted(lambda: train_main(
-            ["3d_fullres", "MultiTalent_trainer_ddp", task, "0", "--device", "cuda"]))
+            ["3d_fullres", "MultiTalent_trainer_ddp", task, "0", "--device", "cuda",
+             "-gpus", "1"]))
         train_s = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1610,7 +1659,7 @@ def phase_fused_validation(workdir: str, training: dict) -> dict:
         t0 = time.perf_counter()
         trainer, launches = _run_counted(lambda: train_main(
             ["3d_fullres", "MultiTalent_trainer_ddp", training["task"], "0", "-val",
-             "--val_folder", "validation_fused", "--device", "cuda"]))
+             "--val_folder", "validation_fused", "--device", "cuda", "-gpus", "1"]))
         wall = time.perf_counter() - t0
     finally:
         os.environ.pop("MTTPU_FUSED_NORM")
@@ -1736,7 +1785,7 @@ def phase_warmup(workdir: str, jax_folder: dict) -> dict:
     t0 = time.perf_counter()
     trainer, launches = _run_counted(lambda: train_main(
         ["3d_fullres", "nnUNetTrainerV2_warmupsegheads", task, "0", "-pretrained_weights",
-         jax_folder["ckpt"], "--device", "cuda"]))
+         jax_folder["ckpt"], "--device", "cuda", "-gpus", "1"]))
     wall = time.perf_counter() - t0
     pretrained = checkpoint_state_dict(jax_folder["ckpt"], plans, 0)
     fresh = build_unet_from_plans(one, 0, num_classes=trainer.num_classes)
@@ -1831,7 +1880,7 @@ def phase_resenc_training(workdir: str) -> dict:
         t0 = time.perf_counter()
         trainer, launches = _run_counted(lambda: train_main(
             ["3d_fullres", RESENC_TRAINER, task, "0", "-p", RESENC_PLANS_ID,
-             "--device", "cuda"]))
+             "--device", "cuda", "-gpus", "1"]))
         train_s = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         net = trainer.network
@@ -2074,7 +2123,8 @@ def phase_resenc_warmup(workdir: str, jax_folder: dict) -> dict:
         t0 = time.perf_counter()
         trainer, launches = _run_counted(lambda: train_main(
             ["3d_fullres", "nnUNetTrainerV2_warmupsegheads_resenc", task, "0", "-p",
-             RESENC_PLANS_ID, "-pretrained_weights", jax_folder["ckpt"], "--device", "cuda"]))
+             RESENC_PLANS_ID, "-pretrained_weights", jax_folder["ckpt"], "--device", "cuda",
+             "-gpus", "1"]))
         wall = time.perf_counter() - t0
     pretrained = checkpoint_state_dict(jax_folder["ckpt"], plans, 0)
     init = _resenc_net(one, torch.float32, trainer.num_classes, seed=trainer.seed).state_dict()
@@ -2152,6 +2202,333 @@ def phase_resenc_liver(workdir: str) -> dict:
             "net_calls": t["net_calls"], "per_forward": per}
 
 
+def _median(values) -> float:
+    v = sorted(values)
+    return v[len(v) // 2] if len(v) % 2 else (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2
+
+
+def _same_nifti_bytes(a: str, b: str) -> int:
+    """The number of NIfTIs under folder a, each of whose bytes must equal
+    its namesake's under b (same set of files): the gzip streams but their
+    header's mtime (bytes 4-7), else the decompressed NIfTIs."""
+    import gzip
+    names = sorted(os.path.relpath(os.path.join(d, f), a) for d, _, fs in os.walk(a)
+                   for f in fs if f.endswith(".nii.gz"))
+    other = sorted(os.path.relpath(os.path.join(d, f), b) for d, _, fs in os.walk(b)
+                   for f in fs if f.endswith(".nii.gz"))
+    if not names or names != other:
+        raise AssertionError(f"{a} and {b} hold other NIfTIs")
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+            ra, rb = fa.read(), fb.read()
+        if ra[:4] + ra[8:] != rb[:4] + rb[8:] and gzip.decompress(ra) != gzip.decompress(rb):
+            raise AssertionError(f"{name} differs between {a} and {b}")
+    return len(names)
+
+
+def phase_ddp_launched(workdir: str) -> dict:
+    """9a: `cli.train 3d_fullres MultiTalent_trainer_ddp` on phase 5's task as
+    torchrun --nproc_per_node=1 starts it (RANK=0, WORLD_SIZE=1: a NCCL group
+    of one, the DDP wrapper and its gradient hook, the pooled loss), DDP_STEPS
+    steps and the validation, beside the same run in one process (no group)
+    from the same seed and batches (one sampler thread, so that both draw
+    them in one order; cuDNN deterministic): exact A/B/C launch counts in
+    both, the weights and every validation NIfTI bit-equal, then
+    predict_multitalent from the launched run's folder. Each step's wait for
+    its host batch is timed apart (one sampler thread may not keep up)."""
+    import torch
+    from multitalent_tpu_torch.augment.params import default_3D_augmentation_params
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.data.loader import PrefetchPipeline
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.io import read_nifti
+    from multitalent_tpu_torch.parallel import distributed
+
+    waits = collections.defaultdict(list)  # a pipeline's seconds waiting for its batches
+    take = PrefetchPipeline.__next__
+
+    def timed_take(pipeline):
+        t0 = time.perf_counter()
+        batch = take(pipeline)
+        waits[id(pipeline)].append(time.perf_counter() - t0)
+        return batch
+
+    task = "Task100_MultiTalent"
+    args = ["3d_fullres", "MultiTalent_trainer_ddp", task, "0", "--device", "cuda"]
+    env = {"nnUNet_preprocessed": os.path.join(workdir, "preprocessed"),
+           "MTTPU_MAX_EPOCHS": "1", "MTTPU_ITERS_PER_EPOCH": str(DDP_STEPS),
+           "MTTPU_VAL_ITERS": "1", "MTTPU_FUSED_TRAIN": "0", "MTTPU_FUSED_NORM": "0"}
+    launcher = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                "MASTER_ADDR": "localhost", "MASTER_PORT": str(distributed.free_port())}
+    threads = default_3D_augmentation_params["num_threads"]
+    deterministic = torch.backends.cudnn.deterministic
+    default_3D_augmentation_params["num_threads"] = 1
+    torch.backends.cudnn.deterministic = True
+    PrefetchPipeline.__next__ = timed_take
+    runs = {}
+    try:
+        for name, extra_env, extra_args in (("one process", {}, ["-gpus", "1"]),
+                                            ("launched", launcher, [])):
+            results = os.path.join(workdir, "results_ddp_" + name.replace(" ", "_"))
+            with _env(**env, RESULTS_FOLDER=results, **extra_env):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer, launches = _run_counted(lambda: train_main(args + extra_args))
+                runs[name] = {"trainer": trainer, "launches": launches, "results": results,
+                              "s": time.perf_counter() - t0,
+                              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        default_3D_augmentation_params["num_threads"] = threads
+        torch.backends.cudnn.deterministic = deterministic
+        PrefetchPipeline.__next__ = take
+    if distributed.is_initialized():
+        raise AssertionError("the train CLI left its process group up")
+
+    one, launched = runs["one process"]["trainer"], runs["launched"]["trainer"]
+    with open(launched.log_file) as f:
+        log = f.read()
+    if launched.ddp is None or one.ddp is not None \
+            or "data-parallel over 1 ranks (nccl)" not in log:
+        raise AssertionError("9a: the launched run did not train under DDP over NCCL")
+    net = launched.network
+    per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+    validation = _check_validation(os.path.join(launched.output_folder, "validation_raw"),
+                                   launched)
+    for name, run in runs.items():
+        t = run["trainer"]
+        expect = {k: a + b + c for (k, a), b, c in zip(
+            _expect(per_step, t.step).items(),
+            _expect(per_fwd, t.num_val_batches_per_epoch).values(),
+            _expect(per_fwd, sum(v["forwards"] for v in t.validation_timings)).values())}
+        if t.step != DDP_STEPS or run["launches"] != expect \
+                or any(run["launches"][k] == 0 for k in per_step):
+            raise AssertionError(f"9a {name}: {t.step} steps, launches {run['launches']}, "
+                                 f"expected {expect}")
+    a, b = one.network.state_dict(), net.state_dict()
+    moved = [k for k, v in a.items() if not torch.equal(v, b[k])]
+    if moved or one.all_tr_losses != launched.all_tr_losses:
+        raise AssertionError(f"9a: the launched run's weights differ from the one-process "
+                             f"run's at {moved[:5]}, losses {launched.all_tr_losses} vs "
+                             f"{one.all_tr_losses}")
+    files = _same_nifti_bytes(os.path.join(launched.output_folder, "validation_raw"),
+                              os.path.join(one.output_folder, "validation_raw"))
+    model = os.path.dirname(launched.output_folder)
+    out = os.path.join(workdir, "out_trained_ddp")
+    predict_main(["-i", os.path.join(workdir, "in"), "-o", out, "-m", model, "-f", "0",
+                  "--device", "cuda", "--disable_tta"])
+    seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
+    masks = {read_nifti(os.path.join(out, "individual", r, "case.nii.gz"))[0].shape
+             for r in REGIONS}
+    if seg.shape != CASE_SHAPE or masks != {CASE_SHAPE}:
+        raise AssertionError(f"9a: the launched run's folder predicted {seg.shape}, {masks}")
+    step_s, busy_s = {}, {}
+    for k, r in runs.items():
+        t = r["trainer"]
+        step_s[k] = _median(t.step_seconds[1:])
+        busy_s[k] = [s - w for s, w in zip(t.step_seconds, waits[id(t.tr_gen)])]
+    print(f"9a launched (RANK=0 WORLD_SIZE=1, NCCL, DDP): {DDP_STEPS} steps of batch "
+          f"{TRAIN_BATCH}, losses {[round(v, 4) for v in launched.all_tr_losses]} (train), "
+          f"bit-equal to the one-process run's, as are all {len(b)} weight tensors and all "
+          f"{files} validation NIfTIs; launches "
+          f"{ {k: v for k, v in runs['launched']['launches'].items() if v} } in both = per "
+          f"step {per_step} x {DDP_STEPS} + per forward {per_fwd} x (1 validation batch + "
+          f"{validation['forwards']} validation forwards); the folder predicts "
+          f"(labelmap + {len(REGIONS)} region NIfTIs at {CASE_SHAPE})")
+    print("9a seconds per step (median of steps 2.." + str(DDP_STEPS) + "): " + ", ".join(
+        f"{k} {step_s[k]:.3f} (steps {', '.join(f'{v:.3f}' for v in r['trainer'].step_seconds)}"
+        f"; without the wait for the host batch "
+        f"{', '.join(f'{v:.3f}' for v in busy_s[k])}; peak {r['peak_gib']:.2f} GiB; train "
+        f"CLI {r['s']:.1f} s; validation "
+        f"{r['trainer'].validation_seconds / len(VAL_KEYS):.2f} s a case)"
+        for k, r in runs.items()))
+    for run in runs.values():
+        run.pop("trainer")
+    return {"launches": runs["launched"]["launches"], "step_s": step_s,
+            "busy_s": {k: _median(v[1:]) for k, v in busy_s.items()},
+            "peak_gib": {k: r["peak_gib"] for k, r in runs.items()}}
+
+
+def _ddp_batches(steps: int) -> list[dict]:
+    """`steps` global host batches of TRAIN_BATCH at the patch size (the
+    augmentation is off, so no enlarged patch), seeded: each row a body with
+    a liver and a tumour of its own (Task003's regions valid, labels in the
+    global 1..47 space). The rows share their valid regions, so pooling the
+    Dice statistics over them differs from each row's own Dice."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    axes = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in PATCH],
+                       indexing="ij")
+    body = sum(a * a for a in axes) < 0.8
+    rows = [(("03_liver", "03_cancer"), (1, 2), "003")] * TRAIN_BATCH
+    batches = []
+    for _ in range(steps):
+        data = np.empty((TRAIN_BATCH, 1, *PATCH), np.float32)
+        seg = np.zeros((TRAIN_BATCH, 1, *PATCH), np.float32)
+        for j, (_, labels, _) in enumerate(rows):
+            data[j, 0] = np.where(body, 0.5, -1.5)
+            for label in labels:
+                c, r = rng.uniform(-0.4, 0.4, 3), rng.uniform(0.15, 0.35, 3)
+                inside = sum(((a - ci) / ri) ** 2 for a, ci, ri in zip(axes, c, r)) < 1
+                seg[j, 0][inside] = label
+                data[j, 0][inside] = rng.uniform(-1, 2)
+            data[j, 0] += rng.standard_normal(PATCH, dtype=np.float32) * 0.1
+        batches.append({"data": data, "seg": seg,
+                        "properties": [{"valid_regions": v} for v, _, _ in rows],
+                        "keys": [f"{p}_ddp{j}" for j, (_, _, p) in enumerate(rows)]})
+    return batches
+
+
+class _UnpooledDice:
+    """The control of 9b: the MultiTalent loss with each rank's Dice (and
+    BCE) on its own sample, not pooled over the ranks; the gradients are
+    still summed by the DDP hook."""
+
+    def loss_fn(self, outputs, targets, extras: dict):
+        from multitalent_tpu_torch.training.losses import multitalent_ds_loss
+        loss, ce, dc = multitalent_ds_loss(outputs, targets, extras["valid_region_mask"],
+                                           self._label_region_matrix,
+                                           [float(w) for w in self.ds_loss_weights])
+        return loss, {"ce": ce.detach(), "dice": dc.detach()}
+
+
+def _ddp_train(device, rows, batches: list, fused: bool, unpooled: bool = False) -> dict:
+    """The flagship's MultiTalentTrainer (no dataset; augmentation off;
+    seeded He init; bf16) on `rows` of each global batch: losses, seconds
+    per step, peak memory, the weights before, after the first step and
+    after the last."""
+    import hashlib
+    import torch
+    from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
+    cls = type("Unpooled", (_UnpooledDice, MultiTalentTrainer), {}) if unpooled \
+        else MultiTalentTrainer
+    with _env(MTTPU_FUSED_TRAIN="1" if fused else "0"):
+        t = cls(_flagship_plans(), 0, None, None, fp16=True, device=device)
+        t.initialize(True)
+        t.data_aug_params.update(DDP_NO_AUG)
+        t._build_step_functions()
+    before = {k: v.detach().cpu().clone() for k, v in t.network.state_dict().items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, first = [], None
+    for batch in batches:
+        losses.append(t.run_iteration(iter([{k: v[rows] for k, v in batch.items()}])))
+        if first is None:
+            first = {k: v.detach().cpu().clone() for k, v in t.network.state_dict().items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    after = {k: v.detach().cpu() for k, v in t.network.state_dict().items()}
+    digest = hashlib.sha256()
+    for v in after.values():
+        digest.update(v.numpy().tobytes())
+    out = {"losses": losses, "step_s": list(t.step_seconds), "peak_gib": peak,
+           "local_batch": t.local_batch_size, "wrapped": t.ddp is not None,
+           "digest": digest.hexdigest(), "before": before, "first": first, "after": after}
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+# 9b, 9c: (run, fused, unpooled, steps)
+_DDP_RUNS = (("pooled", False, False, DDP_STEPS), ("control", False, True, DDP_STEPS),
+             ("fused", True, False, FUSED_DDP_STEPS))
+
+
+def _ddp_rank(workdir: str, backend: str) -> None:
+    """One rank of 9b/9c (started by parallel.distributed.spawn): the runs of
+    _DDP_RUNS on its sample of each global batch; saves their readings to
+    workdir/ddp_<backend>_rank<r>.pt (rank 0 also the weights)."""
+    import torch
+    from multitalent_tpu_torch.parallel import distributed
+    rank = int(os.environ["RANK"])
+    device = distributed.init_process_group("cuda", backend=backend,
+                                            device_index=0 if backend == "gloo" else rank)
+    try:
+        out, batches = {}, _ddp_batches(DDP_STEPS)
+        for name, fused, unpooled, steps in _DDP_RUNS:
+            run = _ddp_train(device, slice(rank, rank + 1), batches[:steps], fused, unpooled)
+            if rank != 0:
+                for k in ("before", "first", "after"):
+                    run.pop(k)
+            out[name] = run
+        torch.save(out, os.path.join(workdir, f"ddp_{backend}_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _update_gap(a: dict, b: dict, before: dict) -> float:
+    """|d_a - d_b| / |d_b| over every weight but the conv biases and the
+    head of loss weight 0 (d: the update from `before`)."""
+    import torch
+    keys = [k for k in before if not k.endswith("conv.bias")
+            and k != "seg_outputs.0.weight"]
+    da = torch.cat([(a[k].double() - before[k].double()).flatten() for k in keys])
+    db = torch.cat([(b[k].double() - before[k].double()).flatten() for k in keys])
+    return ((da - db).norm() / db.norm()).item()
+
+
+def phase_ddp_ranks(workdir: str, backend: str = "gloo") -> dict:
+    """9b and 9c: two ranks over `backend` (gloo: both on card 0; nccl: one
+    card each), each with one sample of the flagship's batch of 2, against
+    one process with the batch, from the same seeded weights and host
+    batches; then the control (each rank's Dice on its own sample), which
+    must break DDP_UPDATE_BOUND; 9c the same under MTTPU_FUSED_TRAIN=1."""
+    import torch
+    from multitalent_tpu_torch.parallel import distributed
+    device = torch.device("cuda", 0)
+    batches = _ddp_batches(DDP_STEPS)
+    one = {name: _ddp_train(device, slice(0, TRAIN_BATCH), batches[:steps], fused)
+           for name, fused, steps in (("pooled", False, DDP_STEPS),
+                                      ("fused", True, FUSED_DDP_STEPS))}
+    del batches
+    t0 = time.perf_counter()
+    distributed.spawn(_ddp_rank, 2, (workdir, backend))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"ddp_{backend}_rank{r}.pt"), weights_only=False)
+             for r in (0, 1)]
+    out, failed = {"spawn_s": spawn_s}, []
+    for name, _, unpooled, steps in _DDP_RUNS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        ref = one["fused" if name == "fused" else "pooled"]
+        # the ranks' losses are the global batch's, but the control's are each
+        # rank's own
+        if r0["digest"] != r1["digest"] or (r0["losses"] != r1["losses"]) != unpooled:
+            raise AssertionError(f"9b {backend} {name}: the ranks' weights or losses differ")
+        if (r0["local_batch"], r1["local_batch"]) != (1, 1) or not r0["wrapped"]:
+            raise AssertionError(f"9b {backend} {name}: not one sample a rank under DDP")
+        if not all(torch.equal(v, ref["before"][k]) for k, v in r0["before"].items()):
+            raise AssertionError(f"9b {backend} {name}: the ranks started from other weights")
+        gap1 = _update_gap(r0["first"], ref["first"], ref["before"])
+        gap = _update_gap(r0["after"], ref["after"], ref["before"])
+        loss_rel = max(abs(a / b - 1) for a, b in zip(r0["losses"], ref["losses"]))
+        ok = min(gap1, gap) > DDP_UPDATE_BOUND if unpooled else (
+            max(gap1, gap) <= DDP_UPDATE_BOUND and loss_rel <= DDP_LOSS_RTOL)
+        label = {"pooled": "9b", "control": "9b control", "fused": "9c"}[name]
+        print(f"{label} ({backend}, 2 ranks x 1 sample vs 1 process x {TRAIN_BATCH}, "
+              f"{steps} steps, bf16{', MTTPU_FUSED_TRAIN=1' if name == 'fused' else ''}"
+              f"{', Dice not pooled' if unpooled else ''}): weight updates |d_ranks - d_one| "
+              f"/ |d_one| after step 1 {gap1:.3e}, after step {steps} {gap:.3e} (bound "
+              f"{DDP_UPDATE_BOUND:g}, {'both must break it' if unpooled else 'within'}), "
+              f"losses "
+              f"{[round(v, 5) for v in r0['losses']]} vs {[round(v, 5) for v in ref['losses']]} "
+              f"(max rel {loss_rel:.2e}, bound {DDP_LOSS_RTOL:g}); ranks bit-equal; seconds "
+              f"per step rank 0 {', '.join(f'{v:.3f}' for v in r0['step_s'])}, rank 1 "
+              f"{', '.join(f'{v:.3f}' for v in r1['step_s'])} (one process "
+              f"{', '.join(f'{v:.3f}' for v in ref['step_s'])}); peak "
+              f"{r0['peak_gib']:.2f}, {r1['peak_gib']:.2f} GiB a rank (one process "
+              f"{ref['peak_gib']:.2f})")
+        if not ok:
+            failed.append(f"{label} ({backend}): update gaps {gap1:.3e}, {gap:.3e}, loss rel "
+                          f"{loss_rel:.2e}")
+        out[name] = {"gap1": gap1, "gap": gap, "loss_rel": loss_rel,
+                     "step_s": [r0["step_s"], r1["step_s"]], "one_step_s": ref["step_s"],
+                     "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
+                     "one_peak_gib": ref["peak_gib"]}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -2168,6 +2545,19 @@ def _conv_bound(cin: int, cout: int, spatial, n: int, w_bytes: int = 2) -> dict:
     vox = n * prod(spatial)
     return _bound(vox * (cin + cout) * 2 + 27 * cin * cout * w_bytes,
                   bf16_flops=2 * 27 * cin * cout * vox)
+
+
+def _affine_bound(cin: int, cout: int, spatial, n: int, prologue: bool) -> dict:
+    """Kernel D's bound: the conv's, plus its per-sample channel stats (sum
+    and sum of squares of the output in fp32: 3 operations a value, 8 bytes a
+    sample and channel written) and, with the `prologue` (its single form),
+    x * scale + shift and the LeakyReLU on its input (3 operations a value)
+    from a scale and shift a sample and channel."""
+    vox = n * prod(spatial)
+    return _bound(vox * (cin + cout) * 2 + 27 * cin * cout * 2 + n * cout * 8
+                  + (n * cin * 8 if prologue else 0),
+                  bf16_flops=2 * 27 * cin * cout * vox,
+                  fp32_flops=3 * vox * cout + (3 * vox * cin if prologue else 0))
 
 
 def _wgrad_step(timed: list, step_shapes: collections.Counter, label: str = "kernel C") -> dict:
@@ -2533,6 +2923,14 @@ def main() -> int:
                                resenc, resenc_predict)
             resenc_warmup = timed("8e resenc warm-up", phase_resenc_warmup, workdir, resenc_jax)
         resenc_liver = timed("8f resenc Liver", phase_resenc_liver, workdir)
+        with _env(**exact):
+            ddp_launched = timed("9a DDP launched", phase_ddp_launched, workdir)
+        ddp = timed("9b-9c DDP 2 ranks gloo", phase_ddp_ranks, workdir)
+        if torch.cuda.device_count() >= 2:
+            timed("9b NCCL 2 cards", phase_ddp_ranks, workdir, "nccl")
+        else:
+            print(f"phase 9b over NCCL on two cards: skipped, {torch.cuda.device_count()} "
+                  f"card visible")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2563,6 +2961,7 @@ def main() -> int:
                      "launches_train_fused": training_fused["launches"][kname],
                      "launches_probes": probe_path["launches"][kname],
                      "launches_warmup": warmup["launches"][kname],
+                     "launches_ddp": ddp_launched["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
                      **_conv_bound(sum(stage0["splits"]), stage0["cout"], stage0["spatial"],
@@ -2610,7 +3009,7 @@ def main() -> int:
     vox = prod(sp)
     for kname, src, replaces, work in (
             ("conv3d_same_affine", a_src, "multitalent_tpu/ops/pallas_conv.py:326",
-             _conv_bound(c, c, sp, 1)),
+             _affine_bound(c, c, sp, 1, prologue=True)),
             ("channel_stats", "multitalent_tpu_torch/csrc/fused_norm.cu",
              "multitalent_tpu/ops/fused_norm.py:37", _stats_bound(c, sp, 1)),
             ("affine_lrelu", "multitalent_tpu_torch/csrc/fused_norm.cu",
@@ -2722,6 +3121,17 @@ def main() -> int:
           f"over a forward {rb['forward_ms']:.3f} ms (cuDNN on the concat "
           f"{rb['forward_cudnn_bf16_ms']:.3f}), over a step {rb['step_ms']:.3f} ms; kernel C "
           f"over a step {rc['step_ms']:.3f} ms (cuDNN {rc['step_cudnn_ms']:.3f}); on {smi}")
+    print(f"summary, data parallelism (phase 9): launched group of one (NCCL, DDP) seconds "
+          f"per step {ddp_launched['step_s']['launched']:.3f} vs one process "
+          f"{ddp_launched['step_s']['one process']:.3f} (without the wait for the host batch "
+          f"{ddp_launched['busy_s']['launched']:.3f} vs "
+          f"{ddp_launched['busy_s']['one process']:.3f}), bit-equal; 2 ranks sharing the card "
+          f"(gloo): " + "; ".join(
+              f"{k} update gap after step 1 {v['gap1']:.3e}, last {v['gap']:.3e}, seconds per "
+              f"step {_median(v['step_s'][0][1:]):.3f} (one process "
+              f"{_median(v['one_step_s'][1:]):.3f}), peak {max(v['peak_gib']):.2f} GiB a rank"
+              for k, v in ddp.items() if k != "spawn_s") + f"; ranks started and ran in "
+          f"{ddp['spawn_s']:.1f} s; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Train a configuration on one GPU, then validate it.
+"""Train a configuration on one GPU or data-parallel over several, then validate it.
 
 Counterpart of multitalent_tpu/cli/train.py (nnunet/run/run_training.py): the
 same arguments plus --device (default cuda; cpu runs the kernels' plain
@@ -19,25 +19,46 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
 
 -pretrained_weights takes a JAX `.ckpt` or a reference / port `.model` and
 transfers every backbone weight of matching name and shape (never the heads);
-with -c it is ignored. Not ported yet, and refused: several GPUs (ROADMAP
-queue 1, item 9), 2D and cascade networks and the MedNeXt and SwinUNETR
-trainers (item 10), including 3d_lowres's prediction of the next stage.
+with -c it is ignored.
+
+Training spans every visible card (CUDA_VISIBLE_DEVICES narrows them; -gpus
+N takes N), one process a card over NCCL, as the JAX CLI spans every device
+of its mesh; `--device cpu -gpus N` runs N gloo ranks on the CPU. The CLI
+starts the ranks itself, or joins the group when a launcher started it
+(torchrun, or torch.distributed.launch with --local_rank; RANK and
+WORLD_SIZE set, a group even at world size 1):
+
+    torchrun --nproc_per_node=N -m multitalent_tpu_torch.cli.train 3d_fullres ...
+
+The plans' batch is the global batch, always split over the ranks
+(parallel/distributed.py; --dbs is accepted and changes nothing). Every rank
+reads -c's checkpoint and -pretrained_weights; rank 0 writes the folder; the
+validation splits its cases over the ranks. Refused: more ranks than cards,
+a split that leaves a rank without a sample (ROADMAP queue 1, item 14), 2D
+and cascade networks and the MedNeXt and SwinUNETR trainers (item 10),
+including 3d_lowres's prediction of the next stage.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+
+import torch
 
 from multitalent_tpu_torch import paths
 from multitalent_tpu_torch.cli.configuration import resolve_task_name
 from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS,
                                                            checkpoint_state_dict)
+from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep,
                                                         MultiTalentTrainerResenc,
                                                         MultiTalentTrainerResenc2000ep)
-from multitalent_tpu_torch.training.trainers import TrainerV2, TrainerV2ResencUNet
+from multitalent_tpu_torch.training.trainers import (TrainerV2, TrainerV2_2epochs,
+                                                     TrainerV2_5epochs, TrainerV2_dummyLoad,
+                                                     TrainerV2ResencUNet)
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
                                                    TrainerV2WarmupSegHeadsResenc,
                                                    load_pretrained_weights)
@@ -63,6 +84,11 @@ TRAINERS = {
                      "MultiTalent_tainer_resenc_ddp"), MultiTalentTrainerResenc2000ep),
     **dict.fromkeys(("TrainerV2WarmupSegHeadsResenc", "nnUNetTrainerV2_warmupsegheads_resenc"),
                     TrainerV2WarmupSegHeadsResenc),
+    # the reference's benchmarking trainers
+    **dict.fromkeys(("TrainerV2_2epochs", "nnUNetTrainerV2_2epochs"), TrainerV2_2epochs),
+    **dict.fromkeys(("TrainerV2_5epochs", "nnUNetTrainerV2_5epochs"), TrainerV2_5epochs),
+    **dict.fromkeys(("TrainerV2_dummyLoad", "nnUNetTrainerV2_5epochs_dummyLoad"),
+                    TrainerV2_dummyLoad),
 }
 
 
@@ -119,28 +145,65 @@ def main(argv=None):
                         help="the validation's folder under fold_X")
     parser.add_argument("--disable_postprocessing_on_folds", action="store_true",
                         help="skip determine_postprocessing after validation")
-    parser.add_argument("-gpus", type=int, default=None)
-    parser.add_argument("--dbs", action="store_true")
-    parser.add_argument("--local_rank", type=int, default=0)
+    parser.add_argument("-gpus", type=int, default=None,
+                        help="ranks to train on (default: every visible card; 1 on the cpu)")
+    parser.add_argument("--dbs", action="store_true",
+                        help="accepted: the global batch is always split over the ranks")
+    parser.add_argument("--local_rank", type=int, default=None,
+                        help="set by torch.distributed.launch: this rank's card")
     parser.add_argument("-pretrained_weights", default=None,
                         help="a JAX .ckpt or a .model whose backbone weights to start from")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (hand-written kernels) or cpu "
                              "(their plain PyTorch versions)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    device_type = torch.device(args.device).type
+    config = get_default_configuration(args.network, args.task, args.network_trainer, args.p)
 
-    if args.gpus is not None and args.gpus > 1:
-        raise NotImplementedError("training on several GPUs is ROADMAP queue 1, item 9")
+    if distributed.launched():
+        return _join_and_train(args, config, device_type)
+    if args.gpus is not None:
+        ranks = args.gpus
+    else:
+        # without a card the trainer refuses the cuda device itself
+        ranks = max(torch.cuda.device_count(), 1) if device_type == "cuda" else 1
+    if ranks < 1:
+        raise ValueError(f"-gpus {ranks}: at least one rank is needed")
+    if device_type == "cuda" and ranks > torch.cuda.device_count():
+        raise RuntimeError(f"{ranks} ranks need {ranks} cards, but "
+                           f"{torch.cuda.device_count()} are visible")
+    if ranks == 1:
+        return _train(args, config, args.device)
+    plans_file, stage = config[0], config[4]
+    distributed.check_split(load_plans(plans_file).stage(stage).batch_size, ranks)
+    distributed.spawn(main, ranks, (argv,))
+    return None
 
+
+def _join_and_train(args, config, device_type: str):
+    """One rank of a group that a launcher started: join it, train, leave."""
+    if args.local_rank is not None and "LOCAL_RANK" not in os.environ:
+        os.environ["LOCAL_RANK"] = str(args.local_rank)
+    device = distributed.init_process_group(device_type)
+    if device_type == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // distributed.world_size()))
+    try:
+        return _train(args, config, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args, config, device):
     fold = args.fold if args.fold == "all" else int(args.fold)
     (plans_file, output_folder, dataset_directory, batch_dice, stage,
-     trainer_class) = get_default_configuration(args.network, args.task,
-                                                args.network_trainer, args.p)
+     trainer_class) = config
     trainer = trainer_class(plans_file, fold, output_folder=output_folder,
                             dataset_directory=dataset_directory, batch_dice=batch_dice,
                             stage=stage, unpack_data=not args.use_compressed_data,
                             deterministic=args.deterministic, fp16=not args.fp32,
-                            device=args.device)
+                            device=device)
     trainer.initialize(not args.validation_only)
     if args.pretrained_weights is not None and not args.continue_training:
         pretrained = checkpoint_state_dict(args.pretrained_weights, trainer.plans,

@@ -17,6 +17,11 @@ the hand-written kernels on a CUDA device (the fused conv -> norm route under
 MTTPU_FUSED_NORM=1), their plain versions on the CPU; the sliding window
 runs in its default (non-exact) mode unless MTTPU_SW_EXACT=1, as the JAX
 package validates.
+
+Over several ranks each rank predicts and exports
+`sorted(dataset_val)[rank::world_size]` (nnUNetTrainerV2_DDP.py:495); after
+a barrier rank 0 alone evaluates, writes the summaries and determines the
+postprocessing, so the folder holds what one process writes.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from multitalent_tpu_torch.inference.predict import _export_on_device, _export_o
 from multitalent_tpu_torch.inference.segmentation_export import (
     save_segmentation_nifti_from_softmax)
 from multitalent_tpu_torch.ops.device_export import can_export_on_device
+from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.postprocessing.connected_components import determine_postprocessing
 from multitalent_tpu_torch.tasks.multitalent import (REGION_OUTPUT_IDX, REGIONS,
                                                      REGIONS_CLASS_ORDER, TASK_IDS,
@@ -40,13 +46,13 @@ from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_j
 
 
 def _validation_cases(trainer):
-    """(case id, data (C, Z, Y, X), properties) of every validation case, in
-    order. A trainer initialised without its generators (-val) splits its
-    dataset here, as the reference's validate does."""
+    """(case id, data (C, Z, Y, X), properties) of every validation case of
+    this rank, in order. A trainer initialised without its generators (-val)
+    splits its dataset here, as the reference's validate does."""
     if getattr(trainer, "dataset_val", None) is None:
         trainer.load_dataset()
         trainer.do_split()
-    for k in sorted(trainer.dataset_val):
+    for k in sorted(trainer.dataset_val)[distributed.rank()::distributed.world_size()]:
         data = np.array(load_case(trainer.dataset_val[k], "r"))[:-1]
         yield k, data, load_pickle(trainer.dataset_val[k]["properties_file"])
 
@@ -75,12 +81,13 @@ def run_validation(trainer, do_mirroring: bool = True, use_sliding_window: bool 
     assert trainer.was_initialized, "must initialize trainer before validate()"
     output_folder = maybe_mkdir(os.path.join(trainer.output_folder,
                                              validation_folder_name))
-    save_json({
-        "do_mirroring": do_mirroring, "use_sliding_window": use_sliding_window,
-        "step_size": step_size, "save_softmax": save_softmax,
-        "use_gaussian": use_gaussian, "overwrite": overwrite,
-        "validation_folder_name": validation_folder_name,
-    }, os.path.join(output_folder, "validation_args.json"))
+    if distributed.is_main():
+        save_json({
+            "do_mirroring": do_mirroring, "use_sliding_window": use_sliding_window,
+            "step_size": step_size, "save_softmax": save_softmax,
+            "use_gaussian": use_gaussian, "overwrite": overwrite,
+            "validation_folder_name": validation_folder_name,
+        }, os.path.join(output_folder, "validation_args.json"))
     ek = segmentation_export_kwargs or {}
     order = int(ek.get("interpolation_order", 1))
     force_sep_z = ek.get("force_separate_z", None)
@@ -105,10 +112,11 @@ def run_validation(trainer, do_mirroring: bool = True, use_sliding_window: bool 
         for f in futures:
             f.result()
     trainer.validation_seconds = time.perf_counter() - t_start
+    distributed.barrier()  # every rank's cases are written
 
     gt_folder = os.path.join(trainer.dataset_directory, "gt_segmentations")
     summary = None
-    if os.path.isdir(gt_folder):
+    if distributed.is_main() and os.path.isdir(gt_folder):
         pred_files = subfiles(output_folder, suffix=".nii.gz", join=False)
         pairs = [(os.path.join(output_folder, f), os.path.join(gt_folder, f))
                  for f in pred_files if os.path.isfile(os.path.join(gt_folder, f))]
@@ -170,10 +178,11 @@ def run_multitalent_validation(trainer, do_mirroring: bool = True,
         for f in futures:
             f.result()
     trainer.validation_seconds = time.perf_counter() - t_start
+    distributed.barrier()  # every rank's cases are written
 
     gt_folder = os.path.join(trainer.dataset_directory, "gt_segmentations")
     results = {}
-    if os.path.isdir(gt_folder):
+    if distributed.is_main() and os.path.isdir(gt_folder):
         by_task: dict[str, list[str]] = {}
         for k in sorted(trainer.dataset_val):
             by_task.setdefault(_task_of(k), []).append(k)

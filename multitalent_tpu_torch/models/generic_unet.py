@@ -97,6 +97,11 @@ class GenericUNet(nn.Module):
         return [[b for stack in loc for b in stack.blocks]
                 for loc in self.conv_blocks_localization]
 
+    def deep_supervision_heads(self) -> nn.ModuleList:
+        """The segmentation heads, lowest resolution first (the forward lists
+        its deep-supervision outputs highest resolution first)."""
+        return self.seg_outputs
+
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each hand-written kernel that one forward makes."""
         return kernel_launches_per_forward(self)

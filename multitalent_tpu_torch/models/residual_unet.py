@@ -155,6 +155,11 @@ class ResidualEncoderUNet(nn.Module):
         self.decoder = _container(tus=nn.ModuleList(tus), stages=nn.ModuleList(stages),
                                   deep_supervision_outputs=nn.ModuleList(heads))
 
+    def deep_supervision_heads(self) -> nn.ModuleList:
+        """The segmentation heads, lowest resolution first (the forward lists
+        its deep-supervision outputs highest resolution first)."""
+        return self.decoder.deep_supervision_outputs
+
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """Launches of each hand-written kernel that one forward makes."""
         return kernel_launches_per_forward(self)

@@ -9,6 +9,15 @@ Conventions: logits (B, C, *S) fp32 (the networks' outputs; the loss is
 computed in fp32 whatever the model dtype); label maps (B, *S), integer
 valued (floats from the augmentation are cast); reductions over the global
 batch, so batch Dice pools its statistics over every sample of the batch.
+
+Under data parallelism each rank holds a share of the global batch and
+passes its process `group`: every sum over samples (the BCE and CE sums,
+batch-Dice statistics, per-sample Dice, voxel and sample counts) is pooled
+over the ranks with `parallel.distributed.global_sum` before it is used, so
+every rank's loss is the global batch's and its gradient that rank's share
+of the global gradient (the counterpart of `axis_name`, JAX losses.py:
+141,177-183). Not the reference's DDP loss, `ce_local - dice(global)`
+averaged over the ranks, which weights the BCE 1/N against the Dice.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multitalent_tpu_torch.parallel.distributed import global_sum
 from multitalent_tpu_torch.tasks.multitalent import NUM_GLOBAL_LABELS, REGION_OUTPUT_IDX, REGIONS
 
 
@@ -52,7 +62,7 @@ def _spatial(x: torch.Tensor) -> tuple[int, ...]:
 
 def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
                      valid_region_mask: torch.Tensor, label_region_matrix: torch.Tensor,
-                     *, batch_dice: bool = True):
+                     *, batch_dice: bool = True, group=None):
     """Masked sigmoid BCE + Dice over the region channels.
 
     logits (B, R, *S); labels (B, *S) global labels 0..L (-1 counts as 0);
@@ -64,6 +74,7 @@ def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
     - dice_sum: the per-channel Dice (statistics pooled over the batch when
       `batch_dice`), summed over channels; a channel valid nowhere gives
       0 / eps = 0.
+    With a process `group` the sums run over every rank's samples.
     """
     logits = logits.float()
     b, r = logits.shape[:2]
@@ -83,13 +94,19 @@ def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
     fn = ((1 - probs) * gt * vb).sum(dim=axes)
     if batch_dice:
         tp, fp, fn = tp.sum(0), fp.sum(0), fn.sum(0)
+        if group is not None:
+            tp, fp, fn, ce = global_sum(torch.cat((tp, fp, fn, ce.view(1))),
+                                        group).split((r, r, r, 1))
+            ce = ce[0]
     dc = 2 * tp / (2 * tp + fp + fn).clamp(min=1e-7)
     dc_sum = dc.sum()
+    if group is not None and not batch_dice:
+        ce, dc_sum = global_sum(torch.stack((ce, dc_sum)), group)
     return ce - dc_sum, ce, dc_sum
 
 
 def multitalent_ds_loss(outputs, targets, valid_region_mask, label_region_matrix,
-                        weights, *, batch_dice: bool = True):
+                        weights, *, batch_dice: bool = True, group=None):
     """Deep-supervised MultiTalent loss: the weighted sums of (loss, ce, dice)
     over the levels; levels of weight 0 are skipped, not computed."""
     total = ce_total = dc_total = 0.0
@@ -97,7 +114,7 @@ def multitalent_ds_loss(outputs, targets, valid_region_mask, label_region_matrix
         if w == 0:
             continue
         loss, ce, dc = multitalent_loss(o, t, valid_region_mask, label_region_matrix,
-                                        batch_dice=batch_dice)
+                                        batch_dice=batch_dice, group=group)
         total = total + w * loss
         ce_total = ce_total + w * ce
         dc_total = dc_total + w * dc
@@ -105,8 +122,10 @@ def multitalent_ds_loss(outputs, targets, valid_region_mask, label_region_matrix
 
 
 def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bool = False,
-                   do_bg: bool = True, smooth: float = 1e-5) -> torch.Tensor:
-    """Negative mean soft Dice of the softmax probabilities (SoftDiceLoss)."""
+                   do_bg: bool = True, smooth: float = 1e-5, group=None) -> torch.Tensor:
+    """Negative mean soft Dice of the softmax probabilities (SoftDiceLoss);
+    with a process `group`, over every rank's samples (batch Dice: pooled
+    statistics; else the mean over all samples)."""
     probs = torch.softmax(logits.float(), dim=1)
     y = F.one_hot(labels.long().clamp(min=0), probs.shape[1]).movedim(-1, 1).float()
     axes = _spatial(probs)
@@ -115,19 +134,33 @@ def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bo
     tp = (probs * y).sum(dim=axes)
     fp = (probs * (1 - y)).sum(dim=axes)
     fn = ((1 - probs) * y).sum(dim=axes)
+    if group is not None and batch_dice:
+        tp, fp, fn = global_sum(torch.stack((tp, fp, fn)), group)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8)
     if not do_bg:
         dc = dc[1:] if batch_dice else dc[:, 1:]
+    if group is not None and not batch_dice:
+        total, count = global_sum(torch.stack((dc.sum(), dc.new_tensor(dc.numel()))), group)
+        return -total / count
     return -dc.mean()
 
 
 def dc_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bool = False,
                    weight_ce: float = 1.0, weight_dice: float = 1.0,
-                   smooth: float = 1e-5) -> torch.Tensor:
+                   smooth: float = 1e-5, group=None) -> torch.Tensor:
     """DC_and_CE_loss (aggregate 'sum'): softmax CE + (-Dice without the
-    background channel)."""
-    ce = F.cross_entropy(logits.float(), labels.long().clamp(min=0))
-    dc = soft_dice_loss(logits, labels, batch_dice=batch_dice, do_bg=False, smooth=smooth)
+    background channel); with a process `group` the CE is the mean over every
+    rank's voxels."""
+    target = labels.long().clamp(min=0)
+    if group is None:
+        ce = F.cross_entropy(logits.float(), target)
+    else:
+        total = F.cross_entropy(logits.float(), target, reduction="sum")
+        total, count = global_sum(torch.stack((total, total.new_tensor(target.numel()))),
+                                  group)
+        ce = total / count
+    dc = soft_dice_loss(logits, labels, batch_dice=batch_dice, do_bg=False, smooth=smooth,
+                        group=group)
     return weight_ce * ce + weight_dice * dc
 
 

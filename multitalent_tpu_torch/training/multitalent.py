@@ -1,4 +1,4 @@
-"""The MultiTalent flagship trainers on one GPU.
+"""The MultiTalent flagship trainers, on one GPU or data-parallel over several.
 
 Counterpart of multitalent_tpu/training/multitalent.py:40-242: 47 sigmoid
 region heads; order_seg 0 (nearest seg warping, so no label is invented);
@@ -7,6 +7,11 @@ dataset-balanced sampling p(case) ~ 1/sqrt(cases of its dataset); the masked
 multi-head BCE + batch-Dice loss over the regions each sample's dataset
 annotates; region-wise online evaluation; ce / dice logged apart. The
 resenc trainers (:244-272) run the same over the residual-encoder UNet.
+
+Over several ranks (training/trainers.py) every rank samples with the same
+dataset probabilities, the loss pools BCE and batch-Dice statistics over the
+ranks, and the online evaluation sums tp/fp/fn over them: the loss, its
+gradient and the region-wise Dice are the global batch's.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from multitalent_tpu_torch import paths
+from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.tasks.multitalent import (NUM_REGIONS, build_custom_splits,
                                                      inverse_sqrt_sampling_probabilities,
                                                      valid_region_mask)
@@ -61,7 +67,7 @@ class MultiTalentTrainer(TrainerV2):
             tr_keys = val_keys = list(self.dataset.keys())
         else:
             splits_file = os.path.join(self.dataset_directory, "splits_custom.pkl")
-            if not os.path.isfile(splits_file):
+            if distributed.is_main() and not os.path.isfile(splits_file):
                 self.print_to_log_file("Creating splits_custom.pkl (12 folds)...")
                 keys = list(self.dataset.keys())
                 per_task = {}
@@ -73,6 +79,7 @@ class MultiTalentTrainer(TrainerV2):
                         paths.preprocessing_output_dir(), convert_id_to_task_name(task_id),
                         "splits_final.pkl"))
                 save_pickle(build_custom_splits(keys, per_task), splits_file)
+            distributed.barrier()
             splits = load_pickle(splits_file)
             tr_keys, val_keys = splits[self.fold]["train"], splits[self.fold]["val"]
         for name, keys in (("dataset_tr", tr_keys), ("dataset_val", val_keys)):
@@ -114,7 +121,7 @@ class MultiTalentTrainer(TrainerV2):
         weights = [float(w) for w in self.ds_loss_weights]
         loss, ce, dc = multitalent_ds_loss(outputs, targets, extras["valid_region_mask"],
                                            self._label_region_matrix, weights,
-                                           batch_dice=True)
+                                           batch_dice=True, group=self.process_group)
         return loss, {"ce": ce.detach(), "dice": dc.detach()}
 
     def on_iteration_metrics(self, aux: dict, was_train: bool) -> None:

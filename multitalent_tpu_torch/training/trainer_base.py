@@ -16,6 +16,11 @@ and `save_checkpoint` and `load_checkpoint` are the subclass's
 package's flax `.ckpt` files are read by inference/model_restore.py and, as
 pretrained weights, by training/warmup.py). AMP GradScaler state is absent
 (bf16 needs no loss scaling).
+
+Under data parallelism (parallel/distributed.py) every rank runs this loop;
+rank 0 alone writes the log, progress.png, debug.json and checkpoints, and
+the decision to stop, which each rank takes from the same all-reduced losses
+and metrics, is checked to agree across the ranks each epoch.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Any
 
 import numpy as np
 
+from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.utils.fileops import maybe_mkdir as maybe_mkdir_p
 
 
@@ -84,6 +90,8 @@ class NetworkTrainerBase(ABC):
     # ------------------------------------------------------------------ logging
     def print_to_log_file(self, *args, also_print_to_console: bool = True,
                           add_timestamp: bool = True) -> None:
+        if not distributed.is_main():
+            return
         if self.log_nothing:
             if also_print_to_console:
                 print(*args)
@@ -118,6 +126,8 @@ class NetworkTrainerBase(ABC):
     # ------------------------------------------------------------- progress plot
     def plot_progress(self) -> None:
         """progress.png with losses + eval metric (network_trainer.py:185-220)."""
+        if not distributed.is_main():
+            return
         try:
             import matplotlib
             matplotlib.use("agg")
@@ -301,6 +311,8 @@ class NetworkTrainerBase(ABC):
         """debug.json dump of all scalar trainer attributes
         (nnUNetTrainer.py:297-313)."""
         from multitalent_tpu_torch.utils.fileops import save_json
+        if not distributed.is_main():
+            return
         dct = {}
         for k in sorted(self.__dict__.keys()):
             if k.startswith("__") or k in ("plans", "state", "network",
@@ -410,7 +422,7 @@ class NetworkTrainerBase(ABC):
                 self.all_val_losses_tr_mode.append(float(np.mean(losses)))
 
             self.update_train_loss_MA()
-            continue_training = self.on_epoch_end()
+            continue_training = distributed.agree(self.on_epoch_end())
             epoch_end_time = time.time()
 
             self.epoch += 1
@@ -428,7 +440,7 @@ class NetworkTrainerBase(ABC):
         # clean up latest (network_trainer.py:509-513)
         for name in ("model_latest.model", "model_latest.model.pkl"):
             p = os.path.join(self.output_folder, name)
-            if os.path.isfile(p):
+            if distributed.is_main() and os.path.isfile(p):
                 os.remove(p)
 
         if hasattr(self, "tr_gen") and hasattr(self.tr_gen, "stop"):

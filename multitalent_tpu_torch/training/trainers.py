@@ -1,4 +1,4 @@
-"""The plans-driven trainer (nnUNetTrainerV2) on one GPU.
+"""The plans-driven trainer (nnUNetTrainerV2) on one GPU or data-parallel over several.
 
 Counterpart of multitalent_tpu/training/trainers.py:TrainerV2. It subclasses
 `NetworkTrainerBase` (training/trainer_base.py, the port's copy of the JAX
@@ -23,8 +23,20 @@ and replaces the flax parts:
   sliding window on the trainer's device, the network in eval mode under
   no_grad without deep supervision.
 
-The JAX trainer's mesh plumbing has no counterpart: this trainer runs on one
-device (data parallelism is ROADMAP queue 1, item 9).
+Data parallelism (parallel/distributed.py; the counterpart of the JAX
+trainer's mesh, trainers.py:274-340): when a process group is up, each rank
+draws its share of the plans' global batch (`distribute_batch_size`, the
+foreground-forced tail split with it) from samplers and an augmentation
+stream seeded by rank, the losses pool their sums over the ranks, and the
+training forward runs under DistributedDataParallel with the gradients
+summed: every rank takes the update of one device with the global batch.
+The heads of deep-supervision weight 0 are left out of the reducer (they get
+no gradient, as in one process). Rank 0 alone writes the log, checkpoints,
+plans and splits. Without a group nothing of this runs.
+
+The benchmarking trainers (nnUNetTrainerV2_2epochs, _5epochs,
+_5epochs_dummyLoad; multitalent_tpu/training/trainers.py:545-600) close the
+module.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
 from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
@@ -55,6 +68,13 @@ from multitalent_tpu_torch.training.schedules import make_poly_schedule, poly_lr
 from multitalent_tpu_torch.training.train_state import SGDClipped
 from multitalent_tpu_torch.training.trainer_base import NetworkTrainerBase
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle
+
+
+# a rank's samplers and augmentation stream take the one-process seeds plus
+# this times the rank, so the ranks draw different patches (the reference
+# seeds by rank, nnUNetTrainerV2_DDP.py:60-63); rank 0 keeps the one-process
+# seeds
+RANK_SEED_STRIDE = 10_000
 
 
 def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
@@ -92,6 +112,10 @@ class TrainerV2(NetworkTrainerBase):
         self.unpack_data = unpack_data
         self.seed = seed
         self.device = torch.device(device)
+        # the process group of data-parallel training (None: one process)
+        self.process_group = distributed.group()
+        self.rank, self.world_size = distributed.rank(), distributed.world_size()
+        self.ddp = None  # the training forward under DistributedDataParallel
 
         self.initial_lr = 1e-2
         self.weight_decay = 3e-5
@@ -105,6 +129,8 @@ class TrainerV2(NetworkTrainerBase):
         self.data_aug_params: dict | None = None
         self.network: torch.nn.Module | None = None  # GenericUNet or ResidualEncoderUNet
         self.network_forward = None  # make_train_forward(network), with the step functions
+        self.local_batch_size: int | None = None  # this rank's share of batch_size
+        self.local_oversample: float | None = None
         self.optimizer: SGDClipped | None = None
         self.step = 0             # optimizer steps taken
         self.step_seconds: list[float] = []  # wall time of each training step
@@ -170,9 +196,10 @@ class TrainerV2(NetworkTrainerBase):
             tr_keys = val_keys = list(self.dataset.keys())
         else:
             splits_file = os.path.join(self.dataset_directory, "splits_final.pkl")
-            if not os.path.isfile(splits_file):
+            if distributed.is_main() and not os.path.isfile(splits_file):
                 self.print_to_log_file("Creating new 5-fold cross-validation split...")
                 save_pickle(kfold_split(list(self.dataset.keys())), splits_file)
+            distributed.barrier()
             splits = load_pickle(splits_file)
             if self.fold < len(splits):
                 tr_keys = splits[self.fold]["train"]
@@ -196,10 +223,12 @@ class TrainerV2(NetworkTrainerBase):
         self.dataset = load_dataset(self.folder_with_preprocessed_data)
 
     def _sampler(self, dataset: dict, patch_size, seed: int, probabilities=None):
-        return PatchSampler3D(dataset, patch_size, self.patch_size, self.batch_size,
-                              oversample_foreground_percent=self.oversample_foreground_percent,
+        """This rank's sampler: its share of the global batch and of the
+        foreground-forced tail, its own stream (`seed` offset by rank)."""
+        return PatchSampler3D(dataset, patch_size, self.patch_size, self.local_batch_size,
+                              oversample_foreground_percent=self.local_oversample,
                               pad_mode="constant", sampling_probabilities=probabilities,
-                              seed=seed)
+                              seed=seed + RANK_SEED_STRIDE * self.rank)
 
     def get_basic_generators(self):
         """Sampler factories for the training and validation pipelines
@@ -236,10 +265,12 @@ class TrainerV2(NetworkTrainerBase):
 
     # ------------------------------------------------------------ loss plumbing
     def loss_fn(self, outputs, targets, extras: dict):
-        """Deep-supervised DC+CE; returns (loss, aux metrics)."""
+        """Deep-supervised DC+CE over the global batch; returns (loss, aux
+        metrics)."""
         weights = [float(w) for w in self.ds_loss_weights]
         loss = deep_supervision_loss(outputs, targets,
-                                     partial(dc_and_ce_loss, batch_dice=self.batch_dice),
+                                     partial(dc_and_ce_loss, batch_dice=self.batch_dice,
+                                             group=self.process_group),
                                      weights)
         return loss, {}
 
@@ -265,8 +296,27 @@ class TrainerV2(NetworkTrainerBase):
         self._val_transform = make_val_transform_fn(
             self.patch_size, self.deep_supervision_scales, self.data_aug_params,
             self.num_input_channels)
-        self._aug_generator = torch.Generator(self.device).manual_seed(self.seed + 777)
+        self._aug_generator = torch.Generator(self.device).manual_seed(
+            self.seed + 777 + RANK_SEED_STRIDE * self.rank)
         self.network_forward = make_train_forward(self.network)
+        self._wrap_for_ranks()
+
+    def _wrap_for_ranks(self) -> None:
+        """The training forward under DDP when a process group is up. Built
+        anew whenever the set of trained parameters changes (DDP registers
+        those with requires_grad when it is built)."""
+        if self.process_group is None:
+            return
+        self.ddp = distributed.wrap(self.network, self.network_forward, self.device,
+                                    ignore=self._unused_parameters())
+
+    def _unused_parameters(self) -> set[int]:
+        """Ids of the parameters no loss reaches: the heads of the
+        deep-supervision levels of weight 0 (the outputs are listed highest
+        resolution first, the heads lowest first)."""
+        heads = self.network.deep_supervision_heads()
+        return {id(p) for i, w in enumerate(self.ds_loss_weights) if w == 0
+                for p in heads[len(heads) - 1 - i].parameters()}
 
     def _to_device(self, array) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(array))
@@ -286,17 +336,25 @@ class TrainerV2(NetworkTrainerBase):
         if self.plans is None or force_load_plans:
             self.load_plans_file()
         self.process_plans(self.plans)
+        self.local_batch_size, self.local_oversample = distributed.rank_batch(
+            self.batch_size, self.oversample_foreground_percent, self.rank, self.world_size)
+        if self.process_group is not None:
+            self.print_to_log_file(
+                f"data-parallel over {self.world_size} ranks ({distributed.backend()}): "
+                f"global batch {self.batch_size}, local batch {self.local_batch_size} on rank "
+                f"{self.rank}, foreground-oversample {self.local_oversample:.3f}")
         self.setup_DA_params()
         self.ds_loss_weights = ds_loss_weights(len(self.deep_supervision_scales),
                                                mask_lowest=True)
-        if self.output_folder_base is not None:
+        if self.output_folder_base is not None and distributed.is_main():
             save_plans(self.plans, os.path.join(maybe_mkdir(self.output_folder_base),
                                                 "plans.pkl"))
         if training and self.dataset_directory is not None:
             tr_factory, val_factory = self.get_basic_generators()
-            if self.unpack_data:
+            if self.unpack_data and distributed.is_main():
                 self.print_to_log_file("unpacking dataset")
                 unpack_dataset(self.folder_with_preprocessed_data)
+            distributed.barrier()
             num_threads = int(self.data_aug_params.get("num_threads", 3))
             self.tr_gen = PrefetchPipeline(tr_factory, num_workers=num_threads)
             self.val_gen = PrefetchPipeline(val_factory, num_workers=1)
@@ -319,7 +377,8 @@ class TrainerV2(NetworkTrainerBase):
         extras = {k: self._to_device(v) for k, v in self.batch_extras(batch).items()}
         if do_backprop:
             data, targets = self._augment(data, seg, self._aug_generator)
-            outputs = self.network_forward(data, deep_supervision=True)
+            forward = self.network_forward if self.ddp is None else self.ddp
+            outputs = forward(data, deep_supervision=True)
             loss, aux = self.loss_fn(outputs, targets, extras)
             self.optimizer.zero_grad()
             loss.backward()
@@ -343,7 +402,8 @@ class TrainerV2(NetworkTrainerBase):
 
     # --------------------------------------------------------------- online eval
     def run_online_evaluation(self, stats) -> None:
-        tp, fp, fn = (s.cpu().numpy() for s in stats)
+        """Appends the batch's tp/fp/fn, summed over the ranks."""
+        tp, fp, fn = distributed.all_reduce_sum(torch.stack(stats)).cpu().numpy()
         self.online_eval_tp.append(tp)
         self.online_eval_fp.append(fp)
         self.online_eval_fn.append(fn)
@@ -379,7 +439,11 @@ class TrainerV2(NetworkTrainerBase):
 
     # --------------------------------------------------------------- checkpoints
     def save_checkpoint(self, fname: str, save_optimizer: bool = True) -> None:
-        """`<name>.model` + `<name>.model.pkl` in the reference layout."""
+        """`<name>.model` + `<name>.model.pkl` in the reference layout, the
+        network's own keys (no `module.`); rank 0 writes, every rank holds
+        the same weights."""
+        if not distributed.is_main():
+            return
         start = time.time()
         maybe_mkdir(os.path.dirname(fname) or ".")
         meta = self.checkpoint_metadata()
@@ -503,3 +567,65 @@ class TrainerV2ResencUNet(ResencUNetMixin, TrainerV2):
     """nnUNetTrainerV2_ResencUNet; its _SimonsInit(_20fold) variants zero the
     residual blocks' last norm scale, which init_weights_he always does, so
     they resolve to this trainer as in the JAX package."""
+
+
+# ----------------------------------------------------------- benchmark trainers
+class TrainerV2_2epochs(TrainerV2):
+    """Benchmarking trainer: 2 epochs, no validation inference, no checkpoints
+    (nnUNet_variants/benchmarking/nnUNetTrainerV2_2epochs.py:27-77)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.max_num_epochs = 2
+        self.save_final_checkpoint = False
+        self.save_best_checkpoint = False
+        self.save_intermediate_checkpoints = False
+
+    def validate(self, *args, **kwargs):
+        pass
+
+
+class TrainerV2_5epochs(TrainerV2_2epochs):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.max_num_epochs = 5
+
+
+class _DummyBatchGen:
+    """Random-tensor generator isolating device throughput from host I/O
+    (benchmarking/nnUNetTrainerV2_dummyLoad.py:26-84)."""
+
+    def __init__(self, data_shape, seg_shape, num_classes, seed=0):
+        rng = np.random.RandomState(seed)
+        self.batch = {
+            "data": rng.randn(*data_shape).astype(np.float32),
+            "seg": rng.randint(0, num_classes, seg_shape).astype(np.float32),
+            "properties": [{} for _ in range(data_shape[0])],
+            "keys": ["dummy"] * data_shape[0],
+        }
+
+    def __next__(self):
+        return self.batch
+
+    def __iter__(self):
+        return self
+
+
+class TrainerV2_dummyLoad(TrainerV2_5epochs):
+    """nnUNetTrainerV2_5epochs_dummyLoad: one fixed random batch in place of
+    the samplers (this rank's share of the global batch; ranks past 0 draw
+    other batches)."""
+
+    def initialize(self, training: bool = True, force_load_plans: bool = False) -> None:
+        saved = self.dataset_directory
+        self.dataset_directory = None  # skip real generators
+        super().initialize(training, force_load_plans)
+        self.dataset_directory = saved
+        if training:
+            b, seed = self.local_batch_size, 2 * self.rank
+            data_shape = (b, self.num_input_channels, *self.basic_generator_patch_size)
+            seg_shape = (b, 1, *self.basic_generator_patch_size)
+            self.tr_gen = _DummyBatchGen(data_shape, seg_shape, self.num_classes, seed=seed)
+            val_shape = (b, self.num_input_channels, *self.patch_size)
+            val_seg = (b, 1, *self.patch_size)
+            self.val_gen = _DummyBatchGen(val_shape, val_seg, self.num_classes, seed=seed + 1)

@@ -1,4 +1,4 @@
-"""Fine-tuning: pretrained weights and the warm-up trainers on one GPU.
+"""Fine-tuning: pretrained weights and the warm-up trainers, on one GPU or several.
 
 Counterpart of multitalent_tpu/training/warmup.py
 (nnUNet_variants/pretraining/nnUNetTrainerV2_warmup.py:38-198,
@@ -16,6 +16,8 @@ run/load_pretrained_weights.py:17-61):
   has `requires_grad=False`, so autograd runs no backward through it (no
   kernel A dx, no kernel C): the backbone stays bit-equal. Its checkpoints
   carry the phase, and a resumed run restores the optimizer of that phase.
+  Over several ranks the DDP wrapper is built anew at the switch (and on
+  resuming into phase 2): one built in phase 1 registered the heads alone.
 
 `TrainerV2WarmupSegHeadsResenc` (nnUNetTrainerV2_warmupsegheads_resenc) runs
 the head warm-up over the residual-encoder UNet. The SwinUNETR variant needs
@@ -101,6 +103,7 @@ class TrainerV2WarmupSegHeads(TrainerV2WarmupLR):
         (nnUNetTrainerV2_warmup.py:111-117)."""
         self.optimizer_phase = 2
         self.optimizer, self.lr_schedule = self.initialize_optimizer()
+        self._wrap_for_ranks()
         self.print_to_log_file("head warmup done: switched to SGD on all parameters")
 
     def on_epoch_end(self) -> bool:

@@ -1,0 +1,87 @@
+"""Rank workers of the data-parallel tests (tests/test_torch_port_ddp*.py).
+
+`parallel.distributed.spawn` starts each in its own process (gloo on the
+CPU). They import torch and the port only, never jax: each rank trains the
+port's trainer on its rows of the same global host batches and saves what it
+saw, for the test process to hold against the JAX package's single-device
+trainer. No tests here.
+"""
+import os
+
+import torch
+
+from multitalent_tpu_torch.parallel import distributed
+from multitalent_tpu_torch.plans import Plans
+from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
+from multitalent_tpu_torch.training.trainers import TrainerV2
+from multitalent_tpu_torch.training.warmup import TrainerV2WarmupSegHeads
+
+TRAINERS = {c.__name__: c for c in (MultiTalentTrainer, TrainerV2, TrainerV2WarmupSegHeads)}
+
+
+def rows(batch: dict, rank: int, world: int) -> dict:
+    """A rank's share of a global host batch: its rows under
+    distribute_batch_size's split, in order."""
+    sizes, _ = distributed.distribute_batch_size(len(batch["keys"]), world)
+    lo = sum(sizes[:rank])
+    return {k: v[lo:lo + sizes[rank]] for k, v in batch.items()}
+
+
+def make_trainer(run: dict, device: str = "cpu"):
+    """The run's trainer, initialised without a dataset, augmentation as the
+    run says, from the run's weights."""
+    t = TRAINERS[run["trainer"]](Plans.from_dict(run["plans"]), 0, run["output_folder"],
+                                 None, batch_dice=run.get("batch_dice", True), fp16=False,
+                                 device=device)
+    t.initialize(True)
+    t.data_aug_params.update(run["aug"])
+    t._build_step_functions()
+    t.network.load_state_dict(run["weights"])
+    return t
+
+
+def snapshot(t) -> dict:
+    return {k: v.detach().clone() for k, v in t.network.state_dict().items()}
+
+
+def train(run: dict) -> dict:
+    """Train `run` on this rank: its rows of each global batch, the warm-up's
+    phase switch before batch `switch_at`, then one validation batch with the
+    online evaluation."""
+    rank, world = distributed.rank(), distributed.world_size()
+    t = make_trainer(run)
+    losses, phase1 = [], None
+    for i, batch in enumerate(run["batches"]):
+        if i == run.get("switch_at"):
+            phase1 = snapshot(t)
+            t._switch_to_phase2()
+        losses.append(t.run_iteration(iter([rows(batch, rank, world)])))
+    out = {"losses": losses, "weights": snapshot(t), "phase1": phase1,
+           "local_batch": t.local_batch_size, "wrapped": t.ddp is not None}
+    if run.get("val_batch") is not None:
+        out["val_loss"] = t.run_iteration(iter([rows(run["val_batch"], rank, world)]),
+                                          False, True)
+        t.finish_online_evaluation()
+        out["online_dice"] = t.all_val_eval_metrics[-1]
+    return out
+
+
+def train_runs(spec_file: str, out_prefix: str) -> None:
+    """Every run of the spec on this rank; saves {name: result} to
+    `<out_prefix>.<rank>.pt`."""
+    torch.set_num_threads(1)
+    distributed.init_process_group("cpu")
+    try:
+        spec = torch.load(spec_file, weights_only=False)
+        results = {name: train(run) for name, run in spec.items()}
+        torch.save(results, f"{out_prefix}.{distributed.rank()}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(spec: dict, folder, world: int = 2) -> list[dict]:
+    """Spawn `world` gloo ranks over `spec`; each rank's results."""
+    spec_file, prefix = os.path.join(folder, "spec.pt"), os.path.join(folder, "ranks")
+    torch.save(spec, spec_file)
+    distributed.spawn(train_runs, world, (spec_file, prefix))
+    return [torch.load(f"{prefix}.{r}.pt", weights_only=False) for r in range(world)]

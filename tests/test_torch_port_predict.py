@@ -266,7 +266,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'multitalent_tpu_torch.ops.device_export', 'multitalent_tpu_torch.ops.sliding_window',\n"
         "       'multitalent_tpu_torch.inference.predict',\n"
         "       'multitalent_tpu_torch.models.residual_unet', 'multitalent_tpu_torch.io.from_jax',\n"
-        "       'multitalent_tpu_torch.io.torch_convert']\n"
+        "       'multitalent_tpu_torch.io.torch_convert',\n"
+        "       'multitalent_tpu_torch.parallel.distributed']\n"
         "missing = [m for m in own if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "# a JAX sidecar's pickled plans (protocol 2 names the class in text)\n"

@@ -187,7 +187,8 @@ def test_train_cli_fine_tunes_from_pretrained_weights(task, monkeypatch, kind, f
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["-gpus", "2"], "ROADMAP queue 1, item 9"),
+    # the task's batch of 2 over 3 ranks leaves one rank without a sample
+    (["-gpus", "3"], "ROADMAP queue 1, item 14"),
 ])
 def test_train_cli_refuses_what_is_not_ported(task, argv, match):
     with pytest.raises(NotImplementedError, match=match):
