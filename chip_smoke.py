@@ -130,6 +130,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    each rank; 9c 9b under MTTPU_FUSED_TRAIN=1 (D, A, C) for
    FUSED_DDP_STEPS steps; 9b again over NCCL, one card a rank, where two
    cards are visible (else a line says it is skipped);
+10. both workflows from raw NIfTIs, unfused, in the sliding window's
+   default mode, at the widths the port's planners choose: one seeded raw
+   set of two nnU-Net tasks (Task003_Liver, Task009_Spleen; RAW_CASES
+   CT-like phantoms each at spacings that vary case by case, a zero border
+   outside the field of view, one held-out Liver case). 10a:
+   `cli.plan_and_preprocess -t 3 --verify_dataset_integrity` (the v21
+   planner must plan the Task003 Liver network: base 32, 5 pools an axis,
+   128^3), `cli.train 3d_fullres TrainerV2` for RAW_TRAIN_STEPS steps and
+   fold 0's validation, `cli.consolidate_postprocessing -f 0`,
+   `cli.find_best_configuration -m 3d_fullres -f 0`, `cli.predict` with the
+   chosen configuration on the held-out case. 10b: `tasks.convert_task100`,
+   `cli.plan_and_preprocess -t 100` with the MultiTalent planner,
+   `--addregions-only`, `cli.train 3d_fullres MultiTalent_trainer_ddp -p
+   MultiTalent_bs4` at the plans' batch of 4 with its validation,
+   `cli.predict_multitalent` on the held-out case. Each prints what the
+   planner chose, its host seconds by step (write, verify, convert, crop,
+   analyze, plan, preprocess, stamp, train steps, validation, selection,
+   predict), seconds per step and peak memory; a missing file that the next
+   step reads, a non-finite loss, A/B/C counts off the trainer's per-step
+   and per-forward counts, or a prediction off its raw case's shape or
+   geometry fails the phase;
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -140,7 +161,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    forward (phase 4b); A, B, D, E and F also their Liver shapes and phase
    3c's launches; A, B and C the resenc's launches of phase 8 and their
    sums over one resenc forward (8c) and step (8a); A, B and C also 9a's
-   launches, `launches_ddp`), then the result line.
+   launches, `launches_ddp`, and phase 10's, `launches_raw_generic(_predict)`
+   and `launches_raw_multitalent(_predict)`), then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -326,6 +348,28 @@ DDP_NO_AUG = {"p_rot": 0.0, "p_scale": 0.0, "p_gaussian_noise": 0.0, "p_gaussian
 # valid regions dominates it)
 DDP_UPDATE_BOUND = 3e-2
 DDP_LOSS_RTOL = 1e-3
+
+# phases 10a/10b: both workflows from raw NIfTIs. One seeded raw set of two
+# nnU-Net tasks, Task003_Liver (liver + tumour) and Task009_Spleen, RAW_CASES
+# CT-like phantoms each (kfold_split's 5 folds) of one field of view in mm
+# at spacings that vary case by case (so resampling runs), with a zero
+# border outside the field of view (so cropping runs), and one held-out
+# Liver case under imagesTs. Sized so that the v21 planner plans the Task003
+# Liver network (base 32 to 320, 5 pools an axis, a 128^3 patch, one stage)
+# and the MultiTalent planner a 128^3 patch at its batch of 4
+RAW_EXTENT_MM = (192.0, 128.0, 128.0)  # z, y, x
+RAW_Z_SPACINGS = (1.0, 1.0, 1.2, 2.0, 2.5)
+RAW_XY_SPACINGS = (0.7, 0.75, 0.8, 0.85, 0.9)
+RAW_HELD_OUT_SPACING = (1.5, 0.8, 0.8)
+RAW_CASES = len(RAW_Z_SPACINGS)
+RAW_BORDER = 4  # voxels in-plane outside the field of view (0 in the image)
+RAW_TASKS = {"Task003_Liver": ("liver", {0: "background", 1: "liver", 2: "cancer"},
+                               ((1, (0.5, 0.35, 0.45)), (2, (0.12, 0.12, 0.12)))),
+             "Task009_Spleen": ("spleen", {0: "background", 1: "spleen"},
+                                ((1, (0.3, 0.2, 0.15)),))}
+RAW_LIVER_PLAN = {"base_num_features": 32, "num_pool_per_axis": [5, 5, 5],
+                  "patch_size": [128, 128, 128]}
+RAW_TRAIN_STEPS = 4  # training iterations of each workflow; the first 2 are warm-up
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -2529,6 +2573,354 @@ def phase_ddp_ranks(workdir: str, backend: str = "gloo") -> dict:
     return out
 
 
+def _raw_phantom(rng, shape, organs):
+    """A CT-like int16 volume (HU) of `shape` and its labels: air, a body and
+    per (label, radii) an ellipsoid organ near the centre (the later ones
+    inside the first, as a tumour in its liver), mild noise; 0 outside the
+    in-plane field of view."""
+    import numpy as np
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in shape],
+                          indexing="ij")
+    ct = np.full(shape, -1000.0, np.float32)
+    seg = np.zeros(shape, np.uint8)
+    ct[(z / 0.95) ** 2 + (y / 0.8) ** 2 + (x / 0.9) ** 2 < 1] = 40.0
+    c = rng.uniform(-0.1, 0.1, 3)
+    for label, radii in organs:
+        inside = sum(((a - ci) / r) ** 2 for a, ci, r in zip((z, y, x), c, radii)) < 1
+        ct[inside], seg[inside] = 60.0 + 40.0 * label, label
+    ct += rng.standard_normal(shape, dtype=np.float32) * 15
+    ct = ct.astype(np.int16)
+    b = RAW_BORDER
+    for region in ((slice(None), slice(None, b)), (slice(None), slice(-b, None)),
+                   (slice(None), slice(None), slice(None, b)),
+                   (slice(None), slice(None), slice(-b, None))):
+        ct[region], seg[region] = 0, 0
+    return ct, seg
+
+
+def _write_raw_tasks(raw_base: str) -> dict:
+    """RAW_TASKS as nnU-Net raw tasks (imagesTr, labelsTr, dataset.json from
+    utils/dataset_json.py) under raw_base/nnUNet_raw_data, and one held-out
+    Liver case under Task003's imagesTs. Returns {task: [case ids]} and the
+    held-out case's image path."""
+    import numpy as np
+    from multitalent_tpu_torch.io import Geometry, write_nifti
+    from multitalent_tpu_torch.utils.dataset_json import generate_dataset_json
+    rng = np.random.default_rng(SEED + 30)
+    cases, held_out = {}, None
+    for task, (prefix, labels, organs) in RAW_TASKS.items():
+        folder = os.path.join(raw_base, "nnUNet_raw_data", task)
+        spacings = [(z, xy, xy) for z, xy in zip(RAW_Z_SPACINGS, RAW_XY_SPACINGS)]
+        if task == "Task003_Liver":
+            spacings.append(RAW_HELD_OUT_SPACING)
+        cases[task] = []
+        for i, spacing in enumerate(spacings):
+            shape = tuple(int(round(e / s)) for e, s in zip(RAW_EXTENT_MM, spacing))
+            ct, seg = _raw_phantom(rng, shape, organs)
+            geometry = Geometry(spacing=spacing[::-1], origin=(-60.0, -70.0, 10.0 * i))
+            case = f"{prefix}_{i:03d}"
+            held = i == RAW_CASES
+            images = os.path.join(folder, "imagesTs" if held else "imagesTr")
+            os.makedirs(images, exist_ok=True)
+            os.makedirs(os.path.join(folder, "labelsTr"), exist_ok=True)
+            write_nifti(os.path.join(images, f"{case}_0000.nii.gz"), ct, geometry)
+            if held:
+                held_out = os.path.join(images, f"{case}_0000.nii.gz")
+            else:
+                write_nifti(os.path.join(folder, "labelsTr", f"{case}.nii.gz"), seg, geometry)
+                cases[task].append(case)
+        generate_dataset_json(os.path.join(folder, "dataset.json"),
+                              os.path.join(folder, "imagesTr"),
+                              os.path.join(folder, "imagesTs"), ("CT",), labels, task)
+    return cases, held_out
+
+
+def _need(*files: str) -> None:
+    """Fail where a file that the next step reads is missing."""
+    missing = [f for f in files if not os.path.isfile(f)]
+    if missing:
+        raise AssertionError(f"missing: {missing}")
+
+
+def _check_prediction(out_folder: str, image: str, regions=()) -> tuple:
+    """The labelmap predicted for a raw image (and its region masks) has the
+    raw case's shape and geometry; returns its labels and shape."""
+    import numpy as np
+    from multitalent_tpu_torch.io import read_nifti
+    case = os.path.basename(image)[:-len("_0000.nii.gz")]
+    ct, g = read_nifti(image)
+    files = [os.path.join(out_folder, f"{case}.nii.gz")] + [
+        os.path.join(out_folder, "individual", r, f"{case}.nii.gz") for r in regions]
+    _need(*files)
+    labels = None
+    for f in files:
+        seg, s = read_nifti(f)
+        if seg.shape != ct.shape or not all(np.allclose(getattr(s, k), getattr(g, k))
+                                            for k in ("spacing", "origin", "direction")):
+            raise AssertionError(f"{f}: {seg.shape} {vars(s)} vs the raw case's {ct.shape} "
+                                 f"{vars(g)}")
+        labels = labels if labels is not None else sorted(np.unique(seg).tolist())
+    return labels, ct.shape
+
+
+def _train_counted(args: list, steps: int):
+    """cli.train with every launch count set to 0 just before it: the
+    trainer, its launches and peak memory; the launches must equal the
+    trainer's per-step counts x the steps + per-forward counts x the
+    validation batches + per-forward counts x the validation's network
+    calls, with A, B and C each launched; the losses finite."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches = _run_counted(lambda: train_main(args))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    net = trainer.network
+    per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+    calls = sum(t["net_calls"] for t in trainer.validation_timings)
+    expect = {k: a + b + c for (k, a), b, c in zip(
+        _expect(per_step, trainer.step).items(),
+        _expect(per_fwd, trainer.num_val_batches_per_epoch).values(),
+        _expect(per_fwd, calls).values())}
+    if (trainer.step != steps or launches != expect
+            or any(launches[k] == 0 for k in ("conv3d_same", "conv3d_same_dual",
+                                              "conv3d_same_wgrad"))):
+        raise AssertionError(f"{args[1]}: {trainer.step} steps, launches {launches}, "
+                             f"expected {expect}")
+    losses = trainer.all_tr_losses + trainer.all_val_losses
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"{args[1]}: losses {losses}")
+    return trainer, launches, peak_gib, per_step, calls
+
+
+def _steps_s(trainer) -> float:
+    """Median seconds of the steps after the first two (warm-up)."""
+    return _median(trainer.step_seconds[2:])
+
+
+def _print_plan(label: str, plans_file: str) -> dict:
+    from multitalent_tpu_torch.plans import load_plans
+    plans = load_plans(plans_file)
+    stages = {k: {"patch_size": list(s.patch_size), "num_pool_per_axis": s.num_pool_per_axis,
+                  "batch_size": s.batch_size, "spacing": list(s.current_spacing),
+                  "median_shape": list(s.median_patient_size_in_voxels)}
+              for k, s in plans.plans_per_stage.items()}
+    print(f"{label} planned {plans.num_stages} stage(s), base {plans.base_num_features} "
+          f"features, data {plans.data_identifier}: "
+          + "; ".join(f"stage {k}: patch {v['patch_size']}, pools {v['num_pool_per_axis']}, "
+                      f"batch {v['batch_size']}, spacing {v['spacing']}, median shape "
+                      f"{v['median_shape']}" for k, v in stages.items()))
+    return {"num_stages": plans.num_stages, "base_num_features": plans.base_num_features,
+            "stages": stages}
+
+
+def phase_raw_generic(workdir: str) -> dict:
+    """10a, the generic workflow from raw NIfTIs: write the raw set;
+    `cli.plan_and_preprocess -t 3 --verify_dataset_integrity` (v21 planner);
+    `cli.train 3d_fullres TrainerV2 Task003_Liver 0` for RAW_TRAIN_STEPS
+    steps (splits_final.pkl made, fold 0 validated); `cli.consolidate_
+    postprocessing -f 0`; `cli.find_best_configuration -m 3d_fullres -f 0`;
+    `cli.predict` with the chosen configuration on the held-out raw case."""
+    import torch
+    from multitalent_tpu_torch.cli.consolidate_postprocessing import main as consolidate_main
+    from multitalent_tpu_torch.cli.find_best_configuration import main as select_main
+    from multitalent_tpu_torch.cli.plan_and_preprocess import main as plan_main
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    from multitalent_tpu_torch.utils.fileops import load_json
+    task = "Task003_Liver"
+    root = os.path.join(workdir, "raw_workflows")
+    env = {"nnUNet_raw_data_base": os.path.join(root, "raw"),
+           "nnUNet_preprocessed": os.path.join(root, "preprocessed"),
+           "RESULTS_FOLDER": os.path.join(root, "results_generic"),
+           "MTTPU_MAX_EPOCHS": "1", "MTTPU_ITERS_PER_EPOCH": str(RAW_TRAIN_STEPS),
+           "MTTPU_VAL_ITERS": "1", "MTTPU_SW_EXACT": "0", "MTTPU_FUSED_TRAIN": "0",
+           "MTTPU_FUSED_NORM": "0"}
+    seconds = {}
+    with _env(**env):
+        t0 = time.perf_counter()
+        cases, held_out = _write_raw_tasks(env["nnUNet_raw_data_base"])
+        seconds["write raw"] = time.perf_counter() - t0
+        seconds.update(plan_main(["-t", "3", "--verify_dataset_integrity"])[task])
+        prep = os.path.join(env["nnUNet_preprocessed"], task)
+        plans_file = os.path.join(prep, f"{default_plans_identifier}_plans_3D.pkl")
+        _need(plans_file, os.path.join(prep, "dataset_properties.pkl"))
+        plan = _print_plan("10a, the v21 planner on Task003_Liver,", plans_file)
+        fullres = plan["stages"][plan["num_stages"] - 1]
+        chosen = {"base_num_features": plan["base_num_features"],
+                  "num_pool_per_axis": fullres["num_pool_per_axis"],
+                  "patch_size": fullres["patch_size"]}
+        if chosen != RAW_LIVER_PLAN:
+            raise AssertionError(f"the v21 planner chose {chosen}, not the Liver network "
+                                 f"{RAW_LIVER_PLAN}")
+
+        t0 = time.perf_counter()
+        trainer, launches, peak_gib, per_step, val_calls = _train_counted(
+            ["3d_fullres", "TrainerV2", task, "0", "--device", "cuda", "-gpus", "1"],
+            RAW_TRAIN_STEPS)
+        train_cli_s = time.perf_counter() - t0
+        seconds["train steps"] = sum(trainer.step_seconds)
+        seconds["validation"] = trainer.validation_seconds
+        model = trainer.output_folder.rsplit(os.sep, 1)[0]
+        val = os.path.join(trainer.output_folder, "validation_raw")
+        _need(os.path.join(prep, "splits_final.pkl"),
+              os.path.join(trainer.output_folder, "model_final_checkpoint.model"),
+              os.path.join(val, "summary.json"))
+
+        t0 = time.perf_counter()
+        consolidate_main(["-t", task, "-f", "0"])
+        _need(os.path.join(model, "postprocessing.json"))
+        select_main(["-t", task, "-m", "3d_fullres", "-f", "0"])
+        selection_file = os.path.join(env["RESULTS_FOLDER"], "nnUNet",
+                                      f"model_selection_{task}.json")
+        _need(selection_file)
+        selection = load_json(selection_file)
+        seconds["selection"] = time.perf_counter() - t0
+        best = selection["best"]
+        if best != "3d_fullres":
+            raise AssertionError(f"find_best_configuration chose {best}")
+
+        out = os.path.join(root, "predicted_generic")
+        inp = os.path.dirname(held_out)
+        t0 = time.perf_counter()
+        timings, predict_launches = _run_counted(lambda: predict_main(
+            ["-i", inp, "-o", out, "-t", task, "-m", best, "-f", "0", "--device", "cuda"]))
+        seconds["predict"] = time.perf_counter() - t0
+    per_fwd = trainer.network.kernel_launches_per_forward()
+    calls = sum(t["net_calls"] for t in timings)
+    if predict_launches != _expect(per_fwd, calls):
+        raise AssertionError(f"10a predict: launches {predict_launches}, expected "
+                             f"{_expect(per_fwd, calls)}")
+    labels, shape = _check_prediction(out, held_out)
+    if not set(labels) <= set(RAW_TASKS[task][1]):
+        raise AssertionError(f"10a predicted labels {labels}")
+    step_s = _steps_s(trainer)
+    print(f"10a TrainerV2 on Task003_Liver: {trainer.step} steps of batch {trainer.batch_size} "
+          f"at {tuple(int(p) for p in trainer.patch_size)}, losses "
+          f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+          f"{[round(v, 4) for v in trainer.all_val_losses]} (val); seconds per step {step_s:.3f}"
+          f" ({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak {peak_gib:.2f} GiB; "
+          f"train CLI {train_cli_s:.1f} s; validation of {len(trainer.validation_timings)} case"
+          f"(s) {trainer.validation_seconds:.2f} s ({val_calls} network calls)")
+    print(f"10a launches: training { {k: v for k, v in launches.items() if v} } (a step "
+          f"{per_step}); predict { {k: v for k, v in predict_launches.items() if v} } = per "
+          f"forward {per_fwd} x {calls} calls; model selection {selection['results']}, best "
+          f"{best}; the held-out case {os.path.basename(held_out)} predicted at {shape}, labels "
+          f"{labels}")
+    planning_s = sum(seconds[k] for k in ("verify", "crop", "analyze", "plan", "preprocess"))
+    print("10a host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; planning + preprocessing per case {planning_s / RAW_CASES:.2f}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "predict_launches": predict_launches, "seconds": seconds,
+            "seconds_per_step": step_s, "peak_gib": peak_gib, "plan": plan, "env": env,
+            "cases": cases, "held_out": held_out, "per_step": per_step}
+
+
+def phase_raw_multitalent(workdir: str, generic: dict) -> dict:
+    """10b, the flagship from raw data, on 10a's raw set: `tasks.convert_
+    task100 --tasks Task003_Liver Task009_Spleen`; `cli.plan_and_preprocess
+    -t 100 -pl3d ExperimentPlanner3D_v21_MultiTalent -pl2d None`;
+    `tasks.convert_task100 --addregions-only`; `cli.train 3d_fullres
+    MultiTalent_trainer_ddp Task100_MultiTalent 0 -p MultiTalent_bs4` for
+    RAW_TRAIN_STEPS steps at the plans' batch of 4, 47 heads, and its
+    validation; `cli.predict_multitalent` on the held-out case."""
+    import torch
+    from multitalent_tpu_torch.cli.plan_and_preprocess import main as plan_main
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.data.dataset import kfold_split
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.tasks.convert_task100 import main as convert_main
+    from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
+    task = "Task100_MultiTalent"
+    root = os.path.join(workdir, "raw_workflows")
+    env = {**generic["env"], "RESULTS_FOLDER": os.path.join(root, "results_multitalent")}
+    seconds = {}
+    with _env(**env):
+        t0 = time.perf_counter()
+        convert_main(["--tasks", *RAW_TASKS])
+        seconds["convert"] = time.perf_counter() - t0
+        raw = os.path.join(env["nnUNet_raw_data_base"], "nnUNet_raw_data", task)
+        _need(os.path.join(raw, "dataset.json"),
+              os.path.join(raw, "cases_have_regions_labels.pkl"))
+        seconds.update(plan_main(["-t", "100", "-pl3d", "ExperimentPlanner3D_v21_MultiTalent",
+                                  "-pl2d", "None"])[task])
+        prep = os.path.join(env["nnUNet_preprocessed"], task)
+        plans_file = os.path.join(prep, "MultiTalent_bs4_plans_3D.pkl")
+        _need(plans_file)
+        plan = _print_plan("10b, the MultiTalent planner on Task100_MultiTalent,", plans_file)
+        t0 = time.perf_counter()
+        convert_main(["--addregions-only"])
+        seconds["stamp"] = time.perf_counter() - t0
+        stage = os.path.join(prep, "MultiTalent_data_stage0")
+        for task_cases in generic["cases"].values():
+            for case in task_cases:
+                key = f"{'003' if case.startswith('liver') else '009'}_{case}"
+                _need(os.path.join(stage, key + ".pkl"))
+                if "valid_regions" not in load_pickle(os.path.join(stage, key + ".pkl")):
+                    raise AssertionError(f"{key}: no valid_regions stamped")
+        # MultiTalent's do_split stitches each source task's splits_final.pkl:
+        # Task003's was written by 10a's TrainerV2; Task009 was never trained
+        # alone, so its file is written here with the port's kfold_split, as
+        # TrainerV2 would write it
+        spleen = os.path.join(env["nnUNet_preprocessed"], "Task009_Spleen")
+        os.makedirs(spleen, exist_ok=True)
+        save_pickle(kfold_split(generic["cases"]["Task009_Spleen"]),
+                    os.path.join(spleen, "splits_final.pkl"))
+        _need(os.path.join(env["nnUNet_preprocessed"], "Task003_Liver", "splits_final.pkl"))
+
+        t0 = time.perf_counter()
+        trainer, launches, peak_gib, per_step, val_calls = _train_counted(
+            ["3d_fullres", "MultiTalent_trainer_ddp", task, "0", "-p", "MultiTalent_bs4",
+             "--device", "cuda", "-gpus", "1"], RAW_TRAIN_STEPS)
+        train_cli_s = time.perf_counter() - t0
+        if trainer.batch_size != 4 or trainer.num_classes != 47:
+            raise AssertionError(f"batch {trainer.batch_size}, {trainer.num_classes} heads")
+        seconds["train steps"] = sum(trainer.step_seconds)
+        seconds["validation"] = trainer.validation_seconds
+        model = trainer.output_folder.rsplit(os.sep, 1)[0]
+        _need(os.path.join(prep, "splits_custom.pkl"),
+              os.path.join(trainer.output_folder, "model_final_checkpoint.model"),
+              *(os.path.join(trainer.output_folder, "validation_raw", f"summary_{t}.json")
+                for t in RAW_TASKS))
+
+        out = os.path.join(root, "predicted_multitalent")
+        held_out = generic["held_out"]
+        t0 = time.perf_counter()
+        timings, predict_launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.dirname(held_out), "-o", out, "-m", model, "-f", "0",
+             "--device", "cuda"]))
+        seconds["predict"] = time.perf_counter() - t0
+    per_fwd = trainer.network.kernel_launches_per_forward()
+    calls = sum(t["net_calls"] for t in timings)
+    if predict_launches != _expect(per_fwd, calls):
+        raise AssertionError(f"10b predict: launches {predict_launches}, expected "
+                             f"{_expect(per_fwd, calls)}")
+    labels, shape = _check_prediction(out, held_out, REGIONS)
+    step_s = _steps_s(trainer)
+    print(f"10b MultiTalent_trainer_ddp on Task100_MultiTalent: {trainer.step} steps of batch "
+          f"{trainer.batch_size} at {tuple(int(p) for p in trainer.patch_size)}, "
+          f"{trainer.num_classes} heads, losses {[round(v, 4) for v in trainer.all_tr_losses]} "
+          f"(train), {[round(v, 4) for v in trainer.all_val_losses]} (val); seconds per step "
+          f"{step_s:.3f} ({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak "
+          f"{peak_gib:.2f} GiB; train CLI {train_cli_s:.1f} s; validation of "
+          f"{len(trainer.validation_timings)} cases {trainer.validation_seconds:.2f} s "
+          f"({val_calls} network calls)")
+    print(f"10b launches: training { {k: v for k, v in launches.items() if v} } (a step "
+          f"{per_step}); predict { {k: v for k, v in predict_launches.items() if v} } = per "
+          f"forward {per_fwd} x {calls} calls; the held-out case predicted at {shape} with "
+          f"{len(REGIONS)} region masks, labels {labels}")
+    planning_s = sum(seconds[k] for k in ("crop", "analyze", "plan", "preprocess"))
+    print("10b host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; planning + preprocessing per case {planning_s / (2 * RAW_CASES):.2f}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "predict_launches": predict_launches, "seconds": seconds,
+            "seconds_per_step": step_s, "peak_gib": peak_gib, "plan": plan,
+            "per_step": per_step}
+
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -2931,6 +3323,9 @@ def main() -> int:
         else:
             print(f"phase 9b over NCCL on two cards: skipped, {torch.cuda.device_count()} "
                   f"card visible")
+        raw_generic = timed("10a generic workflow from raw", phase_raw_generic, workdir)
+        raw_mt = timed("10b MultiTalent workflow from raw", phase_raw_multitalent, workdir,
+                       raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2989,6 +3384,10 @@ def main() -> int:
               forward=resenc_tile["b_shapes"], step=resenc["b_shapes"]),
         _wgrad_step(kernels["conv3d_same_wgrad"], resenc["dw_shapes"], "kernel C, resenc")]
     for row, sums in zip(rows, resenc_sums):
+        row.update(launches_raw_generic=raw_generic["launches"][row["name"]],
+                   launches_raw_generic_predict=raw_generic["predict_launches"][row["name"]],
+                   launches_raw_multitalent=raw_mt["launches"][row["name"]],
+                   launches_raw_multitalent_predict=raw_mt["predict_launches"][row["name"]])
         row.update(launches_resenc=resenc["launches"][row["name"]],
                    launches_resenc_predict=resenc_predict["launches"][row["name"]],
                    launches_resenc_jax_folder=resenc_jax["launches"][row["name"]],
@@ -3132,6 +3531,12 @@ def main() -> int:
               f"{_median(v['one_step_s'][1:]):.3f}), peak {max(v['peak_gib']):.2f} GiB a rank"
               for k, v in ddp.items() if k != "spawn_s") + f"; ranks started and ran in "
           f"{ddp['spawn_s']:.1f} s; on {smi}")
+    print("summary, both workflows from raw NIfTIs (phase 10): " + "; ".join(
+        f"{label} plans {r['plan']['stages']}, base {r['plan']['base_num_features']}; host "
+        f"seconds {', '.join(f'{k} {v:.2f}' for k, v in r['seconds'].items())}; seconds per "
+        f"step {r['seconds_per_step']:.3f}, peak {r['peak_gib']:.2f} GiB; A/B/C a step "
+        f"{r['per_step']}" for label, r in (("10a", raw_generic), ("10b", raw_mt)))
+          + f"; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

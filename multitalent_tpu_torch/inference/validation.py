@@ -58,14 +58,14 @@ def _validation_cases(trainer):
 
 
 def _predict(trainer, data, timings: list, case: str, **kwargs):
-    """The case's probabilities on the device; its seconds and forwards are
-    appended to `timings` (trainer.validation_timings; with
+    """The case's probabilities on the device; its seconds, forwards and
+    network calls are appended to `timings` (trainer.validation_timings; with
     trainer.validation_seconds, the prediction and export of every case, they
     are what the card's runs read)."""
     t0 = time.perf_counter()
-    probs, forwards = trainer.predict_preprocessed_probabilities(data, **kwargs)
+    probs, forwards, net_calls = trainer.predict_preprocessed_probabilities(data, **kwargs)
     timings.append({"case": case, "predict_s": time.perf_counter() - t0,
-                    "forwards": forwards})
+                    "forwards": forwards, "net_calls": net_calls})
     return probs
 
 

@@ -7,7 +7,7 @@ We accept both the historical nnU-Net variable names and MTTPU_* aliases.
 Unlike the reference (module-level globals evaluated at import), paths are resolved
 lazily through functions so tests can monkeypatch the environment.
 
-The port's copy of multitalent_tpu/paths.py, with the one constant of
+The port's copy of multitalent_tpu/paths.py, with the two constants of
 multitalent_tpu/configuration.py the port reads.
 """
 from __future__ import annotations
@@ -20,6 +20,10 @@ default_plans_identifier = "MTTPUPlansv2.1"
 default_data_identifier = "MTTPUData_plans_v2.1"
 default_trainer = "TrainerV2"
 default_cascade_trainer = "TrainerV2CascadeFullRes"
+
+# worker processes of the host-side data pipeline (reference: configuration.py:3)
+default_num_threads = int(os.environ.get("MTTPU_def_n_proc",
+                                         os.environ.get("nnUNet_def_n_proc", 8)))
 
 # If the spacing ratio between the out-of-plane axis and the in-plane axes exceeds this,
 # resampling is done separately along that axis (nearest/linear) to avoid interpolation

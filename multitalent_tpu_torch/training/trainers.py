@@ -500,7 +500,8 @@ class TrainerV2(NetworkTrainerBase):
                                            step_size: float = 0.5,
                                            use_gaussian: bool = True):
         """data (C, Z, Y, X) preprocessed -> (probabilities (K, Z, Y, X) on
-        the device, fp32 in exact mode and fp16 otherwise, forwards run).
+        the device, fp32 in exact mode and fp16 otherwise, forwards run,
+        network calls made).
         The network in eval mode without deep supervision, under no_grad,
         through ops/fused_unet.make_inference_forward (the fused route under
         MTTPU_FUSED_NORM=1)."""
@@ -512,15 +513,15 @@ class TrainerV2(NetworkTrainerBase):
                 probs = predictor.predict(make_inference_forward(self.network), data)
         finally:
             self.network.train(was_training)
-        return probs, predictor.forwards
+        return probs, predictor.forwards, predictor.net_calls
 
     def predict_preprocessed_data_return_seg_and_softmax(
             self, data: np.ndarray, do_mirroring: bool = True, step_size: float = 0.5,
             use_gaussian: bool = True):
         """data (C, Z, Y, X) preprocessed -> (seg ZYX on the host,
         probabilities (K, Z, Y, X) on the device) (trainers.py:485)."""
-        probs, _ = self.predict_preprocessed_probabilities(data, do_mirroring, step_size,
-                                                           use_gaussian)
+        probs, _, _ = self.predict_preprocessed_probabilities(data, do_mirroring, step_size,
+                                                              use_gaussian)
         if self.regions_class_order is None:
             seg = probs.argmax(0).int()
         else:

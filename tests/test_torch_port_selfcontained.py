@@ -219,6 +219,35 @@ def case_input_folder_discovery(tmp_path):
             fn(str(tmp_path), 2)
 
 
+def case_planning_topology(tmp_path):
+    """planning/net_topology.py: the constants, both pooling schedules and
+    both memory proxies on isotropic, anisotropic and 2D inputs; and the
+    thread default the planners read."""
+    from multitalent_tpu.configuration import default_num_threads
+    from multitalent_tpu.planning import net_topology as jnt
+    from multitalent_tpu_torch.planning import net_topology as pnt
+    assert ppaths.default_num_threads == default_num_threads
+    for name in ("BASE_NUM_FEATURES", "MEMORY_BUDGET_3D", "MEMORY_BUDGET_2D",
+                 "RESENC_BUDGET_3D", "RESENC_BLOCKS_ENCODER", "RESENC_BLOCKS_DECODER"):
+        assert _same(getattr(jnt, name), getattr(pnt, name)), name
+    for spacing, patch in (((1.0, 0.8, 0.8), (128, 128, 128)), ((5.0, 0.7, 0.7), (24, 256, 256)),
+                           ((0.8, 0.8), (320, 256))):
+        args = (spacing, list(patch), 4, 999)
+        jtopo, ptopo = jnt.get_pool_and_conv_props(*args), pnt.get_pool_and_conv_props(*args)
+        assert _same(list(jtopo), list(ptopo))
+        late = (list(patch), 4, 999, spacing)
+        assert _same(list(jnt.get_pool_and_conv_props_poolLateV2(*late)),
+                     list(pnt.get_pool_and_conv_props_poolLateV2(*late)))
+        npool, pools = ptopo[0], ptopo[1]
+        assert (jnt.compute_memory_proxy(ptopo[3], npool, 32, 320, 1, 3, pools, True)
+                == pnt.compute_memory_proxy(ptopo[3], npool, 32, 320, 1, 3, pools, True))
+        if len(patch) == 3:
+            res = ([[1, 1, 1]] + pools, 32, 320, 1, 3)
+            blocks = (pnt.RESENC_BLOCKS_ENCODER, pnt.RESENC_BLOCKS_DECODER, 2, 2)
+            assert (jnt.compute_resenc_memory_proxy(ptopo[3], *res[1:], res[0], *blocks)
+                    == pnt.compute_resenc_memory_proxy(ptopo[3], *res[1:], res[0], *blocks))
+
+
 def case_task_name_resolution(tmp_path):
     """resolve_task_name (cli/configuration.py): a task name passes, an id
     finds its folder among the preprocessed tasks."""
