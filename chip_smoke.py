@@ -24,7 +24,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    that form's function; "2 Liver" and "2b Liver" check and time A, B, D,
    D's dual form, E and F again at the shapes of the Task003 Liver
    3d_fullres net (32-320 channels, grids 128^3 to 4^3), at N=1 and at the
-   default mode's four mirror combinations a forward (N=4);
+   default mode's four mirror combinations a forward (N=4); "2 SwinUNETR"
+   checks and times A, B, C and A's dx again at the SwinUNETR's shapes
+   (48-768 channels, 96x192x192 to 3x6x6, B up to 384+384, N=1 and 2);
 3. the inference path through the user's entry point: a reference-layout
    model folder of the MultiTalent flagship (GenericUNet, base 30, pools
    (2,2,2)x4 + (1,2,2), 47 sigmoid regions, patch 96x192x192, spacing
@@ -151,6 +153,23 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    step reads, a non-finite loss, A/B/C counts off the trainer's per-step
    and per-forward counts, or a prediction off its raw case's shape or
    geometry fails the phase;
+11. SwinUNETR (models/swin_unetr.py) at the trainers' width (feature_size
+   48, heads (3,6,12,24), window 7) over the flagship's plans (patch
+   96x192x192, batch 2, bf16, 47 regions), the sliding window's default
+   mode: 11a `cli.train` with MultiTalent_trainer_SwinUNETR_ddp_adam on
+   phase 5's cases (4 steps, then the validation of one case a dataset:
+   finite losses, every weight moved, A/B/C counts exactly the trainer's,
+   16 A and 5 B a forward, one step's dw through C against the plain
+   version, seconds per step, peak memory); 11b predict_multitalent from its
+   folder on phase 3's case (exact counts, shape and geometry); 11c one
+   tile's probabilities, kernels vs plain in bf16 and fp32, and a control
+   with the shift masks' -100 at 0 that must break the bf16 bounds, and the
+   tile forward's ms; 11d its weights as a JAX-layout folder, restored
+   bit-equal (timed); 11e the SwinUNETR head warm-up -pretrained_weights
+   that `.ckpt` on phase 5e's task (backbone bit-unchanged, out.* moved,
+   kernel C 0 launches); 11f nnUNetTrainerV2_swinunetr_adam_ddp for 2 steps
+   on phase 10a's preprocessed Task003_Liver (128^3, 3 classes) and
+   `cli.predict -tr` of its held-out case;
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -162,7 +181,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    3c's launches; A, B and C the resenc's launches of phase 8 and their
    sums over one resenc forward (8c) and step (8a); A, B and C also 9a's
    launches, `launches_ddp`, and phase 10's, `launches_raw_generic(_predict)`
-   and `launches_raw_multitalent(_predict)`), then the result line.
+   and `launches_raw_multitalent(_predict)`; A, B and C phase 11's,
+   `launches_swin(_predict, _warmup, _liver, _liver_predict)`, and `swin`:
+   their "2 SwinUNETR" shapes against cuDNN and the bound, summed over one
+   SwinUNETR forward (11c) and step (11a)), then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -370,6 +392,34 @@ RAW_TASKS = {"Task003_Liver": ("liver", {0: "background", 1: "liver", 2: "cancer
 RAW_LIVER_PLAN = {"base_num_features": 32, "num_pool_per_axis": [5, 5, 5],
                   "patch_size": [128, 128, 128]}
 RAW_TRAIN_STEPS = 4  # training iterations of each workflow; the first 2 are warm-up
+
+# phase 11: SwinUNETR (models/swin_unetr.py) at the trainers' width over the
+# flagship's plans (MultiTalent_meets_swinunetr.py: feature_size 48, depths
+# (2,2,2,2), heads (3,6,12,24), window 7, no deep supervision, AMSGrad Adam
+# at 5e-4): patch 96x192x192, batch 2, bf16, 47 sigmoid regions, the
+# sliding window's default mode; cut in steps and cases only
+SWIN_TRAINER = "MultiTalent_trainer_SwinUNETR_ddp_adam"
+SWIN_WARMUP_TRAINER = "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"
+SWIN_LIVER_TRAINER = "nnUNetTrainerV2_swinunetr_adam_ddp"
+SWIN_TRAIN_STEPS = 4  # the first 2 are warm-up
+SWIN_PER_FORWARD = {"conv3d_same": 16, "conv3d_same_dual": 5}
+SWIN_PER_STEP = {"conv3d_same": 37, "conv3d_same_dual": 5, "conv3d_same_wgrad": 21}
+# (C, spatial) the SwinUNETR forward gives kernel A (encoder0, encoder1-4,
+# encoder10 and the decoders' conv2) and B (each up block's conv1 over C + C)
+SWIN_A_SHAPES = [(48, PATCH), (48, (48, 96, 96)), (96, (24, 48, 48)), (192, (12, 24, 24)),
+                 (384, (6, 12, 12)), (768, (3, 6, 6))]
+SWIN_B_SHAPES = SWIN_A_SHAPES[:5]
+# phase 11c, |dp| of one SwinUNETR tile's sigmoid probabilities (21 kernel
+# convs; 8 swin blocks whose attention, LayerNorms and MLPs run in plain
+# torch in the same dtype flow on both sides), kernels vs the plain versions
+# in bf16 (measured on the H100 before these bounds: max 1.18e-2, mean
+# 9.0e-4) and kernels in bf16 vs the plain versions in fp32 (max 1.83e-2,
+# mean 1.69e-3); the control, the shift masks' -100 at 0 in the 4 shifted
+# blocks, read max 1.53e-1, mean 8.0e-3 and must break the bf16 bounds
+SWIN_PROB_BOUND = 3e-2
+SWIN_PROB_BOUND_MEAN = 2e-3
+SWIN_PROB_BOUND_FP32_MAX = 5e-2
+SWIN_PROB_BOUND_FP32_MEAN = 5e-3
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -2921,6 +2971,290 @@ def phase_raw_multitalent(workdir: str, generic: dict) -> dict:
             "per_step": per_step}
 
 
+def _swin_net(num_classes: int = 47, seed: int = SEED, dtype=None, patch=PATCH):
+    """SwinUNETR at the trainers' width with their init from `seed`."""
+    import torch
+    from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
+    net = SwinUNETR(1, num_classes, patch, dtype=dtype or torch.float32)
+    net.init_weights(torch.Generator().manual_seed(seed))
+    return net
+
+
+def phase_swin_training(workdir: str) -> dict:
+    """11a: cli.train with MultiTalent_trainer_SwinUNETR_ddp_adam on phase
+    5's synthetic MultiTalent cases at the flagship's plans (SWIN_TRAIN_STEPS
+    steps, then the validation of one case a dataset, default mode): finite
+    losses, every weight moved, the A/B/C counts exactly the trainer's (16 A
+    and 5 B a forward), one step's dw through kernel C against the plain
+    version."""
+    import numpy as np
+    import torch
+    task = "Task100_MultiTalent"
+    results = os.path.join(workdir, "results_swin")
+    with _env(nnUNet_preprocessed=os.path.join(workdir, "preprocessed"), RESULTS_FOLDER=results,
+              MTTPU_MAX_EPOCHS="1", MTTPU_ITERS_PER_EPOCH=str(SWIN_TRAIN_STEPS),
+              MTTPU_VAL_ITERS="1", MTTPU_SW_EXACT="0", MTTPU_FUSED_TRAIN="0",
+              MTTPU_FUSED_NORM="0"):
+        t0 = time.perf_counter()
+        trainer, launches, peak_gib, per_step, calls = _train_counted(
+            ["3d_fullres", SWIN_TRAINER, task, "0", "--device", "cuda", "-gpus", "1"],
+            SWIN_TRAIN_STEPS)
+        train_s = time.perf_counter() - t0
+        net = trainer.network
+        per_fwd = net.kernel_launches_per_forward()
+        if per_fwd != SWIN_PER_FORWARD or per_step != SWIN_PER_STEP:
+            raise AssertionError(f"SwinUNETR launches a forward {per_fwd}, a step {per_step}")
+        validation = _check_validation(os.path.join(trainer.output_folder, "validation_raw"),
+                                       trainer)
+        still = _unmoved(net, _swin_net(seed=trainer.seed))
+        if still:
+            raise AssertionError(f"SwinUNETR weights that did not move: {still}")
+        median_s = float(np.median(trainer.step_seconds[2:]))
+        print(f"SwinUNETR training ({SWIN_TRAINER}): {trainer.step} steps of batch "
+              f"{TRAIN_BATCH} at {PATCH}, bf16, feature_size {net.feature_size}, "
+              f"{sum(p.numel() for p in net.parameters()):,} parameters; losses "
+              f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+              f"{[round(v, 4) for v in trainer.all_val_losses]} (val)")
+        print(f"SwinUNETR seconds per step: median {median_s:.3f} of steps 3..{trainer.step} "
+              f"({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak memory "
+              f"{peak_gib:.2f} GiB; train CLI {train_s:.1f} s")
+        print(f"SwinUNETR training launches: { {k: v for k, v in launches.items() if v} } = "
+              f"per step {per_step} x {trainer.step} + per forward {per_fwd} x "
+              f"({trainer.num_val_batches_per_epoch} validation batch + {calls} validation "
+              f"network calls)")
+        print(f"SwinUNETR validation: {validation['seconds_per_case']:.2f} s per case (predict "
+              f"{validation['predict_s']} s); Dice "
+              f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
+        dw_worst, dw_shapes, a_shapes, b_shapes, _ = _check_dw_through_kernels(trainer)
+    for name, shapes in (("conv3d_same", a_shapes), ("conv3d_same_dual", b_shapes)):
+        if sum(shapes.values()) != per_step[name]:
+            raise AssertionError(f"SwinUNETR: {sum(shapes.values())} {name} calls in one step, "
+                                 f"expected {per_step[name]}")
+    model = os.path.dirname(trainer.output_folder)
+    out = {"launches": launches, "seconds_per_step": median_s, "step_s": trainer.step_seconds,
+           "peak_gib": peak_gib, "validation": validation, "dw_worst_rel": dw_worst,
+           "dw_shapes": dw_shapes, "a_shapes": a_shapes, "b_shapes": b_shapes,
+           "per_forward": per_fwd, "per_step": per_step, "model": model,
+           "fold": trainer.output_folder, "plans": trainer.plans}
+    del trainer, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_swin_predict(workdir: str, training: dict) -> dict:
+    """11b: predict_multitalent from 11a's folder on phase 3's case, default
+    mode with mirror TTA: exact launches, the labelmap and all 47 masks at
+    the raw case's shape and geometry."""
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    n_tiles, _ = _case_tiles()
+    out = os.path.join(workdir, "out_swin")
+    with _env(MTTPU_SW_EXACT="0", MTTPU_FUSED_NORM="0"):
+        t0 = time.perf_counter()
+        timings, launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.join(workdir, "in"), "-o", out, "-m", training["model"], "-f", "0",
+             "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    (case,) = timings
+    expect = _expect(training["per_forward"], case["net_calls"])
+    if case["forwards"] != n_tiles * 8 or launches != expect:
+        raise AssertionError(f"SwinUNETR predict: {case}, launches {launches}, expected {expect}")
+    _, shape = _check_prediction(out, os.path.join(workdir, "in", "case_0000.nii.gz"), REGIONS)
+    print(f"SwinUNETR predict ({case['forwards']} forwards in {case['net_calls']} network calls): "
+          f"labelmap + {len(REGIONS)} region NIfTIs at {shape} with the case's geometry; "
+          f"launches { {k: v for k, v in launches.items() if v} } = per forward "
+          f"{training['per_forward']} x {case['net_calls']}; seconds per case {wall:.2f} "
+          f"(predict {case['predict_s']:.2f} on the card's clock, export {case['export_s']:.2f})")
+    return {"launches": launches, "seconds_per_case": wall, "predict_s": case["predict_s"],
+            "net_calls": case["net_calls"]}
+
+
+@contextlib.contextmanager
+def _zero_shift_masks(net):
+    """Every shifted block's cached shift mask with its -100 set to 0 (the
+    control of phase 11c)."""
+    import torch
+    from multitalent_tpu_torch.models.swin_unetr import SwinBlock
+    blocks = [m for m in net.modules() if isinstance(m, SwinBlock) and m.shift]
+    saved = [b._masks for b in blocks]
+    for b in blocks:
+        b._masks = {k: torch.zeros_like(v) for k, v in b._masks.items()}
+    try:
+        yield len(blocks)
+    finally:
+        for b, masks in zip(blocks, saved):
+            b._masks = masks
+
+
+def phase_swin_tile() -> dict:
+    """11c: one SwinUNETR tile's sigmoid probabilities through the kernels in
+    bf16 against the plain versions in bf16 and in fp32; the control (the
+    shift masks' -100 set to 0) must break the bf16 bounds. The trainers'
+    init from the seed."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    net = _swin_net(dtype=torch.bfloat16).to(dev).eval()
+    net32 = _swin_net(dtype=torch.float32).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
+    with torch.no_grad(), _recording("conv3d_same") as a_shapes, \
+            _recording("conv3d_same_dual") as b_shapes:
+        logits = net(x)
+    if (sum(a_shapes.values()), sum(b_shapes.values())) != (16, 5):
+        raise AssertionError(f"SwinUNETR forward: A {sum(a_shapes.values())}, B "
+                             f"{sum(b_shapes.values())} calls, expected 16 and 5")
+    if logits.shape != (1, 47, *PATCH) or not torch.isfinite(logits).all():
+        raise AssertionError(f"SwinUNETR logits {tuple(logits.shape)}")
+    with torch.no_grad():
+        p_kernels = torch.sigmoid(logits)
+        p_plain = torch.sigmoid(net(x, use_kernels=False))
+        out = {"a_shapes": a_shapes, "b_shapes": b_shapes}
+        out["bf16_max"], out["bf16_mean"] = _dp(p_kernels, p_plain)
+        out["fp32_max"], out["fp32_mean"] = _dp(p_kernels, torch.sigmoid(
+            net32(x, use_kernels=False)))
+        with _zero_shift_masks(net) as shifted:
+            out["control_max"], out["control_mean"] = _dp(torch.sigmoid(net(x)), p_plain)
+        out["forward_ms"] = _median_ms(lambda: net(x), iters=5)
+    print(f"SwinUNETR tile {PATCH}: |dp| kernels bf16 vs plain bf16: max {out['bf16_max']:.3e} "
+          f"(bound {SWIN_PROB_BOUND}), mean {out['bf16_mean']:.3e} (bound "
+          f"{SWIN_PROB_BOUND_MEAN}); vs plain fp32: max {out['fp32_max']:.3e} (bound "
+          f"{SWIN_PROB_BOUND_FP32_MAX}), mean {out['fp32_mean']:.3e} (bound "
+          f"{SWIN_PROB_BOUND_FP32_MEAN})")
+    print(f"SwinUNETR control, the shift masks of {shifted} blocks at 0 for -100: kernels vs "
+          f"plain |dp| max {out['control_max']:.3e}, mean {out['control_mean']:.3e}")
+    print(f"one bf16 SwinUNETR forward of a tile: {out['forward_ms']:.2f} ms (median of 5, CUDA "
+          f"events)")
+    if not (out["bf16_max"] <= SWIN_PROB_BOUND and out["bf16_mean"] <= SWIN_PROB_BOUND_MEAN
+            and out["fp32_max"] <= SWIN_PROB_BOUND_FP32_MAX
+            and out["fp32_mean"] <= SWIN_PROB_BOUND_FP32_MEAN):
+        raise AssertionError(f"SwinUNETR probabilities out of bounds: {out}")
+    if not (out["control_max"] > SWIN_PROB_BOUND or out["control_mean"] > SWIN_PROB_BOUND_MEAN):
+        raise AssertionError(f"the SwinUNETR bounds pass a faulty shift mask: {out}")
+    del net, net32, logits, p_kernels, p_plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_swin_jax_folder(workdir: str, training: dict) -> dict:
+    """11d: 11a's weights as a JAX-layout folder (the flax tree of
+    io/torch_convert.convert_swin_unetr_state_dict), restored on the card
+    (timed): every tensor bit-equal to the `.model`'s."""
+    import torch
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               save_jax_model_folder)
+    sd = torch.load(os.path.join(training["fold"], "model_final_checkpoint.model"),
+                    map_location="cpu", weights_only=False)["state_dict"]
+    model = os.path.join(workdir, "jax_model_swin")
+    save_jax_model_folder(model, training["plans"], [sd], "MultiTalentTrainerSwinUNETR",
+                          trainer_bases=["MultiTalentTrainer", "TrainerV2", "NetworkTrainerBase"])
+    ckpt = os.path.join(model, "fold_0", "model_final_checkpoint.ckpt")
+    t0 = time.perf_counter()
+    restored = load_model_and_checkpoint_files(model, [0], device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = restored.networks[0].state_dict()
+    if (restored.inference_nonlin != "sigmoid" or sorted(got) != sorted(sd)
+            or not all(torch.equal(v.cpu(), sd[k]) for k, v in got.items())):
+        raise AssertionError("SwinUNETR weights restored from the .ckpt folder differ")
+    print(f"SwinUNETR JAX-layout folder: {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB .ckpt, "
+          f"{len(sd)} tensors restored on the card bit-equal in {restore_s:.2f} s")
+    del restored, got
+    torch.cuda.empty_cache()
+    return {"ckpt": ckpt, "restore_s": restore_s}
+
+
+def phase_swin_warmup(workdir: str, jax_folder: dict) -> dict:
+    """11e: the SwinUNETR head warm-up -pretrained_weights <11d's .ckpt> on
+    phase 5e's one-class task, 2 steps of phase 1 and its validation: the
+    backbone loads equal to the pretrained weights and stays bit-unchanged,
+    only `out.*` moves, kernel C launches 0 times."""
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.inference.model_restore import checkpoint_state_dict
+    task = "Task009_Spleen"
+    with _env(nnUNet_preprocessed=os.path.join(workdir, "preprocessed"),
+              RESULTS_FOLDER=os.path.join(workdir, "results_swin_warmup"), MTTPU_MAX_EPOCHS="1",
+              MTTPU_ITERS_PER_EPOCH="2", MTTPU_VAL_ITERS="1", MTTPU_SW_EXACT="0"):
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", SWIN_WARMUP_TRAINER, task, "0", "-pretrained_weights",
+             jax_folder["ckpt"], "--device", "cuda", "-gpus", "1"]))
+        wall = time.perf_counter() - t0
+    pretrained = checkpoint_state_dict(jax_folder["ckpt"], trainer.plans, 0)
+    init = _swin_net(trainer.num_classes, seed=trainer.seed).state_dict()
+    for k, v in trainer.network.state_dict().items():
+        v = v.cpu()
+        if k.startswith("out."):
+            if torch.equal(v, init[k]):
+                raise AssertionError(f"SwinUNETR head {k} did not move")
+        elif not torch.equal(v, pretrained[k]):
+            raise AssertionError(f"SwinUNETR backbone {k} is not the pretrained weight")
+    per = trainer.network.kernel_launches_per_forward()
+    net_calls = sum(t["net_calls"] for t in trainer.validation_timings)
+    calls = trainer.step + trainer.num_val_batches_per_epoch + net_calls
+    expect = _expect(per, calls)
+    if trainer.step != 2 or trainer.optimizer_phase != 1 or launches != expect:
+        raise AssertionError(f"SwinUNETR warm-up: {trainer.step} steps, phase "
+                             f"{trainer.optimizer_phase}, launches {launches}, expected {expect}")
+    print(f"SwinUNETR warm-up ({SWIN_WARMUP_TRAINER}, phase 1, -pretrained_weights .ckpt): "
+          f"seconds per step {', '.join(f'{v:.3f}' for v in trainer.step_seconds)}; kernel C "
+          f"launches {launches['conv3d_same_wgrad']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } = per forward {per} x {calls} "
+          f"({trainer.step} steps + {trainer.num_val_batches_per_epoch} validation batch + "
+          f"{net_calls} validation network calls); backbone bit-equal to the pretrained "
+          f"weights, out.* moved; validation {trainer.validation_seconds:.2f} s for 1 case; "
+          f"CLI {wall:.1f} s")
+    out = {"launches": launches, "step_s": trainer.step_seconds, "wall": wall}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_swin_liver(workdir: str, generic: dict) -> dict:
+    """11f: nnUNetTrainerV2_swinunetr_adam_ddp for 2 steps on phase 10a's
+    preprocessed Task003_Liver (the v21 plans of the Liver network: 128^3, 3
+    classes, softmax) with fold 0's validation, then cli.predict -tr of the
+    held-out raw case."""
+    import torch
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    task = "Task003_Liver"
+    env = {**generic["env"], "RESULTS_FOLDER": os.path.join(workdir, "results_swin_liver"),
+           "MTTPU_ITERS_PER_EPOCH": "2"}
+    out = os.path.join(workdir, "predicted_swin_liver")
+    with _env(**env):
+        t0 = time.perf_counter()
+        trainer, launches, peak_gib, per_step, val_calls = _train_counted(
+            ["3d_fullres", SWIN_LIVER_TRAINER, task, "0", "--device", "cuda", "-gpus", "1"], 2)
+        train_s = time.perf_counter() - t0
+        per_fwd = trainer.network.kernel_launches_per_forward()
+        patch = tuple(int(p) for p in trainer.patch_size)
+        classes = trainer.num_classes
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        timings, predict_launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", task, "-m",
+             "3d_fullres", "-tr", SWIN_LIVER_TRAINER, "-f", "0", "--device", "cuda"]))
+        predict_s = time.perf_counter() - t0
+    calls = sum(t["net_calls"] for t in timings)
+    if predict_launches != _expect(per_fwd, calls):
+        raise AssertionError(f"11f predict: launches {predict_launches}, expected "
+                             f"{_expect(per_fwd, calls)}")
+    labels, shape = _check_prediction(out, generic["held_out"])
+    if not set(labels) <= set(range(classes)):
+        raise AssertionError(f"11f predicted labels {labels}")
+    print(f"SwinUNETR on Task003_Liver ({SWIN_LIVER_TRAINER}, softmax over {classes} classes, "
+          f"patch {patch}): 2 steps + validation in {train_s:.1f} s ({val_calls} validation "
+          f"network calls), peak {peak_gib:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (a step {per_step}); cli.predict of "
+          f"{os.path.basename(generic['held_out'])}: {predict_s:.2f} s, {calls} calls, launches "
+          f"{ {k: v for k, v in predict_launches.items() if v} }, labels {labels} at {shape}")
+    return {"launches": launches, "predict_launches": predict_launches, "peak_gib": peak_gib,
+            "train_s": train_s, "predict_s": predict_s}
+
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -3288,6 +3622,7 @@ def main() -> int:
     liver_fused_kernels = timed("2b Liver", phase_fused_kernels, LIVER_A_SHAPES,
                                 LIVER_B_SHAPES, LIVER_A_SHAPES, batches=(1, LIVER_TTA_CHUNK),
                                 norm_batches=(1, LIVER_TTA_CHUNK), classes=LIVER_CLASSES)
+    swin_kernels = timed("2 SwinUNETR", phase_kernels, SWIN_A_SHAPES, SWIN_B_SHAPES)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     # the flagship's predict and training phases run the sliding window's
     # exact mode, as they did before the default mode was ported, so that
@@ -3326,6 +3661,12 @@ def main() -> int:
         raw_generic = timed("10a generic workflow from raw", phase_raw_generic, workdir)
         raw_mt = timed("10b MultiTalent workflow from raw", phase_raw_multitalent, workdir,
                        raw_generic)
+        swin = timed("11a SwinUNETR train", phase_swin_training, workdir)
+        swin_predict = timed("11b SwinUNETR predict", phase_swin_predict, workdir, swin)
+        swin_tile = timed("11c SwinUNETR tile", phase_swin_tile)
+        swin_jax = timed("11d SwinUNETR JAX-layout folder", phase_swin_jax_folder, workdir, swin)
+        swin_warmup = timed("11e SwinUNETR warm-up", phase_swin_warmup, workdir, swin_jax)
+        swin_liver = timed("11f SwinUNETR Liver", phase_swin_liver, workdir, raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3394,6 +3735,28 @@ def main() -> int:
                    launches_resenc_warmup=resenc_warmup["launches"][row["name"]],
                    launches_resenc_liver=resenc_liver["launches"][row["name"]],
                    resenc={k: v for k, v in sums.items() if k != "shapes"})
+    # SwinUNETR (phase 11): A's, B's and C's launches (11a's train CLI of 4
+    # steps and validation, 11b's predict, 11e's warm-up, 11f's Liver train
+    # CLI and predict), their times at SwinUNETR's own shapes ("2 SwinUNETR":
+    # 48-768 channels, N=1 and 2) against cuDNN and the bound, and the sums
+    # over one SwinUNETR forward (11c, N=1) and step (11a, N=2)
+    swin_a = swin_kernels["conv3d_same"] + swin_kernels["conv3d_same_dx"]
+    swin_sums = [
+        _sums("kernel A, SwinUNETR", swin_a, "cudnn_bf16_ms", forward=swin_tile["a_shapes"],
+              step=swin["a_shapes"]),
+        _sums("kernel B, SwinUNETR", swin_kernels["conv3d_same_dual"], "cudnn_bf16_ms",
+              forward=swin_tile["b_shapes"], step=swin["b_shapes"]),
+        _wgrad_step(swin_kernels["conv3d_same_wgrad"], swin["dw_shapes"], "kernel C, SwinUNETR")]
+    for row, timed_rows, sums in zip(rows, (swin_a, swin_kernels["conv3d_same_dual"],
+                                            swin_kernels["conv3d_same_wgrad"]), swin_sums):
+        kname = row["name"]
+        row.update(launches_swin=swin["launches"][kname],
+                   launches_swin_predict=swin_predict["launches"][kname],
+                   launches_swin_warmup=swin_warmup["launches"][kname],
+                   launches_swin_liver=swin_liver["launches"][kname],
+                   launches_swin_liver_predict=swin_liver["predict_launches"][kname],
+                   swin=sums, max_abs_err=max(row["max_abs_err"],
+                                              *(r["err"] for r in timed_rows)))
     # kernel D beside the unfused route it replaces (norm + cuDNN; for the
     # dual form kernel B, no stats), over one fused forward (N=1) and one
     # fused training step's forward (N=2)
@@ -3537,6 +3900,22 @@ def main() -> int:
         f"step {r['seconds_per_step']:.3f}, peak {r['peak_gib']:.2f} GiB; A/B/C a step "
         f"{r['per_step']}" for label, r in (("10a", raw_generic), ("10b", raw_mt)))
           + f"; on {smi}")
+    sa, sb, sc = swin_sums
+    print(f"summary, SwinUNETR (phase 11): seconds per training step "
+          f"{swin['seconds_per_step']:.3f} (steps {', '.join(f'{v:.3f}' for v in swin['step_s'])});"
+          f" peak {swin['peak_gib']:.2f} GiB; validation "
+          f"{swin['validation']['seconds_per_case']:.2f} s per case; predict "
+          f"{swin_predict['seconds_per_case']:.2f} s per case (predict "
+          f"{swin_predict['predict_s']:.2f}); one tile forward {swin_tile['forward_ms']:.2f} ms; "
+          f".ckpt restored in {swin_jax['restore_s']:.2f} s; warm-up phase-1 seconds per step "
+          f"{', '.join(f'{v:.3f}' for v in swin_warmup['step_s'])}; Liver 2 steps + validation "
+          f"{swin_liver['train_s']:.1f} s (peak {swin_liver['peak_gib']:.2f} GiB), predict "
+          f"{swin_liver['predict_s']:.2f} s; kernel A over a forward {sa['forward_ms']:.3f} ms "
+          f"(cuDNN {sa['forward_cudnn_bf16_ms']:.3f}), over a step {sa['step_ms']:.3f} ms (cuDNN "
+          f"{sa['step_cudnn_bf16_ms']:.3f}); kernel B over a forward {sb['forward_ms']:.3f} ms "
+          f"(cuDNN on the concat {sb['forward_cudnn_bf16_ms']:.3f}), over a step "
+          f"{sb['step_ms']:.3f} ms; kernel C over a step {sc['step_ms']:.3f} ms (cuDNN "
+          f"{sc['step_cudnn_ms']:.3f}); on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

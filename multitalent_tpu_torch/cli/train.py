@@ -16,6 +16,8 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
     ... nnUNetTrainerV2_warmupsegheads TASK 0 -pretrained_weights x.ckpt|x.model
     ... MultiTalent_trainer_resenc_ddp TASK 0 -p PLANS_ID   the residual-encoder
                                    UNet, on plans with num_blocks_encoder/decoder
+    ... MultiTalent_trainer_SwinUNETR_ddp_adam TASK 0        SwinUNETR (a patch
+                                   divisible by 32), also nnUNetTrainerV2_swinunetr_adam_ddp
 
 -pretrained_weights takes a JAX `.ckpt` or a reference / port `.model` and
 transfers every backbone weight of matching name and shape (never the heads);
@@ -35,8 +37,8 @@ The plans' batch is the global batch, always split over the ranks
 reads -c's checkpoint and -pretrained_weights; rank 0 writes the folder; the
 validation splits its cases over the ranks. Refused: more ranks than cards,
 a split that leaves a rank without a sample (ROADMAP queue 1, item 14), 2D
-and cascade networks and the MedNeXt and SwinUNETR trainers (item 10),
-including 3d_lowres's prediction of the next stage.
+and cascade networks and the MedNeXt trainers (item 10), including
+3d_lowres's prediction of the next stage.
 """
 from __future__ import annotations
 
@@ -55,12 +57,15 @@ from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep,
                                                         MultiTalentTrainerResenc,
-                                                        MultiTalentTrainerResenc2000ep)
+                                                        MultiTalentTrainerResenc2000ep,
+                                                        MultiTalentTrainerSwinUNETR)
 from multitalent_tpu_torch.training.trainers import (TrainerV2, TrainerV2_2epochs,
                                                      TrainerV2_5epochs, TrainerV2_dummyLoad,
                                                      TrainerV2ResencUNet)
+from multitalent_tpu_torch.training.variants import TrainerV2SwinUNETR, TrainerV2SwinUNETRlr5e4
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
                                                    TrainerV2WarmupSegHeadsResenc,
+                                                   TrainerV2WarmupSegHeadsSwin,
                                                    load_pretrained_weights)
 
 # trainer names of the reference and of the JAX package -> the port's classes
@@ -84,6 +89,16 @@ TRAINERS = {
                      "MultiTalent_tainer_resenc_ddp"), MultiTalentTrainerResenc2000ep),
     **dict.fromkeys(("TrainerV2WarmupSegHeadsResenc", "nnUNetTrainerV2_warmupsegheads_resenc"),
                     TrainerV2WarmupSegHeadsResenc),
+    # SwinUNETR; the released zip spells one trainer MultiTalent_tainer_...
+    **dict.fromkeys(("MultiTalentTrainerSwinUNETR", "MultiTalent_trainer_SwinUNETR_ddp_adam",
+                     "MultiTalent_tainer_SwinUNETR_ddp_adam"), MultiTalentTrainerSwinUNETR),
+    **dict.fromkeys(("TrainerV2SwinUNETR", "nnUNetTrainerV2_swinunetr_adam_ddp"),
+                    TrainerV2SwinUNETR),
+    **dict.fromkeys(("TrainerV2SwinUNETRlr5e4", "nnUNetTrainerV2_swinunetr_adam_ddp_lr5e4"),
+                    TrainerV2SwinUNETRlr5e4),
+    **dict.fromkeys(("TrainerV2WarmupSegHeadsSwin",
+                     "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"),
+                    TrainerV2WarmupSegHeadsSwin),
     # the reference's benchmarking trainers
     **dict.fromkeys(("TrainerV2_2epochs", "nnUNetTrainerV2_2epochs"), TrainerV2_2epochs),
     **dict.fromkeys(("TrainerV2_5epochs", "nnUNetTrainerV2_5epochs"), TrainerV2_5epochs),

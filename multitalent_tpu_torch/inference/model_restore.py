@@ -1,4 +1,4 @@
-"""Restore a model folder into GenericUNet or ResidualEncoderUNet modules.
+"""Restore a model folder into GenericUNet, ResidualEncoderUNet or SwinUNETR modules.
 
 Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
@@ -20,7 +20,8 @@ Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
   read by io/flax_ckpt.py (no flax) and carried over by
   io/from_jax.generic_unet_state_dict_from_flax (or
-  resenc_state_dict_from_flax). The plans come from the
+  resenc_state_dict_from_flax, swin_unetr_state_dict_from_flax). The plans
+  come from the
   sidecar's `init_args[0]` (a plans file or a pickled Plans) or else from
   `<model>/plans.pkl`. The sidecar may pickle the JAX package's Plans: it is
   read by `load_sidecar`, whose unpickler maps those names to the port's
@@ -32,8 +33,11 @@ The checkpoint's keys pick the network, as the JAX package's import does
 `encoder.initial_conv.weight` (or `initial_conv` in a flax tree) is the
 residual-encoder UNet, its block counts from the plans; a reference resenc
 `.model` has its quirks undone by io/torch_convert.fabians_unet_state_dict.
-The trainer named in the sidecar fixes the head: the MultiTalent trainers
-predict 47 sigmoid regions, the others a softmax over the plans' classes.
+`patch_embed.weight` (or `patch_embed` in a flax tree) is the SwinUNETR, its
+width, depths and heads read from the weights, its window tables sized by
+the plans' patch. The trainer named in the sidecar fixes the head: the
+MultiTalent trainers predict 47 sigmoid regions, the others a softmax over
+the plans' classes.
 """
 from __future__ import annotations
 
@@ -46,14 +50,17 @@ import torch
 
 from multitalent_tpu_torch.io import flax_ckpt
 from multitalent_tpu_torch.io.from_jax import (generic_unet_state_dict_from_flax,
-                                               resenc_state_dict_from_flax)
+                                               resenc_state_dict_from_flax,
+                                               swin_unetr_state_dict_from_flax)
 from multitalent_tpu_torch.io.torch_convert import (convert_generic_unet_state_dict,
                                                    convert_resenc_state_dict,
+                                                   convert_swin_unetr_state_dict,
                                                    fabians_unet_state_dict,
                                                    load_reference_checkpoint,
-                                                   strip_module_prefix)
+                                                   strip_module_prefix, swin_depths)
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
 from multitalent_tpu_torch.models.residual_unet import build_resenc_unet_from_plans
+from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
 from multitalent_tpu_torch.plans import Plans, StagePlans, load_plans, save_plans
 from multitalent_tpu_torch.tasks.multitalent import NUM_REGIONS
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle, subdirs
@@ -63,17 +70,13 @@ MULTITALENT_TRAINERS = ("MultiTalent_trainer_ddp", "MultiTalent_trainer_ddp_2000
                         "MultiTalentTrainer", "MultiTalentTrainer2000ep",
                         "MultiTalent_trainer_resenc_ddp", "MultiTalent_trainer_resenc_ddp_2000ep",
                         "MultiTalent_tainer_resenc_ddp", "MultiTalentTrainerResenc",
-                        "MultiTalentTrainerResenc2000ep")
+                        "MultiTalentTrainerResenc2000ep", "MultiTalent_tainer_SwinUNETR_ddp_adam",
+                        "MultiTalent_trainer_SwinUNETR_ddp_adam", "MultiTalentTrainerSwinUNETR")
 # trainers whose networks the port does not have yet
 UNPORTED_TRAINERS = {
     "Multitalent_mednextt": "MedNeXt",
     "MultiTalent_meets_mednext": "MedNeXt",
     "MultiTalentTrainerMedNeXt": "MedNeXt",
-    "MultiTalent_tainer_SwinUNETR_ddp_adam": "SwinUNETR",
-    "MultiTalent_trainer_SwinUNETR_ddp_adam": "SwinUNETR",
-    "MultiTalentTrainerSwinUNETR": "SwinUNETR",
-    "TrainerV2WarmupSegHeadsSwin": "SwinUNETR",
-    "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp": "SwinUNETR",
 }
 
 # what a JAX sidecar may name: the JAX package's plans classes, read as the
@@ -128,7 +131,7 @@ class RestoredModel:
     regions_class_order: list[int] | None
     num_classes: int
     patch_size: tuple[int, ...]
-    networks: list[torch.nn.Module]  # GenericUNet or ResidualEncoderUNet
+    networks: list[torch.nn.Module]  # GenericUNet, ResidualEncoderUNet or SwinUNETR
 
 
 def _fold_folders(model_folder: str, folds) -> list[str]:
@@ -161,11 +164,17 @@ def is_resenc_state_dict(state_dict: dict) -> bool:
     return any(k.removeprefix("module.") == "encoder.initial_conv.weight" for k in state_dict)
 
 
+def is_swin_unetr_state_dict(state_dict: dict) -> bool:
+    """Whether a state dict (`module.` prefix or not) is the SwinUNETR's."""
+    return any(k.removeprefix("module.") == "patch_embed.weight" for k in state_dict)
+
+
 def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
     """The port's state dict of a JAX `.ckpt` file (its params through
     io/from_jax.py, `plans` giving the depth or the block counts) or of a
     reference or port `.model` file (a reference resenc one through
-    io/torch_convert.fabians_unet_state_dict)."""
+    io/torch_convert.fabians_unet_state_dict; a SwinUNETR's keys are the
+    port's own)."""
     st = plans.stage(stage)
     if path.endswith(".model"):
         sd = strip_module_prefix(load_reference_checkpoint(path))
@@ -178,10 +187,12 @@ def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
     if "initial_conv" in params:
         return resenc_state_dict_from_flax(params, st.num_blocks_encoder,
                                            st.num_blocks_decoder)
+    if "patch_embed" in params:
+        return swin_unetr_state_dict_from_flax(params)
     if "enc0" not in params:
         raise NotImplementedError(
-            f"{path} is neither a GenericUNet nor a residual-encoder UNet checkpoint; "
-            "other networks are ROADMAP queue 1, item 10")
+            f"{path} is neither a GenericUNet, a residual-encoder UNet nor a SwinUNETR "
+            "checkpoint; other networks are ROADMAP queue 1, item 10")
     return generic_unet_state_dict_from_flax(
         params, num_pool=len(st.pool_op_kernel_sizes), conv_per_stage=plans.conv_per_stage)
 
@@ -193,11 +204,20 @@ def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
     keeps deep-supervision heads and unused modules, which are dropped)."""
     if is_resenc_state_dict(state_dict):
         net = build_resenc_unet_from_plans(plans, stage, num_classes, dtype=dtype)
+    elif is_swin_unetr_state_dict(state_dict):
+        # width, depths and heads from the weights; the patch sizes the windows
+        net = SwinUNETR(plans.num_modalities, num_classes, plans.stage(stage).patch_size,
+                        feature_size=int(state_dict["patch_embed.weight"].shape[0]),
+                        depths=swin_depths(state_dict),
+                        num_heads=tuple(int(state_dict[f"stage{s}_block0.attn.rel_pos_bias"]
+                                            .shape[1]) for s in range(4)),
+                        dtype=dtype)
     elif any(k.startswith("conv_blocks_context.") for k in state_dict):
         net = build_unet_from_plans(plans, stage, num_classes, dtype=dtype)
     else:
-        raise NotImplementedError("neither a GenericUNet nor a residual-encoder UNet state "
-                                  "dict; other networks are ROADMAP queue 1, item 10")
+        raise NotImplementedError("neither a GenericUNet, a residual-encoder UNet nor a "
+                                  "SwinUNETR state dict; other networks are ROADMAP queue 1, "
+                                  "item 10")
     own = net.state_dict()
     net.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=True)
     return net
@@ -261,7 +281,7 @@ def save_model_folder(model_folder: str, plans: Plans, state_dicts: list[dict],
                       trainer_name: str, stage: int = 0, fp16: bool = True,
                       checkpoint_name: str = "model_final_checkpoint") -> None:
     """Write a reference-layout model folder (the layout read above) of
-    GenericUNet or residual-encoder UNet state dicts: plans.pkl,
+    GenericUNet, residual-encoder UNet or SwinUNETR state dicts: plans.pkl,
     and per fold i a `fold_i/<checkpoint>.model` holding {"state_dict": ...}
     with its sidecar naming `trainer_name` and the reference's init arguments
     (plans_file, fold, output_folder, dataset_directory, batch_dice, stage,
@@ -282,11 +302,12 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
                           trainer_name: str, trainer_bases=(), stage: int = 0,
                           fp16: bool = True,
                           checkpoint_name: str = "model_final_checkpoint") -> None:
-    """Write a JAX-layout model folder of GenericUNet or residual-encoder UNet
-    state dicts, the files multitalent_tpu's trainer writes: per fold i
-    `fold_i/<checkpoint>.ckpt`, flax msgpack of {"step", "params"}
-    (io/flax_ckpt.dumps of io/torch_convert.convert_generic_unet_state_dict
-    or convert_resenc_state_dict, which carries the biases), and its
+    """Write a JAX-layout model folder of GenericUNet, residual-encoder UNet or
+    SwinUNETR state dicts, the files multitalent_tpu's trainer writes: per
+    fold i `fold_i/<checkpoint>.ckpt`, flax msgpack of {"step", "params"}
+    (io/flax_ckpt.dumps of io/torch_convert.convert_generic_unet_state_dict,
+    convert_resenc_state_dict, which carries the biases, or
+    convert_swin_unetr_state_dict), and its
     `.ckpt.pkl` sidecar (trainer_name, trainer_bases, init_args, state_keys).
     init_args[0] is <model>/plans.pkl."""
     plans_path = os.path.join(maybe_mkdir(model_folder), "plans.pkl")
@@ -297,6 +318,8 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
         ckpt = os.path.join(fold_dir, checkpoint_name + ".ckpt")
         if is_resenc_state_dict(sd):
             params = convert_resenc_state_dict(sd, st.num_blocks_encoder, st.num_blocks_decoder)
+        elif is_swin_unetr_state_dict(sd):
+            params = convert_swin_unetr_state_dict(sd)
         else:
             params = convert_generic_unet_state_dict(sd, len(st.pool_op_kernel_sizes),
                                                      plans.conv_per_stage)

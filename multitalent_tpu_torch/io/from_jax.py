@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multitalent_tpu_torch.io.torch_convert import resenc_key_table
+from multitalent_tpu_torch.io.torch_convert import (resenc_key_table, swin_depths,
+                                                   swin_unetr_key_table)
 
 
 def _conv_weight(k: np.ndarray) -> np.ndarray:
@@ -89,6 +90,40 @@ def resenc_state_dict_from_flax(params: dict, num_blocks_encoder,
         k = np.asarray(node["kernel"])
         sd[f"{prefix}.weight"] = _transpconv_weight(k) if kind == "transp" else _conv_weight(k)
         if kind == "conv":
+            sd[f"{prefix}.bias"] = node["bias"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def swin_unetr_state_dict_from_flax(params: dict) -> dict:
+    """Nested flax param dict of multitalent_tpu SwinUNETR -> torch state
+    dict of the port's (models/swin_unetr.py; io/torch_convert.
+    swin_unetr_key_table), the stage depths read from the tree."""
+    sd: dict[str, np.ndarray] = {}
+
+    def has_res(prefix: str) -> bool:
+        node = params
+        for p in prefix.split("."):
+            node = node[p]
+        return "res" in node
+
+    for prefix, path, kind in swin_unetr_key_table(swin_depths(params), has_res):
+        node = params
+        for p in path:
+            node = node[p]
+        if kind == "table":
+            sd[prefix] = node
+            continue
+        if kind == "norm":
+            sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = node["scale"], node["bias"]
+            continue
+        k = np.asarray(node["kernel"])
+        if kind in ("dense", "dense_nobias"):
+            sd[f"{prefix}.weight"] = k.T
+        else:
+            sd[f"{prefix}.weight"] = (_transpconv_weight(k) if kind == "transp"
+                                      else _conv_weight(k))
+        if kind in ("conv", "dense"):
             sd[f"{prefix}.bias"] = node["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}

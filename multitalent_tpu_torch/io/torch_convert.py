@@ -7,8 +7,10 @@ inference/model_restore.py and JAX-layout folders need:
 package's flax param tree (the inverse of
 io/from_jax.generic_unet_state_dict_from_flax; both ways are bit-exact),
 `convert_resenc_state_dict` does the same for the residual-encoder UNet with
-its biases (the inverse of io/from_jax.resenc_state_dict_from_flax), and
-`fabians_unet_state_dict` reads a reference resenc checkpoint's state dict.
+its biases (the inverse of io/from_jax.resenc_state_dict_from_flax),
+`convert_swin_unetr_state_dict` for the SwinUNETR (the inverse of
+io/from_jax.swin_unetr_state_dict_from_flax), and `fabians_unet_state_dict`
+reads a reference resenc checkpoint's state dict.
 """
 from __future__ import annotations
 
@@ -150,6 +152,91 @@ def convert_resenc_state_dict(state_dict: dict, num_blocks_encoder,
         w = sd[f"{prefix}.weight"]
         node["kernel"] = _transpconv_weight(w) if kind == "transp" else _conv_weight(w)
         if kind == "conv":
+            node["bias"] = sd[f"{prefix}.bias"]
+    return params
+
+
+def swin_depths(names) -> tuple[int, ...]:
+    """The block count of each swin stage, from the `stage{s}_block{b}`
+    names (state-dict key prefixes or flax tree keys)."""
+    blocks: dict[int, int] = {}
+    for name in names:
+        head = name.split(".")[0]
+        if head.startswith("stage") and "_block" in head:
+            s, b = head[len("stage"):].split("_block")
+            blocks[int(s)] = max(blocks.get(int(s), 0), int(b) + 1)
+    return tuple(blocks[s] for s in sorted(blocks))
+
+
+def swin_unetr_key_table(depths, has_res) -> list[tuple]:
+    """(torch prefix, flax path, kind) of every layer of the SwinUNETR
+    (models/swin_unetr.py; the flax tree of multitalent_tpu/models/
+    swin_unetr.py). kind: "conv" (weight and bias), "skip" (bias-free 1x1x1
+    conv), "transp" (transposed conv, no bias), "norm" (InstanceNorm or
+    LayerNorm: scale and bias), "dense" (kernel (in, out) and bias),
+    "dense_nobias", "table" (the relative-position bias, a leaf of its own).
+    `has_res(prefix)` says whether the basic block at a torch prefix
+    projects its input."""
+    rows = []
+
+    def basic(tp: str, fp: tuple) -> None:
+        rows.extend((f"{tp}.{name}", fp + (name,), kind)
+                    for name, kind in (("conv1", "conv"), ("norm1", "norm"),
+                                       ("conv2", "conv"), ("norm2", "norm")))
+        if has_res(tp):
+            rows.extend([(f"{tp}.res", fp + ("res",), "skip"),
+                         (f"{tp}.res_norm", fp + ("res_norm",), "norm")])
+
+    basic("encoder0", ("encoder0",))
+    rows.append(("patch_embed", ("patch_embed",), "conv"))
+    for s, depth in enumerate(depths):
+        for b in range(int(depth)):
+            n = f"stage{s}_block{b}"
+            rows += [(f"{n}.norm1", (n, "norm1"), "norm"),
+                     (f"{n}.attn.qkv", (n, "attn", "qkv"), "dense"),
+                     (f"{n}.attn.rel_pos_bias", (n, "attn", "rel_pos_bias"), "table"),
+                     (f"{n}.attn.proj", (n, "attn", "proj"), "dense"),
+                     (f"{n}.norm2", (n, "norm2"), "norm"),
+                     (f"{n}.mlp1", (n, "mlp1"), "dense"),
+                     (f"{n}.mlp2", (n, "mlp2"), "dense")]
+        merge = f"merge{s}" if s < len(depths) - 1 else "merge_final"
+        rows += [(f"{merge}.norm", (merge, "LayerNorm_0"), "norm"),
+                 (f"{merge}.reduction", (merge, "Dense_0"), "dense_nobias")]
+    for name in ("encoder1", "encoder2", "encoder3", "encoder4", "encoder10"):
+        basic(name, (name,))
+    for name in ("decoder5", "decoder4", "decoder3", "decoder2", "decoder1"):
+        rows.append((f"{name}.up", (name, "up"), "transp"))
+        basic(f"{name}.block", (name, "block"))
+    rows.append(("out", ("out",), "conv"))
+    return rows
+
+
+def convert_swin_unetr_state_dict(state_dict: dict) -> dict:
+    """The port's SwinUNETR state dict -> nested flax param dict of
+    multitalent_tpu's SwinUNETR (fp32 numpy leaves). The inverse of
+    io/from_jax.swin_unetr_state_dict_from_flax; both ways are bit-exact."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                        dtype=np.float32)
+          for k, v in strip_module_prefix(state_dict).items()}
+    params: dict = {}
+    for prefix, path, kind in swin_unetr_key_table(swin_depths(sd),
+                                                   lambda tp: f"{tp}.res.weight" in sd):
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if kind == "table":
+            node[path[-1]] = sd[prefix]
+            continue
+        node = node.setdefault(path[-1], {})
+        if kind == "norm":
+            node["scale"], node["bias"] = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+            continue
+        w = sd[f"{prefix}.weight"]
+        if kind in ("dense", "dense_nobias"):
+            node["kernel"] = np.ascontiguousarray(w.T)
+        else:
+            node["kernel"] = _transpconv_weight(w) if kind == "transp" else _conv_weight(w)
+        if kind in ("conv", "dense"):
             node["bias"] = sd[f"{prefix}.bias"]
     return params
 

@@ -6,7 +6,8 @@ splits_custom.pkl (5 stitched CV folds + 7 leave-one-dataset-out folds);
 dataset-balanced sampling p(case) ~ 1/sqrt(cases of its dataset); the masked
 multi-head BCE + batch-Dice loss over the regions each sample's dataset
 annotates; region-wise online evaluation; ce / dice logged apart. The
-resenc trainers (:244-272) run the same over the residual-encoder UNet.
+resenc trainers (:244-272) run the same over the residual-encoder UNet, the
+SwinUNETR trainer (:297-333) over SwinUNETR with AMSGrad Adam at 5e-4.
 
 Over several ranks (training/trainers.py) every rank samples with the same
 dataset probabilities, the loss pools BCE and batch-Dice statistics over the
@@ -26,7 +27,8 @@ from multitalent_tpu_torch.tasks.multitalent import (NUM_REGIONS, build_custom_s
                                                      inverse_sqrt_sampling_probabilities,
                                                      valid_region_mask)
 from multitalent_tpu_torch.training.losses import label_region_matrix, multitalent_ds_loss
-from multitalent_tpu_torch.training.trainers import ResencUNetMixin, TrainerV2
+from multitalent_tpu_torch.training.trainers import (ResencUNetMixin, SwinUNETRMixin,
+                                                     TrainerV2)
 from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
 from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
@@ -202,3 +204,13 @@ class MultiTalentTrainerResenc2000ep(MultiTalentTrainerResenc):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.max_num_epochs = 2000
+
+
+class MultiTalentTrainerSwinUNETR(SwinUNETRMixin, MultiTalentTrainer):
+    """MultiTalent over SwinUNETR (MultiTalent_trainer_SwinUNETR_ddp_adam,
+    multitalent_tpu/training/multitalent.py:297-333): Adam 5e-4, no deep
+    supervision, the 47 sigmoid regions."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.initial_lr = 5e-4

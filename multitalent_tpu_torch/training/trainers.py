@@ -6,9 +6,10 @@ package's: the epoch loop's bookkeeping, logging, moving averages, patience)
 and replaces the flax parts:
 
 - the network is the port's GenericUNet (ResidualEncoderUNet for the
-  residual-encoder trainers, `ResencUNetMixin`) with deep supervision, He-initialised
-  from a seeded `torch.Generator`, computing in bf16 (fp16=True) with fp32
-  master weights;
+  residual-encoder trainers, `ResencUNetMixin`; SwinUNETR, without deep
+  supervision and with AMSGrad Adam, for `SwinUNETRMixin`'s) with deep
+  supervision, He-initialised from a seeded `torch.Generator`, computing in
+  bf16 (fp16=True) with fp32 master weights;
 - one training step: host batch -> pinned memory -> device -> augmentation
   on the card (augment/pipeline.py) -> forward (the fused conv -> norm route
   under MTTPU_FUSED_TRAIN=1, ops/fused_unet.make_train_forward) ->
@@ -57,6 +58,7 @@ from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
 from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
                                                         build_resenc_unet_from_plans)
+from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
 from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
@@ -65,7 +67,7 @@ from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
 from multitalent_tpu_torch.training.schedules import make_poly_schedule, poly_lr
-from multitalent_tpu_torch.training.train_state import SGDClipped
+from multitalent_tpu_torch.training.train_state import AdamClipped, SGDClipped
 from multitalent_tpu_torch.training.trainer_base import NetworkTrainerBase
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_pickle
 
@@ -254,10 +256,13 @@ class TrainerV2(NetworkTrainerBase):
                 make_poly_schedule(self.initial_lr, self.max_num_epochs,
                                    self.num_batches_per_epoch))
 
+    def init_network_weights(self, generator: torch.Generator) -> None:
+        init_weights_he(self.network, generator)
+
     def _init_state(self) -> None:
-        """He init from a seeded generator, then the optimizer (the flax init
-        and optax state of trainers.py:231)."""
-        init_weights_he(self.network, torch.Generator().manual_seed(self.seed))
+        """The network's init from a seeded generator (He init), then the
+        optimizer (the flax init and optax state of trainers.py:231)."""
+        self.init_network_weights(torch.Generator().manual_seed(self.seed))
         self.network.to(self.device)
         self.optimizer, self.lr_schedule = self.initialize_optimizer()
         n_params = sum(p.numel() for p in self.network.parameters())
@@ -562,6 +567,36 @@ class ResencUNetMixin:
         self.network = build_resenc_unet_from_plans(
             self.plans, self.stage, num_classes=self.num_classes,
             dtype=torch.bfloat16 if self.fp16 else torch.float32)
+
+
+class SwinUNETRMixin:
+    """SwinUNETR (models/swin_unetr.py) for a trainer, as the JAX package's
+    SwinUNETR trainers set it up (multitalent_tpu/training/multitalent.py:
+    297-333, variants.py:840-892): feature_size 48 over the plans' patch
+    (divisible by 32), no deep supervision (the scales [[1, 1, 1]], one loss
+    weight 1.0), the JAX module's initialisers, AMSGrad Adam with weight
+    decay under the poly schedule (AdamClipped, make_adam_optimizer)."""
+
+    def setup_DA_params(self) -> None:
+        super().setup_DA_params()
+        self.deep_supervision_scales = [[1.0, 1.0, 1.0]]
+
+    def initialize_network(self) -> None:
+        self.network = SwinUNETR(self.num_input_channels, self.num_classes,
+                                 tuple(int(p) for p in self.patch_size), feature_size=48,
+                                 dtype=torch.bfloat16 if self.fp16 else torch.float32)
+
+    def init_network_weights(self, generator: torch.Generator) -> None:
+        self.network.init_weights(generator)
+
+    def adam_optimizer(self):
+        return (AdamClipped(self.network.parameters(), weight_decay=self.weight_decay,
+                            clip_norm=12.0),
+                make_poly_schedule(self.initial_lr, self.max_num_epochs,
+                                   self.num_batches_per_epoch))
+
+    def initialize_optimizer(self):
+        return self.adam_optimizer()
 
 
 class TrainerV2ResencUNet(ResencUNetMixin, TrainerV2):

@@ -20,25 +20,29 @@ run/load_pretrained_weights.py:17-61):
   resuming into phase 2): one built in phase 1 registered the heads alone.
 
 `TrainerV2WarmupSegHeadsResenc` (nnUNetTrainerV2_warmupsegheads_resenc) runs
-the head warm-up over the residual-encoder UNet. The SwinUNETR variant needs
-a network the port does not have: cli/train.py refuses it (ROADMAP queue 1,
-item 10).
+the head warm-up over the residual-encoder UNet, `TrainerV2WarmupSegHeadsSwin`
+(nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp) over SwinUNETR,
+with AMSGrad Adam at 5e-4 in phase 2. Its head is `out`: the JAX package's
+predicate (`"seg" in path`, warmup.py:32-34) matches no SwinUNETR parameter,
+so its phase 1 trains nothing and `load_pretrained_weights` carries the head
+over; the port's `is_seg_head_param` knows `out.*`.
 """
 from __future__ import annotations
 
 from multitalent_tpu_torch.training.schedules import make_warmup_poly_schedule, poly_lr
 from multitalent_tpu_torch.training.train_state import AdamWClipped, SGDClipped
-from multitalent_tpu_torch.training.trainers import ResencUNetMixin, TrainerV2
+from multitalent_tpu_torch.training.trainers import ResencUNetMixin, SwinUNETRMixin, TrainerV2
 
-# the heads' parameter names: the GenericUNet's, the residual UNet's, and the
-# name older resenc checkpoints give its last head
+# the heads' parameter names: the GenericUNet's, the residual UNet's, the
+# name older resenc checkpoints give its last head, and the SwinUNETR's
 SEG_HEAD_PREFIXES = ("seg_outputs.", "decoder.deep_supervision_outputs.",
-                     "decoder.segmentation_output.")
+                     "decoder.segmentation_output.", "out.")
 
 
 def is_seg_head_param(name: str) -> bool:
     """Whether a state-dict key (`module.` prefix or not) names a
-    segmentation head's parameter (seg0..segN in the JAX package)."""
+    segmentation head's parameter (seg0..segN of the JAX package's UNets,
+    `out` of its SwinUNETR)."""
     return name.removeprefix("module.").startswith(SEG_HEAD_PREFIXES)
 
 
@@ -127,3 +131,20 @@ class TrainerV2WarmupSegHeads(TrainerV2WarmupLR):
 class TrainerV2WarmupSegHeadsResenc(ResencUNetMixin, TrainerV2WarmupSegHeads):
     """The head warm-up over the residual-encoder UNet
     (multitalent_tpu/training/warmup.py:147-158)."""
+
+
+class TrainerV2WarmupSegHeadsSwin(SwinUNETRMixin, TrainerV2WarmupSegHeads):
+    """The head warm-up over a softmax SwinUNETR: phase 1 AdamW on `out.*`,
+    phase 2 AdamClipped (AMSGrad) at 5e-4 under the poly schedule
+    (multitalent_tpu/training/warmup.py:161-200)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.initial_lr = 5e-4
+
+    def initialize_optimizer(self):
+        if self.optimizer_phase == 1:
+            return TrainerV2WarmupSegHeads.initialize_optimizer(self)
+        for p in self.network.parameters():
+            p.requires_grad_(True)
+        return self.adam_optimizer()

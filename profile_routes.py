@@ -1,15 +1,19 @@
 """Device time by kernel family on the unfused and the fused route of the
-PyTorch/CUDA port, for one flagship training step and one inference forward.
+PyTorch/CUDA port, for one flagship training step and one inference forward,
+and the same for the SwinUNETR.
 
     python3 profile_routes.py [--out PROFILE.json]
 
 The flagship network of chip_smoke.py (full width, seeded random weights, bf16)
 runs on one CUDA card under torch.profiler: one forward + backward at batch 2
 with deep supervision and the MultiTalent loss (no optimizer), and one forward
-of a 96x192x192 tile at batch 1, each after two untimed warm-up runs. It
-prints the wall time, the summed device time of the kernels and its idle
-share, the device time per family (the hand-written kernels A-F, cuDNN
-convs, PyTorch's elementwise, reduction and copy kernels) and the longest
+of a 96x192x192 tile at batch 1, each after two untimed warm-up runs; then
+the SwinUNETR of chip_smoke.py phase 11 (feature_size 48, the trainers'
+init, bf16) the same way, its one output at loss weight 1. It prints the
+wall time, the summed device time of the kernels and its idle
+share, the device time per family (the hand-written kernels A-F, cuBLAS
+GEMMs (the SwinUNETR's attention and Dense layers, 1x1x1 convs), softmax,
+cuDNN convs, PyTorch's elementwise, reduction and copy kernels) and the longest
 kernels, then the tile forward's time by CUDA events (single calls and
 queued); --out writes the same as JSON. It takes the package and chip_smoke
 from its own directory, so a copy of it in another checkout profiles that
@@ -44,6 +48,10 @@ FAMILIES = [
     ("E stats + stats reduce (D, E)", lambda n: "channel_stats" in n or "reduce_rows" in n),
     ("kernel E apply", lambda n: "affine_lrelu" in n),
     ("kernel F", lambda n: "seghead" in n),
+    # cuBLAS's GEMM kernels, not cuDNN's implicit-GEMM convs
+    ("GEMMs (attention, Dense, 1x1x1 convs)", lambda n: "gemm" in n.lower() and not any(
+        k in n.lower() for k in ("implicit", "fprop", "dgrad", "wgrad", "conv"))),
+    ("softmax", lambda n: "softmax" in n.lower()),
     ("cuDNN / cutlass convs", lambda n: any(k in n.lower() for k in
                                             ("cudnn", "xmma", "implicit", "conv", "sm90",
                                              "cutlass", "dgrad", "wgrad_"))),
@@ -142,7 +150,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_routes: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import PATCH, SEED, _flagship_net, _flagship_plans
+    from chip_smoke import PATCH, SEED, _flagship_net, _flagship_plans, _swin_net
     from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
     from multitalent_tpu_torch.training.losses import (ds_loss_weights, label_region_matrix,
                                                        multitalent_ds_loss)
@@ -187,6 +195,30 @@ def main(argv=None) -> int:
         out[f"forward_{route}"].update(timed)
         print(f"   CUDA events, {FORWARD_ITERS} forwards: median {timed['events_ms']:.3f} ms a "
               f"single forward, {timed['queued_ms']:.3f} ms a forward queued back to back")
+    del net
+    torch.cuda.empty_cache()
+    swin = _swin_net(dtype=torch.bfloat16).to(dev)
+
+    def swin_step():
+        swin.zero_grad(set_to_none=True)
+        loss, _, _ = multitalent_ds_loss(swin(x2, deep_supervision=True), targets[:1], valid,
+                                         lrm, [1.0])
+        loss.backward()
+
+    def swin_forward():
+        with torch.no_grad():
+            swin(x1)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["step_swin"] = profile_run("SwinUNETR training step (forward + backward, no optimizer)",
+                                   swin_step)
+    out["step_swin"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["forward_swin"] = profile_run("SwinUNETR inference forward", swin_forward)
+    timed = time_forward(swin_forward)
+    out["forward_swin"].update(timed)
+    print(f"   CUDA events, {FORWARD_ITERS} forwards: median {timed['events_ms']:.3f} ms a "
+          f"single forward, {timed['queued_ms']:.3f} ms a forward queued back to back; step "
+          f"peak {out['step_swin']['peak_gib']:.2f} GiB")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -226,8 +226,8 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 def test_port_and_chip_smoke_import_no_jax():
     """Import every module of the port (the fused conv -> norm route's, the
     probes', validation's, the flax reader's, the generic predict, ensemble
-    and evaluate CLIs' and the planning, Task100 and model-selection
-    modules among them), chip_smoke and
+    and evaluate CLIs', the planning, Task100 and model-selection modules
+    and the SwinUNETR's model and trainer variants among them), chip_smoke and
     profile_routes, in a fresh interpreter (this process's conftest has loaded
     jax already), build the MultiTalent label -> region table, read a sidecar
     that pickles the JAX package's plans class, and confirm that no module of
@@ -239,7 +239,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names + ['chip_smoke', 'profile_routes']:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 88, names\n"
+        "assert len(names) >= 90, names\n"
         "fused = ['multitalent_tpu_torch.ops.fused_unet', 'multitalent_tpu_torch.ops.fused_norm',\n"
         "         'multitalent_tpu_torch.ops.seghead']\n"
         "assert set(fused) <= set(names), names\n"
@@ -282,7 +282,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'multitalent_tpu_torch.evaluation.model_selection',\n"
         "       'multitalent_tpu_torch.cli.determine_postprocessing',\n"
         "       'multitalent_tpu_torch.cli.consolidate_postprocessing',\n"
-        "       'multitalent_tpu_torch.cli.find_best_configuration']\n"
+        "       'multitalent_tpu_torch.cli.find_best_configuration',\n"
+        "       'multitalent_tpu_torch.models.swin_unetr',\n"
+        "       'multitalent_tpu_torch.training.variants']\n"
         "missing = [m for m in own if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "# a JAX sidecar's pickled plans (protocol 2 names the class in text)\n"

@@ -212,11 +212,22 @@ def test_resenc_trainers_restore_with_their_heads(name):
     assert head_of_trainer([name]) == (name, head)
 
 
-@pytest.mark.parametrize("name", ["MultiTalent_meets_mednext", "MultiTalentTrainerMedNeXt",
+@pytest.mark.parametrize("name", ["MultiTalent_tainer_SwinUNETR_ddp_adam",
                                   "MultiTalent_trainer_SwinUNETR_ddp_adam",
+                                  "MultiTalentTrainerSwinUNETR", "TrainerV2SwinUNETR",
+                                  "nnUNetTrainerV2_swinunetr_adam_ddp",
+                                  "nnUNetTrainerV2_swinunetr_adam_ddp_lr5e4",
+                                  "TrainerV2WarmupSegHeadsSwin",
                                   "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"])
+def test_swinunetr_trainers_restore_with_their_heads(name):
+    head = "sigmoid" if name.startswith("MultiTalent") else "softmax"
+    assert head_of_trainer([name]) == (name, head)
+
+
+@pytest.mark.parametrize("name", ["Multitalent_mednextt", "MultiTalent_meets_mednext",
+                                  "MultiTalentTrainerMedNeXt"])
 def test_mednext_and_swinunetr_still_raise_naming_item_10(name):
-    assert set(UNPORTED_TRAINERS.values()) == {"MedNeXt", "SwinUNETR"}
+    assert set(UNPORTED_TRAINERS.values()) == {"MedNeXt"}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         head_of_trainer([name])
 

@@ -196,11 +196,9 @@ def test_train_cli_refuses_what_is_not_ported(task, argv, match):
                     *argv])
 
 
+# (the SwinUNETR trainers train: test_torch_port_swin_cli.py)
 @pytest.mark.parametrize("name", ["MultiTalentTrainerMedNeXt",
-                                  "MultiTalent_meets_mednext",
-                                  "MultiTalent_trainer_SwinUNETR_ddp_adam",
-                                  "MultiTalent_tainer_SwinUNETR_ddp_adam",
-                                  "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"])
+                                  "MultiTalent_meets_mednext"])
 def test_unported_trainers_name_their_roadmap_item(task, name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         train.main(["3d_fullres", name, TASK, "0", "--device", "cpu"])
