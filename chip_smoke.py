@@ -170,6 +170,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    kernel C 0 launches); 11f nnUNetTrainerV2_swinunetr_adam_ddp for 2 steps
    on phase 10a's preprocessed Task003_Liver (128^3, 3 classes) and
    `cli.predict -tr` of its held-out case;
+12. MedNeXt (models/mednext.py) at the MultiTalent trainer's width
+   (n_channels 32, exp_r and blocks (3,4,8,8,8,8,8,4,3), five heads) over
+   the flagship's plans (96x192x192, batch 2, bf16, 47 regions), default
+   mode: 12a `cli.train` with MultiTalent_meets_mednext on phase 5's cases
+   (4 steps, then the validation of one case a dataset: finite losses,
+   every weight but out4's moved, seconds per step, peak memory), and one
+   more step under torch.profiler for the depthwise convs' forward and
+   backward share of its device time; 12b its `.model` folder and the same
+   weights as a JAX-layout `.ckpt` folder restored bit-equal (timed), and
+   predict_multitalent from the `.ckpt` folder on phase 3's case (exact
+   forwards, shape and geometry); 12c one tile's probabilities in bf16
+   against the same network in fp32, and the tile forward's ms. Nothing of
+   MedNeXt runs on a hand-written kernel: A, B and C launch 0 times in each;
+13. the 3d_lowres -> 3d_cascade_fullres workflow on phase 10a's
+   Task003_Liver phantoms: the v21 planner's plan of 10a as the
+   full-resolution stage and a lowres stage of the planner's own stage
+   properties at twice the target spacing, both preprocessed by its
+   run_preprocessing from 10a's cropped data; 13a `cli.train 3d_lowres
+   TrainerV2` fold 0 (3 steps, the validation, predict_next_stage of every
+   case: each segFromPrevStage file at its stage-1 shape), 13b `cli.train
+   3d_cascade_fullres TrainerV2CascadeFullRes` fold 0 (3 steps, the
+   cascade validation), 13c `cli.predict -m 3d_lowres` of the held-out
+   raw case (shape, geometry), each with exact A/B/C counts; 13d one tile
+   of the cascade's network (the image and two one-hots; its first conv
+   on cuDNN) through the kernels against the plain versions in bf16,
+   within phase 4's bounds;
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -184,7 +210,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and `launches_raw_multitalent(_predict)`; A, B and C phase 11's,
    `launches_swin(_predict, _warmup, _liver, _liver_predict)`, and `swin`:
    their "2 SwinUNETR" shapes against cuDNN and the bound, summed over one
-   SwinUNETR forward (11c) and step (11a)), then the result line.
+   SwinUNETR forward (11c) and step (11a)); A, B and C phase 12's
+   `launches_mednext(_predict)` (0) and phase 13's
+   `launches_cascade_lowres` (13a, its next-stage forwards included),
+   `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c),
+   then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -420,6 +450,36 @@ SWIN_PROB_BOUND = 3e-2
 SWIN_PROB_BOUND_MEAN = 2e-3
 SWIN_PROB_BOUND_FP32_MAX = 5e-2
 SWIN_PROB_BOUND_FP32_MEAN = 5e-3
+
+# phase 12: MedNeXt (models/mednext.py) at the MultiTalent trainer's width
+# (MultiTalent_meets_mednext.py: n_channels 32, kernel 3, exp_r and block
+# counts (3,4,8,8,8,8,8,4,3), five deep-supervision heads) over the
+# flagship's plans: patch 96x192x192, batch 2, bf16, 47 sigmoid regions, the
+# sliding window's default mode; cut in steps and cases only. No MedNeXt
+# conv runs on a hand-written kernel (the JAX package computes them in XLA)
+MEDNEXT_TRAINER = "MultiTalent_meets_mednext"
+MEDNEXT_TRAIN_STEPS = 4  # the first 2 are warm-up
+# phase 12c, |dp| of one MedNeXt tile's sigmoid probabilities, the network
+# in bf16 against the same weights in fp32 (TF32 off): 62 blocks of bf16
+# depthwise conv, norm, 1x1x1 expansion, GELU and compression in cuDNN and
+# ATen, each rounding its output, where the flagship has 22 conv layers
+# (its bounds, PROB_BOUND_FP32_*: 1e-1, 1e-2); the max over 1.6e8 values is
+# a tail (measured on the H100 before these bounds: max 1.44e-1, mean
+# 2.65e-3)
+MEDNEXT_PROB_BOUND_FP32_MAX = 2.5e-1
+MEDNEXT_PROB_BOUND_FP32_MEAN = 1e-2
+# phase 13: the 3d_lowres -> 3d_cascade_fullres workflow on phase 10a's
+# Task003_Liver phantoms: the v21 planner's plan of 10a (the Liver network,
+# 128^3) is the full-resolution stage; the lowres stage is the v21
+# planner's own stage properties (get_properties_for_stage, as its lowres
+# loop makes them) at CASCADE_LOWRES_FACTOR times the target spacing.
+# (Phantoms large enough for the planner to add the stage by its rule, a
+# median of more than 4 patches at both stages, would take minutes of host
+# writing, cropping and preprocessing.) Both stages are preprocessed by the
+# planner's run_preprocessing from 10a's cropped data
+CASCADE_LOWRES_FACTOR = 2.0
+CASCADE_TRAINER = "TrainerV2CascadeFullRes"
+CASCADE_TRAIN_STEPS = 3  # of each stage; the first 2 are warm-up
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -2717,8 +2777,9 @@ def _train_counted(args: list, steps: int):
     """cli.train with every launch count set to 0 just before it: the
     trainer, its launches and peak memory; the launches must equal the
     trainer's per-step counts x the steps + per-forward counts x the
-    validation batches + per-forward counts x the validation's network
-    calls, with A, B and C each launched; the losses finite."""
+    validation batches + per-forward counts x the network calls of the
+    validation (and of predict_next_stage after 3d_lowres), with A, B and C
+    each launched; the losses finite."""
     import numpy as np
     import torch
     from multitalent_tpu_torch.cli.train import main as train_main
@@ -2729,6 +2790,8 @@ def _train_counted(args: list, steps: int):
     net = trainer.network
     per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
     calls = sum(t["net_calls"] for t in trainer.validation_timings)
+    # after 3d_lowres, predict_next_stage's forwards of every case
+    calls += sum(t["net_calls"] for t in getattr(trainer, "next_stage_timings", ()))
     expect = {k: a + b + c for (k, a), b, c in zip(
         _expect(per_step, trainer.step).items(),
         _expect(per_fwd, trainer.num_val_batches_per_epoch).values(),
@@ -3255,6 +3318,423 @@ def phase_swin_liver(workdir: str, generic: dict) -> dict:
             "train_s": train_s, "predict_s": predict_s}
 
 
+def _mednext_net(num_classes: int = 47, seed: int = SEED, dtype=None):
+    """MedNeXt at the MultiTalent trainer's width with its init from `seed`."""
+    import torch
+    from multitalent_tpu_torch.models.mednext import MedNeXt
+    net = MedNeXt(1, n_channels=32, n_classes=num_classes, dtype=dtype or torch.float32)
+    net.init_weights(torch.Generator().manual_seed(seed))
+    return net
+
+
+def _no_launches(label: str, launches: dict) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{label}: hand-written kernels launched "
+                             f"{ {k: v for k, v in launches.items() if v} }, expected none")
+
+
+def _depthwise_share(trainer) -> dict:
+    """One training step (forward with the per-block recompute, backward,
+    SGD) of the trainer's network on a seeded batch under torch.profiler:
+    the device time of the depthwise convs (weights (C, 1, k, k, k)) forward
+    (aten::convolution, the recompute included) and backward
+    (aten::convolution_backward), each the kernels under those ops, against
+    the device time of every kernel of the step, its wall time and its
+    three longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    data = torch.randn(TRAIN_BATCH, 1, *PATCH, generator=gen, device=dev)
+    targets = [torch.randint(0, 48, (TRAIN_BATCH, *(int(round(p * f)) for p, f in
+                                                     zip(PATCH, scale))),
+                             generator=gen, device=dev).float()
+               for scale in trainer.deep_supervision_scales]
+    valid = torch.ones(TRAIN_BATCH, 47, device=dev)
+
+    def step():
+        trainer.optimizer.zero_grad()
+        loss, _ = trainer.loss_fn(trainer.network_forward(data, deep_supervision=True),
+                                  targets, {"valid_region_mask": valid})
+        loss.backward()
+        trainer.optimizer.step(trainer.lr_schedule(trainer.step))
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e, name: str) -> float:
+        t = getattr(e, name.replace("cuda", "device"), None)
+        return float(t if t is not None else getattr(e, name, 0.0))
+
+    out = {"forward_ms": 0.0, "backward_ms": 0.0, "forward_calls": 0, "backward_calls": 0,
+           "wall_ms": wall_ms}
+    kernels = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            kernels.append((device_us(e, "self_cuda_time_total") / 1e3, e.count, e.key))
+            continue
+        arg = {"aten::convolution": 1, "aten::convolution_backward": 2}.get(e.key)
+        shapes = e.input_shapes or []
+        if arg is None or len(shapes) <= arg:
+            continue
+        w = shapes[arg]
+        if len(w) == 5 and w[1] == 1 and w[2] > 1:
+            which = "forward" if arg == 1 else "backward"
+            out[f"{which}_ms"] += device_us(e, "cuda_time_total") / 1e3
+            out[f"{which}_calls"] += e.count
+    out["step_device_ms"] = sum(k[0] for k in kernels)
+    out["top"] = [(round(ms, 1), n, name[:90]) for ms, n, name in sorted(kernels)[::-1][:3]]
+    return out
+
+
+def phase_mednext_training(workdir: str) -> dict:
+    """12a: cli.train with MultiTalent_meets_mednext on phase 5's synthetic
+    MultiTalent cases at the flagship's plans (MEDNEXT_TRAIN_STEPS steps,
+    then the validation of one case a dataset, default mode): finite
+    losses, every weight moved but the head of loss weight 0 (out4), no
+    hand-written kernel launched; seconds per step, peak memory, and the
+    depthwise convs' share of a step's device time (torch.profiler)."""
+    import torch
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.models.mednext import MedNeXt
+    task = "Task100_MultiTalent"
+    with _env(nnUNet_preprocessed=os.path.join(workdir, "preprocessed"),
+              RESULTS_FOLDER=os.path.join(workdir, "results_mednext"), MTTPU_MAX_EPOCHS="1",
+              MTTPU_ITERS_PER_EPOCH=str(MEDNEXT_TRAIN_STEPS), MTTPU_VAL_ITERS="1",
+              MTTPU_SW_EXACT="0", MTTPU_FUSED_TRAIN="0", MTTPU_FUSED_NORM="0"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", MEDNEXT_TRAINER, task, "0", "--device", "cuda", "-gpus", "1"]))
+        train_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    net = trainer.network
+    _no_launches("MedNeXt training", launches)
+    losses = trainer.all_tr_losses + trainer.all_val_losses
+    if (not isinstance(net, MedNeXt) or trainer.step != MEDNEXT_TRAIN_STEPS
+            or not all(v == v and abs(v) < float("inf") for v in losses)):
+        raise AssertionError(f"MedNeXt training: {type(net).__name__}, {trainer.step} steps, "
+                             f"losses {losses}")
+    validation = _check_validation(os.path.join(trainer.output_folder, "validation_raw"),
+                                   trainer)
+    still = _unmoved(net, _mednext_net(seed=trainer.seed), keep=("out4.weight",))
+    if still:
+        raise AssertionError(f"MedNeXt weights that did not move: {still}")
+    model = os.path.dirname(trainer.output_folder)
+    sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    median_s = _steps_s(trainer)
+    print(f"MedNeXt training ({MEDNEXT_TRAINER}): {trainer.step} steps of batch {TRAIN_BATCH} "
+          f"at {PATCH}, bf16, n_channels {net.n_channels}, exp_r {net.exp_r}, blocks "
+          f"{net.block_counts}, {sum(p.numel() for p in net.parameters()):,} parameters; "
+          f"losses {[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+          f"{[round(v, 4) for v in trainer.all_val_losses]} (val)")
+    print(f"MedNeXt seconds per step: median {median_s:.3f} of steps 3..{trainer.step} "
+          f"({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak memory "
+          f"{peak_gib:.2f} GiB; train CLI {train_s:.1f} s; hand-written kernel launches 0")
+    print(f"MedNeXt validation: {validation['seconds_per_case']:.2f} s per case (predict "
+          f"{validation['predict_s']} s, {validation['forwards']} forwards); Dice "
+          f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
+    dw = _depthwise_share(trainer)
+    step_ms = dw["step_device_ms"]
+    if step_ms > 0:
+        share = (f"forward {dw['forward_ms']:.1f} ms ({100 * dw['forward_ms'] / step_ms:.1f}%, "
+                 f"{dw['forward_calls']} calls with the recompute), backward "
+                 f"{dw['backward_ms']:.1f} ms ({100 * dw['backward_ms'] / step_ms:.1f}%, "
+                 f"{dw['backward_calls']} calls) of the step's {step_ms:.1f} ms of device time "
+                 f"(wall {dw['wall_ms']:.1f} ms under the profiler); longest kernels (ms, "
+                 f"calls, name) {dw['top']}")
+    else:
+        share = "not measured (the profiler saw no device time)"
+    print(f"MedNeXt depthwise convs in one profiled training step (torch.profiler): {share}")
+    out = {"launches": launches, "seconds_per_step": median_s, "step_s": trainer.step_seconds,
+           "peak_gib": peak_gib, "validation": validation, "model": model,
+           "fold": trainer.output_folder, "plans": trainer.plans, "state_dict": sd,
+           "depthwise": dw, "train_s": train_s}
+    del trainer, net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mednext_predict(workdir: str, training: dict) -> dict:
+    """12b: 12a's folder restored on the card (every tensor bit-equal to
+    the trained weights), the same weights as a JAX-layout `.ckpt` folder
+    restored (timed, bit-equal), then predict_multitalent from the `.ckpt`
+    folder on phase 3's case with mirror TTA: exact forwards, no
+    hand-written kernel launched, the labelmap and all 47 masks at the raw
+    case's shape and geometry."""
+    import torch
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               save_jax_model_folder)
+    from multitalent_tpu_torch.inference.predict import REGIONS
+    from multitalent_tpu_torch.models.mednext import MedNeXt
+    sd = training["state_dict"]
+    jax_model = os.path.join(workdir, "jax_model_mednext")
+    save_jax_model_folder(jax_model, training["plans"], [sd], "MultiTalentTrainerMedNeXt",
+                          trainer_bases=["MultiTalentTrainer", "TrainerV2", "NetworkTrainerBase"])
+    restore_s = {}
+    for label, folder in ((".model", training["model"]), (".ckpt", jax_model)):
+        t0 = time.perf_counter()
+        restored = load_model_and_checkpoint_files(folder, [0], device="cuda")
+        torch.cuda.synchronize()
+        restore_s[label] = time.perf_counter() - t0
+        (net,) = restored.networks
+        got = net.state_dict()
+        if (not isinstance(net, MedNeXt) or restored.inference_nonlin != "sigmoid"
+                or sorted(got) != sorted(sd)
+                or not all(torch.equal(v.cpu(), sd[k]) for k, v in got.items())):
+            raise AssertionError(f"MedNeXt restored from the {label} folder differs")
+        del restored, net, got
+    n_tiles, _ = _case_tiles()
+    out = os.path.join(workdir, "out_mednext")
+    with _env(MTTPU_SW_EXACT="0", MTTPU_FUSED_NORM="0"):
+        t0 = time.perf_counter()
+        timings, launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.join(workdir, "in"), "-o", out, "-m", jax_model, "-f", "0",
+             "--device", "cuda"]))
+        wall = time.perf_counter() - t0
+    (case,) = timings
+    _no_launches("MedNeXt predict", launches)
+    if case["forwards"] != n_tiles * 8:
+        raise AssertionError(f"MedNeXt predict: {case}, expected {n_tiles} tiles x 8")
+    _, shape = _check_prediction(out, os.path.join(workdir, "in", "case_0000.nii.gz"), REGIONS)
+    ckpt = os.path.join(jax_model, "fold_0", "model_final_checkpoint.ckpt")
+    print(f"MedNeXt restore: .model folder {restore_s['.model']:.2f} s, JAX-layout .ckpt "
+          f"folder ({os.path.getsize(ckpt) / 2 ** 20:.1f} MiB) {restore_s['.ckpt']:.2f} s, "
+          f"{len(sd)} tensors bit-equal to the trained weights in both")
+    print(f"MedNeXt predict from the .ckpt folder ({case['forwards']} forwards = {n_tiles} "
+          f"tiles x 8 in {case['net_calls']} network calls): labelmap + {len(REGIONS)} region "
+          f"NIfTIs at {shape} with the case's geometry; seconds per case {wall:.2f} (predict "
+          f"{case['predict_s']:.2f} on the card's clock, export {case['export_s']:.2f}); "
+          f"hand-written kernel launches 0")
+    return {"launches": launches, "seconds_per_case": wall, "predict_s": case["predict_s"],
+            "restore_s": restore_s}
+
+
+def phase_mednext_tile() -> dict:
+    """12c: one MedNeXt tile's sigmoid probabilities in bf16 against the same
+    network in fp32 (TF32 off), the trainer's init from the seed; the tile
+    forward's ms; no hand-written kernel launched."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    net = _mednext_net(dtype=torch.bfloat16).to(dev).eval()
+    net32 = _mednext_net(dtype=torch.float32).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn(1, 1, *PATCH, generator=gen, device=dev)
+    with torch.no_grad():
+        logits, launches = _run_counted(lambda: net(x))
+        _no_launches("MedNeXt tile", launches)
+        if logits.shape != (1, 47, *PATCH) or not torch.isfinite(logits).all():
+            raise AssertionError(f"MedNeXt logits {tuple(logits.shape)}")
+        out = {}
+        out["fp32_max"], out["fp32_mean"] = _dp(torch.sigmoid(logits),
+                                                torch.sigmoid(net32(x)))
+        out["forward_ms"] = _median_ms(lambda: net(x), iters=5)
+    print(f"MedNeXt tile {PATCH}: |dp| bf16 vs fp32: max {out['fp32_max']:.3e} (bound "
+          f"{MEDNEXT_PROB_BOUND_FP32_MAX}), mean {out['fp32_mean']:.3e} (bound "
+          f"{MEDNEXT_PROB_BOUND_FP32_MEAN})")
+    print(f"one bf16 MedNeXt forward of a tile: {out['forward_ms']:.2f} ms (median of 5, CUDA "
+          f"events)")
+    if not (out["fp32_max"] <= MEDNEXT_PROB_BOUND_FP32_MAX
+            and out["fp32_mean"] <= MEDNEXT_PROB_BOUND_FP32_MEAN):
+        raise AssertionError(f"MedNeXt probabilities out of bounds: {out}")
+    del net, net32, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cascade_plans(generic: dict, root: str) -> tuple[str, dict]:
+    """The two-stage plan of phase 13 under root/preprocessed/Task003_Liver:
+    the v21 planner on 10a's cropped Liver data, its full-resolution stage as
+    10a's, a lowres stage of its own get_properties_for_stage at
+    CASCADE_LOWRES_FACTOR times the target spacing; both stages
+    preprocessed by its run_preprocessing. Returns the folder and the host
+    seconds of planning and preprocessing."""
+    import numpy as np
+    from multitalent_tpu_torch.paths import default_num_threads
+    from multitalent_tpu_torch.planning.planners import resolve_planner
+    task = "Task003_Liver"
+    cropped = os.path.join(generic["env"]["nnUNet_raw_data_base"], "nnUNet_cropped_data", task)
+    prep = os.path.join(root, "preprocessed", task)
+    os.makedirs(prep)
+    seconds = {}
+    t0 = time.perf_counter()
+    planner = resolve_planner("ExperimentPlanner3D_v21")(cropped, prep)
+    plans = planner.plan_experiment()
+    (full,) = plans["plans_per_stage"].values()
+    low = planner.get_properties_for_stage(
+        np.asarray(full["current_spacing"]) * CASCADE_LOWRES_FACTOR, full["current_spacing"],
+        full["median_patient_size_in_voxels"], len(planner.list_of_cropped_npz_files),
+        plans["num_modalities"], plans["num_classes"] + 1)
+    planner.plans_per_stage = plans["plans_per_stage"] = {0: low, 1: full}
+    plans["num_stages"] = 2
+    planner.save_my_plans()
+    seconds["plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planner.run_preprocessing((default_num_threads, default_num_threads))
+    seconds["preprocess"] = time.perf_counter() - t0
+    return prep, seconds
+
+
+def phase_cascade(workdir: str, generic: dict) -> dict:
+    """13: the 3d_lowres -> 3d_cascade_fullres workflow on phase 10a's
+    Task003_Liver phantoms and the two-stage plan of _cascade_plans. 13a:
+    cli.train 3d_lowres TrainerV2 fold 0 (CASCADE_TRAIN_STEPS steps, the
+    validation, then predict_next_stage of every case into stage 1); 13b:
+    cli.train 3d_cascade_fullres TrainerV2CascadeFullRes fold 0 (as many
+    steps, the cascade validation); 13c: cli.predict -m 3d_lowres of the
+    held-out raw case. Exact A/B/C counts of each; every case's
+    segFromPrevStage file at its stage-1 shape; the prediction at the raw
+    case's shape and geometry."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    task = "Task003_Liver"
+    root = os.path.join(workdir, "cascade")
+    env = {**generic["env"], "nnUNet_preprocessed": os.path.join(root, "preprocessed"),
+           "RESULTS_FOLDER": os.path.join(root, "results"),
+           "MTTPU_ITERS_PER_EPOCH": str(CASCADE_TRAIN_STEPS)}
+    seconds = {}
+    with _env(**env):
+        prep, seconds = _cascade_plans(generic, root)
+        plan = _print_plan("13, the two-stage Liver plan,", os.path.join(
+            prep, f"{default_plans_identifier}_plans_3D.pkl"))
+        if plan["num_stages"] != 2:
+            raise AssertionError(f"the cascade plan has {plan['num_stages']} stages")
+        runs = {}
+        for label, network, trainer_name in (("13a", "3d_lowres", "TrainerV2"),
+                                             ("13b", "3d_cascade_fullres", CASCADE_TRAINER)):
+            # 13a's launches include its predict_next_stage forwards
+            t0 = time.perf_counter()
+            trainer, launches, peak_gib, per_step, calls = _train_counted(
+                [network, trainer_name, task, "0", "--device", "cuda", "-gpus", "1"],
+                CASCADE_TRAIN_STEPS)
+            cli_s = time.perf_counter() - t0
+            net = trainer.network
+            next_calls = sum(t["net_calls"] for t in getattr(trainer, "next_stage_timings", ()))
+            runs[label] = {
+                "what": f"{network} {trainer_name}", "launches": launches,
+                "peak_gib": peak_gib, "per_step": per_step,
+                "per_forward": net.kernel_launches_per_forward(), "calls": calls,
+                "next_calls": next_calls, "cli_s": cli_s, "steps_s": _steps_s(trainer),
+                "step_s": trainer.step_seconds, "stage": trainer.stage,
+                "patch": tuple(int(p) for p in trainer.patch_size),
+                "input_channels": net.input_channels, "validation_s": trainer.validation_seconds,
+                "val_cases": len(trainer.validation_timings),
+                "next_stage_s": sum(t["predict_s"] for t in getattr(trainer,
+                                                                    "next_stage_timings", ())),
+                "losses": (trainer.all_tr_losses, trainer.all_val_losses)}
+            if label == "13a":
+                stage1 = os.path.join(prep, trainer.plans.data_identifier + "_stage1")
+                shapes = {}
+                for key in sorted(trainer.dataset):
+                    prev = np.load(os.path.join(stage1, f"{key}_segFromPrevStage.npz"))["data"]
+                    data_shape = np.load(os.path.join(stage1, f"{key}.npz"))["data"].shape[1:]
+                    if prev.dtype != np.uint8 or prev.shape[1:] != data_shape:
+                        raise AssertionError(f"{key}: next stage {prev.dtype} {prev.shape}, "
+                                             f"stage 1 {data_shape}")
+                    shapes[key] = data_shape
+                runs[label]["next_stage"] = {"cases": len(shapes),
+                                             "labels": sorted(np.unique(prev).tolist())}
+            else:
+                cascade_plans, cascade_stage = trainer.plans, trainer.stage
+                _need(os.path.join(trainer.output_folder, "validation_raw", "summary.json"))
+            del trainer, net
+            torch.cuda.empty_cache()
+        out = os.path.join(root, "predicted_lowres")
+        t0 = time.perf_counter()
+        timings, predict_launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", task, "-m",
+             "3d_lowres", "-tr", "TrainerV2", "-f", "0", "--device", "cuda"]))
+        seconds["predict lowres"] = time.perf_counter() - t0
+    calls = sum(t["net_calls"] for t in timings)
+    expect = _expect(runs["13a"]["per_forward"], calls)
+    if predict_launches != expect:
+        raise AssertionError(f"13c predict: launches {predict_launches}, expected {expect}")
+    labels, shape = _check_prediction(out, generic["held_out"])
+    if not set(labels) <= {0, 1, 2}:
+        raise AssertionError(f"13c predicted labels {labels}")
+    tile = _cascade_tile(cascade_plans, cascade_stage)
+    for label, r in runs.items():
+        print(f"{label} {r['what']}: stage {r['stage']}, patch {r['patch']}, "
+              f"{r['input_channels']} input channels; {CASCADE_TRAIN_STEPS} steps, losses "
+              f"{[round(v, 4) for v in r['losses'][0]]} (train), "
+              f"{[round(v, 4) for v in r['losses'][1]]} (val); seconds per step "
+              f"{', '.join(f'{v:.3f}' for v in r['step_s'])}; peak {r['peak_gib']:.2f} GiB; "
+              f"validation of {r['val_cases']} case(s) {r['validation_s']:.2f} s; CLI "
+              f"{r['cli_s']:.1f} s")
+        print(f"{label} launches: { {k: v for k, v in r['launches'].items() if v} } = a step "
+              f"{r['per_step']} x {CASCADE_TRAIN_STEPS} + a forward {r['per_forward']} x (1 "
+              f"validation batch + {r['calls'] - r['next_calls']} validation network calls"
+              + (f" + {r['next_calls']} next-stage network calls" if r["next_calls"] else "")
+              + ")")
+    print(f"13a predict_next_stage: {runs['13a']['next_stage']['cases']} cases at the stage-1 "
+          f"grid in {runs['13a']['next_stage_s']:.2f} s on the card's clock, labels "
+          f"{runs['13a']['next_stage']['labels']} (last case)")
+    print(f"13c cli.predict -m 3d_lowres of {os.path.basename(generic['held_out'])}: "
+          f"{seconds['predict lowres']:.2f} s, {calls} network calls, launches "
+          f"{ {k: v for k, v in predict_launches.items() if v} } = a forward "
+          f"{runs['13a']['per_forward']} x {calls}; labels {labels} at {shape}")
+    print("13 host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"runs": runs, "predict_launches": predict_launches, "seconds": seconds,
+            "plan": plan, "tile": tile}
+
+
+def _cascade_tile(plans, stage: int) -> dict:
+    """13d: one tile of the cascade's full-resolution network (the image and
+    the previous stage's two one-hots, He init from the seed): softmax
+    probabilities through the kernels in bf16 against the plain versions
+    in bf16, within phase 4's bounds; the first conv (3 input channels)
+    stays on cuDNN."""
+    import torch
+    from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+    from multitalent_tpu_torch.training.trainers import init_weights_he
+    dev = torch.device("cuda")
+    net = build_unet_from_plans(plans, stage, num_classes=plans.num_classes + 1,
+                                input_channels=plans.num_modalities + plans.num_classes)
+    init_weights_he(net, torch.Generator().manual_seed(SEED))
+    net = net.to(dev).eval()
+    patch = tuple(int(p) for p in plans.stage(stage).patch_size)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    prev = torch.randint(0, plans.num_classes + 1, (1, *(p // 8 for p in patch)),
+                         generator=gen, device=dev)
+    prev = torch.nn.functional.interpolate(prev[:, None].float(), size=patch)[:, 0]
+    x = torch.cat([torch.randn(1, 1, *patch, generator=gen, device=dev),
+                   *[(prev == c)[:, None].float() for c in range(1, plans.num_classes + 1)]], 1)
+    first = net.conv_blocks_context[0].blocks[0].conv
+    with torch.no_grad(), _recording("conv3d_same") as a_shapes, \
+            _recording("conv3d_same_dual") as b_shapes:
+        p_kernels = torch.softmax(net(x), 1)
+    per = net.kernel_launches_per_forward()
+    if (first.route is not None or sum(a_shapes.values()) != per["conv3d_same"]
+            or sum(b_shapes.values()) != per["conv3d_same_dual"]):
+        raise AssertionError(f"cascade tile: first conv route {first.route}, A "
+                             f"{sum(a_shapes.values())}, B {sum(b_shapes.values())}, per "
+                             f"forward {per}")
+    with torch.no_grad():
+        p_plain = torch.softmax(net(x, use_kernels=False), 1)
+    out = {}
+    out["bf16_max"], out["bf16_mean"] = _dp(p_kernels, p_plain)
+    print(f"13d cascade tile {patch} (input {x.shape[1]} channels, first conv "
+          f"on cuDNN, {per} kernel launches): |dp| kernels vs plain bf16 max "
+          f"{out['bf16_max']:.3e} (bound {PROB_BOUND}), mean {out['bf16_mean']:.3e} (bound "
+          f"{PROB_BOUND_MEAN})")
+    if not (out["bf16_max"] <= PROB_BOUND and out["bf16_mean"] <= PROB_BOUND_MEAN):
+        raise AssertionError(f"cascade tile out of bounds: {out}")
+    del net, x
+    torch.cuda.empty_cache()
+    return out
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -3667,6 +4147,11 @@ def main() -> int:
         swin_jax = timed("11d SwinUNETR JAX-layout folder", phase_swin_jax_folder, workdir, swin)
         swin_warmup = timed("11e SwinUNETR warm-up", phase_swin_warmup, workdir, swin_jax)
         swin_liver = timed("11f SwinUNETR Liver", phase_swin_liver, workdir, raw_generic)
+        mednext = timed("12a MedNeXt train", phase_mednext_training, workdir)
+        mednext_predict = timed("12b MedNeXt restore + predict", phase_mednext_predict, workdir,
+                                mednext)
+        mednext_tile = timed("12c MedNeXt tile", phase_mednext_tile)
+        cascade = timed("13 cascade", phase_cascade, workdir, raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3750,6 +4235,11 @@ def main() -> int:
     for row, timed_rows, sums in zip(rows, (swin_a, swin_kernels["conv3d_same_dual"],
                                             swin_kernels["conv3d_same_wgrad"]), swin_sums):
         kname = row["name"]
+        row.update(launches_mednext=mednext["launches"][kname],
+                   launches_mednext_predict=mednext_predict["launches"][kname],
+                   launches_cascade_lowres=cascade["runs"]["13a"]["launches"][kname],
+                   launches_cascade_fullres=cascade["runs"]["13b"]["launches"][kname],
+                   launches_cascade_predict=cascade["predict_launches"][kname])
         row.update(launches_swin=swin["launches"][kname],
                    launches_swin_predict=swin_predict["launches"][kname],
                    launches_swin_warmup=swin_warmup["launches"][kname],
@@ -3916,6 +4406,30 @@ def main() -> int:
           f"(cuDNN on the concat {sb['forward_cudnn_bf16_ms']:.3f}), over a step "
           f"{sb['step_ms']:.3f} ms; kernel C over a step {sc['step_ms']:.3f} ms (cuDNN "
           f"{sc['step_cudnn_ms']:.3f}); on {smi}")
+    dw = mednext["depthwise"]
+    print(f"summary, MedNeXt (phase 12): seconds per training step "
+          f"{mednext['seconds_per_step']:.3f} (steps "
+          f"{', '.join(f'{v:.3f}' for v in mednext['step_s'])}); peak {mednext['peak_gib']:.2f} "
+          f"GiB; validation {mednext['validation']['seconds_per_case']:.2f} s per case; predict "
+          f"{mednext_predict['seconds_per_case']:.2f} s per case (predict "
+          f"{mednext_predict['predict_s']:.2f}); restore .model "
+          f"{mednext_predict['restore_s']['.model']:.2f} s, .ckpt "
+          f"{mednext_predict['restore_s']['.ckpt']:.2f} s; one tile forward "
+          f"{mednext_tile['forward_ms']:.2f} ms; bf16 vs fp32 |dp| max "
+          f"{mednext_tile['fp32_max']:.3e}, mean {mednext_tile['fp32_mean']:.3e}; depthwise "
+          f"convs of a profiled step: forward {dw['forward_ms']:.1f} ms, backward "
+          f"{dw['backward_ms']:.1f} ms of {dw['step_device_ms']:.1f} ms of device time; A/B/C "
+          f"launches 0; on {smi}")
+    cr = cascade["runs"]
+    print("summary, cascade (phase 13): " + "; ".join(
+        f"{label} patch {r['patch']}, {r['input_channels']} input channels, seconds per step "
+        f"{r['steps_s']:.3f}, peak {r['peak_gib']:.2f} GiB, validation {r['validation_s']:.2f} s, "
+        f"A/B/C a step {r['per_step']}" for label, r in cr.items())
+          + f"; next stage {cr['13a']['next_stage_s']:.2f} s for "
+          f"{cr['13a']['next_stage']['cases']} cases; 13c predict "
+          f"{cascade['seconds']['predict lowres']:.2f} s; 13d tile kernels vs plain |dp| max "
+          f"{cascade['tile']['bf16_max']:.3e}, mean {cascade['tile']['bf16_mean']:.3e}; host "
+          f"seconds {', '.join(f'{k} {v:.2f}' for k, v in cascade['seconds'].items())}; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ Parity target: nnunet/evaluation/model_selection/figure_out_what_to_submit.py:47
 (nnUNet_find_best_configuration, setup.py:37).
 
 The port's copy of multitalent_tpu/cli/find_best_configuration.py; host code.
-Configurations without a model folder (by default 2d, 3d_lowres and the
-cascade, which the port does not train yet) are skipped:
+Configurations without a model folder (2d, which the port does not train
+yet, and any configuration not trained; the cascade's folder is
+3d_cascade_fullres/<task>/<-ctr>__<plans>) are skipped:
 
     python -m multitalent_tpu_torch.cli.find_best_configuration -t TASK -m 3d_fullres -f 0
 """

@@ -13,8 +13,12 @@ RESULTS_FOLDER the environment names:
 the fold sum after resizing it back, fastest argmaxes on the network's grid
 and resizes the labelmap by nearest neighbour. MTTPU_SW_EXACT=1 runs the
 sliding window in its exact (fp32) mode, MTTPU_DEVICE_EXPORT=0 exports on
-the host. 2d, 3d_lowres and 3d_cascade_fullres models are not ported yet
-(ROADMAP queue 1, item 10) and raise.
+the host. `-m 3d_lowres` predicts a cascade's first stage, an ordinary model
+folder at stage 0. Refused: 2d models (ROADMAP queue 1, item 10d), and
+3d_cascade_fullres ones, which read the previous stage's segmentations: the
+JAX package's CLI accepts them (lowres_segmentations) but never reads them,
+so it cannot predict such a folder either (a cascade validates through
+`cli.train 3d_cascade_fullres ... -val`).
 """
 from __future__ import annotations
 
@@ -55,9 +59,16 @@ def main(argv=None) -> list[dict]:
                              "(their plain PyTorch versions)")
     args = parser.parse_args(argv)
 
-    if args.model != "3d_fullres":
-        raise NotImplementedError(f"-m {args.model}: the port predicts 3d_fullres models "
-                                  "(2D, 3d_lowres and the cascade: ROADMAP queue 1, item 10)")
+    if args.model == "2d":
+        raise NotImplementedError("-m 2d: 2D models are not ported yet (ROADMAP queue 1, "
+                                  "item 10d)")
+    if args.model == "3d_cascade_fullres":
+        raise NotImplementedError(
+            "-m 3d_cascade_fullres: a cascade model reads the previous stage's "
+            "segmentations, which the JAX package's predict CLI accepts "
+            "(lowres_segmentations) but never reads, so it predicts no cascade folder "
+            "either; predict the 3d_lowres model, or validate the cascade with "
+            "cli.train 3d_cascade_fullres ... -val")
     task = resolve_task_name(args.task_name)
     plans_identifier = args.plans_identifier or paths.default_plans_identifier
     model_folder = os.path.join(paths.network_training_output_dir(), args.model, task,

@@ -18,6 +18,17 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
                                    UNet, on plans with num_blocks_encoder/decoder
     ... MultiTalent_trainer_SwinUNETR_ddp_adam TASK 0        SwinUNETR (a patch
                                    divisible by 32), also nnUNetTrainerV2_swinunetr_adam_ddp
+    ... MultiTalent_meets_mednext TASK 0                     MedNeXt (a patch
+                                   divisible by 16), also Multitalent_mednextt
+    python -m multitalent_tpu_torch.cli.train 3d_lowres TrainerV2 TASK 0
+    ... 3d_cascade_fullres TrainerV2CascadeFullRes TASK 0    the cascade, on a
+                                   two-stage plan
+
+After 3d_lowres (and its validation) the CLI loads the fold's best
+checkpoint and writes the next stage's input, every case's labelmap resampled
+to the full-resolution grid (training/cascade.predict_next_stage:
+<data_identifier>_stage{stage+1}/<case>_segFromPrevStage.npz), which
+3d_cascade_fullres trains and validates on.
 
 -pretrained_weights takes a JAX `.ckpt` or a reference / port `.model` and
 transfers every backbone weight of matching name and shape (never the heads);
@@ -36,9 +47,8 @@ The plans' batch is the global batch, always split over the ranks
 (parallel/distributed.py; --dbs is accepted and changes nothing). Every rank
 reads -c's checkpoint and -pretrained_weights; rank 0 writes the folder; the
 validation splits its cases over the ranks. Refused: more ranks than cards,
-a split that leaves a rank without a sample (ROADMAP queue 1, item 14), 2D
-and cascade networks and the MedNeXt trainers (item 10), including
-3d_lowres's prediction of the next stage.
+a split that leaves a rank without a sample (ROADMAP queue 1, item 14), and
+2D networks (item 10d).
 """
 from __future__ import annotations
 
@@ -50,15 +60,16 @@ import torch
 
 from multitalent_tpu_torch import paths
 from multitalent_tpu_torch.cli.configuration import resolve_task_name
-from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS,
-                                                           checkpoint_state_dict)
+from multitalent_tpu_torch.inference.model_restore import checkpoint_state_dict
 from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep,
+                                                        MultiTalentTrainerMedNeXt,
                                                         MultiTalentTrainerResenc,
                                                         MultiTalentTrainerResenc2000ep,
                                                         MultiTalentTrainerSwinUNETR)
+from multitalent_tpu_torch.training.cascade import CASCADE_TRAINERS, predict_next_stage
 from multitalent_tpu_torch.training.trainers import (TrainerV2, TrainerV2_2epochs,
                                                      TrainerV2_5epochs, TrainerV2_dummyLoad,
                                                      TrainerV2ResencUNet)
@@ -89,6 +100,8 @@ TRAINERS = {
                      "MultiTalent_tainer_resenc_ddp"), MultiTalentTrainerResenc2000ep),
     **dict.fromkeys(("TrainerV2WarmupSegHeadsResenc", "nnUNetTrainerV2_warmupsegheads_resenc"),
                     TrainerV2WarmupSegHeadsResenc),
+    **dict.fromkeys(("MultiTalentTrainerMedNeXt", "Multitalent_mednextt",
+                     "MultiTalent_meets_mednext"), MultiTalentTrainerMedNeXt),
     # SwinUNETR; the released zip spells one trainer MultiTalent_tainer_...
     **dict.fromkeys(("MultiTalentTrainerSwinUNETR", "MultiTalent_trainer_SwinUNETR_ddp_adam",
                      "MultiTalent_tainer_SwinUNETR_ddp_adam"), MultiTalentTrainerSwinUNETR),
@@ -99,6 +112,8 @@ TRAINERS = {
     **dict.fromkeys(("TrainerV2WarmupSegHeadsSwin",
                      "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"),
                     TrainerV2WarmupSegHeadsSwin),
+    # the cascade's full-resolution stage and its variants
+    **CASCADE_TRAINERS,
     # the reference's benchmarking trainers
     **dict.fromkeys(("TrainerV2_2epochs", "nnUNetTrainerV2_2epochs"), TrainerV2_2epochs),
     **dict.fromkeys(("TrainerV2_5epochs", "nnUNetTrainerV2_5epochs"), TrainerV2_5epochs),
@@ -111,14 +126,13 @@ def get_default_configuration(network: str, task: str, network_trainer: str,
                               plans_identifier: str | None = None):
     """The path logic of multitalent_tpu/cli/configuration.py:27 with the
     port's trainer classes: (plans_file, output_folder, dataset_directory,
-    batch_dice, stage, trainer_class)."""
-    if network not in ("3d_fullres", "3d_lowres"):
-        raise NotImplementedError(f"network {network!r}: the port trains 3d_fullres and "
-                                  "3d_lowres (2D and the cascade: ROADMAP queue 1, item 10)")
-    if network_trainer in UNPORTED_TRAINERS:
-        raise NotImplementedError(
-            f"trainer {network_trainer!r} trains {UNPORTED_TRAINERS[network_trainer]}, which "
-            "the port does not have yet (ROADMAP queue 1, item 10)")
+    batch_dice, stage, trainer_class). 3d_lowres takes a multi-stage plan's
+    first stage with batch dice, 3d_fullres and 3d_cascade_fullres its last
+    without."""
+    if network not in ("3d_fullres", "3d_lowres", "3d_cascade_fullres"):
+        raise NotImplementedError(f"network {network!r}: the port trains 3d_fullres, "
+                                  "3d_lowres and 3d_cascade_fullres (2D: ROADMAP queue 1, "
+                                  "item 10d)")
     if network_trainer not in TRAINERS:
         raise ValueError(f"unknown trainer {network_trainer!r}; known: {sorted(TRAINERS)}")
     plans_identifier = plans_identifier or paths.default_plans_identifier
@@ -128,9 +142,9 @@ def get_default_configuration(network: str, task: str, network_trainer: str,
     if not os.path.isfile(plans_file):
         raise FileNotFoundError(f"plans file not found: {plans_file}")
     stages = sorted(load_plans(plans_file).plans_per_stage)
-    if network == "3d_lowres" and len(stages) == 1:
-        raise RuntimeError("3d_lowres needs a multi-stage plan; this dataset does not "
-                           "need a cascade. Use 3d_fullres.")
+    if network in ("3d_lowres", "3d_cascade_fullres") and len(stages) == 1:
+        raise RuntimeError("3d_lowres/3d_cascade_fullres requires a multi-stage plan; this "
+                           "dataset does not need a cascade. Use 3d_fullres.")
     stage = stages[0] if network == "3d_lowres" else stages[-1]
     output_folder = os.path.join(paths.network_training_output_dir(), network, task,
                                  network_trainer + "__" + plans_identifier)
@@ -238,9 +252,9 @@ def _train(args, config, device):
     trainer.validate(save_softmax=args.npz, validation_folder_name=args.val_folder,
                      run_postprocessing_on_folds=not args.disable_postprocessing_on_folds)
     if args.network == "3d_lowres":
-        raise NotImplementedError("3d_lowres: predicting the next stage's input "
-                                  "(predict_next_stage) is not ported yet: ROADMAP "
-                                  "queue 1, item 10")
+        trainer.load_best_checkpoint(train=False)
+        trainer.next_stage_timings = predict_next_stage(trainer, os.path.join(
+            dataset_directory, trainer.plans.data_identifier + f"_stage{stage + 1}"))
     return trainer
 
 

@@ -1,4 +1,4 @@
-"""Restore a model folder into GenericUNet, ResidualEncoderUNet or SwinUNETR modules.
+"""Restore a model folder into GenericUNet, ResidualEncoderUNet, SwinUNETR or MedNeXt modules.
 
 Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
@@ -20,9 +20,9 @@ Counterpart of multitalent_tpu/inference/model_restore.py. Two layouts:
 
   read by io/flax_ckpt.py (no flax) and carried over by
   io/from_jax.generic_unet_state_dict_from_flax (or
-  resenc_state_dict_from_flax, swin_unetr_state_dict_from_flax). The plans
-  come from the
-  sidecar's `init_args[0]` (a plans file or a pickled Plans) or else from
+  resenc_state_dict_from_flax, swin_unetr_state_dict_from_flax,
+  mednext_state_dict_from_flax). The plans come from the sidecar's
+  `init_args[0]` (a plans file or a pickled Plans) or else from
   `<model>/plans.pkl`. The sidecar may pickle the JAX package's Plans: it is
   read by `load_sidecar`, whose unpickler maps those names to the port's
   classes and refuses every name off its allow-list, so nothing of the JAX
@@ -35,9 +35,10 @@ residual-encoder UNet, its block counts from the plans; a reference resenc
 `.model` has its quirks undone by io/torch_convert.fabians_unet_state_dict.
 `patch_embed.weight` (or `patch_embed` in a flax tree) is the SwinUNETR, its
 width, depths and heads read from the weights, its window tables sized by
-the plans' patch. The trainer named in the sidecar fixes the head: the
-MultiTalent trainers predict 47 sigmoid regions, the others a softmax over
-the plans' classes.
+the plans' patch. `stem.weight` (or `stem`) is the MedNeXt, its width,
+expansion ratios, block counts and kernel read from the weights. The
+trainer named in the sidecar fixes the head: the MultiTalent trainers
+predict 47 sigmoid regions, the others a softmax over the plans' classes.
 """
 from __future__ import annotations
 
@@ -50,15 +51,19 @@ import torch
 
 from multitalent_tpu_torch.io import flax_ckpt
 from multitalent_tpu_torch.io.from_jax import (generic_unet_state_dict_from_flax,
+                                               mednext_state_dict_from_flax,
                                                resenc_state_dict_from_flax,
                                                swin_unetr_state_dict_from_flax)
 from multitalent_tpu_torch.io.torch_convert import (convert_generic_unet_state_dict,
+                                                   convert_mednext_state_dict,
                                                    convert_resenc_state_dict,
                                                    convert_swin_unetr_state_dict,
                                                    fabians_unet_state_dict,
                                                    load_reference_checkpoint,
+                                                   mednext_block_counts,
                                                    strip_module_prefix, swin_depths)
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+from multitalent_tpu_torch.models.mednext import MedNeXt
 from multitalent_tpu_torch.models.residual_unet import build_resenc_unet_from_plans
 from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
 from multitalent_tpu_torch.plans import Plans, StagePlans, load_plans, save_plans
@@ -71,13 +76,9 @@ MULTITALENT_TRAINERS = ("MultiTalent_trainer_ddp", "MultiTalent_trainer_ddp_2000
                         "MultiTalent_trainer_resenc_ddp", "MultiTalent_trainer_resenc_ddp_2000ep",
                         "MultiTalent_tainer_resenc_ddp", "MultiTalentTrainerResenc",
                         "MultiTalentTrainerResenc2000ep", "MultiTalent_tainer_SwinUNETR_ddp_adam",
-                        "MultiTalent_trainer_SwinUNETR_ddp_adam", "MultiTalentTrainerSwinUNETR")
-# trainers whose networks the port does not have yet
-UNPORTED_TRAINERS = {
-    "Multitalent_mednextt": "MedNeXt",
-    "MultiTalent_meets_mednext": "MedNeXt",
-    "MultiTalentTrainerMedNeXt": "MedNeXt",
-}
+                        "MultiTalent_trainer_SwinUNETR_ddp_adam", "MultiTalentTrainerSwinUNETR",
+                        "Multitalent_mednextt", "MultiTalent_meets_mednext",
+                        "MultiTalentTrainerMedNeXt")
 
 # what a JAX sidecar may name: the JAX package's plans classes, read as the
 # port's, and the numpy names its arrays and scalars pickle with
@@ -107,13 +108,9 @@ def load_sidecar(path: str) -> dict:
 
 def head_of_trainer(names) -> tuple[str, str]:
     """(trainer name, "sigmoid" or "softmax") for a trainer and its bases,
-    nearest first; a trainer of a network the port lacks raises."""
+    nearest first."""
     names = list(names)
     for n in names:
-        if n in UNPORTED_TRAINERS:
-            raise NotImplementedError(
-                f"trainer {names[0]!r} uses {UNPORTED_TRAINERS[n]}, which the port does "
-                "not have yet (ROADMAP queue 1, item 10)")
         if n in MULTITALENT_TRAINERS:
             return names[0], "sigmoid"
     return names[0], "softmax"
@@ -131,7 +128,7 @@ class RestoredModel:
     regions_class_order: list[int] | None
     num_classes: int
     patch_size: tuple[int, ...]
-    networks: list[torch.nn.Module]  # GenericUNet, ResidualEncoderUNet or SwinUNETR
+    networks: list[torch.nn.Module]  # GenericUNet, ResidualEncoderUNet, SwinUNETR or MedNeXt
 
 
 def _fold_folders(model_folder: str, folds) -> list[str]:
@@ -169,12 +166,17 @@ def is_swin_unetr_state_dict(state_dict: dict) -> bool:
     return any(k.removeprefix("module.") == "patch_embed.weight" for k in state_dict)
 
 
+def is_mednext_state_dict(state_dict: dict) -> bool:
+    """Whether a state dict (`module.` prefix or not) is the MedNeXt's."""
+    return any(k.removeprefix("module.") == "stem.weight" for k in state_dict)
+
+
 def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
     """The port's state dict of a JAX `.ckpt` file (its params through
     io/from_jax.py, `plans` giving the depth or the block counts) or of a
     reference or port `.model` file (a reference resenc one through
-    io/torch_convert.fabians_unet_state_dict; a SwinUNETR's keys are the
-    port's own)."""
+    io/torch_convert.fabians_unet_state_dict; a SwinUNETR's and a MedNeXt's
+    keys are the port's own)."""
     st = plans.stage(stage)
     if path.endswith(".model"):
         sd = strip_module_prefix(load_reference_checkpoint(path))
@@ -189,12 +191,34 @@ def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
                                            st.num_blocks_decoder)
     if "patch_embed" in params:
         return swin_unetr_state_dict_from_flax(params)
+    if "stem" in params:
+        return mednext_state_dict_from_flax(params)
     if "enc0" not in params:
         raise NotImplementedError(
-            f"{path} is neither a GenericUNet, a residual-encoder UNet nor a SwinUNETR "
-            "checkpoint; other networks are ROADMAP queue 1, item 10")
+            f"{path} is none of the port's networks (a GenericUNet, a residual-encoder "
+            "UNet, a SwinUNETR, a MedNeXt); the trainer variants' networks are ROADMAP "
+            "queue 1, item 10e")
     return generic_unet_state_dict_from_flax(
         params, num_pool=len(st.pool_op_kernel_sizes), conv_per_stage=plans.conv_per_stage)
+
+
+def _mednext_from_weights(state_dict: dict, num_classes: int, dtype: torch.dtype) -> MedNeXt:
+    """The MedNeXt a state dict is for: input channels and width from the
+    stem, the kernel from a depthwise conv, each level's expansion ratio
+    from its down or up block (the bottleneck's from its first block), the
+    block counts from the names."""
+    stem = state_dict["stem.weight"]
+
+    def ratio(prefix: str) -> int:
+        w = state_dict[f"{prefix}.expand.weight"]
+        return int(w.shape[0]) // int(w.shape[1])
+
+    exp_r = ([ratio(f"down{lvl}") for lvl in range(4)] + [ratio("bottleneck.block0")]
+             + [ratio(f"up{lvl}") for lvl in range(3, -1, -1)])
+    return MedNeXt(int(stem.shape[1]), n_channels=int(stem.shape[0]), n_classes=num_classes,
+                   exp_r=exp_r, block_counts=mednext_block_counts(state_dict),
+                   kernel_size=int(state_dict["down0.dwconv.weight"].shape[-1]),
+                   do_res_up_down="down0.res_conv.weight" in state_dict, dtype=dtype)
 
 
 def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
@@ -212,12 +236,14 @@ def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
                         num_heads=tuple(int(state_dict[f"stage{s}_block0.attn.rel_pos_bias"]
                                             .shape[1]) for s in range(4)),
                         dtype=dtype)
+    elif is_mednext_state_dict(state_dict):
+        net = _mednext_from_weights(state_dict, num_classes, dtype)
     elif any(k.startswith("conv_blocks_context.") for k in state_dict):
         net = build_unet_from_plans(plans, stage, num_classes, dtype=dtype)
     else:
-        raise NotImplementedError("neither a GenericUNet, a residual-encoder UNet nor a "
-                                  "SwinUNETR state dict; other networks are ROADMAP queue 1, "
-                                  "item 10")
+        raise NotImplementedError("none of the port's networks (a GenericUNet, a "
+                                  "residual-encoder UNet, a SwinUNETR, a MedNeXt); the trainer "
+                                  "variants' networks are ROADMAP queue 1, item 10e")
     own = net.state_dict()
     net.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=True)
     return net
@@ -281,7 +307,7 @@ def save_model_folder(model_folder: str, plans: Plans, state_dicts: list[dict],
                       trainer_name: str, stage: int = 0, fp16: bool = True,
                       checkpoint_name: str = "model_final_checkpoint") -> None:
     """Write a reference-layout model folder (the layout read above) of
-    GenericUNet, residual-encoder UNet or SwinUNETR state dicts: plans.pkl,
+    GenericUNet, residual-encoder UNet, SwinUNETR or MedNeXt state dicts: plans.pkl,
     and per fold i a `fold_i/<checkpoint>.model` holding {"state_dict": ...}
     with its sidecar naming `trainer_name` and the reference's init arguments
     (plans_file, fold, output_folder, dataset_directory, batch_dice, stage,
@@ -302,12 +328,13 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
                           trainer_name: str, trainer_bases=(), stage: int = 0,
                           fp16: bool = True,
                           checkpoint_name: str = "model_final_checkpoint") -> None:
-    """Write a JAX-layout model folder of GenericUNet, residual-encoder UNet or
-    SwinUNETR state dicts, the files multitalent_tpu's trainer writes: per
-    fold i `fold_i/<checkpoint>.ckpt`, flax msgpack of {"step", "params"}
-    (io/flax_ckpt.dumps of io/torch_convert.convert_generic_unet_state_dict,
-    convert_resenc_state_dict, which carries the biases, or
-    convert_swin_unetr_state_dict), and its
+    """Write a JAX-layout model folder of GenericUNet, residual-encoder UNet,
+    SwinUNETR or MedNeXt state dicts, the files multitalent_tpu's trainer
+    writes: per fold i `fold_i/<checkpoint>.ckpt`, flax msgpack of {"step",
+    "params"} (io/flax_ckpt.dumps of io/torch_convert.
+    convert_generic_unet_state_dict, convert_resenc_state_dict, which
+    carries the biases, convert_swin_unetr_state_dict or
+    convert_mednext_state_dict), and its
     `.ckpt.pkl` sidecar (trainer_name, trainer_bases, init_args, state_keys).
     init_args[0] is <model>/plans.pkl."""
     plans_path = os.path.join(maybe_mkdir(model_folder), "plans.pkl")
@@ -320,6 +347,8 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
             params = convert_resenc_state_dict(sd, st.num_blocks_encoder, st.num_blocks_decoder)
         elif is_swin_unetr_state_dict(sd):
             params = convert_swin_unetr_state_dict(sd)
+        elif is_mednext_state_dict(sd):
+            params = convert_mednext_state_dict(sd)
         else:
             params = convert_generic_unet_state_dict(sd, len(st.pool_op_kernel_sizes),
                                                      plans.conv_per_stage)

@@ -255,8 +255,10 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
     if fast_mode and save_npz:
         raise ValueError("the fast modes never materialize the probabilities: no save_npz")
     if segs_from_prev_stage is not None:
-        raise NotImplementedError("cascade inference is not ported yet (ROADMAP "
-                                  "queue 1, item 10)")
+        raise NotImplementedError(
+            "segs_from_prev_stage: the JAX package's predict_cases accepts it and never "
+            "reads it (multitalent_tpu/inference/predict.py:70), so it predicts no cascade "
+            "stage from it; the port takes no previous-stage input either")
     if len(list_of_lists) != len(output_filenames):
         raise ValueError("one output file a case")
     device = resolve_device(device)
@@ -426,8 +428,10 @@ def predict_from_folder(model: str, input_folder: str, output_folder: str, folds
     """predict_from_folder parity (predict.py:603): case discovery by the
     `_XXXX.nii.gz` convention, `part_id::num_parts` sharding."""
     if lowres_segmentations is not None:
-        raise NotImplementedError("cascade inference is not ported yet (ROADMAP "
-                                  "queue 1, item 10)")
+        raise NotImplementedError(
+            "lowres_segmentations: the JAX package's predict_from_folder accepts it and "
+            "never reads it (multitalent_tpu/inference/predict.py:314), so it predicts no "
+            "cascade stage from it; the port takes no previous-stage input either")
     device = resolve_device(device)
     maybe_mkdir(output_folder)
     plans_path = os.path.join(model, "plans.pkl")

@@ -4,7 +4,8 @@ Counterpart of multitalent_tpu/inference/validation.py: sliding-window
 prediction of every validation case, NIfTI export on host threads,
 `aggregate_scores` against `<dataset>/gt_segmentations` and
 `determine_postprocessing` (nnUNetTrainer.validate, nnUNetTrainer.py:526-681),
-and the MultiTalent variant (MultiTalent_Trainer_DDP.validate:129-322), which
+the cascade's (the previous stage's one-hots appended to each case), and
+the MultiTalent variant (MultiTalent_Trainer_DDP.validate:129-322), which
 writes all 47 region masks of every case and one labelmap per case of its
 source dataset's regions, evaluated per dataset over its labels.
 
@@ -42,18 +43,25 @@ from multitalent_tpu_torch.postprocessing.connected_components import determine_
 from multitalent_tpu_torch.tasks.multitalent import (REGION_OUTPUT_IDX, REGIONS,
                                                      REGIONS_CLASS_ORDER, TASK_IDS,
                                                      VALID_REGIONS)
+from multitalent_tpu_torch.training.cascade import one_hot_prev_stage_channels, prev_stage_file
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_json, subfiles
 
 
-def _validation_cases(trainer):
+def _validation_cases(trainer, with_prev_stage: bool = False):
     """(case id, data (C, Z, Y, X), properties) of every validation case of
-    this rank, in order. A trainer initialised without its generators (-val)
-    splits its dataset here, as the reference's validate does."""
+    this rank, in order; `with_prev_stage` appends the one-hots of the
+    previous stage's labels (`<case>_segFromPrevStage.npz`, the cascade).
+    A trainer initialised without its generators (-val) splits its dataset
+    here, as the reference's validate does."""
     if getattr(trainer, "dataset_val", None) is None:
         trainer.load_dataset()
         trainer.do_split()
     for k in sorted(trainer.dataset_val)[distributed.rank()::distributed.world_size()]:
         data = np.array(load_case(trainer.dataset_val[k], "r"))[:-1]
+        if with_prev_stage:
+            prev = np.load(prev_stage_file(trainer.folder_with_preprocessed_data, k))["data"]
+            data = np.concatenate([data, one_hot_prev_stage_channels(
+                prev[0], trainer.num_prev_classes)])
         yield k, data, load_pickle(trainer.dataset_val[k]["properties_file"])
 
 
@@ -75,9 +83,10 @@ def run_validation(trainer, do_mirroring: bool = True, use_sliding_window: bool 
                    validation_folder_name: str = "validation_raw",
                    debug: bool = False, all_in_gpu: bool = False,
                    segmentation_export_kwargs: dict | None = None,
-                   run_postprocessing_on_folds: bool = True):
+                   run_postprocessing_on_folds: bool = True, with_prev_stage: bool = False):
     """Validate a softmax trainer (TrainerV2): labelmaps, `--npz`
-    probabilities, summary.json, postprocessing.json."""
+    probabilities, summary.json, postprocessing.json; `with_prev_stage`
+    feeds the cascade's input (run_cascade_validation)."""
     assert trainer.was_initialized, "must initialize trainer before validate()"
     output_folder = maybe_mkdir(os.path.join(trainer.output_folder,
                                              validation_folder_name))
@@ -97,7 +106,7 @@ def run_validation(trainer, do_mirroring: bool = True, use_sliding_window: bool 
     t_start = time.perf_counter()
     futures = []
     with ThreadPoolExecutor(max_workers=2) as pool:
-        for k, data, properties in _validation_cases(trainer):
+        for k, data, properties in _validation_cases(trainer, with_prev_stage):
             fname = os.path.join(output_folder, k + ".nii.gz")
             if not overwrite and os.path.isfile(fname):
                 continue
@@ -201,5 +210,8 @@ def run_multitalent_validation(trainer, do_mirroring: bool = True,
 
 
 def run_cascade_validation(trainer, *args, **kwargs):
-    raise NotImplementedError("cascade validation (the previous stage's segmentation "
-                              "as input) is not ported yet: ROADMAP queue 1, item 10")
+    """Cascade validate (nnUNetTrainerV2_CascadeFullRes.validate parity, the
+    JAX package's validation.py:183-246): each case's previous-stage
+    segmentation as one-hot channels appended to its modalities before the
+    sliding window; the rest as run_validation."""
+    return run_validation(trainer, *args, with_prev_stage=True, **kwargs)

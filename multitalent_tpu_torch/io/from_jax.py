@@ -4,7 +4,8 @@
 multitalent_tpu/io/torch_convert.convert_generic_unet_state_dict (see that
 module for the key table), `resenc_state_dict_from_flax` the inverse of the
 port's io/torch_convert.convert_resenc_state_dict for the residual-encoder
-UNet. They undo, once each:
+UNet (`swin_unetr_state_dict_from_flax` and `mednext_state_dict_from_flax`
+likewise for the SwinUNETR and the MedNeXt). They undo, once each:
 
 - the (O, I, kz, ky, kx) -> (kz, ky, kx, I, O) transpose of conv kernels
   (torch_convert.py:30-33), and
@@ -19,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from multitalent_tpu_torch.io.torch_convert import (resenc_key_table, swin_depths,
+from multitalent_tpu_torch.io.torch_convert import (mednext_block_counts, mednext_key_table,
+                                                   resenc_key_table, swin_depths,
                                                    swin_unetr_key_table)
 
 
@@ -125,5 +127,38 @@ def swin_unetr_state_dict_from_flax(params: dict) -> dict:
                                       else _conv_weight(k))
         if kind in ("conv", "dense"):
             sd[f"{prefix}.bias"] = node["bias"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def mednext_state_dict_from_flax(params: dict, rows=None) -> dict:
+    """Nested flax param dict of multitalent_tpu MedNeXt -> torch state dict
+    of the port's (models/mednext.py; io/torch_convert.mednext_key_table),
+    the block counts read from the tree; `rows` (e.g. io/torch_convert.
+    mednext_block_rows) converts a part of it instead. The up blocks'
+    depthwise kernels are flipped on the three spatial axes (flax correlates
+    the dilated input with the kernel as it is, torch's ConvTranspose3d with
+    it flipped) and laid out (C, 1, k, k, k); their 1x1x1 res_conv needs no
+    flip."""
+    sd: dict[str, np.ndarray] = {}
+    if rows is None:
+        names = [f"{stage}.{block}" for stage, node in params.items() for block in node]
+        rows = mednext_key_table(mednext_block_counts(names), "res_conv" in params["down0"])
+    for prefix, path, kind in rows:
+        node = params
+        for p in path:
+            node = node[p]
+        if kind == "norm":
+            sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = node["scale"], node["bias"]
+            continue
+        k = np.asarray(node["kernel"])
+        if kind == "transp":
+            sd[f"{prefix}.weight"] = _transpconv_weight(k)
+        else:
+            w = _conv_weight(k)
+            if kind == "dw_transp":
+                w = w[(slice(None), slice(None)) + (slice(None, None, -1),) * (w.ndim - 2)]
+            sd[f"{prefix}.weight"] = w
+        sd[f"{prefix}.bias"] = node["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}

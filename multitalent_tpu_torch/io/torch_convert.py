@@ -9,7 +9,9 @@ io/from_jax.generic_unet_state_dict_from_flax; both ways are bit-exact),
 `convert_resenc_state_dict` does the same for the residual-encoder UNet with
 its biases (the inverse of io/from_jax.resenc_state_dict_from_flax),
 `convert_swin_unetr_state_dict` for the SwinUNETR (the inverse of
-io/from_jax.swin_unetr_state_dict_from_flax), and `fabians_unet_state_dict`
+io/from_jax.swin_unetr_state_dict_from_flax), `convert_mednext_state_dict`
+for the MedNeXt (the inverse of io/from_jax.mednext_state_dict_from_flax),
+and `fabians_unet_state_dict`
 reads a reference resenc checkpoint's state dict.
 """
 from __future__ import annotations
@@ -240,6 +242,89 @@ def convert_swin_unetr_state_dict(state_dict: dict) -> dict:
             node["bias"] = sd[f"{prefix}.bias"]
     return params
 
+
+
+MEDNEXT_STAGES = ("enc0", "enc1", "enc2", "enc3", "bottleneck", "dec3", "dec2", "dec1", "dec0")
+
+
+def mednext_block_counts(names) -> tuple[int, ...]:
+    """The nine block counts of a MedNeXt (enc0-3, bottleneck, dec3-0: the
+    order of its block_counts) from the `<stage>.block{i}` names (state-dict
+    keys or dotted flax paths)."""
+    counts = dict.fromkeys(MEDNEXT_STAGES, 0)
+    for name in names:
+        parts = name.split(".")
+        if len(parts) > 1 and parts[0] in counts and parts[1].startswith("block"):
+            counts[parts[0]] = max(counts[parts[0]], int(parts[1][len("block"):]) + 1)
+    return tuple(counts[s] for s in MEDNEXT_STAGES)
+
+
+def mednext_block_rows(mode: str, do_res: bool, tp: str = "", fp: tuple = ()) -> list[tuple]:
+    """The rows of mednext_key_table for one MedNeXtBlock of `mode` at torch
+    prefix `tp` and flax path `fp` (the block's own names where both are
+    empty)."""
+    def name(layer: str) -> str:
+        return f"{tp}.{layer}" if tp else layer
+
+    rows = [(name("dwconv"), fp + ("dwconv",), "dw_transp" if mode == "up" else "conv"),
+            (name("norm"), fp + ("norm",), "norm"),
+            (name("expand"), fp + ("expand",), "conv"),
+            (name("compress"), fp + ("compress",), "conv")]
+    if do_res and mode != "plain":
+        rows.append((name("res_conv"), fp + ("res_conv",), "transp" if mode == "up" else "conv"))
+    return rows
+
+
+def mednext_key_table(block_counts, do_res_up_down: bool = True) -> list[tuple]:
+    """(torch prefix, flax path, kind) of every layer of the MedNeXt
+    (models/mednext.py; the flax tree of multitalent_tpu/models/mednext.py).
+    kind: "conv" (weight and bias; the depthwise convs too), "norm",
+    "dw_transp" (the up blocks' transposed depthwise conv: flax runs its
+    kernel unflipped over the dilated input, torch's ConvTranspose3d
+    flipped) or "transp" (the up blocks' 1x1x1 transposed res_conv)."""
+    rows = [("stem", ("stem",), "conv")]
+
+    def block(tp: str, fp: tuple, mode: str) -> None:
+        rows.extend(mednext_block_rows(mode, do_res_up_down, tp, fp))
+
+    def stage(name: str, n: int) -> None:
+        for b in range(int(n)):
+            block(f"{name}.block{b}", (name, f"block{b}"), "plain")
+
+    counts = dict(zip(MEDNEXT_STAGES, block_counts))
+    for lvl in range(4):
+        stage(f"enc{lvl}", counts[f"enc{lvl}"])
+        block(f"down{lvl}", (f"down{lvl}",), "down")
+    stage("bottleneck", counts["bottleneck"])
+    for lvl in range(3, -1, -1):
+        block(f"up{lvl}", (f"up{lvl}",), "up")
+        stage(f"dec{lvl}", counts[f"dec{lvl}"])
+    rows += [(f"out{lvl}", (f"out{lvl}",), "conv") for lvl in range(5)]
+    return rows
+
+
+def convert_mednext_state_dict(state_dict: dict) -> dict:
+    """The port's MedNeXt state dict -> nested flax param dict of
+    multitalent_tpu's MedNeXt (fp32 numpy leaves). The inverse of
+    io/from_jax.mednext_state_dict_from_flax; both ways are bit-exact."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                        dtype=np.float32)
+          for k, v in strip_module_prefix(state_dict).items()}
+    params: dict = {}
+    for prefix, path, kind in mednext_key_table(mednext_block_counts(sd),
+                                                "down0.res_conv.weight" in sd):
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        if kind == "norm":
+            node["scale"], node["bias"] = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+            continue
+        w = sd[f"{prefix}.weight"]
+        if kind == "dw_transp":
+            w = w[(slice(None), slice(None)) + (slice(None, None, -1),) * (w.ndim - 2)]
+        node["kernel"] = _transpconv_weight(w) if kind == "transp" else _conv_weight(w)
+        node["bias"] = sd[f"{prefix}.bias"]
+    return params
 
 # the convs of the residual UNet that carry a bias in the port and the JAX
 # package but none in the reference's checkpoints: initial_conv, each block's

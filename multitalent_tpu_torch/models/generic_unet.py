@@ -177,15 +177,18 @@ class GenericUNet(nn.Module):
 
 
 def build_unet_from_plans(plans, stage: int, num_classes: int | None = None,
-                          dtype: torch.dtype = torch.bfloat16) -> GenericUNet:
+                          dtype: torch.dtype = torch.bfloat16,
+                          input_channels: int | None = None) -> GenericUNet:
     """GenericUNet for one resolution stage of a multitalent_tpu Plans object
-    (the wiring of multitalent_tpu/models/generic_unet.build_unet_from_plans)."""
+    (the wiring of multitalent_tpu/models/generic_unet.build_unet_from_plans);
+    `input_channels` defaults to the plans' modalities (the cascade's
+    full-resolution stage adds the previous stage's one-hots)."""
     st = plans.stage(stage)
     if len(st.patch_size) != 3:
         raise NotImplementedError("the port runs 3D plans only (2D GenericUNet: "
-                                  "ROADMAP queue 1, item 10)")
+                                  "ROADMAP queue 1, item 10d)")
     return GenericUNet(
-        input_channels=plans.num_modalities,
+        input_channels=plans.num_modalities if input_channels is None else input_channels,
         base_num_features=plans.base_num_features,
         num_classes=num_classes if num_classes is not None else plans.num_classes + 1,
         pool_op_kernel_sizes=st.pool_op_kernel_sizes,

@@ -124,7 +124,7 @@ class ResidualEncoderUNet(nn.Module):
                              f"{tuple(num_blocks_decoder)}")
         if any(len(k) != 3 for k in kernels):
             raise NotImplementedError("the port runs 3D plans only (2D: ROADMAP queue 1, "
-                                      "item 10)")
+                                      "item 10d)")
         self.pool_op_kernel_sizes = pools
         self.num_classes = num_classes
         self.input_channels = input_channels

@@ -7,7 +7,8 @@ dataset-balanced sampling p(case) ~ 1/sqrt(cases of its dataset); the masked
 multi-head BCE + batch-Dice loss over the regions each sample's dataset
 annotates; region-wise online evaluation; ce / dice logged apart. The
 resenc trainers (:244-272) run the same over the residual-encoder UNet, the
-SwinUNETR trainer (:297-333) over SwinUNETR with AMSGrad Adam at 5e-4.
+MedNeXt trainer (:274-294) over MedNeXt, the SwinUNETR trainer (:297-333)
+over SwinUNETR with AMSGrad Adam at 5e-4.
 
 Over several ranks (training/trainers.py) every rank samples with the same
 dataset probabilities, the loss pools BCE and batch-Dice statistics over the
@@ -27,8 +28,8 @@ from multitalent_tpu_torch.tasks.multitalent import (NUM_REGIONS, build_custom_s
                                                      inverse_sqrt_sampling_probabilities,
                                                      valid_region_mask)
 from multitalent_tpu_torch.training.losses import label_region_matrix, multitalent_ds_loss
-from multitalent_tpu_torch.training.trainers import (ResencUNetMixin, SwinUNETRMixin,
-                                                     TrainerV2)
+from multitalent_tpu_torch.training.trainers import (MedNeXtMixin, ResencUNetMixin,
+                                                     SwinUNETRMixin, TrainerV2)
 from multitalent_tpu_torch.utils.fileops import load_pickle, save_pickle
 from multitalent_tpu_torch.utils.task_names import convert_id_to_task_name
 
@@ -204,6 +205,12 @@ class MultiTalentTrainerResenc2000ep(MultiTalentTrainerResenc):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.max_num_epochs = 2000
+
+
+class MultiTalentTrainerMedNeXt(MedNeXtMixin, MultiTalentTrainer):
+    """MultiTalent over MedNeXt (Multitalent_mednextt, MultiTalent_meets_mednext;
+    multitalent_tpu/training/multitalent.py:274-294): the 47 sigmoid
+    regions, SGD as the flagship."""
 
 
 class MultiTalentTrainerSwinUNETR(SwinUNETRMixin, MultiTalentTrainer):

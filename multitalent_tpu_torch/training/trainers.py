@@ -7,9 +7,10 @@ and replaces the flax parts:
 
 - the network is the port's GenericUNet (ResidualEncoderUNet for the
   residual-encoder trainers, `ResencUNetMixin`; SwinUNETR, without deep
-  supervision and with AMSGrad Adam, for `SwinUNETRMixin`'s) with deep
-  supervision, He-initialised from a seeded `torch.Generator`, computing in
-  bf16 (fp16=True) with fp32 master weights;
+  supervision and with AMSGrad Adam, for `SwinUNETRMixin`'s; MedNeXt for
+  `MedNeXtMixin`'s) with deep supervision, He-initialised from a seeded
+  `torch.Generator`, computing in bf16 (fp16=True) with fp32 master
+  weights;
 - one training step: host batch -> pinned memory -> device -> augmentation
   on the card (augment/pipeline.py) -> forward (the fused conv -> norm route
   under MTTPU_FUSED_TRAIN=1, ops/fused_unet.make_train_forward) ->
@@ -56,6 +57,7 @@ from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_a
 from multitalent_tpu_torch.data.dataset import kfold_split, load_dataset, unpack_dataset
 from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+from multitalent_tpu_torch.models.mednext import MedNeXt
 from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
                                                         build_resenc_unet_from_plans)
 from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
@@ -162,7 +164,7 @@ class TrainerV2(NetworkTrainerBase):
         self.use_mask_for_norm = plans.use_mask_for_norm
         if len(self.patch_size) != 3:
             raise NotImplementedError("the port trains 3D plans only (2D: ROADMAP "
-                                      "queue 1, item 10)")
+                                      "queue 1, item 10d)")
 
     def setup_DA_params(self) -> None:
         """nnUNetTrainerV2.setup_DA_params (trainers.py:115), 3D."""
@@ -489,6 +491,11 @@ class TrainerV2(NetworkTrainerBase):
     inference_nonlin = "softmax"
     regions_class_order = None
 
+    @property
+    def network_input_channels(self) -> int:
+        """Channels of the network's input: the plans' modalities."""
+        return self.num_input_channels
+
     def get_sliding_window_predictor(self, do_mirroring: bool = True,
                                      step_size: float = 0.5,
                                      use_gaussian: bool = True) -> SlidingWindowPredictor:
@@ -496,7 +503,7 @@ class TrainerV2(NetworkTrainerBase):
         (trainers.py:464), in the sliding window's default mode (non-exact
         unless MTTPU_SW_EXACT=1, as the JAX package's)."""
         return SlidingWindowPredictor(
-            tuple(int(p) for p in self.patch_size), in_channels=self.num_input_channels,
+            tuple(int(p) for p in self.patch_size), in_channels=self.network_input_channels,
             num_classes=self.num_classes, nonlin=self.inference_nonlin,
             step_size=step_size, do_mirroring=do_mirroring, mirror_axes=(0, 1, 2),
             use_gaussian=use_gaussian, device=self.device)
@@ -527,11 +534,16 @@ class TrainerV2(NetworkTrainerBase):
         probabilities (K, Z, Y, X) on the device) (trainers.py:485)."""
         probs, _, _ = self.predict_preprocessed_probabilities(data, do_mirroring, step_size,
                                                               use_gaussian)
+        return self.segmentation_of(probs), probs
+
+    def segmentation_of(self, probs: torch.Tensor) -> np.ndarray:
+        """The labelmap (ZYX, on the host) of probabilities (K, Z, Y, X): the
+        argmax, or the regions' bits above 0.5 in regions_class_order."""
         if self.regions_class_order is None:
             seg = probs.argmax(0).int()
         else:
             seg = segmentation_from_regions_bits(probs > 0.5, self.regions_class_order).int()
-        return seg.cpu().numpy(), probs
+        return seg.cpu().numpy()
 
     # --------------------------------------------------------------- validation
     def validate(self, do_mirroring: bool = True, use_sliding_window: bool = True,
@@ -597,6 +609,28 @@ class SwinUNETRMixin:
 
     def initialize_optimizer(self):
         return self.adam_optimizer()
+
+
+class MedNeXtMixin:
+    """MedNeXt (models/mednext.py) for a trainer, as the JAX package's
+    MultiTalentTrainerMedNeXt sets it up (multitalent_tpu/training/
+    multitalent.py:274-294): n_channels 32, kernel 3, the default exp_r and
+    block counts, the JAX module's init; five deep-supervision levels at
+    dyadic scales whatever the plans' pools (it always halves each axis)."""
+
+    mednext_channels = 32
+
+    def setup_DA_params(self) -> None:
+        super().setup_DA_params()
+        self.deep_supervision_scales = ds_scales_from_pools([[2, 2, 2]] * 5)
+
+    def initialize_network(self) -> None:
+        self.network = MedNeXt(self.num_input_channels, n_channels=self.mednext_channels,
+                               n_classes=self.num_classes,
+                               dtype=torch.bfloat16 if self.fp16 else torch.float32)
+
+    def init_network_weights(self, generator: torch.Generator) -> None:
+        self.network.init_weights(generator)
 
 
 class TrainerV2ResencUNet(ResencUNetMixin, TrainerV2):

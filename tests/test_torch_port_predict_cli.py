@@ -217,9 +217,38 @@ def test_fast_modes_refuse_npz(task):
 
 
 @pytest.mark.parametrize("model", ["2d", "3d_lowres", "3d_cascade_fullres"])
-def test_other_networks_raise_naming_their_item(task, model):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        predict_cli.main(["-i", "in", "-o", "out", "-t", TASK, "-m", model, "--device", "cpu"])
+def test_other_networks_raise_naming_their_item(task, model, monkeypatch):
+    """2d (item 10d) and 3d_cascade_fullres (the JAX CLI never reads the
+    previous stage's segmentations) raise, each naming its reason. A
+    3d_lowres folder, refused until the cascade was ported (item 10c), is an
+    ordinary model folder at stage 0 of a two-stage plan: the same weights
+    and stage-0 plans predict what the 3d_fullres folder predicts."""
+    if model != "3d_lowres":
+        match = {"2d": "item 10d", "3d_cascade_fullres": "lowres_segmentations"}[model]
+        with pytest.raises(NotImplementedError, match=match):
+            predict_cli.main(["-i", "in", "-o", "out", "-t", TASK, "-m", model,
+                              "--device", "cpu"])
+        return
+    root = task["root"]
+    d = _tiny_plans().to_dict()
+    d.update(num_classes=2, all_classes=[1, 2], num_stages=2)
+    full = dict(d["plans_per_stage"][0], current_spacing=[0.75, 0.5, 0.5])
+    d["plans_per_stage"] = {0: d["plans_per_stage"][0], 1: full}
+    sds = [torch.load(os.path.join(task["model"], f"fold_{f}", "model_final_checkpoint.model"),
+                      weights_only=False)["state_dict"] for f in range(2)]
+    lowres = root / "results" / "nnUNet" / "3d_lowres" / TASK / "TrainerV2__MTTPUPlansv2.1"
+    save_model_folder(str(lowres), Plans.from_dict(d), sds, "TrainerV2", stage=0, fp16=False)
+    _env(monkeypatch, exact=False)
+    monkeypatch.setenv("RESULTS_FOLDER", str(root / "results"))
+    out = root / "lowres_out"
+    timings = predict_cli.main(["-i", str(root / "in"), "-o", str(out), "-t", TASK, "-m",
+                                "3d_lowres", "-tr", "TrainerV2", "--device", "cpu"])
+    assert [t["forwards"] for t in timings] == [FORWARDS] * len(CASES)
+    full_out = port_run(task, False)[0]
+    for case in CASES:
+        got, g = read_nifti(out / f"{case}.nii.gz")
+        ref, r = read_nifti(full_out / f"{case}.nii.gz")
+        assert np.array_equal(got, ref) and vars(g) == vars(r), case
 
 
 def test_ensemble_matches_jax(task):

@@ -29,7 +29,8 @@ from multitalent_tpu.utils.fileops import save_pickle
 from multitalent_tpu_torch.cli import predict as predict_cli
 from multitalent_tpu_torch.cli import train
 from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
-from multitalent_tpu_torch.inference.model_restore import (UNPORTED_TRAINERS, head_of_trainer,
+from multitalent_tpu_torch.inference.model_restore import (head_of_trainer,
+                                                           load_model_and_checkpoint_files,
                                                            save_jax_model_folder,
                                                            save_model_folder)
 from multitalent_tpu_torch.io import Geometry, Plans, read_nifti, save_plans, write_nifti
@@ -226,10 +227,19 @@ def test_swinunetr_trainers_restore_with_their_heads(name):
 
 @pytest.mark.parametrize("name", ["Multitalent_mednextt", "MultiTalent_meets_mednext",
                                   "MultiTalentTrainerMedNeXt"])
-def test_mednext_and_swinunetr_still_raise_naming_item_10(name):
-    assert set(UNPORTED_TRAINERS.values()) == {"MedNeXt"}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        head_of_trainer([name])
+def test_mednext_and_swinunetr_still_raise_naming_item_10(name, tmp_path):
+    """The MedNeXt trainers, refused until MedNeXt was ported (item 10b),
+    restore: a folder under each name holds a MedNeXt with the 47 sigmoid
+    regions."""
+    from multitalent_tpu_torch.models.mednext import MedNeXt
+    assert head_of_trainer([name]) == (name, "sigmoid")
+    net = MedNeXt(1, n_channels=2, n_classes=47, exp_r=(2,) * 9, block_counts=(1,) * 9)
+    save_model_folder(str(tmp_path / "m"), _tiny_plans(), [net.state_dict()], name)
+    restored = load_model_and_checkpoint_files(str(tmp_path / "m"), device="cpu")
+    (got,) = restored.networks
+    assert isinstance(got, MedNeXt) and got.n_channels == 2
+    assert (restored.inference_nonlin, restored.num_classes) == ("sigmoid", 47)
+    assert restored.regions_class_order == list(range(47))
 
 
 @pytest.fixture

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's framework-neutral modules
 (multitalent_tpu_torch/{plans, paths, preprocessing, io/nifti, data,
 inference/segmentation_export, tasks/multitalent, augment/params, ...})
-against the originals, on the same inputs: the same files and arrays come out.
+against the originals, on the same inputs: the same files and arrays come
+out. (The cascade's host code, training/cascade.py, is held to the JAX
+package's in test_torch_port_cascade.py; its trainer names here.)
 
 The port imports nothing of multitalent_tpu (test_torch_port_predict.py's
 subprocess check); these cases show that the copies did not drift.
@@ -258,6 +260,34 @@ def case_task_name_resolution(tmp_path):
         mp.setenv("nnUNet_preprocessed", str(tmp_path))
         for task in ("Task003_Liver", "3", "003"):
             assert presolve(task) == jresolve(task) == "Task003_Liver"
+
+
+def case_cascade_and_mednext_trainer_names(tmp_path):
+    """Every name the JAX registry gives the cascade's trainers and the
+    MedNeXt trainer resolves in the port's train CLI to the class of the
+    same name, and each cascade variant sets the JAX variant's augmentation
+    parameters over its base's."""
+    from multitalent_tpu.registry import TRAINERS as JTRAINERS
+    from multitalent_tpu.training import cascade as jcascade
+    from multitalent_tpu.training.multitalent import MultiTalentTrainerMedNeXt
+    from multitalent_tpu_torch.cli.train import TRAINERS as PTRAINERS
+    from multitalent_tpu_torch.training import cascade as pcascade
+    classes = {JTRAINERS.get(n) for n in JTRAINERS.names()}
+    classes = {c for c in classes if c.__module__ == jcascade.__name__} | {
+        MultiTalentTrainerMedNeXt}
+    names = [n for n in JTRAINERS.names() if JTRAINERS.get(n) in classes]
+    assert len(classes) == 10 and len(names) == 22
+    for n in names:
+        assert PTRAINERS[n].__name__ == JTRAINERS.get(n).__name__, n
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jcascade, pcascade):
+            mp.setattr(module.TrainerV2CascadeFullRes, "setup_DA_params",
+                       lambda self: setattr(self, "data_aug_params", {"base": 1}))
+        for cls in classes - {MultiTalentTrainerMedNeXt}:
+            jt, pt = object.__new__(cls), object.__new__(getattr(pcascade, cls.__name__))
+            jt.setup_DA_params()
+            pt.setup_DA_params()
+            assert _same(jt.data_aug_params, pt.data_aug_params), cls.__name__
 
 
 CASES = {name[5:]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")}

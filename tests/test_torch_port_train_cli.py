@@ -5,8 +5,8 @@ MultiTalent_trainer_ddp -> the reference-layout model folder and its
 validation -> `cli/predict_multitalent.py` on a CT volume. Then a resumed run
 (-c), validation alone (-val, --valbest, --val_folder), fine-tuning with
 nnUNetTrainerV2_warmupsegheads from -pretrained_weights (a `.model` or a JAX
-`.ckpt`, with --npz or --disable_postprocessing_on_folds), and the options the
-port refuses rather than skips.
+`.ckpt`, with --npz or --disable_postprocessing_on_folds), the MedNeXt
+trainers' names, and the options the port refuses rather than skips.
 """
 import os
 import pickle
@@ -25,6 +25,8 @@ from multitalent_tpu_torch.inference.model_restore import (save_jax_model_folder
                                                            save_model_folder)
 from multitalent_tpu_torch.io import Geometry, read_nifti, save_plans, write_nifti
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+from multitalent_tpu_torch.models.mednext import MedNeXt
+from multitalent_tpu_torch.training.multitalent import MultiTalentTrainerMedNeXt
 from multitalent_tpu_torch.training.trainers import init_weights_he
 from multitalent_tpu_torch.training.warmup import TrainerV2WarmupSegHeads
 
@@ -199,6 +201,31 @@ def test_train_cli_refuses_what_is_not_ported(task, argv, match):
 # (the SwinUNETR trainers train: test_torch_port_swin_cli.py)
 @pytest.mark.parametrize("name", ["MultiTalentTrainerMedNeXt",
                                   "MultiTalent_meets_mednext"])
-def test_unported_trainers_name_their_roadmap_item(task, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        train.main(["3d_fullres", name, TASK, "0", "--device", "cpu"])
+def test_unported_trainers_name_their_roadmap_item(task, name, monkeypatch):
+    """The MedNeXt trainer names, refused until MedNeXt was ported (item
+    10b), resolve to MultiTalentTrainerMedNeXt, which trains one step,
+    validates, and writes a folder that predict_multitalent restores. Its
+    width is 32 channels; 8 here keep the CPU run short (the card's smoke
+    run trains the 32)."""
+    tmp, _ = task
+    assert train.get_default_configuration("3d_fullres", TASK, name)[-1] \
+        is MultiTalentTrainerMedNeXt
+    assert MultiTalentTrainerMedNeXt.mednext_channels == 32
+    monkeypatch.setattr(MultiTalentTrainerMedNeXt, "mednext_channels", 8)
+    monkeypatch.setenv("MTTPU_ITERS_PER_EPOCH", "1")
+    trainer = train.main(["3d_fullres", name, TASK, "0", "--device", "cpu"])
+    assert isinstance(trainer, MultiTalentTrainerMedNeXt) and trainer.step == 1
+    assert isinstance(trainer.network, MedNeXt) and trainer.network.n_channels == 8
+    assert np.isfinite(trainer.all_tr_losses).all()
+    model = Path(trainer.output_folder).parent
+    assert {f.name for f in (model / "fold_0" / "validation_raw").glob("*.nii.gz")} == {
+        "003_001.nii.gz", "009_001.nii.gz"}
+    (tmp / "in").mkdir()
+    write_nifti(tmp / "in" / "case_0000.nii.gz",
+                _phantom(np.random.RandomState(0)).astype(np.int16),
+                Geometry(spacing=(1.0, 1.0, 1.6)))
+    predict_main(["-i", str(tmp / "in"), "-o", str(tmp / "out"), "-m", str(model), "-f", "0",
+                  "--device", "cpu", "--disable_tta"])
+    seg, _ = read_nifti(tmp / "out" / "case.nii.gz")
+    assert seg.shape == SHAPE
+    assert len(os.listdir(tmp / "out" / "individual")) == len(REGIONS)
