@@ -196,6 +196,22 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    of the cascade's network (the image and two one-hots; its first conv
    on cuDNN) through the kernels against the plain versions in bf16,
    within phase 4's bounds;
+14. fp32, the 2D plans and the trainer variants: 14a the fp32 forms of
+   kernels A, B and C (csrc/conv3d_fp32.cu) against their plain fp32
+   versions, TF32 off, at phase 10a's Liver shapes (32->32, 32+32->32, dw
+   32->32 at 128^3, N=2), each into a NaN-filled buffer, median of
+   FP32_ITERS beside the plain version, cuDNN fp32 and the fp32 bound; 14b
+   `cli.train 3d_fullres nnUNetTrainerV2_fp32` on 10a's plans and phantoms
+   (3 steps, validation), its `.model` restored bit-equal and `cli.predict
+   -tr nnUNetTrainerV2_fp32` on the held-out case, with exact launch counts
+   of the fp32 forms and none of the bf16 kernels; 14c the 2D planner's plan
+   of 10a's data at full width through `cli.train 2d` (checkpoints, then
+   the validation's refusal) and 3 steps each of TrainerV2 and its
+   residual-encoder form through the trainer API, saved and restored
+   bit-equal, no hand-written kernel launched; 14d every network variant
+   of VARIANT_TRAINERS (and _DA5, _noDA) 2 steps on 10a's plans with exact
+   A/B/C counts, and a validation phantom's tile through the kernels
+   against the plain versions within phase 4's bounds;
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -213,8 +229,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    SwinUNETR forward (11c) and step (11a)); A, B and C phase 12's
    `launches_mednext(_predict)` (0) and phase 13's
    `launches_cascade_lowres` (13a, its next-stage forwards included),
-   `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c),
-   then the result line.
+   `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c);
+   every row phase 14d's `launches_variants`; then the rows of the fp32
+   forms of A, B and C (14a's times, 14b's launches), then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -480,6 +497,37 @@ MEDNEXT_PROB_BOUND_FP32_MEAN = 1e-2
 CASCADE_LOWRES_FACTOR = 2.0
 CASCADE_TRAINER = "TrainerV2CascadeFullRes"
 CASCADE_TRAIN_STEPS = 3  # of each stage; the first 2 are warm-up
+
+# phase 14, fp32 and the variants. 14a: the fp32 forms of kernels A, B and C
+# against their plain fp32 versions (TF32 off) at phase 10a's Liver shapes,
+# the training batch: fp32 sums of the same products in other orders,
+# bounded relative to the output's largest entry
+FP32_SHAPES = (("conv3d_same", (32,), 32), ("conv3d_same_dual", (32, 32), 32),
+               ("conv3d_same_wgrad", (32,), 32))
+FP32_SPATIAL = (128, 128, 128)
+FP32_RTOL = 1e-4
+FP32_ITERS = 10  # timed launches of each (the median is reported)
+# 14b: nnUNetTrainerV2_fp32 through cli.train 3d_fullres on 10a's Liver
+# plans and phantoms; 14c: the 2D planner's plan of the same data at full
+# width (base 32, max 480) through the trainer API, TrainerV2 and the
+# residual-encoder UNet on it; 14d: each network variant, _DA5 and _noDA on
+# 10a's Liver plans, a few steps each, and one tile through the kernels
+# against the plain versions within phase 4's bounds
+FP32_TRAIN_STEPS = 3
+TWO_D_STEPS = 3
+VARIANT_STEPS = 2
+# 14d's tile: the kernels' |dp| from the plain fp32 network over the plain
+# bf16 path's, (max, mean) (the kernels sum in other orders, so their bf16
+# result sits as far from fp32 as the plain bf16 one: 0.97-1.19 and
+# 1.00-1.00 on an H100, PERF.md §6)
+VARIANT_FP32_RATIO = (1.5, 1.1)
+VARIANT_TRAINERS = ("nnUNetTrainerV2_BN", "nnUNetTrainerV2_GN", "nnUNetTrainerV2_FRN",
+                    "nnUNetTrainerV2_NoNormalization", "nnUNetTrainerV2_ReLU",
+                    "nnUNetTrainerV2_GeLU", "nnUNetTrainerV2_Mish",
+                    "nnUNetTrainerV2_LReLU_slope_2en1", "nnUNetTrainerV2_ReLU_biasInSegOutput",
+                    "nnUNetTrainerV2_lReLU_biasInSegOutput", "nnUNetTrainerV2_3ConvPerStage",
+                    "nnUNetTrainerV2_3ConvPerStageSameFilters", "nnUNetTrainerV2_allConv3x3",
+                    "nnUNetTrainerV2_DA5", "nnUNetTrainerV2_noDA")
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -970,6 +1018,9 @@ def _kernel_counters() -> dict:
                                               sparse_conv_arm)
     return {"conv3d_same": cv.conv3d_same, "conv3d_same_dual": cv.conv3d_same_dual,
             "conv3d_same_wgrad": cv.conv3d_same_wgrad,
+            "conv3d_same_fp32": cv.conv3d_same_fp32,
+            "conv3d_same_dual_fp32": cv.conv3d_same_dual_fp32,
+            "conv3d_same_wgrad_fp32": cv.conv3d_same_wgrad_fp32,
             "conv3d_same_affine": cv.conv3d_same_affine,
             "channel_stats": fn.channel_stats, "affine_lrelu": fn.affine_lrelu,
             "seghead": sg.seghead, **conv_impl_arms.kernels(), **sparse_conv_arm.kernels(),
@@ -3735,6 +3786,353 @@ def _cascade_tile(plans, stage: int) -> dict:
     torch.cuda.empty_cache()
     return out
 
+def _fp32_bound(cin: int, cout: int, spatial, n: int) -> dict:
+    """An fp32 SAME 3x3x3 conv's (or its dw's) bound: 2*27*Cin*Cout fp32
+    CUDA-core FLOPs per voxel; fp32 inputs and output read or written once."""
+    vox = n * prod(spatial)
+    return _bound(4 * (vox * (cin + cout) + 27 * cin * cout),
+                  fp32_flops=2 * 27 * cin * cout * vox)
+
+
+def phase_fp32_kernels() -> dict:
+    """14a: the fp32 forms of A, B and C against their plain fp32 versions
+    (TF32 off) at phase 10a's Liver shapes and the training batch, each into
+    a NaN-filled buffer; the median of FP32_ITERS launches beside the plain
+    version's, cuDNN's fp32 call (TF32 off; B's on the concat built
+    beforehand) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.ops import conv3d as cv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    n, sp = TRAIN_BATCH, FP32_SPATIAL
+    rows = {}
+    for name, splits, cout in FP32_SHAPES:
+        cin = sum(splits)
+        ins = [torch.randn(n, *sp, c, generator=gen, device=dev) for c in splits]
+        x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
+        if name == "conv3d_same_wgrad":
+            g = torch.randn(n, *sp, cout, generator=gen, device=dev)
+            g_cl = g.permute(0, 4, 1, 2, 3)
+            shape = (cout, cin, 3, 3, 3)
+            out = torch.full(shape, float("nan"), device=dev)
+
+            def kernel():
+                return cv.conv3d_same_wgrad(*ins, g)
+
+            def plain():
+                return cv.conv3d_same_wgrad_ref(*ins, g)
+
+            def library():
+                return torch.nn.grad.conv3d_weight(x_cl, shape, g_cl, padding=1)
+
+            got = cv.conv3d_same_wgrad(*ins, g, out=out)
+        else:
+            w = torch.randn(cout, cin, 3, 3, 3, generator=gen, device=dev) * (2 / (27 * cin)) ** 0.5
+            bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+            pw = cv.prepare_conv3d_weight(w, splits if len(splits) == 2 else None, torch.float32)
+            wrap = getattr(cv, name)
+            ref_fn = cv.conv3d_same_dual_ref if len(splits) == 2 else cv.conv3d_same_ref
+            w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+            out = torch.full((n, *sp, cout), float("nan"), device=dev)
+
+            def kernel():
+                return wrap(*ins, pw, bias)
+
+            def plain():
+                return ref_fn(*ins, w, bias)
+
+            def library():
+                return F.conv3d(x_cl, w_cl, bias, padding=1)
+
+            got = wrap(*ins, pw, bias, out=out)
+        ref = plain()
+        err = _check(f"{name} fp32 {'+'.join(map(str, splits))}->{cout} at {sp} N={n}", got,
+                     ref, FP32_RTOL * ref.abs().max().item())
+        del got, ref, out
+        row = {"splits": splits, "cout": cout, "spatial": sp, "n": n, "err": err,
+               "rel_err": err / max(plain().abs().max().item(), 1e-30),
+               "ms": _median_ms(kernel, FP32_ITERS), "plain_ms": _median_ms(plain, FP32_ITERS),
+               "cudnn_fp32_ms": _median_ms(library, FP32_ITERS), **_fp32_bound(cin, cout, sp, n)}
+        if name == "conv3d_same_wgrad":
+            ws = cv.conv3d_same_wgrad_fp32_workspace(n, *sp, splits[0], 0, cout)
+            row["write"] = "direct" if ws == 0 else f"{ws // (4 * 27 * cin * cout)} splits + reduce"
+        rows[name + "_fp32"] = row
+        tflops = 2 * 27 * cin * cout * n * prod(sp) / (row["ms"] * 1e9)
+        print(f"14a {name} fp32 {'+'.join(map(str, splits))}->{cout} at "
+              f"{'x'.join(map(str, sp))} N={n}: max|d| {err:.3e} (relative "
+              f"{row['rel_err']:.2e}, bound {FP32_RTOL:.0e}); kernel {row['ms']:.3f} ms "
+              f"({tflops:.1f} TFLOP/s), plain {row['plain_ms']:.3f} ms, cuDNN fp32 "
+              f"{row['cudnn_fp32_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}){', ' + row['write'] if 'write' in row else ''}")
+        del ins, x_cl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fp32_launches(per: dict, scale: int) -> dict:
+    """The launches of every kernel expected from an fp32 network's per-step
+    or per-forward counts x scale: on the fp32 forms of A, B and C only."""
+    from multitalent_tpu_torch.models.blocks import fp32_forms
+    return _expect(fp32_forms(per), scale)
+
+
+def phase_fp32_training(workdir: str, generic: dict) -> dict:
+    """14b: `cli.train 3d_fullres nnUNetTrainerV2_fp32 Task003_Liver 0` on
+    phase 10a's plans and phantoms (FP32_TRAIN_STEPS steps, fold 0's
+    validation), its `.model` restored, and `cli.predict -tr
+    nnUNetTrainerV2_fp32` on the held-out raw case: the launches of the fp32
+    forms of A, B and C exactly the fp32 network's per-step counts x the
+    steps + per-forward counts x the validation batches and the network
+    calls, the bf16 kernels launched nowhere; seconds per step, peak memory."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
+    from multitalent_tpu_torch.models.blocks import fp32_forms
+    task, trainer_name = "Task003_Liver", "nnUNetTrainerV2_fp32"
+    env = dict(generic["env"], RESULTS_FOLDER=os.path.join(workdir, "fp32_results"),
+               MTTPU_ITERS_PER_EPOCH=str(FP32_TRAIN_STEPS))
+    with _env(**env):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            [ "3d_fullres", trainer_name, task, "0", "--device", "cuda", "-gpus", "1"]))
+        train_cli_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        net = trainer.network
+        per_step, per_fwd = net.kernel_launches_per_step(), net.kernel_launches_per_forward()
+        calls = sum(t["net_calls"] for t in trainer.validation_timings)
+        expect = {k: a + b + c for (k, a), b, c in zip(
+            _fp32_launches(per_step, trainer.step).items(),
+            _fp32_launches(per_fwd, trainer.num_val_batches_per_epoch).values(),
+            _fp32_launches(per_fwd, calls).values())}
+        losses = trainer.all_tr_losses + trainer.all_val_losses
+        if (net.dtype != torch.float32 or trainer.fp16 or trainer.step != FP32_TRAIN_STEPS
+                or launches != expect or not losses or not np.isfinite(losses).all()):
+            raise AssertionError(f"14b: dtype {net.dtype}, {trainer.step} steps, launches "
+                                 f"{launches}, expected {expect}, losses {losses}")
+        model = trainer.output_folder.rsplit(os.sep, 1)[0]
+        _need(os.path.join(trainer.output_folder, "model_final_checkpoint.model"),
+              os.path.join(trainer.output_folder, "validation_raw", "summary.json"))
+        t0 = time.perf_counter()
+        restored = load_model_and_checkpoint_files(model, [0], device="cuda")
+        restore_s = time.perf_counter() - t0
+        rnet = restored.networks[0]
+        mismatched = [k for k, v in rnet.state_dict().items()
+                      if not torch.equal(v, net.state_dict()[k])]
+        if rnet.dtype != torch.float32 or mismatched:
+            raise AssertionError(f"14b restore: dtype {rnet.dtype}, weights differ {mismatched}")
+        out = os.path.join(workdir, "fp32_predicted")
+        t0 = time.perf_counter()
+        timings, predict_launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", task, "-m",
+             "3d_fullres", "-tr", trainer_name, "-f", "0", "--device", "cuda"]))
+        predict_s = time.perf_counter() - t0
+    pcalls = sum(t["net_calls"] for t in timings)
+    if predict_launches != _fp32_launches(per_fwd, pcalls):
+        raise AssertionError(f"14b predict: launches {predict_launches}, expected "
+                             f"{_fp32_launches(per_fwd, pcalls)}")
+    labels, shape = _check_prediction(out, generic["held_out"])
+    step_s, steps = _median(trainer.step_seconds[1:]), list(trainer.step_seconds)
+    print(f"14b {trainer_name} on Task003_Liver: fp32 network, {trainer.step} steps of batch "
+          f"{trainer.batch_size} at {tuple(int(p) for p in trainer.patch_size)}, losses "
+          f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+          f"{[round(v, 4) for v in trainer.all_val_losses]} (val); seconds per step "
+          f"{step_s:.3f} ({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}); peak "
+          f"{peak_gib:.2f} GiB; train CLI {train_cli_s:.1f} s with the validation of "
+          f"{len(trainer.validation_timings)} case(s) ({calls} network calls, "
+          f"{trainer.validation_seconds:.2f} s)")
+    print(f"14b launches: training { {k: v for k, v in launches.items() if v} } (a step "
+          f"{fp32_forms(per_step)}); .model restored in {restore_s:.2f} s, bit-equal; "
+          f"cli.predict { {k: v for k, v in predict_launches.items() if v} } = per forward "
+          f"{fp32_forms(per_fwd)} x {pcalls} calls in {predict_s:.2f} s; the held-out case "
+          f"at {shape}, labels {labels}")
+    del trainer, net, restored, rnet
+    torch.cuda.empty_cache()
+    return {"launches": launches, "predict_launches": predict_launches,
+            "seconds_per_step": step_s, "step_s": steps, "peak_gib": peak_gib,
+            "per_step": per_step, "restore_s": restore_s, "predict_s": predict_s}
+
+
+def phase_2d(workdir: str, generic: dict) -> dict:
+    """14c: the 2D planner (`cli.plan_and_preprocess -t 3 -pl3d None -pl2d
+    ExperimentPlanner2D_v21`) on 10a's cropped Liver data at full width
+    (base 32, max 480 features), into a preprocessed root of its own; then
+    `cli.train 2d TrainerV2` (TWO_D_STEPS steps, its checkpoints written,
+    then the validation's refusal, as the JAX CLI's ValueError), and through
+    the trainer API TWO_D_STEPS steps each of TrainerV2 and
+    TrainerV2ResencUNet on the 2D plan (the residual-encoder form of it: a
+    leading (1, 1) pool, the default block counts), each saved and restored
+    bit-equal; the 2D convs run on cuDNN: no hand-written kernel launches."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.plan_and_preprocess import main as plan_main
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               save_model_folder)
+    from multitalent_tpu_torch.io import Plans, load_plans, save_plans
+    from multitalent_tpu_torch.training.trainers import TrainerV2, TrainerV2ResencUNet
+    task = "Task003_Liver"
+    root = os.path.join(workdir, "two_d")
+    env = dict(generic["env"], nnUNet_preprocessed=os.path.join(root, "preprocessed"),
+               RESULTS_FOLDER=os.path.join(root, "results"),
+               MTTPU_ITERS_PER_EPOCH=str(TWO_D_STEPS))
+    out = {}
+    with _env(**env):
+        t0 = time.perf_counter()
+        plan_main(["-t", "3", "-pl3d", "None", "-pl2d", "ExperimentPlanner2D_v21"])
+        out["plan_s"] = time.perf_counter() - t0
+        prep = os.path.join(env["nnUNet_preprocessed"], task)
+        plans_file = os.path.join(prep, "MTTPUPlansv2.1_plans_2D.pkl")
+        _need(plans_file)
+        plan = _print_plan("14c, the 2D planner on Task003_Liver,", plans_file)
+        plans = load_plans(plans_file)
+        st = plans.stage(0)
+        if len(st.patch_size) != 2 or plans.base_num_features != 32:
+            raise AssertionError(f"14c: the 2D planner chose {plan}")
+
+        # the train CLI: trains, writes its checkpoints, then refuses the validation
+        t0 = time.perf_counter()
+        try:
+            _run_counted(lambda: train_main(["2d", "TrainerV2", task, "0", "--device", "cuda",
+                                             "-gpus", "1"]))
+        except NotImplementedError as e:
+            if "2D models are not predicted" not in str(e):
+                raise
+        else:
+            raise AssertionError("14c: cli.train 2d validated a 2D model")
+        out["train_cli_s"] = time.perf_counter() - t0
+        cli_folder = os.path.join(env["RESULTS_FOLDER"], "nnUNet", "2d", task,
+                                  "TrainerV2__MTTPUPlansv2.1", "fold_0")
+        _need(os.path.join(cli_folder, "model_final_checkpoint.model"))
+
+        d = plans.to_dict()
+        rs = d["plans_per_stage"][0]
+        pools = [[1, 1]] + [list(p) for p in rs["pool_op_kernel_sizes"]]
+        rs.update(pool_op_kernel_sizes=pools,
+                  num_blocks_encoder=list(RESENC_DEFAULT_BLOCKS[:len(pools)]),
+                  num_blocks_decoder=[1] * (len(pools) - 1))
+        resenc_file = os.path.join(prep, "MTTPUPlansv2.1_resenc_plans_2D.pkl")
+        save_plans(Plans.from_dict(d), resenc_file)
+        for label, cls, pfile in (("TrainerV2", TrainerV2, plans_file),
+                                  ("TrainerV2ResencUNet", TrainerV2ResencUNet, resenc_file)):
+            folder = os.path.join(root, "api", label)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = cls(pfile, 0, folder, prep, batch_dice=True, stage=0, device="cuda")
+
+            def steps():
+                t.initialize(True)
+                losses = [t.run_iteration(t.tr_gen) for _ in range(TWO_D_STEPS)]
+                t.tr_gen.stop()
+                t.val_gen.stop()
+                return losses
+
+            losses, launches = _run_counted(steps)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if (t.threeD or not np.isfinite(losses).all() or any(launches.values())):
+                raise AssertionError(f"14c {label}: threeD {t.threeD}, losses {losses}, "
+                                     f"launches {launches}")
+            t.save_checkpoint(os.path.join(t.output_folder, "model_final_checkpoint.model"))
+            restored = load_model_and_checkpoint_files(folder, [0], device="cuda").networks[0]
+            sd = t.network.state_dict()
+            if restored.state_dict().keys() != sd.keys() or not all(
+                    torch.equal(v, sd[k]) for k, v in restored.state_dict().items()):
+                raise AssertionError(f"14c {label}: the restored 2D network differs")
+            n_params = sum(p.numel() for p in t.network.parameters())
+            out[label] = {"step_s": _median(t.step_seconds[1:]), "peak_gib": peak,
+                          "params": n_params}
+            print(f"14c {label} on the 2D plan: {type(t.network).__name__} "
+                  f"({n_params:,} parameters, features {t.network.features if hasattr(t.network, 'features') else '?'}), "
+                  f"batch {t.batch_size} at {tuple(int(p) for p in t.patch_size)}, losses "
+                  f"{[round(v, 4) for v in losses]}; seconds per step "
+                  f"{out[label]['step_s']:.3f} ({', '.join(f'{v:.3f}' for v in t.step_seconds)});"
+                  f" peak {peak:.2f} GiB; saved and restored bit-equal; hand-written kernel "
+                  f"launches 0 (cuDNN)")
+            del t, restored
+    out["plan"] = plan
+    print(f"14c host seconds: 2D plan + preprocess {out['plan_s']:.2f}, cli.train 2d "
+          f"{out['train_cli_s']:.2f}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_variants(workdir: str, generic: dict) -> dict:
+    """14d: each network variant trainer of VARIANT_TRAINERS (and _DA5 and
+    _noDA) on phase 10a's Liver plans and phantoms through the trainer API:
+    VARIANT_STEPS steps with every launch count set to 0 before and read
+    after (A, B and C exactly the network's per-step counts x the steps),
+    finite losses, then the softmax probabilities of one 128^3 tile of a
+    validation phantom (the validation sampler's patch, center-cropped as
+    the validation step does) through the kernels in bf16: no further from
+    the plain fp32 network than the plain bf16 path is (VARIANT_FP32_RATIO:
+    mean and max of |dp|), and, for a network of the flagship's two convs a
+    stage, within phase 4's bounds of the plain bf16 path (with three convs
+    a stage the plain bf16 path itself drifts past them: PERF.md §6)."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.train import TRAINERS
+    prep = os.path.join(generic["env"]["nnUNet_preprocessed"], "Task003_Liver")
+    plans_file = os.path.join(prep, "MTTPUPlansv2.1_plans_3D.pkl")
+    results = {}
+    for name in VARIANT_TRAINERS:
+        torch.cuda.empty_cache()
+        t = TRAINERS[name](plans_file, 0, os.path.join(workdir, "variants", name), prep,
+                           batch_dice=False, stage=0, device="cuda")
+
+        def steps():
+            t.initialize(True)
+            return [t.run_iteration(t.tr_gen) for _ in range(VARIANT_STEPS)]
+
+        t0 = time.perf_counter()
+        losses, launches = _run_counted(steps)
+        batch = next(t.val_gen)
+        t.tr_gen.stop()
+        t.val_gen.stop()
+        wall = time.perf_counter() - t0
+        net = t.network
+        expect = _expect(net.kernel_launches_per_step(), VARIANT_STEPS)
+        if launches != expect or not np.isfinite(losses).all():
+            raise AssertionError(f"14d {name}: launches {launches}, expected {expect}, "
+                                 f"losses {losses}")
+        x, _ = t._val_transform(t._to_device(batch["data"][:1]), t._to_device(batch["seg"][:1]))
+        net.eval()
+        with torch.no_grad():
+            p_k = torch.softmax(net(x), 1)
+            p_plain = torch.softmax(net(x, use_kernels=False), 1)
+            net.dtype = torch.float32  # the fp32 master weights, plain fp32 compute
+            p_32 = torch.softmax(net(x, use_kernels=False), 1)
+            net.dtype = torch.bfloat16
+        d, dk, dp = ((a - b).abs() for a, b in ((p_k, p_plain), (p_k, p_32), (p_plain, p_32)))
+        dmax, dmean = d.max().item(), d.mean().item()
+        ratio = (dk.max().item() / dp.max().item(), dk.mean().item() / dp.mean().item())
+        two = net.conv_per_stage == 2
+        if not (torch.isfinite(p_k).all() and ratio[0] <= VARIANT_FP32_RATIO[0]
+                and ratio[1] <= VARIANT_FP32_RATIO[1]
+                and (not two or (dmax <= PROB_BOUND and dmean <= PROB_BOUND_MEAN))):
+            raise AssertionError(f"14d {name}: tile |dp| vs plain bf16 max {dmax:.3e}, mean "
+                                 f"{dmean:.3e}; vs fp32 kernels / plain bf16 {ratio}")
+        over = t.network_overrides()
+        results[name] = {"launches": launches, "step_s": _median(t.step_seconds[1:]),
+                         "dp_max": dmax, "dp_mean": dmean, "fp32_ratio": ratio}
+        print(f"14d {name} ({type(t).__name__}, overrides {over}): {VARIANT_STEPS} steps, "
+              f"losses {[round(v, 4) for v in losses]}, seconds per step "
+              f"{', '.join(f'{v:.3f}' for v in t.step_seconds)} ({wall:.1f} s with set-up); "
+              f"launches { {k: v for k, v in launches.items() if v} }; tile kernels vs plain "
+              f"|dp| max {dmax:.3e}, mean {dmean:.3e} (bounds {PROB_BOUND}, "
+              f"{PROB_BOUND_MEAN}{'' if two else ', not held: 3 convs a stage'}); vs the "
+              f"fp32 network kernels / plain bf16 max {ratio[0]:.3f}, mean {ratio[1]:.3f} "
+              f"(bounds {VARIANT_FP32_RATIO})")
+        del t, net
+    torch.cuda.empty_cache()
+    return results
+
+
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
     """bound_ms and what bounds it, for work of nbytes, bf16 tensor-core
     FLOPs and fp32 CUDA-core FLOPs."""
@@ -4152,6 +4550,11 @@ def main() -> int:
                                 mednext)
         mednext_tile = timed("12c MedNeXt tile", phase_mednext_tile)
         cascade = timed("13 cascade", phase_cascade, workdir, raw_generic)
+        fp32_kernels = timed("14a fp32 kernels", phase_fp32_kernels)
+        fp32_train = timed("14b fp32 train + predict", phase_fp32_training, workdir,
+                           raw_generic)
+        two_d = timed("14c 2D", phase_2d, workdir, raw_generic)
+        variants = timed("14d variants", phase_variants, workdir, raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4323,6 +4726,35 @@ def main() -> int:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "timed_at": first["what"]})
+    # the fp32 forms of A, B and C (phase 14): launches from 14b's fp32 train
+    # CLI (the main path of --fp32) and its cli.predict, times at 14a's Liver
+    # shapes (N=2) beside cuDNN's fp32 call (TF32 off; B's on the concat
+    # built beforehand, so no library call computes its function)
+    for kname, src_replaces in (
+            ("conv3d_same_fp32", ("multitalent_tpu/ops/pallas_conv.py:36",
+                                  "multitalent_tpu/ops/pallas_merged_conv.py:103")),
+            ("conv3d_same_dual_fp32", ("multitalent_tpu/ops/pallas_merged_conv.py:251",)),
+            ("conv3d_same_wgrad_fp32", ("multitalent_tpu/ops/pallas_conv.py:199",
+                                        "multitalent_tpu/ops/pallas_merged_conv.py:587"))):
+        r = fp32_kernels[kname]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "multitalent_tpu_torch/csrc/conv3d_fp32.cu",
+                     "replaces": src_replaces[0], "also_replaces": list(src_replaces[1:]),
+                     "launches": fp32_train["launches"][kname],
+                     "launches_predict": fp32_train["predict_launches"][kname],
+                     "max_abs_err": r["err"], "rel_err": r["rel_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": None if kname == "conv3d_same_dual_fp32"
+                     else r["cudnn_fp32_ms"],
+                     "cudnn_fp32_ms": r["cudnn_fp32_ms"],
+                     **({"write": r["write"]} if "write" in r else {}),
+                     "timed_at": "{}->{} at {} N={}".format(
+                         "+".join(map(str, r["splits"])), r["cout"],
+                         "x".join(map(str, r["spatial"])), r["n"])})
+    for row in rows:
+        row["launches_variants"] = sum(v["launches"].get(row["name"], 0)
+                                       for v in variants.values())
     lr = liver["runs"]
     print("summary, Liver (phase 3c): seconds per case " + ", ".join(
         f"{k} {lr[k]['seconds_per_case']:.2f} (predict {lr[k]['predict_s']:.2f}, export "
@@ -4430,6 +4862,16 @@ def main() -> int:
           f"{cascade['seconds']['predict lowres']:.2f} s; 13d tile kernels vs plain |dp| max "
           f"{cascade['tile']['bf16_max']:.3e}, mean {cascade['tile']['bf16_mean']:.3e}; host "
           f"seconds {', '.join(f'{k} {v:.2f}' for k, v in cascade['seconds'].items())}; on {smi}")
+    print(f"summary, fp32 and the variants (phase 14): fp32 forms "
+          + "; ".join(f"{k} {v['ms']:.3f} ms (cuDNN fp32 {v['cudnn_fp32_ms']:.3f}, bound "
+                      f"{v['bound_ms']:.3f})" for k, v in fp32_kernels.items())
+          + f"; nnUNetTrainerV2_fp32 seconds per step {fp32_train['seconds_per_step']:.3f}, "
+          f"peak {fp32_train['peak_gib']:.2f} GiB; 2D seconds per step "
+          + ", ".join(f"{k} {two_d[k]['step_s']:.3f} (peak {two_d[k]['peak_gib']:.2f} GiB)"
+                      for k in ("TrainerV2", "TrainerV2ResencUNet"))
+          + "; variants seconds per step " + ", ".join(
+              f"{k.removeprefix('nnUNetTrainerV2_')} {v['step_s']:.3f}"
+              for k, v in variants.items()) + f"; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,10 @@ data_augmentation_moreDA.py:41-209):
 
 Input is the host sampler's (B, C, Z', Y', X') float32 batch already on the
 device; the output data is (B, C, Z, Y, X) float32 and the targets one
-(B, z, y, x) float32 label map per deep-supervision level.
+(B, z, y, x) float32 label map per deep-supervision level. A 2D patch (B, C,
+Y', X') takes the 2D chain (pipeline.py:43-66): spatial_augment_2d (one
+in-plane angle from rotation_x's range), the same intensity chain, mirroring
+over the params' mirror axes ((0, 1) in the 2D defaults).
 """
 from __future__ import annotations
 
@@ -42,6 +45,12 @@ def _spatial_fn(final_shape, p: dict):
     """spatial(data, seg, generator): the moreDA chain's spatial transform
     (rotation, scaling, center crop) of every channel of data and of seg."""
     def spatial(data: torch.Tensor, seg: torch.Tensor, generator: torch.Generator):
+        if len(final_shape) == 2:
+            return S.spatial_augment_2d(
+                data, seg, final_shape, generator=generator,
+                scale_range=tuple(p["scale_range"]), rot=tuple(p["rotation_x"]),
+                p_rot=p.get("p_rot", 0.2), p_scale=p.get("p_scale", 0.2),
+                order_seg=int(p.get("order_seg", 1)))
         return S.spatial_augment(
             data, seg, final_shape, generator=generator,
             scale_range=tuple(p["scale_range"]), rot_x=tuple(p["rotation_x"]),
@@ -95,15 +104,14 @@ def _intensity_fn(p: dict):
 
 def _final_shape(final_patch_size) -> tuple[int, ...]:
     final_shape = tuple(int(s) for s in final_patch_size)
-    if len(final_shape) != 3:
-        raise NotImplementedError("the port augments 3D patches only (2D: ROADMAP "
-                                  "queue 1, item 10d)")
+    if len(final_shape) not in (2, 3):
+        raise ValueError(f"patch {final_shape}: 2D or 3D only")
     return final_shape
 
 
 def make_augment_fn(final_patch_size, ds_scales, params: dict, num_modalities: int = 1):
-    """augment(data_bc, seg_b1, generator) -> (data (B, C, Z, Y, X), [targets]).
-    3D patches only (the 2D pipeline is ROADMAP queue 1, item 10d)."""
+    """augment(data_bc, seg_b1, generator) -> (data (B, C, Z, Y, X), [targets]),
+    or in 2D (B, C, Y, X)."""
     p = params
     ds_scales = [tuple(s) for s in ds_scales]
     spatial, intensity = _spatial_fn(_final_shape(final_patch_size), p), _intensity_fn(p)

@@ -2,7 +2,8 @@
 in one resampling per sample, mirroring, deep-supervision seg targets.
 
 Counterpart of multitalent_tpu/augment/spatial.py (`spatial_augment` :190,
-`mirror_augment` :291, `downsample_seg_for_ds` :306). Data is (B, C, Z', Y',
+`mirror_augment` :291, `downsample_seg_for_ds` :306, and the 2D
+`spatial_augment_2d` :319). Data is (B, C, Z', Y',
 X') float32, seg (B, Z', Y', X') float32 labels with -1 outside the case; the
 output is cropped to `final_shape`.
 
@@ -15,6 +16,12 @@ order 0 nearest with scipy's round-half-away-from-zero, with constant -1.
 The JAX package runs the rotation as a shear-warp decomposition by default
 because gathers are slow on the TPU (spatial.py:138-185); on the GPU the
 gather is cheap and this is its exact-geometry path (spatial.py:266-274).
+
+2D (`spatial_augment_2d`, data (B, C, Y', X')): one in-plane angle from
+rotation_x's range and one scale for both axes, and every sample resampled
+(bilinear, the output grid centered on the input), also without rotation
+or scaling, as the JAX function maps every sample through
+map_coordinates (spatial.py:340-355).
 
 Random draws come from an explicit `torch.Generator` on the data's device.
 """
@@ -53,23 +60,25 @@ def _source_coords(in_shape, final_shape, angles, scale, device) -> torch.Tensor
 
 
 def _trilinear(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """vol (C, Z', Y', X') sampled at coords (3, Z, Y, X), 0 outside."""
+    """vol (C, Z', Y', X') sampled at coords (3, Z, Y, X), 0 outside; in 2D
+    vol (C, Y', X') at coords (2, Y, X), bilinear."""
     in_shape = vol.shape[1:]
-    norm = [coords[i] * (2.0 / (in_shape[i] - 1)) - 1.0 for i in range(3)]
+    norm = [coords[i] * (2.0 / (in_shape[i] - 1)) - 1.0 for i in range(len(in_shape))]
     grid = torch.stack(norm[::-1], dim=-1)[None]  # (1, Z, Y, X, (x, y, z))
     return F.grid_sample(vol[None], grid, mode="bilinear", padding_mode="zeros",
                          align_corners=True)[0]
 
 
 def _nearest(vol: torch.Tensor, coords: torch.Tensor, cval: float) -> torch.Tensor:
-    """vol (Z', Y', X') at the nearest voxel of coords (3, Z, Y, X), rounding
-    half away from zero (scipy's order 0, spatial.py:58-60), cval outside."""
+    """vol (Z', Y', X') at the nearest voxel of coords (3, Z, Y, X) (or a 2D
+    vol at coords (2, Y, X)), rounding half away from zero (scipy's order 0,
+    spatial.py:58-60), cval outside."""
     idx = (torch.sign(coords) * torch.floor(coords.abs() + 0.5)).long()
     valid = torch.ones(coords.shape[1:], dtype=torch.bool, device=vol.device)
+    flat = torch.zeros(coords.shape[1:], dtype=torch.long, device=vol.device)
     for i, n in enumerate(vol.shape):
         valid &= (idx[i] >= 0) & (idx[i] < n)
-        idx[i].clamp_(0, n - 1)
-    flat = (idx[0] * vol.shape[1] + idx[1]) * vol.shape[2] + idx[2]
+        flat = flat * n + idx[i].clamp(0, n - 1)
     out = vol.reshape(-1)[flat.reshape(-1)].reshape(coords.shape[1:])
     return torch.where(valid, out, torch.full_like(out, cval))
 
@@ -88,9 +97,10 @@ def warp_sample(d: torch.Tensor, s: torch.Tensor, final_shape, angles, scale,
 
 
 def center_crop(d: torch.Tensor, s: torch.Tensor, final_shape):
-    """Crop the last three axes of d and s at offsets (in - final) // 2."""
+    """Crop the last len(final_shape) axes of d and s at offsets
+    (in - final) // 2."""
     sl = tuple(slice((i - f) // 2, (i - f) // 2 + f)
-               for i, f in zip(s.shape[-3:], final_shape))
+               for i, f in zip(s.shape[-len(final_shape):], final_shape))
     return d[(..., *sl)], s[(..., *sl)]
 
 
@@ -134,6 +144,54 @@ def spatial_augment(data: torch.Tensor, seg: torch.Tensor, final_shape, *,
         ang = angles[i] if do_rot[i] else (0.0, 0.0, 0.0)
         sc = scale[i] if do_scale[i] else (1.0, 1.0, 1.0)
         outs.append(warp_sample(data[i], seg[i], final_shape, ang, sc, order_seg))
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def warp_sample_2d(d: torch.Tensor, s: torch.Tensor, final_shape, angle: float,
+                   scale: float, order_seg: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """One 2D sample: d (C, Y', X'), s (Y', X') resampled at the centered
+    output grid scaled by `scale` and rotated by `angle`, re-centered on the
+    input (the warp of spatial_augment_2d, spatial.py:340-355): bilinear
+    with 0 outside, seg bilinear then rounded with -1 outside (or nearest
+    for order 0)."""
+    dev = d.device
+    axes = [torch.arange(f, dtype=torch.float32, device=dev) - (f - 1) / 2.0
+            for f in final_shape]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij")).reshape(2, -1)
+    t = torch.tensor(float(angle), dtype=torch.float32, device=dev)
+    c, sn = torch.cos(t), torch.sin(t)
+    r = torch.stack([torch.stack([c, -sn]), torch.stack([sn, c])])
+    center = torch.tensor([(n - 1) / 2.0 for n in d.shape[1:]], dtype=torch.float32,
+                          device=dev)
+    coords = (r @ (grid * float(scale)) + center[:, None]).reshape(2, *final_shape)
+    d_out = _trilinear(d, coords)
+    if order_seg == 0:
+        s_out = _nearest(s, coords, -1.0)
+    else:
+        s_out = torch.round(_trilinear(s[None] + 1.0, coords)[0] - 1.0)
+    return d_out, s_out
+
+
+def spatial_augment_2d(data: torch.Tensor, seg: torch.Tensor, final_shape, *,
+                       generator: torch.Generator, scale_range=(0.7, 1.4),
+                       rot=(-3.1416, 3.1416), p_rot: float = 0.2, p_scale: float = 0.2,
+                       order_seg: int = 1):
+    """data (B, C, Y', X'), seg (B, Y', X') -> (B, C, *final), (B, *final):
+    per sample one in-plane angle from `rot` with p_rot, one scale (zoom in
+    and out equally likely) with p_scale, and the warp (warp_sample_2d)
+    always, as spatial.py:319-359."""
+    b = data.shape[0]
+    final_shape = tuple(int(f) for f in final_shape)
+    gen, dev = generator, generator.device
+    do_rot = torch.rand(b, generator=gen, device=dev) < p_rot
+    do_scale = torch.rand(b, generator=gen, device=dev) < p_scale
+    angle = torch.where(do_rot, _uniform(gen, b, *rot), torch.zeros(b, device=dev))
+    lo = _uniform(gen, b, scale_range[0], 1.0)
+    hi = _uniform(gen, b, 1.0, scale_range[1])
+    scale = torch.where(torch.rand(b, generator=gen, device=dev) < 0.5, lo, hi)
+    scale = torch.where(do_scale, scale, torch.ones(b, device=dev))
+    outs = [warp_sample_2d(data[i], seg[i], final_shape, a, sc, order_seg)
+            for i, (a, sc) in enumerate(zip(angle.tolist(), scale.tolist()))]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 

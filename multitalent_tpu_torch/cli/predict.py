@@ -14,7 +14,8 @@ the fold sum after resizing it back, fastest argmaxes on the network's grid
 and resizes the labelmap by nearest neighbour. MTTPU_SW_EXACT=1 runs the
 sliding window in its exact (fp32) mode, MTTPU_DEVICE_EXPORT=0 exports on
 the host. `-m 3d_lowres` predicts a cascade's first stage, an ordinary model
-folder at stage 0. Refused: 2d models (ROADMAP queue 1, item 10d), and
+folder at stage 0. Refused: 2d models (neither package predicts one: the
+JAX sliding window tiles three axes and raises a ValueError there), and
 3d_cascade_fullres ones, which read the previous stage's segmentations: the
 JAX package's CLI accepts them (lowres_segmentations) but never reads them,
 so it cannot predict such a folder either (a cascade validates through
@@ -28,6 +29,7 @@ import os
 from multitalent_tpu_torch import paths
 from multitalent_tpu_torch.cli.configuration import resolve_task_name
 from multitalent_tpu_torch.inference.predict import predict_from_folder
+from multitalent_tpu_torch.ops.sliding_window import refuse_2d_prediction
 
 
 def main(argv=None) -> list[dict]:
@@ -60,8 +62,7 @@ def main(argv=None) -> list[dict]:
     args = parser.parse_args(argv)
 
     if args.model == "2d":
-        raise NotImplementedError("-m 2d: 2D models are not ported yet (ROADMAP queue 1, "
-                                  "item 10d)")
+        refuse_2d_prediction("-m 2d")
     if args.model == "3d_cascade_fullres":
         raise NotImplementedError(
             "-m 3d_cascade_fullres: a cascade model reads the previous stage's "

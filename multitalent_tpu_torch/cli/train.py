@@ -23,6 +23,14 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
     python -m multitalent_tpu_torch.cli.train 3d_lowres TrainerV2 TASK 0
     ... 3d_cascade_fullres TrainerV2CascadeFullRes TASK 0    the cascade, on a
                                    two-stage plan
+    ... 2d TrainerV2 TASK 0        the 2D plans (<plans id>_plans_2D.pkl, e.g. of
+                                   plan_and_preprocess -pl2d ExperimentPlanner2D_v21):
+                                   trains and writes its checkpoints, then the
+                                   validation raises NotImplementedError, as the JAX
+                                   CLI's raises a ValueError (neither predicts 2D)
+    ... 3d_fullres nnUNetTrainerV2_GN TASK 0                 a variant trainer
+                                   (training/variants.py); nnUNetTrainerV2_fp32 (or
+                                   --fp32) computes in fp32 on the kernels' fp32 forms
 
 After 3d_lowres (and its validation) the CLI loads the fold's best
 checkpoint and writes the next stage's input, every case's labelmap resampled
@@ -47,8 +55,7 @@ The plans' batch is the global batch, always split over the ranks
 (parallel/distributed.py; --dbs is accepted and changes nothing). Every rank
 reads -c's checkpoint and -pretrained_weights; rank 0 writes the folder; the
 validation splits its cases over the ranks. Refused: more ranks than cards,
-a split that leaves a rank without a sample (ROADMAP queue 1, item 14), and
-2D networks (item 10d).
+and a split that leaves a rank without a sample (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ from multitalent_tpu_torch.training.cascade import CASCADE_TRAINERS, predict_nex
 from multitalent_tpu_torch.training.trainers import (TrainerV2, TrainerV2_2epochs,
                                                      TrainerV2_5epochs, TrainerV2_dummyLoad,
                                                      TrainerV2ResencUNet)
-from multitalent_tpu_torch.training.variants import TrainerV2SwinUNETR, TrainerV2SwinUNETRlr5e4
+from multitalent_tpu_torch.training.variants import VARIANT_ALIASES
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
                                                    TrainerV2WarmupSegHeadsResenc,
                                                    TrainerV2WarmupSegHeadsSwin,
@@ -81,8 +88,11 @@ from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2W
 
 # trainer names of the reference and of the JAX package -> the port's classes
 TRAINERS = {
+    # the copies and the fp16 name are the production trainer (variants.py:766)
     **dict.fromkeys(("TrainerV2", "nnUNetTrainerV2", "nnUNetTrainerV2_DP",
-                     "nnUNetTrainerV2_DDP", "nnUNetTrainer"), TrainerV2),
+                     "nnUNetTrainerV2_DDP", "nnUNetTrainer", "nnUNetTrainerV2_copy1",
+                     "nnUNetTrainerV2_copy2", "nnUNetTrainerV2_copy3", "nnUNetTrainerV2_copy4",
+                     "nnUNetTrainerV2_fp16"), TrainerV2),
     **dict.fromkeys(("MultiTalentTrainer", "MultiTalent_trainer_ddp"), MultiTalentTrainer),
     **dict.fromkeys(("MultiTalentTrainer2000ep", "MultiTalent_trainer_ddp_2000ep"),
                     MultiTalentTrainer2000ep),
@@ -105,10 +115,9 @@ TRAINERS = {
     # SwinUNETR; the released zip spells one trainer MultiTalent_tainer_...
     **dict.fromkeys(("MultiTalentTrainerSwinUNETR", "MultiTalent_trainer_SwinUNETR_ddp_adam",
                      "MultiTalent_tainer_SwinUNETR_ddp_adam"), MultiTalentTrainerSwinUNETR),
-    **dict.fromkeys(("TrainerV2SwinUNETR", "nnUNetTrainerV2_swinunetr_adam_ddp"),
-                    TrainerV2SwinUNETR),
-    **dict.fromkeys(("TrainerV2SwinUNETRlr5e4", "nnUNetTrainerV2_swinunetr_adam_ddp_lr5e4"),
-                    TrainerV2SwinUNETRlr5e4),
+    # the variant zoo under its class names and reference aliases
+    **{name: cls for cls, aliases in VARIANT_ALIASES.items()
+       for name in (cls.__name__, *aliases)},
     **dict.fromkeys(("TrainerV2WarmupSegHeadsSwin",
                      "nnUNetTrainerV2_warmupsegheads_swinunetr_adam_lr5e4_ddp"),
                     TrainerV2WarmupSegHeadsSwin),
@@ -116,9 +125,10 @@ TRAINERS = {
     **CASCADE_TRAINERS,
     # the reference's benchmarking trainers
     **dict.fromkeys(("TrainerV2_2epochs", "nnUNetTrainerV2_2epochs"), TrainerV2_2epochs),
-    **dict.fromkeys(("TrainerV2_5epochs", "nnUNetTrainerV2_5epochs"), TrainerV2_5epochs),
-    **dict.fromkeys(("TrainerV2_dummyLoad", "nnUNetTrainerV2_5epochs_dummyLoad"),
-                    TrainerV2_dummyLoad),
+    **dict.fromkeys(("TrainerV2_5epochs", "nnUNetTrainerV2_5epochs",
+                     "nnUNetTrainerV2_DDP_5epochs"), TrainerV2_5epochs),
+    **dict.fromkeys(("TrainerV2_dummyLoad", "nnUNetTrainerV2_5epochs_dummyLoad",
+                     "nnUNetTrainerV2_DDP_5epochs_dummyLoad"), TrainerV2_dummyLoad),
 }
 
 
@@ -126,29 +136,30 @@ def get_default_configuration(network: str, task: str, network_trainer: str,
                               plans_identifier: str | None = None):
     """The path logic of multitalent_tpu/cli/configuration.py:27 with the
     port's trainer classes: (plans_file, output_folder, dataset_directory,
-    batch_dice, stage, trainer_class). 3d_lowres takes a multi-stage plan's
-    first stage with batch dice, 3d_fullres and 3d_cascade_fullres its last
-    without."""
-    if network not in ("3d_fullres", "3d_lowres", "3d_cascade_fullres"):
-        raise NotImplementedError(f"network {network!r}: the port trains 3d_fullres, "
-                                  "3d_lowres and 3d_cascade_fullres (2D: ROADMAP queue 1, "
-                                  "item 10d)")
+    batch_dice, stage, trainer_class). 2d (the `_plans_2D.pkl` plans) and
+    3d_lowres take a plan's first stage with batch dice, 3d_fullres and
+    3d_cascade_fullres its last without."""
+    if network not in ("2d", "3d_fullres", "3d_lowres", "3d_cascade_fullres"):
+        raise ValueError(f"network {network!r}: one of 2d, 3d_fullres, 3d_lowres, "
+                         "3d_cascade_fullres")
     if network_trainer not in TRAINERS:
         raise ValueError(f"unknown trainer {network_trainer!r}; known: {sorted(TRAINERS)}")
     plans_identifier = plans_identifier or paths.default_plans_identifier
     task = resolve_task_name(task)
     dataset_directory = os.path.join(paths.preprocessing_output_dir(), task)
-    plans_file = os.path.join(dataset_directory, plans_identifier + "_plans_3D.pkl")
+    suffix = "_plans_2D.pkl" if network == "2d" else "_plans_3D.pkl"
+    plans_file = os.path.join(dataset_directory, plans_identifier + suffix)
     if not os.path.isfile(plans_file):
         raise FileNotFoundError(f"plans file not found: {plans_file}")
     stages = sorted(load_plans(plans_file).plans_per_stage)
     if network in ("3d_lowres", "3d_cascade_fullres") and len(stages) == 1:
         raise RuntimeError("3d_lowres/3d_cascade_fullres requires a multi-stage plan; this "
                            "dataset does not need a cascade. Use 3d_fullres.")
-    stage = stages[0] if network == "3d_lowres" else stages[-1]
+    first = network in ("2d", "3d_lowres")
+    stage = stages[0] if first else stages[-1]
     output_folder = os.path.join(paths.network_training_output_dir(), network, task,
                                  network_trainer + "__" + plans_identifier)
-    return (plans_file, output_folder, dataset_directory, network == "3d_lowres", stage,
+    return (plans_file, output_folder, dataset_directory, first, stage,
             TRAINERS[network_trainer])
 
 

@@ -1,0 +1,447 @@
+// The fp32 forms of kernels A, B and C: the stride-1 SAME 3x3x3 convolution
+// and its weight gradient with fp32 inputs, weights and outputs, for the
+// networks that train and predict in fp32 (`--fp32`, nnUNetTrainerV2_fp32).
+//
+//   out[n, z, y, x, co] = bias[co] + sum over dz, dy, dx, ci of
+//       in[n, z+dz-1, y+dy-1, x+dx-1, ci] * w[co, ci, dz, dy, dx]   (zero outside)
+//   dw[co, ci, dz, dy, dx] = sum over n, z, y, x of
+//       in[n, z+dz-1, y+dy-1, x+dx-1, ci] * g[n, z, y, x, co]
+//
+// where `in` is x (kernel A's form), or concat(a, b) along channels (kernel
+// B's form and C's dual form) read from the two tensors without building
+// the concat. They replace the fp32 instantiations of the Pallas TPU kernels
+// of multitalent_tpu, which are built in the input's dtype:
+//   - ops/pallas_conv.py _conv_kernel and ops/pallas_merged_conv.py
+//     _merged_kernel (fp32 A; with the flipped, transposed weight also dx);
+//   - ops/pallas_merged_conv.py _merged2_kernel (fp32 B);
+//   - ops/pallas_conv.py _wgrad_kernel and ops/pallas_merged_conv.py
+//     _merged_wgrad_kernel (fp32 C).
+//
+// Plain FFMA on the CUDA cores, no TF32: TF32 rounds the inputs to 10
+// mantissa bits, and the JAX package's fp32 reference does not. What bounds
+// them on an H100 is fp32 arithmetic (67 TFLOP/s): a 32 -> 32 conv does 1728
+// operations for every 256 bytes it must move, far above the card's ~20
+// operations a byte in fp32. The design keeps the products fed from shared
+// memory with few loads per FMA, and nothing more (a simple kernel first):
+//   - forward (A, B): a block owns a 256-voxel box of the output and 32
+//     output channels; it stages 8 input channels of the box's halo and
+//     their 27 x 32 weights at a time in shared memory. A thread owns 4
+//     neighbouring voxels along x and 8 output channels (32 sums): per
+//     (channel, dz, dy) it reads a 6-voxel window of the halo once and two
+//     float4s of weights per tap (the same for the whole warp: broadcast),
+//     96 FMAs for 12 loads;
+//   - weight gradient (C): a block owns 8 input channels, 32 output
+//     channels and a contiguous run of boxes (the voxel axis is split over
+//     blocks to fill the card); a thread owns one input channel, one (dz, dy)
+//     and 4 output channels for the 3 dx taps (12 sums) and walks each line
+//     of the box along x with a 3-voxel register window, 12 FMAs for one
+//     halo load and one float4 of g. Each split writes its partial dw; a
+//     second small kernel adds the splits in a fixed order (deterministic,
+//     no atomics), or with one split the block writes dw directly.
+//
+// Layouts: x, a, b: (N, Z, Y, X, C) fp32 contiguous; w: the prepared layout
+// of ops/conv3d.py:prepare_conv3d_weight in fp32, (kchunks, 27, 16, CoutP)
+// with each input's channels filling whole 16-row K chunks and CoutP a
+// multiple of 32; bias (Cout,) fp32 or null; out (N, Z, Y, X, Cout) fp32;
+// g (N, Z, Y, X, Cout) fp32; dw (Cout, Ca + Cb, 3, 3, 3) fp32.
+#include "common.cuh"
+
+namespace {
+
+using mt::cdiv;
+
+constexpr int BN = 32;          // output channels a block
+constexpr int CK = 8;           // input channels staged at once
+constexpr int XS = 820;         // halo row stride: the largest halo (816) + 4, conflict-free
+constexpr int KCH = 16;         // rows of a prepared weight chunk (mt::KC)
+
+struct Box {
+  int z, y, x;
+};
+// 256-voxel boxes with x a multiple of 4 and a halo of at most 816 voxels,
+// smallest halo first (ties in wasted voxels keep the first)
+constexpr Box kBoxes[] = {{4, 8, 8},  {8, 8, 4},  {8, 4, 8},  {4, 4, 16},
+                          {16, 4, 4}, {4, 16, 4}, {2, 8, 16}, {2, 4, 32}};
+
+long long pick_box(int z, int y, int x, Box* out) {
+  long long best = -1;
+  for (const Box& b : kBoxes) {
+    const long long n = (long long)cdiv(z, b.z) * cdiv(y, b.y) * cdiv(x, b.x);
+    if (best < 0 || n < best) {
+      best = n;
+      *out = b;
+    }
+  }
+  return best;
+}
+
+struct Geometry {
+  int n, z, y, x;
+  Box box;
+  int gz, gy, gx;  // boxes along each axis
+  long long boxes;  // boxes of one sample
+};
+
+Geometry geometry(int n, int z, int y, int x) {
+  Geometry g{};
+  g.n = n;
+  g.z = z;
+  g.y = y;
+  g.x = x;
+  g.boxes = pick_box(z, y, x, &g.box);
+  g.gz = cdiv(z, g.box.z);
+  g.gy = cdiv(y, g.box.y);
+  g.gx = cdiv(x, g.box.x);
+  return g;
+}
+
+// box index b (over all samples) -> sample and the box's first voxel
+__device__ __forceinline__ void box_origin(const Geometry& g, long long b, int* nb, int* z0,
+                                           int* y0, int* x0) {
+  *nb = (int)(b / g.boxes);
+  long long r = b - (long long)(*nb) * g.boxes;
+  const int bx = (int)(r % g.gx);
+  r /= g.gx;
+  const int by = (int)(r % g.gy);
+  const int bz = (int)(r / g.gy);
+  *z0 = bz * g.box.z;
+  *y0 = by * g.box.y;
+  *x0 = bx * g.box.x;
+}
+
+// Stage channels [c0, c0 + CK) of the box at (nb, z0, y0, x0) grown by one
+// voxel on each side into dst[ci * XS + v], zero outside the volume and
+// past channel c. Consecutive threads read consecutive channels of a voxel.
+template <int THREADS>
+__device__ __forceinline__ void stage_halo(float* dst, const float* __restrict__ src, int c,
+                                           int c0, const Geometry& g, int nb, int z0, int y0,
+                                           int x0) {
+  const int hx = g.box.x + 2, hy = g.box.y + 2, hz = g.box.z + 2;
+  const int total = hz * hy * hx * CK;
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int v = i / CK, ci = i - v * CK;
+    const int vx = v % hx, vy = (v / hx) % hy, vz = v / (hx * hy);
+    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
+    const bool in = gz >= 0 && gz < g.z && gy >= 0 && gy < g.y && gx >= 0 && gx < g.x &&
+                    c0 + ci < c;
+    dst[ci * XS + v] =
+        in ? src[((((int64_t)nb * g.z + gz) * g.y + gy) * g.x + gx) * c + c0 + ci] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: kernel A's and B's fp32 form
+// ---------------------------------------------------------------------------
+
+constexpr int F_THREADS = 256;
+constexpr int F_SMEM = (CK * XS + CK * 27 * BN) * 4;
+
+struct FParams {
+  const float* in[2];
+  int cin[2];
+  int kchunk0[2];  // first prepared-weight chunk of each input
+  const float* w;
+  const float* bias;
+  float* out;
+  int cout, coutp;
+  Geometry g;
+};
+
+__global__ void __launch_bounds__(F_THREADS) conv_fp32_kernel(FParams p) {
+  extern __shared__ float smem[];
+  float* xs = smem;             // [CK][XS]
+  float* ws = smem + CK * XS;   // [CK][27][BN]
+  const Geometry& g = p.g;
+  int nb, z0, y0, x0;
+  box_origin(g, blockIdx.x, &nb, &z0, &y0, &x0);
+  const int co0 = blockIdx.y * BN;
+  const int t = threadIdx.x;
+  const int cg = t >> 6;  // 8 output channels: warp-uniform
+  const int vg = t & 63;
+  const int nxg = g.box.x >> 2;
+  const int xg = vg % nxg, vy = (vg / nxg) % g.box.y, vz = vg / (nxg * g.box.y);
+  const int hx = g.box.x + 2, hy = g.box.y + 2;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  for (int s = 0; s < 2; ++s) {
+    const int c = p.cin[s];
+    for (int c0 = 0; c0 < c; c0 += CK) {
+      __syncthreads();  // the previous chunk's reads are done
+      stage_halo<F_THREADS>(xs, p.in[s], c, c0, g, nb, z0, y0, x0);
+      for (int i = t; i < CK * 27 * BN; i += F_THREADS) {
+        const int co = i % BN, tap = (i / BN) % 27, ci = i / (BN * 27);
+        const int k = c0 + ci;  // zero rows past c in the prepared layout
+        const int64_t row = ((int64_t)(p.kchunk0[s] + k / KCH) * 27 + tap) * KCH + k % KCH;
+        ws[i] = k < cdiv(c, KCH) * KCH ? p.w[row * p.coutp + co0 + co] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int ci = 0; ci < CK; ++ci) {
+        const float* xrow = xs + ci * XS;
+        const float* wrow = ws + ci * 27 * BN + cg * 8;
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const float* xp = xrow + ((vz + dz) * hy + vy + dy) * hx + xg * 4;
+            float xv[6];
+#pragma unroll
+            for (int j = 0; j < 6; ++j) xv[j] = xp[j];
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const float* wp = wrow + ((dz * 3 + dy) * 3 + dx) * BN;
+              const float4 w0 = *reinterpret_cast<const float4*>(wp);
+              const float4 w1 = *reinterpret_cast<const float4*>(wp + 4);
+              const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int cc = 0; cc < 8; ++cc) acc[i][cc] = fmaf(xv[i + dx], wv[cc], acc[i][cc]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  const int oz = z0 + vz, oy = y0 + vy;
+  if (oz >= g.z || oy >= g.y) return;
+  const int cb = co0 + cg * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ox = x0 + xg * 4 + i;
+    if (ox >= g.x) break;
+    float* row = p.out + ((((int64_t)nb * g.z + oz) * g.y + oy) * g.x + ox) * p.cout;
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) {
+      const int co = cb + cc;
+      if (co < p.cout) row[co] = acc[i][cc] + (p.bias != nullptr ? p.bias[co] : 0.f);
+    }
+  }
+}
+
+int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
+             void* out, int n, int z, int y, int x, int cout, int coutp, void* stream) {
+  if (ca <= 0 || cb < 0 || cout <= 0 || coutp < cout || coutp % BN || n <= 0 || z <= 0 ||
+      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr))
+    return (int)cudaErrorInvalidValue;
+  FParams p{};
+  p.in[0] = static_cast<const float*>(a);
+  p.in[1] = static_cast<const float*>(b);
+  p.cin[0] = ca;
+  p.cin[1] = cb;
+  p.kchunk0[0] = 0;
+  p.kchunk0[1] = cdiv(ca, KCH);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.cout = cout;
+  p.coutp = coutp;
+  p.g = geometry(n, z, y, x);
+  const long long blocks = p.g.boxes * n;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, cdiv(cout, BN));
+  conv_fp32_kernel<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// weight gradient: kernel C's fp32 form
+// ---------------------------------------------------------------------------
+
+constexpr int W_THREADS = 576;  // 8 input channels x 9 (dz, dy) x 8 groups of 4 outputs
+constexpr int W_SMEM = (CK * XS + 256 * BN) * 4;
+
+struct WPlan {
+  int chunks;  // CK-channel chunks over both inputs
+  int splits;  // of the voxel axis
+};
+
+WPlan wplan(int n, int z, int y, int x, int ca, int cb, int cout) {
+  WPlan p{};
+  p.chunks = cdiv(ca, CK) + (cb > 0 ? cdiv(cb, CK) : 0);
+  const long long boxes = geometry(n, z, y, x).boxes * n;
+  const long long others = (long long)p.chunks * cdiv(cout, BN);
+  // two blocks an SM fill the card; never more splits than boxes
+  long long splits = (2LL * mt::sm_count() + others - 1) / others;
+  if (splits > boxes) splits = boxes;
+  p.splits = (int)(splits < 1 ? 1 : splits);
+  return p;
+}
+
+long long wgrad_workspace_bytes(const WPlan& p, int ca, int cb, int cout) {
+  return p.splits == 1 ? 0 : 4LL * p.splits * 27 * (ca + cb) * cout;
+}
+
+struct WParams {
+  const float* in[2];
+  int cin[2];
+  int chunks0;  // chunks of the first input
+  const float* g;
+  float* out;  // dw, or the partials (splits, Cout, Cin, 27)
+  int cout;
+  long long boxes_per_split, boxes;
+  Geometry geo;
+};
+
+__global__ void __launch_bounds__(W_THREADS) wgrad_fp32_kernel(WParams p) {
+  extern __shared__ float smem[];
+  float* xs = smem;             // [CK][XS]
+  float* gs = smem + CK * XS;   // [256][BN]
+  const Geometry& g = p.geo;
+  const int split = blockIdx.x, co0 = blockIdx.y * BN, chunk = blockIdx.z;
+  const int s = chunk < p.chunks0 ? 0 : 1;
+  const int c = p.cin[s];
+  const int c0 = (chunk - (s ? p.chunks0 : 0)) * CK;
+  const int t = threadIdx.x;
+  const int co4 = t & 7, ci = (t >> 3) & 7, dzdy = t >> 6;
+  const int dz = dzdy / 3, dy = dzdy % 3;
+  const int bz = g.box.z, by = g.box.y, bx = g.box.x;
+  const int hx = bx + 2, hy = by + 2;
+
+  float acc[3][4];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[d][k] = 0.f;
+
+  const long long b0 = (long long)split * p.boxes_per_split;
+  const long long b1 = min(b0 + p.boxes_per_split, p.boxes);
+  for (long long b = b0; b < b1; ++b) {
+    int nb, z0, y0, x0;
+    box_origin(g, b, &nb, &z0, &y0, &x0);
+    __syncthreads();  // the previous box's reads are done
+    stage_halo<W_THREADS>(xs, p.in[s], c, c0, g, nb, z0, y0, x0);
+    for (int i = t; i < 256 * BN; i += W_THREADS) {
+      const int co = i % BN, v = i / BN;
+      const int vx = v % bx, vy = (v / bx) % by, vz = v / (bx * by);
+      const int gz = z0 + vz, gy = y0 + vy, gx = x0 + vx;
+      const bool in = gz < g.z && gy < g.y && gx < g.x && co0 + co < p.cout;
+      gs[i] = in ? p.g[((((int64_t)nb * g.z + gz) * g.y + gy) * g.x + gx) * p.cout + co0 + co]
+                 : 0.f;
+    }
+    __syncthreads();
+    const float* xrow = xs + ci * XS;
+#pragma unroll 1
+    for (int vz = 0; vz < bz; ++vz) {
+#pragma unroll 1
+      for (int vy = 0; vy < by; ++vy) {
+        const float* xl = xrow + ((vz + dz) * hy + vy + dy) * hx;
+        const float* gl = gs + (vz * by + vy) * bx * BN + co4 * 4;
+        float xa = xl[0], xb = xl[1];
+#pragma unroll 4
+        for (int vx = 0; vx < bx; ++vx) {
+          const float xc = xl[vx + 2];
+          const float4 gv = *reinterpret_cast<const float4*>(gl + vx * BN);
+          const float gk[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            acc[0][k] = fmaf(xa, gk[k], acc[0][k]);
+            acc[1][k] = fmaf(xb, gk[k], acc[1][k]);
+            acc[2][k] = fmaf(xc, gk[k], acc[2][k]);
+          }
+          xa = xb;
+          xb = xc;
+        }
+      }
+    }
+  }
+
+  const int cin_total = p.cin[0] + p.cin[1];
+  const int cig = (s ? p.cin[0] : 0) + c0 + ci;  // channel of the concat
+  if (c0 + ci >= c) return;
+  float* base = p.out + (int64_t)split * 27 * cin_total * p.cout;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int co = co0 + co4 * 4 + k;
+    if (co >= p.cout) break;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      base[((int64_t)co * cin_total + cig) * 27 + (dz * 3 + dy) * 3 + dx] = acc[dx][k];
+  }
+}
+
+// dw[i] = sum over splits of part[s, i], in split order
+__global__ void wgrad_fp32_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                                         long long count, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) sum += part[s * count + i];
+    dw[i] = sum;
+  }
+}
+
+int run_wgrad(const void* a, const void* b, int ca, int cb, const void* gr, void* dw, void* ws,
+              long long ws_bytes, int n, int z, int y, int x, int cout, void* stream) {
+  if (ca <= 0 || cb < 0 || cout <= 0 || n <= 0 || z <= 0 || y <= 0 || x <= 0 ||
+      (cb > 0) != (b != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const WPlan plan = wplan(n, z, y, x, ca, cb, cout);
+  const long long need = wgrad_workspace_bytes(plan, ca, cb, cout);
+  if (ws_bytes < need || (need > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  WParams p{};
+  p.in[0] = static_cast<const float*>(a);
+  p.in[1] = static_cast<const float*>(b);
+  p.cin[0] = ca;
+  p.cin[1] = cb;
+  p.chunks0 = cdiv(ca, CK);
+  p.g = static_cast<const float*>(gr);
+  p.cout = cout;
+  p.geo = geometry(n, z, y, x);
+  p.boxes = p.geo.boxes * n;
+  p.boxes_per_split = (p.boxes + plan.splits - 1) / plan.splits;
+  p.out = static_cast<float*>(plan.splits == 1 ? dw : ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(plan.splits, cdiv(cout, BN), plan.chunks);
+  wgrad_fp32_kernel<<<grid, W_THREADS, W_SMEM, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.splits == 1) return (int)err;
+  const long long count = 27LL * (ca + cb) * cout;
+  const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  wgrad_fp32_reduce_kernel<<<rblocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                     static_cast<float*>(dw), count,
+                                                     plan.splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel A's (b null, cb 0) or B's fp32 form: out = conv(concat(a, b), w) +
+// bias. Returns cudaGetLastError() after the launch (0 on success).
+int mt_conv3d_same_fp32(const void* a, const void* b, const void* w, const void* bias,
+                        void* out, int n, int z, int y, int x, int ca, int cb, int cout,
+                        int coutp, void* stream) {
+  return run_conv(a, b, ca, cb, w, bias, out, n, z, y, x, cout, coutp, stream);
+}
+
+// Bytes of fp32 workspace kernel C's fp32 form takes at these sizes: 0
+// where it writes dw directly (one split), -1 for sizes it does not take.
+long long mt_conv3d_wgrad_fp32_workspace(int n, int z, int y, int x, int ca, int cb,
+                                         int cout) {
+  if (ca <= 0 || cb < 0 || cout <= 0 || n <= 0 || z <= 0 || y <= 0 || x <= 0) return -1;
+  return wgrad_workspace_bytes(wplan(n, z, y, x, ca, cb, cout), ca, cb, cout);
+}
+
+// Kernel C's fp32 form: dw (Cout, Ca + Cb, 3, 3, 3) of the conv of
+// concat(a, b) (b null, cb 0: of a) by g.
+int mt_conv3d_wgrad_fp32(const void* a, const void* b, const void* g, void* dw, void* ws,
+                         long long ws_bytes, int n, int z, int y, int x, int ca, int cb,
+                         int cout, void* stream) {
+  return run_wgrad(a, b, ca, cb, g, dw, ws, ws_bytes, n, z, y, x, cout, stream);
+}
+
+}  // extern "C"

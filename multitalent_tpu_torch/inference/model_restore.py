@@ -39,6 +39,10 @@ the plans' patch. `stem.weight` (or `stem`) is the MedNeXt, its width,
 expansion ratios, block counts and kernel read from the weights. The
 trainer named in the sidecar fixes the head: the MultiTalent trainers
 predict 47 sigmoid regions, the others a softmax over the plans' classes.
+It also fixes a GenericUNet's variant (training/variants.py): batch and
+instance norm weights have the same keys, so the nearest trainer name the
+port knows gives the network_overrides it is built with. A 2D plan restores
+a 2D network (which nothing predicts with: inference/predict.py refuses it).
 """
 from __future__ import annotations
 
@@ -194,12 +198,12 @@ def checkpoint_state_dict(path: str, plans: Plans, stage: int) -> dict:
     if "stem" in params:
         return mednext_state_dict_from_flax(params)
     if "enc0" not in params:
-        raise NotImplementedError(
-            f"{path} is none of the port's networks (a GenericUNet, a residual-encoder "
-            "UNet, a SwinUNETR, a MedNeXt); the trainer variants' networks are ROADMAP "
-            "queue 1, item 10e")
+        raise ValueError(f"{path} is none of the port's networks (a GenericUNet, a "
+                         "residual-encoder UNet, a SwinUNETR, a MedNeXt)")
+    # the convs a stage from the tree: a variant may override the plans'
     return generic_unet_state_dict_from_flax(
-        params, num_pool=len(st.pool_op_kernel_sizes), conv_per_stage=plans.conv_per_stage)
+        params, num_pool=len(st.pool_op_kernel_sizes),
+        conv_per_stage=sum(1 for k in params["enc0"] if k.startswith("block")))
 
 
 def _mednext_from_weights(state_dict: dict, num_classes: int, dtype: torch.dtype) -> MedNeXt:
@@ -221,11 +225,34 @@ def _mednext_from_weights(state_dict: dict, num_classes: int, dtype: torch.dtype
                    do_res_up_down="down0.res_conv.weight" in state_dict, dtype=dtype)
 
 
+# trainer variants whose networks the port does not build (ROADMAP queue 1,
+# item 10e): the conv -> nonlin -> norm block order
+UNPORTED_NETWORK_TRAINERS = ("nnUNetTrainerV2_ReLU_convReLUIN", "TrainerV2ReLUConvReLUIN",
+                             "nnUNetTrainerV2_lReLU_convReLUIN", "TrainerV2LReLUConvReLUIN")
+
+
+def network_overrides_of(names, plans: Plans, stage: int) -> dict:
+    """The GenericUNet overrides of the nearest trainer of `names` (nearest
+    first) that the port's variant zoo knows, {} where none is a variant;
+    raises for a variant whose network is not ported."""
+    from multitalent_tpu_torch.training.variants import VARIANT_ALIASES
+    known = {n: cls for cls, aliases in VARIANT_ALIASES.items()
+             for n in (cls.__name__, *aliases)}
+    for n in names:
+        if n in UNPORTED_NETWORK_TRAINERS:
+            raise NotImplementedError(f"{n}: its conv -> nonlin -> norm network is not "
+                                      "ported (ROADMAP queue 1, item 10e)")
+        if n in known:
+            return known[n].network_overrides_for(plans, stage)
+    return {}
+
+
 def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
-                  dtype: torch.dtype) -> torch.nn.Module:
-    """The network a state dict is for, built from the plans, its weights
-    loaded: every parameter the network has must be present (the reference
-    keeps deep-supervision heads and unused modules, which are dropped)."""
+                  dtype: torch.dtype, overrides: dict | None = None) -> torch.nn.Module:
+    """The network a state dict is for, built from the plans (a GenericUNet
+    with a variant trainer's `overrides`), its weights loaded: every
+    parameter the network has must be present (the reference keeps
+    deep-supervision heads and unused modules, which are dropped)."""
     if is_resenc_state_dict(state_dict):
         net = build_resenc_unet_from_plans(plans, stage, num_classes, dtype=dtype)
     elif is_swin_unetr_state_dict(state_dict):
@@ -239,11 +266,11 @@ def build_network(state_dict: dict, plans: Plans, stage: int, num_classes: int,
     elif is_mednext_state_dict(state_dict):
         net = _mednext_from_weights(state_dict, num_classes, dtype)
     elif any(k.startswith("conv_blocks_context.") for k in state_dict):
-        net = build_unet_from_plans(plans, stage, num_classes, dtype=dtype)
+        net = build_unet_from_plans(plans, stage, num_classes, dtype=dtype,
+                                    **(overrides or {}))
     else:
-        raise NotImplementedError("none of the port's networks (a GenericUNet, a "
-                                  "residual-encoder UNet, a SwinUNETR, a MedNeXt); the trainer "
-                                  "variants' networks are ROADMAP queue 1, item 10e")
+        raise ValueError("none of the port's networks (a GenericUNet, a residual-encoder "
+                         "UNet, a SwinUNETR, a MedNeXt)")
     own = net.state_dict()
     net.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=True)
     return net
@@ -293,8 +320,9 @@ def load_model_and_checkpoint_files(model_folder: str, folds=None,
         num_classes, regions_class_order = plans.num_classes + 1, None
 
     dtype = torch.bfloat16 if fp16 else torch.float32
+    overrides = network_overrides_of(names, plans, stage)
     networks = [build_network(checkpoint_state_dict(f, plans, stage), plans, stage,
-                              num_classes, dtype).to(device).eval() for f in files]
+                              num_classes, dtype, overrides).to(device).eval() for f in files]
     return RestoredModel(plans=plans, stage=stage, trainer_name=name,
                          inference_nonlin=nonlin,
                          regions_class_order=regions_class_order,
@@ -350,8 +378,9 @@ def save_jax_model_folder(model_folder: str, plans: Plans, state_dicts: list[dic
         elif is_mednext_state_dict(sd):
             params = convert_mednext_state_dict(sd)
         else:
+            stage0 = {k.split(".")[3] for k in sd if k.startswith("conv_blocks_context.0.blocks.")}
             params = convert_generic_unet_state_dict(sd, len(st.pool_op_kernel_sizes),
-                                                     plans.conv_per_stage)
+                                                     len(stage0))
         tree = {"step": np.zeros((), np.int32), "params": params}
         flax_ckpt.save(ckpt, tree)
         save_pickle({"epoch": 0, "plot_stuff": ([], [], [], []),

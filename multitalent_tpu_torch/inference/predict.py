@@ -51,7 +51,7 @@ from multitalent_tpu_torch.ops.device_export import (can_export_on_device,
                                                      device_resample_threshold_bits,
                                                      segmentation_from_regions_bits)
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward
-from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor, refuse_2d_prediction
 from multitalent_tpu_torch.preprocessing.preprocessor import resolve_preprocessor
 from multitalent_tpu_torch.tasks.multitalent import REGIONS
 from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, subfiles
@@ -273,6 +273,8 @@ def predict_cases(model: str, list_of_lists: list[list[str]],
         return []
 
     restored = load_model_and_checkpoint_files(model, folds, checkpoint_name, device)
+    if len(restored.patch_size) != 3:
+        refuse_2d_prediction(f"predicting with {model}")
     n_folds = len(restored.networks)
     forwards = [make_inference_forward(net) for net in restored.networks]
     if region_class_order is None:

@@ -41,14 +41,22 @@ def _transpconv_weight(k: np.ndarray) -> np.ndarray:
 def generic_unet_state_dict_from_flax(params: dict, num_pool: int,
                                       conv_per_stage: int = 2) -> dict:
     """Nested flax param dict of multitalent_tpu GenericUNet -> torch state
-    dict with the reference Generic_UNet keys."""
+    dict with the reference Generic_UNet keys, 2D or 3D. The variants' norms
+    keep the `instnorm` key: scale and bias (instance, batch, group norm) as
+    weight and bias, FRN's weight, bias and tau as they are, no norm no
+    entry; a head's bias where the tree has one (seg_output_bias)."""
     sd: dict[str, np.ndarray] = {}
 
     def block(flax_node: dict, prefix: str) -> None:
         sd[f"{prefix}.conv.weight"] = _conv_weight(np.asarray(flax_node["conv"]["kernel"]))
         sd[f"{prefix}.conv.bias"] = np.asarray(flax_node["conv"]["bias"])
-        sd[f"{prefix}.instnorm.weight"] = np.asarray(flax_node["norm"]["scale"])
-        sd[f"{prefix}.instnorm.bias"] = np.asarray(flax_node["norm"]["bias"])
+        norm = flax_node.get("norm")
+        if norm is None:
+            return
+        for torch_name, flax_name in (("weight", "weight" if "tau" in norm else "scale"),
+                                      ("bias", "bias"), ("tau", "tau")):
+            if flax_name in norm:
+                sd[f"{prefix}.instnorm.{torch_name}"] = np.asarray(norm[flax_name])
 
     last = conv_per_stage - 1
     for d in range(num_pool):
@@ -67,6 +75,8 @@ def generic_unet_state_dict_from_flax(params: dict, num_pool: int,
         block(params[f"dec{u}"][f"block{last}"],
               f"conv_blocks_localization.{u}.1.blocks.0")
         sd[f"seg_outputs.{u}.weight"] = _conv_weight(np.asarray(params[f"seg{u}"]["kernel"]))
+        if "bias" in params[f"seg{u}"]:
+            sd[f"seg_outputs.{u}.bias"] = np.asarray(params[f"seg{u}"]["bias"])
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
 

@@ -53,7 +53,10 @@ def _transpconv_weight(w: np.ndarray) -> np.ndarray:
 def convert_generic_unet_state_dict(state_dict: dict, num_pool: int,
                                     conv_per_stage: int = 2) -> dict:
     """Torch Generic_UNet state_dict (numpy or torch tensors) -> nested flax
-    param dict of multitalent_tpu's GenericUNet (fp32 numpy leaves):
+    param dict of multitalent_tpu's GenericUNet (fp32 numpy leaves), 2D or
+    3D, the variants' norms (instnorm.weight / bias -> norm/scale / bias, an
+    FRN's weight / bias / tau as they are, none without a norm) and head
+    biases included:
 
       conv_blocks_context.{d}.blocks.{i}          -> enc{d}/block{i}/{conv,norm}
       conv_blocks_context.{P}.0.blocks.{i}        -> bottleneck/block{i}
@@ -77,8 +80,14 @@ def convert_generic_unet_state_dict(state_dict: dict, num_pool: int,
     def convert_block(torch_prefix: str, flax_path: list[str]) -> None:
         put(flax_path + ["conv"], "kernel", _conv_weight(sd[f"{torch_prefix}.conv.weight"]))
         put(flax_path + ["conv"], "bias", sd[f"{torch_prefix}.conv.bias"])
-        put(flax_path + ["norm"], "scale", sd[f"{torch_prefix}.instnorm.weight"])
-        put(flax_path + ["norm"], "bias", sd[f"{torch_prefix}.instnorm.bias"])
+        norm = f"{torch_prefix}.instnorm"
+        if f"{norm}.weight" not in sd:  # a variant without a norm
+            return
+        frn = f"{norm}.tau" in sd  # FRN keeps its names, the others scale / bias
+        put(flax_path + ["norm"], "weight" if frn else "scale", sd[f"{norm}.weight"])
+        put(flax_path + ["norm"], "bias", sd[f"{norm}.bias"])
+        if frn:
+            put(flax_path + ["norm"], "tau", sd[f"{norm}.tau"])
 
     last = conv_per_stage - 1
     for d in range(num_pool):
@@ -95,6 +104,8 @@ def convert_generic_unet_state_dict(state_dict: dict, num_pool: int,
                           [f"dec{u}", f"block{i}"])
         convert_block(f"conv_blocks_localization.{u}.1.blocks.0", [f"dec{u}", f"block{last}"])
         put([f"seg{u}"], "kernel", _conv_weight(sd[f"seg_outputs.{u}.weight"]))
+        if f"seg_outputs.{u}.bias" in sd:
+            put([f"seg{u}"], "bias", sd[f"seg_outputs.{u}.bias"])
     return params
 
 

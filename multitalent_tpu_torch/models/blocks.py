@@ -7,8 +7,14 @@ both packages through io/torch_convert.convert_generic_unet_state_dict.
 
 Order, as in the JAX package (ops/packed_unet.py:65-73): conv + bias, then
 InstanceNorm with fp32 statistics and eps 1e-5, cast to the model dtype, then
-LeakyReLU(0.01). The conv is a `KernelConv3d` (an nn.Conv3d, the residual
-UNet's convs too), which runs on a hand-written kernel where one applies:
+LeakyReLU(0.01). The architectural variants' knobs (blocks.py:34-150 of the
+JAX package, `make_norm` and `apply_nonlin`) swap the norm (`norm`:
+instance, batch, group, frn, none; `normalize`) and the activation
+(`nonlin`: leaky_relu, relu, gelu, mish; `activate`). Blocks of rank 2 (a
+2D plan's kernel sizes) run every conv as `Conv2dSame` (an nn.Conv2d) on
+cuDNN, as the JAX package runs its 2D convs as flax nn.Conv in XLA. A 3D
+conv is a `KernelConv3d` (an nn.Conv3d, the residual UNet's convs too),
+which runs on a hand-written kernel where one applies:
 
 - kernel A (ops/conv3d.conv3d_same): every stride-1 3x3x3 conv with Cin >= 8;
 - kernel B (ops/conv3d.conv3d_same_dual): a decoder's first conv, on the
@@ -27,7 +33,8 @@ E (ops/fused_norm.py), without a backward.
 
 bf16 rounding differs from the JAX package in one place: the kernels add the
 bias in fp32 and round once, where JAX rounds the conv output to bf16 and adds
-a bf16 bias (packed_unet.py:51-53).
+a bf16 bias (packed_unet.py:51-53). An fp32 network runs the kernels' fp32
+forms (ops/conv3d.py).
 """
 from __future__ import annotations
 
@@ -41,6 +48,33 @@ from multitalent_tpu_torch.ops import conv3d as cv
 from multitalent_tpu_torch.ops import fused_norm
 
 CL = torch.channels_last_3d
+
+NORMS = ("instance", "batch", "group", "frn", "none")
+NONLINS = ("leaky_relu", "relu", "gelu", "mish")
+GROUPS = 8  # the reference's MyGroupNorm (nnUNetTrainerV2_GN.py:39)
+
+
+def memory_format(x: torch.Tensor) -> torch.memory_format:
+    """channels_last_3d for (N, C, Z, Y, X), channels_last for (N, C, Y, X)."""
+    return CL if x.dim() == 5 else torch.channels_last
+
+
+def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+            stride=1, padding=0) -> torch.Tensor:
+    """F.conv3d or F.conv2d by x's rank."""
+    return (F.conv3d if x.dim() == 5 else F.conv2d)(x, weight, bias, stride, padding)
+
+
+def conv_transpose_nd(x: torch.Tensor, weight: torch.Tensor, stride) -> torch.Tensor:
+    """F.conv_transpose3d or F.conv_transpose2d by x's rank, no bias."""
+    return (F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d)(x, weight, None, stride)
+
+
+def instance_norm_module(channels: int, ndim: int) -> nn.Module:
+    """The affine InstanceNorm module of a rank-`ndim` block (its weight and
+    bias; the forward is `instance_norm`)."""
+    cls = nn.InstanceNorm3d if ndim == 3 else nn.InstanceNorm2d
+    return cls(channels, eps=1e-5, affine=True)
 
 
 def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
@@ -65,8 +99,8 @@ def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """InstanceNorm with fp32 statistics over the spatial axes, cast to x's
     dtype (multitalent_tpu/models/blocks.py:InstanceNorm); always plain torch."""
     xf = x.float()
-    var, mean = torch.var_mean(xf, dim=(2, 3, 4), keepdim=True, correction=0)
-    shape = (1, -1, 1, 1, 1)
+    var, mean = torch.var_mean(xf, dim=tuple(range(2, x.dim())), keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
     # per-channel scale first: two passes over the volume instead of four
     scale = torch.rsqrt(var + eps) * weight.float().view(shape)
     return torch.addcmul(bias.float().view(shape), xf - mean, scale).to(x.dtype)
@@ -89,9 +123,127 @@ def instance_norm_lrelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
                 "like the JAX package's fused_instance_norm_lrelu; run the forward "
                 "under torch.no_grad(), or unset MTTPU_PALLAS_NORM to train (the "
                 "missing backward is listed in ROADMAP.md, queue 1)")
+        if x.dim() != 5:
+            raise NotImplementedError("MTTPU_PALLAS_NORM=1: kernel E takes (N, Z, Y, X, C) "
+                                      "activations; a 2D network's norms are plain torch")
         return from_ndhwc(fused_norm.fused_instance_norm_lrelu(
             to_ndhwc(x), weight, bias, negative_slope, eps))
     return F.leaky_relu(instance_norm(x, weight, bias, eps), negative_slope, inplace=True)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over (batch, spatial) with fp32 statistics of the batch in
+    training and in eval alike (no running statistics), cast to x's dtype
+    (multitalent_tpu/models/blocks.py:BatchNormBatchStats)."""
+    xf = x.float()
+    dims = (0,) + tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    scale = torch.rsqrt(var + eps) * weight.float().view(shape)
+    return torch.addcmul(bias.float().view(shape), xf - mean, scale).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               groups: int = GROUPS, eps: float = 1e-5) -> torch.Tensor:
+    """flax nn.GroupNorm(num_groups=8, epsilon=1e-5, param_dtype=float32):
+    per sample and group of consecutive channels, fp32 statistics over the
+    spatial axes and the group's channels with flax's fast variance
+    (E[x^2] - E[x]^2, clipped at 0); the result stays fp32 (flax promotes
+    the input with the fp32 parameters)."""
+    n, c = int(x.shape[0]), int(x.shape[1])
+    if c % groups:
+        raise ValueError(f"GroupNorm: {c} channels do not divide into {groups} groups")
+    xg = x.float().reshape(n, groups, -1)
+    mean = xg.mean(-1, keepdim=True)
+    var = torch.clamp((xg * xg).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return y * weight.float().view(shape) + bias.float().view(shape)
+
+
+class FRN(nn.Module):
+    """Filter Response Normalization with its thresholded linear unit
+    (multitalent_tpu/models/blocks.py:FRN; the reference's FRN3D):
+    y = x * rsqrt(mean(x^2 over the spatial axes) + eps), then
+    max(weight * y + bias, tau), in fp32, cast to x's dtype. It takes the
+    place of the activation."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.tau = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        nu2 = (xf * xf).mean(dim=tuple(range(2, x.dim())), keepdim=True)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = xf * torch.rsqrt(nu2 + self.eps)
+        return torch.maximum(self.weight.view(shape) * y + self.bias.view(shape),
+                             self.tau.view(shape)).to(x.dtype)
+
+
+def norm_module(norm: str, channels: int, ndim: int) -> nn.Module | None:
+    """The parameters of a block's norm (make_norm of the JAX package); None
+    for "none". Batch norm keeps no running statistics; group norm raises
+    where the channels do not divide into 8 groups."""
+    if norm == "instance":
+        return instance_norm_module(channels, ndim)
+    if norm == "batch":
+        cls = nn.BatchNorm3d if ndim == 3 else nn.BatchNorm2d
+        return cls(channels, eps=1e-5, affine=True, track_running_stats=False)
+    if norm == "group":
+        if channels % GROUPS:
+            raise ValueError(f"GroupNorm: {channels} channels do not divide into {GROUPS} "
+                             "groups")
+        return nn.GroupNorm(GROUPS, channels, eps=1e-5)
+    if norm == "frn":
+        return FRN(channels)
+    if norm == "none":
+        return None
+    raise ValueError(f"unknown norm {norm!r}: one of {NORMS}")
+
+
+def activate(x: torch.Tensor, nonlin: str, negative_slope: float = 1e-2) -> torch.Tensor:
+    """The JAX package's apply_nonlin: LeakyReLU, ReLU, GELU (flax's default,
+    the tanh approximation), Mish (x tanh(softplus(x))), or none."""
+    if nonlin == "leaky_relu":
+        return F.leaky_relu(x, negative_slope)
+    if nonlin == "relu":
+        return F.relu(x)
+    if nonlin == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if nonlin == "mish":
+        return F.mish(x)
+    if nonlin == "none":
+        return x
+    raise ValueError(f"unknown nonlin {nonlin!r}: one of {NONLINS}")
+
+
+def normalize(x: torch.Tensor, norm: str, module: nn.Module | None, nonlin: str,
+              negative_slope: float = 1e-2) -> torch.Tensor:
+    """A block's norm and activation after its conv (ConvNormAct of the JAX
+    package): instance + LeakyReLU through instance_norm_lrelu (kernel E
+    under MTTPU_PALLAS_NORM=1); FRN's TLU replaces the activation; group
+    norm's fp32 result takes the activation in fp32, then x's dtype (the
+    next conv's cast in the JAX package); the others cast to x's dtype
+    first."""
+    if norm == "instance" and nonlin == "leaky_relu":
+        return instance_norm_lrelu(x, module.weight, module.bias, negative_slope, module.eps)
+    if norm == "frn":
+        return module(x)
+    if norm == "instance":
+        y = instance_norm(x, module.weight, module.bias, module.eps)
+    elif norm == "batch":
+        y = batch_norm(x, module.weight, module.bias, module.eps)
+    elif norm == "group":
+        return activate(group_norm(x, module.weight, module.bias, module.num_groups,
+                                   module.eps), nonlin, negative_slope).to(x.dtype)
+    else:
+        y = x
+    return activate(y, nonlin, negative_slope)
 
 
 class KernelConv3d(nn.Conv3d):
@@ -164,9 +316,48 @@ class KernelConv3d(nn.Conv3d):
                         self.stride, self.padding)
 
 
+class Conv2dSame(nn.Conv2d):
+    """nn.Conv2d with symmetric (k - 1) // 2 padding, on cuDNN in x's dtype:
+    a 2D plan's convs (the JAX package runs them as flax nn.Conv in XLA, off
+    its Pallas kernels). The forward takes KernelConv3d's arguments; a 2D
+    block reads one input (the decoder concatenates before its first
+    conv)."""
+
+    route = None
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3),
+                 stride=(1, 1), bias: bool = True):
+        kernel_size = tuple(int(k) for k in kernel_size)
+        super().__init__(in_channels, out_channels, kernel_size, tuple(int(s) for s in stride),
+                         padding=tuple((k - 1) // 2 for k in kernel_size), bias=bias)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None, *,
+                use_kernels: bool = True) -> torch.Tensor:
+        if skip is not None:
+            raise ValueError("a 2D conv reads one input")
+        return F.conv2d(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype), self.stride,
+                        self.padding)
+
+
+def make_conv(in_channels: int, out_channels: int, kernel_size, stride=None,
+              in_splits: tuple[int, int] | None = None, bias: bool = True) -> nn.Module:
+    """The conv of a block of the kernel size's rank: KernelConv3d in 3D,
+    Conv2dSame in 2D."""
+    kernel_size = tuple(int(k) for k in kernel_size)
+    stride = (1,) * len(kernel_size) if stride is None else tuple(int(s) for s in stride)
+    if len(kernel_size) == 3:
+        return KernelConv3d(in_channels, out_channels, kernel_size, stride, in_splits, bias)
+    if len(kernel_size) == 2:
+        return Conv2dSame(in_channels, out_channels, kernel_size, stride, bias)
+    raise ValueError(f"kernel size {kernel_size}: 2D or 3D only")
+
+
 def kernel_launches_per_forward(net: nn.Module) -> dict[str, int]:
     """Launches of each hand-written conv kernel that one forward of `net`
-    makes: one for every KernelConv3d on a kernel route."""
+    makes: one for every KernelConv3d on a kernel route. The names are the
+    bf16 kernels'; an fp32 network launches the same counts of their fp32
+    forms (`fp32_forms`)."""
     counts = {"conv3d_same": 0, "conv3d_same_dual": 0}
     for m in net.modules():
         if isinstance(m, KernelConv3d) and m.route is not None:
@@ -174,31 +365,44 @@ def kernel_launches_per_forward(net: nn.Module) -> dict[str, int]:
     return counts
 
 
-def kernel_launches_per_step(net: nn.Module, input_conv: KernelConv3d) -> dict[str, int]:
+def kernel_launches_per_step(net: nn.Module, input_conv: nn.Module) -> dict[str, int]:
     """Launches of each hand-written kernel that one training step (forward
     + backward) of `net` makes: every kernel conv's forward (A or B), its dx
     by kernel A (unless it is `input_conv`, which reads the network's input
     and so needs no gradient) and its dw by kernel C (single or dual form)."""
     counts = kernel_launches_per_forward(net)
     kernels = sum(counts.values())
-    counts["conv3d_same"] += kernels - (input_conv.route is not None)
+    counts["conv3d_same"] += kernels - (getattr(input_conv, "route", None) is not None)
     counts["conv3d_same_wgrad"] = kernels
     return counts
 
 
+def fp32_forms(counts: dict[str, int]) -> dict[str, int]:
+    """Launch counts of kernels A, B and C renamed to their fp32 forms
+    (ops/conv3d.py: conv3d_same_fp32, ...), which an fp32 network launches
+    instead."""
+    return {f"{k}_fp32": v for k, v in counts.items()}
+
+
 class ConvDropoutNormNonlin(nn.Module):
-    """conv -> InstanceNorm -> LeakyReLU. `in_splits` = (Ca, Cb) makes the conv
-    read concat(a, b) from two tensors (kernel B). The norm is registered as
-    `norm_name`: `instnorm` in the GenericUNet, `norm` in the residual UNet's
-    decoder."""
+    """conv -> norm -> activation (InstanceNorm -> LeakyReLU by default).
+    `in_splits` = (Ca, Cb) makes the conv read concat(a, b) from two tensors
+    (kernel B). The norm is registered as `norm_name`: `instnorm` in the
+    GenericUNet (whatever its kind, as the reference names it), `norm` in the
+    residual UNet's decoder; a block without a norm has none."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3, 3),
-                 stride=(1, 1, 1), in_splits: tuple[int, int] | None = None,
-                 negative_slope: float = 1e-2, norm_name: str = "instnorm"):
+                 stride=None, in_splits: tuple[int, int] | None = None,
+                 negative_slope: float = 1e-2, norm_name: str = "instnorm",
+                 norm: str = "instance", nonlin: str = "leaky_relu"):
         super().__init__()
-        self.conv = KernelConv3d(in_channels, out_channels, kernel_size, stride, in_splits)
+        self.conv = make_conv(in_channels, out_channels, kernel_size, stride, in_splits)
         self.norm_name = norm_name
-        self.add_module(norm_name, nn.InstanceNorm3d(out_channels, eps=1e-5, affine=True))
+        self.norm_kind = norm
+        self.nonlin = nonlin
+        module = norm_module(norm, out_channels, len(tuple(kernel_size)))
+        if module is not None:
+            self.add_module(norm_name, module)
         self.negative_slope = negative_slope
 
     @property
@@ -213,9 +417,8 @@ class ConvDropoutNormNonlin(nn.Module):
                 use_kernels: bool = True) -> torch.Tensor:
         """x (N, C, Z, Y, X). For a two-input block `skip` is the second
         input. use_kernels=False runs the kernels' plain versions."""
-        norm = getattr(self, self.norm_name)
-        return instance_norm_lrelu(self.conv(x, skip, use_kernels=use_kernels),
-                                   norm.weight, norm.bias, self.negative_slope, norm.eps)
+        return normalize(self.conv(x, skip, use_kernels=use_kernels), self.norm_kind,
+                         getattr(self, self.norm_name, None), self.nonlin, self.negative_slope)
 
 
 class StackedConvLayers(nn.Module):
@@ -224,14 +427,13 @@ class StackedConvLayers(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, num_convs: int,
                  kernel_size=(3, 3, 3), first_stride=None,
-                 in_splits: tuple[int, int] | None = None):
+                 in_splits: tuple[int, int] | None = None, **block):
         super().__init__()
         self.blocks = nn.Sequential(*[
             ConvDropoutNormNonlin(
                 in_channels if i == 0 else out_channels, out_channels, kernel_size,
-                stride=first_stride if (i == 0 and first_stride is not None)
-                else (1, 1, 1),
-                in_splits=in_splits if i == 0 else None)
+                stride=first_stride if i == 0 else None,
+                in_splits=in_splits if i == 0 else None, **block)
             for i in range(num_convs)])
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None, *,

@@ -15,6 +15,14 @@ weights into the JAX package:
                                  conv_per_stage-1); StackedConvLayers(f -> f, 1))
   seg_outputs.{u}                1x1x1 Conv3d to num_classes, no bias
 
+A 2D plan (kernel sizes of two axes) builds the same network of rank 2:
+Conv2d blocks on cuDNN, ConvTranspose2d, 1x1 heads, max 480 features
+(`build_unet_from_plans`, as generic_unet.py:171 of the JAX package). The
+architectural variants' knobs of the JAX GenericUNet (`norm`, `nonlin`,
+`negative_slope`, `seg_output_bias`, and through the plans' overrides
+`conv_per_stage`, `base_num_features`, `conv_kernel_sizes`) build their
+blocks (models/blocks.py); a norm's parameters keep the `instnorm` key.
+
 The forward returns the full-resolution logits in fp32, or with
 `deep_supervision=True` (training) one fp32 logit map per decoder level,
 highest resolution first, each at its level's resolution (the JAX package's
@@ -25,12 +33,12 @@ fp32 parameters, as flax's param_dtype=float32.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from multitalent_tpu_torch.models.blocks import (CL, ConvDropoutNormNonlin, StackedConvLayers,
+from multitalent_tpu_torch.models.blocks import (NONLINS, NORMS, ConvDropoutNormNonlin,
+                                                 StackedConvLayers, conv_nd, conv_transpose_nd,
                                                  kernel_launches_per_forward,
-                                                 kernel_launches_per_step)
+                                                 kernel_launches_per_step, memory_format)
 
 
 def compute_stage_features(base_num_features: int, num_stages: int,
@@ -41,46 +49,60 @@ def compute_stage_features(base_num_features: int, num_stages: int,
 class GenericUNet(nn.Module):
     def __init__(self, input_channels: int, base_num_features: int, num_classes: int,
                  pool_op_kernel_sizes, conv_kernel_sizes, conv_per_stage: int = 2,
-                 max_num_features: int = 320, dtype: torch.dtype = torch.bfloat16):
+                 max_num_features: int = 320, dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "instance", nonlin: str = "leaky_relu",
+                 negative_slope: float = 1e-2, seg_output_bias: bool = False):
         super().__init__()
         pools = [tuple(int(k) for k in p) for p in pool_op_kernel_sizes]
         kernels = [tuple(int(k) for k in c) for c in conv_kernel_sizes]
         if conv_per_stage < 2:
             raise ValueError("GenericUNet needs conv_per_stage >= 2")
+        if norm not in NORMS or nonlin not in NONLINS:
+            raise ValueError(f"norm {norm!r} / nonlin {nonlin!r}: one of {NORMS} / {NONLINS}")
+        ndim = len(kernels[0])
+        if ndim not in (2, 3) or any(len(k) != ndim for k in kernels + pools):
+            raise ValueError(f"kernels {kernels} and pools {pools}: one rank, 2 or 3")
+        self.ndim = ndim
         self.num_pool = len(pools)
         self.pool_op_kernel_sizes = pools
         self.num_classes = num_classes
         self.input_channels = input_channels
         self.dtype = dtype
+        self.norm, self.nonlin, self.negative_slope = norm, nonlin, negative_slope
+        self.seg_output_bias = seg_output_bias
+        self.conv_per_stage = conv_per_stage
         feats = compute_stage_features(base_num_features, self.num_pool + 1,
                                        max_num_features)
         self.features = feats
+        block = {"norm": norm, "nonlin": nonlin, "negative_slope": negative_slope}
 
         context = []
         for d in range(self.num_pool):
             context.append(StackedConvLayers(
                 input_channels if d == 0 else feats[d - 1], feats[d], conv_per_stage,
-                kernels[d], first_stride=pools[d - 1] if d > 0 else None))
+                kernels[d], first_stride=pools[d - 1] if d > 0 else None, **block))
         p = self.num_pool
         context.append(nn.Sequential(
             StackedConvLayers(feats[p - 1], feats[p], conv_per_stage - 1, kernels[p],
-                              first_stride=pools[p - 1]),
-            StackedConvLayers(feats[p], feats[p], 1, kernels[p])))
+                              first_stride=pools[p - 1], **block),
+            StackedConvLayers(feats[p], feats[p], 1, kernels[p], **block)))
         self.conv_blocks_context = nn.ModuleList(context)
 
+        transp = nn.ConvTranspose3d if ndim == 3 else nn.ConvTranspose2d
+        head = nn.Conv3d if ndim == 3 else nn.Conv2d
         tu, loc, seg = [], [], []
         for u in range(self.num_pool):
             f_skip = feats[p - 1 - u]
             f_below = feats[p - u]
             pool = pools[p - 1 - u]
             k = kernels[p - u]
-            tu.append(nn.ConvTranspose3d(f_below, f_skip, pool, pool, bias=False))
+            tu.append(transp(f_below, f_skip, pool, pool, bias=False))
             same3 = k == (3, 3, 3)
             loc.append(nn.Sequential(
                 StackedConvLayers(2 * f_skip, f_skip, conv_per_stage - 1, k,
-                                  in_splits=(f_skip, f_skip) if same3 else None),
-                StackedConvLayers(f_skip, f_skip, 1, k)))
-            seg.append(nn.Conv3d(f_skip, num_classes, 1, bias=False))
+                                  in_splits=(f_skip, f_skip) if same3 else None, **block),
+                StackedConvLayers(f_skip, f_skip, 1, k, **block)))
+            seg.append(head(f_skip, num_classes, 1, bias=seg_output_bias))
         self.tu = nn.ModuleList(tu)
         self.conv_blocks_localization = nn.ModuleList(loc)
         self.seg_outputs = nn.ModuleList(seg)
@@ -145,11 +167,12 @@ class GenericUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, *, use_kernels: bool = True,
                 deep_supervision: bool = False) -> torch.Tensor | list[torch.Tensor]:
-        """x (N, C_in, Z, Y, X) -> full-resolution logits (N, K, Z, Y, X) fp32,
-        or with deep_supervision a list of logits per decoder level, highest
-        resolution first. use_kernels=False runs the kernels' plain PyTorch
-        versions instead."""
-        x = x.to(self.dtype).contiguous(memory_format=CL)
+        """x (N, C_in, Z, Y, X), or (N, C_in, Y, X) in 2D -> full-resolution
+        logits (N, K, ...) fp32, or with deep_supervision a list of logits per
+        decoder level, highest resolution first. use_kernels=False runs the
+        kernels' plain PyTorch versions instead."""
+        x = x.to(self.dtype)
+        x = x.contiguous(memory_format=memory_format(x))
         skips = []
         for d in range(self.num_pool):
             x = self.conv_blocks_context[d](x, use_kernels=use_kernels)
@@ -159,8 +182,8 @@ class GenericUNet(nn.Module):
         seg_outputs = []
         for u in range(self.num_pool):
             tu = self.tu[u]
-            x = F.conv_transpose3d(x, tu.weight.to(self.dtype), None, tu.stride)
-            x = x.contiguous(memory_format=CL)
+            x = conv_transpose_nd(x, tu.weight.to(self.dtype), tu.stride)
+            x = x.contiguous(memory_format=memory_format(x))
             skip = skips[self.num_pool - 1 - u]
             first, rest = self.conv_blocks_localization[u]
             if first.blocks[0].kernel == "conv3d_same_dual":
@@ -170,7 +193,8 @@ class GenericUNet(nn.Module):
             x = rest(x, use_kernels=use_kernels)
             if deep_supervision or u == self.num_pool - 1:
                 head = self.seg_outputs[u]
-                seg_outputs.append(F.conv3d(x, head.weight.to(self.dtype)).float())
+                bias = None if head.bias is None else head.bias.to(self.dtype)
+                seg_outputs.append(conv_nd(x, head.weight.to(self.dtype), bias).float())
         if deep_supervision:
             return seg_outputs[::-1]
         return seg_outputs[-1]
@@ -178,20 +202,24 @@ class GenericUNet(nn.Module):
 
 def build_unet_from_plans(plans, stage: int, num_classes: int | None = None,
                           dtype: torch.dtype = torch.bfloat16,
-                          input_channels: int | None = None) -> GenericUNet:
+                          input_channels: int | None = None, **overrides) -> GenericUNet:
     """GenericUNet for one resolution stage of a multitalent_tpu Plans object
-    (the wiring of multitalent_tpu/models/generic_unet.build_unet_from_plans);
-    `input_channels` defaults to the plans' modalities (the cascade's
-    full-resolution stage adds the previous stage's one-hots)."""
+    (the wiring of multitalent_tpu/models/generic_unet.build_unet_from_plans:
+    max 320 features in 3D, 480 in 2D); `input_channels` defaults to the
+    plans' modalities (the cascade's full-resolution stage adds the previous
+    stage's one-hots). `overrides` are a variant trainer's network_overrides
+    (norm, nonlin, negative_slope, seg_output_bias, conv_per_stage,
+    base_num_features, conv_kernel_sizes); `deep_supervision` among them is
+    dropped, the port's deep supervision being an argument of the forward."""
     st = plans.stage(stage)
-    if len(st.patch_size) != 3:
-        raise NotImplementedError("the port runs 3D plans only (2D GenericUNet: "
-                                  "ROADMAP queue 1, item 10d)")
-    return GenericUNet(
+    kwargs = dict(
         input_channels=plans.num_modalities if input_channels is None else input_channels,
         base_num_features=plans.base_num_features,
         num_classes=num_classes if num_classes is not None else plans.num_classes + 1,
         pool_op_kernel_sizes=st.pool_op_kernel_sizes,
         conv_kernel_sizes=st.conv_kernel_sizes,
         conv_per_stage=plans.conv_per_stage,
+        max_num_features=320 if len(st.patch_size) == 3 else 480,
         dtype=dtype)
+    kwargs.update({k: v for k, v in overrides.items() if k != "deep_supervision"})
+    return GenericUNet(**kwargs)

@@ -28,6 +28,10 @@ the JAX ConvNormAct does.
 
 Rounding in bf16, as the JAX block: norm1 -> bf16 -> LeakyReLU; norm2 ->
 bf16; the skip (x, or skip_norm's bf16 output) added in bf16; LeakyReLU.
+
+A 2D plan (kernel sizes of two axes) builds the network of rank 2: Conv2d
+on cuDNN, InstanceNorm2d, ConvTranspose2d, 1x1 heads; max 320 features in
+2D too, as the JAX package builds it.
 """
 from __future__ import annotations
 
@@ -35,13 +39,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multitalent_tpu_torch.models.blocks import (CL, ConvDropoutNormNonlin, KernelConv3d,
-                                                 instance_norm, kernel_launches_per_forward,
-                                                 kernel_launches_per_step)
+from multitalent_tpu_torch.models.blocks import (ConvDropoutNormNonlin, conv_nd,
+                                                 conv_transpose_nd, instance_norm,
+                                                 instance_norm_module,
+                                                 kernel_launches_per_forward,
+                                                 kernel_launches_per_step, make_conv,
+                                                 memory_format)
 from multitalent_tpu_torch.models.generic_unet import compute_stage_features
 
 
-def _norm(x: torch.Tensor, norm: nn.InstanceNorm3d) -> torch.Tensor:
+def _norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
     return instance_norm(x, norm.weight, norm.bias, norm.eps)
 
 
@@ -54,16 +61,16 @@ class BasicResidualBlock(nn.Module):
                  negative_slope: float = 1e-2):
         super().__init__()
         stride = tuple(int(s) for s in stride) if stride is not None else (1,) * len(kernel_size)
+        nd = len(stride)
         self.negative_slope = negative_slope
-        self.conv1 = KernelConv3d(in_channels, out_channels, kernel_size, stride)
-        self.norm1 = nn.InstanceNorm3d(out_channels, eps=1e-5, affine=True)
-        self.conv2 = KernelConv3d(out_channels, out_channels, kernel_size)
-        self.norm2 = nn.InstanceNorm3d(out_channels, eps=1e-5, affine=True)
+        self.conv1 = make_conv(in_channels, out_channels, kernel_size, stride)
+        self.norm1 = instance_norm_module(out_channels, nd)
+        self.conv2 = make_conv(out_channels, out_channels, kernel_size)
+        self.norm2 = instance_norm_module(out_channels, nd)
         if any(s != 1 for s in stride) or in_channels != out_channels:
             self.downsample_skip = nn.Sequential(
-                KernelConv3d(in_channels, out_channels, (1,) * len(stride), stride,
-                             bias=False),
-                nn.InstanceNorm3d(out_channels, eps=1e-5, affine=True))
+                make_conv(in_channels, out_channels, (1,) * nd, stride, bias=False),
+                instance_norm_module(out_channels, nd))
         else:
             self.downsample_skip = None
 
@@ -122,9 +129,9 @@ class ResidualEncoderUNet(nn.Module):
             raise ValueError(f"{num_stages} stages need as many encoder block counts and one "
                              f"decoder block count fewer, got {tuple(num_blocks_encoder)}, "
                              f"{tuple(num_blocks_decoder)}")
-        if any(len(k) != 3 for k in kernels):
-            raise NotImplementedError("the port runs 3D plans only (2D: ROADMAP queue 1, "
-                                      "item 10d)")
+        nd = len(kernels[0])
+        if nd not in (2, 3) or any(len(k) != nd for k in kernels + pools):
+            raise ValueError(f"kernels {kernels} and pools {pools}: one rank, 2 or 3")
         self.pool_op_kernel_sizes = pools
         self.num_classes = num_classes
         self.input_channels = input_channels
@@ -134,24 +141,25 @@ class ResidualEncoderUNet(nn.Module):
         self.features = feats
 
         self.encoder = _container(
-            initial_conv=KernelConv3d(input_channels, base_num_features, (3, 3, 3)),
-            initial_norm=nn.InstanceNorm3d(base_num_features, eps=1e-5, affine=True),
+            initial_conv=make_conv(input_channels, base_num_features, (3,) * nd),
+            initial_norm=instance_norm_module(base_num_features, nd),
             stages=nn.ModuleList([
                 ResidualStage(base_num_features if s == 0 else feats[s - 1], feats[s],
                               int(num_blocks_encoder[s]), kernels[s], pools[s])
                 for s in range(num_stages)]))
+        transp = nn.ConvTranspose3d if nd == 3 else nn.ConvTranspose2d
+        head = nn.Conv3d if nd == 3 else nn.Conv2d
         tus, stages, heads = [], [], []
         for i, s in enumerate(range(num_stages - 2, -1, -1)):
             f, k = feats[s], kernels[s]
-            tus.append(nn.ConvTranspose3d(feats[s + 1], f, pools[s + 1], pools[s + 1],
-                                          bias=False))
+            tus.append(transp(feats[s + 1], f, pools[s + 1], pools[s + 1], bias=False))
             same3 = k == (3, 3, 3)
             stages.append(_container(convs=nn.ModuleList([
                 ConvDropoutNormNonlin(2 * f if b == 0 else f, f, k,
                                       in_splits=(f, f) if b == 0 and same3 else None,
                                       negative_slope=negative_slope, norm_name="norm")
                 for b in range(int(num_blocks_decoder[i]))])))
-            heads.append(nn.Conv3d(f, num_classes, 1, bias=True))
+            heads.append(head(f, num_classes, 1, bias=True))
         self.decoder = _container(tus=nn.ModuleList(tus), stages=nn.ModuleList(stages),
                                   deep_supervision_outputs=nn.ModuleList(heads))
 
@@ -174,7 +182,8 @@ class ResidualEncoderUNet(nn.Module):
                 deep_supervision: bool = False) -> torch.Tensor | list[torch.Tensor]:
         """use_kernels=False runs the kernels' plain PyTorch versions."""
         enc, dec = self.encoder, self.decoder
-        x = x.to(self.dtype).contiguous(memory_format=CL)
+        x = x.to(self.dtype)
+        x = x.contiguous(memory_format=memory_format(x))
         x = F.leaky_relu(_norm(enc.initial_conv(x, use_kernels=use_kernels), enc.initial_norm),
                          self.negative_slope, inplace=True)
         skips = []
@@ -185,8 +194,8 @@ class ResidualEncoderUNet(nn.Module):
         seg_outputs = []
         for i in range(num_dec):
             tu = dec.tus[i]
-            x = F.conv_transpose3d(x, tu.weight.to(self.dtype), None, tu.stride)
-            x = x.contiguous(memory_format=CL)
+            x = conv_transpose_nd(x, tu.weight.to(self.dtype), tu.stride)
+            x = x.contiguous(memory_format=memory_format(x))
             skip = skips[num_dec - 1 - i]
             first, *rest = dec.stages[i].convs
             if first.kernel == "conv3d_same_dual":
@@ -197,8 +206,8 @@ class ResidualEncoderUNet(nn.Module):
                 x = block(x, use_kernels=use_kernels)
             if deep_supervision or i == num_dec - 1:
                 head = dec.deep_supervision_outputs[i]
-                seg_outputs.append(F.conv3d(x, head.weight.to(self.dtype),
-                                            head.bias.to(self.dtype)).float())
+                seg_outputs.append(conv_nd(x, head.weight.to(self.dtype),
+                                           head.bias.to(self.dtype)).float())
         if deep_supervision:
             return seg_outputs[::-1]
         return seg_outputs[-1]

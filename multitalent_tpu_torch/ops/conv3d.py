@@ -23,8 +23,15 @@ Counterparts of the Pallas kernels of multitalent_tpu:
   `conv3d_same_dual_stats` is its dual form (kernel B's conv plus the stats)
   for a decoder's first conv.
 
+Kernels A, B and C take bf16 (fp32 accumulation, bf16 out for A and B) and,
+for the networks that compute in fp32 (`--fp32`, nnUNetTrainerV2_fp32),
+fp32: each wrapper sends fp32 inputs to the kernel's fp32 form
+(`conv3d_same_fp32`, `conv3d_same_dual_fp32`, `conv3d_same_wgrad_fp32`,
+plain FFMA without TF32, fp32 out), which counts its launches on its own
+`launches`. Kernel D takes bf16 only (its fp32 form is ROADMAP queue 2).
+
 Kernels A, B and D live in `csrc/conv3d_same.cu`, kernel C in
-`csrc/conv3d_wgrad.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
+`csrc/conv3d_wgrad.cu`, the fp32 forms in `csrc/conv3d_fp32.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
 of the JAX package and the physical layout of a `torch.channels_last_3d`
 NCDHW tensor. Weights are prepared with `prepare_conv3d_weight`.
 
@@ -60,7 +67,8 @@ def _block_n(cout: int) -> int:
 
 @dataclass(frozen=True)
 class PreparedWeight:
-    """Weights in the kernel's layout (kchunks, 27, 16, CoutP) bf16.
+    """Weights in the kernel's layout (kchunks, 27, 16, CoutP), bf16 (or fp32
+    for the fp32 forms).
 
     `splits` are the input channel counts of the inputs the conv reads, in
     order ((Cin,) for kernel A, (Ca, Cb) for kernel B); each input's channels
@@ -183,9 +191,16 @@ def conv3d_same_wgrad_dual_ref(a: torch.Tensor, b: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_input(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+# the input dtypes of kernels A, B and C (fp32: their fp32 forms); D takes bf16
+ABC_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_input(t: torch.Tensor, name: str, like: torch.Tensor,
+                 dtypes: tuple = (torch.bfloat16,)) -> None:
+    if t.dtype not in dtypes or t.dtype != like.dtype:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the kernel takes {names} inputs of one dtype, got "
+                        f"{t.dtype} (beside {like.dtype})")
     if t.dim() != 5:
         raise ValueError(f"{name}: expected (N, Z, Y, X, C), got {tuple(t.shape)}")
     if t.device != like.device:
@@ -203,9 +218,9 @@ def _check_weight(pw: PreparedWeight, splits: tuple[int, ...],
     if pw.splits != splits:
         raise ValueError(f"prepared weight takes inputs of {pw.splits} "
                          f"channels, got {splits}")
-    if pw.w.dtype != torch.bfloat16 or pw.w.device != x.device:
-        raise ValueError("prepared weight must be bfloat16 on the input's "
-                         "device")
+    if pw.w.dtype != x.dtype or pw.w.device != x.device:
+        raise ValueError(f"prepared weight must be {x.dtype} on the input's device, got "
+                         f"{pw.w.dtype} on {pw.w.device}")
     if not pw.w.is_contiguous() or pw.w.data_ptr() % 16:
         raise ValueError("prepared weight must be contiguous and 16-byte aligned")
     if bias is not None:
@@ -267,7 +282,9 @@ def conv3d_same(x: torch.Tensor, pw: PreparedWeight,
         return into(out, conv3d_same_ref(x, unprepare_conv3d_weight(pw), bias))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same: unsupported device {x.device}")
-    _check_input(x, "x", x)
+    _check_input(x, "x", x, ABC_DTYPES)
+    if x.dtype == torch.float32:
+        return conv3d_same_fp32(x, pw, bias, out)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
     out = _launch("mt_conv3d_same", [x], pw, bias, out)
     conv3d_same.launches += 1
@@ -320,7 +337,9 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         return into(out, conv3d_same_dual_ref(a, b, unprepare_conv3d_weight(pw), bias))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_dual: unsupported device {a.device}")
-    _check_input(a, "a", a)
+    _check_input(a, "a", a, ABC_DTYPES)
+    if a.dtype == torch.float32:
+        return conv3d_same_dual_fp32(a, b, pw, bias, out)
     _check_input(b, "b", a)
     if a.shape[:4] != b.shape[:4]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
@@ -390,7 +409,9 @@ def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor,
         return into(out, conv3d_same_wgrad_ref(x, g))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad: unsupported device {x.device}")
-    _check_input(x, "x", x)
+    _check_input(x, "x", x, ABC_DTYPES)
+    if x.dtype == torch.float32:
+        return conv3d_same_wgrad_fp32(x, g, out)
     _check_input(g, "g", x)
     if x.shape[:4] != g.shape[:4]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ "
@@ -416,7 +437,9 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
         return into(out, conv3d_same_wgrad_dual_ref(a, b, g))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad_dual: unsupported device {a.device}")
-    _check_input(a, "a", a)
+    _check_input(a, "a", a, ABC_DTYPES)
+    if a.dtype == torch.float32:
+        return conv3d_same_wgrad_dual_fp32(a, b, g, out)
     _check_input(b, "b", a)
     _check_input(g, "g", a)
     if a.shape[:4] != b.shape[:4] or a.shape[:4] != g.shape[:4]:
@@ -424,6 +447,156 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                          f"{tuple(g.shape)} differ outside the channel axis")
     dw = _launch_wgrad("mt_conv3d_wgrad_dual", [a, b], g, out)
     conv3d_same_wgrad.launches += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# the fp32 forms of kernels A, B and C (csrc/conv3d_fp32.cu)
+# ---------------------------------------------------------------------------
+
+def _check_fp32(inputs: list[tuple[str, torch.Tensor]]) -> None:
+    first = inputs[0][1]
+    for name, t in inputs:
+        _check_input(t, name, first, (torch.float32,))
+    if any(t.shape[:4] != first.shape[:4] for _, t in inputs):
+        raise ValueError("inputs " + ", ".join(f"{n} {tuple(t.shape)}" for n, t in inputs)
+                         + " differ outside the channel axis")
+
+
+def _launch_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
+                 bias: torch.Tensor | None, out: torch.Tensor | None) -> torch.Tensor:
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    dev = inputs[0].device
+    n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
+    cs = [int(t.shape[-1]) for t in inputs] + [0]
+    out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.float32, dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mt_conv3d_same_fp32(
+            inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
+            pw.w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            n, z, y, xd, cs[0], cs[1], pw.cout, pw.coutp, stream)
+    _build.check(lib, code, "mt_conv3d_same_fp32")
+    return out
+
+
+def conv3d_same_fp32(x: torch.Tensor, pw: PreparedWeight,
+                     bias: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel A's fp32 form: the SAME 3x3x3 conv of fp32 x (N, Z, Y, X, Cin)
+    with the fp32 prepared weight, fp32 FFMA (no TF32), fp32 bias, fp32 out,
+    written into `out` where given. conv3d_same sends fp32 inputs here.
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_ref."""
+    if x.device.type == "cpu":
+        return into(out, conv3d_same_ref(x, unprepare_conv3d_weight(pw), bias))
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_fp32: unsupported device {x.device}")
+    _check_fp32([("x", x)])
+    _check_weight(pw, (int(x.shape[-1]),), x, bias)
+    out = _launch_fp32([x], pw, bias, out)
+    conv3d_same_fp32.launches += 1
+    return out
+
+
+conv3d_same_fp32.launches = 0
+
+
+def conv3d_same_dual_fp32(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
+                          bias: torch.Tensor | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel B's fp32 form: conv3d_same_fp32 over concat(a, b) along
+    channels, without building the concat. conv3d_same_dual sends fp32
+    inputs here.
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_dual_ref."""
+    if a.device.type == "cpu":
+        return into(out, conv3d_same_dual_ref(a, b, unprepare_conv3d_weight(pw), bias))
+    if a.device.type != "cuda":
+        raise ValueError(f"conv3d_same_dual_fp32: unsupported device {a.device}")
+    _check_fp32([("a", a), ("b", b)])
+    _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
+    out = _launch_fp32([a, b], pw, bias, out)
+    conv3d_same_dual_fp32.launches += 1
+    return out
+
+
+conv3d_same_dual_fp32.launches = 0
+
+
+def conv3d_same_wgrad_fp32_workspace(n: int, z: int, y: int, x: int, ca: int, cb: int,
+                                     cout: int) -> int:
+    """Bytes of fp32 workspace kernel C's fp32 form takes at these sizes on
+    the current card (0: it writes dw directly). Builds the kernel library."""
+    from multitalent_tpu_torch import _build
+    nbytes = _build.library().mt_conv3d_wgrad_fp32_workspace(n, z, y, x, ca, cb, cout)
+    if nbytes < 0:
+        raise ValueError(f"kernel C's fp32 form does not take sizes "
+                         f"{(n, z, y, x, ca, cb, cout)}")
+    return nbytes
+
+
+def _launch_wgrad_fp32(inputs: list[torch.Tensor], g: torch.Tensor,
+                       out: torch.Tensor | None) -> torch.Tensor:
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    dev = g.device
+    n, z, y, xd = (int(s) for s in g.shape[:4])
+    cs = [int(t.shape[-1]) for t in inputs] + [0]
+    cout = int(g.shape[-1])
+    dw = _buffer(out, "out", (cout, cs[0] + cs[1], 3, 3, 3), torch.float32, dev)
+    if g.numel() == 0:
+        return dw.zero_()
+    with torch.cuda.device(dev):
+        nbytes = conv3d_same_wgrad_fp32_workspace(n, z, y, xd, cs[0], cs[1], cout)
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev) if nbytes else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mt_conv3d_wgrad_fp32(
+            inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
+            g.data_ptr(), dw.data_ptr(), None if ws is None else ws.data_ptr(), nbytes,
+            n, z, y, xd, cs[0], cs[1], cout, stream)
+    _build.check(lib, code, "mt_conv3d_wgrad_fp32")
+    return dw
+
+
+def conv3d_same_wgrad_fp32(x: torch.Tensor, g: torch.Tensor,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel C's fp32 form: dL/dw (Cout, Cin, 3, 3, 3) of the SAME conv of
+    fp32 x by the fp32 output gradient g, fp32 FFMA, written into `out` where
+    given. conv3d_same_wgrad sends fp32 inputs here.
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_wgrad_ref."""
+    if x.device.type == "cpu":
+        return into(out, conv3d_same_wgrad_ref(x, g))
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_wgrad_fp32: unsupported device {x.device}")
+    _check_fp32([("x", x), ("g", g)])
+    dw = _launch_wgrad_fp32([x], g, out)
+    conv3d_same_wgrad_fp32.launches += 1
+    return dw
+
+
+conv3d_same_wgrad_fp32.launches = 0
+
+
+def conv3d_same_wgrad_dual_fp32(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel C's fp32 form, dual: dL/dw (Cout, Ca + Cb, 3, 3, 3) of kernel
+    B's conv over concat(a, b); its launches count on
+    `conv3d_same_wgrad_fp32.launches`, as one kernel.
+
+    CUDA tensors launch the kernel; CPU tensors take
+    conv3d_same_wgrad_dual_ref."""
+    if a.device.type == "cpu":
+        return into(out, conv3d_same_wgrad_dual_ref(a, b, g))
+    if a.device.type != "cuda":
+        raise ValueError(f"conv3d_same_wgrad_dual_fp32: unsupported device {a.device}")
+    _check_fp32([("a", a), ("b", b), ("g", g)])
+    dw = _launch_wgrad_fp32([a, b], g, out)
+    conv3d_same_wgrad_fp32.launches += 1
     return dw
 
 

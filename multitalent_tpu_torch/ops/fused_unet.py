@@ -164,7 +164,8 @@ def _forward(net, x, deep_supervision: bool, train: bool, use_kernels: bool):
             x_mat = ch.materialize(raw, stats, blocks[-1])
         if deep_supervision or (last and train):
             head = net.seg_outputs[u]
-            seg_outputs.append(F.conv3d(x_mat, head.weight.to(dtype)).float())
+            bias = None if head.bias is None else head.bias.to(dtype)
+            seg_outputs.append(F.conv3d(x_mat, head.weight.to(dtype), bias).float())
     if deep_supervision:
         return seg_outputs[::-1]
     if train:
@@ -174,22 +175,39 @@ def _forward(net, x, deep_supervision: bool, train: bool, use_kernels: bool):
     block = decoders[-1][-1]
     sc, sh = ch.affine(stats, block, raw)
     out_dtype = dtype if dtype == torch.bfloat16 else torch.float32
-    head = net.seg_outputs[net.num_pool - 1].weight
+    head = net.seg_outputs[net.num_pool - 1]
+    bias = None if head.bias is None else head.bias.float().contiguous()
     if use_kernels:
-        return sg.seghead(raw, head, None, sc, sh, block.negative_slope, out_dtype)
-    return sg.seghead_ref(raw, head, None, sc, sh, block.negative_slope, out_dtype)
+        return sg.seghead(raw, head.weight, bias, sc, sh, block.negative_slope, out_dtype)
+    return sg.seghead_ref(raw, head.weight, bias, sc, sh, block.negative_slope, out_dtype)
 
 
 def _fusable(net, switch: str) -> bool:
-    """Whether the fused route takes `net`: only a GenericUNet, as the JAX
-    package gives only a GenericUNet its packed or fused route
-    (packed_unet.py:541,852,893); any other network runs its own forward,
-    which a warning says (once per call site, Python's default)."""
-    if isinstance(net, GenericUNet):
-        return True
-    warnings.warn(f"{switch}=1: the fused route takes a GenericUNet only; "
-                  f"{type(net).__name__} runs its own forward", stacklevel=3)
-    return False
+    """Whether the fused route takes `net`: only a 3D GenericUNet of
+    InstanceNorm and LeakyReLU (its negative slope and head bias as they
+    are), as the JAX package packs and fuses only those (packed_unet.py:
+    541-547,852-857,893-897: norm instance, nonlin leaky_relu, no dropout);
+    any other network runs its own forward, which a warning says (once per
+    call site, Python's default). Kernels D, E and F take bf16: an fp32
+    network on the card under the switch raises, never taking the unfused
+    route quietly (on the CPU the route runs the kernels' plain versions,
+    which compute fp32 as the JAX package's fused route does)."""
+    if not isinstance(net, GenericUNet):
+        warnings.warn(f"{switch}=1: the fused route takes a GenericUNet only; "
+                      f"{type(net).__name__} runs its own forward", stacklevel=3)
+        return False
+    if net.ndim != 3 or net.norm != "instance" or net.nonlin != "leaky_relu":
+        warnings.warn(f"{switch}=1: the fused route takes a 3D GenericUNet of InstanceNorm "
+                      f"and LeakyReLU, as the JAX package packs only those; this {net.ndim}D "
+                      f"one of norm {net.norm!r} and nonlin {net.nonlin!r} runs its own "
+                      "forward", stacklevel=3)
+        return False
+    if net.dtype != torch.bfloat16 and any(p.is_cuda for p in net.parameters()):
+        raise NotImplementedError(
+            f"{switch}=1 with a {net.dtype} network: kernels D, E and F take bfloat16, and "
+            "their fp32 forms are not written (ROADMAP queue 2, \"fp32 forms of D, E and "
+            f"F\"); unset {switch} to run the unfused route on the fp32 forms of A, B and C")
+    return True
 
 
 def make_inference_forward(net):

@@ -300,3 +300,17 @@ class SlidingWindowPredictor:
             acc[:, z:z + pz, y:y + py, x:x + px].addcmul_(total[0], g_div)
             weight_sum[z:z + pz, y:y + py, x:x + px] += self.gaussian
         return acc / torch.where(weight_sum == 0, 1.0, weight_sum)
+
+
+def refuse_2d_prediction(what: str):
+    """Raise NotImplementedError for predicting with a 2D model, which
+    neither package does: the JAX package's sliding window pads and tiles
+    three axes (multitalent_tpu/ops/sliding_window.py:78 pad_to_patch, :716
+    begin_put): its train CLI trains a 2D plan and then fails in the
+    validation with a ValueError, as its predict CLI fails on a 2D model
+    folder."""
+    raise NotImplementedError(
+        f"{what}: 2D models are not predicted: neither this port nor the JAX package it is "
+        "held to predicts one (the JAX sliding window pads and tiles three axes, "
+        "multitalent_tpu/ops/sliding_window.py:78,716); the 2D model trains and its "
+        "checkpoints are written")

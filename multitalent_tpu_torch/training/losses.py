@@ -2,7 +2,7 @@
 
 Counterpart of multitalent_tpu/training/losses.py: `multitalent_loss` (:140)
 and `multitalent_ds_loss` (:189), the masked sigmoid BCE + batch-Dice loss
-of the MultiTalent flagship; `dc_and_ce_loss` (:96) and
+of the MultiTalent flagship; `dc_and_ce_loss` (:96), `robust_cross_entropy` (:84) and
 `deep_supervision_loss` (:113) for TrainerV2; `ds_loss_weights` (:104).
 
 Conventions: logits (B, C, *S) fp32 (the networks' outputs; the loss is
@@ -145,20 +145,26 @@ def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bo
     return -dc.mean()
 
 
+def robust_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                         group=None) -> torch.Tensor:
+    """Mean softmax cross-entropy over the voxels, labels below 0 counted as
+    0 (losses.py:84 of the JAX package); with a process `group` the mean
+    over every rank's voxels."""
+    target = labels.long().clamp(min=0)
+    if group is None:
+        return F.cross_entropy(logits.float(), target)
+    total = F.cross_entropy(logits.float(), target, reduction="sum")
+    total, count = global_sum(torch.stack((total, total.new_tensor(target.numel()))), group)
+    return total / count
+
+
 def dc_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bool = False,
                    weight_ce: float = 1.0, weight_dice: float = 1.0,
                    smooth: float = 1e-5, group=None) -> torch.Tensor:
     """DC_and_CE_loss (aggregate 'sum'): softmax CE + (-Dice without the
     background channel); with a process `group` the CE is the mean over every
     rank's voxels."""
-    target = labels.long().clamp(min=0)
-    if group is None:
-        ce = F.cross_entropy(logits.float(), target)
-    else:
-        total = F.cross_entropy(logits.float(), target, reduction="sum")
-        total, count = global_sum(torch.stack((total, total.new_tensor(target.numel()))),
-                                  group)
-        ce = total / count
+    ce = robust_cross_entropy(logits, labels, group=group)
     dc = soft_dice_loss(logits, labels, batch_dice=batch_dice, do_bg=False, smooth=smooth,
                         group=group)
     return weight_ce * ce + weight_dice * dc

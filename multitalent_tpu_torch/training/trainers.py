@@ -36,6 +36,14 @@ The heads of deep-supervision weight 0 are left out of the reducer (they get
 no gradient, as in one process). Rank 0 alone writes the log, checkpoints,
 plans and splits. Without a group nothing of this runs.
 
+A 2D plan (patch of two axes; cli/train.py's network `2d`) trains the 2D
+GenericUNet on slices (PatchSampler2D) under the 2D augmentation chain;
+its validation raises, as neither package predicts a 2D model (the JAX
+package's sliding window tiles three axes). `network_overrides` is the JAX
+package's hook (trainers.py:212-223) through which the variant trainers
+(training/variants.py) swap the network's norm, activation and structure;
+`deep_supervision` False trains the full-resolution output alone.
+
 The benchmarking trainers (nnUNetTrainerV2_2epochs, _5epochs,
 _5epochs_dummyLoad; multitalent_tpu/training/trainers.py:545-600) close the
 module.
@@ -55,7 +63,7 @@ from multitalent_tpu_torch.augment.params import (default_2D_augmentation_params
 from multitalent_tpu_torch.augment.pipeline import (ds_scales_from_pools, make_augment_fn,
                                                     make_val_transform_fn)
 from multitalent_tpu_torch.data.dataset import kfold_split, load_dataset, unpack_dataset
-from multitalent_tpu_torch.data.loader import PatchSampler3D, PrefetchPipeline
+from multitalent_tpu_torch.data.loader import PatchSampler2D, PatchSampler3D, PrefetchPipeline
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
 from multitalent_tpu_torch.models.mednext import MedNeXt
 from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
@@ -63,7 +71,7 @@ from multitalent_tpu_torch.models.residual_unet import (BasicResidualBlock,
 from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
 from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
-from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
+from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor, refuse_2d_prediction
 from multitalent_tpu_torch.parallel import distributed
 from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
@@ -87,8 +95,10 @@ def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
     transposed conv weight, zero conv biases; norms keep (1, 0), but a
     residual block's last norm starts at scale 0
     (init_last_bn_before_add_to_0, as residual_unet.py:53 of the JAX package)."""
+    convs = (torch.nn.Conv3d, torch.nn.ConvTranspose3d, torch.nn.Conv2d,
+             torch.nn.ConvTranspose2d)
     for m in net.modules():
-        if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+        if isinstance(m, convs):
             torch.nn.init.kaiming_normal_(m.weight, a=neg_slope, generator=generator)
             if m.bias is not None:
                 torch.nn.init.zeros_(m.bias)
@@ -129,6 +139,7 @@ class TrainerV2(NetworkTrainerBase):
         self.online_eval_fp: list[np.ndarray] = []
         self.online_eval_fn: list[np.ndarray] = []
 
+        self.deep_supervision = True  # False: the full-resolution output alone
         self.ds_loss_weights: np.ndarray | None = None
         self.data_aug_params: dict | None = None
         self.network: torch.nn.Module | None = None  # GenericUNet or ResidualEncoderUNet
@@ -162,21 +173,26 @@ class TrainerV2(NetworkTrainerBase):
         self.num_classes = plans.num_classes + 1  # +1 background
         self.classes = plans.all_classes
         self.use_mask_for_norm = plans.use_mask_for_norm
-        if len(self.patch_size) != 3:
-            raise NotImplementedError("the port trains 3D plans only (2D: ROADMAP "
-                                      "queue 1, item 10d)")
+        self.threeD = len(self.patch_size) == 3
 
     def setup_DA_params(self) -> None:
-        """nnUNetTrainerV2.setup_DA_params (trainers.py:115), 3D."""
+        """nnUNetTrainerV2.setup_DA_params (trainers.py:115): 3D, or 2D with
+        the in-plane rotation narrowed to +-15 degrees for a patch of aspect
+        above 1.5."""
         self.deep_supervision_scales = ds_scales_from_pools(
             self.net_num_pool_op_kernel_sizes)
-        p = dict(default_3D_augmentation_params)
-        if self.do_dummy_2D_aug:
-            p["dummy_2D"] = True
-            p["elastic_deform_alpha"] = default_2D_augmentation_params.get(
-                "elastic_deform_alpha")
-            for k in ("rotation_x", "rotation_y", "rotation_z"):
-                p[k] = default_2D_augmentation_params[k]
+        if self.threeD:
+            p = dict(default_3D_augmentation_params)
+            if self.do_dummy_2D_aug:
+                p["dummy_2D"] = True
+                p["elastic_deform_alpha"] = default_2D_augmentation_params.get(
+                    "elastic_deform_alpha")
+                for k in ("rotation_x", "rotation_y", "rotation_z"):
+                    p[k] = default_2D_augmentation_params[k]
+        else:
+            p = dict(default_2D_augmentation_params)
+            if max(self.patch_size) / min(self.patch_size) > 1.5:
+                p["rotation_x"] = (-15.0 * 2 * np.pi / 360, 15.0 * 2 * np.pi / 360)
         p["mask_was_used_for_normalization"] = self.use_mask_for_norm
         p["scale_range"] = (0.7, 1.4)
         p["do_elastic"] = False
@@ -229,10 +245,11 @@ class TrainerV2(NetworkTrainerBase):
     def _sampler(self, dataset: dict, patch_size, seed: int, probabilities=None):
         """This rank's sampler: its share of the global batch and of the
         foreground-forced tail, its own stream (`seed` offset by rank)."""
-        return PatchSampler3D(dataset, patch_size, self.patch_size, self.local_batch_size,
-                              oversample_foreground_percent=self.local_oversample,
-                              pad_mode="constant", sampling_probabilities=probabilities,
-                              seed=seed + RANK_SEED_STRIDE * self.rank)
+        cls = PatchSampler3D if self.threeD else PatchSampler2D
+        return cls(dataset, patch_size, self.patch_size, self.local_batch_size,
+                   oversample_foreground_percent=self.local_oversample,
+                   pad_mode="constant", sampling_probabilities=probabilities,
+                   seed=seed + RANK_SEED_STRIDE * self.rank)
 
     def get_basic_generators(self):
         """Sampler factories for the training and validation pipelines
@@ -245,10 +262,23 @@ class TrainerV2(NetworkTrainerBase):
                                         self.seed + 1000 + w))
 
     # ------------------------------------------------------------------ network
+    @classmethod
+    def network_overrides_for(cls, plans: Plans, stage: int) -> dict:
+        """The GenericUNet constructor overrides of this trainer class for
+        one stage of `plans` (what network_overrides returns; model restore
+        asks the class of a folder's trainer)."""
+        return {}
+
+    def network_overrides(self) -> dict:
+        """GenericUNet constructor overrides of the architectural-variant
+        subclasses (multitalent_tpu/training/trainers.py:212)."""
+        return self.network_overrides_for(self.plans, self.stage)
+
     def initialize_network(self) -> None:
         self.network = build_unet_from_plans(
             self.plans, self.stage, num_classes=self.num_classes,
-            dtype=torch.bfloat16 if self.fp16 else torch.float32)
+            dtype=torch.bfloat16 if self.fp16 else torch.float32,
+            **self.network_overrides())
 
     def initialize_optimizer(self):
         """(optimizer, step -> LR): SGD + clip under the poly staircase
@@ -322,6 +352,8 @@ class TrainerV2(NetworkTrainerBase):
         deep-supervision levels of weight 0 (the outputs are listed highest
         resolution first, the heads lowest first)."""
         heads = self.network.deep_supervision_heads()
+        if not self.deep_supervision:  # the highest resolution's head alone
+            return {id(p) for h in list(heads)[:-1] for p in h.parameters()}
         return {id(p) for i, w in enumerate(self.ds_loss_weights) if w == 0
                 for p in heads[len(heads) - 1 - i].parameters()}
 
@@ -385,7 +417,7 @@ class TrainerV2(NetworkTrainerBase):
         if do_backprop:
             data, targets = self._augment(data, seg, self._aug_generator)
             forward = self.network_forward if self.ddp is None else self.ddp
-            outputs = forward(data, deep_supervision=True)
+            outputs = self._outputs(forward(data, deep_supervision=self.deep_supervision))
             loss, aux = self.loss_fn(outputs, targets, extras)
             self.optimizer.zero_grad()
             loss.backward()
@@ -394,7 +426,8 @@ class TrainerV2(NetworkTrainerBase):
         else:
             with torch.no_grad():
                 data, targets = self._val_transform(data, seg)
-                outputs = self.network_forward(data, deep_supervision=True)
+                outputs = self._outputs(self.network_forward(
+                    data, deep_supervision=self.deep_supervision))
                 loss, aux = self.loss_fn(outputs, targets, extras)
                 if run_online_evaluation:
                     self.run_online_evaluation(self.eval_stats(outputs, targets, extras))
@@ -403,6 +436,12 @@ class TrainerV2(NetworkTrainerBase):
         if do_backprop:
             self.step_seconds.append(time.perf_counter() - t0)
         return value
+
+    @staticmethod
+    def _outputs(outputs) -> list:
+        """The forward's outputs as a list of levels (one without deep
+        supervision)."""
+        return outputs if isinstance(outputs, (list, tuple)) else [outputs]
 
     def on_iteration_metrics(self, aux: dict, was_train: bool) -> None:
         """Hook for per-iteration aux-metric logging (MultiTalent ce/dice)."""
@@ -553,8 +592,11 @@ class TrainerV2(NetworkTrainerBase):
                  all_in_gpu: bool = False, segmentation_export_kwargs: dict | None = None,
                  run_postprocessing_on_folds: bool = True):
         """Predict, export and evaluate every validation case
-        (inference/validation.py:run_validation)."""
+        (inference/validation.py:run_validation). A 2D plan raises
+        (refuse_2d_prediction)."""
         from multitalent_tpu_torch.inference.validation import run_validation
+        if not self.threeD:
+            refuse_2d_prediction("TrainerV2.validate")
         return run_validation(
             self, do_mirroring=do_mirroring, use_sliding_window=use_sliding_window,
             step_size=step_size, save_softmax=save_softmax, use_gaussian=use_gaussian,

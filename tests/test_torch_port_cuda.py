@@ -184,16 +184,141 @@ def test_conv3d_same_wgrad_is_bit_equal_from_call_to_call(device, shape, cin, co
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(device):
+    """float16 input, an fp32 input with a bf16 prepared weight (the fp32
+    form takes an fp32 weight), strides, a weight for other inputs; kernel
+    D's prologue form takes bf16 only."""
     x = torch.zeros(1, 4, 4, 4, 16, device=device)
     pw = cv.prepare_conv3d_weight(torch.zeros(16, 16, 3, 3, 3, device=device))
-    before = cv.conv3d_same.launches
+    before = cv.conv3d_same.launches, cv.conv3d_same_fp32.launches
     with pytest.raises(TypeError):
-        cv.conv3d_same(x, pw)  # float32 input
+        cv.conv3d_same(x.half(), pw)  # float16 input
+    with pytest.raises(ValueError):
+        cv.conv3d_same(x, pw)  # float32 input, bfloat16 weight
     with pytest.raises(ValueError):
         cv.conv3d_same(x.to(torch.bfloat16).transpose(1, 2), pw)
     with pytest.raises(ValueError):
         cv.conv3d_same_dual(x.to(torch.bfloat16), x.to(torch.bfloat16), pw)
-    assert cv.conv3d_same.launches == before
+    with pytest.raises(TypeError):
+        cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(
+            torch.zeros(16, 16, 3, 3, 3, device=device), dtype=torch.float32))
+    assert (cv.conv3d_same.launches, cv.conv3d_same_fp32.launches) == before
+
+
+# the fp32 forms of A, B and C against the fp32 plain versions (TF32 off) on
+# the same inputs: both fp32 sums of 27 Cin products (A, B) or of the voxels
+# (C) in other orders, bounded relative to the output's largest entry
+FP32_RTOL = 1e-4
+
+
+def _fp32_err(got, ref):
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("n,spatial,ca,cb,cout", [
+    (1, (6, 16, 32), 30, 0, 30),     # ragged C
+    (2, (5, 7, 19), 32, 0, 64),      # ragged volume, batch 2
+    (1, (4, 4, 4), 320, 0, 320),     # deepest stage
+    (1, (3, 5, 9), 13, 0, 47),       # odd C and Cout
+    (1, (9, 10, 11), 32, 32, 32),    # B: Liver stage 0's decoder
+    (2, (6, 8, 8), 20, 12, 16),      # B: unequal inputs
+])
+def test_fp32_forms_of_a_and_b_match_plain(device, n, spatial, ca, cb, cout):
+    rng = np.random.default_rng(5)
+    a = _rand(rng, (n, *spatial, ca)).to(device)
+    b = _rand(rng, (n, *spatial, cb)).to(device) if cb else None
+    w = _rand(rng, (cout, ca + cb, 3, 3, 3), 0.05).to(device)
+    bias = _rand(rng, (cout,)).to(device)
+    pw = cv.prepare_conv3d_weight(w, (ca, cb) if cb else None, torch.float32)
+    out = torch.full((n, *spatial, cout), float("nan"), device=device)
+    counter = cv.conv3d_same_dual_fp32 if cb else cv.conv3d_same_fp32
+    before = counter.launches, cv.conv3d_same.launches, cv.conv3d_same_dual.launches
+    if cb:
+        got = cv.conv3d_same_dual(a, b, pw, bias, out=out)
+        ref = cv.conv3d_same_dual_ref(a, b, w, bias)
+    else:
+        got = cv.conv3d_same(a, pw, bias, out=out)
+        ref = cv.conv3d_same_ref(a, w, bias)
+    torch.cuda.synchronize()
+    assert got is out and got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (counter.launches, cv.conv3d_same.launches, cv.conv3d_same_dual.launches) == (
+        before[0] + 1, *before[1:])
+    assert _fp32_err(got, ref) <= FP32_RTOL
+
+
+@pytest.mark.parametrize("n,spatial,ca,cb,cout", [
+    (2, (6, 16, 32), 30, 0, 30),     # split voxels: partials, a second launch
+    (1, (4, 4, 4), 320, 0, 320),     # one box: dw directly
+    (1, (3, 5, 9), 13, 0, 47),       # odd C and Cout
+    (2, (5, 9, 11), 30, 30, 30),     # dual
+    (1, (4, 8, 8), 20, 10, 16),      # dual, unequal
+])
+def test_fp32_form_of_c_matches_plain(device, n, spatial, ca, cb, cout):
+    """Into a NaN-filled dw: every element written; two calls bit-equal."""
+    rng = np.random.default_rng(6)
+    ins = [_rand(rng, (n, *spatial, c)).to(device) for c in (ca, cb) if c]
+    g = _rand(rng, (n, *spatial, cout)).to(device)
+    out = torch.full((cout, ca + cb, 3, 3, 3), float("nan"), device=device)
+    fn = cv.conv3d_same_wgrad_dual if cb else cv.conv3d_same_wgrad
+    plain = cv.conv3d_same_wgrad_dual_ref if cb else cv.conv3d_same_wgrad_ref
+    before = cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches
+    assert fn(*ins, g, out=out) is out
+    again = fn(*ins, g)
+    torch.cuda.synchronize()
+    assert (cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches) == (
+        before[0] + 2, before[1])
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    assert _fp32_err(out, plain(*ins, g)) <= FP32_RTOL
+
+
+def test_fp32_training_step_through_the_fp32_forms(device):
+    """One forward + backward of a reduced flagship UNet in fp32 through the
+    fp32 forms of A, B and C: their launch counts are the per-step counts,
+    kernels A, B and C's bf16 forms launch nowhere, and every parameter
+    gradient is within 1e-3 of its largest entry of the plain fp32 path's
+    (fp32 sums in other orders through ~15 layers; conv biases left out: the
+    instance norm cancels them)."""
+    from multitalent_tpu_torch.models.blocks import fp32_forms
+    from multitalent_tpu_torch.models.generic_unet import GenericUNet
+    pools, kernels = [[2, 2, 2], [2, 2, 2], [1, 2, 2]], [[3, 3, 3]] * 4
+    torch.manual_seed(0)
+    net = GenericUNet(1, 16, 47, pools, kernels, dtype=torch.float32).to(device)
+    x = torch.randn(2, 1, 16, 32, 32, device=device)
+
+    def grads(use_kernels):
+        net.zero_grad()
+        outs = net(x, use_kernels=use_kernels, deep_supervision=True)
+        sum(o.square().mean() for o in outs).backward()
+        return {k: p.grad.clone() for k, p in net.named_parameters()
+                if p.grad is not None and not k.endswith("conv.bias")}
+
+    counts = {"conv3d_same_fp32": cv.conv3d_same_fp32,
+              "conv3d_same_dual_fp32": cv.conv3d_same_dual_fp32,
+              "conv3d_same_wgrad_fp32": cv.conv3d_same_wgrad_fp32,
+              "conv3d_same": cv.conv3d_same, "conv3d_same_dual": cv.conv3d_same_dual,
+              "conv3d_same_wgrad": cv.conv3d_same_wgrad}
+    before = {k: c.launches for k, c in counts.items()}
+    got = grads(True)
+    torch.cuda.synchronize()
+    expect = {k: 0 for k in counts} | fp32_forms(net.kernel_launches_per_step())
+    assert {k: c.launches - before[k] for k, c in counts.items()} == expect
+    ref = grads(False)
+    for k in ref:
+        assert (got[k] - ref[k]).abs().max() <= 1e-3 * ref[k].abs().max() + 1e-7, k
+
+
+def test_fused_switches_refuse_an_fp32_network_on_the_card(device, monkeypatch):
+    """Kernels D, E and F take bf16: an fp32 GenericUNet on the card under
+    either fused switch raises, naming the ROADMAP row, and never runs the
+    unfused route quietly."""
+    from multitalent_tpu_torch.models.generic_unet import GenericUNet
+    from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
+    net = GenericUNet(1, 8, 3, [[2, 2, 2]], [[3, 3, 3]] * 2, dtype=torch.float32).to(device)
+    for switch, make in (("MTTPU_FUSED_NORM", make_inference_forward),
+                         ("MTTPU_FUSED_TRAIN", make_train_forward)):
+        monkeypatch.setenv(switch, "1")
+        with pytest.raises(NotImplementedError, match="fp32 forms of D, E and F"):
+            make(net)
+        monkeypatch.delenv(switch)
 
 
 # kernel C: fp32 dw against the fp32 plain version on the same bf16 inputs;

@@ -218,13 +218,15 @@ def test_fast_modes_refuse_npz(task):
 
 @pytest.mark.parametrize("model", ["2d", "3d_lowres", "3d_cascade_fullres"])
 def test_other_networks_raise_naming_their_item(task, model, monkeypatch):
-    """2d (item 10d) and 3d_cascade_fullres (the JAX CLI never reads the
+    """2d (neither package predicts a 2D model: the JAX sliding window tiles
+    three axes) and 3d_cascade_fullres (the JAX CLI never reads the
     previous stage's segmentations) raise, each naming its reason. A
     3d_lowres folder, refused until the cascade was ported (item 10c), is an
     ordinary model folder at stage 0 of a two-stage plan: the same weights
     and stage-0 plans predict what the 3d_fullres folder predicts."""
     if model != "3d_lowres":
-        match = {"2d": "item 10d", "3d_cascade_fullres": "lowres_segmentations"}[model]
+        match = {"2d": "2D models are not predicted",
+                 "3d_cascade_fullres": "lowres_segmentations"}[model]
         with pytest.raises(NotImplementedError, match=match):
             predict_cli.main(["-i", "in", "-o", "out", "-t", TASK, "-m", model,
                               "--device", "cpu"])
