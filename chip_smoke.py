@@ -212,6 +212,22 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    of VARIANT_TRAINERS (and _DA5, _noDA) 2 steps on 10a's plans with exact
    A/B/C counts, and a validation phantom's tile through the kernels
    against the plain versions within phase 4's bounds;
+15. the rest of the trainer zoo (training/variants.py), through the trainer
+   API on 10a's plans and phantoms: 15a every loss, optimizer, schedule and
+   network variant (ZOO_TRAINERS; `_momentum09in2D` on 14c's 2D plan) 2
+   steps with exact A/B/C counts and finite losses; each loss variant's
+   loss of step 1's outputs and targets against the same function on the
+   CPU in fp32 (ZOO_LOSS_RTOL), each other trainer's update of step 2
+   against its optimizer on the CPU in fp32 from the same parameters,
+   state and gradients (ZOO_UPDATE_RTOL of max |update|); 15b the convReLUIN
+   networks: a tile through the kernels against the plain fp32 network
+   (VARIANT_FP32_RATIO), MTTPU_FUSED_NORM=1 and MTTPU_FUSED_TRAIN=1 warn and
+   launch no D, E or F, and `_lReLU_convReLUIN`'s folder restored and
+   `cli.predict` on the held-out case; 15c `_resample33`'s validation of
+   its one case, its labels equal to a CPU export of the same
+   probabilities, its export order printed; 15d the LR of the schedule
+   variants and the momentum of `_reduceMomentumDuringTraining` at named
+   epochs (host);
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -230,7 +246,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `launches_mednext(_predict)` (0) and phase 13's
    `launches_cascade_lowres` (13a, its next-stage forwards included),
    `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c);
-   every row phase 14d's `launches_variants`; then the rows of the fp32
+   every row phase 14d's `launches_variants` and phase 15a-c's
+   `launches_zoo`; then the rows of the fp32
    forms of A, B and C (14a's times, 14b's launches), then the result line.
    Each phase prints its seconds.
 
@@ -528,6 +545,40 @@ VARIANT_TRAINERS = ("nnUNetTrainerV2_BN", "nnUNetTrainerV2_GN", "nnUNetTrainerV2
                     "nnUNetTrainerV2_lReLU_biasInSegOutput", "nnUNetTrainerV2_3ConvPerStage",
                     "nnUNetTrainerV2_3ConvPerStageSameFilters", "nnUNetTrainerV2_allConv3x3",
                     "nnUNetTrainerV2_DA5", "nnUNetTrainerV2_noDA")
+
+# phase 15: the loss, optimizer, schedule and network variants (one name of
+# each class of training/variants.py that 14d leaves out), 2 steps each on
+# 10a's Liver plans; _momentum09in2D on 14c's 2D plan
+ZOO_STEPS = 2
+ZOO_TRAINERS = (
+    "nnUNetTrainerV2_Loss_CE", "nnUNetTrainerV2_Loss_Dice", "nnUNetTrainerV2_Loss_DicewithBG",
+    "nnUNetTrainerV2_Loss_TopK10", "nnUNetTrainerV2_Loss_DiceTopK10",
+    "nnUNetTrainerV2_focalLoss", "nnUNetTrainerV2_GDL", "nnUNetTrainerV2_Loss_CEGDL",
+    "nnUNetTrainerV2_Loss_MCC", "nnUNetTrainerV2_Loss_MCCnoBG",
+    "nnUNetTrainerV2_Loss_DC_CE_squared", "nnUNetTrainerV2_Loss_Dice_squared",
+    "nnUNetTrainerV2_Loss_DiceCE_noSmooth", "nnUNetTrainerV2_graduallyTransitionFromCEToDice",
+    "nnUNetTrainerV2_Loss_Dice_LR1en3", "nnUNetTrainerV2_Loss_DicewithBG_LR1en3",
+    "nnUNetTrainerV2_Adam", "nnUNetTrainerV2_Adam_nnUNetTrainerlr", "nnUNetTrainerV2_constLR",
+    "nnUNetTrainerV2_momentum09", "nnUNetTrainerV2_momentum095", "nnUNetTrainerV2_momentum098",
+    "nnUNetTrainerV2_Ranger", "nnUNetTrainerV2_Ranger_lr1en2", "nnUNetTrainerV2_Ranger_lr3en3",
+    "nnUNetTrainerV2_SGD_lr1en1", "nnUNetTrainerV2_SGD_lr1en3", "nnUNetTrainerV2_cycleAtEnd",
+    "nnUNetTrainerV2_cycleAtEnd2", "nnUNetTrainerV2_SGD_ReduceOnPlateau",
+    "nnUNetTrainerV2_Adam_ReduceOnPlateau", "nnUNetTrainerV2_SGD_fixedSchedule2",
+    "nnUNetTrainerV2_reduceMomentumDuringTraining", "nnUNetTrainerV2_ReLU_convReLUIN",
+    "nnUNetTrainerV2_lReLU_convReLUIN", "nnUNetTrainerV2_resample33")
+ZOO_2D_TRAINER = "nnUNetTrainerV2_momentum09in2D"
+ZOO_PREDICTED = "nnUNetTrainerV2_lReLU_convReLUIN"
+# 15a: the card's loss against the CPU's in fp32 on the same tensors
+# (relative), and the card's update of step 2 against the CPU optimizer's
+# from the same parameters, state and gradients (of max |update|): the same
+# fp32 operations, summed in other orders
+ZOO_LOSS_RTOL = 1e-4
+ZOO_UPDATE_RTOL = 1e-5
+# 15d: the epochs at which the schedules are printed (1000 epochs of 250
+# steps, _cycleAtEnd2 1200) and the plateau trainers' train-loss moving
+# average: a fall of 1e-2 an epoch for 10 epochs, then flat
+ZOO_EPOCHS = (0, 10, 41, 72, 699, 700, 750, 899, 900, 999, 1100, 1199)
+ZOO_MOMENTUM_EPOCHS = (800, 900, 1000)
 
 # phase 6, the probes at the shapes their scripts time: the conv arms
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
@@ -4055,7 +4106,7 @@ def phase_2d(workdir: str, generic: dict) -> dict:
                   f" peak {peak:.2f} GiB; saved and restored bit-equal; hand-written kernel "
                   f"launches 0 (cuDNN)")
             del t, restored
-    out["plan"] = plan
+    out.update(plan=plan, plans_file=plans_file, prep=prep)
     print(f"14c host seconds: 2D plan + preprocess {out['plan_s']:.2f}, cli.train 2d "
           f"{out['train_cli_s']:.2f}")
     torch.cuda.empty_cache()
@@ -4100,23 +4151,8 @@ def phase_variants(workdir: str, generic: dict) -> dict:
         if launches != expect or not np.isfinite(losses).all():
             raise AssertionError(f"14d {name}: launches {launches}, expected {expect}, "
                                  f"losses {losses}")
-        x, _ = t._val_transform(t._to_device(batch["data"][:1]), t._to_device(batch["seg"][:1]))
-        net.eval()
-        with torch.no_grad():
-            p_k = torch.softmax(net(x), 1)
-            p_plain = torch.softmax(net(x, use_kernels=False), 1)
-            net.dtype = torch.float32  # the fp32 master weights, plain fp32 compute
-            p_32 = torch.softmax(net(x, use_kernels=False), 1)
-            net.dtype = torch.bfloat16
-        d, dk, dp = ((a - b).abs() for a, b in ((p_k, p_plain), (p_k, p_32), (p_plain, p_32)))
-        dmax, dmean = d.max().item(), d.mean().item()
-        ratio = (dk.max().item() / dp.max().item(), dk.mean().item() / dp.mean().item())
         two = net.conv_per_stage == 2
-        if not (torch.isfinite(p_k).all() and ratio[0] <= VARIANT_FP32_RATIO[0]
-                and ratio[1] <= VARIANT_FP32_RATIO[1]
-                and (not two or (dmax <= PROB_BOUND and dmean <= PROB_BOUND_MEAN))):
-            raise AssertionError(f"14d {name}: tile |dp| vs plain bf16 max {dmax:.3e}, mean "
-                                 f"{dmean:.3e}; vs fp32 kernels / plain bf16 {ratio}")
+        dmax, dmean, ratio = _variant_tile(f"14d {name}", t, batch, plain_bounds=two)
         over = t.network_overrides()
         results[name] = {"launches": launches, "step_s": _median(t.step_seconds[1:]),
                          "dp_max": dmax, "dp_mean": dmean, "fp32_ratio": ratio}
@@ -4131,6 +4167,349 @@ def phase_variants(workdir: str, generic: dict) -> dict:
         del t, net
     torch.cuda.empty_cache()
     return results
+
+
+def _variant_tile(label: str, t, batch, plain_bounds: bool) -> tuple:
+    """The softmax probabilities of the first sample of a validation batch
+    (the validation step's crop) through trainer t's network on the kernels
+    in bf16, against the plain bf16 path and the plain fp32 network: raises
+    unless the kernels' |dp| from fp32 over the plain bf16 path's is within
+    VARIANT_FP32_RATIO (max, mean) and, with `plain_bounds`, the kernels'
+    |dp| from the plain bf16 path within phase 4's bounds. Returns (max,
+    mean) |dp| from the plain bf16 path and the ratios."""
+    import torch
+    net = t.network
+    x, _ = t._val_transform(t._to_device(batch["data"][:1]), t._to_device(batch["seg"][:1]))
+    net.eval()
+    with torch.no_grad():
+        p_k = torch.softmax(net(x), 1)
+        p_plain = torch.softmax(net(x, use_kernels=False), 1)
+        net.dtype = torch.float32  # the fp32 master weights, plain fp32 compute
+        p_32 = torch.softmax(net(x, use_kernels=False), 1)
+        net.dtype = torch.bfloat16
+    net.train()
+    d, dk, dp = ((a - b).abs() for a, b in ((p_k, p_plain), (p_k, p_32), (p_plain, p_32)))
+    dmax, dmean = d.max().item(), d.mean().item()
+    ratio = (dk.max().item() / dp.max().item(), dk.mean().item() / dp.mean().item())
+    if not (torch.isfinite(p_k).all() and ratio[0] <= VARIANT_FP32_RATIO[0]
+            and ratio[1] <= VARIANT_FP32_RATIO[1]
+            and (not plain_bounds or (dmax <= PROB_BOUND and dmean <= PROB_BOUND_MEAN))):
+        raise AssertionError(f"{label}: tile |dp| vs plain bf16 max {dmax:.3e}, mean "
+                             f"{dmean:.3e}; vs fp32 kernels / plain bf16 {ratio}")
+    return dmax, dmean, ratio
+
+
+def _cpu_optimizer(opt):
+    """The same optimizer on the CPU (fp32) over copies of opt's parameters,
+    their gradients and its state."""
+    import torch
+    params = []
+    for p in opt.params:
+        q = torch.nn.Parameter(p.detach().cpu().clone())
+        q.grad = None if p.grad is None else p.grad.detach().cpu().clone()
+        params.append(q)
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(v) for v in x)
+        return x
+
+    ref = type(opt)(params, **opt.config)
+    ref.load_state_dict(cpu(opt.state_dict()))
+    return ref
+
+
+def _zoo_train(name: str, plans_file: str, prep: str, folder: str) -> tuple:
+    """15a: trainer `name` on the plans, ZOO_STEPS steps through the trainer
+    API with every launch count set to 0 before and read after; a loss
+    variant's loss of step 1 recomputed on the CPU from the same outputs,
+    targets and extras, any other trainer's update of step 2 recomputed by
+    its optimizer on the CPU from the same parameters, state and gradients
+    (the card's update applied as `step` applies it). Returns (the trainer,
+    its pipelines stopped, and its readings)."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.train import TRAINERS
+    from multitalent_tpu_torch.training.variants import _LossVariant
+    t = TRAINERS[name](plans_file, 0, folder, prep, batch_dice=False, stage=0, device="cuda")
+    checks = {}
+
+    def install() -> None:
+        loss_fn, step = t.loss_fn, t.optimizer.step
+
+        def checked_loss(outputs, targets, extras):
+            loss, aux = loss_fn(outputs, targets, extras)
+            if t.step == 0 and "loss" not in checks:
+                cpu = [[x.detach().cpu() for x in xs] for xs in (outputs, targets)]
+                ref, _ = loss_fn(*cpu, {k: v.cpu() for k, v in extras.items()})
+                checks["loss"] = (loss.item(), ref.item())
+            return loss, aux
+
+        def checked_step(lr):
+            if t.step != 1:
+                return step(lr)
+            _, expect = _cpu_optimizer(t.optimizer).updates(lr)
+            norm, got = t.optimizer.updates(lr)
+            err = scale = 0.0
+            for p, u, v in zip(t.optimizer.params, got, expect):
+                if u is not None:
+                    with torch.no_grad():
+                        p.add_(u)
+                    err = max(err, (u.cpu() - v).abs().max().item())
+                    scale = max(scale, v.abs().max().item())
+            checks["update"] = (err, scale, lr)
+            return norm
+
+        if isinstance(t, _LossVariant):
+            t.loss_fn = checked_loss
+        else:
+            t.optimizer.step = checked_step
+
+    def steps():
+        t.initialize(True)
+        install()
+        return [t.run_iteration(t.tr_gen) for _ in range(ZOO_STEPS)]
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    losses, launches = _run_counted(steps)
+    batch = next(t.val_gen)
+    t.tr_gen.stop()
+    t.val_gen.stop()
+    expect = _expect(t.network.kernel_launches_per_step(), ZOO_STEPS)
+    if launches != expect or not np.isfinite(losses).all():
+        raise AssertionError(f"15a {name}: launches {launches}, expected {expect}, losses "
+                             f"{losses}")
+    # the step without a CPU check: a loss variant's second, another's first
+    unchecked = t.step_seconds[1 if isinstance(t, _LossVariant) else 0]
+    out = {"launches": launches, "losses": losses, "wall_s": time.perf_counter() - t0,
+           "step_s": list(t.step_seconds), "unchecked_step_s": unchecked,
+           "optimizer": type(t.optimizer).__name__, "lr": t.lr_schedule(0)}
+    if "loss" in checks:
+        card, cpu = checks["loss"]
+        out["loss_rel"] = abs(card - cpu) / abs(cpu)
+        if not out["loss_rel"] <= ZOO_LOSS_RTOL:
+            raise AssertionError(f"15a {name}: step 1's loss {card} on the card, {cpu} on the "
+                                 f"CPU")
+    elif "update" in checks:
+        err, scale, _ = checks["update"]
+        out["update_rel"] = err / scale
+        if not (scale > 0 and out["update_rel"] <= ZOO_UPDATE_RTOL):
+            raise AssertionError(f"15a {name}: step 2's update off the CPU's by {err:.3e} of "
+                                 f"max {scale:.3e}")
+    else:
+        raise AssertionError(f"15a {name}: neither check ran")
+    return t, batch, out
+
+
+def _zoo_conv_relu_in(t, batch, name: str) -> dict:
+    """15b: a validation tile through the kernels against the plain fp32
+    network; under MTTPU_FUSED_NORM=1 / MTTPU_FUSED_TRAIN=1 the forward
+    builders warn and hand back the network, whose forward launches A and B
+    as always and no D, E or F."""
+    import warnings
+    import torch
+    from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
+    net = t.network
+    dmax, dmean, ratio = _variant_tile(f"15b {name}", t, batch, plain_bounds=False)
+    x, _ = t._val_transform(t._to_device(batch["data"][:1]), t._to_device(batch["seg"][:1]))
+    fused = {}
+    for switch, make in (("MTTPU_FUSED_NORM", make_inference_forward),
+                         ("MTTPU_FUSED_TRAIN", make_train_forward)):
+        with _env(**{switch: "1"}), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            forward = make(net)
+        warned = any("runs its own forward" in str(w.message) for w in caught)
+        net.eval()
+        with torch.no_grad():
+            _, launches = _run_counted(lambda: forward(x))
+        net.train()
+        expect = _expect(net.kernel_launches_per_forward(), 1)
+        if forward is not net or not warned or launches != expect:
+            raise AssertionError(f"15b {name} {switch}=1: fused route taken "
+                                 f"{forward is not net}, warned {warned}, launches {launches}")
+        fused[switch] = {k: v for k, v in launches.items() if v}
+    return {"dp_max": dmax, "dp_mean": dmean, "fp32_ratio": ratio, "fused_switches": fused}
+
+
+def _zoo_predict(t, name: str, generic: dict, results: str, workdir: str) -> dict:
+    """15b: the trainer's folder (fold_0's final checkpoint) restored and
+    `cli.predict -tr name` of 10a's held-out raw case, exact launches."""
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpoint_files
+    t.save_checkpoint(os.path.join(t.output_folder, "model_final_checkpoint.model"))
+    restored = load_model_and_checkpoint_files(t.output_folder_base, [0],
+                                               device="cuda").networks[0]
+    sd = t.network.state_dict()
+    if not (restored.nonlin_first and restored.state_dict().keys() == sd.keys()
+            and all(v.float().equal(sd[k].float()) for k, v in restored.state_dict().items())):
+        raise AssertionError(f"15b {name}: the restored network differs")
+    out = os.path.join(workdir, "zoo_predicted")
+    t0 = time.perf_counter()
+    with _env(**{**generic["env"], "RESULTS_FOLDER": results}):
+        timings, launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", "Task003_Liver",
+             "-m", "3d_fullres", "-tr", name, "-f", "0", "--device", "cuda"]))
+    seconds = time.perf_counter() - t0
+    calls = sum(x["net_calls"] for x in timings)
+    expect = _expect(restored.kernel_launches_per_forward(), calls)
+    if launches != expect:
+        raise AssertionError(f"15b {name} predict: launches {launches}, expected {expect}")
+    labels, shape = _check_prediction(out, generic["held_out"])
+    return {"predict_launches": launches, "predict_s": seconds, "labels": labels,
+            "shape": shape}
+
+
+def _zoo_resample33(t) -> dict:
+    """15c: validation of the trainer's fold (its one case) with the
+    export's probabilities and arguments recorded; the labels against the
+    same export of those probabilities run again on the CPU."""
+    import numpy as np
+    from multitalent_tpu_torch.inference import validation
+    from multitalent_tpu_torch.io import read_nifti
+    save, calls = validation.save_segmentation_nifti_from_softmax, []
+
+    def recorded(probs, fname, properties, order, *args):
+        calls.append((probs.copy(), fname, properties, order, args))
+        return save(probs, fname, properties, order, *args)
+
+    validation.save_segmentation_nifti_from_softmax = recorded
+    try:
+        _, launches = _run_counted(lambda: t.validate(save_softmax=False,
+                                                      run_postprocessing_on_folds=False))
+    finally:
+        validation.save_segmentation_nifti_from_softmax = save
+    net_calls = sum(x["net_calls"] for x in t.validation_timings)
+    expect = _expect(t.network.kernel_launches_per_forward(), net_calls)
+    if len(calls) != 1 or launches != expect:
+        raise AssertionError(f"15c: {len(calls)} exports, launches {launches}, expected "
+                             f"{expect}")
+    probs, fname, properties, order, args = calls[0]
+    again = fname[:-7] + "_cpu.nii.gz"
+    save(probs, again, properties, order, *args)
+    a, _ = read_nifti(fname)
+    b, _ = read_nifti(again)
+    force_sep_z, order_z = args[-2], args[-1]
+    if not (np.array_equal(a, b) and (order, force_sep_z, order_z) == (3, False, 3)):
+        raise AssertionError(f"15c: labels equal {np.array_equal(a, b)}, export order "
+                             f"{(order, force_sep_z, order_z)}")
+    return {"export": {"interpolation_order": order, "force_separate_z": force_sep_z,
+                       "interpolation_order_z": order_z}, "shape": a.shape,
+            "labels": sorted(np.unique(a).tolist()), "validation_s": t.validation_seconds,
+            "launches": launches}
+
+
+def phase_zoo(workdir: str, generic: dict, two_d: dict) -> dict:
+    """15a-15c: every trainer of ZOO_TRAINERS on 10a's Liver plans and
+    phantoms (_zoo_train), ZOO_2D_TRAINER on 14c's 2D plan (no hand-written
+    kernel: cuDNN), the convReLUIN networks' tile and fused switches
+    (_zoo_conv_relu_in), ZOO_PREDICTED's folder through cli.predict
+    (_zoo_predict), `_resample33`'s validation (_zoo_resample33)."""
+    import torch
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    prep = os.path.join(generic["env"]["nnUNet_preprocessed"], "Task003_Liver")
+    plans_file = os.path.join(prep, f"{default_plans_identifier}_plans_3D.pkl")
+    results = os.path.join(workdir, "zoo_results")
+    runs = [(n, plans_file, prep, "3d_fullres") for n in ZOO_TRAINERS]
+    runs.append((ZOO_2D_TRAINER, two_d["plans_file"], two_d["prep"], "2d"))
+    out = {}
+    for name, pfile, pdir, network in runs:
+        folder = os.path.join(results, "nnUNet", network, "Task003_Liver",
+                              f"{name}__{default_plans_identifier}")
+        t, batch, r = _zoo_train(name, pfile, pdir, folder)
+        if network == "2d" and (t.threeD or t.optimizer.momentum != 0.9):
+            raise AssertionError(f"15a {name}: threeD {t.threeD}, momentum "
+                                 f"{t.optimizer.momentum}")
+        if "convReLUIN" in name:
+            r.update(_zoo_conv_relu_in(t, batch, name))
+        if name == ZOO_PREDICTED:
+            r.update(_zoo_predict(t, name, generic, results, workdir))
+        if name == "nnUNetTrainerV2_resample33":
+            r["validation"] = _zoo_resample33(t)
+        check = (f"loss vs CPU {r['loss_rel']:.2e}, step 1 with the CPU loss" if "loss_rel" in r
+                 else f"step-2 update vs CPU {r['update_rel']:.2e} of max, step 2 with the CPU "
+                      f"optimizer")
+        print(f"15a {name} ({type(t).__name__}, {r['optimizer']}, lr at step 0 {r['lr']:.3g}"
+              f"{', overrides ' + str(t.network_overrides()) if t.network_overrides() else ''}"
+              f"): losses {[round(v, 4) for v in r['losses']]}, {check}, seconds per step "
+              f"{', '.join(f'{v:.3f}' for v in r['step_s'])} ({r['wall_s']:.1f} s with set-up); "
+              f"launches { {k: v for k, v in r['launches'].items() if v} }")
+        if "fp32_ratio" in r:
+            print(f"15b {name}: tile kernels vs plain bf16 |dp| max {r['dp_max']:.3e}, mean "
+                  f"{r['dp_mean']:.3e}; vs the fp32 network kernels / plain bf16 max "
+                  f"{r['fp32_ratio'][0]:.3f}, mean {r['fp32_ratio'][1]:.3f} (bounds "
+                  f"{VARIANT_FP32_RATIO}); under each fused switch: warned, its own forward, "
+                  f"launches {r['fused_switches']}")
+        if "predict_launches" in r:
+            print(f"15b {name}: restored bit-equal; cli.predict of the held-out case "
+                  f"{r['predict_s']:.2f} s, shape {r['shape']}, labels {r['labels']}, launches "
+                  f"{ {k: v for k, v in r['predict_launches'].items() if v} }")
+        if "validation" in r:
+            v = r["validation"]
+            print(f"15c {name}: validation of 1 case {v['validation_s']:.2f} s, export "
+                  f"{v['export']}, labels {v['labels']} at {v['shape']} equal to the CPU "
+                  f"export of the same probabilities; launches "
+                  f"{ {k: c for k, c in v['launches'].items() if c} }")
+        out[name] = r
+        del t, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_schedules(generic: dict) -> dict:
+    """15d (host): the LR each schedule variant's optimizer takes at the
+    first step of each of ZOO_EPOCHS (1000 epochs of 250 steps; the plateau
+    trainers driven epoch by epoch by a train-loss moving average falling
+    1e-2 an epoch for 10 epochs, then flat) and the momentum of the
+    momentum reduction at ZOO_MOMENTUM_EPOCHS, set as each epoch ends."""
+    import torch
+    from multitalent_tpu_torch.cli.train import TRAINERS
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    plans_file = os.path.join(generic["env"]["nnUNet_preprocessed"], "Task003_Liver",
+                              f"{default_plans_identifier}_plans_3D.pkl")
+
+    def trainer(name):
+        t = TRAINERS[name](plans_file, 0, device="cpu")
+        t.load_plans_file()
+        t.process_plans(t.plans)
+        t.network = torch.nn.Linear(1, 1)
+        t.optimizer, t.lr_schedule = t.initialize_optimizer()
+        return t
+
+    tables = {}
+    with _env(MTTPU_MAX_EPOCHS="1000", MTTPU_ITERS_PER_EPOCH="250"):
+        for name in ("nnUNetTrainerV2_cycleAtEnd", "nnUNetTrainerV2_cycleAtEnd2",
+                     "nnUNetTrainerV2_SGD_fixedSchedule2"):
+            t = trainer(name)
+            tables[name] = {e: t.lr_schedule(e * t.num_batches_per_epoch) for e in ZOO_EPOCHS}
+        for name in ("nnUNetTrainerV2_SGD_ReduceOnPlateau",
+                     "nnUNetTrainerV2_Adam_ReduceOnPlateau"):
+            t = trainer(name)
+            t.print_to_log_file = lambda *args, **kwargs: None  # a line a reduction
+            table = {}
+            for e in range(max(ZOO_EPOCHS) + 1):
+                if e in ZOO_EPOCHS:
+                    table[e] = t.lr_schedule(e * t.num_batches_per_epoch)
+                t.train_loss_MA = 1.0 - 1e-2 * min(e, 10)
+                t.maybe_update_lr()
+            tables[name] = table
+        t = trainer("nnUNetTrainerV2_reduceMomentumDuringTraining")
+        momentum = {}
+        for e in ZOO_MOMENTUM_EPOCHS:
+            t.epoch = e
+            t.maybe_update_lr()
+            momentum[e] = t.optimizer.momentum
+    for name, table in tables.items():
+        print(f"15d {name}: LR at the epochs' first steps "
+              + ", ".join(f"{e} {v:.4e}" for e, v in table.items()))
+    print("15d nnUNetTrainerV2_reduceMomentumDuringTraining: momentum set at the end of "
+          "epoch " + ", ".join(f"{e} {m:.4f}" for e, m in momentum.items()))
+    if [round(m, 12) for m in momentum.values()] != [0.99, 0.945, 0.9]:
+        raise AssertionError(f"15d momentum {momentum}")
+    return {"lr": tables, "momentum": momentum}
 
 
 def _bound(nbytes: float, bf16_flops: float = 0.0, fp32_flops: float = 0.0) -> dict:
@@ -4555,6 +4934,8 @@ def main() -> int:
                            raw_generic)
         two_d = timed("14c 2D", phase_2d, workdir, raw_generic)
         variants = timed("14d variants", phase_variants, workdir, raw_generic)
+        zoo = timed("15a-c trainer zoo", phase_zoo, workdir, raw_generic, two_d)
+        zoo_schedules = timed("15d schedules", phase_zoo_schedules, raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4755,6 +5136,10 @@ def main() -> int:
     for row in rows:
         row["launches_variants"] = sum(v["launches"].get(row["name"], 0)
                                        for v in variants.values())
+        row["launches_zoo"] = sum(r[key].get(row["name"], 0) for r in zoo.values()
+                                  for key in ("launches", "predict_launches") if key in r) + sum(
+            r["validation"]["launches"].get(row["name"], 0) for r in zoo.values()
+            if "validation" in r)
     lr = liver["runs"]
     print("summary, Liver (phase 3c): seconds per case " + ", ".join(
         f"{k} {lr[k]['seconds_per_case']:.2f} (predict {lr[k]['predict_s']:.2f}, export "
@@ -4872,6 +5257,16 @@ def main() -> int:
           + "; variants seconds per step " + ", ".join(
               f"{k.removeprefix('nnUNetTrainerV2_')} {v['step_s']:.3f}"
               for k, v in variants.items()) + f"; on {smi}")
+    loss_rel = [r["loss_rel"] for r in zoo.values() if "loss_rel" in r]
+    update_rel = [r["update_rel"] for r in zoo.values() if "update_rel" in r]
+    print(f"summary, the trainer zoo (phase 15): {len(zoo)} trainers, {ZOO_STEPS} steps each, "
+          f"seconds of the step without a CPU check " + ", ".join(
+              f"{k.removeprefix('nnUNetTrainerV2_')} {v['unchecked_step_s']:.3f}"
+              for k, v in zoo.items())
+          + f"; loss vs CPU fp32 max {max(loss_rel):.2e} (bound {ZOO_LOSS_RTOL}); step-2 update "
+          f"vs CPU fp32 max {max(update_rel):.2e} of max |update| (bound {ZOO_UPDATE_RTOL}); "
+          f"A/B/C over 15a-c {rows[0]['launches_zoo']}/{rows[1]['launches_zoo']}/"
+          f"{rows[2]['launches_zoo']}; 15d momentum {zoo_schedules['momentum']}; on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -29,8 +29,12 @@ trainers postprocessing.json unless --disable_postprocessing_on_folds;
                                    validation raises NotImplementedError, as the JAX
                                    CLI's raises a ValueError (neither predicts 2D)
     ... 3d_fullres nnUNetTrainerV2_GN TASK 0                 a variant trainer
-                                   (training/variants.py); nnUNetTrainerV2_fp32 (or
-                                   --fp32) computes in fp32 on the kernels' fp32 forms
+                                   (training/variants.py: networks, augmentation,
+                                   losses, optimizers, schedules, e.g.
+                                   nnUNetTrainerV2_Loss_DiceTopK10, _Ranger,
+                                   _reduceMomentumDuringTraining, _lReLU_convReLUIN);
+                                   nnUNetTrainerV2_fp32 (or --fp32) computes in
+                                   fp32 on the kernels' fp32 forms
 
 After 3d_lowres (and its validation) the CLI loads the fold's best
 checkpoint and writes the next stage's input, every case's labelmap resampled

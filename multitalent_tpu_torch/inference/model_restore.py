@@ -40,8 +40,9 @@ expansion ratios, block counts and kernel read from the weights. The
 trainer named in the sidecar fixes the head: the MultiTalent trainers
 predict 47 sigmoid regions, the others a softmax over the plans' classes.
 It also fixes a GenericUNet's variant (training/variants.py): batch and
-instance norm weights have the same keys, so the nearest trainer name the
-port knows gives the network_overrides it is built with. A 2D plan restores
+instance norm weights have the same keys, and so have the conv -> nonlin ->
+norm blocks of the convReLUIN trainers, so the nearest trainer name the port
+knows gives the network_overrides it is built with. A 2D plan restores
 a 2D network (which nothing predicts with: inference/predict.py refuses it).
 """
 from __future__ import annotations
@@ -225,23 +226,15 @@ def _mednext_from_weights(state_dict: dict, num_classes: int, dtype: torch.dtype
                    do_res_up_down="down0.res_conv.weight" in state_dict, dtype=dtype)
 
 
-# trainer variants whose networks the port does not build (ROADMAP queue 1,
-# item 10e): the conv -> nonlin -> norm block order
-UNPORTED_NETWORK_TRAINERS = ("nnUNetTrainerV2_ReLU_convReLUIN", "TrainerV2ReLUConvReLUIN",
-                             "nnUNetTrainerV2_lReLU_convReLUIN", "TrainerV2LReLUConvReLUIN")
-
-
 def network_overrides_of(names, plans: Plans, stage: int) -> dict:
     """The GenericUNet overrides of the nearest trainer of `names` (nearest
-    first) that the port's variant zoo knows, {} where none is a variant;
-    raises for a variant whose network is not ported."""
+    first) that the port's variant zoo knows (a convReLUIN trainer's
+    `nonlin_first` among them), {} where none is a variant: the loss,
+    optimizer and schedule variants build TrainerV2's network."""
     from multitalent_tpu_torch.training.variants import VARIANT_ALIASES
     known = {n: cls for cls, aliases in VARIANT_ALIASES.items()
              for n in (cls.__name__, *aliases)}
     for n in names:
-        if n in UNPORTED_NETWORK_TRAINERS:
-            raise NotImplementedError(f"{n}: its conv -> nonlin -> norm network is not "
-                                      "ported (ROADMAP queue 1, item 10e)")
         if n in known:
             return known[n].network_overrides_for(plans, stage)
     return {}

@@ -31,6 +31,11 @@ copy.
 The norm is plain torch by default; MTTPU_PALLAS_NORM=1 runs it on kernel
 E (ops/fused_norm.py), without a backward.
 
+`nonlin_first` (the convReLUIN variants, blocks.py:174,195-197 of the JAX
+package; the reference's ConvDropoutNonlinNorm) turns a block into conv ->
+activation -> norm; its conv still takes kernel A or B, its activation and
+norm stay plain torch (kernel E fuses only norm -> LeakyReLU).
+
 bf16 rounding differs from the JAX package in one place: the kernels add the
 bias in fp32 and round once, where JAX rounds the conv output to bf16 and adds
 a bf16 bias (packed_unet.py:51-53). An fp32 network runs the kernels' fp32
@@ -385,7 +390,8 @@ def fp32_forms(counts: dict[str, int]) -> dict[str, int]:
 
 
 class ConvDropoutNormNonlin(nn.Module):
-    """conv -> norm -> activation (InstanceNorm -> LeakyReLU by default).
+    """conv -> norm -> activation (InstanceNorm -> LeakyReLU by default), or
+    with `nonlin_first` conv -> activation -> norm (ConvDropoutNonlinNorm).
     `in_splits` = (Ca, Cb) makes the conv read concat(a, b) from two tensors
     (kernel B). The norm is registered as `norm_name`: `instnorm` in the
     GenericUNet (whatever its kind, as the reference names it), `norm` in the
@@ -394,12 +400,14 @@ class ConvDropoutNormNonlin(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3, 3),
                  stride=None, in_splits: tuple[int, int] | None = None,
                  negative_slope: float = 1e-2, norm_name: str = "instnorm",
-                 norm: str = "instance", nonlin: str = "leaky_relu"):
+                 norm: str = "instance", nonlin: str = "leaky_relu",
+                 nonlin_first: bool = False):
         super().__init__()
         self.conv = make_conv(in_channels, out_channels, kernel_size, stride, in_splits)
         self.norm_name = norm_name
         self.norm_kind = norm
         self.nonlin = nonlin
+        self.nonlin_first = nonlin_first
         module = norm_module(norm, out_channels, len(tuple(kernel_size)))
         if module is not None:
             self.add_module(norm_name, module)
@@ -417,8 +425,13 @@ class ConvDropoutNormNonlin(nn.Module):
                 use_kernels: bool = True) -> torch.Tensor:
         """x (N, C, Z, Y, X). For a two-input block `skip` is the second
         input. use_kernels=False runs the kernels' plain versions."""
-        return normalize(self.conv(x, skip, use_kernels=use_kernels), self.norm_kind,
-                         getattr(self, self.norm_name, None), self.nonlin, self.negative_slope)
+        y = self.conv(x, skip, use_kernels=use_kernels)
+        norm = getattr(self, self.norm_name, None)
+        if self.nonlin_first:
+            # the norm then runs without an activation of its own (FRN keeps its TLU)
+            return normalize(activate(y, self.nonlin, self.negative_slope), self.norm_kind,
+                             norm, "none")
+        return normalize(y, self.norm_kind, norm, self.nonlin, self.negative_slope)
 
 
 class StackedConvLayers(nn.Module):

@@ -19,9 +19,13 @@ A 2D plan (kernel sizes of two axes) builds the same network of rank 2:
 Conv2d blocks on cuDNN, ConvTranspose2d, 1x1 heads, max 480 features
 (`build_unet_from_plans`, as generic_unet.py:171 of the JAX package). The
 architectural variants' knobs of the JAX GenericUNet (`norm`, `nonlin`,
-`negative_slope`, `seg_output_bias`, and through the plans' overrides
-`conv_per_stage`, `base_num_features`, `conv_kernel_sizes`) build their
-blocks (models/blocks.py); a norm's parameters keep the `instnorm` key.
+`negative_slope`, `seg_output_bias`, `nonlin_first`, and through the plans'
+overrides `conv_per_stage`, `base_num_features`, `conv_kernel_sizes`) build
+their blocks (models/blocks.py); a norm's parameters keep the `instnorm`
+key. `nonlin_first` (conv -> activation -> norm) reaches the encoder and
+decoder stages; the bottleneck keeps norm -> activation, as the JAX module
+builds it (generic_unet.py:90-106,136 of the JAX package), where the
+reference's basic_block would reorder it too.
 
 The forward returns the full-resolution logits in fp32, or with
 `deep_supervision=True` (training) one fp32 logit map per decoder level,
@@ -51,7 +55,8 @@ class GenericUNet(nn.Module):
                  pool_op_kernel_sizes, conv_kernel_sizes, conv_per_stage: int = 2,
                  max_num_features: int = 320, dtype: torch.dtype = torch.bfloat16,
                  norm: str = "instance", nonlin: str = "leaky_relu",
-                 negative_slope: float = 1e-2, seg_output_bias: bool = False):
+                 negative_slope: float = 1e-2, seg_output_bias: bool = False,
+                 nonlin_first: bool = False):
         super().__init__()
         pools = [tuple(int(k) for k in p) for p in pool_op_kernel_sizes]
         kernels = [tuple(int(k) for k in c) for c in conv_kernel_sizes]
@@ -70,17 +75,19 @@ class GenericUNet(nn.Module):
         self.dtype = dtype
         self.norm, self.nonlin, self.negative_slope = norm, nonlin, negative_slope
         self.seg_output_bias = seg_output_bias
+        self.nonlin_first = nonlin_first
         self.conv_per_stage = conv_per_stage
         feats = compute_stage_features(base_num_features, self.num_pool + 1,
                                        max_num_features)
         self.features = feats
         block = {"norm": norm, "nonlin": nonlin, "negative_slope": negative_slope}
+        stage = {**block, "nonlin_first": nonlin_first}  # not the bottleneck's
 
         context = []
         for d in range(self.num_pool):
             context.append(StackedConvLayers(
                 input_channels if d == 0 else feats[d - 1], feats[d], conv_per_stage,
-                kernels[d], first_stride=pools[d - 1] if d > 0 else None, **block))
+                kernels[d], first_stride=pools[d - 1] if d > 0 else None, **stage))
         p = self.num_pool
         context.append(nn.Sequential(
             StackedConvLayers(feats[p - 1], feats[p], conv_per_stage - 1, kernels[p],
@@ -100,8 +107,8 @@ class GenericUNet(nn.Module):
             same3 = k == (3, 3, 3)
             loc.append(nn.Sequential(
                 StackedConvLayers(2 * f_skip, f_skip, conv_per_stage - 1, k,
-                                  in_splits=(f_skip, f_skip) if same3 else None, **block),
-                StackedConvLayers(f_skip, f_skip, 1, k, **block)))
+                                  in_splits=(f_skip, f_skip) if same3 else None, **stage),
+                StackedConvLayers(f_skip, f_skip, 1, k, **stage)))
             seg.append(head(f_skip, num_classes, 1, bias=seg_output_bias))
         self.tu = nn.ModuleList(tu)
         self.conv_blocks_localization = nn.ModuleList(loc)
@@ -208,8 +215,8 @@ def build_unet_from_plans(plans, stage: int, num_classes: int | None = None,
     max 320 features in 3D, 480 in 2D); `input_channels` defaults to the
     plans' modalities (the cascade's full-resolution stage adds the previous
     stage's one-hots). `overrides` are a variant trainer's network_overrides
-    (norm, nonlin, negative_slope, seg_output_bias, conv_per_stage,
-    base_num_features, conv_kernel_sizes); `deep_supervision` among them is
+    (norm, nonlin, negative_slope, seg_output_bias, nonlin_first,
+    conv_per_stage, base_num_features, conv_kernel_sizes); `deep_supervision` among them is
     dropped, the port's deep supervision being an argument of the forward."""
     st = plans.stage(stage)
     kwargs = dict(

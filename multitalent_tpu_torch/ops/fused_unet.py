@@ -184,11 +184,16 @@ def _forward(net, x, deep_supervision: bool, train: bool, use_kernels: bool):
 
 def _fusable(net, switch: str) -> bool:
     """Whether the fused route takes `net`: only a 3D GenericUNet of
-    InstanceNorm and LeakyReLU (its negative slope and head bias as they
-    are), as the JAX package packs and fuses only those (packed_unet.py:
-    541-547,852-857,893-897: norm instance, nonlin leaky_relu, no dropout);
-    any other network runs its own forward, which a warning says (once per
-    call site, Python's default). Kernels D, E and F take bf16: an fp32
+    InstanceNorm and LeakyReLU in that order (its negative slope and head
+    bias as they are), as the JAX package packs and fuses only those
+    (packed_unet.py: 541-547,852-857,893-897: norm instance, nonlin
+    leaky_relu, no dropout); any other network runs its own forward, which a
+    warning says (once per call site, Python's default). A `nonlin_first`
+    network (conv -> activation -> norm, the convReLUIN variants) is refused
+    too: the JAX package's `packable` test never looks at the block order
+    (packed_unet.py:852-857), so its packed route would train
+    `_lReLU_convReLUIN` as norm -> activation; the port does not inherit
+    that. Kernels D, E and F take bf16: an fp32
     network on the card under the switch raises, never taking the unfused
     route quietly (on the CPU the route runs the kernels' plain versions,
     which compute fp32 as the JAX package's fused route does)."""
@@ -201,6 +206,11 @@ def _fusable(net, switch: str) -> bool:
                       f"and LeakyReLU, as the JAX package packs only those; this {net.ndim}D "
                       f"one of norm {net.norm!r} and nonlin {net.nonlin!r} runs its own "
                       "forward", stacklevel=3)
+        return False
+    if net.nonlin_first:
+        warnings.warn(f"{switch}=1: the fused route computes norm -> LeakyReLU; this "
+                      "GenericUNet of conv -> nonlin -> norm blocks (nonlin_first) runs its "
+                      "own forward", stacklevel=3)
         return False
     if net.dtype != torch.bfloat16 and any(p.is_cuda for p in net.parameters()):
         raise NotImplementedError(

@@ -280,11 +280,15 @@ class TrainerV2(NetworkTrainerBase):
             dtype=torch.bfloat16 if self.fp16 else torch.float32,
             **self.network_overrides())
 
+    def sgd_momentum(self) -> float:
+        """The SGD's Nesterov momentum (the momentum variants change it)."""
+        return 0.99
+
     def initialize_optimizer(self):
         """(optimizer, step -> LR): SGD + clip under the poly staircase
         (trainers.py:225)."""
-        return (SGDClipped(self.network.parameters(), momentum=0.99, nesterov=True,
-                           weight_decay=self.weight_decay, clip_norm=12.0),
+        return (SGDClipped(self.network.parameters(), momentum=self.sgd_momentum(),
+                           nesterov=True, weight_decay=self.weight_decay, clip_norm=12.0),
                 make_poly_schedule(self.initial_lr, self.max_num_epochs,
                                    self.num_batches_per_epoch))
 

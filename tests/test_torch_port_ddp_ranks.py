@@ -79,6 +79,38 @@ def train_runs(spec_file: str, out_prefix: str) -> None:
         torch.distributed.destroy_process_group()
 
 
+def loss_ranks(spec_file: str, out_prefix: str) -> None:
+    """This rank's row of the spec's logits and labels through the losses of
+    `LOSSES` with the process group: each loss's value and the gradient of
+    its logits, saved to `<out_prefix>.<rank>.pt`."""
+    from multitalent_tpu_torch.training import losses
+    torch.set_num_threads(1)
+    distributed.init_process_group("cpu")
+    try:
+        spec = torch.load(spec_file, weights_only=False)
+        rank, world = distributed.rank(), distributed.world_size()
+        out = {}
+        for name in spec["losses"]:
+            x = torch.from_numpy(spec["logits"][rank::world]).requires_grad_(True)
+            loss = getattr(losses, name)(x, torch.from_numpy(spec["labels"][rank::world]),
+                                         group=distributed.group())
+            loss.backward()
+            out[name] = {"value": loss.item(), "grad": x.grad.numpy()}
+        torch.save(out, f"{out_prefix}.{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_loss_ranks(logits, labels, folder, losses=("topk_cross_entropy", "gdl_loss"),
+                   world: int = 2) -> list[dict]:
+    """Spawn `world` gloo ranks, rank r taking rows r, r + world, ... of
+    (logits, labels), through `losses`; each rank's results."""
+    spec_file, prefix = os.path.join(folder, "loss_spec.pt"), os.path.join(folder, "loss")
+    torch.save({"logits": logits, "labels": labels, "losses": losses}, spec_file)
+    distributed.spawn(loss_ranks, world, (spec_file, prefix))
+    return [torch.load(f"{prefix}.{r}.pt", weights_only=False) for r in range(world)]
+
+
 def run_ranks(spec: dict, folder, world: int = 2) -> list[dict]:
     """Spawn `world` gloo ranks over `spec`; each rank's results."""
     spec_file, prefix = os.path.join(folder, "spec.pt"), os.path.join(folder, "ranks")

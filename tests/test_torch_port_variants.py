@@ -3,15 +3,17 @@ against the JAX package's.
 
 - Each network knob of the architectural variants (norm: batch, group, FRN,
   none; nonlin: ReLU, GELU, Mish; LeakyReLU slope 0.2; a head bias; 3 convs
-  a stage; base 24; all-3x3x3 kernels over anisotropic plans), as one case
+  a stage; base 24; all-3x3x3 kernels over anisotropic plans; conv ->
+  nonlin -> norm blocks with ReLU and with LeakyReLU), as one case
   of a parametrized test: the port's GenericUNet against the JAX GenericUNet
   with the same overrides, 3D, base 8 (GroupNorm's 8 groups divide it), two
   pools, 8^3, deep supervision, fp32, the JAX params carried over by
   io/from_jax.py (made from a seeded init with every norm parameter and
-  head bias moved off its init); batch norm also in eval mode (batch
-  statistics there too).
-- Every trainer name of the variants the port has resolves in the train
-  CLI's TRAINERS to the JAX class's name, and its network_overrides,
+  head bias moved off its init: the conv -> nonlin -> norm networks carry
+  the same keys); batch norm also in eval mode (batch statistics there
+  too).
+- Every trainer name of the variants resolves in the train CLI's TRAINERS
+  to the JAX class's name, and its network_overrides,
   augmentation parameters, generator patch size, initial LR, batch dice,
   fp16, deep supervision and its scales equal the JAX trainer's on the same
   plans; its network carries the overrides.
@@ -19,7 +21,8 @@ against the JAX package's.
   folder restore to the same network (its overrides from the trainer name,
   the weights bit-equal); the restored weights through
   io/torch_convert.py give the JAX network the same logits.
-- The fused switches leave a variant network on its own forward.
+- The fused switches leave a variant network on its own forward, a conv ->
+  nonlin -> norm one too (the JAX package's packed route would take it).
 
 Tolerances: logits atol 1e-4, rtol 1e-3 (fp32 convolutions summed in other
 orders through ~12 convs with norms between them, as
@@ -66,6 +69,8 @@ KNOBS = {
     "3conv": {"conv_per_stage": 3},
     "3conv_base24": {"conv_per_stage": 3, "base_num_features": 24},
     "all3x3": {"conv_kernel_sizes": KERNELS},
+    "nonlin_first": {"nonlin_first": True},
+    "relu_nonlin_first": {"nonlin": "relu", "nonlin_first": True},
 }
 
 
@@ -112,6 +117,10 @@ def test_network_knob_matches_jax(knob):
     jnet, params, net, x = _nets(overrides, kernels)
     assert (net.norm, net.nonlin) == (overrides.get("norm", "instance"),
                                       overrides.get("nonlin", "leaky_relu"))
+    first = overrides.get("nonlin_first", False)
+    encoder, bottleneck = net.encoder_stages()[:-1], net.encoder_stages()[-1]
+    assert all(b.nonlin_first == first for st in encoder + net.decoder_stages() for b in st)
+    assert not any(b.nonlin_first for b in bottleneck)  # norm -> nonlin, as the JAX module
     ref = jnet.apply({"params": params}, jnp.asarray(x), deep_supervision=True)
     for r, g in zip(ref, _logits(net, x), strict=True):
         np.testing.assert_allclose(g, np.asarray(r), **TOL)
@@ -147,6 +156,8 @@ VARIANTS = {
     "TrainerV2_3ConvPerStage": ("nnUNetTrainerV2_3ConvPerStage",),
     "TrainerV2_3ConvPerStageSameFilters": ("nnUNetTrainerV2_3ConvPerStageSameFilters",),
     "TrainerV2AllConv3x3": ("nnUNetTrainerV2_allConv3x3",),
+    "TrainerV2ReLUConvReLUIN": ("nnUNetTrainerV2_ReLU_convReLUIN",),
+    "TrainerV2LReLUConvReLUIN": ("nnUNetTrainerV2_lReLU_convReLUIN",),
     "TrainerV2FP32": ("nnUNetTrainerV2_fp32",),
     "TrainerV2NoDA": ("nnUNetTrainerV2_noDataAugmentation", "nnUNetTrainerV2_noDA",
                       "nnUNetTrainerNoDA"),
@@ -169,6 +180,43 @@ VARIANTS = {
     "TrainerV2_5epochsDummyCEnoDS": ("nnUNetTrainerV2_5epochs_dummyLoadCEnoDS",),
     "TrainerV2_5epochs": ("nnUNetTrainerV2_DDP_5epochs",),
     "TrainerV2_dummyLoad": ("nnUNetTrainerV2_DDP_5epochs_dummyLoad",),
+    # the loss, optimizer and schedule variants keep TrainerV2's network
+    "TrainerV2LossCE": ("nnUNetTrainerV2_Loss_CE", "nnUNetTrainerCE"),
+    "TrainerV2LossDice": ("nnUNetTrainerV2_Loss_Dice",),
+    "TrainerV2LossDiceBG": ("nnUNetTrainerV2_Loss_DicewithBG",),
+    "TrainerV2LossTopKOnly": ("nnUNetTrainerV2_Loss_TopK10",),
+    "TrainerV2LossTopK": ("nnUNetTrainerV2_Loss_CEandTopK10", "nnUNetTrainerV2_Loss_DiceTopK10"),
+    "TrainerV2FocalLoss": ("nnUNetTrainerV2_focalLoss",),
+    "TrainerV2GDL": ("nnUNetTrainerV2_GDL",),
+    "TrainerV2LossCEGDL": ("nnUNetTrainerV2_Loss_CEGDL",),
+    "TrainerV2LossMCC": ("nnUNetTrainerV2_Loss_MCC",),
+    "TrainerV2LossMCCnoBG": ("nnUNetTrainerV2_Loss_MCCnoBG",),
+    "TrainerV2LossSquaredDice": ("nnUNetTrainerV2_Loss_DC_CE_squared",
+                                 "nnUNetTrainerV2_SquaredDiceCE"),
+    "TrainerV2LossDiceSquared": ("nnUNetTrainerV2_Loss_Dice_squared",),
+    "TrainerV2LossDiceCENoSmooth": ("nnUNetTrainerV2_Loss_DiceCE_noSmooth",),
+    "TrainerV2CEtoDice": ("nnUNetTrainerV2_graduallyTransitionFromCEToDice",),
+    "TrainerV2Adam": ("nnUNetTrainerV2_Adam",),
+    "TrainerV2AdamTrainerLR": ("nnUNetTrainerV2_Adam_nnUNetTrainerlr",),
+    "TrainerV2ConstLR": ("nnUNetTrainerV2_SGD_fixedSchedule", "nnUNetTrainerV2_constLR"),
+    "TrainerV2Momentum09": ("nnUNetTrainerV2_momentum09",),
+    "TrainerV2Momentum095": ("nnUNetTrainerV2_momentum095",),
+    "TrainerV2Momentum098": ("nnUNetTrainerV2_momentum098",),
+    "TrainerV2Momentum09in2D": ("nnUNetTrainerV2_momentum09in2D",),
+    "TrainerV2Ranger": ("nnUNetTrainerV2_Ranger_lr3en4", "nnUNetTrainerV2_Ranger"),
+    "TrainerV2SGDlr1en1": ("nnUNetTrainerV2_SGD_lr1en1",),
+    "TrainerV2SGDlr1en3": ("nnUNetTrainerV2_SGD_lr1en3",),
+    "TrainerV2LossDiceLR1en3": ("nnUNetTrainerV2_Loss_Dice_LR1en3",),
+    "TrainerV2LossDiceBGLR1en3": ("nnUNetTrainerV2_Loss_DicewithBG_LR1en3",),
+    "TrainerV2Rangerlr1en2": ("nnUNetTrainerV2_Ranger_lr1en2",),
+    "TrainerV2Rangerlr3en3": ("nnUNetTrainerV2_Ranger_lr3en3",),
+    "TrainerV2CycleAtEnd": ("nnUNetTrainerV2_cycleAtEnd",),
+    "TrainerV2CycleAtEnd2": ("nnUNetTrainerV2_cycleAtEnd2",),
+    "TrainerV2SGDPlateau": ("nnUNetTrainerV2_SGD_ReduceOnPlateau",),
+    "TrainerV2AdamPlateau": ("nnUNetTrainerV2_Adam_ReduceOnPlateau",),
+    "TrainerV2FixedSchedule2": ("nnUNetTrainerV2_SGD_fixedSchedule2",),
+    "TrainerV2ReduceMomentum": ("nnUNetTrainerV2_reduceMomentumDuringTraining",),
+    "TrainerV2Resample33": ("nnUNetTrainerV2_resample33",),
 }
 NAMES = [(cls, name) for cls, aliases in VARIANTS.items() for name in (cls, *aliases)]
 
@@ -225,9 +273,11 @@ def test_variant_resolves_and_matches_the_jax_trainer(cls_name, name):
     over = p.network_overrides()
     assert isinstance(net, GenericUNet) and net.dtype == (torch.bfloat16 if p.fp16
                                                           else torch.float32)
-    assert (net.norm, net.nonlin, net.negative_slope, net.seg_output_bias) == (
+    assert (net.norm, net.nonlin, net.negative_slope, net.seg_output_bias,
+            net.nonlin_first) == (
         over.get("norm", "instance"), over.get("nonlin", "leaky_relu"),
-        over.get("negative_slope", 1e-2), over.get("seg_output_bias", False))
+        over.get("negative_slope", 1e-2), over.get("seg_output_bias", False),
+        over.get("nonlin_first", False))
     convs = sum(1 for k in net.state_dict() if k.endswith(".conv.weight"))
     assert convs == (2 * len(POOLS) + 1) * over.get("conv_per_stage", 2)
     assert net.features[0] == over.get("base_num_features", 16)
@@ -237,7 +287,8 @@ def test_variant_resolves_and_matches_the_jax_trainer(cls_name, name):
 
 RESTORED = ["nnUNetTrainerV2_GN", "TrainerV2FRN", "nnUNetTrainerV2_NoNormalization",
             "nnUNetTrainerV2_lReLU_biasInSegOutput", "nnUNetTrainerV2_3ConvPerStage",
-            "nnUNetTrainerV2_allConv3x3", "nnUNetTrainerV2_fp32"]
+            "nnUNetTrainerV2_allConv3x3", "nnUNetTrainerV2_fp32",
+            "nnUNetTrainerV2_ReLU_convReLUIN", "TrainerV2LReLUConvReLUIN"]
 
 
 @pytest.mark.parametrize("name", RESTORED)
@@ -255,8 +306,9 @@ def test_variant_folders_restore_the_same_network(tmp_path, name):
         save(folder, plans, [sd], name, fp16=fp16)
         restored = load_model_and_checkpoint_files(folder, device="cpu").networks[0]
         assert restored.dtype == (torch.bfloat16 if fp16 else torch.float32)
-        assert (restored.norm, restored.nonlin, restored.seg_output_bias) == (
-            net.norm, net.nonlin, net.seg_output_bias)
+        assert (restored.norm, restored.nonlin, restored.seg_output_bias,
+                restored.nonlin_first) == (net.norm, net.nonlin, net.seg_output_bias,
+                                           net.nonlin_first)
         assert restored.state_dict().keys() == sd.keys()
         assert all(torch.equal(restored.state_dict()[k], v) for k, v in sd.items())
     # the restored weights through the bridge give the JAX network the same logits
@@ -275,11 +327,13 @@ def test_variant_folders_restore_the_same_network(tmp_path, name):
 @pytest.mark.parametrize("switch", ["MTTPU_FUSED_NORM", "MTTPU_FUSED_TRAIN"])
 def test_fused_switch_leaves_a_variant_network_unfused(monkeypatch, switch):
     """The fused route takes what the JAX package packs: InstanceNorm and
-    LeakyReLU (any slope, a head bias); a batch-norm or a ReLU network under
-    the switch runs its own forward, and a warning says so."""
+    LeakyReLU (any slope, a head bias); a batch-norm, a ReLU or a conv ->
+    LeakyReLU -> InstanceNorm network (nonlin_first, which the JAX packed
+    route never checks) under the switch runs its own forward, and a warning
+    says so."""
     monkeypatch.setenv(switch, "1")
     make = make_inference_forward if switch == "MTTPU_FUSED_NORM" else make_train_forward
-    for over in ({"norm": "batch"}, {"nonlin": "relu"}):
+    for over in ({"norm": "batch"}, {"nonlin": "relu"}, {"nonlin_first": True}):
         net = GenericUNet(1, 8, K, POOLS, KERNELS, dtype=torch.float32, **over)
         with pytest.warns(UserWarning, match="runs its own forward"):
             assert make(net) is net
