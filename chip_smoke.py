@@ -211,7 +211,15 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    bit-equal, no hand-written kernel launched; 14d every network variant
    of VARIANT_TRAINERS (and _DA5, _noDA) 2 steps on 10a's plans with exact
    A/B/C counts, and a validation phantom's tile through the kernels
-   against the plain versions within phase 4's bounds;
+   against the plain versions within phase 4's bounds; 14a also holds the
+   fp32 forms of D (and its dual form), E (stats, apply) and F (32 -> 3)
+   against their plain fp32 versions at 32 channels, 128^3, N=2, with their
+   bounds and library calls (torch.var_mean, torch.matmul) or, for D, the
+   unfused fp32 route; 14b also runs `nnUNetTrainerV2_fp32` under
+   MTTPU_FUSED_TRAIN=1 and MTTPU_FUSED_NORM=1 (3 steps, validation) and
+   `cli.predict` under MTTPU_FUSED_NORM=1: exact launches of the fp32 forms
+   of D, E, F, A and C, no bf16 kernel, labels against the unfused fp32
+   prediction, one batch's loss fused vs unfused on the same weights;
 15. the rest of the trainer zoo (training/variants.py), through the trainer
    API on 10a's plans and phantoms: 15a every loss, optimizer, schedule and
    network variant (ZOO_TRAINERS; `_momentum09in2D` on 14c's 2D plan) 2
@@ -228,6 +236,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    probabilities, its export order printed; 15d the LR of the schedule
    variants and the momentum of `_reduceMomentumDuringTraining` at named
    epochs (host);
+16. the released-layout install (16a, right after 3b): phase 3's folder
+   zipped as the released Task100 zip, `cli.download_pretrained
+   install_zip` (the fixups' folder and sidecar), predict_multitalent from
+   the install (phase 3's launches, its NIfTIs byte-identical), export ->
+   install round trip, `cli.change_trainer` then restore; 16b on the host:
+   `cli.convert_multitalent_sources` on a synthetic download of each of the
+   7 tasks (Task062 from DICOM series), `cli.convert_decathlon_task` and
+   `cli.plot_task_pngs` of 10a's task; seconds by step;
 7. one JSON line describing every kernel (A-F and the probes'; the rows
    of A, B, C and D also list their phase-2 shapes (A's, B's and D's with
    their plans) and sum their times, and cuDNN's or the unfused route's,
@@ -248,7 +264,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c);
    every row phase 14d's `launches_variants` and phase 15a-c's
    `launches_zoo`; then the rows of the fp32
-   forms of A, B and C (14a's times, 14b's launches), then the result line.
+   forms of A, B and C (14a's times, 14b's launches) and of D, E and F (14a's
+   times, 14b's fused launches); A's and B's rows add phase 16a's
+   `launches_install`; then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -524,6 +542,13 @@ FP32_SHAPES = (("conv3d_same", (32,), 32), ("conv3d_same_dual", (32, 32), 32),
 FP32_SPATIAL = (128, 128, 128)
 FP32_RTOL = 1e-4
 FP32_ITERS = 10  # timed launches of each (the median is reported)
+# 14b fused: labels of the fused fp32 route's prediction equal to the
+# unfused fp32 route's on at least this share of the voxels; one batch's loss
+# through both routes on the same weights within this relative bound (fp32
+# sums in other orders through 22 convs)
+FP32_FUSED_AGREE = 0.9999
+SOURCE_SHAPE = (8, 24, 24)  # 16: each synthetic source volume (z, y, x)
+FP32_FUSED_LOSS_RTOL = 1e-4
 # 14b: nnUNetTrainerV2_fp32 through cli.train 3d_fullres on 10a's Liver
 # plans and phantoms; 14c: the 2D planner's plan of the same data at full
 # width (base 32, max 480) through the trainer API, TrainerV2 and the
@@ -1074,7 +1099,11 @@ def _kernel_counters() -> dict:
             "conv3d_same_wgrad_fp32": cv.conv3d_same_wgrad_fp32,
             "conv3d_same_affine": cv.conv3d_same_affine,
             "channel_stats": fn.channel_stats, "affine_lrelu": fn.affine_lrelu,
-            "seghead": sg.seghead, **conv_impl_arms.kernels(), **sparse_conv_arm.kernels(),
+            "seghead": sg.seghead,
+            "conv3d_same_affine_fp32": cv.conv3d_same_affine_fp32,
+            "channel_stats_fp32": fn.channel_stats_fp32,
+            "affine_lrelu_fp32": fn.affine_lrelu_fp32, "seghead_fp32": sg.seghead_fp32,
+            **conv_impl_arms.kernels(), **sparse_conv_arm.kernels(),
             **grid_overhead_probe.kernels()}
 
 
@@ -3923,6 +3952,417 @@ def phase_fp32_kernels() -> dict:
     return rows
 
 
+def _released_zip(model: str, path: str) -> None:
+    """A reference-layout model folder zipped in the released Task100 layout:
+    Task100_MultiTalent/MultiTalent_trainer__<plans>/fold_X/... (no
+    3d_fullres level, the trainer folder's old name, each sidecar naming the
+    stale trainer `MultiTalent_trainer`)."""
+    import pickle
+    import zipfile
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    base = f"Task100_MultiTalent/MultiTalent_trainer__{default_plans_identifier}"
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        for d, _, files in os.walk(model):
+            for f in files:
+                src = os.path.join(d, f)
+                name = f"{base}/{os.path.relpath(src, model)}"
+                if f.endswith(".model.pkl"):
+                    with open(src, "rb") as fh:
+                        meta = pickle.load(fh)
+                    z.writestr(name, pickle.dumps(dict(meta, name="MultiTalent_trainer")))
+                else:
+                    z.write(src, name)
+
+
+def _files(root: str) -> dict:
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def phase_install(workdir: str, main_path: dict) -> dict:
+    """16: the released-layout install on the card. Phase 3's flagship folder
+    zipped as the released Task100 zip, installed by `cli.download_pretrained
+    install_zip` into a fresh RESULTS_FOLDER (the fixups must leave
+    3d_fullres/Task100_MultiTalent/MultiTalent_trainer_ddp__<plans> with the
+    sidecar's name stamped), `cli.predict_multitalent` of phase 3's case from
+    it in phase 3's mode (A and B launches as phase 3's, every NIfTI
+    byte-identical to phase 3's), `cli.export_model` of it into a second zip
+    installed into a second folder (the same files), `cli.change_trainer` on
+    that install's sidecar (restore then names the new trainer); seconds by
+    step. It runs right after phase 3b, in phase 3's state (phase 16b,
+    phase_sources, runs the host steps after phase 10a)."""
+    import torch
+    from multitalent_tpu_torch.cli import change_trainer, download_pretrained, export_model
+    from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
+    from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
+                                                               read_model_folder)
+    from multitalent_tpu_torch.paths import default_plans_identifier
+    seconds = {}
+
+    def step(label, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    task_rel = os.path.join("3d_fullres", "Task100_MultiTalent",
+                            f"MultiTalent_trainer_ddp__{default_plans_identifier}")
+    zpath = os.path.join(workdir, "Task100_MultiTalent.zip")
+    step("zip", _released_zip, os.path.join(workdir, "model"), zpath)
+    first, second = (os.path.join(workdir, f"installed_{i}") for i in (1, 2))
+    with _env(RESULTS_FOLDER=first):
+        step("install", download_pretrained.main, ["install_zip", zpath])
+    installed = os.path.join(first, "nnUNet", task_rel)
+    names = read_model_folder(installed)[3]
+    if (names != ["MultiTalent_trainer_ddp"]
+            or os.path.isdir(os.path.join(first, "nnUNet", "Task100_MultiTalent"))):
+        raise AssertionError(f"16: the fixups left {os.listdir(os.path.join(first, 'nnUNet'))}, "
+                             f"sidecar names {names}")
+    out = os.path.join(workdir, "out_installed")
+    with _env(MTTPU_SW_EXACT="1", MTTPU_FUSED_NORM="0"):
+        t0 = time.perf_counter()
+        _, launches = _run_counted(lambda: predict_main(
+            ["-i", os.path.join(workdir, "in"), "-o", out, "-m", installed, "--device", "cuda"]))
+        seconds["predict"] = time.perf_counter() - t0
+    if launches != main_path["launches"]:
+        raise AssertionError(f"16a predict: launches {launches}, phase 3's "
+                             f"{main_path['launches']}")
+    same = _same_nifti_bytes(out, main_path["out"])
+    zpath2 = os.path.join(workdir, "exported.zip")
+    with _env(RESULTS_FOLDER=first):
+        step("export", export_model.main, ["-t", "100", "-o", zpath2, "-m", "3d_fullres", "-tr",
+                                           "MultiTalent_trainer_ddp", "-f", "0",
+                                           "--disable_strict"])
+    with _env(RESULTS_FOLDER=second):
+        step("install again", download_pretrained.main, ["install_zip", zpath2])
+    a, b = _files(os.path.join(first, "nnUNet")), _files(os.path.join(second, "nnUNet"))
+    if a != b:
+        raise AssertionError(f"16: export -> install changed {sorted(set(a) ^ set(b))} or "
+                             "the bytes of a file")
+    again = os.path.join(second, "nnUNet", task_rel)
+    sidecar = os.path.join(again, "fold_0", "model_final_checkpoint.model.pkl")
+    step("change_trainer", change_trainer.main, [sidecar, "MultiTalent_trainer_ddp_2000ep"])
+    restored = step("restore", load_model_and_checkpoint_files, again, [0],
+                    "model_final_checkpoint", "cuda")
+    if (restored.trainer_name != "MultiTalent_trainer_ddp_2000ep"
+            or restored.inference_nonlin != "sigmoid"):
+        raise AssertionError(f"16a change_trainer: restored {restored.trainer_name} "
+                             f"({restored.inference_nonlin})")
+    del restored
+    torch.cuda.empty_cache()
+    print(f"16a install: released-layout zip of phase 3's folder ({os.path.getsize(zpath)} "
+          f"bytes) installed as {task_rel}; predict_multitalent from it "
+          f"{ {k: v for k, v in launches.items() if v} } (phase 3's), {same} NIfTIs "
+          f"byte-identical to phase 3's; export -> install {len(a)} files equal; "
+          f"change_trainer -> restore names MultiTalent_trainer_ddp_2000ep; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"launches": launches, "same_niftis": same, "seconds": seconds}
+
+
+def _dicom_slice(path: str, z: int, pixels, explicit: bool) -> None:
+    """One uncompressed little-endian CT slice (explicit or implicit VR), at
+    z * 2.5 mm along an axial series, rescale intercept -1024."""
+    import struct
+
+    def ds(*vals) -> bytes:
+        t = "\\".join(f"{v:g}" for v in vals)
+        return (t + " " if len(t) % 2 else t).encode()
+
+    def el(group, elem, vr, val):
+        if not explicit:
+            return struct.pack("<HHI", group, elem, len(val)) + val
+        if vr == b"OW":
+            return (struct.pack("<HH", group, elem) + vr + b"\0\0"
+                    + struct.pack("<I", len(val)) + val)
+        return struct.pack("<HH", group, elem) + vr + struct.pack("<H", len(val)) + val
+
+    ts = b"1.2.840.10008.1.2.1\0" if explicit else b"1.2.840.10008.1.2\0"
+    meta = struct.pack("<HH", 0x0002, 0x0010) + b"UI" + struct.pack("<H", len(ts)) + ts
+    rows, cols = pixels.shape
+    body = b"".join([
+        el(0x0020, 0x0032, b"DS", ds(-100.0, -80.0, 50.0 + 2.5 * z)),
+        el(0x0020, 0x0037, b"DS", ds(1, 0, 0, 0, 1, 0)),
+        el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        el(0x0028, 0x0030, b"DS", ds(0.75, 0.75)),
+        el(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+        el(0x0028, 0x0103, b"US", struct.pack("<H", 1)),
+        el(0x0028, 0x1052, b"DS", ds(-1024.0)),
+        el(0x7FE0, 0x0010, b"OW", pixels.astype("<i2").tobytes())])
+    with open(path, "wb") as f:
+        f.write(b"\0" * 128 + b"DICM" + meta + body)
+
+
+def phase_sources(root: str, generic: dict) -> dict:
+    """16b, on the host: every converter of tasks/source_converters through
+    cli.convert_multitalent_sources on a synthetic download of SOURCE_SHAPE
+    volumes, two cases a task (Task062's as DICOM series, one explicit and
+    one implicit VR; each task's images, labels and dataset.json checked);
+    cli.convert_decathlon_task of phase 10a's Liver task laid out as a
+    Decathlon download (its arrays and spacing as 10a's); cli.plot_task_pngs
+    of 10a's task, raw and preprocessed; host seconds by step."""
+    import json
+    import shutil
+    import numpy as np
+    from multitalent_tpu_torch.cli import convert_decathlon_task, convert_multitalent_sources
+    from multitalent_tpu_torch.cli import plot_task_pngs
+    from multitalent_tpu_torch.io import Geometry, read_nifti, write_nifti
+    rng = np.random.default_rng(SEED + 16)
+    geom = Geometry(spacing=(0.8, 0.8, 2.5))
+
+    def vol(path, labels=False):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        arr = (rng.integers(0, 4, SOURCE_SHAPE).astype(np.uint8) if labels
+               else (rng.standard_normal(SOURCE_SHAPE) * 300).astype(np.int16))
+        write_nifti(path, arr, geom)
+
+    src = os.path.join(root, "downloads")
+    j = os.path.join
+    for i in (1, 2):
+        vol(j(src, "017", "Training", "img", f"img{i:04d}.nii.gz"))
+        vol(j(src, "017", "Training", "label", f"label{i:04d}.nii.gz"), True)
+        vol(j(src, "018", "Training", "img", f"Case_{i:02d}-Image.nii.gz"))
+        vol(j(src, "018", "Training", "label", f"Case_{i:02d}-Mask.nii.gz"), True)
+        vol(j(src, "055", "train", f"Patient_{i:02d}", f"Patient_{i:02d}.nii.gz"))
+        vol(j(src, "055", "train", f"Patient_{i:02d}", "GT.nii.gz"), True)
+        vol(j(src, "064", f"case_{i:05d}", "imaging.nii.gz"))
+        vol(j(src, "064", f"case_{i:05d}", "segmentation.nii.gz"), True)
+        vol(j(src, "051", str(i), "data.nii.gz"))
+        vol(j(src, "051", str(i), "label.nii.gz"), True)
+        vol(j(src, "046", "pancreas", f"PANCREAS_{i:04d}.nii.gz"))
+        vol(j(src, "046", "zenodo", "label_tciapancreasct_multiorgan", "label_tcia_multiorgan",
+              f"label{i:04d}.nii.gz"), True)
+        vol(j(src, "046", "btcv", f"img{i:04d}.nii.gz"))
+        vol(j(src, "046", "zenodo", "label_btcv_multiorgan", f"label{i:04d}.nii.gz"), True)
+        series = j(src, "062", "images", f"PANCREAS_{i:04d}", "study", "series")
+        os.makedirs(series)
+        nz, ny, nx = SOURCE_SHAPE
+        ct = rng.integers(0, 3000, (nz, ny, nx)).astype(np.int16)
+        for z in range(nz):
+            _dicom_slice(j(series, f"slice{z:03d}.dcm"), z, ct[z], explicit=i == 1)
+        vol(j(src, "062", "labels", f"label{i:04d}.nii.gz"), True)
+    args = {"Task017": [j(src, "017")], "Task018": [j(src, "018")],
+            "Task046": [j(src, "046", "pancreas"), "--labels", j(src, "046", "zenodo"),
+                        "--btcv-images", j(src, "046", "btcv")],
+            "Task051": [j(src, "051")], "Task055": [j(src, "055")],
+            "Task062": [j(src, "062", "images"), "--labels", j(src, "062", "labels")],
+            "Task064": [j(src, "064")]}
+    seconds, converted = {}, {}
+    raw = j(root, "raw")
+    for task, a in args.items():
+        t0 = time.perf_counter()
+        out = convert_multitalent_sources.main([task, *a, "--raw_data_base", raw])
+        seconds[f"convert {task}"] = time.perf_counter() - t0
+        with open(j(out, "dataset.json")) as f:
+            ds = json.load(f)
+        images = sorted(os.listdir(j(out, "imagesTr")))
+        if ds["numTraining"] != len(images) or not images or len(
+                os.listdir(j(out, "labelsTr"))) != len(images):
+            raise AssertionError(f"16b {task}: {images}, dataset.json {ds['numTraining']}")
+        converted[task] = len(images)
+    # the Decathlon split of phase 10a's Liver task laid out as a download
+    liver = j(generic["env"]["nnUNet_raw_data_base"], "nnUNet_raw_data", "Task003_Liver")
+    msd = j(root, "msd", "Task03_Liver")
+    cases = sorted(f[:-len("_0000.nii.gz")] for f in os.listdir(j(liver, "imagesTr")))
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(j(msd, sub))
+    for c in cases:
+        shutil.copy(j(liver, "imagesTr", f"{c}_0000.nii.gz"), j(msd, "imagesTr", f"{c}.nii.gz"))
+        shutil.copy(j(liver, "labelsTr", f"{c}.nii.gz"), j(msd, "labelsTr", f"{c}.nii.gz"))
+    with open(j(liver, "dataset.json")) as f:
+        ds = json.load(f)
+    ds["training"] = [{"image": f"./imagesTr/{c}.nii.gz", "label": f"./labelsTr/{c}.nii.gz"}
+                      for c in cases]
+    ds["test"] = []
+    with open(j(msd, "dataset.json"), "w") as f:
+        json.dump(ds, f)
+    with _env(nnUNet_raw_data_base=j(root, "msd_raw")):
+        t0 = time.perf_counter()
+        convert_decathlon_task.main(["-i", msd])
+        seconds["convert_decathlon_task"] = time.perf_counter() - t0
+    split = j(root, "msd_raw", "nnUNet_raw_data", "Task003_Liver")
+    for c in cases:
+        (x, gx), (y, gy) = (read_nifti(j(d, "imagesTr", f"{c}_0000.nii.gz"))
+                            for d in (split, liver))
+        if not np.array_equal(x, y) or not np.allclose(gx.spacing, gy.spacing):
+            raise AssertionError(f"16b convert_decathlon_task: {c} differs from 10a's")
+    converted["Task003_Liver (Decathlon)"] = len(cases)
+    # the overlay PNGs of 10a's task, raw and preprocessed
+    for label, extra in (("raw", ["--use_raw"]), ("preprocessed", [])):
+        pngs = j(root, "pngs", label)
+        t0 = time.perf_counter()
+        with _env(**generic["env"]):
+            plot_task_pngs.main(["-t", "3", "-o", pngs, "-num_processes", "4", *extra])
+        seconds[f"plot_task_pngs {label}"] = time.perf_counter() - t0
+        files = os.listdir(pngs)
+        if len(files) < len(cases) - 1 or not all(
+                open(j(pngs, f), "rb").read(8) == b"\x89PNG\r\n\x1a\n" for f in files):
+            raise AssertionError(f"16b plot_task_pngs {label}: {files}")
+        converted[f"pngs {label}"] = len(files)
+    print(f"16b host: converted {converted}; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"seconds": seconds, "converted": converted}
+
+
+def _fp32_affine_bound(cin: int, cout: int, spatial, n: int, prologue: bool) -> dict:
+    """Kernel D's fp32 form's bound: the fp32 conv's (_fp32_bound), its
+    stats (3 fp32 operations an output value, 8 bytes a sample and channel
+    written) and, with the prologue, x * scale + shift and the LeakyReLU (3
+    operations an input value) from 8 bytes a sample and channel."""
+    vox = n * prod(spatial)
+    return _bound(4 * (vox * (cin + cout) + 27 * cin * cout) + n * cout * 8
+                  + (n * cin * 8 if prologue else 0),
+                  fp32_flops=2 * 27 * cin * cout * vox + 3 * vox * cout
+                  + (3 * vox * cin if prologue else 0))
+
+
+def phase_fp32_fused_kernels() -> dict:
+    """14a (D, E, F): the fp32 forms of kernels D (with the prologue; its
+    dual form), E (stats, apply) and F (LIVER_CLASSES outputs, the Liver's
+    head) against their plain fp32 versions (TF32 off) at
+    FP32_SPATIAL, the training batch, 32 channels (phase 10a's Liver stage
+    0), each into NaN-filled buffers and within FP32_RTOL of the plain
+    output's largest entry; the median of FP32_ITERS launches beside the
+    plain version's, the bound and one PyTorch call of the same function
+    where there is one (E's stats: torch.var_mean; F: torch.matmul of its
+    form without the prologue, timed too). D has none: the unfused fp32
+    route (the plain norm, then cuDNN's fp32 conv) stands beside it."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.models.blocks import instance_norm_lrelu
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    from multitalent_tpu_torch.ops import seghead as sg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    n, sp, c, k = TRAIN_BATCH, FP32_SPATIAL, 32, LIVER_CLASSES
+    vox = n * prod(sp)
+    where = f"at {'x'.join(map(str, sp))} N={n}"
+    rows = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def nan(*shape):
+        return torch.full(shape, float("nan"), device=dev)
+
+    def held(label, got, ref) -> tuple[float, float]:
+        top = ref.abs().max().item()
+        err = _check(label, got, ref, FP32_RTOL * top)
+        return err, err / max(top, 1e-30)
+
+    def record(name, what, err, rel, kernel, plain, work, library=None, **extra):
+        row = {"what": f"{what} {where}", "err": err, "rel_err": rel,
+               "ms": _median_ms(kernel, FP32_ITERS), "plain_ms": _median_ms(plain, FP32_ITERS),
+               "library_ms": None if library is None else _median_ms(library, FP32_ITERS),
+               **work, **{k2: _median_ms(v, FP32_ITERS) if callable(v) else v
+                          for k2, v in extra.items()}}
+        rows[name] = row
+        print(f"14a {name} {row['what']}: max|d| {err:.3e} (relative {rel:.2e}, bound "
+              f"{FP32_RTOL:.0e}); kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+              + (f"library {row['library_ms']:.3f} ms, " if library is not None else "")
+              + "".join(f"{k2} {row[k2]:.3f} ms, " for k2 in extra if callable(extra[k2]))
+              + f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+
+    # D with the prologue and the stats; beside it the unfused fp32 route
+    x = rnd(n, *sp, c, scale=2.0)
+    w = rnd(c, c, 3, 3, 3, scale=(2.0 / (27 * c)) ** 0.5)
+    bias = rnd(c, scale=0.1)
+    sc, sh = rnd(n, c).abs() + 0.5, rnd(n, c)
+    norm_w, norm_b = rnd(c).abs() + 0.5, rnd(c)
+    pw = cv.prepare_conv3d_weight(w, dtype=torch.float32)
+    out, stats = cv.conv3d_same_affine(x, pw, bias, sc, sh, out=nan(n, *sp, c),
+                                       stats=nan(n, 2, c))
+    ref, ref_stats = cv.conv3d_same_affine_ref(x, w, bias, sc, sh)
+    err, rel = held(f"14a D fp32 {where}", out, ref)
+    serr, srel = held(f"14a D fp32 stats {where}", stats, ref_stats)
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+    record("conv3d_same_affine_fp32", f"{c}->{c}", err, rel,
+           lambda: cv.conv3d_same_affine(x, pw, bias, sc, sh),
+           lambda: cv.conv3d_same_affine_ref(x, w, bias, sc, sh),
+           _fp32_affine_bound(c, c, sp, n, True), stats_max_abs_err=serr,
+           stats_rel_err=srel,
+           unfused_route_ms=lambda: F.conv3d(instance_norm_lrelu(x_cl, norm_w, norm_b), w_cl,
+                                             bias, padding=1))
+    del out, ref
+    # D's dual form (a decoder's first conv), beside B's fp32 form without stats
+    b = rnd(n, *sp, c)
+    wd = rnd(c, 2 * c, 3, 3, 3, scale=(2.0 / (54 * c)) ** 0.5)
+    pwd = cv.prepare_conv3d_weight(wd, (c, c), torch.float32)
+    out, stats = cv.conv3d_same_dual_stats(x, b, pwd, bias, out=nan(n, *sp, c),
+                                           stats=nan(n, 2, c))
+    ref, ref_stats = cv.conv3d_same_dual_stats_ref(x, b, wd, bias)
+    err, rel = held(f"14a D dual fp32 {where}", out, ref)
+    serr, srel = held(f"14a D dual fp32 stats {where}", stats, ref_stats)
+    dual = {"err": err, "rel_err": rel, "stats_max_abs_err": serr, "stats_rel_err": srel,
+            "ms": _median_ms(lambda: cv.conv3d_same_dual_stats(x, b, pwd, bias), FP32_ITERS),
+            "plain_ms": _median_ms(lambda: cv.conv3d_same_dual_stats_ref(x, b, wd, bias),
+                                   FP32_ITERS),
+            "b_fp32_ms": _median_ms(lambda: cv.conv3d_same_dual(x, b, pwd, bias), FP32_ITERS),
+            **_fp32_affine_bound(2 * c, c, sp, n, False)}
+    rows["conv3d_same_affine_fp32"]["dual"] = dual
+    rows["conv3d_same_affine_fp32"]["max_err"] = max(rows["conv3d_same_affine_fp32"]["err"],
+                                                     dual["err"])
+    print(f"14a conv3d_same_dual_stats_fp32 {c}+{c}->{c} {where}: max|d| {dual['err']:.3e} "
+          f"(relative {dual['rel_err']:.2e}; stats {srel:.2e}); kernel {dual['ms']:.3f} ms, plain "
+          f"{dual['plain_ms']:.3f} ms, B's fp32 form without stats {dual['b_fp32_ms']:.3f} ms, "
+          f"bound {dual['bound_ms']:.3f} ms ({dual['bound_by']})")
+    del out, ref, b
+    # E: stats (two calls bit-equal, launches a call from a captured graph),
+    # then apply
+    xe = rnd(n, *sp, c, scale=3.0) + 1
+    stats = fn.channel_stats(xe)
+    if not torch.equal(stats, fn.channel_stats(xe)):
+        raise AssertionError("14a channel_stats fp32: two calls differ")
+    err, rel = held(f"14a E stats fp32 {where}", stats, fn.channel_stats_ref(xe))
+    per_call = _device_launches(lambda: fn.channel_stats(xe))
+    if not 1 <= per_call <= 2:
+        raise AssertionError(f"14a channel_stats fp32: {per_call} launches a call")
+    record("channel_stats_fp32", f"{c}", err, rel, lambda: fn.channel_stats(xe),
+           lambda: fn.channel_stats_ref(xe),
+           _bound(vox * c * 4 + n * 2 * c * 4, fp32_flops=3 * vox * c),
+           library=lambda: torch.var_mean(xe, dim=(1, 2, 3), correction=0),
+           launches_per_call=per_call, queued_ms=_queued_ms(lambda: fn.channel_stats(xe)))
+    sc2, sh2 = fn.stats_affine(stats, norm_w, norm_b, prod(sp))
+    sc2, sh2 = sc2.contiguous(), sh2.contiguous()
+    got = fn.affine_lrelu(xe, sc2, sh2, 1e-2, True)
+    want = fn.affine_lrelu_ref(xe, sc2, sh2, 1e-2, True)
+    err, rel = held(f"14a E apply fp32 {where}", got, want)
+    record("affine_lrelu_fp32", f"{c}", err, rel, lambda: fn.affine_lrelu(xe, sc2, sh2),
+           lambda: fn.affine_lrelu_ref(xe, sc2, sh2),
+           _bound(2 * vox * c * 4, fp32_flops=4 * vox * c),
+           values_differing=int((got != want).sum().item()))
+    del got, want, xe
+    # F: the Liver's head with the prologue, into a NaN-filled output; one
+    # torch.matmul computes its form without the prologue ((K, C) x (N, C, S))
+    head = rnd(k, c, 1, 1, 1, scale=(1.0 / c) ** 0.5)
+    hbias = rnd(k, scale=0.1)
+    got = sg.seghead(x, head, hbias, sc, sh, 1e-2, torch.float32, out=nan(n, k, *sp))
+    ref = sg.seghead_ref(x, head, hbias, sc, sh, 1e-2, torch.float32)
+    err, rel = held(f"14a F fp32 {where}", got, ref)
+    bare = sg.seghead(x, head, None, None, None, 1e-2, torch.float32)
+    w2, xs = head.reshape(k, c), x.reshape(n, -1, c)
+    lib = torch.matmul(w2, xs.transpose(1, 2)).reshape(bare.shape)
+    err2, rel2 = held(f"14a F fp32 without prologue vs torch.matmul {where}", bare, lib)
+    record("seghead_fp32", f"{c}->{k}", max(err, err2), max(rel, rel2),
+           lambda: sg.seghead(x, head, hbias, sc, sh, 1e-2, torch.float32),
+           lambda: sg.seghead_ref(x, head, hbias, sc, sh, 1e-2, torch.float32),
+           _bound(vox * (c + k) * 4, fp32_flops=2 * c * k * vox + 4 * c * vox),
+           library=lambda: torch.matmul(w2, xs.transpose(1, 2)),
+           no_prologue_ms=lambda: sg.seghead(x, head, None, None, None, 1e-2, torch.float32))
+    del got, ref, bare, lib, x, x_cl
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _fp32_launches(per: dict, scale: int) -> dict:
     """The launches of every kernel expected from an fp32 network's per-step
     or per-forward counts x scale: on the fp32 forms of A, B and C only."""
@@ -4007,7 +4447,127 @@ def phase_fp32_training(workdir: str, generic: dict) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "predict_launches": predict_launches,
             "seconds_per_step": step_s, "step_s": steps, "peak_gib": peak_gib,
-            "per_step": per_step, "restore_s": restore_s, "predict_s": predict_s}
+            "per_step": per_step, "restore_s": restore_s, "predict_s": predict_s,
+            "predicted": out, "results": env["RESULTS_FOLDER"]}
+
+
+def phase_fp32_fused(workdir: str, generic: dict, fp32_train: dict) -> dict:
+    """14b fused: `cli.train 3d_fullres nnUNetTrainerV2_fp32 Task003_Liver 0`
+    under MTTPU_FUSED_TRAIN=1 (and MTTPU_FUSED_NORM=1 for its validation) on
+    phase 10a's plans and phantoms, FP32_TRAIN_STEPS steps, then `cli.predict
+    -tr nnUNetTrainerV2_fp32` of the held-out case under MTTPU_FUSED_NORM=1
+    from 14b's folder (the unfused run's weights): the launches exactly the
+    fused route's counts on the fp32 forms (D, A, C a step; D a validation
+    batch; D, E, F a validation or predict forward), no bf16 kernel; the
+    labels equal to 14b's unfused fp32 prediction of the same weights on at
+    least FP32_FUSED_AGREE of the voxels. Then, through the trainer API, one
+    batch of the same data on the same fresh weights: the fused route's
+    loss within FP32_FUSED_LOSS_RTOL of the unfused route's, and its backward
+    on the fp32 forms of A and C."""
+    import numpy as np
+    import torch
+    from multitalent_tpu_torch.cli.predict import main as predict_main
+    from multitalent_tpu_torch.cli.train import TRAINERS
+    from multitalent_tpu_torch.cli.train import main as train_main
+    from multitalent_tpu_torch.io import read_nifti
+    from multitalent_tpu_torch.models.blocks import fp32_forms
+    from multitalent_tpu_torch.ops.fused_unet import make_train_forward
+    task, trainer_name = "Task003_Liver", "nnUNetTrainerV2_fp32"
+    fused = {"MTTPU_FUSED_TRAIN": "1", "MTTPU_FUSED_NORM": "1"}
+    env = dict(generic["env"], RESULTS_FOLDER=os.path.join(workdir, "fp32_fused_results"),
+               MTTPU_ITERS_PER_EPOCH=str(FP32_TRAIN_STEPS), **fused)
+    with _env(**env):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, launches = _run_counted(lambda: train_main(
+            ["3d_fullres", trainer_name, task, "0", "--device", "cuda", "-gpus", "1"]))
+        train_cli_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        net = trainer.network
+        per_step = fp32_forms(net.fused_kernel_launches_per_step())
+        per_batch = fp32_forms(net.fused_kernel_launches_per_forward(True))
+        per_fwd = fp32_forms(net.fused_kernel_launches_per_forward())
+        calls = sum(t["net_calls"] for t in trainer.validation_timings)
+        expect = {k: a + b + c for (k, a), b, c in zip(
+            _expect(per_step, trainer.step).items(),
+            _expect(per_batch, trainer.num_val_batches_per_epoch).values(),
+            _expect(per_fwd, calls).values())}
+        losses = trainer.all_tr_losses + trainer.all_val_losses
+        if (net.dtype != torch.float32 or trainer.step != FP32_TRAIN_STEPS
+                or launches != expect or any(launches[k] == 0 for k in (*per_step, *per_fwd))
+                or not losses or not np.isfinite(losses).all()):
+            raise AssertionError(f"14b fused: dtype {net.dtype}, {trainer.step} steps, "
+                                 f"launches {launches}, expected {expect}, losses {losses}")
+        out = os.path.join(workdir, "fp32_fused_predicted")
+        t0 = time.perf_counter()
+        with _env(RESULTS_FOLDER=fp32_train["results"]):
+            timings, predict_launches = _run_counted(lambda: predict_main(
+                ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", task, "-m",
+                 "3d_fullres", "-tr", trainer_name, "-f", "0", "--device", "cuda"]))
+        predict_s = time.perf_counter() - t0
+        pcalls = sum(t["net_calls"] for t in timings)
+        if predict_launches != _expect(per_fwd, pcalls):
+            raise AssertionError(f"14b fused predict: launches {predict_launches}, expected "
+                                 f"{_expect(per_fwd, pcalls)}")
+        labels, shape = _check_prediction(out, generic["held_out"])
+        case = os.path.basename(generic["held_out"])[:-len("_0000.nii.gz")] + ".nii.gz"
+        mine, _ = read_nifti(os.path.join(out, case))
+        theirs, _ = read_nifti(os.path.join(fp32_train["predicted"], case))
+        agree = float(np.mean(mine == theirs))
+        if not agree >= FP32_FUSED_AGREE:
+            raise AssertionError(f"14b fused predict: labels agree with the unfused fp32 "
+                                 f"prediction on {agree:.6f} < {FP32_FUSED_AGREE}")
+        # one batch through both routes on the same fresh weights
+        prep = os.path.join(generic["env"]["nnUNet_preprocessed"], task)
+        t = TRAINERS[trainer_name](os.path.join(prep, "MTTPUPlansv2.1_plans_3D.pkl"), 0,
+                                   os.path.join(workdir, "fp32_fused_batch"), prep,
+                                   batch_dice=False, stage=0, device="cuda")
+        t.initialize(True)
+        batch = next(t.tr_gen)
+        t.tr_gen.stop()
+        t.val_gen.stop()
+        data, targets = t._val_transform(t._to_device(batch["data"]),
+                                         t._to_device(batch["seg"]))
+        forward = make_train_forward(t.network)
+
+        def fused_step():
+            outs = t._outputs(forward(data, deep_supervision=t.deep_supervision))
+            loss = t.loss_fn(outs, targets, {})[0]
+            loss.backward()
+            return loss.item()
+
+        loss_fused, step_launches = _run_counted(fused_step)
+        t.network.zero_grad()
+        with torch.no_grad():
+            loss_unfused = t.loss_fn(t._outputs(t.network(
+                data, deep_supervision=t.deep_supervision)), targets, {})[0].item()
+        rel = abs(loss_fused - loss_unfused) / abs(loss_unfused)
+        per_one = _expect(fp32_forms(t.network.fused_kernel_launches_per_step()), 1)
+        if step_launches != per_one or not rel <= FP32_FUSED_LOSS_RTOL:
+            raise AssertionError(f"14b fused batch: loss {loss_fused} vs unfused "
+                                 f"{loss_unfused} ({rel:.2e} > {FP32_FUSED_LOSS_RTOL}), "
+                                 f"launches {step_launches}, expected {per_one}")
+    step_s = _median(trainer.step_seconds[1:])
+    print(f"14b fused {trainer_name} on Task003_Liver (MTTPU_FUSED_TRAIN=1, "
+          f"MTTPU_FUSED_NORM=1): {trainer.step} steps, losses "
+          f"{[round(v, 4) for v in trainer.all_tr_losses]} (train), "
+          f"{[round(v, 4) for v in trainer.all_val_losses]} (val); seconds per step "
+          f"{step_s:.3f} ({', '.join(f'{v:.3f}' for v in trainer.step_seconds)}; unfused fp32 "
+          f"{fp32_train['seconds_per_step']:.3f}); peak {peak_gib:.2f} GiB; train CLI "
+          f"{train_cli_s:.1f} s ({calls} validation network calls)")
+    print(f"14b fused launches: training { {k: v for k, v in launches.items() if v} } (a "
+          f"step {per_step}, a validation batch {per_batch}, a forward {per_fwd}); "
+          f"cli.predict { {k: v for k, v in predict_launches.items() if v} } = {per_fwd} x "
+          f"{pcalls} calls in {predict_s:.2f} s; labels {labels} at {shape}, "
+          f"{agree:.6f} equal to the unfused fp32 prediction (bound {FP32_FUSED_AGREE}); "
+          f"one batch on fresh weights: loss fused {loss_fused:.6f}, unfused "
+          f"{loss_unfused:.6f}, relative {rel:.2e} (bound {FP32_FUSED_LOSS_RTOL:.0e})")
+    del trainer, net, t
+    torch.cuda.empty_cache()
+    return {"launches": launches, "predict_launches": predict_launches,
+            "seconds_per_step": step_s, "peak_gib": peak_gib, "agree": agree,
+            "loss_rel": rel, "predict_s": predict_s}
 
 
 def phase_2d(workdir: str, generic: dict) -> dict:
@@ -4889,6 +5449,7 @@ def main() -> int:
         with _env(**exact):
             main_path = timed("3", phase_main_path, workdir)
             main_fused = timed("3b", phase_main_path, workdir, fused=True)
+        install = timed("16a released zip", phase_install, workdir, main_path)
         masks = compare_masks(main_path, main_fused)
         liver = timed("3c Liver", phase_liver, workdir)
         tile = timed("4", phase_tile_probabilities)
@@ -4930,12 +5491,17 @@ def main() -> int:
         mednext_tile = timed("12c MedNeXt tile", phase_mednext_tile)
         cascade = timed("13 cascade", phase_cascade, workdir, raw_generic)
         fp32_kernels = timed("14a fp32 kernels", phase_fp32_kernels)
+        fp32_fused_kernels = timed("14a fp32 D, E, F", phase_fp32_fused_kernels)
         fp32_train = timed("14b fp32 train + predict", phase_fp32_training, workdir,
                            raw_generic)
+        fp32_fused = timed("14b fused fp32 train + predict", phase_fp32_fused, workdir,
+                           raw_generic, fp32_train)
         two_d = timed("14c 2D", phase_2d, workdir, raw_generic)
         variants = timed("14d variants", phase_variants, workdir, raw_generic)
         zoo = timed("15a-c trainer zoo", phase_zoo, workdir, raw_generic, two_d)
         zoo_schedules = timed("15d schedules", phase_zoo_schedules, raw_generic)
+        sources = timed("16b sources", phase_sources, os.path.join(workdir, "sources"),
+                        raw_generic)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -5130,9 +5696,35 @@ def main() -> int:
                      else r["cudnn_fp32_ms"],
                      "cudnn_fp32_ms": r["cudnn_fp32_ms"],
                      **({"write": r["write"]} if "write" in r else {}),
+                     "launches_fused": fp32_fused["launches"][kname],
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, r["splits"])), r["cout"],
                          "x".join(map(str, r["spatial"])), r["n"])})
+    # the fp32 forms of D, E and F (14a's times at the Liver's stage 0, N=2;
+    # launches from 14b's fused fp32 train CLI and its fused cli.predict)
+    for kname, src, replaces in (
+            ("conv3d_same_affine_fp32", "multitalent_tpu_torch/csrc/conv3d_fp32.cu",
+             "multitalent_tpu/ops/pallas_conv.py:326"),
+            ("channel_stats_fp32", "multitalent_tpu_torch/csrc/fused_norm.cu",
+             "multitalent_tpu/ops/fused_norm.py:37"),
+            ("affine_lrelu_fp32", "multitalent_tpu_torch/csrc/fused_norm.cu",
+             "multitalent_tpu/ops/fused_norm.py:56"),
+            ("seghead_fp32", "multitalent_tpu_torch/csrc/seghead.cu",
+             "multitalent_tpu/ops/pallas_seghead.py:31")):
+        r = fp32_fused_kernels[kname]
+        rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": fp32_fused["launches"][kname],
+                     "launches_predict": fp32_fused["predict_launches"][kname],
+                     "max_abs_err": r.get("max_err", r["err"]), "rel_err": r["rel_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     "timed_at": r["what"],
+                     **{k: r[k] for k in ("unfused_route_ms", "dual", "queued_ms",
+                                          "launches_per_call", "no_prologue_ms",
+                                          "values_differing", "stats_max_abs_err",
+                                          "stats_rel_err") if k in r}})
+    for row in rows[:2]:  # A and B: phase 16a's predict from the installed zip
+        row["launches_install"] = install["launches"][row["name"]]
     for row in rows:
         row["launches_variants"] = sum(v["launches"].get(row["name"], 0)
                                        for v in variants.values())
@@ -5257,6 +5849,23 @@ def main() -> int:
           + "; variants seconds per step " + ", ".join(
               f"{k.removeprefix('nnUNetTrainerV2_')} {v['step_s']:.3f}"
               for k, v in variants.items()) + f"; on {smi}")
+    print("summary, fp32 fused route (phase 14, D/E/F): "
+          + "; ".join(f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
+                      f"{v['bound_ms']:.3f}"
+                      + (f", library {v['library_ms']:.3f}" if v["library_ms"] is not None
+                         else "")
+                      + (f", unfused route {v['unfused_route_ms']:.3f}"
+                         if "unfused_route_ms" in v else "") + ")"
+                      for k, v in fp32_fused_kernels.items())
+          + f"; fused fp32 seconds per step {fp32_fused['seconds_per_step']:.3f} (unfused "
+          f"{fp32_train['seconds_per_step']:.3f}), peak {fp32_fused['peak_gib']:.2f} GiB, "
+          f"labels {fp32_fused['agree']:.6f} equal, one batch's loss {fp32_fused['loss_rel']:.2e} "
+          f"relative; on {smi}")
+    print(f"summary, install and sources (phase 16): {install['same_niftis']} NIfTIs "
+          f"byte-identical from the installed zip; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in {**install["seconds"],
+                                                   **sources["seconds"]}.items())
+          + f"; converted {sources['converted']}; on {smi}")
     loss_rel = [r["loss_rel"] for r in zoo.values() if "loss_rel" in r]
     update_rel = [r["update_rel"] for r in zoo.values() if "update_rel" in r]
     print(f"summary, the trainer zoo (phase 15): {len(zoo)} trainers, {ZOO_STEPS} steps each, "

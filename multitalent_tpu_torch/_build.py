@@ -62,16 +62,29 @@ _SIGNATURES = {
     # a, b, w, bias, out, stats, ws, ws_bytes, n, z, y, x, ca, cb, cout,
     # coutp, bn, stream
     "mt_conv3d_same_dual_stats": ([_P] * 7 + [_L] + [_I] * 9 + [_P], _I),
+    # kernel D's fp32 form: n, z, y, x, cout -> workspace bytes (-1: bad sizes)
+    "mt_conv3d_stats_fp32_workspace": ([_I] * 5, _L),
+    # a, b, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n, z, y,
+    # x, ca, cb, cout, coutp, stream
+    "mt_conv3d_same_affine_fp32": ([_P] * 6 + [_F] + [_P] * 3 + [_L] + [_I] * 8 + [_P], _I),
     # n, s, c -> kernel E stats' workspace bytes (-1: bad sizes)
     "mt_channel_stats_workspace": ([_I, _L, _I], _L),
     # x, stats, ws, ws_bytes, n, s, c, stream
     "mt_channel_stats": ([_P] * 3 + [_L, _I, _L, _I, _P], _I),
     # x, y, scale, shift, n, s, c, slope, cast_first, stream
     "mt_affine_lrelu": ([_P] * 4 + [_I, _L, _I, _F, _I, _P], _I),
+    # kernel E's fp32 form: the same as the two entries above (apply: no
+    # cast_first, the orders coincide in fp32)
+    "mt_channel_stats_fp32_workspace": ([_I, _L, _I], _L),
+    "mt_channel_stats_fp32": ([_P] * 3 + [_L, _I, _L, _I, _P], _I),
+    "mt_affine_lrelu_fp32": ([_P] * 4 + [_I, _L, _I, _F, _P], _I),
     # k -> the largest C kernel F takes
     "mt_seghead_max_channels": ([_I], _I),
     # x, scale, shift, w, bias, out, out_bf16, n, s, c, k, kp, slope, stream
     "mt_seghead": ([_P] * 6 + [_I, _I, _L, _I, _I, _I, _F, _P], _I),
+    # kernel F's fp32 form: x, scale, shift, w, bias, out, out_bf16, n, s, c,
+    # k, kp, cp, slope, stream
+    "mt_seghead_fp32": ([_P] * 6 + [_I, _I, _L, _I, _I, _I, _I, _F, _P], _I),
     # the probes' kernels (probes/):
     # x, w, out, n, z, y, x, c, cout, coutp, stream (im2col, wino); tap3 adds bn
     "mt_conv_im2col": ([_P] * 3 + [_I] * 7 + [_P], _I),

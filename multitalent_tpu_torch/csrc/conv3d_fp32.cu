@@ -1,6 +1,7 @@
-// The fp32 forms of kernels A, B and C: the stride-1 SAME 3x3x3 convolution
-// and its weight gradient with fp32 inputs, weights and outputs, for the
-// networks that train and predict in fp32 (`--fp32`, nnUNetTrainerV2_fp32).
+// The fp32 forms of kernels A, B, C and D: the stride-1 SAME 3x3x3
+// convolution (with D's normalize prologue and stats epilogue) and its
+// weight gradient with fp32 inputs, weights and outputs, for the networks
+// that train and predict in fp32 (`--fp32`, nnUNetTrainerV2_fp32).
 //
 //   out[n, z, y, x, co] = bias[co] + sum over dz, dy, dx, ci of
 //       in[n, z+dz-1, y+dy-1, x+dx-1, ci] * w[co, ci, dz, dy, dx]   (zero outside)
@@ -15,7 +16,20 @@
 //     _merged_kernel (fp32 A; with the flipped, transposed weight also dx);
 //   - ops/pallas_merged_conv.py _merged2_kernel (fp32 B);
 //   - ops/pallas_conv.py _wgrad_kernel and ops/pallas_merged_conv.py
-//     _merged_wgrad_kernel (fp32 C).
+//     _merged_wgrad_kernel (fp32 C);
+//   - ops/pallas_conv.py _conv_affine_kernel (fp32 D, the fused conv ->
+//     InstanceNorm chain's conv): out = conv(lrelu(x * scale[n, c] +
+//     shift[n, c])) + bias with the SAME halo kept at 0 (not lrelu(shift)),
+//     and stats (N, 2, Cout): each sample's channel sum and sum of squares of
+//     out. Its dual form (two inputs, no prologue) serves a decoder's first
+//     conv. It is the forward body below with two compile-time switches:
+//     AFFINE applies the prologue to each element as the halo is staged
+//     (x * s + t rounded apart, as the plain version rounds them, then the
+//     activation; the halo and padding channels stay 0); STATS reduces each
+//     block's 256 voxels x 32 channels of out (after the bias) to one row of
+//     per-channel sums (warp shuffles, then the two warps of a channel
+//     group in order) in a workspace (N, boxes, 2, Cout), and fused_norm.cu's
+//     reduce_rows adds the rows in a fixed order: deterministic, no atomics.
 //
 // Plain FFMA on the CUDA cores, no TF32: TF32 rounds the inputs to 10
 // mantissa bits, and the JAX package's fp32 reference does not. What bounds
@@ -145,8 +159,33 @@ struct FParams {
   float* out;
   int cout, coutp;
   Geometry g;
+  const float* scale;  // AFFINE: (N, cin[0]) each
+  const float* shift;
+  float slope;
+  float* part;  // STATS: (N, boxes, 2, Cout) per-block channel sums
 };
 
+// lrelu(x * s + t) of every staged element inside the volume and below
+// channel c (the rest stays 0): the product and the sum rounded apart.
+__device__ __forceinline__ void affine_halo(float* dst, const float* __restrict__ scale,
+                                            const float* __restrict__ shift, float slope, int c,
+                                            int c0, const Geometry& g, int nb, int z0, int y0,
+                                            int x0) {
+  const int hx = g.box.x + 2, hy = g.box.y + 2, hz = g.box.z + 2;
+  const int total = hz * hy * hx * CK;
+  for (int i = threadIdx.x; i < total; i += F_THREADS) {
+    const int v = i / CK, ci = i - v * CK;
+    const int vx = v % hx, vy = (v / hx) % hy, vz = v / (hx * hy);
+    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
+    if (gz < 0 || gz >= g.z || gy < 0 || gy >= g.y || gx < 0 || gx >= g.x || c0 + ci >= c)
+      continue;
+    const int k = nb * c + c0 + ci;
+    const float f = __fadd_rn(__fmul_rn(dst[ci * XS + v], scale[k]), shift[k]);
+    dst[ci * XS + v] = f >= 0.f ? f : f * slope;
+  }
+}
+
+template <bool AFFINE, bool STATS>
 __global__ void __launch_bounds__(F_THREADS) conv_fp32_kernel(FParams p) {
   extern __shared__ float smem[];
   float* xs = smem;             // [CK][XS]
@@ -173,6 +212,10 @@ __global__ void __launch_bounds__(F_THREADS) conv_fp32_kernel(FParams p) {
     for (int c0 = 0; c0 < c; c0 += CK) {
       __syncthreads();  // the previous chunk's reads are done
       stage_halo<F_THREADS>(xs, p.in[s], c, c0, g, nb, z0, y0, x0);
+      if constexpr (AFFINE) {
+        // each thread rewrites the elements it staged: no barrier between
+        affine_halo(xs, p.scale, p.shift, p.slope, c, c0, g, nb, z0, y0, x0);
+      }
       for (int i = t; i < CK * 27 * BN; i += F_THREADS) {
         const int co = i % BN, tap = (i / BN) % 27, ci = i / (BN * 27);
         const int k = c0 + ci;  // zero rows past c in the prepared layout
@@ -210,25 +253,91 @@ __global__ void __launch_bounds__(F_THREADS) conv_fp32_kernel(FParams p) {
   }
 
   const int oz = z0 + vz, oy = y0 + vy;
-  if (oz >= g.z || oy >= g.y) return;
   const int cb = co0 + cg * 8;
+  float bsum[8], bsq[8];
+#pragma unroll
+  for (int cc = 0; cc < 8; ++cc) bsum[cc] = bsq[cc] = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int ox = x0 + xg * 4 + i;
-    if (ox >= g.x) break;
+    if (oz >= g.z || oy >= g.y || ox >= g.x) break;
     float* row = p.out + ((((int64_t)nb * g.z + oz) * g.y + oy) * g.x + ox) * p.cout;
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) {
       const int co = cb + cc;
-      if (co < p.cout) row[co] = acc[i][cc] + (p.bias != nullptr ? p.bias[co] : 0.f);
+      if (co < p.cout) {
+        const float v = acc[i][cc] + (p.bias != nullptr ? p.bias[co] : 0.f);
+        row[co] = v;
+        if constexpr (STATS) {
+          bsum[cc] += v;
+          bsq[cc] = fmaf(v, v, bsq[cc]);
+        }
+      }
+    }
+  }
+  if constexpr (STATS) {
+    // the block's 8 channels of a channel group: a warp's lanes by a
+    // butterfly, then its two warps in order, into row (nb, box) of part
+    __shared__ float red[F_THREADS / 32][16];
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        bsum[cc] += __shfl_xor_sync(0xffffffffu, bsum[cc], o);
+        bsq[cc] += __shfl_xor_sync(0xffffffffu, bsq[cc], o);
+      }
+    }
+    const int warp = t >> 5;
+    if ((t & 31) == 0) {
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        red[warp][cc] = bsum[cc];
+        red[warp][8 + cc] = bsq[cc];
+      }
+    }
+    __syncthreads();
+    if (t < 64) {  // thread t: channel group t / 16, value t % 16
+      const int grp = t >> 4, e = t & 15, cc = e & 7;
+      const int co = co0 + grp * 8 + cc;
+      if (co < p.cout) {
+        const long long box = blockIdx.x - (long long)nb * g.boxes;
+        float* dst = p.part + ((int64_t)nb * g.boxes + box) * 2 * p.cout;
+        dst[(e >> 3) * p.cout + co] = red[2 * grp][e] + red[2 * grp + 1][e];
+      }
     }
   }
 }
 
+// The bytes of D's fp32 form's workspace: the per-block stats rows, then
+// reduce_rows' (-1: more boxes than it adds).
+long long stats_workspace_bytes(int n, int z, int y, int x, int cout) {
+  if (n <= 0 || z <= 0 || y <= 0 || x <= 0 || cout <= 0) return -1;
+  const long long boxes = geometry(n, z, y, x).boxes;
+  if (boxes > 0x7fffffffLL) return -1;
+  const long long red = mt::reduce_rows_workspace(n, (int)boxes, 2 * cout);
+  if (red < 0) return -1;
+  return 4LL * n * boxes * 2 * cout + red;
+}
+
+template <bool AFFINE, bool STATS>
+cudaError_t launch_conv(const FParams& p, long long blocks, int cout, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(conv_fp32_kernel<AFFINE, STATS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)blocks, cdiv(cout, BN));
+  conv_fp32_kernel<AFFINE, STATS><<<grid, F_THREADS, F_SMEM, st>>>(p);
+  return cudaGetLastError();
+}
+
+// stats null: A's and B's form; else D's (its prologue where scale is
+// given, one input only), the stats through the workspace ws.
 int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
-             void* out, int n, int z, int y, int x, int cout, int coutp, void* stream) {
+             void* out, int n, int z, int y, int x, int cout, int coutp, void* stream,
+             const void* scale = nullptr, const void* shift = nullptr, float slope = 0.f,
+             void* stats = nullptr, void* ws = nullptr, long long ws_bytes = 0) {
   if (ca <= 0 || cb < 0 || cout <= 0 || coutp < cout || coutp % BN || n <= 0 || z <= 0 ||
-      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr))
+      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr) ||
+      (scale == nullptr) != (shift == nullptr) || (scale != nullptr && (stats == nullptr || cb > 0)))
     return (int)cudaErrorInvalidValue;
   FParams p{};
   p.in[0] = static_cast<const float*>(a);
@@ -245,12 +354,20 @@ int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const 
   p.g = geometry(n, z, y, x);
   const long long blocks = p.g.boxes * n;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stats == nullptr) return (int)launch_conv<false, false>(p, blocks, cout, st);
+  const long long need = stats_workspace_bytes(n, z, y, x, cout);
+  if (need < 0 || ws == nullptr || ws_bytes < need) return (int)cudaErrorInvalidValue;
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.slope = slope;
+  p.part = static_cast<float*>(ws);
+  cudaError_t err = scale != nullptr ? launch_conv<true, true>(p, blocks, cout, st)
+                                     : launch_conv<false, true>(p, blocks, cout, st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)blocks, cdiv(cout, BN));
-  conv_fp32_kernel<<<grid, F_THREADS, F_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  const long long part_elems = (long long)n * p.g.boxes * 2 * cout;  // then reduce_rows'
+  return (int)mt::reduce_rows(p.part, static_cast<float*>(stats), p.part + part_elems, n,
+                              (int)p.g.boxes, 2 * cout, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -426,6 +543,25 @@ int mt_conv3d_same_fp32(const void* a, const void* b, const void* w, const void*
                         void* out, int n, int z, int y, int x, int ca, int cb, int cout,
                         int coutp, void* stream) {
   return run_conv(a, b, ca, cb, w, bias, out, n, z, y, x, cout, coutp, stream);
+}
+
+// Bytes of fp32 workspace kernel D's fp32 form takes at these sizes (-1:
+// sizes it does not take).
+long long mt_conv3d_stats_fp32_workspace(int n, int z, int y, int x, int cout) {
+  return stats_workspace_bytes(n, z, y, x, cout);
+}
+
+// Kernel D's fp32 form: out = conv(concat(a, b), w) + bias with, where scale
+// and shift (N, Ca) are given (b null), the prologue lrelu(a * scale +
+// shift) on a (halo 0), and stats (N, 2, Cout) of out; ws holds
+// mt_conv3d_stats_fp32_workspace bytes.
+int mt_conv3d_same_affine_fp32(const void* a, const void* b, const void* w, const void* bias,
+                               const void* scale, const void* shift, float slope, void* out,
+                               void* stats, void* ws, long long ws_bytes, int n, int z, int y,
+                               int x, int ca, int cb, int cout, int coutp, void* stream) {
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  return run_conv(a, b, ca, cb, w, bias, out, n, z, y, x, cout, coutp, stream, scale, shift,
+                  slope, stats, ws, ws_bytes);
 }
 
 // Bytes of fp32 workspace kernel C's fp32 form takes at these sizes: 0

@@ -363,6 +363,109 @@ cudaError_t launch(const HeadParams& p, const HeadPlan& plan, cudaStream_t strea
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel F's fp32 form, for the networks that compute in fp32 (`--fp32`,
+// nnUNetTrainerV2_fp32; the JAX package builds its head kernel in the
+// model's dtype, multitalent_tpu/ops/packed_unet.py:656): fp32 x, scale,
+// shift and weights, fp32 FFMA (no TF32), the prologue's x * s + t rounded
+// apart as the plain version rounds it, the activation on the fp32 value,
+// the bias added last, one cast to the output type.
+//
+// A simple kernel first: a block takes F32_TV voxels of one sample, stages
+// their contiguous run of F32_TV * C fp32 (coalesced; the prologue applied
+// as it is stored) in rows of C + 1 floats, and the head's weight
+// transposed to (C, KP) beside it. A thread owns one voxel and F32_KG
+// consecutive outputs of a group of them: per channel one shared load of
+// the voxel and two float4s of weights (the same for the warp), 8 FMAs. Its
+// stores are coalesced along the voxels of each output's row of the NCDHW
+// logits. What bounds it at the Liver's head (32 -> 3 channels): the bytes
+// (128 read, 12 written a voxel, ~0.6 FLOP a byte); at the flagship's
+// (30 -> 47 at fp32, 120 read and 188 written a voxel) the bytes too.
+// ---------------------------------------------------------------------------
+
+constexpr int F32_TV = 128;      // voxels a block
+constexpr int F32_THREADS = 256;  // 2 threads a voxel
+constexpr int F32_KG = 8;         // outputs a thread step
+
+__host__ __device__ constexpr int f32_kp(int k) { return (k + 15) / 16 * 16; }
+
+long long f32_smem(int c, int k) {
+  return 4LL * ((long long)F32_TV * (c + 1) + (long long)c * f32_kp(k) + f32_kp(k));
+}
+
+__device__ __forceinline__ void put_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename OutT, bool AFFINE>
+__global__ void __launch_bounds__(F32_THREADS)
+    seghead_fp32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                        const float* __restrict__ shift, const float* __restrict__ w,
+                        const float* __restrict__ bias, OutT* __restrict__ out, long long s,
+                        long long tiles_per_sample, int c, int cp, int k, float slope) {
+  extern __shared__ float sm[];
+  const int kp = f32_kp(k);
+  float* ys = sm;                          // [F32_TV][c + 1]
+  float* wt = ys + F32_TV * (c + 1);       // [c][kp], zero past k
+  float* bs = wt + c * kp;                 // [kp]
+  const int t = threadIdx.x;
+  const int n = (int)(blockIdx.x / tiles_per_sample);
+  const long long v0 = (blockIdx.x - (long long)n * tiles_per_sample) * F32_TV;
+  const int nv = (int)min((long long)F32_TV, s - v0);
+  for (int i = t; i < c * kp; i += F32_THREADS) {
+    const int ch = i / kp, kk = i - ch * kp;
+    wt[i] = kk < k ? w[(int64_t)kk * cp + ch] : 0.f;
+  }
+  for (int i = t; i < kp; i += F32_THREADS) bs[i] = (bias != nullptr && i < k) ? bias[i] : 0.f;
+  const float* src = x + ((int64_t)n * s + v0) * c;
+  for (int i = t; i < nv * c; i += F32_THREADS) {
+    const int v = i / c, ch = i - v * c;
+    float f = src[i];
+    if constexpr (AFFINE) {
+      f = __fadd_rn(__fmul_rn(f, scale[n * c + ch]), shift[n * c + ch]);
+      f = f >= 0.f ? f : f * slope;
+    }
+    ys[v * (c + 1) + ch] = f;
+  }
+  __syncthreads();
+  const int v = t % F32_TV, j = t / F32_TV;
+  if (v >= nv) return;
+  const float* yrow = ys + v * (c + 1);
+  for (int kb = j * F32_KG; kb < k; kb += 2 * F32_KG) {
+    float acc[F32_KG];
+#pragma unroll
+    for (int e = 0; e < F32_KG; ++e) acc[e] = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < c; ++ch) {
+      const float y = yrow[ch];
+      const float4 w0 = *reinterpret_cast<const float4*>(wt + ch * kp + kb);
+      const float4 w1 = *reinterpret_cast<const float4*>(wt + ch * kp + kb + 4);
+      const float wv[F32_KG] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int e = 0; e < F32_KG; ++e) acc[e] = fmaf(y, wv[e], acc[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < F32_KG; ++e) {
+      const int kk = kb + e;
+      if (kk < k) put_out(out + ((int64_t)n * k + kk) * s + v0 + v, acc[e] + bs[kk]);
+    }
+  }
+}
+
+template <typename OutT, bool AFFINE>
+cudaError_t launch_fp32(const float* x, const float* scale, const float* shift, const float* w,
+                        const float* bias, void* out, int n, long long s, int c, int cp, int k,
+                        float slope, cudaStream_t stream) {
+  auto fn = seghead_fp32_kernel<OutT, AFFINE>;
+  const long long smem = f32_smem(c, k);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (s + F32_TV - 1) / F32_TV;
+  fn<<<(unsigned)(tiles * n), F32_THREADS, smem, stream>>>(
+      x, scale, shift, w, bias, static_cast<OutT*>(out), s, tiles, c, cp, k, slope);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -418,6 +521,36 @@ int mt_seghead(const void* x, const void* scale, const void* shift, const void* 
                  : launch<__nv_bfloat16, false>(p, plan, st);
   } else {
     err = affine ? launch<float, true>(p, plan, st) : launch<float, false>(p, plan, st);
+  }
+  return (int)err;
+}
+
+// Kernel F's fp32 form: out (n, k, s) contiguous, fp32 (out_bf16 = 0) or
+// bf16, of x (n, s, c) fp32; w (kp, cp) fp32, the head's (k, c) weight
+// padded with zeros as mt_seghead's; bias (k,) fp32 or null; scale, shift
+// (n, c) fp32 or both null.
+int mt_seghead_fp32(const void* x, const void* scale, const void* shift, const void* w,
+                    const void* bias, void* out, int out_bf16, int n, long long s, int c, int k,
+                    int kp, int cp, float slope, void* stream) {
+  if (x == nullptr || w == nullptr || out == nullptr || n <= 0 || s <= 0 || c <= 0 ||
+      k <= 0 || kp != f32_kp(k) || cp < c || (scale == nullptr) != (shift == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 4 != 0 || f32_smem(c, k) > SMEM_MAX ||
+      (s + F32_TV - 1) / F32_TV * n >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const auto* xi = static_cast<const float*>(x);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* sh = static_cast<const float*>(shift);
+  const auto* wi = static_cast<const float*>(w);
+  const auto* bi = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool affine = scale != nullptr;
+  cudaError_t err;
+  if (out_bf16) {
+    err = affine ? launch_fp32<__nv_bfloat16, true>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st)
+                 : launch_fp32<__nv_bfloat16, false>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st);
+  } else {
+    err = affine ? launch_fp32<float, true>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st)
+                 : launch_fp32<float, false>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st);
   }
   return (int)err;
 }

@@ -283,8 +283,8 @@ class KernelConv3d(nn.Conv3d):
         super()._load_from_state_dict(*args, **kwargs)
 
     def prepared_weight(self, dtype: torch.dtype) -> cv.PreparedWeight:
-        """The weight in the kernel's layout and `dtype` (the model dtype;
-        the CUDA kernels take bfloat16), prepared once per weight (device,
+        """The weight in the kernel's layout and `dtype` (the model dtype:
+        bf16, or fp32 for the kernels' fp32 forms), prepared once per weight (device,
         storage, version counter, dtype) and cached: an in-place update (an
         optimizer step, a copy_ under no_grad) bumps the version and so
         prepares again; load_state_dict drops the cache."""
@@ -383,9 +383,10 @@ def kernel_launches_per_step(net: nn.Module, input_conv: nn.Module) -> dict[str,
 
 
 def fp32_forms(counts: dict[str, int]) -> dict[str, int]:
-    """Launch counts of kernels A, B and C renamed to their fp32 forms
-    (ops/conv3d.py: conv3d_same_fp32, ...), which an fp32 network launches
-    instead."""
+    """Launch counts of the kernels renamed to their fp32 forms
+    (ops/conv3d.py: conv3d_same_fp32, ..., conv3d_same_affine_fp32;
+    ops/fused_norm.py: channel_stats_fp32, affine_lrelu_fp32; ops/seghead.py:
+    seghead_fp32), which an fp32 network launches instead."""
     return {f"{k}_fp32": v for k, v in counts.items()}
 
 

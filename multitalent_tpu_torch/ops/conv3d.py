@@ -23,12 +23,13 @@ Counterparts of the Pallas kernels of multitalent_tpu:
   `conv3d_same_dual_stats` is its dual form (kernel B's conv plus the stats)
   for a decoder's first conv.
 
-Kernels A, B and C take bf16 (fp32 accumulation, bf16 out for A and B) and,
-for the networks that compute in fp32 (`--fp32`, nnUNetTrainerV2_fp32),
-fp32: each wrapper sends fp32 inputs to the kernel's fp32 form
-(`conv3d_same_fp32`, `conv3d_same_dual_fp32`, `conv3d_same_wgrad_fp32`,
-plain FFMA without TF32, fp32 out), which counts its launches on its own
-`launches`. Kernel D takes bf16 only (its fp32 form is ROADMAP queue 2).
+Kernels A, B, C and D take bf16 (fp32 accumulation, bf16 out for A, B
+and D) and, for the networks that compute in fp32 (`--fp32`,
+nnUNetTrainerV2_fp32), fp32: each wrapper sends fp32 inputs to the kernel's
+fp32 form (`conv3d_same_fp32`, `conv3d_same_dual_fp32`,
+`conv3d_same_wgrad_fp32`, `conv3d_same_affine_fp32` and
+`conv3d_same_dual_stats_fp32`, plain FFMA without TF32, fp32 out), which
+counts its launches on its own `launches`.
 
 Kernels A, B and D live in `csrc/conv3d_same.cu`, kernel C in
 `csrc/conv3d_wgrad.cu`, the fp32 forms in `csrc/conv3d_fp32.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
@@ -44,8 +45,8 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
 `conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`,
 `conv3d_same_affine_ref`, `conv3d_same_dual_stats_ref`) only for tensors that
-lie on the CPU. Each keeps a count of kernel launches in its `launches`
-attribute.
+lie on the CPU (the fp32 forms the same plain versions, in fp32). Each keeps
+a count of kernel launches in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -191,8 +192,8 @@ def conv3d_same_wgrad_dual_ref(a: torch.Tensor, b: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-# the input dtypes of kernels A, B and C (fp32: their fp32 forms); D takes bf16
-ABC_DTYPES = (torch.bfloat16, torch.float32)
+# the input dtypes of kernels A, B, C and D (fp32: their fp32 forms)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_input(t: torch.Tensor, name: str, like: torch.Tensor,
@@ -282,7 +283,7 @@ def conv3d_same(x: torch.Tensor, pw: PreparedWeight,
         return into(out, conv3d_same_ref(x, unprepare_conv3d_weight(pw), bias))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same: unsupported device {x.device}")
-    _check_input(x, "x", x, ABC_DTYPES)
+    _check_input(x, "x", x, KERNEL_DTYPES)
     if x.dtype == torch.float32:
         return conv3d_same_fp32(x, pw, bias, out)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
@@ -337,7 +338,7 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         return into(out, conv3d_same_dual_ref(a, b, unprepare_conv3d_weight(pw), bias))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_dual: unsupported device {a.device}")
-    _check_input(a, "a", a, ABC_DTYPES)
+    _check_input(a, "a", a, KERNEL_DTYPES)
     if a.dtype == torch.float32:
         return conv3d_same_dual_fp32(a, b, pw, bias, out)
     _check_input(b, "b", a)
@@ -409,7 +410,7 @@ def conv3d_same_wgrad(x: torch.Tensor, g: torch.Tensor,
         return into(out, conv3d_same_wgrad_ref(x, g))
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad: unsupported device {x.device}")
-    _check_input(x, "x", x, ABC_DTYPES)
+    _check_input(x, "x", x, KERNEL_DTYPES)
     if x.dtype == torch.float32:
         return conv3d_same_wgrad_fp32(x, g, out)
     _check_input(g, "g", x)
@@ -437,7 +438,7 @@ def conv3d_same_wgrad_dual(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
         return into(out, conv3d_same_wgrad_dual_ref(a, b, g))
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad_dual: unsupported device {a.device}")
-    _check_input(a, "a", a, ABC_DTYPES)
+    _check_input(a, "a", a, KERNEL_DTYPES)
     if a.dtype == torch.float32:
         return conv3d_same_wgrad_dual_fp32(a, b, g, out)
     _check_input(b, "b", a)
@@ -654,7 +655,8 @@ def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
     previous conv's raw output x (N, Z, Y, X, Cin) and the next norm's scale,
     shift (N, Cin) fp32; without scale and shift, conv(x) + bias and its
     stats. out is bf16, the stats are taken over its rounded values. Both are
-    written into the caller's `out` and `stats` where given.
+    written into the caller's `out` and `stats` where given. fp32 x goes to
+    the fp32 form (conv3d_same_affine_fp32).
 
     CUDA tensors launch the kernel; CPU tensors take conv3d_same_affine_ref."""
     if x.device.type == "cpu":
@@ -663,16 +665,11 @@ def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
         return into(out, ref), into(stats, ref_stats)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_affine: unsupported device {x.device}")
-    _check_input(x, "x", x)
+    _check_input(x, "x", x, KERNEL_DTYPES)
+    if x.dtype == torch.float32:
+        return conv3d_same_affine_fp32(x, pw, bias, scale, shift, negative_slope, out, stats)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
-    if (scale is None) != (shift is None):
-        raise ValueError("scale and shift must be given together")
-    n, cin = int(x.shape[0]), int(x.shape[-1])
-    for name, v in (("scale", scale), ("shift", shift)):
-        if v is not None and (v.dtype != torch.float32 or tuple(v.shape) != (n, cin)
-                              or v.device != x.device or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 ({n}, {cin}) tensor "
-                             f"on {x.device}")
+    _check_affine(x, scale, shift)
     result = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
                            (scale, shift, negative_slope), out, stats)
     conv3d_same_affine.launches += 1
@@ -690,7 +687,8 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
     """Kernel D, dual form: kernel B's conv over concat(a, b) and the stats of
     its bf16 output, (out, stats (N, 2, Cout) fp32), written into the
     caller's `out` and `stats` where given. Its launches count on
-    `conv3d_same_affine.launches`, as one kernel.
+    `conv3d_same_affine.launches`, as one kernel. fp32 inputs go to the fp32
+    form (conv3d_same_dual_stats_fp32).
 
     CUDA tensors launch the kernel; CPU tensors take
     conv3d_same_dual_stats_ref."""
@@ -699,7 +697,9 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         return into(out, ref), into(stats, ref_stats)
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_dual_stats: unsupported device {a.device}")
-    _check_input(a, "a", a)
+    _check_input(a, "a", a, KERNEL_DTYPES)
+    if a.dtype == torch.float32:
+        return conv3d_same_dual_stats_fp32(a, b, pw, bias, out, stats)
     _check_input(b, "b", a)
     if a.shape[:4] != b.shape[:4]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
@@ -707,6 +707,111 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
     result = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias, (), out, stats)
     conv3d_same_affine.launches += 1
+    return result
+
+
+def _check_affine(x: torch.Tensor, scale: torch.Tensor | None,
+                  shift: torch.Tensor | None) -> None:
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift must be given together")
+    n, cin = int(x.shape[0]), int(x.shape[-1])
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v is not None and (v.dtype != torch.float32 or tuple(v.shape) != (n, cin)
+                              or v.device != x.device or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 ({n}, {cin}) tensor "
+                             f"on {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# kernel D's fp32 form (csrc/conv3d_fp32.cu)
+# ---------------------------------------------------------------------------
+
+def _launch_stats_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
+                       bias: torch.Tensor | None, affine: tuple, out: torch.Tensor | None,
+                       stats: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run kernel D's fp32 form into `out` and `stats` (or new ones), with
+    the workspace the library reports (per-block stats rows and their
+    reduction's). `affine` is (scale, shift, slope), or () for the dual
+    form."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    dev = inputs[0].device
+    n, z, y, xd = (int(s) for s in inputs[0].shape[:4])
+    cs = [int(t.shape[-1]) for t in inputs] + [0]
+    out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.float32, dev)
+    stats = _buffer(stats, "stats", (n, 2, pw.cout), torch.float32, dev)
+    if out.numel() == 0:
+        return out, stats.zero_()
+    scale, shift, slope = affine if affine else (None, None, 0.0)
+    with torch.cuda.device(dev):
+        nbytes = lib.mt_conv3d_stats_fp32_workspace(n, z, y, xd, pw.cout)
+        if nbytes <= 0:
+            raise ValueError("kernel D's fp32 form does not take these sizes")
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        code = lib.mt_conv3d_same_affine_fp32(
+            inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
+            pw.w.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if shift is None else shift.data_ptr(), float(slope), out.data_ptr(),
+            stats.data_ptr(), ws.data_ptr(), nbytes, n, z, y, xd, cs[0], cs[1], pw.cout,
+            pw.coutp, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "mt_conv3d_same_affine_fp32")
+    return out, stats
+
+
+def conv3d_same_affine_fp32(x: torch.Tensor, pw: PreparedWeight,
+                            bias: torch.Tensor | None = None,
+                            scale: torch.Tensor | None = None,
+                            shift: torch.Tensor | None = None,
+                            negative_slope: float = 1e-2,
+                            out: torch.Tensor | None = None,
+                            stats: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's fp32 form: (out, stats) = (conv(lrelu(x * scale + shift))
+    + bias, its per-sample channel sum and sum of squares (N, 2, Cout)) of
+    fp32 x (N, Z, Y, X, Cin) with the fp32 prepared weight, fp32 FFMA (no
+    TF32), the SAME halo at 0; without scale and shift, conv(x) + bias and
+    its stats. conv3d_same_affine sends fp32 inputs here.
+
+    CUDA tensors launch the kernel; CPU tensors take conv3d_same_affine_ref."""
+    if x.device.type == "cpu":
+        ref, ref_stats = conv3d_same_affine_ref(x, unprepare_conv3d_weight(pw), bias, scale,
+                                                shift, negative_slope)
+        return into(out, ref), into(stats, ref_stats)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_same_affine_fp32: unsupported device {x.device}")
+    _check_fp32([("x", x)])
+    _check_weight(pw, (int(x.shape[-1]),), x, bias)
+    _check_affine(x, scale, shift)
+    result = _launch_stats_fp32([x], pw, bias, (scale, shift, negative_slope) if scale is not
+                                None else (), out, stats)
+    conv3d_same_affine_fp32.launches += 1
+    return result
+
+
+conv3d_same_affine_fp32.launches = 0
+
+
+def conv3d_same_dual_stats_fp32(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
+                                bias: torch.Tensor | None = None,
+                                out: torch.Tensor | None = None,
+                                stats: torch.Tensor | None = None
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's fp32 form, dual: kernel B's fp32 conv over concat(a, b)
+    and the stats of its output. Its launches count on
+    `conv3d_same_affine_fp32.launches`, as one kernel.
+
+    CUDA tensors launch the kernel; CPU tensors take
+    conv3d_same_dual_stats_ref."""
+    if a.device.type == "cpu":
+        ref, ref_stats = conv3d_same_dual_stats_ref(a, b, unprepare_conv3d_weight(pw), bias)
+        return into(out, ref), into(stats, ref_stats)
+    if a.device.type != "cuda":
+        raise ValueError(f"conv3d_same_dual_stats_fp32: unsupported device {a.device}")
+    _check_fp32([("a", a), ("b", b)])
+    _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
+    result = _launch_stats_fp32([a, b], pw, bias, (), out, stats)
+    conv3d_same_affine_fp32.launches += 1
     return result
 
 

@@ -19,10 +19,13 @@ unpacked), on channels-last tensors (N, *spatial, C):
   scale and shift from stats (var not clamped, eps 1e-5) and the normalize
   pass that uses them.
 
-Both kernels live in `csrc/fused_norm.cu`. Each wrapper launches its kernel
-for CUDA tensors (or raises) and takes its plain PyTorch version
-(`channel_stats_ref`, `affine_lrelu_ref`) only for CPU tensors; each keeps a
-count of kernel launches in its `launches` attribute.
+Both kernels live in `csrc/fused_norm.cu`, each a template over the input
+type: bf16, and fp32 for the networks that compute in fp32 (`--fp32`,
+nnUNetTrainerV2_fp32; `channel_stats_fp32`, `affine_lrelu_fp32`, to which
+the two wrappers send fp32 input). Each wrapper launches its kernel for CUDA
+tensors (or raises) and takes its plain PyTorch version (`channel_stats_ref`,
+`affine_lrelu_ref`) only for CPU tensors; each keeps a count of kernel
+launches in its `launches` attribute, the fp32 forms their own.
 """
 from __future__ import annotations
 
@@ -84,9 +87,10 @@ def stats_affine(stats: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_x(x: torch.Tensor, name: str) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
+def _check_x(x: torch.Tensor, name: str, dtype: torch.dtype = torch.bfloat16) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {str(dtype).removeprefix('torch.')}, "
+                        f"got {x.dtype}")
     if x.dim() < 2 or not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous channels-last "
                          f"(N, ..., C) tensor, got {tuple(x.shape)}")
@@ -105,12 +109,26 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     squares of x (N, ..., C), deterministic; one launch where a sample is
     one chunk of the kernel's, else two (the partials, then their sum).
 
-    CUDA tensors launch the kernel; CPU tensors take channel_stats_ref."""
+    CUDA tensors launch the kernel (fp32 x its fp32 form,
+    channel_stats_fp32); CPU tensors take channel_stats_ref."""
     if x.device.type == "cpu":
         return channel_stats_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"channel_stats: unsupported device {x.device}")
+    if x.dtype == torch.float32:
+        return channel_stats_fp32(x)
     _check_x(x, "channel_stats")
+    stats = _launch_stats(x, "mt_channel_stats")
+    channel_stats.launches += 1
+    return stats
+
+
+channel_stats.launches = 0
+
+
+def _launch_stats(x: torch.Tensor, entry: str) -> torch.Tensor:
+    """Run the stats pass's C entry `entry` (its workspace query is
+    `entry`'s name with _workspace at the end) on checked x."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     n, c = int(x.shape[0]), int(x.shape[-1])
@@ -119,19 +137,34 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return stats.zero_()
     with torch.cuda.device(x.device):
-        nbytes = lib.mt_channel_stats_workspace(n, s, c)
+        nbytes = getattr(lib, entry + "_workspace")(n, s, c)
         if nbytes < 0:
-            raise ValueError(f"channel_stats: the kernel does not take {tuple(x.shape)}")
+            raise ValueError(f"{entry}: the kernel does not take {tuple(x.shape)}")
         ws = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device) if nbytes else None
-        code = lib.mt_channel_stats(x.data_ptr(), stats.data_ptr(),
-                                    None if ws is None else ws.data_ptr(), nbytes, n, s, c,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "mt_channel_stats")
-    channel_stats.launches += 1
+        code = getattr(lib, entry)(x.data_ptr(), stats.data_ptr(),
+                                   None if ws is None else ws.data_ptr(), nbytes, n, s, c,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, entry)
     return stats
 
 
-channel_stats.launches = 0
+def channel_stats_fp32(x: torch.Tensor) -> torch.Tensor:
+    """Kernel E's fp32 form, stats: (N, 2, C) fp32 per-sample channel sum and
+    sum of squares of fp32 x (N, ..., C), deterministic. channel_stats sends
+    fp32 input here.
+
+    CUDA tensors launch the kernel; CPU tensors take channel_stats_ref."""
+    if x.device.type == "cpu":
+        return channel_stats_ref(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"channel_stats_fp32: unsupported device {x.device}")
+    _check_x(x, "channel_stats_fp32", torch.float32)
+    stats = _launch_stats(x, "mt_channel_stats_fp32")
+    channel_stats_fp32.launches += 1
+    return stats
+
+
+channel_stats_fp32.launches = 0
 
 
 def affine_lrelu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -140,11 +173,14 @@ def affine_lrelu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     (N, ..., C), scale and shift (N, C) fp32, in the rounding order
     `cast_first` picks (see affine_lrelu_ref).
 
-    CUDA tensors launch the kernel; CPU tensors take affine_lrelu_ref."""
+    CUDA tensors launch the kernel (fp32 x its fp32 form,
+    affine_lrelu_fp32); CPU tensors take affine_lrelu_ref."""
     if x.device.type == "cpu":
         return affine_lrelu_ref(x, scale, shift, negative_slope, cast_first)
     if x.device.type != "cuda":
         raise ValueError(f"affine_lrelu: unsupported device {x.device}")
+    if x.dtype == torch.float32:
+        return affine_lrelu_fp32(x, scale, shift, negative_slope)
     _check_x(x, "affine_lrelu")
     _check_per_sample(scale, "scale", x)
     _check_per_sample(shift, "shift", x)
@@ -165,6 +201,39 @@ def affine_lrelu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 affine_lrelu.launches = 0
+
+
+def affine_lrelu_fp32(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                      negative_slope: float = 1e-2) -> torch.Tensor:
+    """Kernel E's fp32 form, apply: lrelu(x * scale + shift) of fp32 x (N,
+    ..., C), the product and the sum rounded apart (both rounding orders of
+    the bf16 form are this one in fp32). affine_lrelu sends fp32 input here.
+
+    CUDA tensors launch the kernel; CPU tensors take affine_lrelu_ref."""
+    if x.device.type == "cpu":
+        return affine_lrelu_ref(x, scale, shift, negative_slope, True)
+    if x.device.type != "cuda":
+        raise ValueError(f"affine_lrelu_fp32: unsupported device {x.device}")
+    _check_x(x, "affine_lrelu_fp32", torch.float32)
+    _check_per_sample(scale, "scale", x)
+    _check_per_sample(shift, "shift", x)
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    n, c = int(x.shape[0]), int(x.shape[-1])
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        code = lib.mt_affine_lrelu_fp32(x.data_ptr(), y.data_ptr(), scale.data_ptr(),
+                                        shift.data_ptr(), n, x.numel() // (n * c), c,
+                                        float(negative_slope),
+                                        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "mt_affine_lrelu_fp32")
+    affine_lrelu_fp32.launches += 1
+    return y
+
+
+affine_lrelu_fp32.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,11 @@ no statistics pass runs between two convs. Per stage:
 - the inference head: kernel F, with the last norm in its prologue, writing
   NCDHW logits (bf16 for a bf16 model, packed_unet.py:822, else fp32).
 
+An fp32 network (`--fp32`, nnUNetTrainerV2_fp32) runs the same route on
+the fp32 forms of D, E and F (and, backward, of A and C), as the JAX package
+builds its fused kernels in the model's dtype (packed_unet.py:631-656): each
+wrapper sends fp32 input to its kernel's fp32 form.
+
 Training (`differentiable=True`) runs the chain through the autograd
 functions of kernel D (backward by kernels A and C, as
 pallas_conv.py:_affine_fast_bwd), and everything around it in plain torch with
@@ -193,10 +198,9 @@ def _fusable(net, switch: str) -> bool:
     too: the JAX package's `packable` test never looks at the block order
     (packed_unet.py:852-857), so its packed route would train
     `_lReLU_convReLUIN` as norm -> activation; the port does not inherit
-    that. Kernels D, E and F take bf16: an fp32
-    network on the card under the switch raises, never taking the unfused
-    route quietly (on the CPU the route runs the kernels' plain versions,
-    which compute fp32 as the JAX package's fused route does)."""
+    that. An fp32 network takes the route on the fp32 forms of the kernels
+    (on the CPU the route runs the kernels' plain versions, which compute
+    fp32 as the JAX package's fused route does)."""
     if not isinstance(net, GenericUNet):
         warnings.warn(f"{switch}=1: the fused route takes a GenericUNet only; "
                       f"{type(net).__name__} runs its own forward", stacklevel=3)
@@ -212,11 +216,6 @@ def _fusable(net, switch: str) -> bool:
                       "GenericUNet of conv -> nonlin -> norm blocks (nonlin_first) runs its "
                       "own forward", stacklevel=3)
         return False
-    if net.dtype != torch.bfloat16 and any(p.is_cuda for p in net.parameters()):
-        raise NotImplementedError(
-            f"{switch}=1 with a {net.dtype} network: kernels D, E and F take bfloat16, and "
-            "their fp32 forms are not written (ROADMAP queue 2, \"fp32 forms of D, E and "
-            f"F\"); unset {switch} to run the unfused route on the fp32 forms of A, B and C")
     return True
 
 

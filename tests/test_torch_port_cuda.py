@@ -186,7 +186,7 @@ def test_conv3d_same_wgrad_is_bit_equal_from_call_to_call(device, shape, cin, co
 def test_wrappers_refuse_what_the_kernel_does_not_take(device):
     """float16 input, an fp32 input with a bf16 prepared weight (the fp32
     form takes an fp32 weight), strides, a weight for other inputs; kernel
-    D's prologue form takes bf16 only."""
+    D takes bf16 or fp32 (its fp32 form), not float16."""
     x = torch.zeros(1, 4, 4, 4, 16, device=device)
     pw = cv.prepare_conv3d_weight(torch.zeros(16, 16, 3, 3, 3, device=device))
     before = cv.conv3d_same.launches, cv.conv3d_same_fp32.launches
@@ -199,8 +199,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError):
         cv.conv3d_same_dual(x.to(torch.bfloat16), x.to(torch.bfloat16), pw)
     with pytest.raises(TypeError):
-        cv.conv3d_same_affine(x, cv.prepare_conv3d_weight(
+        cv.conv3d_same_affine(x.half(), cv.prepare_conv3d_weight(
             torch.zeros(16, 16, 3, 3, 3, device=device), dtype=torch.float32))
+    with pytest.raises(ValueError):
+        cv.conv3d_same_affine(x, pw)  # float32 input, bfloat16 weight
     assert (cv.conv3d_same.launches, cv.conv3d_same_fp32.launches) == before
 
 
@@ -307,18 +309,177 @@ def test_fp32_training_step_through_the_fp32_forms(device):
 
 
 def test_fused_switches_refuse_an_fp32_network_on_the_card(device, monkeypatch):
-    """Kernels D, E and F take bf16: an fp32 GenericUNet on the card under
-    either fused switch raises, naming the ROADMAP row, and never runs the
-    unfused route quietly."""
+    """An fp32 GenericUNet on the card under either fused switch runs the
+    fused route on the fp32 forms of D, E and F (and, backward, of A and
+    C): exactly the route's per-forward and per-step counts of the fp32
+    forms, no bf16 kernel launched, the logits within FP32_RTOL of the
+    route's plain fp32 versions and of the unfused fp32 network, the
+    training loss within 1e-4 relative of the unfused one's."""
+    from multitalent_tpu_torch.models.blocks import fp32_forms
     from multitalent_tpu_torch.models.generic_unet import GenericUNet
-    from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
-    net = GenericUNet(1, 8, 3, [[2, 2, 2]], [[3, 3, 3]] * 2, dtype=torch.float32).to(device)
-    for switch, make in (("MTTPU_FUSED_NORM", make_inference_forward),
-                         ("MTTPU_FUSED_TRAIN", make_train_forward)):
-        monkeypatch.setenv(switch, "1")
-        with pytest.raises(NotImplementedError, match="fp32 forms of D, E and F"):
-            make(net)
-        monkeypatch.delenv(switch)
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    from multitalent_tpu_torch.ops import seghead as sg
+    from multitalent_tpu_torch.ops.fused_unet import (make_inference_forward,
+                                                      make_train_forward, unet_forward_fused)
+    torch.manual_seed(0)
+    net = GenericUNet(1, 16, 3, [[2, 2, 2], [2, 2, 2], [1, 2, 2]], [[3, 3, 3]] * 4,
+                      dtype=torch.float32).to(device)
+    with torch.no_grad():
+        for m in net.modules():  # norm affines off (1, 0)
+            if isinstance(m, torch.nn.InstanceNorm3d) and m.weight is not None:
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.5, 0.5)
+    x = torch.randn(2, 1, 16, 32, 32, device=device)
+    counters = {"conv3d_same_affine_fp32": cv.conv3d_same_affine_fp32,
+                "channel_stats_fp32": fn.channel_stats_fp32,
+                "affine_lrelu_fp32": fn.affine_lrelu_fp32, "seghead_fp32": sg.seghead_fp32,
+                "conv3d_same_fp32": cv.conv3d_same_fp32,
+                "conv3d_same_dual_fp32": cv.conv3d_same_dual_fp32,
+                "conv3d_same_wgrad_fp32": cv.conv3d_same_wgrad_fp32,
+                "conv3d_same": cv.conv3d_same, "conv3d_same_dual": cv.conv3d_same_dual,
+                "conv3d_same_wgrad": cv.conv3d_same_wgrad,
+                "conv3d_same_affine": cv.conv3d_same_affine,
+                "channel_stats": fn.channel_stats, "affine_lrelu": fn.affine_lrelu,
+                "seghead": sg.seghead}
+
+    def counted(fn_):
+        before = {k: c.launches for k, c in counters.items()}
+        result = fn_()
+        torch.cuda.synchronize()
+        return result, {k: c.launches - before[k] for k, c in counters.items()}
+
+    monkeypatch.setenv("MTTPU_FUSED_NORM", "1")
+    forward = make_inference_forward(net)
+    monkeypatch.delenv("MTTPU_FUSED_NORM")
+    got, launches = counted(lambda: forward(x))
+    assert launches == {k: 0 for k in counters} | fp32_forms(
+        net.fused_kernel_launches_per_forward())
+    with torch.no_grad():
+        plain = unet_forward_fused(net, x, use_kernels=False)
+        unfused = net(x, use_kernels=False)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _fp32_err(got, plain) <= FP32_RTOL
+    assert _fp32_err(got, unfused) <= FP32_RTOL
+
+    monkeypatch.setenv("MTTPU_FUSED_TRAIN", "1")
+    train_forward = make_train_forward(net)
+    monkeypatch.delenv("MTTPU_FUSED_TRAIN")
+
+    def step():
+        net.zero_grad()
+        loss = sum(o.square().mean() for o in train_forward(x, deep_supervision=True))
+        loss.backward()
+        return loss.item()
+
+    loss, launches = counted(step)
+    assert launches == {k: 0 for k in counters} | fp32_forms(
+        net.fused_kernel_launches_per_step())
+    net.zero_grad()
+    ref = sum(o.square().mean() for o in net(x, use_kernels=False, deep_supervision=True))
+    assert abs(loss - ref.item()) <= 1e-4 * abs(ref.item())
+
+
+@pytest.mark.parametrize("n,spatial,c,cout,affine", [
+    (2, (16, 16, 16), 32, 32, True),    # the Liver's stage 0, N=2
+    (2, (16, 16, 16), 32, 32, False),
+    (1, (5, 7, 19), 30, 60, True),      # ragged volume, stage-0 width
+    (1, (3, 5, 9), 13, 47, True),       # odd C and Cout
+    (1, (4, 4, 4), 320, 320, True),     # deepest stage
+])
+def test_fp32_form_of_d_matches_plain(device, n, spatial, c, cout, affine):
+    """Into NaN-filled out and stats, a shift of +4 so that a normalized
+    halo would show at every face; two calls bit-equal; launches on its own
+    count."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, (n, *spatial, c)).to(device)
+    w = _rand(rng, (cout, c, 3, 3, 3), 0.05).to(device)
+    bias = _rand(rng, (cout,)).to(device)
+    s = (torch.from_numpy(rng.random((n, c)).astype(np.float32)) + 0.5).to(device)
+    t = (_rand(rng, (n, c)) + 4.0).to(device)
+    sc, sh = (s, t) if affine else (None, None)
+    pw = cv.prepare_conv3d_weight(w, dtype=torch.float32)
+    out = torch.full((n, *spatial, cout), float("nan"), device=device)
+    stats = torch.full((n, 2, cout), float("nan"), device=device)
+    before = cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches
+    got, got_stats = cv.conv3d_same_affine(x, pw, bias, sc, sh, 1e-2, out=out, stats=stats)
+    again, again_stats = cv.conv3d_same_affine(x, pw, bias, sc, sh, 1e-2)
+    ref, ref_stats = cv.conv3d_same_affine_ref(x, w, bias, sc, sh, 1e-2)
+    torch.cuda.synchronize()
+    assert got is out and got_stats is stats
+    assert (cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches) == (
+        before[0] + 2, before[1])
+    assert torch.equal(got, again) and torch.equal(got_stats, again_stats)
+    assert _fp32_err(got, ref) <= FP32_RTOL
+    assert _fp32_err(got_stats, ref_stats) <= FP32_RTOL
+
+
+@pytest.mark.parametrize("n,spatial,ca,cb,cout", [
+    (2, (16, 16, 16), 32, 32, 32),     # the Liver's last decoder stage
+    (1, (6, 9, 11), 20, 12, 16),       # unequal inputs, ragged volume
+])
+def test_fp32_form_of_d_dual_matches_plain(device, n, spatial, ca, cb, cout):
+    rng = np.random.default_rng(12)
+    a = _rand(rng, (n, *spatial, ca)).to(device)
+    b = _rand(rng, (n, *spatial, cb)).to(device)
+    w = _rand(rng, (cout, ca + cb, 3, 3, 3), 0.05).to(device)
+    bias = _rand(rng, (cout,)).to(device)
+    pw = cv.prepare_conv3d_weight(w, (ca, cb), torch.float32)
+    before = cv.conv3d_same_affine_fp32.launches
+    got, got_stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+    ref, ref_stats = cv.conv3d_same_dual_stats_ref(a, b, w, bias)
+    torch.cuda.synchronize()
+    assert cv.conv3d_same_affine_fp32.launches == before + 1
+    assert _fp32_err(got, ref) <= FP32_RTOL and _fp32_err(got_stats, ref_stats) <= FP32_RTOL
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16, 32), (1, 5, 7, 9, 30), (1, 6, 6, 6, 320),
+                                   (2, 4, 6, 8, 13), (1, 3, 5, 7, 1)])
+def test_fp32_form_of_e_matches_plain(device, shape):
+    """Stats (two calls bit-equal) and apply, fp32 in and out."""
+    from multitalent_tpu_torch.ops import fused_norm as fn
+    rng = np.random.default_rng(13)
+    x = (_rand(rng, shape) * 3 + 1).to(device)
+    c = shape[-1]
+    sc = (torch.from_numpy(rng.random((shape[0], c)).astype(np.float32)) + 0.5).to(device)
+    sh = _rand(rng, (shape[0], c)).to(device)
+    before = (fn.channel_stats_fp32.launches, fn.affine_lrelu_fp32.launches,
+              fn.channel_stats.launches, fn.affine_lrelu.launches)
+    stats, again = fn.channel_stats(x), fn.channel_stats(x)
+    y = fn.affine_lrelu(x, sc, sh, 1e-2, True)
+    torch.cuda.synchronize()
+    assert (fn.channel_stats_fp32.launches, fn.affine_lrelu_fp32.launches,
+            fn.channel_stats.launches, fn.affine_lrelu.launches) == (
+        before[0] + 2, before[1] + 1, *before[2:])
+    assert torch.equal(stats, again)
+    assert _fp32_err(stats, fn.channel_stats_ref(x)) <= FP32_RTOL
+    assert y.dtype == torch.float32
+    assert _fp32_err(y, fn.affine_lrelu_ref(x, sc, sh, 1e-2, True)) <= FP32_RTOL
+
+
+@pytest.mark.parametrize("shape,k,out_dtype,affine", [
+    ((2, 16, 16, 16, 32), 3, torch.float32, True),    # the Liver's head
+    ((1, 6, 10, 12, 30), 47, torch.float32, True),    # the flagship's, ragged tiles
+    ((1, 4, 8, 9, 13), 5, torch.bfloat16, False),     # odd widths, no prologue
+])
+def test_fp32_form_of_f_matches_plain(device, shape, k, out_dtype, affine):
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(14)
+    n, c = shape[0], shape[-1]
+    x = _rand(rng, shape).to(device)
+    w = _rand(rng, (k, c, 1, 1, 1), 0.3).to(device)
+    bias = _rand(rng, (k,)).to(device)
+    sc = (torch.from_numpy(rng.random((n, c)).astype(np.float32)) + 0.5).to(device)
+    sh = _rand(rng, (n, c)).to(device)
+    pro = (sc, sh) if affine else (None, None)
+    out = torch.full((n, k, *shape[1:4]), float("nan"), dtype=out_dtype, device=device)
+    before = sg.seghead_fp32.launches, sg.seghead.launches
+    got = sg.seghead(x, w, bias, *pro, 1e-2, out_dtype, out=out)
+    ref = sg.seghead_ref(x, w, bias, *pro, 1e-2, torch.float32)
+    torch.cuda.synchronize()
+    assert got is out and (sg.seghead_fp32.launches, sg.seghead.launches) == (
+        before[0] + 1, before[1])
+    bound = FP32_RTOL if out_dtype == torch.float32 else 2 ** -8
+    assert _fp32_err(got.float(), ref) <= bound
 
 
 # kernel C: fp32 dw against the fp32 plain version on the same bf16 inputs;
