@@ -10,7 +10,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the flagship gives it, with the kernel's median time beside the plain
    version's (fp32, TF32 off) and cuDNN's bf16 op: A and B at the forward's
    shapes (N=1), then A at the training batch (N=2), each into a NaN-filled
-   buffer, with the plan it took; kernel C (dw) single at A's shapes and
+   buffer, with the plan it took (the ring body or, at 16-byte rows with
+   streamed weights, the wgmma body of csrc/conv3d_wgmma.cu: a plan of A or
+   B that names conv3d_same_kernel fails the run); kernel C (dw) single at
+   A's shapes and
    dual at B's (each
    into a NaN-filled dw buffer, with its bound and write path: dw directly
    or split partials), and A in the dx role (C -> 2C channels, the dual
@@ -35,7 +38,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `multitalent_tpu_torch.cli.predict_multitalent.main` with mirror TTA; the
    labelmap and all 47 region NIfTIs must exist at the input's shape, and
    each kernel's launch count must equal its launches per forward times the
-   forwards run;
+   forwards run; A and B must have run the wgmma body, and every counted run
+   of the script fails where A or B reached conv3d_same_kernel;
 3b. the same with MTTPU_FUSED_NORM=1 (the fused conv -> norm route, kernels
    D, E and F): exact launch counts of the fused route, every region mask
    against the unfused run's, seconds per case of both routes (3, 3b and
@@ -72,7 +76,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    x 8 mirror combinations), one step's dw of every kernel conv must match
    the plain version on the same bf16 inputs, and the written model folder
    must predict through predict_multitalent; prints seconds per step, peak
-   memory and validation seconds per case;
+   memory, validation seconds per case and A's and B's launches by body
+   (the run's and one step's);
 5b. the same with MTTPU_FUSED_TRAIN=1 (kernel D forward, A and C backward)
    and its validation under MTTPU_FUSED_NORM=1 (D, E, F);
 5c. `-val --val_folder validation_fused` under MTTPU_FUSED_NORM=1 on phase
@@ -96,7 +101,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    packed conv at the flagship's stages 0 and 1; the center-view conv and
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
-   the plain version's and the library call's;
+   the plain version's and the library call's; then the wgmma body's
+   readings (probes/wgmma_forms.py): one wgmma of a TMA-staged box at a
+   tap's descriptor offset against torch (n 64 and 128, halo and far-edge
+   tiles), the body as it is, copies only and products only at the
+   flagship's shapes it runs, and the host's us a call;
 8. the residual-encoder UNet (FabiansUNet) at full width, the MultiTalent
    resenc plans (the flagship's with a leading (1,1,1) pool, blocks
    (1,2,3,4,4,4) and (1,1,1,1,1)): 8a `cli.train` with
@@ -266,7 +275,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `launches_zoo`; then the rows of the fp32
    forms of A, B and C (14a's times, 14b's launches) and of D, E and F (14a's
    times, 14b's fused launches); A's and B's rows add phase 16a's
-   `launches_install`; then the result line.
+   `launches_install` and `launches_by_body` (phases 3 and 5, and one step
+   of 5); the wgmma body's row (`conv3d_same_wgmma`) its launches in phases
+   3 and 5, its phase-2 shapes with their plans, and phase 6's probe, forms
+   and host times; then the result line.
    Each phase prints its seconds.
 
 It exits non-zero and prints no result without a CUDA device. It imports no JAX.
@@ -699,11 +711,12 @@ def phase_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
                      kernel(*ins, pw, bias, out=_nan_filled((n, *sp, cout), dev)), ref, bound)
         x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
         w_cl = w_bf.contiguous(memory_format=torch.channels_last_3d)
+        cudnn = lambda: F.conv3d(x_cl, w_cl, bias.to(torch.bfloat16), padding=1)  # noqa: E731
         report(name, splits, cout, sp, n, err, bound,
                _median_ms(lambda: kernel(*ins, pw, bias)),
-               _median_ms(lambda: plain(*ins32, w_bf.float(), bias)),
-               _median_ms(lambda: F.conv3d(x_cl, w_cl, bias.to(torch.bfloat16), padding=1)))
-        _plan(results[name][-1], "a" if name == "conv3d_same" else "b")
+               _median_ms(lambda: plain(*ins32, w_bf.float(), bias)), _median_ms(cudnn))
+        _plan(results[name][-1], "a" if name == "conv3d_same" else "b",
+              lambda: kernel(*ins, pw, bias), cudnn)
         del ins, ins32, ref, x_cl
 
     # backward at the training batch: dw by kernel C (single at A's shapes,
@@ -749,23 +762,32 @@ def phase_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
                          cv.conv3d_same_dx(g, w, out=_nan_filled((n, *sp, sum(splits)), dev)),
                          ref, bound)
             wt_cl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+            cudnn = lambda: F.conv3d(g_cl, wt_cl, padding=1)  # noqa: E731
             report("conv3d_same_dx", (cout,), sum(splits), sp, n, err, bound,
                    _median_ms(lambda: cv.conv3d_same_dx(g, w)),
-                   _median_ms(lambda: cv.conv3d_same_ref(g32, wt)),
-                   _median_ms(lambda: F.conv3d(g_cl, wt_cl, padding=1)))
-            _plan(results["conv3d_same_dx"][-1], "a")
+                   _median_ms(lambda: cv.conv3d_same_ref(g32, wt)), _median_ms(cudnn))
+            # conv3d_same_dx prepares the flipped weight a call; kernel A alone
+            # on that weight prepared once, single and queued, beside cuDNN's
+            # call on the flipped weight
+            pw_t = cv.prepare_conv3d_weight(w.flip(2, 3, 4).transpose(0, 1))
+            row = results["conv3d_same_dx"][-1]
+            row["prepared_ms"] = _median_ms(lambda: cv.conv3d_same(g, pw_t))
+            print(f"  kernel A on the weight prepared once: {row['prepared_ms']:.3f} ms")
+            _plan(row, "a", lambda: cv.conv3d_same(g, pw_t), cudnn)
             del ref
         del g, g32, g_cl
     torch.cuda.empty_cache()
     return results
 
 
-def _plan(row: dict, form: str) -> None:
+def _plan(row: dict, form: str, kernel=None, cudnn=None) -> None:
     """The plan of kernel A, B, D or D's dual form (`form`, as
     ops.conv3d.conv3d_same_plan takes it) at a timed shape into its row (and
     a line), with the shape's bound: which body, chunks staged at once,
     weights resident or streamed, warps a block, ring stages, K splits,
-    blocks."""
+    blocks. With `kernel` and `cudnn` (A's and B's calls), their queued
+    times too: a single call's time also holds the host's work before the
+    launch (tens of us for these wrappers)."""
     from multitalent_tpu_torch.ops import conv3d as cv
     splits, n, sp = tuple(row["splits"]), row["n"], tuple(row["spatial"])
     plan = cv.conv3d_same_plan(n, *sp, splits[0] if len(splits) == 1 else splits, row["cout"],
@@ -773,8 +795,17 @@ def _plan(row: dict, form: str) -> None:
     row["plan"] = plan
     row.update(_affine_bound(sum(splits), row["cout"], sp, n, form == "d")
                if form.startswith("d") else _conv_bound(sum(splits), row["cout"], sp, n))
+    if form in ("a", "b") and not (plan["ring"] or plan["wgmma"]):
+        raise AssertionError(f"kernel {form.upper()} at {sp} N={n}: the plan names "
+                             "conv3d_same_kernel")
     body = ("ring body" if plan["ring"] else
+            f"the wgmma body (TMA halo boxes, BN {plan['wgmma_bn']}, K splits "
+            f"{plan['wgmma_splits']}, {plan['wgmma_blocks']} blocks, "
+            f"{plan['wgmma_smem_bytes']} B shared)" if plan["wgmma"] else
             "the older body (16-byte rows, streamed weights, whole K loops)")
+    if kernel is not None:
+        row.update(queued_ms=_queued_ms(kernel), cudnn_queued_ms=_queued_ms(cudnn))
+        print(f"  queued: kernel {row['queued_ms']:.3f} ms, cuDNN {row['cudnn_queued_ms']:.3f} ms")
     print(f"  plan: {body}; ring: G {plan['g']}, weights "
           f"{'resident' if plan['resident'] else 'streamed'}, 16 warps "
           f"(groups split {'K' if plan['ksplit'] else 'N'}) x "
@@ -1107,13 +1138,34 @@ def _kernel_counters() -> dict:
             **grid_overhead_probe.kernels()}
 
 
+# kernels A's and B's launches by body (ops.conv3d.BODIES) in the last
+# _run_counted run, and in each _recording block by wrapper name
+BODY_COUNTS: dict = {}
+RECORDED_BODIES: dict = {}
+
+
+def _check_bodies(counts: dict, where: str) -> None:
+    """Kernels A and B never reach conv3d_same_kernel (the older body): at
+    16-byte rows with streamed weights they run the wgmma body."""
+    older = {name: c["older"] for name, c in counts.items() if c["older"]}
+    if older:
+        raise AssertionError(f"{where}: A/B launches on conv3d_same_kernel {older}")
+
+
 def _run_counted(fn):
     """fn() with every kernel's launch count set to 0 just before it; returns
-    (fn's result, the counts read just after)."""
+    (fn's result, the counts read just after). Kernels A's and B's counts by
+    body land in BODY_COUNTS; a launch of either on the older body fails."""
     counters = _kernel_counters()
     for k in counters.values():
         k.launches = 0
+        if hasattr(k, "launches_by_body"):
+            k.launches_by_body = dict.fromkeys(k.launches_by_body, 0)
     result = fn()
+    BODY_COUNTS.clear()
+    BODY_COUNTS.update({name: dict(k.launches_by_body) for name, k in counters.items()
+                        if hasattr(k, "launches_by_body")})
+    _check_bodies(BODY_COUNTS, "a counted run")
     return result, {name: k.launches for name, k in counters.items()}
 
 
@@ -1185,6 +1237,7 @@ def phase_main_path(workdir: str, fused: bool = False) -> dict:
     expect = _expect(per_forward, forwards)
     if launches != expect or any(launches[k] == 0 for k in per_forward):
         raise AssertionError(f"{route} launches {launches}, expected {expect}")
+    bodies = _wgmma_launched(route, () if fused else ("conv3d_same", "conv3d_same_dual"))
     seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
     if seg.shape != CASE_SHAPE or not set(np.unique(seg).tolist()) <= set(range(47)):
         raise AssertionError(f"labelmap {seg.shape} {np.unique(seg)[:5]}")
@@ -1204,7 +1257,17 @@ def phase_main_path(workdir: str, fused: bool = False) -> dict:
           f"export {case['export_s']:.2f}; the rest loads the model and "
           f"preprocesses on the host)")
     return {"launches": launches, "seconds_per_case": wall, "predict_s": case["predict_s"],
-            "forwards": forwards, "out": out}
+            "forwards": forwards, "out": out, "launches_by_body": bodies}
+
+
+def _wgmma_launched(route: str, required=("conv3d_same", "conv3d_same_dual")) -> dict:
+    """Kernels A's and B's launches by body in the run _run_counted just
+    made (printed); each wrapper of `required` must have run the wgmma body."""
+    bodies = {k: dict(v) for k, v in BODY_COUNTS.items()}
+    if not all(bodies[k]["wgmma"] for k in required):
+        raise AssertionError(f"{route}: the wgmma body was not launched: {bodies}")
+    print(f"A/B launches by body ({route}): {bodies}")
+    return bodies
 
 
 def _mask_agreement(a: str, b: str, cases) -> tuple[float, float]:
@@ -1872,6 +1935,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
                 or any(launches[k] == 0 for k in (*per_step, *per_val))):
             raise AssertionError(f"{route}: {steps} steps, launches {launches}, "
                                  f"expected {expect}")
+        bodies = _wgmma_launched(f"training, {route}", ("conv3d_same",) if fused
+                                 else ("conv3d_same", "conv3d_same_dual"))
         losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
         if not np.isfinite(losses).all():
             raise AssertionError(f"non-finite losses {losses}")
@@ -1902,6 +1967,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
               f"at {_export_properties(VAL_CASE_SHAPE)[1]}; Dice "
               f"{ {k: round(v, 4) for k, v in validation['dice'].items()} }")
         dw_worst, dw_shapes, a_shapes, b_shapes, d_shapes = _check_dw_through_kernels(trainer)
+        step_bodies = {k: RECORDED_BODIES[k] for k in ("conv3d_same", "conv3d_same_dual")}
+        print(f"A/B launches by body in one step ({route}): {step_bodies}")
         if not fused and sum(a_shapes.values()) != per_step["conv3d_same"]:
             raise AssertionError(f"{sum(a_shapes.values())} kernel-A calls in one step, "
                                  f"expected {per_step['conv3d_same']}")
@@ -1930,7 +1997,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
     return {"launches": launches, "seconds_per_step": median_s, "peak_gib": peak_gib,
             "dw_worst_rel": dw_worst, "dw_shapes": dw_shapes, "a_shapes": a_shapes,
             "b_shapes": b_shapes, "d_shapes": d_shapes, "validation": validation,
-            "fold": fold, "predicted": out, "task": task}
+            "fold": fold, "predicted": out, "task": task, "launches_by_body": bodies,
+            "step_launches_by_body": step_bodies}
 
 
 def phase_fused_validation(workdir: str, training: dict) -> dict:
@@ -5143,15 +5211,20 @@ def _recording(*names):
                     int(args[0].shape[0]))] += 1
             return kernel(*args, **kwargs)
         rec.launches = 0
+        rec.launches_by_body = dict.fromkeys(cv.BODIES, 0)
         return rec
 
-    for name, kernel in kernels.items():
-        setattr(cv, name, recorder(kernel))
+    recorders = {name: recorder(kernel) for name, kernel in kernels.items()}
+    for name, rec in recorders.items():
+        setattr(cv, name, rec)
     try:
         yield shapes
     finally:
         for name, kernel in kernels.items():
             setattr(cv, name, kernel)
+        RECORDED_BODIES.update({name: dict(rec.launches_by_body)
+                                for name, rec in recorders.items()})
+    _check_bodies({name: RECORDED_BODIES[name] for name in recorders}, "a recorded run")
 
 
 @contextlib.contextmanager
@@ -5203,7 +5276,7 @@ def _timed_entry(r: dict) -> dict:
     at = r.get("what") or "{}->{} at {} N={}".format(
         "+".join(map(str, r["splits"])), r["cout"], "x".join(map(str, r["spatial"])), r["n"])
     keys = ("err", "ms", "plain_ms", "cudnn_bf16_ms", "unfused_ms", "library_ms", "queued_ms",
-            "bound_ms", "bound_by")
+            "cudnn_queued_ms", "prepared_ms", "bound_ms", "bound_by")
     return {"at": at, **{k: r[k] for k in keys if k in r}}
 
 
@@ -5262,6 +5335,18 @@ def phase_probe_path() -> dict:
     print(f"probe path ({wall:.1f} s): launches { {k: launches[k] for k in names} } = the "
           f"probes' parity calls + {timed} per timed configuration")
     return {"launches": launches, "results": results, "seconds": wall}
+
+
+def phase_wgmma_forms() -> dict:
+    """The wgmma body's readings (probes/wgmma_forms.py): the one-wgmma
+    probe against torch, the body as it is, copies only and products only at
+    the flagship's shapes it runs, and the host's us a call."""
+    import torch
+    from multitalent_tpu_torch.probes import wgmma_forms as wf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    return {"probe": wf.probe(dev, gen), "forms": wf.forms(dev, gen),
+            "host": wf.host_us(dev, gen)}
 
 
 def _nan_filled(shape, dev):
@@ -5507,6 +5592,7 @@ def main() -> int:
 
     probe_path = timed("6 probe path", phase_probe_path)
     probes = timed("6 probe kernels", phase_probe_kernels)
+    wgmma = timed("6 wgmma probe and forms", phase_wgmma_forms)
 
     a_src = "multitalent_tpu_torch/csrc/conv3d_same.cu"
     rows = []
@@ -5732,6 +5818,39 @@ def main() -> int:
                                   for key in ("launches", "predict_launches") if key in r) + sum(
             r["validation"]["launches"].get(row["name"], 0) for r in zoo.values()
             if "validation" in r)
+    # the wgmma body of A and B (csrc/conv3d_wgmma.cu): its launches in
+    # phases 3 (predict) and 5 (the training run and one of its steps), each
+    # body's launches in A's and B's rows; times at the first flagship shape
+    # it runs in phase 2 (A 120 -> 120, N=1), every phase-2 shape it ran, the
+    # one-wgmma probe, its copies-only and products-only forms and the host's
+    # us a call (phase 6)
+    ab = ("conv3d_same", "conv3d_same_dual")
+    for row in rows[:2]:
+        row["launches_by_body"] = {
+            "predict": main_path["launches_by_body"][row["name"]],
+            "train": training["launches_by_body"][row["name"]],
+            "train_step": training["step_launches_by_body"][row["name"]]}
+    on_body = [(net, r) for net, res in (("flagship", kernels), ("Liver", liver_kernels),
+                                         ("SwinUNETR", swin_kernels))
+               for name in ("conv3d_same", "conv3d_same_dx", "conv3d_same_dual")
+               for r in res.get(name, []) if r["plan"]["wgmma"]]
+    first = on_body[0][1]
+    rows.append({"name": "conv3d_same_wgmma", "route": "cuda",
+                 "source": "multitalent_tpu_torch/csrc/conv3d_wgmma.cu",
+                 "replaces": "multitalent_tpu/ops/pallas_conv.py:36",
+                 "also_replaces": ["multitalent_tpu/ops/pallas_merged_conv.py:103",
+                                   "multitalent_tpu/ops/pallas_merged_conv.py:251"],
+                 "launches": sum(training["launches_by_body"][k]["wgmma"] for k in ab),
+                 "launches_predict": sum(main_path["launches_by_body"][k]["wgmma"] for k in ab),
+                 "launches_step": sum(training["step_launches_by_body"][k]["wgmma"]
+                                      for k in ab),
+                 "max_abs_err": max(r["err"] for _, r in on_body),
+                 "ms": first["ms"], "plain_ms": first["plain_ms"],
+                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                 "library_ms": first["cudnn_bf16_ms"], "timed_at": _timed_entry(first)["at"],
+                 "shapes": [{"net": net, **_timed_entry(r), "plan": r["plan"]}
+                            for net, r in on_body],
+                 **wgmma})
     lr = liver["runs"]
     print("summary, Liver (phase 3c): seconds per case " + ", ".join(
         f"{k} {lr[k]['seconds_per_case']:.2f} (predict {lr[k]['predict_s']:.2f}, export "

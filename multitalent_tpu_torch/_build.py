@@ -33,8 +33,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # n, z, y, x, ca, cb, cout, coutp, bn -> workspace bytes (-1: bad sizes)
     "mt_conv3d_workspace": ([_I] * 9, _L),
-    # form, n, z, y, x, ca, cb, cout, coutp, bn, plan[9] -> 0 (-1: bad sizes)
+    # the same, and the body the launch runs into body[0] (1 ring, 2 wgmma)
+    "mt_conv3d_launch_plan": ([_I] * 9 + [ctypes.POINTER(_I)], _L),
+    # form, n, z, y, x, ca, cb, cout, coutp, bn, plan[14] -> 0 (-1: bad sizes)
     "mt_conv3d_same_plan": ([_I] * 10 + [ctypes.POINTER(_I)], _I),
+    # the wgmma body alone: a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca,
+    # cb, cout, coutp, mode (0 whole, 1 copies only, 2 products only), stream
+    "mt_conv3d_wgmma": ([_P] * 6 + [_L] + [_I] * 9 + [_P], _I),
+    # one wgmma of its staging: x, w, out, z, y, x, c, coutp, n, tap, plane,
+    # z0, y0, x0, stream
+    "mt_wgmma_probe": ([_P] * 3 + [_I] * 11 + [_P], _I),
     # x, w, bias, out, ws, ws_bytes, n, z, y, x, cin, cout, coutp, bn, stream
     "mt_conv3d_same": ([_P, _P, _P, _P, _P, _L] + [_I] * 8 + [_P], _I),
     # a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, bn,

@@ -1,10 +1,13 @@
-// Building blocks shared by the kernels (conv3d_same.cu, conv3d_wgrad.cu,
-// fused_norm.cu, seghead.cu and the probes' conv_arms.cu, probe_kernels.cu):
+// Building blocks shared by the kernels (conv3d_same.cu, conv3d_wgmma.cu,
+// conv3d_wgrad.cu, fused_norm.cu, seghead.cu and the probes' conv_arms.cu,
+// probe_kernels.cu):
 // cp.async copies with zero-fill and their commit groups, ldmatrix
 // fragment loads, the bf16 mma.sync tile product, the line loader of
 // kernels A and C (load_lines), the 256-voxel box shapes the conv kernels
-// tile volumes with, the normalize prologue's rounding, and the
-// channel-statistics launchers kernel D borrows from kernel E.
+// tile volumes with, the normalize prologue's rounding, the
+// channel-statistics launchers kernel D borrows from kernel E, the split-K
+// reduce, and the wgmma body's plan and launcher that conv3d_same.cu routes
+// kernels A and B to.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -229,6 +232,31 @@ __device__ __forceinline__ __nv_bfloat16 cast_lrelu(float v, float slope) {
   const float f = __bfloat162float(y);
   return f >= 0.f ? y : __float2bfloat16(f * slope);
 }
+
+// out = bf16(bias + the sum over `splits` of the fp32 partials ws (splits,
+// count)), added in a fixed order (conv3d_same.cu; kernels A, B, D and the
+// wgmma body share it).
+cudaError_t splitk_reduce(const float* ws, const float* bias, __nv_bfloat16* out,
+                          long long count, int cout, int splits, cudaStream_t stream);
+
+// The wgmma body of kernels A and B (conv3d_wgmma.cu) for inputs whose C %
+// 8 == 0: 4x8x8 output tiles, bn (64 or 128) output channels a block, the K
+// loop over kchunks 16-channel chunks in `splits` parts of per_split.
+struct HPlan {
+  int bn, nblk;
+  int tiles, tiles_z, tiles_y, tiles_x;  // tiles: N * the boxes of a sample
+  int kchunks, splits, per_split;
+  int smem;  // dynamic shared memory bytes of a block
+};
+// false for sizes the body does not take
+bool h_plan(int n, int z, int y, int x, int ca, int cb, int cout, int coutp, int sms,
+            HPlan* out);
+long long h_workspace_bytes(const HPlan& plan, int n, int z, int y, int x, int cout);
+// kernel A (b null, cb 0) or B on the wgmma body; mode 0 (1: copies only, 2:
+// products only, the probes' forms)
+cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int cb, const void* w,
+                  const void* bias, void* out, void* ws, long long ws_bytes, int n, int z, int y,
+                  int x, int cout, int coutp, int mode, cudaStream_t stream);
 
 // Host launchers of fused_norm.cu that kernel D (conv3d_same.cu) shares.
 //

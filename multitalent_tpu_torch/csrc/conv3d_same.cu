@@ -38,16 +38,17 @@
 // Its loads are 4-byte channel pairs (elements for odd groups) in place of
 // 16-byte rows, and it never splits K (the partials' order is unpacked).
 //
-// Two bodies. The ring body (conv3d_a_kernel, below), built for the H100's
+// Three bodies. The ring body (conv3d_a_kernel, below), built for the H100's
 // narrow stage-0 and stage-1 rows, serves kernel D at every size, and
 // kernels A, B and D's dual form wherever a row is narrower than 16-byte
 // copies (30, 60, odd C), the weights stay resident, or (one input) the K
-// loop is split; the older body (conv3d_same_kernel) serves the packed
-// conv, and A, B and D's dual form where every row takes 16-byte copies, the
-// weights are streamed and the K loop is whole (C >= 120 but the deepest
-// stage; for B and D's dual form also the split deepest stage): there its
-// two blocks an SM measured as fast as or faster than the ring in one block
-// (PERF.md, section 6).
+// loop is split. Where every row takes 16-byte copies (each input's C % 8 ==
+// 0), the weights are streamed and the ring does not take the call, kernels
+// A (every dx included) and B run the wgmma body of conv3d_wgmma.cu (TMA
+// halo boxes, one staged box for all 27 taps, warp-specialised; 48-768
+// channels: the flagship's 120-320, the Liver net's, SwinUNETR's), and D's
+// dual form keeps the older body (conv3d_same_kernel), which also serves
+// the packed conv. A and B never launch conv3d_same_kernel.
 //
 // What bounds the ring body on an H100: the flagship's convs carry ~27*C FLOPs
 // per input byte, well above the ~295 FLOP/byte ridge, so the tensor cores
@@ -84,10 +85,11 @@
 //     summed by each warp in shared memory a tile and added across warps
 //     once a sample a block.
 //
-// What bounds conv3d_same_kernel: the same products, behind the serialised
-// load -> sync -> compute phases of each K chunk, and, at the deep stages
-// (6x6x6 .. 12x24x24 voxels), too few output tiles to fill 132 SMs. Its
-// design answers each in a simple way:
+// What bounds conv3d_same_kernel (D's dual form at 16-byte rows, the packed
+// conv): the same products, behind the serialised load -> sync -> compute
+// phases of each K chunk, and, at the deep stages (6x6x6 .. 12x24x24
+// voxels), too few output tiles to fill 132 SMs. Its design answers each in
+// a simple way:
 //   - implicit GEMM: a block owns 256 output voxels x BN output channels; per
 //     16-channel K chunk it stages one haloed input box and the chunk's
 //     weights for all 27 taps in shared memory (cp.async, zero-fill) and
@@ -460,6 +462,19 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+}  // namespace
+
+cudaError_t mt::splitk_reduce(const float* ws, const float* bias, __nv_bfloat16* out,
+                              long long count, int cout, int splits, cudaStream_t stream) {
+  const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, bias, out, count, cout, splits);
+  return cudaGetLastError();
+}
+
+namespace {
+
+using namespace mt;
+
 Plan plan_for(int n, int z, int y, int x, int ca, int cb, int coutp, int bn) {
   return make_plan(n, z, y, x, cdiv(ca, KC) + cdiv(cb, KC), coutp / bn, sm_count());
 }
@@ -494,11 +509,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   conv3d_same_kernel<NIN, BN, STATS, PACKED><<<grid, THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.plan.splits == 1) return err;
-  const int64_t count = (int64_t)p.n * p.z * p.y * p.x * p.cout;
-  const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<rblocks, 256, 0, stream>>>(p.ws, p.bias, p.out, count, p.cout,
-                                                    p.plan.splits);
-  return cudaGetLastError();
+  return splitk_reduce(p.ws, p.bias, p.out, (long long)p.n * p.z * p.y * p.x * p.cout, p.cout,
+                       p.plan.splits, stream);
 }
 
 // stats (n, 2, cout) of the written output: from the epilogue's per-block
@@ -513,13 +525,12 @@ cudaError_t finish_stats(const Params& p, float* stats, float* sws, long long sw
                      tiles, 2 * p.cout, stream);
 }
 
-// Kernel A (b null), B, or with stats non-null D's dual form (its stats
-// output (n, 2, cout) fp32) on conv3d_same_kernel.
+// D's dual form (its stats output (n, 2, cout) fp32) on conv3d_same_kernel.
 int run(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
         void* out, void* stats, void* ws, long long ws_bytes, int n, int z, int y, int x,
         int cout, int coutp, int bn, void* stream) {
-  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp ||
-      (stats != nullptr && b == nullptr))
+  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp || stats == nullptr ||
+      b == nullptr)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.in[0] = static_cast<const __nv_bfloat16*>(a);
@@ -540,33 +551,22 @@ int run(const void* a, const void* b, int ca, int cb, const void* w, const void*
   p.plan = plan_for(n, z, y, x, ca, cb, coutp, bn);
   p.part = nullptr;
   const long long split_bytes = workspace_bytes(p.plan, n, z, y, x, cout);
-  long long stats_bytes = 0;
-  if (stats != nullptr) {
-    stats_bytes = stats_workspace_bytes(p.plan, n, z, y, x, cout);
-    if (stats_bytes < 0) return (int)cudaErrorInvalidValue;
-  }
-  if (ws_bytes < split_bytes + stats_bytes ||
-      ((p.plan.splits > 1 || stats != nullptr) && ws == nullptr))
+  const long long stats_bytes = stats_workspace_bytes(p.plan, n, z, y, x, cout);
+  if (stats_bytes < 0 || ws_bytes < split_bytes + stats_bytes || ws == nullptr)
     return (int)cudaErrorInvalidValue;
   float* sws = static_cast<float*>(ws) + split_bytes / (long long)sizeof(float);
   p.part = sws;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (stats != nullptr) {
-    err = bn == 32 ? launch<2, 32, true>(p, s) : launch<2, 64, true>(p, s);
-  } else if (b == nullptr) {
-    err = bn == 32 ? launch<1, 32, false>(p, s) : launch<1, 64, false>(p, s);
-  } else {
-    err = bn == 32 ? launch<2, 32, false>(p, s) : launch<2, 64, false>(p, s);
-  }
-  if (err != cudaSuccess || stats == nullptr) return (int)err;
+  const cudaError_t err = bn == 32 ? launch<2, 32, true>(p, s) : launch<2, 64, true>(p, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)finish_stats(p, static_cast<float*>(stats), sws, stats_bytes, s);
 }
 
 // ---------------------------------------------------------------------------
 // The ring body: kernel D, and A, B and D's dual form where their plan takes
-// it (the packed conv, and A, B and D's dual form at 16-byte rows with
-// streamed weights and a whole K loop, run conv3d_same_kernel above)
+// it (at 16-byte rows with streamed weights and a whole K loop, or for two
+// inputs any K split, A and B run conv3d_wgmma.cu's body and D's dual form
+// conv3d_same_kernel above, which also runs the packed conv)
 // ---------------------------------------------------------------------------
 
 constexpr int A_SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
@@ -609,7 +609,9 @@ __host__ __device__ constexpr bool a_swizzled(int nin, int bn, int g, bool resid
 }
 
 struct APlan {
-  bool ring;  // this body; false: conv3d_same_kernel (see make_aplan)
+  bool ring;   // this body; false: the wgmma body or conv3d_same_kernel
+  bool wgmma;  // conv3d_wgmma.cu's body (A and B where ring is false), with plan h
+  HPlan h;
   AConfig cfg;
   Box box;
   int tiles_z, tiles_y, tiles_x;
@@ -1194,16 +1196,17 @@ int a_occupancy(AKernel fn, int threads, int smem) {
 // fits a ring of 2 stages (3 where they fit) and needs no split of K
 // (resident weights serve one split). K is split only to fill one wave of
 // blocks, and never into more partial bytes than the input and weights
-// hold. Rows of 16-byte copies (every input's C % 8 == 0) with streamed
-// weights and a whole K loop a block keep conv3d_same_kernel for kernels A,
-// B and D's dual form: there its two blocks an SM already overlap one
-// block's copies with the other's products, and on the H100 they ran
-// 1.1-1.25x faster than this ring in one block at 120 and 240 channels;
-// with K split (the deep stages' few tiles) the ring ran as fast or faster
-// for one input, not for two (B at 320 + 320: 0.081 vs 0.073 ms), so two
-// inputs keep the older body there too. D takes the ring at every size:
-// queued, 0.152 vs 0.178 ms at 240 channels, 0.330 vs 0.319 at 120 (PERF.md,
-// section 6).
+// hold. Which body takes the call:
+//   - the ring: D at every size (queued, 0.152 vs 0.178 ms at 240 channels
+//     against the older body, PERF.md section 6), and A, B and D's dual
+//     form where a row is narrower than 16-byte copies, the weights stay
+//     resident, or one input's K loop is split;
+//   - the wgmma body (conv3d_wgmma.cu, its own plan h: BN 64 or 128, its
+//     own K splits): A, every dx included, and B where the ring does not
+//     take the call, i.e. rows of 16-byte copies (every input's C % 8 == 0)
+//     with streamed weights and a whole K loop, or two inputs with a split
+//     one (the older body measured faster than the ring there);
+//   - conv3d_same_kernel: D's dual form where the ring does not take it.
 bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, int cout,
                 int coutp, int bn, int sms, APlan* out) {
   APlan p{};
@@ -1248,6 +1251,8 @@ bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, i
         a_occupancy(a_kernel({form.nin, form.affine, false}, bn, c), A_THREADS, smem) < 1)
       continue;
     p.ring = c.resident || !rows16 || form.affine || (splits > 1 && form.nin == 1);
+    p.wgmma = !p.ring && !form.stats;
+    if (p.wgmma && !h_plan(n, z, y, x, ca, cb, cout, coutp, sms, &p.h)) return false;
     p.cfg = c;
     p.per_split = cdiv(cdiv(p.kchunks, c.g), (int)splits) * c.g;
     p.splits = cdiv(p.kchunks, p.per_split);
@@ -1284,8 +1289,8 @@ bool plan_of(const AForm& form, int n, int z, int y, int xd, int ca, int cb, int
          make_aplan(form, n, z, y, xd, ca, cb, cout, coutp, bn, sm_count(), plan);
 }
 
-// A call of `form` (kernel A, B, D or D's dual form): on the ring body
-// where its plan takes it, else on conv3d_same_kernel. b null: one input;
+// A call of `form` (kernel A, B, D or D's dual form): on the body its plan
+// names (the ring, the wgmma body or conv3d_same_kernel). b null: one input;
 // scale, shift (D) may be null (no prologue); stats (N, 2, Cout) fp32 for D.
 int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, const void* w,
              const void* bias, const void* scale, const void* shift, float slope, void* out,
@@ -1298,6 +1303,9 @@ int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, co
   AParams p{};
   if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &p.plan))
     return (int)cudaErrorInvalidConfiguration;
+  if (p.plan.wgmma)
+    return (int)h_run(p.plan.h, a, b, ca, cb, w, bias, out, ws, ws_bytes, n, z, y, xd, cout,
+                      coutp, 0, static_cast<cudaStream_t>(stream));
   if (!p.plan.ring)
     return run(a, b, ca, cb, w, bias, out, stats, ws, ws_bytes, n, z, y, xd, cout, coutp, bn,
                stream);
@@ -1337,13 +1345,9 @@ int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, co
   cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
                                      dim3(A_THREADS), args, p.plan.smem, s);
   if (err != cudaSuccess) return (int)err;
-  if (p.plan.splits > 1) {
-    const int64_t count = (int64_t)n * z * y * xd * cout;
-    const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-    splitk_reduce_kernel<<<rblocks, 256, 0, s>>>(p.ws, p.bias, p.out, count, cout,
-                                                  p.plan.splits);
-    err = cudaGetLastError();
-  }
+  if (p.plan.splits > 1)
+    err = splitk_reduce(p.ws, p.bias, p.out, (long long)n * z * y * xd * cout, cout,
+                        p.plan.splits, s);
   if (err != cudaSuccess || !form.stats) return (int)err;
   float* st = static_cast<float*>(stats);
   if (p.plan.splits > 1)
@@ -1358,14 +1362,23 @@ extern "C" {
 
 // Bytes of fp32 workspace a call with these sizes needs (0: no split-K; -1:
 // sizes the kernel does not take): kernel A's (cb 0) or B's, with the plan
-// the launch takes.
-long long mt_conv3d_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
-                              int coutp, int bn) {
+// the launch takes; the body that launch runs into *body where it is not
+// null (0 conv3d_same_kernel, 1 the ring, 2 the wgmma body).
+long long mt_conv3d_launch_plan(int n, int z, int y, int xd, int ca, int cb, int cout,
+                                int coutp, int bn, int* body) {
   APlan plan;
   if (!plan_of(cb > 0 ? FORM_B : FORM_A, n, z, y, xd, ca, cb, cout, coutp, bn, &plan))
     return -1;
+  if (body != nullptr) *body = plan.ring ? 1 : (plan.wgmma ? 2 : 0);
   if (plan.ring) return a_workspace_bytes(plan, n, z, y, xd, cout);
+  if (plan.wgmma) return h_workspace_bytes(plan.h, n, z, y, xd, cout);
   return workspace_bytes(plan_for(n, z, y, xd, ca, cb, coutp, bn), n, z, y, xd, cout);
+}
+
+// mt_conv3d_launch_plan's bytes alone.
+long long mt_conv3d_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
+                              int coutp, int bn) {
+  return mt_conv3d_launch_plan(n, z, y, xd, ca, cb, cout, coutp, bn, nullptr);
 }
 
 // Bytes of fp32 workspace a kernel-D call (with stats) needs, with the plan
@@ -1387,12 +1400,15 @@ long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb,
 }
 
 // The plan of a call of form 0 (kernel A), 1 (B), 2 (D) or 3 (D's dual
-// form; cb 0 for the single-input forms) at these sizes into plan[0..9):
-// the ring body (1) or conv3d_same_kernel (0; the rest then describes the
-// ring it declined), G (chunks staged at once), weights resident (1) or
-// streamed (0), the two warp groups splitting K (1) or N (0), ring stages,
-// K splits, blocks along the tiles, blocks an SM, dynamic shared memory
-// bytes. Returns 0, or -1 for sizes the kernels do not take.
+// form; cb 0 for the single-input forms) at these sizes into plan[0..14):
+// the ring body (1) or not (0; the next eight then describe the ring it
+// declined), G (chunks staged at once), weights resident (1) or streamed
+// (0), the two warp groups splitting K (1) or N (0), ring stages, K splits,
+// blocks along the tiles, blocks an SM, dynamic shared memory bytes; then
+// the wgmma body (1) or not (0: the ring or, D's dual form only,
+// conv3d_same_kernel) and, for the wgmma body, its BN, K splits, blocks and
+// dynamic shared memory bytes a block (0 otherwise). Returns 0, or -1 for
+// sizes the kernels do not take.
 int mt_conv3d_same_plan(int form, int n, int z, int y, int xd, int ca, int cb, int cout,
                         int coutp, int bn, int* plan) {
   const AForm forms[] = {FORM_A, FORM_B, FORM_D, FORM_D_DUAL};
@@ -1400,9 +1416,11 @@ int mt_conv3d_same_plan(int form, int n, int z, int y, int xd, int ca, int cb, i
   if (form < 0 || form > 3 || (forms[form].nin == 2) != (cb > 0) ||
       !plan_of(forms[form], n, z, y, xd, ca, cb, cout, coutp, bn, &p))
     return -1;
-  const int v[] = {p.ring,   p.cfg.g, p.cfg.resident,  p.cfg.ksplit, p.stages,
-                   p.splits, p.grid_x, p.blocks_per_sm, p.smem};
-  for (int i = 0; i < 9; ++i) plan[i] = v[i];
+  const HPlan h = p.wgmma ? p.h : HPlan{};
+  const int v[] = {p.ring,   p.cfg.g,  p.cfg.resident,  p.cfg.ksplit, p.stages,
+                   p.splits, p.grid_x, p.blocks_per_sm, p.smem,       p.wgmma,
+                   h.bn,     h.splits, h.tiles * h.nblk * h.splits,   h.smem};
+  for (int i = 0; i < 14; ++i) plan[i] = v[i];
   return 0;
 }
 

@@ -47,7 +47,8 @@
 // fragments of a K step serve three taps. No wgmma or TMA: TMA needs
 // 16-byte global strides (60- and 120-byte rows at stages 0 and 1), and
 // wgmma's swizzled operand layouts do not hold the tap-shifted halo without
-// restaging every tap.
+// restaging every tap (its no-swizzle K-major layout does: conv3d_wgmma.cu
+// reads all 27 taps of one staged box by moving a descriptor's start).
 //
 // Determinism: no atomics. Each block sums its boxes in a fixed order; the
 // partials of the splits are added in a fixed order by a second small kernel.

@@ -31,7 +31,8 @@ fp32 form (`conv3d_same_fp32`, `conv3d_same_dual_fp32`,
 `conv3d_same_dual_stats_fp32`, plain FFMA without TF32, fp32 out), which
 counts its launches on its own `launches`.
 
-Kernels A, B and D live in `csrc/conv3d_same.cu`, kernel C in
+Kernels A, B and D live in `csrc/conv3d_same.cu` (A and B at 16-byte rows
+on the wgmma body of `csrc/conv3d_wgmma.cu`), kernel C in
 `csrc/conv3d_wgrad.cu`, the fp32 forms in `csrc/conv3d_fp32.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
 of the JAX package and the physical layout of a `torch.channels_last_3d`
 NCDHW tensor. Weights are prepared with `prepare_conv3d_weight`.
@@ -46,7 +47,9 @@ plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
 `conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`,
 `conv3d_same_affine_ref`, `conv3d_same_dual_stats_ref`) only for tensors that
 lie on the CPU (the fp32 forms the same plain versions, in fp32). Each keeps
-a count of kernel launches in its `launches` attribute.
+a count of kernel launches in its `launches` attribute; kernels A and B also
+count them by the body that ran each (`launches_by_body`: "ring" or
+"wgmma"; "older", conv3d_same_kernel, stays 0 for them).
 """
 from __future__ import annotations
 
@@ -74,7 +77,13 @@ class PreparedWeight:
     `splits` are the input channel counts of the inputs the conv reads, in
     order ((Cin,) for kernel A, (Ca, Cb) for kernel B); each input's channels
     fill whole 16-row K chunks, zero past its count. Taps run (dz, dy, dx)
-    row-major; output channels are zero-padded to a multiple of `bn`."""
+    row-major; output channels are zero-padded to a multiple of `bn`.
+
+    The same layout is the wgmma body's B operand: viewed as (rows =
+    kchunks * 27 * 16, CoutP), a TMA box of 144 rows (9 taps) by 64 columns
+    with the 128-byte swizzle lands as wgmma's MN-major operand, columns past
+    CoutP read as 0 (`csrc/conv3d_wgmma.cu`; `ops/wgmma_layout.py` reads it
+    as the card does)."""
 
     w: torch.Tensor
     splits: tuple[int, ...]
@@ -97,15 +106,20 @@ def prepare_conv3d_weight(weight: torch.Tensor, splits=None,
         raise ValueError(f"splits {splits} do not add up to Cin={cin}")
     bn = _block_n(cout)
     coutp = -(-cout // bn) * bn
-    parts, lo = [], 0
+    w = weight.new_zeros((sum(-(-c // KC) for c in splits), 27, KC, coutp), dtype=dtype)
+    # views, one copy a split (a kernel launch and its host cost a call of
+    # conv3d_same_dx): taps (Cin, 27, Cout) of the weight, and the layout's
+    # (chunk, row, tap, column)
+    taps = weight.permute(1, 2, 3, 4, 0).reshape(cin, 27, cout)
+    rows = w.permute(0, 2, 1, 3)
+    k0 = lo = 0
     for c in splits:
-        kpad = -(-c // KC) * KC
-        taps = weight[:, lo:lo + c].permute(2, 3, 4, 1, 0).reshape(27, c, cout)
-        taps = F.pad(taps.to(torch.promote_types(dtype, torch.float32)),
-                     (0, coutp - cout, 0, kpad - c))
-        parts.append(taps.reshape(27, kpad // KC, KC, coutp).permute(1, 0, 2, 3))
-        lo += c
-    w = torch.cat(parts, 0).to(dtype).contiguous()
+        full, rem = divmod(c, KC)
+        if full:
+            rows[k0:k0 + full, :, :, :cout] = taps[lo:lo + full * KC].reshape(full, KC, 27, cout)
+        if rem:
+            rows[k0 + full, :rem, :, :cout] = taps[lo + full * KC:lo + c]
+        k0, lo = k0 + -(-c // KC), lo + c
     return PreparedWeight(w=w, splits=splits, cout=cout, bn=bn)
 
 
@@ -242,11 +256,20 @@ def _buffer(given: torch.Tensor | None, name: str, shape: tuple, dtype: torch.dt
     return given
 
 
+# the bodies kernels A and B run on, by the code mt_conv3d_launch_plan gives
+# (conv3d_same_kernel, "older", is D's dual form's and the packed conv's only)
+BODIES = ("older", "ring", "wgmma")
+
+
 def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
-            bias: torch.Tensor | None, out: torch.Tensor | None = None) -> torch.Tensor:
+            bias: torch.Tensor | None, out: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, str | None]:
     """Run C entry `name` on checked inputs into `out` (or a new output);
     allocates, for small grids that split the K loop, the kernel's fp32
-    workspace."""
+    workspace. Returns the output and the body the launch ran (None: an
+    empty output, nothing launched)."""
+    import ctypes
+
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
@@ -254,10 +277,11 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
     cs = [int(t.shape[-1]) for t in inputs]
     out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.bfloat16, dev)
     if out.numel() == 0:
-        return out
+        return out, None
+    body = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        nbytes = lib.mt_conv3d_workspace(n, z, y, xd, cs[0], sum(cs[1:]), pw.cout,
-                                         pw.coutp, pw.bn)
+        nbytes = lib.mt_conv3d_launch_plan(n, z, y, xd, cs[0], sum(cs[1:]), pw.cout,
+                                           pw.coutp, pw.bn, ctypes.byref(body))
         if nbytes < 0:
             raise ValueError(f"{name}: the kernel does not take these sizes")
         ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev) if nbytes else None
@@ -268,7 +292,14 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
             None if ws is None else ws.data_ptr(), nbytes, n, z, y, xd, *cs,
             pw.cout, pw.coutp, pw.bn, stream)
     _build.check(lib, code, name)
-    return out
+    return out, BODIES[body.value]
+
+
+def _count(wrapper, body: str | None) -> None:
+    """One launch of `wrapper` (kernel A or B) on `body`."""
+    wrapper.launches += 1
+    if body is not None:
+        wrapper.launches_by_body[body] += 1
 
 
 def conv3d_same(x: torch.Tensor, pw: PreparedWeight,
@@ -287,15 +318,17 @@ def conv3d_same(x: torch.Tensor, pw: PreparedWeight,
     if x.dtype == torch.float32:
         return conv3d_same_fp32(x, pw, bias, out)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
-    out = _launch("mt_conv3d_same", [x], pw, bias, out)
-    conv3d_same.launches += 1
+    out, body = _launch("mt_conv3d_same", [x], pw, bias, out)
+    _count(conv3d_same, body)
     return out
 
 
 conv3d_same.launches = 0
+conv3d_same.launches_by_body = dict.fromkeys(BODIES, 0)
 
 A_PLAN_KEYS = ("ring", "g", "resident", "ksplit", "stages", "splits", "grid_x",
-               "blocks_per_sm", "smem_bytes")
+               "blocks_per_sm", "smem_bytes", "wgmma", "wgmma_bn", "wgmma_splits",
+               "wgmma_blocks", "wgmma_smem_bytes")
 # the calls a plan is asked for: kernel A, B, D, D's dual form
 PLAN_FORMS = ("a", "b", "d", "d_dual")
 
@@ -304,14 +337,15 @@ def conv3d_same_plan(n: int, z: int, y: int, x: int, cin, cout: int, form: str =
     """The plan of a call of kernel A (form "a"), B ("b"), D ("d") or D's
     dual form ("d_dual") on the current card at these sizes; cin is the
     input's channels, or (Ca, Cb) for the two-input forms. Whether it runs
-    the ring body (1) or the older body of two blocks an SM (0: 16-byte rows
-    with streamed weights and a whole K loop a block; the other keys then
-    describe the ring it declined),
-    input chunks staged at once (g), weights resident or streamed, its two
-    8-warp groups splitting the K chunks (ksplit) or the columns, ring
-    stages, K splits (1: bf16 written directly),
-    blocks along the tiles, blocks an SM and shared memory a block. Builds
-    the kernel library."""
+    the ring body (ring 1) or not (0: 16-byte rows with streamed weights and
+    a whole K loop, or two inputs with a split one; the next keys then
+    describe the ring it declined): input chunks staged at once (g), weights
+    resident or streamed, its two 8-warp groups splitting the K chunks
+    (ksplit) or the columns, ring stages, K splits (1: bf16 written
+    directly), blocks along the tiles, blocks an SM and shared memory a
+    block. Then whether it runs the wgmma body (wgmma 1: A and B where ring
+    is 0; D's dual form there runs the older body) with its BN, K splits,
+    blocks and shared memory a block. Builds the kernel library."""
     import ctypes
 
     from multitalent_tpu_torch import _build
@@ -346,12 +380,13 @@ def conv3d_same_dual(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
                          "outside the channel axis")
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
-    out = _launch("mt_conv3d_same_dual", [a, b], pw, bias, out)
-    conv3d_same_dual.launches += 1
+    out, body = _launch("mt_conv3d_same_dual", [a, b], pw, bias, out)
+    _count(conv3d_same_dual, body)
     return out
 
 
 conv3d_same_dual.launches = 0
+conv3d_same_dual.launches_by_body = dict.fromkeys(BODIES, 0)
 
 
 def conv3d_same_wgrad_workspace(n: int, z: int, y: int, x: int, ca: int, cb: int,

@@ -4,12 +4,14 @@ plan chooses between, timed side by side on the H100.
 
 Builds forms of `csrc/conv3d_same.cu` of this package (or of another
 checkout's, `--tree`): the source as it is, and `ring_everywhere`, where
-every shape runs the ring body (as it is, A, B and D's dual form at 16-byte
-rows with streamed weights and a whole K loop a block run the older body of
-two blocks an SM).
+every shape runs the ring body (as it is, A and B at 16-byte rows with
+streamed weights and a whole K loop a block run the wgmma body of
+conv3d_wgmma.cu, and D's dual form there the older body of two blocks an
+SM).
 `--against DIR` adds another checkout's source as it is (e.g. the parent
 commit's). Each form is the source patched as text and built by nvcc, with
-fused_norm.cu, into a library of its own under `_build/conv_a_forms/`; every
+fused_norm.cu (and conv3d_wgmma.cu where the checkout has it), into a
+library of its own under `_build/conv_a_forms/`; every
 form is checked against the plain version (D's stats too), then timed at
 the kernels' phase-2 shapes of chip_smoke.py (A: the forward's six at N=1
 and at the training batch, and the dual convs' dx; B: the forward's five at
@@ -93,7 +95,10 @@ def build_forms(sources: dict[str, tuple[Path, str]]) -> tuple[dict, dict]:
     for name, (csrc, form) in sources.items():
         text = form_source((csrc / "conv3d_same.cu").read_text(), form)
         norm = (csrc / "fused_norm.cu").read_text()
+        wgmma = csrc / "conv3d_wgmma.cu"  # the body A and B reach at 16-byte rows
+        extra = [wgmma] if wgmma.is_file() else []
         key = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + text + norm
+                              + "".join(f.read_text() for f in extra)
                               + (csrc / "common.cuh").read_text()).encode()).hexdigest()[:16]
         out = out_dir / key
         out.mkdir(parents=True, exist_ok=True)
@@ -104,10 +109,13 @@ def build_forms(sources: dict[str, tuple[Path, str]]) -> tuple[dict, dict]:
         (out / "conv3d_same.cu").write_text(text)
         (out / "fused_norm.cu").write_text(norm)
         objs = [str(out / "conv3d_same.o"), str(out / "fused_norm.o")]
+        objs += [str(out / f"{f.stem}.o") for f in extra]
         procs.append((name, out, objs, [
             _nvcc(["-I", str(csrc), "-Xptxas", "-v", "-c", "-o", objs[0],
                    str(out / "conv3d_same.cu")]),
-            _nvcc(["-I", str(csrc), "-c", "-o", objs[1], str(out / "fused_norm.cu")])]))
+            _nvcc(["-I", str(csrc), "-c", "-o", objs[1], str(out / "fused_norm.cu")]),
+            *(_nvcc(["-I", str(csrc), "-c", "-o", obj, str(f)])
+              for f, obj in zip(extra, objs[2:]))]))
     for name, out, objs, ps in procs:
         logs = [p.communicate()[0] for p in ps]
         if any(p.returncode for p in ps):

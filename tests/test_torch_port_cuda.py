@@ -745,7 +745,7 @@ RING_SPLIT_CASES = {("b", 2, (1, 1, 1), (20, 10)), ("d_dual", 2, (1, 1, 1), (20,
     ("d_dual", 1, (96, 192, 192), (30, 30)),  # swizzled resident weights
     ("d_dual", 2, (48, 96, 96), (60, 60)),
     ("b", 1, (96, 192, 192), (30, 30)),
-    ("b", 1, (12, 24, 24), (240, 240)),       # the older body
+    ("b", 1, (12, 24, 24), (240, 240)),       # the wgmma body
     *sorted(RING_SPLIT_CASES),
 ])
 def test_d_and_b_are_bit_equal_from_call_to_call(device, form, n, spatial, cs):
@@ -851,17 +851,110 @@ def test_d_and_b_take_the_ring_at_30_and_60_channels(device, form, cs, spatial):
     assert plan["g"] == (2 if c == 30 else 1)
 
 
-@pytest.mark.parametrize("form,cs,spatial,ring", [
-    ("d", 120, (24, 48, 48), 1), ("d", 240, (12, 24, 24), 1),
-    ("a", 120, (24, 48, 48), 0), ("b", (240, 240), (12, 24, 24), 0),
-    ("d_dual", (120, 120), (24, 48, 48), 0), ("d_dual", (320, 320), (6, 12, 12), 0),
+@pytest.mark.parametrize("form,cs,spatial,ring,wgmma", [
+    ("d", 120, (24, 48, 48), 1, 0), ("d", 240, (12, 24, 24), 1, 0),
+    ("a", 120, (24, 48, 48), 0, 1), ("b", (240, 240), (12, 24, 24), 0, 1),
+    ("d_dual", (120, 120), (24, 48, 48), 0, 0), ("d_dual", (320, 320), (6, 12, 12), 0, 0),
 ])
-def test_the_older_body_keeps_16_byte_rows_but_for_d(device, form, cs, spatial, ring):
-    """The plan at 16-byte rows with streamed weights: A, B and D's dual form
-    keep the older body of two blocks an SM (two inputs also when K is
-    split); D runs the ring body at every width."""
+def test_the_older_body_keeps_16_byte_rows_but_for_d(device, form, cs, spatial, ring, wgmma):
+    """The plan at 16-byte rows with streamed weights: D's dual form keeps the
+    older body of two blocks an SM (also when K is split), A and B run the
+    wgmma body there; D runs the ring body at every width."""
     c = cs if isinstance(cs, int) else cs[0]
-    assert cv.conv3d_same_plan(1, *spatial, cs, c, form)["ring"] == ring
+    plan = cv.conv3d_same_plan(1, *spatial, cs, c, form)
+    assert (plan["ring"], plan["wgmma"]) == (ring, wgmma)
+
+
+# the wgmma body (csrc/conv3d_wgmma.cu): (form, N, spatial, input channels,
+# Cout) at SwinUNETR's 48, the Liver's 64, the flagship's 120, 240 + 240 and
+# 320 + 320 and the dual convs' dx 320 -> 640, ragged volumes (X 13 and 6,
+# Z and Y past a 4x8x8 tile, Cout 47), a split K loop (384 + 384)
+WGMMA_CASES = [
+    ("a", 1, (96, 192, 192), (48,), 48), ("a", 1, (64, 64, 64), (64,), 64),
+    ("a", 2, (24, 48, 48), (120,), 120), ("b", 2, (12, 24, 24), (240, 240), 240),
+    ("b", 1, (6, 12, 12), (320, 320), 320), ("a", 2, (6, 12, 12), (320,), 640),
+    ("b", 2, (5, 9, 13), (120, 120), 120), ("b", 1, (7, 10, 6), (64, 128), 47),
+    ("a", 2, (5, 7, 13), (64,), 47), ("b", 1, (6, 12, 12), (384, 384), 384),
+]
+
+
+def _wgmma_call(rng, device, form, n, spatial, cs, cout):
+    ins = [_rand(rng, (n, *spatial, c)).to(device, torch.bfloat16) for c in cs]
+    w = _rand(rng, (cout, sum(cs), 3, 3, 3), (2 / (27 * sum(cs))) ** 0.5).to(device)
+    bias = _rand(rng, (cout,), 0.1).to(device)
+    pw = cv.prepare_conv3d_weight(w, cs if form == "b" else None)
+    fn = cv.conv3d_same if form == "a" else cv.conv3d_same_dual
+    plan = cv.conv3d_same_plan(n, *spatial, cs if form == "b" else cs[0], cout, form)
+    assert plan["ring"] == 0 and plan["wgmma"] == 1, plan
+    return fn, ins, w, bias, pw
+
+
+@pytest.mark.parametrize("form,n,spatial,cs,cout", WGMMA_CASES)
+def test_wgmma_body_matches_plain(device, form, n, spatial, cs, cout):
+    """Kernel A or B on the wgmma body into an output buffer filled with NaN
+    against the plain version on the same bf16 inputs and weights, at phase
+    2's bound; the launch counts on the wgmma body."""
+    rng = np.random.default_rng(22)
+    fn, ins, w, bias, pw = _wgmma_call(rng, device, form, n, spatial, cs, cout)
+    before = dict(fn.launches_by_body)
+    out = _nan_filled((n, *spatial, cout), device)
+    got = fn(*ins, pw, bias, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.isfinite(got).all()
+    assert fn.launches_by_body == {**before, "wgmma": before["wgmma"] + 1}
+    ref = (cv.conv3d_same_ref(ins[0].float(), w.to(torch.bfloat16).float(), bias)
+           if form == "a" else cv.conv3d_same_dual_ref(ins[0].float(), ins[1].float(),
+                                                        w.to(torch.bfloat16).float(), bias))
+    _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("form,n,spatial,cs,cout", [WGMMA_CASES[3], WGMMA_CASES[5],
+                                                     WGMMA_CASES[-1]])
+def test_wgmma_body_is_bit_equal_from_call_to_call(device, form, n, spatial, cs, cout):
+    """No atomics: every output voxel is written by one block, the split K
+    loop's partials added in a fixed order."""
+    rng = np.random.default_rng(23)
+    fn, ins, _, bias, pw = _wgmma_call(rng, device, form, n, spatial, cs, cout)
+    first, second = fn(*ins, pw, bias), fn(*ins, pw, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# every A and B shape of chip_smoke's phase 2 (the flagship, Liver and
+# SwinUNETR nets; A's dx as C -> 2C) whose plan named conv3d_same_kernel
+# before the wgmma body: (form, N, spatial, input channels, Cout)
+OLDER_BODY_SHAPES = (
+    [("a", n, sp, (c,), c) for c, sp, ns in (
+        (120, (24, 48, 48), (1, 2)), (240, (12, 24, 24), (1, 2)), (128, (32, 32, 32), (1, 4)),
+        (256, (16, 16, 16), (1, 4)), (64, (64, 64, 64), (1, 4)), (48, (96, 192, 192), (1, 2)),
+        (48, (48, 96, 96), (1, 2)), (96, (24, 48, 48), (1, 2)), (192, (12, 24, 24), (1, 2)),
+        (384, (6, 12, 12), (2,))) for n in ns]
+    + [("b", n, sp, (c, c), c) for c, sp, ns in (
+        (120, (24, 48, 48), (1, 2)), (240, (12, 24, 24), (1, 2)), (320, (6, 12, 12), (1, 2)),
+        (128, (32, 32, 32), (1, 4)), (256, (16, 16, 16), (1, 4)), (320, (8, 8, 8), (1, 4)),
+        (64, (64, 64, 64), (1, 4)), (48, (96, 192, 192), (1, 2)), (48, (48, 96, 96), (1, 2)),
+        (96, (24, 48, 48), (1, 2)), (192, (12, 24, 24), (1, 2)), (384, (6, 12, 12), (1, 2)))
+       for n in ns]
+    + [("a", 2, sp, (c,), 2 * c) for c, sp in (
+        (120, (24, 48, 48)), (240, (12, 24, 24)), (320, (6, 12, 12)), (48, (96, 192, 192)),
+        (48, (48, 96, 96)), (96, (24, 48, 48)), (192, (12, 24, 24)), (384, (6, 12, 12)))])
+
+
+def test_wgmma_body_takes_every_call_of_the_older_body(device):
+    """A and B never reach conv3d_same_kernel: each of those shapes' plans
+    names the wgmma body."""
+    for form, n, sp, cs, cout in OLDER_BODY_SHAPES:
+        plan = cv.conv3d_same_plan(n, *sp, cs if form == "b" else cs[0], cout, form)
+        assert plan["ring"] == 0 and plan["wgmma"] == 1, (form, n, sp, cs, cout, plan)
+
+
+def test_wgmma_probe_matches_torch(device):
+    """One wgmma (m64 x 64 and x 128, k16) of a TMA-staged box at a tap's
+    descriptor offset, halo and far-edge tiles included, against torch
+    (probes/wgmma_forms.py raises past its bound)."""
+    from multitalent_tpu_torch.probes import wgmma_forms
+    rows = wgmma_forms.probe(device, torch.Generator(device=device).manual_seed(0))
+    assert len(rows) == 2 * len(wgmma_forms.PROBE_CASES)
 
 
 @pytest.mark.parametrize("shape", [(1, 12, 24, 24, 30), (2, 5, 7, 9, 60), (1, 6, 6, 6, 320),

@@ -19,6 +19,7 @@ from multitalent_tpu.ops.pallas_merged_conv import (pallas_packed_conv3d_merged,
                                                     prepare_merged, prepare_merged2)
 from multitalent_tpu_torch import _build
 from multitalent_tpu_torch.ops import conv3d as cv
+from multitalent_tpu_torch.ops import wgmma_layout as wl
 
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -120,6 +121,95 @@ def test_prepared_weight_layout_round_trips(splits):
     pw = cv.prepare_conv3d_weight(w, splits, dtype=torch.float32)
     assert pw.w.shape == (sum(-(-s // 16) for s in splits), 27, 16, 64)
     assert torch.equal(cv.unprepare_conv3d_weight(pw), w)
+    # the same layout as the wgmma body's B operand: each tap's k16 x 128
+    # read through its descriptor from the swizzled TMA weight stage gives
+    # the prepared rows back, 0 past CoutP; reassembled, the weight again
+    taps = torch.stack([torch.stack([
+        wl.read_b(wl.weight_stage(pw, kc, t // 9, 0, 128), wl.weight_desc(0, t % 9), 128)
+        for t in range(27)]) for kc in range(pw.w.shape[0])])
+    assert torch.equal(taps[..., pw.coutp:], torch.zeros_like(taps[..., pw.coutp:]))
+    back = cv.PreparedWeight(taps[..., :pw.coutp].contiguous(), pw.splits, pw.cout, pw.bn)
+    assert torch.equal(back.w, pw.w)
+    assert torch.equal(cv.unprepare_conv3d_weight(back), w)
+
+
+# the wgmma body's addressing (ops/wgmma_layout.py): the TMA halo box with its
+# zero fill, then for each tap the descriptor's start, LBO and SBO read as
+# wgmma reads the no-swizzle K-major A and the 128-byte-swizzled MN-major B,
+# in float64; against the plain version at ragged X (6, 12, 13; Z and Y past
+# a 4x8x8 tile too) and N = 2, and against the Pallas kernels in interpret
+# mode at the shapes they take (X a multiple of 8; _merged2_kernel's halves
+# of at most 32 channels). Cout 72 takes BN 128's second 64-column box, 0
+# past CoutP.
+EMULATION_EXACT = 1e-9  # float64 sums in another order
+
+
+@pytest.mark.parametrize("c", [24, 40, 48])
+@pytest.mark.parametrize("xd", [6, 12, 13])
+def test_wgmma_addressing_matches_plain(c, xd):
+    rng = np.random.RandomState(c * 100 + xd)
+    cout, bn = (72, 128) if c == 40 else (20, 64)
+    x = torch.from_numpy(rng.randn(2, 5, 9, xd, c))
+    w = torch.from_numpy(rng.randn(cout, c, 3, 3, 3) * 0.1)
+    b = torch.from_numpy(rng.randn(cout))
+    pw = cv.prepare_conv3d_weight(w, dtype=torch.float64)
+    got = wl.conv3d([x], pw, b, bn=bn)
+    np.testing.assert_allclose(got.numpy(), cv.conv3d_same_ref(x, w, b).numpy(),
+                               atol=EMULATION_EXACT, rtol=EMULATION_EXACT)
+
+
+@pytest.mark.parametrize("c", [24, 40, 48])
+def test_wgmma_addressing_matches_pallas_conv_kernel(c):
+    """As kernel A against pallas_conv.py:_conv_kernel, N = 2."""
+    rng = np.random.RandomState(c)
+    cout = 72 if c == 40 else 20
+    x = rng.randn(2, 6, 12, 16, c).astype(np.float32)
+    w = (rng.randn(3, 3, 3, c, cout) * 0.1).astype(np.float32)
+    ref = np.asarray(pallas_conv3d_same(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), dtype=torch.float32)
+    got = wl.conv3d([torch.from_numpy(x)], pw, bn=128 if cout > 64 else 64)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("g0,g1", [(24, 40), (24, 32)])
+def test_wgmma_addressing_of_the_dual_conv(g0, g1):
+    """As kernel B ([a | b] chunk order, each input's odd half chunk read
+    as 0 past its channels) against the plain version, N = 2, X 13; and at
+    24 + 32 against pallas_merged_conv.py:_merged2_kernel."""
+    rng = np.random.RandomState(g0 + g1)
+    a = torch.from_numpy(rng.randn(2, 3, 9, 13, g0))
+    b = torch.from_numpy(rng.randn(2, 3, 9, 13, g1))
+    w = torch.from_numpy(rng.randn(30, g0 + g1, 3, 3, 3) * 0.1)
+    pw = cv.prepare_conv3d_weight(w, (g0, g1), dtype=torch.float64)
+    got = wl.conv3d([a, b], pw, bn=64)
+    np.testing.assert_allclose(got.numpy(), cv.conv3d_same_dual_ref(a, b, w).numpy(),
+                               atol=EMULATION_EXACT, rtol=EMULATION_EXACT)
+    if g1 > 32:
+        return
+    a = rng.randn(2, 4, 8, 16, g0).astype(np.float32)
+    b = rng.randn(2, 4, 8, 16, g1).astype(np.float32)
+    w = (rng.randn(3, 3, 3, g0 + g1, 30) * 0.1).astype(np.float32)
+    f = (2, 2)
+    packed = pallas_packed_conv3d_merged2(
+        space_to_depth_yx(jnp.asarray(a), f), space_to_depth_yx(jnp.asarray(b), f),
+        prepare_merged2(jnp.asarray(w), f, (g0, g1)), interpret=True)
+    ref = np.asarray(depth_to_space_yx(packed, f))
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), (g0, g1), dtype=torch.float32)
+    got = wl.conv3d([torch.from_numpy(a), torch.from_numpy(b)], pw, bn=64)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_wgmma_descriptors_encode_the_body_offsets():
+    """The descriptor fields round-trip, and tap (dz, dy, dx) of plane p
+    moves the A operand's start by ((p + dz) * 10 + dy) * 160 + dx * 16
+    bytes: one staged box serves all 27 taps."""
+    d = wl.descriptor(0x1230, wl.UNIT_BYTES, wl.LINE_BYTES, wl.LAYOUT_NONE)
+    assert wl.decode(d) == (0x1230, 9600, 160, 0)
+    assert wl.decode(wl.weight_desc(2048, 3))[1:] == (18432, 1024, 1)
+    starts = {wl.decode(wl.box_desc(0, p, t // 9, t // 3 % 3, t % 3))[0]
+              for p in range(4) for t in range(27)}
+    assert max(starts) + 7 * wl.LINE_BYTES + 128 <= wl.UNIT_BYTES
+    assert wl.decode(wl.box_desc(0, 1, 2, 1, 2))[0] == ((1 + 2) * 10 + 1) * 160 + 2 * 16
 
 
 def test_cpu_calls_do_not_count_as_launches():

@@ -178,7 +178,8 @@ def test_zeros_matches_the_pallas_body(block):
 
 
 @pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
-                                   "grid_overhead_probe", "wgrad_forms", "conv_a_forms"])
+                                   "grid_overhead_probe", "wgrad_forms", "conv_a_forms",
+                                   "wgmma_forms"])
 def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
     """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
     plain run; without --device, a machine without a card refuses."""
@@ -284,3 +285,18 @@ def test_conv_a_forms_read_ptxas():
         "0 bytes spill loads",
         "conv3d_wgrad_kernel<2, 64, 1, 2>: Used 96 registers, 4 bytes spill stores, "
         "8 bytes spill loads"]
+
+
+def test_wgmma_forms_patch_the_pipeline_constants():
+    """probes/wgmma_forms.py --variants: each variant replaces its pipeline
+    constants of csrc/conv3d_wgmma.cu and nothing else; a constant the
+    source has not, once, is refused."""
+    from multitalent_tpu_torch.probes import wgmma_forms as wf
+    text = (Path(wf.__file__).resolve().parents[1] / "csrc" / "conv3d_wgmma.cu").read_text()
+    for consts in wf.VARIANTS.values():
+        patched = wf.variant_source(text, consts)
+        for name, value in consts.items():
+            assert f"constexpr int {name} = {value};" in patched
+        assert len(patched.splitlines()) == len(text.splitlines())
+    with pytest.raises(ValueError):
+        wf.variant_source(text, {"NO_SUCH_CONSTANT": 1})
