@@ -4017,6 +4017,71 @@ def phase_fp32_kernels() -> dict:
               f"({row['bound_by']}){', ' + row['write'] if 'write' in row else ''}")
         del ins, x_cl
     torch.cuda.empty_cache()
+    rows["ab_shapes"] = _fp32_ab_shapes(gen)
+    return rows
+
+
+def _fp32_ab_shapes(gen) -> list:
+    """14a: kernels A's and B's fp32 forms (the ring body) at every fp32 A/B
+    call of one Liver fp32 step at batch 2 (each stage's forward conv, which
+    its dx shares, each decoder's B and B's dx) and at the flagship's
+    30-channel rows at N=1 (probes/fp32_forms.py's shapes): each into a
+    NaN-filled buffer within FP32_RTOL of the plain fp32 version, its
+    single-call median and queued time beside cuDNN's fp32 call (TF32 off;
+    B's on the concat built beforehand), the bound and the share of it."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.probes.fp32_forms import FLAGSHIP_SHAPES, STEP_SHAPES
+    dev = torch.device("cuda")
+    rows = []
+    for n, sp, ca, cb, cout in STEP_SHAPES + FLAGSHIP_SHAPES:
+        splits = (ca, cb) if cb else (ca,)
+        ins = [torch.randn(n, *sp, c, generator=gen, device=dev) for c in splits]
+        w = torch.randn(cout, ca + cb, 3, 3, 3, generator=gen, device=dev) * (
+            2 / (27 * (ca + cb))) ** 0.5
+        bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+        pw = cv.prepare_conv3d_weight(w, splits if cb else None, torch.float32)
+        out = torch.full((n, *sp, cout), float("nan"), device=dev)
+        wrap = cv.conv3d_same_dual if cb else cv.conv3d_same
+        ref = (cv.conv3d_same_dual_ref if cb else cv.conv3d_same_ref)(*ins, w, bias)
+        what = f"{'+'.join(map(str, splits))}->{cout} at {'x'.join(map(str, sp))} N={n}"
+        err = _check(f"14a {what}", wrap(*ins, pw, bias, out=out), ref,
+                     FP32_RTOL * ref.abs().max().item())
+        x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
+        w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+
+        def kernel():
+            return wrap(*ins, pw, bias, out=out)
+
+        def library():
+            return F.conv3d(x_cl, w_cl, bias, padding=1)
+
+        plan = cv.conv3d_same_fp32_plan(n, *sp, ca, cb, cout)
+        row = {"at": what, "form": "B" if cb else "A", "splits": list(splits), "cout": cout,
+               "spatial": list(sp), "n": n, "err": err,
+               "rel_err": err / max(ref.abs().max().item(), 1e-30),
+               "ms": _median_ms(kernel, FP32_ITERS), "queued_ms": _queued_ms(kernel, 20),
+               "cudnn_fp32_ms": _median_ms(library, FP32_ITERS),
+               "cudnn_fp32_queued_ms": _queued_ms(library, 20),
+               **_fp32_bound(ca + cb, cout, sp, n),
+               "plan": {k: plan[k] for k in ("box", "splits", "resident", "stages", "grid")}}
+        row["share_of_bound"] = row["bound_ms"] / row["queued_ms"]
+        rows.append(row)
+        print(f"14a {'B' if cb else 'A'} fp32 {what}: max|d| {err:.3e} (relative "
+              f"{row['rel_err']:.2e}); ring body {row['ms']:.3f} ms, queued "
+              f"{row['queued_ms']:.3f} ({row['share_of_bound']:.0%} of the bound "
+              f"{row['bound_ms']:.3f} ms); cuDNN fp32 {row['cudnn_fp32_ms']:.3f}, queued "
+              f"{row['cudnn_fp32_queued_ms']:.3f}; box {plan['box']}, K splits "
+              f"{plan['splits']}, {'resident' if plan['resident'] else 'streamed'} weights, "
+              f"{plan['stages']} stages, grid {plan['grid']}")
+        del ins, ref, out, x_cl
+    torch.cuda.empty_cache()
+    step = [r for r in rows if r["n"] == 2]
+    print(f"14a one Liver fp32 step's {len(step)} distinct A/B shapes, once each: ring body "
+          f"{sum(r['queued_ms'] for r in step):.3f} ms queued, cuDNN fp32 "
+          f"{sum(r['cudnn_fp32_queued_ms'] for r in step):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in step):.3f} ms")
     return rows
 
 
@@ -5770,12 +5835,16 @@ def main() -> int:
             ("conv3d_same_wgrad_fp32", ("multitalent_tpu/ops/pallas_conv.py:199",
                                         "multitalent_tpu/ops/pallas_merged_conv.py:587"))):
         r = fp32_kernels[kname]
+        # A's rows on the ring body: its forwards and every dx; B's: the dual convs
+        shapes = [s for s in fp32_kernels["ab_shapes"] if kname != "conv3d_same_wgrad_fp32"
+                  and (s["form"] == "B") == (kname == "conv3d_same_dual_fp32")]
         rows.append({"name": kname, "route": "cuda",
                      "source": "multitalent_tpu_torch/csrc/conv3d_fp32.cu",
                      "replaces": src_replaces[0], "also_replaces": list(src_replaces[1:]),
                      "launches": fp32_train["launches"][kname],
                      "launches_predict": fp32_train["predict_launches"][kname],
-                     "max_abs_err": r["err"], "rel_err": r["rel_err"], "ms": r["ms"],
+                     "max_abs_err": max([r["err"]] + [s["err"] for s in shapes]),
+                     "rel_err": r["rel_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": None if kname == "conv3d_same_dual_fp32"
@@ -5783,6 +5852,7 @@ def main() -> int:
                      "cudnn_fp32_ms": r["cudnn_fp32_ms"],
                      **({"write": r["write"]} if "write" in r else {}),
                      "launches_fused": fp32_fused["launches"][kname],
+                     **({"shapes": shapes} if shapes else {}),
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, r["splits"])), r["cout"],
                          "x".join(map(str, r["spatial"])), r["n"])})
@@ -5960,7 +6030,8 @@ def main() -> int:
           f"seconds {', '.join(f'{k} {v:.2f}' for k, v in cascade['seconds'].items())}; on {smi}")
     print(f"summary, fp32 and the variants (phase 14): fp32 forms "
           + "; ".join(f"{k} {v['ms']:.3f} ms (cuDNN fp32 {v['cudnn_fp32_ms']:.3f}, bound "
-                      f"{v['bound_ms']:.3f})" for k, v in fp32_kernels.items())
+                      f"{v['bound_ms']:.3f})" for k, v in fp32_kernels.items()
+                      if k != "ab_shapes")
           + f"; nnUNetTrainerV2_fp32 seconds per step {fp32_train['seconds_per_step']:.3f}, "
           f"peak {fp32_train['peak_gib']:.2f} GiB; 2D seconds per step "
           + ", ".join(f"{k} {two_d[k]['step_s']:.3f} (peak {two_d[k]['peak_gib']:.2f} GiB)"

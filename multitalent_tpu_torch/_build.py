@@ -48,9 +48,11 @@ _SIGNATURES = {
     # a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, bn,
     # stream
     "mt_conv3d_same_dual": ([_P, _P, _P, _P, _P, _P, _L] + [_I] * 9 + [_P], _I),
-    # the fp32 forms of A and B (b null for A): a, b, w, bias, out, n, z, y,
-    # x, ca, cb, cout, coutp, stream
-    "mt_conv3d_same_fp32": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    # the fp32 forms of A and B on the ring body (b null for A): a, b, w,
+    # bias, out, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, then the plan
+    # (ops/conv3d.py:conv3d_same_fp32_plan): bz, by, bx, splits, resident,
+    # stages, grid_p, and mode (0 whole, 1 copies only, 2 products only), stream
+    "mt_conv3d_same_fp32": ([_P] * 6 + [_L] + [_I] * 16 + [_P], _I),
     # n, z, y, x, ca, cb, cout -> C's fp32 form's workspace bytes
     "mt_conv3d_wgrad_fp32_workspace": ([_I] * 7, _L),
     # C's fp32 form (b null for the single form): a, b, g, dw, ws, ws_bytes,

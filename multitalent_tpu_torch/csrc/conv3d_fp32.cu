@@ -35,15 +35,25 @@
 // mantissa bits, and the JAX package's fp32 reference does not. What bounds
 // them on an H100 is fp32 arithmetic (67 TFLOP/s): a 32 -> 32 conv does 1728
 // operations for every 256 bytes it must move, far above the card's ~20
-// operations a byte in fp32. The design keeps the products fed from shared
-// memory with few loads per FMA, and nothing more (a simple kernel first):
-//   - forward (A, B): a block owns a 256-voxel box of the output and 32
-//     output channels; it stages 8 input channels of the box's halo and
-//     their 27 x 32 weights at a time in shared memory. A thread owns 4
+// operations a byte in fp32. So the bodies keep the FFMA pipes fed from
+// shared memory with few loads per FMA. Which body serves which form:
+//   - forward of A and B (every fp32 A and B call, each dx included): the
+//     ring body, conv_fp32_ring_kernel<DUAL> (its design is written above
+//     the kernel): persistent blocks walk 512-voxel boxes with a cp.async
+//     ring of 8-channel halo stages, weights resident where they fit,
+//     8 voxels x 8 output channels a thread (768 FFMAs for 34 shared
+//     loads), the K loop split over blocks only to fill one wave, the
+//     splits added in a fixed order by conv_fp32_reduce_kernel. The host
+//     plan is ops/conv3d.py:conv3d_same_fp32_plan; run_ring checks it.
+//   - forward of D (its prologue and stats, and its dual form): the staged
+//     body, conv_fp32_kernel<AFFINE, STATS> with STATS set: a block owns a
+//     256-voxel box of the output and 32 output channels; it stages 8 input
+//     channels of the box's halo and their 27 x 32 weights at a time in
+//     shared memory (load, barrier, products, no overlap). A thread owns 4
 //     neighbouring voxels along x and 8 output channels (32 sums): per
 //     (channel, dz, dy) it reads a 6-voxel window of the halo once and two
 //     float4s of weights per tap (the same for the whole warp: broadcast),
-//     96 FMAs for 12 loads;
+//     96 FMAs for 12 loads. A and B never launch it;
 //   - weight gradient (C): a block owns 8 input channels, 32 output
 //     channels and a contiguous run of boxes (the voxel axis is split over
 //     blocks to fill the card); a thread owns one input channel, one (dz, dy)
@@ -144,7 +154,269 @@ __device__ __forceinline__ void stage_halo(float* dst, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// forward: kernel A's and B's fp32 form
+// forward: kernel A's and B's fp32 form on the ring body
+// ---------------------------------------------------------------------------
+//
+// A block owns R_BN = 32 output channels (4 groups of 8) and walks 512-voxel
+// boxes (bz, by, bx with bx a multiple of 8 and by 8 or 16) in a fixed
+// order: boxes p, p + P, ... of the volume for its column block and its
+// part of the K loop. Thread t owns 8 neighbouring voxels along x and 8
+// output channels (64 sums): lane & 3 picks the channel group, the warp's 8
+// voxel groups are 8 neighbouring y rows. Its K loop runs in stages of
+// R_CK = 8 input channels of one box's halo, staged with cp.async into a
+// ring of 2-3 slots: the copies of stage s + slots - 1 fly while stage s's
+// FFMAs run, behind one barrier a stage. The halo keeps its channels
+// innermost, as the tensor has them, so each copy moves 16, 8 or 4
+// contiguous bytes; a halo row of bx + 2 voxels is padded by 4 floats so
+// that a warp's 8 rows land on 8 distinct 16-byte bank groups. Per (input
+// channel quad, dz, dy) a thread reads a 10-voxel window of float4s (4
+// channels each) once and, per (dx, channel), two float4s of weights that
+// every lane of its channel group shares: 768 FFMAs for 34 shared loads.
+// The next step's window is read into a second set of registers while this
+// step's FFMAs run (one block an SM leaves 2 warps a scheduler to hide the
+// shared-memory latency). Weights are resident (the whole K loop's, loaded once per block) where
+// they fit beside the ring and the block walks several boxes, else each
+// stage carries its chunk's 27 x 8 x 32 weights beside the halo. Small
+// grids split the K loop over blocks to fill one wave; the splits' fp32
+// partials are added in split order by conv_fp32_reduce_kernel.
+
+constexpr int R_THREADS = 256;
+constexpr int R_BN = 32;                     // output channels a block
+constexpr int R_CK = 8;                      // input channels a stage
+constexpr int R_TM = 8;                      // voxels along x a thread
+constexpr int R_WCHUNK = 27 * R_CK * R_BN;   // floats of one stage's weights
+constexpr int R_SMEM_MAX = 232448;           // dynamic shared memory a block may take
+
+// a box's halo row stride in floats: bx + 2 voxels of R_CK channels, + 4
+__host__ __device__ constexpr int ring_row_stride(int bx) { return (bx + 2) * R_CK + 4; }
+
+struct RParams {
+  const float* in[2];
+  int cin[2];
+  int chunks0, chunks;  // R_CK-chunks of input a, of both
+  int kchunk0_b;        // first prepared 16-row chunk of input b
+  const float* w;
+  const float* bias;    // null when splits > 1 (the reduce adds it)
+  float* out;           // out, or the partials (splits, voxels, Cout)
+  int cout, coutp;
+  int n, z, y, x;
+  int bz, by, bx, gz, gy, gx;
+  int boxes;            // N * the boxes of a sample
+  int per_split;        // chunks of a split
+  int grid_p;           // blocks along the boxes
+  int resident, stages, vec, store4;
+  int rs, halo;         // halo row stride and floats of one stage's halo
+  int mode;             // 0 whole, 1 copies only, 2 products only (the probe's forms)
+};
+
+template <bool DUAL>
+__global__ void __launch_bounds__(R_THREADS, 1) conv_fp32_ring_kernel(RParams p) {
+  extern __shared__ float4 ring_smem4[];
+  float* smem = reinterpret_cast<float*>(ring_smem4);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cb = blockIdx.y, split = blockIdx.z;
+  const int co0 = cb * R_BN;
+  const int k0 = split * p.per_split;
+  const int nk = min(p.per_split, p.chunks - k0);
+  const int items = (p.boxes - (int)blockIdx.x + p.grid_p - 1) / p.grid_p;
+  const int total = items * nk;
+  const int hx = p.bx + 2, hy = p.by + 2, hz = p.bz + 2;
+  const int wslot = p.resident ? 0 : R_WCHUNK;
+  float* res = smem;  // resident weights: nk chunks
+  float* ring = smem + (p.resident ? nk * R_WCHUNK : 0);
+  const int slot_floats = p.halo + wslot;
+
+  // the box of item i (block boxes blockIdx.x + i * grid_p)
+  auto box_of = [&](int i, int* nb, int* z0, int* y0, int* x0) {
+    int b = blockIdx.x + i * p.grid_p;
+    const int per = p.gz * p.gy * p.gx;
+    *nb = b / per;
+    b -= *nb * per;
+    const int bxi = b % p.gx;
+    b /= p.gx;
+    *x0 = bxi * p.bx;
+    *y0 = (b % p.gy) * p.by;
+    *z0 = (b / p.gy) * p.bz;
+  };
+
+  // the 27 x R_CK x R_BN weights of chunk k into dst ([tap][ci][co])
+  auto load_weights = [&](float* dst, int k) {
+    const int s = DUAL && k >= p.chunks0;
+    const int j = k - (s ? p.chunks0 : 0);
+    const int kc = (s ? p.kchunk0_b : 0) + (j >> 1), r0 = (j & 1) * R_CK;
+    const float* src = p.w + ((int64_t)kc * 27 * KCH + r0) * p.coutp + co0;
+    for (int i = t; i < 27 * R_CK * (R_BN / 4); i += R_THREADS) {
+      const int row = i >> 3, c4 = (i & 7) * 4;  // row = tap * R_CK + ci
+      const int tap = row >> 3, ci = row & 7;
+      mt::cp_async16(dst + row * R_BN + c4, src + (int64_t)(tap * KCH + ci) * p.coutp + c4,
+                     true);
+    }
+  };
+
+  // stage s: chunk k0 + s % nk of item s / nk, its halo (and weights) into
+  // slot s % stages
+  auto produce = [&](int s) {
+    const int i = s / nk, k = k0 + s - i * nk;
+    float* slot = ring + (s % p.stages) * slot_floats;
+    if (!p.resident) load_weights(slot + p.halo, k);
+    int nb, z0, y0, x0;
+    box_of(i, &nb, &z0, &y0, &x0);
+    const int si = DUAL && k >= p.chunks0;
+    const int c = p.cin[si], c0 = (k - (si ? p.chunks0 : 0)) * R_CK;
+    const float* src = p.in[si];
+    const int units = R_CK / p.vec, lg = units == 2 ? 1 : (units == 4 ? 2 : 3);
+    const int per_line = hx * units;
+    for (int l = warp; l < hz * hy; l += R_THREADS / 32) {
+      const int vz = l / hy, vy = l - vz * hy;
+      const int gz = z0 + vz - 1, gy = y0 + vy - 1;
+      const bool line_in = gz >= 0 && gz < p.z && gy >= 0 && gy < p.y;
+      const float* s_line = src + ((((int64_t)nb * p.z + gz) * p.y + gy) * p.x) * c + c0;
+      float* d_line = slot + l * p.rs;
+      for (int u = lane; u < per_line; u += 32) {
+        const int v = u >> lg, q = u & (units - 1);
+        const int gx = x0 + v - 1, ch = q * p.vec;
+        const bool in = line_in && gx >= 0 && gx < p.x && c0 + ch < c;
+        const float* s = in ? s_line + (int64_t)gx * c + ch : src;
+        float* d = d_line + v * R_CK + ch;
+        if (p.vec == 4) {
+          mt::cp_async16(d, s, in);
+        } else if (p.vec == 2) {
+          mt::cp_async8(d, s, in);
+        } else {
+          mt::cp_async4(d, s, in);
+        }
+      }
+    }
+  };
+
+  // this thread's voxels and channels
+  const int cg = lane & 3;
+  const int vg = warp * 8 + (lane >> 2);
+  const int vy = vg % p.by, rest = vg / p.by;
+  const int nxg = p.bx / R_TM;
+  const int gxi = rest % nxg, vz = rest / nxg;
+  const int base = (vz * hy + vy) * p.rs + gxi * R_TM * R_CK;
+
+  float acc[R_TM][8];
+#pragma unroll
+  for (int m = 0; m < R_TM; ++m)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
+
+  if (total > 0 && p.resident && p.mode != 2)
+    for (int k = 0; k < nk; ++k) load_weights(res + k * R_WCHUNK, k0 + k);
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < total && p.mode != 2) produce(s);
+    mt::cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    if (p.stages == 3) {
+      mt::cp_async_wait<1>();
+    } else {
+      mt::cp_async_wait<0>();
+    }
+    __syncthreads();  // stage s landed for all; slot (s - 1) % stages is free
+    if (s + p.stages - 1 < total && p.mode != 2) produce(s + p.stages - 1);
+    mt::cp_async_commit();
+    const int i = s / nk, kk = s - i * nk;
+    if (p.mode != 1) {
+      const float* slot = ring + (s % p.stages) * slot_floats;
+      const float* wsm = (p.resident ? res + kk * R_WCHUNK : slot + p.halo) + cg * 8;
+      const float* xs = slot + base;
+      // step j of the stage: channel quad j / 9, (dz, dy) = j % 9; each
+      // step's window is loaded one step ahead, into the other buffer
+      auto window = [&](float4* a, int j) {
+        const int ciq = j >= 9 ? 4 : 0, dzy = j - (j >= 9 ? 9 : 0);
+        const int dz = dzy / 3, dy = dzy - dz * 3;
+        const float* xp = xs + (dz * hy + dy) * p.rs + ciq;
+#pragma unroll
+        for (int q = 0; q < R_TM + 2; ++q) a[q] = *reinterpret_cast<const float4*>(xp + q * R_CK);
+      };
+      auto products = [&](const float4* a, int j) {
+        const int ciq = j >= 9 ? 4 : 0, dzy = j - (j >= 9 ? 9 : 0);
+        const float* wp = wsm + (dzy * 3 * R_CK + ciq) * R_BN;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci) {
+            const float4 w0 = *reinterpret_cast<const float4*>(wp + (dx * R_CK + ci) * R_BN);
+            const float4 w1 = *reinterpret_cast<const float4*>(wp + (dx * R_CK + ci) * R_BN + 4);
+            const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int m = 0; m < R_TM; ++m) {
+              const float4 av = a[m + dx];
+              const float xv = ci == 0 ? av.x : (ci == 1 ? av.y : (ci == 2 ? av.z : av.w));
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[m][c] = fmaf(xv, wv[c], acc[m][c]);
+            }
+          }
+        }
+      };
+      static_assert(R_CK == 8, "a stage is two channel quads of 9 (dz, dy) steps");
+      float4 a0[R_TM + 2], a1[R_TM + 2];
+      window(a0, 0);
+#pragma unroll 1
+      for (int j = 0; j < 18; j += 2) {
+        window(a1, j + 1);
+        products(a0, j);
+        if (j + 2 < 18) window(a0, j + 2);
+        products(a1, j + 1);
+      }
+    }
+    if (kk != nk - 1) continue;
+    // the item's last chunk: write its box's sums (+ bias) and start again
+    int nb, z0, y0, x0;
+    box_of(i, &nb, &z0, &y0, &x0);
+    const int oz = z0 + vz, oy = y0 + vy, ox0 = x0 + gxi * R_TM, co = co0 + cg * 8;
+    if (oz < p.z && oy < p.y && co < p.cout) {
+      float bv[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        bv[c] = p.bias != nullptr && co + c < p.cout ? p.bias[co + c] : 0.f;
+      float* dst = p.out + (int64_t)split * p.n * p.z * p.y * p.x * p.cout +
+                   ((((int64_t)nb * p.z + oz) * p.y + oy) * p.x + ox0) * p.cout + co;
+#pragma unroll
+      for (int m = 0; m < R_TM; ++m) {
+        if (ox0 + m < p.x) {
+          float* row = dst + (int64_t)m * p.cout;
+          if (p.store4) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (co + 4 * h < p.cout)
+                *reinterpret_cast<float4*>(row + 4 * h) =
+                    make_float4(acc[m][4 * h] + bv[4 * h], acc[m][4 * h + 1] + bv[4 * h + 1],
+                                acc[m][4 * h + 2] + bv[4 * h + 2],
+                                acc[m][4 * h + 3] + bv[4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              if (co + c < p.cout) row[c] = acc[m][c] + bv[c];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < R_TM; ++m)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
+  }
+  mt::cp_async_wait_all();
+}
+
+// out[v, co] = bias[co] + the sum over splits of part[s, v, co], in split order
+__global__ void conv_fp32_reduce_kernel(const float* __restrict__ part,
+                                        const float* __restrict__ bias, float* __restrict__ out,
+                                        long long count, int cout, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    float sum = bias != nullptr ? bias[i % cout] : 0.f;
+    for (int s = 0; s < splits; ++s) sum += part[s * count + i];
+    out[i] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: kernel D's fp32 form (the staged body)
 // ---------------------------------------------------------------------------
 
 constexpr int F_THREADS = 256;
@@ -329,15 +601,15 @@ cudaError_t launch_conv(const FParams& p, long long blocks, int cout, cudaStream
   return cudaGetLastError();
 }
 
-// stats null: A's and B's form; else D's (its prologue where scale is
-// given, one input only), the stats through the workspace ws.
+// Kernel D's fp32 form: its prologue where scale is given (one input
+// only), the stats through the workspace ws.
 int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
              void* out, int n, int z, int y, int x, int cout, int coutp, void* stream,
-             const void* scale = nullptr, const void* shift = nullptr, float slope = 0.f,
-             void* stats = nullptr, void* ws = nullptr, long long ws_bytes = 0) {
+             const void* scale, const void* shift, float slope, void* stats, void* ws,
+             long long ws_bytes) {
   if (ca <= 0 || cb < 0 || cout <= 0 || coutp < cout || coutp % BN || n <= 0 || z <= 0 ||
-      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr) ||
-      (scale == nullptr) != (shift == nullptr) || (scale != nullptr && (stats == nullptr || cb > 0)))
+      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr) || stats == nullptr ||
+      (scale == nullptr) != (shift == nullptr) || (scale != nullptr && cb > 0))
     return (int)cudaErrorInvalidValue;
   FParams p{};
   p.in[0] = static_cast<const float*>(a);
@@ -355,7 +627,6 @@ int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const 
   const long long blocks = p.g.boxes * n;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stats == nullptr) return (int)launch_conv<false, false>(p, blocks, cout, st);
   const long long need = stats_workspace_bytes(n, z, y, x, cout);
   if (need < 0 || ws == nullptr || ws_bytes < need) return (int)cudaErrorInvalidValue;
   p.scale = static_cast<const float*>(scale);
@@ -368,6 +639,87 @@ int run_conv(const void* a, const void* b, int ca, int cb, const void* w, const 
   const long long part_elems = (long long)n * p.g.boxes * 2 * cout;  // then reduce_rows'
   return (int)mt::reduce_rows(p.part, static_cast<float*>(stats), p.part + part_elems, n,
                               (int)p.g.boxes, 2 * cout, st);
+}
+
+// The ring body's boxes (z, y, x): 512 voxels, x a multiple of R_TM, y 8 or
+// 16 (a warp's 8 voxel groups are 8 neighbouring rows); the same list as
+// ops/conv3d.py:FP32_RING_BOXES, which picks one.
+constexpr int kRingBoxes[][3] = {{8, 8, 8}, {4, 8, 16}, {4, 16, 8}, {2, 16, 16}, {2, 8, 32}};
+
+// Kernel A (b null, cb 0) or B on the ring body with the plan that
+// ops/conv3d.py:conv3d_same_fp32_plan makes: the box, K splits (partials
+// in ws, then conv_fp32_reduce_kernel), resident weights, ring stages and
+// blocks along the boxes. Refuses a plan it cannot run.
+int run_ring(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
+             void* out, void* ws, long long ws_bytes, int n, int z, int y, int x, int cout,
+             int coutp, int bz, int by, int bx, int splits, int resident, int stages,
+             int grid_p, int mode, void* stream) {
+  if (ca <= 0 || cb < 0 || cout <= 0 || coutp < cout || coutp % R_BN || n <= 0 || z <= 0 ||
+      y <= 0 || x <= 0 || (cb > 0) != (b != nullptr) || stages < 2 || stages > 3 ||
+      (resident != 0 && resident != 1) || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  bool known = false;
+  for (const auto& k : kRingBoxes) known = known || (k[0] == bz && k[1] == by && k[2] == bx);
+  if (!known) return (int)cudaErrorInvalidValue;
+  RParams p{};
+  p.in[0] = static_cast<const float*>(a);
+  p.in[1] = static_cast<const float*>(b);
+  p.cin[0] = ca;
+  p.cin[1] = cb;
+  p.chunks0 = cdiv(ca, R_CK);
+  p.chunks = p.chunks0 + (cb > 0 ? cdiv(cb, R_CK) : 0);
+  p.kchunk0_b = cdiv(ca, KCH);
+  p.w = static_cast<const float*>(w);
+  p.cout = cout;
+  p.coutp = coutp;
+  p.n = n;
+  p.z = z;
+  p.y = y;
+  p.x = x;
+  p.bz = bz;
+  p.by = by;
+  p.bx = bx;
+  p.gz = cdiv(z, bz);
+  p.gy = cdiv(y, by);
+  p.gx = cdiv(x, bx);
+  const long long boxes = (long long)n * p.gz * p.gy * p.gx;
+  if (splits < 1 || splits > p.chunks || boxes > 0x7fffffffLL || grid_p < 1 || grid_p > boxes)
+    return (int)cudaErrorInvalidValue;
+  p.boxes = (int)boxes;
+  p.per_split = cdiv(p.chunks, splits);
+  if (cdiv(p.chunks, p.per_split) != splits || (resident && splits > 1))
+    return (int)cudaErrorInvalidValue;
+  p.grid_p = grid_p;
+  p.resident = resident;
+  p.stages = stages;
+  const bool even2 = ca % 2 == 0 && cb % 2 == 0;
+  p.vec = ca % 4 == 0 && cb % 4 == 0 ? 4 : (even2 ? 2 : 1);
+  p.rs = ring_row_stride(bx);
+  p.halo = (bz + 2) * (by + 2) * p.rs;
+  p.mode = mode;
+  const long long smem =
+      4LL * ((resident ? p.per_split * R_WCHUNK : 0) +
+             (long long)stages * (p.halo + (resident ? 0 : R_WCHUNK)));
+  if (smem > R_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long count = (long long)n * z * y * x * cout;
+  if (splits > 1 && (ws == nullptr || ws_bytes < 4LL * splits * count))
+    return (int)cudaErrorInvalidValue;
+  p.out = static_cast<float*>(splits > 1 ? ws : out);
+  p.bias = splits > 1 ? nullptr : static_cast<const float*>(bias);
+  p.store4 = cout % 4 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto kernel = cb > 0 ? conv_fp32_ring_kernel<true> : conv_fp32_ring_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(grid_p, cdiv(cout, R_BN), splits), R_THREADS, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int rblocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  conv_fp32_reduce_kernel<<<rblocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                   static_cast<const float*>(bias),
+                                                   static_cast<float*>(out), count, cout, splits);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -537,12 +889,18 @@ int run_wgrad(const void* a, const void* b, int ca, int cb, const void* gr, void
 
 extern "C" {
 
-// Kernel A's (b null, cb 0) or B's fp32 form: out = conv(concat(a, b), w) +
-// bias. Returns cudaGetLastError() after the launch (0 on success).
+// Kernel A's (b null, cb 0) or B's fp32 form on the ring body: out =
+// conv(concat(a, b), w) + bias with the plan of
+// ops/conv3d.py:conv3d_same_fp32_plan (ws: the K splits' partials, 4 *
+// splits * N * Z * Y * X * Cout bytes when splits > 1); mode 0 (1: copies
+// only, 2: products only, the probe's forms). Returns cudaGetLastError()
+// after the launches (0 on success).
 int mt_conv3d_same_fp32(const void* a, const void* b, const void* w, const void* bias,
-                        void* out, int n, int z, int y, int x, int ca, int cb, int cout,
-                        int coutp, void* stream) {
-  return run_conv(a, b, ca, cb, w, bias, out, n, z, y, x, cout, coutp, stream);
+                        void* out, void* ws, long long ws_bytes, int n, int z, int y, int x,
+                        int ca, int cb, int cout, int coutp, int bz, int by, int bx, int splits,
+                        int resident, int stages, int grid_p, int mode, void* stream) {
+  return run_ring(a, b, ca, cb, w, bias, out, ws, ws_bytes, n, z, y, x, cout, coutp, bz, by,
+                  bx, splits, resident, stages, grid_p, mode, stream);
 }
 
 // Bytes of fp32 workspace kernel D's fp32 form takes at these sizes (-1:

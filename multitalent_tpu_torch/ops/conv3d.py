@@ -29,7 +29,10 @@ nnUNetTrainerV2_fp32), fp32: each wrapper sends fp32 inputs to the kernel's
 fp32 form (`conv3d_same_fp32`, `conv3d_same_dual_fp32`,
 `conv3d_same_wgrad_fp32`, `conv3d_same_affine_fp32` and
 `conv3d_same_dual_stats_fp32`, plain FFMA without TF32, fp32 out), which
-counts its launches on its own `launches`.
+counts its launches on its own `launches`. Every fp32 A and B call (each
+dx too) runs the ring body of `csrc/conv3d_fp32.cu` (conv_fp32_ring_kernel,
+planned by `conv3d_same_fp32_plan`); D's fp32 forms run that file's staged
+body (conv_fp32_kernel), C's its wgrad_fp32_kernel.
 
 Kernels A, B and D live in `csrc/conv3d_same.cu` (A and B at 16-byte rows
 on the wgmma body of `csrc/conv3d_wgmma.cu`), kernel C in
@@ -499,8 +502,82 @@ def _check_fp32(inputs: list[tuple[str, torch.Tensor]]) -> None:
                          + " differ outside the channel axis")
 
 
+# the fp32 ring body of kernels A and B (csrc/conv3d_fp32.cu
+# conv_fp32_ring_kernel): 512-voxel boxes (z, y, x), smallest halo first; 8
+# input channels a stage, 32 output channels a block; its row padding and
+# the shared memory a block may take (the C side checks the same)
+FP32_RING_BOXES = ((8, 8, 8), (4, 8, 16), (4, 16, 8), (2, 16, 16), (2, 8, 32))
+FP32_RING_CK = 8
+FP32_RING_BN = 32
+FP32_RING_SMEM_MAX = 232448
+
+
+def _sm_count(sms: int | None) -> int:
+    if sms is not None:
+        return sms
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def conv3d_same_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout: int,
+                          sms: int | None = None) -> dict:
+    """The ring body's plan for kernel A's (cb 0) or B's fp32 form at these
+    sizes on a card of `sms` SMs (default: the current card's):
+
+    - box: the 512-voxel box (z, y, x) that wastes the fewest voxels at the
+      volume's edges (the first of ties: the smallest halo); boxes: N times
+      a sample's;
+    - vec: floats a halo copy (4, 2 or 1: 16-, 8- or 4-byte cp.async);
+    - chunks: 8-channel stages of the K loop over both inputs;
+    - splits, per_split: the K loop is split over blocks only when the
+      (box, 32-column block) items do not fill one wave of `sms` blocks;
+    - grid: (blocks along the boxes, column blocks, splits); a block walks
+      boxes p, p + grid[0], ...;
+    - resident: the whole K loop's weights stay in shared memory (one split,
+      at least two boxes a block, room beside a 2-stage ring), else each
+      stage carries its chunk's weights;
+    - stages: ring depth, 3 where it fits, else 2; smem_bytes a block;
+    - workspace_bytes: the splits' fp32 partials (0: written directly)."""
+    if min(n, z, y, x, ca, cout) <= 0 or cb < 0:
+        raise ValueError(f"sizes {(n, z, y, x, ca, cb, cout)} are not a conv's")
+    sms = _sm_count(sms)
+    per = [-(-z // bz) * -(-y // by) * -(-x // bx) for bz, by, bx in FP32_RING_BOXES]
+    i = per.index(min(per))
+    bz, by, bx = FP32_RING_BOXES[i]
+    boxes = n * per[i]
+    ck, bn = FP32_RING_CK, FP32_RING_BN
+    chunks = -(-ca // ck) + -(-cb // ck)
+    cols = -(-cout // bn)
+    items = boxes * cols
+    if items >= sms:
+        splits, per_split, grid_p = 1, chunks, min(boxes, max(1, sms // cols))
+    else:
+        per_split = -(-chunks // min(chunks, max(1, sms // items)))
+        splits, grid_p = -(-chunks // per_split), boxes
+    halo = (bz + 2) * (by + 2) * ((bx + 2) * ck + 4)
+    wchunk = 27 * ck * bn
+
+    def smem(resident: bool, stages: int) -> int:
+        return 4 * ((per_split * wchunk if resident else 0)
+                    + stages * (halo + (0 if resident else wchunk)))
+
+    resident = (splits == 1 and -(-boxes // grid_p) >= 2
+                and smem(True, 2) <= FP32_RING_SMEM_MAX)
+    stages = 3 if smem(resident, 3) <= FP32_RING_SMEM_MAX else 2
+    if smem(resident, stages) > FP32_RING_SMEM_MAX:
+        raise ValueError(f"no ring fits at sizes {(n, z, y, x, ca, cb, cout)}")
+    vec = 4 if ca % 4 == 0 and cb % 4 == 0 else (2 if ca % 2 == 0 and cb % 2 == 0 else 1)
+    return {"box": (bz, by, bx), "boxes": boxes, "vec": vec, "chunks": chunks,
+            "splits": splits, "per_split": per_split, "grid": (grid_p, cols, splits),
+            "resident": resident, "stages": stages, "smem_bytes": smem(resident, stages),
+            "workspace_bytes": 0 if splits == 1 else 4 * splits * n * z * y * x * cout}
+
+
 def _launch_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
-                 bias: torch.Tensor | None, out: torch.Tensor | None) -> torch.Tensor:
+                 bias: torch.Tensor | None, out: torch.Tensor | None, mode: int = 0
+                 ) -> torch.Tensor:
+    """Run the ring body (mode 0; 1 copies only, 2 products only: the
+    probe's forms) on checked inputs into `out` (or a new output), with the
+    workspace of its K splits' partials where the plan splits."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
@@ -510,11 +587,16 @@ def _launch_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
+        plan = conv3d_same_fp32_plan(n, z, y, xd, cs[0], cs[1], pw.cout)
+        nbytes = plan["workspace_bytes"]
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev) if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mt_conv3d_same_fp32(
             inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
             pw.w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, z, y, xd, cs[0], cs[1], pw.cout, pw.coutp, stream)
+            None if ws is None else ws.data_ptr(), nbytes, n, z, y, xd, cs[0], cs[1],
+            pw.cout, pw.coutp, *plan["box"], plan["splits"], int(plan["resident"]),
+            plan["stages"], plan["grid"][0], mode, stream)
     _build.check(lib, code, "mt_conv3d_same_fp32")
     return out
 

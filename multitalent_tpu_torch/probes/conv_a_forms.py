@@ -9,7 +9,9 @@ streamed weights and a whole K loop a block run the wgmma body of
 conv3d_wgmma.cu, and D's dual form there the older body of two blocks an
 SM).
 `--against DIR` adds another checkout's source as it is (e.g. the parent
-commit's). Each form is the source patched as text and built by nvcc, with
+commit's). D's dual form is also timed as B's launch followed by kernel E's
+stats pass on its output (the two-launch way to the same out and stats);
+`--only d_dual` times D's dual form alone. Each form is the source patched as text and built by nvcc, with
 fused_norm.cu (and conv3d_wgmma.cu where the checkout has it), into a
 library of its own under `_build/conv_a_forms/`; every
 form is checked against the plain version (D's stats too), then timed at
@@ -26,7 +28,7 @@ It also prints ptxas's registers and spills for the conv kernels of each
 source (and kernel C's, which shares A's loader).
 
     python -m multitalent_tpu_torch.probes.conv_a_forms [--tree DIR] [--against DIR]
-        [--out JSON]
+        [--only d_dual] [--out JSON]
 
 `--device cpu` only checks that the source takes the patch: the forms exist
 only as CUDA builds.
@@ -40,6 +42,7 @@ import json
 import re
 import subprocess
 import time
+from math import prod
 from pathlib import Path
 
 import torch
@@ -220,6 +223,29 @@ def _bd_launcher(lib: ctypes.CDLL, kernel: str, ins: list, pw, bias: torch.Tenso
     return call
 
 
+def d_dual_bound(cs, cout: int, spatial, n: int) -> dict:
+    """D's dual form's least time on an H100 (chip_smoke.py's _affine_bound
+    without the prologue): the conv's bf16 FLOPs at 989 TFLOP/s and its
+    stats' 3 fp32 operations an output value at 67 TFLOP/s, or its bytes
+    (bf16 inputs, weight and output once, the fp32 stats) at 3.35 TB/s."""
+    vox, cin = n * prod(spatial), sum(cs)
+    t_ops = (2 * 27 * cin * cout * vox / 989e12 + 3 * vox * cout / 67e12) * 1e3
+    t_bytes = (vox * (cin + cout) * 2 + 27 * cin * cout * 2 + n * cout * 8) / 3.35e12 * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _b_then_stats(b_call, out: torch.Tensor, stats: torch.Tensor):
+    """D's dual form as B's launch, then channel_stats on its bf16 output."""
+    from multitalent_tpu_torch.ops.fused_norm import channel_stats
+
+    def call():
+        stats.copy_(channel_stats(b_call()))
+        return out
+    call.workspace = b_call.workspace
+    return call
+
+
 def host_us(fn, calls: int = HOST_CALLS) -> float:
     """The host's us a call of fn, over `calls` calls issued back to back
     (the card's queue drained before and after)."""
@@ -253,13 +279,16 @@ def _times(row: dict, calls: dict) -> str:
                         f"{row[f'{name}_workspace_us']:.1f})" for name in calls))
 
 
-def _time_bd(libs: dict, device: torch.device, gen: torch.Generator) -> list:
-    """B and D in every form at their phase-2 shapes: each checked (into
-    NaN-filled buffers) against the plain version, then timed in turns."""
+def _time_bd(libs: dict, device: torch.device, gen: torch.Generator, only=None) -> list:
+    """B and D in every form at their phase-2 shapes (`only`: one kernel's):
+    each checked (into NaN-filled buffers) against the plain version, then
+    timed in turns; D's dual form also beside B then E's stats pass."""
     from multitalent_tpu_torch.ops import conv3d as cv
     from multitalent_tpu_torch.ops.fused_norm import channel_stats_ref
     rows = []
     for kernel, n, sp, cs, cout in BD_SHAPES:
+        if only is not None and kernel != only:
+            continue
         cin = sum(cs)
         ins = [torch.randn(n, *sp, c, generator=gen, device=device).to(torch.bfloat16)
                for c in cs]
@@ -280,6 +309,11 @@ def _time_bd(libs: dict, device: torch.device, gen: torch.Generator) -> list:
         stats = torch.empty(n, 2, cout, dtype=torch.float32, device=device)
         calls = {name: _bd_launcher(lib, kernel, ins, pw, bias, affine, out, stats)
                  for name, lib in libs.items()}
+        if kernel == "d_dual":
+            # the same out and stats by two launches: B (at 16-byte rows the
+            # wgmma body) and kernel E's stats pass on its output
+            calls["b_then_stats"] = _b_then_stats(
+                _bd_launcher(libs["whole"], "b", ins, pw, bias, None, out, stats), out, stats)
         what = f"{kernel} {'+'.join(map(str, cs))}->{cout} at {'x'.join(map(str, sp))} N={n}"
         row = {"kernel": kernel, "n": n, "spatial": list(sp), "cin": list(cs), "cout": cout}
         for name, call in calls.items():
@@ -295,7 +329,13 @@ def _time_bd(libs: dict, device: torch.device, gen: torch.Generator) -> list:
                 if not serr <= STATS_RTOL:
                     raise AssertionError(f"{what} ({name}): stats {serr} > {STATS_RTOL}")
         _timed_in_turns(row, calls)
-        print(f"{what}: {_times(row, calls)}")
+        if kernel == "d_dual":
+            row.update(d_dual_bound(cs, cout, sp, n))
+            plan = cv.conv3d_same_plan(n, *sp, cs, cout, "d_dual")
+            row["body"] = "ring" if plan["ring"] else "older (conv3d_same_kernel)"
+        print(f"{what}: {_times(row, calls)}"
+              + (f"; bound {row['bound_ms']:.3f} ms ({row['bound_by']}); D's dual form on "
+                 f"the {row['body']} body" if "bound_ms" in row else ""))
         rows.append(row)
         del ins, ref, out, calls
         torch.cuda.empty_cache()
@@ -310,6 +350,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--against", help="another checkout, built as it is")
     parser.add_argument("--out", help="write the times as JSON to this file")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--only", choices=("d_dual",),
+                        help="time D's dual form (beside B then E's stats) alone")
     args = parser.parse_args(argv)
     csrc = Path(args.tree) / "multitalent_tpu_torch" / "csrc"
     device = _util.resolve_device(args.device)
@@ -331,7 +373,7 @@ def main(argv=None) -> dict:
         print(f"ptxas, {name}:" + "".join(f"\n  {line}" for line in lines))
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
-    for n, sp, cin, cout in SHAPES:
+    for n, sp, cin, cout in ([] if args.only else SHAPES):
         x = torch.randn(n, *sp, cin, generator=gen, device=device).to(torch.bfloat16)
         w = torch.randn(cout, cin, 3, 3, 3, generator=gen, device=device) * (2 / (27 * cin)) ** 0.5
         bias = torch.randn(cout, generator=gen, device=device) * 0.1
@@ -360,7 +402,7 @@ def main(argv=None) -> dict:
         rows.append(row)
         del x, ref, out, calls, outs
         torch.cuda.empty_cache()
-    rows += _time_bd(libs, device, gen)
+    rows += _time_bd(libs, device, gen, args.only)
     result = {"tree": str(Path(args.tree).resolve()), "against": args.against,
               "device": torch.cuda.get_device_name(0), "ptxas": ptxas, "shapes": rows}
     if args.out:

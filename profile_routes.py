@@ -1,8 +1,9 @@
 """Device time by kernel family on the unfused and the fused route of the
 PyTorch/CUDA port, for one flagship training step and one inference forward,
-and the same for the SwinUNETR.
+the same for the SwinUNETR, and one fp32 training step of the Task003 Liver
+network.
 
-    python3 profile_routes.py [--out PROFILE.json]
+    python3 profile_routes.py [--routes all|fp32] [--out PROFILE.json]
 
 The flagship network of chip_smoke.py (full width, seeded random weights, bf16)
 runs on one CUDA card under torch.profiler: one forward + backward at batch 2
@@ -15,9 +16,17 @@ share, the device time per family (the hand-written kernels A-F, cuBLAS
 GEMMs (the SwinUNETR's attention and Dense layers, 1x1x1 convs), softmax,
 cuDNN convs, PyTorch's elementwise, reduction and copy kernels) and the longest
 kernels, then the tile forward's time by CUDA events (single calls and
-queued); --out writes the same as JSON. It takes the package and chip_smoke
-from its own directory, so a copy of it in another checkout profiles that
-checkout.
+queued); then the fp32 route: nnUNetTrainerV2_fp32's network on the Liver
+plans of chip_smoke.py (base 32, pools 5 x (2, 2, 2), 128^3, 3 classes,
+fp32, seeded He init) at batch 2, one forward + backward with deep
+supervision and the DC + CE loss, its device time split into the fp32
+forms of A, B (the ring body, or the staged body where a checkout still
+runs it), C and D, cuDNN and PyTorch's kernels, once with cuDNN's convs in
+full fp32 (chip_smoke.py's 14b runs after 14a turned TF32 off) and once
+at PyTorch's default, TF32 on for cuDNN's convs (`--routes fp32` profiles
+this route only). --out writes the same as JSON. It takes the package and
+chip_smoke from its own directory, so a copy of it in another checkout
+profiles that checkout.
 """
 from __future__ import annotations
 
@@ -40,10 +49,19 @@ def _is_kernel_d(name: str) -> bool:
 
 
 FAMILIES = [
+    # the fp32 forms (csrc/conv3d_fp32.cu): A and B on the ring body, or both
+    # on conv_fp32_kernel<false, false> where a checkout still runs them
+    # there; D's on conv_fp32_kernel with the stats set; C's wgrad kernels
+    ("A fp32 (ring body)", lambda n: "conv_fp32_ring_kernel<false>" in n),
+    ("B fp32 (ring body)", lambda n: "conv_fp32_ring_kernel<true>" in n),
+    ("A/B fp32 K-split reduce", lambda n: "conv_fp32_reduce_kernel" in n),
+    ("A/B fp32 (staged body)", lambda n: "conv_fp32_kernel<false, false>" in n),
+    ("D fp32 (staged body)", lambda n: "conv_fp32_kernel<" in n),
+    ("C fp32 (wgrad)", lambda n: "wgrad_fp32" in n),
     ("kernel D (conv3d_same_affine)", _is_kernel_d),
     # the ring body (conv3d_a_kernel) and the older body: A and B
     ("kernels A/B", lambda n: "conv3d_same_kernel" in n or "conv3d_a_kernel" in n),
-    ("kernel C (wgrad)", lambda n: "wgrad" in n),
+    ("kernel C (wgrad)", lambda n: "conv3d_wgrad" in n or "wgrad_reduce" in n),
     ("split-K reduce (A, D)", lambda n: "splitk_reduce" in n),
     ("E stats + stats reduce (D, E)", lambda n: "channel_stats" in n or "reduce_rows" in n),
     ("kernel E apply", lambda n: "affine_lrelu" in n),
@@ -145,20 +163,83 @@ def time_forward(fn) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the profiles as JSON to this file")
+    parser.add_argument("--routes", choices=("all", "fp32"), default="all",
+                        help="every route, or the fp32 Liver step only")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_routes: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import PATCH, SEED, _flagship_net, _flagship_plans, _swin_net
-    from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
-    from multitalent_tpu_torch.training.losses import (ds_loss_weights, label_region_matrix,
-                                                       multitalent_ds_loss)
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
+    out = {"device": smi}
+    if args.routes == "all":
+        out.update(flagship_and_swin(dev))
+    out["step_fp32"] = fp32_step(dev)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def fp32_step(dev) -> dict:
+    """One fp32 forward + backward of the Liver network at batch 2 (see the
+    module docstring) under torch.profiler."""
+    import torch
+    from chip_smoke import LIVER_CLASSES, LIVER_PATCH, SEED, _liver_plans
+    from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+    from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
+                                                       ds_loss_weights)
+    torch.manual_seed(SEED)
+    net = build_unet_from_plans(_liver_plans(), 0, num_classes=LIVER_CLASSES,
+                                dtype=torch.float32).to(dev)
+    for m in net.modules():
+        if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+            torch.nn.init.kaiming_normal_(m.weight, a=1e-2)
+            if m.bias is not None:
+                torch.nn.init.zeros_(m.bias)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(2, 1, *LIVER_PATCH, generator=gen, device=dev)
+    targets = [torch.randint(0, LIVER_CLASSES, (2, *(p >> i for p in LIVER_PATCH)),
+                             generator=gen, device=dev) for i in range(net.num_pool)]
+    weights = [float(w) for w in ds_loss_weights(net.num_pool)]
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        loss = deep_supervision_loss(net(x, deep_supervision=True), targets, dc_and_ce_loss,
+                                     weights)
+        loss.backward()
+
+    result = {}
+    # cuDNN's convs (the strided, transposed and first convs and their
+    # gradients) in full fp32, as chip_smoke.py's 14b runs them after 14a
+    # turned TF32 off, then at PyTorch's default (TF32 on for cuDNN's
+    # convs), as a user's `cli.train --fp32` runs them; the hand-written
+    # fp32 forms are FFMA either way
+    for key, tf32 in (("cudnn_tf32_off", False), ("cudnn_tf32_default", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.reset_peak_memory_stats()
+        result[key] = profile_run("fp32 Liver training step (forward + backward, no "
+                                  f"optimizer), batch 2, cuDNN allow_tf32={tf32}", step)
+        result[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"   peak {result[key]['peak_gib']:.2f} GiB")
+    torch.backends.cudnn.allow_tf32 = False
+    del net
+    torch.cuda.empty_cache()
+    return result
+
+
+def flagship_and_swin(dev) -> dict:
+    """The flagship's bf16 step and forward on both routes, then the
+    SwinUNETR's."""
+    import torch
+    from chip_smoke import PATCH, SEED, _flagship_net, _flagship_plans, _swin_net
+    from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
+    from multitalent_tpu_torch.training.losses import (ds_loss_weights, label_region_matrix,
+                                                       multitalent_ds_loss)
     net = _flagship_net(_flagship_plans(), torch.bfloat16).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x2 = torch.randn(2, 1, *PATCH, generator=gen, device=dev)
@@ -170,7 +251,7 @@ def main(argv=None) -> int:
     valid = torch.ones(2, 47, device=dev)
     lrm = torch.from_numpy(label_region_matrix()).to(dev)
     weights = [float(w) for w in ds_loss_weights(net.num_pool)]
-    out = {"device": smi}
+    out = {}
     for route in ("unfused", "fused"):
         def fwd(x, ds, route=route):
             if route == "fused":
@@ -219,10 +300,9 @@ def main(argv=None) -> int:
     print(f"   CUDA events, {FORWARD_ITERS} forwards: median {timed['events_ms']:.3f} ms a "
           f"single forward, {timed['queued_ms']:.3f} ms a forward queued back to back; step "
           f"peak {out['step_swin']['peak_gib']:.2f} GiB")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    return 0
+    del swin
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -217,14 +217,25 @@ def _fp32_err(got, ref):
 
 
 @pytest.mark.parametrize("n,spatial,ca,cb,cout", [
-    (1, (6, 16, 32), 30, 0, 30),     # ragged C
+    (1, (6, 16, 32), 30, 0, 30),     # ragged C (8-byte rows)
     (2, (5, 7, 19), 32, 0, 64),      # ragged volume, batch 2
     (1, (4, 4, 4), 320, 0, 320),     # deepest stage
-    (1, (3, 5, 9), 13, 0, 47),       # odd C and Cout
+    (1, (3, 5, 9), 13, 0, 47),       # odd C and Cout (4-byte rows)
     (1, (9, 10, 11), 32, 32, 32),    # B: Liver stage 0's decoder
     (2, (6, 8, 8), 20, 12, 16),      # B: unequal inputs
+    (1, (8, 8, 16), 60, 0, 60),      # 60 channels (8-byte rows)
+    (1, (5, 9, 12), 30, 30, 30),     # B at 30 + 30 (8-byte rows)
+    (1, (4, 6, 9), 13, 7, 21),       # B, odd channels (4-byte rows)
+    (2, (8, 8, 8), 256, 0, 256),     # 256 @8^3: the K split and its reduce
+    (2, (4, 4, 4), 256, 0, 256),
+    (2, (8, 8, 8), 320, 0, 320),
+    (2, (4, 4, 4), 320, 0, 320),
+    (2, (8, 8, 8), 320, 320, 320),   # B at the deepest decoder, split
+    (1, (9, 13, 21), 32, 0, 32),     # resident weights, ragged volume
+    (1, (7, 9, 10), 32, 16, 48),     # B: unequal inputs, Cout past one column block
 ])
 def test_fp32_forms_of_a_and_b_match_plain(device, n, spatial, ca, cb, cout):
+    """Into a NaN-filled output: every element written; two calls bit-equal."""
     rng = np.random.default_rng(5)
     a = _rand(rng, (n, *spatial, ca)).to(device)
     b = _rand(rng, (n, *spatial, cb)).to(device) if cb else None
@@ -245,6 +256,55 @@ def test_fp32_forms_of_a_and_b_match_plain(device, n, spatial, ca, cb, cout):
     assert (counter.launches, cv.conv3d_same.launches, cv.conv3d_same_dual.launches) == (
         before[0] + 1, *before[1:])
     assert _fp32_err(got, ref) <= FP32_RTOL
+    again = cv.conv3d_same_dual(a, b, pw, bias) if cb else cv.conv3d_same(a, pw, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,spatial,cin,cout", [
+    (2, (6, 16, 32), 30, 60),        # a B conv's dx at the flagship's width
+    (1, (8, 8, 8), 64, 32),
+    (2, (4, 4, 4), 320, 640),        # the deepest B's dx: split K
+])
+def test_fp32_dx_runs_the_ring_body_on_the_flipped_weight(device, n, spatial, cin, cout):
+    """conv3d_same_dx in fp32 (kernel A's fp32 form on the flipped,
+    transposed weight, prepared each call) against torch's conv3d_input."""
+    rng = np.random.default_rng(8)
+    g = _rand(rng, (n, *spatial, cout)).to(device)
+    w = _rand(rng, (cout, cin, 3, 3, 3), 0.05).to(device)
+    out = torch.full((n, *spatial, cin), float("nan"), device=device)
+    before = cv.conv3d_same_fp32.launches
+    got = cv.conv3d_same_dx(g, w, out=out)
+    ref = torch.nn.grad.conv3d_input((n, cin, *spatial), w, g.permute(0, 4, 1, 2, 3),
+                                     padding=1).permute(0, 2, 3, 4, 1)
+    torch.cuda.synchronize()
+    assert got is out and cv.conv3d_same_fp32.launches == before + 1
+    assert torch.isfinite(got).all() and _fp32_err(got, ref) <= FP32_RTOL
+
+
+def test_fp32_ring_body_refuses_a_plan_it_cannot_run(device):
+    """The C entry checks the plan it is handed: a box outside the list, an
+    empty K split, resident weights with a split, too few workspace bytes."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    x = torch.zeros(1, 8, 8, 8, 64, device=device)
+    pw = cv.prepare_conv3d_weight(torch.zeros(64, 64, 3, 3, 3, device=device),
+                                  dtype=torch.float32)
+    out = torch.empty(1, 8, 8, 8, 64, device=device)
+    plan = cv.conv3d_same_fp32_plan(1, 8, 8, 8, 64, 0, 64)
+    good = dict(box=plan["box"], splits=1, resident=0, stages=3, grid_p=1, ws=None, nbytes=0)
+
+    def call(**kw):
+        a = {**good, **kw}
+        return lib.mt_conv3d_same_fp32(
+            x.data_ptr(), None, pw.w.data_ptr(), None, out.data_ptr(), a["ws"], a["nbytes"],
+            1, 8, 8, 8, 64, 0, 64, pw.coutp, *a["box"], a["splits"], a["resident"],
+            a["stages"], a["grid_p"], 0, torch.cuda.current_stream(device).cuda_stream)
+    assert call() == 0
+    for bad in (dict(box=(4, 4, 32)), dict(splits=7), dict(splits=2, resident=1),
+                dict(splits=2, nbytes=16), dict(stages=4), dict(grid_p=2)):
+        assert call(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n,spatial,ca,cb,cout", [

@@ -179,7 +179,7 @@ def test_zeros_matches_the_pallas_body(block):
 
 @pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
                                    "grid_overhead_probe", "wgrad_forms", "conv_a_forms",
-                                   "wgmma_forms"])
+                                   "wgmma_forms", "fp32_forms"])
 def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
     """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
     plain run; without --device, a machine without a card refuses."""
