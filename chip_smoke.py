@@ -224,11 +224,19 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fp32 forms of D (and its dual form), E (stats, apply) and F (32 -> 3)
    against their plain fp32 versions at 32 channels, 128^3, N=2, with their
    bounds and library calls (torch.var_mean, torch.matmul) or, for D, the
-   unfused fp32 route; 14b also runs `nnUNetTrainerV2_fp32` under
-   MTTPU_FUSED_TRAIN=1 and MTTPU_FUSED_NORM=1 (3 steps, validation) and
-   `cli.predict` under MTTPU_FUSED_NORM=1: exact launches of the fp32 forms
-   of D, E, F, A and C, no bf16 kernel, labels against the unfused fp32
-   prediction, one batch's loss fused vs unfused on the same weights;
+   unfused fp32 route; 14a holds C's fp32 form (the wgrad ring body) at
+   every dw shape of a Liver fp32 step and the flagship's 30 -> 30 and
+   30 + 30 -> 30 at N=2 into NaN-filled dw (single and queued times,
+   torch.nn.grad.conv3d_weight as its library call, the bound and its
+   share, the plan, a bit-equal repeat); 14b also runs
+   `nnUNetTrainerV2_fp32` under MTTPU_FUSED_TRAIN=1 and MTTPU_FUSED_NORM=1
+   (3 steps, validation) and `cli.predict` under MTTPU_FUSED_NORM=1: exact
+   launches of the fp32 forms of D, E, F, A and C, no bf16 kernel, labels
+   against the unfused fp32 prediction, one batch's loss fused vs unfused
+   on the same weights, and every D shape it launched recorded; "14a D
+   shapes" then holds D's fp32 forms at each of them as 14a holds C. Every
+   fp32 C and D launch of a counted run must run the ring bodies
+   (`launches_by_body`);
 15. the rest of the trainer zoo (training/variants.py), through the trainer
    API on 10a's plans and phantoms: 15a every loss, optimizer, schedule and
    network variant (ZOO_TRAINERS; `_momentum09in2D` on 14c's 2D plan) 2
@@ -273,8 +281,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `launches_cascade_fullres` (13b) and `launches_cascade_predict` (13c);
    every row phase 14d's `launches_variants` and phase 15a-c's
    `launches_zoo`; then the rows of the fp32
-   forms of A, B and C (14a's times, 14b's launches) and of D, E and F (14a's
-   times, 14b's fused launches); A's and B's rows add phase 16a's
+   forms of A, B and C (14a's times, 14b's launches; C's row its 14a shapes
+   and their sums over one Liver fp32 step) and of D, E and F (14a's
+   times, 14b's fused launches; D's row the shapes 14b's fused run
+   launched and their sums over one fused step); A's and B's rows add phase 16a's
    `launches_install` and `launches_by_body` (phases 3 and 5, and one step
    of 5); the wgmma body's row (`conv3d_same_wgmma`) its launches in phases
    3 and 5, its phase-2 shapes with their plans, and phase 6's probe, forms
@@ -1147,9 +1157,22 @@ RECORDED_BODIES: dict = {}
 def _check_bodies(counts: dict, where: str) -> None:
     """Kernels A and B never reach conv3d_same_kernel (the older body): at
     16-byte rows with streamed weights they run the wgmma body."""
-    older = {name: c["older"] for name, c in counts.items() if c["older"]}
+    older = {name: c["older"] for name, c in counts.items() if c.get("older")}
     if older:
         raise AssertionError(f"{where}: A/B launches on conv3d_same_kernel {older}")
+
+
+# the fp32 forms of C and D: every launch on the ring bodies of
+# csrc/conv3d_fp32.cu (wgrad_fp32_ring_kernel, conv_fp32_ring_kernel)
+FP32_RING_FORMS = ("conv3d_same_wgrad_fp32", "conv3d_same_affine_fp32")
+
+
+def _check_fp32_bodies(counters: dict, where: str) -> None:
+    off = {name: (counters[name].launches, dict(counters[name].launches_by_body))
+           for name in FP32_RING_FORMS
+           if counters[name].launches_by_body["ring"] != counters[name].launches}
+    if off:
+        raise AssertionError(f"{where}: fp32 C/D launches off the ring bodies {off}")
 
 
 def _run_counted(fn):
@@ -1166,6 +1189,7 @@ def _run_counted(fn):
     BODY_COUNTS.update({name: dict(k.launches_by_body) for name, k in counters.items()
                         if hasattr(k, "launches_by_body")})
     _check_bodies(BODY_COUNTS, "a counted run")
+    _check_fp32_bodies(counters, "a counted run")
     return result, {name: k.launches for name, k in counters.items()}
 
 
@@ -4005,8 +4029,9 @@ def phase_fp32_kernels() -> dict:
                "ms": _median_ms(kernel, FP32_ITERS), "plain_ms": _median_ms(plain, FP32_ITERS),
                "cudnn_fp32_ms": _median_ms(library, FP32_ITERS), **_fp32_bound(cin, cout, sp, n)}
         if name == "conv3d_same_wgrad":
-            ws = cv.conv3d_same_wgrad_fp32_workspace(n, *sp, splits[0], 0, cout)
-            row["write"] = "direct" if ws == 0 else f"{ws // (4 * 27 * cin * cout)} splits + reduce"
+            plan = cv.conv3d_same_wgrad_fp32_plan(n, *sp, splits[0], 0, cout)
+            row["write"] = ("direct" if plan["splits"] == 1 else
+                            f"{plan['splits']} splits + reduce")
         rows[name + "_fp32"] = row
         tflops = 2 * 27 * cin * cout * n * prod(sp) / (row["ms"] * 1e9)
         print(f"14a {name} fp32 {'+'.join(map(str, splits))}->{cout} at "
@@ -4018,7 +4043,156 @@ def phase_fp32_kernels() -> dict:
         del ins, x_cl
     torch.cuda.empty_cache()
     rows["ab_shapes"] = _fp32_ab_shapes(gen)
+    rows["wgrad_shapes"] = _fp32_wgrad_shapes(gen)
     return rows
+
+
+def _fp32_timed(row: dict, kernel, library, again, buffers, what: str) -> dict:
+    """A 14a row's times (single-call median of FP32_ITERS and queued, the
+    library call's beside), its share of the bound, and a repeat into
+    NaN-refilled buffers bit-equal to the first call."""
+    import torch
+    first = [b.clone() for b in buffers]
+    for b in buffers:
+        b.fill_(float("nan"))
+    again()
+    if not all(torch.equal(a, b) for a, b in zip(first, buffers)):
+        raise AssertionError(f"14a {what}: two calls differ")
+    row.update(bit_equal=True, ms=_median_ms(kernel, FP32_ITERS), queued_ms=_queued_ms(kernel, 20))
+    if library is not None:
+        row.update(library_ms=_median_ms(library, FP32_ITERS),
+                   library_queued_ms=_queued_ms(library, 20))
+    row["share_of_bound"] = row["bound_ms"] / row["queued_ms"]
+    return row
+
+
+def _fp32_wgrad_shapes(gen) -> list:
+    """14a: kernel C's fp32 form (the wgrad ring body) at every dw call of
+    one Liver fp32 step at batch 2 and the flagship's 30 -> 30 and 30 + 30
+    -> 30 at N=2 (probes/fp32_forms.py's WGRAD_ shapes): each into a
+    NaN-filled dw within FP32_RTOL of the plain fp32 version, a bit-equal
+    repeat, its single-call median and queued time beside
+    torch.nn.grad.conv3d_weight's (TF32 off; the dual form's on the concat
+    built beforehand), the bound, the share of it and the plan."""
+    import torch
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.probes.fp32_forms import WGRAD_FLAGSHIP_SHAPES, WGRAD_STEP_SHAPES
+    dev = torch.device("cuda")
+    rows = []
+    for n, sp, ca, cb, cout in WGRAD_STEP_SHAPES + WGRAD_FLAGSHIP_SHAPES:
+        splits = (ca, cb) if cb else (ca,)
+        ins = [torch.randn(n, *sp, c, generator=gen, device=dev) for c in splits]
+        g = torch.randn(n, *sp, cout, generator=gen, device=dev)
+        dw = torch.full((cout, ca + cb, 3, 3, 3), float("nan"), device=dev)
+        wrap = cv.conv3d_same_wgrad_dual if cb else cv.conv3d_same_wgrad
+        ref = (cv.conv3d_same_wgrad_dual_ref if cb else cv.conv3d_same_wgrad_ref)(*ins, g)
+        what = f"C {'+'.join(map(str, splits))}->{cout} at {'x'.join(map(str, sp))} N={n}"
+        top = ref.abs().max().item()
+        err = _check(f"14a {what}", wrap(*ins, g, out=dw), ref, FP32_RTOL * top)
+        x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
+        g_cl = g.permute(0, 4, 1, 2, 3)
+        plan = cv.conv3d_same_wgrad_fp32_plan(n, *sp, ca, cb, cout)
+        row = {"at": what, "form": "C dual" if cb else "C", "splits": list(splits),
+               "cout": cout, "spatial": list(sp), "n": n, "err": err,
+               "rel_err": err / max(top, 1e-30), **_fp32_bound(ca + cb, cout, sp, n),
+               "plan": {k: plan[k] for k in ("box", "tiles", "splits", "grid", "stages")}}
+        _fp32_timed(row, lambda: wrap(*ins, g, out=dw),
+                    lambda: torch.nn.grad.conv3d_weight(x_cl, (cout, ca + cb, 3, 3, 3), g_cl,
+                                                        padding=1),
+                    lambda: wrap(*ins, g, out=dw), [dw], what)
+        rows.append(row)
+        print(f"14a {what}: max|d| {err:.3e} (relative {row['rel_err']:.2e}); wgrad ring "
+              f"{row['ms']:.3f} ms, queued {row['queued_ms']:.3f} ({row['share_of_bound']:.0%} "
+              f"of the bound {row['bound_ms']:.3f} ms); conv3d_weight fp32 "
+              f"{row['library_ms']:.3f}, queued {row['library_queued_ms']:.3f}; bit-equal "
+              f"repeat; plan {row['plan']}")
+        del ins, g, dw, ref, x_cl, g_cl
+    torch.cuda.empty_cache()
+    step = _fp32_step_sums("kernel C's fp32 form", rows)
+    return {"shapes": rows, **step}
+
+
+def _fp32_step_sums(label: str, rows: list) -> dict:
+    """The queued times of one Liver fp32 step's launches at batch 2 from
+    the rows of its distinct shapes: each single-input shape twice (the
+    stage's two convs, or an encoder's and a decoder's) except 4^3's once,
+    each dual shape once; the library's and the bound beside."""
+    step = [r for r in rows if r["n"] == 2 and r["spatial"][0] == r["spatial"][2]
+            and r["spatial"][0] in (128, 64, 32, 16, 8, 4)]
+    weight = [1 if len(r["splits"]) == 2 or r["spatial"][0] == 4 else 2 for r in step]
+    out = {f"step_{k}": sum(w * r.get(k, 0.0) for w, r in zip(weight, step))
+           for k in ("queued_ms", "library_queued_ms", "bound_ms")}
+    out["step_launches"] = sum(weight)
+    print(f"14a {label} over one Liver fp32 step ({out['step_launches']} launches): "
+          f"{out['step_queued_ms']:.3f} ms queued"
+          + (f", library {out['step_library_queued_ms']:.3f} ms" if out["step_library_queued_ms"]
+             else "") + f", bound {out['step_bound_ms']:.3f} ms")
+    return out
+
+
+def phase_fp32_d_shapes(recorded: collections.Counter) -> dict:
+    """14a (D shapes): kernel D's fp32 forms at every distinct D shape that
+    14b's fused fp32 run launched (its recorded (input channels, Cout,
+    spatial, N); single inputs with the prologue, two with none): out and
+    stats into NaN-filled buffers within FP32_RTOL of the plain fp32
+    version's largest entry, a bit-equal repeat, single-call median and
+    queued time, the bound (D's: the conv, its stats and prologue) and its
+    share, the plan; beside it cuDNN's fp32 conv alone (TF32 off; the dual
+    form's on the concat built beforehand), which computes neither the
+    prologue nor the stats."""
+    import torch
+    import torch.nn.functional as F
+    from multitalent_tpu_torch.ops import conv3d as cv
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    rows = []
+    for splits, cout, sp, n in sorted(recorded, key=lambda k: (k[3], len(k[0]), -k[2][0])):
+        ca, cb = splits[0], sum(splits[1:])
+        ins = [torch.randn(n, *sp, c, generator=gen, device=dev) for c in splits]
+        w = torch.randn(cout, ca + cb, 3, 3, 3, generator=gen, device=dev) * (
+            2 / (27 * (ca + cb))) ** 0.5
+        bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+        pw = cv.prepare_conv3d_weight(w, splits if cb else None, torch.float32)
+        aff = () if cb else (torch.rand(n, ca, generator=gen, device=dev) + 0.5,
+                             torch.randn(n, ca, generator=gen, device=dev))
+        out = torch.full((n, *sp, cout), float("nan"), device=dev)
+        stats = torch.full((n, 2, cout), float("nan"), device=dev)
+
+        def kernel():
+            if cb:
+                return cv.conv3d_same_dual_stats(*ins, pw, bias, out=out, stats=stats)
+            return cv.conv3d_same_affine(ins[0], pw, bias, *aff, out=out, stats=stats)
+        got, got_stats = kernel()
+        ref, ref_stats = (cv.conv3d_same_dual_stats_ref(*ins, w, bias) if cb else
+                          cv.conv3d_same_affine_ref(ins[0], w, bias, *aff))
+        what = (f"D{' dual' if cb else ''} {'+'.join(map(str, splits))}->{cout} at "
+                f"{'x'.join(map(str, sp))} N={n}")
+        top, stop = ref.abs().max().item(), ref_stats.abs().max().item()
+        err = _check(f"14a {what}", got, ref, FP32_RTOL * top)
+        serr = _check(f"14a {what} stats", got_stats, ref_stats, FP32_RTOL * stop)
+        x_cl = torch.cat(ins, -1).permute(0, 4, 1, 2, 3)
+        w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+        plan = cv.conv3d_same_fp32_plan(n, *sp, ca, cb, cout, stats=True)
+        row = {"at": what, "form": "D dual" if cb else "D", "splits": list(splits),
+               "cout": cout, "spatial": list(sp), "n": n, "err": err,
+               "rel_err": err / max(top, 1e-30), "stats_rel_err": serr / max(stop, 1e-30),
+               "launches_recorded": recorded[(splits, cout, sp, n)],
+               **_fp32_affine_bound(ca + cb, cout, sp, n, not cb),
+               "plan": {k: plan[k] for k in ("box", "splits", "resident", "stages", "grid")}}
+        _fp32_timed(row, kernel, lambda: F.conv3d(x_cl, w_cl, bias, padding=1), kernel,
+                    [out, stats], what)
+        row["cudnn_conv_ms"] = row.pop("library_ms")
+        row["cudnn_conv_queued_ms"] = row.pop("library_queued_ms")
+        rows.append(row)
+        print(f"14a {what}: max|d| {err:.3e} (relative {row['rel_err']:.2e}; stats "
+              f"{row['stats_rel_err']:.2e}); ring body {row['ms']:.3f} ms, queued "
+              f"{row['queued_ms']:.3f} ({row['share_of_bound']:.0%} of the bound "
+              f"{row['bound_ms']:.3f} ms); cuDNN fp32 conv alone {row['cudnn_conv_ms']:.3f}, "
+              f"queued {row['cudnn_conv_queued_ms']:.3f}; bit-equal repeat; plan {row['plan']}")
+        del ins, out, stats, got, got_stats, ref, ref_stats, x_cl, w_cl
+    torch.cuda.empty_cache()
+    return {"shapes": rows, **_fp32_step_sums("kernel D's fp32 forms", rows)}
 
 
 def _fp32_ab_shapes(gen) -> list:
@@ -4526,6 +4700,7 @@ def phase_fp32_training(workdir: str, generic: dict) -> dict:
         t0 = time.perf_counter()
         trainer, launches = _run_counted(lambda: train_main(
             [ "3d_fullres", trainer_name, task, "0", "--device", "cuda", "-gpus", "1"]))
+        bodies = {k: BODY_COUNTS[k] for k in FP32_RING_FORMS}
         train_cli_s = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         net = trainer.network
@@ -4579,6 +4754,7 @@ def phase_fp32_training(workdir: str, generic: dict) -> dict:
     del trainer, net, restored, rnet
     torch.cuda.empty_cache()
     return {"launches": launches, "predict_launches": predict_launches,
+            "launches_by_body": bodies,
             "seconds_per_step": step_s, "step_s": steps, "peak_gib": peak_gib,
             "per_step": per_step, "restore_s": restore_s, "predict_s": predict_s,
             "predicted": out, "results": env["RESULTS_FOLDER"]}
@@ -4596,7 +4772,8 @@ def phase_fp32_fused(workdir: str, generic: dict, fp32_train: dict) -> dict:
     least FP32_FUSED_AGREE of the voxels. Then, through the trainer API, one
     batch of the same data on the same fresh weights: the fused route's
     loss within FP32_FUSED_LOSS_RTOL of the unfused route's, and its backward
-    on the fp32 forms of A and C."""
+    on the fp32 forms of A and C. Every D call of the train CLI and the
+    predict is recorded by shape for "14a D shapes"."""
     import numpy as np
     import torch
     from multitalent_tpu_torch.cli.predict import main as predict_main
@@ -4613,8 +4790,10 @@ def phase_fp32_fused(workdir: str, generic: dict, fp32_train: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer, launches = _run_counted(lambda: train_main(
-            ["3d_fullres", trainer_name, task, "0", "--device", "cuda", "-gpus", "1"]))
+        with _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_shapes:
+            trainer, launches = _run_counted(lambda: train_main(
+                ["3d_fullres", trainer_name, task, "0", "--device", "cuda", "-gpus", "1"]))
+        bodies = {k: BODY_COUNTS[k] for k in FP32_RING_FORMS}
         train_cli_s = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         net = trainer.network
@@ -4634,7 +4813,8 @@ def phase_fp32_fused(workdir: str, generic: dict, fp32_train: dict) -> dict:
                                  f"launches {launches}, expected {expect}, losses {losses}")
         out = os.path.join(workdir, "fp32_fused_predicted")
         t0 = time.perf_counter()
-        with _env(RESULTS_FOLDER=fp32_train["results"]):
+        with _env(RESULTS_FOLDER=fp32_train["results"]), \
+                _recording("conv3d_same_affine", "conv3d_same_dual_stats") as d_predict:
             timings, predict_launches = _run_counted(lambda: predict_main(
                 ["-i", os.path.dirname(generic["held_out"]), "-o", out, "-t", task, "-m",
                  "3d_fullres", "-tr", trainer_name, "-f", "0", "--device", "cuda"]))
@@ -4698,7 +4878,17 @@ def phase_fp32_fused(workdir: str, generic: dict, fp32_train: dict) -> dict:
           f"{loss_unfused:.6f}, relative {rel:.2e} (bound {FP32_FUSED_LOSS_RTOL:.0e})")
     del trainer, net, t
     torch.cuda.empty_cache()
+    recorded = d_shapes + d_predict
+    if sum(recorded.values()) != launches["conv3d_same_affine_fp32"] + \
+            predict_launches["conv3d_same_affine_fp32"]:
+        raise AssertionError(f"14b fused: {sum(recorded.values())} D calls recorded, "
+                             f"{launches['conv3d_same_affine_fp32']} + "
+                             f"{predict_launches['conv3d_same_affine_fp32']} launched")
+    print(f"14b fused D shapes: {len(recorded)} distinct, "
+          + ", ".join(f"{'+'.join(map(str, k[0]))}->{k[1]} @{'x'.join(map(str, k[2]))} "
+                      f"N={k[3]} x{v}" for k, v in sorted(recorded.items())))
     return {"launches": launches, "predict_launches": predict_launches,
+            "launches_by_body": bodies, "d_shapes": recorded,
             "seconds_per_step": step_s, "peak_gib": peak_gib, "agree": agree,
             "loss_rel": rel, "predict_s": predict_s}
 
@@ -5646,6 +5836,7 @@ def main() -> int:
                            raw_generic)
         fp32_fused = timed("14b fused fp32 train + predict", phase_fp32_fused, workdir,
                            raw_generic, fp32_train)
+        fp32_d_shapes = timed("14a fp32 D shapes", phase_fp32_d_shapes, fp32_fused["d_shapes"])
         two_d = timed("14c 2D", phase_2d, workdir, raw_generic)
         variants = timed("14d variants", phase_variants, workdir, raw_generic)
         zoo = timed("15a-c trainer zoo", phase_zoo, workdir, raw_generic, two_d)
@@ -5843,7 +6034,9 @@ def main() -> int:
                      "replaces": src_replaces[0], "also_replaces": list(src_replaces[1:]),
                      "launches": fp32_train["launches"][kname],
                      "launches_predict": fp32_train["predict_launches"][kname],
-                     "max_abs_err": max([r["err"]] + [s["err"] for s in shapes]),
+                     "max_abs_err": max([r["err"]] + [s["err"] for s in shapes] + (
+                         [s["err"] for s in fp32_kernels["wgrad_shapes"]["shapes"]]
+                         if kname == "conv3d_same_wgrad_fp32" else [])),
                      "rel_err": r["rel_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -5853,6 +6046,14 @@ def main() -> int:
                      **({"write": r["write"]} if "write" in r else {}),
                      "launches_fused": fp32_fused["launches"][kname],
                      **({"shapes": shapes} if shapes else {}),
+                     **({"body": "wgrad_fp32_ring_kernel<DUAL>",
+                         "launches_by_body": {"train": fp32_train["launches_by_body"][kname],
+                                              "train_fused":
+                                                  fp32_fused["launches_by_body"][kname]},
+                         "shapes": fp32_kernels["wgrad_shapes"]["shapes"],
+                         **{k: v for k, v in fp32_kernels["wgrad_shapes"].items()
+                            if k != "shapes"}}
+                        if kname == "conv3d_same_wgrad_fp32" else {}),
                      "timed_at": "{}->{} at {} N={}".format(
                          "+".join(map(str, r["splits"])), r["cout"],
                          "x".join(map(str, r["spatial"])), r["n"])})
@@ -5871,10 +6072,19 @@ def main() -> int:
         rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": fp32_fused["launches"][kname],
                      "launches_predict": fp32_fused["predict_launches"][kname],
-                     "max_abs_err": r.get("max_err", r["err"]), "rel_err": r["rel_err"],
+                     "max_abs_err": max([r.get("max_err", r["err"])] + (
+                         [s["err"] for s in fp32_d_shapes["shapes"]]
+                         if kname == "conv3d_same_affine_fp32" else [])),
+                     "rel_err": r["rel_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "timed_at": r["what"],
+                     **({"body": "conv_fp32_ring_kernel<DUAL, AFFINE, STATS>",
+                         "launches_by_body": {"train_fused":
+                                              fp32_fused["launches_by_body"][kname]},
+                         "shapes": fp32_d_shapes["shapes"],
+                         **{k: v for k, v in fp32_d_shapes.items() if k != "shapes"}}
+                        if kname == "conv3d_same_affine_fp32" else {}),
                      **{k: r[k] for k in ("unfused_route_ms", "dual", "queued_ms",
                                           "launches_per_call", "no_prologue_ms",
                                           "values_differing", "stats_max_abs_err",
@@ -6031,7 +6241,7 @@ def main() -> int:
     print(f"summary, fp32 and the variants (phase 14): fp32 forms "
           + "; ".join(f"{k} {v['ms']:.3f} ms (cuDNN fp32 {v['cudnn_fp32_ms']:.3f}, bound "
                       f"{v['bound_ms']:.3f})" for k, v in fp32_kernels.items()
-                      if k != "ab_shapes")
+                      if k not in ("ab_shapes", "wgrad_shapes"))
           + f"; nnUNetTrainerV2_fp32 seconds per step {fp32_train['seconds_per_step']:.3f}, "
           f"peak {fp32_train['peak_gib']:.2f} GiB; 2D seconds per step "
           + ", ".join(f"{k} {two_d[k]['step_s']:.3f} (peak {two_d[k]['peak_gib']:.2f} GiB)"

@@ -53,11 +53,14 @@ _SIGNATURES = {
     # (ops/conv3d.py:conv3d_same_fp32_plan): bz, by, bx, splits, resident,
     # stages, grid_p, and mode (0 whole, 1 copies only, 2 products only), stream
     "mt_conv3d_same_fp32": ([_P] * 6 + [_L] + [_I] * 16 + [_P], _I),
-    # n, z, y, x, ca, cb, cout -> C's fp32 form's workspace bytes
+    # n, z, y, x, ca, cb, cout -> C's fp32 form's workspace bytes on the
+    # current card (-1: bad sizes)
     "mt_conv3d_wgrad_fp32_workspace": ([_I] * 7, _L),
     # C's fp32 form (b null for the single form): a, b, g, dw, ws, ws_bytes,
-    # n, z, y, x, ca, cb, cout, stream
-    "mt_conv3d_wgrad_fp32": ([_P] * 5 + [_L] + [_I] * 7 + [_P], _I),
+    # n, z, y, x, ca, cb, cout, then the plan
+    # (ops/conv3d.py:conv3d_same_wgrad_fp32_plan): bz, by, bx, splits, grid,
+    # stages, and mode (0 whole, 1 copies only, 2 products only), stream
+    "mt_conv3d_wgrad_fp32": ([_P] * 5 + [_L] + [_I] * 14 + [_P], _I),
     # n, z, y, x, ca, cb, cout -> workspace bytes (-1: bad sizes)
     "mt_conv3d_wgrad_workspace": ([_I] * 7, _L),
     # x, g, dw, ws, ws_bytes, n, z, y, x, cin, cout, stream
@@ -72,11 +75,12 @@ _SIGNATURES = {
     # a, b, w, bias, out, stats, ws, ws_bytes, n, z, y, x, ca, cb, cout,
     # coutp, bn, stream
     "mt_conv3d_same_dual_stats": ([_P] * 7 + [_L] + [_I] * 9 + [_P], _I),
-    # kernel D's fp32 form: n, z, y, x, cout -> workspace bytes (-1: bad sizes)
-    "mt_conv3d_stats_fp32_workspace": ([_I] * 5, _L),
-    # a, b, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n, z, y,
-    # x, ca, cb, cout, coutp, stream
-    "mt_conv3d_same_affine_fp32": ([_P] * 6 + [_F] + [_P] * 3 + [_L] + [_I] * 8 + [_P], _I),
+    # kernel D's fp32 form on the ring body: a, b, w, bias, scale, shift,
+    # slope, out, stats, ws, ws_bytes, n, z, y, x, ca, cb, cout, coutp, then
+    # the plan (ops/conv3d.py:conv3d_same_fp32_plan(..., stats=True)) as
+    # mt_conv3d_same_fp32's, mode, stream
+    "mt_conv3d_same_affine_fp32": ([_P] * 6 + [_F] + [_P] * 3 + [_L] + [_I] * 16 + [_P],
+                                   _I),
     # n, s, c -> kernel E stats' workspace bytes (-1: bad sizes)
     "mt_channel_stats_workspace": ([_I, _L, _I], _L),
     # x, stats, ws, ws_bytes, n, s, c, stream

@@ -29,10 +29,12 @@ nnUNetTrainerV2_fp32), fp32: each wrapper sends fp32 inputs to the kernel's
 fp32 form (`conv3d_same_fp32`, `conv3d_same_dual_fp32`,
 `conv3d_same_wgrad_fp32`, `conv3d_same_affine_fp32` and
 `conv3d_same_dual_stats_fp32`, plain FFMA without TF32, fp32 out), which
-counts its launches on its own `launches`. Every fp32 A and B call (each
-dx too) runs the ring body of `csrc/conv3d_fp32.cu` (conv_fp32_ring_kernel,
-planned by `conv3d_same_fp32_plan`); D's fp32 forms run that file's staged
-body (conv_fp32_kernel), C's its wgrad_fp32_kernel.
+counts its launches on its own `launches` (C's and D's also by body,
+`launches_by_body`: "ring"). Every fp32 A, B and D call (each dx too) runs
+the ring body of `csrc/conv3d_fp32.cu` (conv_fp32_ring_kernel, planned by
+`conv3d_same_fp32_plan`, with `stats=True` for D); every fp32 C call runs
+that file's wgrad ring body (wgrad_fp32_ring_kernel, planned by
+`conv3d_same_wgrad_fp32_plan`).
 
 Kernels A, B and D live in `csrc/conv3d_same.cu` (A and B at 16-byte rows
 on the wgmma body of `csrc/conv3d_wgmma.cu`), kernel C in
@@ -57,6 +59,7 @@ count them by the body that ran each (`launches_by_body`: "ring" or
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import prod
 
 import torch
 import torch.nn.functional as F
@@ -299,7 +302,8 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
 
 
 def _count(wrapper, body: str | None) -> None:
-    """One launch of `wrapper` (kernel A or B) on `body`."""
+    """One launch of `wrapper` (kernel A or B, or C's or D's fp32 form) on
+    `body`."""
     wrapper.launches += 1
     if body is not None:
         wrapper.launches_by_body[body] += 1
@@ -518,10 +522,33 @@ def _sm_count(sms: int | None) -> int:
     return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
 
 
+# STATS' warp partials (8 warps x 2 x 32 floats) beside D's ring; kernel E's
+# stats pass's chunking (csrc/fused_norm.cu stats_chunks) and reduce_rows'
+# rows a pass, which D's stats workspace follows
+FP32_RING_STATS_BYTES = 4 * 8 * 2 * FP32_RING_BN
+_E_MAX_CHUNKS, _E_MIN_CHUNK_BYTES, _E_WAVE_BLOCKS, _SEG_ROWS = 256, 64 << 10, 512, 256
+
+
+def _fp32_stats_workspace(n: int, z: int, y: int, x: int, cout: int, box, splits: int) -> int:
+    """Bytes of D's stats workspace: with one K split the boxes' rows (N,
+    boxes of a sample, 2, Cout) and reduce_rows' scratch; with several
+    kernel E's fp32 stats pass's, which reads the reduced output."""
+    if splits > 1:
+        chunks = -(-z * y * x * cout * 4 // _E_MIN_CHUNK_BYTES)
+        chunks = max(1, min(chunks, max(1, min(_E_MAX_CHUNKS, -(-_E_WAVE_BLOCKS // n)))))
+        return 0 if chunks == 1 else n * chunks * 2 * cout * 4
+    per = prod(-(-s // b) for s, b in zip((z, y, x), box))
+    segs = -(-per // _SEG_ROWS)
+    if segs > _SEG_ROWS:
+        raise ValueError(f"{per} boxes a sample: more stats rows than reduce_rows adds")
+    return 4 * n * per * 2 * cout + (0 if per <= _SEG_ROWS else n * segs * 2 * cout * 4)
+
+
 def conv3d_same_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout: int,
-                          sms: int | None = None) -> dict:
-    """The ring body's plan for kernel A's (cb 0) or B's fp32 form at these
-    sizes on a card of `sms` SMs (default: the current card's):
+                          sms: int | None = None, stats: bool = False) -> dict:
+    """The ring body's plan for kernel A's (cb 0) or B's fp32 form, or with
+    `stats` D's (its prologue or its dual form), at these sizes on a card of
+    `sms` SMs (default: the current card's):
 
     - box: the 512-voxel box (z, y, x) that wastes the fewest voxels at the
       volume's edges (the first of ties: the smallest halo); boxes: N times
@@ -535,8 +562,12 @@ def conv3d_same_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout
     - resident: the whole K loop's weights stay in shared memory (one split,
       at least two boxes a block, room beside a 2-stage ring), else each
       stage carries its chunk's weights;
-    - stages: ring depth, 3 where it fits, else 2; smem_bytes a block;
-    - workspace_bytes: the splits' fp32 partials (0: written directly)."""
+    - stages: ring depth, 3 where it fits, else 2; smem_bytes a block (with
+      `stats` and one split, STATS' warp partials too);
+    - workspace_bytes: the splits' fp32 partials (0: written directly), then
+      with `stats` D's stats workspace (stats_bytes): one split, the boxes'
+      stats rows and reduce_rows' scratch; several, kernel E's fp32 stats
+      pass over the reduced output."""
     if min(n, z, y, x, ca, cout) <= 0 or cb < 0:
         raise ValueError(f"sizes {(n, z, y, x, ca, cb, cout)} are not a conv's")
     sms = _sm_count(sms)
@@ -556,9 +587,11 @@ def conv3d_same_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout
     halo = (bz + 2) * (by + 2) * ((bx + 2) * ck + 4)
     wchunk = 27 * ck * bn
 
+    extra = FP32_RING_STATS_BYTES if stats and splits == 1 else 0
+
     def smem(resident: bool, stages: int) -> int:
         return 4 * ((per_split * wchunk if resident else 0)
-                    + stages * (halo + (0 if resident else wchunk)))
+                    + stages * (halo + (0 if resident else wchunk))) + extra
 
     resident = (splits == 1 and -(-boxes // grid_p) >= 2
                 and smem(True, 2) <= FP32_RING_SMEM_MAX)
@@ -566,10 +599,12 @@ def conv3d_same_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout
     if smem(resident, stages) > FP32_RING_SMEM_MAX:
         raise ValueError(f"no ring fits at sizes {(n, z, y, x, ca, cb, cout)}")
     vec = 4 if ca % 4 == 0 and cb % 4 == 0 else (2 if ca % 2 == 0 and cb % 2 == 0 else 1)
+    parts = 0 if splits == 1 else 4 * splits * n * z * y * x * cout
+    st = _fp32_stats_workspace(n, z, y, x, cout, (bz, by, bx), splits) if stats else 0
     return {"box": (bz, by, bx), "boxes": boxes, "vec": vec, "chunks": chunks,
             "splits": splits, "per_split": per_split, "grid": (grid_p, cols, splits),
             "resident": resident, "stages": stages, "smem_bytes": smem(resident, stages),
-            "workspace_bytes": 0 if splits == 1 else 4 * splits * n * z * y * x * cout}
+            "stats_bytes": st, "workspace_bytes": parts + st}
 
 
 def _launch_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
@@ -645,20 +680,73 @@ def conv3d_same_dual_fp32(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
 conv3d_same_dual_fp32.launches = 0
 
 
+# the wgrad ring body of kernel C's fp32 form (csrc/conv3d_fp32.cu
+# wgrad_fp32_ring_kernel): FP32_RING_BOXES' boxes, 8 input channels by 32
+# output channels by 27 taps a tile, a stage the box's halo and its 512 g
+# rows of 32 channels; its 384 threads hold 5 line groups of 72 register
+# tiles, whose partial tiles the flush adds through one stage, 3 tiles of
+# 96 x 72 floats at a time
+FP32_WGRAD_GROUPS = 5
+FP32_WGRAD_FLUSH_FLOATS = 3 * 96 * 72
+
+
+def conv3d_same_wgrad_fp32_plan(n: int, z: int, y: int, x: int, ca: int, cb: int, cout: int,
+                                sms: int | None = None) -> dict:
+    """The wgrad ring body's plan for kernel C's fp32 form (cb 0) or its dual
+    form at these sizes on a card of `sms` SMs (default: the current card's);
+    csrc/conv3d_fp32.cu:wgrad_plan makes the same for its workspace query:
+
+    - box: as conv3d_same_fp32_plan's (the fewest boxes, the first of ties);
+      boxes: N times a sample's;
+    - vec: floats a halo copy (4, 2 or 1 by Ca % 4 / 2, Cb's alike); gvec:
+      floats a g copy (by Cout % 4 / 2);
+    - chunks (8-channel chunks of both inputs) x cols (32-column blocks) =
+      tiles, each a block's share of dw;
+    - splits, per_split: the voxel axis split into runs of whole boxes only
+      where the tiles leave SMs of one wave idle (none empty); units = tiles
+      x splits, walked by grid = min(units, sms) persistent blocks;
+    - stages: 2 (3 stages of a 512-voxel box do not fit); smem_bytes a block;
+    - workspace_bytes: the splits' partial dw (0: written directly)."""
+    if min(n, z, y, x, ca, cout) <= 0 or cb < 0:
+        raise ValueError(f"sizes {(n, z, y, x, ca, cb, cout)} are not a conv's")
+    sms = _sm_count(sms)
+    per = [-(-z // bz) * -(-y // by) * -(-x // bx) for bz, by, bx in FP32_RING_BOXES]
+    i = per.index(min(per))
+    bz, by, bx = FP32_RING_BOXES[i]
+    boxes = n * per[i]
+    ck, bn = FP32_RING_CK, FP32_RING_BN
+    chunks = -(-ca // ck) + -(-cb // ck)
+    cols = -(-cout // bn)
+    tiles = chunks * cols
+    per_split = -(-boxes // (1 if tiles >= sms else min(boxes, sms // tiles)))
+    splits = -(-boxes // per_split)
+    units = tiles * splits
+    slot = (bz + 2) * (by + 2) * ((bx + 2) * ck + 4) + 512 * bn
+    stages = 2
+    if 4 * stages * slot > FP32_RING_SMEM_MAX or slot < FP32_WGRAD_FLUSH_FLOATS:
+        raise ValueError(f"no wgrad ring fits at sizes {(n, z, y, x, ca, cb, cout)}")
+    vec = 4 if ca % 4 == 0 and cb % 4 == 0 else (2 if ca % 2 == 0 and cb % 2 == 0 else 1)
+    return {"box": (bz, by, bx), "boxes": boxes, "vec": vec,
+            "gvec": 4 if cout % 4 == 0 else (2 if cout % 2 == 0 else 1), "chunks": chunks,
+            "cols": cols, "tiles": tiles, "splits": splits, "per_split": per_split,
+            "units": units, "grid": min(units, sms), "stages": stages,
+            "smem_bytes": 4 * stages * slot,
+            "workspace_bytes": 0 if splits == 1 else 4 * splits * 27 * (ca + cb) * cout}
+
+
 def conv3d_same_wgrad_fp32_workspace(n: int, z: int, y: int, x: int, ca: int, cb: int,
                                      cout: int) -> int:
     """Bytes of fp32 workspace kernel C's fp32 form takes at these sizes on
-    the current card (0: it writes dw directly). Builds the kernel library."""
-    from multitalent_tpu_torch import _build
-    nbytes = _build.library().mt_conv3d_wgrad_fp32_workspace(n, z, y, x, ca, cb, cout)
-    if nbytes < 0:
-        raise ValueError(f"kernel C's fp32 form does not take sizes "
-                         f"{(n, z, y, x, ca, cb, cout)}")
-    return nbytes
+    the current card (0: it writes dw directly): its plan's, by the rules
+    the library's mt_conv3d_wgrad_fp32_workspace answers from too."""
+    return conv3d_same_wgrad_fp32_plan(n, z, y, x, ca, cb, cout)["workspace_bytes"]
 
 
 def _launch_wgrad_fp32(inputs: list[torch.Tensor], g: torch.Tensor,
-                       out: torch.Tensor | None) -> torch.Tensor:
+                       out: torch.Tensor | None, mode: int = 0) -> tuple[torch.Tensor, bool]:
+    """Run the wgrad ring body (mode 0; 1 copies only, 2 products only: the
+    probe's forms) into `out` (or a new dw) with its plan's workspace.
+    Returns dw and whether the body was launched (not for an empty g)."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = g.device
@@ -667,17 +755,23 @@ def _launch_wgrad_fp32(inputs: list[torch.Tensor], g: torch.Tensor,
     cout = int(g.shape[-1])
     dw = _buffer(out, "out", (cout, cs[0] + cs[1], 3, 3, 3), torch.float32, dev)
     if g.numel() == 0:
-        return dw.zero_()
+        return dw.zero_(), False
     with torch.cuda.device(dev):
-        nbytes = conv3d_same_wgrad_fp32_workspace(n, z, y, xd, cs[0], cs[1], cout)
+        plan = conv3d_same_wgrad_fp32_plan(n, z, y, xd, cs[0], cs[1], cout)
+        nbytes = plan["workspace_bytes"]
         ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev) if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mt_conv3d_wgrad_fp32(
             inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
             g.data_ptr(), dw.data_ptr(), None if ws is None else ws.data_ptr(), nbytes,
-            n, z, y, xd, cs[0], cs[1], cout, stream)
+            n, z, y, xd, cs[0], cs[1], cout, *plan["box"], plan["splits"], plan["grid"],
+            plan["stages"], mode, stream)
     _build.check(lib, code, "mt_conv3d_wgrad_fp32")
-    return dw
+    return dw, True
+
+
+# the bodies C's and D's fp32 forms run on (launches_by_body)
+FP32_BODIES = ("ring",)
 
 
 def conv3d_same_wgrad_fp32(x: torch.Tensor, g: torch.Tensor,
@@ -692,12 +786,13 @@ def conv3d_same_wgrad_fp32(x: torch.Tensor, g: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad_fp32: unsupported device {x.device}")
     _check_fp32([("x", x), ("g", g)])
-    dw = _launch_wgrad_fp32([x], g, out)
-    conv3d_same_wgrad_fp32.launches += 1
+    dw, ran = _launch_wgrad_fp32([x], g, out)
+    _count(conv3d_same_wgrad_fp32, "ring" if ran else None)
     return dw
 
 
 conv3d_same_wgrad_fp32.launches = 0
+conv3d_same_wgrad_fp32.launches_by_body = dict.fromkeys(FP32_BODIES, 0)
 
 
 def conv3d_same_wgrad_dual_fp32(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
@@ -713,8 +808,8 @@ def conv3d_same_wgrad_dual_fp32(a: torch.Tensor, b: torch.Tensor, g: torch.Tenso
     if a.device.type != "cuda":
         raise ValueError(f"conv3d_same_wgrad_dual_fp32: unsupported device {a.device}")
     _check_fp32([("a", a), ("b", b), ("g", g)])
-    dw = _launch_wgrad_fp32([a, b], g, out)
-    conv3d_same_wgrad_fp32.launches += 1
+    dw, ran = _launch_wgrad_fp32([a, b], g, out)
+    _count(conv3d_same_wgrad_fp32, "ring" if ran else None)
     return dw
 
 
@@ -845,11 +940,14 @@ def _check_affine(x: torch.Tensor, scale: torch.Tensor | None,
 
 def _launch_stats_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
                        bias: torch.Tensor | None, affine: tuple, out: torch.Tensor | None,
-                       stats: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run kernel D's fp32 form into `out` and `stats` (or new ones), with
-    the workspace the library reports (per-block stats rows and their
-    reduction's). `affine` is (scale, shift, slope), or () for the dual
-    form."""
+                       stats: torch.Tensor | None, mode: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """Run kernel D's fp32 form on the ring body (mode 0; 1 copies and
+    prologue only, 2 products only: the probe's forms) into `out` and
+    `stats` (or new ones), with its plan's workspace (K-split partials, the
+    stats rows or kernel E's stats pass's). `affine` is (scale, shift,
+    slope), or () for the dual form. Returns out, stats and whether the body
+    was launched (not for an empty output)."""
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
@@ -858,22 +956,22 @@ def _launch_stats_fp32(inputs: list[torch.Tensor], pw: PreparedWeight,
     out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.float32, dev)
     stats = _buffer(stats, "stats", (n, 2, pw.cout), torch.float32, dev)
     if out.numel() == 0:
-        return out, stats.zero_()
+        return out, stats.zero_(), False
     scale, shift, slope = affine if affine else (None, None, 0.0)
     with torch.cuda.device(dev):
-        nbytes = lib.mt_conv3d_stats_fp32_workspace(n, z, y, xd, pw.cout)
-        if nbytes <= 0:
-            raise ValueError("kernel D's fp32 form does not take these sizes")
-        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        plan = conv3d_same_fp32_plan(n, z, y, xd, cs[0], cs[1], pw.cout, stats=True)
+        nbytes = plan["workspace_bytes"]
+        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)  # never empty
         code = lib.mt_conv3d_same_affine_fp32(
             inputs[0].data_ptr(), inputs[1].data_ptr() if len(inputs) > 1 else None,
             pw.w.data_ptr(), None if bias is None else bias.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), float(slope), out.data_ptr(),
             stats.data_ptr(), ws.data_ptr(), nbytes, n, z, y, xd, cs[0], cs[1], pw.cout,
-            pw.coutp, torch.cuda.current_stream(dev).cuda_stream)
+            pw.coutp, *plan["box"], plan["splits"], int(plan["resident"]), plan["stages"],
+            plan["grid"][0], mode, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "mt_conv3d_same_affine_fp32")
-    return out, stats
+    return out, stats, True
 
 
 def conv3d_same_affine_fp32(x: torch.Tensor, pw: PreparedWeight,
@@ -900,13 +998,14 @@ def conv3d_same_affine_fp32(x: torch.Tensor, pw: PreparedWeight,
     _check_fp32([("x", x)])
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
     _check_affine(x, scale, shift)
-    result = _launch_stats_fp32([x], pw, bias, (scale, shift, negative_slope) if scale is not
-                                None else (), out, stats)
-    conv3d_same_affine_fp32.launches += 1
-    return result
+    out, stats, ran = _launch_stats_fp32([x], pw, bias, (scale, shift, negative_slope)
+                                         if scale is not None else (), out, stats)
+    _count(conv3d_same_affine_fp32, "ring" if ran else None)
+    return out, stats
 
 
 conv3d_same_affine_fp32.launches = 0
+conv3d_same_affine_fp32.launches_by_body = dict.fromkeys(FP32_BODIES, 0)
 
 
 def conv3d_same_dual_stats_fp32(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
@@ -927,9 +1026,9 @@ def conv3d_same_dual_stats_fp32(a: torch.Tensor, b: torch.Tensor, pw: PreparedWe
         raise ValueError(f"conv3d_same_dual_stats_fp32: unsupported device {a.device}")
     _check_fp32([("a", a), ("b", b)])
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
-    result = _launch_stats_fp32([a, b], pw, bias, (), out, stats)
-    conv3d_same_affine_fp32.launches += 1
-    return result
+    out, stats, ran = _launch_stats_fp32([a, b], pw, bias, (), out, stats)
+    _count(conv3d_same_affine_fp32, "ring" if ran else None)
+    return out, stats
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,13 @@ queued); then the fp32 route: nnUNetTrainerV2_fp32's network on the Liver
 plans of chip_smoke.py (base 32, pools 5 x (2, 2, 2), 128^3, 3 classes,
 fp32, seeded He init) at batch 2, one forward + backward with deep
 supervision and the DC + CE loss, its device time split into the fp32
-forms of A, B (the ring body, or the staged body where a checkout still
-runs it), C and D, cuDNN and PyTorch's kernels, once with cuDNN's convs in
+forms of A, B and D (the ring body, or the staged body where a checkout
+still runs it), C (its wgrad ring body, or the staged wgrad kernel of an
+older checkout), cuDNN and PyTorch's kernels, once with cuDNN's convs in
 full fp32 (chip_smoke.py's 14b runs after 14a turned TF32 off) and once
-at PyTorch's default, TF32 on for cuDNN's convs (`--routes fp32` profiles
-this route only). --out writes the same as JSON. It takes the package and
+at PyTorch's default, TF32 on for cuDNN's convs; then the same step on
+the fused route (the forward through D, E and F, as MTTPU_FUSED_TRAIN=1
+trains), TF32 off (`--routes fp32` profiles these steps only). --out writes the same as JSON. It takes the package and
 chip_smoke from its own directory, so a copy of it in another checkout
 profiles that checkout.
 """
@@ -35,6 +37,27 @@ import json
 import subprocess
 import sys
 import time
+
+
+def _template_args(name: str, kernel: str) -> list[str] | None:
+    """The template arguments of kernel<...> in a profiled name (None: not
+    that kernel)."""
+    if f"{kernel}<" not in name:
+        return None
+    return [a.strip() for a in name.split(f"{kernel}<", 1)[1].split(">", 1)[0].split(",")]
+
+
+def _fp32_ring(name: str, form: str) -> bool:
+    """conv_fp32_ring_kernel<DUAL[, AFFINE, STATS]> serving `form`: "A" (no
+    switch), "B" (DUAL alone) or "D" (AFFINE or STATS); an older checkout's
+    kernel has DUAL only."""
+    args = _template_args(name, "conv_fp32_ring_kernel")
+    if args is None:
+        return False
+    dual, affine, stats = ([a == "true" for a in args] + [False, False])[:3]
+    if form == "D":
+        return affine or stats
+    return not (affine or stats) and dual == (form == "B")
 
 
 def _is_kernel_d(name: str) -> bool:
@@ -49,15 +72,21 @@ def _is_kernel_d(name: str) -> bool:
 
 
 FAMILIES = [
-    # the fp32 forms (csrc/conv3d_fp32.cu): A and B on the ring body, or both
-    # on conv_fp32_kernel<false, false> where a checkout still runs them
-    # there; D's on conv_fp32_kernel with the stats set; C's wgrad kernels
-    ("A fp32 (ring body)", lambda n: "conv_fp32_ring_kernel<false>" in n),
-    ("B fp32 (ring body)", lambda n: "conv_fp32_ring_kernel<true>" in n),
-    ("A/B fp32 K-split reduce", lambda n: "conv_fp32_reduce_kernel" in n),
+    # the fp32 forms (csrc/conv3d_fp32.cu): A, B and D on the ring body by
+    # its template switches, C on the wgrad ring body, the split partials'
+    # reduce (A, B, D's K splits, C's voxel splits); an older checkout's
+    # staged bodies: A and B on conv_fp32_kernel<false, false>, D's on
+    # conv_fp32_kernel with the stats set, C's wgrad_fp32_kernel and its
+    # reduce
+    ("A fp32 (ring body)", lambda n: _fp32_ring(n, "A")),
+    ("B fp32 (ring body)", lambda n: _fp32_ring(n, "B")),
+    ("D fp32 (ring body)", lambda n: _fp32_ring(n, "D")),
+    ("C fp32 (wgrad ring body)", lambda n: "wgrad_fp32_ring_kernel" in n),
+    ("fp32 split reduce (A, B, C, D)", lambda n: "conv_fp32_reduce_kernel" in n),
     ("A/B fp32 (staged body)", lambda n: "conv_fp32_kernel<false, false>" in n),
     ("D fp32 (staged body)", lambda n: "conv_fp32_kernel<" in n),
-    ("C fp32 (wgrad)", lambda n: "wgrad_fp32" in n),
+    ("C fp32 (staged wgrad)", lambda n: "wgrad_fp32_kernel" in n
+     or "wgrad_fp32_reduce_kernel" in n),
     ("kernel D (conv3d_same_affine)", _is_kernel_d),
     # the ring body (conv3d_a_kernel) and the older body: A and B
     ("kernels A/B", lambda n: "conv3d_same_kernel" in n or "conv3d_a_kernel" in n),
@@ -187,10 +216,12 @@ def main(argv=None) -> int:
 
 def fp32_step(dev) -> dict:
     """One fp32 forward + backward of the Liver network at batch 2 (see the
-    module docstring) under torch.profiler."""
+    module docstring) under torch.profiler, unfused (TF32 off and at the
+    default) and fused (TF32 off)."""
     import torch
     from chip_smoke import LIVER_CLASSES, LIVER_PATCH, SEED, _liver_plans
     from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
+    from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
     from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                        ds_loss_weights)
     torch.manual_seed(SEED)
@@ -207,10 +238,11 @@ def fp32_step(dev) -> dict:
                              generator=gen, device=dev) for i in range(net.num_pool)]
     weights = [float(w) for w in ds_loss_weights(net.num_pool)]
 
-    def step():
+    def step(fused: bool = False):
         net.zero_grad(set_to_none=True)
-        loss = deep_supervision_loss(net(x, deep_supervision=True), targets, dc_and_ce_loss,
-                                     weights)
+        outs = (unet_forward_fused(net, x, deep_supervision=True, differentiable=True)
+                if fused else net(x, deep_supervision=True))
+        loss = deep_supervision_loss(outs, targets, dc_and_ce_loss, weights)
         loss.backward()
 
     result = {}
@@ -227,6 +259,12 @@ def fp32_step(dev) -> dict:
         result[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"   peak {result[key]['peak_gib']:.2f} GiB")
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    result["fused_tf32_off"] = profile_run(
+        "fp32 Liver training step on the fused route (forward through D, E, F; backward), "
+        "batch 2, cuDNN allow_tf32=False", lambda: step(fused=True))
+    result["fused_tf32_off"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"   peak {result['fused_tf32_off']['peak_gib']:.2f} GiB")
     del net
     torch.cuda.empty_cache()
     return result

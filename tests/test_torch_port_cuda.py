@@ -313,23 +313,66 @@ def test_fp32_ring_body_refuses_a_plan_it_cannot_run(device):
     (1, (3, 5, 9), 13, 0, 47),       # odd C and Cout
     (2, (5, 9, 11), 30, 30, 30),     # dual
     (1, (4, 8, 8), 20, 10, 16),      # dual, unequal
+    (1, (9, 10, 11), 32, 0, 32),     # ragged volume, 16-byte copies
+    (2, (7, 9, 13), 13, 7, 21),      # dual 13 + 7, odd Cout, ragged (4-byte copies)
+    (2, (4, 4, 4), 320, 0, 320),     # the Liver's deepest stage: units walked in turn
+    (2, (8, 8, 8), 320, 320, 320),   # B's deepest dw: 800 tiles over the blocks
+    (1, (17, 18, 40), 64, 0, 96),    # several boxes a split, 3 column blocks
+    (2, (16, 16, 16), 30, 30, 30),   # dual at 30 + 30 (8-byte copies), split voxels
 ])
 def test_fp32_form_of_c_matches_plain(device, n, spatial, ca, cb, cout):
-    """Into a NaN-filled dw: every element written; two calls bit-equal."""
+    """Into a NaN-filled dw: every element written; two calls bit-equal;
+    every launch on the wgrad ring body."""
     rng = np.random.default_rng(6)
     ins = [_rand(rng, (n, *spatial, c)).to(device) for c in (ca, cb) if c]
     g = _rand(rng, (n, *spatial, cout)).to(device)
     out = torch.full((cout, ca + cb, 3, 3, 3), float("nan"), device=device)
     fn = cv.conv3d_same_wgrad_dual if cb else cv.conv3d_same_wgrad
     plain = cv.conv3d_same_wgrad_dual_ref if cb else cv.conv3d_same_wgrad_ref
-    before = cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches
+    before = (cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches,
+              cv.conv3d_same_wgrad_fp32.launches_by_body["ring"])
     assert fn(*ins, g, out=out) is out
     again = fn(*ins, g)
     torch.cuda.synchronize()
-    assert (cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches) == (
-        before[0] + 2, before[1])
+    assert (cv.conv3d_same_wgrad_fp32.launches, cv.conv3d_same_wgrad.launches,
+            cv.conv3d_same_wgrad_fp32.launches_by_body["ring"]) == (
+        before[0] + 2, before[1], before[2] + 2)
     assert torch.isfinite(out).all() and torch.equal(out, again)
     assert _fp32_err(out, plain(*ins, g)) <= FP32_RTOL
+
+
+def test_fp32_wgrad_ring_refuses_a_plan_it_cannot_run(device):
+    """The C entry of C's fp32 form checks the plan it is handed (a box
+    outside the list, splits that leave one empty, a grid past the units,
+    too few workspace bytes, a third stage), and the library's workspace
+    query answers from the host plan's rules."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    n, sp, c = 2, (16, 16, 16), 32
+    x = torch.zeros(n, *sp, c, device=device)
+    g = torch.zeros(n, *sp, c, device=device)
+    dw = torch.empty(c, c, 3, 3, 3, device=device)
+    plan = cv.conv3d_same_wgrad_fp32_plan(n, *sp, c, 0, c)
+    assert plan["splits"] == 16 and plan["units"] == 64  # 16 boxes, 4 tiles
+    ws = torch.empty(plan["workspace_bytes"] // 4, device=device)
+    good = dict(box=plan["box"], splits=plan["splits"], grid=plan["grid"],
+                stages=plan["stages"], nbytes=plan["workspace_bytes"])
+
+    def call(**kw):
+        a = {**good, **kw}
+        return lib.mt_conv3d_wgrad_fp32(
+            x.data_ptr(), None, g.data_ptr(), dw.data_ptr(), ws.data_ptr(), a["nbytes"],
+            n, *sp, c, 0, c, *a["box"], a["splits"], a["grid"], a["stages"], 0,
+            torch.cuda.current_stream(device).cuda_stream)
+    assert call() == 0
+    for bad in (dict(box=(4, 4, 32)), dict(splits=15), dict(splits=17), dict(grid=65),
+                dict(nbytes=16), dict(stages=3)):
+        assert call(**bad) != 0, bad
+    torch.cuda.synchronize()
+    for sizes in ((2, 128, 128, 128, 32, 0, 32), (2, 8, 8, 8, 320, 320, 320),
+                  (1, 96, 192, 192, 30, 30, 30), (1, 3, 5, 9, 13, 7, 21)):
+        assert lib.mt_conv3d_wgrad_fp32_workspace(*sizes) == \
+            cv.conv3d_same_wgrad_fp32_workspace(*sizes), sizes
 
 
 def test_fp32_training_step_through_the_fp32_forms(device):
@@ -440,16 +483,21 @@ def test_fused_switches_refuse_an_fp32_network_on_the_card(device, monkeypatch):
 
 
 @pytest.mark.parametrize("n,spatial,c,cout,affine", [
-    (2, (16, 16, 16), 32, 32, True),    # the Liver's stage 0, N=2
+    (2, (16, 16, 16), 32, 32, True),    # the Liver's stage 0, N=2 (split K: E's stats)
     (2, (16, 16, 16), 32, 32, False),
     (1, (5, 7, 19), 30, 60, True),      # ragged volume, stage-0 width
     (1, (3, 5, 9), 13, 47, True),       # odd C and Cout
-    (1, (4, 4, 4), 320, 320, True),     # deepest stage
+    (1, (4, 4, 4), 320, 320, True),     # deepest stage (split K)
+    (2, (8, 8, 8), 320, 320, True),     # the Liver's 8^3 stage, N=2 (split K)
+    (2, (9, 10, 11), 30, 30, True),     # ragged, 8-byte copies
+    (2, (40, 40, 40), 40, 40, True),    # resident weights, 2 stages: the prologue after the barrier
+    (2, (24, 40, 40), 32, 32, True),    # resident weights, 3 stages, one split: the box rows
+    (2, (24, 40, 40), 32, 32, False),
 ])
 def test_fp32_form_of_d_matches_plain(device, n, spatial, c, cout, affine):
     """Into NaN-filled out and stats, a shift of +4 so that a normalized
     halo would show at every face; two calls bit-equal; launches on its own
-    count."""
+    count, every one on the ring body."""
     rng = np.random.default_rng(11)
     x = _rand(rng, (n, *spatial, c)).to(device)
     w = _rand(rng, (cout, c, 3, 3, 3), 0.05).to(device)
@@ -460,36 +508,97 @@ def test_fp32_form_of_d_matches_plain(device, n, spatial, c, cout, affine):
     pw = cv.prepare_conv3d_weight(w, dtype=torch.float32)
     out = torch.full((n, *spatial, cout), float("nan"), device=device)
     stats = torch.full((n, 2, cout), float("nan"), device=device)
-    before = cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches
+    before = (cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches,
+              cv.conv3d_same_affine_fp32.launches_by_body["ring"])
     got, got_stats = cv.conv3d_same_affine(x, pw, bias, sc, sh, 1e-2, out=out, stats=stats)
     again, again_stats = cv.conv3d_same_affine(x, pw, bias, sc, sh, 1e-2)
     ref, ref_stats = cv.conv3d_same_affine_ref(x, w, bias, sc, sh, 1e-2)
     torch.cuda.synchronize()
     assert got is out and got_stats is stats
-    assert (cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches) == (
-        before[0] + 2, before[1])
+    assert (cv.conv3d_same_affine_fp32.launches, cv.conv3d_same_affine.launches,
+            cv.conv3d_same_affine_fp32.launches_by_body["ring"]) == (
+        before[0] + 2, before[1], before[2] + 2)
     assert torch.equal(got, again) and torch.equal(got_stats, again_stats)
     assert _fp32_err(got, ref) <= FP32_RTOL
     assert _fp32_err(got_stats, ref_stats) <= FP32_RTOL
 
 
+@pytest.mark.parametrize("n,spatial,c", [(1, (8, 8, 8), 32), (2, (5, 9, 11), 13),
+                                         (2, (24, 40, 40), 32)])
+def test_fp32_form_of_d_keeps_its_halo_zero_under_a_large_shift(device, n, spatial, c):
+    """A shift of +50 puts lrelu(shift) far from 0 at every face and padded
+    voxel: the SAME halo, the boxes' overhang and the padding channels must
+    stay 0, as the plain version's zero padding of the normalized input."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (n, *spatial, c)).to(device)
+    w = _rand(rng, (c, c, 3, 3, 3), 0.05).to(device)
+    s = (torch.from_numpy(rng.random((n, c)).astype(np.float32)) + 0.5).to(device)
+    t = (_rand(rng, (n, c)) + 50.0).to(device)
+    pw = cv.prepare_conv3d_weight(w, dtype=torch.float32)
+    got, got_stats = cv.conv3d_same_affine(x, pw, None, s, t, 1e-2)
+    ref, ref_stats = cv.conv3d_same_affine_ref(x, w, None, s, t, 1e-2)
+    torch.cuda.synchronize()
+    assert _fp32_err(got, ref) <= FP32_RTOL and _fp32_err(got_stats, ref_stats) <= FP32_RTOL
+
+
 @pytest.mark.parametrize("n,spatial,ca,cb,cout", [
     (2, (16, 16, 16), 32, 32, 32),     # the Liver's last decoder stage
     (1, (6, 9, 11), 20, 12, 16),       # unequal inputs, ragged volume
+    (2, (7, 9, 13), 13, 7, 21),        # 13 + 7, odd Cout (4-byte copies)
+    (2, (8, 8, 8), 320, 320, 320),     # the deepest decoder (split K)
+    (2, (24, 40, 40), 30, 30, 30),     # one split: the box rows, 8-byte copies
 ])
 def test_fp32_form_of_d_dual_matches_plain(device, n, spatial, ca, cb, cout):
+    """Into NaN-filled out and stats; two calls bit-equal."""
     rng = np.random.default_rng(12)
     a = _rand(rng, (n, *spatial, ca)).to(device)
     b = _rand(rng, (n, *spatial, cb)).to(device)
     w = _rand(rng, (cout, ca + cb, 3, 3, 3), 0.05).to(device)
     bias = _rand(rng, (cout,)).to(device)
     pw = cv.prepare_conv3d_weight(w, (ca, cb), torch.float32)
+    out = torch.full((n, *spatial, cout), float("nan"), device=device)
+    stats = torch.full((n, 2, cout), float("nan"), device=device)
     before = cv.conv3d_same_affine_fp32.launches
-    got, got_stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+    got, got_stats = cv.conv3d_same_dual_stats(a, b, pw, bias, out=out, stats=stats)
+    again, again_stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
     ref, ref_stats = cv.conv3d_same_dual_stats_ref(a, b, w, bias)
     torch.cuda.synchronize()
-    assert cv.conv3d_same_affine_fp32.launches == before + 1
+    assert got is out and got_stats is stats
+    assert cv.conv3d_same_affine_fp32.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(got_stats, again_stats)
     assert _fp32_err(got, ref) <= FP32_RTOL and _fp32_err(got_stats, ref_stats) <= FP32_RTOL
+
+
+def test_fp32_form_of_d_refuses_a_plan_it_cannot_run(device):
+    """D's C entry checks its plan and workspace: one byte short of the
+    plan's workspace (the stats rows), a box outside the list, a prologue
+    on two inputs."""
+    from multitalent_tpu_torch import _build
+    lib = _build.library()
+    n, sp, c = 2, (24, 40, 40), 32
+    x = torch.zeros(n, *sp, c, device=device)
+    s = torch.ones(n, c, device=device)
+    pw = cv.prepare_conv3d_weight(torch.zeros(c, c, 3, 3, 3, device=device),
+                                  dtype=torch.float32)
+    out = torch.empty(n, *sp, c, device=device)
+    stats = torch.empty(n, 2, c, device=device)
+    plan = cv.conv3d_same_fp32_plan(n, *sp, c, 0, c, stats=True)
+    assert plan["splits"] == 1 and plan["stats_bytes"] == plan["workspace_bytes"] > 0
+    ws = torch.empty(plan["workspace_bytes"] // 4, device=device)
+    good = dict(b=None, cb=0, box=plan["box"], nbytes=plan["workspace_bytes"])
+
+    def call(**kw):
+        a = {**good, **kw}
+        return lib.mt_conv3d_same_affine_fp32(
+            x.data_ptr(), a["b"], pw.w.data_ptr(), None, s.data_ptr(), s.data_ptr(), 0.01,
+            out.data_ptr(), stats.data_ptr(), ws.data_ptr(), a["nbytes"], n, *sp, c, a["cb"],
+            c, pw.coutp, *a["box"], 1, int(plan["resident"]), plan["stages"],
+            plan["grid"][0], 0, torch.cuda.current_stream(device).cuda_stream)
+    assert call() == 0
+    for bad in (dict(nbytes=plan["workspace_bytes"] - 4), dict(box=(4, 4, 32)),
+                dict(b=x.data_ptr(), cb=c)):
+        assert call(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 16, 32), (1, 5, 7, 9, 30), (1, 6, 6, 6, 320),

@@ -106,9 +106,14 @@ def test_plan_refuses_sizes_that_are_not_a_conv(sizes):
         cv.conv3d_same_fp32_plan(*sizes, sms=H100_SMS)
 
 
-def ring_replay(ins, pw, bias, plan):
+def ring_replay(ins, pw, bias, plan, affine=None):
     """The ring body's walk in torch (see the module docstring); returns the
-    output and how often each entry was written in each split."""
+    output, how often each entry was written in each split and, with one
+    split, each box's stats row (N * boxes of a sample, 2, Cout): the sum
+    and sum of squares of out after the bias over its in-volume voxels.
+    `affine` (scale, shift, slope) applies kernel D's prologue to each staged
+    element inside the volume and below the input's channels (fp32, the
+    product and the sum rounded apart)."""
     n, z, y, x = (int(s) for s in ins[0].shape[:4])
     cs = [int(t.shape[-1]) for t in ins]
     cout = pw.cout
@@ -124,6 +129,10 @@ def ring_replay(ins, pw, bias, plan):
     parts = torch.zeros(splits, n, gz * bz, gy * by, gx * bx, cols * 32, dtype=torch.float64)
     writes = torch.zeros(splits, n, gz * bz, gy * by, gx * bx, cols * 32, dtype=torch.int32)
     per = gz * gy * gx
+    rows = torch.zeros(n * per, 2, cols * 32, dtype=torch.float64)
+    bias64 = torch.zeros(cols * 32, dtype=torch.float64)
+    if bias is not None:
+        bias64[:cout] = bias.double()
     for split in range(splits):
         k0 = split * plan["per_split"]
         nk = min(plan["per_split"], plan["chunks"] - k0)
@@ -139,7 +148,11 @@ def ring_replay(ins, pw, bias, plan):
                         si = int(k >= chunks0)
                         j = k - chunks0 * si
                         halo = padded[si][nb, z0:z0 + bz + 2, y0:y0 + by + 2, x0:x0 + bx + 2,
-                                          8 * j:8 * j + 8].double()
+                                          8 * j:8 * j + 8]
+                        if affine is not None:
+                            halo = _prologue(halo, affine, nb, 8 * j, cs[si],
+                                             (z0 - 1, y0 - 1, x0 - 1), (z, y, x))
+                        halo = halo.double()
                         kc, r0 = kchunk0_b * si + j // 2, (j % 2) * 8
                         wch = pw.w[kc, :, r0:r0 + 8, co0:co0 + 32].double()  # (27, 8, 32)
                         taps = torch.stack([halo[t // 9:t // 9 + bz, t // 3 % 3:t // 3 % 3 + by,
@@ -149,11 +162,36 @@ def ring_replay(ins, pw, bias, plan):
                           slice(x0, x0 + bx), slice(co0, co0 + 32))
                     parts[sl] = acc
                     writes[sl] += 1
+                    if splits == 1:  # the box's stats row over its in-volume voxels
+                        v = (acc + bias64[co0:co0 + 32])[:z - z0, :y - y0, :x - x0]
+                        rows[b, 0, co0:co0 + 32] = v.sum((0, 1, 2))
+                        rows[b, 1, co0:co0 + 32] = (v * v).sum((0, 1, 2))
     parts = parts[:, :, :z, :y, :x, :cout]
     out = (torch.zeros(cout, dtype=torch.float64) if bias is None else bias.double())
     for s in range(splits):
         out = out + parts[s]
-    return out.float(), writes[:, :, :z, :y, :x, :cout]
+    return (out.float(), writes[:, :, :z, :y, :x, :cout],
+            rows[..., :cout].float() if splits == 1 else None)
+
+
+def _prologue(halo, affine, nb, c0, c, origin, volume):
+    """lrelu(v * scale + shift) in fp32 of a staged halo's elements inside
+    the volume and below channel c; the rest kept (0)."""
+    scale, shift, slope = affine
+    ch = torch.arange(c0, c0 + halo.shape[-1])
+    s = torch.zeros(halo.shape[-1])
+    t = torch.zeros(halo.shape[-1])
+    top = min(c, c0 + halo.shape[-1])
+    s[ch < c], t[ch < c] = scale[nb, c0:top].float(), shift[nb, c0:top].float()
+    a = halo.float() * s + t
+    act = torch.where(a >= 0, a, a * slope)
+    inside = (ch < c)[None, None, None, :]
+    for axis, (o, size) in enumerate(zip(origin, volume)):
+        pos = torch.arange(halo.shape[axis]) + o
+        shape = [1, 1, 1, 1]
+        shape[axis] = -1
+        inside = inside & ((pos >= 0) & (pos < size)).reshape(shape)
+    return torch.where(inside, act, halo.float())
 
 
 @pytest.mark.parametrize("n,spatial,ca,cb,cout,sms,pallas", [
@@ -175,7 +213,7 @@ def test_ring_replay_matches_pallas(n, spatial, ca, cb, cout, sms, pallas):
     pw = cv.prepare_conv3d_weight(tw, (ca, cb) if cb else None, torch.float32)
     ins = [torch.from_numpy(x[..., :ca])] + ([torch.from_numpy(x[..., ca:])] if cb else [])
     plan = cv.conv3d_same_fp32_plan(n, *spatial, ca, cb, cout, sms=sms)
-    got, writes = ring_replay(ins, pw, bias, plan)
+    got, writes, _ = ring_replay(ins, pw, bias, plan)
     assert torch.equal(writes, torch.ones_like(writes))
     if pallas:
         w_dhwio = np.ascontiguousarray(w.transpose(2, 3, 4, 1, 0))
