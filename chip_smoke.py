@@ -20,7 +20,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    convs' dx), at the training batch N=2; then the fused chain's kernels beside the unfused route they
    replace (the port's plain-torch norm + a cuDNN bf16 conv): D (prologue +
    stats) at A's shapes and its dual form at B's, each at N=1 and N=2 into
-   NaN-filled output and stats buffers, with the plan it took, E's stats
+   NaN-filled output and stats buffers, with the plan it took (the dual
+   form on the body kernel B's plan names, its launch counted there; on
+   the same body its output bit-equal to B's; two calls bit-equal; timed
+   beside B alone and B then E's stats), E's stats
    (two calls bit-equal, launches a call from a captured CUDA graph, queued times)
    and apply passes at every norm shape, and F at the stage-0 head into a
    NaN-filled output, beside its form without the prologue and torch.mm of
@@ -39,9 +42,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    labelmap and all 47 region NIfTIs must exist at the input's shape, and
    each kernel's launch count must equal its launches per forward times the
    forwards run; A and B must have run the wgmma body, and every counted run
-   of the script fails where A or B reached conv3d_same_kernel;
+   of the script fails where A, B or D reached conv3d_same_kernel;
 3b. the same with MTTPU_FUSED_NORM=1 (the fused conv -> norm route, kernels
-   D, E and F): exact launch counts of the fused route, every region mask
+   D, E and F): exact launch counts of the fused route (D's dual form at
+   16-byte rows on the wgmma body, its launches by body), every region mask
    against the unfused run's, seconds per case of both routes (3, 3b and
    5-5e run the sliding window's exact mode, MTTPU_SW_EXACT=1, so their
    counts and history stay comparable);
@@ -286,7 +290,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    times, 14b's fused launches; D's row the shapes 14b's fused run
    launched and their sums over one fused step); A's and B's rows add phase 16a's
    `launches_install` and `launches_by_body` (phases 3 and 5, and one step
-   of 5); the wgmma body's row (`conv3d_same_wgmma`) its launches in phases
+   of 5), D's row its launches by body (phases 3b and 5b) and its dual
+   form's phase-2 shapes at 16-byte rows beside B alone and B then E's
+   stats; the wgmma body's row (`conv3d_same_wgmma`) its launches in phases
    3 and 5, its phase-2 shapes with their plans, and phase 6's probe, forms
    and host times; then the result line.
    Each phase prints its seconds.
@@ -805,14 +811,13 @@ def _plan(row: dict, form: str, kernel=None, cudnn=None) -> None:
     row["plan"] = plan
     row.update(_affine_bound(sum(splits), row["cout"], sp, n, form == "d")
                if form.startswith("d") else _conv_bound(sum(splits), row["cout"], sp, n))
-    if form in ("a", "b") and not (plan["ring"] or plan["wgmma"]):
-        raise AssertionError(f"kernel {form.upper()} at {sp} N={n}: the plan names "
+    if not (plan["ring"] or plan["wgmma"]):
+        raise AssertionError(f"kernel {form} at {sp} N={n}: the plan names "
                              "conv3d_same_kernel")
     body = ("ring body" if plan["ring"] else
             f"the wgmma body (TMA halo boxes, BN {plan['wgmma_bn']}, K splits "
             f"{plan['wgmma_splits']}, {plan['wgmma_blocks']} blocks, "
-            f"{plan['wgmma_smem_bytes']} B shared)" if plan["wgmma"] else
-            "the older body (16-byte rows, streamed weights, whole K loops)")
+            f"{plan['wgmma_smem_bytes']} B shared)")
     if kernel is not None:
         row.update(queued_ms=_queued_ms(kernel), cudnn_queued_ms=_queued_ms(cudnn))
         print(f"  queued: kernel {row['queued_ms']:.3f} ms, cuDNN {row['cudnn_queued_ms']:.3f} ms")
@@ -970,7 +975,11 @@ def phase_fused_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
             results["conv3d_same_affine"][-1].update(splits=(c,), cout=c, spatial=sp, n=n)
             _plan(results["conv3d_same_affine"][-1], "d")
             del x, x_cl, out, ref
-    # kernel D's dual form (decoders' first convs), at the same batches
+    # kernel D's dual form (decoders' first convs), at the same batches: on
+    # the body its plan names (at 16-byte rows with streamed weights the
+    # wgmma body, with B's plan: bit-equal to kernel B's output), timed
+    # beside B alone and B then E's stats pass (the two-launch way to the
+    # same out and stats)
     for n in batches:
         for c, sp in b_shapes:
             a, b = (rnd(n, *sp, c).to(torch.bfloat16) for _ in range(2))
@@ -978,22 +987,47 @@ def phase_fused_kernels(a_shapes=KERNEL_A_SHAPES, b_shapes=KERNEL_B_SHAPES,
             w_bf = w.to(torch.bfloat16)
             bias = rnd(c, scale=0.1)
             pw = cv.prepare_conv3d_weight(w, (c, c))
+            what = f"conv3d_same_dual_stats {c}+{c}->{c} at {sp} N={n}"
+            before = dict(cv.conv3d_same_affine.launches_by_body)
             out, stats = cv.conv3d_same_dual_stats(a, b, pw, bias,
                                                    out=_nan_filled((n, *sp, c), dev),
                                                    stats=_nan_stats(n, c, dev))
+            plan = cv.conv3d_same_plan(n, *sp, (c, c), c, "d_dual")
+            body = "ring" if plan["ring"] else "wgmma"
+            after = cv.conv3d_same_affine.launches_by_body
+            if after != {**before, body: before[body] + 1}:
+                raise AssertionError(f"{what}: launches by body {before} -> {after}, the "
+                                     f"plan names the {body} body")
+            b_plan = cv.conv3d_same_plan(n, *sp, (c, c), c, "b")
+            if b_plan["wgmma"] and body != "wgmma":
+                raise AssertionError(f"{what}: kernel B runs the wgmma body, D's dual form "
+                                     f"not: {plan}")
             ref, _ = cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)
             bound = ATOL + RTOL * ref.float().abs().max().item()
-            err = _check(f"conv3d_same_dual_stats {c}+{c}->{c} at {sp} N={n}", out, ref, bound)
+            err = _check(what, out, ref, bound)
             serr = _stats_rel_err(stats, out)
             if not serr <= STATS_RTOL:
                 raise AssertionError(f"conv3d_same_dual_stats N={n} stats: {serr:.3e} > "
                                      f"{STATS_RTOL}")
+            bit_equal = bool(torch.equal(out, cv.conv3d_same_dual(a, b, pw, bias)))
+            if (b_plan["ring"], b_plan["wgmma"]) == (plan["ring"], plan["wgmma"]) and not bit_equal:
+                raise AssertionError(f"{what}: the output differs from kernel B's on the same "
+                                     f"{body} body")
+            again, again_stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+            if not (torch.equal(again, out) and torch.equal(again_stats, stats)):
+                raise AssertionError(f"{what}: two calls differ")
+            b_call = lambda: cv.conv3d_same_dual(a, b, pw, bias)
+            b_then_stats = lambda: fn.channel_stats(cv.conv3d_same_dual(a, b, pw, bias))
+            d_call = lambda: cv.conv3d_same_dual_stats(a, b, pw, bias)
             report("conv3d_same_affine",
                    f"dual {c}+{c}->{c} at {'x'.join(map(str, sp))} N={n}", err, bound,
-                   _median_ms(lambda: cv.conv3d_same_dual_stats(a, b, pw, bias)),
+                   _median_ms(d_call),
                    _median_ms(lambda: cv.conv3d_same_dual_stats_ref(a, b, w_bf, bias)),
-                   _median_ms(lambda: cv.conv3d_same_dual(a, b, pw, bias)),
-                   "kernel B, no stats", stats_rel_err=serr)
+                   _median_ms(b_call), "kernel B, no stats", stats_rel_err=serr, body=body,
+                   bit_equal_to_b=bit_equal, queued_ms=_queued_ms(d_call),
+                   b_queued_ms=_queued_ms(b_call), library_ms=_median_ms(b_then_stats),
+                   library_what="kernel B, then kernel E's stats pass",
+                   library_queued_ms=_queued_ms(b_then_stats))
             results["conv3d_same_affine"][-1].update(splits=(c, c), cout=c, spatial=sp, n=n)
             _plan(results["conv3d_same_affine"][-1], "d_dual")
             del a, b, out, ref
@@ -1148,18 +1182,36 @@ def _kernel_counters() -> dict:
             **grid_overhead_probe.kernels()}
 
 
-# kernels A's and B's launches by body (ops.conv3d.BODIES) in the last
+# kernels A's, B's and D's launches by body (ops.conv3d.BODIES) in the last
 # _run_counted run, and in each _recording block by wrapper name
 BODY_COUNTS: dict = {}
 RECORDED_BODIES: dict = {}
 
 
 def _check_bodies(counts: dict, where: str) -> None:
-    """Kernels A and B never reach conv3d_same_kernel (the older body): at
-    16-byte rows with streamed weights they run the wgmma body."""
+    """Kernels A, B and D (both forms) never reach conv3d_same_kernel (the
+    older body, the packed conv's alone): at 16-byte rows with streamed
+    weights A, B and D's dual form run the wgmma body."""
     older = {name: c["older"] for name, c in counts.items() if c.get("older")}
     if older:
-        raise AssertionError(f"{where}: A/B launches on conv3d_same_kernel {older}")
+        raise AssertionError(f"{where}: A/B/D launches on conv3d_same_kernel {older}")
+
+
+def _check_d_bodies(d_shapes: collections.Counter, where: str) -> dict:
+    """Kernel D's launches by body in the _recording of it just made: every
+    dual-form call whose plan names the wgmma body (16-byte rows, streamed
+    weights) counted there, every other on the ring; at least one dual call
+    there. Returns the counts (printed)."""
+    from multitalent_tpu_torch.ops import conv3d as cv
+    bodies = RECORDED_BODIES["conv3d_same_affine"]
+    wgmma = sum(k for (splits, cout, sp, n), k in d_shapes.items() if len(splits) == 2
+                and cv.conv3d_same_plan(n, *sp, splits, cout, "d_dual")["wgmma"])
+    want = {"older": 0, "ring": sum(d_shapes.values()) - wgmma, "wgmma": wgmma}
+    if bodies != want or not wgmma:
+        raise AssertionError(f"{where}: kernel D's launches by body {bodies}, expected {want}")
+    print(f"kernel D's launches by body ({where}): {bodies} (its dual form at 16-byte rows "
+          "on the wgmma body)")
+    return dict(bodies)
 
 
 # the fp32 forms of C and D: every launch on the ring bodies of
@@ -1178,7 +1230,8 @@ def _check_fp32_bodies(counters: dict, where: str) -> None:
 def _run_counted(fn):
     """fn() with every kernel's launch count set to 0 just before it; returns
     (fn's result, the counts read just after). Kernels A's and B's counts by
-    body land in BODY_COUNTS; a launch of either on the older body fails."""
+    body land in BODY_COUNTS, D's too; a launch of any on the older body
+    fails."""
     counters = _kernel_counters()
     for k in counters.values():
         k.launches = 0
@@ -1261,7 +1314,8 @@ def phase_main_path(workdir: str, fused: bool = False) -> dict:
     expect = _expect(per_forward, forwards)
     if launches != expect or any(launches[k] == 0 for k in per_forward):
         raise AssertionError(f"{route} launches {launches}, expected {expect}")
-    bodies = _wgmma_launched(route, () if fused else ("conv3d_same", "conv3d_same_dual"))
+    bodies = _wgmma_launched(route, ("conv3d_same_affine",) if fused
+                             else ("conv3d_same", "conv3d_same_dual"))
     seg, _ = read_nifti(os.path.join(out, "case.nii.gz"))
     if seg.shape != CASE_SHAPE or not set(np.unique(seg).tolist()) <= set(range(47)):
         raise AssertionError(f"labelmap {seg.shape} {np.unique(seg)[:5]}")
@@ -1285,12 +1339,13 @@ def phase_main_path(workdir: str, fused: bool = False) -> dict:
 
 
 def _wgmma_launched(route: str, required=("conv3d_same", "conv3d_same_dual")) -> dict:
-    """Kernels A's and B's launches by body in the run _run_counted just
-    made (printed); each wrapper of `required` must have run the wgmma body."""
+    """Kernels A's, B's and D's launches by body in the run _run_counted just
+    made (printed); each wrapper of `required` must have run the wgmma body
+    (D: its dual form at 16-byte rows)."""
     bodies = {k: dict(v) for k, v in BODY_COUNTS.items()}
     if not all(bodies[k]["wgmma"] for k in required):
         raise AssertionError(f"{route}: the wgmma body was not launched: {bodies}")
-    print(f"A/B launches by body ({route}): {bodies}")
+    print(f"A/B/D launches by body ({route}): {bodies}")
     return bodies
 
 
@@ -1649,6 +1704,7 @@ def phase_fused_tile_probabilities() -> dict:
             _recording_x(fn, "channel_stats") as e_shapes:
         logits = unet_forward_fused(net, x)
     per_forward = net.fused_kernel_launches_per_forward()
+    d_bodies = _check_d_bodies(d_shapes, "one fused tile forward")
     for label, shapes, expect in (("kernel-D", d_shapes, per_forward["conv3d_same_affine"]),
                                   ("kernel-E stats", e_shapes, per_forward["channel_stats"])):
         if sum(shapes.values()) != expect:
@@ -1676,7 +1732,7 @@ def phase_fused_tile_probabilities() -> dict:
     p_pallas, launches = _run_counted(pallas_norm_forward)
     if launches["channel_stats"] != norms or launches["affine_lrelu"] != norms:
         raise AssertionError(f"MTTPU_PALLAS_NORM=1: launches {launches}, {norms} norms")
-    out = {"d_shapes": d_shapes, "e_shapes": e_shapes}
+    out = {"d_shapes": d_shapes, "e_shapes": e_shapes, "d_launches_by_body": d_bodies}
     out["bf16_max"], out["bf16_mean"] = _dp(p_fused, p_fused_plain)
     out["fp32_max"], out["fp32_mean"] = _dp(p_fused, p_fp32)
     out["pallas_norm_max"], out["pallas_norm_mean"] = _dp(p_pallas, p_default)
@@ -1959,8 +2015,8 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
                 or any(launches[k] == 0 for k in (*per_step, *per_val))):
             raise AssertionError(f"{route}: {steps} steps, launches {launches}, "
                                  f"expected {expect}")
-        bodies = _wgmma_launched(f"training, {route}", ("conv3d_same",) if fused
-                                 else ("conv3d_same", "conv3d_same_dual"))
+        bodies = _wgmma_launched(f"training, {route}", ("conv3d_same", "conv3d_same_affine")
+                                 if fused else ("conv3d_same", "conv3d_same_dual"))
         losses = trainer.all_tr_losses + trainer.all_val_losses + trainer.all_tr_ce
         if not np.isfinite(losses).all():
             raise AssertionError(f"non-finite losses {losses}")
@@ -2002,6 +2058,9 @@ def phase_training(workdir: str, fused: bool = False) -> dict:
         if fused and sum(d_shapes.values()) != per_step["conv3d_same_affine"]:
             raise AssertionError(f"{sum(d_shapes.values())} kernel-D calls in one step, "
                                  f"expected {per_step['conv3d_same_affine']}")
+        if fused:
+            step_bodies["conv3d_same_affine"] = _check_d_bodies(d_shapes,
+                                                                f"one step ({route})")
     finally:
         os.environ.pop("MTTPU_FUSED_TRAIN")
         os.environ.pop("MTTPU_FUSED_NORM")
@@ -4655,6 +4714,8 @@ def phase_fp32_fused_kernels() -> dict:
     got = sg.seghead(x, head, hbias, sc, sh, 1e-2, torch.float32, out=nan(n, k, *sp))
     ref = sg.seghead_ref(x, head, hbias, sc, sh, 1e-2, torch.float32)
     err, rel = held(f"14a F fp32 {where}", got, ref)
+    if not torch.equal(got, sg.seghead(x, head, hbias, sc, sh, 1e-2, torch.float32)):
+        raise AssertionError("14a seghead fp32: two calls differ")
     bare = sg.seghead(x, head, None, None, None, 1e-2, torch.float32)
     w2, xs = head.reshape(k, c), x.reshape(n, -1, c)
     lib = torch.matmul(w2, xs.transpose(1, 2)).reshape(bare.shape)
@@ -5967,8 +6028,19 @@ def main() -> int:
             extra = {k: stage0[k] for k in ("queued_ms", "no_prologue_ms",
                                             "no_prologue_queued_ms", "library_queued_ms",
                                             "launches_per_call")}
+        elif kname == "conv3d_same_affine":
+            # both D forms' launches by body, and the dual form at 16-byte
+            # rows (the wgmma body) beside B alone and B then E's stats
+            extra = {**d_sums, "launches_by_body": {
+                "predict_fused": main_fused["launches_by_body"][kname],
+                "train_fused": training_fused["launches_by_body"][kname]},
+                "dual_wgmma_shapes": [
+                    {k: r[k] for k in ("what", "ms", "queued_ms", "unfused_ms", "b_queued_ms",
+                                       "library_ms", "library_queued_ms", "bit_equal_to_b",
+                                       "err", "stats_rel_err", "bound_ms", "bound_by")}
+                    for r in res if r.get("body") == "wgmma"]}
         else:
-            extra = {"conv3d_same_affine": d_sums, "channel_stats": e_sums}.get(kname, {})
+            extra = {"channel_stats": e_sums}.get(kname, {})
         rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": main_fused["launches"][kname],
                      "launches_train_fused": training_fused["launches"][kname],

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "mt_conv3d_wgrad_dual": ([_P, _P, _P, _P, _P, _L] + [_I] * 7 + [_P], _I),
     # n, z, y, x, ca, cb, cout, coutp, bn -> kernel D's workspace bytes
     "mt_conv3d_stats_workspace": ([_I] * 9, _L),
+    # the same, and the body the launch runs into body[0] (1 ring, 2 wgmma)
+    "mt_conv3d_stats_launch_plan": ([_I] * 9 + [ctypes.POINTER(_I)], _L),
     # x, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n, z, y, x,
     # cin, cout, coutp, bn, stream
     "mt_conv3d_same_affine": ([_P] * 5 + [_F] + [_P] * 3 + [_L] + [_I] * 8 + [_P], _I),

@@ -4,10 +4,10 @@
 // cp.async copies with zero-fill and their commit groups, ldmatrix
 // fragment loads, the bf16 mma.sync tile product, the line loader of
 // kernels A and C (load_lines), the 256-voxel box shapes the conv kernels
-// tile volumes with, the normalize prologue's rounding, the
-// channel-statistics launchers kernel D borrows from kernel E, the split-K
-// reduce, and the wgmma body's plan and launcher that conv3d_same.cu routes
-// kernels A and B to.
+// tile volumes with, the normalize prologue's rounding, the row reduce
+// kernel D borrows from kernel E, the split-K reduces (one of them with
+// kernel D's stats), and the wgmma body's plan and launcher that
+// conv3d_same.cu routes kernels A, B and D's dual form to.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -238,6 +238,15 @@ __device__ __forceinline__ __nv_bfloat16 cast_lrelu(float v, float slope) {
 // wgmma body share it).
 cudaError_t splitk_reduce(const float* ws, const float* bias, __nv_bfloat16* out,
                           long long count, int cout, int splits, cudaStream_t stream);
+// The same out of ws (splits, n * s * cout), with kernel D's stats: blocks
+// own runs of voxels of one sample across 64 columns, add the splits as
+// splitk_reduce does, store bf16 and sum the stored values per column into
+// part (n, rows, 2, cout), rows = splitk_stats_rows(n, s, cout) (at most
+// 256: reduce_rows adds them in one pass, with no workspace).
+int splitk_stats_rows(int n, long long s, int cout);
+cudaError_t splitk_reduce_stats(const float* ws, const float* bias, __nv_bfloat16* out,
+                                float* part, int n, long long s, int cout, int splits,
+                                cudaStream_t stream);
 
 // The wgmma body of kernels A and B (conv3d_wgmma.cu) for inputs whose C %
 // 8 == 0: 4x8x8 output tiles, bn (64 or 128) output channels a block, the K
@@ -252,11 +261,15 @@ struct HPlan {
 bool h_plan(int n, int z, int y, int x, int ca, int cb, int cout, int coutp, int sms,
             HPlan* out);
 long long h_workspace_bytes(const HPlan& plan, int n, int z, int y, int x, int cout);
-// kernel A (b null, cb 0) or B on the wgmma body; mode 0 (1: copies only, 2:
-// products only, the probes' forms)
+// rows a sample of kernel D's stats partials on the body: a tile's each with
+// one split, else splitk_stats_rows
+int h_stats_rows(const HPlan& plan, int n, long long s, int cout);
+// kernel A (b null, cb 0) or B on the wgmma body; with part (two inputs),
+// kernel D's dual form, its stats rows (n, h_stats_rows, 2, cout) into part;
+// mode 0 (1: copies only, 2: products only, the probes' forms)
 cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int cb, const void* w,
-                  const void* bias, void* out, void* ws, long long ws_bytes, int n, int z, int y,
-                  int x, int cout, int coutp, int mode, cudaStream_t stream);
+                  const void* bias, void* out, void* ws, long long ws_bytes, float* part, int n,
+                  int z, int y, int x, int cout, int coutp, int mode, cudaStream_t stream);
 
 // Host launchers of fused_norm.cu that kernel D (conv3d_same.cu) shares.
 //
@@ -267,12 +280,5 @@ cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int c
 long long reduce_rows_workspace(int n, int rows, int width);
 cudaError_t reduce_rows(const float* part, float* out, float* ws, int n, int rows,
                         int width, cudaStream_t stream);
-// Bytes of workspace channel_stats needs (-1: sizes it does not take).
-long long channel_stats_workspace(int n, long long s, int c);
-// stats (n, 2, c) fp32: per-sample channel sum and sum of squares of the
-// bf16 x (n, s, c); deterministic (per-block partials, fixed-order adds).
-cudaError_t channel_stats(const __nv_bfloat16* x, float* stats, float* ws,
-                          long long ws_bytes, int n, long long s, int c,
-                          cudaStream_t stream);
 
 }  // namespace mt

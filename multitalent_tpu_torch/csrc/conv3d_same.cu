@@ -6,7 +6,7 @@
 //     space-to-depth packed tensor: that packing only fills the TPU's
 //     128-lane matrix unit, so here it runs unpacked at the true C)
 //   - ops/pallas_merged_conv.py _merged2_kernel (conv over concat(a, b)
-//     without building the concat) -> the NIN == 2 instantiation below.
+//     without building the concat) -> the NIN == 2 instantiations below.
 // and, as kernel D, a fourth:
 //   - ops/pallas_conv.py _conv_affine_kernel (the fused conv -> InstanceNorm
 //     chain): the same conv with a normalize prologue (AFFINE: the staged
@@ -15,15 +15,14 @@
 //     epilogue (STATS: per-channel sum and sum of squares of the
 //     bf16-rounded, bias-added output, per-block partials added in a fixed
 //     order by fused_norm.cu's reduce_rows; deterministic, no atomics). Where
-//     the K loop is split, the stats are taken by fused_norm.cu's
-//     channel_stats over the reduced, rounded output instead (the deep
-//     stages: at most 6x24x24 voxels). The dual form (NIN == 2 with STATS)
-//     serves a decoder's first conv. What D saves: the normalize pass's read
-//     and write of the activation and the stats pass's read (~0.6 GB at
-//     stage 0 with N=1); the prologue adds ~7 elementwise ops per staged
-//     element, once per K chunk, not per tap.
+//     the K loop is split, the split-K reduce takes the stats as it writes
+//     the output (splitk_reduce_stats, below). The dual form (NIN == 2 with
+//     STATS) serves a decoder's first conv. What D saves: the normalize
+//     pass's read and write of the activation and the stats pass's read
+//     (~0.6 GB at stage 0 with N=1); the prologue adds ~7 elementwise ops per
+//     staged element, once per K chunk, not per tap.
 // and the probe kernel scripts/pallas_sparse_conv_arm.py _sparse_kernel
-// (pallas_call at :287) -> the PACKED instantiation, `mt_packed_conv3d`: the
+// (pallas_call at :287) -> conv3d_same_kernel, `mt_packed_conv3d`: the
 // same conv read and written space-to-depth packed, (N, Z, Y/fy, X/fx,
 // fy*fx*C) phase-major, optionally of concatenated input groups. The TPU
 // kernel merges the block-sparse packed taps into 12 or 18 GEMMs on
@@ -44,11 +43,13 @@
 // copies (30, 60, odd C), the weights stay resident, or (one input) the K
 // loop is split. Where every row takes 16-byte copies (each input's C % 8 ==
 // 0), the weights are streamed and the ring does not take the call, kernels
-// A (every dx included) and B run the wgmma body of conv3d_wgmma.cu (TMA
-// halo boxes, one staged box for all 27 taps, warp-specialised; 48-768
-// channels: the flagship's 120-320, the Liver net's, SwinUNETR's), and D's
-// dual form keeps the older body (conv3d_same_kernel), which also serves
-// the packed conv. A and B never launch conv3d_same_kernel.
+// A (every dx included), B and D's dual form run the wgmma body of
+// conv3d_wgmma.cu (TMA halo boxes, one staged box for all 27 taps,
+// warp-specialised; 48-768 channels: the flagship's 120-320, the Liver
+// net's, SwinUNETR's; D's dual form with its stats in the epilogue or, with
+// a split K loop, in the split-K reduce). The older body, conv3d_same_kernel
+// (mma.sync fed by ldmatrix, one box staged, then computed, chunk by chunk),
+// serves the packed conv alone.
 //
 // What bounds the ring body on an H100: the flagship's convs carry ~27*C FLOPs
 // per input byte, well above the ~295 FLOP/byte ridge, so the tensor cores
@@ -85,11 +86,9 @@
 //     summed by each warp in shared memory a tile and added across warps
 //     once a sample a block.
 //
-// What bounds conv3d_same_kernel (D's dual form at 16-byte rows, the packed
-// conv): the same products, behind the serialised load -> sync -> compute
-// phases of each K chunk, and, at the deep stages (6x6x6 .. 12x24x24
-// voxels), too few output tiles to fill 132 SMs. Its design answers each in
-// a simple way:
+// What bounds conv3d_same_kernel (the packed conv): the same products,
+// behind the serialised load -> sync -> compute phases of each K chunk.
+// Its design answers each in a simple way:
 //   - implicit GEMM: a block owns 256 output voxels x BN output channels; per
 //     16-channel K chunk it stages one haloed input box and the chunk's
 //     weights for all 27 taps in shared memory (cp.async, zero-fill) and
@@ -97,13 +96,11 @@
 //   - shared-memory rows are padded (48 B per voxel, BN+8 per weight row) so
 //     every ldmatrix is free of bank conflicts;
 //   - the box shape (2x8x16, 4x8x8, ...) is picked per call to waste the
-//     fewest voxels at the volume's edges, and small grids split the K loop
-//     over blocks (fp32 partials, then one reduce kernel adds the bias);
-//   - ragged C (30, 60) and ragged Z/Y/X are zero-filled in shared memory,
-//     never padded in device memory;
-//   - bias is added in fp32 in the epilogue and the output rounds to bf16
-//     once. Two blocks fit on an SM, so one block's loads overlap the
-//     other's products.
+//     fewest voxels at the volume's edges;
+//   - ragged C and ragged Z/Y/X are zero-filled in shared memory, never
+//     padded in device memory;
+//   - the output rounds to bf16 once. Two blocks fit on an SM, so one
+//     block's loads overlap the other's products.
 //
 // Layouts:
 //   x:   (N, Z, Y, X, Cin) bf16, contiguous (a channels_last_3d NCDHW tensor)
@@ -123,61 +120,26 @@ using namespace mt;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MF = BM / (WARPS * 16);  // 16-voxel M fragments per warp
-constexpr int MAX_SPLITS = 64;
 constexpr int MAX_GROUPS = 4;  // input groups of the packed conv
 
 struct Plan {
   Box box;
   int tiles_z, tiles_y, tiles_x;
-  int splits, per_split;  // K chunks per split
 };
 
+// The packed conv: factors (fy, fx) of in and out (n, z, y, x are the
+// unpacked sizes), the input's groups as unpacked channel ranges, and
+// whether every group is even (channel-pair loads).
 struct Params {
-  const __nv_bfloat16* in[2];
-  int cin[2];
-  int nchunks0;  // K chunks of input 0; input 1's follow
+  const __nv_bfloat16* in;
+  int cin;
   const __nv_bfloat16* w;
-  const float* bias;  // may be null
   __nv_bfloat16* out;
-  float* ws;  // split-K partials (splits, N*Z*Y*X, Cout), when splits > 1
   int n, z, y, x, cout, coutp;
   Plan plan;
-  // kernel D's dual form: the stats epilogue's per-block partials (N *
-  // tiles, 2, Cout) fp32
-  float* part;
-  // the packed conv: factors (fy, fx) of in[0] and out (n, z, y, x are the
-  // unpacked sizes), the input's groups as unpacked channel ranges, and
-  // whether every group is even (channel-pair loads)
   int fy, fx, ngroups, pairs;
   int gbase[MAX_GROUPS], gsize[MAX_GROUPS];
 };
-
-Plan make_plan(int n, int z, int y, int x, int kchunks, int nblocks_n, int sms) {
-  Plan best{};
-  const long long best_vox = pick_box(z, y, x, &best.box);
-  best.tiles_z = cdiv(z, best.box.z);
-  best.tiles_y = cdiv(y, best.box.y);
-  best.tiles_x = cdiv(x, best.box.x);
-  const long long blocks = best_vox * n * nblocks_n;
-  const long long target = 2LL * sms;  // two resident blocks per SM
-  int splits = 1;
-  if (blocks < target) splits = (int)((target + blocks - 1) / blocks);
-  splits = splits < kchunks ? splits : kchunks;
-  splits = splits < MAX_SPLITS ? splits : MAX_SPLITS;
-  best.per_split = cdiv(kchunks, splits);
-  best.splits = cdiv(kchunks, best.per_split);  // no empty split
-  return best;
-}
-
-// One K chunk of the haloed input box into shared memory, zero outside the
-// volume and past the input's channel count.
-__device__ __forceinline__ void load_halo(__nv_bfloat16* halo,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int cin, int c0, const Params& p, int nb,
-                                          int z0, int y0, int x0) {
-  load_box<THREADS>(halo, src, cin, c0, KC, HS, 1, p.plan.box, p.z, p.y, p.x, nb, z0,
-                    y0, x0);
-}
 
 // Element offset of unpacked voxel (gz, gy, gx), channel c of the group
 // starting at unpacked channel gbase with gsize channels, in a tensor packed
@@ -191,8 +153,9 @@ __device__ __forceinline__ int64_t packed_offset(const Params& p, int nb, int gz
   return vox * P * cc + (int64_t)gbase * P + phase * gsize + (c - gbase);
 }
 
-// The packed conv's load_halo: the K chunk of the haloed box, unpacked from
-// in[0] into the same shared-memory rows.
+// One K chunk of the haloed input box, unpacked from p.in into shared-memory
+// rows of HS elements, zero outside the volume and past the input's
+// channel count.
 __device__ __forceinline__ void load_halo_packed(__nv_bfloat16* halo, const Params& p, int c0,
                                                  int nb, int z0, int y0, int x0) {
   const Box box = p.plan.box;
@@ -200,7 +163,7 @@ __device__ __forceinline__ void load_halo_packed(__nv_bfloat16* halo, const Para
   const int vec = p.pairs ? 2 : 1;
   const int per_vox = KC / vec;
   const int total = hz * hy * hx * per_vox;
-  const int cin = p.cin[0];
+  const int cin = p.cin;
   for (int i = threadIdx.x; i < total; i += THREADS) {
     const int v = i / per_vox;
     const int ch = (i - v * per_vox) * vec;
@@ -219,7 +182,7 @@ __device__ __forceinline__ void load_halo_packed(__nv_bfloat16* halo, const Para
     }
     __nv_bfloat16* d = halo + v * HS + ch;
     const __nv_bfloat16* s =
-        inside ? p.in[0] + packed_offset(p, nb, gz, gy, gx, cin, gbase, gsize, c) : p.in[0];
+        inside ? p.in + packed_offset(p, nb, gz, gy, gx, cin, gbase, gsize, c) : p.in;
     if (vec == 2) {
       cp_async4(d, s, inside);
     } else {
@@ -249,81 +212,12 @@ constexpr int smem_bytes() {
   return HALO_MAX * HS * 2 + 27 * KC * (BN + 8) * 2;
 }
 
-// Kernel D's stats epilogue: the block's per-channel sum and sum of squares
-// of bf16(acc + bias) over its in-volume voxels, in a fixed order (lanes by
-// shuffles, then warps in turn), written to row blockIdx.x of p.part.
-template <int BN, int NT>
-__device__ __forceinline__ void block_stats(const float (&acc)[MF][NT][4], float* red,
-                                            const Params& p, int nblk, int z0, int y0,
-                                            int x0) {
-  const Box box = p.plan.box;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bool valid[MF][2];
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = (warp * MF + mi) * 16 + lane / 4 + h * 8;
-      valid[mi][h] = z0 + m / (box.y * box.x) < p.z && y0 + (m / box.x) % box.y < p.y &&
-                     x0 + m % box.x < p.x;
-    }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int co = nblk * BN + j * 8 + (lane % 4) * 2;
-    const float b0 = p.bias != nullptr && co < p.cout ? p.bias[co] : 0.f;
-    const float b1 = p.bias != nullptr && co + 1 < p.cout ? p.bias[co + 1] : 0.f;
-    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (!valid[mi][h]) continue;
-        const float r0 = __bfloat162float(__float2bfloat16(acc[mi][j][h * 2] + b0));
-        const float r1 = __bfloat162float(__float2bfloat16(acc[mi][j][h * 2 + 1] + b1));
-        s0 += r0;
-        q0 += r0 * r0;
-        s1 += r1;
-        q1 += r1 * r1;
-      }
-#pragma unroll
-    for (int off = 4; off < 32; off *= 2) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      q0 += __shfl_xor_sync(0xffffffffu, q0, off);
-      q1 += __shfl_xor_sync(0xffffffffu, q1, off);
-    }
-    if (lane < 4) {
-      const int c = j * 8 + lane * 2;
-      red[(warp * 2 + 0) * BN + c] = s0;
-      red[(warp * 2 + 0) * BN + c + 1] = s1;
-      red[(warp * 2 + 1) * BN + c] = q0;
-      red[(warp * 2 + 1) * BN + c + 1] = q1;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * BN; t += THREADS) {
-    const int k = t / BN, c = t % BN;
-    const int co = nblk * BN + c;
-    if (co >= p.cout) continue;
-    float v = 0.f;
-    for (int w = 0; w < WARPS; ++w) v += red[(w * 2 + k) * BN + c];
-    p.part[((int64_t)blockIdx.x * 2 + k) * p.cout + co] = v;
-  }
-}
-
-// STATS: kernel D's epilogue (its dual form: one input's D runs on the ring
-// body), per-block channel sums of the bf16-rounded, bias-added output (only
-// when the K loop is not split: a split's partial sums are not the output
-// yet, so the caller takes the stats after the split-K reduction). PACKED:
-// the packed conv's addresses (one input, unsplit K).
-template <int NIN, int BN, bool STATS, bool PACKED = false>
+// The packed conv, one input, the whole K loop: block (tile, column block).
+template <int BN>
 __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
-  static_assert(!STATS || NIN == 2, "one input's stats run on the ring body");
-  static_assert(!PACKED || (NIN == 1 && !STATS), "the packed conv is plain");
   constexpr int BNP = BN + 8;
   constexpr int NT = BN / 8;  // n8 tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[STATS ? WARPS * 2 * BN : 1];  // per-warp stats
   __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + HALO_MAX * HS * 2);
 
@@ -338,7 +232,6 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
   const int nb = t / p.plan.tiles_z;
   const int x0 = txi * box.x, y0 = tyi * box.y, z0 = tzi * box.z;
   const int nblk = blockIdx.y;
-  const int split = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // ldmatrix rows: lane l addresses row l % 16 of each of this warp's M
@@ -360,20 +253,10 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
 
-  const int kchunks = p.nchunks0 + (NIN == 2 ? cdiv(p.cin[1], KC) : 0);
-  const int k_lo = split * p.plan.per_split;
-  const int k_hi = min(kchunks, k_lo + p.plan.per_split);
-  for (int kc = k_lo; kc < k_hi; ++kc) {
-    // selects, not p.in[inp]: a runtime index would copy p to local memory
-    const bool second = NIN == 2 && kc >= p.nchunks0;
-    const int c0 = (kc - (second ? p.nchunks0 : 0)) * KC;
+  const int kchunks = cdiv(p.cin, KC);
+  for (int kc = 0; kc < kchunks; ++kc) {
     __syncthreads();  // the previous chunk's fragments are consumed
-    if constexpr (PACKED) {
-      load_halo_packed(halo, p, c0, nb, z0, y0, x0);
-    } else {
-      load_halo(halo, second ? p.in[1] : p.in[0], second ? p.cin[1] : p.cin[0], c0, p,
-                nb, z0, y0, x0);
-    }
+    load_halo_packed(halo, p, kc * KC, nb, z0, y0, x0);
     load_weights<BN>(wsm, p.w, kc, nblk, p.coutp);
     cp_async_wait_all();
     __syncthreads();
@@ -399,10 +282,8 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
   }
 
   // epilogue: accumulator element e of tile (mi, j) is voxel row
-  // lane / 4 (+8 for e >= 2), channel 2 * (lane % 4) + (e & 1); the packed
-  // conv writes the voxel's row at its phase (tight phase-major)
-  const bool pairs = p.cout % 2 == 0;
-  const int64_t nvox = (int64_t)p.n * p.z * p.y * p.x;
+  // lane / 4 (+8 for e >= 2), channel 2 * (lane % 4) + (e & 1); the voxel's
+  // row is written at its phase (tight phase-major)
 #pragma unroll
   for (int mi = 0; mi < MF; ++mi) {
 #pragma unroll
@@ -411,41 +292,14 @@ __global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
       const int gz = z0 + m / (box.y * box.x), gy = y0 + (m / box.x) % box.y,
                 gx = x0 + m % box.x;
       if (gz >= p.z || gy >= p.y || gx >= p.x) continue;
-      const int64_t vox = (((int64_t)nb * p.z + gz) * p.y + gy) * p.x + gx;
-      __nv_bfloat16* row =
-          p.out + (PACKED ? packed_offset(p, nb, gz, gy, gx, p.cout, 0, p.cout, 0)
-                          : vox * p.cout);
+      __nv_bfloat16* row = p.out + packed_offset(p, nb, gz, gy, gx, p.cout, 0, p.cout, 0);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int co = nblk * BN + j * 8 + (lane % 4) * 2;
         if (co >= p.cout) continue;
-        float v0 = acc[mi][j][h * 2], v1 = acc[mi][j][h * 2 + 1];
-        if (p.plan.splits > 1) {
-          float* dst = p.ws + ((int64_t)split * nvox + vox) * p.cout + co;
-          if (pairs) {
-            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-          } else {
-            dst[0] = v0;
-            if (co + 1 < p.cout) dst[1] = v1;
-          }
-          continue;
-        }
-        if (p.bias != nullptr) {
-          v0 += p.bias[co];
-          if (co + 1 < p.cout) v1 += p.bias[co + 1];
-        }
-        __nv_bfloat16* dst = row + co;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          dst[0] = __float2bfloat16(v0);
-          if (co + 1 < p.cout) dst[1] = __float2bfloat16(v1);
-        }
+        store_pair(row, co, p.cout, acc[mi][j][h * 2], acc[mi][j][h * 2 + 1]);
       }
     }
-  }
-  if constexpr (STATS) {
-    if (p.plan.splits == 1) block_stats<BN, NT>(acc, red, p, nblk, z0, y0, x0);
   }
 }
 
@@ -462,6 +316,63 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+constexpr int SK_COLS = 64;     // columns a block of splitk_stats_kernel
+constexpr int SK_LANES = 4;     // its voxels side by side
+constexpr int SK_MAX_ROWS = 256;  // its rows a sample: reduce_rows adds them in one pass
+
+// Kernel D's split-K reduce: block (run, column block, n) adds the splits of
+// voxels [run * per_run, + per_run) of sample n at columns [column block *
+// SK_COLS, + SK_COLS), in splitk_reduce_kernel's order (so that the output
+// is B's bit for bit), stores bf16 and sums the stored values per column:
+// SK_LANES voxels side by side, their sums added in lane order into row
+// (n, run) of part (n, gridDim.x, 2, cout).
+__global__ void __launch_bounds__(SK_COLS * SK_LANES)
+    splitk_stats_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ part, int64_t s,
+                        int cout, int splits, int per_run) {
+  __shared__ float red[SK_LANES][2][SK_COLS];
+  const int run = blockIdx.x, n = blockIdx.z;
+  const int tc = threadIdx.x % SK_COLS, j = threadIdx.x / SK_COLS;
+  const int c = blockIdx.y * SK_COLS + tc;
+  const int64_t count = (int64_t)gridDim.z * s * cout;
+  const int64_t v0 = (int64_t)run * per_run, v1 = v0 + per_run < s ? v0 + per_run : s;
+  float sum = 0.f, sq = 0.f;
+  if (c < cout) {
+    const float b = bias != nullptr ? bias[c] : 0.f;
+    for (int64_t v = v0 + j; v < v1; v += SK_LANES) {
+      const int64_t i = ((int64_t)n * s + v) * cout + c;
+      float val = b;
+      for (int k = 0; k < splits; ++k) val += ws[k * count + i];
+      const __nv_bfloat16 r = __float2bfloat16(val);
+      out[i] = r;
+      const float f = __bfloat162float(r);
+      sum += f;
+      sq += f * f;
+    }
+  }
+  red[j][0][tc] = sum;
+  red[j][1][tc] = sq;
+  __syncthreads();
+  if (threadIdx.x < 2 * SK_COLS) {
+    const int k = threadIdx.x / SK_COLS, cc = threadIdx.x % SK_COLS;
+    const int co = blockIdx.y * SK_COLS + cc;
+    float v = 0.f;
+#pragma unroll
+    for (int l = 0; l < SK_LANES; ++l) v += red[l][k][cc];
+    if (co < cout) part[(((int64_t)n * gridDim.x + run) * 2 + k) * cout + co] = v;
+  }
+}
+
+// voxels a run of splitk_stats_kernel: about four blocks an SM in all, at
+// most SK_MAX_ROWS runs a sample
+long long splitk_stats_per_run(int n, long long s, int cout) {
+  const long long cols = cdiv(cout, SK_COLS);
+  long long rows = (4LL * sm_count() + n * cols - 1) / (n * cols);
+  rows = rows < 1 ? 1 : (rows > SK_MAX_ROWS ? SK_MAX_ROWS : rows);
+  rows = rows > s ? s : rows;
+  return (s + rows - 1) / rows;
+}
+
 }  // namespace
 
 cudaError_t mt::splitk_reduce(const float* ws, const float* bias, __nv_bfloat16* out,
@@ -471,105 +382,33 @@ cudaError_t mt::splitk_reduce(const float* ws, const float* bias, __nv_bfloat16*
   return cudaGetLastError();
 }
 
+int mt::splitk_stats_rows(int n, long long s, int cout) {
+  const long long per = splitk_stats_per_run(n, s, cout);
+  return (int)((s + per - 1) / per);
+}
+
+cudaError_t mt::splitk_reduce_stats(const float* ws, const float* bias, __nv_bfloat16* out,
+                                    float* part, int n, long long s, int cout, int splits,
+                                    cudaStream_t stream) {
+  const long long per = splitk_stats_per_run(n, s, cout);
+  const dim3 grid((unsigned)((s + per - 1) / per), cdiv(cout, SK_COLS), n);
+  splitk_stats_kernel<<<grid, SK_COLS * SK_LANES, 0, stream>>>(ws, bias, out, part, s, cout,
+                                                               splits, (int)per);
+  return cudaGetLastError();
+}
+
 namespace {
 
 using namespace mt;
 
-Plan plan_for(int n, int z, int y, int x, int ca, int cb, int coutp, int bn) {
-  return make_plan(n, z, y, x, cdiv(ca, KC) + cdiv(cb, KC), coutp / bn, sm_count());
-}
-
-long long workspace_bytes(const Plan& plan, int n, int z, int y, int x, int cout) {
-  if (plan.splits <= 1) return 0;
-  return (long long)plan.splits * n * z * y * x * cout * (long long)sizeof(float);
-}
-
-// Kernel D's stats area, after the split-K partials: without a split, the
-// per-block partials and reduce_rows' workspace; with one, channel_stats'.
-long long stats_workspace_bytes(const Plan& plan, int n, int z, int y, int x, int cout) {
-  const long long tiles = (long long)plan.tiles_x * plan.tiles_y * plan.tiles_z;
-  if (plan.splits > 1) return channel_stats_workspace(n, (long long)z * y * x, cout);
-  if (tiles > 0x7fffffffLL) return -1;
-  const long long red = reduce_rows_workspace(n, (int)tiles, 2 * cout);
-  if (red < 0) return -1;
-  return n * tiles * 2 * cout * (long long)sizeof(float) + red;
-}
-
-template <int NIN, int BN, bool STATS, bool PACKED = false>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<BN>();
-  cudaError_t err = cudaFuncSetAttribute(conv3d_same_kernel<NIN, BN, STATS, PACKED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks =
-      (long long)p.plan.tiles_x * p.plan.tiles_y * p.plan.tiles_z * p.n;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)blocks, p.coutp / BN, p.plan.splits);
-  conv3d_same_kernel<NIN, BN, STATS, PACKED><<<grid, THREADS, smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.plan.splits == 1) return err;
-  return splitk_reduce(p.ws, p.bias, p.out, (long long)p.n * p.z * p.y * p.x * p.cout, p.cout,
-                       p.plan.splits, stream);
-}
-
-// stats (n, 2, cout) of the written output: from the epilogue's per-block
-// partials, or (split K loop) by channel_stats over the output.
-cudaError_t finish_stats(const Params& p, float* stats, float* sws, long long sws_bytes,
-                         cudaStream_t stream) {
-  const long long s = (long long)p.z * p.y * p.x;
-  if (p.plan.splits > 1)
-    return channel_stats(p.out, stats, sws, sws_bytes, p.n, s, p.cout, stream);
-  const int tiles = p.plan.tiles_x * p.plan.tiles_y * p.plan.tiles_z;
-  return reduce_rows(p.part, stats, p.part + (long long)p.n * tiles * 2 * p.cout, p.n,
-                     tiles, 2 * p.cout, stream);
-}
-
-// D's dual form (its stats output (n, 2, cout) fp32) on conv3d_same_kernel.
-int run(const void* a, const void* b, int ca, int cb, const void* w, const void* bias,
-        void* out, void* stats, void* ws, long long ws_bytes, int n, int z, int y, int x,
-        int cout, int coutp, int bn, void* stream) {
-  if (coutp % bn != 0 || (bn != 32 && bn != 64) || cout > coutp || stats == nullptr ||
-      b == nullptr)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.in[0] = static_cast<const __nv_bfloat16*>(a);
-  p.in[1] = static_cast<const __nv_bfloat16*>(b);
-  p.cin[0] = ca;
-  p.cin[1] = cb;
-  p.nchunks0 = cdiv(ca, KC);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ws = static_cast<float*>(ws);
-  p.n = n;
-  p.z = z;
-  p.y = y;
-  p.x = x;
-  p.cout = cout;
-  p.coutp = coutp;
-  p.plan = plan_for(n, z, y, x, ca, cb, coutp, bn);
-  p.part = nullptr;
-  const long long split_bytes = workspace_bytes(p.plan, n, z, y, x, cout);
-  const long long stats_bytes = stats_workspace_bytes(p.plan, n, z, y, x, cout);
-  if (stats_bytes < 0 || ws_bytes < split_bytes + stats_bytes || ws == nullptr)
-    return (int)cudaErrorInvalidValue;
-  float* sws = static_cast<float*>(ws) + split_bytes / (long long)sizeof(float);
-  p.part = sws;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bn == 32 ? launch<2, 32, true>(p, s) : launch<2, 64, true>(p, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)finish_stats(p, static_cast<float*>(stats), sws, stats_bytes, s);
-}
-
 // ---------------------------------------------------------------------------
 // The ring body: kernel D, and A, B and D's dual form where their plan takes
 // it (at 16-byte rows with streamed weights and a whole K loop, or for two
-// inputs any K split, A and B run conv3d_wgmma.cu's body and D's dual form
-// conv3d_same_kernel above, which also runs the packed conv)
+// inputs any K split, they run conv3d_wgmma.cu's body)
 // ---------------------------------------------------------------------------
 
 constexpr int A_SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
+constexpr int MAX_SPLITS = 64;
 constexpr int A_WARPS_M = 8;            // warps along the 256 box voxels, 32 each
 constexpr int A_MF = BM / (A_WARPS_M * 16);
 // two groups of 8 warps, one block an SM: on the H100 this ran faster than
@@ -609,8 +448,8 @@ __host__ __device__ constexpr bool a_swizzled(int nin, int bn, int g, bool resid
 }
 
 struct APlan {
-  bool ring;   // this body; false: the wgmma body or conv3d_same_kernel
-  bool wgmma;  // conv3d_wgmma.cu's body (A and B where ring is false), with plan h
+  bool ring;   // this body; false: the wgmma body
+  bool wgmma;  // conv3d_wgmma.cu's body (where ring is false), with plan h
   HPlan h;
   AConfig cfg;
   Box box;
@@ -1121,7 +960,7 @@ struct AFormEntry {
 // B and D. D as A but the K split (at 30 channels the column split fits 3
 // stages, so the prologue runs ahead of the products: 1.69 vs 1.86 ms
 // queued, PERF.md section 6), and without the stats for a split K loop
-// (streamed weights only). B and D's dual form: two inputs of 17-32
+// (streamed weights only; the split-K reduce takes them). B and D's dual form: two inputs of 17-32
 // channels keep their four chunks' weights resident only swizzled with the
 // columns split (K split: 239 KB) and never at BN 64 (248 KB of weights)
 const AFormEntry kFormKernels[] = {
@@ -1202,11 +1041,11 @@ int a_occupancy(AKernel fn, int threads, int smem) {
 //     form where a row is narrower than 16-byte copies, the weights stay
 //     resident, or one input's K loop is split;
 //   - the wgmma body (conv3d_wgmma.cu, its own plan h: BN 64 or 128, its
-//     own K splits): A, every dx included, and B where the ring does not
-//     take the call, i.e. rows of 16-byte copies (every input's C % 8 == 0)
-//     with streamed weights and a whole K loop, or two inputs with a split
-//     one (the older body measured faster than the ring there);
-//   - conv3d_same_kernel: D's dual form where the ring does not take it.
+//     own K splits): A, every dx included, B and D's dual form where the
+//     ring does not take the call, i.e. rows of 16-byte copies (every
+//     input's C % 8 == 0) with streamed weights and a whole K loop, or two
+//     inputs with a split one (the older body measured faster than the
+//     ring there, and the wgmma body than the older one).
 bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, int cout,
                 int coutp, int bn, int sms, APlan* out) {
   APlan p{};
@@ -1251,7 +1090,7 @@ bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, i
         a_occupancy(a_kernel({form.nin, form.affine, false}, bn, c), A_THREADS, smem) < 1)
       continue;
     p.ring = c.resident || !rows16 || form.affine || (splits > 1 && form.nin == 1);
-    p.wgmma = !p.ring && !form.stats;
+    p.wgmma = !p.ring;
     if (p.wgmma && !h_plan(n, z, y, x, ca, cb, cout, coutp, sms, &p.h)) return false;
     p.cfg = c;
     p.per_split = cdiv(cdiv(p.kchunks, c.g), (int)splits) * c.g;
@@ -1272,14 +1111,37 @@ long long a_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int c
   return (long long)plan.splits * n * z * y * x * cout * (long long)sizeof(float);
 }
 
-// The stats' area of a ring call, after the split-K partials: without a
-// split, the per-block partials (N, grid_x, 2, Cout) and reduce_rows'
-// workspace; with one, channel_stats'.
-long long a_stats_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int cout) {
-  if (plan.splits > 1) return channel_stats_workspace(n, (long long)z * y * x, cout);
-  const long long red = reduce_rows_workspace(n, plan.grid_x, 2 * cout);
+// Rows a sample of a stats call's partials: the ring's blocks along the
+// tiles, the wgmma body's tiles of a sample, or with a split K loop the
+// split-K reduce's runs.
+int stats_rows(const APlan& plan, int n, int z, int y, int x, int cout) {
+  const long long s = (long long)z * y * x;
+  if (plan.wgmma) return h_stats_rows(plan.h, n, s, cout);
+  return plan.splits > 1 ? splitk_stats_rows(n, s, cout) : plan.grid_x;
+}
+
+// The stats' area, after the split-K partials: the partial rows (N, rows,
+// 2, Cout) and reduce_rows' workspace; -1 where reduce_rows takes no such
+// rows.
+long long stats_workspace_bytes(int n, int rows, int cout) {
+  const long long red = reduce_rows_workspace(n, rows, 2 * cout);
   if (red < 0) return -1;
-  return (long long)n * plan.grid_x * 2 * cout * (long long)sizeof(float) + red;
+  return (long long)n * rows * 2 * cout * (long long)sizeof(float) + red;
+}
+
+long long split_workspace_bytes(const APlan& plan, int n, int z, int y, int x, int cout) {
+  return plan.wgmma ? h_workspace_bytes(plan.h, n, z, y, x, cout)
+                    : a_workspace_bytes(plan, n, z, y, x, cout);
+}
+
+// The bytes of a call's workspace: its split-K partials, then for a stats
+// form the stats' area; -1 for sizes the kernels do not take.
+long long call_workspace_bytes(const AForm& form, const APlan& plan, int n, int z, int y, int x,
+                               int cout) {
+  const long long split = split_workspace_bytes(plan, n, z, y, x, cout);
+  if (!form.stats) return split;
+  const long long st = stats_workspace_bytes(n, stats_rows(plan, n, z, y, x, cout), cout);
+  return st < 0 ? -1 : split + st;
 }
 
 // The plan a call of `form` takes; false for sizes the kernels do not take.
@@ -1290,8 +1152,9 @@ bool plan_of(const AForm& form, int n, int z, int y, int xd, int ca, int cb, int
 }
 
 // A call of `form` (kernel A, B, D or D's dual form): on the body its plan
-// names (the ring, the wgmma body or conv3d_same_kernel). b null: one input;
-// scale, shift (D) may be null (no prologue); stats (N, 2, Cout) fp32 for D.
+// names (the ring or the wgmma body). b null: one input; scale, shift (D)
+// may be null (no prologue); stats (N, 2, Cout) fp32 for D and its dual
+// form, from the partial rows the epilogue or the split-K reduce writes.
 int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, const void* w,
              const void* bias, const void* scale, const void* shift, float slope, void* out,
              void* stats, void* ws, long long ws_bytes, int n, int z, int y, int xd, int cout,
@@ -1303,57 +1166,57 @@ int run_form(const AForm& form, const void* a, const void* b, int ca, int cb, co
   AParams p{};
   if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &p.plan))
     return (int)cudaErrorInvalidConfiguration;
-  if (p.plan.wgmma)
-    return (int)h_run(p.plan.h, a, b, ca, cb, w, bias, out, ws, ws_bytes, n, z, y, xd, cout,
-                      coutp, 0, static_cast<cudaStream_t>(stream));
-  if (!p.plan.ring)
-    return run(a, b, ca, cb, w, bias, out, stats, ws, ws_bytes, n, z, y, xd, cout, coutp, bn,
-               stream);
-  const long long split_bytes = a_workspace_bytes(p.plan, n, z, y, xd, cout);
-  const long long stats_bytes =
-      form.stats ? a_stats_workspace_bytes(p.plan, n, z, y, xd, cout) : 0;
-  if (stats_bytes < 0 || ws_bytes < split_bytes + stats_bytes ||
-      (split_bytes + stats_bytes > 0 && ws == nullptr))
+  const long long split_bytes = split_workspace_bytes(p.plan, n, z, y, xd, cout);
+  const long long need = call_workspace_bytes(form, p.plan, n, z, y, xd, cout);
+  if (need < 0 || ws_bytes < need || (need > 0 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  // the stats epilogue runs only with one split; a split's stats are taken
-  // over the reduced output
-  const AForm launched{form.nin, form.affine, form.stats && p.plan.splits == 1};
-  const AKernel fn = a_kernel(launched, bn, p.plan.cfg);
-  if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
-  p.src = static_cast<const __nv_bfloat16*>(a);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ws = static_cast<float*>(ws);
-  p.z = z;
-  p.y = y;
-  p.x = xd;
-  p.cin = ca;
-  p.cout = cout;
-  p.coutp = coutp;
-  p.src2 = static_cast<const __nv_bfloat16*>(b);
-  p.cin2 = cb;
-  p.kchunks0 = cdiv(ca, KC);
-  p.scale = static_cast<const float*>(scale);
-  p.shift = static_cast<const float*>(shift);
-  p.slope = slope;
-  float* sws = static_cast<float*>(ws) + split_bytes / (long long)sizeof(float);
-  p.part = sws;
+  // the stats' partial rows, after the split-K partials
+  float* part = form.stats ? static_cast<float*>(ws) + split_bytes / (long long)sizeof(float)
+                           : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(p.plan.grid_x, coutp / bn, p.plan.splits);
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
-                                     dim3(A_THREADS), args, p.plan.smem, s);
-  if (err != cudaSuccess) return (int)err;
-  if (p.plan.splits > 1)
-    err = splitk_reduce(p.ws, p.bias, p.out, (long long)n * z * y * xd * cout, cout,
-                        p.plan.splits, s);
+  cudaError_t err;
+  if (p.plan.wgmma) {
+    err = h_run(p.plan.h, a, b, ca, cb, w, bias, out, ws, ws_bytes, part, n, z, y, xd, cout,
+                coutp, 0, s);
+  } else {
+    // the stats epilogue runs only with one split; a split's stats are the
+    // split-K reduce's
+    const AForm launched{form.nin, form.affine, form.stats && p.plan.splits == 1};
+    const AKernel fn = a_kernel(launched, bn, p.plan.cfg);
+    if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
+    p.src = static_cast<const __nv_bfloat16*>(a);
+    p.w = static_cast<const __nv_bfloat16*>(w);
+    p.bias = static_cast<const float*>(bias);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.ws = static_cast<float*>(ws);
+    p.z = z;
+    p.y = y;
+    p.x = xd;
+    p.cin = ca;
+    p.cout = cout;
+    p.coutp = coutp;
+    p.src2 = static_cast<const __nv_bfloat16*>(b);
+    p.cin2 = cb;
+    p.kchunks0 = cdiv(ca, KC);
+    p.scale = static_cast<const float*>(scale);
+    p.shift = static_cast<const float*>(shift);
+    p.slope = slope;
+    p.part = part;
+    const dim3 grid(p.plan.grid_x, coutp / bn, p.plan.splits);
+    void* args[] = {&p};
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid, dim3(A_THREADS), args,
+                           p.plan.smem, s);
+    if (err == cudaSuccess && p.plan.splits > 1) {
+      const long long vox = (long long)z * y * xd;
+      err = part != nullptr
+                ? splitk_reduce_stats(p.ws, p.bias, p.out, part, n, vox, cout, p.plan.splits, s)
+                : splitk_reduce(p.ws, p.bias, p.out, n * vox * cout, cout, p.plan.splits, s);
+    }
+  }
   if (err != cudaSuccess || !form.stats) return (int)err;
-  float* st = static_cast<float*>(stats);
-  if (p.plan.splits > 1)
-    return (int)channel_stats(p.out, st, sws, stats_bytes, n, (long long)z * y * xd, cout, s);
-  const long long rows = (long long)n * p.plan.grid_x * 2 * cout;
-  return (int)reduce_rows(p.part, st, p.part + rows, n, p.plan.grid_x, 2 * cout, s);
+  const int rows = stats_rows(p.plan, n, z, y, xd, cout);
+  return (int)reduce_rows(part, static_cast<float*>(stats),
+                          part + (long long)n * rows * 2 * cout, n, rows, 2 * cout, s);
 }
 
 }  // namespace
@@ -1363,16 +1226,15 @@ extern "C" {
 // Bytes of fp32 workspace a call with these sizes needs (0: no split-K; -1:
 // sizes the kernel does not take): kernel A's (cb 0) or B's, with the plan
 // the launch takes; the body that launch runs into *body where it is not
-// null (0 conv3d_same_kernel, 1 the ring, 2 the wgmma body).
+// null (1 the ring, 2 the wgmma body; 0, conv3d_same_kernel, is the packed
+// conv's alone).
 long long mt_conv3d_launch_plan(int n, int z, int y, int xd, int ca, int cb, int cout,
                                 int coutp, int bn, int* body) {
   APlan plan;
-  if (!plan_of(cb > 0 ? FORM_B : FORM_A, n, z, y, xd, ca, cb, cout, coutp, bn, &plan))
-    return -1;
-  if (body != nullptr) *body = plan.ring ? 1 : (plan.wgmma ? 2 : 0);
-  if (plan.ring) return a_workspace_bytes(plan, n, z, y, xd, cout);
-  if (plan.wgmma) return h_workspace_bytes(plan.h, n, z, y, xd, cout);
-  return workspace_bytes(plan_for(n, z, y, xd, ca, cb, coutp, bn), n, z, y, xd, cout);
+  const AForm form = cb > 0 ? FORM_B : FORM_A;
+  if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &plan)) return -1;
+  if (body != nullptr) *body = plan.ring ? 1 : 2;
+  return call_workspace_bytes(form, plan, n, z, y, xd, cout);
 }
 
 // mt_conv3d_launch_plan's bytes alone.
@@ -1381,22 +1243,21 @@ long long mt_conv3d_workspace(int n, int z, int y, int xd, int ca, int cb, int c
   return mt_conv3d_launch_plan(n, z, y, xd, ca, cb, cout, coutp, bn, nullptr);
 }
 
-// Bytes of fp32 workspace a kernel-D call (with stats) needs, with the plan
-// the launch takes; -1: sizes it does not take. cb is 0 for the
-// single-input form.
+// The same for a kernel-D call (with stats; cb 0 for the single-input
+// form): the bytes of its workspace, and its body into *body.
+long long mt_conv3d_stats_launch_plan(int n, int z, int y, int xd, int ca, int cb, int cout,
+                                      int coutp, int bn, int* body) {
+  APlan plan;
+  const AForm form = cb > 0 ? FORM_D_DUAL : FORM_D;
+  if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &plan)) return -1;
+  if (body != nullptr) *body = plan.ring ? 1 : 2;
+  return call_workspace_bytes(form, plan, n, z, y, xd, cout);
+}
+
+// mt_conv3d_stats_launch_plan's bytes alone.
 long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb, int cout,
                                     int coutp, int bn) {
-  APlan ap;
-  if (!plan_of(cb > 0 ? FORM_D_DUAL : FORM_D, n, z, y, xd, ca, cb, cout, coutp, bn, &ap))
-    return -1;
-  if (ap.ring) {
-    const long long st = a_stats_workspace_bytes(ap, n, z, y, xd, cout);
-    return st < 0 ? -1 : a_workspace_bytes(ap, n, z, y, xd, cout) + st;
-  }
-  const Plan plan = plan_for(n, z, y, xd, ca, cb, coutp, bn);
-  const long long st = stats_workspace_bytes(plan, n, z, y, xd, cout);
-  if (st < 0) return -1;
-  return workspace_bytes(plan, n, z, y, xd, cout) + st;
+  return mt_conv3d_stats_launch_plan(n, z, y, xd, ca, cb, cout, coutp, bn, nullptr);
 }
 
 // The plan of a call of form 0 (kernel A), 1 (B), 2 (D) or 3 (D's dual
@@ -1405,9 +1266,8 @@ long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb,
 // declined), G (chunks staged at once), weights resident (1) or streamed
 // (0), the two warp groups splitting K (1) or N (0), ring stages, K splits,
 // blocks along the tiles, blocks an SM, dynamic shared memory bytes; then
-// the wgmma body (1) or not (0: the ring or, D's dual form only,
-// conv3d_same_kernel) and, for the wgmma body, its BN, K splits, blocks and
-// dynamic shared memory bytes a block (0 otherwise). Returns 0, or -1 for
+// the wgmma body (1) or not (0: the ring) and, for the wgmma body, its BN,
+// K splits, blocks and dynamic shared memory bytes a block (0 otherwise). Returns 0, or -1 for
 // sizes the kernels do not take.
 int mt_conv3d_same_plan(int form, int n, int z, int y, int xd, int ca, int cb, int cout,
                         int coutp, int bn, int* plan) {
@@ -1477,25 +1337,20 @@ int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups,
       y % fy != 0 || xd % fx != 0 || ngroups < 0 || ngroups > MAX_GROUPS)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.in[0] = static_cast<const __nv_bfloat16*>(x);
-  p.in[1] = nullptr;
-  p.cin[0] = c;
-  p.cin[1] = 0;
-  p.nchunks0 = cdiv(c, KC);
+  p.in = static_cast<const __nv_bfloat16*>(x);
+  p.cin = c;
   p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.ws = nullptr;
   p.n = n;
   p.z = z;
   p.y = y;
   p.x = xd;
   p.cout = cout;
   p.coutp = coutp;
-  p.plan = plan_for(n, z, y, xd, c, 0, coutp, bn);
-  p.plan.splits = 1;  // unsplit K: the output is written packed
-  p.plan.per_split = p.nchunks0;
-  p.part = nullptr;
+  const long long boxes = pick_box(z, y, xd, &p.plan.box) * n;
+  p.plan.tiles_z = cdiv(z, p.plan.box.z);
+  p.plan.tiles_y = cdiv(y, p.plan.box.y);
+  p.plan.tiles_x = cdiv(xd, p.plan.box.x);
   p.fy = fy;
   p.fx = fx;
   p.ngroups = groups == nullptr ? 1 : ngroups;
@@ -1508,10 +1363,15 @@ int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups,
     if (size % 2) p.pairs = 0;
     base += size;
   }
-  if (base != c) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bn == 32 ? launch<1, 32, false, true>(p, s)
-                        : launch<1, 64, false, true>(p, s));
+  if (base != c || boxes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const void* fn = bn == 32 ? reinterpret_cast<const void*>(conv3d_same_kernel<32>)
+                            : reinterpret_cast<const void*>(conv3d_same_kernel<64>);
+  const int smem = bn == 32 ? smem_bytes<32>() : smem_bytes<64>();
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  return (int)cudaLaunchKernel(fn, dim3((unsigned)boxes, coutp / bn), dim3(THREADS), args, smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
 const char* mt_error_string(int code) {

@@ -54,6 +54,18 @@
 //     a multiple of 8 or Z of 4). Grids with too few blocks for one wave
 //     split the K loop into fp32 partials, added in a fixed order by the
 //     split-K reduce kernel: no atomics, outputs bit-equal from call to call.
+//   - STATS (kernel D's dual form, two inputs: B's conv plus the per-sample
+//     channel sum and sum of squares of its rounded output): with a whole
+//     K loop the epilogue sums the bf16 values it stores, per column, over
+//     its voxels inside the volume: in registers over the thread's two
+//     planes and two lines, by shuffles over the 8 lanes of a column pair,
+//     then through shared memory over the 8 consumer warps in warp order,
+//     into one row (2, BN) of the partials (N, tiles of a sample, 2, Cout),
+//     which reduce_rows adds in tile order (no atomics: two calls are
+//     bit-equal). With a split K loop the split-K reduce takes the stats
+//     instead (splitk_reduce_stats), in the same pass that writes the
+//     output. The products, the plan and the rounding are B's: D's dual
+//     form writes B's output bit for bit.
 //   - BN (64 or 128) and the K splits are picked per call from a wave model
 //     (h_plan).
 //
@@ -65,7 +77,8 @@
 //
 // Layouts: a, b: (N, Z, Y, X, C) bf16 contiguous, 16-byte aligned, C % 8 ==
 // 0; w: (kchunks, 27, 16, CoutP) bf16 (ops/conv3d.py:prepare_conv3d_weight);
-// out: (N, Z, Y, X, Cout) bf16; ws: (splits, N*Z*Y*X, Cout) fp32 partials.
+// out: (N, Z, Y, X, Cout) bf16; ws: (splits, N*Z*Y*X, Cout) fp32 partials;
+// part (STATS): (N, rows, 2, Cout) fp32, rows = h_stats_rows.
 #include <cuda.h>
 
 #include <initializer_list>
@@ -100,18 +113,20 @@ template <int BN>
 __host__ __device__ constexpr int w_stage_bytes() {
   return BN / 64 * W_BOX_BYTES;
 }
-template <int BN>
+constexpr int H_CONSUMER_WARPS = 8;
+template <int BN, bool STATS = false>
 __host__ __device__ constexpr int h_smem_bytes() {
   // 1024 for aligning the ring to the 128-byte swizzle's atom, then the
-  // full/empty barrier pairs
+  // full/empty barrier pairs, then (STATS) the consumer warps' column sums
   return 1024 + W_STAGES * w_stage_bytes<BN>() + BOX_STAGES * BOX_BYTES +
-         16 * (W_STAGES + BOX_STAGES);
+         16 * (W_STAGES + BOX_STAGES) + (STATS ? H_CONSUMER_WARPS * 2 * BN * 4 : 0);
 }
 
 struct HParams {
   const float* bias;  // may be null
   __nv_bfloat16* out;
-  float* ws;  // split-K partials, when splits > 1
+  float* ws;    // split-K partials, when splits > 1
+  float* part;  // STATS: the stats rows (N, tiles_zyx, 2, Cout)
   int z, y, x, cout;
   int tiles_y, tiles_x, tiles_zyx;
   int kchunks0;  // K chunks of input a; b's follow
@@ -259,12 +274,15 @@ __device__ __forceinline__ uint64_t weight_desc(uint32_t stage, int t) {
 // Block (tile, column block, split): tile blockIdx.x of the 4x8x8 boxes of
 // the N samples, output columns [blockIdx.y * BN, + BN), K chunks
 // [blockIdx.z * per_split, + per_split). Warpgroups 0 and 1 consume (planes
-// 2w and 2w + 1 of the tile), warpgroup 2's first thread produces.
-template <int BN, int NIN>
+// 2w and 2w + 1 of the tile), warpgroup 2's first thread produces. STATS
+// (one split only): the tile's column sums of the rounded output into row
+// (n, tile of the sample) of p.part.
+template <int BN, int NIN, bool STATS = false>
 __global__ void __launch_bounds__(H_THREADS, 1)
     conv3d_h_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b,
                     const __grid_constant__ CUtensorMap map_w, const HParams p) {
+  static_assert(!STATS || NIN == 2, "the stats serve kernel D's dual form");
   constexpr int WSTAGE = w_stage_bytes<BN>();
   constexpr int R = BN / 2;  // accumulators of a thread a plane
   extern __shared__ unsigned char smem_raw[];
@@ -277,12 +295,11 @@ __global__ void __launch_bounds__(H_THREADS, 1)
   auto full_b = [&](int s) { return bars + 8 * (2 * W_STAGES + s); };
   auto empty_b = [&](int s) { return bars + 8 * (2 * W_STAGES + BOX_STAGES + s); };
 
-  int t = blockIdx.x;
-  const int nb = t / p.tiles_zyx;
-  t -= nb * p.tiles_zyx;
-  const int z0 = t / (p.tiles_y * p.tiles_x) * HBZ;
-  const int y0 = t / p.tiles_x % p.tiles_y * HBY;
-  const int x0 = t % p.tiles_x * HBX;
+  const int nb = blockIdx.x / p.tiles_zyx;
+  const int ts = blockIdx.x - nb * p.tiles_zyx;  // the tile within its sample
+  const int z0 = ts / (p.tiles_y * p.tiles_x) * HBZ;
+  const int y0 = ts / p.tiles_x % p.tiles_y * HBY;
+  const int x0 = ts % p.tiles_x * HBX;
   const int n0 = blockIdx.y * BN;
   const int k_lo = blockIdx.z * p.per_split;
   const int k_hi = min(p.kchunks, k_lo + p.per_split);
@@ -397,17 +414,20 @@ __global__ void __launch_bounds__(H_THREADS, 1)
   // (r / 4) * 8 + 2 * (lane % 4) + r % 2
   const bool partial = gridDim.z > 1;
   const int64_t nvox = (int64_t)(gridDim.x / p.tiles_zyx) * p.z * p.y * p.x;
+  // STATS: the 8 consumer warps' column sums, [warp][sum, squares][BN]
+  float* red = reinterpret_cast<float*>(smem_raw + (bars - smem_addr(smem_raw)) +
+                                        16 * (W_STAGES + BOX_STAGES));
 #pragma unroll
-  for (int pl = 0; pl < 2; ++pl) {
+  for (int j = 0; j < BN / 8; ++j) {
+    const int co = n0 + j * 8 + (lane % 4) * 2;
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;  // STATS: this thread's voxels
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int oz = z0 + 2 * wg + pl, oy = y0 + warp * 2 + h, ox = x0 + lane / 4;
-      if (oz >= p.z || oy >= p.y || ox >= p.x) continue;
-      const int64_t vox = (((int64_t)nb * p.z + oz) * p.y + oy) * p.x + ox;
+    for (int pl = 0; pl < 2; ++pl) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int co = n0 + j * 8 + (lane % 4) * 2;
-        if (co >= p.cout) continue;
+      for (int h = 0; h < 2; ++h) {
+        const int oz = z0 + 2 * wg + pl, oy = y0 + warp * 2 + h, ox = x0 + lane / 4;
+        if (co >= p.cout || oz >= p.z || oy >= p.y || ox >= p.x) continue;
+        const int64_t vox = (((int64_t)nb * p.z + oz) * p.y + oy) * p.x + ox;
         float v0 = acc[pl][j * 4 + h * 2], v1 = acc[pl][j * 4 + h * 2 + 1];
         if (partial) {
           float* dst = p.ws + ((int64_t)blockIdx.z * nvox + vox) * p.cout + co;
@@ -424,7 +444,42 @@ __global__ void __launch_bounds__(H_THREADS, 1)
           if (co + 1 < p.cout) v1 += p.bias[co + 1];
         }
         store_pair(p.out + vox * p.cout, co, p.cout, v0, v1);
+        if constexpr (STATS) {  // the values as stored
+          const float r0 = __bfloat162float(__float2bfloat16(v0));
+          const float r1 = co + 1 < p.cout ? __bfloat162float(__float2bfloat16(v1)) : 0.f;
+          s0 += r0;
+          q0 += r0 * r0;
+          s1 += r1;
+          q1 += r1 * r1;
+        }
       }
+    }
+    if constexpr (STATS) {  // over the 8 lanes of the column pair, into the warp's row
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+        q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+      }
+      if (lane < 4) {
+        float* row = red + (threadIdx.x / 32) * 2 * BN + j * 8 + lane * 2;
+        row[0] = s0;
+        row[1] = s1;
+        row[BN] = q0;
+        row[BN + 1] = q1;
+      }
+    }
+  }
+  if constexpr (STATS) {  // the 8 warps' rows in warp order: the tile's row of p.part
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumers only
+    for (int i = threadIdx.x; i < 2 * BN; i += 256) {
+      const int k = i / BN, c = i - k * BN, co = n0 + c;
+      if (co >= p.cout) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < H_CONSUMER_WARPS; ++w) v += red[(w * 2 + k) * BN + c];
+      p.part[(((int64_t)nb * p.tiles_zyx + ts) * 2 + k) * p.cout + co] = v;
     }
   }
 }
@@ -533,15 +588,15 @@ bool weight_map(CUtensorMap* m, const void* w, long long rows, int coutp) {
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int NIN>
+template <int BN, int NIN, bool STATS = false>
 cudaError_t h_launch(const HPlan& plan, const CUtensorMap& ma, const CUtensorMap& mb,
                      const CUtensorMap& mw, const HParams& p, cudaStream_t stream) {
-  constexpr int smem = h_smem_bytes<BN>();
-  cudaError_t err = cudaFuncSetAttribute(conv3d_h_kernel<BN, NIN>,
+  constexpr int smem = h_smem_bytes<BN, STATS>();
+  cudaError_t err = cudaFuncSetAttribute(conv3d_h_kernel<BN, NIN, STATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(plan.tiles, plan.nblk, plan.splits);
-  conv3d_h_kernel<BN, NIN><<<grid, H_THREADS, smem, stream>>>(ma, mb, mw, p);
+  conv3d_h_kernel<BN, NIN, STATS><<<grid, H_THREADS, smem, stream>>>(ma, mb, mw, p);
   return cudaGetLastError();
 }
 
@@ -593,12 +648,18 @@ long long h_workspace_bytes(const HPlan& plan, int n, int z, int y, int x, int c
   return (long long)plan.splits * n * z * y * x * cout * (long long)sizeof(float);
 }
 
+int h_stats_rows(const HPlan& plan, int n, long long s, int cout) {
+  return plan.splits > 1 ? splitk_stats_rows(n, s, cout)
+                         : plan.tiles_z * plan.tiles_y * plan.tiles_x;
+}
+
 cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int cb, const void* w,
-                  const void* bias, void* out, void* ws, long long ws_bytes, int n, int z, int y,
-                  int x, int cout, int coutp, int mode, cudaStream_t stream) {
+                  const void* bias, void* out, void* ws, long long ws_bytes, float* part, int n,
+                  int z, int y, int x, int cout, int coutp, int mode, cudaStream_t stream) {
   const long long need = h_workspace_bytes(plan, n, z, y, x, cout);
   if (need > 0 && (ws == nullptr || ws_bytes < need)) return cudaErrorInvalidValue;
-  if (mode < MODE_WHOLE || mode > MODE_PRODUCTS) return cudaErrorInvalidValue;
+  if (mode < MODE_WHOLE || mode > MODE_PRODUCTS || (part != nullptr && cb == 0))
+    return cudaErrorInvalidValue;
   CUtensorMap ma, mb, mw;
   if (!activation_map(&ma, a, n, z, y, x, ca) ||
       (cb > 0 && !activation_map(&mb, b, n, z, y, x, cb)) ||
@@ -609,6 +670,7 @@ cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int c
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws = static_cast<float*>(ws);
+  p.part = part;
   p.z = z;
   p.y = y;
   p.x = x;
@@ -620,17 +682,23 @@ cudaError_t h_run(const HPlan& plan, const void* a, const void* b, int ca, int c
   p.per_split = plan.per_split;
   p.kchunks = plan.kchunks;
   p.mode = mode;
+  // the stats epilogue with one split; a split's stats are the reduce's
+  const bool stats = part != nullptr && plan.splits == 1;
   cudaError_t err;
   if (plan.bn == 128) {
-    err = cb > 0 ? h_launch<128, 2>(plan, ma, mb, mw, p, stream)
-                 : h_launch<128, 1>(plan, ma, mb, mw, p, stream);
+    err = stats    ? h_launch<128, 2, true>(plan, ma, mb, mw, p, stream)
+          : cb > 0 ? h_launch<128, 2>(plan, ma, mb, mw, p, stream)
+                   : h_launch<128, 1>(plan, ma, mb, mw, p, stream);
   } else {
-    err = cb > 0 ? h_launch<64, 2>(plan, ma, mb, mw, p, stream)
-                 : h_launch<64, 1>(plan, ma, mb, mw, p, stream);
+    err = stats    ? h_launch<64, 2, true>(plan, ma, mb, mw, p, stream)
+          : cb > 0 ? h_launch<64, 2>(plan, ma, mb, mw, p, stream)
+                   : h_launch<64, 1>(plan, ma, mb, mw, p, stream);
   }
   if (err != cudaSuccess || plan.splits == 1) return err;
-  return splitk_reduce(p.ws, p.bias, p.out, (long long)n * z * y * x * cout, cout, plan.splits,
-                       stream);
+  const long long s = (long long)z * y * x;
+  if (part != nullptr)
+    return splitk_reduce_stats(p.ws, p.bias, p.out, part, n, s, cout, plan.splits, stream);
+  return splitk_reduce(p.ws, p.bias, p.out, n * s * cout, cout, plan.splits, stream);
 }
 
 }  // namespace mt
@@ -648,8 +716,8 @@ int mt_conv3d_wgmma(const void* a, const void* b, const void* w, const void* bia
   if ((b == nullptr) != (cb == 0) ||
       !mt::h_plan(n, z, y, xd, ca, cb, cout, coutp, mt::sm_count(), &plan))
     return (int)cudaErrorInvalidValue;
-  return (int)mt::h_run(plan, a, b, ca, cb, w, bias, out, ws, ws_bytes, n, z, y, xd, cout,
-                        coutp, mode, static_cast<cudaStream_t>(stream));
+  return (int)mt::h_run(plan, a, b, ca, cb, w, bias, out, ws, ws_bytes, nullptr, n, z, y, xd,
+                        cout, coutp, mode, static_cast<cudaStream_t>(stream));
 }
 
 // One wgmma (m64 x n x k16, n = 64 or 128) of the body's staging: x (1, Z,

@@ -371,99 +371,352 @@ cudaError_t launch(const HeadParams& p, const HeadPlan& plan, cudaStream_t strea
 // apart as the plain version rounds it, the activation on the fp32 value,
 // the bias added last, one cast to the output type.
 //
-// A simple kernel first: a block takes F32_TV voxels of one sample, stages
-// their contiguous run of F32_TV * C fp32 (coalesced; the prologue applied
-// as it is stored) in rows of C + 1 floats, and the head's weight
-// transposed to (C, KP) beside it. A thread owns one voxel and F32_KG
-// consecutive outputs of a group of them: per channel one shared load of
-// the voxel and two float4s of weights (the same for the warp), 8 FMAs. Its
-// stores are coalesced along the voxels of each output's row of the NCDHW
-// logits. What bounds it at the Liver's head (32 -> 3 channels): the bytes
-// (128 read, 12 written a voxel, ~0.6 FLOP a byte); at the flagship's
-// (30 -> 47 at fp32, 120 read and 188 written a voxel) the bytes too.
+// What bounds it: the bytes. At the Liver's head (32 -> 3 channels, 128^3,
+// N=2) it reads 128 and writes 12 bytes a voxel, 0.175 ms at 3.35 TB/s, with
+// ~0.4 FLOP a byte; at the flagship's in fp32 (30 -> 47 at 96x192x192) 120
+// read and 188 written, 0.326 ms, and its 10 GFLOP take 0.15 ms at 67
+// TFLOP/s, so the FFMAs must stay dense too. The design carries the bf16
+// body's to fp32 and FFMA:
+//   - persistent blocks of up to 16 warps, one wave; after one block
+//     barrier (the block stages the weight, transposed from
+//     prepare_head_weight's padded (KP, CP) rows into (C, KS) rows by warps
+//     over outputs and lanes over channels, no division, and the bias) warps
+//     work alone: a warp walks tiles of F32_TV = 32 voxels of one sample,
+//     tile t of its walk at warp gw + t * (all warps), and stages its
+//     sample's scale and shift once a sample;
+//   - a per-warp cp.async ring of 3 stages (2 where 3 leave fewer than 8
+//     warps): a stage is one tile's contiguous run of 32 * C floats, copied
+//     into rows of CS floats (16-byte copies of 4 channels where C % 4 == 0
+//     and x is 16-byte aligned, so that every run starts aligned; else
+//     4-byte copies of single floats; a lane steps through the run by
+//     constant strides, no division), the next tiles in flight while this
+//     one computes;
+//   - the products by output groups of KG (K rounded up to 4, 8, 16 or 48,
+//     a template argument, so that at K = 3 no padded output past the
+//     fourth is computed and at K = 47 one group of 48 takes every output),
+//     the channels in order for every output (the sum order of the older
+//     body: bit-equal to it). Groups of 4 and 8: a lane owns one voxel of
+//     the tile and every output of the group: per 4 channels one 16-byte
+//     read of its row (CS / 4 odd: the 8 lanes of a phase meet 8 distinct
+//     16-byte bank groups; C % 4 != 0: single reads of odd rows), the
+//     prologue applied to the values in registers as they are read, then
+//     per channel float4 broadcasts of the weight's row and KG FFMAs;
+//   - groups of 16 and 48 (a lane's weight reads would otherwise take one
+//     shared load for every 4 FFMAs: measured, the products then did not
+//     hide behind the copies): the warp applies the prologue to the staged
+//     tile in place first (each value once), then lanes form 8 voxel groups
+//     (voxels g, g + 8, g + 16, g + 24: the rows' odd stride keeps the reads
+//     conflict-free) by 4 output groups (KG / 4 outputs each), a register
+//     tile of 4 voxels x KG / 4 outputs: per channel 4 reads of the
+//     voxels' values (broadcast to the 4 output groups) and KG / 16 float4
+//     reads of the weight's row for KG FFMAs;
+//   - the epilogue adds the bias, casts once and writes each output's
+//     voxels as coalesced warp stores (a 128-byte fp32 row of 32 voxels; in
+//     the wide groups 32-byte runs of 8 voxels) of its NCDHW row.
 // ---------------------------------------------------------------------------
 
-constexpr int F32_TV = 128;      // voxels a block
-constexpr int F32_THREADS = 256;  // 2 threads a voxel
-constexpr int F32_KG = 8;         // outputs a thread step
+constexpr int F32_TV = 32;  // voxels a warp tile: a lane each
 
-__host__ __device__ constexpr int f32_kp(int k) { return (k + 15) / 16 * 16; }
+struct F32Params {
+  const float* x;
+  const float* scale;  // null: no prologue
+  const float* shift;
+  const float* w;  // (kp, cp)
+  const float* bias;
+  void* out;
+  long long s;
+  unsigned tiles_per_sample, tiles;  // tiles < 2^31
+  int c, cs, cp, k, ks, stages;
+  float slope;
+};
 
-long long f32_smem(int c, int k) {
-  return 4LL * ((long long)F32_TV * (c + 1) + (long long)c * f32_kp(k) + f32_kp(k));
+// floats a staged voxel row: with C % 4 == 0 a multiple of 4 whose 16-byte
+// units are odd in number, else odd
+__host__ __device__ constexpr int f32_row(int c) {
+  return c % 4 == 0 ? (c / 4 % 2 == 1 ? c : c + 4) : (c % 2 == 1 ? c : c + 1);
+}
+__host__ __device__ constexpr int f32_group(int k) {
+  return k <= 4 ? 4 : (k <= 8 ? 8 : (k <= 16 ? 16 : 48));
 }
 
 __device__ __forceinline__ void put_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename OutT, bool AFFINE>
-__global__ void __launch_bounds__(F32_THREADS)
-    seghead_fp32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                        const float* __restrict__ shift, const float* __restrict__ w,
-                        const float* __restrict__ bias, OutT* __restrict__ out, long long s,
-                        long long tiles_per_sample, int c, int cp, int k, float slope) {
-  extern __shared__ float sm[];
-  const int kp = f32_kp(k);
-  float* ys = sm;                          // [F32_TV][c + 1]
-  float* wt = ys + F32_TV * (c + 1);       // [c][kp], zero past k
-  float* bs = wt + c * kp;                 // [kp]
-  const int t = threadIdx.x;
-  const int n = (int)(blockIdx.x / tiles_per_sample);
-  const long long v0 = (blockIdx.x - (long long)n * tiles_per_sample) * F32_TV;
-  const int nv = (int)min((long long)F32_TV, s - v0);
-  for (int i = t; i < c * kp; i += F32_THREADS) {
-    const int ch = i / kp, kk = i - ch * kp;
-    wt[i] = kk < k ? w[(int64_t)kk * cp + ch] : 0.f;
+// lrelu(x * s + t) in fp32, the product and the sum rounded apart
+__device__ __forceinline__ float affine_lrelu1(float x, float s, float t, float slope) {
+  const float f = __fadd_rn(__fmul_rn(x, s), t);
+  return f >= 0.f ? f : f * slope;
+}
+
+// acc[e] += y * wrow[e], e < KG, by float4 broadcasts of the weight's row
+template <int KG>
+__device__ __forceinline__ void fma_row(float (&acc)[KG], float y, const float* wrow) {
+#pragma unroll
+  for (int q = 0; q < KG / 4; ++q) {
+    const float4 w4 = *reinterpret_cast<const float4*>(wrow + 4 * q);
+    acc[4 * q] = fmaf(y, w4.x, acc[4 * q]);
+    acc[4 * q + 1] = fmaf(y, w4.y, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(y, w4.z, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(y, w4.w, acc[4 * q + 3]);
   }
-  for (int i = t; i < kp; i += F32_THREADS) bs[i] = (bias != nullptr && i < k) ? bias[i] : 0.f;
-  const float* src = x + ((int64_t)n * s + v0) * c;
-  for (int i = t; i < nv * c; i += F32_THREADS) {
-    const int v = i / c, ch = i - v * c;
-    float f = src[i];
-    if constexpr (AFFINE) {
-      f = __fadd_rn(__fmul_rn(f, scale[n * c + ch]), shift[n * c + ch]);
-      f = f >= 0.f ? f : f * slope;
-    }
-    ys[v * (c + 1) + ch] = f;
-  }
-  __syncthreads();
-  const int v = t % F32_TV, j = t / F32_TV;
-  if (v >= nv) return;
-  const float* yrow = ys + v * (c + 1);
-  for (int kb = j * F32_KG; kb < k; kb += 2 * F32_KG) {
-    float acc[F32_KG];
+}
+
+// acc[i][e] += y[i] * wrow[e], i < 4, e < KO, by float4 broadcasts of the
+// weight's row: the wide groups' register tile
+template <int KO>
+__device__ __forceinline__ void fma_tile(float (&acc)[4][KO], const float (&y)[4],
+                                         const float* wrow) {
 #pragma unroll
-    for (int e = 0; e < F32_KG; ++e) acc[e] = 0.f;
-#pragma unroll 4
-    for (int ch = 0; ch < c; ++ch) {
-      const float y = yrow[ch];
-      const float4 w0 = *reinterpret_cast<const float4*>(wt + ch * kp + kb);
-      const float4 w1 = *reinterpret_cast<const float4*>(wt + ch * kp + kb + 4);
-      const float wv[F32_KG] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  for (int q = 0; q < KO / 4; ++q) {
+    const float4 w4 = *reinterpret_cast<const float4*>(wrow + 4 * q);
 #pragma unroll
-      for (int e = 0; e < F32_KG; ++e) acc[e] = fmaf(y, wv[e], acc[e]);
-    }
-#pragma unroll
-    for (int e = 0; e < F32_KG; ++e) {
-      const int kk = kb + e;
-      if (kk < k) put_out(out + ((int64_t)n * k + kk) * s + v0 + v, acc[e] + bs[kk]);
+    for (int i = 0; i < 4; ++i) {
+      acc[i][4 * q] = fmaf(y[i], w4.x, acc[i][4 * q]);
+      acc[i][4 * q + 1] = fmaf(y[i], w4.y, acc[i][4 * q + 1]);
+      acc[i][4 * q + 2] = fmaf(y[i], w4.z, acc[i][4 * q + 2]);
+      acc[i][4 * q + 3] = fmaf(y[i], w4.w, acc[i][4 * q + 3]);
     }
   }
 }
 
-template <typename OutT, bool AFFINE>
-cudaError_t launch_fp32(const float* x, const float* scale, const float* shift, const float* w,
-                        const float* bias, void* out, int n, long long s, int c, int cp, int k,
-                        float slope, cudaStream_t stream) {
-  auto fn = seghead_fp32_kernel<OutT, AFFINE>;
-  const long long smem = f32_smem(c, k);
+// VEC: rows of C % 4 == 0 floats, staged by 16-byte copies and read as
+// float4s; else single floats. KG > 8: the wide groups' register tiles.
+template <typename OutT, int KG, bool VEC>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1) seghead_fp32_kernel(F32Params p) {
+  extern __shared__ __align__(16) float fsm[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = p.c, cs = p.cs, ks = p.ks, ca = (c + 3) & ~3;
+  const int stage_floats = F32_TV * cs;
+  float* wt = fsm;         // (c, ks), zero past k
+  float* bs = wt + c * ks;  // (ks,)
+  float* ss = bs + ks + warp * (2 * ca + p.stages * stage_floats);  // this warp's scale
+  float* st = ss + ca;                                               // and shift
+  float* ring = st + ca;
+  for (int kk = warp; kk < ks; kk += warps)
+    for (int ch = lane; ch < c; ch += 32)
+      wt[ch * ks + kk] = kk < p.k ? p.w[(int64_t)kk * p.cp + ch] : 0.f;
+  for (int i = threadIdx.x; i < ks; i += blockDim.x)
+    bs[i] = (p.bias != nullptr && i < p.k) ? p.bias[i] : 0.f;
+  __syncthreads();
+
+  const unsigned gw = blockIdx.x * warps + warp, all = gridDim.x * warps;
+  // a lane's copies of a run: unit u of voxel v (a unit is 4 floats with
+  // VEC, else 1), stepping by 32 units
+  const int units = VEC ? c / 4 : c, dv = 32 / units, du = 32 % units;
+  constexpr bool WIDE = KG > 8;
+  constexpr int KO = KG / 4;  // WIDE: outputs a lane a group
+  auto prefetch = [&](unsigned tile, int slot) {
+    if (tile < p.tiles) {
+      const unsigned n = tile / p.tiles_per_sample;
+      const long long v0 = (long long)(tile - n * p.tiles_per_sample) * F32_TV;
+      const int nv = (int)min((long long)F32_TV, p.s - v0);
+      const float* src = p.x + ((long long)n * p.s + v0) * c;
+      float* dst = ring + slot * stage_floats;
+      int v = lane / units, u = lane - v * units;
+      for (int i = lane; i < nv * units; i += 32) {
+        if constexpr (VEC) {
+          cp_async16(dst + v * cs + 4 * u, src + 4 * i, true);
+        } else {
+          cp_async4(dst + v * cs + u, src + i, true);
+        }
+        v += dv;
+        u += du;
+        if (u >= units) {
+          u -= units;
+          ++v;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int q = 0; q < p.stages - 1; ++q) prefetch(gw + q * all, q);
+
+  const bool affine = p.scale != nullptr;
+  unsigned sample = 0xffffffffu;
+  int slot = 0;
+  for (unsigned tile = gw; tile < p.tiles; tile += all) {
+    prefetch(tile + (p.stages - 1) * all, (slot + p.stages - 1) % p.stages);
+    if (p.stages == 3) {
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    const unsigned n = tile / p.tiles_per_sample;
+    const long long v0 = (long long)(tile - n * p.tiles_per_sample) * F32_TV;
+    const int nv = (int)min((long long)F32_TV, p.s - v0);
+    if (affine && n != sample) {  // the warp's sample changes: its scale and shift
+      sample = n;
+      for (int ch = lane; ch < c; ch += 32) {
+        ss[ch] = p.scale[(int64_t)n * c + ch];
+        st[ch] = p.shift[(int64_t)n * c + ch];
+      }
+    }
+    __syncwarp();
+    float* stage = ring + slot * stage_floats;
+    if constexpr (WIDE) {  // the prologue in place, each value once
+      if (affine) {
+        int v = lane / c, ch = lane - v * c;
+        const int ev = 32 / c, ec = 32 % c;
+        for (int i = lane; i < nv * c; i += 32) {
+          float* e = stage + v * cs + ch;
+          *e = affine_lrelu1(*e, ss[ch], st[ch], p.slope);
+          v += ev;
+          ch += ec;
+          if (ch >= c) {
+            ch -= c;
+            ++v;
+          }
+        }
+        __syncwarp();
+      }
+    }
+    for (int g0 = 0; g0 < ks; g0 += KG) {  // output groups
+      if constexpr (WIDE) {
+        const int g = lane % 8, o = lane / 8;  // voxels g + 8 i, outputs o * KO + e
+        const float* rows = stage + g * cs;
+        const float* wg = wt + g0 + o * KO;
+        float acc[4][KO];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < KO; ++e) acc[i][e] = 0.f;
+        if constexpr (VEC) {
+#pragma unroll 1
+          for (int c4 = 0; c4 < c; c4 += 4) {
+            float y[4][4];  // [channel][voxel]
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 x4 = *reinterpret_cast<const float4*>(rows + 8 * i * cs + c4);
+              y[0][i] = x4.x;
+              y[1][i] = x4.y;
+              y[2][i] = x4.z;
+              y[3][i] = x4.w;
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) fma_tile<KO>(acc, y[e], wg + (c4 + e) * ks);
+          }
+        } else {
+#pragma unroll 2
+          for (int ch = 0; ch < c; ++ch) {
+            float y[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) y[i] = rows[8 * i * cs + ch];
+            fma_tile<KO>(acc, y, wg + ch * ks);
+          }
+        }
+        OutT* out = static_cast<OutT*>(p.out) + (int64_t)n * p.k * p.s + v0 + g;
+#pragma unroll
+        for (int e = 0; e < KO; ++e) {
+          const int kk = g0 + o * KO + e;
+          if (kk >= p.k) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (g + 8 * i < nv) put_out(out + (int64_t)kk * p.s + 8 * i, acc[i][e] + bs[kk]);
+        }
+        continue;
+      }
+      const float* row = stage + lane * cs;
+      OutT* out = static_cast<OutT*>(p.out) + (int64_t)n * p.k * p.s + v0 + lane;
+      float acc[KG];
+#pragma unroll
+      for (int e = 0; e < KG; ++e) acc[e] = 0.f;
+      if constexpr (VEC) {
+#pragma unroll 2
+        for (int c4 = 0; c4 < c; c4 += 4) {
+          const float4 x4 = *reinterpret_cast<const float4*>(row + c4);
+          float y[4] = {x4.x, x4.y, x4.z, x4.w};
+          if (affine) {
+            const float4 s4 = *reinterpret_cast<const float4*>(ss + c4);
+            const float4 t4 = *reinterpret_cast<const float4*>(st + c4);
+            y[0] = affine_lrelu1(y[0], s4.x, t4.x, p.slope);
+            y[1] = affine_lrelu1(y[1], s4.y, t4.y, p.slope);
+            y[2] = affine_lrelu1(y[2], s4.z, t4.z, p.slope);
+            y[3] = affine_lrelu1(y[3], s4.w, t4.w, p.slope);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fma_row<KG>(acc, y[e], wt + (c4 + e) * ks + g0);
+        }
+      } else {
+#pragma unroll 2
+        for (int ch = 0; ch < c; ++ch) {
+          float y = row[ch];
+          if (affine) y = affine_lrelu1(y, ss[ch], st[ch], p.slope);
+          fma_row<KG>(acc, y, wt + ch * ks + g0);
+        }
+      }
+      if (lane < nv) {
+#pragma unroll
+        for (int e = 0; e < KG; ++e) {
+          const int kk = g0 + e;
+          if (kk < p.k) put_out(out + (int64_t)kk * p.s, acc[e] + bs[kk]);
+        }
+      }
+    }
+    __syncwarp();  // the stage and the scale are read: the next copies may land
+    slot = slot + 1 == p.stages ? 0 : slot + 1;
+  }
+  cp_async_wait_all();
+}
+
+// The fp32 form's block: warps (1-16) and ring stages (3, else 2) whose
+// shared memory fits; false where none does.
+struct F32Plan {
+  int kg, ks, cs, warps, stages;
+  size_t smem;
+};
+
+bool f32_plan(int c, int k, F32Plan* plan) {
+  if (c <= 0 || k <= 0) return false;
+  plan->kg = f32_group(k);
+  plan->ks = cdiv(k, plan->kg) * plan->kg;
+  plan->cs = f32_row(c);
+  const size_t ca = (size_t)(c + 3) & ~(size_t)3;
+  const size_t fixed = 4 * ((size_t)c * plan->ks + plan->ks);
+  for (int stages = 3; stages >= 2; --stages) {
+    const size_t per_warp = 4 * (2 * ca + (size_t)stages * F32_TV * plan->cs);
+    if (fixed + per_warp > SMEM_MAX) continue;
+    const size_t warps = (SMEM_MAX - fixed) / per_warp;
+    if (stages == 3 && warps < 8) continue;
+    plan->warps = warps > MAX_WARPS ? MAX_WARPS : (int)warps;
+    plan->stages = stages;
+    plan->smem = fixed + per_warp * plan->warps;
+    return true;
+  }
+  return false;
+}
+
+template <typename OutT, int KG, bool VEC>
+cudaError_t launch_fp32_kg(const F32Params& p, const F32Plan& plan, cudaStream_t stream) {
+  auto fn = seghead_fp32_kernel<OutT, KG, VEC>;
   cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return err;
-  const long long tiles = (s + F32_TV - 1) / F32_TV;
-  fn<<<(unsigned)(tiles * n), F32_THREADS, smem, stream>>>(
-      x, scale, shift, w, bias, static_cast<OutT*>(out), s, tiles, c, cp, k, slope);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, plan.warps * 32, plan.smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  long long blocks = (p.tiles + plan.warps - 1) / plan.warps;
+  const long long cap = (long long)per_sm * sm_count();
+  blocks = blocks > cap ? cap : blocks;
+  fn<<<(unsigned)blocks, plan.warps * 32, plan.smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename OutT, bool VEC>
+cudaError_t launch_fp32_vec(const F32Params& p, const F32Plan& plan, cudaStream_t stream) {
+  switch (plan.kg) {
+    case 4: return launch_fp32_kg<OutT, 4, VEC>(p, plan, stream);
+    case 8: return launch_fp32_kg<OutT, 8, VEC>(p, plan, stream);
+    case 16: return launch_fp32_kg<OutT, 16, VEC>(p, plan, stream);
+    default: return launch_fp32_kg<OutT, 48, VEC>(p, plan, stream);
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_fp32(const F32Params& p, const F32Plan& plan, cudaStream_t stream) {
+  const bool vec = p.c % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
+  return vec ? launch_fp32_vec<OutT, true>(p, plan, stream)
+             : launch_fp32_vec<OutT, false>(p, plan, stream);
 }
 
 }  // namespace
@@ -532,27 +785,32 @@ int mt_seghead(const void* x, const void* scale, const void* shift, const void* 
 int mt_seghead_fp32(const void* x, const void* scale, const void* shift, const void* w,
                     const void* bias, void* out, int out_bf16, int n, long long s, int c, int k,
                     int kp, int cp, float slope, void* stream) {
+  F32Plan plan;
   if (x == nullptr || w == nullptr || out == nullptr || n <= 0 || s <= 0 || c <= 0 ||
-      k <= 0 || kp != f32_kp(k) || cp < c || (scale == nullptr) != (shift == nullptr) ||
-      reinterpret_cast<uintptr_t>(x) % 4 != 0 || f32_smem(c, k) > SMEM_MAX ||
-      (s + F32_TV - 1) / F32_TV * n >= (1LL << 31))
+      k <= 0 || kp != cdiv(k, 16) * 16 || cp < c || (scale == nullptr) != (shift == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 4 != 0 || !f32_plan(c, k, &plan))
     return (int)cudaErrorInvalidValue;
-  const auto* xi = static_cast<const float*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  const auto* wi = static_cast<const float*>(w);
-  const auto* bi = static_cast<const float*>(bias);
+  const long long tiles_per_sample = (s + F32_TV - 1) / F32_TV;
+  if (tiles_per_sample * n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  F32Params p;
+  p.x = static_cast<const float*>(x);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.s = s;
+  p.tiles_per_sample = (unsigned)tiles_per_sample;
+  p.tiles = (unsigned)(tiles_per_sample * n);
+  p.c = c;
+  p.cs = plan.cs;
+  p.cp = cp;
+  p.k = k;
+  p.ks = plan.ks;
+  p.stages = plan.stages;
+  p.slope = slope;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool affine = scale != nullptr;
-  cudaError_t err;
-  if (out_bf16) {
-    err = affine ? launch_fp32<__nv_bfloat16, true>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st)
-                 : launch_fp32<__nv_bfloat16, false>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st);
-  } else {
-    err = affine ? launch_fp32<float, true>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st)
-                 : launch_fp32<float, false>(xi, sc, sh, wi, bi, out, n, s, c, cp, k, slope, st);
-  }
-  return (int)err;
+  return (int)(out_bf16 ? launch_fp32<__nv_bfloat16>(p, plan, st) : launch_fp32<float>(p, plan, st));
 }
 
 }  // extern "C"

@@ -36,8 +36,8 @@ the ring body of `csrc/conv3d_fp32.cu` (conv_fp32_ring_kernel, planned by
 that file's wgrad ring body (wgrad_fp32_ring_kernel, planned by
 `conv3d_same_wgrad_fp32_plan`).
 
-Kernels A, B and D live in `csrc/conv3d_same.cu` (A and B at 16-byte rows
-on the wgmma body of `csrc/conv3d_wgmma.cu`), kernel C in
+Kernels A, B and D live in `csrc/conv3d_same.cu` (A, B and D's dual form at
+16-byte rows on the wgmma body of `csrc/conv3d_wgmma.cu`), kernel C in
 `csrc/conv3d_wgrad.cu`, the fp32 forms in `csrc/conv3d_fp32.cu`. Tensors are channels-last (N, Z, Y, X, C), the layout
 of the JAX package and the physical layout of a `torch.channels_last_3d`
 NCDHW tensor. Weights are prepared with `prepare_conv3d_weight`.
@@ -52,9 +52,10 @@ plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
 `conv3d_same_wgrad_ref`, `conv3d_same_wgrad_dual_ref`,
 `conv3d_same_affine_ref`, `conv3d_same_dual_stats_ref`) only for tensors that
 lie on the CPU (the fp32 forms the same plain versions, in fp32). Each keeps
-a count of kernel launches in its `launches` attribute; kernels A and B also
-count them by the body that ran each (`launches_by_body`: "ring" or
-"wgmma"; "older", conv3d_same_kernel, stays 0 for them).
+a count of kernel launches in its `launches` attribute; kernels A, B and D
+(both D forms on `conv3d_same_affine`) also count them by the body that ran
+each (`launches_by_body`: "ring" or "wgmma"; "older", conv3d_same_kernel,
+stays 0 for them: it runs the probes' packed conv alone).
 """
 from __future__ import annotations
 
@@ -262,8 +263,9 @@ def _buffer(given: torch.Tensor | None, name: str, shape: tuple, dtype: torch.dt
     return given
 
 
-# the bodies kernels A and B run on, by the code mt_conv3d_launch_plan gives
-# (conv3d_same_kernel, "older", is D's dual form's and the packed conv's only)
+# the bodies kernels A, B and D run on, by the code mt_conv3d_launch_plan and
+# mt_conv3d_stats_launch_plan give (conv3d_same_kernel, "older", is the
+# packed conv's only)
 BODIES = ("older", "ring", "wgmma")
 
 
@@ -302,7 +304,7 @@ def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
 
 
 def _count(wrapper, body: str | None) -> None:
-    """One launch of `wrapper` (kernel A or B, or C's or D's fp32 form) on
+    """One launch of `wrapper` (kernel A, B or D, or C's or D's fp32 form) on
     `body`."""
     wrapper.launches += 1
     if body is not None:
@@ -350,9 +352,9 @@ def conv3d_same_plan(n: int, z: int, y: int, x: int, cin, cout: int, form: str =
     resident or streamed, its two 8-warp groups splitting the K chunks
     (ksplit) or the columns, ring stages, K splits (1: bf16 written
     directly), blocks along the tiles, blocks an SM and shared memory a
-    block. Then whether it runs the wgmma body (wgmma 1: A and B where ring
-    is 0; D's dual form there runs the older body) with its BN, K splits,
-    blocks and shared memory a block. Builds the kernel library."""
+    block. Then whether it runs the wgmma body (wgmma 1: A, B and D's dual
+    form where ring is 0) with its BN, K splits, blocks and shared memory a
+    block. Builds the kernel library."""
     import ctypes
 
     from multitalent_tpu_torch import _build
@@ -816,10 +818,14 @@ def conv3d_same_wgrad_dual_fp32(a: torch.Tensor, b: torch.Tensor, g: torch.Tenso
 def _launch_stats(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
                   bias: torch.Tensor | None, affine: tuple = (),
                   out: torch.Tensor | None = None, stats: torch.Tensor | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  ) -> tuple[torch.Tensor, torch.Tensor, str | None]:
     """Run kernel D's C entry `name` into `out` and `stats` (or new ones):
     allocates the workspace (split-K partials, per-block stats partials) the
-    library reports. `affine` is (scale, shift, slope) for the prologue."""
+    library reports. `affine` is (scale, shift, slope) for the prologue.
+    Returns out, stats and the body the launch ran (None: an empty output,
+    nothing launched)."""
+    import ctypes
+
     from multitalent_tpu_torch import _build
     lib = _build.library()
     dev = inputs[0].device
@@ -828,10 +834,11 @@ def _launch_stats(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
     out = _buffer(out, "out", (n, z, y, xd, pw.cout), torch.bfloat16, dev)
     stats = _buffer(stats, "stats", (n, 2, pw.cout), torch.float32, dev)
     if out.numel() == 0:
-        return out, stats.zero_()
+        return out, stats.zero_(), None
+    body = ctypes.c_int(-1)
     with torch.cuda.device(dev):
-        nbytes = lib.mt_conv3d_stats_workspace(n, z, y, xd, cs[0], sum(cs[1:]), pw.cout,
-                                               pw.coutp, pw.bn)
+        nbytes = lib.mt_conv3d_stats_launch_plan(n, z, y, xd, cs[0], sum(cs[1:]), pw.cout,
+                                                 pw.coutp, pw.bn, ctypes.byref(body))
         if nbytes <= 0:
             raise ValueError(f"{name}: the kernel does not take these sizes")
         ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
@@ -851,7 +858,7 @@ def _launch_stats(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
                 stats.data_ptr(), ws.data_ptr(), nbytes, n, z, y, xd, *cs, pw.cout,
                 pw.coutp, pw.bn, stream)
     _build.check(lib, code, name)
-    return out, stats
+    return out, stats, BODIES[body.value]
 
 
 def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
@@ -882,13 +889,14 @@ def conv3d_same_affine(x: torch.Tensor, pw: PreparedWeight,
         return conv3d_same_affine_fp32(x, pw, bias, scale, shift, negative_slope, out, stats)
     _check_weight(pw, (int(x.shape[-1]),), x, bias)
     _check_affine(x, scale, shift)
-    result = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
-                           (scale, shift, negative_slope), out, stats)
-    conv3d_same_affine.launches += 1
-    return result
+    out, stats, body = _launch_stats("mt_conv3d_same_affine", [x], pw, bias,
+                                     (scale, shift, negative_slope), out, stats)
+    _count(conv3d_same_affine, body)
+    return out, stats
 
 
 conv3d_same_affine.launches = 0
+conv3d_same_affine.launches_by_body = dict.fromkeys(BODIES, 0)
 
 
 def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
@@ -899,8 +907,10 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
     """Kernel D, dual form: kernel B's conv over concat(a, b) and the stats of
     its bf16 output, (out, stats (N, 2, Cout) fp32), written into the
     caller's `out` and `stats` where given. Its launches count on
-    `conv3d_same_affine.launches`, as one kernel. fp32 inputs go to the fp32
-    form (conv3d_same_dual_stats_fp32).
+    `conv3d_same_affine.launches` (and its `launches_by_body`), as one
+    kernel. At 16-byte rows with streamed weights it runs kernel B's wgmma
+    body with B's plan, so `out` is conv3d_same_dual's bit for bit. fp32
+    inputs go to the fp32 form (conv3d_same_dual_stats_fp32).
 
     CUDA tensors launch the kernel; CPU tensors take
     conv3d_same_dual_stats_ref."""
@@ -917,9 +927,10 @@ def conv3d_same_dual_stats(a: torch.Tensor, b: torch.Tensor, pw: PreparedWeight,
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ "
                          "outside the channel axis")
     _check_weight(pw, (int(a.shape[-1]), int(b.shape[-1])), a, bias)
-    result = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias, (), out, stats)
-    conv3d_same_affine.launches += 1
-    return result
+    out, stats, body = _launch_stats("mt_conv3d_same_dual_stats", [a, b], pw, bias, (), out,
+                                     stats)
+    _count(conv3d_same_affine, body)
+    return out, stats
 
 
 def _check_affine(x: torch.Tensor, scale: torch.Tensor | None,

@@ -4,14 +4,15 @@ plan chooses between, timed side by side on the H100.
 
 Builds forms of `csrc/conv3d_same.cu` of this package (or of another
 checkout's, `--tree`): the source as it is, and `ring_everywhere`, where
-every shape runs the ring body (as it is, A and B at 16-byte rows with
-streamed weights and a whole K loop a block run the wgmma body of
-conv3d_wgmma.cu, and D's dual form there the older body of two blocks an
-SM).
+every shape runs the ring body (as it is, A, B and D's dual form at
+16-byte rows with streamed weights and a whole K loop a block run the
+wgmma body of conv3d_wgmma.cu).
 `--against DIR` adds another checkout's source as it is (e.g. the parent
-commit's). D's dual form is also timed as B's launch followed by kernel E's
-stats pass on its output (the two-launch way to the same out and stats);
-`--only d_dual` times D's dual form alone. Each form is the source patched as text and built by nvcc, with
+commit's). D's dual form is also timed beside B's launch alone and B's
+launch followed by kernel E's stats pass on its output (the two-launch way
+to the same out and stats), its output bit-equal to B's where both run the
+same body; `--only d_dual` times D's dual form alone. Each form is the
+source patched as text and built by nvcc, with
 fused_norm.cu (and conv3d_wgmma.cu where the checkout has it), into a
 library of its own under `_build/conv_a_forms/`; every
 form is checked against the plain version (D's stats too), then timed at
@@ -311,18 +312,21 @@ def _time_bd(libs: dict, device: torch.device, gen: torch.Generator, only=None) 
                  for name, lib in libs.items()}
         if kernel == "d_dual":
             # the same out and stats by two launches: B (at 16-byte rows the
-            # wgmma body) and kernel E's stats pass on its output
-            calls["b_then_stats"] = _b_then_stats(
-                _bd_launcher(libs["whole"], "b", ins, pw, bias, None, out, stats), out, stats)
+            # wgmma body) and kernel E's stats pass on its output; and B alone
+            b_call = _bd_launcher(libs["whole"], "b", ins, pw, bias, None, out, stats)
+            calls["b_then_stats"] = _b_then_stats(b_call, out, stats)
+            calls["b_alone"] = b_call
         what = f"{kernel} {'+'.join(map(str, cs))}->{cout} at {'x'.join(map(str, sp))} N={n}"
         row = {"kernel": kernel, "n": n, "spatial": list(sp), "cin": list(cs), "cout": cout}
+        outs = {}
         for name, call in calls.items():
             out.fill_(float("nan"))
             stats.fill_(float("nan"))
             err = (call().float() - ref.float()).abs().max().item()
             if not err <= bound:
                 raise AssertionError(f"{what} ({name}): max|d| {err} > {bound}")
-            if kernel != "b":
+            outs[name] = out.clone()
+            if kernel != "b" and name != "b_alone":
                 sref = channel_stats_ref(out.float())
                 serr = ((stats - sref).abs() / (channel_stats_ref(out.float().abs()) + 1e-6)
                         ).max().item()
@@ -332,10 +336,15 @@ def _time_bd(libs: dict, device: torch.device, gen: torch.Generator, only=None) 
         if kernel == "d_dual":
             row.update(d_dual_bound(cs, cout, sp, n))
             plan = cv.conv3d_same_plan(n, *sp, cs, cout, "d_dual")
-            row["body"] = "ring" if plan["ring"] else "older (conv3d_same_kernel)"
+            b_plan = cv.conv3d_same_plan(n, *sp, cs, cout, "b")
+            row["body"] = "ring" if plan["ring"] else "wgmma"
+            row["bit_equal_to_b"] = bool(torch.equal(outs["whole"], outs["b_alone"]))
+            if plan["wgmma"] == b_plan["wgmma"] and not row["bit_equal_to_b"]:
+                raise AssertionError(f"{what}: D's dual form differs from B on one body")
         print(f"{what}: {_times(row, calls)}"
               + (f"; bound {row['bound_ms']:.3f} ms ({row['bound_by']}); D's dual form on "
-                 f"the {row['body']} body" if "bound_ms" in row else ""))
+                 f"the {row['body']} body, bit-equal to B: {row['bit_equal_to_b']}"
+                 if "bound_ms" in row else ""))
         rows.append(row)
         del ins, ref, out, calls
         torch.cuda.empty_cache()
@@ -351,7 +360,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--out", help="write the times as JSON to this file")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--only", choices=("d_dual",),
-                        help="time D's dual form (beside B then E's stats) alone")
+                        help="time D's dual form (beside B, and B then E's stats) alone")
     args = parser.parse_args(argv)
     csrc = Path(args.tree) / "multitalent_tpu_torch" / "csrc"
     device = _util.resolve_device(args.device)

@@ -1,6 +1,7 @@
 """What paces the fp32 forms of kernels A, B, C and D (the ring bodies of
-csrc/conv3d_fp32.cu) on the H100, shape by shape, beside another
-checkout's build of the same call and cuDNN's fp32 convolution.
+csrc/conv3d_fp32.cu) and F (csrc/seghead.cu) on the H100, shape by shape,
+beside another checkout's build of the same call and cuDNN's fp32
+convolution (F: torch.matmul of its form without the prologue).
 
 At every fp32 A/B call of one Task003 Liver fp32 training step at batch 2
 (STEP_SHAPES: each stage's forward conv, its dx, each decoder's B and its
@@ -29,7 +30,17 @@ conv, the dual form on each decoder's first), it reads, each on the card:
   the bytes at 3.35 TB/s, the larger;
 - ptxas's registers and spills of this checkout's conv kernels.
 
-    python -m multitalent_tpu_torch.probes.fp32_forms [--against DIR] [--only ab c d]
+F's fp32 form (HEAD_SHAPES: the Liver's head 32 -> 3 at 128^3 N=2 with and
+without the prologue, the flagship's 30 -> 47 at 96x192x192 N=1) is checked
+the same way (and against the other checkout's output bit for bit: the sum
+order is unchanged), then timed single and queued in turns with the other
+checkout's build, beside its forms (HEAD_FORMS: csrc/seghead.cu patched as
+text and built alone, as conv_a_forms builds its forms: without the
+products, the copies and the stores left; without the stores, the copies
+and the products left), torch.matmul of its form without the prologue and
+its bound (its bytes at 3.35 TB/s or its FLOPs at 67 TFLOP/s).
+
+    python -m multitalent_tpu_torch.probes.fp32_forms [--against DIR] [--only ab c d f]
         [--out JSON]
 
 `--device cpu` checks the plans and the plain versions at a small volume
@@ -80,6 +91,22 @@ D_STEP_SHAPES = ([(2, (s,) * 3, c, 0, c) for s, c in ((128, 32), (64, 64), (32, 
                                                      (16, 256), (8, 320), (4, 320))]
                  + [(2, (s,) * 3, c, c, c) for s, c in ((128, 32), (64, 64), (32, 128),
                                                        (16, 256), (8, 320))])
+# kernel F's fp32 form: (N, spatial, C, K, with the prologue)
+HEAD_SHAPES = [(2, (128, 128, 128), 32, 3, True), (2, (128, 128, 128), 32, 3, False),
+               (1, (96, 192, 192), 30, 47, True)]
+# F's forms: (old, new) text patches of csrc/seghead.cu, each replacing
+# every occurrence (the narrow and the wide output groups' loops). Without
+# the products, the channel loops run no channel (the copies, the prologue
+# pass of the wide groups and the stores of bias-only logits are left);
+# without the stores, a logit is stored only where it equals a value no
+# logit takes here, so the products stay
+HEAD_FORMS = {
+    "no_products": (("for (int c4 = 0; c4 < c; c4 += 4) {", "for (int c4 = 0; c4 < 0; c4 += 4) {"),
+                    ("for (int ch = 0; ch < c; ++ch) {", "for (int ch = 0; ch < 0; ++ch) {")),
+    "no_stores": (("if (kk < p.k) put_out(", "if (kk < p.k && acc[e] == 1234.5678f) put_out("),
+                  ("if (g + 8 * i < nv) put_out(",
+                   "if (g + 8 * i < nv && acc[i][e] == 1234.5678f) put_out(")),
+}
 MODES = ("whole", "copies", "products")
 FP32_RTOL = 1e-4  # chip_smoke's 14a bound: fp32 sums of the same products in other orders
 PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -142,24 +169,25 @@ def parse_ptxas(log: str) -> list[str]:
 
 AGAINST_ENTRIES = ("mt_conv3d_same_fp32", "mt_conv3d_wgrad_fp32",
                    "mt_conv3d_wgrad_fp32_workspace", "mt_conv3d_same_affine_fp32",
-                   "mt_conv3d_stats_fp32_workspace")
+                   "mt_conv3d_stats_fp32_workspace", "mt_seghead_fp32")
+AGAINST_SOURCES = ("conv3d_fp32.cu", "fused_norm.cu", "seghead.cu")
 
 
 def build_against(tree: Path) -> tuple[ctypes.CDLL, dict]:
-    """The other checkout's conv3d_fp32.cu (with fused_norm.cu, whose
-    reduce_rows and stats pass it calls) built into a library of its own
-    under `_build/fp32_forms/`, loaded with that checkout's signatures of
-    the fp32 forms' C entries (those it has)."""
+    """The other checkout's conv3d_fp32.cu and seghead.cu (with
+    fused_norm.cu, whose reduce_rows and stats pass the former calls) built
+    into a library of its own under `_build/fp32_forms/`, loaded with that
+    checkout's signatures of the fp32 forms' C entries (those it has)."""
     csrc = tree / "multitalent_tpu_torch" / "csrc"
-    texts = [(csrc / f).read_text() for f in ("conv3d_fp32.cu", "fused_norm.cu", "common.cuh")]
+    texts = [(csrc / f).read_text() for f in (*AGAINST_SOURCES, "common.cuh")]
     key = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + "".join(texts)).encode()).hexdigest()[:16]
     out = _build.BUILD_DIR / "fp32_forms" / key
     lib = out / "libfp32_against.so"
     if not lib.is_file():
         out.mkdir(parents=True, exist_ok=True)
-        objs = [str(out / "conv3d_fp32.o"), str(out / "fused_norm.o")]
+        objs = [str(out / src.replace(".cu", ".o")) for src in AGAINST_SOURCES]
         procs = [_nvcc(["-I", str(csrc), "-c", "-o", obj, str(csrc / src)])
-                 for obj, src in zip(objs, ("conv3d_fp32.cu", "fused_norm.cu"))]
+                 for obj, src in zip(objs, AGAINST_SOURCES)]
         logs = [p.communicate()[0] for p in procs]
         if any(p.returncode for p in procs):
             raise RuntimeError(f"nvcc failed for {tree}:\n" + "\n".join(logs))
@@ -455,14 +483,139 @@ def measure_affine(device: torch.device, gen: torch.Generator, shapes,
     return rows
 
 
-GROUPS = ("ab", "c", "d")
+def head_bound(n: int, spatial, c: int, k: int, prologue: bool) -> dict:
+    """F's fp32 form's least time on an H100: its bytes (x read once, the
+    logits written once, the scale and shift) at 3.35 TB/s or its FLOPs (2
+    C K a voxel, the prologue's 4 C) at 67 TFLOP/s, the larger."""
+    vox = n * prod(spatial)
+    t_ops = (2 * c * k * vox + (4 * c * vox if prologue else 0)) / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (4 * vox * (c + k) + (8 * n * c if prologue else 0)) / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def build_head_forms() -> dict:
+    """HEAD_FORMS of this checkout's csrc/seghead.cu, each built alone (in
+    parallel) under `_build/fp32_forms/` and loaded."""
+    text = (_build.CSRC / "seghead.cu").read_text()
+    libs, procs = {}, []
+    for name, patches in HEAD_FORMS.items():
+        form = text
+        for old, new in patches:
+            if old not in form:
+                raise ValueError(f"form {name!r}: no `{old}` in seghead.cu")
+            form = form.replace(old, new)
+        key = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + form + (
+            _build.CSRC / "common.cuh").read_text()).encode()).hexdigest()[:16]
+        out = _build.BUILD_DIR / "fp32_forms" / f"{name}_{key}"
+        libs[name] = out / "libseghead_form.so"
+        if libs[name].is_file():
+            continue
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "seghead.cu").write_text(form)
+        procs.append((name, _nvcc(["-I", str(_build.CSRC), "-shared", "-o", str(libs[name]),
+                                   str(out / "seghead.cu")])))
+    for name, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for F's form {name}:\n{log}")
+    loaded = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(str(path))
+        lib.mt_seghead_fp32.argtypes, lib.mt_seghead_fp32.restype = (
+            _build._SIGNATURES["mt_seghead_fp32"])
+        loaded[name] = lib
+    return loaded
+
+
+def _against_head(lib: ctypes.CDLL, x, head, bias, aff, out):
+    """A call of the other checkout's F fp32 entry, or of one of this one's
+    forms (the same signature)."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    n, z, y, xd, c = (int(v) for v in x.shape)
+    k = int(head.shape[0])
+    w = sg.prepared_head_weight(head, x.device, torch.float32)
+    args = (x.data_ptr(), None if aff[0] is None else aff[0].data_ptr(),
+            None if aff[1] is None else aff[1].data_ptr(), w.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), 0, n, z * y * xd, c, k, int(w.shape[0]), int(w.shape[1]), 1e-2)
+    return _checked(lib, "mt_seghead_fp32", args, (w,), out)
+
+
+def measure_head(device: torch.device, gen: torch.Generator, shapes,
+                 against=None) -> list[dict]:
+    """Kernel F's fp32 form: each shape's check into a NaN-filled output and
+    a bit-equal repeat, the other checkout's output bit for bit, then the
+    body and the other checkout's single and queued in turns (against, this,
+    this, against: the lesser of each pair), its forms without the products
+    and without the stores (queued), torch.matmul of the form without the
+    prologue, the share of the bound."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rows = []
+    forms = {} if device.type == "cpu" else build_head_forms()
+    for n, sp, c, k, prologue in shapes:
+        x = torch.randn(n, *sp, c, generator=gen, device=device)
+        head = torch.randn(k, c, 1, 1, 1, generator=gen, device=device) * (1 / c) ** 0.5
+        bias = torch.randn(k, generator=gen, device=device) * 0.1
+        aff = ((torch.rand(n, c, generator=gen, device=device) + 0.5,
+                torch.randn(n, c, generator=gen, device=device)) if prologue else (None, None))
+        ref = sg.seghead_ref(x, head, bias, *aff, 1e-2, torch.float32)
+        out = torch.full((n, k, *sp), float("nan"), device=device)
+        name = f"{c}->{k} @{'x'.join(map(str, sp))} N={n}" + ("" if prologue else
+                                                              ", no prologue")
+
+        def whole():
+            return sg.seghead_fp32(x, head, bias, *aff, 1e-2, torch.float32, out=out)
+        row = {"kernel": "F", "at": name, "n": n, "spatial": list(sp), "c": c, "k": k,
+               "prologue": prologue, **head_bound(n, sp, c, k, prologue)}
+        row["rel_err"] = _held(f"F {name}", whole(), ref)
+        _repeat(row, f"F {name}", whole, [out])
+        if device.type == "cpu":
+            rows.append(row)
+            continue
+        mine = out.clone()
+        calls = {"whole": whole}
+        if against is not None:
+            calls = {"against": _against_head(against[0], x, head, bias, aff, out), **calls}
+            out.fill_(float("nan"))
+            row["against_rel_err"] = _held(f"F {name} (--against)", calls["against"](), ref)
+            row["bit_equal_to_against"] = bool(torch.equal(out, mine))
+            if not row["bit_equal_to_against"]:
+                raise AssertionError(f"F {name}: the output differs from --against's")
+        for order in (list(calls), list(calls)[::-1]):
+            for who in order:
+                for key, v in ((f"{who}_ms", _util.median_ms(calls[who])),
+                               (f"{who}_queued_ms", queued_ms(calls[who]))):
+                    row[key] = min(v, row.get(key, v))
+        for form, lib in forms.items():
+            row[f"{form}_queued_ms"] = queued_ms(_against_head(lib, x, head, bias, aff, out))
+        w2, xs = head.reshape(k, c), x.reshape(n, -1, c).transpose(1, 2)
+
+        def library():
+            return torch.matmul(w2, xs)
+        row["matmul_ms"], row["matmul_queued_ms"] = _util.median_ms(library), queued_ms(library)
+        row["share_of_bound"] = row["bound_ms"] / row["whole_queued_ms"]
+        print(f"F {name}: body {row['whole_ms']:.3f} ms, queued {row['whole_queued_ms']:.3f} "
+              f"({row['share_of_bound']:.0%} of the bound {row['bound_ms']:.3f} ms, "
+              f"{row['bound_by']})"
+              + (f"; --against {row['against_ms']:.3f}, queued {row['against_queued_ms']:.3f}, "
+                 "bit-equal" if against is not None else "")
+              + "".join(f"; {form} queued {row[f'{form}_queued_ms']:.3f}" for form in forms)
+              + f"; torch.matmul without the prologue {row['matmul_ms']:.3f}, queued "
+                f"{row['matmul_queued_ms']:.3f}", flush=True)
+        rows.append(row)
+        del x, ref, out, mine, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+GROUPS = ("ab", "c", "d", "f")
 
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", help="another checkout whose C entries to time in turns")
     parser.add_argument("--only", nargs="+", choices=GROUPS, default=list(GROUPS),
-                        help="the kernels to measure: A and B, C, D (default all)")
+                        help="the kernels to measure: A and B, C, D, F (default all)")
     parser.add_argument("--out", help="write the readings as JSON to this file")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
@@ -470,11 +623,14 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     groups = {"ab": (measure, STEP_SHAPES + FLAGSHIP_SHAPES),
               "c": (measure_wgrad, WGRAD_STEP_SHAPES + WGRAD_FLAGSHIP_SHAPES),
-              "d": (measure_affine, D_STEP_SHAPES)}
+              "d": (measure_affine, D_STEP_SHAPES), "f": (measure_head, HEAD_SHAPES)}
     if device.type == "cpu":
         rows = []
         for key in args.only:
             fn, shapes = groups[key]
+            if key == "f":
+                rows += fn(device, gen, [(1, CPU_SPATIAL, *s[2:]) for s in shapes])
+                continue
             rows += fn(device, gen, [(1, CPU_SPATIAL, ca, cb, co)
                                      for _, _, ca, cb, co in shapes[:1] + shapes[6:7]])
         print(f"plain run on the CPU at {CPU_SPATIAL}: " + "; ".join(

@@ -3,7 +3,7 @@ PyTorch/CUDA port, for one flagship training step and one inference forward,
 the same for the SwinUNETR, and one fp32 training step of the Task003 Liver
 network.
 
-    python3 profile_routes.py [--routes all|fp32] [--out PROFILE.json]
+    python3 profile_routes.py [--routes all|fp32|forward] [--out PROFILE.json]
 
 The flagship network of chip_smoke.py (full width, seeded random weights, bf16)
 runs on one CUDA card under torch.profiler: one forward + backward at batch 2
@@ -26,7 +26,10 @@ older checkout), cuDNN and PyTorch's kernels, once with cuDNN's convs in
 full fp32 (chip_smoke.py's 14b runs after 14a turned TF32 off) and once
 at PyTorch's default, TF32 on for cuDNN's convs; then the same step on
 the fused route (the forward through D, E and F, as MTTPU_FUSED_TRAIN=1
-trains), TF32 off (`--routes fp32` profiles these steps only). --out writes the same as JSON. It takes the package and
+trains), TF32 off (`--routes fp32` profiles these steps only;
+`--routes forward` the flagship's tile forward on both routes only, with
+every launch of the hand-written kernels listed by name, for comparing two
+checkouts in turns). --out writes the same as JSON. It takes the package and
 chip_smoke from its own directory, so a copy of it in another checkout
 profiles that checkout.
 """
@@ -61,10 +64,13 @@ def _fp32_ring(name: str, form: str) -> bool:
 
 
 def _is_kernel_d(name: str) -> bool:
-    """Kernel D on either body: conv3d_same_kernel<NIN, BN, STATS, PACKED>
-    with the stats set (D's dual form), or conv3d_a_kernel<BN, G, RESIDENT,
-    KSPLIT, NIN, AFFINE, STATS> with the prologue or the stats set."""
-    for body, flags in (("conv3d_same_kernel<", slice(2, 3)), ("conv3d_a_kernel<", slice(5, 7))):
+    """Kernel D on any body: conv3d_h_kernel<BN, NIN, STATS> (the wgmma body)
+    with the stats set (D's dual form), an older checkout's
+    conv3d_same_kernel<NIN, BN, STATS, PACKED> with the stats set, or
+    conv3d_a_kernel<BN, G, RESIDENT, KSPLIT, NIN, AFFINE, STATS> with the
+    prologue or the stats set."""
+    for body, flags in (("conv3d_h_kernel<", slice(2, 3)), ("conv3d_same_kernel<", slice(2, 3)),
+                        ("conv3d_a_kernel<", slice(5, 7))):
         if body in name:
             args = name.split(body, 1)[1].split(">", 1)[0].split(",")
             return any(a.strip() == "true" for a in args[flags])
@@ -88,10 +94,13 @@ FAMILIES = [
     ("C fp32 (staged wgrad)", lambda n: "wgrad_fp32_kernel" in n
      or "wgrad_fp32_reduce_kernel" in n),
     ("kernel D (conv3d_same_affine)", _is_kernel_d),
-    # the ring body (conv3d_a_kernel) and the older body: A and B
-    ("kernels A/B", lambda n: "conv3d_same_kernel" in n or "conv3d_a_kernel" in n),
+    # the ring body (conv3d_a_kernel), the wgmma body (conv3d_h_kernel) and
+    # the older body: A and B
+    ("kernels A/B", lambda n: any(k in n for k in ("conv3d_same_kernel", "conv3d_a_kernel",
+                                                   "conv3d_h_kernel"))),
     ("kernel C (wgrad)", lambda n: "conv3d_wgrad" in n or "wgrad_reduce" in n),
-    ("split-K reduce (A, D)", lambda n: "splitk_reduce" in n),
+    # the split-K reduces: A's and B's; D's with its stats (splitk_stats_kernel)
+    ("split-K reduce (A, B, D)", lambda n: "splitk_reduce" in n or "splitk_stats" in n),
     ("E stats + stats reduce (D, E)", lambda n: "channel_stats" in n or "reduce_rows" in n),
     ("kernel E apply", lambda n: "affine_lrelu" in n),
     ("kernel F", lambda n: "seghead" in n),
@@ -127,7 +136,13 @@ def _device_rows(prof) -> list[tuple[str, float, int]]:
     return rows
 
 
-def profile_run(label: str, fn, warm: int = 2) -> dict:
+# the families of the hand-written kernels (rows listed by name with
+# `every_kernel`)
+OWN_FAMILIES = ("kernel D (conv3d_same_affine)", "kernels A/B", "split-K reduce (A, B, D)",
+                "E stats + stats reduce (D, E)", "kernel E apply", "kernel F")
+
+
+def profile_run(label: str, fn, warm: int = 2, every_kernel: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -152,8 +167,13 @@ def profile_run(label: str, fn, warm: int = 2) -> dict:
         print(f"   {fam:34s} {ms:8.2f} ms {ms / total * 100:5.1f}%")
     for name, ms, count in top:
         print(f"   top: {ms:8.2f} ms x{count:4d}  {name[:110]}")
+    own = sorted((r for r in rows if family(r[0]) in OWN_FAMILIES), key=lambda r: -r[1])
+    if every_kernel:
+        for name, ms, count in own:
+            print(f"   kernel: {ms:8.3f} ms x{count:4d}  {name[:110]}")
     return {"wall_ms": wall, "device_ms": total, "families": fams,
-            "top": [(n[:200], ms, c) for n, ms, c in top]}
+            "top": [(n[:200], ms, c) for n, ms, c in top],
+            "own_kernels": [(n[:200], ms, c) for n, ms, c in own]}
 
 
 FORWARD_ITERS = 20
@@ -192,8 +212,9 @@ def time_forward(fn) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the profiles as JSON to this file")
-    parser.add_argument("--routes", choices=("all", "fp32"), default="all",
-                        help="every route, or the fp32 Liver step only")
+    parser.add_argument("--routes", choices=("all", "fp32", "forward"), default="all",
+                        help="every route, the fp32 Liver step only, or the flagship's tile "
+                             "forward on both routes only")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -205,9 +226,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
     out = {"device": smi}
-    if args.routes == "all":
-        out.update(flagship_and_swin(dev))
-    out["step_fp32"] = fp32_step(dev)
+    if args.routes == "forward":
+        out.update(flagship_and_swin(dev, forward_only=True))
+    else:
+        if args.routes == "all":
+            out.update(flagship_and_swin(dev))
+        out["step_fp32"] = fp32_step(dev)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
@@ -270,9 +294,10 @@ def fp32_step(dev) -> dict:
     return result
 
 
-def flagship_and_swin(dev) -> dict:
+def flagship_and_swin(dev, forward_only: bool = False) -> dict:
     """The flagship's bf16 step and forward on both routes, then the
-    SwinUNETR's."""
+    SwinUNETR's; `forward_only`: the flagship's forward on both routes,
+    every hand-written kernel listed."""
     import torch
     from chip_smoke import PATCH, SEED, _flagship_net, _flagship_plans, _swin_net
     from multitalent_tpu_torch.ops.fused_unet import unet_forward_fused
@@ -305,17 +330,21 @@ def flagship_and_swin(dev) -> dict:
             with torch.no_grad():
                 fwd(x1, False)
 
-        torch.cuda.reset_peak_memory_stats()
-        out[f"step_{route}"] = profile_run(
-            f"training step (forward + backward, no optimizer), {route}", step)
-        out[f"step_{route}"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        out[f"forward_{route}"] = profile_run(f"inference forward, {route}", forward)
+        if not forward_only:
+            torch.cuda.reset_peak_memory_stats()
+            out[f"step_{route}"] = profile_run(
+                f"training step (forward + backward, no optimizer), {route}", step)
+            out[f"step_{route}"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[f"forward_{route}"] = profile_run(f"inference forward, {route}", forward,
+                                              every_kernel=forward_only)
         timed = time_forward(forward)
         out[f"forward_{route}"].update(timed)
         print(f"   CUDA events, {FORWARD_ITERS} forwards: median {timed['events_ms']:.3f} ms a "
               f"single forward, {timed['queued_ms']:.3f} ms a forward queued back to back")
     del net
     torch.cuda.empty_cache()
+    if forward_only:
+        return out
     swin = _swin_net(dtype=torch.bfloat16).to(dev)
 
     def swin_step():

@@ -651,6 +651,43 @@ def test_fp32_form_of_f_matches_plain(device, shape, k, out_dtype, affine):
     assert _fp32_err(got.float(), ref) <= bound
 
 
+@pytest.mark.parametrize("shape,k", [
+    ((2, 16, 16, 16, 32), 1),     # one output: the smallest output group
+    ((2, 5, 7, 11, 32), 3),       # the Liver's head, ragged tiles, N=2
+    ((3, 3, 5, 7, 8), 8),         # one full group of 8, three samples
+    ((2, 6, 10, 12, 30), 47),     # the flagship's head: 4-byte copies, odd rows
+    ((1, 4, 6, 9, 64), 17),       # 17 outputs: one group of 48; 64-channel rows
+])
+@pytest.mark.parametrize("affine", [True, False])
+def test_fp32_form_of_f_persistent_body_matches_plain(device, shape, k, affine):
+    """F's fp32 form (the persistent cp.async body) at every output group
+    into a NaN-filled output, against the plain fp32 version; two calls
+    bit-equal (each output's sum runs over the channels in order, as the
+    plain loop of the older body did); an unaligned view of the input (the
+    4-byte copies) gives the same bits as the aligned copy."""
+    from multitalent_tpu_torch.ops import seghead as sg
+    rng = np.random.default_rng(15)
+    n, c = shape[0], shape[-1]
+    x = _rand(rng, shape).to(device)
+    w = _rand(rng, (k, c, 1, 1, 1), 0.3).to(device)
+    bias = _rand(rng, (k,)).to(device)
+    pro = ((torch.from_numpy(rng.random((n, c)).astype(np.float32)) + 0.5).to(device),
+           _rand(rng, (n, c)).to(device)) if affine else (None, None)
+    out = torch.full((n, k, *shape[1:4]), float("nan"), device=device)
+    got = sg.seghead_fp32(x, w, bias, *pro, 1e-2, torch.float32, out=out)
+    again = sg.seghead_fp32(x, w, bias, *pro, 1e-2, torch.float32)
+    flat = torch.empty(1 + x.numel(), device=device)
+    view = flat[1:].view(shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    unaligned = sg.seghead_fp32(view, w, bias, *pro, 1e-2, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again) and torch.equal(got, unaligned)
+    ref = sg.seghead_ref(x, w, bias, *pro, 1e-2, torch.float32)
+    assert _fp32_err(got, ref) <= FP32_RTOL
+
+
 # kernel C: fp32 dw against the fp32 plain version on the same bf16 inputs;
 # the sums over the voxels run in another order, so the bound is relative to
 # max|dw| (see chip_smoke.DW_RTOL)
@@ -820,7 +857,7 @@ def test_conv3d_same_affine_matches_plain(device, shape, cout, affine):
 @pytest.mark.parametrize("ca,cb,cout,spatial", [
     (30, 30, 30, (4, 16, 16)),
     (20, 10, 16, (5, 9, 17)),
-    (320, 320, 320, (6, 12, 12)),   # split K: stats by E over the output
+    (320, 320, 320, (6, 12, 12)),   # split K: stats taken by the split-K reduce
 ])
 def test_conv3d_same_dual_stats_matches_plain(device, ca, cb, cout, spatial):
     rng = np.random.default_rng(5)
@@ -1023,12 +1060,13 @@ def test_d_and_b_take_the_ring_at_30_and_60_channels(device, form, cs, spatial):
 @pytest.mark.parametrize("form,cs,spatial,ring,wgmma", [
     ("d", 120, (24, 48, 48), 1, 0), ("d", 240, (12, 24, 24), 1, 0),
     ("a", 120, (24, 48, 48), 0, 1), ("b", (240, 240), (12, 24, 24), 0, 1),
-    ("d_dual", (120, 120), (24, 48, 48), 0, 0), ("d_dual", (320, 320), (6, 12, 12), 0, 0),
+    ("d_dual", (120, 120), (24, 48, 48), 0, 1), ("d_dual", (320, 320), (6, 12, 12), 0, 1),
 ])
 def test_the_older_body_keeps_16_byte_rows_but_for_d(device, form, cs, spatial, ring, wgmma):
-    """The plan at 16-byte rows with streamed weights: D's dual form keeps the
-    older body of two blocks an SM (also when K is split), A and B run the
-    wgmma body there; D runs the ring body at every width."""
+    """The plan at 16-byte rows with streamed weights: no form keeps the
+    older body there (it serves the packed conv alone): A, B and D's dual
+    form run the wgmma body (also when K is split); D runs the ring body at
+    every width."""
     c = cs if isinstance(cs, int) else cs[0]
     plan = cv.conv3d_same_plan(1, *spatial, cs, c, form)
     assert (plan["ring"], plan["wgmma"]) == (ring, wgmma)
@@ -1111,10 +1149,62 @@ OLDER_BODY_SHAPES = (
 
 def test_wgmma_body_takes_every_call_of_the_older_body(device):
     """A and B never reach conv3d_same_kernel: each of those shapes' plans
-    names the wgmma body."""
+    names the wgmma body, and so does D's dual form's at B's shapes."""
     for form, n, sp, cs, cout in OLDER_BODY_SHAPES:
         plan = cv.conv3d_same_plan(n, *sp, cs if form == "b" else cs[0], cout, form)
         assert plan["ring"] == 0 and plan["wgmma"] == 1, (form, n, sp, cs, cout, plan)
+        if form == "b":
+            d_plan = cv.conv3d_same_plan(n, *sp, cs, cout, "d_dual")
+            assert _wgmma_plan(d_plan) == _wgmma_plan(plan), (n, sp, cs, d_plan)
+
+
+# D's dual form on the wgmma body: (N, spatial, input channels, Cout, K
+# split) at the flagship's 120 + 120 (whole K loop), 240 + 240 at N=2
+# (whole) and 320 + 320 (split), ragged volumes (Z not a multiple of 4, X
+# and Y not of 8) with a whole and a split K loop, unequal inputs and an odd
+# Cout (split)
+def _wgmma_plan(plan: dict) -> tuple:
+    """The body a plan names and, for the wgmma body, its own plan."""
+    return tuple(plan[k] for k in ("ring", "wgmma", "wgmma_bn", "wgmma_splits", "wgmma_blocks",
+                                   "wgmma_smem_bytes"))
+
+
+D_DUAL_WGMMA_CASES = [
+    (1, (24, 48, 48), (120, 120), 120, False), (2, (12, 24, 24), (240, 240), 240, False),
+    (1, (6, 12, 12), (320, 320), 320, True), (2, (13, 30, 29), (64, 64), 64, False),
+    (2, (5, 9, 13), (120, 120), 120, True), (1, (7, 10, 6), (64, 128), 47, True),
+]
+
+
+@pytest.mark.parametrize("n,spatial,cs,cout,split", D_DUAL_WGMMA_CASES)
+def test_d_dual_on_the_wgmma_body_matches_plain(device, n, spatial, cs, cout, split):
+    """D's dual form at 16-byte rows runs the wgmma body with B's plan: its
+    stats from the epilogue (whole K loop) or the split-K reduce (split),
+    into NaN-filled buffers, within STATS_RTOL of its own output's; its
+    output bit-equal to kernel B's at the same inputs and against the plain
+    version at phase 2's bound; two calls bit-equal; the launch counted on
+    the wgmma body."""
+    rng = np.random.default_rng(26)
+    plan = cv.conv3d_same_plan(n, *spatial, cs, cout, "d_dual")
+    assert (plan["ring"], plan["wgmma"], plan["wgmma_splits"] > 1) == (0, 1, split), plan
+    assert _wgmma_plan(plan) == _wgmma_plan(cv.conv3d_same_plan(n, *spatial, cs, cout, "b"))
+    a, b = (_rand(rng, (n, *spatial, c)).to(device, torch.bfloat16) for c in cs)
+    w = _rand(rng, (cout, sum(cs), 3, 3, 3), (2 / (27 * sum(cs))) ** 0.5).to(device)
+    bias = _rand(rng, (cout,), 0.1).to(device)
+    pw = cv.prepare_conv3d_weight(w, cs)
+    before = dict(cv.conv3d_same_affine.launches_by_body)
+    out, stats = _nan_filled((n, *spatial, cout), device), _nan_stats(n, cout, device)
+    got, got_stats = cv.conv3d_same_dual_stats(a, b, pw, bias, out=out, stats=stats)
+    torch.cuda.synchronize()
+    assert cv.conv3d_same_affine.launches_by_body == {**before, "wgmma": before["wgmma"] + 1}
+    assert got.data_ptr() == out.data_ptr() and torch.isfinite(got_stats).all()
+    assert torch.equal(got, cv.conv3d_same_dual(a, b, pw, bias))
+    again, again_stats = cv.conv3d_same_dual_stats(a, b, pw, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and torch.equal(again_stats, got_stats)
+    ref, _ = cv.conv3d_same_dual_stats_ref(a, b, w.to(torch.bfloat16), bias)
+    _assert_close(got, ref.float())
+    assert _stats_err(got_stats, got) <= STATS_RTOL
 
 
 def test_wgmma_probe_matches_torch(device):
@@ -1310,8 +1400,8 @@ def test_channel_stats_widths_match_plain_and_repeat_bit_for_bit(device, c, spat
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("spatial", [(6, 12, 12), (6, 6, 6)])
 def test_d_split_k_stats_by_kernel_e_at_320(device, n, spatial):
-    """Kernel D at 320 channels splits its K loop and takes its stats from
-    kernel E's stats pass over the reduced output: within STATS_RTOL of the
+    """Kernel D at 320 channels splits its K loop and takes its stats in the
+    split-K reduce, from the values it stores: within STATS_RTOL of the
     plain stats of that output."""
     rng = np.random.default_rng(17)
     c = 320

@@ -114,25 +114,55 @@ def test_kernel_e_fp32_matches_packed_conv_at_fp32(shape):
                                            cast_first), got)
 
 
-@pytest.mark.parametrize("c,k", [(32, 3), (30, 47)])
-def test_seghead_fp32_matches_pallas_seghead_at_fp32(c, k):
-    """F's fp32 form with the prologue: the Liver's head (32 -> 3) and the
-    flagship's (30 -> 47), unpacked (factors (1, 1))."""
+# (C, K, prologue, bias, output dtype, input shape): the Liver's head and the
+# flagship's, one output, a full output group of 8, each without the
+# prologue, without a bias, with a bf16 output, and a ragged volume
+SEGHEAD_FP32_CASES = [
+    pytest.param(32, 3, True, True, torch.float32, (2, 4, 6, 8), id="32-3"),
+    pytest.param(30, 47, True, True, torch.float32, (2, 4, 6, 8), id="30-47"),
+    pytest.param(8, 1, True, True, torch.float32, (2, 4, 6, 8), id="8-1"),
+    pytest.param(64, 8, True, True, torch.float32, (2, 4, 6, 8), id="64-8"),
+    pytest.param(32, 3, False, True, torch.float32, (2, 4, 6, 8), id="32-3-no-prologue"),
+    pytest.param(30, 47, False, True, torch.float32, (2, 4, 6, 8), id="30-47-no-prologue"),
+    pytest.param(8, 1, False, False, torch.float32, (2, 4, 6, 8), id="8-1-no-prologue-no-bias"),
+    pytest.param(64, 8, True, False, torch.float32, (2, 4, 6, 8), id="64-8-no-bias"),
+    pytest.param(30, 47, True, True, torch.bfloat16, (2, 4, 6, 8), id="30-47-bf16-out"),
+    pytest.param(32, 3, True, True, torch.float32, (2, 3, 5, 7), id="32-3-ragged"),
+    pytest.param(30, 47, False, False, torch.bfloat16, (2, 3, 5, 7),
+                 id="30-47-ragged-bf16-out-no-bias"),
+]
+
+
+@pytest.mark.parametrize("c,k,affine,with_bias,out_dtype,shape", SEGHEAD_FP32_CASES)
+def test_seghead_fp32_matches_pallas_seghead_at_fp32(c, k, affine, with_bias, out_dtype, shape):
+    """F's fp32 form, with the prologue and without, with a bias and
+    without, to fp32 or bf16 logits, unpacked (factors (1, 1)). The Pallas
+    kernel takes Y and X in blocks of 4-24 and 8-32, so a ragged volume runs
+    it zero-padded to Y = X = 8 and crops its output (the head is pointwise).
+    A bf16 output may round one ulp apart where the fp32 sums, taken in
+    another order, straddle a rounding boundary: rtol 2^-7."""
     rng = np.random.RandomState(34)
-    x = rng.randn(2, 4, 6, 8, c).astype(np.float32)
+    n, sp = shape[0], shape[1:]
+    x = rng.randn(n, *sp, c).astype(np.float32)
     w = rng.randn(1, 1, 1, c, k).astype(np.float32)
-    b = rng.randn(k).astype(np.float32)
-    s = (rng.rand(2, c) + 0.5).astype(np.float32)
-    t = rng.randn(2, c).astype(np.float32)
-    ref = seghead_d2s(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), factors=(1, 1),
-                      in_scale=jnp.asarray(s), in_shift=jnp.asarray(t),
-                      negative_slope=SLOPE, interpret=True)
+    b = rng.randn(k).astype(np.float32) if with_bias else None
+    s = (rng.rand(n, c) + 0.5).astype(np.float32)
+    t = rng.randn(n, c).astype(np.float32)
+    pad = [(0, 0), (0, 0)] + [(0, -d % 8 if d % 2 else 0) for d in sp[1:]] + [(0, 0)]
+    kw = dict(in_scale=jnp.asarray(s), in_shift=jnp.asarray(t)) if affine else {}
+    ref = seghead_d2s(jnp.asarray(np.pad(x, pad)), jnp.asarray(w),
+                      None if b is None else jnp.asarray(b), factors=(1, 1),
+                      negative_slope=SLOPE, interpret=True, **kw)
+    ref = np.asarray(ref)[:, :sp[0], :sp[1], :sp[2]]
     head = _t(w[0, 0, 0].T.reshape(k, c, 1, 1, 1))
-    got = sg.seghead_fp32(_t(x), head, _t(b), _t(s), _t(t), SLOPE)
-    assert got.dtype == torch.float32 and got.shape == (2, k, 4, 6, 8) and got.is_contiguous()
-    np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1), np.asarray(ref),
-                               atol=2e-4, rtol=1e-3)
-    assert torch.equal(sg.seghead(_t(x), head, _t(b), _t(s), _t(t), SLOPE), got)
+    args = (_t(x), head, None if b is None else _t(b), _t(s) if affine else None,
+            _t(t) if affine else None, SLOPE, out_dtype)
+    got = sg.seghead_fp32(*args)
+    assert got.dtype == out_dtype and got.shape == (n, k, *sp) and got.is_contiguous()
+    tol = dict(atol=2e-4, rtol=1e-3) if out_dtype == torch.float32 else dict(atol=2e-4,
+                                                                             rtol=2 ** -7)
+    np.testing.assert_allclose(np.moveaxis(got.float().numpy(), 1, -1), ref, **tol)
+    assert torch.equal(sg.seghead(*args), got)
     w32 = sg.prepare_head_weight(head, dtype=torch.float32)
     assert w32.dtype == torch.float32 and torch.equal(w32[:k, :c], head[:, :, 0, 0, 0])
     assert not w32[k:].any() and not w32[:, c:].any()

@@ -128,6 +128,33 @@ def test_conv3d_same_dual_stats_matches_pallas_at_the_ring_widths(monkeypatch, c
     np.testing.assert_allclose(stats.numpy(), np.asarray(ref_stats), atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("ca,cb,cout", [(16, 16, 16), (24, 40, 32), (120, 120, 120)])
+def test_conv3d_same_dual_stats_matches_pallas_at_16_byte_rows(monkeypatch, ca, cb, cout):
+    """Kernel D's dual form at widths whose rows take 16-byte copies (each
+    input's C % 8 == 0: on the card the wgmma body or the ring, by its plan)
+    vs the Pallas kernel without a prologue on the built concat, at N=2 and
+    a 4x6x10 volume. The Pallas kernel takes X in blocks of 8 or 16, so it
+    runs on the volume zero-padded to X = 16 (the SAME padding's zeros) and
+    its output is cropped; the stats are those of the cropped output."""
+    monkeypatch.setenv("MTTPU_PALLAS_MIN_CIN", "1")
+    rng = np.random.RandomState(19)
+    a = rng.randn(2, 4, 6, 10, ca).astype(np.float32)
+    b = rng.randn(2, 4, 6, 10, cb).astype(np.float32)
+    w = (rng.randn(3, 3, 3, ca + cb, cout) * (2.0 / (27 * (ca + cb))) ** 0.5).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    cat = np.pad(np.concatenate([a, b], -1), ((0, 0),) * 3 + ((0, 6), (0, 0)))
+    ref_out, _ = pallas_conv3d_same_affine(jnp.asarray(cat), jnp.asarray(w),
+                                           bias=jnp.asarray(bias), interpret=True)
+    ref_out = np.asarray(ref_out)[:, :, :, :10]
+    ref_stats = np.stack([ref_out.sum((1, 2, 3)), (ref_out.astype(np.float64) ** 2).sum(
+        (1, 2, 3))], 1)
+    pw = cv.prepare_conv3d_weight(_torch_weight(w), splits=(ca, cb), dtype=torch.float32)
+    out, stats = cv.conv3d_same_dual_stats(_t(a), _t(b), pw, _t(bias))
+    assert out.shape == (2, 4, 6, 10, cout) and stats.shape == (2, 2, cout)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=3e-4, rtol=1e-3)
+    np.testing.assert_allclose(stats.numpy(), ref_stats, atol=1e-3, rtol=1e-4)
+
+
 def test_fused_wrappers_write_into_the_callers_buffers():
     """out= and stats= of kernel D (both forms) and kernel B on the CPU: the
     plain version's result lands in the caller's NaN-filled buffers, which
