@@ -144,7 +144,19 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the ranks must break it at both; seconds per step and peak memory of
    each rank; 9c 9b under MTTPU_FUSED_TRAIN=1 (D, A, C) for
    FUSED_DDP_STEPS steps; 9b again over NCCL, one card a rank, where two
-   cards are visible (else a line says it is skipped);
+   cards are visible (else a line says it is skipped); 9d the space axis
+   (parallel/mesh.py): two ranks sharing the card over gloo train the
+   flagship at a global batch of 1 (data 1 x space 2, x 192 -> 96 a rank,
+   halo exchanges through one all-reduce, gloo's point-to-point taking CPU
+   tensors only), against one process with the batch: the ranks
+   bit-equal, the losses within DDP_LOSS_RTOL, the updates within
+   SPACE_UPDATE_BOUND, exact A/B/C counts a rank and their shapes, seconds
+   per step, peak a rank and bytes exchanged a step, a control that
+   normalises each slab with its own statistics breaking the bound, then
+   one more forward and backward with every A, B and C shape of the slabs
+   (x extended to 98, 50, 26, 14, 8, 5) against its plain version; 9d again
+   over NCCL (point-to-point halos) where two cards are visible; 9d's
+   ranks run in 9b's spawn, after 9b's and 9c's runs;
 10. both workflows from raw NIfTIs, unfused, in the sliding window's
    default mode, at the widths the port's planners choose: one seeded raw
    set of two nnU-Net tasks (Task003_Liver, Task009_Spleen; RAW_CASES
@@ -187,13 +199,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (n_channels 32, exp_r and blocks (3,4,8,8,8,8,8,4,3), five heads) over
    the flagship's plans (96x192x192, batch 2, bf16, 47 regions), default
    mode: 12a `cli.train` with MultiTalent_meets_mednext on phase 5's cases
-   (4 steps, then the validation of one case a dataset: finite losses,
+   (3 steps, then the validation of one case a dataset: finite losses,
    every weight but out4's moved, seconds per step, peak memory), and one
    more step under torch.profiler for the depthwise convs' forward and
    backward share of its device time; 12b its `.model` folder and the same
    weights as a JAX-layout `.ckpt` folder restored bit-equal (timed), and
-   predict_multitalent from the `.ckpt` folder on phase 3's case (exact
-   forwards, shape and geometry); 12c one tile's probabilities in bf16
+   predict_multitalent from the `.ckpt` folder on phase 3's case without
+   mirror TTA (exact forwards, shape and geometry); 12c one tile's probabilities in bf16
    against the same network in fp32, and the tile forward's ms. Nothing of
    MedNeXt runs on a hand-written kernel: A, B and C launch 0 times in each;
 13. the 3d_lowres -> 3d_cascade_fullres workflow on phase 10a's
@@ -480,6 +492,24 @@ DDP_NO_AUG = {"p_rot": 0.0, "p_scale": 0.0, "p_gaussian_noise": 0.0, "p_gaussian
 # valid regions dominates it)
 DDP_UPDATE_BOUND = 3e-2
 DDP_LOSS_RTOL = 1e-3
+# phase 9d: the space axis (parallel/mesh.py). Two ranks sharing the card
+# over gloo train the flagship's sample at a global batch of 1: data 1 x
+# space 2, the patch's x split 192 -> 96 a rank, kernels A and B on slabs
+# extended by one plane a side (98, 50, 26, 14, 8, 5 along x), A's dx and C
+# over them; against one process with the batch of 1, bf16, augmentation
+# off, DDP_STEPS steps. The updates are held as 9b's (|d_ranks - d_one| /
+# |d_one| after step 1 and the last) within SPACE_UPDATE_BOUND, the losses
+# within DDP_LOSS_RTOL; the control normalises each slab with its own
+# statistics and must break the bound at both steps. Every A, B and C
+# shape the slabs produce (one more forward and backward after training,
+# without an update) is held against its plain version within phase 2's
+# bounds (A, B: ATOL + RTOL max|ref|; C: DW_RTOL max|ref|). As in 9b, a
+# slab's forward rounds to bf16 at other points (other kernel plans at the
+# extended extents, the norms' sums pooled in another order): measured on
+# the H100 (700 W) before this bound, 1.95e-2 and 1.90e-2, losses 8.9e-5
+# apart; the control read 1.14e-1 and 8.11e-2 (losses 1.3e-3 apart)
+SPACE_RANKS = 2
+SPACE_UPDATE_BOUND = DDP_UPDATE_BOUND
 
 # phases 10a/10b: both workflows from raw NIfTIs. One seeded raw set of two
 # nnU-Net tasks, Task003_Liver (liver + tumour) and Task009_Spleen, RAW_CASES
@@ -538,7 +568,7 @@ SWIN_PROB_BOUND_FP32_MEAN = 5e-3
 # sliding window's default mode; cut in steps and cases only. No MedNeXt
 # conv runs on a hand-written kernel (the JAX package computes them in XLA)
 MEDNEXT_TRAINER = "MultiTalent_meets_mednext"
-MEDNEXT_TRAIN_STEPS = 4  # the first 2 are warm-up
+MEDNEXT_TRAIN_STEPS = 3  # the first 2 are warm-up; one more repeats their shapes
 # phase 12c, |dp| of one MedNeXt tile's sigmoid probabilities, the network
 # in bf16 against the same weights in fp32 (TF32 off): 62 blocks of bf16
 # depthwise conv, norm, 1x1x1 expansion, GELU and compression in cuDNN and
@@ -2829,22 +2859,29 @@ class _UnpooledDice:
         return loss, {"ce": ce.detach(), "dice": dc.detach()}
 
 
-def _ddp_train(device, rows, batches: list, fused: bool, unpooled: bool = False) -> dict:
+def _ddp_train(device, rows, batches: list, fused: bool, unpooled: bool = False,
+               batch: int = TRAIN_BATCH, probe=None) -> dict:
     """The flagship's MultiTalentTrainer (no dataset; augmentation off;
-    seeded He init; bf16) on `rows` of each global batch: losses, seconds
-    per step, peak memory, the weights before, after the first step and
-    after the last."""
+    seeded He init; bf16) at global batch `batch` on `rows` of each global
+    batch: losses, seconds per step, peak memory, the weights before, after
+    the first step and after the last, the bytes its space axis sent;
+    `probe(trainer)` after the last step, its result under "probe"."""
     import hashlib
     import torch
+    from multitalent_tpu_torch.io import Plans
     from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
     cls = type("Unpooled", (_UnpooledDice, MultiTalentTrainer), {}) if unpooled \
         else MultiTalentTrainer
+    plans = _flagship_plans().to_dict()
+    plans["plans_per_stage"][0]["batch_size"] = batch
     with _env(MTTPU_FUSED_TRAIN="1" if fused else "0"):
-        t = cls(_flagship_plans(), 0, None, None, fp16=True, device=device)
+        t = cls(Plans.from_dict(plans), 0, None, None, fp16=True, device=device)
         t.initialize(True)
         t.data_aug_params.update(DDP_NO_AUG)
         t._build_step_functions()
     before = {k: v.detach().cpu().clone() for k, v in t.network.state_dict().items()}
+    if t.space is not None:
+        t.space.sent.clear()  # the bytes of this run's steps (one Space a process and plan)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     losses, first = [], None
@@ -2859,7 +2896,13 @@ def _ddp_train(device, rows, batches: list, fused: bool, unpooled: bool = False)
         digest.update(v.numpy().tobytes())
     out = {"losses": losses, "step_s": list(t.step_seconds), "peak_gib": peak,
            "local_batch": t.local_batch_size, "wrapped": t.ddp is not None,
-           "digest": digest.hexdigest(), "before": before, "first": first, "after": after}
+           "digest": digest.hexdigest(), "before": before, "first": first, "after": after,
+           "space": None if t.space is None else {
+               "index": t.space.index, "size": t.space.size, "axis": t.space.axis,
+               "exchange": t.space.exchange, "sent": dict(t.space.sent),
+               "per_step": t.network.kernel_launches_per_step()}}
+    if probe is not None:
+        out["probe"] = probe(t, {k: v[rows] for k, v in batches[0].items()})
     del t
     torch.cuda.empty_cache()
     return out
@@ -2871,9 +2914,12 @@ _DDP_RUNS = (("pooled", False, False, DDP_STEPS), ("control", False, True, DDP_S
 
 
 def _ddp_rank(workdir: str, backend: str) -> None:
-    """One rank of 9b/9c (started by parallel.distributed.spawn): the runs of
-    _DDP_RUNS on its sample of each global batch; saves their readings to
-    workdir/ddp_<backend>_rank<r>.pt (rank 0 also the weights)."""
+    """One rank of 9b/9c and 9d (started by parallel.distributed.spawn): the
+    runs of _DDP_RUNS on its sample of each global batch, then 9d's
+    (`_space_runs`); saves their readings to workdir/ddp_<backend>_rank<r>.pt
+    and workdir/space_<backend>_rank<r>.pt (rank 0 also the weights). One
+    spawn serves both phases: a rank's start, its card and gloo's first
+    collectives cost ~10 s."""
     import torch
     from multitalent_tpu_torch.parallel import distributed
     rank = int(os.environ["RANK"])
@@ -2888,6 +2934,8 @@ def _ddp_rank(workdir: str, backend: str) -> None:
                     run.pop(k)
             out[name] = run
         torch.save(out, os.path.join(workdir, f"ddp_{backend}_rank{rank}.pt"))
+        torch.save(_space_runs(device, rank, batches),
+                   os.path.join(workdir, f"space_{backend}_rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2960,6 +3008,187 @@ def phase_ddp_ranks(workdir: str, backend: str = "gloo") -> dict:
                      "step_s": [r0["step_s"], r1["step_s"]], "one_step_s": ref["step_s"],
                      "peak_gib": [r0["peak_gib"], r1["peak_gib"]],
                      "one_peak_gib": ref["peak_gib"]}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _slab_statistics(x, space):
+    """9d's control, in place of mesh.space_sum: each rank's own sum, scaled
+    as the pooled one would be, so that a norm takes its slab's own
+    statistics."""
+    return x * space.size
+
+
+def _space_probe(t, batch) -> dict:
+    """One more forward and backward of trainer `t`'s space plan on `batch`
+    (no update, no gradient sum): every call of kernels A (A's dx too), B and
+    C recorded by shape, each shape's first call held against its plain
+    version on the same inputs within phase 2's bounds. Returns {kernel:
+    {shape: [calls, max|d|, bound]}}."""
+    import torch
+    from multitalent_tpu_torch.ops import conv3d as cv
+    from multitalent_tpu_torch.parallel import mesh
+    names = ("conv3d_same", "conv3d_same_dual", "conv3d_same_wgrad", "conv3d_same_wgrad_dual")
+    kernels = {name: getattr(cv, name) for name in names}
+    seen = {name: {} for name in names}
+
+    def checked(name):
+        kernel, wgrad = kernels[name], "wgrad" in name
+
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            if wgrad:  # (inputs..., g)
+                ins, cout = args[:-1], int(args[-1].shape[-1])
+            else:  # (inputs..., pw, bias)
+                i = next(i for i, a in enumerate(args) if isinstance(a, cv.PreparedWeight))
+                ins, pw = args[:i], args[i]
+                bias = args[i + 1] if len(args) > i + 1 else kwargs.get("bias")
+                cout = pw.cout
+            key = (tuple(int(a.shape[-1]) for a in ins), cout,
+                   tuple(int(v) for v in ins[0].shape[1:4]), int(ins[0].shape[0]))
+            row = seen[name].setdefault(key, [0, None, None])
+            row[0] += 1
+            if row[1] is None:
+                if wgrad:
+                    plain = cv.conv3d_same_wgrad_dual_ref if len(ins) == 2 \
+                        else cv.conv3d_same_wgrad_ref
+                    ref = plain(*(a.float() for a in ins), args[-1].float())
+                    bound = DW_RTOL * ref.abs().max().item()
+                else:
+                    w = cv.unprepare_conv3d_weight(pw).float()
+                    plain = cv.conv3d_same_dual_ref if len(ins) == 2 else cv.conv3d_same_ref
+                    ref = plain(*(a.float() for a in ins), w, bias)
+                    bound = ATOL + RTOL * ref.abs().max().item()
+                row[1] = _check(f"9d {name} {key}", out, ref, bound)
+                row[2] = bound
+            return out
+        call.launches = 0
+        call.launches_by_body = dict.fromkeys(cv.BODIES, 0)
+        return call
+
+    # the plain versions in fp32, not TF32 (as phase 2's; a fresh rank
+    # process starts with cuDNN's TF32 on)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for name in names:
+        setattr(cv, name, checked(name))
+    try:
+        with torch.no_grad():
+            data, targets, extras = t._space_batch(batch if t.space.index == 0 else None,
+                                                   t._val_transform)
+        with mesh.activated(t.space):
+            outputs = t._outputs(t.network_forward(data, deep_supervision=True))
+        loss, _ = t.loss_fn(outputs, targets, extras)
+        t.network.zero_grad()
+        loss.backward()
+    finally:
+        for name, kernel in kernels.items():
+            setattr(cv, name, kernel)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    return seen
+
+
+def _space_runs(device, rank: int, batches: list) -> dict:
+    """9d on one rank of 9b's spawn: the flagship's sample at global batch 1
+    under the space plan, counted, then the probe step; the control with
+    each slab's own norm statistics. Their readings (rank 0's with the
+    weights)."""
+    from multitalent_tpu_torch.parallel import mesh
+    out, pooled = {}, mesh.space_sum
+    for name, control in (("space", False), ("control", True)):
+        mesh.space_sum = _slab_statistics if control else pooled
+        try:
+            run, launches = _run_counted(lambda: _ddp_train(
+                device, slice(0, 1), batches, False, batch=1,
+                probe=None if control else _space_probe))
+        finally:
+            mesh.space_sum = pooled
+        run["launches"] = {k: v for k, v in launches.items() if v}
+        if rank != 0:
+            for k in ("before", "first", "after"):
+                run.pop(k)
+        out[name] = run
+    return out
+
+
+def _shape_label(key) -> str:
+    splits, cout, sp, n = key
+    return f"{'+'.join(map(str, splits))}->{cout} @{'x'.join(map(str, sp))} N={n}"
+
+
+def phase_space_ranks(workdir: str, backend: str = "gloo") -> dict:
+    """9d: SPACE_RANKS ranks over `backend` (gloo: all on card 0; nccl: one
+    card each; the ranks of 9b's spawn, `_space_runs`) trained the
+    flagship's sample at global batch 1, each on its slab of the patch's x;
+    against one process with the batch, from the same seeded weights and
+    host batches: exact A/B/C launch counts a rank and their shapes, every
+    shape against its plain version, the control with unpooled norms
+    breaking SPACE_UPDATE_BOUND."""
+    import torch
+    device = torch.device("cuda", 0)
+    one = _ddp_train(device, slice(0, 1), _ddp_batches(DDP_STEPS), False, batch=1)
+    ranks = [torch.load(os.path.join(workdir, f"space_{backend}_rank{r}.pt"),
+                        weights_only=False) for r in range(SPACE_RANKS)]
+    out, failed = {}, []
+    for name in ("space", "control"):
+        r0 = ranks[0][name]
+        space = r0["space"]
+        if [r[name]["space"]["index"] for r in ranks] != list(range(SPACE_RANKS)) or (
+                space["size"], space["axis"]) != (SPACE_RANKS, 2):
+            raise AssertionError(f"9d {backend} {name}: not space {SPACE_RANKS} along x")
+        if any(r[name]["digest"] != r0["digest"] or r[name]["losses"] != r0["losses"]
+               for r in ranks) or not r0["wrapped"] or r0["local_batch"] != 1:
+            raise AssertionError(f"9d {backend} {name}: the ranks' weights or losses differ")
+        expect = {k: v * DDP_STEPS for k, v in space["per_step"].items()}
+        for r in ranks:
+            got = {k: r[name]["launches"].get(k, 0) for k in expect}
+            if got != expect or not all(expect.values()):
+                raise AssertionError(f"9d {backend} {name}: launches {r[name]['launches']}, "
+                                     f"expected {expect}")
+        if not all(torch.equal(v, one["before"][k]) for k, v in r0["before"].items()):
+            raise AssertionError(f"9d {backend} {name}: the ranks started from other weights")
+        gap1 = _update_gap(r0["first"], one["first"], one["before"])
+        gap = _update_gap(r0["after"], one["after"], one["before"])
+        loss_rel = max(abs(a / b - 1) for a, b in zip(r0["losses"], one["losses"]))
+        control = name == "control"
+        ok = min(gap1, gap) > SPACE_UPDATE_BOUND if control else (
+            max(gap1, gap) <= SPACE_UPDATE_BOUND and loss_rel <= DDP_LOSS_RTOL)
+        sent = {k: v / DDP_STEPS for k, v in space["sent"].items()}
+        label = "9d control" if control else "9d"
+        print(f"{label} ({backend}, {space['exchange']} exchanges, {SPACE_RANKS} ranks x the "
+              f"slab of 1 sample along x vs 1 process x 1, {DDP_STEPS} steps, bf16"
+              f"{', each slab normalised with its own statistics' if control else ''}): "
+              f"weight updates |d_ranks - d_one| / |d_one| after step 1 {gap1:.3e}, after "
+              f"step {DDP_STEPS} {gap:.3e} (bound {SPACE_UPDATE_BOUND:g}, "
+              f"{'both must break it' if control else 'within'}), losses "
+              f"{[round(v, 5) for v in r0['losses']]} vs {[round(v, 5) for v in one['losses']]} "
+              f"(max rel {loss_rel:.2e}, bound {DDP_LOSS_RTOL:g}); ranks bit-equal; launches a "
+              f"rank {ranks[0][name]['launches']} (= {DDP_STEPS} x {space['per_step']}); "
+              f"seconds per step " + "; ".join(
+                  f"rank {i} " + ", ".join(f"{v:.3f}" for v in r[name]["step_s"])
+                  for i, r in enumerate(ranks))
+              + f" (one process {', '.join(f'{v:.3f}' for v in one['step_s'])}); peak "
+              f"{', '.join(f'{r[name]['peak_gib']:.2f}' for r in ranks)} GiB a rank (one "
+              f"process {one['peak_gib']:.2f}); bytes sent a step by rank 0 "
+              f"{ {k: int(v) for k, v in sent.items()} }")
+        if not ok:
+            failed.append(f"{label} ({backend}): update gaps {gap1:.3e}, {gap:.3e}, loss rel "
+                          f"{loss_rel:.2e}")
+        out[name] = {"gap1": gap1, "gap": gap, "loss_rel": loss_rel,
+                     "step_s": [r[name]["step_s"] for r in ranks], "one_step_s": one["step_s"],
+                     "peak_gib": [r[name]["peak_gib"] for r in ranks],
+                     "one_peak_gib": one["peak_gib"], "sent_per_step": sent,
+                     "launches": ranks[0][name]["launches"], "exchange": space["exchange"]}
+    shapes = {}
+    for kernel, rows in ranks[0]["space"]["probe"].items():
+        for key, (calls, err, bound) in sorted(rows.items()):
+            print(f"9d {kernel} {_shape_label(key)}: {calls} call(s) in one step on rank 0, "
+                  f"max|d| {err:.3e} vs plain (bound {bound:.3e})")
+            shapes.setdefault(kernel, []).append(
+                {"shape": _shape_label(key), "calls": calls, "err": err, "bound": bound})
+    out["shapes"] = shapes
     if failed:
         raise AssertionError("; ".join(failed))
     return out
@@ -3748,9 +3977,10 @@ def phase_mednext_predict(workdir: str, training: dict) -> dict:
     """12b: 12a's folder restored on the card (every tensor bit-equal to
     the trained weights), the same weights as a JAX-layout `.ckpt` folder
     restored (timed, bit-equal), then predict_multitalent from the `.ckpt`
-    folder on phase 3's case with mirror TTA: exact forwards, no
-    hand-written kernel launched, the labelmap and all 47 masks at the raw
-    case's shape and geometry."""
+    folder on phase 3's case without mirror TTA (the 8 mirror combinations
+    repeat each tile's shape; phases 3, 8b and 11b predict with them): exact
+    forwards, no hand-written kernel launched, the labelmap and all 47
+    masks at the raw case's shape and geometry."""
     import torch
     from multitalent_tpu_torch.cli.predict_multitalent import main as predict_main
     from multitalent_tpu_torch.inference.model_restore import (load_model_and_checkpoint_files,
@@ -3780,19 +4010,19 @@ def phase_mednext_predict(workdir: str, training: dict) -> dict:
         t0 = time.perf_counter()
         timings, launches = _run_counted(lambda: predict_main(
             ["-i", os.path.join(workdir, "in"), "-o", out, "-m", jax_model, "-f", "0",
-             "--device", "cuda"]))
+             "--device", "cuda", "--disable_tta"]))
         wall = time.perf_counter() - t0
     (case,) = timings
     _no_launches("MedNeXt predict", launches)
-    if case["forwards"] != n_tiles * 8:
-        raise AssertionError(f"MedNeXt predict: {case}, expected {n_tiles} tiles x 8")
+    if case["forwards"] != n_tiles:
+        raise AssertionError(f"MedNeXt predict: {case}, expected {n_tiles} tiles")
     _, shape = _check_prediction(out, os.path.join(workdir, "in", "case_0000.nii.gz"), REGIONS)
     ckpt = os.path.join(jax_model, "fold_0", "model_final_checkpoint.ckpt")
     print(f"MedNeXt restore: .model folder {restore_s['.model']:.2f} s, JAX-layout .ckpt "
           f"folder ({os.path.getsize(ckpt) / 2 ** 20:.1f} MiB) {restore_s['.ckpt']:.2f} s, "
           f"{len(sd)} tensors bit-equal to the trained weights in both")
     print(f"MedNeXt predict from the .ckpt folder ({case['forwards']} forwards = {n_tiles} "
-          f"tiles x 8 in {case['net_calls']} network calls): labelmap + {len(REGIONS)} region "
+          f"tiles, no mirror TTA, in {case['net_calls']} network calls): labelmap + {len(REGIONS)} region "
           f"NIfTIs at {shape} with the case's geometry; seconds per case {wall:.2f} (predict "
           f"{case['predict_s']:.2f} on the card's clock, export {case['export_s']:.2f}); "
           f"hand-written kernel launches 0")
@@ -5823,7 +6053,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    seconds = {}
+    started, seconds = time.perf_counter(), {}
 
     def timed(label, fn, *args, **kwargs):
         t0 = time.perf_counter()
@@ -5871,11 +6101,18 @@ def main() -> int:
         resenc_liver = timed("8f resenc Liver", phase_resenc_liver, workdir)
         with _env(**exact):
             ddp_launched = timed("9a DDP launched", phase_ddp_launched, workdir)
-        ddp = timed("9b-9c DDP 2 ranks gloo", phase_ddp_ranks, workdir)
+        ddp = timed("9b-9c DDP 2 ranks gloo (and 9d's ranks)", phase_ddp_ranks, workdir)
         if torch.cuda.device_count() >= 2:
             timed("9b NCCL 2 cards", phase_ddp_ranks, workdir, "nccl")
         else:
             print(f"phase 9b over NCCL on two cards: skipped, {torch.cuda.device_count()} "
+                  f"card visible")
+        # 9b's spawns ran 9d's ranks too
+        space = timed("9d space axis 2 ranks gloo", phase_space_ranks, workdir)
+        if torch.cuda.device_count() >= SPACE_RANKS:
+            timed("9d NCCL 2 cards", phase_space_ranks, workdir, "nccl")
+        else:
+            print(f"phase 9d over NCCL on two cards: skipped, {torch.cuda.device_count()} "
                   f"card visible")
         raw_generic = timed("10a generic workflow from raw", phase_raw_generic, workdir)
         raw_mt = timed("10b MultiTalent workflow from raw", phase_raw_multitalent, workdir,
@@ -5936,6 +6173,7 @@ def main() -> int:
                      "launches_probes": probe_path["launches"][kname],
                      "launches_warmup": warmup["launches"][kname],
                      "launches_ddp": ddp_launched["launches"][kname],
+                     "launches_space": space["space"]["launches"][kname],
                      "max_abs_err": max(r["err"] for r in res),
                      "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
                      **_conv_bound(sum(stage0["splits"]), stage0["cout"], stage0["spatial"],
@@ -6349,6 +6587,10 @@ def main() -> int:
           f"A/B/C over 15a-c {rows[0]['launches_zoo']}/{rows[1]['launches_zoo']}/"
           f"{rows[2]['launches_zoo']}; 15d momentum {zoo_schedules['momentum']}; on {smi}")
     print(json.dumps({"kernels": rows}))
+    # after the kernels line, whose length pushes earlier lines out of a
+    # short tail of the output
+    print(f"phase seconds ({time.perf_counter() - started:.1f} s in all, on {smi}): "
+          + json.dumps(seconds))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

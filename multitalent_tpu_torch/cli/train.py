@@ -56,10 +56,16 @@ WORLD_SIZE set, a group even at world size 1):
     torchrun --nproc_per_node=N -m multitalent_tpu_torch.cli.train 3d_fullres ...
 
 The plans' batch is the global batch, always split over the ranks
-(parallel/distributed.py; --dbs is accepted and changes nothing). Every rank
-reads -c's checkpoint and -pretrained_weights; rank 0 writes the folder; the
-validation splits its cases over the ranks. Refused: more ranks than cards,
-and a split that leaves a rank without a sample (ROADMAP queue 1, item 14).
+(parallel/distributed.py; --dbs is accepted and changes nothing). A global
+batch smaller than the rank count trains under the JAX package's hybrid
+data x space plan (parallel/mesh.py: data = gcd(batch, ranks) groups, each
+splitting its samples' patch over the rest); where no patch axis divides,
+the plan trains on gcd ranks and the others exit idle, with a WARNING.
+Every rank reads -c's checkpoint and -pretrained_weights; rank 0 writes the
+folder; the validation splits its cases over the training ranks. Refused:
+more ranks than cards, and under a space plan what does not train so yet
+(trainers.space_plan_refusal: the fused route, SwinUNETR, MedNeXt, 2D plans,
+other norms and losses; ROADMAP queue 1, items 14b-14f).
 """
 from __future__ import annotations
 
@@ -72,7 +78,7 @@ import torch
 from multitalent_tpu_torch import paths
 from multitalent_tpu_torch.cli.configuration import resolve_task_name
 from multitalent_tpu_torch.inference.model_restore import checkpoint_state_dict
-from multitalent_tpu_torch.parallel import distributed
+from multitalent_tpu_torch.parallel import distributed, mesh
 from multitalent_tpu_torch.plans import load_plans
 from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
                                                         MultiTalentTrainer2000ep,
@@ -83,7 +89,7 @@ from multitalent_tpu_torch.training.multitalent import (MultiTalentTrainer,
 from multitalent_tpu_torch.training.cascade import CASCADE_TRAINERS, predict_next_stage
 from multitalent_tpu_torch.training.trainers import (TrainerV2, TrainerV2_2epochs,
                                                      TrainerV2_5epochs, TrainerV2_dummyLoad,
-                                                     TrainerV2ResencUNet)
+                                                     TrainerV2ResencUNet, space_plan_refusal)
 from multitalent_tpu_torch.training.variants import VARIANT_ALIASES
 from multitalent_tpu_torch.training.warmup import (TrainerV2WarmupLR, TrainerV2WarmupSegHeads,
                                                    TrainerV2WarmupSegHeadsResenc,
@@ -219,8 +225,16 @@ def main(argv=None):
                            f"{torch.cuda.device_count()} are visible")
     if ranks == 1:
         return _train(args, config, args.device)
-    plans_file, stage = config[0], config[4]
-    distributed.check_split(load_plans(plans_file).stage(stage).batch_size, ranks)
+    plans_file, stage, trainer_class = config[0], config[4], config[5]
+    plans = load_plans(plans_file)
+    st = plans.stage(stage)
+    plan = mesh.plan_batch_sharding(st.batch_size, st.patch_size, ranks)
+    if plan.space > 1:
+        refusal = space_plan_refusal(trainer_class, plans, stage)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
+    if plan.ranks < ranks:
+        print(plan.description, file=sys.stderr)
     distributed.spawn(main, ranks, (argv,))
     return None
 
@@ -234,6 +248,10 @@ def _join_and_train(args, config, device_type: str):
         # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // distributed.world_size()))
     try:
+        plans = load_plans(config[0]).stage(config[4])
+        if distributed.layout(plans.batch_size, plans.patch_size, device_type) is None:
+            print(f"rank {torch.distributed.get_rank()} is idle under the plan", file=sys.stderr)
+            return None
         return _train(args, config, device)
     finally:
         torch.distributed.destroy_process_group()

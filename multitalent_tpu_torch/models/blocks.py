@@ -31,6 +31,17 @@ copy.
 The norm is plain torch by default; MTTPU_PALLAS_NORM=1 runs it on kernel
 E (ops/fused_norm.py), without a backward.
 
+Under an active space axis (parallel/mesh.py: a training step whose ranks
+split each sample's patch) every 3D conv computes this rank's slab: it takes
+the neighbours' boundary planes its taps reach (`mesh.halo`; one a side for
+a stride-1 3x3x3 conv, the left one for a stride-2 one) and keeps the
+outputs of its slab. Kernels A and B run SAME over the extended slab, whose
+outer planes are dropped, so their backward (A's dx, C) runs over the
+extended slab too; cuDNN's convs run unpadded along the split axis. The
+instance norm's statistics are the whole sample's, their sums pooled over
+the space group (`mesh.space_sum`). Transposed convs, 1x1x1 heads and the
+activations stay local.
+
 `nonlin_first` (the convReLUIN variants, blocks.py:174,195-197 of the JAX
 package; the reference's ConvDropoutNonlinNorm) turns a block into conv ->
 activation -> norm; its conv still takes kernel A or B, its activation and
@@ -43,6 +54,7 @@ forms (ops/conv3d.py).
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -51,6 +63,7 @@ from torch import nn
 
 from multitalent_tpu_torch.ops import conv3d as cv
 from multitalent_tpu_torch.ops import fused_norm
+from multitalent_tpu_torch.parallel import mesh
 
 CL = torch.channels_last_3d
 
@@ -102,9 +115,19 @@ def use_pallas_norm() -> bool:
 def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm with fp32 statistics over the spatial axes, cast to x's
-    dtype (multitalent_tpu/models/blocks.py:InstanceNorm); always plain torch."""
+    dtype (multitalent_tpu/models/blocks.py:InstanceNorm); always plain torch.
+    Under an active space axis the statistics are the whole sample's: the
+    mean from sums pooled over the space group, then the variance from the
+    pooled sums of the centred squares (the two passes of var_mean)."""
     xf = x.float()
-    var, mean = torch.var_mean(xf, dim=tuple(range(2, x.dim())), keepdim=True, correction=0)
+    dims = tuple(range(2, x.dim()))
+    space = mesh.current()
+    if space is None:
+        var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
+    else:
+        n = math.prod(x.shape[2:]) * space.size
+        mean = mesh.space_sum(xf.sum(dims, keepdim=True), space) / n
+        var = mesh.space_sum((xf - mean).square().sum(dims, keepdim=True), space) / n
     shape = (1, -1) + (1,) * (x.dim() - 2)
     # per-channel scale first: two passes over the volume instead of four
     scale = torch.rsqrt(var + eps) * weight.float().view(shape)
@@ -122,6 +145,9 @@ def instance_norm_lrelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     cast). That path has no backward, as the JAX package's has none, so it
     raises while autograd is recording."""
     if use_pallas_norm():
+        if mesh.current() is not None:
+            raise NotImplementedError("MTTPU_PALLAS_NORM=1: kernel E takes a whole sample; "
+                                      "a slab of the space axis needs the plain norm")
         if torch.is_grad_enabled():
             raise RuntimeError(
                 "MTTPU_PALLAS_NORM=1: kernel E (ops/fused_norm.py) has no backward, "
@@ -235,6 +261,10 @@ def normalize(x: torch.Tensor, norm: str, module: nn.Module | None, nonlin: str,
     norm's fp32 result takes the activation in fp32, then x's dtype (the
     next conv's cast in the JAX package); the others cast to x's dtype
     first."""
+    if norm not in ("instance", "none") and mesh.current() is not None:
+        raise NotImplementedError(f"norm {norm!r} on a slab of the space axis: only the "
+                                  f"instance norm pools its statistics (ROADMAP queue 1, "
+                                  f"item 14f)")
     if norm == "instance" and nonlin == "leaky_relu":
         return instance_norm_lrelu(x, module.weight, module.bias, negative_slope, module.eps)
     if norm == "frn":
@@ -301,7 +331,28 @@ class KernelConv3d(nn.Conv3d):
         """The conv of x (N, C, Z, Y, X) in x's dtype (of concat(x, skip)
         on route B). use_kernels=False runs the plain PyTorch versions of
         the kernels (the reference the kernels are checked against), on the
-        same model-dtype inputs and weights the kernels see."""
+        same model-dtype inputs and weights the kernels see. Under an active
+        space axis x (and skip) are this rank's slabs, and so is the
+        output."""
+        space = mesh.current()
+        if space is None:
+            return self._conv(x, skip, use_kernels, self.padding)
+        # the planes the taps reach beyond the slab: the padding's on the
+        # left, on the right what the last output's window passes the slab by
+        ax = space.axis
+        k, s, p = self.kernel_size[ax], self.stride[ax], self.padding[ax]
+        left, right = p, max(0, k - s - p)
+        xe = mesh.halo(x, left, right, space)
+        se = None if skip is None else mesh.halo(skip.to(x.dtype), left, right, space)
+        if self.route is not None:  # SAME over the extended slab: drop its outer planes
+            out = self._conv(xe, se, use_kernels, self.padding)
+            return out.narrow(space.dim, left, x.shape[space.dim]).contiguous(memory_format=CL)
+        padding = list(self.padding)
+        padding[ax] = 0
+        return self._conv(xe, se, use_kernels, tuple(padding))
+
+    def _conv(self, x: torch.Tensor, skip: torch.Tensor | None, use_kernels: bool,
+              padding) -> torch.Tensor:
         dtype = x.dtype
         w, bias = self.weight, self.bias
         if self.route == "conv3d_same_dual":
@@ -318,7 +369,7 @@ class KernelConv3d(nn.Conv3d):
                 out = cv.conv3d_same_ref(to_ndhwc(x), w.to(dtype), bias)
             return from_ndhwc(out)
         return F.conv3d(x, w.to(dtype), None if bias is None else bias.to(dtype),
-                        self.stride, self.padding)
+                        self.stride, padding)
 
 
 class Conv2dSame(nn.Conv2d):

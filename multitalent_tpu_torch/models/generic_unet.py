@@ -43,6 +43,7 @@ from multitalent_tpu_torch.models.blocks import (NONLINS, NORMS, ConvDropoutNorm
                                                  StackedConvLayers, conv_nd, conv_transpose_nd,
                                                  kernel_launches_per_forward,
                                                  kernel_launches_per_step, memory_format)
+from multitalent_tpu_torch.parallel.mesh import Levels
 
 
 def compute_stage_features(base_num_features: int, num_stages: int,
@@ -180,17 +181,19 @@ class GenericUNet(nn.Module):
         kernels' plain PyTorch versions instead."""
         x = x.to(self.dtype)
         x = x.contiguous(memory_format=memory_format(x))
+        levels = Levels(x, self.pool_op_kernel_sizes)  # a slab's levels on the space axis
         skips = []
         for d in range(self.num_pool):
-            x = self.conv_blocks_context[d](x, use_kernels=use_kernels)
+            x = self.conv_blocks_context[d](levels.down(x, d), use_kernels=use_kernels)
             skips.append(x)
+        x = levels.down(x, self.num_pool)
         for stack in self.conv_blocks_context[self.num_pool]:
             x = stack(x, use_kernels=use_kernels)
         seg_outputs = []
         for u in range(self.num_pool):
             tu = self.tu[u]
             x = conv_transpose_nd(x, tu.weight.to(self.dtype), tu.stride)
-            x = x.contiguous(memory_format=memory_format(x))
+            x = levels.up(x.contiguous(memory_format=memory_format(x)), self.num_pool - 1 - u)
             skip = skips[self.num_pool - 1 - u]
             first, rest = self.conv_blocks_localization[u]
             if first.blocks[0].kernel == "conv3d_same_dual":

@@ -46,6 +46,7 @@ from multitalent_tpu_torch.models.blocks import (ConvDropoutNormNonlin, conv_nd,
                                                  kernel_launches_per_step, make_conv,
                                                  memory_format)
 from multitalent_tpu_torch.models.generic_unet import compute_stage_features
+from multitalent_tpu_torch.parallel.mesh import Levels
 
 
 def _norm(x: torch.Tensor, norm: nn.Module) -> torch.Tensor:
@@ -186,16 +187,18 @@ class ResidualEncoderUNet(nn.Module):
         x = x.contiguous(memory_format=memory_format(x))
         x = F.leaky_relu(_norm(enc.initial_conv(x, use_kernels=use_kernels), enc.initial_norm),
                          self.negative_slope, inplace=True)
+        # a slab's levels on the space axis: stage s > 0 strides into level s
+        levels = Levels(x, self.pool_op_kernel_sizes[1:])
         skips = []
-        for stage in enc.stages:
-            x = stage(x, use_kernels=use_kernels)
+        for s, stage in enumerate(enc.stages):
+            x = stage(levels.down(x, s), use_kernels=use_kernels)
             skips.append(x)
         num_dec = len(dec.stages)
         seg_outputs = []
         for i in range(num_dec):
             tu = dec.tus[i]
             x = conv_transpose_nd(x, tu.weight.to(self.dtype), tu.stride)
-            x = x.contiguous(memory_format=memory_format(x))
+            x = levels.up(x.contiguous(memory_format=memory_format(x)), num_dec - 1 - i)
             skip = skips[num_dec - 1 - i]
             first, *rest = dec.stages[i].convs
             if first.kernel == "conv3d_same_dual":

@@ -17,20 +17,23 @@ batch, and keeps the semantics of one device with the global batch:
   sums the shares (DDP's default averages them), so every rank takes the
   global-batch gradient and, from the same weights, the same update.
 
-The JAX package's spatial ("space") axis, which serves a global batch smaller
-than the device count, is not ported: a rank without a sample raises
-(ROADMAP queue 1, item 14). A run without a process group (one process)
-takes none of these paths.
+A global batch smaller than the rank count takes the JAX package's spatial
+("space") axis (parallel/mesh.py): `layout` plans the step
+(mesh.plan_batch_sharding), forms the space groups (and, where the plan
+leaves ranks idle, the group of the ranks that train, which every helper
+here then uses) and gives this rank its data index and its `mesh.Space`.
+A run without a process group (one process) takes none of these paths.
 """
 from __future__ import annotations
 
 import os
 import socket
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
-SPACE_AXIS_ITEM = "ROADMAP queue 1, item 14"
+from multitalent_tpu_torch.parallel import mesh
 
 
 def distribute_batch_size(global_batch_size: int, num_shards: int):
@@ -62,24 +65,15 @@ def distribute_batch_size(global_batch_size: int, num_shards: int):
     return sizes, oversample_fractions
 
 
-def check_split(global_batch_size: int, world_size: int) -> None:
-    """Raises where a rank would get no sample of the global batch: that
-    needs the JAX package's spatial axis, which the port does not have."""
-    sizes, _ = distribute_batch_size(global_batch_size, world_size)
-    if min(sizes) == 0:
-        raise NotImplementedError(
-            f"a global batch of {global_batch_size} over {world_size} ranks leaves "
-            f"{sizes.count(0)} rank(s) without a sample; splitting the patch over ranks "
-            f"(the JAX package's spatial axis) is not ported yet: {SPACE_AXIS_ITEM}")
-
-
-def rank_batch(global_batch_size: int, oversample: float, rank: int,
-               world_size: int) -> tuple[int, float]:
-    """(local batch size, local foreground-oversample fraction) of `rank`
-    (`check_split` first)."""
-    check_split(global_batch_size, world_size)
-    sizes, fractions = distribute_batch_size(global_batch_size, world_size)
-    return sizes[rank], fractions(oversample)[rank]
+def rank_batch(global_batch_size: int, oversample: float, index: int,
+               shards: int) -> tuple[int, float]:
+    """(local batch size, local foreground-oversample fraction) of shard
+    `index` of `shards` (a rank's data index under its plan)."""
+    sizes, fractions = distribute_batch_size(global_batch_size, shards)
+    if sizes[index] == 0:
+        raise ValueError(f"shard {index} of {shards} gets no sample of a global batch of "
+                         f"{global_batch_size}; plan the ranks with `layout`")
+    return sizes[index], fractions(oversample)[index]
 
 
 # ----------------------------------------------------------------- the group
@@ -87,17 +81,25 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def rank() -> int:
-    return dist.get_rank() if is_initialized() else 0
-
-
-def world_size() -> int:
-    return dist.get_world_size() if is_initialized() else 1
+_TRAINING = None  # the group of the ranks that train, where a plan leaves some idle
 
 
 def group():
-    """The default process group, or None in a run without one."""
-    return dist.group.WORLD if is_initialized() else None
+    """The group of the ranks that train: the default group unless the plan
+    leaves ranks idle; None in a run without a group."""
+    if not is_initialized():
+        return None
+    return _TRAINING if _TRAINING is not None else dist.group.WORLD
+
+
+def rank() -> int:
+    """This rank in `group()`."""
+    return dist.get_rank(group()) if is_initialized() else 0
+
+
+def world_size() -> int:
+    """The ranks of `group()`."""
+    return dist.get_world_size(group()) if is_initialized() else 1
 
 
 def backend() -> str:
@@ -110,7 +112,7 @@ def is_main() -> bool:
 
 def barrier() -> None:
     if is_initialized():
-        dist.barrier()
+        dist.barrier(group=group())
 
 
 def launched() -> bool:
@@ -136,6 +138,9 @@ def init_process_group(device_type: str, backend: str | None = None,
     else:
         device = torch.device(device_type)
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
+    global _TRAINING
+    _LAYOUTS.clear()
+    _TRAINING = None
     dist.init_process_group(backend, rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return device
@@ -163,12 +168,71 @@ def spawn(fn, world: int, args: tuple = ()) -> None:
                        join=True, start_method="spawn")
 
 
+# ------------------------------------------------------------ the plan's ranks
+@dataclass(frozen=True)
+class Layout:
+    """This rank's place under a plan: its data index of `data` (which
+    samples of the global batch it draws) and its `mesh.Space` (None
+    without a spatial split)."""
+
+    plan: mesh.BatchShardingPlan | None
+    data_index: int = 0
+    data: int = 1
+    space: mesh.Space | None = None
+
+
+_LAYOUTS: dict[tuple, tuple[Layout | None, object]] = {}
+
+
+def layout(global_batch_size: int, patch_size, device_type: str) -> Layout | None:
+    """This rank's Layout under the plan of (global batch, patch) over the
+    default group's ranks (mesh.plan_batch_sharding); None for a rank the
+    plan leaves idle. The first call for a plan forms its groups, which is
+    collective: every rank makes it, idle ones too, in the same order. Its
+    group of training ranks is `group()` from then on. Without a group: one
+    rank with the whole batch."""
+    global _TRAINING
+    if not is_initialized():
+        return Layout(None)
+    world, me = dist.get_world_size(), dist.get_rank()
+    key = (int(global_batch_size), tuple(int(p) for p in patch_size), world)
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = _form(mesh.plan_batch_sharding(global_batch_size, patch_size, world),
+                              me, device_type)
+    mine, _TRAINING = _LAYOUTS[key]
+    return mine
+
+
+def _form(plan: mesh.BatchShardingPlan | None, me: int, device_type: str):
+    """(this rank's Layout or None if idle, the group of training ranks or
+    None for the default group) of `plan`, its groups formed."""
+    if plan is None:
+        return Layout(None), None
+    # new_group is collective over the default group: idle ranks make it too
+    training = dist.new_group(list(range(plan.ranks))) if plan.ranks < plan.world else None
+    groups = [dist.new_group(list(range(d * plan.space, (d + 1) * plan.space)))
+              for d in range(plan.data)] if plan.space > 1 else []
+    coords = plan.coords(me)
+    if coords is None:
+        return None, training
+    d, s = coords
+    space = None
+    if groups:
+        exchange = "p2p" if backend() == "nccl" or device_type == "cpu" else "collective"
+        space = mesh.Space(groups[d], list(range(d * plan.space, (d + 1) * plan.space)), s,
+                           plan.space_axis, exchange)
+        # a first collective on the group, before its point-to-point exchanges
+        dist.all_reduce(torch.zeros(1, device="cuda" if device_type == "cuda" else "cpu"),
+                        group=groups[d])
+    return Layout(plan, d, plan.data, space), training
+
+
 # ------------------------------------------------------------- collectives
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """t summed over the ranks, in place (no autograd); t as it is without a
     group."""
     if is_initialized():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group())
     return t
 
 
@@ -202,7 +266,7 @@ def agree(flag: bool) -> bool:
     votes = torch.tensor([float(flag), float(not flag)])
     if dist.get_backend() == "nccl":
         votes = votes.cuda()
-    dist.all_reduce(votes)
+    dist.all_reduce(votes, group=group())
     if votes.min() > 0:
         raise RuntimeError(f"the ranks disagree on whether to go on: {int(votes[0])} of "
                            f"{world_size()} say yes")
@@ -233,8 +297,7 @@ class TrainForward(torch.nn.Module):
 
 def wrap(net: torch.nn.Module, forward, device: torch.device,
          ignore: set[int] = frozenset()):
-    """`forward` over `net` under DistributedDataParallel on the default
-    group: the gradients are summed over the ranks (so each rank's loss must
+    """`forward` over `net` under DistributedDataParallel on `group()`: the gradients are summed over the ranks (so each rank's loss must
     be its share of the global loss, as `global_sum` makes it); parameters
     whose id is in `ignore` (the heads no loss reaches) are left out of the
     reducer and keep no gradient; so are those without requires_grad, which
@@ -243,6 +306,7 @@ def wrap(net: torch.nn.Module, forward, device: torch.device,
     module = TrainForward(net, forward)
     DDP._set_params_and_buffers_to_ignore_for_model(
         module, [n for n, p in module.named_parameters() if id(p) in ignore])
-    ddp = DDP(module, device_ids=[device.index] if device.type == "cuda" else None)
-    ddp.register_comm_hook(dist.group.WORLD, _sum_hook)
+    ddp = DDP(module, device_ids=[device.index] if device.type == "cuda" else None,
+              process_group=group())
+    ddp.register_comm_hook(group(), _sum_hook)
     return ddp

@@ -171,7 +171,7 @@ class TrainerV2CascadeFullRes(TrainerV2):
             return CascadePatchSampler3D(
                 dataset, patch_size, self.patch_size, self.local_batch_size, corrupt=corrupt,
                 oversample_foreground_percent=self.local_oversample, pad_mode="constant",
-                seed=seed + RANK_SEED_STRIDE * self.rank, **kwargs)
+                seed=seed + RANK_SEED_STRIDE * self.layout.data_index, **kwargs)
 
         return (lambda w: sampler(self.dataset_tr, self.basic_generator_patch_size,
                                   self.seed + w, True),

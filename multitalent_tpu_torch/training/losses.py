@@ -19,6 +19,15 @@ of the global gradient (the counterpart of `axis_name`, JAX losses.py:
 141,177-183). Not the reference's DDP loss, `ce_local - dice(global)`
 averaged over the ranks, which weights the BCE 1/N against the Dice.
 
+Under the space axis (parallel/mesh.py) each rank holds its slab of every
+sample of its data group, and a loss takes the level's `space`
+(mesh.Share): the means over voxels divide by the whole sample's voxel
+count; sums over voxels are a slab's share of the group's (on a level that
+computes whole, the group's first rank counts them alone); per-sample
+statistics (Dice without batch Dice) are pooled over the space group before
+their ratio, and the sample's value is counted once per group. Only
+`multitalent_loss` and `dc_and_ce_loss` (with their parts) take a space.
+
 The loss zoo of the variant trainers (losses.py:207-327 of the JAX package:
 `gdl_loss`, `topk_cross_entropy`, `focal_ce_loss`, `dc_and_bce_loss`,
 `mcc_loss`, `squared_dice_loss`, `dynamic_task_prioritization_loss`) follows
@@ -71,7 +80,7 @@ def _spatial(x: torch.Tensor) -> tuple[int, ...]:
 
 def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
                      valid_region_mask: torch.Tensor, label_region_matrix: torch.Tensor,
-                     *, batch_dice: bool = True, group=None):
+                     *, batch_dice: bool = True, group=None, space=None):
     """Masked sigmoid BCE + Dice over the region channels.
 
     logits (B, R, *S); labels (B, *S) global labels 0..L (-1 counts as 0);
@@ -83,7 +92,8 @@ def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
     - dice_sum: the per-channel Dice (statistics pooled over the batch when
       `batch_dice`), summed over channels; a channel valid nowhere gives
       0 / eps = 0.
-    With a process `group` the sums run over every rank's samples.
+    With a process `group` the sums run over every rank's samples, with a
+    `space` (mesh.Share) over every rank's slab.
     """
     logits = logits.float()
     b, r = logits.shape[:2]
@@ -93,14 +103,23 @@ def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
     vb = vmask.view(b, r, *ones)
     axes = _spatial(logits)
 
-    bce = (logits.clamp(min=0) - logits * gt
-           + torch.log1p(torch.exp(-logits.abs()))).mean(dim=axes)  # (B, R)
+    terms = logits.clamp(min=0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
+    if space is None:
+        bce = terms.mean(dim=axes)  # (B, R)
+    else:
+        bce = terms.sum(dim=axes) / space.voxels(logits)
     ce = (bce * vmask).sum()
 
     probs = torch.sigmoid(logits)
     tp = (probs * gt * vb).sum(dim=axes)
     fp = (probs * (1 - gt) * vb).sum(dim=axes)
     fn = ((1 - probs) * gt * vb).sum(dim=axes)
+    if space is not None:
+        ce = ce * space.own
+        if batch_dice:
+            tp, fp, fn = tp * space.own, fp * space.own, fn * space.own
+        else:
+            tp, fp, fn = space.pooled(torch.stack((tp, fp, fn))).unbind(0)
     if batch_dice:
         tp, fp, fn = tp.sum(0), fp.sum(0), fn.sum(0)
         if group is not None:
@@ -110,20 +129,24 @@ def multitalent_loss(logits: torch.Tensor, labels: torch.Tensor,
     dc = 2 * tp / (2 * tp + fp + fn).clamp(min=1e-7)
     dc_sum = dc.sum()
     if group is not None and not batch_dice:
+        if space is not None:
+            dc_sum = dc_sum * space.owner
         ce, dc_sum = global_sum(torch.stack((ce, dc_sum)), group)
     return ce - dc_sum, ce, dc_sum
 
 
 def multitalent_ds_loss(outputs, targets, valid_region_mask, label_region_matrix,
-                        weights, *, batch_dice: bool = True, group=None):
+                        weights, *, batch_dice: bool = True, group=None, spaces=None):
     """Deep-supervised MultiTalent loss: the weighted sums of (loss, ce, dice)
-    over the levels; levels of weight 0 are skipped, not computed."""
+    over the levels; levels of weight 0 are skipped, not computed. `spaces`:
+    each level's mesh.Share under the space axis."""
     total = ce_total = dc_total = 0.0
-    for w, o, t in zip(weights, outputs, targets):
+    spaces = [None] * len(outputs) if spaces is None else spaces
+    for w, o, t, space in zip(weights, outputs, targets, spaces):
         if w == 0:
             continue
         loss, ce, dc = multitalent_loss(o, t, valid_region_mask, label_region_matrix,
-                                        batch_dice=batch_dice, group=group)
+                                        batch_dice=batch_dice, group=group, space=space)
         total = total + w * loss
         ce_total = ce_total + w * ce
         dc_total = dc_total + w * dc
@@ -153,11 +176,12 @@ def _global_mean(total: torch.Tensor, count: int, group) -> torch.Tensor:
 
 def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bool = False,
                    do_bg: bool = True, smooth: float = 1e-5, nonlin: str = "softmax",
-                   group=None) -> torch.Tensor:
+                   group=None, space=None) -> torch.Tensor:
     """Negative mean soft Dice of the softmax probabilities (SoftDiceLoss;
     `nonlin` "sigmoid" for region targets of the logits' rank); with a
     process `group`, over every rank's samples (batch Dice: pooled
-    statistics; else the mean over all samples)."""
+    statistics; else the mean over all samples), with a `space`
+    (mesh.Share) over every rank's slab."""
     probs, y = _probs_and_targets(logits, labels, nonlin)
     axes = _spatial(probs)
     if batch_dice:
@@ -165,39 +189,47 @@ def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bo
     tp = (probs * y).sum(dim=axes)
     fp = (probs * (1 - y)).sum(dim=axes)
     fn = ((1 - probs) * y).sum(dim=axes)
+    if space is not None:
+        stats = torch.stack((tp, fp, fn))
+        tp, fp, fn = (stats * space.own if batch_dice else space.pooled(stats)).unbind(0)
     if group is not None and batch_dice:
         tp, fp, fn = global_sum(torch.stack((tp, fp, fn)), group)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8)
     if not do_bg:
         dc = dc[1:] if batch_dice else dc[:, 1:]
     if group is not None and not batch_dice:
-        total, count = global_sum(torch.stack((dc.sum(), dc.new_tensor(dc.numel()))), group)
+        weight = 1.0 if space is None else space.owner
+        total, count = global_sum(torch.stack((dc.sum() * weight,
+                                               dc.new_tensor(dc.numel() * weight))), group)
         return -total / count
     return -dc.mean()
 
 
 def robust_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
-                         group=None) -> torch.Tensor:
+                         group=None, space=None) -> torch.Tensor:
     """Mean softmax cross-entropy over the voxels, labels below 0 counted as
     0 (losses.py:84 of the JAX package); with a process `group` the mean
-    over every rank's voxels."""
+    over every rank's voxels (with a `space`, its slab's share)."""
     target = labels.long().clamp(min=0)
     if group is None:
         return F.cross_entropy(logits.float(), target)
     total = F.cross_entropy(logits.float(), target, reduction="sum")
-    total, count = global_sum(torch.stack((total, total.new_tensor(target.numel()))), group)
+    count = total.new_tensor(target.numel())
+    if space is not None:
+        total, count = total * space.own, count * space.own
+    total, count = global_sum(torch.stack((total, count)), group)
     return total / count
 
 
 def dc_and_ce_loss(logits: torch.Tensor, labels: torch.Tensor, *, batch_dice: bool = False,
                    weight_ce: float = 1.0, weight_dice: float = 1.0,
-                   smooth: float = 1e-5, group=None) -> torch.Tensor:
+                   smooth: float = 1e-5, group=None, space=None) -> torch.Tensor:
     """DC_and_CE_loss (aggregate 'sum'): softmax CE + (-Dice without the
     background channel); with a process `group` the CE is the mean over every
-    rank's voxels."""
-    ce = robust_cross_entropy(logits, labels, group=group)
+    rank's voxels; with a `space` (mesh.Share) over every rank's slab."""
+    ce = robust_cross_entropy(logits, labels, group=group, space=space)
     dc = soft_dice_loss(logits, labels, batch_dice=batch_dice, do_bg=False, smooth=smooth,
-                        group=group)
+                        group=group, space=space)
     return weight_ce * ce + weight_dice * dc
 
 
@@ -359,12 +391,13 @@ def dynamic_task_prioritization_loss(logits: torch.Tensor, labels: torch.Tensor,
     return weight_ce * ce + weight_dice * dice_term, new_running
 
 
-def deep_supervision_loss(outputs, targets, loss_fn, weights) -> torch.Tensor:
+def deep_supervision_loss(outputs, targets, loss_fn, weights, spaces=None) -> torch.Tensor:
     """MultipleOutputLoss2: the weighted sum of loss_fn over the levels,
-    levels of weight 0 skipped."""
+    levels of weight 0 skipped; `spaces`: each level's mesh.Share under the
+    space axis, passed to loss_fn as `space`."""
     total = 0.0
-    for w, o, t in zip(weights, outputs, targets):
+    for i, (w, o, t) in enumerate(zip(weights, outputs, targets)):
         if w == 0:
             continue
-        total = total + w * loss_fn(o, t)
+        total = total + w * (loss_fn(o, t) if spaces is None else loss_fn(o, t, space=spaces[i]))
     return total

@@ -13,7 +13,8 @@ over SwinUNETR with AMSGrad Adam at 5e-4.
 Over several ranks (training/trainers.py) every rank samples with the same
 dataset probabilities, the loss pools BCE and batch-Dice statistics over the
 ranks, and the online evaluation sums tp/fp/fn over them: the loss, its
-gradient and the region-wise Dice are the global batch's.
+gradient and the region-wise Dice are the global batch's, under a space plan
+too (each rank's slab of its data group's samples).
 """
 from __future__ import annotations
 
@@ -124,8 +125,11 @@ class MultiTalentTrainer(TrainerV2):
         weights = [float(w) for w in self.ds_loss_weights]
         loss, ce, dc = multitalent_ds_loss(outputs, targets, extras["valid_region_mask"],
                                            self._label_region_matrix, weights,
-                                           batch_dice=True, group=self.process_group)
+                                           batch_dice=True, group=self.process_group,
+                                           spaces=self.level_spaces)
         return loss, {"ce": ce.detach(), "dice": dc.detach()}
+
+    loss_fn.takes_space = True  # pools over the space axis (trainers.space_plan_refusal)
 
     def on_iteration_metrics(self, aux: dict, was_train: bool) -> None:
         self._epoch_ce.append(float(aux["ce"]))

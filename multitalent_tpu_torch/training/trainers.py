@@ -36,6 +36,20 @@ The heads of deep-supervision weight 0 are left out of the reducer (they get
 no gradient, as in one process). Rank 0 alone writes the log, checkpoints,
 plans and splits. Without a group nothing of this runs.
 
+A global batch smaller than the rank count trains under the JAX package's
+hybrid data x space plan (distributed.layout, parallel/mesh.py): the ranks
+of one space group share their data group's samples. The group's first rank
+draws the host batch and broadcasts it; every rank of the group runs the
+same seeded augmentation on the whole (rotation-enlarged) patch, checks
+that its result is the group's, and keeps its slab of the data and of every
+deep-supervision target whose level splits (the JAX package fences its
+augmentation to batch-only sharding the same way, mesh.py:106-147). The
+network computes on slabs (halo exchanges around kernels A and B, pooled
+norms) and the losses take each level's share (training/losses.py). Only
+the GenericUNet and the residual-encoder UNet on the unfused route, with
+instance norms and the default losses, train so; `space_plan_refusal` says
+what else raises and its ROADMAP item.
+
 A 2D plan (patch of two axes; cli/train.py's network `2d`) trains the 2D
 GenericUNet on slices (PatchSampler2D) under the 2D augmentation chain;
 its validation raises, as neither package predicts a 2D model (the JAX
@@ -72,7 +86,7 @@ from multitalent_tpu_torch.models.swin_unetr import SwinUNETR
 from multitalent_tpu_torch.ops.device_export import segmentation_from_regions_bits
 from multitalent_tpu_torch.ops.fused_unet import make_inference_forward, make_train_forward
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor, refuse_2d_prediction
-from multitalent_tpu_torch.parallel import distributed
+from multitalent_tpu_torch.parallel import distributed, mesh
 from multitalent_tpu_torch.plans import Plans, load_plans, save_plans
 from multitalent_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                    ds_loss_weights)
@@ -83,10 +97,34 @@ from multitalent_tpu_torch.utils.fileops import load_pickle, maybe_mkdir, save_p
 
 
 # a rank's samplers and augmentation stream take the one-process seeds plus
-# this times the rank, so the ranks draw different patches (the reference
-# seeds by rank, nnUNetTrainerV2_DDP.py:60-63); rank 0 keeps the one-process
-# seeds
+# this times its data index (its rank, without a space axis), so the data
+# groups draw different patches (the reference seeds by rank,
+# nnUNetTrainerV2_DDP.py:60-63); rank 0 keeps the one-process seeds
 RANK_SEED_STRIDE = 10_000
+
+
+def space_plan_refusal(trainer_class, plans: Plans, stage: int) -> str | None:
+    """Why `trainer_class` does not train under a plan that splits the patch
+    over ranks (the space axis), with the ROADMAP item that ports it; None
+    where it does."""
+    where = "under a space plan (a global batch smaller than the rank count)"
+    if len(plans.stage(stage).patch_size) != 3:
+        return f"a 2D plan {where} is not ported: ROADMAP queue 1, item 14e"
+    if issubclass(trainer_class, SwinUNETRMixin):
+        return (f"SwinUNETR {where} is not ported (its windows cross the slabs' "
+                f"boundaries): ROADMAP queue 1, item 14c")
+    if issubclass(trainer_class, MedNeXtMixin):
+        return (f"MedNeXt {where} is not ported (depthwise convs on cuDNN, GroupNorm): "
+                f"ROADMAP queue 1, item 14d")
+    if os.environ.get("MTTPU_FUSED_TRAIN", "0") == "1":
+        return (f"MTTPU_FUSED_TRAIN=1 {where} is not ported (kernels D, E, F take whole "
+                f"samples): ROADMAP queue 1, item 14b")
+    norm = trainer_class.network_overrides_for(plans, stage).get("norm", "instance")
+    if norm not in ("instance", "none") or not getattr(trainer_class.loss_fn, "takes_space",
+                                                        False):
+        return (f"{trainer_class.__name__} {where} is not ported (its norm or loss pools "
+                f"nothing over the space group): ROADMAP queue 1, item 14f")
+    return None
 
 
 def init_weights_he(net: torch.nn.Module, generator: torch.Generator,
@@ -130,6 +168,9 @@ class TrainerV2(NetworkTrainerBase):
         self.process_group = distributed.group()
         self.rank, self.world_size = distributed.rank(), distributed.world_size()
         self.ddp = None  # the training forward under DistributedDataParallel
+        self.layout: distributed.Layout | None = None  # this rank's place in the plan
+        self.space: mesh.Space | None = None  # this rank's slab of each sample
+        self.level_spaces: list[mesh.Share] | None = None  # each output level's share
 
         self.initial_lr = 1e-2
         self.weight_decay = 3e-5
@@ -249,7 +290,7 @@ class TrainerV2(NetworkTrainerBase):
         return cls(dataset, patch_size, self.patch_size, self.local_batch_size,
                    oversample_foreground_percent=self.local_oversample,
                    pad_mode="constant", sampling_probabilities=probabilities,
-                   seed=seed + RANK_SEED_STRIDE * self.rank)
+                   seed=seed + RANK_SEED_STRIDE * self.layout.data_index)
 
     def get_basic_generators(self):
         """Sampler factories for the training and validation pipelines
@@ -312,8 +353,10 @@ class TrainerV2(NetworkTrainerBase):
         loss = deep_supervision_loss(outputs, targets,
                                      partial(dc_and_ce_loss, batch_dice=self.batch_dice,
                                              group=self.process_group),
-                                     weights)
+                                     weights, self.level_spaces)
         return loss, {}
+
+    loss_fn.takes_space = True  # pools over the space axis (space_plan_refusal)
 
     def batch_extras(self, batch: dict) -> dict:
         """Arrays derived from the host batch besides data and seg."""
@@ -338,7 +381,7 @@ class TrainerV2(NetworkTrainerBase):
             self.patch_size, self.deep_supervision_scales, self.data_aug_params,
             self.num_input_channels)
         self._aug_generator = torch.Generator(self.device).manual_seed(
-            self.seed + 777 + RANK_SEED_STRIDE * self.rank)
+            self.seed + 777 + RANK_SEED_STRIDE * self.layout.data_index)
         self.network_forward = make_train_forward(self.network)
         self._wrap_for_ranks()
 
@@ -379,16 +422,12 @@ class TrainerV2(NetworkTrainerBase):
         if self.plans is None or force_load_plans:
             self.load_plans_file()
         self.process_plans(self.plans)
-        self.local_batch_size, self.local_oversample = distributed.rank_batch(
-            self.batch_size, self.oversample_foreground_percent, self.rank, self.world_size)
-        if self.process_group is not None:
-            self.print_to_log_file(
-                f"data-parallel over {self.world_size} ranks ({distributed.backend()}): "
-                f"global batch {self.batch_size}, local batch {self.local_batch_size} on rank "
-                f"{self.rank}, foreground-oversample {self.local_oversample:.3f}")
+        self._plan_ranks()
         self.setup_DA_params()
         self.ds_loss_weights = ds_loss_weights(len(self.deep_supervision_scales),
                                                mask_lowest=True)
+        if self.space is not None:
+            self.level_spaces = self._level_spaces()
         if self.output_folder_base is not None and distributed.is_main():
             save_plans(self.plans, os.path.join(maybe_mkdir(self.output_folder_base),
                                                 "plans.pkl"))
@@ -399,8 +438,11 @@ class TrainerV2(NetworkTrainerBase):
                 unpack_dataset(self.folder_with_preprocessed_data)
             distributed.barrier()
             num_threads = int(self.data_aug_params.get("num_threads", 3))
-            self.tr_gen = PrefetchPipeline(tr_factory, num_workers=num_threads)
-            self.val_gen = PrefetchPipeline(val_factory, num_workers=1)
+            if self.space is None or self.space.index == 0:  # the group's first rank draws
+                self.tr_gen = PrefetchPipeline(tr_factory, num_workers=num_threads)
+                self.val_gen = PrefetchPipeline(val_factory, num_workers=1)
+            else:
+                self.tr_gen = self.val_gen = None
             self.print_to_log_file("TRAINING KEYS:\n %s" % str(sorted(self.dataset_tr)),
                                    also_print_to_console=False)
             self.print_to_log_file("VALIDATION KEYS:\n %s" % str(sorted(self.dataset_val)),
@@ -411,25 +453,99 @@ class TrainerV2(NetworkTrainerBase):
         self.was_initialized = True
         self.initialized = True
 
+    def _plan_ranks(self) -> None:
+        """This rank's place in the plan of the plans' batch and patch over
+        the group's ranks (distributed.layout): its data index, its share of
+        the global batch, its space axis; refuses what does not train under
+        a space plan."""
+        self.layout = distributed.layout(self.batch_size, self.patch_size, self.device.type)
+        if self.layout is None:
+            raise RuntimeError("the plan leaves this rank idle; it trains nothing")
+        self.space = self.layout.space
+        self.process_group = distributed.group()
+        self.rank, self.world_size = distributed.rank(), distributed.world_size()
+        if self.space is not None:
+            refusal = space_plan_refusal(type(self), self.plans, self.stage)
+            if refusal is not None:
+                raise NotImplementedError(refusal)
+        self.local_batch_size, self.local_oversample = distributed.rank_batch(
+            self.batch_size, self.oversample_foreground_percent, self.layout.data_index,
+            self.layout.data)
+        if self.process_group is None:
+            return
+        plan, where = self.layout.plan, f"({distributed.backend()}): global batch "
+        if self.space is None:
+            if plan is not None and plan.ranks < plan.world:
+                self.print_to_log_file(plan.description)
+            self.print_to_log_file(
+                f"data-parallel over {self.world_size} ranks {where}{self.batch_size}, local "
+                f"batch {self.local_batch_size} on rank {self.rank}, foreground-oversample "
+                f"{self.local_oversample:.3f}")
+        else:
+            self.print_to_log_file(
+                f"{plan.description} {where}{self.batch_size}, local batch "
+                f"{self.local_batch_size} on rank {self.rank} (data index "
+                f"{self.layout.data_index}, space index {self.space.index}, {self.space.exchange} "
+                f"exchanges), foreground-oversample {self.local_oversample:.3f}")
+
+    def _level_spaces(self) -> list[mesh.Share]:
+        """Each deep-supervision level's share of the space axis: split where
+        the space size divides the level's extent along the split axis,
+        whole below (mesh.Levels)."""
+        ax, size = self.space.axis, self.space.size
+        return [mesh.Share(self.space, round(self.patch_size[ax] * scale[ax]) % size == 0)
+                for scale in self.deep_supervision_scales]
+
+    def _space_batch(self, batch, transform):
+        """Under the space axis: the group's first rank's host batch on every
+        rank of the group, through `transform` (seeded alike), checked to be
+        the group's; returns (this rank's slab of the data, its share of each
+        target, extras)."""
+        holder = [batch]
+        dist = torch.distributed
+        dist.broadcast_object_list(holder, src=self.space.ranks[0], group=self.space.group)
+        batch = holder[0]
+        data, seg = self._to_device(batch["data"]), self._to_device(batch["seg"])
+        extras = {k: self._to_device(v) for k, v in self.batch_extras(batch).items()}
+        data, targets = transform(data, seg)
+        digest = torch.stack([data.double().sum(), *(t.double().sum() for t in targets)])
+        spread = torch.stack([digest, -digest])
+        dist.all_reduce(spread, op=dist.ReduceOp.MAX, group=self.space.group)
+        if not torch.equal(spread[0], -spread[1]):
+            raise RuntimeError("the ranks of a space group augmented their batch differently")
+        targets = [share.slab(t) for share, t in zip(self.level_spaces, targets)]
+        return self.space.slab(data), targets, extras
+
     # ---------------------------------------------------------------- iteration
     def run_iteration(self, data_generator, do_backprop: bool = True,
                       run_online_evaluation: bool = False) -> float:
         t0 = time.perf_counter()
-        batch = next(data_generator)
-        data, seg = self._to_device(batch["data"]), self._to_device(batch["seg"])
-        extras = {k: self._to_device(v) for k, v in self.batch_extras(batch).items()}
         if do_backprop:
-            data, targets = self._augment(data, seg, self._aug_generator)
+            def transform(data, seg):
+                return self._augment(data, seg, self._aug_generator)
+        else:
+            transform = self._val_transform
+        if self.space is None:
+            batch = next(data_generator)
+            data, seg = self._to_device(batch["data"]), self._to_device(batch["seg"])
+            extras = {k: self._to_device(v) for k, v in self.batch_extras(batch).items()}
+            with torch.no_grad():
+                data, targets = transform(data, seg)
+        else:
+            with torch.no_grad():
+                data, targets, extras = self._space_batch(
+                    next(data_generator) if self.space.index == 0 else None, transform)
+        if do_backprop:
             forward = self.network_forward if self.ddp is None else self.ddp
-            outputs = self._outputs(forward(data, deep_supervision=self.deep_supervision))
+            with mesh.activated(self.space):
+                outputs = self._outputs(forward(data, deep_supervision=self.deep_supervision))
             loss, aux = self.loss_fn(outputs, targets, extras)
             self.optimizer.zero_grad()
             loss.backward()
             self.optimizer.step(self.lr_schedule(self.step))
             self.step += 1
         else:
-            with torch.no_grad():
-                data, targets = self._val_transform(data, seg)
+            with torch.no_grad(), mesh.activated(self.space):
                 outputs = self._outputs(self.network_forward(
                     data, deep_supervision=self.deep_supervision))
                 loss, aux = self.loss_fn(outputs, targets, extras)
@@ -738,7 +854,7 @@ class TrainerV2_dummyLoad(TrainerV2_5epochs):
         super().initialize(training, force_load_plans)
         self.dataset_directory = saved
         if training:
-            b, seed = self.local_batch_size, 2 * self.rank
+            b, seed = self.local_batch_size, 2 * self.layout.data_index
             data_shape = (b, self.num_input_channels, *self.basic_generator_patch_size)
             seg_shape = (b, 1, *self.basic_generator_patch_size)
             self.tr_gen = _DummyBatchGen(data_shape, seg_shape, self.num_classes, seed=seed)

@@ -32,6 +32,7 @@ from multitalent_tpu.parallel.mesh import distribute_batch_size as jax_distribut
 from multitalent_tpu.training.multitalent import MultiTalentTrainer as JaxMultiTalentTrainer
 from multitalent_tpu_torch.io.from_jax import generic_unet_state_dict_from_flax
 from multitalent_tpu_torch.parallel import distributed
+from multitalent_tpu_torch.parallel.mesh import plan_batch_sharding
 from multitalent_tpu_torch.training.multitalent import MultiTalentTrainer
 
 from test_torch_port_ddp_ranks import make_trainer, run_ranks
@@ -39,6 +40,7 @@ from test_torch_port_train_slice import NO_AUG, flagship_like_plans, port_plans
 from test_training import make_preprocessed
 
 SPLITS = {"even": 2, "uneven": 3}  # global batch over 2 ranks: [1, 1], [2, 1]
+FLAGSHIP_PATCH = (96, 192, 192)
 
 
 def _sd(params):
@@ -172,8 +174,20 @@ def test_five_over_two_ranks_splits_three_and_two():
 
 @pytest.mark.parametrize("gbs,world", [(2, 3), (1, 2), (4, 8)])
 def test_a_rank_without_a_sample_is_refused(gbs, world):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        distributed.rank_batch(gbs, 0.33, 0, world)
+    """Refused until the space axis was ported (ROADMAP item 14): a global
+    batch smaller than the rank count now plans data = gcd x space at the
+    flagship's patch, and every rank draws its data group's samples, all of
+    the global batch over the groups; a split of the batch alone still
+    refuses a shard without a sample."""
+    plan = plan_batch_sharding(gbs, FLAGSHIP_PATCH, world)
+    d = int(np.gcd(gbs, world))
+    assert (plan.data, plan.space, plan.space_axis, plan.ranks) == (d, world // d, 2, world)
+    shares = [distributed.rank_batch(gbs, 0.33, plan.coords(r)[0], plan.data)
+              for r in range(world)]
+    assert all(b == gbs // d for b, _ in shares)
+    assert sum(b for b, _ in shares[::plan.space]) == gbs
+    with pytest.raises(ValueError, match="gets no sample"):
+        distributed.rank_batch(gbs, 0.33, world - 1, world)
 
 
 def test_one_process_takes_no_group():

@@ -48,32 +48,52 @@ def train(run: dict) -> dict:
     """Train `run` on this rank: its rows of each global batch, the warm-up's
     phase switch before batch `switch_at`, then one validation batch with the
     online evaluation."""
-    rank, world = distributed.rank(), distributed.world_size()
     t = make_trainer(run)
+    # a rank draws its data group's rows (its own rows without a space axis)
+    index, shards = t.layout.data_index, t.layout.data
     losses, phase1 = [], None
     for i, batch in enumerate(run["batches"]):
         if i == run.get("switch_at"):
             phase1 = snapshot(t)
             t._switch_to_phase2()
-        losses.append(t.run_iteration(iter([rows(batch, rank, world)])))
+        losses.append(t.run_iteration(iter([rows(batch, index, shards)])))
     out = {"losses": losses, "weights": snapshot(t), "phase1": phase1,
-           "local_batch": t.local_batch_size, "wrapped": t.ddp is not None}
+           "local_batch": t.local_batch_size, "wrapped": t.ddp is not None,
+           "space": None if t.space is None else (t.space.index, t.space.size, t.space.axis,
+                                                  dict(t.space.sent))}
     if run.get("val_batch") is not None:
-        out["val_loss"] = t.run_iteration(iter([rows(run["val_batch"], rank, world)]),
+        out["val_loss"] = t.run_iteration(iter([rows(run["val_batch"], index, shards)]),
                                           False, True)
         t.finish_online_evaluation()
         out["online_dice"] = t.all_val_eval_metrics[-1]
     return out
 
 
+def slab_statistics(x, space):
+    """In place of mesh.space_sum: this rank's own sum, scaled as the pooled
+    one would be; a norm then takes each slab's own statistics (the control
+    of the space tests)."""
+    return x * space.size
+
+
 def train_runs(spec_file: str, out_prefix: str) -> None:
-    """Every run of the spec on this rank; saves {name: result} to
+    """Every run of the spec on this rank (a run with `slab_norms` set
+    normalises each slab with its own statistics); saves {name: result} to
     `<out_prefix>.<rank>.pt`."""
+    from multitalent_tpu_torch.parallel import mesh
     torch.set_num_threads(1)
     distributed.init_process_group("cpu")
     try:
         spec = torch.load(spec_file, weights_only=False)
-        results = {name: train(run) for name, run in spec.items()}
+        results = {}
+        for name, run in spec.items():
+            pooled = mesh.space_sum
+            if run.get("slab_norms"):
+                mesh.space_sum = slab_statistics
+            try:
+                results[name] = train(run)
+            finally:
+                mesh.space_sum = pooled
         torch.save(results, f"{out_prefix}.{distributed.rank()}.pt")
     finally:
         torch.distributed.destroy_process_group()

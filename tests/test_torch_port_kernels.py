@@ -21,6 +21,8 @@ from multitalent_tpu_torch import _build
 from multitalent_tpu_torch.ops import conv3d as cv
 from multitalent_tpu_torch.ops import wgmma_layout as wl
 
+from test_torch_port_predict import one_thread  # noqa: F401 (fixture: one intra-op thread)
+
 ATOL, RTOL = 2e-4, 1e-3
 
 

@@ -77,6 +77,18 @@ def _phantom(rng) -> np.ndarray:
     return vol + rng.randn(*SHAPE) * 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module of CLI runs (this one, and those that
+    import it): they are many small ops, which the suite's parallel workers
+    slow down many times over when each runs as many threads as the host has
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     """One set of weights in two model folders (bf16 and fp32 checkpoints),

@@ -43,7 +43,7 @@ from multitalent_tpu_torch.io import Geometry, Plans, read_nifti, write_nifti
 from multitalent_tpu_torch.models.generic_unet import build_unet_from_plans
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
 
-from test_torch_port_predict import _phantom, _tiny_plans
+from test_torch_port_predict import _phantom, _tiny_plans, one_thread  # noqa: F401
 from test_torch_port_sliding_window_default import PROB_BOUND
 
 TASK = "Task003_Liver"

@@ -26,6 +26,7 @@ from multitalent_tpu_torch.inference.model_restore import load_model_and_checkpo
 from multitalent_tpu_torch.inference.predict import _make_preprocess_fn
 from multitalent_tpu_torch.ops.sliding_window import SlidingWindowPredictor
 
+from test_torch_port_predict import one_thread  # noqa: F401 (fixture)
 from test_torch_port_predict_cli import CASES, check_against_jax, labels, port_run, task  # noqa: F401
 
 AGREE_EXACT = 0.9999

@@ -189,10 +189,12 @@ def test_train_cli_fine_tunes_from_pretrained_weights(task, monkeypatch, kind, f
 
 
 @pytest.mark.parametrize("argv,match", [
-    # the task's batch of 2 over 3 ranks leaves one rank without a sample
-    (["-gpus", "3"], "ROADMAP queue 1, item 14"),
+    # the task's batch of 2 over 4 ranks plans data 2 x space 2, which trains
+    # (test_torch_port_space_cli.py), but not on the fused route (item 14b)
+    (["-gpus", "4"], "ROADMAP queue 1, item 14"),
 ])
-def test_train_cli_refuses_what_is_not_ported(task, argv, match):
+def test_train_cli_refuses_what_is_not_ported(task, argv, match, monkeypatch):
+    monkeypatch.setenv("MTTPU_FUSED_TRAIN", "1")
     with pytest.raises(NotImplementedError, match=match):
         train.main(["3d_fullres", "MultiTalent_trainer_ddp", TASK, "0", "--device", "cpu",
                     *argv])
