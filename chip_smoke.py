@@ -667,6 +667,8 @@ ZOO_MOMENTUM_EPOCHS = (800, 900, 1000)
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
 # and 1, unpacked shape and factors, and the cost / grid probes' volume
 ARM_SHAPE = (2, 96, 96, 96, 120)
+# the im2col arm's first body (C % 8 != 0): a shape of the card tests'
+IM2COL_FIRST_BODY_SHAPE = ((2, 6, 10, 14, 30), 47)
 PACKED_CASES = (((1, 96, 192, 192, 30), (2, 2)), ((1, 48, 96, 96, 60), (1, 2)))
 PROBE_SHAPE = (1, 96, 96, 96, 128)
 PROBE_ITERS = 10  # timed launches per configuration on the probe path
@@ -5877,10 +5879,17 @@ def phase_probe_path() -> dict:
         "zeros": len(grid_overhead_probe.ZERO_TILES) * timed})
     if launches != expect:
         raise AssertionError(f"probe path launches {launches}, expected {expect}")
+    # the im2col arm's probe runs C = 120: every launch on the TMA body
+    bodies = {"conv3d_im2col": dict(BODY_COUNTS["conv3d_im2col"])}
+    want = {"conv3d_im2col": {**dict.fromkeys(conv_impl_arms.IM2COL_BODIES, 0),
+                              "tma": expect["conv3d_im2col"]}}
+    if bodies != want:
+        raise AssertionError(f"probe path launches by body {bodies}, expected {want}")
     names = [k for k, v in expect.items() if v]
     print(f"probe path ({wall:.1f} s): launches { {k: launches[k] for k in names} } = the "
-          f"probes' parity calls + {timed} per timed configuration")
-    return {"launches": launches, "results": results, "seconds": wall}
+          f"probes' parity calls + {timed} per timed configuration; by body {bodies}")
+    return {"launches": launches, "launches_by_body": bodies, "results": results,
+            "seconds": wall}
 
 
 def phase_wgmma_forms() -> dict:
@@ -5924,6 +5933,7 @@ def phase_probe_kernels() -> dict:
     from multitalent_tpu_torch.probes import conv_impl_arms as ca
     from multitalent_tpu_torch.probes import grid_overhead_probe as gp
     from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+    from multitalent_tpu_torch.probes.probe_bodies import CENTERN_CONFIGS
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5976,10 +5986,36 @@ def phase_probe_kernels() -> dict:
             plain = lambda: ca.winograd_conv3d_ref(x32, pw32)  # noqa: E731
         else:
             plain = lambda: cv.conv3d_same_ref(x32, w)  # noqa: E731
+        if arm == "im2col":  # the body, and what it stages into shared memory
+            plan = ca.im2col_plan(*ARM_SHAPE, c)
+            extra.update(body=plan["body"], l2_to_shared_bytes=plan["l2_to_shared_bytes"])
         report(name, f"{arm} {c}->{c} at {'x'.join(map(str, sp))} N={n}", err, bound,
                lambda: ca.run_arm(arm, x, pw), plain, cudnn, work, **extra)
     del x, x32, ref, x_cl
     torch.cuda.empty_cache()
+    # the im2col arm's first body, which takes C % 8 != 0
+    shape, cout = IM2COL_FIRST_BODY_SHAPE
+    x = rnd(*shape).to(torch.bfloat16)
+    w = rnd(cout, shape[-1], 3, 3, 3, scale=(2.0 / (27 * shape[-1])) ** 0.5)
+    ref = cv.conv3d_same_ref(x.float(), w)
+    bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
+    pw = ca.prepare_arm_weight(w, "im2col")
+    plan = ca.im2col_plan(*shape, cout)
+    before = dict(ca.conv3d_im2col.launches_by_body)
+    err = _check(f"im2col arm {shape} -> {cout}",
+                 ca.conv3d_im2col(x, pw, out=_nan_filled((*shape[:4], cout), dev)), ref, bound)
+    if plan["body"] != "mma_sync" or ca.conv3d_im2col.launches_by_body["mma_sync"] != \
+            before["mma_sync"] + 1:
+        raise AssertionError(f"im2col at {shape}: plan {plan}, launches by body "
+                             f"{ca.conv3d_im2col.launches_by_body} (before {before})")
+    x_cl = x.permute(0, 4, 1, 2, 3)
+    w_cl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    report("conv3d_im2col", f"im2col {shape[-1]}->{cout} at {'x'.join(map(str, shape[1:4]))} "
+           f"N={shape[0]}", err, bound, lambda: ca.conv3d_im2col(x, pw),
+           lambda: cv.conv3d_same_ref(x.float(), w), lambda: F.conv3d(x_cl, w_cl, padding=1),
+           _conv_bound(shape[-1], cout, shape[1:4], shape[0]), arm="im2col", body=plan["body"],
+           l2_to_shared_bytes=plan["l2_to_shared_bytes"])
+    del x, ref, x_cl
 
     # the packed conv at the flagship's stage 0 and stage 1
     for shape, factors in PACKED_CASES:
@@ -6015,7 +6051,7 @@ def phase_probe_kernels() -> dict:
     wc = cc.prepare_center_weight(w)
     vox = n * prod(sp)
     centern_bytes = vox * 2 * c * 2 + 27 * c * c * 2
-    for tile, ndots in ((cc.TILE, 27), (cc.TILE, 12), ((8, 32, 32), 27), ((8, 48, 96), 27)):
+    for tile, ndots in CENTERN_CONFIGS:
         ref = cc.centern_ref(x.float(), w_bf.float(), ndots)
         bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
         err = _check(f"centern {ndots} dots tile {tile}",
@@ -6024,12 +6060,18 @@ def phase_probe_kernels() -> dict:
                              (cc.tap_of_dot(t) for t in range(ndots))]).contiguous()
         x2 = x.reshape(-1, c)
         ceiling = _bound(centern_bytes, bf16_flops=2 * ndots * c * c * vox)["bound_ms"]
+        plan = cc.centern_plan(n, sp, c, ndots, tile)
         report("centern", f"{ndots} dots at {'x'.join(map(str, sp))}x{c} tile {tile}", err,
                bound, lambda: cc.centern(x, wc, ndots, tile),
                lambda: cc.centern_ref(x.float(), w_bf.float(), ndots),
                lambda: torch.einsum("mc,tco->mo", x2, stack),
                _bound(centern_bytes, bf16_flops=2 * c * c * vox),
-               grid=prod(s // t for s, t in zip(sp, tile)), ndots_ceiling_ms=round(ceiling, 4))
+               tiles=plan["tiles"], ndots_ceiling_ms=round(ceiling, 4), body=plan["body"],
+               sub_tile=plan["sub_tile"], blocks=plan["grid"],
+               l2_to_shared_bytes=plan["l2_to_shared_bytes"])
+        rows["centern"][-1]["share_of_ceiling"] = round(ceiling / rows["centern"][-1]["ms"], 4)
+        print(f"centern {ndots} dots tile {tile}: {rows['centern'][-1]['share_of_ceiling']:.1%} "
+              f"of its ndots ceiling")
         del ref
     shape = (*sp, c)
     buf = torch.empty(shape, dtype=torch.bfloat16, device=dev)
@@ -6325,6 +6367,14 @@ def main() -> int:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "timed_at": first["what"]})
+        if kname in ("conv3d_im2col", "centern"):  # the redesigned bodies: every row
+            keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body",
+                    "l2_to_shared_bytes", "ndots_ceiling_ms", "share_of_ceiling", "sub_tile",
+                    "tiles", "blocks")
+            rows[-1]["shapes"] = [{"at": r["what"], **{k: r[k] for k in keys if k in r}}
+                                  for r in res]
+            if kname == "conv3d_im2col":
+                rows[-1]["launches_by_body"] = probe_path["launches_by_body"][kname]
     # the fp32 forms of A, B and C (phase 14): launches from 14b's fp32 train
     # CLI (the main path of --fp32) and its cli.predict, times at 14a's Liver
     # shapes (N=2) beside cuDNN's fp32 call (TF32 off; B's on the concat

@@ -104,12 +104,17 @@ _SIGNATURES = {
     # the probes' kernels (probes/):
     # x, w, out, n, z, y, x, c, cout, coutp, stream (im2col, wino); tap3 adds bn
     "mt_conv_im2col": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    # the same, then body (1 TMA + wgmma, 2 the first), mode (0 whole, 1
+    # copies only, 2 products only), stream
+    "mt_conv_im2col_form": ([_P] * 3 + [_I] * 9 + [_P], _I),
     "mt_conv_tap3": ([_P] * 3 + [_I] * 8 + [_P], _I),
     "mt_conv_wino": ([_P] * 3 + [_I] * 7 + [_P], _I),
     # x, w, out, groups, ngroups, n, z, y, x, c, cout, coutp, bn, fy, fx, stream
     "mt_packed_conv3d": ([_P] * 3 + [ctypes.POINTER(_I)] + [_I] * 11 + [_P], _I),
     # x, w, out, n, z, y, x, c, cout, ndots, bz, by, bx, stream
     "mt_centern": ([_P] * 3 + [_I] * 10 + [_P], _I),
+    # the same, then mode (0 whole, 1 copies only, 2 products only), stream
+    "mt_centern_form": ([_P] * 3 + [_I] * 11 + [_P], _I),
     # out, z, y, x, c, bz, by, bx, stream
     "mt_zeros": ([_P] + [_I] * 7 + [_P], _I),
     "mt_error_string": ([_I], ctypes.c_char_p),

@@ -1,24 +1,52 @@
 // Three arms of the stride-1 SAME 3x3x3 convolution, channels-last bf16, fp32
-// accumulation, each by its own algorithm on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate).
+// accumulation, each by its own algorithm on the tensor cores.
 //
 // Replaces the Pallas TPU kernel scripts/conv_impl_arms.py:_conv_kernel
 // (pallas_call at :248) in three of its five arms:
-//   - 'im2col': one [M, 27*C] x [27*C, Cout] GEMM from a materialised tile;
+//   - 'im2col' (:160-176): one [M, 27*C] x [27*C, Cout] GEMM from a
+//     materialised tile;
 //   - 'tap3':   the x taps folded into K, 9 GEMMs of [M, 3*C] x [3*C, Cout];
 //   - 'wino':   Winograd F(2x2x2, 3x3x3), 64 transform-domain GEMMs.
 // Its 'tap' and 'sum' arms differ on the TPU only in where the accumulator
-// lives (a VMEM scratch or the MXU's result chain); an mma.sync kernel keeps
-// it in registers either way, so both are kernel A (conv3d_same.cu).
+// lives (a VMEM scratch or the MXU's result chain); a kernel here keeps it
+// in registers either way, so both are kernel A (conv3d_same.cu).
 //
 // What bounds them on an H100: the direct conv does 2*27*C*Cout FLOPs per
 // voxel, ~27*C FLOPs per input byte, far above the ~295 FLOP/byte ridge, so
 // the tensor cores bound the function (1.38 TFLOP at (2,96,96,96,120) -> 120:
-// 1.39 ms at 989 TFLOP/s). These forms are simple and bound instead by:
-//   - im2col: 27x the input bytes copied into shared memory, and the whole
-//     [27*C, Cout] weight streamed through shared memory for every 32 output
-//     voxels (one block per SM: the 32-row tile alone is 221 KB at C = 128,
-//     the dynamic shared-memory opt-in);
+// 1.39 ms at 989 TFLOP/s). The forms are bound instead by:
+//   - im2col, C % 8 == 0 (im2col_tma_kernel, wgmma fed by TMA): its own
+//     cost, the im2col rows: every output voxel's 27 taps are loaded into
+//     shared memory, 27x the input bytes (12.2 GB at the timed shape,
+//     mostly L2 hits), plus the weight once a 256-voxel tile (6.1 GB; the
+//     first body streamed it once per 32 voxels, 48.9 GB). What the body
+//     does:
+//       * TMA's im2col mode builds the A operand: one load a (tap, 64
+//         channels, 128 output voxels) with the tap's (dx, dy, dz) as the
+//         load's offsets, 128 consecutive output voxels a column across
+//         lines, planes and samples; the map's bounding box (corners -1,
+//         -1) gives the SAME halo, and elements outside the tensor (the
+//         halo, channels past C) come back 0, so no mask and no zeroing;
+//         the 128-byte swizzle is wgmma's K-major A layout;
+//       * the prepared weight through a 2-D tiled map (64-column boxes of
+//         64 rows, 128-byte swizzle: wgmma's MN-major B operand); rows past
+//         a tap's channels meet zero A channels, rows past the weight come
+//         back 0;
+//       * wgmma m64n128k16 into fp32 registers: one producer thread issues
+//         every load, two consumer warpgroups own 128 rows each of a
+//         256-voxel tile, a ring of 4 stages (A 32 KB + B 16 KB) with
+//         full/empty mbarriers, one commit group a stage and wait_group<1>;
+//         persistent blocks walk the tiles, so a tile's epilogue overlaps
+//         the next tile's first loads;
+//       * the epilogue rounds to bf16 once and stores the Cout real columns
+//         of the rows inside the volume, staged through 32 KB of shared
+//         memory beside the ring so that whole rows leave (hopper.cuh
+//         store_m64n128);
+//   - im2col, other C (im2col_kernel, the first body, mma.sync): 27x the
+//     input bytes copied into shared memory, and the whole [27*C, Cout]
+//     weight streamed through shared memory for every 32 output voxels (one
+//     block per SM: the 32-row tile alone is 221 KB at C = 128, the dynamic
+//     shared-memory opt-in);
 //   - tap3: kernel A's schedule with the three x taps of a 16-channel chunk
 //     side by side in one row (an x-concatenated copy of the haloed box built
 //     once per chunk), so each (dz, dy) is one GEMM with K = 48;
@@ -38,6 +66,7 @@
 //   wino weight: (64, C_P, CoutP) bf16, [(a*4 + b)*4 + c, ci, co], CoutP a
 //     multiple of 128.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -167,6 +196,159 @@ __global__ void __launch_bounds__(THREADS, 1) im2col_kernel(ArmParams p) {
       const int co = n0 + wn * 32 + j * 8 + (lane % 4) * 2;
       if (co < p.cout) store_pair(row, co, p.cout, acc[j][h * 2], acc[j][h * 2 + 1]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// im2col on wgmma fed by TMA (C % 8 == 0): a tile is 256 consecutive output
+// voxels (of N * Z * Y * X) x 128 output channels; its K loop runs over the
+// 27 taps x the 64-channel chunks of C, one ring stage each: the tap's
+// im2col rows of the 256 voxels (two 128-pixel loads) and the chunk's 64
+// weight rows.
+// ---------------------------------------------------------------------------
+constexpr int IT_M = 256;                 // output voxels a tile
+constexpr int IT_N = 128;                 // output channels a tile
+constexpr int IT_COL = 128;               // pixels of one im2col load
+constexpr int IT_CH = 64;                 // channels a pixel of a load (128 bytes)
+constexpr int IT_A_BYTES = IT_M * 128;    // 32768
+constexpr int IT_B_BOX = IT_CH * 128;     // 64 weight rows x 64 columns: 8192
+constexpr int IT_STAGE = IT_A_BYTES + 2 * IT_B_BOX;  // 49152
+constexpr int IT_STAGES = 4;
+constexpr int IT_EPI = 64 * 256;  // a consumer warpgroup's epilogue rows (one m64)
+constexpr int IT_THREADS = 384;   // two consumer warpgroups, one producer warpgroup
+constexpr int IT_SMEM = 1024 + IT_STAGES * IT_STAGE + 2 * IT_EPI + 16 * IT_STAGES;
+static_assert(IT_SMEM <= SMEM_LIMIT, "the im2col ring's shared memory");
+
+struct ItParams {
+  __nv_bfloat16* out;
+  long long vox;  // N * Z * Y * X
+  int z, y, x, cp, cout;
+  int chunks;   // 64-channel chunks a tap
+  int tiles_m;  // 256-voxel tiles; tiles_m * CoutP / 128 tiles in all
+  int tiles;
+  int mode;  // hopper::MODE_*
+};
+
+__global__ void __launch_bounds__(IT_THREADS, 1)
+    im2col_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w, const ItParams p) {
+  using namespace mt::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t epi = ring + IT_STAGES * IT_STAGE;
+  const uint32_t bars = epi + 2 * IT_EPI;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (IT_STAGES + s); };
+  const int steps = 27 * p.chunks;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < IT_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warpgroup: its first thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    tma_prefetch(&map_x);
+    tma_prefetch(&map_w);
+    int q = 0;  // stages issued
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const long long m0 = (long long)(tile % p.tiles_m) * IT_M;
+      const int n0 = tile / p.tiles_m * IT_N;
+      int cx[2], cy[2], cz[2], cn[2];  // each column's first output voxel
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        long long m = m0 + h * IT_COL;
+        cx[h] = (int)(m % p.x);
+        m /= p.x;
+        cy[h] = (int)(m % p.y);
+        m /= p.y;
+        cz[h] = (int)(m % p.z);
+        cn[h] = (int)(m / p.z);  // N past the last voxel: the load is all zeros
+      }
+      for (int i = 0; i < steps; ++i, ++q) {
+        const int s = q % IT_STAGES;
+        mbar_wait(empty(s), ((q / IT_STAGES) & 1) ^ 1);
+        if (p.mode == MODE_PRODUCTS) {
+          mbar_arrive(full(s));
+          continue;
+        }
+        const int tap = i / p.chunks, ch = i - tap * p.chunks;
+        const int row = tap * p.cp + ch * IT_CH;
+        const uint32_t stage = ring + s * IT_STAGE;
+        mbar_expect_tx(full(s), IT_STAGE);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          tma_load_im2col_5d(stage + h * IT_COL * 128, &map_x, full(s), ch * IT_CH, cx[h] - 1,
+                             cy[h] - 1, cz[h] - 1, cn[h], (uint16_t)(tap % 3),
+                             (uint16_t)(tap / 3 % 3), (uint16_t)(tap / 9));
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          tma_load_2d(stage + IT_A_BYTES + b * IT_B_BOX, &map_w, full(s), n0 + b * 64, row);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows [128 wg, + 128) of a tile, two m64
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  auto release = [&](int q) {
+    if (lane == 0) mbar_arrive(empty(q % IT_STAGES));
+  };
+  float acc[2][64];
+  int q = 0;  // stages consumed
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const long long m0 = (long long)(tile % p.tiles_m) * IT_M;
+    const int n0 = tile / p.tiles_m * IT_N;
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub)
+#pragma unroll
+      for (int r = 0; r < 64; ++r) acc[sub][r] = 0.f;
+    for (int i = 0; i < steps; ++i, ++q) {
+      const int s = q % IT_STAGES;
+      mbar_wait(full(s), (q / IT_STAGES) & 1);
+      if (p.mode == MODE_COPIES) {
+        release(q);
+        continue;
+      }
+      // k16 steps of this chunk: the rest of C_P (the prepared weight's rows
+      // of this tap) where under 64
+      const int ksteps = min(4, (p.cp - (i % p.chunks) * IT_CH) / KC);
+      const uint32_t a = ring + s * IT_STAGE + wg * 128 * 128;
+      const uint32_t b = ring + s * IT_STAGE + IT_A_BYTES;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k >= ksteps) break;
+        const uint64_t bd = b_desc(b, IT_B_BOX, k);
+#pragma unroll
+        for (int sub = 0; sub < 2; ++sub)
+          mma_m64n128k16(acc[sub], a_desc(a + sub * 64 * 128, k), bd);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (i > 0) release(q - 1);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (p.mode != MODE_COPIES) release(q - 1);
+    auto voxel = [&](int r) {
+      const long long m = m0 + r;
+      return m < p.vox ? m : -1ll;
+    };
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub)
+      store_m64n128(acc[sub], epi + wg * IT_EPI, 1 + wg, p.out, p.cout, n0, wg * 128 + sub * 64,
+                    voxel);
   }
 }
 
@@ -478,21 +660,70 @@ cudaError_t launch(K kernel, dim3 grid, int smem, const ArmParams& p, cudaStream
   return cudaGetLastError();
 }
 
+// The im2col arm on its body: 1 the TMA + wgmma body (C % 8 == 0), 2 the
+// first body; mode (the TMA body's forms) hopper::MODE_*.
+cudaError_t im2col_run(const ArmParams& p, int body, int mode, cudaStream_t stream) {
+  if (p.cp > 128 || p.coutp % I2C_N != 0 || p.cout > p.coutp || mode < hopper::MODE_WHOLE ||
+      mode > hopper::MODE_PRODUCTS || (body != 2 && p.c % 8 != 0) ||
+      (body == 2 && (mode != hopper::MODE_WHOLE || i2c_smem(p.cp) > SMEM_LIMIT)) ||
+      body < 1 || body > 2)
+    return cudaErrorInvalidValue;
+  if (body == 2) {
+    const long long blocks = (long long)p.n * p.z * p.y * cdiv(p.x_, I2C_M);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    return launch(im2col_kernel, dim3((unsigned)blocks, p.coutp / I2C_N), i2c_smem(p.cp), p,
+                  stream);
+  }
+  ItParams q{};
+  q.out = p.out;
+  q.vox = (long long)p.n * p.z * p.y * p.x_;
+  const long long tiles_m = (q.vox + IT_M - 1) / IT_M;
+  if (tiles_m * (p.coutp / IT_N) > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  q.z = p.z;
+  q.y = p.y;
+  q.x = p.x_;
+  q.cp = p.cp;
+  q.cout = p.cout;
+  q.chunks = cdiv(p.cp, IT_CH);
+  q.tiles_m = (int)tiles_m;
+  q.tiles = q.tiles_m * (p.coutp / IT_N);
+  q.mode = mode;
+  CUtensorMap mx, mw;
+  const cuuint64_t wdims[2] = {(cuuint64_t)p.coutp, (cuuint64_t)27 * p.cp};
+  const cuuint32_t wbox[2] = {64, IT_CH};
+  if (!hopper::im2col_map(&mx, p.x, p.n, p.z, p.y, p.x_, p.c, IT_CH, IT_COL) ||
+      !hopper::tiled_map(&mw, p.w, 2, wdims, wbox))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(im2col_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, IT_SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = q.tiles < sm_count() ? q.tiles : sm_count();
+  im2col_tma_kernel<<<grid, IT_THREADS, IT_SMEM, stream>>>(mx, mw, q);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// im2col arm: C <= 128, coutp a multiple of 128. Returns cudaGetLastError()
-// after the launch (0 on success).
+// im2col arm: C <= 128, coutp a multiple of 128; the TMA + wgmma body where
+// C % 8 == 0 (16-byte pixel strides), else the first body
+// (probes/conv_impl_arms.py:im2col_plan makes the same choice). Returns
+// cudaGetLastError() after the launch (0 on success).
 int mt_conv_im2col(const void* x, const void* w, void* out, int n, int z, int y, int xd, int c,
                    int cout, int coutp, void* stream) {
   const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
-  if (p.cp > 128 || coutp % I2C_N != 0 || cout > coutp || i2c_smem(p.cp) > SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)n * z * y * cdiv(xd, I2C_M);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch(im2col_kernel, dim3((unsigned)blocks, coutp / I2C_N), i2c_smem(p.cp), p,
-                     static_cast<cudaStream_t>(stream));
+  return (int)im2col_run(p, c % 8 == 0 ? 1 : 2, hopper::MODE_WHOLE,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The im2col arm on a chosen body (1 TMA + wgmma, 2 the first body) and, on
+// the TMA body, its form (0 whole, 1 copies only, 2 products only), for the
+// probes' comparisons.
+int mt_conv_im2col_form(const void* x, const void* w, void* out, int n, int z, int y, int xd,
+                        int c, int cout, int coutp, int body, int mode, void* stream) {
+  const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
+  return (int)im2col_run(p, body, mode, static_cast<cudaStream_t>(stream));
 }
 
 // tap3 arm: bn 32 or 64, coutp a multiple of bn.

@@ -7,10 +7,12 @@ Counterpart of scripts/conv_cost_isolate.py. Its Pallas kernel
 on the center view of a padded (1, 96, 96, 96, 128) bf16 volume, fp32
 accumulation, in (8, 16, 16) tiles. `centern` (csrc/probe_kernels.cu) is its
 kernel here, with `ndots` and the tile each block owns as parameters (the
-same kernel serves probes/grid_overhead_probe.py); `centern_ref` is its
-plain version (fp32 matmuls in torch). The wrapper takes the plain version
-for CPU tensors only, launches the kernel for CUDA tensors (or raises) and
-counts launches in `centern.launches`.
+same kernel serves probes/grid_overhead_probe.py): wgmma on sub-tiles of up
+to 256 voxels of the tile, each a TMA box, the ndots weight matrices
+streamed through a TMA ring (`centern_plan` gives its sub-tiles and bytes);
+`centern_ref` is its plain version (fp32 matmuls in torch). The wrapper
+takes the plain version for CPU tensors only, launches the kernel for CUDA
+tensors (or raises) and counts launches in `centern.launches`.
 
 The script's arms (:121-131) map to the port as:
 - dense27: kernel A (`ops/conv3d.conv3d_same`) at 120 -> 120 on the packed
@@ -30,6 +32,7 @@ the CPU.
 from __future__ import annotations
 
 import argparse
+from math import prod
 
 import numpy as np
 import torch
@@ -75,6 +78,44 @@ def check_tile(shape, tile) -> None:
     """Raise unless `tile` (bz, by, bx) divides the volume `shape` (Z, Y, X)."""
     if len(tile) != 3 or any(int(s) % int(t) for s, t in zip(shape, tile)):
         raise ValueError(f"the tile {tuple(tile)} must divide the volume {tuple(shape)}")
+
+
+def centern_sub_tiles(tile) -> tuple[int, int, int]:
+    """The kernel's sub-tile (sz, sy, sx) of a tile (bz, by, bx): a box that
+    divides the tile, of at most 256 voxels, taking the fewest m64 products
+    over the tile, then the fewest boxes; of equals the first with the
+    longest x, then y (csrc/probe_kernels.cu:sub_tiles)."""
+    bz, by, bx = (int(t) for t in tile)
+    best = None
+    for sx in range(min(bx, 256), 0, -1):
+        if bx % sx:
+            continue
+        for sy in range(min(by, 256), 0, -1):
+            if by % sy or sx * sy > 256:
+                continue
+            for sz in range(min(bz, 256), 0, -1):
+                if bz % sz or sx * sy * sz > 256:
+                    continue
+                boxes = (bx // sx) * (by // sy) * (bz // sz)
+                key = (boxes * -(-(sx * sy * sz) // 64), boxes)
+                if best is None or key < best[0]:
+                    best = (key, (sz, sy, sx))
+    return best[1]
+
+
+def centern_plan(n: int, spatial, c: int, ndots: int, tile=TILE, sms: int = 132) -> dict:
+    """What the kernel does at these sizes: its sub-tile, the sub-tiles and
+    blocks of the launch (persistent blocks: at most one an SM) and the bytes
+    its copies stage into shared memory (each sub-tile's voxels, 64 channels
+    a box, and the ndots (C, 128) weight matrices once a sub-tile)."""
+    check_tile(spatial, tile)
+    sub = centern_sub_tiles(tile)
+    tiles = n * prod(int(s) // int(t) for s, t in zip(spatial, tile))
+    subs = tiles * prod(int(t) // s for t, s in zip(tile, sub))
+    rows = prod(sub)
+    return {"body": "wgmma", "sub_tile": sub, "tiles": tiles, "sub_tiles": subs,
+            "grid": min(tiles, sms),
+            "l2_to_shared_bytes": subs * (-(-c // 64) * rows * 128 + ndots * c * 128 * 2)}
 
 
 def centern(x: torch.Tensor, w: torch.Tensor, ndots: int, tile=TILE,

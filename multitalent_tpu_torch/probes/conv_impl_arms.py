@@ -9,8 +9,12 @@ what bounds each is noted there):
 - 'tap', 'sum': kernel A (`ops/conv3d.conv3d_same`). On the TPU the two differ
   only in where the 27 dots accumulate (a VMEM scratch or the MXU's result
   chain); an mma.sync kernel keeps the accumulator in registers either way.
-- 'im2col' (`conv3d_im2col`): a block materialises the [32, 27*C] im2col rows
-  of 32 output voxels in shared memory and runs one GEMM with K = 27*C.
+- 'im2col' (`conv3d_im2col`): one GEMM with K = 27*C over the im2col rows
+  of the output voxels. Where C % 8 == 0 on wgmma fed by TMA's im2col mode
+  (256 output voxels a tile, each tap's rows loaded with the tap as the
+  load's offsets); else on the first body, which materialises the [32, 27*C]
+  rows of 32 voxels in shared memory (`im2col_plan` says which, and
+  `conv3d_im2col.launches_by_body` counts launches by body).
 - 'tap3' (`conv3d_tap3`): the x taps folded into K, 9 GEMMs with K = 3*C per
   16-channel chunk, on an x-concatenated copy of the haloed box.
 - 'wino' (`conv3d_wino`): Winograd F(2x2x2, 3x3x3); weights transformed on
@@ -54,6 +58,10 @@ PARITY_BOUND = 1e-3
 # (1, 16, 32, 32, 120), He-scaled weights) max|d| reads 4.38e-2 of a bound of
 # 7.86e-2 (mean 5.8e-3), and the control (G_FAULTY) reads 2.35, mean 0.377
 RTOL, ATOL = 1e-2, 1e-2
+# the im2col arm's bodies (csrc/conv_arms.cu): "tma", TMA im2col loads and
+# wgmma, where every pixel row is 16-byte aligned (C % 8 == 0); "mma_sync",
+# the first body (mma.sync on rows materialised by cp.async), for other C
+IM2COL_BODIES = ("tma", "mma_sync")
 
 # Winograd F(2x2x2, 3x3x3): G (scripts/conv_impl_arms.py:332-333), B^T
 # (:99-100) and A^T (:122)
@@ -202,19 +210,45 @@ def _launch_arm(name: str, x: torch.Tensor, pw: ArmWeight, arm: str,
     return out
 
 
+def im2col_plan(n: int, z: int, y: int, x: int, c: int, cout: int,
+                body: str | None = None) -> dict:
+    """The im2col arm's body for these sizes (as mt_conv_im2col chooses it,
+    by C alone, unless `body` names one) and the bytes its copies bring from
+    L2 into shared memory a launch, zeros of the halo and of padded channels
+    included: the TMA body a stage of 256 voxels x 64 channels and 64 weight
+    rows x 128 columns for every (tile, tap, 64-channel chunk); the first
+    body the [32, 27*C_P] rows of its 32 voxels and the whole [27*C_P, 128]
+    weight a block."""
+    cp = _round_up(c, cv.KC)
+    nblk = _round_up(cout, 128) // 128
+    vox = n * z * y * x
+    if (body or ("tma" if c % 8 == 0 else "mma_sync")) == "tma":
+        tiles = -(-vox // 256) * nblk
+        steps = 27 * -(-cp // 64)
+        return {"body": "tma", "tiles": tiles, "stages_per_tile": steps,
+                "l2_to_shared_bytes": tiles * steps * (256 * 128 + 64 * 128 * 2)}
+    blocks = n * z * y * -(-x // 32) * nblk
+    return {"body": "mma_sync", "tiles": blocks, "stages_per_tile": 27 * cp // cv.KC,
+            "l2_to_shared_bytes": blocks * (32 * 27 * cp + 27 * cp * 128) * 2}
+
+
 def conv3d_im2col(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = None
                   ) -> torch.Tensor:
     """The im2col arm: SAME 3x3x3 conv of x (N, Z, Y, X, Cin <= 128) -> (N,
-    Z, Y, X, Cout), bf16, fp32 accumulation, into `out` where given. CPU
-    tensors take the direct conv (conv3d_same_ref)."""
+    Z, Y, X, Cout), bf16, fp32 accumulation, into `out` where given, on the
+    body `im2col_plan` names. CPU tensors take the direct conv
+    (conv3d_same_ref)."""
     if x.device.type == "cpu":
         return _util.into(out, cv.conv3d_same_ref(x, arm_weight_taps(pw)))
+    body = im2col_plan(*(int(s) for s in x.shape), pw.cout)["body"]
     out = _launch_arm("mt_conv_im2col", x, pw, "im2col", out)
     conv3d_im2col.launches += 1
+    conv3d_im2col.launches_by_body[body] += 1
     return out
 
 
 conv3d_im2col.launches = 0
+conv3d_im2col.launches_by_body = dict.fromkeys(IM2COL_BODIES, 0)
 
 
 def conv3d_tap3(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = None

@@ -1,0 +1,246 @@
+"""What paces the im2col arm's and centern's bodies on the H100, and how
+they compare with another checkout's build of the same C entries.
+
+Its readings, each on the card, at the shapes the probes time:
+
+- the im2col arm at (2, 96, 96, 96, 120) -> 120 (csrc/conv_arms.cu): the
+  TMA + wgmma body as it is, its copies-only form (the consumers hand every
+  stage back without a product) and products-only form (the producer
+  signals every stage without loading it), and the first body (mma.sync on
+  rows materialised by cp.async) through `mt_conv_im2col_form`;
+- centern (csrc/probe_kernels.cu) at every (tile, ndots) configuration of
+  the cost and grid probes: as it is, copies only, products only;
+- with `--against DIR`, that checkout's conv_arms.cu and probe_kernels.cu
+  built into a library of its own under `_build/probe_bodies/`, its
+  `mt_conv_im2col` and `mt_centern` timed in turns with this build's
+  (against, this, this, against; the lesser of each pair) and checked
+  against the same plain version.
+
+Each output is checked against its plain version (the fp32 direct conv,
+`centern_ref`) within the probes' bound; each row gives the bound, centern's
+ndots ceiling and the bytes the body stages into shared memory
+(`im2col_plan`, `centern_plan`).
+
+    python -m multitalent_tpu_torch.probes.probe_bodies [--against DIR] [--out JSON]
+
+`--device cpu` has nothing to time and only says so.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+from math import prod
+from pathlib import Path
+
+import torch
+
+from multitalent_tpu_torch import _build
+from multitalent_tpu_torch.ops import conv3d as cv
+from multitalent_tpu_torch.probes import _util
+from multitalent_tpu_torch.probes import conv_cost_isolate as cc
+from multitalent_tpu_torch.probes import conv_impl_arms as ca
+from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_HBM_BYTES = 3.35e12
+MODES = ("whole", "copies", "products")
+# (tile, ndots) of conv_cost_isolate's center27 / center12 and the grid probe
+CENTERN_CONFIGS = tuple(dict.fromkeys(((cc.TILE, 27), (cc.TILE, 12), *gp.CONV_CONFIGS)))
+AGAINST_SOURCES = ("conv_arms.cu", "probe_kernels.cu")
+AGAINST_ENTRIES = {"mt_conv_im2col": _build._SIGNATURES["mt_conv_im2col"],
+                   "mt_centern": _build._SIGNATURES["mt_centern"]}
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of work of nbytes and bf16 tensor-core flops, and what
+    sets it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def build_against(tree: Path) -> ctypes.CDLL:
+    """The other checkout's probe kernels (conv_arms.cu, probe_kernels.cu and
+    the headers beside them), one nvcc a source, linked into a library of
+    their own."""
+    csrc = Path(tree) / "multitalent_tpu_torch" / "csrc"
+    texts = [p.read_bytes() for p in sorted(csrc.glob("*.cuh"))]
+    texts += [(csrc / src).read_bytes() for src in AGAINST_SOURCES]
+    key = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode() + b"".join(texts)).hexdigest()[:16]
+    out = _build.BUILD_DIR / "probe_bodies" / key
+    lib = out / "libprobe_bodies_against.so"
+    if not lib.is_file():
+        out.mkdir(parents=True, exist_ok=True)
+        nvcc = [_build.find_nvcc(), *_build.NVCC_FLAGS]
+        objs = [str(out / src.replace(".cu", ".o")) for src in AGAINST_SOURCES]
+        procs = [subprocess.Popen([*nvcc, "-I", str(csrc), "-c", "-o", obj, str(csrc / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for obj, src in zip(objs, AGAINST_SOURCES)]
+        logs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed for {tree}:\n" + "\n".join(logs))
+        link = subprocess.run([*nvcc, "-shared", "-o", str(lib), *objs], capture_output=True,
+                              text=True)
+        if link.returncode:
+            raise RuntimeError(f"link failed for {tree}: {link.stdout}{link.stderr}")
+    loaded = ctypes.CDLL(str(lib))
+    for name, (argtypes, restype) in AGAINST_ENTRIES.items():
+        fn = getattr(loaded, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return loaded
+
+
+def _call(lib: ctypes.CDLL, name: str, out: torch.Tensor, *args):
+    """A launcher of C entry `name` of `lib` on the current stream that
+    returns `out`."""
+    def call():
+        code = getattr(lib, name)(*args, torch.cuda.current_stream(out.device).cuda_stream)
+        if code:
+            raise RuntimeError(f"{name} failed: CUDA error {code}")
+        return out
+    return call
+
+
+def _held(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    err = (got.float() - ref).abs().max().item()
+    bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
+    if not err <= bound:
+        raise AssertionError(f"{name}: max|d| {err:.3e} > {bound:.3e}")
+    return err
+
+
+def _timed(row: dict, calls: dict, iters: int) -> None:
+    """Each call's median in turns (forward, then backward; the lesser of
+    each pair) into row[name + '_ms']."""
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            ms = _util.median_ms(calls[name], iters)
+            row[f"{name}_ms"] = min(ms, row.get(f"{name}_ms", ms))
+
+
+def im2col(device: torch.device, gen: torch.Generator, against, iters: int) -> dict:
+    lib = _build.library()
+    n, z, y, xd, c = ca.TIMED_SHAPE
+    x = torch.randn(ca.TIMED_SHAPE, generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn(c, c, 3, 3, 3, generator=gen, device=device) * (2.0 / (27 * c)) ** 0.5
+    pw = ca.prepare_arm_weight(w, "im2col")
+    ref = cv.conv3d_same_ref(x.float(), w)
+    sizes = (n, z, y, xd, c, pw.cout, pw.coutp)
+    outs = {}
+
+    def form(body: int, mode: int):
+        out = outs.setdefault((body, mode), torch.full((n, z, y, xd, pw.cout), float("nan"),
+                                                       dtype=torch.bfloat16, device=device))
+        return _call(lib, "mt_conv_im2col_form", out, x.data_ptr(), pw.w.data_ptr(),
+                     out.data_ptr(), *sizes, body, mode)
+
+    calls = {"whole": form(1, 0), "first_body": form(2, 0)}
+    if against is not None:
+        out = torch.full_like(outs[(1, 0)], float("nan"))
+        calls = {"against": _call(against, "mt_conv_im2col", out, x.data_ptr(),
+                                  pw.w.data_ptr(), out.data_ptr(), *sizes), **calls}
+    row = {"kernel": "conv3d_im2col", "at": f"{c}->{c} at {z}x{y}x{xd} N={n}"}
+    for name, call in calls.items():
+        row[f"{name}_err"] = _held(f"im2col {name}", call(), ref)
+    del ref
+    _timed(row, calls, iters)
+    for mode in (1, 2):
+        row[f"{MODES[mode]}_ms"] = _util.median_ms(form(1, mode), iters)
+    vox = n * z * y * xd
+    row["bound_ms"], row["bound_by"] = bound_ms(vox * 2 * c * 2 + 27 * c * c * 2,
+                                                2 * 27 * c * c * vox)
+    for key, body in (("l2_to_shared_bytes", "tma"), ("first_body_l2_to_shared_bytes",
+                                                      "mma_sync")):
+        row[key] = ca.im2col_plan(n, z, y, xd, c, pw.cout, body)["l2_to_shared_bytes"]
+    return row
+
+
+def centern(device: torch.device, gen: torch.Generator, against, iters: int) -> list[dict]:
+    lib = _build.library()
+    n, sp, c = 1, (cc.SIZE,) * 3, cc.C
+    x = torch.randn(n, *sp, c, generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn(c, c, 3, 3, 3, generator=gen, device=device) * 0.05
+    wc = cc.prepare_center_weight(w)
+    w_bf = w.to(torch.bfloat16).float()
+    vox = n * prod(sp)
+    rows = []
+    for tile, ndots in CENTERN_CONFIGS:
+        ref = cc.centern_ref(x.float(), w_bf, ndots)
+        args = (n, *sp, c, c, ndots, *tile)
+
+        def form(mode: int, lib=lib, args=args):
+            out = torch.full_like(x, float("nan"))
+            return _call(lib, "mt_centern_form", out, x.data_ptr(), wc.data_ptr(),
+                         out.data_ptr(), *args, mode)
+
+        calls = {"whole": form(0)}
+        if against is not None:
+            out = torch.full_like(x, float("nan"))
+            calls = {"against": _call(against, "mt_centern", out, x.data_ptr(), wc.data_ptr(),
+                                      out.data_ptr(), *args), **calls}
+        row = {"kernel": "centern", "at": f"{ndots} dots at {'x'.join(map(str, sp))}x{c} "
+                                          f"tile {tile}", "ndots": ndots, "tile": list(tile)}
+        for name, call in calls.items():
+            row[f"{name}_err"] = _held(f"centern {row['at']} {name}", call(), ref)
+        del ref
+        _timed(row, calls, iters)
+        for mode in (1, 2):
+            row[f"{MODES[mode]}_ms"] = _util.median_ms(form(mode), iters)
+        nbytes = vox * 2 * c * 2 + 27 * c * c * 2
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * c * c * vox)
+        row["ndots_ceiling_ms"] = bound_ms(nbytes, 2 * ndots * c * c * vox)[0]
+        row["share_of_ceiling"] = row["ndots_ceiling_ms"] / row["whole_ms"]
+        plan = cc.centern_plan(n, sp, c, ndots, tile)
+        # the first body staged a tile's voxels 128 at a time, each time
+        # with the ndots weight matrices
+        row.update(sub_tile=list(plan["sub_tile"]), grid=plan["grid"],
+                   l2_to_shared_bytes=plan["l2_to_shared_bytes"],
+                   first_body_l2_to_shared_bytes=-(-prod(tile) // 128) * plan["tiles"]
+                   * (128 * c + ndots * c * 128) * 2)
+        rows.append(row)
+    return rows
+
+
+def _line(row: dict) -> str:
+    times = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()
+                      if k.endswith("_ms") and k not in ("bound_ms", "ndots_ceiling_ms"))
+    extra = (f", ndots ceiling {row['ndots_ceiling_ms']:.3f} ms "
+             f"({row['share_of_ceiling']:.0%} of it), sub-tile {row['sub_tile']}, "
+             f"grid {row['grid']}" if "ndots_ceiling_ms" in row else "")
+    return (f"{row['kernel']} {row['at']}: {times} ms; bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}){extra}; staged {row['l2_to_shared_bytes'] / 1e9:.2f} GB "
+            f"(first body {row['first_body_l2_to_shared_bytes'] / 1e9:.2f} GB)")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="python -m multitalent_tpu_torch.probes.probe_bodies",
+                                 description="the im2col arm's and centern's bodies: whole, "
+                                             "copies only, products only, beside another build")
+    ap.add_argument("--against", help="another checkout, its probe kernels built as they are")
+    ap.add_argument("--iters", type=int, default=10, help="timed calls a median")
+    ap.add_argument("--out", help="write the rows as JSON here")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    device = _util.resolve_device(args.device)
+    if device.type != "cuda":
+        print("no card: skipping the bodies' readings (they time CUDA kernels only)")
+        return {}
+    name = torch.cuda.get_device_name(device)
+    print(f"# device={name}", flush=True)
+    against = build_against(Path(args.against)) if args.against else None
+    gen = torch.Generator(device=device).manual_seed(0)
+    result = {"device": name, "against": args.against, "rows": []}
+    for row in [im2col(device, gen, against, args.iters), *centern(device, gen, against,
+                                                                   args.iters)]:
+        print(_line(row), flush=True)
+        result["rows"].append(row)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return result
+
+
+if __name__ == "__main__":
+    main()

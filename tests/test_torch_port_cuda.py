@@ -1480,6 +1480,32 @@ def test_conv_arm_matches_the_direct_conv(device, arm, shape, cout):
         assert (bad.float() - ref).abs().max().item() > ca.ATOL + ca.RTOL * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("shape,cout,body", [
+    ((1, 8, 16, 16, 120), 120, "tma"),   # the script's parity shape
+    ((2, 6, 10, 14, 64), 47, "tma"),     # ragged last M tile, batch 2, Cout < CoutP
+    ((1, 5, 7, 9, 40), 24, "tma"),       # C under one 64-channel chunk, odd sizes
+    ((2, 6, 10, 14, 30), 47, "mma_sync"),  # C % 8 != 0: the first body
+    ((1, 4, 6, 8, 13), 24, "mma_sync"),
+])
+def test_im2col_bodies_match_the_direct_conv(device, shape, cout, body):
+    """The im2col arm on the body its plan names, by C: TMA im2col loads and
+    wgmma where C % 8 == 0, else the first body; into a NaN-filled buffer,
+    against the fp32 direct conv, counted in launches_by_body."""
+    from multitalent_tpu_torch.probes import conv_impl_arms as ca
+    assert ca.im2col_plan(*shape, cout)["body"] == body
+    rng = np.random.default_rng(12)
+    x = _rand(rng, shape).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, shape[-1], 3, 3, 3), (2 / (27 * shape[-1])) ** 0.5).to(device)
+    before = dict(ca.conv3d_im2col.launches_by_body)
+    out = _nan_filled((*shape[:4], cout), device)
+    got = ca.conv3d_im2col(x, ca.prepare_arm_weight(w, "im2col"), out=out)
+    torch.cuda.synchronize()
+    after = ca.conv3d_im2col.launches_by_body
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == body) for k in after}
+    ref = cv.conv3d_same_ref(x.float(), w)
+    assert (got.float() - ref).abs().max().item() <= ca.ATOL + ca.RTOL * ref.abs().max().item()
+
+
 @pytest.mark.parametrize("factors,c,groups,cout", [
     ((2, 2), 30, None, 24), ((1, 2), 60, None, 24), ((2, 2), 32, (20, 12), 24),
     ((2, 2), 13, (6, 7), 30),    # odd groups: element loads
@@ -1521,3 +1547,25 @@ def test_centern_and_zeros_match_plain(device, ndots, tile, cout):
     torch.cuda.synchronize()
     assert gp.zeros.launches == before + 1 and z.data_ptr() == out.data_ptr()
     assert (z == 0).all()
+
+
+@pytest.mark.parametrize("shape,ndots,tile,cout", [
+    ((1, 16, 16, 16, 128), 1, (8, 16, 16), 128),    # one dot
+    ((2, 8, 8, 16, 128), 27, (2, 4, 8), 120),       # a tile under one 256-voxel sub-tile
+    ((1, 12, 12, 24, 64), 12, (6, 6, 12), 47),      # 432 voxels: 216-row sub-tiles
+    ((1, 16, 24, 48, 128), 27, (8, 24, 48), 128),   # fewer tiles than SMs
+    ((1, 8, 8, 8, 16), 5, (4, 8, 8), 16),           # C = 16: one k16 step
+])
+def test_centern_sub_tiles_match_plain(device, shape, ndots, tile, cout):
+    """centern's wgmma body at tiles of other sub-tile shapes (whole,
+    ragged and partial m64 products), into a NaN-filled buffer."""
+    from multitalent_tpu_torch.probes import conv_cost_isolate as cc
+    rng = np.random.default_rng(13)
+    x = _rand(rng, shape).to(device, torch.bfloat16)
+    w = _rand(rng, (cout, shape[-1], 3, 3, 3), 0.05).to(device)
+    before = cc.centern.launches
+    out = _nan_filled((*shape[:4], cout), device)
+    got = cc.centern(x, cc.prepare_center_weight(w), ndots, tile, cout, out=out)
+    torch.cuda.synchronize()
+    assert cc.centern.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    _assert_close(got, cc.centern_ref(x.float(), w.to(torch.bfloat16).float(), ndots))

@@ -160,6 +160,64 @@ def test_centern_matches_the_pallas_body(ndots, block):
                    (3, 16, 16))
 
 
+@pytest.mark.parametrize("c", [8, 13, 16, 30, 40, 64, 120, 128])
+def test_im2col_plan_picks_the_body_by_channels(c):
+    """The im2col arm's body by C alone, as mt_conv_im2col picks it: TMA
+    im2col loads and wgmma where every pixel row is 16-byte aligned (C % 8
+    == 0), the first body otherwise; and what each stages a launch (the
+    TMA body: a 48 KB stage a tile, tap and 64-channel chunk; the first: a
+    block's [32, 27*C_P] rows and the whole weight)."""
+    n, z, y, x, cout = 2, 6, 10, 14, 47
+    plan = ca.im2col_plan(n, z, y, x, c, cout)
+    cp = -(-c // 16) * 16
+    if c % 8 == 0:  # 7 tiles of 256 voxels, each a 48 KB stage a tap and chunk
+        assert plan["body"] == "tma" and plan["tiles"] == 7
+        assert plan["l2_to_shared_bytes"] == 7 * 27 * -(-cp // 64) * (32768 + 16384)
+    else:
+        blocks = n * z * y * 1
+        assert plan["body"] == "mma_sync" and plan["tiles"] == blocks
+        assert plan["l2_to_shared_bytes"] == blocks * (32 * 27 * cp * 2 + 27 * cp * 256)
+
+
+def test_probe_plans_at_the_timed_shapes():
+    """The L2 -> shared bytes of the two redesigned bodies at the shapes the
+    probes time: the im2col arm at (2, 96, 96, 96, 120) -> 120, 6,912 tiles
+    of 54 stages (12.2 GB of im2col rows, 6.1 GB of weight); centern at
+    96^3 x 128 in (8, 16, 16) tiles, 3,456 sub-tiles of 256 voxels, each
+    reading the ndots (128, 128) weight matrices once (3.1 GB at 27 dots)."""
+    plan = ca.im2col_plan(2, 96, 96, 96, 120, 120)
+    assert (plan["body"], plan["tiles"], plan["stages_per_tile"]) == ("tma", 6912, 54)
+    assert plan["l2_to_shared_bytes"] == 6912 * 54 * (32768 + 16384)
+    for ndots in (27, 12):
+        plan = cc.centern_plan(1, (96, 96, 96), 128, ndots)
+        assert (plan["sub_tile"], plan["tiles"], plan["sub_tiles"], plan["grid"]) == (
+            (1, 16, 16), 432, 3456, 132)
+        assert plan["l2_to_shared_bytes"] == 3456 * (2 * 32768 + ndots * 32768)
+    assert cc.centern_plan(1, (96, 96, 96), 128, 27, (8, 48, 96))["grid"] == 24
+
+
+@pytest.mark.parametrize("tile,sub", [((8, 16, 16), (1, 16, 16)), ((8, 32, 32), (1, 8, 32)),
+                                      ((8, 48, 96), (1, 8, 32)), ((2, 4, 8), (2, 4, 8)),
+                                      ((6, 6, 12), (3, 6, 12)), ((4, 12, 24), (2, 4, 24)),
+                                      ((96, 96, 96), (1, 8, 32)), ((1, 1, 300), (1, 1, 60))])
+def test_centern_sub_tiles_take_the_fewest_products(tile, sub):
+    """centern's sub-tile of a tile: a box dividing it, at most 256 voxels
+    and 256 along x, taking the fewest m64 products over the tile (checked
+    against every such box), then the fewest boxes."""
+    got = cc.centern_sub_tiles(tile)
+    assert got == sub
+    assert all(t % s == 0 for t, s in zip(tile, got)) and np.prod(got) <= 256
+
+    def cost(box):
+        boxes = int(np.prod([t // s for t, s in zip(tile, box)]))
+        return boxes * -(-int(np.prod(box)) // 64), boxes
+
+    divisors = [[d for d in range(1, t + 1) if t % d == 0] for t in tile]
+    every = [(a, b, c) for a in divisors[0] for b in divisors[1] for c in divisors[2]
+             if a * b * c <= 256]
+    assert cost(got) == min(cost(box) for box in every)
+
+
 @pytest.mark.parametrize("block", [(8, 16, 16), (4, 8, 8), (16, 16, 16)])
 def test_zeros_matches_the_pallas_body(block):
     """Row 12 (zeros): scripts/grid_overhead_probe.py:49-50 writes zeros into
@@ -179,7 +237,7 @@ def test_zeros_matches_the_pallas_body(block):
 
 @pytest.mark.parametrize("probe", ["conv_impl_arms", "sparse_conv_arm", "conv_cost_isolate",
                                    "grid_overhead_probe", "wgrad_forms", "conv_a_forms",
-                                   "wgmma_forms", "fp32_forms"])
+                                   "wgmma_forms", "fp32_forms", "probe_bodies"])
 def test_probe_entry_point_runs_on_the_cpu(probe, capsys):
     """`python -m multitalent_tpu_torch.probes.<probe> --device cpu`: the
     plain run; without --device, a machine without a card refuses."""
