@@ -100,8 +100,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    equal what the probes' arguments launch); then each probe kernel, into a
    NaN-filled output buffer, against its plain version at
    the shapes its script times (the conv arms tap/sum (kernel A), im2col,
-   tap3 and wino at (2,96,96,96,120) -> 120, the Winograd kernel also
-   against a control with one row of G wrong that must break its bound; the
+   tap3 and wino at (2,96,96,96,120) -> 120 on their TMA + wgmma bodies,
+   each with its body and L2 -> shared bytes, the Winograd kernel also with
+   its own products floor, against its plain version with its rounding
+   points and against a control with one row of G wrong that must break its
+   bound; the three arms' first bodies at C % 8 != 0, counted by body; the
    packed conv at the flagship's stages 0 and 1; the center-view conv and
    the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
@@ -667,8 +670,13 @@ ZOO_MOMENTUM_EPOCHS = (800, 900, 1000)
 # (scripts/conv_impl_arms.py:366), the packed conv at the flagship's stages 0
 # and 1, unpacked shape and factors, and the cost / grid probes' volume
 ARM_SHAPE = (2, 96, 96, 96, 120)
-# the im2col arm's first body (C % 8 != 0): a shape of the card tests'
-IM2COL_FIRST_BODY_SHAPE = ((2, 6, 10, 14, 30), 47)
+# the conv arms' first bodies (C % 8 != 0): a shape of the card tests'
+FIRST_BODY_SHAPE = ((2, 6, 10, 14, 30), 47)
+# the Winograd kernel against its plain version with the same rounding
+# points (U, V and the output each rounded to bf16 once): the two round fp32
+# sums taken in other orders (64-channel chunks, wgmma's order) to bf16, so
+# they may differ by one bf16 ulp of the output, at most 2^-7 of max|ref|
+WINO_SELF_RTOL, WINO_SELF_ATOL = 2.0 ** -7, 1e-3
 PACKED_CASES = (((1, 96, 192, 192, 30), (2, 2)), ((1, 48, 96, 96, 60), (1, 2)))
 PROBE_SHAPE = (1, 96, 96, 96, 128)
 PROBE_ITERS = 10  # timed launches per configuration on the probe path
@@ -5879,10 +5887,11 @@ def phase_probe_path() -> dict:
         "zeros": len(grid_overhead_probe.ZERO_TILES) * timed})
     if launches != expect:
         raise AssertionError(f"probe path launches {launches}, expected {expect}")
-    # the im2col arm's probe runs C = 120: every launch on the TMA body
-    bodies = {"conv3d_im2col": dict(BODY_COUNTS["conv3d_im2col"])}
-    want = {"conv3d_im2col": {**dict.fromkeys(conv_impl_arms.IM2COL_BODIES, 0),
-                              "tma": expect["conv3d_im2col"]}}
+    # the arms' probe runs C = 120: every im2col, tap3 and wino launch on
+    # the TMA + wgmma body
+    bodies = {k: dict(BODY_COUNTS[k]) for k in conv_impl_arms.kernels()}
+    want = {k: {**dict.fromkeys(conv_impl_arms.ARM_BODIES, 0), "tma": expect[k]}
+            for k in conv_impl_arms.kernels()}
     if bodies != want:
         raise AssertionError(f"probe path launches by body {bodies}, expected {want}")
     names = [k for k, v in expect.items() if v]
@@ -5939,6 +5948,7 @@ def phase_probe_kernels() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = {}
+    arm_plans = {"im2col": ca.im2col_plan, "tap3": ca.tap3_plan, "wino": ca.wino_plan}
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -5984,37 +5994,51 @@ def phase_probe_kernels() -> dict:
                 raise AssertionError(f"the Winograd bound passes a faulty G: {extra}")
             pw32 = ca.prepare_arm_weight(w, "wino", dtype=torch.float32)
             plain = lambda: ca.winograd_conv3d_ref(x32, pw32)  # noqa: E731
+            # against its own plain version, U rounded as the kernel's and V
+            # rounded to bf16 as the kernel rounds it
+            own = ca.winograd_conv3d_ref(x32, pw, v_dtype=torch.bfloat16)
+            own_bound = WINO_SELF_ATOL + WINO_SELF_RTOL * own.abs().max().item()
+            extra.update(own_err=_check("wino arm vs its plain version", ca.conv3d_wino(
+                x, pw, out=_nan_filled((*ARM_SHAPE[:4], c), dev)), own, own_bound),
+                own_bound=own_bound)
+            del own
         else:
             plain = lambda: cv.conv3d_same_ref(x32, w)  # noqa: E731
-        if arm == "im2col":  # the body, and what it stages into shared memory
-            plan = ca.im2col_plan(*ARM_SHAPE, c)
+        if name != "conv3d_same":  # the body, what it stages into shared memory
+            plan = arm_plans[arm](*ARM_SHAPE, c)
             extra.update(body=plan["body"], l2_to_shared_bytes=plan["l2_to_shared_bytes"])
+            if arm == "wino":  # and Winograd's own floor: its 64 GEMMs at the peak
+                extra["products_floor_ms"] = round(
+                    ca.products_floor_ms(plan["products_flops"]), 4)
         report(name, f"{arm} {c}->{c} at {'x'.join(map(str, sp))} N={n}", err, bound,
                lambda: ca.run_arm(arm, x, pw), plain, cudnn, work, **extra)
     del x, x32, ref, x_cl
     torch.cuda.empty_cache()
-    # the im2col arm's first body, which takes C % 8 != 0
-    shape, cout = IM2COL_FIRST_BODY_SHAPE
+    # each arm's first body, which takes C % 8 != 0
+    shape, cout = FIRST_BODY_SHAPE
     x = rnd(*shape).to(torch.bfloat16)
     w = rnd(cout, shape[-1], 3, 3, 3, scale=(2.0 / (27 * shape[-1])) ** 0.5)
     ref = cv.conv3d_same_ref(x.float(), w)
     bound = ca.ATOL + ca.RTOL * ref.abs().max().item()
-    pw = ca.prepare_arm_weight(w, "im2col")
-    plan = ca.im2col_plan(*shape, cout)
-    before = dict(ca.conv3d_im2col.launches_by_body)
-    err = _check(f"im2col arm {shape} -> {cout}",
-                 ca.conv3d_im2col(x, pw, out=_nan_filled((*shape[:4], cout), dev)), ref, bound)
-    if plan["body"] != "mma_sync" or ca.conv3d_im2col.launches_by_body["mma_sync"] != \
-            before["mma_sync"] + 1:
-        raise AssertionError(f"im2col at {shape}: plan {plan}, launches by body "
-                             f"{ca.conv3d_im2col.launches_by_body} (before {before})")
     x_cl = x.permute(0, 4, 1, 2, 3)
     w_cl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-    report("conv3d_im2col", f"im2col {shape[-1]}->{cout} at {'x'.join(map(str, shape[1:4]))} "
-           f"N={shape[0]}", err, bound, lambda: ca.conv3d_im2col(x, pw),
-           lambda: cv.conv3d_same_ref(x.float(), w), lambda: F.conv3d(x_cl, w_cl, padding=1),
-           _conv_bound(shape[-1], cout, shape[1:4], shape[0]), arm="im2col", body=plan["body"],
-           l2_to_shared_bytes=plan["l2_to_shared_bytes"])
+    for arm, name in (("im2col", "conv3d_im2col"), ("tap3", "conv3d_tap3"),
+                      ("wino", "conv3d_wino")):
+        kernel = ca.kernels()[name]
+        pw = ca.prepare_arm_weight(w, arm)
+        plan = arm_plans[arm](*shape, cout)
+        before = dict(kernel.launches_by_body)
+        err = _check(f"{arm} arm {shape} -> {cout}",
+                     kernel(x, pw, out=_nan_filled((*shape[:4], cout), dev)), ref, bound)
+        if plan["body"] != "mma_sync" or kernel.launches_by_body["mma_sync"] != \
+                before["mma_sync"] + 1:
+            raise AssertionError(f"{arm} at {shape}: plan {plan}, launches by body "
+                                 f"{kernel.launches_by_body} (before {before})")
+        report(name, f"{arm} {shape[-1]}->{cout} at {'x'.join(map(str, shape[1:4]))} "
+               f"N={shape[0]}", err, bound, lambda: kernel(x, pw),
+               lambda: cv.conv3d_same_ref(x.float(), w), lambda: F.conv3d(x_cl, w_cl, padding=1),
+               _conv_bound(shape[-1], cout, shape[1:4], shape[0]), arm=arm, body=plan["body"],
+               l2_to_shared_bytes=plan["l2_to_shared_bytes"])
     del x, ref, x_cl
 
     # the packed conv at the flagship's stage 0 and stage 1
@@ -6367,13 +6391,15 @@ def main() -> int:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "timed_at": first["what"]})
-        if kname in ("conv3d_im2col", "centern"):  # the redesigned bodies: every row
+        if kname in ("conv3d_im2col", "conv3d_tap3", "conv3d_wino", "centern"):
+            # the redesigned bodies: every row
             keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body",
                     "l2_to_shared_bytes", "ndots_ceiling_ms", "share_of_ceiling", "sub_tile",
-                    "tiles", "blocks")
+                    "tiles", "blocks", "products_floor_ms", "own_err", "own_bound",
+                    "control_max")
             rows[-1]["shapes"] = [{"at": r["what"], **{k: r[k] for k in keys if k in r}}
                                   for r in res]
-            if kname == "conv3d_im2col":
+            if kname != "centern":
                 rows[-1]["launches_by_body"] = probe_path["launches_by_body"][kname]
     # the fp32 forms of A, B and C (phase 14): launches from 14b's fp32 train
     # CLI (the main path of --fp32) and its cli.predict, times at 14a's Liver

@@ -108,7 +108,11 @@ _SIGNATURES = {
     # copies only, 2 products only), stream
     "mt_conv_im2col_form": ([_P] * 3 + [_I] * 9 + [_P], _I),
     "mt_conv_tap3": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    # tap3's: x, w, out, n, z, y, x, c, cout, coutp, bn, body, mode, stream
+    "mt_conv_tap3_form": ([_P] * 3 + [_I] * 10 + [_P], _I),
     "mt_conv_wino": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    # as im2col's; mode 3: the box loads and the transform only
+    "mt_conv_wino_form": ([_P] * 3 + [_I] * 9 + [_P], _I),
     # x, w, out, groups, ngroups, n, z, y, x, c, cout, coutp, bn, fy, fx, stream
     "mt_packed_conv3d": ([_P] * 3 + [ctypes.POINTER(_I)] + [_I] * 11 + [_P], _I),
     # x, w, out, n, z, y, x, c, cout, ndots, bz, by, bx, stream

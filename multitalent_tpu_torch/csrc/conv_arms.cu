@@ -47,22 +47,38 @@
 //     weight streamed through shared memory for every 32 output voxels (one
 //     block per SM: the 32-row tile alone is 221 KB at C = 128, the dynamic
 //     shared-memory opt-in);
-//   - tap3: kernel A's schedule with the three x taps of a 16-channel chunk
-//     side by side in one row (an x-concatenated copy of the haloed box built
-//     once per chunk), so each (dz, dy) is one GEMM with K = 48;
-//   - wino: 8/27 of the direct conv's multiplies, but each block streams the
-//     64 transformed weight matrices from L2 for its 32 tiles, builds each
-//     transform-domain input on the CUDA cores (B^T, adds only, fp32, rounded
-//     to bf16 once) and applies A^T with 8 FMAs per accumulator per position.
-//     The weights are transformed on the host (G w G^T per axis in fp32,
-//     rounded to bf16 once). Every spatial size must be even.
-//
+//   - tap3, C % 8 == 0 (tap3_tma_kernel, wgmma fed by TMA): the x taps
+//     folded into K without restaging: a 4x8x8 output box's haloed rows are
+//     three TMA loads a 32-channel chunk, shifted by one voxel in x (zeros
+//     outside the tensor), and with an x extent of 8 every (dz, dy) shift is
+//     whole 8-row swizzle atoms, so each tap is the same A descriptor with
+//     its start moved; the weight once a 256-voxel tile through a TMA ring
+//     (6.1 GB at the timed shape, 2.5 GB of x-shifted rows);
+//   - tap3, other C (tap3_kernel, the first body): kernel A's schedule with
+//     the three x taps of a 16-channel chunk side by side in one row (an
+//     x-concatenated copy of the haloed box built by cp.async once per
+//     chunk), so each (dz, dy) is one mma.sync GEMM with K = 48;
+//   - wino: 8/27 of the direct conv's multiplies (0.469 ms of transform-domain
+//     products at the timed shape), but its input transform runs on the
+//     CUDA cores, about 10 instructions a transformed value, and every 64
+//     tiles x 64 columns (what the registers hold) stream the 64
+//     transformed weight matrices from L2 (7.25 GB at the timed shape).
+//     C % 8 == 0 (wino_tma_kernel): two transform warpgroups build each
+//     position's V into swizzled buffers (B^T, adds only, fp32, rounded to
+//     bf16 once), two consumer warpgroups run wgmma on it, A^T along x on
+//     the tensor cores and along y and z on the CUDA cores; other C
+//     (wino_kernel, the first body): V built by every thread, mma.sync, A^T
+//     with 8 FMAs per accumulator per position. The weights are transformed
+//     on the host (G w G^T per axis in fp32, rounded to bf16 once). Every
+//     spatial size must be even.
+
 // Layouts (C_P: C rounded up to 16; the probes' wrappers prepare the weights):
 //   x:   (N, Z, Y, X, C) bf16, contiguous; out: (N, Z, Y, X, Cout) bf16.
 //   im2col weight: (27 * C_P, CoutP) bf16, row tap * C_P + c, CoutP a
 //     multiple of 128, tap = (dz*3 + dy)*3 + dx.
 //   tap3 weight: (C_P / 16, 9, 48, CoutP) bf16, [chunk, dz*3 + dy, dx*16 + c],
-//     CoutP a multiple of BN (32 or 64).
+//     CoutP a multiple of BN (32 or 64); the TMA body reads two 16-channel
+//     chunks a box.
 //   wino weight: (64, C_P, CoutP) bf16, [(a*4 + b)*4 + c, ci, co], CoutP a
 //     multiple of 128.
 #include "common.cuh"
@@ -475,6 +491,202 @@ __global__ void __launch_bounds__(THREADS, 1) tap3_kernel(ArmParams p, Tiles tl)
 }
 
 // ---------------------------------------------------------------------------
+// tap3 on wgmma fed by TMA (C % 8 == 0): a tile is a 4x8x8 output box (256
+// voxels) x 128 output channels. Its x extent of 8 makes a (dz, dy) shift of
+// the haloed rows a whole number of 8-row swizzle atoms, so the
+// x-concatenated rows are three TMA loads of the box grown by 1 in z and y,
+// at x0 - 1, x0 and x0 + 1 (the dx taps; zeros outside the tensor and past
+// C), once a 32-channel chunk, 64-byte rows with the 64-byte swizzle,
+// double-buffered; every (dz, dy, dx) reads them through the same A
+// descriptor with its start moved, nothing restaged. The weight reaches a
+// 4-stage ring one (chunk, dz, dy, dx) at a time, 32 rows x 128 columns
+// (MN-major, 128-byte swizzle). One producer thread, two consumer
+// warpgroups on two m64 (one output z plane each), persistent blocks; the
+// epilogue rounds once and leaves through the spent chunk's buffer.
+// ---------------------------------------------------------------------------
+constexpr int T3W_BZ = 4, T3W_BY = 8, T3W_BX = 8;
+constexpr int T3W_LINES = (T3W_BZ + 2) * (T3W_BY + 2);  // haloed x lines of 8 voxels
+constexpr int T3W_CH = 32;                              // channels a chunk (64 bytes)
+constexpr int T3W_XBOX = T3W_LINES * T3W_BX * 64;       // one dx load: 30720
+constexpr int T3W_XSET = 3 * T3W_XBOX;                  // a chunk's three: 92160
+constexpr int T3W_XBUFS = 2;
+constexpr int T3W_N = 128;                              // output channels a tile
+constexpr int T3W_WBOX = T3W_CH * 128;                  // 32 rows x 64 columns: 4096
+constexpr int T3W_WSTAGE = 2 * T3W_WBOX;
+constexpr int T3W_WSTAGES = 4;
+constexpr int T3W_THREADS = 384;  // two consumer warpgroups, one producer warpgroup
+constexpr int T3W_SMEM =
+    1024 + T3W_XBUFS * T3W_XSET + T3W_WSTAGES * T3W_WSTAGE + 16 * (T3W_XBUFS + T3W_WSTAGES);
+static_assert(T3W_SMEM <= SMEM_LIMIT, "the tap3 body's shared memory");
+static_assert(T3W_XSET >= 2 * 2 * 64 * 256, "the epilogue's staging fits a chunk's buffer");
+
+struct T3Params {
+  __nv_bfloat16* out;
+  int z, y, x, cout;
+  int tz, ty, tx;  // boxes per axis
+  int nblk;        // 128-column blocks
+  int chunks;      // 32-channel chunks of C
+  int tiles;       // N * tz * ty * tx * nblk
+  int mode;        // hopper::MODE_*
+};
+
+__global__ void __launch_bounds__(T3W_THREADS, 1)
+    tap3_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w, const T3Params p) {
+  using namespace mt::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t xbuf = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t wring = xbuf + T3W_XBUFS * T3W_XSET;
+  const uint32_t bars = wring + T3W_WSTAGES * T3W_WSTAGE;
+  auto xfull = [&](int b) { return bars + 8 * b; };
+  auto xempty = [&](int b) { return bars + 8 * (T3W_XBUFS + b); };
+  auto wfull = [&](int s) { return bars + 8 * (2 * T3W_XBUFS + s); };
+  auto wempty = [&](int s) { return bars + 8 * (2 * T3W_XBUFS + T3W_WSTAGES + s); };
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < T3W_XBUFS; ++b) {
+      mbar_init(xfull(b), 1);
+      mbar_init(xempty(b), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < T3W_WSTAGES; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // tile t's output box corner and first column (column blocks innermost)
+  auto corner = [&](int t, int& nb, int& z0, int& y0, int& x0, int& n0) {
+    n0 = t % p.nblk * T3W_N;
+    t /= p.nblk;
+    x0 = t % p.tx * T3W_BX;
+    t /= p.tx;
+    y0 = t % p.ty * T3W_BY;
+    t /= p.ty;
+    z0 = t % p.tz * T3W_BZ;
+    nb = t / p.tz;
+  };
+
+  if (threadIdx.x >= 256) {  // the producer warpgroup: its first thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    tma_prefetch(&map_x);
+    tma_prefetch(&map_w);
+    // the three x-shifted boxes of this block's j-th chunk, as soon as their
+    // buffer is free: one chunk ahead of the weights
+    auto load_x = [&](int j) {
+      const int tile = blockIdx.x + j / p.chunks * gridDim.x;
+      if (tile >= p.tiles) return;
+      const int b = j % T3W_XBUFS;
+      mbar_wait(xempty(b), ((j / T3W_XBUFS) & 1) ^ 1);
+      if (p.mode == MODE_PRODUCTS) {
+        mbar_arrive(xfull(b));
+        return;
+      }
+      int nb, z0, y0, x0, n0;
+      corner(tile, nb, z0, y0, x0, n0);
+      mbar_expect_tx(xfull(b), T3W_XSET);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        tma_load_5d(xbuf + b * T3W_XSET + dx * T3W_XBOX, &map_x, xfull(b), j % p.chunks * T3W_CH,
+                    x0 - 1 + dx, y0 - 1, z0 - 1, nb);
+    };
+    load_x(0);
+    int j = 0, q = 0;  // chunks and weight stages issued
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int n0 = tile % p.nblk * T3W_N;
+      for (int ch = 0; ch < p.chunks; ++ch, ++j) {
+        load_x(j + 1);
+        for (int tap = 0; tap < 27; ++tap, ++q) {
+          const int s = q % T3W_WSTAGES;
+          mbar_wait(wempty(s), ((q / T3W_WSTAGES) & 1) ^ 1);
+          if (p.mode == MODE_PRODUCTS) {
+            mbar_arrive(wfull(s));
+            continue;
+          }
+          mbar_expect_tx(wfull(s), T3W_WSTAGE);
+          // rows dx * 16 + c of (chunk16 2 ch and 2 ch + 1, dz * 3 + dy):
+          // the chunk's 32 channels
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            tma_load_4d(wring + s * T3W_WSTAGE + h * T3W_WBOX, &map_w, wfull(s), n0 + h * 64,
+                        tap % 3 * KC, tap / 3, 2 * ch);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns the box's z planes 2 wg and 2 wg + 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  float acc[2][64];
+  int j = 0, q = 0;  // chunks and weight stages consumed
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub)
+#pragma unroll
+      for (int r = 0; r < 64; ++r) acc[sub][r] = 0.f;
+    int b = 0;
+    for (int ch = 0; ch < p.chunks; ++ch, ++j) {
+      b = j % T3W_XBUFS;
+      mbar_wait(xfull(b), (j / T3W_XBUFS) & 1);
+      for (int tap = 0; tap < 27; ++tap, ++q) {
+        const int s = q % T3W_WSTAGES;
+        mbar_wait(wfull(s), (q / T3W_WSTAGES) & 1);
+        if (p.mode == MODE_COPIES) {
+          if (lane == 0) mbar_arrive(wempty(s));
+          continue;
+        }
+        // output plane oz reads haloed line (oz + dz) * 10 + dy of the dx box:
+        // 8 lines of 8 rows from there, 512 bytes a line
+        const int dz = tap / 9, dy = tap / 3 % 3, dx = tap % 3;
+        const uint32_t a = xbuf + b * T3W_XSET + dx * T3W_XBOX +
+                           ((2 * wg + dz) * (T3W_BY + 2) + dy) * T3W_BX * 64;
+        const uint32_t w = wring + s * T3W_WSTAGE;
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const uint64_t bd = b_desc(w, T3W_WBOX, k);
+#pragma unroll
+          for (int sub = 0; sub < 2; ++sub)
+            mma_m64n128k16(acc[sub], a_desc64(a + sub * (T3W_BY + 2) * T3W_BX * 64, k), bd);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        if (tap > 0 && lane == 0) mbar_arrive(wempty((q - 1) % T3W_WSTAGES));
+      }
+      if (p.mode != MODE_COPIES) {
+        wgmma_wait<0>();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        if (lane == 0) mbar_arrive(wempty((q - 1) % T3W_WSTAGES));
+      }
+      // the last chunk's buffer stages the epilogue before it goes back
+      if (ch + 1 < p.chunks && lane == 0) mbar_arrive(xempty(b));
+    }
+    int nb, z0, y0, x0, n0;
+    corner(tile, nb, z0, y0, x0, n0);
+    auto voxel = [&](int r) {
+      const int gz = z0 + r / 64, gy = y0 + r / 8 % 8, gx = x0 + r % 8;
+      if (gz >= p.z || gy >= p.y || gx >= p.x) return -1ll;
+      return (((long long)nb * p.z + gz) * p.y + gy) * p.x + gx;
+    };
+    named_sync(1, 256);  // both warpgroups' products have read the buffer
+    const uint32_t stage = xbuf + b * T3W_XSET + wg * 2 * 64 * 256;
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub)
+      store_m64n128(acc[sub], stage + sub * 64 * 256, 2 + wg, p.out, p.cout, n0,
+                    wg * 128 + sub * 64, voxel);
+    named_sync(2 + wg, 128);  // this warpgroup's reads of the stage are done
+    if (lane == 0) mbar_arrive(xempty(b));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // wino: a block owns 2x4x4 output tiles of 2x2x2 voxels (a 4x8x8 output box,
 // its 6x10x10 input box) and 128 output channels. Per slab of up to 128 input
 // channels it stages the input box once; then for each of the 64 positions
@@ -635,6 +847,320 @@ __global__ void __launch_bounds__(THREADS, 1) wino_kernel(ArmParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// wino on wgmma fed by TMA (C % 8 == 0): a work item is 64 Winograd tiles (a
+// 4x4x4 grid of 2x2x2 output tiles: an 8x8x8 output box, its 10x10x10 input
+// box) x 64 output channels; the 8 output phases of its 64 x 64 outputs stay
+// in the consumers' registers (128 KB) over every position and chunk.
+//   - One TMA load of the haloed input box a 64-channel chunk (zeros outside
+//     the tensor and past C: the SAME halo, no mask), 128-byte rows.
+//   - Two transform warpgroups build V[pos] = (B^T x B^T x B^T) d of the 64
+//     tiles, four positions (a, b, 0-3) from one pass over the box: a thread
+//     takes 4 channels of a row of 4 tiles, half a row at a time, B^T along
+//     z and y into the half's 6 x values, then along x; fp32 adds, each V
+//     rounded to bf16 once, into a ring of two 4-position groups of K-major
+//     128-byte-swizzled buffers (wgmma's A operand).
+//   - Each consumer warpgroup streams its 32 columns of U[pos, chunk] (64
+//     rows, 64-byte swizzle) through its own 4-stage TMA ring. A^T along x
+//     runs on the tensor cores: for positions (a, b, 0-3), wgmma m64n32k16
+//     accumulates t0 = M0 + M1 + M2 and t1 = M1 - M2 - M3 (B scaled by -1),
+//     M_c = V_c U_c; A^T along y and z then adds t0 and t1 into the phases
+//     on the CUDA cores. The group is a compile-time index of an unrolled
+//     loop, so are every ring slot, barrier parity and coefficient.
+//   - Persistent blocks; the epilogue rounds each output once.
+// ---------------------------------------------------------------------------
+constexpr int WT_IN = 10;                                // input box edge
+constexpr int WT_CH = 64;                                // channels a chunk
+constexpr int WT_N = 64;                                 // output channels a work item
+constexpr int WT_BOX = WT_IN * WT_IN * WT_IN * 128;      // 128000
+constexpr int WT_V = 64 * 128;                           // one position's V: 8192
+constexpr int WT_GROUP = 4 * WT_V;                       // positions (a, b, 0-3)
+constexpr int WT_VGROUPS = 2;
+constexpr int WT_U = WT_CH * 64;                         // 64 rows x 32 columns: 4096
+constexpr int WT_USTAGES = 4;                            // one stage a position of a group
+constexpr int WT_THREADS = 512;  // two consumer warpgroups, two transform warpgroups
+constexpr int WT_TRANSFORM = 256;
+constexpr int WT_BARS = 1 + 2 * WT_VGROUPS + 2 * WT_USTAGES;
+constexpr int WT_SMEM =
+    1024 + WT_VGROUPS * WT_GROUP + 2 * WT_USTAGES * WT_U + WT_BOX + 8 * WT_BARS;
+static_assert(WT_SMEM <= SMEM_LIMIT, "the Winograd body's shared memory");
+// every chunk starts each ring's cycle afresh: slots, groups and barrier
+// parities follow from the position alone
+static_assert(16 % (2 * WT_VGROUPS) == 0, "the V ring's cycle");
+
+struct WtParams {
+  __nv_bfloat16* out;
+  int z, y, x, cout;
+  int gz, gy, gx;  // 8x8x8 output boxes per axis
+  int nblk;        // 64-column blocks
+  int chunks;      // 64-channel chunks of C
+  int items;       // N * gz * gy * gx * nblk
+  int mode;        // hopper::MODE_*
+};
+
+// V of positions (a, b, 0-3) for tiles (tz, ty, 2 h) and (tz, ty, 2 h + 1),
+// channels 4 c4 to 4 c4 + 4, of the box into `group` (4 buffers of 64 rows of
+// 128 bytes)
+__device__ __forceinline__ void wino_transform(uint32_t box, uint32_t group, int a, int b, int tz,
+                                               int ty, int h, int c4) {
+  using namespace mt::hopper;
+  int iz0, iz1, iy0, iy1;
+  float sz0, sz1, sy0, sy1;
+  bt_row(a, iz0, sz0, iz1, sz1);
+  bt_row(b, iy0, sy0, iy1, sy1);
+  const uint32_t half = (c4 & 1) * 8;  // the 4 channels' 8 bytes in their 16
+  float r[6][4];  // B^T along z and y, the two tiles' 6 x values
+#pragma unroll 1
+  for (int l = 0; l < 4; ++l) {  // the (z, y) lines (iz0, iy0), (iz0, iy1), (iz1, iy0), (iz1, iy1)
+    const float s = (l < 2 ? sz0 : sz1) * (l % 2 ? sy1 : sy0);
+    const int row0 =
+        ((2 * tz + (l < 2 ? iz0 : iz1)) * WT_IN + 2 * ty + (l % 2 ? iy1 : iy0)) * WT_IN + 4 * h;
+#pragma unroll
+    for (int x = 0; x < 6; ++x) {
+      const int row = row0 + x;
+      const uint2 w = ld_shared_v2(box + row * 128 + (((c4 / 2) ^ (row & 7)) << 4) + half);
+      const float v[4] = {__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                          __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[x][e] = fmaf(s, v[e], l == 0 ? 0.f : r[x][e]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {  // B^T along x
+    int i0, i1;
+    float s0, s1;
+    bt_row(c, i0, s0, i1, s1);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s0 * r[2 * t + i0][0] + s1 * r[2 * t + i1][0],
+                                                      s0 * r[2 * t + i0][1] + s1 * r[2 * t + i1][1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s0 * r[2 * t + i0][2] + s1 * r[2 * t + i1][2],
+                                                      s0 * r[2 * t + i0][3] + s1 * r[2 * t + i1][3]);
+      const int tile = (tz * 4 + ty) * 4 + 2 * h + t;
+      st_shared_v2(group + c * WT_V + tile * 128 + (((c4 / 2) ^ (tile & 7)) << 4) + half,
+                   make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                              *reinterpret_cast<const uint32_t*>(&hi)));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WT_THREADS, 1)
+    wino_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_u, const WtParams p) {
+  using namespace mt::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t vring = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t uring = vring + WT_VGROUPS * WT_GROUP;
+  const uint32_t box = uring + 2 * WT_USTAGES * WT_U;
+  const uint32_t bars = box + WT_BOX;
+  const uint32_t box_full = bars;
+  auto vfull = [&](int g) { return bars + 8 * (1 + g); };
+  auto vempty = [&](int g) { return bars + 8 * (1 + WT_VGROUPS + g); };
+  auto ufull = [&](int wg, int s) {
+    return bars + 8 * (1 + 2 * WT_VGROUPS + wg * WT_USTAGES + s);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(box_full, 1);
+    for (int g = 0; g < WT_VGROUPS; ++g) {
+      mbar_init(vfull(g), WT_TRANSFORM);  // every transform thread
+      mbar_init(vempty(g), 8);            // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < 2 * WT_USTAGES; ++s) mbar_init(ufull(0, s), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // work item i's output box corner and first column (column blocks
+  // innermost: both blocks of a box run side by side and share its reads)
+  auto item_of = [&](int i, int& nb, int& z0, int& y0, int& x0, int& n0) {
+    n0 = i % p.nblk * WT_N;
+    i /= p.nblk;
+    x0 = i % p.gx * 8;
+    i /= p.gx;
+    y0 = i % p.gy * 8;
+    i /= p.gy;
+    z0 = i % p.gz * 8;
+    nb = i / p.gz;
+  };
+
+  if (threadIdx.x >= 256) {  // the transform warpgroups; the first thread loads the boxes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 64;\n" ::: "memory");
+    const int t = threadIdx.x - 256;
+    const int c4 = t % 16, ty = t / 16 % 4, tz = t / 64;
+    const bool transform = p.mode == MODE_WHOLE || p.mode == MODE_TRANSFORM;
+    if (t == 0) tma_prefetch(&map_x);
+    int loads = 0;  // boxes loaded
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      int nb, z0, y0, x0, n0;
+      item_of(item, nb, z0, y0, x0, n0);
+      for (int ch = 0; ch < p.chunks; ++ch) {
+        named_sync(3, WT_TRANSFORM);  // every read of the previous chunk's box is done
+        if (p.mode != MODE_PRODUCTS) {
+          if (t == 0) {
+            mbar_expect_tx(box_full, WT_BOX);
+            tma_load_5d(box, &map_x, box_full, ch * WT_CH, x0 - 1, y0 - 1, z0 - 1, nb);
+          }
+          mbar_wait(box_full, loads & 1);
+          ++loads;
+        }
+        // group ab takes V buffer group ab % 2, its (ab / 2)-th use this chunk
+        for (int ab = 0; ab < 16; ++ab) {
+          const int g = ab % WT_VGROUPS;
+          mbar_wait(vempty(g), ((ab / WT_VGROUPS) & 1) ^ 1);
+          if (transform) {
+#pragma unroll 1
+            for (int h = 0; h < 2; ++h)
+              wino_transform(box, vring + g * WT_GROUP, ab / 4, ab % 4, tz, ty, h, c4);
+          }
+          fence_proxy_async();  // V, written here, is read by wgmma
+          mbar_arrive(vfull(g));
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns columns n0 + 32 wg of the 64 tiles
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n" ::: "memory");
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
+  const bool products = p.mode == MODE_WHOLE || p.mode == MODE_PRODUCTS;
+  const bool u_loads = p.mode == MODE_WHOLE || p.mode == MODE_COPIES;
+  const bool first = threadIdx.x % 128 == 0;
+  const uint32_t ur = uring + wg * WT_USTAGES * WT_U;
+  // descriptors of V buffer 0 and U stage 0; a buffer's or stage's adds its
+  // offset / 16 (the address field's unit)
+  const uint64_t vdesc = a_desc(vring, 0), udesc = b_desc_n32(ur, 0);
+  // the unrolled loop below would keep every position's descriptors and
+  // barrier addresses in registers beside the 160 of t0, t1 and the phases;
+  // these bases, opaque to the compiler at each use, keep it to one add each
+  auto opaque = [](auto v) {
+    asm volatile("" : "+l"(v));
+    return v;
+  };
+  auto opaque32 = [](uint32_t v) {
+    asm volatile("" : "+r"(v));
+    return v;
+  };
+  // U[pos] of chunk `row` / 64 at columns `col` into stage pos % 4
+  auto load_u = [&](int col, int row, int pos) {
+    const int s = pos % WT_USTAGES;
+    const uint32_t bar = opaque32(ufull(wg, 0)) + 8 * s;
+    mbar_expect_tx(bar, WT_U);
+    tma_load_3d(opaque32(ur) + s * WT_U, &map_u, bar, col, row, pos);
+  };
+  if (first && u_loads) {
+    tma_prefetch(&map_u);
+    for (int pos = 0; pos < WT_USTAGES; ++pos) load_u(blockIdx.x % p.nblk * WT_N + wg * 32, 0, pos);
+  }
+  float acc[8][16];  // phase (qz * 2 + qy) * 2 + qx
+  float t0[16], t1[16];
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+#pragma unroll
+    for (int ph = 0; ph < 8; ++ph)
+#pragma unroll
+      for (int r = 0; r < 16; ++r) acc[ph][r] = 0.f;
+    const int col = item % p.nblk * WT_N + wg * 32;
+    for (int ch = 0; ch < p.chunks; ++ch) {
+      // where the U stages freed by this chunk's last group go: the next chunk
+      // of this item, else the next item's first (none past the last)
+      const bool next_item = ch + 1 == p.chunks;
+      const int next = item + gridDim.x;
+      const bool more = !next_item || next < p.items;
+      const int ncol = next_item ? next % p.nblk * WT_N + wg * 32 : col;
+      const int nrow = next_item ? 0 : (ch + 1) * WT_CH;
+#pragma unroll
+      for (int ab = 0; ab < 16; ++ab) {
+        const int g = ab % WT_VGROUPS;
+        mbar_wait(opaque32(vfull(0)) + 8 * g, (ab / WT_VGROUPS) & 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {  // position 4 ab + c in U stage c
+          if (u_loads) mbar_wait(opaque32(ufull(wg, 0)) + 8 * c, ab & 1);
+          if (products) {
+            const uint64_t a = opaque(vdesc) + ((g * WT_GROUP + c * WT_V) >> 4);
+            const uint64_t b = opaque(udesc) + ((c * WT_U) >> 4);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (c <= 2) mma_m64n32k16<1>(t0, a + 2 * k, b + 64 * k, c > 0 || k > 0);
+              if (c == 1) mma_m64n32k16<1>(t1, a + 2 * k, b + 64 * k, k > 0);
+              if (c >= 2) mma_m64n32k16<-1>(t1, a + 2 * k, b + 64 * k, true);
+            }
+            wgmma_commit();
+          }
+          // U stage c - 1 is read once position c - 1's products are done in
+          // every warp: it takes the next group's position c - 1
+          if (c > 0) {
+            if (products) {
+              wgmma_wait<1>();
+              fence_acc(t0);
+              fence_acc(t1);
+            }
+            if (u_loads) {
+              named_sync(1 + wg, 128);
+              if (first) {
+                if (ab < 15) {
+                  load_u(col, ch * WT_CH, 4 * (ab + 1) + c - 1);
+                } else if (more) {
+                  load_u(ncol, nrow, c - 1);
+                }
+              }
+            }
+          }
+        }
+        if (products) {
+          wgmma_wait<0>();
+          fence_acc(t0);
+          fence_acc(t1);
+        }
+        if (lane == 0) mbar_arrive(opaque32(vempty(0)) + 8 * g);  // V group read
+        if (u_loads) {
+          named_sync(1 + wg, 128);
+          if (first) {
+            if (ab < 15) {
+              load_u(col, ch * WT_CH, 4 * (ab + 1) + 3);
+            } else if (more) {
+              load_u(ncol, nrow, 3);
+            }
+          }
+        }
+        if (products) {  // A^T along y and z: phase (qz, qy, qx) += At[qz][a] At[qy][b] t_qx
+          const int a = ab / 4, b = ab % 4;
+#pragma unroll
+          for (int ph = 0; ph < 8; ++ph) {
+            const float coef = at_coef(ph / 4, a) * at_coef(ph / 2 % 2, b);
+            if (coef != 0.f) {
+#pragma unroll
+              for (int r = 0; r < 16; ++r)
+                acc[ph][r] = fmaf(coef, ph % 2 ? t1[r] : t0[r], acc[ph][r]);
+            }
+          }
+        }
+      }
+    }
+    // accumulator r: tile warp * 16 + lane / 4 (+8 for r % 4 >= 2), column
+    // (r / 4) * 8 + 2 * (lane % 4) + r % 2 of this warpgroup's 32
+    int nb, z0, y0, x0, n0;
+    item_of(item, nb, z0, y0, x0, n0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int tile = warp * 16 + lane / 4 + 8 * hh;
+      const int tz = tile / 16, ty = tile / 4 % 4, tx = tile % 4;
+#pragma unroll
+      for (int ph = 0; ph < 8; ++ph) {
+        const int gz = z0 + 2 * tz + ph / 4, gy = y0 + 2 * ty + ph / 2 % 2,
+                  gx = x0 + 2 * tx + ph % 2;
+        if (gz >= p.z || gy >= p.y || gx >= p.x) continue;
+        __nv_bfloat16* row = p.out + ((((int64_t)nb * p.z + gz) * p.y + gy) * p.x + gx) * p.cout;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int co = n0 + wg * 32 + j * 8 + 2 * (lane % 4);
+          if (co < p.cout)
+            store_pair(row, co, p.cout, acc[ph][j * 4 + hh * 2], acc[ph][j * 4 + hh * 2 + 1]);
+        }
+      }
+    }
+  }
+}
+
 ArmParams make_params(const void* x, const void* w, void* out, int n, int z, int y, int xd,
                       int c, int cout, int coutp) {
   ArmParams p;
@@ -702,6 +1228,114 @@ cudaError_t im2col_run(const ArmParams& p, int body, int mode, cudaStream_t stre
   return cudaGetLastError();
 }
 
+// The tap3 arm on its body: 1 the TMA + wgmma body (C % 8 == 0), 2 the first
+// body (bn 32 or 64: the prepared weight's column block); mode (the TMA
+// body's forms) hopper::MODE_WHOLE to MODE_PRODUCTS.
+cudaError_t tap3_run(const ArmParams& p, int bn, int body, int mode, cudaStream_t stream) {
+  if ((bn != 32 && bn != 64) || p.coutp % bn != 0 || p.cout > p.coutp || body < 1 || body > 2 ||
+      mode < hopper::MODE_WHOLE || mode > hopper::MODE_PRODUCTS ||
+      (body == 1 && p.c % 8 != 0) || (body == 2 && mode != hopper::MODE_WHOLE))
+    return cudaErrorInvalidValue;
+  if (body == 2) {
+    Tiles tl;
+    const long long per_sample = pick_box(p.z, p.y, p.x_, &tl.box);
+    tl.tz = cdiv(p.z, tl.box.z);
+    tl.ty = cdiv(p.y, tl.box.y);
+    tl.tx = cdiv(p.x_, tl.box.x);
+    const long long blocks = per_sample * p.n;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)blocks, p.coutp / bn);
+    cudaError_t err = cudaFuncSetAttribute(
+        bn == 32 ? tap3_kernel<32> : tap3_kernel<64>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bn == 32 ? t3_smem<32>() : t3_smem<64>());
+    if (err != cudaSuccess) return err;
+    if (bn == 32) {
+      tap3_kernel<32><<<grid, THREADS, t3_smem<32>(), stream>>>(p, tl);
+    } else {
+      tap3_kernel<64><<<grid, THREADS, t3_smem<64>(), stream>>>(p, tl);
+    }
+    return cudaGetLastError();
+  }
+  T3Params q{};
+  q.out = p.out;
+  q.z = p.z;
+  q.y = p.y;
+  q.x = p.x_;
+  q.cout = p.cout;
+  q.tz = cdiv(p.z, T3W_BZ);
+  q.ty = cdiv(p.y, T3W_BY);
+  q.tx = cdiv(p.x_, T3W_BX);
+  q.nblk = cdiv(p.coutp, T3W_N);
+  q.chunks = cdiv(p.c, T3W_CH);
+  const long long tiles = (long long)p.n * q.tz * q.ty * q.tx * q.nblk;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  q.tiles = (int)tiles;
+  q.mode = mode;
+  CUtensorMap mx, mw;
+  const cuuint64_t xdims[5] = {(cuuint64_t)p.c, (cuuint64_t)p.x_, (cuuint64_t)p.y,
+                               (cuuint64_t)p.z, (cuuint64_t)p.n};
+  const cuuint32_t xbox[5] = {T3W_CH, T3W_BX, T3W_BY + 2, T3W_BZ + 2, 1};
+  // the prepared weight (C_P / 16, 9, 48, CoutP): rows dx * 16 + c of two
+  // 16-channel chunks a box
+  const cuuint64_t wdims[4] = {(cuuint64_t)p.coutp, 3 * KC, 9, (cuuint64_t)(p.cp / KC)};
+  const cuuint32_t wbox[4] = {64, KC, 1, 2};
+  if (!hopper::tiled_map(&mx, p.x, 5, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::tiled_map(&mw, p.w, 4, wdims, wbox))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tap3_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T3W_SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = q.tiles < sm_count() ? q.tiles : sm_count();
+  tap3_tma_kernel<<<grid, T3W_THREADS, T3W_SMEM, stream>>>(mx, mw, q);
+  return cudaGetLastError();
+}
+
+// The Winograd arm on its body: 1 the TMA + wgmma body (C % 8 == 0), 2 the
+// first body; mode (the TMA body's forms) hopper::MODE_*.
+cudaError_t wino_run(const ArmParams& p, int body, int mode, cudaStream_t stream) {
+  if (p.z % 2 || p.y % 2 || p.x_ % 2 || p.coutp % W_N != 0 || p.cout > p.coutp || body < 1 ||
+      body > 2 || mode < hopper::MODE_WHOLE || mode > hopper::MODE_TRANSFORM ||
+      (body == 1 && p.c % 8 != 0) || (body == 2 && mode != hopper::MODE_WHOLE))
+    return cudaErrorInvalidValue;
+  if (body == 2) {
+    const long long blocks =
+        (long long)p.n * cdiv(p.z, W_BZ) * cdiv(p.y, W_BY) * cdiv(p.x_, W_BX);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    return launch(wino_kernel, dim3((unsigned)blocks, p.coutp / W_N), W_SMEM, p, stream);
+  }
+  WtParams q{};
+  q.out = p.out;
+  q.z = p.z;
+  q.y = p.y;
+  q.x = p.x_;
+  q.cout = p.cout;
+  q.gz = cdiv(p.z / 2, 4);
+  q.gy = cdiv(p.y / 2, 4);
+  q.gx = cdiv(p.x_ / 2, 4);
+  q.nblk = p.coutp / WT_N;
+  q.chunks = cdiv(p.cp, WT_CH);
+  const long long items = (long long)p.n * q.gz * q.gy * q.gx * q.nblk;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  q.items = (int)items;
+  q.mode = mode;
+  CUtensorMap mx, mu;
+  const cuuint64_t xdims[5] = {(cuuint64_t)p.c, (cuuint64_t)p.x_, (cuuint64_t)p.y,
+                               (cuuint64_t)p.z, (cuuint64_t)p.n};
+  const cuuint32_t xbox[5] = {WT_CH, WT_IN, WT_IN, WT_IN, 1};
+  // U (64, C_P, CoutP): rows past C_P come back 0
+  const cuuint64_t udims[3] = {(cuuint64_t)p.coutp, (cuuint64_t)p.cp, 64};
+  const cuuint32_t ubox[3] = {32, WT_CH, 1};
+  if (!hopper::tiled_map(&mx, p.x, 5, xdims, xbox) ||
+      !hopper::tiled_map(&mu, p.w, 3, udims, ubox, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(wino_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WT_SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = q.items < sm_count() ? q.items : sm_count();
+  wino_tma_kernel<<<grid, WT_THREADS, WT_SMEM, stream>>>(mx, mu, q);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -726,44 +1360,40 @@ int mt_conv_im2col_form(const void* x, const void* w, void* out, int n, int z, i
   return (int)im2col_run(p, body, mode, static_cast<cudaStream_t>(stream));
 }
 
-// tap3 arm: bn 32 or 64, coutp a multiple of bn.
+// tap3 arm: bn 32 or 64 (the prepared weight's column block), coutp a
+// multiple of bn; the TMA + wgmma body where C % 8 == 0, else the first
+// body (probes/conv_impl_arms.py:tap3_plan makes the same choice).
 int mt_conv_tap3(const void* x, const void* w, void* out, int n, int z, int y, int xd, int c,
                  int cout, int coutp, int bn, void* stream) {
   const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
-  if ((bn != 32 && bn != 64) || coutp % bn != 0 || cout > coutp)
-    return (int)cudaErrorInvalidValue;
-  Tiles tl;
-  const long long per_sample = pick_box(z, y, xd, &tl.box);
-  tl.tz = cdiv(z, tl.box.z);
-  tl.ty = cdiv(y, tl.box.y);
-  tl.tx = cdiv(xd, tl.box.x);
-  const long long blocks = per_sample * n;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, coutp / bn);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      bn == 32 ? tap3_kernel<32> : tap3_kernel<64>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bn == 32 ? t3_smem<32>() : t3_smem<64>());
-  if (err != cudaSuccess) return (int)err;
-  if (bn == 32) {
-    tap3_kernel<32><<<grid, THREADS, t3_smem<32>(), s>>>(p, tl);
-  } else {
-    tap3_kernel<64><<<grid, THREADS, t3_smem<64>(), s>>>(p, tl);
-  }
-  return (int)cudaGetLastError();
+  return (int)tap3_run(p, bn, c % 8 == 0 ? 1 : 2, hopper::MODE_WHOLE,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// Winograd arm: Z, Y, X even, coutp a multiple of 128.
+// The tap3 arm on a chosen body (1 TMA + wgmma, 2 the first body) and, on
+// the TMA body, its form (0 whole, 1 copies only, 2 products only).
+int mt_conv_tap3_form(const void* x, const void* w, void* out, int n, int z, int y, int xd,
+                      int c, int cout, int coutp, int bn, int body, int mode, void* stream) {
+  const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
+  return (int)tap3_run(p, bn, body, mode, static_cast<cudaStream_t>(stream));
+}
+
+// Winograd arm: Z, Y, X even, coutp a multiple of 128; the TMA + wgmma body
+// where C % 8 == 0, else the first body (probes/conv_impl_arms.py:wino_plan).
 int mt_conv_wino(const void* x, const void* w, void* out, int n, int z, int y, int xd, int c,
                  int cout, int coutp, void* stream) {
   const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
-  if (z % 2 || y % 2 || xd % 2 || coutp % W_N != 0 || cout > coutp)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks =
-      (long long)n * cdiv(z, W_BZ) * cdiv(y, W_BY) * cdiv(xd, W_BX);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return (int)launch(wino_kernel, dim3((unsigned)blocks, coutp / W_N), W_SMEM, p,
-                     static_cast<cudaStream_t>(stream));
+  return (int)wino_run(p, c % 8 == 0 ? 1 : 2, hopper::MODE_WHOLE,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The Winograd arm on a chosen body (1 TMA + wgmma, 2 the first body) and,
+// on the TMA body, its form (0 whole, 1 copies only, 2 products only, 3 the
+// box loads and the transform only).
+int mt_conv_wino_form(const void* x, const void* w, void* out, int n, int z, int y, int xd,
+                      int c, int cout, int coutp, int body, int mode, void* stream) {
+  const ArmParams p = make_params(x, w, out, n, z, y, xd, c, cout, coutp);
+  return (int)wino_run(p, body, mode, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // Hopper building blocks of the probes' TMA + wgmma bodies (conv_arms.cu's
-// im2col body, probe_kernels.cu's centern): mbarriers, TMA loads (tiled and
-// im2col mode), the m64n128k16 bf16 wgmma with its shared-memory
-// descriptors, and the CUDA driver's tensor-map encoders, found through the
-// runtime (nothing links -lcuda). conv3d_wgmma.cu keeps its own copies of
-// the same PTX for kernels A and B.
+// im2col, tap3 and Winograd bodies, probe_kernels.cu's centern): mbarriers,
+// TMA loads (tiled and im2col mode), the m64n128k16 and m64n32k16 bf16
+// wgmma with their shared-memory descriptors (128- and 64-byte swizzles),
+// and the CUDA driver's tensor-map encoders, found through the runtime
+// (nothing links -lcuda). conv3d_wgmma.cu keeps its own copies of the same
+// PTX for kernels A and B.
 #pragma once
 
 #include <cuda.h>
@@ -46,6 +47,22 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -101,11 +118,25 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 8 bytes of shared memory at a shared-space address
+__device__ __forceinline__ uint2 ld_shared_v2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y) : "memory");
+}
+
 // A shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, layout 1 (the 128-byte swizzle; every operand here uses it)
-__host__ __device__ constexpr uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// offsets, layout (1 the 128-byte swizzle, 2 the 64-byte one)
+__host__ __device__ constexpr uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint32_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+__host__ __device__ constexpr uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return sw_desc(addr, lbo, sbo, 1);
 }
 // The K-major A operand of 64 rows of 128 bytes (64 bf16 channels) at
 // `rows`, written by TMA with the 128-byte swizzle, k16 step `k` (0-3) of
@@ -117,6 +148,18 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t rows, int k) {
 // boxes `box` bytes apart, 8-row atoms 1024 B apart, from row 16 * k
 __device__ __forceinline__ uint64_t b_desc(uint32_t stage, uint32_t box, int k) {
   return sw128_desc(stage + k * 16 * 128, box, 1024);
+}
+
+// The K-major A operand of 64 rows of 64 bytes (32 bf16 channels) at `rows`,
+// written by TMA with the 64-byte swizzle, k16 step `k` (0-1): 8-row atoms
+// 512 B apart, the step 32 B into the row
+__device__ __forceinline__ uint64_t a_desc64(uint32_t rows, int k) {
+  return sw_desc(rows + k * 32, 16, 512, 2);
+}
+// The MN-major B operand of 16 rows of 32 columns (64 bytes) written by TMA
+// with the 64-byte swizzle, from row 16 * k: 8-row atoms 512 B apart
+__device__ __forceinline__ uint64_t b_desc_n32(uint32_t rows, int k) {
+  return sw_desc(rows + k * 16 * 64, 16, 512, 2);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -134,6 +177,30 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x n32, fp32) = A (m64 x k16, K-major) * SCALE_B B (k16 x n32,
+// MN-major) (+ d where `accumulate`), bf16, both from shared memory;
+// SCALE_B 1 or -1. Accumulator r of a thread is row (warp % 4) * 16 +
+// lane / 4 (+8 for r % 4 >= 2), column (r / 4) * 8 + 2 * (lane % 4) + r % 2.
+template <int SCALE_B = 1>
+__device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                              bool accumulate) {
+  static_assert(SCALE_B == 1 || SCALE_B == -1, "wgmma scales B by 1 or -1");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, %19, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"((int)accumulate), "n"(SCALE_B));
 }
 
 // d (m64 x n128, fp32) += A (m64 x k16, K-major) * B (k16 x n128, MN-major),
@@ -268,9 +335,11 @@ using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // A bf16 tensor of `rank` dims (innermost first, dims[0] contiguous) with
-// the 128-byte swizzle, zero outside the tensor: tiled with `box`.
+// the 128-byte swizzle (or `swizzle`), zero outside the tensor: tiled with
+// `box`.
 inline bool tiled_map(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
-                      const cuuint32_t* box) {
+                      const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   static const EncodeTiled enc =
       reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
   if (enc == nullptr) return false;
@@ -282,8 +351,7 @@ inline bool tiled_map(CUtensorMap* m, const void* ptr, int rank, const cuuint64_
   }
   const cuuint32_t es[5] = {1, 1, 1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-             box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -311,7 +379,10 @@ inline bool im2col_map(CUtensorMap* m, const void* ptr, int n, int z, int y, int
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr int MODE_WHOLE = 0, MODE_COPIES = 1, MODE_PRODUCTS = 2;
+// a body's forms: as it is; its copies only (the consumers hand every stage
+// back without a product); its products only (nothing loaded); where it has
+// a transform stage (the Winograd body), its copies and transform only
+constexpr int MODE_WHOLE = 0, MODE_COPIES = 1, MODE_PRODUCTS = 2, MODE_TRANSFORM = 3;
 
 }  // namespace hopper
 }  // namespace mt

@@ -15,10 +15,17 @@ what bounds each is noted there):
   load's offsets); else on the first body, which materialises the [32, 27*C]
   rows of 32 voxels in shared memory (`im2col_plan` says which, and
   `conv3d_im2col.launches_by_body` counts launches by body).
-- 'tap3' (`conv3d_tap3`): the x taps folded into K, 9 GEMMs with K = 3*C per
-  16-channel chunk, on an x-concatenated copy of the haloed box.
+- 'tap3' (`conv3d_tap3`): the x taps folded into K, 9 GEMMs with K = 3*C.
+  Where C % 8 == 0 on wgmma fed by TMA: the x-concatenated rows are three
+  TMA loads of a 4x8x8 box's haloed rows shifted by one voxel in x, each
+  (dz, dy) the same operand with its start moved; else on the first body,
+  which copies them per 16-channel chunk (`tap3_plan`).
 - 'wino' (`conv3d_wino`): Winograd F(2x2x2, 3x3x3); weights transformed on
-  the host (G w G^T per axis in fp32, then bf16), as :330-336 does.
+  the host (G w G^T per axis in fp32, then bf16), as :330-336 does. Where
+  C % 8 == 0 on wgmma fed by TMA, the transformed input built by warpgroups
+  of their own; else on the first body (`wino_plan`).
+
+Each kernel wrapper counts its launches by body in `launches_by_body`.
 
 Plain versions: the direct conv (`ops/conv3d.conv3d_same_ref`, F.conv3d in
 fp32) for im2col, tap3, tap and sum; `winograd_conv3d_ref`, the Winograd
@@ -58,10 +65,15 @@ PARITY_BOUND = 1e-3
 # (1, 16, 32, 32, 120), He-scaled weights) max|d| reads 4.38e-2 of a bound of
 # 7.86e-2 (mean 5.8e-3), and the control (G_FAULTY) reads 2.35, mean 0.377
 RTOL, ATOL = 1e-2, 1e-2
-# the im2col arm's bodies (csrc/conv_arms.cu): "tma", TMA im2col loads and
-# wgmma, where every pixel row is 16-byte aligned (C % 8 == 0); "mma_sync",
-# the first body (mma.sync on rows materialised by cp.async), for other C
-IM2COL_BODIES = ("tma", "mma_sync")
+# each arm's bodies (csrc/conv_arms.cu): "tma", wgmma fed by TMA, where
+# every pixel row is 16-byte aligned (C % 8 == 0); "mma_sync", the first body
+# (mma.sync on rows staged by cp.async), for other C
+ARM_BODIES = ("tma", "mma_sync")
+SMS = 132  # the H100 SXM's SMs: the persistent bodies' grid
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+# the first tap3 body's 256-voxel boxes (csrc/common.cuh kBoxes, pick_box)
+BOXES = ((4, 8, 8), (8, 4, 8), (8, 8, 4), (4, 4, 16), (4, 16, 4), (16, 4, 4), (2, 8, 16),
+         (2, 16, 8))
 
 # Winograd F(2x2x2, 3x3x3): G (scripts/conv_impl_arms.py:332-333), B^T
 # (:99-100) and A^T (:122)
@@ -210,6 +222,12 @@ def _launch_arm(name: str, x: torch.Tensor, pw: ArmWeight, arm: str,
     return out
 
 
+def _body(c: int, body: str | None) -> str:
+    """The body an arm's C entry takes for C channels (by C alone), unless
+    `body` names one."""
+    return body or ("tma" if c % 8 == 0 else "mma_sync")
+
+
 def im2col_plan(n: int, z: int, y: int, x: int, c: int, cout: int,
                 body: str | None = None) -> dict:
     """The im2col arm's body for these sizes (as mt_conv_im2col chooses it,
@@ -222,14 +240,84 @@ def im2col_plan(n: int, z: int, y: int, x: int, c: int, cout: int,
     cp = _round_up(c, cv.KC)
     nblk = _round_up(cout, 128) // 128
     vox = n * z * y * x
-    if (body or ("tma" if c % 8 == 0 else "mma_sync")) == "tma":
+    if _body(c, body) == "tma":
         tiles = -(-vox // 256) * nblk
         steps = 27 * -(-cp // 64)
         return {"body": "tma", "tiles": tiles, "stages_per_tile": steps,
+                "grid": min(tiles, SMS),
                 "l2_to_shared_bytes": tiles * steps * (256 * 128 + 64 * 128 * 2)}
     blocks = n * z * y * -(-x // 32) * nblk
     return {"body": "mma_sync", "tiles": blocks, "stages_per_tile": 27 * cp // cv.KC,
-            "l2_to_shared_bytes": blocks * (32 * 27 * cp + 27 * cp * 128) * 2}
+            "grid": blocks, "l2_to_shared_bytes": blocks * (32 * 27 * cp + 27 * cp * 128) * 2}
+
+
+def tap3_plan(n: int, z: int, y: int, x: int, c: int, cout: int,
+              body: str | None = None) -> dict:
+    """The tap3 arm's body (as mt_conv_tap3 chooses it, by C alone, unless
+    `body` names one) and the bytes its copies bring from L2 into shared
+    memory a launch, halo and padded channels included. The TMA body: a tile
+    of a 4x8x8 output box x 128 columns takes, a 32-channel chunk, three
+    x-shifted loads of its 6x10x8 haloed rows (64 bytes each) and 27 weight
+    stages of 32 rows x 128 columns. The first body: a block of kernel A's
+    box (`BOXES`, fewest boxes) x 64 columns (32 for Cout <= 32) copies, a
+    16-channel chunk, the x-concatenated rows of its box grown by 1 in z and
+    y (48 channels each) and the chunk's 9 x 48 weight rows."""
+    if _body(c, body) == "tma":
+        coutp = _round_up(cout, cv._block_n(cout))
+        tiles = n * -(-z // 4) * -(-y // 8) * -(-x // 8) * -(-coutp // 128)
+        chunks = -(-c // 32)
+        return {"body": "tma", "tiles": tiles, "stages_per_tile": 27 * chunks,
+                "grid": min(tiles, SMS),
+                "l2_to_shared_bytes": tiles * chunks * (3 * 6 * 10 * 8 * 64 + 27 * 32 * 128 * 2)}
+    boxes = [-(-z // bz) * -(-y // by) * -(-x // bx) for bz, by, bx in BOXES]
+    i = boxes.index(min(boxes))
+    bz, by, bx = BOXES[i]
+    bn = cv._block_n(cout)
+    blocks = n * boxes[i] * (_round_up(cout, bn) // bn)
+    chunks = -(-c // cv.KC)
+    rows = (bz + 2) * (by + 2) * bx
+    return {"body": "mma_sync", "tiles": blocks, "stages_per_tile": chunks, "grid": blocks,
+            "box": (bz, by, bx),
+            "l2_to_shared_bytes": blocks * chunks * (rows * 3 * cv.KC + 9 * 3 * cv.KC * bn) * 2}
+
+
+def wino_plan(n: int, z: int, y: int, x: int, c: int, cout: int,
+              body: str | None = None) -> dict:
+    """The Winograd arm's body (as mt_conv_wino chooses it, by C alone,
+    unless `body` names one), the bytes its copies bring from L2 into shared
+    memory a launch (halo and padded channels included) and its own work:
+    `products_flops`, the 64 transform-domain GEMMs over every 2x2x2 tile at
+    C_P and CoutP (either body). The TMA body: a work item of 64 tiles (an
+    8x8x8 output box) x 64 columns loads, a 64-channel chunk, its 10x10x10
+    input box (128-byte rows) and U's 64 rows x 64 columns at each of the 64
+    positions. The first body: a block of 32 tiles (a 4x8x8 box) x 128
+    columns loads, a slab of up to 128 channels, its 6x10x10 input box and
+    U's slab rows x 128 columns at each position."""
+    cp = _round_up(c, cv.KC)
+    coutp = _round_up(cout, 128)
+    flops = 2 * (n * z * y * x // 8) * 64 * cp * coutp
+    if _body(c, body) == "tma":
+        items = n * -(-z // 8) * -(-y // 8) * -(-x // 8) * (coutp // 64)
+        chunks = -(-cp // 64)
+        return {"body": "tma", "tiles": items, "stages_per_tile": 64 * chunks,
+                "grid": min(items, SMS), "products_flops": flops,
+                "l2_to_shared_bytes": items * chunks * (10 ** 3 * 128 + 64 * 64 * 64 * 2)}
+    blocks = n * -(-z // 4) * -(-y // 8) * -(-x // 8) * (coutp // 128)
+    widths = [min(128, cp - c0) for c0 in range(0, cp, 128)]
+    return {"body": "mma_sync", "tiles": blocks, "stages_per_tile": 64 * len(widths),
+            "grid": blocks, "products_flops": flops,
+            "l2_to_shared_bytes": blocks * sum(6 * 10 * 10 * w * 2 + 64 * w * 128 * 2
+                                               for w in widths)}
+
+
+def products_floor_ms(flops: float) -> float:
+    """The least time of `flops` bf16 tensor-core operations on the H100."""
+    return flops / PEAK_BF16_FLOPS * 1e3
+
+
+def _counted(kernel, plan, x: torch.Tensor, pw: ArmWeight) -> None:
+    kernel.launches += 1
+    kernel.launches_by_body[plan(*(int(s) for s in x.shape), pw.cout)["body"]] += 1
 
 
 def conv3d_im2col(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = None
@@ -240,43 +328,38 @@ def conv3d_im2col(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = Non
     (conv3d_same_ref)."""
     if x.device.type == "cpu":
         return _util.into(out, cv.conv3d_same_ref(x, arm_weight_taps(pw)))
-    body = im2col_plan(*(int(s) for s in x.shape), pw.cout)["body"]
     out = _launch_arm("mt_conv_im2col", x, pw, "im2col", out)
-    conv3d_im2col.launches += 1
-    conv3d_im2col.launches_by_body[body] += 1
+    _counted(conv3d_im2col, im2col_plan, x, pw)
     return out
-
-
-conv3d_im2col.launches = 0
-conv3d_im2col.launches_by_body = dict.fromkeys(IM2COL_BODIES, 0)
 
 
 def conv3d_tap3(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = None
                 ) -> torch.Tensor:
-    """The tap3 arm (x taps folded into K). CPU tensors take the direct conv."""
+    """The tap3 arm (x taps folded into K), on the body `tap3_plan` names.
+    CPU tensors take the direct conv."""
     if x.device.type == "cpu":
         return _util.into(out, cv.conv3d_same_ref(x, arm_weight_taps(pw)))
     out = _launch_arm("mt_conv_tap3", x, pw, "tap3", out)
-    conv3d_tap3.launches += 1
+    _counted(conv3d_tap3, tap3_plan, x, pw)
     return out
-
-
-conv3d_tap3.launches = 0
 
 
 def conv3d_wino(x: torch.Tensor, pw: ArmWeight, out: torch.Tensor | None = None
                 ) -> torch.Tensor:
-    """The Winograd arm, even Z, Y, X. CPU tensors take winograd_conv3d_ref."""
+    """The Winograd arm, even Z, Y, X, on the body `wino_plan` names. CPU
+    tensors take winograd_conv3d_ref."""
     if x.device.type == "cpu":
         return _util.into(out, winograd_conv3d_ref(x, pw))
     if any(int(s) % 2 for s in x.shape[1:4]):
         raise ValueError(f"conv3d_wino takes even spatial sizes, got {tuple(x.shape)}")
     out = _launch_arm("mt_conv_wino", x, pw, "wino", out)
-    conv3d_wino.launches += 1
+    _counted(conv3d_wino, wino_plan, x, pw)
     return out
 
 
-conv3d_wino.launches = 0
+for _kernel in (conv3d_im2col, conv3d_tap3, conv3d_wino):
+    _kernel.launches = 0
+    _kernel.launches_by_body = dict.fromkeys(ARM_BODIES, 0)
 
 
 def prepare(weight: torch.Tensor, arm: str, dtype: torch.dtype = torch.bfloat16):

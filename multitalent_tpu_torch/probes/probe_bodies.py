@@ -1,25 +1,28 @@
-"""What paces the im2col arm's and centern's bodies on the H100, and how
+"""What paces the conv arms' and centern's bodies on the H100, and how
 they compare with another checkout's build of the same C entries.
 
 Its readings, each on the card, at the shapes the probes time:
 
-- the im2col arm at (2, 96, 96, 96, 120) -> 120 (csrc/conv_arms.cu): the
-  TMA + wgmma body as it is, its copies-only form (the consumers hand every
-  stage back without a product) and products-only form (the producer
-  signals every stage without loading it), and the first body (mma.sync on
-  rows materialised by cp.async) through `mt_conv_im2col_form`;
+- the im2col, tap3 and Winograd arms at (2, 96, 96, 96, 120) -> 120
+  (csrc/conv_arms.cu): each TMA + wgmma body as it is, its copies-only form
+  (the consumers hand every stage back without a product), its
+  products-only form (nothing loaded), the Winograd body's transform-only
+  form (the input boxes loaded and transformed, no weight and no product),
+  and the first body (mma.sync on rows staged by cp.async) through
+  `mt_conv_<arm>_form`;
 - centern (csrc/probe_kernels.cu) at every (tile, ndots) configuration of
   the cost and grid probes: as it is, copies only, products only;
 - with `--against DIR`, that checkout's conv_arms.cu and probe_kernels.cu
   built into a library of its own under `_build/probe_bodies/`, its
-  `mt_conv_im2col` and `mt_centern` timed in turns with this build's
-  (against, this, this, against; the lesser of each pair) and checked
-  against the same plain version.
+  `mt_conv_im2col`, `mt_conv_tap3`, `mt_conv_wino` and `mt_centern` timed
+  in turns with this build's (against, this, this, against; the lesser of
+  each pair) and checked against the same plain version.
 
 Each output is checked against its plain version (the fp32 direct conv,
 `centern_ref`) within the probes' bound; each row gives the bound, centern's
-ndots ceiling and the bytes the body stages into shared memory
-(`im2col_plan`, `centern_plan`).
+ndots ceiling, the Winograd arm's own products floor and the bytes each
+body stages into shared memory (`im2col_plan`, `tap3_plan`, `wino_plan`,
+`centern_plan`).
 
     python -m multitalent_tpu_torch.probes.probe_bodies [--against DIR] [--out JSON]
 
@@ -44,14 +47,16 @@ from multitalent_tpu_torch.probes import conv_cost_isolate as cc
 from multitalent_tpu_torch.probes import conv_impl_arms as ca
 from multitalent_tpu_torch.probes import grid_overhead_probe as gp
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_BF16_FLOPS = ca.PEAK_BF16_FLOPS
 PEAK_HBM_BYTES = 3.35e12
-MODES = ("whole", "copies", "products")
+MODES = ("whole", "copies", "products", "transform")
+ARMS = ("im2col", "tap3", "wino")
+PLANS = {"im2col": ca.im2col_plan, "tap3": ca.tap3_plan, "wino": ca.wino_plan}
 # (tile, ndots) of conv_cost_isolate's center27 / center12 and the grid probe
 CENTERN_CONFIGS = tuple(dict.fromkeys(((cc.TILE, 27), (cc.TILE, 12), *gp.CONV_CONFIGS)))
 AGAINST_SOURCES = ("conv_arms.cu", "probe_kernels.cu")
-AGAINST_ENTRIES = {"mt_conv_im2col": _build._SIGNATURES["mt_conv_im2col"],
-                   "mt_centern": _build._SIGNATURES["mt_centern"]}
+AGAINST_ENTRIES = {name: _build._SIGNATURES[name] for name in (
+    "mt_conv_im2col", "mt_conv_tap3", "mt_conv_wino", "mt_centern")}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -120,40 +125,45 @@ def _timed(row: dict, calls: dict, iters: int) -> None:
             row[f"{name}_ms"] = min(ms, row.get(f"{name}_ms", ms))
 
 
-def im2col(device: torch.device, gen: torch.Generator, against, iters: int) -> dict:
+def arm(name: str, device: torch.device, gen: torch.Generator, against, iters: int) -> dict:
+    """Conv arm `name` at the timed shape: its TMA + wgmma body whole and by
+    form, its first body, and the other build's entry, each checked."""
     lib = _build.library()
     n, z, y, xd, c = ca.TIMED_SHAPE
     x = torch.randn(ca.TIMED_SHAPE, generator=gen, device=device).to(torch.bfloat16)
     w = torch.randn(c, c, 3, 3, 3, generator=gen, device=device) * (2.0 / (27 * c)) ** 0.5
-    pw = ca.prepare_arm_weight(w, "im2col")
+    pw = ca.prepare_arm_weight(w, name)
     ref = cv.conv3d_same_ref(x.float(), w)
-    sizes = (n, z, y, xd, c, pw.cout, pw.coutp)
+    sizes = (n, z, y, xd, c, pw.cout, pw.coutp, *((pw.bn,) if name == "tap3" else ()))
     outs = {}
 
     def form(body: int, mode: int):
         out = outs.setdefault((body, mode), torch.full((n, z, y, xd, pw.cout), float("nan"),
                                                        dtype=torch.bfloat16, device=device))
-        return _call(lib, "mt_conv_im2col_form", out, x.data_ptr(), pw.w.data_ptr(),
+        return _call(lib, f"mt_conv_{name}_form", out, x.data_ptr(), pw.w.data_ptr(),
                      out.data_ptr(), *sizes, body, mode)
 
     calls = {"whole": form(1, 0), "first_body": form(2, 0)}
     if against is not None:
         out = torch.full_like(outs[(1, 0)], float("nan"))
-        calls = {"against": _call(against, "mt_conv_im2col", out, x.data_ptr(),
+        calls = {"against": _call(against, f"mt_conv_{name}", out, x.data_ptr(),
                                   pw.w.data_ptr(), out.data_ptr(), *sizes), **calls}
-    row = {"kernel": "conv3d_im2col", "at": f"{c}->{c} at {z}x{y}x{xd} N={n}"}
-    for name, call in calls.items():
-        row[f"{name}_err"] = _held(f"im2col {name}", call(), ref)
+    row = {"kernel": f"conv3d_{name}", "at": f"{c}->{c} at {z}x{y}x{xd} N={n}"}
+    for key, call in calls.items():
+        row[f"{key}_err"] = _held(f"{name} {key}", call(), ref)
     del ref
     _timed(row, calls, iters)
-    for mode in (1, 2):
+    for mode in range(1, 4 if name == "wino" else 3):
         row[f"{MODES[mode]}_ms"] = _util.median_ms(form(1, mode), iters)
     vox = n * z * y * xd
     row["bound_ms"], row["bound_by"] = bound_ms(vox * 2 * c * 2 + 27 * c * c * 2,
                                                 2 * 27 * c * c * vox)
     for key, body in (("l2_to_shared_bytes", "tma"), ("first_body_l2_to_shared_bytes",
                                                       "mma_sync")):
-        row[key] = ca.im2col_plan(n, z, y, xd, c, pw.cout, body)["l2_to_shared_bytes"]
+        plan = PLANS[name](n, z, y, xd, c, pw.cout, body)
+        row[key] = plan["l2_to_shared_bytes"]
+    if name == "wino":
+        row["products_floor_ms"] = ca.products_floor_ms(plan["products_flops"])
     return row
 
 
@@ -204,11 +214,14 @@ def centern(device: torch.device, gen: torch.Generator, against, iters: int) -> 
 
 
 def _line(row: dict) -> str:
+    floors = ("bound_ms", "ndots_ceiling_ms", "products_floor_ms")
     times = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()
-                      if k.endswith("_ms") and k not in ("bound_ms", "ndots_ceiling_ms"))
+                      if k.endswith("_ms") and k not in floors)
     extra = (f", ndots ceiling {row['ndots_ceiling_ms']:.3f} ms "
              f"({row['share_of_ceiling']:.0%} of it), sub-tile {row['sub_tile']}, "
              f"grid {row['grid']}" if "ndots_ceiling_ms" in row else "")
+    if "products_floor_ms" in row:
+        extra += f", its own products floor {row['products_floor_ms']:.3f} ms"
     return (f"{row['kernel']} {row['at']}: {times} ms; bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']}){extra}; staged {row['l2_to_shared_bytes'] / 1e9:.2f} GB "
             f"(first body {row['first_body_l2_to_shared_bytes'] / 1e9:.2f} GB)")
@@ -216,7 +229,7 @@ def _line(row: dict) -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m multitalent_tpu_torch.probes.probe_bodies",
-                                 description="the im2col arm's and centern's bodies: whole, "
+                                 description="the conv arms' and centern's bodies: whole, "
                                              "copies only, products only, beside another build")
     ap.add_argument("--against", help="another checkout, its probe kernels built as they are")
     ap.add_argument("--iters", type=int, default=10, help="timed calls a median")
@@ -232,8 +245,8 @@ def main(argv=None) -> dict:
     against = build_against(Path(args.against)) if args.against else None
     gen = torch.Generator(device=device).manual_seed(0)
     result = {"device": name, "against": args.against, "rows": []}
-    for row in [im2col(device, gen, against, args.iters), *centern(device, gen, against,
-                                                                   args.iters)]:
+    for row in [*(arm(a, device, gen, against, args.iters) for a in ARMS),
+                *centern(device, gen, against, args.iters)]:
         print(_line(row), flush=True)
         result["rows"].append(row)
     if args.out:

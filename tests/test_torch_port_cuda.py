@@ -1456,26 +1456,44 @@ def test_conv3d_same_affine_gradients_match_the_plain_composition(device):
 @pytest.mark.parametrize("arm", ["im2col", "tap3", "wino"])
 @pytest.mark.parametrize("shape,cout", [
     ((1, 8, 16, 16, 120), 120),   # the script's parity shape
-    ((2, 6, 10, 14, 30), 47),     # ragged boxes and channels, batch 2
+    ((2, 6, 10, 14, 30), 47),     # ragged boxes and channels, batch 2 (C % 8 != 0)
     ((1, 4, 6, 8, 13), 24),       # odd C (1-channel loads)
+    ((2, 6, 10, 14, 64), 47),     # ragged tile groups and boxes, batch 2, Cout < CoutP
+    ((1, 10, 12, 18, 16), 30),    # C under one chunk, Y and X past a box
+    ((1, 4, 6, 8, 40), 24),       # C_P past a chunk's end (tap3: 32 + 8 channels)
 ])
 def test_conv_arm_matches_the_direct_conv(device, arm, shape, cout):
     """The im2col, tap3 and Winograd arms against the fp32 direct conv on the
-    same bf16 input (fp32 weights), the bound of probes/conv_impl_arms.py."""
+    same bf16 input (fp32 weights), the bound of probes/conv_impl_arms.py,
+    into a NaN-filled buffer, on the body each arm's plan names (wgmma fed
+    by TMA where C % 8 == 0, the first body otherwise), counted by body."""
     from multitalent_tpu_torch.probes import conv_impl_arms as ca
     rng = np.random.default_rng(9)
     x = _rand(rng, shape).to(device, torch.bfloat16)
     w = _rand(rng, (cout, shape[-1], 3, 3, 3), (2 / (27 * shape[-1])) ** 0.5).to(device)
     kernel = {"im2col": ca.conv3d_im2col, "tap3": ca.conv3d_tap3, "wino": ca.conv3d_wino}[arm]
-    before = kernel.launches
+    plan = {"im2col": ca.im2col_plan, "tap3": ca.tap3_plan, "wino": ca.wino_plan}[arm]
+    body = plan(*shape, cout)["body"]
+    assert body == ("tma" if shape[-1] % 8 == 0 else "mma_sync")
+    before, by_body = kernel.launches, dict(kernel.launches_by_body)
     out = _nan_filled((*shape[:4], cout), device)
-    got = kernel(x, ca.prepare_arm_weight(w, arm), out=out)
+    pw = ca.prepare_arm_weight(w, arm)
+    got = kernel(x, pw, out=out)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    after = kernel.launches_by_body
+    assert {k: after[k] - by_body[k] for k in after} == {k: int(k == body) for k in after}
     assert got.dtype == torch.bfloat16 and got.shape == (*shape[:4], cout)
     ref = cv.conv3d_same_ref(x.float(), w)
     assert (got.float() - ref).abs().max().item() <= ca.ATOL + ca.RTOL * ref.abs().max().item()
-    if arm == "wino":  # the control: G with one row wrong breaks the bound
+    if arm == "wino":
+        # against its own plain version with the kernel's rounding points (U,
+        # V and the output each rounded to bf16 once): both round fp32 sums
+        # taken in other orders (64-channel chunks, wgmma's order) to bf16, so
+        # they may differ by one bf16 ulp of the output, 2^-7 of max|ref|
+        own = ca.winograd_conv3d_ref(x.float(), pw, v_dtype=torch.bfloat16)
+        assert (got.float() - own).abs().max().item() <= 1e-3 + 2 ** -7 * own.abs().max().item()
+        # the control: G with one row wrong breaks the bound
         bad = ca.conv3d_wino(x, ca.prepare_arm_weight(w, "wino", g=ca.G_FAULTY))
         assert (bad.float() - ref).abs().max().item() > ca.ATOL + ca.RTOL * ref.abs().max().item()
 

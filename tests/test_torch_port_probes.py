@@ -196,6 +196,129 @@ def test_probe_plans_at_the_timed_shapes():
     assert cc.centern_plan(1, (96, 96, 96), 128, 27, (8, 48, 96))["grid"] == 24
 
 
+@pytest.mark.parametrize("arm", ["tap3", "wino"])
+@pytest.mark.parametrize("c", [8, 13, 16, 30, 40, 64, 120, 128])
+def test_tap3_and_wino_plans_pick_the_body_by_channels(arm, c):
+    """The tap3 and Winograd arms' bodies by C alone, as mt_conv_tap3 and
+    mt_conv_wino pick them: wgmma fed by TMA where every pixel row is
+    16-byte aligned (C % 8 == 0), the first (mma.sync) bodies otherwise; and what
+    each stages a launch at (2, 6, 10, 14) -> 47. tap3's TMA body: 2 x 2 x 2
+    boxes of 4x8x8 a sample (one 128-column block), each 32-channel chunk
+    three 6x10x8 x 64 B x-shifted loads and 27 weight stages of 32 x 128 x
+    2 B; its first body: kernel A's box (8, 4, 8) (1 x 3 x 2 a sample, the
+    first with the fewest), one 64-column block, each 16-channel chunk 480
+    rows of 48 channels and 9 x 48 x 64 weights. wino's TMA body: 1 x 2 x 2
+    8x8x8 boxes x 2 64-column blocks a sample, each 64-channel chunk a
+    10^3 x 128 B box and 64 positions of 64 x 64 x 2 B of U; its first body:
+    2 x 2 x 2 boxes of 4x8x8 a sample, one 128-column block, a slab of C_P
+    channels a 6x10x10 box and 64 positions of C_P x 128 x 2 B."""
+    n, z, y, x, cout = 2, 6, 10, 14, 47
+    cp = -(-c // 16) * 16
+    plan = (ca.tap3_plan if arm == "tap3" else ca.wino_plan)(n, z, y, x, c, cout)
+    if arm == "tap3" and c % 8 == 0:
+        chunks = -(-c // 32)
+        assert (plan["body"], plan["tiles"], plan["stages_per_tile"], plan["grid"]) == (
+            "tma", 16, 27 * chunks, 16)
+        assert plan["l2_to_shared_bytes"] == 16 * chunks * (3 * 480 * 64 + 27 * 32 * 256)
+    elif arm == "tap3":
+        chunks = -(-c // 16)
+        assert (plan["body"], plan["tiles"], plan["box"]) == ("mma_sync", 12, (8, 4, 8))
+        assert plan["l2_to_shared_bytes"] == 12 * chunks * (480 * 48 + 9 * 48 * 64) * 2
+    elif c % 8 == 0:
+        chunks = -(-cp // 64)
+        assert (plan["body"], plan["tiles"], plan["stages_per_tile"], plan["grid"]) == (
+            "tma", 16, 64 * chunks, 16)
+        assert plan["l2_to_shared_bytes"] == 16 * chunks * (1000 * 128 + 64 * 8192)
+    else:
+        assert (plan["body"], plan["tiles"], plan["stages_per_tile"]) == ("mma_sync", 16, 64)
+        assert plan["l2_to_shared_bytes"] == 16 * (600 * cp * 2 + 64 * cp * 256)
+    if arm == "wino":  # the 64 transform-domain GEMMs over 210 tiles, either body
+        assert plan["products_flops"] == 2 * 210 * 64 * cp * 128
+
+
+def test_tap3_and_wino_plans_at_the_timed_shape():
+    """The bytes both arms' bodies bring from L2 into shared memory at (2, 96,
+    96, 96, 120) -> 120, counted by hand. tap3's TMA body: 2 x 24 x 12 x 12 =
+    6,912 boxes of 4x8x8 x 128 columns, 4 chunks of 32 channels, each
+    3 x 30,720 B of x-shifted rows (2.55 GB in all) and 27 x 8,192 B of
+    weights (6.12 GB): 8.66 GB. Its first body: 13,824 blocks (2 column
+    blocks of 64), 8 chunks of 16 channels, each 480 x 96 B of xcat (5.10 GB)
+    and 55,296 B of weights (6.12 GB): 11.21 GB. wino's TMA body: 2 x 12^3 =
+    3,456 boxes of 8x8x8 x 2 column blocks = 6,912 items, 2 chunks of 64
+    channels, each a 128,000 B input box (1.77 GB) and 64 x 8,192 B of U
+    (7.25 GB): 9.02 GB. Its first body: 6,912 blocks, one slab of 128
+    channels, a 153,600 B box (1.06 GB) and 2 MiB of U (14.50 GB): 15.56 GB.
+    Winograd's own floor: 221,184 tiles x 64 x 128 x 128 x 2 flop at 989
+    TFLOP/s, 0.469 ms."""
+    shape = (2, 96, 96, 96, 120, 120)
+    t = ca.tap3_plan(*shape)
+    assert (t["body"], t["tiles"], t["stages_per_tile"], t["grid"]) == ("tma", 6912, 108, 132)
+    assert t["l2_to_shared_bytes"] == 6912 * 4 * (3 * 30720 + 27 * 8192) == 8_663_334_912
+    t = ca.tap3_plan(*shape, body="mma_sync")
+    assert (t["tiles"], t["stages_per_tile"]) == (13824, 8)
+    assert t["l2_to_shared_bytes"] == 13824 * 8 * (480 * 96 + 55296) == 11_211_374_592
+    w = ca.wino_plan(*shape)
+    assert (w["body"], w["tiles"], w["stages_per_tile"], w["grid"]) == ("tma", 6912, 128, 132)
+    assert w["l2_to_shared_bytes"] == 6912 * 2 * (128000 + 64 * 8192) == 9_017_229_312
+    w = ca.wino_plan(*shape, body="mma_sync")
+    assert (w["tiles"], w["stages_per_tile"]) == (6912, 64)
+    assert w["l2_to_shared_bytes"] == 6912 * (153600 + 2 * 2 ** 20) == 15_557_197_824
+    assert w["products_flops"] == 221184 * 64 * 128 * 128 * 2
+    assert ca.products_floor_ms(w["products_flops"]) == pytest.approx(0.469, abs=5e-4)
+
+
+def _wino_in_chunks(x: torch.Tensor, pw, chunk: int = 64) -> torch.Tensor:
+    """The Winograd TMA body's order in fp32: the volume cut into 8x8x8
+    output boxes (4x4x4 groups of 2x2x2 tiles, zeros past the edges and the
+    SAME halo), and for each box the channels in `chunk`-channel chunks: V of
+    the chunk, M = V U per position, A^T of each chunk's M added into the 8
+    output phases."""
+    n, z, y, xd, c = (int(s) for s in x.shape)
+    cp = pw.w.shape[1]
+    g = [-(-s // 8) for s in (z, y, xd)]
+    xp = torch.zeros(n, 8 * g[0] + 2, 8 * g[1] + 2, 8 * g[2] + 2, cp)
+    xp[:, 1:z + 1, 1:y + 1, 1:xd + 1, :c] = x
+    b3, a3 = ca._kron3(ca.BT, torch.float32, "cpu"), ca._kron3(ca.AT, torch.float32, "cpu")
+    out = torch.zeros(n, 8 * g[0], 8 * g[1], 8 * g[2], pw.coutp)
+    for nb in range(n):
+        for gz in range(g[0]):
+            for gy in range(g[1]):
+                for gx in range(g[2]):
+                    box = xp[nb, 8 * gz:8 * gz + 10, 8 * gy:8 * gy + 10, 8 * gx:8 * gx + 10]
+                    d = box.unfold(0, 4, 2).unfold(1, 4, 2).unfold(2, 4, 2)  # (4,4,4,C,4,4,4)
+                    phases = torch.zeros(8, 64, pw.coutp)
+                    for c0 in range(0, cp, chunk):
+                        v = d[:, :, :, c0:c0 + chunk].reshape(64, -1, 64) @ b3.T
+                        m = torch.bmm(v.permute(2, 0, 1), pw.w[:, c0:c0 + chunk].float())
+                        phases += (a3 @ m.reshape(64, -1)).reshape(8, 64, pw.coutp)
+                    o = phases.reshape(2, 2, 2, 4, 4, 4, pw.coutp).permute(3, 0, 4, 1, 5, 2, 6)
+                    out[nb, 8 * gz:8 * gz + 8, 8 * gy:8 * gy + 8, 8 * gx:8 * gx + 8] = \
+                        o.reshape(8, 8, 8, pw.coutp)
+    return out[:, :z, :y, :xd, :pw.cout]
+
+
+def test_wino_chunked_order_matches_the_pallas_arm(arms_script, monkeypatch):
+    """The Winograd TMA body splits K into 64-channel chunks, each chunk's
+    partial M through A^T into the phases (csrc/conv_arms.cu
+    wino_tma_kernel): that order, emulated in fp32 with its 8x8x8 boxes at a
+    ragged even shape (Z and Y not multiples of 8, C = 72 one chunk and 8
+    channels), against scripts/conv_impl_arms.pallas_conv3d_same in interpret
+    mode under MTTPU_PALLAS_CONV_IMPL=wino, bound the script's 1e-3."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 10, 12, 16, 72)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, 72, 40)) * 0.1).astype(np.float32)  # DHWIO
+    monkeypatch.setenv("MTTPU_PALLAS_CONV_IMPL", "wino")
+    want = np.asarray(arms_script.pallas_conv3d_same(jnp.asarray(x), jnp.asarray(w),
+                                                     interpret=True))
+    pw = ca.prepare_arm_weight(torch.from_numpy(w).permute(4, 3, 0, 1, 2), "wino",
+                               dtype=torch.float32)
+    got = _wino_in_chunks(torch.from_numpy(x), pw)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() < ca.PARITY_BOUND
+    whole = ca.winograd_conv3d_ref(torch.from_numpy(x), pw)
+    assert (got - whole).abs().max().item() < ca.PARITY_BOUND
+
+
 @pytest.mark.parametrize("tile,sub", [((8, 16, 16), (1, 16, 16)), ((8, 32, 32), (1, 8, 32)),
                                       ((8, 48, 96), (1, 8, 32)), ((2, 4, 8), (2, 4, 8)),
                                       ((6, 6, 12), (3, 6, 12)), ((4, 12, 24), (2, 4, 24)),
