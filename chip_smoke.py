@@ -12,7 +12,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    shapes (N=1), then A at the training batch (N=2), each into a NaN-filled
    buffer, with the plan it took (the ring body or, at 16-byte rows with
    streamed weights, the wgmma body of csrc/conv3d_wgmma.cu: a plan of A or
-   B that names conv3d_same_kernel fails the run); kernel C (dw) single at
+   B that names neither fails the run); kernel C (dw) single at
    A's shapes and
    dual at B's (each
    into a NaN-filled dw buffer, with its bound and write path: dw directly
@@ -41,8 +41,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    `multitalent_tpu_torch.cli.predict_multitalent.main` with mirror TTA; the
    labelmap and all 47 region NIfTIs must exist at the input's shape, and
    each kernel's launch count must equal its launches per forward times the
-   forwards run; A and B must have run the wgmma body, and every counted run
-   of the script fails where A, B or D reached conv3d_same_kernel;
+   forwards run; A and B must have run the wgmma body;
 3b. the same with MTTPU_FUSED_NORM=1 (the fused conv -> norm route, kernels
    D, E and F): exact launch counts of the fused route (D's dual form at
    16-byte rows on the wgmma body, its launches by body), every region mask
@@ -105,8 +104,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    its own products floor, against its plain version with its rounding
    points and against a control with one row of G wrong that must break its
    bound; the three arms' first bodies at C % 8 != 0, counted by body; the
-   packed conv at the flagship's stages 0 and 1; the center-view conv and
-   the zero fill at (1,96,96,96,128) by tile), each with its bound (the least
+   packed conv at the flagship's stages 0 and 1 on kernel A's ring body,
+   bit-equal to kernel A on the unpacked tensor, with A's time there, cuDNN's
+   and its ring plan; the center-view conv and the zero fill at
+   (1,96,96,96,128) by tile, the fill's form, queued times beside zero_'s,
+   GB/s in all and a block, and the host's us a call), each with its bound (the least
    time of its work at the card's peak rates) and its median time beside
    the plain version's and the library call's; then the wgmma body's
    readings (probes/wgmma_forms.py): one wgmma of a TMA-staged box at a
@@ -852,8 +854,7 @@ def _plan(row: dict, form: str, kernel=None, cudnn=None) -> None:
     row.update(_affine_bound(sum(splits), row["cout"], sp, n, form == "d")
                if form.startswith("d") else _conv_bound(sum(splits), row["cout"], sp, n))
     if not (plan["ring"] or plan["wgmma"]):
-        raise AssertionError(f"kernel {form} at {sp} N={n}: the plan names "
-                             "conv3d_same_kernel")
+        raise AssertionError(f"kernel {form} at {sp} N={n}: the plan names neither body")
     body = ("ring body" if plan["ring"] else
             f"the wgmma body (TMA halo boxes, BN {plan['wgmma_bn']}, K splits "
             f"{plan['wgmma_splits']}, {plan['wgmma_blocks']} blocks, "
@@ -892,6 +893,20 @@ def _queued_ms(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """The host's us a call of fn over `calls` calls issued back to back,
+    the card's queue drained before and after (what a single call's time
+    holds beside the card's)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _device_launches(fn) -> int:
@@ -1228,15 +1243,6 @@ BODY_COUNTS: dict = {}
 RECORDED_BODIES: dict = {}
 
 
-def _check_bodies(counts: dict, where: str) -> None:
-    """Kernels A, B and D (both forms) never reach conv3d_same_kernel (the
-    older body, the packed conv's alone): at 16-byte rows with streamed
-    weights A, B and D's dual form run the wgmma body."""
-    older = {name: c["older"] for name, c in counts.items() if c.get("older")}
-    if older:
-        raise AssertionError(f"{where}: A/B/D launches on conv3d_same_kernel {older}")
-
-
 def _check_d_bodies(d_shapes: collections.Counter, where: str) -> dict:
     """Kernel D's launches by body in the _recording of it just made: every
     dual-form call whose plan names the wgmma body (16-byte rows, streamed
@@ -1246,7 +1252,7 @@ def _check_d_bodies(d_shapes: collections.Counter, where: str) -> dict:
     bodies = RECORDED_BODIES["conv3d_same_affine"]
     wgmma = sum(k for (splits, cout, sp, n), k in d_shapes.items() if len(splits) == 2
                 and cv.conv3d_same_plan(n, *sp, splits, cout, "d_dual")["wgmma"])
-    want = {"older": 0, "ring": sum(d_shapes.values()) - wgmma, "wgmma": wgmma}
+    want = {"ring": sum(d_shapes.values()) - wgmma, "wgmma": wgmma}
     if bodies != want or not wgmma:
         raise AssertionError(f"{where}: kernel D's launches by body {bodies}, expected {want}")
     print(f"kernel D's launches by body ({where}): {bodies} (its dual form at 16-byte rows "
@@ -1270,8 +1276,8 @@ def _check_fp32_bodies(counters: dict, where: str) -> None:
 def _run_counted(fn):
     """fn() with every kernel's launch count set to 0 just before it; returns
     (fn's result, the counts read just after). Kernels A's and B's counts by
-    body land in BODY_COUNTS, D's too; a launch of any on the older body
-    fails."""
+    body land in BODY_COUNTS, D's too; an fp32 C or D launch off the ring
+    bodies fails."""
     counters = _kernel_counters()
     for k in counters.values():
         k.launches = 0
@@ -1281,7 +1287,6 @@ def _run_counted(fn):
     BODY_COUNTS.clear()
     BODY_COUNTS.update({name: dict(k.launches_by_body) for name, k in counters.items()
                         if hasattr(k, "launches_by_body")})
-    _check_bodies(BODY_COUNTS, "a counted run")
     _check_fp32_bodies(counters, "a counted run")
     return result, {name: k.launches for name, k in counters.items()}
 
@@ -5780,7 +5785,6 @@ def _recording(*names):
             setattr(cv, name, kernel)
         RECORDED_BODIES.update({name: dict(rec.launches_by_body)
                                 for name, rec in recorders.items()})
-    _check_bodies({name: RECORDED_BODIES[name] for name in recorders}, "a recorded run")
 
 
 @contextlib.contextmanager
@@ -6052,14 +6056,29 @@ def phase_probe_kernels() -> dict:
         err = _check(f"packed conv {shape} {factors}",
                      sc.packed_conv3d(xp, pw, factors, out=_nan_filled(xp.shape, dev)), ref,
                      bound)
-        x_cl = sc.depth_to_space_yx(xp, factors).permute(0, 4, 1, 2, 3)
+        # kernel A on the unpacked tensor: the packed conv runs A's plan with
+        # the K loop whole, so where A's plan has one split (both shapes) the
+        # outputs agree bit for bit
+        xu = sc.depth_to_space_yx(xp, factors).contiguous()
+        x_cl = xu.permute(0, 4, 1, 2, 3)
         w_cl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        a_plan = cv.conv3d_same_plan(*shape[:4], c, c, "a")
+        plan = cv.conv3d_same_plan(*shape[:4], c, c, "packed")
+        bit_equal = torch.equal(sc.packed_conv3d(xp, pw, factors),
+                                sc.space_to_depth_yx(cv.conv3d_same(xu, pw), factors))
+        if a_plan["splits"] != 1 or not bit_equal:
+            raise AssertionError(f"packed conv {shape} {factors}: bit-equal to kernel A "
+                                 f"{bit_equal}, A's plan {a_plan}")
         report("packed_conv3d", f"{c}->{c} at {'x'.join(map(str, shape[1:4]))} packed "
                f"{factors}", err, bound, lambda: sc.packed_conv3d(xp, pw, factors),
                lambda: sc.packed_conv3d_ref(xp.float(), w, factors), None,
                _conv_bound(c, c, shape[1:4], shape[0]),
-               cudnn_unpacked_ms=round(_median_ms(lambda: F.conv3d(x_cl, w_cl, padding=1)), 4))
-        del xp, ref, x_cl
+               cudnn_unpacked_ms=round(_median_ms(lambda: F.conv3d(x_cl, w_cl, padding=1)), 4),
+               a_unpacked_ms=round(_median_ms(lambda: cv.conv3d_same(xu, pw)), 4),
+               bit_equal_to_a=bit_equal,
+               plan={k: plan[k] for k in ("g", "resident", "ksplit", "stages", "splits",
+                                          "grid_x", "smem_bytes")})
+        del xp, xu, ref, x_cl
     torch.cuda.empty_cache()
 
     # the center-view conv and the zero fill at (1, 96, 96, 96, 128); the
@@ -6097,6 +6116,10 @@ def phase_probe_kernels() -> dict:
         print(f"centern {ndots} dots tile {tile}: {rows['centern'][-1]['share_of_ceiling']:.1%} "
               f"of its ndots ceiling")
         del ref
+    # the zero fill into one buffer (as zero_), its form by zeros_plan; the
+    # queued times (iters calls between one event pair) beside single calls,
+    # GB/s in all and a block (the queued rate over the blocks), and the
+    # host's us a call of each
     shape = (*sp, c)
     buf = torch.empty(shape, dtype=torch.bfloat16, device=dev)
     for tile in gp.ZERO_TILES:
@@ -6104,10 +6127,17 @@ def phase_probe_kernels() -> dict:
         bad = (got != 0).sum().item()
         if got.data_ptr() != buf.data_ptr() or bad:
             raise AssertionError(f"zeros tile {tile}: {bad} values are not 0")
-        report("zeros", f"{'x'.join(map(str, sp))}x{c} bf16 tile {tile}", 0.0, 0.0,
-               lambda: gp.zeros(shape, tile, dev), lambda: gp.zeros_ref(shape, device=dev),
-               buf.zero_, _bound(prod(shape) * 2),
-               grid=prod(s // t for s, t in zip(sp, tile)))
+        plan = gp.zeros_plan(shape, tile)
+        fill = lambda: gp.zeros(shape, tile, dev, out=buf)  # noqa: E731
+        queued = _queued_ms(fill)
+        report("zeros", f"{'x'.join(map(str, sp))}x{c} bf16 tile {tile}", 0.0, 0.0, fill,
+               lambda: gp.zeros_ref(shape, device=dev), buf.zero_, _bound(prod(shape) * 2),
+               grid=plan["blocks"], form=plan["form"], runs=plan["runs"],
+               run_bytes=plan["run_bytes"], queued_ms=round(queued, 4),
+               library_queued_ms=round(_queued_ms(buf.zero_), 4),
+               gbps=round(prod(shape) * 2 / queued / 1e6, 2),
+               gbps_per_block=round(prod(shape) * 2 / queued / 1e6 / plan["blocks"], 3),
+               host_us=round(_host_us(fill), 2), library_host_us=round(_host_us(buf.zero_), 2))
     del x, buf, got
     torch.cuda.empty_cache()
     return rows
@@ -6391,15 +6421,19 @@ def main() -> int:
                      "ms": first["ms"], "plain_ms": first["plain_ms"],
                      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                      "library_ms": first["library_ms"], "timed_at": first["what"]})
-        if kname in ("conv3d_im2col", "conv3d_tap3", "conv3d_wino", "centern"):
+        if kname in ("conv3d_im2col", "conv3d_tap3", "conv3d_wino", "centern",
+                     "packed_conv3d", "zeros"):
             # the redesigned bodies: every row
             keys = ("err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body",
                     "l2_to_shared_bytes", "ndots_ceiling_ms", "share_of_ceiling", "sub_tile",
                     "tiles", "blocks", "products_floor_ms", "own_err", "own_bound",
-                    "control_max")
+                    "control_max", "cudnn_unpacked_ms", "a_unpacked_ms", "bit_equal_to_a",
+                    "plan", "grid", "form", "runs", "run_bytes", "queued_ms",
+                    "library_queued_ms", "gbps", "gbps_per_block", "host_us",
+                    "library_host_us")
             rows[-1]["shapes"] = [{"at": r["what"], **{k: r[k] for k in keys if k in r}}
                                   for r in res]
-            if kname != "centern":
+            if kname in probe_path["launches_by_body"]:
                 rows[-1]["launches_by_body"] = probe_path["launches_by_body"][kname]
     # the fp32 forms of A, B and C (phase 14): launches from 14b's fp32 train
     # CLI (the main path of --fp32) and its cli.predict, times at 14a's Liver

@@ -33,9 +33,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # n, z, y, x, ca, cb, cout, coutp, bn -> workspace bytes (-1: bad sizes)
     "mt_conv3d_workspace": ([_I] * 9, _L),
-    # the same, and the body the launch runs into body[0] (1 ring, 2 wgmma)
+    # the same, and the body the launch runs into body[0] (0 ring, 1 wgmma)
     "mt_conv3d_launch_plan": ([_I] * 9 + [ctypes.POINTER(_I)], _L),
-    # form, n, z, y, x, ca, cb, cout, coutp, bn, plan[14] -> 0 (-1: bad sizes)
+    # form (0 A, 1 B, 2 D, 3 D dual, 4 packed), n, z, y, x, ca, cb, cout, coutp,
+    # bn, plan[14] -> 0 (-1: bad sizes)
     "mt_conv3d_same_plan": ([_I] * 10 + [ctypes.POINTER(_I)], _I),
     # the wgmma body alone: a, b, w, bias, out, ws, ws_bytes, n, z, y, x, ca,
     # cb, cout, coutp, mode (0 whole, 1 copies only, 2 products only), stream
@@ -69,7 +70,7 @@ _SIGNATURES = {
     "mt_conv3d_wgrad_dual": ([_P, _P, _P, _P, _P, _L] + [_I] * 7 + [_P], _I),
     # n, z, y, x, ca, cb, cout, coutp, bn -> kernel D's workspace bytes
     "mt_conv3d_stats_workspace": ([_I] * 9, _L),
-    # the same, and the body the launch runs into body[0] (1 ring, 2 wgmma)
+    # the same, and the body the launch runs into body[0] (0 ring, 1 wgmma)
     "mt_conv3d_stats_launch_plan": ([_I] * 9 + [ctypes.POINTER(_I)], _L),
     # x, w, bias, scale, shift, slope, out, stats, ws, ws_bytes, n, z, y, x,
     # cin, cout, coutp, bn, stream
@@ -121,6 +122,8 @@ _SIGNATURES = {
     "mt_centern_form": ([_P] * 3 + [_I] * 11 + [_P], _I),
     # out, z, y, x, c, bz, by, bx, stream
     "mt_zeros": ([_P] + [_I] * 7 + [_P], _I),
+    # the same, then form (1 vector stores, mt_zeros'; 2 bulk stores), stream
+    "mt_zeros_form": ([_P] + [_I] * 8 + [_P], _I),
     "mt_error_string": ([_I], ctypes.c_char_p),
 }
 

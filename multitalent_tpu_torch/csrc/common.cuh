@@ -18,9 +18,7 @@
 namespace mt {
 
 constexpr int KC = 16;          // channels per K chunk (the mma K)
-constexpr int HS = KC + 8;      // halo row stride in bf16: 48 B, conflict-free
 constexpr int BM = 256;         // voxels per box
-constexpr int HALO_MAX = 720;   // largest (bz+2)(by+2)(bx+2) of the boxes below
 
 struct Box {
   int z, y, x;
@@ -70,6 +68,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full)
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(full ? 8 : 0));
+}
+// One copy of `vec` elements (8, 4, 2 or 1) to shared memory, zeros where
+// `full` is false: cp.async of 16, 8 or 4 bytes, or one element loaded.
+__device__ __forceinline__ void cp_async_vec(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                             bool full, int vec) {
+  if (vec == 8) {
+    cp_async16(dst, src, full);
+  } else if (vec == 4) {
+    cp_async8(dst, src, full);
+  } else if (vec == 2) {
+    cp_async4(dst, src, full);
+  } else {
+    dst[0] = full ? *src : __float2bfloat16(0.f);
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -130,14 +142,7 @@ __device__ __forceinline__ void load_box(__nv_bfloat16* dst,
     __nv_bfloat16* d = dst + v * stride + ch;
     const int64_t off =
         ((((int64_t)nb * n_z + gz) * n_y + gy) * n_x + gx) * c + c0 + ch;
-    const __nv_bfloat16* s = inside ? src + off : src;
-    if (vec == 8) {
-      cp_async16(d, s, inside);
-    } else if (vec == 2) {
-      cp_async4(d, s, inside);
-    } else {
-      d[0] = inside ? *s : __float2bfloat16(0.f);
-    }
+    cp_async_vec(d, inside ? src + off : src, inside, vec);
   }
 }
 
@@ -195,17 +200,7 @@ __device__ __forceinline__ void load_lines(__nv_bfloat16* dst, int stride,
       int s_off = m.j * c + u * m.vec, d_off = m.j * stride + u * m.vec;
       for (int v = m.j; v < len; v += m.vpi, s_off += s_step, d_off += d_step) {
         const bool in = line_in && v >= vlo && v < vhi;
-        __nv_bfloat16* d = d_line + d_off;
-        const __nv_bfloat16* s = in ? s_line + s_off : src;
-        if (m.vec == 8) {
-          cp_async16(d, s, in);
-        } else if (m.vec == 4) {
-          cp_async8(d, s, in);
-        } else if (m.vec == 2) {
-          cp_async4(d, s, in);
-        } else {
-          d[0] = in ? *s : __float2bfloat16(0.f);
-        }
+        cp_async_vec(d_line + d_off, in ? s_line + s_off : src, in, m.vec);
       }
     }
   }

@@ -22,34 +22,28 @@
 //     (~0.6 GB at stage 0 with N=1); the prologue adds ~7 elementwise ops per
 //     staged element, once per K chunk, not per tap.
 // and the probe kernel scripts/pallas_sparse_conv_arm.py _sparse_kernel
-// (pallas_call at :287) -> conv3d_same_kernel, `mt_packed_conv3d`: the
-// same conv read and written space-to-depth packed, (N, Z, Y/fy, X/fx,
-// fy*fx*C) phase-major, optionally of concatenated input groups. The TPU
-// kernel merges the block-sparse packed taps into 12 or 18 GEMMs on
-// lane-gathered inputs (1.33x the direct conv's FLOPs); here the packing only
-// decides addresses, the depth-to-space folded into the halo loads and the
-// space-to-depth into the stores, at 1x the direct conv's FLOPs:
-//   unpacked (y, x, c) = packed (y / fy, x / fx, phase * C + c),
-//   phase = (y % fy) * fx + x % fx   (multitalent_tpu/ops/packed_conv.py:59-67);
-//   with input groups ([P*g0 | P*g1 | ...]), channel c of group g sits at
-//   base_g * P + phase * g + (c - base_g)
-//   (scripts/pallas_sparse_conv_arm.py:68-85).
-// Its loads are 4-byte channel pairs (elements for odd groups) in place of
-// 16-byte rows, and it never splits K (the partials' order is unpacked).
+// (pallas_call at :287) -> the ring body's PACKED instantiations,
+// `mt_packed_conv3d`: kernel A's conv read and written space-to-depth packed
+// (N, Z, Y/fy, X/fx, fy*fx*C), phase-major, of up to 4 concatenated input
+// groups (load_lines_packed gives the layout). The TPU kernel merges the
+// block-sparse packed taps into 12 or 18 GEMMs (1.33x the direct conv's
+// FLOPs); here the packing only decides addresses, at 1x: the loader reads
+// each voxel's row at its packed place, the epilogue writes it there. It
+// runs A's plan at the unpacked sizes with the K loop whole (a split's
+// partials are unpacked), so where A's own plan has one split its output is
+// A's bit for bit.
 //
-// Three bodies. The ring body (conv3d_a_kernel, below), built for the H100's
-// narrow stage-0 and stage-1 rows, serves kernel D at every size, and
-// kernels A, B and D's dual form wherever a row is narrower than 16-byte
-// copies (30, 60, odd C), the weights stay resident, or (one input) the K
-// loop is split. Where every row takes 16-byte copies (each input's C % 8 ==
-// 0), the weights are streamed and the ring does not take the call, kernels
-// A (every dx included), B and D's dual form run the wgmma body of
-// conv3d_wgmma.cu (TMA halo boxes, one staged box for all 27 taps,
+// Two bodies. The ring body (conv3d_a_kernel, below), built for the H100's
+// narrow stage-0 and stage-1 rows, serves kernel D and the packed conv at
+// every size, and kernels A, B and D's dual form wherever a row is narrower
+// than 16-byte copies (30, 60, odd C), the weights stay resident, or (one
+// input) the K loop is split. Where every row takes 16-byte copies (each
+// input's C % 8 == 0), the weights are streamed and the ring does not take
+// the call, kernels A (every dx included), B and D's dual form run the wgmma
+// body of conv3d_wgmma.cu (TMA halo boxes, one staged box for all 27 taps,
 // warp-specialised; 48-768 channels: the flagship's 120-320, the Liver
 // net's, SwinUNETR's; D's dual form with its stats in the epilogue or, with
-// a split K loop, in the split-K reduce). The older body, conv3d_same_kernel
-// (mma.sync fed by ldmatrix, one box staged, then computed, chunk by chunk),
-// serves the packed conv alone.
+// a split K loop, in the split-K reduce).
 //
 // What bounds the ring body on an H100: the flagship's convs carry ~27*C FLOPs
 // per input byte, well above the ~295 FLOP/byte ridge, so the tensor cores
@@ -84,23 +78,11 @@
 //     stage ahead of the products where 3 stages fit (stage 0: the column
 //     split), else after the stage's barrier with one more; its stats are
 //     summed by each warp in shared memory a tile and added across warps
-//     once a sample a block.
-//
-// What bounds conv3d_same_kernel (the packed conv): the same products,
-// behind the serialised load -> sync -> compute phases of each K chunk.
-// Its design answers each in a simple way:
-//   - implicit GEMM: a block owns 256 output voxels x BN output channels; per
-//     16-channel K chunk it stages one haloed input box and the chunk's
-//     weights for all 27 taps in shared memory (cp.async, zero-fill) and
-//     reuses them for all 27 taps;
-//   - shared-memory rows are padded (48 B per voxel, BN+8 per weight row) so
-//     every ldmatrix is free of bank conflicts;
-//   - the box shape (2x8x16, 4x8x8, ...) is picked per call to waste the
-//     fewest voxels at the volume's edges;
-//   - ragged C and ragged Z/Y/X are zero-filled in shared memory, never
-//     padded in device memory;
-//   - the output rounds to bf16 once. Two blocks fit on an SM, so one
-//     block's loads overlap the other's products.
+//     once a sample a block;
+//   - the packed conv (PACKED) stages the same lines from the packed tensor
+//     (load_lines_packed: a lane's group is fixed for the stage and it
+//     carries x % fx along its line, no division a voxel) and writes each
+//     output voxel's row at its packed place.
 //
 // Layouts:
 //   x:   (N, Z, Y, X, Cin) bf16, contiguous (a channels_last_3d NCDHW tensor)
@@ -116,192 +98,6 @@
 namespace {
 
 using namespace mt;
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MF = BM / (WARPS * 16);  // 16-voxel M fragments per warp
-constexpr int MAX_GROUPS = 4;  // input groups of the packed conv
-
-struct Plan {
-  Box box;
-  int tiles_z, tiles_y, tiles_x;
-};
-
-// The packed conv: factors (fy, fx) of in and out (n, z, y, x are the
-// unpacked sizes), the input's groups as unpacked channel ranges, and
-// whether every group is even (channel-pair loads).
-struct Params {
-  const __nv_bfloat16* in;
-  int cin;
-  const __nv_bfloat16* w;
-  __nv_bfloat16* out;
-  int n, z, y, x, cout, coutp;
-  Plan plan;
-  int fy, fx, ngroups, pairs;
-  int gbase[MAX_GROUPS], gsize[MAX_GROUPS];
-};
-
-// Element offset of unpacked voxel (gz, gy, gx), channel c of the group
-// starting at unpacked channel gbase with gsize channels, in a tensor packed
-// by (p.fy, p.fx) with cc channels per phase.
-__device__ __forceinline__ int64_t packed_offset(const Params& p, int nb, int gz, int gy,
-                                                 int gx, int cc, int gbase, int gsize, int c) {
-  const int P = p.fy * p.fx;
-  const int phase = (gy % p.fy) * p.fx + gx % p.fx;
-  const int yp = p.y / p.fy, xp = p.x / p.fx;
-  const int64_t vox = (((int64_t)nb * p.z + gz) * yp + gy / p.fy) * xp + gx / p.fx;
-  return vox * P * cc + (int64_t)gbase * P + phase * gsize + (c - gbase);
-}
-
-// One K chunk of the haloed input box, unpacked from p.in into shared-memory
-// rows of HS elements, zero outside the volume and past the input's
-// channel count.
-__device__ __forceinline__ void load_halo_packed(__nv_bfloat16* halo, const Params& p, int c0,
-                                                 int nb, int z0, int y0, int x0) {
-  const Box box = p.plan.box;
-  const int hx = box.x + 2, hy = box.y + 2, hz = box.z + 2;
-  const int vec = p.pairs ? 2 : 1;
-  const int per_vox = KC / vec;
-  const int total = hz * hy * hx * per_vox;
-  const int cin = p.cin;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int v = i / per_vox;
-    const int ch = (i - v * per_vox) * vec;
-    const int c = c0 + ch;
-    const int vx = v % hx, vy = (v / hx) % hy, vz = v / (hx * hy);
-    const int gz = z0 + vz - 1, gy = y0 + vy - 1, gx = x0 + vx - 1;
-    const bool inside = gz >= 0 && gz < p.z && gy >= 0 && gy < p.y && gx >= 0 &&
-                        gx < p.x && c < cin;
-    int gbase = 0, gsize = p.gsize[0];
-#pragma unroll
-    for (int g = 1; g < MAX_GROUPS; ++g) {
-      if (g < p.ngroups && c >= p.gbase[g]) {
-        gbase = p.gbase[g];
-        gsize = p.gsize[g];
-      }
-    }
-    __nv_bfloat16* d = halo + v * HS + ch;
-    const __nv_bfloat16* s =
-        inside ? p.in + packed_offset(p, nb, gz, gy, gx, cin, gbase, gsize, c) : p.in;
-    if (vec == 2) {
-      cp_async4(d, s, inside);
-    } else {
-      d[0] = inside ? *s : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// The chunk's (27, 16, BN) weight slice for output-channel block `nblk`.
-template <int BN>
-__device__ __forceinline__ void load_weights(__nv_bfloat16* wsm,
-                                             const __nv_bfloat16* __restrict__ w,
-                                             int kchunk, int nblk, int coutp) {
-  constexpr int BNP = BN + 8;
-  constexpr int VPR = BN / 8;  // 16-byte copies per row
-  constexpr int total = 27 * KC * VPR;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int row = i / VPR;
-    const int col = (i - row * VPR) * 8;
-    const int64_t off = ((int64_t)kchunk * 27 * KC + row) * coutp + nblk * BN + col;
-    cp_async16(wsm + row * BNP + col, w + off, true);
-  }
-}
-
-template <int BN>
-constexpr int smem_bytes() {
-  return HALO_MAX * HS * 2 + 27 * KC * (BN + 8) * 2;
-}
-
-// The packed conv, one input, the whole K loop: block (tile, column block).
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2) conv3d_same_kernel(Params p) {
-  constexpr int BNP = BN + 8;
-  constexpr int NT = BN / 8;  // n8 tiles per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem + HALO_MAX * HS * 2);
-
-  const Box box = p.plan.box;
-  const int hx = box.x + 2, hy = box.y + 2;
-  int t = blockIdx.x;
-  const int txi = t % p.plan.tiles_x;
-  t /= p.plan.tiles_x;
-  const int tyi = t % p.plan.tiles_y;
-  t /= p.plan.tiles_y;
-  const int tzi = t % p.plan.tiles_z;
-  const int nb = t / p.plan.tiles_z;
-  const int x0 = txi * box.x, y0 = tyi * box.y, z0 = tzi * box.z;
-  const int nblk = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // ldmatrix rows: lane l addresses row l % 16 of each of this warp's M
-  // fragments (one output voxel each) at K offset (l / 16) * 8
-  int a_row[MF];
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi) {
-    const int m = (warp * MF + mi) * 16 + lane % 16;
-    const int vz = m / (box.y * box.x), vy = (m / box.x) % box.y, vx = m % box.x;
-    a_row[mi] = ((vz * hy + vy) * hx + vx) * HS + (lane / 16) * 8;
-  }
-  const int b_row = (lane % 16) * BNP + (lane / 16) * 8;
-
-  float acc[MF][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-
-  const int kchunks = cdiv(p.cin, KC);
-  for (int kc = 0; kc < kchunks; ++kc) {
-    __syncthreads();  // the previous chunk's fragments are consumed
-    load_halo_packed(halo, p, kc * KC, nb, z0, y0, x0);
-    load_weights<BN>(wsm, p.w, kc, nblk, p.coutp);
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 27; ++tap) {
-      const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
-      const int tap_off = ((dz * hy + dy) * hx + dx) * HS;
-      uint32_t a[MF][4];
-#pragma unroll
-      for (int mi = 0; mi < MF; ++mi) ldmatrix_x4(a[mi], halo + a_row[mi] + tap_off);
-      const __nv_bfloat16* wt = wsm + tap * KC * BNP + b_row;
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, wt + j * 8);
-#pragma unroll
-        for (int mi = 0; mi < MF; ++mi) {
-          mma_16816(acc[mi][j], a[mi], b[0], b[1]);
-          mma_16816(acc[mi][j + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  // epilogue: accumulator element e of tile (mi, j) is voxel row
-  // lane / 4 (+8 for e >= 2), channel 2 * (lane % 4) + (e & 1); the voxel's
-  // row is written at its phase (tight phase-major)
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = (warp * MF + mi) * 16 + lane / 4 + h * 8;
-      const int gz = z0 + m / (box.y * box.x), gy = y0 + (m / box.x) % box.y,
-                gx = x0 + m % box.x;
-      if (gz >= p.z || gy >= p.y || gx >= p.x) continue;
-      __nv_bfloat16* row = p.out + packed_offset(p, nb, gz, gy, gx, p.cout, 0, p.cout, 0);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int co = nblk * BN + j * 8 + (lane % 4) * 2;
-        if (co >= p.cout) continue;
-        store_pair(row, co, p.cout, acc[mi][j][h * 2], acc[mi][j][h * 2 + 1]);
-      }
-    }
-  }
-}
 
 // out = bf16(sum over splits of the partials + bias)
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
@@ -430,12 +226,13 @@ struct AConfig {
 // What a launch of the body computes: kernel A (one input), B (two inputs,
 // the K loop over a's chunks, then b's), D (one input, the normalize
 // prologue and the stats epilogue) or D's dual form (two inputs, the stats).
+// PACKED: kernel A's conv of the packed conv's tensors.
 struct AForm {
   int nin;
-  bool affine, stats;
+  bool affine, stats, packed;
 };
 constexpr AForm FORM_A{1, false, false}, FORM_B{2, false, false}, FORM_D{1, true, true},
-    FORM_D_DUAL{2, false, true};
+    FORM_D_DUAL{2, false, true}, FORM_PACKED{1, false, false, true};
 
 // Two inputs with both chunks of their 17-32-channel rows staged at once
 // keep four chunks' weights resident: in 64-byte rows, the 16-byte unit u of
@@ -463,6 +260,16 @@ struct APlan {
   int blocks_per_sm;
 };
 
+constexpr int MAX_GROUPS = 4;  // input groups of the packed conv
+
+// The packed conv: factors (fy, fx) of input and output, the input's groups
+// as unpacked channel ranges, and the copy width in elements (8, 4, 2 or 1:
+// the largest that divides every group's size).
+struct APacked {
+  int fy, fx, vec, ngroups;
+  int gbase[MAX_GROUPS], gsize[MAX_GROUPS];
+};
+
 struct AParams {
   const __nv_bfloat16* src;
   const __nv_bfloat16* w;
@@ -481,7 +288,76 @@ struct AParams {
   const float* shift;
   float slope;
   float* part;
+  APacked pk;  // PACKED
 };
+
+// The packed conv's element offset of the row of unpacked output voxel (nb,
+// z, y, x): tight phase-major.
+__device__ __forceinline__ int64_t packed_row(const APacked& pk, int nb, int z, int y, int x,
+                                              int n_z, int n_y, int n_x) {
+  const int yq = y / pk.fy, xq = x / pk.fx;
+  return ((((int64_t)nb * n_z + z) * (n_y / pk.fy) + yq) * (n_x / pk.fx) + xq) *
+             (pk.fy * pk.fx) +
+         (y - yq * pk.fy) * pk.fx + x - xq * pk.fx;
+}
+
+// load_lines from the packed conv's input: channel c of the group at
+// unpacked channels [gbase, gbase + gsize) of voxel (nb, gz, gy, gx) sits at
+//   vox * P * C + gbase * P + phase * gsize + (c - gbase),
+//   vox = ((nb * Z + gz) * Y / fy + gy / fy) * X / fx + gx / fx,
+//   phase = (gy % fy) * fx + gx % fx
+// (multitalent_tpu/ops/packed_conv.py:59-67, scripts/pallas_sparse_conv_arm.py:68-85;
+// probes/sparse_conv_arm.py:packed_source_offsets mirrors it). A unit of
+// pk.vec channels never straddles a group; along a line a lane steps by vpi
+// = aq * fx + ar voxels, carrying gx % fx: no division a voxel.
+template <int NWARPS>
+__device__ __forceinline__ void load_lines_packed(__nv_bfloat16* dst, int stride,
+                                                  const __nv_bfloat16* __restrict__ src,
+                                                  const APacked& pk, int c, int c0,
+                                                  const LaneMap& m, int len, int lines, int by,
+                                                  int n_z, int n_y, int n_x, int nb, int z0,
+                                                  int y0, int x0, int warp) {
+  if (m.j >= m.vpi) return;
+  const int fy = pk.fy, fx = pk.fx, pc = fy * fx * c, yp = n_y / fy, xp = n_x / fx;
+  const int vlo = max(0, -x0), vhi = min(len, n_x - x0);  // voxels inside along x
+  // the lane's first voxel x0 + j (>= -1) as xq0 * fx + xr0
+  const int xq0 = (x0 + m.j + fx) / fx - 1, xr0 = x0 + m.j - xq0 * fx;
+  const int aq = m.vpi / fx, ar = m.vpi - aq * fx, d_step = m.vpi * stride;
+  for (int u = m.u; u < m.units; u += m.per_vox) {
+    const int cu = c0 + u * m.vec;
+    // its group, by selects: a runtime index would copy pk to local memory
+    int gbase = 0, gsize = pk.gsize[0];
+#pragma unroll
+    for (int g = 1; g < MAX_GROUPS; ++g) {
+      if (g < pk.ngroups && cu >= pk.gbase[g]) {
+        gbase = pk.gbase[g];
+        gsize = pk.gsize[g];
+      }
+    }
+    const int chan = gbase * fy * fx + cu - gbase;
+    const int s_step = aq * pc + ar * gsize, s_carry = pc - fx * gsize;
+    for (int l = warp; l < lines; l += NWARPS) {
+      const int vz = l / by, vy = l - vz * by;
+      const int gz = z0 + vz, gy = y0 + vy, yq = gy / fy;
+      const bool line_in = gz >= 0 && gz < n_z && gy >= 0 && gy < n_y;
+      const __nv_bfloat16* s_line =
+          src + (((int64_t)nb * n_z + gz) * yp + yq) * xp * pc +
+          (gy - yq * fy) * fx * gsize + chan;
+      __nv_bfloat16* d_line = dst + l * len * stride;
+      int s_off = xq0 * pc + xr0 * gsize, xr = xr0, d_off = m.j * stride + u * m.vec;
+      for (int v = m.j; v < len; v += m.vpi, d_off += d_step) {
+        const bool in = line_in && v >= vlo && v < vhi;
+        cp_async_vec(d_line + d_off, in ? s_line + s_off : src, in, m.vec);
+        s_off += s_step;
+        xr += ar;
+        if (xr >= fx) {
+          xr -= fx;
+          s_off += s_carry;
+        }
+      }
+    }
+  }
+}
 
 // Kernel D's prologue on one staged box, in place: channels [0, width) of
 // every voxel inside the volume become lrelu(bf16(x * scale + shift)) (sc,
@@ -564,11 +440,12 @@ __device__ __forceinline__ void normalize_lines(__nv_bfloat16* stage, int stride
 // follow from its index. Only with one split: a split's partials are not
 // the output.
 template <int BN, int G, bool RESIDENT, bool KSPLIT, int NIN = 1, bool AFFINE = false,
-          bool STATS = false>
+          bool STATS = false, bool PACKED = false>
 __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
   static_assert(!KSPLIT || (G == 2 && RESIDENT), "one chunk a warp group");
   static_assert(!AFFINE || NIN == 1, "the prologue reads one input");
   static_assert(!KSPLIT || (NIN == 1 && !AFFINE && !STATS), "the K split serves kernel A");
+  static_assert(!PACKED || (NIN == 1 && !AFFINE && !STATS), "the packed conv is kernel A's");
   constexpr int NTHREADS = A_THREADS;
   constexpr int NWARPS = NTHREADS / 32;
   constexpr bool SWZ = a_swizzled(NIN, BN, G, RESIDENT, KSPLIT);
@@ -600,7 +477,7 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
   const int bx = blockIdx.x, gx = gridDim.x;
   const int ntile = p.plan.tiles > bx ? (p.plan.tiles - bx + gx - 1) / gx : 0;
   const int nq = ntile * ngrp;
-  const int vec = vec_of(cin);
+  const int vec = PACKED ? p.pk.vec : vec_of(cin);
   const int vec2 = NIN == 2 ? vec_of(p.cin2) : 0;
   const __nv_bfloat16* __restrict__ src = p.src;
   const __nv_bfloat16* __restrict__ src2 = p.src2;
@@ -637,9 +514,14 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     const int cin_s = second ? p.cin2 : cin;
     const int c0 = (kc - (second ? p.kchunks0 : 0)) * KC, width = min(G * KC, cin_s - c0);
     __nv_bfloat16* stage = ring + s * stage_elems;
-    load_lines<NWARPS>(stage, XS, second ? src2 : src, cin_s, c0,
-                       lane_map(width, second ? vec2 : vec, lane), hx, hz * hy, hy, n_z, n_y,
-                       n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
+    if constexpr (PACKED) {
+      load_lines_packed<NWARPS>(stage, XS, src, p.pk, cin, c0, lane_map(width, vec, lane), hx,
+                                hz * hy, hy, n_z, n_y, n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
+    } else {
+      load_lines<NWARPS>(stage, XS, second ? src2 : src, cin_s, c0,
+                         lane_map(width, second ? vec2 : vec, lane), hx, hz * hy, hy, n_z, n_y,
+                         n_x, nb, z0 - 1, y0 - 1, x0 - 1, warp);
+    }
     // channels past the input's meet zero weight rows, but 0 * NaN is NaN:
     // they are set to 0 here (the stage is free: everyone passed the
     // barrier after its last reads), seen by all after the next barrier
@@ -727,7 +609,7 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
     if (s < nq) issue(s, s);
     cp_async_commit();
   }
-  const bool partial = p.plan.splits > 1;
+  const bool partial = !PACKED && p.plan.splits > 1;
   const int64_t nvox = (int64_t)(p.plan.tiles / tiles_s) * n_z * n_y * n_x;
 #pragma unroll 1
   for (int q = 0; q < nq; ++q) {
@@ -849,6 +731,7 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
                   ox = x0 + m % box.x;
         if (oz >= n_z || oy >= n_y || ox >= n_x) continue;
         const int64_t vox = (((int64_t)nb * n_z + oz) * n_y + oy) * n_x + ox;
+        const int64_t orow = PACKED ? packed_row(p.pk, nb, oz, oy, ox, n_z, n_y, n_x) : vox;
 #pragma unroll
         for (int jn = 0; jn < NT; ++jn) {
           const int co = nblk * BN + ncol + jn * 8 + (lane % 4) * 2;
@@ -868,7 +751,7 @@ __global__ void __launch_bounds__(A_THREADS, 1) conv3d_a_kernel(AParams p) {
             v0 += p.bias[co];
             if (co + 1 < p.cout) v1 += p.bias[co + 1];
           }
-          store_pair(p.out + vox * p.cout, co, p.cout, v0, v1);
+          store_pair(p.out + orow * p.cout, co, p.cout, v0, v1);
         }
       }
     }
@@ -982,6 +865,14 @@ const AFormEntry kFormKernels[] = {
     {FORM_B, 32, {2, 1, 0}, conv3d_a_kernel<32, 2, true, false, 2>},
     {FORM_B, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 2>},
     {FORM_B, 64, {1, 1, 0}, conv3d_a_kernel<64, 1, true, false, 2>},
+    // the packed conv: kernel A's configs at the packed calls' shapes (30 and
+    // 32 channels: K split by the warp groups; 13 and 60 -> 24: resident;
+    // 48 -> 40 and 60 -> 60: streamed), and the streamed ones at each BN,
+    // which fit any width
+    {FORM_PACKED, 32, {2, 1, 1}, conv3d_a_kernel<32, 2, true, true, 1, false, false, true>},
+    {FORM_PACKED, 32, {1, 1, 0}, conv3d_a_kernel<32, 1, true, false, 1, false, false, true>},
+    {FORM_PACKED, 32, {1, 0, 0}, conv3d_a_kernel<32, 1, false, false, 1, false, false, true>},
+    {FORM_PACKED, 64, {1, 0, 0}, conv3d_a_kernel<64, 1, false, false, 1, false, false, true>},
 };
 
 bool same_config(const AConfig& a, const AConfig& b) {
@@ -990,14 +881,14 @@ bool same_config(const AConfig& a, const AConfig& b) {
 
 // The instantiation of `form` at (bn, c); null where there is none.
 AKernel a_kernel(const AForm& form, int bn, const AConfig& c) {
-  if (form.nin == 1 && !form.affine && !form.stats) {
+  if (form.nin == 1 && !form.affine && !form.stats && !form.packed) {
     for (const AEntry& e : kAKernels)
       if (e.bn == bn && same_config(e.c, c)) return e.fn;
     return nullptr;
   }
   for (const AFormEntry& e : kFormKernels)
     if (e.form.nin == form.nin && e.form.affine == form.affine && e.form.stats == form.stats &&
-        e.bn == bn && same_config(e.c, c))
+        e.form.packed == form.packed && e.bn == bn && same_config(e.c, c))
       return e.fn;
   return nullptr;
 }
@@ -1035,17 +926,15 @@ int a_occupancy(AKernel fn, int threads, int smem) {
 // fits a ring of 2 stages (3 where they fit) and needs no split of K
 // (resident weights serve one split). K is split only to fill one wave of
 // blocks, and never into more partial bytes than the input and weights
-// hold. Which body takes the call:
-//   - the ring: D at every size (queued, 0.152 vs 0.178 ms at 240 channels
-//     against the older body, PERF.md section 6), and A, B and D's dual
+// hold; the packed conv's K loop stays whole. Which body takes the call:
+//   - the ring: D and the packed conv at every size, and A, B and D's dual
 //     form where a row is narrower than 16-byte copies, the weights stay
 //     resident, or one input's K loop is split;
 //   - the wgmma body (conv3d_wgmma.cu, its own plan h: BN 64 or 128, its
 //     own K splits): A, every dx included, B and D's dual form where the
 //     ring does not take the call, i.e. rows of 16-byte copies (every
 //     input's C % 8 == 0) with streamed weights and a whole K loop, or two
-//     inputs with a split one (the older body measured faster than the
-//     ring there, and the wgmma body than the older one).
+//     inputs with a split one.
 bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, int cout,
                 int coutp, int bn, int sms, APlan* out) {
   APlan p{};
@@ -1075,7 +964,7 @@ bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, i
     if (bps < 1) continue;
     const long long slots = (long long)bps * sms;
     long long splits = 1;
-    if (work < slots) {
+    if (work < slots && !form.packed) {
       splits = slots / work;
       const long long groups = cdiv(p.kchunks, c.g);
       if (splits > groups) splits = groups;
@@ -1090,6 +979,7 @@ bool make_aplan(const AForm& form, int n, int z, int y, int x, int ca, int cb, i
         a_occupancy(a_kernel({form.nin, form.affine, false}, bn, c), A_THREADS, smem) < 1)
       continue;
     p.ring = c.resident || !rows16 || form.affine || (splits > 1 && form.nin == 1);
+    p.ring = p.ring || form.packed;  // the wgmma body's TMA boxes read unpacked rows
     p.wgmma = !p.ring;
     if (p.wgmma && !h_plan(n, z, y, x, ca, cb, cout, coutp, sms, &p.h)) return false;
     p.cfg = c;
@@ -1226,14 +1116,13 @@ extern "C" {
 // Bytes of fp32 workspace a call with these sizes needs (0: no split-K; -1:
 // sizes the kernel does not take): kernel A's (cb 0) or B's, with the plan
 // the launch takes; the body that launch runs into *body where it is not
-// null (1 the ring, 2 the wgmma body; 0, conv3d_same_kernel, is the packed
-// conv's alone).
+// null (0 the ring, 1 the wgmma body).
 long long mt_conv3d_launch_plan(int n, int z, int y, int xd, int ca, int cb, int cout,
                                 int coutp, int bn, int* body) {
   APlan plan;
   const AForm form = cb > 0 ? FORM_B : FORM_A;
   if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &plan)) return -1;
-  if (body != nullptr) *body = plan.ring ? 1 : 2;
+  if (body != nullptr) *body = plan.ring ? 0 : 1;
   return call_workspace_bytes(form, plan, n, z, y, xd, cout);
 }
 
@@ -1250,7 +1139,7 @@ long long mt_conv3d_stats_launch_plan(int n, int z, int y, int xd, int ca, int c
   APlan plan;
   const AForm form = cb > 0 ? FORM_D_DUAL : FORM_D;
   if (!plan_of(form, n, z, y, xd, ca, cb, cout, coutp, bn, &plan)) return -1;
-  if (body != nullptr) *body = plan.ring ? 1 : 2;
+  if (body != nullptr) *body = plan.ring ? 0 : 1;
   return call_workspace_bytes(form, plan, n, z, y, xd, cout);
 }
 
@@ -1260,8 +1149,9 @@ long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb,
   return mt_conv3d_stats_launch_plan(n, z, y, xd, ca, cb, cout, coutp, bn, nullptr);
 }
 
-// The plan of a call of form 0 (kernel A), 1 (B), 2 (D) or 3 (D's dual
-// form; cb 0 for the single-input forms) at these sizes into plan[0..14):
+// The plan of a call of form 0 (kernel A), 1 (B), 2 (D), 3 (D's dual form)
+// or 4 (the packed conv, at the unpacked sizes; cb 0 for the single-input
+// forms) at these sizes into plan[0..14):
 // the ring body (1) or not (0; the next eight then describe the ring it
 // declined), G (chunks staged at once), weights resident (1) or streamed
 // (0), the two warp groups splitting K (1) or N (0), ring stages, K splits,
@@ -1271,9 +1161,9 @@ long long mt_conv3d_stats_workspace(int n, int z, int y, int xd, int ca, int cb,
 // sizes the kernels do not take.
 int mt_conv3d_same_plan(int form, int n, int z, int y, int xd, int ca, int cb, int cout,
                         int coutp, int bn, int* plan) {
-  const AForm forms[] = {FORM_A, FORM_B, FORM_D, FORM_D_DUAL};
+  const AForm forms[] = {FORM_A, FORM_B, FORM_D, FORM_D_DUAL, FORM_PACKED};
   APlan p;
-  if (form < 0 || form > 3 || (forms[form].nin == 2) != (cb > 0) ||
+  if (form < 0 || form > 4 || (forms[form].nin == 2) != (cb > 0) ||
       !plan_of(forms[form], n, z, y, xd, ca, cb, cout, coutp, bn, &p))
     return -1;
   const HPlan h = p.wgmma ? p.h : HPlan{};
@@ -1329,49 +1219,48 @@ int mt_conv3d_same_dual_stats(const void* a, const void* b, const void* w,
 // The packed conv: x (n, z, y/fy, x/fx, fy*fx*c) packed, groups (ngroups <= 4
 // sizes adding up to c; null: one group), w as prepare_conv3d_weight for
 // c -> cout over the unpacked channels [g0 | g1 ...], out (n, z, y/fy, x/fx,
-// fy*fx*cout) tight phase-major, no bias. y, x are the unpacked sizes.
+// fy*fx*cout) tight phase-major, no bias. y, x are the unpacked sizes. On
+// the ring body with kernel A's plan, the K loop whole.
 int mt_packed_conv3d(const void* x, const void* w, void* out, const int* groups, int ngroups,
                      int n, int z, int y, int xd, int c, int cout, int coutp, int bn, int fy,
                      int fx, void* stream) {
-  if ((bn != 32 && bn != 64) || coutp % bn != 0 || cout > coutp || fy < 1 || fx < 1 ||
+  if ((bn != 32 && bn != 64) || coutp % bn != 0 || cout > coutp || c < 1 || fy < 1 || fx < 1 ||
       y % fy != 0 || xd % fx != 0 || ngroups < 0 || ngroups > MAX_GROUPS)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.in = static_cast<const __nv_bfloat16*>(x);
-  p.cin = c;
+  AParams p{};
+  p.pk.fy = fy;
+  p.pk.fx = fx;
+  p.pk.ngroups = groups == nullptr ? 1 : ngroups;
+  p.pk.vec = 8;
+  int base = 0;
+  for (int g = 0; g < MAX_GROUPS; ++g) {
+    const int size = g < p.pk.ngroups ? (groups == nullptr ? c : groups[g]) : 0;
+    if (size < 0) return (int)cudaErrorInvalidValue;
+    p.pk.gbase[g] = base;
+    p.pk.gsize[g] = size;
+    while (size % p.pk.vec) p.pk.vec /= 2;
+    base += size;
+  }
+  if (base != c) return (int)cudaErrorInvalidValue;
+  if ((long long)n * z * y * xd == 0) return 0;
+  if (!plan_of(FORM_PACKED, n, z, y, xd, c, 0, cout, coutp, bn, &p.plan))
+    return (int)cudaErrorInvalidConfiguration;
+  const AKernel fn = a_kernel(FORM_PACKED, bn, p.plan.cfg);
+  if (fn == nullptr) return (int)cudaErrorInvalidConfiguration;
+  p.src = static_cast<const __nv_bfloat16*>(x);
   p.w = static_cast<const __nv_bfloat16*>(w);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.n = n;
   p.z = z;
   p.y = y;
   p.x = xd;
+  p.cin = c;
   p.cout = cout;
   p.coutp = coutp;
-  const long long boxes = pick_box(z, y, xd, &p.plan.box) * n;
-  p.plan.tiles_z = cdiv(z, p.plan.box.z);
-  p.plan.tiles_y = cdiv(y, p.plan.box.y);
-  p.plan.tiles_x = cdiv(xd, p.plan.box.x);
-  p.fy = fy;
-  p.fx = fx;
-  p.ngroups = groups == nullptr ? 1 : ngroups;
-  p.pairs = 1;
-  int base = 0;
-  for (int g = 0; g < MAX_GROUPS; ++g) {
-    const int size = g < p.ngroups ? (groups == nullptr ? c : groups[g]) : 0;
-    p.gbase[g] = base;
-    p.gsize[g] = size;
-    if (size % 2) p.pairs = 0;
-    base += size;
-  }
-  if (base != c || boxes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const void* fn = bn == 32 ? reinterpret_cast<const void*>(conv3d_same_kernel<32>)
-                            : reinterpret_cast<const void*>(conv3d_same_kernel<64>);
-  const int smem = bn == 32 ? smem_bytes<32>() : smem_bytes<64>();
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  p.kchunks0 = cdiv(c, KC);
   void* args[] = {&p};
-  return (int)cudaLaunchKernel(fn, dim3((unsigned)boxes, coutp / bn), dim3(THREADS), args, smem,
-                               static_cast<cudaStream_t>(stream));
+  return (int)cudaLaunchKernel(reinterpret_cast<const void*>(fn),
+                               dim3(p.plan.grid_x, coutp / bn, 1), dim3(A_THREADS), args,
+                               p.plan.smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* mt_error_string(int code) {

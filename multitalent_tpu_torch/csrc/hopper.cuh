@@ -1,6 +1,6 @@
 // Hopper building blocks of the probes' TMA + wgmma bodies (conv_arms.cu's
 // im2col, tap3 and Winograd bodies, probe_kernels.cu's centern): mbarriers,
-// TMA loads (tiled and im2col mode), the m64n128k16 and m64n32k16 bf16
+// TMA loads (tiled and im2col mode) and bulk stores, the m64n128k16 and m64n32k16 bf16
 // wgmma with their shared-memory descriptors (128- and 64-byte swizzles),
 // and the CUDA driver's tensor-map encoders, found through the runtime
 // (nothing links -lcuda). conv3d_wgmma.cu keeps its own copies of the same
@@ -99,6 +99,13 @@ __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t sr
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(c4)
       : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from shared memory
+// at src to global memory at dst, by the TMA unit, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");

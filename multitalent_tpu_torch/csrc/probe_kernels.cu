@@ -16,7 +16,10 @@
 // idle SMs are the measurement ((8, 48, 96) is 24 tiles).
 //
 // zeros replaces scripts/grid_overhead_probe.py:49 zeros_kernel (pallas_call
-// at :54): out = 0, written tile by tile, one block per tile, 16-byte stores.
+// at :54): out = 0, written tile by tile, one block per tile, by contiguous
+// runs with no division a store: (a) 16-byte streaming stores (what every
+// call runs) or (b) bulk stores by the TMA unit from zeroed shared memory
+// (the probes' comparison, `mt_zeros_form`).
 //
 // What bounds them on an H100. centern: its bytes. The function is
 // x @ (sum of the ndots weight matrices), one GEMM of 2 * C * Cout
@@ -52,15 +55,16 @@
 // zeros: the bytes written, 226 MB at 96^3 x 128 bf16, 0.068 ms. A large
 // tile means few blocks, and fewer blocks than the 132 SMs leave SMs idle (a
 // (96, 96, 96) tile is a grid of one block, which the probe measures as it
-// is).
+// is): there one SM's path to L2 is the limit, about 64 GB/s on the H100
+// whichever form writes (36 GB/s a block with 72 blocks writing); so no
+// store may wait on index arithmetic (a 64-bit division a store held one
+// block to 9.8 GB/s).
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace mt;
-
-constexpr int THREADS = 256;  // the zero fill's block
 
 // ---------------------------------------------------------------------------
 // centern
@@ -334,23 +338,107 @@ cudaError_t centern_run(const void* x, const void* w, void* out, int n, int z, i
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS) zeros_kernel(__nv_bfloat16* out, int y, int xd,
-                                                        int c, int bz, int by, int bx, int ty,
-                                                        int tx) {
-  int t = blockIdx.x;
-  const int x0 = (t % tx) * bx;
-  t /= tx;
-  const int y0 = (t % ty) * by;
-  const int z0 = (t / ty) * bz;
-  const int per_vox = c / 8;
-  const int64_t total = (int64_t)bz * by * bx * per_vox;
-  for (int64_t i = threadIdx.x; i < total; i += THREADS) {
-    const int64_t v = i / per_vox;
-    const int ch = (int)(i - v * per_vox) * 8;
-    const int vx = (int)(v % bx), vy = (int)((v / bx) % by), vz = (int)(v / ((int64_t)bx * by));
-    const int64_t off = (((int64_t)(z0 + vz) * y + y0 + vy) * xd + x0 + vx) * c + ch;
-    *reinterpret_cast<uint4*>(out + off) = make_uint4(0u, 0u, 0u, 0u);
+// ---------------------------------------------------------------------------
+// zeros
+// ---------------------------------------------------------------------------
+constexpr int ZV_THREADS = 1024;             // form (a)'s block
+constexpr int ZV_UNROLL = 8;                 // its 16-byte stores in flight a lane
+constexpr int ZV_PIECE = 32 * ZV_UNROLL;     // 16-byte units a warp stores at once
+constexpr int ZB_THREADS = 256;              // form (b)'s block
+constexpr int ZB_BYTES = 32768;              // its zero buffer: the largest bulk store
+
+// A tile's contiguous runs, in 16-byte units (8 channels): an x-row of the
+// tile; where the tile spans X, the rows of a z plane of it; where it spans
+// Y as well, the whole tile. Runs a z plane, units from one row and from one
+// z plane of the volume to the next, and the tile grid (x fastest).
+struct ZeroRuns {
+  int tiles_x, tiles_y;
+  int bz, by, bx, cu;  // the tile, and units a voxel
+  int runs, per_plane;
+  long long run, row, plane;
+};
+
+ZeroRuns zero_runs(int y, int xd, int c, int bz, int by, int bx) {
+  const long long row = (long long)xd * (c / 8), plane = y * row;
+  ZeroRuns r{xd / bx, y / by, bz, by, bx, c / 8, bz * by, by, (long long)bx * (c / 8), row, plane};
+  if (bx == xd) r.runs = bz, r.per_plane = 1, r.run = by * row;  // rows of a plane merge
+  if (bx == xd && by == y) r.runs = 1, r.run = bz * plane;       // and the planes
+  return r;
+}
+
+// the unit where tile t starts
+__device__ __forceinline__ int64_t tile_start(const ZeroRuns& r, int t) {
+  const int tx = t % r.tiles_x, ty = (t / r.tiles_x) % r.tiles_y, tz = t / r.tiles_x / r.tiles_y;
+  return (int64_t)tz * r.bz * r.plane + (int64_t)ty * r.by * r.row + (int64_t)tx * r.bx * r.cu;
+}
+
+// the unit where run k of the tile at `tile` starts: one division a run,
+// none a store
+__device__ __forceinline__ int64_t run_start(const ZeroRuns& r, int64_t tile, int k) {
+  const int kz = k / r.per_plane;
+  return tile + kz * r.plane + (k - kz * r.per_plane) * r.row;
+}
+
+// Form (a): 16-byte streaming stores. A warp takes a piece of a run,
+// ZV_PIECE units, and each lane issues its ZV_UNROLL stores at once.
+__global__ void __launch_bounds__(ZV_THREADS) zeros_vec_kernel(uint4* out, ZeroRuns r) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per_run = (int)((r.run + ZV_PIECE - 1) / ZV_PIECE);
+  const int pieces = per_run * r.runs;
+  const int64_t tile = tile_start(r, blockIdx.x);
+  for (int q = warp; q < pieces; q += ZV_THREADS / 32) {
+    const int k = q / per_run;
+    const int64_t u = (int64_t)(q - k * per_run) * ZV_PIECE + lane;
+    uint4* p = out + run_start(r, tile, k) + u;
+    const int64_t left = r.run - u;
+#pragma unroll
+    for (int i = 0; i < ZV_UNROLL; ++i) {
+      if (i * 32 < left)
+        asm volatile("st.global.cs.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"l"(p + i * 32), "r"(0)
+                     : "memory");
+    }
   }
+}
+
+// Form (b): bulk stores from shared memory. The block zeroes ZB_BYTES of
+// shared memory once; one thread streams every run from it in pieces of at
+// most ZB_BYTES, a bulk group a piece, all in flight at once (the buffer is
+// never written again), and waits for them before it exits.
+__global__ void __launch_bounds__(ZB_THREADS) zeros_bulk_kernel(char* out, ZeroRuns r) {
+  __shared__ __align__(128) uint4 zero[ZB_BYTES / 16];
+  for (int i = threadIdx.x; i < ZB_BYTES / 16; i += ZB_THREADS) zero[i] = make_uint4(0, 0, 0, 0);
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const uint32_t src = smem_addr(zero);
+  const int64_t tile = tile_start(r, blockIdx.x);
+  for (int k = 0; k < r.runs; ++k) {
+    char* dst = out + run_start(r, tile, k) * 16;
+    for (int64_t left = r.run * 16; left > 0; left -= ZB_BYTES, dst += ZB_BYTES) {
+      hopper::bulk_store(dst, src, left < ZB_BYTES ? (uint32_t)left : ZB_BYTES);
+      hopper::tma_store_commit();
+    }
+  }
+  hopper::tma_store_wait<false>();
+}
+
+// form 1 (a) or 2 (b) at one block a tile
+cudaError_t zeros_run(void* out, int z, int y, int xd, int c, int bz, int by, int bx, int form,
+                      cudaStream_t stream) {
+  if (c % 8 != 0 || bz < 1 || by < 1 || bx < 1 || z % bz || y % by || xd % bx || form < 1 ||
+      form > 2 || reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)(z / bz) * (y / by) * (xd / bx);
+  const ZeroRuns r = zero_runs(y, xd, c, bz, by, bx);
+  const long long pieces = (long long)r.runs * ((r.run + ZV_PIECE - 1) / ZV_PIECE);
+  if (blocks > 0x7fffffffLL || pieces > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  if (form == 1) {
+    zeros_vec_kernel<<<(unsigned)blocks, ZV_THREADS, 0, stream>>>(static_cast<uint4*>(out), r);
+  } else {
+    zeros_bulk_kernel<<<(unsigned)blocks, ZB_THREADS, 0, stream>>>(static_cast<char*>(out), r);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -374,15 +462,18 @@ int mt_centern_form(const void* x, const void* w, void* out, int n, int z, int y
                           static_cast<cudaStream_t>(stream));
 }
 
-// out (z, y, x, c) bf16 = 0, c % 8 == 0, one block per tile (bz, by, bx),
-// which divides the volume.
+// out (z, y, x, c) bf16 = 0, c % 8 == 0, out 16-byte aligned, one block per
+// tile (bz, by, bx), which divides the volume: form (a), as fast as (b) or
+// faster at each of the grid probe's tiles on the H100 (PERF.md, section 6).
 int mt_zeros(void* out, int z, int y, int xd, int c, int bz, int by, int bx, void* stream) {
-  if (c % 8 != 0 || bz < 1 || by < 1 || bx < 1 || z % bz || y % by || xd % bx)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)(z / bz) * (y / by) * (xd / bx);
-  zeros_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(out), y, xd, c, bz, by, bx, y / by, xd / bx);
-  return (int)cudaGetLastError();
+  return (int)zeros_run(out, z, y, xd, c, bz, by, bx, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The same in `form` (1 vector stores, 2 bulk stores), for the probes'
+// comparisons.
+int mt_zeros_form(void* out, int z, int y, int xd, int c, int bz, int by, int bx, int form,
+                  void* stream) {
+  return (int)zeros_run(out, z, y, xd, c, bz, by, bx, form, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -54,8 +54,8 @@ plain PyTorch version (`conv3d_same_ref`, `conv3d_same_dual_ref`,
 lie on the CPU (the fp32 forms the same plain versions, in fp32). Each keeps
 a count of kernel launches in its `launches` attribute; kernels A, B and D
 (both D forms on `conv3d_same_affine`) also count them by the body that ran
-each (`launches_by_body`: "ring" or "wgmma"; "older", conv3d_same_kernel,
-stays 0 for them: it runs the probes' packed conv alone).
+each (`launches_by_body`: "ring" or "wgmma"; the probes' packed conv runs
+on the ring with A's plan, `conv3d_same_plan(..., "packed")`).
 """
 from __future__ import annotations
 
@@ -263,10 +263,8 @@ def _buffer(given: torch.Tensor | None, name: str, shape: tuple, dtype: torch.dt
     return given
 
 
-# the bodies kernels A, B and D run on, by the code mt_conv3d_launch_plan and
-# mt_conv3d_stats_launch_plan give (conv3d_same_kernel, "older", is the
-# packed conv's only)
-BODIES = ("older", "ring", "wgmma")
+# the bodies of kernels A, B and D by mt_conv3d_(stats_)launch_plan's codes
+BODIES = ("ring", "wgmma")
 
 
 def _launch(name: str, inputs: list[torch.Tensor], pw: PreparedWeight,
@@ -338,23 +336,24 @@ conv3d_same.launches_by_body = dict.fromkeys(BODIES, 0)
 A_PLAN_KEYS = ("ring", "g", "resident", "ksplit", "stages", "splits", "grid_x",
                "blocks_per_sm", "smem_bytes", "wgmma", "wgmma_bn", "wgmma_splits",
                "wgmma_blocks", "wgmma_smem_bytes")
-# the calls a plan is asked for: kernel A, B, D, D's dual form
-PLAN_FORMS = ("a", "b", "d", "d_dual")
+# the calls a plan is asked for: kernel A, B, D, D's dual form, the packed conv
+PLAN_FORMS = ("a", "b", "d", "d_dual", "packed")
 
 
 def conv3d_same_plan(n: int, z: int, y: int, x: int, cin, cout: int, form: str = "a") -> dict:
-    """The plan of a call of kernel A (form "a"), B ("b"), D ("d") or D's
-    dual form ("d_dual") on the current card at these sizes; cin is the
-    input's channels, or (Ca, Cb) for the two-input forms. Whether it runs
-    the ring body (ring 1) or not (0: 16-byte rows with streamed weights and
-    a whole K loop, or two inputs with a split one; the next keys then
-    describe the ring it declined): input chunks staged at once (g), weights
-    resident or streamed, its two 8-warp groups splitting the K chunks
-    (ksplit) or the columns, ring stages, K splits (1: bf16 written
-    directly), blocks along the tiles, blocks an SM and shared memory a
-    block. Then whether it runs the wgmma body (wgmma 1: A, B and D's dual
-    form where ring is 0) with its BN, K splits, blocks and shared memory a
-    block. Builds the kernel library."""
+    """The plan of a call of kernel A (form "a"), B ("b"), D ("d"), D's dual
+    form ("d_dual") or the packed conv ("packed": A's on the ring, K whole)
+    on the current card at these sizes; cin is the input's channels, or (Ca,
+    Cb) for the two-input forms. Whether it runs the ring body (ring 1) or
+    not (0: 16-byte rows with streamed weights and a whole K loop, or two
+    inputs with a split one; the next keys then describe the ring it
+    declined): input chunks staged at once (g), weights resident or
+    streamed, its two 8-warp groups splitting the K chunks (ksplit) or the
+    columns, ring stages, K splits (1: bf16 written directly), blocks along
+    the tiles, blocks an SM and shared memory a block. Then whether it runs
+    the wgmma body (wgmma 1: A, B and D's dual form where ring is 0) with
+    its BN, K splits, blocks and shared memory a block. Builds the kernel
+    library."""
     import ctypes
 
     from multitalent_tpu_torch import _build

@@ -8,7 +8,11 @@ pallas_call :123; the center-view conv of probes/conv_cost_isolate.py at
 blocks (8, 16, 16), (8, 32, 32), (8, 48, 96) with 27 or 12 dots) become:
 
 - `zeros` (csrc/probe_kernels.cu): writes the tensor's zeros tile by tile, one
-  block per tile; plain version `zeros_ref` (torch.zeros);
+  block per tile, each block by its tile's contiguous runs (`zeros_plan`)
+  with 16-byte streaming stores (the C entry `mt_zeros_form` also runs bulk
+  stores by the TMA unit from zeroed shared memory, for the probes'
+  comparisons; on the H100 they were never faster); plain version
+  `zeros_ref` (torch.zeros);
 - `centern` of probes/conv_cost_isolate.py, the tile as its parameter.
 
 On the TPU the grid runs in order on one core, so a grid step's fixed cost
@@ -37,6 +41,29 @@ from multitalent_tpu_torch.probes.conv_cost_isolate import (C, CPU_SIZE, SIZE, c
 ZERO_TILES = ((8, 16, 16), (8, 32, 48), (96, 96, 96))  # scripts/grid_overhead_probe.py:52
 CONV_CONFIGS = (((8, 16, 16), 27), ((8, 32, 32), 27), ((8, 48, 96), 27),
                 ((8, 32, 32), 12), ((8, 48, 96), 12))  # :119-121
+
+
+ZERO_FORMS = ("vector", "bulk")  # mt_zeros_form's forms 1 and 2
+
+
+def zeros_plan(shape, tile) -> dict:
+    """What the zero fill's kernel does at (Z, Y, X, C) by `tile`, as
+    csrc/probe_kernels.cu's mt_zeros and zero_runs decide it: its form
+    (always "vector"), the blocks (one a tile), the contiguous runs a block
+    writes and the bytes of a run (an x-row of the tile; where the tile
+    spans X the rows of a z plane of it, where it spans Y as well the whole
+    tile)."""
+    z, y, xd, c = (int(s) for s in shape)
+    bz, by, bx = (int(t) for t in tile)
+    check_tile((z, y, xd), tile)
+    blocks = (z // bz) * (y // by) * (xd // bx)
+    if bx < xd:
+        runs, run = bz * by, bx * c * 2
+    elif by < y:
+        runs, run = bz, by * xd * c * 2
+    else:
+        runs, run = 1, bz * y * xd * c * 2
+    return {"form": ZERO_FORMS[0], "blocks": blocks, "runs": runs, "run_bytes": run}
 
 
 def zeros_ref(shape, dtype=torch.bfloat16, device="cpu") -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""What paces the conv arms' and centern's bodies on the H100, and how
-they compare with another checkout's build of the same C entries.
+"""What paces the probes' kernels on the H100, and how they compare with
+another checkout's build of the same C entries.
 
 Its readings, each on the card, at the shapes the probes time:
 
@@ -12,19 +12,31 @@ Its readings, each on the card, at the shapes the probes time:
   `mt_conv_<arm>_form`;
 - centern (csrc/probe_kernels.cu) at every (tile, ndots) configuration of
   the cost and grid probes: as it is, copies only, products only;
-- with `--against DIR`, that checkout's conv_arms.cu and probe_kernels.cu
-  built into a library of its own under `_build/probe_bodies/`, its
-  `mt_conv_im2col`, `mt_conv_tap3`, `mt_conv_wino` and `mt_centern` timed
-  in turns with this build's (against, this, this, against; the lesser of
+- the zero fill (csrc/probe_kernels.cu) at the grid probe's three tiles of
+  a 96^3 x 128 bf16 volume: each form through `mt_zeros_form` (vector
+  stores, bulk stores), the entry `mt_zeros` (its form by `zeros_plan`) and
+  torch's `zero_`, each as a single call, queued (calls back to back
+  between one event pair) and as the host's us a call, with GB/s in all and
+  a block;
+- the packed conv (csrc/conv3d_same.cu, kernel A's ring body) at the
+  flagship's stages 0 and 1, beside kernel A on the unpacked tensor (its
+  output must be A's bit for bit where A's plan has one split);
+- with `--against DIR`, that checkout's conv_arms.cu, probe_kernels.cu and
+  conv3d_same.cu (with the sources it links: fused_norm.cu, and
+  conv3d_wgmma.cu where it has one) built into a library of its own under
+  `_build/probe_bodies/`, its `mt_conv_im2col`, `mt_conv_tap3`,
+  `mt_conv_wino`, `mt_centern`, `mt_zeros` and `mt_packed_conv3d` timed in
+  turns with this build's (against, this, this, against; the lesser of
   each pair) and checked against the same plain version.
 
 Each output is checked against its plain version (the fp32 direct conv,
-`centern_ref`) within the probes' bound; each row gives the bound, centern's
-ndots ceiling, the Winograd arm's own products floor and the bytes each
-body stages into shared memory (`im2col_plan`, `tap3_plan`, `wino_plan`,
-`centern_plan`).
+`centern_ref`, `packed_conv3d_ref`, every value 0) within the probes'
+bound; each row gives the bound, centern's ndots ceiling, the Winograd
+arm's own products floor and the bytes each body stages into shared memory
+(`im2col_plan`, `tap3_plan`, `wino_plan`, `centern_plan`).
 
     python -m multitalent_tpu_torch.probes.probe_bodies [--against DIR] [--out JSON]
+        [--only zeros packed]
 
 `--device cpu` has nothing to time and only says so.
 """
@@ -46,6 +58,9 @@ from multitalent_tpu_torch.probes import _util
 from multitalent_tpu_torch.probes import conv_cost_isolate as cc
 from multitalent_tpu_torch.probes import conv_impl_arms as ca
 from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+from multitalent_tpu_torch.probes.conv_a_forms import host_us
+from multitalent_tpu_torch.probes.wgrad_forms import queued_ms
 
 PEAK_BF16_FLOPS = ca.PEAK_BF16_FLOPS
 PEAK_HBM_BYTES = 3.35e12
@@ -54,9 +69,12 @@ ARMS = ("im2col", "tap3", "wino")
 PLANS = {"im2col": ca.im2col_plan, "tap3": ca.tap3_plan, "wino": ca.wino_plan}
 # (tile, ndots) of conv_cost_isolate's center27 / center12 and the grid probe
 CENTERN_CONFIGS = tuple(dict.fromkeys(((cc.TILE, 27), (cc.TILE, 12), *gp.CONV_CONFIGS)))
-AGAINST_SOURCES = ("conv_arms.cu", "probe_kernels.cu")
+AGAINST_SOURCES = ("conv_arms.cu", "probe_kernels.cu", "conv3d_same.cu", "fused_norm.cu",
+                   "conv3d_wgmma.cu")
 AGAINST_ENTRIES = {name: _build._SIGNATURES[name] for name in (
-    "mt_conv_im2col", "mt_conv_tap3", "mt_conv_wino", "mt_centern")}
+    "mt_conv_im2col", "mt_conv_tap3", "mt_conv_wino", "mt_centern", "mt_zeros",
+    "mt_packed_conv3d")}
+PARTS = ("arms", "centern", "zeros", "packed")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -67,22 +85,23 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def build_against(tree: Path) -> ctypes.CDLL:
-    """The other checkout's probe kernels (conv_arms.cu, probe_kernels.cu and
+    """The other checkout's probe kernels (AGAINST_SOURCES that it has, and
     the headers beside them), one nvcc a source, linked into a library of
     their own."""
     csrc = Path(tree) / "multitalent_tpu_torch" / "csrc"
+    sources = [src for src in AGAINST_SOURCES if (csrc / src).is_file()]
     texts = [p.read_bytes() for p in sorted(csrc.glob("*.cuh"))]
-    texts += [(csrc / src).read_bytes() for src in AGAINST_SOURCES]
+    texts += [(csrc / src).read_bytes() for src in sources]
     key = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode() + b"".join(texts)).hexdigest()[:16]
     out = _build.BUILD_DIR / "probe_bodies" / key
     lib = out / "libprobe_bodies_against.so"
     if not lib.is_file():
         out.mkdir(parents=True, exist_ok=True)
         nvcc = [_build.find_nvcc(), *_build.NVCC_FLAGS]
-        objs = [str(out / src.replace(".cu", ".o")) for src in AGAINST_SOURCES]
+        objs = [str(out / src.replace(".cu", ".o")) for src in sources]
         procs = [subprocess.Popen([*nvcc, "-I", str(csrc), "-c", "-o", obj, str(csrc / src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for obj, src in zip(objs, AGAINST_SOURCES)]
+                 for obj, src in zip(objs, sources)]
         logs = [p.communicate()[0] for p in procs]
         if any(p.returncode for p in procs):
             raise RuntimeError(f"nvcc failed for {tree}:\n" + "\n".join(logs))
@@ -213,7 +232,107 @@ def centern(device: torch.device, gen: torch.Generator, against, iters: int) -> 
     return rows
 
 
+def zeros(device: torch.device, against, iters: int) -> list[dict]:
+    """The zero fill at each of the grid probe's tiles: its two forms, the
+    entry, the other build's entry and torch's zero_, each into one buffer
+    checked to hold only zeros, timed in turns."""
+    lib = _build.library()
+    shape = (cc.SIZE,) * 3 + (cc.C,)
+    buf = torch.empty(shape, dtype=torch.bfloat16, device=device)
+    nbytes = buf.numel() * 2
+    rows = []
+    for tile in gp.ZERO_TILES:
+        plan = gp.zeros_plan(shape, tile)
+        calls = {form: _call(lib, "mt_zeros_form", buf, buf.data_ptr(), *shape, *tile, i + 1)
+                 for i, form in enumerate(gp.ZERO_FORMS)}
+        calls["entry"] = _call(lib, "mt_zeros", buf, buf.data_ptr(), *shape, *tile)
+        if against is not None:
+            calls = {"against": _call(against, "mt_zeros", buf, buf.data_ptr(), *shape, *tile),
+                     **calls}
+        calls["zero_"] = buf.zero_
+        for name, call in calls.items():
+            buf.fill_(float("nan"))
+            bad = (call() != 0).sum().item()
+            if bad:
+                raise AssertionError(f"zeros tile {tile} ({name}): {bad} values are not 0")
+        row = {"kernel": "zeros", "at": f"{'x'.join(map(str, shape[:3]))}x{shape[3]} bf16 "
+                                        f"tile {tile}", **plan}
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                for key, v in ((f"{name}_ms", _util.median_ms(calls[name], iters)),
+                               (f"{name}_queued_ms", queued_ms(calls[name])),
+                               (f"{name}_host_us", host_us(calls[name]))):
+                    row[key] = min(v, row.get(key, v))
+        for name in calls:  # GB/s queued, and for the kernels a block
+            row[f"{name}_gbps"] = nbytes / row[f"{name}_queued_ms"] / 1e6
+            if name != "zero_":
+                row[f"{name}_gbps_per_block"] = row[f"{name}_gbps"] / plan["blocks"]
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 0)
+        rows.append(row)
+    return rows
+
+
+def packed(device: torch.device, gen: torch.Generator, against, iters: int) -> list[dict]:
+    """The packed conv at the sparse-conv probe's timed shapes, beside kernel
+    A on the unpacked tensor and the other build's entry: each checked
+    against packed_conv3d_ref, this build's bit-equal to A's where A's plan
+    has one split."""
+    lib = _build.library()
+    rows = []
+    for shape, factors in sc.TIMED_CASES:
+        n, z, y, xd, c = shape
+        xu = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn(c, c, 3, 3, 3, generator=gen, device=device) * (2.0 / (27 * c)) ** 0.5
+        pw = cv.prepare_conv3d_weight(w)
+        xp = sc.space_to_depth_yx(xu, factors).contiguous()
+        ref = sc.packed_conv3d_ref(xp.float(), w, factors)
+        fy, fx = factors
+        calls = {"whole": lambda: sc.packed_conv3d(xp, pw, factors)}
+        if against is not None:
+            out = torch.empty_like(xp)
+            calls = {"against": _call(against, "mt_packed_conv3d", out, xp.data_ptr(),
+                                      pw.w.data_ptr(), out.data_ptr(), None, 0, n, z, y, xd, c,
+                                      pw.cout, pw.coutp, pw.bn, fy, fx), **calls}
+        calls["a_unpacked"] = lambda: cv.conv3d_same(xu, pw)
+        row = {"kernel": "packed_conv3d", "at": f"{c}->{c} at {z}x{y}x{xd} N={n} packed "
+                                                f"{factors}"}
+        for name, call in calls.items():
+            got = call()
+            if name == "a_unpacked":
+                got = sc.space_to_depth_yx(got, factors)
+            row[f"{name}_err"] = _held(f"packed conv {row['at']} {name}", got, ref)
+        row["bit_equal_to_a"] = bool(torch.equal(calls["whole"](), sc.space_to_depth_yx(
+            calls["a_unpacked"](), factors)))
+        a_plan = cv.conv3d_same_plan(n, z, y, xd, c, c, "a")
+        if a_plan["splits"] == 1 and not row["bit_equal_to_a"]:
+            raise AssertionError(f"packed conv {row['at']}: not kernel A's output")
+        del ref
+        _timed(row, calls, iters)
+        vox = n * z * y * xd
+        row["bound_ms"], row["bound_by"] = bound_ms(vox * 2 * c * 2 + 27 * c * c * 2,
+                                                    2 * 27 * c * c * vox)
+        row["plan"] = cv.conv3d_same_plan(n, z, y, xd, c, c, "packed")
+        rows.append(row)
+    return rows
+
+
 def _line(row: dict) -> str:
+    if row["kernel"] == "zeros":
+        times = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in row.items() if k.endswith("_ms")
+                          and k != "bound_ms")
+        rates = ", ".join(f"{k[:-len('_gbps_per_block')]} {v:.2f}" for k, v in row.items()
+                          if k.endswith("_gbps_per_block"))
+        hosts = ", ".join(f"{k[:-8]} {v:.1f}" for k, v in row.items() if k.endswith("_host_us"))
+        return (f"zeros {row['at']}: form {row['form']}, {row['blocks']} blocks x {row['runs']} "
+                f"runs of {row['run_bytes']} B; {times} ms; GB/s a block {rates}; host us a "
+                f"call {hosts}; bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    if row["kernel"] == "packed_conv3d":
+        times = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()
+                          if k.endswith("_ms") and k != "bound_ms")
+        plan = {k: row["plan"][k] for k in ("g", "resident", "ksplit", "stages", "splits",
+                                            "grid_x", "smem_bytes")}
+        return (f"packed conv {row['at']}: {times} ms; bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']}); bit-equal to A {row['bit_equal_to_a']}; ring plan {plan}")
     floors = ("bound_ms", "ndots_ceiling_ms", "products_floor_ms")
     times = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in row.items()
                       if k.endswith("_ms") and k not in floors)
@@ -235,6 +354,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=10, help="timed calls a median")
     ap.add_argument("--out", help="write the rows as JSON here")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
+                    help="time these kernels alone: the conv arms, centern, the zero fill, "
+                         "the packed conv")
     args = ap.parse_args(argv)
     device = _util.resolve_device(args.device)
     if device.type != "cuda":
@@ -245,8 +367,11 @@ def main(argv=None) -> dict:
     against = build_against(Path(args.against)) if args.against else None
     gen = torch.Generator(device=device).manual_seed(0)
     result = {"device": name, "against": args.against, "rows": []}
-    for row in [*(arm(a, device, gen, against, args.iters) for a in ARMS),
-                *centern(device, gen, against, args.iters)]:
+    parts = {"arms": lambda: [arm(a, device, gen, against, args.iters) for a in ARMS],
+             "centern": lambda: centern(device, gen, against, args.iters),
+             "zeros": lambda: zeros(device, against, args.iters),
+             "packed": lambda: packed(device, gen, against, args.iters)}
+    for row in (r for part in args.only for r in parts[part]()):
         print(_line(row), flush=True)
         result["rows"].append(row)
     if args.out:

@@ -9,8 +9,13 @@ Counterpart of scripts/pallas_sparse_conv_arm.py, whose Pallas kernel
 inputs. `packed_conv3d` computes the function instead: the direct conv of
 the unpacked tensor, the depth-to-space folded into its loads and the
 space-to-depth into its stores, at 1x the direct conv's FLOPs. Its kernel is
-kernel A's body with packed addresses (the PACKED instantiation of
-csrc/conv3d_same.cu, `mt_packed_conv3d`).
+kernel A's ring body with packed addresses (conv3d_a_kernel's PACKED
+instantiations in csrc/conv3d_same.cu, `mt_packed_conv3d`), on kernel A's
+plan at the unpacked sizes with the K loop whole
+(`ops.conv3d.conv3d_same_plan(..., "packed")`): its line loader reads each
+voxel's rows at their packed places (`packed_source_offsets` mirrors that
+mapping and the loader's walk along x, `packed_copy_width` its copy width)
+and its epilogue writes each output voxel's row at its packed place.
 Its plain version, `packed_conv3d_ref`, is
 space_to_depth(conv3d_same_ref(depth_to_space(x))) with the groups regrouped.
 The wrapper takes it for CPU tensors only, launches the kernel for CUDA
@@ -73,6 +78,53 @@ def unpack(x_packed: torch.Tensor, factors, in_groups=None) -> torch.Tensor:
         parts.append(depth_to_space_yx(x_packed[..., base * p:(base + g) * p], factors))
         base += g
     return torch.cat(parts, -1)
+
+
+def packed_copy_width(groups) -> int:
+    """Elements a copy of the packed conv's loader moves: the largest of 8,
+    4, 2 and 1 that divides every group's size (one group: C), so that no
+    copy straddles a group (csrc/conv3d_same.cu:mt_packed_conv3d)."""
+    vec = 8
+    for g in (groups,) if isinstance(groups, int) else groups:
+        while int(g) % vec:
+            vec //= 2
+    return vec
+
+
+def packed_source_offsets(shape, factors, in_groups=None, step: int = 1) -> torch.Tensor:
+    """int64 (N, Z, Y, X, C): the element of the flattened packed tensor that
+    holds each unpacked voxel and channel (shape the unpacked (N, Z, Y, X,
+    C), channels [g0 | g1 ...]), as the packed conv's line loader
+    (csrc/conv3d_same.cu:load_lines_packed) finds it: channel c of the group
+    at [base, base + size) of voxel (n, z, y, x) at
+        vox * P * C + base * P + phase * size + (c - base),
+        vox = ((n * Z + z) * Y / fy + y / fy) * X / fx + x / fx,
+        phase = (y % fy) * fx + x % fx,
+    the x offsets walked as a lane walks its line: from its first voxel j <
+    `step` in steps of `step` voxels (the kernel's vpi), x / fx and x % fx
+    carried, with no division."""
+    n, z, y, xd, c = (int(s) for s in shape)
+    fy, fx = int(factors[0]), int(factors[1])
+    groups = (c,) if in_groups is None else tuple(int(g) for g in in_groups)
+    pc = fy * fx * c
+    base = np.repeat(np.cumsum((0,) + groups[:-1]), groups)
+    size = np.repeat(groups, groups)
+    chan = base * fy * fx + np.arange(c) - base                      # (C,)
+    xq, xr = np.zeros(xd, np.int64), np.zeros(xd, np.int64)
+    aq, ar = divmod(step, fx)
+    for j in range(min(step, xd)):
+        q, r = divmod(j, fx)
+        for v in range(j, xd, step):
+            xq[v], xr[v] = q, r
+            q, r = q + aq, r + ar
+            if r >= fx:
+                q, r = q + 1, r - fx
+    nz = np.arange(n)[:, None] * z + np.arange(z)                    # (N, Z)
+    yq, yr = np.divmod(np.arange(y), fy)
+    line = (nz[:, :, None] * (y // fy) + yq) * (xd // fx) * pc       # (N, Z, Y)
+    off = (line[..., None, None] + yr[:, None, None] * fx * size
+           + xq[:, None] * pc + xr[:, None] * size + chan)
+    return torch.from_numpy(off.astype(np.int64))
 
 
 def packed_conv3d_ref(x_packed: torch.Tensor, weight: torch.Tensor, factors,

@@ -1063,8 +1063,7 @@ def test_d_and_b_take_the_ring_at_30_and_60_channels(device, form, cs, spatial):
     ("d_dual", (120, 120), (24, 48, 48), 0, 1), ("d_dual", (320, 320), (6, 12, 12), 0, 1),
 ])
 def test_the_older_body_keeps_16_byte_rows_but_for_d(device, form, cs, spatial, ring, wgmma):
-    """The plan at 16-byte rows with streamed weights: no form keeps the
-    older body there (it serves the packed conv alone): A, B and D's dual
+    """The plan at 16-byte rows with streamed weights: A, B and D's dual
     form run the wgmma body (also when K is split); D runs the ring body at
     every width."""
     c = cs if isinstance(cs, int) else cs[0]
@@ -1527,6 +1526,8 @@ def test_im2col_bodies_match_the_direct_conv(device, shape, cout, body):
 @pytest.mark.parametrize("factors,c,groups,cout", [
     ((2, 2), 30, None, 24), ((1, 2), 60, None, 24), ((2, 2), 32, (20, 12), 24),
     ((2, 2), 13, (6, 7), 30),    # odd groups: element loads
+    ((2, 2), 48, (32, 16), 40),  # 16-byte copies, BN 64 with streamed weights
+    ((1, 2), 60, None, 60),      # the flagship's stage-1 width
 ])
 def test_packed_conv_matches_plain(device, factors, c, groups, cout):
     from multitalent_tpu_torch.probes import sparse_conv_arm as sc
@@ -1542,6 +1543,70 @@ def test_packed_conv_matches_plain(device, factors, c, groups, cout):
     assert sc.packed_conv3d.launches == before + 1 and got.data_ptr() == out.data_ptr()
     _assert_close(got, sc.packed_conv3d_ref(xg.float(), w.to(torch.bfloat16).float(), factors,
                                             groups))
+
+
+# (factors, C, Cout, unpacked (N, Z, Y, X)) where kernel A's plan has one
+# split: the K split by warp groups at 30 channels (ragged X under a box),
+# resident weights at 60 -> 24, streamed at 60 -> 60
+PACKED_AS_A = [((2, 2), 30, 30, (1, 16, 32, 28)), ((1, 2), 60, 24, (2, 8, 16, 16)),
+               ((1, 2), 60, 60, (1, 24, 48, 48))]
+RING_KEYS = ("ring", "g", "resident", "ksplit", "stages", "splits", "grid_x", "blocks_per_sm",
+             "smem_bytes")
+
+
+@pytest.mark.parametrize("factors,c,cout,size", PACKED_AS_A)
+def test_packed_conv_is_kernel_a_bit_for_bit(device, factors, c, cout, size):
+    """The packed conv runs kernel A's ring plan with the K loop whole: where
+    A's own plan has one split, its ring config is A's, and its output is
+    space_to_depth(A(depth_to_space(x))) without bias bit for bit."""
+    from multitalent_tpu_torch.probes import sparse_conv_arm as sc
+    a_plan = cv.conv3d_same_plan(*size, c, cout, "a")
+    plan = cv.conv3d_same_plan(*size, c, cout, "packed")
+    assert a_plan["ring"] == 1 and a_plan["splits"] == 1, a_plan
+    assert {k: plan[k] for k in RING_KEYS} == {k: a_plan[k] for k in RING_KEYS}
+    rng = np.random.default_rng(16)
+    x = _rand(rng, (*size, c)).to(device, torch.bfloat16)
+    pw = cv.prepare_conv3d_weight(_rand(rng, (cout, c, 3, 3, 3), (2 / (27 * c)) ** 0.5)
+                                  .to(device))
+    xp = sc.space_to_depth_yx(x, factors).contiguous()
+    got = sc.packed_conv3d(xp, pw, factors, out=_nan_filled((*xp.shape[:4], xp.shape[-1] //
+                                                             c * cout), device))
+    want = sc.space_to_depth_yx(cv.conv3d_same(x, pw), factors)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# (volume and C, tile): one x-row a run at C = 8, 24 and 128, planes of rows
+# where the tile spans X (C = 200), a non-cubic volume, one run a tile where
+# it spans X and Y, one block (its bulk stores in 32 KB pieces and a ragged
+# last one)
+ZERO_CASES = [((12, 20, 24, 8), (4, 5, 6)), ((6, 10, 14, 24), (3, 2, 7)),
+              ((16, 16, 16, 128), (8, 16, 8)), ((8, 12, 16, 200), (2, 4, 16)),
+              ((6, 10, 14, 24), (3, 10, 14)), ((10, 6, 8, 128), (10, 6, 8)),
+              ((16, 32, 32, 128), (16, 32, 32))]
+
+
+@pytest.mark.parametrize("shape,tile", ZERO_CASES)
+@pytest.mark.parametrize("form", [0, 1, 2])
+def test_zero_fill_forms_write_zeros_and_nothing_else(device, shape, tile, form):
+    """Each form of the zero fill (form 0: the entry `zeros`, vector stores;
+    1 vector stores, 2 bulk stores through mt_zeros_form) into
+    a view of a NaN-filled buffer: every value of the view 0, the guard
+    regions before and after it still NaN."""
+    from multitalent_tpu_torch.probes import _util
+    from multitalent_tpu_torch.probes import grid_overhead_probe as gp
+    numel, guard = int(np.prod(shape)), 64
+    buf = torch.full((guard + numel + guard,), float("nan"), dtype=torch.bfloat16, device=device)
+    out = buf[guard:guard + numel].view(shape)
+    if form == 0:
+        before = gp.zeros.launches
+        assert gp.zeros(shape, tile, device, out=out) is out
+        assert gp.zeros.launches == before + 1
+    else:
+        _util.launch("mt_zeros_form", device, out.data_ptr(), *shape, *tile, form)
+    torch.cuda.synchronize()
+    assert (out == 0).all()
+    assert torch.isnan(buf[:guard]).all() and torch.isnan(buf[guard + numel:]).all()
 
 
 @pytest.mark.parametrize("ndots,tile,cout", [(27, (8, 16, 16), 128), (12, (4, 8, 8), 96),

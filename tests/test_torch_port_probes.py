@@ -120,6 +120,70 @@ def test_packed_conv_matches_the_pallas_sparse_kernel(factors, c, groups):
                           np.asarray(space_to_depth_yx(jnp.asarray(x), factors)))
 
 
+@pytest.mark.parametrize("factors", [(2, 2), (1, 2), (1, 1)])
+@pytest.mark.parametrize("groups", [None, (20, 12), (6, 7)])
+def test_packed_source_offsets_gather_the_unpacked_tensor(factors, groups):
+    """The packed conv's loader mapping (csrc/conv3d_same.cu
+    load_lines_packed), mirrored by packed_source_offsets: gathering the
+    flattened packed tensor (each group packed by the JAX package's
+    space_to_depth_yx, laid [P*g0 | P*g1 ...]) at its offsets gives the
+    unpacked tensor, for every lane step the loader takes (its vpi: 1 at
+    wide rows up to 8 at 4-channel rows, odd steps carrying x % fx across
+    packed voxels), at sizes no 256-voxel box divides."""
+    fy, fx = factors
+    sizes = (30,) if groups is None else groups
+    n, z, y, xd = 2, 3, 5 * fy, 7 * fx
+    rng = np.random.default_rng(5)
+    parts = [rng.standard_normal((n, z, y, xd, g)).astype(np.float32) for g in sizes]
+    xp = torch.from_numpy(np.concatenate(
+        [np.asarray(space_to_depth_yx(jnp.asarray(v), factors)) for v in parts], -1))
+    want = torch.from_numpy(np.concatenate(parts, -1))
+    assert torch.equal(sc.unpack(xp, factors, groups), want)
+    for step in (1, 2, 3, 4, 5, 8):
+        off = sc.packed_source_offsets((n, z, y, xd, sum(sizes)), factors, groups, step)
+        assert torch.equal(xp.reshape(-1)[off], want), step
+
+
+@pytest.mark.parametrize("groups,width", [(30, 2), (60, 4), ((20, 12), 4), ((6, 7), 1),
+                                          (32, 8), (120, 8)])
+def test_packed_copy_width(groups, width):
+    """The packed conv's copies: the widest of 8, 4, 2 and 1 elements that
+    divides every group, 4-byte copies at 30 channels and 8-byte at 60 as
+    kernel A's, element loads at odd groups."""
+    assert sc.packed_copy_width(groups) == width
+
+
+@pytest.mark.parametrize("tile,plan", [
+    ((8, 16, 16), {"form": "vector", "blocks": 432, "runs": 128, "run_bytes": 4096}),
+    ((8, 32, 48), {"form": "vector", "blocks": 72, "runs": 256, "run_bytes": 12288}),
+    ((96, 96, 96), {"form": "vector", "blocks": 1, "runs": 1, "run_bytes": 226492416}),
+])
+def test_zeros_plan_at_the_probe_tiles(tile, plan):
+    """The zero fill's plan at the grid probe's three tiles of a 96^3 x 128
+    bf16 volume (a voxel 256 bytes), counted by hand; every call runs the
+    vector stores:
+    - (8, 16, 16): 12 * 6 * 6 = 432 blocks; the tile spans 16 of X's 96, so
+      a run is one x-row of 16 * 256 = 4096 bytes, 8 * 16 = 128 a block;
+    - (8, 32, 48): 12 * 3 * 2 = 72 blocks; x-rows of 48 * 256 = 12288
+      bytes, 8 * 32 = 256 a block;
+    - (96, 96, 96): one block; the tile spans X and Y, so the whole tile is
+      one run of 96^3 * 256 = 226,492,416 bytes."""
+    assert gp.zeros_plan((96, 96, 96, 128), tile) == plan
+    assert tile in gp.ZERO_TILES
+
+
+def test_zeros_plan_merges_runs_where_the_tile_spans_x():
+    """Where the tile spans X a run is a plane of the tile's rows, where it
+    spans Y as well the whole tile; a tile that does not divide the volume
+    is refused."""
+    assert gp.zeros_plan((8, 12, 16, 24), (2, 4, 16))["runs"] == 2
+    assert gp.zeros_plan((8, 12, 16, 24), (2, 4, 16))["run_bytes"] == 4 * 16 * 48
+    assert gp.zeros_plan((8, 12, 16, 24), (2, 12, 16)) == {
+        "form": "vector", "blocks": 4, "runs": 1, "run_bytes": 2 * 12 * 16 * 48}
+    with pytest.raises(ValueError):
+        gp.zeros_plan((8, 12, 16, 24), (3, 12, 16))
+
+
 def _pallas_centern_body(xpad: np.ndarray, w: np.ndarray, ndots: int, block) -> np.ndarray:
     """scripts/conv_cost_isolate.py:80-87 (= grid_overhead_probe.py:103-109)
     transcribed to numpy, grid step by grid step: the center view of the
